@@ -61,12 +61,13 @@ KERNELS = {
     "flash_fwd": ("deepspeed_tpu_torch/csrc/flash_fwd.cu",
                   "deepspeed_tpu/ops/pallas/flash_attention.py:233"),
 }
-# kernel vs plain version on the card: the KV write is a copy (bit-exact);
-# decode keeps f32 probabilities, so only the bf16 rounding of the output
-# (2^-9 relative) differs; flash also feeds bf16 probabilities to the
-# tensor cores (another 2^-9 relative per term)
-KERNEL_TOL = {"paged_kv_write": (0.0, 0.0), "paged_decode_fused": (2e-2, 2e-2),
-              "paged_decode_attention": (2e-2, 2e-2), "flash_fwd": (2e-2, 2e-2)}
+# kernel vs plain version on the card, (atol, rtol): the KV write is a copy
+# (bit-exact); decode keeps f32 probabilities, so only the bf16 rounding of
+# the output differs, at most one bf16 ulp (2^-7 of the value: rtol 8e-3,
+# atol 1e-3 near zero); flash also feeds bf16 probabilities to the tensor
+# cores (another 2^-9 relative per term)
+KERNEL_TOL = {"paged_kv_write": (0.0, 0.0), "paged_decode_fused": (1e-3, 8e-3),
+              "paged_decode_attention": (1e-3, 8e-3), "flash_fwd": (2e-2, 2e-2)}
 # engine logits: the kernel path and the plain path both run in bf16 and
 # round at different places in each of 24 layers, so they are not compared
 # with each other by a fixed tolerance; each is compared with the plain path
@@ -108,8 +109,8 @@ def _time_ms(fn, iters, warmup=3):
 def _device_ms(fn, iters, warmup=3):
     """Device time per call: the summed duration of every kernel and copy
     the call ran on the card (torch.profiler over `iters` calls), with the
-    host's launch overhead left out. None when the profiler saw no device
-    activity (then only the CUDA-event time stands)."""
+    host's launch overhead left out. Raises when the profiler saw no
+    device activity."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -123,7 +124,9 @@ def _device_ms(fn, iters, warmup=3):
         torch.cuda.synchronize()
     us = sum(e.time_range.elapsed_us() for e in prof.events()
              if e.device_type == DeviceType.CUDA)
-    return us / 1e3 / iters if us > 0 else None
+    if us <= 0:
+        raise RuntimeError("torch.profiler recorded no device time (CUPTI tracing is off)")
+    return us / 1e3 / iters
 
 
 def _where_time_goes(fn, top=8):
@@ -195,14 +198,10 @@ def _timings(kernel, plain, library, iters):
     spends); call_ms etc.: CUDA-event time per call made back to back from
     Python, which the host's launch overhead sets when it exceeds the
     device time."""
-    out = {"ms": _device_ms(kernel, iters), "plain_ms": _device_ms(plain, iters),
-           "library_ms": None if library is None else _device_ms(library, iters),
-           "call_ms": {"kernel": _time_ms(kernel, iters), "plain": _time_ms(plain, iters),
-                       "library": None if library is None else _time_ms(library, iters)}}
-    if out["ms"] is None:  # no device trace: fall back to the event timing
-        out["ms"], out["plain_ms"] = out["call_ms"]["kernel"], out["call_ms"]["plain"]
-        out["library_ms"] = out["call_ms"]["library"]
-    return out
+    return {"ms": _device_ms(kernel, iters), "plain_ms": _device_ms(plain, iters),
+            "library_ms": None if library is None else _device_ms(library, iters),
+            "call_ms": {"kernel": _time_ms(kernel, iters), "plain": _time_ms(plain, iters),
+                        "library": None if library is None else _time_ms(library, iters)}}
 
 
 # ---------------------------------------------------------------------------

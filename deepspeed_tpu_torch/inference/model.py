@@ -56,6 +56,7 @@ def check_served(cfg: T.TransformerConfig) -> None:
         "an embedding LayerNorm": cfg.embedding_layernorm,
         "an lm_head bias": cfg.lm_head_bias,
         "pipeline-partitioned layers": cfg.pipeline_stages > 1,
+        "use_flash=False (dense prefill attention)": not cfg.use_flash,
     }
     bad = [name for name, hit in unsupported.items() if hit]
     if bad:
@@ -319,7 +320,6 @@ def prefill_batch(params, cache: PagedCache, tokens, n_real, tables,
     flat_idx = torch.where(positions[None, :] < n_real[:, None], slots,
                            torch.full_like(slots, -1)).reshape(B * Tp).to(torch.int32)
 
-    use_flash = use_kernel and cfg.use_flash
     rope = _rope_tables(positions, cfg)
     for li, lp in enumerate(params["layers"]):
         h1 = T._norm(x, lp["ln1_scale"], None, cfg)
@@ -328,7 +328,7 @@ def prefill_batch(params, cache: PagedCache, tokens, n_real, tables,
         k = _rope_at(k, rope, cfg)
         _write_kv(cache.k[li], cache.v[li], k.reshape(B * Tp, KV, D),
                   v.reshape(B * Tp, KV, D), flat_idx, use_kernel)
-        att = causal_attention(q, k, v, use_flash=use_flash)
+        att = causal_attention(q, k, v, use_flash=use_kernel)
         x = x + torch.einsum("bshd,hde->bse", att, lp["wo"])
         h2 = T._norm(x, lp["ln2_scale"], None, cfg)
         x = x + _mlp(h2.reshape(B * Tp, -1), lp, cfg).reshape(x.shape)

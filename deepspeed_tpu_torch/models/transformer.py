@@ -79,7 +79,9 @@ class TransformerConfig:
     # save_attn_qkv | save_attn_mlp | save_attn_dots (save_attn* keep the
     # flash residuals so the backward skips the attention re-forward)
     remat: str = "none"
-    use_flash: bool = True  # flash kernel on the GPU, its plain version on the CPU
+    # serving requires True: every prefill runs the flash kernel on the GPU
+    # (its plain version on the CPU); False raises in inference.model
+    use_flash: bool = True
     # flash tiling (1024x1024 fastest at S=2048/D=128; 512x1024 at S=16k)
     flash_block_q: int = 512
     flash_block_k: int = 1024

@@ -36,11 +36,14 @@ _DECODE_MAX_GROUP = 8
 
 def paged_kv_write_plain(cache_k, cache_v, k_new, v_new, flat_slots):
     """Scatter [T, KV, D] rows into [NBLK, bs, KV, D] caches at flat slots
-    [T], in place; slots < 0 or past the arena are dropped (the JAX
-    package's _write_kv_xla contract, inference/model.py)."""
+    [T], in place. Slots < 0 are dropped; a slot past the arena has its
+    block id clamped to the last block, as the kernel and the TPU kernel
+    (_arena_block) do. The JAX package's _write_kv_xla drops such a slot
+    instead; the two agree on every slot inside the arena."""
     NBLK, bs, KV, D = cache_k.shape
-    keep = (flat_slots >= 0) & (flat_slots < NBLK * bs)
-    idx = flat_slots[keep].long()
+    keep = flat_slots >= 0
+    slot = flat_slots[keep].long()
+    idx = (slot // bs).clamp(max=NBLK - 1) * bs + slot % bs
     cache_k.view(NBLK * bs, KV, D)[idx] = k_new[keep].to(cache_k.dtype)
     cache_v.view(NBLK * bs, KV, D)[idx] = v_new[keep].to(cache_v.dtype)
     return cache_k, cache_v
@@ -50,7 +53,8 @@ def paged_kv_write(cache_k, cache_v, k_new, v_new, flat_slots):
     """Write new KV rows into the paged arenas in place (kernel:
     csrc/paged_kv_write.cu). cache_k/cache_v [NBLK, bs, KV, D] bf16,
     k_new/v_new [T, KV, D] bf16, flat_slots [T] int32 (-1 = dropped row).
-    The kernel clamps block ids into the arena. Returns (cache_k, cache_v)."""
+    A slot past the arena lands in the last block, as in the plain version.
+    Returns (cache_k, cache_v)."""
     if not cache_k.is_cuda:
         return paged_kv_write_plain(cache_k, cache_v, k_new, v_new, flat_slots)
     what = "paged_kv_write"

@@ -49,19 +49,24 @@ def _bf16_cuda(a, dev):
 
 @pytest.mark.cuda
 class TestKernelsOnCard:
-    """Kernel vs plain version on the same bf16 inputs. Tolerance 2e-2
-    (abs and rel): bf16 output rounding (2^-9 relative) and, in flash,
-    bf16 probabilities feeding the tensor cores."""
+    """Kernel vs plain version on the same bf16 inputs. Decode keeps f32
+    probabilities, so the two differ by the bf16 rounding of the output:
+    one bf16 ulp is at most 2^-7 of the value (rtol 8e-3), atol 1e-3 for
+    values near zero. Flash also feeds bf16 probabilities to the tensor
+    cores, a further 2^-9 relative per term: 2e-2 abs and rel."""
 
-    TOL = dict(rtol=2e-2, atol=2e-2)
+    DECODE_TOL = dict(rtol=8e-3, atol=1e-3)
+    FLASH_TOL = dict(rtol=2e-2, atol=2e-2)
 
     def test_kv_write_bit_exact(self, rng, cuda_device):
         kc, vc = _arena(rng, 12, 16, 8, 128)
         T = 40
         kn = rng.standard_normal((T, 8, 128))
         vn = rng.standard_normal((T, 8, 128))
-        slots = rng.permutation(12 * 16)[:T].astype(np.int32)
+        slots = rng.permutation(11 * 16)[:T].astype(np.int32)  # blocks 0..10
         slots[::7] = -1
+        slots[3] = 12 * 16 + 5  # past the arena: clamped into block 11
+        slots[4] = 40 * 16 + 9
         ka, va = _bf16_cuda(kc, cuda_device), _bf16_cuda(vc, cuda_device)
         kb, vb = ka.clone(), va.clone()
         s = torch.from_numpy(slots).to(cuda_device)
@@ -79,7 +84,7 @@ class TestKernelsOnCard:
                 torch.from_numpy(tbl).to(d), torch.from_numpy(ctx).to(d))
         out = PP.paged_decode_attention(*args)
         ref = PP.paged_decode_attention_plain(*args)
-        torch.testing.assert_close(out.float(), ref.float(), **self.TOL)
+        torch.testing.assert_close(out.float(), ref.float(), **self.DECODE_TOL)
 
     @pytest.mark.parametrize("H,D", [(2, 128), (4, 128), (4, 64)])
     def test_decode_fused_mode(self, rng, cuda_device, H, D):
@@ -97,7 +102,7 @@ class TestKernelsOnCard:
                 _bf16_cuda(kn, d), _bf16_cuda(vn, d), torch.from_numpy(slots).to(d))
         out, _, _ = PP.paged_decode_fused(_bf16_cuda(q, d), ka, va, *rest)
         ref, _, _ = PP.paged_decode_fused_plain(_bf16_cuda(q, d), kb, vb, *rest)
-        torch.testing.assert_close(out.float(), ref.float(), **self.TOL)
+        torch.testing.assert_close(out.float(), ref.float(), **self.DECODE_TOL)
         assert torch.equal(ka, kb) and torch.equal(va, vb)
 
     @pytest.mark.parametrize("S,KV,D", [(128, 2, 128), (200, 1, 128), (77, 1, 64)])
@@ -108,7 +113,7 @@ class TestKernelsOnCard:
         v = _bf16_cuda(rng.standard_normal((2, S, KV, D)), d)
         o, lse = PF.flash_attention(q, k, v)
         ro, rlse = PF.flash_attention_plain(q, k, v)
-        torch.testing.assert_close(o.float(), ro.float(), **self.TOL)
+        torch.testing.assert_close(o.float(), ro.float(), **self.FLASH_TOL)
         torch.testing.assert_close(lse, rlse, rtol=1e-3, atol=1e-3)
 
     def test_wrappers_reject_bad_inputs(self, cuda_device):

@@ -87,6 +87,26 @@ class TestKvWrite:
         np.testing.assert_array_equal(_np(pk), np.asarray(jk))
         np.testing.assert_array_equal(_np(pv), np.asarray(jv))
 
+    def test_slot_past_the_arena_clamps_like_the_interpret_kernel(self, rng):
+        """A slot past the arena lands in the last block at slot % bs, as
+        the TPU kernel's _arena_block clamp puts it (bit-exact)."""
+        kc, vc = _arena(rng)  # 12 blocks of 16
+        T = 8
+        kn = rng.standard_normal((T, 2, 128)).astype(np.float32)
+        vn = rng.standard_normal((T, 2, 128)).astype(np.float32)
+        slots = rng.permutation(11 * 16)[:T].astype(np.int32)  # blocks 0..10
+        slots[2] = 12 * 16 + 5  # one block past: block 11, offset 5
+        slots[5] = 40 * 16 + 9  # far past: block 11, offset 9
+        slots[6] = -1
+        jk, jv = JP.paged_kv_write(*(jnp.asarray(a) for a in (kc, vc, kn, vn)),
+                                   jnp.asarray(slots))
+        pk, pv = _t(kc), _t(vc)
+        PP.paged_kv_write_plain(pk, pv, _t(kn), _t(vn), torch.from_numpy(slots))
+        np.testing.assert_array_equal(_np(pk), np.asarray(jk))
+        np.testing.assert_array_equal(_np(pv), np.asarray(jv))
+        np.testing.assert_array_equal(_np(pk)[11, 5], kn[2])
+        np.testing.assert_array_equal(_np(pv)[11, 9], vn[5])
+
 
 class TestDecode:
     def test_plain_matches_xla_oracle(self, rng):

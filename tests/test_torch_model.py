@@ -60,7 +60,7 @@ class TestConfigAndInit:
 
     @pytest.mark.parametrize("over", [
         {"n_experts": 2}, {"sliding_window": 8}, {"alibi": True},
-        {"variant": "gpt2"}, {"attention_impl": "sparse"},
+        {"variant": "gpt2"}, {"attention_impl": "sparse"}, {"use_flash": False},
     ])
     def test_unserved_configs_raise(self, over):
         with pytest.raises(NotImplementedError):

@@ -1,34 +1,48 @@
 #!/usr/bin/env python3
 """Quickest proof that the PyTorch/CUDA port (deepspeed_tpu_torch) starts
-on one NVIDIA GPU and serves through its hand-written kernels.
+on one NVIDIA GPU, trains and serves through its hand-written kernels.
 
     python3 chip_smoke.py          # from the root of a checkout, one GPU
 
 Phases (any failure raises and exits nonzero):
 
-1. build   - compile every kernel of the serving path from
-             deepspeed_tpu_torch/csrc/*.cu with nvcc for sm_90a, one nvcc per
-             source, all in parallel (ops/cuda/build.py; into build/kernels/).
-2. kernels - call each kernel's wrapper on CUDA tensors at the shapes the
-             serving path gives it and hold the result against its plain
-             PyTorch version on the same inputs; time kernel, plain version
-             and (where one exists) a single PyTorch library call computing
-             the same function: device time from torch.profiler, and the
-             time of back-to-back calls from CUDA events.
-3. slice   - init_inference on the flagship Llama (24 layers, d_model 1024,
-             8 x 128 heads, vocab 32000, random weights from a seeded
-             torch.Generator) in bf16, then drive the serving path once with
-             every launch counter at 0: one prefill put of 8 x 96-token
-             prompts plus one 512-token prompt, a single-token decode put, a
-             2-token continuation put, and greedy decode_multi_fn(8, 24).
-             Every kernel must have launched. Checks: finite logits and
-             tokens in range; prefill and decode logits of the kernel path
-             no further from the f32 plain path than the bf16 plain path
-             is. Then times TTFT of a 512-token prompt and batch-8 decode
-             throughput, and profiles where the time goes in each.
-4. report  - one JSON line with every kernel's launches, error and times
-             beside its bound; the card's name and power limit; and last,
-             {"ok": true, "device": {...}}.
+1. build   - compile every kernel from deepspeed_tpu_torch/csrc/*.cu with
+             nvcc for sm_90a, one nvcc per source, all in parallel
+             (ops/cuda/build.py; into build/kernels/).
+2. kernels - call each kernel's wrapper on CUDA tensors at the shapes its
+             path gives it (the flash kernels at the training shape B=8,
+             S=2048, the serving kernels at the serving shapes) and hold the
+             result against its plain PyTorch version on the same inputs
+             (for the flash backward, two faults planted in the kernels'
+             output must fail that check);
+             time kernel, plain version and (where one exists) a single
+             PyTorch library call computing the same function: device time
+             from torch.profiler, and the time of back-to-back calls from
+             CUDA events.
+3. train   - initialize() the flagship Llama (24 layers, d_model 1024, 8 x
+             128 heads, vocab 32000, remat save_attn_qkv, random weights
+             from a seeded torch.Generator) in bf16 with an fp32 master,
+             AdamW, clipping 1.0 and loss_chunks 16, and train on a fixed
+             [8, 2049] batch: one step with every launch counter at 0 (each
+             flash kernel must launch once per layer), then more steps over
+             which the loss must fall. Checks: finite loss and grad norm;
+             per-token loss and gradients of the kernel path no further
+             from the f32 plain path than the bf16 plain path is (B=1,
+             S=2048). Then times steps with CUDA events (tokens/s, MFU),
+             profiles where one step's time goes, and reads peak memory.
+4. serve   - init_inference on the same model shape in bf16, then drive the
+             serving path once with every launch counter at 0: one prefill
+             put of 8 x 96-token prompts plus one 512-token prompt, a
+             single-token decode put, a 2-token continuation put, and greedy
+             decode_multi_fn(8, 24). Every serving kernel must have
+             launched. Checks: finite logits and tokens in range; prefill
+             and decode logits of the kernel path no further from the f32
+             plain path than the bf16 plain path is. Then times TTFT of a
+             512-token prompt and batch-8 decode throughput, and profiles
+             where the time goes in each.
+5. report  - one JSON line with every kernel's launches (per path and in
+             all), error and times beside its bound; the card's name and
+             power limit; and last, {"ok": true, "device": {...}}.
 
 Exits nonzero without a result when no CUDA device is present or when the
 package is not beside this script.
@@ -50,6 +64,17 @@ SERVE = dict(max_seq_len=1024, kv_block_size=128, num_kv_blocks=64,
 N_PROMPTS, PROMPT_LEN, LONG_LEN, DECODE_STEPS = 8, 96, 512, 24
 PROMPT_BUCKET = 128  # the prefill bucket of a 96-token prompt at min_prefill_bucket 64
 
+# the training path: bench.py's flagship train step on one GPU
+TRAIN_MODEL = dict(FLAGSHIP, remat="save_attn_qkv", use_flash=True, flash_block_q=1024,
+                   flash_block_k=1024)
+TRAIN_CONFIG = {"train_micro_batch_size_per_gpu": 8, "gradient_accumulation_steps": 1,
+                "optimizer": {"type": "adamw", "params": {"lr": 1e-4, "weight_decay": 0.1}},
+                "zero_optimization": {"stage": 1}, "bf16": {"enabled": True},
+                "gradient_clipping": 1.0, "steps_per_print": 10**9}
+TRAIN_B, TRAIN_S, LOSS_CHUNKS = 8, 2048, 16
+TRAIN_STEPS, TIMED_STEPS = 8, 5  # loss must fall over TRAIN_STEPS; then time TIMED_STEPS
+H100_BF16_FLOPS = 989e12
+
 # kernel -> (source, TPU kernel it replaces: the pl.pallas_call site)
 KERNELS = {
     "paged_kv_write": ("deepspeed_tpu_torch/csrc/paged_kv_write.cu",
@@ -60,7 +85,13 @@ KERNELS = {
                                "deepspeed_tpu/ops/pallas/paged_attention.py:443"),
     "flash_fwd": ("deepspeed_tpu_torch/csrc/flash_fwd.cu",
                   "deepspeed_tpu/ops/pallas/flash_attention.py:233"),
+    "flash_bwd_dq": ("deepspeed_tpu_torch/csrc/flash_bwd.cu",
+                     "deepspeed_tpu/ops/pallas/flash_attention.py:438"),
+    "flash_bwd_dkv": ("deepspeed_tpu_torch/csrc/flash_bwd.cu",
+                      "deepspeed_tpu/ops/pallas/flash_attention.py:467"),
 }
+TRAIN_KERNELS = ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv")
+SERVE_KERNELS = ("paged_kv_write", "paged_decode_fused", "paged_decode_attention", "flash_fwd")
 # kernel vs plain version on the card, (atol, rtol): the KV write is a copy
 # (bit-exact); decode keeps f32 probabilities, so only the bf16 rounding of
 # the output differs, at most one bf16 ulp (2^-7 of the value: rtol 8e-3,
@@ -68,6 +99,10 @@ KERNELS = {
 # cores (another 2^-9 relative per term)
 KERNEL_TOL = {"paged_kv_write": (0.0, 0.0), "paged_decode_fused": (1e-3, 8e-3),
               "paged_decode_attention": (1e-3, 8e-3), "flash_fwd": (2e-2, 2e-2)}
+# the backward kernels: against the plain backward on the same bf16 inputs
+# (which rounds P and dS to bf16 where they do), under FA.bwd_mismatch's
+# tolerance (one bf16 ulp of the value + 2^-5 of the row's RMS); two faults
+# planted in their output must fail it (_planted_faults)
 # engine logits: the kernel path and the plain path both run in bf16 and
 # round at different places in each of 24 layers, so they are not compared
 # with each other by a fixed tolerance; each is compared with the plain path
@@ -184,8 +219,10 @@ def _path_errors(name, kernel, plain, ref32):
     stats = {"kernel_vs_plain_max": (kernel - plain).abs().max().item(),
              "kernel_vs_f32_max": ek.max().item(), "plain_vs_f32_max": ep.max().item(),
              "kernel_vs_f32_rms": rms(ek), "plain_vs_f32_rms": rms(ep),
-             "f32_rms": rms(ref32),
-             "argmax_agree_kernel_f32": (kernel.argmax(-1) == ref32.argmax(-1)).float().mean().item()}
+             "f32_rms": rms(ref32)}
+    if kernel.dim() > 1:
+        stats["argmax_agree_kernel_f32"] = (kernel.argmax(-1)
+                                            == ref32.argmax(-1)).float().mean().item()
     if (stats["kernel_vs_f32_rms"] > PATH_RMS_FACTOR * stats["plain_vs_f32_rms"] + 1e-4
             or stats["kernel_vs_f32_max"] > PATH_MAX_FACTOR * stats["plain_vs_f32_max"] + 1e-3):
         raise AssertionError(f"{name}: kernel path is further from the f32 reference "
@@ -205,13 +242,122 @@ def _timings(kernel, plain, library, iters):
 
 
 # ---------------------------------------------------------------------------
-# phase 2: each kernel against its plain version at the serving shapes
+# phase 2: each kernel against its plain version at its path's shapes
 # ---------------------------------------------------------------------------
 
-def check_kernels(cfg, dev):
-    import numpy as np
+def _flash_fwd_check(FA, randn, B, S, H, KV, D, bound_ms):
+    import torch.nn.functional as F
+
+    q, k, v = randn(B, S, H, D), randn(B, S, KV, D), randn(B, S, KV, D)
+    o, lse = FA.flash_fwd(q, k, v)
+    ro, rlse = FA.flash_attention_plain(q, k, v)
+    atol, rtol = KERNEL_TOL["flash_fwd"]
+    err = _check_close("flash_fwd o", o, ro, atol, rtol)
+    _check_close("flash_fwd lse", lse, rlse, 1e-3, 1e-3)
+    qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
+    return dict(
+        max_abs_err=err,
+        **_timings(lambda: FA.flash_fwd(q, k, v), lambda: FA.flash_attention_plain(q, k, v),
+                   lambda: F.scaled_dot_product_attention(qt, kt, vt, is_causal=True,
+                                                          enable_gqa=KV != H), 10),
+        shape=f"B={B}, S={S}, H={H}, KV={KV}, D={D}, bf16, causal",
+        bound=bound_ms(B * S * (H * 2 + KV * 2) * D * 2 + B * H * S * 4,
+                       4.0 * B * H * D * S * (S + 1) / 2))
+
+
+def _planted_faults(FA, got, ref, q, k, v, do, lse, delta, tile=64):
+    """Proof that the backward tolerance catches a wrong kernel: two faults
+    planted in the kernels' own output, each of which must fail
+    FA.bwd_mismatch against the plain backward. "scale_1.02": every
+    gradient 2% too large. "skip_last_diag_tile": the causal block of the
+    last `tile` queries and keys left out (a dq block that stops one K/V
+    tile short, a dkv block that stops one q tile short), i.e. the
+    contribution of that block (the plain backward on it, with the full
+    rows' lse and delta) taken off. Returns {name: {fault: elements
+    beyond the tolerance}}."""
+    import torch
+
+    t = q.shape[1] - tile
+    last = lambda x: x[:, t:].contiguous()
+    part = FA._bwd_plain(last(q), last(k), last(v), lse[:, :, t:].contiguous(),
+                         delta[:, :, t:].contiguous(), last(do))
+    out = {}
+    for (name, g), p in zip(got.items(), part):
+        skipped = g.to(torch.float32, copy=True)
+        skipped[:, t:] -= p.float()
+        out[name] = {
+            "scale_1.02": FA.bwd_mismatch((g.float() * 1.02).to(torch.bfloat16),
+                                          ref[name])["n_over"],
+            "skip_last_diag_tile": FA.bwd_mismatch(skipped.to(torch.bfloat16),
+                                                   ref[name])["n_over"]}
+        if not all(out[name].values()):
+            raise AssertionError(f"flash_bwd {name}: the tolerance passes a planted fault: "
+                                 f"{out[name]}")
+    return out
+
+
+def _flash_train_checks(FA, randn, B, S, H, KV, D, bound_ms):
+    """Kernel #1 at the training shape, and kernels #2 (dq) and #3 (dk,
+    dv) against the plain backward on the forward kernel's o and lse.
+    library_ms of both backward kernels is the device time of the
+    backward of F.scaled_dot_product_attention, which computes dq, dk and
+    dv in one call; plain_ms is that of the dense plain backward, which
+    also computes all three."""
     import torch
     import torch.nn.functional as F
+
+    out = {"flash_fwd": _flash_fwd_check(FA, randn, B, S, H, KV, D, bound_ms)}
+    q, k, v, do = randn(B, S, H, D), randn(B, S, KV, D), randn(B, S, KV, D), randn(B, S, H, D)
+    o, lse = FA.flash_fwd(q, k, v)
+    delta = FA._delta(o, do)
+    dq = FA.flash_bwd_dq(q, k, v, do, lse, delta)
+    dk, dv = FA.flash_bwd_dkv(q, k, v, do, lse, delta)
+    got = {"dq": dq, "dk": dk, "dv": dv}
+    ref = dict(zip(got, FA.flash_attention_bwd_plain(q, k, v, o, lse, do)))
+    # for the record: the same math with nothing rounded to bf16
+    f32 = dict(zip(got, FA.flash_attention_bwd_plain(q.float(), k.float(), v.float(),
+                                                     o.float(), lse, do.float())))
+    planted = _planted_faults(FA, got, ref, q, k, v, do, lse, delta)
+    report = {}
+    for name in got:
+        stats = FA.bwd_mismatch(got[name], ref[name])
+        if stats["n_over"]:
+            raise AssertionError(f"flash_bwd {name}: kernel beyond the tolerance of the "
+                                 f"plain backward: {stats}")
+        report[name] = {"vs_plain": stats,
+                        "vs_plain_f32": FA.bwd_mismatch(got[name], f32[name]),
+                        "planted_faults_n_over": planted[name]}
+    del ref, f32
+    print(json.dumps({"flash_bwd_tolerance": {
+        "rtol": FA.BWD_RTOL, "row_rms_atol": FA.BWD_ROW_ATOL, "floor": FA.BWD_FLOOR,
+        **report}}))
+    errs = {name: r["vs_plain"]["max_abs_err"] for name, r in report.items()}
+    qt, kt, vt = (x.detach().transpose(1, 2).requires_grad_() for x in (q, k, v))
+    ot = F.scaled_dot_product_attention(qt, kt, vt, is_causal=True, enable_gqa=KV != H)
+    dot = do.transpose(1, 2)
+    sdpa_bwd = lambda: torch.autograd.grad(ot, (qt, kt, vt), dot, retain_graph=True)
+    pairs = B * H * S * (S + 1) / 2  # causal (query, key) pairs
+    io_in = B * S * (2 * H + 2 * KV) * D * 2 + 2 * B * H * S * 4  # q, k, v, dO, lse, delta
+    shape = f"B={B}, S={S}, H={H}, KV={KV}, D={D}, bf16, causal"
+    out["flash_bwd_dq"] = dict(
+        max_abs_err=errs["dq"],
+        **_timings(lambda: FA.flash_bwd_dq(q, k, v, do, lse, delta),
+                   lambda: FA._bwd_plain(q, k, v, lse, delta, do)[0], sdpa_bwd, 5),
+        shape=shape, bound=bound_ms(io_in + B * S * H * D * 2, 3 * 2.0 * pairs * D))
+    out["flash_bwd_dkv"] = dict(
+        max_abs_err=max(errs["dk"], errs["dv"]),
+        **_timings(lambda: FA.flash_bwd_dkv(q, k, v, do, lse, delta),
+                   lambda: FA._bwd_plain(q, k, v, lse, delta, do)[1:], sdpa_bwd, 5),
+        shape=shape, bound=bound_ms(io_in + 2 * B * S * KV * D * 2, 4 * 2.0 * pairs * D))
+    both = out["flash_bwd_dq"]["ms"] + out["flash_bwd_dkv"]["ms"]
+    print(json.dumps({"flash_backward_vs_sdpa": {
+        "dq_plus_dkv_ms": both, "sdpa_backward_ms": out["flash_bwd_dq"]["library_ms"],
+        "ratio": both / out["flash_bwd_dq"]["library_ms"], "shape": shape}}))
+    return out
+
+
+def check_kernels(cfg, dev):
+    import torch
 
     from deepspeed_tpu_torch.ops.cuda import flash_attention as FA
     from deepspeed_tpu_torch.ops.cuda import paged_attention as PA
@@ -294,23 +440,10 @@ def check_kernels(cfg, dev):
                   f"bs={bs}, arena {nblk} blocks, bf16",
             bound=bound_ms(n_bytes, ops))
 
-    # -- flash forward: the 512-token prefill wave (B=1)
-    B, Sq = 1, LONG_LEN
-    q, k, v = randn(B, Sq, H, D), randn(B, Sq, KV, D), randn(B, Sq, KV, D)
-    o, lse = FA.flash_attention(q, k, v)
-    ro, rlse = FA.flash_attention_plain(q, k, v)
-    atol, rtol = KERNEL_TOL["flash_fwd"]
-    err = _check_close("flash_fwd o", o, ro, atol, rtol)
-    _check_close("flash_fwd lse", lse, rlse, 1e-3, 1e-3)
-    qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
-    results["flash_fwd"] = dict(
-        max_abs_err=err,
-        **_timings(lambda: FA.flash_attention(q, k, v),
-                   lambda: FA.flash_attention_plain(q, k, v),
-                   lambda: F.scaled_dot_product_attention(qt, kt, vt, is_causal=True), 20),
-        shape=f"B={B}, S={Sq}, H={H}, KV={KV}, D={D}, bf16",
-        bound=bound_ms(B * Sq * (H * 2 + KV * 2) * D * 2 + B * H * Sq * 4,
-                       4.0 * B * H * D * Sq * (Sq + 1) / 2))
+    # -- flash forward: the 512-token prefill wave of the serving path (B=1)
+    #    and the training shape; the kernels line carries the training one
+    results["flash_fwd@serve"] = _flash_fwd_check(FA, randn, 1, LONG_LEN, H, KV, D, bound_ms)
+    results.update(_flash_train_checks(FA, randn, TRAIN_B, TRAIN_S, H, KV, D, bound_ms))
     for name, r in results.items():
         print(json.dumps({"kernel_check": name, "max_err": r["max_abs_err"],
                           "kernel_ms": r["ms"], "plain_ms": r["plain_ms"],
@@ -321,7 +454,119 @@ def check_kernels(cfg, dev):
 
 
 # ---------------------------------------------------------------------------
-# phase 3: the serving slice at full flagship width
+# phase 3: the training path at full flagship width and depth
+# ---------------------------------------------------------------------------
+
+def _grads_three_paths(T, eng, cfg, tokens):
+    """Per-token loss [S] and the flattened gradient of the mean loss on
+    one sequence, by three paths from the engine's weights: the kernel
+    path in bf16 (what training runs), the plain path in bf16 and the
+    plain path in f32 (the reference for both)."""
+    import torch
+    import torch.nn.functional as F
+
+    from deepspeed_tpu_torch.utils.tree import leaves, tree_map
+
+    tokens = torch.as_tensor(tokens, device=eng.device).long()
+    inputs, targets = tokens[:, :-1], tokens[:, 1:]
+    out = []
+    for use_kernel, dtype in ((True, torch.bfloat16), (False, torch.bfloat16),
+                              (False, torch.float32)):
+        live = tree_map(lambda m: m.detach().to(dtype, copy=True).requires_grad_(),
+                        eng.state.master)
+        logits = T.forward(live, inputs, cfg, use_kernel=use_kernel).float()
+        nll = F.cross_entropy(logits.flatten(0, 1), targets.flatten(), reduction="none")
+        grads = torch.autograd.grad(nll.mean(), leaves(live))
+        out.append((nll.detach(), torch.cat([g.float().flatten() for g in grads])))
+        del live, logits, grads
+    return out
+
+
+def run_train(mcfg, dev):
+    import numpy as np
+    import torch
+
+    from deepspeed_tpu_torch import initialize
+    from deepspeed_tpu_torch.models import transformer as T
+    from deepspeed_tpu_torch.ops import cuda as K
+
+    torch.cuda.reset_peak_memory_stats(dev)
+    t0 = time.perf_counter()
+    eng = initialize(dict(TRAIN_CONFIG), loss_fn=T.make_loss_fn(mcfg, loss_chunks=LOSS_CHUNKS),
+                     param_init_fn=lambda g: T.init(mcfg, g, device=dev),
+                     param_logical_specs=T.logical_specs(mcfg))
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    batch = {"tokens": np.random.default_rng(0).integers(
+        0, mcfg.vocab_size, (TRAIN_B, TRAIN_S + 1)).astype(np.int32)}
+
+    # -- the main path, counted: one train step --------------------------------
+    K.reset_launch_counts()
+    t0 = time.perf_counter()
+    first = eng.train_batch(batch)
+    first_step_s = time.perf_counter() - t0
+    launches = K.launch_counts()
+    # ---------------------------------------------------------------------------
+
+    want = {n: (mcfg.n_layers if n in TRAIN_KERNELS else 0) for n in launches}
+    if launches != want:
+        raise AssertionError(f"a train step should launch each flash kernel once per layer "
+                             f"and nothing else: {launches}, expected {want}")
+    history = [first] + [eng.train_batch(batch) for _ in range(TRAIN_STEPS - 1)]
+    losses = [m["loss"] for m in history]
+    if not all(np.isfinite(losses + [m["grad_norm"] for m in history])):
+        raise AssertionError(f"non-finite loss or grad_norm: {history}")
+    if not losses[-1] < losses[0]:
+        raise AssertionError(f"the loss did not fall over {TRAIN_STEPS} steps on a fixed "
+                             f"batch: {losses}")
+
+    # -- timing: TIMED_STEPS async steps between two CUDA events ---------------
+    start = torch.cuda.Event(enable_timing=True)
+    stop = torch.cuda.Event(enable_timing=True)
+    torch.cuda.synchronize()
+    start.record()
+    for _ in range(TIMED_STEPS):
+        eng.train_batch_async(batch)
+    stop.record()
+    torch.cuda.synchronize()
+    step_ms = start.elapsed_time(stop) / TIMED_STEPS
+    tok_s = TRAIN_B * TRAIN_S / (step_ms / 1e3)
+    breakdown = _where_time_goes(lambda: eng.train_batch(batch), top=10)
+    peak_gib = torch.cuda.max_memory_allocated(dev) / 2**30
+
+    # -- kernel path vs plain paths on one sequence -----------------------------
+    r = np.random.default_rng(1)
+    one = r.integers(0, mcfg.vocab_size, (1, TRAIN_S + 1)).astype(np.int32)
+    (nk, gk), (npl, gp), (n32, g32) = _grads_three_paths(T, eng, mcfg, one)
+    loss_stats = _path_errors("per-token loss", nk, npl, n32)
+    # gradients in units of the f32 gradient's RMS, so the fixed slack of
+    # _path_errors is relative to the gradient's scale
+    unit = g32.square().mean().sqrt()
+    grad_stats = _path_errors("gradients", gk / unit, gp / unit, g32 / unit)
+    grad_stats["f32_grad_rms"] = unit.item()
+    loss_stats["mean_loss"] = {"kernel": nk.mean().item(), "plain_bf16": npl.mean().item(),
+                               "plain_f32": n32.mean().item()}
+    del gk, gp, g32, eng
+    torch.cuda.empty_cache()
+    return {
+        "init_s": init_s,
+        "first_step_s": first_step_s,
+        "launches": launches,
+        "losses": losses,
+        "grad_norms": [m["grad_norm"] for m in history],
+        "step_ms": step_ms,
+        "tokens_per_s": tok_s,
+        "mfu": tok_s * mcfg.flops_per_token(TRAIN_S) / H100_BF16_FLOPS,
+        "flops_per_token": mcfg.flops_per_token(TRAIN_S),
+        "peak_mem_gib": peak_gib,
+        "where_time_goes": breakdown,
+        "path_loss": loss_stats,
+        "path_grads": grad_stats,
+    }
+
+
+# ---------------------------------------------------------------------------
+# phase 4: the serving slice at full flagship width
 # ---------------------------------------------------------------------------
 
 def run_slice(cfg, dev):
@@ -362,7 +607,7 @@ def run_slice(cfg, dev):
     launches = K.launch_counts()
     # -----------------------------------------------------------------------
 
-    missing = [n for n, c in launches.items() if c == 0]
+    missing = [n for n in SERVE_KERNELS if launches[n] == 0]
     if missing:
         raise AssertionError(f"the serving path launched no {missing} kernel: {launches}")
     for name, x in (("prefill", prefill), ("decode", decode), ("chunk", chunk),
@@ -481,14 +726,18 @@ def main():
 
     kernels = check_kernels(cfg, dev)
     print(json.dumps({"phase": "kernels", "ok": True}))
+    tr = run_train(T.TransformerConfig(**TRAIN_MODEL), dev)
+    print(json.dumps({"phase": "train", **tr}))
     sl = run_slice(cfg, dev)
-    print(json.dumps({"phase": "slice", **sl}))
+    print(json.dumps({"phase": "serve", **sl}))
 
     line = []
     for name, (source, replaces) in KERNELS.items():
         k = kernels[name]
+        by_path = {"train": tr["launches"][name], "serve": sl["launches"][name]}
         line.append({"name": name, "route": "cuda", "source": source,
-                     "replaces": replaces, "launches": sl["launches"][name],
+                     "replaces": replaces, "launches": sum(by_path.values()),
+                     "launches_by_path": by_path, "shape": k["shape"],
                      "max_abs_err": k["max_abs_err"], "ms": k["ms"],
                      "plain_ms": k["plain_ms"], "bound_ms": k["bound"][0],
                      "bound_by": k["bound"][1], "library_ms": k["library_ms"]})

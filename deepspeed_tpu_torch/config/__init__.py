@@ -1,3 +1,3 @@
-from .config import PrefixCacheConfig
+from .config import DeepSpeedTPUConfig, PrefixCacheConfig, parse_config
 
-__all__ = ["PrefixCacheConfig"]
+__all__ = ["DeepSpeedTPUConfig", "PrefixCacheConfig", "parse_config"]

@@ -41,24 +41,7 @@ from ..ops.cuda.paged_attention import (
 
 def check_served(cfg: T.TransformerConfig) -> None:
     """Raise NotImplementedError for a model this slice does not serve."""
-    unsupported = {
-        "variant != 'llama'": cfg.variant != "llama",
-        "MoE (n_experts > 0)": cfg.n_experts > 0,
-        "sparse attention": cfg.attention_impl == "sparse",
-        "sliding windows": bool(cfg.sliding_window or cfg.attention_window_pattern),
-        "ALiBi": cfg.alibi,
-        "q/k/v, output or MLP biases": (cfg.has_qkv_bias or cfg.has_attn_out_bias
-                                        or cfg.has_mlp_bias),
-        "a non-gated MLP": not cfg.is_gated,
-        "LayerNorm": cfg.norm_kind != "rms",
-        "parallel residuals": cfg.parallel_residual,
-        "activation quantization": cfg.activation_quant_bits > 0,
-        "an embedding LayerNorm": cfg.embedding_layernorm,
-        "an lm_head bias": cfg.lm_head_bias,
-        "pipeline-partitioned layers": cfg.pipeline_stages > 1,
-        "use_flash=False (dense prefill attention)": not cfg.use_flash,
-    }
-    bad = [name for name, hit in unsupported.items() if hit]
+    bad = T.unported_features(cfg)
     if bad:
         raise NotImplementedError(
             "the first serving slice serves dense Llama-class models only; "
@@ -143,32 +126,6 @@ def init_cache(cfg: T.TransformerConfig, num_blocks: int, block_size: int,
         v=[torch.zeros(shape, dtype=dtype, device=device) for _ in range(L)])
 
 
-def _rope_tables(positions: torch.Tensor, cfg: T.TransformerConfig):
-    """cos and sin [T, 1, R/2] (f32) of the rotary angles at per-token
-    positions [T] (frequencies from T.rope_inv_freq, so scaling and
-    partial rotary match training). Computed once per forward and shared
-    by every layer: eagerly, each small op costs a kernel launch."""
-    freqs = T.rope_inv_freq(cfg, device=positions.device)
-    angles = positions.float()[:, None] * freqs[None, :]  # [T, R/2]
-    return angles.cos()[:, None, :], angles.sin()[:, None, :]
-
-
-def _rope_at(x: torch.Tensor, rope, cfg: T.TransformerConfig) -> torch.Tensor:
-    """Rotary embedding of x [..., T, H, D] with the (cos, sin) tables of
-    `_rope_tables`, computed in f32 and returned in x's dtype."""
-    c, s = rope
-    R = T.rope_dim(cfg)
-    xr, xp = x[..., :R], x[..., R:]
-    if cfg.rope_interleaved:
-        xf = xr.float().reshape(*xr.shape[:-1], R // 2, 2)
-        x1, x2 = xf[..., 0], xf[..., 1]
-        out = torch.stack([x1 * c - x2 * s, x2 * c + x1 * s], dim=-1).reshape(xr.shape)
-    else:
-        x1, x2 = xr.float().chunk(2, dim=-1)
-        out = torch.cat([x1 * c - x2 * s, x2 * c + x1 * s], dim=-1)
-    return torch.cat([out.to(x.dtype), xp], dim=-1)
-
-
 def _write_kv(cache_k, cache_v, k_new, v_new, flat_idx, use_kernel: bool):
     """Write [T, KV, D] rows into the arenas at flat slots [T], in place."""
     write = paged_kv_write if use_kernel else paged_kv_write_plain
@@ -238,7 +195,7 @@ def decode_step(params, cache: PagedCache, tokens, tables, ctx_lens,
     positions = (ctx_lens - 1).clamp(min=0)  # [S] this token's position
     x = _embed_rows(params["embed"], tokens)  # [S, E]
     fuse_write = unique_rows and use_kernel
-    rope = _rope_tables(positions, cfg)
+    rope = T._rope_tables(positions, cfg)
     # per-row flat slot; padding rows get -1 (dropped)
     blk = tables.gather(1, (positions // bs).clamp(max=NB - 1).long()[:, None])[:, 0]
     flat_idx = torch.where(valid, blk * bs + positions % bs,
@@ -247,8 +204,8 @@ def decode_step(params, cache: PagedCache, tokens, tables, ctx_lens,
     for li, lp in enumerate(params["layers"]):
         h1 = T._norm(x, lp["ln1_scale"], None, cfg)
         q, k, v = _qkv(h1, lp, cfg)
-        q = _rope_at(q, rope, cfg)
-        k = _rope_at(k, rope, cfg)
+        q = T._rope_at(q, rope, cfg)
+        k = T._rope_at(k, rope, cfg)
         ck, cv = cache.k[li], cache.v[li]
         if fuse_write:
             att = _decode_attention(q, ck, cv, tables, ctx_lens, use_kernel,
@@ -320,12 +277,12 @@ def prefill_batch(params, cache: PagedCache, tokens, n_real, tables,
     flat_idx = torch.where(positions[None, :] < n_real[:, None], slots,
                            torch.full_like(slots, -1)).reshape(B * Tp).to(torch.int32)
 
-    rope = _rope_tables(positions, cfg)
+    rope = T._rope_tables(positions, cfg)
     for li, lp in enumerate(params["layers"]):
         h1 = T._norm(x, lp["ln1_scale"], None, cfg)
         q, k, v = _qkv(h1, lp, cfg)
-        q = _rope_at(q, rope, cfg)
-        k = _rope_at(k, rope, cfg)
+        q = T._rope_at(q, rope, cfg)
+        k = T._rope_at(k, rope, cfg)
         _write_kv(cache.k[li], cache.v[li], k.reshape(B * Tp, KV, D),
                   v.reshape(B * Tp, KV, D), flat_idx, use_kernel)
         att = causal_attention(q, k, v, use_flash=use_kernel)

@@ -8,19 +8,23 @@ and shapes: parameters are a plain dict of tensors with the layers
 stacked on a leading [n_layers] dim (the training layout), so the JAX
 package's parameters convert leaf for leaf (utils/convert.py).
 
-The training forward and loss come with the training slice; this module
-holds what the serving slice needs (`_norm`, `_act_fn`, rotary
-frequencies, `init`, `param_count`).
+Besides what serving shares (`_norm`, `_act_fn`, rotary tables, `init`,
+`param_count`), this module holds the training forward and loss:
+`forward_hidden`, `forward` and `make_loss_fn`, with the reference's remat
+policies mapped onto `torch.utils.checkpoint`. Training covers the models
+serving covers (dense Llama-class), without dropout (`check_trained`).
 """
 
 import dataclasses
 import math
 from functools import partial
-from typing import Any, Dict, Optional, Tuple, Union
+from typing import Any, Dict, List, Optional, Tuple, Union
 
 import torch
 import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
+from ..ops.attention import causal_attention
 from ..platform.accelerator import resolve_device
 
 # valid TransformerConfig.remat values; __post_init__ validates so a
@@ -316,6 +320,14 @@ class TransformerConfig:
             return ((d + 127) // 128) * 128
         return 4 * self.d_model
 
+    def flops_per_token(self, seq_len: Optional[int] = None) -> float:
+        """Train-step matmul FLOPs per token for MFU accounting: 6*N (fwd
+        + bwd over all params) + the causal attention term 6*L*S*E (QK^T
+        and AV each ~S*E fwd flops per token under the causal mask;
+        backward doubles it)."""
+        S = seq_len or self.max_seq
+        return 6.0 * param_count(self) + 6.0 * self.n_layers * S * self.d_model
+
 
 def param_count(cfg: TransformerConfig) -> int:
     return sum(math.prod(s) for s in _param_shapes(cfg).values())
@@ -517,3 +529,266 @@ def rope_inv_freq(cfg: TransformerConfig,
         mid = (wavelen >= old / hi) & (wavelen <= old / lo)
         return torch.where(mid, smoothed, scaled)
     return inv
+
+
+def logical_specs(cfg: TransformerConfig) -> Dict[str, Any]:
+    """Logical axis names of every parameter leaf (the reference's sharding
+    metadata). One GPU shards nothing, so the port only carries them: the
+    engine accepts them for the reference's `initialize` signature."""
+    specs: Dict[str, Any] = {
+        "embed": ("vocab", "embed"),
+        "ln_f_scale": ("embed",),
+    }
+    if cfg.use_learned_pos:
+        specs["pos_embed"] = (None, "embed")
+    if cfg.embedding_layernorm:
+        specs["embed_ln_scale"] = ("embed",)
+        if cfg.norm_has_bias:
+            specs["embed_ln_bias"] = ("embed",)
+    if cfg.norm_has_bias:
+        specs["ln_f_bias"] = ("embed",)
+    if not cfg.tie_embeddings:
+        specs["lm_head"] = ("embed", "vocab")
+        if cfg.lm_head_bias:
+            specs["lm_head_b"] = ("vocab",)
+    if cfg.pipeline_stages > 1:
+        lead = (("pipe_virtual", "pipe_stage", "layers")
+                if cfg.pipeline_virtual_stages > 1
+                else ("pipe_stage", "layers"))
+    else:
+        lead = ("layers",)
+    specs["layers"] = {
+        name: lead + logical for name, (_, logical) in _layer_shapes(cfg).items()
+    }
+    return specs
+
+
+def unported_features(cfg: TransformerConfig) -> List[str]:
+    """What the config uses beyond the dense Llama-class model the port
+    runs so far (serving and training alike); empty when it is covered."""
+    unsupported = {
+        "variant != 'llama'": cfg.variant != "llama",
+        "MoE (n_experts > 0)": cfg.n_experts > 0,
+        "sparse attention": cfg.attention_impl == "sparse",
+        "sliding windows": bool(cfg.sliding_window or cfg.attention_window_pattern),
+        "ALiBi": cfg.alibi,
+        "q/k/v, output or MLP biases": (cfg.has_qkv_bias or cfg.has_attn_out_bias
+                                        or cfg.has_mlp_bias),
+        "a non-gated MLP": not cfg.is_gated,
+        "LayerNorm": cfg.norm_kind != "rms",
+        "parallel residuals": cfg.parallel_residual,
+        "activation quantization": cfg.activation_quant_bits > 0,
+        "an embedding LayerNorm": cfg.embedding_layernorm,
+        "an lm_head bias": cfg.lm_head_bias,
+        "pipeline-partitioned layers": cfg.pipeline_stages > 1,
+        "use_flash=False (dense attention)": not cfg.use_flash,
+    }
+    return [name for name, hit in unsupported.items() if hit]
+
+
+def check_trained(cfg: TransformerConfig) -> None:
+    """Raise NotImplementedError for a model the training slice does not
+    train: what serving does not cover, plus dropout, random-LTD layers
+    and the remat modes with no torch.utils.checkpoint mapping yet."""
+    bad = unported_features(cfg) + [name for name, hit in {
+        "dropout > 0": cfg.dropout > 0.0,
+        "random-LTD layers": cfg.random_ltd_layer_range is not None,
+        f"remat='{cfg.remat}'": cfg.remat not in ("none", "full", "save_attn_qkv"),
+    }.items() if hit]
+    if bad:
+        raise NotImplementedError(
+            "the training slice trains dense Llama-class models only (remat "
+            f"none|full|save_attn_qkv); this config uses {', '.join(bad)} "
+            "(later slices port them)")
+
+
+# ---------------------------------------------------------------------------
+# rotary embeddings (the reference's _rope)
+# ---------------------------------------------------------------------------
+
+def _rope_tables(positions: torch.Tensor, cfg: TransformerConfig):
+    """cos and sin [T, 1, R/2] (f32) of the rotary angles at per-token
+    positions [T] (frequencies from rope_inv_freq, so scaling and partial
+    rotary match). Computed once per forward and shared by every layer:
+    eagerly, each small op costs a kernel launch."""
+    freqs = rope_inv_freq(cfg, device=positions.device)
+    angles = positions.float()[:, None] * freqs[None, :]  # [T, R/2]
+    return angles.cos()[:, None, :], angles.sin()[:, None, :]
+
+
+def _rope_at(x: torch.Tensor, rope, cfg: TransformerConfig) -> torch.Tensor:
+    """Rotary embedding of x [..., T, H, D] with the (cos, sin) tables of
+    `_rope_tables`, computed in f32 and returned in x's dtype."""
+    c, s = rope
+    R = rope_dim(cfg)
+    xr, xp = x[..., :R], x[..., R:]
+    if cfg.rope_interleaved:
+        xf = xr.float().reshape(*xr.shape[:-1], R // 2, 2)
+        x1, x2 = xf[..., 0], xf[..., 1]
+        out = torch.stack([x1 * c - x2 * s, x2 * c + x1 * s], dim=-1).reshape(xr.shape)
+    else:
+        x1, x2 = xr.float().chunk(2, dim=-1)
+        out = torch.cat([x1 * c - x2 * s, x2 * c + x1 * s], dim=-1)
+    return torch.cat([out.to(x.dtype), xp], dim=-1)
+
+
+# ---------------------------------------------------------------------------
+# training forward
+# ---------------------------------------------------------------------------
+
+def _attention_qkv(h: torch.Tensor, lp, cfg: TransformerConfig, rope):
+    """Normed input h [B, S, E] -> rope-rotated q [B, S, H, D] and k, v
+    [B, S, KV, D]: the residuals remat='save_attn_qkv' keeps."""
+    B, S, E = h.shape
+    H, KV, D = cfg.n_heads, cfg.kv_heads, cfg.head_dim
+    q = (h @ lp["wq"].to(h.dtype).reshape(E, H * D)).view(B, S, H, D)
+    k = (h @ lp["wk"].to(h.dtype).reshape(E, KV * D)).view(B, S, KV, D)
+    v = (h @ lp["wv"].to(h.dtype).reshape(E, KV * D)).view(B, S, KV, D)
+    return _rope_at(q, rope, cfg), _rope_at(k, rope, cfg), v
+
+
+def _attention_out(att: torch.Tensor, lp) -> torch.Tensor:
+    """Attention output [B, S, H, D] -> its residual delta [B, S, E]."""
+    B, S, H, D = att.shape
+    wo = lp["wo"].to(att.dtype)
+    return att.reshape(B, S, H * D) @ wo.reshape(H * D, wo.shape[-1])
+
+
+def _mlp_delta(h: torch.Tensor, lp, cfg: TransformerConfig) -> torch.Tensor:
+    """Gated FFN branch over the NORMED input h; returns the residual
+    delta (the reference also returns MoE aux losses, always zero for the
+    dense models this slice trains)."""
+    act = _act_fn(cfg)
+    inner = act(h @ lp["w_gate"].to(h.dtype)) * (h @ lp["w_in"].to(h.dtype))
+    return inner @ lp["w_out"].to(h.dtype)
+
+
+def _make_layer_body(cfg: TransformerConfig, use_kernel: bool = True):
+    """One transformer layer, body(h0, lp, rope) -> h, with cfg.remat
+    mapped onto torch.utils.checkpoint (non-reentrant):
+
+    - "none": every activation autograd needs is kept;
+    - "full": the whole body is recomputed in the backward (the flash
+      forward included);
+    - "save_attn_qkv": two checkpointed regions around the attention, the
+      pre-attention part (norm1, q/k/v projections, rope) and the
+      post-attention part (out projection, residual, norm2, MLP,
+      residual). The flash Function sits between them, outside any
+      checkpoint, so its saved q, k, v, o and lse persist: the backward
+      runs no attention forward, only the projections and the MLP again.
+    """
+    def pre(h0, lp, rope):
+        return _attention_qkv(_norm(h0, lp["ln1_scale"], None, cfg), lp, cfg, rope)
+
+    def post(h0, att, lp):
+        hmid = h0 + _attention_out(att, lp)
+        return hmid + _mlp_delta(_norm(hmid, lp["ln2_scale"], None, cfg), lp, cfg)
+
+    def body(h0, lp, rope):
+        return post(h0, causal_attention(*pre(h0, lp, rope), use_flash=use_kernel), lp)
+
+    def ckpt(fn, *args):
+        return checkpoint(fn, *args, use_reentrant=False, preserve_rng_state=False)
+
+    if cfg.remat == "none":
+        return body
+    if cfg.remat == "full":
+        return lambda h0, lp, rope: ckpt(body, h0, lp, rope)
+
+    def body_save_qkv(h0, lp, rope):
+        att = causal_attention(*ckpt(pre, h0, lp, rope), use_flash=use_kernel)
+        return ckpt(post, h0, att, lp)
+
+    return body_save_qkv
+
+
+def forward_hidden(params: Dict[str, Any], tokens: torch.Tensor, cfg: TransformerConfig,
+                   rng: Optional[torch.Generator] = None,
+                   use_kernel: bool = True) -> torch.Tensor:
+    """tokens [B, S] -> final hidden states [B, S, E] (post ln_f), in the
+    dtype of params["embed"]. The reference's lax.scan over the stacked
+    layers is a Python loop over views of the [L, ...] leaves (one unbind
+    per leaf, so the backward stacks each leaf's gradient once). `rng` is
+    accepted for the reference's signature; nothing here draws from it
+    (dropout raises in check_trained)."""
+    check_trained(cfg)
+    x = F.embedding(tokens.long(), params["embed"])
+    rope = _rope_tables(torch.arange(tokens.shape[1], device=tokens.device), cfg)
+    body = _make_layer_body(cfg, use_kernel)
+    views = {name: w.unbind(0) for name, w in params["layers"].items()}
+    for li in range(cfg.n_layers):
+        x = body(x, {name: ws[li] for name, ws in views.items()}, rope)
+    return _norm(x, params["ln_f_scale"], None, cfg)
+
+
+def _lm_head(params: Dict[str, Any], cfg: TransformerConfig) -> torch.Tensor:
+    """[E, V] output projection (the tied embedding's transpose, a view)."""
+    return params["embed"].t() if cfg.tie_embeddings else params["lm_head"]
+
+
+def forward(params: Dict[str, Any], tokens: torch.Tensor, cfg: TransformerConfig,
+            rng: Optional[torch.Generator] = None, use_kernel: bool = True) -> torch.Tensor:
+    """tokens [B, S] -> logits [B, S, V] in the compute dtype."""
+    x = forward_hidden(params, tokens, cfg, rng, use_kernel)
+    return x @ _lm_head(params, cfg).to(x.dtype)
+
+
+def _ce_chunk(x_c, head, t_c, m_c):
+    """Summed next-token NLL and mask count of one sequence chunk; the
+    [B, C, V] logits are computed in f32 from the compute-dtype product."""
+    logits = (x_c @ head.to(x_c.dtype)).float()
+    lse = torch.logsumexp(logits, dim=-1)
+    tgt = logits.gather(-1, t_c.long()[..., None])[..., 0]
+    return ((lse - tgt) * m_c).sum(), m_c.sum()
+
+
+def _chunked_ce(x, head, targets, mask, n_chunks: int):
+    """Cross-entropy without materialising [B, S, V] through the backward:
+    each chunk's logits and logsumexp run under a checkpoint, so they are
+    recomputed in the backward and peak memory is [B, S / n_chunks, V].
+    Returns (sum_nll, sum_mask)."""
+    C = x.shape[1] // n_chunks
+    tot = cnt = 0.0
+    for c in range(n_chunks):
+        sl = slice(c * C, (c + 1) * C)
+        s, n = checkpoint(_ce_chunk, x[:, sl], head, targets[:, sl], mask[:, sl],
+                          use_reentrant=False, preserve_rng_state=False)
+        tot, cnt = tot + s, cnt + n
+    return tot, cnt
+
+
+def _shift_mask(batch, targets: torch.Tensor) -> torch.Tensor:
+    """Loss mask aligned with the shifted targets ([..., 1:])."""
+    if "mask" in batch:
+        return torch.as_tensor(batch["mask"], device=targets.device)[..., 1:].float()
+    return torch.ones(targets.shape, dtype=torch.float32, device=targets.device)
+
+
+def _ce_chunk_count(seq_len: int, loss_chunks: int) -> int:
+    return max(loss_chunks if seq_len % max(loss_chunks, 1) == 0 else 1, 1)
+
+
+def _token_mean_ce(x, head, targets, mask, n_chunks: int):
+    """Token-mean CE for one (micro)batch."""
+    tot, cnt = _chunked_ce(x, head, targets, mask, n_chunks)
+    return tot / cnt.clamp(min=1.0)
+
+
+def make_loss_fn(cfg: TransformerConfig, loss_chunks: int = 8, use_kernel: bool = True):
+    """Next-token cross-entropy over batch {"tokens": [B, S + 1]} (and an
+    optional "mask"): loss_fn(params, batch, rng) -> scalar f32 loss.
+
+    loss_chunks: sequence-chunked CE (memory [B, S / chunks, V] instead of
+    [B, S, V]); 1 disables chunking. use_kernel=False computes attention
+    with the dense plain version: the reference the kernel path is held
+    against on the card, never the default."""
+    check_trained(cfg)
+
+    def loss_fn(params, batch, rng):
+        tokens = torch.as_tensor(batch["tokens"], device=params["embed"].device)
+        inputs, targets = tokens[:, :-1], tokens[:, 1:]
+        x = forward_hidden(params, inputs, cfg, rng, use_kernel)
+        n = _ce_chunk_count(inputs.shape[1], loss_chunks)
+        return _token_mean_ce(x, _lm_head(params, cfg), targets, _shift_mask(batch, targets), n)
+
+    return loss_fn

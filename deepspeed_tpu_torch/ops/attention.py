@@ -1,15 +1,17 @@
 """Attention ops.
 
 Counterpart of deepspeed_tpu/ops/attention.py. Layout is [batch, seq,
-heads, head_dim]; GQA KV heads are consumed in place by the flash kernel
+heads, head_dim]; GQA KV heads are consumed in place by the flash kernels
 and repeated only by the plain path.
 
-`causal_attention` with use_flash=True calls the flash wrapper at every
-prefill length: the kernel for CUDA tensors, its plain version for CPU
-tensors. (The JAX package sends S < 256 to XLA; that threshold was a TPU
-tiling choice, and on the card plain attention is never the main path.)
-use_flash=False runs the plain version on any device: the reference the
-kernel path is compared with.
+`causal_attention` with use_flash=True goes through the flash attention
+`torch.autograd.Function` at every length: forward and backward kernels
+for CUDA tensors, their plain versions (the same recompute-from-lse
+backward) for CPU tensors, differentiable on both. (The JAX package sends
+S < 256 to XLA; that threshold was a TPU tiling choice, and on the card
+plain attention is never the main path.) use_flash=False runs the dense
+plain forward on any device, differentiated by autograd: the reference
+the kernel path is compared with.
 """
 
 import torch

@@ -14,7 +14,9 @@ WRAPPERS = {
     "paged_kv_write": _paged.paged_kv_write,
     "paged_decode_fused": _paged.paged_decode_fused,
     "paged_decode_attention": _paged.paged_decode_attention,
-    "flash_fwd": _flash.flash_attention,
+    "flash_fwd": _flash.flash_fwd,
+    "flash_bwd_dq": _flash.flash_bwd_dq,
+    "flash_bwd_dkv": _flash.flash_bwd_dkv,
 }
 
 

@@ -28,7 +28,7 @@ from typing import Dict, Iterable, Optional
 
 CSRC = Path(__file__).resolve().parents[2] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
-SOURCES = ("paged_kv_write", "paged_decode", "flash_fwd")
+SOURCES = ("paged_kv_write", "paged_decode", "flash_fwd", "flash_bwd")
 ARCH_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a")
 NVCC_FLAGS = ARCH_FLAGS + ("-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
                            "-Xptxas", "-v")
@@ -36,12 +36,17 @@ NVCC_FLAGS = ARCH_FLAGS + ("-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC"
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _F = ctypes.c_float
-# C signature of every exported kernel function (all return cudaError_t)
+# source -> C signature of each kernel function it exports (all return
+# cudaError_t)
 SIGNATURES = {
-    "paged_kv_write": ("paged_kv_write", [_P, _P, _P, _P, _P, _I, _I, _I, _I, _P]),
-    "paged_decode": ("paged_decode", [_P, _P, _P, _P, _P, _P, _P, _P, _P,
-                                      _I, _I, _I, _I, _I, _I, _I, _I, _F, _P]),
-    "flash_fwd": ("flash_fwd", [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _P]),
+    "paged_kv_write": {"paged_kv_write": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _P]},
+    "paged_decode": {"paged_decode": [_P, _P, _P, _P, _P, _P, _P, _P, _P,
+                                      _I, _I, _I, _I, _I, _I, _I, _I, _F, _P]},
+    "flash_fwd": {"flash_fwd": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _P]},
+    "flash_bwd": {
+        "flash_bwd_dq": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _P],
+        "flash_bwd_dkv": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _P],
+    },
 }
 
 _loaded: Dict[str, ctypes.CDLL] = {}
@@ -109,10 +114,10 @@ def load(name: str) -> ctypes.CDLL:
         return lib
     path = build_all([name])[name]
     lib = ctypes.CDLL(str(path))
-    fn_name, argtypes = SIGNATURES[name]
-    fn = getattr(lib, fn_name)
-    fn.argtypes = argtypes
-    fn.restype = ctypes.c_int
+    for fn_name, argtypes in SIGNATURES[name].items():
+        fn = getattr(lib, fn_name)
+        fn.argtypes = argtypes
+        fn.restype = ctypes.c_int
     lib.ds_cuda_error_string.argtypes = [ctypes.c_int]
     lib.ds_cuda_error_string.restype = ctypes.c_char_p
     _loaded[name] = lib

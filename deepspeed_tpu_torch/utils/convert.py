@@ -47,3 +47,12 @@ def params_from_numpy(tree: Dict[str, Any], cfg: T.TransformerConfig,
         else:
             out[path] = t
     return out
+
+
+def params_to_numpy(params: Dict[str, Any]) -> Dict[str, Any]:
+    """The inverse of `params_from_numpy` for any tree of tensors
+    (parameters, gradients, optimizer moments): the same nesting with
+    float32 numpy arrays as leaves, e.g. to hold them against a JAX tree."""
+    if isinstance(params, dict):
+        return {k: params_to_numpy(v) for k, v in params.items()}
+    return params.detach().to("cpu", torch.float32).numpy()

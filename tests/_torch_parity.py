@@ -50,3 +50,14 @@ def to_jax(tree):
 
     return {k: ({n: jnp.asarray(a) for n, a in v.items()} if k == "layers"
                 else jnp.asarray(v)) for k, v in tree.items()}
+
+
+def flatten(tree, prefix=""):
+    """{"a/b": leaf} for a nested dict, in sorted-key order (the order of
+    deepspeed_tpu_torch.utils.tree.leaves)."""
+    if isinstance(tree, dict):
+        out = {}
+        for k in sorted(tree):
+            out.update(flatten(tree[k], f"{prefix}{k}/"))
+        return out
+    return {prefix[:-1]: tree}

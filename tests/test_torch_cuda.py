@@ -120,3 +120,93 @@ class TestKernelsOnCard:
         q = torch.zeros((1, 8, 2, 128), device=cuda_device)  # f32, not bf16
         with pytest.raises(TypeError):
             PF.flash_attention(q, q, q)
+
+
+def _bwd_case(rng, dev, B, S, H, KV, D):
+    """bf16 q, k, v, dO on the card and the forward's o and lse (from the
+    forward kernel, as the training step saves them)."""
+    q = _bf16_cuda(rng.standard_normal((B, S, H, D)), dev)
+    k = _bf16_cuda(rng.standard_normal((B, S, KV, D)), dev)
+    v = _bf16_cuda(rng.standard_normal((B, S, KV, D)), dev)
+    do = _bf16_cuda(rng.standard_normal((B, S, H, D)), dev)
+    o, lse = PF.flash_fwd(q, k, v)
+    return q, k, v, o, lse, do
+
+
+def _assert_grad_close(got, ref, what):
+    """Kernel gradient vs the plain backward on the same bf16 inputs (which
+    rounds P and dS to bf16 where the kernels do), under `bwd_mismatch`'s stated tolerance: one
+    bf16 ulp of the value (2^-7 relative) + 2^-5 of the plain row's RMS
+    over the head dimension (a flipped rounding of one P or dS term) +
+    2^-10 of the tensor's RMS."""
+    stats = PF.bwd_mismatch(got, ref)
+    assert stats["n_over"] == 0, f"{what}: {stats}"
+
+
+def _rms(x):
+    return x.float().square().mean().sqrt().item()
+
+
+@pytest.mark.cuda
+class TestFlashBackwardOnCard:
+    """Kernels #2 (dq) and #3 (dk, dv) against the plain backward, and
+    the autograd Function against autograd through the plain forward."""
+
+    @pytest.mark.parametrize("S", [64, 200, 2048])
+    @pytest.mark.parametrize("KV", [8, 2])
+    @pytest.mark.parametrize("D", [64, 128])
+    def test_kernels_match_plain(self, rng, cuda_device, S, KV, D):
+        B = 1 if S == 2048 else 2
+        q, k, v, o, lse, do = _bwd_case(rng, cuda_device, B, S, 8, KV, D)
+        delta = PF._delta(o, do)
+        dq = PF.flash_bwd_dq(q, k, v, do, lse, delta)
+        dk, dv = PF.flash_bwd_dkv(q, k, v, do, lse, delta)
+        rq, rk, rv = PF.flash_attention_bwd_plain(q, k, v, o, lse, do)
+        torch.cuda.synchronize()
+        for name, got, ref in (("dq", dq, rq), ("dk", dk, rk), ("dv", dv, rv)):
+            _assert_grad_close(got, ref, f"{name} S={S} KV={KV} D={D}")
+
+    @pytest.mark.parametrize("KV", [4, 1])
+    def test_function_grads_match_autograd_through_plain(self, rng, cuda_device, KV):
+        """The Function's gradients are the kernels' on the forward
+        kernel's residuals (held at the tolerance above), and they are the
+        gradient of attention: against autograd through the dense plain
+        forward in f32, where the bf16 rounding of o (in delta), P and dS
+        is what differs, the error's RMS stays within 2^-7 of the
+        gradient's (a 2% scale error would be 2^-5.6)."""
+        q, k, v, o, lse, do = _bwd_case(rng, cuda_device, 2, 300, 4, KV, 128)
+        leaves = [t.clone().requires_grad_() for t in (q, k, v)]
+        got = torch.autograd.grad(PF.flash_attention(*leaves)[0], leaves, do)
+        same = PF.flash_attention_bwd_plain(q, k, v, o, lse, do)
+        leaves = [t.clone().requires_grad_() for t in (q, k, v)]
+        dense = torch.autograd.grad(PF.flash_attention_plain(*leaves)[0], leaves, do)
+        for name, g, r, d in zip(("dq", "dk", "dv"), got, same, dense):
+            assert g.abs().max() > 0, f"{name} is zero: no gradient reached the input"
+            _assert_grad_close(g, r, name)
+            assert _rms(g.float() - d.float()) <= 2.0 ** -7 * _rms(d), name
+
+    def test_two_runs_bit_identical(self, rng, cuda_device):
+        q, k, v, o, lse, do = _bwd_case(rng, cuda_device, 2, 520, 8, 2, 128)
+        first = PF.flash_attention_bwd(q, k, v, o, lse, do)
+        second = PF.flash_attention_bwd(q, k, v, o, lse, do)
+        torch.cuda.synchronize()
+        for a, b in zip(first, second):
+            assert torch.equal(a, b)
+
+    def test_backward_wrappers_reject_bad_inputs(self, rng, cuda_device):
+        q, k, v, o, lse, do = _bwd_case(rng, cuda_device, 1, 64, 4, 2, 128)
+        delta = PF._delta(o, do)
+        with pytest.raises(TypeError):
+            PF.flash_bwd_dq(q.float(), k, v, do, lse, delta)
+        with pytest.raises(TypeError):
+            PF.flash_bwd_dkv(q, k, v, do, lse.to(torch.bfloat16), delta)
+        with pytest.raises(ValueError):
+            PF.flash_bwd_dq(q, k, v, do, lse[:, :, :32].contiguous(), delta)
+        with pytest.raises(ValueError):
+            PF.flash_bwd_dkv(q, k[:, :32].contiguous(), v, do, lse, delta)
+        with pytest.raises(ValueError):
+            PF.flash_bwd_dq(q.transpose(1, 2), k, v, do, lse, delta)
+        q96 = torch.zeros((1, 64, 4, 96), dtype=torch.bfloat16, device=cuda_device)
+        with pytest.raises(ValueError):
+            PF.flash_bwd_dq(q96, q96[:, :, :2].contiguous(), q96[:, :, :2].contiguous(), q96,
+                            lse, delta)

@@ -1,8 +1,9 @@
 """The port stands alone: it imports neither JAX nor the JAX package.
 
-A fresh interpreter imports the port and serves a tiny model on the CPU
-end to end (prefill, single-token decode, chunked continuation, greedy
-decode_multi); afterwards neither `jax` nor `deepspeed_tpu` may be in
+A fresh interpreter imports the port, serves a tiny model on the CPU end
+to end (prefill, single-token decode, chunked continuation, greedy
+decode_multi) and takes one bf16 train step through `initialize`;
+afterwards neither `jax` nor `deepspeed_tpu` may be in
 sys.modules. A static scan of the port's sources and chip_smoke.py backs
 it up for modules the run does not import."""
 
@@ -38,6 +39,16 @@ gen, last, _, _ = eng.decode_multi_fn(2, 4)(eng.params, eng.cache,
                                             np.array([6, 7], np.int32), tables, ctx)
 assert np.isfinite(logits).all() and torch.isfinite(last).all()
 assert gen.shape == (4, 2)
+from deepspeed_tpu_torch import initialize
+tcfg = T.TransformerConfig(vocab_size=512, n_layers=2, n_heads=2, d_model=256,
+                           max_seq=256, variant="llama", remat="save_attn_qkv")
+trainer = initialize({"train_micro_batch_size_per_gpu": 2, "bf16": {"enabled": True},
+                      "optimizer": {"type": "adamw", "params": {"lr": 1e-3}},
+                      "gradient_clipping": 1.0},
+                     loss_fn=T.make_loss_fn(tcfg, loss_chunks=4),
+                     param_init_fn=lambda g: T.init(tcfg, g, device="cpu"), device="cpu")
+m = trainer.train_batch({"tokens": r.integers(0, 512, (2, 33)).astype(np.int32)})
+assert np.isfinite(m["loss"]) and np.isfinite(m["grad_norm"]), m
 assert K.launch_counts() == {n: 0 for n in K.WRAPPERS}  # CPU: no kernel launched
 bad = sorted(m for m in sys.modules if m == "jax" or m.startswith("jax.")
              or m == "deepspeed_tpu" or m.startswith("deepspeed_tpu."))

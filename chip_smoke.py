@@ -40,7 +40,18 @@ Phases (any failure raises and exits nonzero):
              plain path than the bf16 plain path is. Then times TTFT of a
              512-token prompt and batch-8 decode throughput, and profiles
              where the time goes in each.
-5. report  - one JSON line with every kernel's launches (per path and in
+5. evoformer - DS4Sci evoformer attention (ds4sci_evoformer_attention) at
+             AlphaFold 2 / OpenFold widths, bf16, three cases (EVO_CASES):
+             for each, one forward and backward with every launch counter
+             at 0 (each evoformer kernel must launch exactly once). Checks:
+             o and the five gradients of the kernel path no further from
+             the f32 plain path than the bf16 plain path is; the fwd+bwd
+             peak memory under one f32 [G, N, N] logits tensor. Then times
+             forward and forward+backward, beside SDPA with the biases as
+             a materialised mask. (Phase 2 holds each of the four kernels
+             against its plain version at E1, and the forward also at E3,
+             with four planted faults that must fail that check.)
+6. report  - one JSON line with every kernel's launches (per path and in
              all), error and times beside its bound; the card's name and
              power limit; and last, {"ok": true, "device": {...}}.
 
@@ -89,9 +100,33 @@ KERNELS = {
                      "deepspeed_tpu/ops/pallas/flash_attention.py:438"),
     "flash_bwd_dkv": ("deepspeed_tpu_torch/csrc/flash_bwd.cu",
                       "deepspeed_tpu/ops/pallas/flash_attention.py:467"),
+    "evoformer_fwd": ("deepspeed_tpu_torch/csrc/evoformer_fwd.cu",
+                      "deepspeed_tpu/ops/pallas/evoformer_attention.py:139"),
+    "evoformer_bwd_dq": ("deepspeed_tpu_torch/csrc/evoformer_bwd.cu",
+                         "deepspeed_tpu/ops/pallas/evoformer_attention.py:310"),
+    "evoformer_bwd_dkv": ("deepspeed_tpu_torch/csrc/evoformer_bwd.cu",
+                          "deepspeed_tpu/ops/pallas/evoformer_attention.py:347"),
+    "evoformer_bwd_db2": ("deepspeed_tpu_torch/csrc/evoformer_bwd.cu",
+                          "deepspeed_tpu/ops/pallas/evoformer_attention.py:394"),
 }
 TRAIN_KERNELS = ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv")
 SERVE_KERNELS = ("paged_kv_write", "paged_decode_fused", "paged_decode_attention", "flash_fwd")
+EVO_KERNELS = ("evoformer_fwd", "evoformer_bwd_dq", "evoformer_bwd_dkv", "evoformer_bwd_db2")
+# the evoformer path: DS4Sci attention at the widths of AlphaFold 2 (supp.
+# Algorithm 7, MSA row attention with pair bias, 8 heads x 32; Algorithms
+# 13-14, triangle attention, 4 heads x 32; Table 4, training crops), which
+# are OpenFold's openfold/config.py evoformer_stack (no_heads_msa 8,
+# c_hidden_msa_att 32, no_heads_pair 4, c_hidden_pair_att 32) at its
+# initial-training (crop 256, 128 MSA clusters) and fine-tuning (crop 384,
+# 512 clusters) sizes; q/k/v [B, S, N, H, D]
+EVO_CASES = {
+    "E1": dict(what="MSA row attention with pair bias, initial training",
+               B=1, S=128, N=256, H=8, D=32),
+    "E2": dict(what="triangle attention (starting node), initial training",
+               B=1, S=256, N=256, H=4, D=32),
+    "E3": dict(what="MSA row attention with pair bias, fine-tuning",
+               B=1, S=512, N=384, H=8, D=32),
+}
 # kernel vs plain version on the card, (atol, rtol): the KV write is a copy
 # (bit-exact); decode keeps f32 probabilities, so only the bf16 rounding of
 # the output differs, at most one bf16 ulp (2^-7 of the value: rtol 8e-3,
@@ -144,24 +179,26 @@ def _time_ms(fn, iters, warmup=3):
 def _device_ms(fn, iters, warmup=3):
     """Device time per call: the summed duration of every kernel and copy
     the call ran on the card (torch.profiler over `iters` calls), with the
-    host's launch overhead left out. Raises when the profiler saw no
-    device activity."""
+    host's launch overhead left out. A profile that recorded no device
+    activity at all is taken again (this happened once in a long run);
+    raises after three such profiles."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     for _ in range(warmup):
         fn()
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        for _ in range(iters):
-            fn()
+    for _ in range(3):
         torch.cuda.synchronize()
-    us = sum(e.time_range.elapsed_us() for e in prof.events()
-             if e.device_type == DeviceType.CUDA)
-    if us <= 0:
-        raise RuntimeError("torch.profiler recorded no device time (CUPTI tracing is off)")
-    return us / 1e3 / iters
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            for _ in range(iters):
+                fn()
+            torch.cuda.synchronize()
+        us = sum(e.time_range.elapsed_us() for e in prof.events()
+                 if e.device_type == DeviceType.CUDA)
+        if us > 0:
+            return us / 1e3 / iters
+    raise RuntimeError("torch.profiler recorded no device time (CUPTI tracing is off)")
 
 
 def _where_time_goes(fn, top=8):
@@ -356,6 +393,167 @@ def _flash_train_checks(FA, randn, B, S, H, KV, D, bound_ms):
     return out
 
 
+def _evo_inputs(case, dev, seed):
+    """bf16 q, k, v, dO [B, S, N, H, D] and the two biases of one evoformer
+    case from a seeded torch.Generator: bias1 is OpenFold's mask bias
+    1e9 * (mask - 1) with ~10% of each row's keys masked (key 0 never, so
+    no row is masked whole), bias2 a pair bias normal * 0.5."""
+    import torch
+
+    B, S, N, H, D = (case[x] for x in "BSNHD")
+    g = torch.Generator(device=dev).manual_seed(seed)
+    randn = lambda *shape: torch.randn(shape, generator=g, device=dev)
+    q, k, v, do = (randn(B, S, N, H, D).to(torch.bfloat16) for _ in range(4))
+    mask = torch.rand((B, S, 1, 1, N), generator=g, device=dev) >= 0.1
+    mask[..., 0] = True
+    b1 = (1e9 * (mask.float() - 1)).to(torch.bfloat16)
+    b2 = (0.5 * randn(B, 1, H, N, N)).to(torch.bfloat16)
+    return q, k, v, b1, b2, do
+
+
+def _evo_bounds(case, bound_ms):
+    """Each evoformer kernel's bound at a case's shapes: every input read
+    once and every output written once (a [G, N, D] bf16 tensor is `t`
+    bytes, a [G, N] f32 row vector `row`), and its N x N x D products."""
+    B, S, N, H, D = (case[x] for x in "BSNHD")
+    G = B * S * H
+    t, row = G * N * D * 2, G * N * 4
+    bias = B * S * N * 2 + B * H * N * N * 2
+    mm = 2.0 * G * N * N * D
+    bwd_in = 4 * t + 2 * row + bias  # q, k, v, dO, lse, delta, both biases
+    return {"evoformer_fwd": bound_ms(3 * t + bias + t + row, 2 * mm),
+            "evoformer_bwd_dq": bound_ms(bwd_in + t, 3 * mm),
+            "evoformer_bwd_dkv": bound_ms(bwd_in + 2 * t + row, 4 * mm),
+            "evoformer_bwd_db2": bound_ms(bwd_in + B * H * N * N * 2, 2 * mm)}
+
+
+def _evo_planted_faults(EV, got, ref, args, tile=64):
+    """Proof that the evoformer tolerance catches a wrong kernel: faults
+    planted in the kernels' own output, each of which must fail
+    EV.bwd_mismatch against the plain version. "scale_1.02": every
+    gradient 2% too large. "drop_tile": the (last query tile, last key
+    tile) block left out of dq, dk and dv (a kernel whose loop stops one
+    tile short). "drop_last_sequence": db2 without the contribution of
+    sequence S-1. "drop_last_head": db1 without head H-1. Returns
+    {tensor: {fault: elements beyond the tolerance}}."""
+    import torch
+
+    q, k, v, b1, b2, do, lse, delta = args
+    B, S, N, H, _ = q.shape
+    t = N - tile
+    rows = lambda x: x.reshape(B, S, H, N)
+    part = EV._bwd_plain(q[:, :, t:], k[:, :, t:], v[:, :, t:], b1[..., t:], b2[..., t:, t:],
+                         rows(lse)[..., t:].reshape(-1, tile),
+                         rows(delta)[..., t:].reshape(-1, tile), do[:, :, t:])
+    last = EV._bwd_plain(q[:, -1:], k[:, -1:], v[:, -1:], b1[:, -1:], b2,
+                         rows(lse)[:, -1].reshape(-1, N), rows(delta)[:, -1].reshape(-1, N),
+                         do[:, -1:])
+    faults = {}
+    for name in ("dq", "dk", "dv", "db1", "db2"):
+        g = got[name]
+        faults[name] = {"scale_1.02": (g.float() * 1.02).to(g.dtype)}
+        if name in ("dq", "dk", "dv"):
+            dropped = g.to(torch.float32, copy=True)
+            dropped[:, :, t:] -= part[("dq", "dk", "dv").index(name)].float()
+            faults[name]["drop_tile"] = dropped.to(g.dtype)
+    faults["db2"]["drop_last_sequence"] = (got["db2"].float() - last[4].float()).to(b2.dtype)
+    last_head = got["dsum"].reshape(B, S, H, N)[:, :, -1].reshape(B, S, 1, 1, N)
+    faults["db1"]["drop_last_head"] = (got["db1"].float() - last_head).to(b1.dtype)
+    out = {}
+    for name, fs in faults.items():
+        out[name] = {f: EV.bwd_mismatch(x, ref[name])["n_over"] for f, x in fs.items()}
+        if not all(out[name].values()):
+            raise AssertionError(f"evoformer {name}: the tolerance passes a planted fault: "
+                                 f"{out[name]}")
+    return out
+
+
+def _sdpa_evo(q, k, v, b1, b2, do):
+    """F.scaled_dot_product_attention on the same problem, as a yardstick
+    only (the port never calls it): q/k/v as [B*S, H, N, D] views, the two
+    biases added into one materialised [B*S, H, N, N] mask. Returns the
+    forward, and the backward (dq, dk, dv and the mask's gradient in one
+    call) of one retained forward."""
+    import torch
+    import torch.nn.functional as F
+
+    B, S, N, H, D = q.shape
+    heads_first = lambda x: x.reshape(B * S, N, H, D).transpose(1, 2)
+    qt, kt, vt, dot = (heads_first(x) for x in (q, k, v, do))
+    mask = (b1 + b2).reshape(B * S, H, N, N)
+    leaves = [x.detach().requires_grad_() for x in (qt, kt, vt, mask)]
+    out = F.scaled_dot_product_attention(*leaves[:3], attn_mask=leaves[3])
+    return (lambda: F.scaled_dot_product_attention(qt, kt, vt, attn_mask=mask),
+            lambda: torch.autograd.grad(out, leaves, dot, retain_graph=True))
+
+
+def _evo_kernel_checks(dev, bound_ms):
+    """Kernels #7-#10 at E1 against their plain versions on the same bf16
+    inputs (the backward ones on the forward kernel's o and lse), under
+    bwd_mismatch, with the planted faults of _evo_planted_faults; #7 also
+    at E3 (N = 384, no multiple of the TPU kernel's 256-row q block).
+    library_ms: SDPA's forward for #7, SDPA's backward for #8-#10;
+    plain_ms of the backward kernels is the dense plain backward, which
+    also computes all of their outputs."""
+    import torch
+
+    from deepspeed_tpu_torch.ops.cuda import evoformer_attention as EV
+
+    out = {}
+    for name in ("E3", "E1"):
+        case = EVO_CASES[name]
+        q, k, v, b1, b2, do = _evo_inputs(case, dev, seed=2)
+        bounds = _evo_bounds(case, bound_ms)
+        shape = "B={B}, S={S}, N={N}, H={H}, D={D}, bf16, both biases".format(**case)
+        o, lse = EV.evoformer_fwd(q, k, v, b1, b2)
+        ro, rlse = EV.evoformer_fwd_plain(q, k, v, b1, b2)
+        stats = EV.bwd_mismatch(o, ro)
+        if stats["n_over"]:
+            raise AssertionError(f"evoformer_fwd {name}: o beyond the tolerance: {stats}")
+        _check_close(f"evoformer_fwd {name} lse", lse, rlse, 1e-4, 1e-4)
+        sdpa_fwd, sdpa_bwd = _sdpa_evo(q, k, v, b1, b2, do)
+        out["evoformer_fwd" if name == "E1" else "evoformer_fwd@E3"] = dict(
+            max_abs_err=stats["max_abs_err"], shape=shape, bound=bounds["evoformer_fwd"],
+            **_timings(lambda: EV.evoformer_fwd(q, k, v, b1, b2),
+                       lambda: EV.evoformer_fwd_plain(q, k, v, b1, b2), sdpa_fwd, 5))
+        if name == "E3":
+            del q, k, v, b1, b2, do, o, lse, ro, rlse, sdpa_fwd, sdpa_bwd
+            torch.cuda.empty_cache()
+            continue
+
+        delta = EV._delta(o, do)
+        args = (q, k, v, b1, b2, do, lse, delta)
+        got = {"o": o, "dq": EV.evoformer_bwd_dq(*args)}
+        got["dk"], got["dv"], got["dsum"] = EV.evoformer_bwd_dkv(*args)
+        got["db1"], got["db2"] = EV._db1(got["dsum"], b1), EV.evoformer_bwd_db2(*args)
+        ref = dict(zip(("dq", "dk", "dv", "dsum", "db2"),
+                       EV._bwd_plain(q, k, v, b1, b2, lse, delta, do)), o=ro)
+        ref["db1"] = EV._db1(ref["dsum"], b1)
+        planted = _evo_planted_faults(EV, got, ref, args)
+        report = {}
+        for t, g in got.items():
+            stats = EV.bwd_mismatch(g, ref[t])
+            if stats["n_over"]:
+                raise AssertionError(f"evoformer {t}: kernel beyond the tolerance of the plain "
+                                     f"version: {stats}")
+            report[t] = {"worst_ratio": stats["worst_ratio"], "max_abs_err": stats["max_abs_err"],
+                         "err_rms_over_ref_rms": stats["err_rms"] / stats["ref_rms"],
+                         "planted_faults_n_over": planted.get(t)}
+        print(json.dumps({"evoformer_tolerance": {"case": name, "shape": shape, **report}}))
+        plain_bwd = lambda: EV._bwd_plain(q, k, v, b1, b2, lse, delta, do)
+        for kname, run, tensors in (
+                ("evoformer_bwd_dq", lambda: EV.evoformer_bwd_dq(*args), ("dq",)),
+                ("evoformer_bwd_dkv", lambda: EV.evoformer_bwd_dkv(*args), ("dk", "dv", "dsum")),
+                ("evoformer_bwd_db2", lambda: EV.evoformer_bwd_db2(*args), ("db2",))):
+            out[kname] = dict(max_abs_err=max(report[t]["max_abs_err"] for t in tensors),
+                              shape=shape, bound=bounds[kname],
+                              **_timings(run, plain_bwd, sdpa_bwd, 5))
+        print(json.dumps({"evoformer_sdpa_kernels": {
+            "forward": list(_where_time_goes(sdpa_fwd, top=3)["top_kernels_ms"]),
+            "backward": list(_where_time_goes(sdpa_bwd, top=3)["top_kernels_ms"])}}))
+    return out
+
+
 def check_kernels(cfg, dev):
     import torch
 
@@ -444,6 +642,7 @@ def check_kernels(cfg, dev):
     #    and the training shape; the kernels line carries the training one
     results["flash_fwd@serve"] = _flash_fwd_check(FA, randn, 1, LONG_LEN, H, KV, D, bound_ms)
     results.update(_flash_train_checks(FA, randn, TRAIN_B, TRAIN_S, H, KV, D, bound_ms))
+    results.update(_evo_kernel_checks(dev, bound_ms))
     for name, r in results.items():
         print(json.dumps({"kernel_check": name, "max_err": r["max_abs_err"],
                           "kernel_ms": r["ms"], "plain_ms": r["plain_ms"],
@@ -696,6 +895,88 @@ def run_slice(cfg, dev):
                          if k in ("lookup_hits", "lookup_misses", "cow_copies")},
     }
 
+# ---------------------------------------------------------------------------
+# phase 5: the evoformer attention path at AlphaFold 2 / OpenFold widths
+# ---------------------------------------------------------------------------
+
+def run_evoformer(dev):
+    import torch
+
+    from deepspeed_tpu_torch.ops import cuda as K
+    from deepspeed_tpu_torch.ops.cuda import evoformer_attention as EV
+    from deepspeed_tpu_torch.ops.evoformer_attention import ds4sci_evoformer_attention
+
+    torch.backends.cuda.matmul.allow_tf32 = False  # the f32 plain path is the reference
+    out = {"launches": {n: 0 for n in K.WRAPPERS}, "cases": {}}
+    for i, (name, case) in enumerate(EVO_CASES.items()):
+        B, S, N, H, D = (case[x] for x in "BSNHD")
+        q, k, v, b1, b2, do = _evo_inputs(case, dev, seed=10 + i)
+        leaves = [x.clone().requires_grad_() for x in (q, k, v, b1, b2)]
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats(dev)
+        before = torch.cuda.memory_allocated(dev)
+
+        # -- the main path, counted: one forward and backward -----------------
+        K.reset_launch_counts()
+        o = ds4sci_evoformer_attention(leaves[0], leaves[1], leaves[2], [leaves[3], leaves[4]])
+        o.backward(do)
+        torch.cuda.synchronize()
+        launches = K.launch_counts()
+        # -----------------------------------------------------------------------
+
+        peak = torch.cuda.max_memory_allocated(dev) - before
+        want = {n: int(n in EVO_KERNELS) for n in launches}
+        if launches != want:
+            raise AssertionError(f"{name}: a forward and backward should launch each evoformer "
+                                 f"kernel once and nothing else: {launches}")
+        for n, c in launches.items():
+            out["launches"][n] += c
+        logits_bytes = 4 * B * S * H * N * N  # one f32 [G, N, N] tensor
+        if peak >= logits_bytes:
+            raise AssertionError(f"{name}: fwd+bwd peak {peak} bytes is not under one f32 "
+                                 f"[G, N, N] logits tensor ({logits_bytes} bytes)")
+        kernel = [o.detach()] + [x.grad for x in leaves]
+        del o, leaves
+
+        # -- kernel path vs plain paths: bf16 plain, and f32 plain as the
+        #    reference for both; each tensor in units of its f32 RMS, so the
+        #    fixed slack of _path_errors is relative to its scale
+        paths = []
+        for dtype in (torch.bfloat16, torch.float32):
+            x = [t.to(dtype) for t in (q, k, v, b1, b2)]
+            po, plse = EV.evoformer_fwd_plain(*x)
+            paths.append([po] + list(EV.evoformer_bwd_plain(*x, po, plse, do.to(dtype))))
+            del x, po, plse
+        checks = {}
+        for t, gk, gp, g32 in zip(("o", "dq", "dk", "dv", "db1", "db2"), kernel, *paths):
+            unit = g32.float().square().mean().sqrt()
+            checks[t] = _path_errors(f"{name} {t}", gk.float() / unit, gp.float() / unit,
+                                     g32.float() / unit)
+            checks[t].pop("argmax_agree_kernel_f32", None)
+        del kernel, paths
+
+        # -- timings (after the counted run) -----------------------------------
+        leaves = [x.clone().requires_grad_() for x in (q, k, v, b1, b2)]
+        fwd = lambda: ds4sci_evoformer_attention(q, k, v, [b1, b2])
+
+        def fwd_bwd():
+            o = ds4sci_evoformer_attention(leaves[0], leaves[1], leaves[2], leaves[3:])
+            return torch.autograd.grad(o, leaves, do)
+
+        sdpa_fwd, sdpa_bwd = _sdpa_evo(q, k, v, b1, b2, do)
+        fwd_ms, fwd_bwd_ms = _time_ms(fwd, 5), _time_ms(fwd_bwd, 5)
+        sdpa_ms = {"fwd": _time_ms(sdpa_fwd, 5), "bwd": _time_ms(sdpa_bwd, 5)}
+        out["cases"][name] = {
+            **case, "launches": {n: c for n, c in launches.items() if c},
+            "peak_mem_bytes": peak, "logits_f32_bytes": logits_bytes,
+            "peak_over_logits": peak / logits_bytes,
+            "fwd_ms": fwd_ms, "fwd_bwd_ms": fwd_bwd_ms,
+            "sdpa_ms": {**sdpa_ms, "fwd_bwd": sdpa_ms["fwd"] + sdpa_ms["bwd"]},
+            "path": checks}
+        del leaves, sdpa_fwd, sdpa_bwd, q, k, v, b1, b2, do
+        torch.cuda.empty_cache()
+    return out
+
 
 def _gpu_line():
     out = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
@@ -730,11 +1011,14 @@ def main():
     print(json.dumps({"phase": "train", **tr}))
     sl = run_slice(cfg, dev)
     print(json.dumps({"phase": "serve", **sl}))
+    ev = run_evoformer(dev)
+    print(json.dumps({"phase": "evoformer", **ev}))
 
     line = []
     for name, (source, replaces) in KERNELS.items():
         k = kernels[name]
-        by_path = {"train": tr["launches"][name], "serve": sl["launches"][name]}
+        by_path = {"train": tr["launches"][name], "serve": sl["launches"][name],
+                   "evoformer": ev["launches"][name]}
         line.append({"name": name, "route": "cuda", "source": source,
                      "replaces": replaces, "launches": sum(by_path.values()),
                      "launches_by_path": by_path, "shape": k["shape"],

@@ -7,6 +7,7 @@ show that its main path went through the kernels.
 
 from typing import Dict
 
+from . import evoformer_attention as _evo
 from . import flash_attention as _flash
 from . import paged_attention as _paged
 
@@ -17,6 +18,10 @@ WRAPPERS = {
     "flash_fwd": _flash.flash_fwd,
     "flash_bwd_dq": _flash.flash_bwd_dq,
     "flash_bwd_dkv": _flash.flash_bwd_dkv,
+    "evoformer_fwd": _evo.evoformer_fwd,
+    "evoformer_bwd_dq": _evo.evoformer_bwd_dq,
+    "evoformer_bwd_dkv": _evo.evoformer_bwd_dkv,
+    "evoformer_bwd_db2": _evo.evoformer_bwd_db2,
 }
 
 

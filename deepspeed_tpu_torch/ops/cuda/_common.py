@@ -1,4 +1,5 @@
-"""Argument checks shared by the kernel wrappers."""
+"""Argument checks and the kernel-vs-plain tolerance shared by the kernel
+wrappers."""
 
 from typing import Sequence
 
@@ -37,3 +38,36 @@ def check_cuda_args(what: str, tensors: dict, dtypes: dict,
 def check_shape(what: str, name: str, t: torch.Tensor, shape: Sequence[int]) -> None:
     if tuple(t.shape) != tuple(shape):
         raise ValueError(f"{what}: {name} has shape {tuple(t.shape)}, expected {tuple(shape)}")
+
+
+# Tolerance of a kernel's output against its plain version on the same
+# bf16 inputs, where the plain version rounds P and dS to bf16 where the
+# kernel does (the flash backward, the evoformer forward and backward).
+# What is left between the two: the f32 summation order, which may flip
+# the bf16 rounding of a few P or dS entries (each flip moves an output
+# row by 2^-8 of one of its terms, at most ~2^-6 of the row's RMS for
+# unit-normal inputs), and the bf16 rounding of the result (one ulp: 2^-7
+# relative). Per element: 2^-7 of |plain| + 2^-5 of the plain row's RMS
+# over the last axis (the head dimension for o, dq, dk and dv, the keys
+# for the bias gradients) + 2^-10 of the tensor's RMS (rows whose exact
+# value is 0, such as flash dq of the first query, hold only rounding
+# noise). The atol follows each row's own scale, so a row whose values are
+# many times smaller than another's is held as tightly.
+BWD_RTOL, BWD_ROW_ATOL, BWD_FLOOR = 2.0 ** -7, 2.0 ** -5, 2.0 ** -10
+
+
+def bwd_mismatch(got: torch.Tensor, ref: torch.Tensor) -> dict:
+    """Compare a kernel's output `got` with the plain version's `ref` (the
+    same shape) under the tolerance above, rows taken over the last axis.
+    Returns a dict: n_over (elements beyond it, non-finite ones included),
+    worst_ratio (largest |got - ref| / limit), max_abs_err, err_rms,
+    ref_rms, ref_max."""
+    got, ref = got.float(), ref.float()
+    err = (got - ref).abs()
+    rms = ref.square().mean().sqrt()
+    limit = (BWD_RTOL * ref.abs() + BWD_ROW_ATOL * ref.square().mean(-1, keepdim=True).sqrt()
+             + BWD_FLOOR * rms).clamp_min(torch.finfo(torch.float32).tiny)
+    over = (err > limit) | ~torch.isfinite(got)
+    return {"n_over": int(over.sum()), "worst_ratio": (err / limit).max().item(),
+            "max_abs_err": err.max().item(), "err_rms": err.square().mean().sqrt().item(),
+            "ref_rms": rms.item(), "ref_max": ref.abs().max().item()}

@@ -8,10 +8,11 @@ loaded with `ctypes` (no PyTorch headers, so a build takes seconds):
          -Xcompiler -fPIC -Xptxas -v -o build/kernels/<name>-<hash>.so <name>.cu
 
 The library lands in `build/kernels/` at the root of the checkout (listed
-in .gitignore), named by a hash of the source and the flags, so an edited
-source rebuilds and an unchanged one loads at once. The compiler's
-`-Xptxas -v` report (registers, shared memory, spills) is kept beside it
-as `<name>-<hash>.log`. `build_all()` starts one `nvcc` per source, all at
+in .gitignore), named by a hash of the source, the shared headers
+(`csrc/*.cuh`) and the flags, so an edited source rebuilds and an
+unchanged one loads at once. The compiler's `-Xptxas -v` report
+(registers, shared memory, spills) is kept beside it as
+`<name>-<hash>.log`. `build_all()` starts one `nvcc` per source, all at
 once. A missing `nvcc`, a failed build or a failed load raises.
 
 Each kernel function returns its `cudaError_t` as an int (the launch
@@ -28,7 +29,8 @@ from typing import Dict, Iterable, Optional
 
 CSRC = Path(__file__).resolve().parents[2] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
-SOURCES = ("paged_kv_write", "paged_decode", "flash_fwd", "flash_bwd")
+SOURCES = ("paged_kv_write", "paged_decode", "flash_fwd", "flash_bwd", "evoformer_fwd",
+           "evoformer_bwd")
 ARCH_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a")
 NVCC_FLAGS = ARCH_FLAGS + ("-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
                            "-Xptxas", "-v")
@@ -46,6 +48,12 @@ SIGNATURES = {
     "flash_bwd": {
         "flash_bwd_dq": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _P],
         "flash_bwd_dkv": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _P],
+    },
+    "evoformer_fwd": {"evoformer_fwd": [_P] * 7 + [_I] * 5 + [_F, _P]},
+    "evoformer_bwd": {
+        "evoformer_bwd_dq": [_P] * 9 + [_I] * 5 + [_F, _P],
+        "evoformer_bwd_dkv": [_P] * 11 + [_I] * 5 + [_F, _P],
+        "evoformer_bwd_db2": [_P] * 9 + [_I] * 5 + [_F, _P],
     },
 }
 
@@ -67,6 +75,8 @@ def find_nvcc() -> str:
 def _library_path(name: str) -> Path:
     src = CSRC / f"{name}.cu"
     h = hashlib.sha256(src.read_bytes())
+    for header in sorted(CSRC.glob("*.cuh")):  # a shared header's edit rebuilds too
+        h.update(header.read_bytes())
     h.update(" ".join(NVCC_FLAGS).encode())
     return BUILD_DIR / f"{name}-{h.hexdigest()[:16]}.so"
 

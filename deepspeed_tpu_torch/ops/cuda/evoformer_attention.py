@@ -1,0 +1,281 @@
+"""Evoformer (DS4Sci) attention, forward and backward: hand-written CUDA
+kernels beside their plain PyTorch versions, joined by a
+`torch.autograd.Function`.
+
+Counterpart of deepspeed_tpu/ops/pallas/evoformer_attention.py:
+`_evo_kernel` (kernel #7, csrc/evoformer_fwd.cu), `_evo_bwd_dq_kernel`
+(#8), `_evo_bwd_dkv_kernel` (#9) and `_evo_bwd_db2_kernel` (#10, all three
+in csrc/evoformer_bwd.cu), and the custom VJP that ties them together
+(deepspeed_tpu/ops/evoformer_attention.py `_evo_fused`). The layout is
+the reference's public one:
+
+    q, k, v, o, do  [B, S, N, H, D]   (batch, sequences, residues, heads)
+    bias1           [B, S, 1, 1, N]   per-key bias (the MSA mask), or None
+    bias2           [B, 1, H, N, N]   pair bias, shared by the sequences, or None
+    lse, delta      [G, N] f32, G = B * S * H in (b, s, h) order
+
+The kernels read q, k, v and do in place in that layout; no transposed
+copy is made. For CUDA tensors the wrappers launch the kernels (bf16, head
+dims 32 and 64) or raise; for CPU tensors they run the plain versions,
+which compute the same recompute-from-lse math densely in f32, with P
+rounded to the inputs' dtype before P V and P and dS before their backward
+products, as the kernels (and the TPU kernels) round them: a no-op in f32.
+Every kernel wrapper carries `launches`, raised by one per launch.
+"""
+
+import torch
+
+from . import build
+from ._common import bwd_mismatch, check_cuda_args, check_shape, ptr, stream_of  # noqa: F401
+
+_HEAD_DIMS = (32, 64)
+_BF16 = torch.bfloat16
+_F32 = torch.float32
+
+
+def _logits(q, k, bias1, bias2):
+    """f32 logits [B, S, H, Nq, Nk]: q k^T * scale + bias1 + bias2, added in
+    that order as the reference kernel adds them. q [B, S, Nq, H, D], k
+    [B, S, Nk, H, D], bias1 [B, S, 1, 1, Nk], bias2 [B, 1, H, Nq, Nk]."""
+    scale = 1.0 / q.shape[-1] ** 0.5
+    s = torch.einsum("bsqhd,bskhd->bshqk", q.float(), k.float()) * scale
+    if bias1 is not None:
+        s = s + bias1.float()
+    if bias2 is not None:
+        s = s + bias2.float()
+    return s
+
+
+def evoformer_fwd_plain(q, k, v, bias1=None, bias2=None):
+    """Dense evoformer attention in f32: softmax(q k^T / sqrt(D) + bias1 +
+    bias2) v. P is rounded to v's dtype before P V (as kernel #7 does; a
+    no-op in f32). Returns (o [B, S, N, H, D] in q's dtype, lse [G, N]
+    f32)."""
+    B, S, N, H, _ = q.shape
+    s = _logits(q, k, bias1, bias2)
+    m = s.amax(-1, keepdim=True)
+    p = torch.exp(s - m)
+    l = p.sum(-1, keepdim=True)
+    l = torch.where(l == 0, torch.ones_like(l), l)  # the reference kernel's guard
+    o = torch.einsum("bshqk,bskhd->bsqhd", p.to(v.dtype).float(), v.float())
+    o = o / l.squeeze(-1).transpose(2, 3)[..., None]
+    lse = (m + torch.log(l)).reshape(B * S * H, N)
+    return o.to(q.dtype), lse
+
+
+def _delta(o, do):
+    """rowsum(dO * O) in f32, [B, S, N, H, D] -> [G, N] (the reference
+    computes it with XLA outside its kernels, evoformer_attention.py:288)."""
+    B, S, N, H, _ = o.shape
+    return (do.float() * o.float()).sum(-1).transpose(2, 3).contiguous().reshape(B * S * H, N)
+
+
+def _bwd_plain(q, k, v, bias1, bias2, lse, delta, do):
+    """Dense f32 backward from the saved lse and delta over q, do [B, S,
+    Nq, H, D] and k, v [B, S, Nk, H, D] (Nq and Nk may differ, so a tile
+    of the full problem can be taken alone). P and dS are rounded to the
+    inputs' dtype before their products, as kernels #8 and #9 round them;
+    the row sums and db2 add the unrounded f32 dS. Returns dq, dk, dv (the
+    inputs' dtypes), dsum [G, Nk] f32 (the sum of dS over queries) and
+    db2 [B, 1, H, Nq, Nk] in bias2's dtype, or None without bias2."""
+    B, S, Nq, H, D = q.shape
+    scale = 1.0 / D ** 0.5
+    p = torch.exp(_logits(q, k, bias1, bias2) - lse.reshape(B, S, H, Nq, 1))
+    dof = do.float()
+    dp = torch.einsum("bsqhd,bskhd->bshqk", dof, v.float())
+    ds = p * (dp - delta.reshape(B, S, H, Nq, 1))
+    pr, dsr = p.to(q.dtype).float(), ds.to(q.dtype).float()
+    dq = torch.einsum("bshqk,bskhd->bsqhd", dsr, k.float()) * scale
+    dk = torch.einsum("bshqk,bsqhd->bskhd", dsr, q.float()) * scale
+    dv = torch.einsum("bshqk,bsqhd->bskhd", pr, dof)
+    dsum = ds.sum(3).reshape(B * S * H, -1)
+    db2 = None if bias2 is None else ds.sum(1, keepdim=True).to(bias2.dtype)
+    return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype), dsum, db2
+
+
+def _db1(dsum, bias1):
+    """bias1's gradient from the per-(g, key) row sums: bias1 broadcasts
+    over queries and heads, so it is the sum of dsum over heads (a torch
+    sum outside the kernels, as the reference leaves it to XLA)."""
+    B, S, _, _, N = bias1.shape
+    return dsum.reshape(B, S, -1, N).sum(2).reshape(B, S, 1, 1, N).to(bias1.dtype)
+
+
+def evoformer_bwd_plain(q, k, v, bias1, bias2, o, lse, do):
+    """The plain version of the evoformer backward (what kernels #8-#10
+    compute tile by tile): dense f32 recompute of P from lse, with delta =
+    rowsum(dO * O) in f32. Returns (dq, dk, dv, db1, db2); db1 / db2 are
+    None where the bias is."""
+    dq, dk, dv, dsum, db2 = _bwd_plain(q, k, v, bias1, bias2, lse, _delta(o, do), do)
+    return dq, dk, dv, None if bias1 is None else _db1(dsum, bias1), db2
+
+
+def _check_args(what, tensors):
+    """CUDA, bf16 (lse / delta f32), contiguous, 16-byte aligned, and the
+    contract's shapes; a head dim the kernels were built for."""
+    B, S, N, H, D = tensors["q"].shape
+    tensors = {n: t for n, t in tensors.items() if t is not None}
+    dtypes = {n: (_F32 if n in ("lse", "delta") else _BF16) for n in tensors}
+    check_cuda_args(what, tensors, dtypes,
+                    aligned=tuple(n for n in tensors if n not in ("bias1", "bias2")))
+    shapes = {"bias1": (B, S, 1, 1, N), "bias2": (B, 1, H, N, N), "lse": (B * S * H, N),
+              "delta": (B * S * H, N)}
+    for name, t in tensors.items():
+        check_shape(what, name, t, shapes.get(name, (B, S, N, H, D)))
+    if D not in _HEAD_DIMS:
+        raise ValueError(f"{what}: head_dim {D}; the kernels are built for {_HEAD_DIMS}")
+
+
+def _dims(q):
+    B, S, N, H, D = q.shape
+    return B, S, N, H, D, 1.0 / D ** 0.5
+
+
+def evoformer_fwd(q, k, v, bias1=None, bias2=None):
+    """Evoformer attention forward (kernel #7: csrc/evoformer_fwd.cu). q,
+    k, v [B, S, N, H, D] bf16, bias1 [B, S, 1, 1, N] / bias2 [B, 1, H, N, N]
+    bf16 or None, all contiguous. Returns (o [B, S, N, H, D] bf16, lse
+    [G, N] f32). CPU tensors take the plain version."""
+    if not q.is_cuda:
+        return evoformer_fwd_plain(q, k, v, bias1, bias2)
+    what = "evoformer_fwd"
+    _check_args(what, {"q": q, "k": k, "v": v, "bias1": bias1, "bias2": bias2})
+    B, S, N, H, D, scale = _dims(q)
+    o = torch.empty_like(q)
+    lse = torch.empty((B * S * H, N), dtype=_F32, device=q.device)
+    if o.numel() == 0:
+        return o, lse
+    lib = build.load("evoformer_fwd")
+    err = lib.evoformer_fwd(ptr(o), ptr(lse), ptr(q), ptr(k), ptr(v),
+                            None if bias1 is None else ptr(bias1),
+                            None if bias2 is None else ptr(bias2), B, S, N, H, D, scale,
+                            stream_of(q))
+    build.check(lib, err, what)
+    evoformer_fwd.launches += 1
+    return o, lse
+
+
+evoformer_fwd.launches = 0
+
+
+def _bwd_args(what, q, k, v, bias1, bias2, do, lse, delta):
+    _check_args(what, {"q": q, "k": k, "v": v, "bias1": bias1, "bias2": bias2, "do": do,
+                       "lse": lse, "delta": delta})
+    return (ptr(q), ptr(k), ptr(v), None if bias1 is None else ptr(bias1),
+            None if bias2 is None else ptr(bias2), ptr(do), ptr(lse), ptr(delta))
+
+
+def evoformer_bwd_dq(q, k, v, bias1, bias2, do, lse, delta):
+    """dq of evoformer attention (kernel #8: csrc/evoformer_bwd.cu) from the
+    forward's lse and delta = rowsum(dO * O) [G, N] f32; other arguments as
+    `evoformer_fwd`, do like q. Returns dq [B, S, N, H, D] bf16. CPU
+    tensors take the plain version."""
+    if not q.is_cuda:
+        return _bwd_plain(q, k, v, bias1, bias2, lse, delta, do)[0]
+    what = "evoformer_bwd_dq"
+    args = _bwd_args(what, q, k, v, bias1, bias2, do, lse, delta)
+    dq = torch.empty_like(q)
+    if dq.numel() == 0:
+        return dq
+    lib = build.load("evoformer_bwd")
+    err = lib.evoformer_bwd_dq(ptr(dq), *args, *_dims(q), stream_of(q))
+    build.check(lib, err, what)
+    evoformer_bwd_dq.launches += 1
+    return dq
+
+
+evoformer_bwd_dq.launches = 0
+
+
+def evoformer_bwd_dkv(q, k, v, bias1, bias2, do, lse, delta):
+    """dk, dv and the per-(g, key) row sums of dS (kernel #9:
+    csrc/evoformer_bwd.cu; bias1's gradient is their sum over heads,
+    `_db1`). Arguments as `evoformer_bwd_dq`. Returns (dk, dv [B, S, N, H,
+    D] bf16, dsum [G, N] f32). CPU tensors take the plain version."""
+    if not q.is_cuda:
+        return _bwd_plain(q, k, v, bias1, bias2, lse, delta, do)[1:4]
+    what = "evoformer_bwd_dkv"
+    args = _bwd_args(what, q, k, v, bias1, bias2, do, lse, delta)
+    dk, dv = torch.empty_like(k), torch.empty_like(v)
+    dsum = torch.empty_like(lse)
+    if dk.numel() == 0:
+        return dk, dv, dsum
+    lib = build.load("evoformer_bwd")
+    err = lib.evoformer_bwd_dkv(ptr(dk), ptr(dv), ptr(dsum), *args, *_dims(q), stream_of(q))
+    build.check(lib, err, what)
+    evoformer_bwd_dkv.launches += 1
+    return dk, dv, dsum
+
+
+evoformer_bwd_dkv.launches = 0
+
+
+def evoformer_bwd_db2(q, k, v, bias1, bias2, do, lse, delta):
+    """bias2's gradient, the sum of dS over the S sequences (kernel #10:
+    csrc/evoformer_bwd.cu; each output tile is one block that walks the
+    sequences, no atomics). bias2 is required; other arguments as
+    `evoformer_bwd_dq`. Returns db2 [B, 1, H, N, N] in bias2's dtype. CPU
+    tensors take the plain version."""
+    if bias2 is None:
+        raise ValueError("evoformer_bwd_db2: bias2 is None, so it has no gradient")
+    if not q.is_cuda:
+        return _bwd_plain(q, k, v, bias1, bias2, lse, delta, do)[4]
+    what = "evoformer_bwd_db2"
+    args = _bwd_args(what, q, k, v, bias1, bias2, do, lse, delta)
+    db2 = torch.empty_like(bias2)
+    if db2.numel() == 0:
+        return db2
+    lib = build.load("evoformer_bwd")
+    err = lib.evoformer_bwd_db2(ptr(db2), *args, *_dims(q), stream_of(q))
+    build.check(lib, err, what)
+    evoformer_bwd_db2.launches += 1
+    return db2
+
+
+evoformer_bwd_db2.launches = 0
+
+
+def evoformer_attention_bwd(q, k, v, bias1, bias2, o, lse, do, need_db1=True, need_db2=True):
+    """(dq, dk, dv, db1, db2) from the forward's residuals: kernels #8, #9
+    and, when bias2's gradient is needed, #10 for CUDA tensors (delta and
+    bias1's head sum computed with torch around them, as the reference
+    computes them with XLA); the plain version for CPU tensors. db1 / db2
+    are None where the bias is absent or its gradient not needed."""
+    need_db1 = need_db1 and bias1 is not None
+    need_db2 = need_db2 and bias2 is not None
+    if not q.is_cuda:
+        dq, dk, dv, db1, db2 = evoformer_bwd_plain(q, k, v, bias1, bias2, o, lse, do)
+        return dq, dk, dv, db1 if need_db1 else None, db2 if need_db2 else None
+    delta = _delta(o, do)
+    args = (q, k, v, bias1, bias2, do, lse, delta)
+    dq = evoformer_bwd_dq(*args)
+    dk, dv, dsum = evoformer_bwd_dkv(*args)
+    db1 = _db1(dsum, bias1) if need_db1 else None
+    db2 = evoformer_bwd_db2(*args) if need_db2 else None
+    return dq, dk, dv, db1, db2
+
+
+class EvoformerAttention(torch.autograd.Function):
+    """Evoformer attention with its backward (the reference's `_evo_fused`
+    custom VJP). forward(q, k, v, bias1, bias2) -> o, with either bias
+    None; it saves q, k, v, the biases, o and lse. An absent bias, or one
+    that needs no gradient, gets None back: no zero placeholders."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, bias1, bias2):
+        q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
+        bias1 = None if bias1 is None else bias1.contiguous()
+        bias2 = None if bias2 is None else bias2.contiguous()
+        o, lse = evoformer_fwd(q, k, v, bias1, bias2)
+        ctx.save_for_backward(q, k, v, bias1, bias2, o, lse)
+        ctx.set_materialize_grads(False)
+        return o
+
+    @staticmethod
+    def backward(ctx, do):
+        if do is None:
+            return None, None, None, None, None
+        q, k, v, bias1, bias2, o, lse = ctx.saved_tensors
+        return evoformer_attention_bwd(q, k, v, bias1, bias2, o, lse, do.contiguous(),
+                                       need_db1=ctx.needs_input_grad[3],
+                                       need_db2=ctx.needs_input_grad[4])

@@ -27,7 +27,8 @@ ring attention): a loss that reaches lse raises in the backward.
 import torch
 
 from . import build
-from ._common import check_cuda_args, check_shape, ptr, stream_of
+from ._common import (BWD_FLOOR, BWD_ROW_ATOL, BWD_RTOL, bwd_mismatch,  # noqa: F401
+                      check_cuda_args, check_shape, ptr, stream_of)
 
 _HEAD_DIMS = (64, 128)
 
@@ -98,37 +99,6 @@ def flash_attention_bwd_plain(q, k, v, o, lse, do):
     P and dS rounded to the inputs' dtype as the kernels round them.
     Returns (dq, dk, dv) in the inputs' dtypes."""
     return _bwd_plain(q, k, v, lse, _delta(o, do), do)
-
-
-# Tolerance of a backward kernel's gradient against the plain backward on
-# the same bf16 inputs (which rounds P and dS as the kernels do). What is
-# left between the two: the f32 summation order, which may flip the bf16 rounding of a few P or dS entries (each
-# flip moves a gradient row by 2^-8 of one of its terms, at most ~2^-6 of
-# the row's RMS for unit-normal inputs), and the bf16 rounding of the
-# result (one ulp: 2^-7 relative). Per element: 2^-7 of |plain| + 2^-5 of
-# the plain row's RMS over the head dimension + 2^-10 of the tensor's RMS
-# (rows whose exact value is 0, such as dq of the first query, hold only
-# rounding noise). The atol follows each row's own scale, so a late row,
-# whose gradient is ~sqrt(S) times smaller than an early one, is held as
-# tightly as an early one.
-BWD_RTOL, BWD_ROW_ATOL, BWD_FLOOR = 2.0 ** -7, 2.0 ** -5, 2.0 ** -10
-
-
-def bwd_mismatch(got, ref):
-    """Compare a backward kernel's gradient `got` with the plain version
-    `ref` ([..., D], the same shape) under the tolerance above. Returns a
-    dict: n_over (elements beyond it, non-finite ones included),
-    worst_ratio (largest |got - ref| / limit), max_abs_err, err_rms,
-    ref_rms, ref_max."""
-    got, ref = got.float(), ref.float()
-    err = (got - ref).abs()
-    rms = ref.square().mean().sqrt()
-    limit = (BWD_RTOL * ref.abs() + BWD_ROW_ATOL * ref.square().mean(-1, keepdim=True).sqrt()
-             + BWD_FLOOR * rms).clamp_min(torch.finfo(torch.float32).tiny)
-    over = (err > limit) | ~torch.isfinite(got)
-    return {"n_over": int(over.sum()), "worst_ratio": (err / limit).max().item(),
-            "max_abs_err": err.max().item(), "err_rms": err.square().mean().sqrt().item(),
-            "ref_rms": rms.item(), "ref_max": ref.abs().max().item()}
 
 
 def _check_attention_args(what, tensors, dtypes, q, k):

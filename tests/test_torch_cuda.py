@@ -11,6 +11,9 @@ import numpy as np
 import pytest
 import torch
 
+from deepspeed_tpu_torch.ops import cuda as PK
+from deepspeed_tpu_torch.ops import evoformer_attention as PE
+from deepspeed_tpu_torch.ops.cuda import evoformer_attention as PEV
 from deepspeed_tpu_torch.ops.cuda import flash_attention as PF
 from deepspeed_tpu_torch.ops.cuda import paged_attention as PP
 
@@ -210,3 +213,110 @@ class TestFlashBackwardOnCard:
         with pytest.raises(ValueError):
             PF.flash_bwd_dq(q96, q96[:, :, :2].contiguous(), q96[:, :, :2].contiguous(), q96,
                             lse, delta)
+
+
+def _evo_case(rng, dev, S, N, H, D, which, B=1):
+    """bf16 q, k, v, dO [B, S, N, H, D] on the card and the biases of
+    `which` ("both", "mask", "pair", "none"): an MSA mask bias (-1e9 on
+    ~10% of the keys, key 0 never, so no row is masked whole) and a pair
+    bias normal * 0.5."""
+    q, k, v, do = (_bf16_cuda(rng.standard_normal((B, S, N, H, D)), dev) for _ in range(4))
+    masked = rng.random((B, S, 1, 1, N)) < 0.1
+    masked[..., 0] = False
+    b1 = _bf16_cuda(np.where(masked, -1e9, 0.0), dev) if which in ("both", "mask") else None
+    b2 = (_bf16_cuda(0.5 * rng.standard_normal((B, 1, H, N, N)), dev)
+          if which in ("both", "pair") else None)
+    return q, k, v, do, b1, b2
+
+
+@pytest.mark.cuda
+class TestEvoformerOnCard:
+    """Kernels #7-#10 against their plain versions on the same bf16 inputs
+    (the plain versions round P and dS to bf16 where the kernels do), under
+    `bwd_mismatch`'s stated tolerance: one bf16 ulp of the value + 2^-5 of
+    the row's RMS over the last axis (D for o, dq, dk, dv; the keys for the
+    row sums and the bias gradients) + 2^-10 of the tensor's RMS. N = 48
+    and 200 leave a ragged last tile; S = 4 makes db2 a sum over
+    sequences."""
+
+    @pytest.mark.parametrize("S", [1, 4])
+    @pytest.mark.parametrize("which", ["both", "mask", "pair", "none"])
+    @pytest.mark.parametrize("D", [32, 64])
+    @pytest.mark.parametrize("N", [48, 200, 256])
+    def test_kernels_match_plain(self, rng, cuda_device, N, D, which, S):
+        q, k, v, do, b1, b2 = _evo_case(rng, cuda_device, S, N, 2, D, which)
+        o, lse = PEV.evoformer_fwd(q, k, v, b1, b2)
+        ro, rlse = PEV.evoformer_fwd_plain(q, k, v, b1, b2)
+        torch.cuda.synchronize()
+        _assert_grad_close(o, ro, f"o N={N} D={D} {which} S={S}")
+        torch.testing.assert_close(lse, rlse, rtol=1e-4, atol=1e-4)
+        delta = PEV._delta(o, do)
+        args = (q, k, v, b1, b2, do, lse, delta)
+        got = {"dq": PEV.evoformer_bwd_dq(*args)}
+        got["dk"], got["dv"], got["dsum"] = PEV.evoformer_bwd_dkv(*args)
+        ref = dict(zip(("dq", "dk", "dv", "dsum", "db2"),
+                       PEV._bwd_plain(q, k, v, b1, b2, lse, delta, do)))
+        if b2 is not None:
+            got["db2"] = PEV.evoformer_bwd_db2(*args)
+        torch.cuda.synchronize()
+        for name, g in got.items():
+            _assert_grad_close(g, ref[name], f"{name} N={N} D={D} {which} S={S}")
+
+    def test_function_grads_match_autograd_through_plain(self, rng, cuda_device):
+        """One forward and backward through `ds4sci_evoformer_attention`
+        launches each kernel once. Its gradients are the kernels' on the
+        forward kernel's residuals (held at the tolerance above), and they
+        are the gradient of attention: against autograd through the dense
+        plain forward in f32, where the bf16 rounding of o (in delta), P
+        and dS is what differs, the error's RMS stays within 2^-7 of the
+        gradient's (a 2% scale error would be 2^-5.6)."""
+        q, k, v, do, b1, b2 = _evo_case(rng, cuda_device, 4, 200, 4, 32, "both")
+        leaves = [t.clone().requires_grad_() for t in (q, k, v, b1, b2)]
+        PK.reset_launch_counts()
+        out = PE.ds4sci_evoformer_attention(*leaves[:3], leaves[3:])
+        got = torch.autograd.grad(out, leaves, do)
+        counts = PK.launch_counts()
+        assert counts == {n: int(n.startswith("evoformer")) for n in counts}, counts
+        o, lse = PEV.evoformer_fwd(q, k, v, b1, b2)
+        same = PEV.evoformer_bwd_plain(q, k, v, b1, b2, o, lse, do)
+        leaves = [t.float().requires_grad_() for t in (q, k, v, b1, b2)]
+        dense = torch.autograd.grad(PEV.evoformer_fwd_plain(*leaves)[0], leaves, do.float())
+        for name, g, r, d in zip(("dq", "dk", "dv", "db1", "db2"), got, same, dense):
+            assert g.abs().max() > 0, f"{name} is zero: no gradient reached the input"
+            _assert_grad_close(g, r, name)
+            assert _rms(g.float() - d.float()) <= 2.0 ** -7 * _rms(d), name
+
+    def test_two_runs_bit_identical(self, rng, cuda_device):
+        q, k, v, do, b1, b2 = _evo_case(rng, cuda_device, 4, 200, 4, 32, "both")
+        o, lse = PEV.evoformer_fwd(q, k, v, b1, b2)
+        first = PEV.evoformer_attention_bwd(q, k, v, b1, b2, o, lse, do)
+        second = PEV.evoformer_attention_bwd(q, k, v, b1, b2, o, lse, do)
+        torch.cuda.synchronize()
+        for a, b in zip(first, second):
+            assert torch.equal(a, b)
+
+    def test_wrappers_reject_bad_inputs(self, rng, cuda_device):
+        q, k, v, do, b1, b2 = _evo_case(rng, cuda_device, 2, 64, 2, 32, "both")
+        with pytest.raises(TypeError):
+            PEV.evoformer_fwd(q.float(), k, v, b1, b2)
+        with pytest.raises(TypeError):
+            PEV.evoformer_fwd(q, k, v, b1.float(), b2)
+        with pytest.raises(ValueError):
+            PEV.evoformer_fwd(q, k.transpose(2, 3), v, b1, b2)  # not contiguous
+        with pytest.raises(ValueError):
+            PEV.evoformer_fwd(q, k, v, b1, b2.transpose(-1, -2))
+        with pytest.raises(ValueError):
+            PEV.evoformer_fwd(q, k.cpu(), v, b1, b2)
+        with pytest.raises(ValueError):
+            PEV.evoformer_fwd(q, k, v, b1[:, :1].contiguous(), b2)
+        q48 = torch.zeros((1, 2, 64, 2, 48), dtype=torch.bfloat16, device=cuda_device)
+        with pytest.raises(ValueError):
+            PEV.evoformer_fwd(q48, q48, q48)
+        o, lse = PEV.evoformer_fwd(q, k, v, b1, b2)
+        delta = PEV._delta(o, do)
+        with pytest.raises(TypeError):
+            PEV.evoformer_bwd_dq(q, k, v, b1, b2, do, lse.to(torch.bfloat16), delta)
+        with pytest.raises(ValueError):
+            PEV.evoformer_bwd_dkv(q, k, v, b1, b2, do, lse[:, :32].contiguous(), delta)
+        with pytest.raises(ValueError):
+            PEV.evoformer_bwd_db2(q, k, v, b1, None, do, lse, delta)

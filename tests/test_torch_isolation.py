@@ -2,9 +2,10 @@
 
 A fresh interpreter imports the port, serves a tiny model on the CPU end
 to end (prefill, single-token decode, chunked continuation, greedy
-decode_multi) and takes one bf16 train step through `initialize`;
-afterwards neither `jax` nor `deepspeed_tpu` may be in
-sys.modules. A static scan of the port's sources and chip_smoke.py backs
+decode_multi), takes one bf16 train step through `initialize` and runs
+one forward and backward of `ds4sci_evoformer_attention` with both
+biases; no kernel may launch, and afterwards neither `jax` nor
+`deepspeed_tpu` may be in sys.modules. A static scan of the port's sources and chip_smoke.py backs
 it up for modules the run does not import."""
 
 import re
@@ -49,6 +50,13 @@ trainer = initialize({"train_micro_batch_size_per_gpu": 2, "bf16": {"enabled": T
                      param_init_fn=lambda g: T.init(tcfg, g, device="cpu"), device="cpu")
 m = trainer.train_batch({"tokens": r.integers(0, 512, (2, 33)).astype(np.int32)})
 assert np.isfinite(m["loss"]) and np.isfinite(m["grad_norm"]), m
+from deepspeed_tpu_torch.ops.evoformer_attention import ds4sci_evoformer_attention
+qkv = [torch.from_numpy(r.standard_normal((1, 2, 40, 2, 32)).astype(np.float32)).requires_grad_()
+       for _ in range(3)]
+mask = torch.from_numpy(np.where(r.random((1, 2, 1, 1, 40)) < 0.1, -1e9, 0.0).astype(np.float32))
+pair = torch.from_numpy(r.standard_normal((1, 1, 2, 40, 40)).astype(np.float32)).requires_grad_()
+ds4sci_evoformer_attention(*qkv, [mask, pair]).sum().backward()
+assert all(torch.isfinite(x.grad).all() for x in qkv + [pair])
 assert K.launch_counts() == {n: 0 for n in K.WRAPPERS}  # CPU: no kernel launched
 bad = sorted(m for m in sys.modules if m == "jax" or m.startswith("jax.")
              or m == "deepspeed_tpu" or m.startswith("deepspeed_tpu."))

@@ -14,7 +14,11 @@ Phases (any failure raises and exits nonzero):
              S=2048, the serving kernels at the serving shapes) and hold the
              result against its plain PyTorch version on the same inputs
              (for the flash backward, two faults planted in the kernels'
-             output must fail that check);
+             output must fail that check; the int8 KV kernels' codes and
+             scales bit for bit, with .5 ties, zero rows and subnormal
+             rows, where a quantizer rounding ties away from zero must
+             fail, and a case where dequantizing without the bf16 rounding
+             must fail);
              time kernel, plain version and (where one exists) a single
              PyTorch library call computing the same function: device time
              from torch.profiler, and the time of back-to-back calls from
@@ -40,6 +44,17 @@ Phases (any failure raises and exits nonzero):
              plain path than the bf16 plain path is. Then times TTFT of a
              512-token prompt and batch-8 decode throughput, and profiles
              where the time goes in each.
+4b. serve_int8 - the same model and counted sequence on int8 KV pools
+             (kv_cache_dtype="int8"), plus a put of the 512-token prompt's
+             first 256 tokens: a full prefix hit, capped at len - 1, whose
+             tail block is copied with its scale tiles. Only the three int8
+             kernels and flash_fwd may launch, each at least once. Checks:
+             as phase 4 against the plain int8 paths; one fused decode step
+             whose pools equal the plain quantizing write of the same rows
+             bit for bit in every layer (and the bf16 plain path's pools in
+             layer 0); bf16 / int8 kv_bytes_per_token >= 1.8; a prefix hit
+             and a COW copy. Reports the int8 - bf16 engine logit gap, TTFT
+             and decode throughput.
 5. evoformer - DS4Sci evoformer attention (ds4sci_evoformer_attention) at
              AlphaFold 2 / OpenFold widths, bf16, three cases (EVO_CASES):
              for each, one forward and backward with every launch counter
@@ -94,6 +109,14 @@ KERNELS = {
                            "deepspeed_tpu/ops/pallas/paged_attention.py:795"),
     "paged_decode_attention": ("deepspeed_tpu_torch/csrc/paged_decode.cu",
                                "deepspeed_tpu/ops/pallas/paged_attention.py:443"),
+    # the int8 modes: #6 reused as paged_scale_write (:902) with the XLA
+    # quantize_kv_rows in one kernel; #4 with k_scale/v_scale, plain and fused
+    "paged_kv_write_int8": ("deepspeed_tpu_torch/csrc/paged_kv_write.cu",
+                            "deepspeed_tpu/ops/pallas/paged_attention.py:889"),
+    "paged_decode_fused_int8": ("deepspeed_tpu_torch/csrc/paged_decode.cu",
+                                "deepspeed_tpu/ops/pallas/paged_attention.py:443"),
+    "paged_decode_attention_int8": ("deepspeed_tpu_torch/csrc/paged_decode.cu",
+                                    "deepspeed_tpu/ops/pallas/paged_attention.py:443"),
     "flash_fwd": ("deepspeed_tpu_torch/csrc/flash_fwd.cu",
                   "deepspeed_tpu/ops/pallas/flash_attention.py:233"),
     "flash_bwd_dq": ("deepspeed_tpu_torch/csrc/flash_bwd.cu",
@@ -111,6 +134,8 @@ KERNELS = {
 }
 TRAIN_KERNELS = ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv")
 SERVE_KERNELS = ("paged_kv_write", "paged_decode_fused", "paged_decode_attention", "flash_fwd")
+INT8_KERNELS = ("paged_kv_write_int8", "paged_decode_fused_int8", "paged_decode_attention_int8",
+                "flash_fwd")
 EVO_KERNELS = ("evoformer_fwd", "evoformer_bwd_dq", "evoformer_bwd_dkv", "evoformer_bwd_db2")
 # the evoformer path: DS4Sci attention at the widths of AlphaFold 2 (supp.
 # Algorithm 7, MSA row attention with pair bias, 8 heads x 32; Algorithms
@@ -133,7 +158,11 @@ EVO_CASES = {
 # atol 1e-3 near zero); flash also feeds bf16 probabilities to the tensor
 # cores (another 2^-9 relative per term)
 KERNEL_TOL = {"paged_kv_write": (0.0, 0.0), "paged_decode_fused": (1e-3, 8e-3),
-              "paged_decode_attention": (1e-3, 8e-3), "flash_fwd": (2e-2, 2e-2)}
+              "paged_decode_attention": (1e-3, 8e-3), "flash_fwd": (2e-2, 2e-2),
+              "paged_decode_fused_int8": (1e-3, 8e-3), "paged_decode_attention_int8": (1e-3, 8e-3)}
+# (the int8 write and the codes and scales of the fused int8 decode:
+# bit-exact; the int8 decode output: as the bf16 decode, the plain version
+# dequantizing to bf16 where the kernel does)
 # the backward kernels: against the plain backward on the same bf16 inputs
 # (which rounds P and dS to bf16 where they do), under FA.bwd_mismatch's
 # tolerance (one bf16 ulp of the value + 2^-5 of the row's RMS); two faults
@@ -554,6 +583,152 @@ def _evo_kernel_checks(dev, bound_ms):
     return out
 
 
+def _quantize_ties_away(x):
+    """quantize_kv_rows with .5 ties rounded away from zero (C's roundf)
+    instead of to even: the planted fault the bit-exact check of the int8
+    kernels must catch. Returns the codes."""
+    import torch
+
+    xf = x.float()
+    scale = xf.abs().amax(-1) * torch.tensor(1.0 / 127.0, dtype=torch.float32)
+    scale = torch.where(scale > 0, scale, torch.ones_like(scale))
+    r = xf / scale[..., None]
+    return (torch.sign(r) * torch.floor(r.abs() + 0.5)).clamp(-127, 127).to(torch.int8)
+
+
+def _int8_rows(randn, T, KV, D, built):
+    """bf16 rows [T, KV, D], unit normal, with rows `built[0]`, `built[1]`,
+    `built[2]` (each a list of row ids) made into .5 ties (absmax 127, so
+    the scale is exactly 1 and each other element is k + 0.5), zeros, and
+    a subnormal absmax (3e-39 and -5e-39)."""
+    import torch
+
+    x = randn(T, KV, D).float()
+    ties, zeros, subnormal = built
+    n = len(ties)
+    half = torch.randint(-126, 126, (n, KV, D), device=x.device).float() + 0.5
+    half[..., 0] = 127.0
+    x[ties] = half
+    x[zeros] = 0.0
+    sub = torch.full((len(subnormal), KV, D), 3e-39, device=x.device)
+    sub[..., ::3] = -5e-39
+    x[subnormal] = sub
+    return x.to(torch.bfloat16)
+
+
+def _int8_kernel_checks(PA, randn, dev, H, KV, D, bs, nblk, NB, slots, ctx, tables, q,
+                        bound_ms):
+    """The int8 kernels against their plain versions on the same card
+    inputs, at the serving shapes of the bf16 rows: codes and scales
+    bit-exact (the in-kernel quantizer repeats quantize_kv_rows, ties and
+    subnormals included), attention output at the bf16 decode's tolerance.
+    Plus two cases with teeth: the quantizer with ties rounded away from
+    zero must fail the bit-exact check, and the dequantization's rounding
+    to bf16 must show (q = 0, see below)."""
+    import torch
+
+    bf16, f32 = torch.bfloat16, torch.float32
+    out = {}
+
+    def pools():
+        k, v = randn(nblk * bs, KV, D), randn(nblk * bs, KV, D)
+        qk, ks, qv, vs = PA.quantize_kv_rows(k, v)
+        return [qk.reshape(nblk, bs, KV, D), qv.reshape(nblk, bs, KV, D),
+                ks.reshape(nblk, bs, KV), vs.reshape(nblk, bs, KV)]
+
+    # -- paged_kv_write_int8: the prefill wave's 1024 rows, 768 live; live
+    #    rows 0-15 built as ties, 16-19 zeros, 20-23 subnormal
+    T = slots.shape[0]
+    live = torch.nonzero(slots >= 0)[:, 0]
+    built = (live[:16], live[16:20], live[20:24])
+    kn, vn = _int8_rows(randn, T, KV, D, built), _int8_rows(randn, T, KV, D, built)
+    got = pools()
+    want = [p.clone() for p in got]
+    PA.paged_kv_write_int8(*got, kn, vn, slots)
+    PA.paged_kv_write_quant_plain(*want, kn, vn, slots)
+    for name, a, b in zip(("k codes", "v codes", "k scales", "v scales"), got, want):
+        _check_close(f"paged_kv_write_int8 {name}", a, b, 0.0, 0.0)
+    idx = slots[live].long()
+    codes = got[0].view(-1, KV, D)[idx]
+    fault = _quantize_ties_away(kn[live])
+    n_fault = int((fault != codes).sum())
+    if n_fault == 0:
+        raise AssertionError("paged_kv_write_int8: the quantizer with ties rounded away from "
+                             "zero passes the bit-exact check")
+    sub_scale = got[2].view(-1, KV)[idx[20:24]]
+    if not (sub_scale > 0).all() or not (sub_scale < torch.finfo(f32).tiny).all():
+        raise AssertionError(f"paged_kv_write_int8: subnormal rows lost their scale: {sub_scale}")
+    n_live = int(live.numel())
+    out["paged_kv_write_int8"] = dict(
+        max_abs_err=0.0,
+        **_timings(lambda: PA.paged_kv_write_int8(*got, kn, vn, slots),
+                   lambda: PA.paged_kv_write_quant_plain(*want, kn, vn, slots), None, 50),
+        shape=f"T={T} rows ({n_live} live), pools [{nblk},{bs},{KV},{D}] int8 + "
+              f"[{nblk},{bs},{KV}] f32",
+        bound=bound_ms(n_live * KV * D * 2 * 2 + n_live * KV * (D + 4) * 2 + 4 * T, 0.0),
+        planted_fault_ties_away_n_codes=n_fault)
+
+    # -- int8 decode, both modes, at the bf16 decode rows' shapes
+    S = q.shape[0]
+    k_new, v_new = randn(S, KV, D), randn(S, KV, D)
+    slots_d = (tables[:, 0] * bs + (ctx - 1) % bs).to(torch.int32)
+    ctx_sum = int(ctx.sum())
+    io = S * H * D * 2 * 2 + S * NB * 4 + S * 4  # q in, out, tables, ctx
+    pos_bytes = KV * (D + 4) * 2  # one position's K and V codes and scales
+    for name, fused in (("paged_decode_fused_int8", True), ("paged_decode_attention_int8", False)):
+        got = pools()
+        want = [p.clone() for p in got]
+        if fused:
+            run = lambda: PA.paged_decode_fused_int8(q, got[0], got[1], tables, ctx, k_new,
+                                                     v_new, slots_d, got[2], got[3])
+            plain = lambda: PA.paged_decode_fused_plain(q, want[0], want[1], tables, ctx, k_new,
+                                                        v_new, slots_d, want[2], want[3])
+            o, ref = run()[0], plain()[0]
+            for pname, a, b in zip(("k codes", "v codes", "k scales", "v scales"), got, want):
+                _check_close(f"{name} {pname}", a, b, 0.0, 0.0)
+            n_bytes = (io + (ctx_sum - S) * pos_bytes + S * KV * D * 2 * 2 + S * pos_bytes
+                       + S * 4)
+        else:
+            run = lambda: PA.paged_decode_attention_int8(q, got[0], got[1], tables, ctx, got[2],
+                                                         got[3])
+            plain = lambda: PA.paged_decode_attention_plain(q, want[0], want[1], tables, ctx,
+                                                            want[2], want[3])
+            o, ref = run(), plain()
+            n_bytes = io + ctx_sum * pos_bytes
+        atol, rtol = KERNEL_TOL[name]
+        out[name] = dict(
+            max_abs_err=_check_close(name, o, ref, atol, rtol),
+            **_timings(run, plain, None, 50),
+            shape=f"S={S}, ctx {int(ctx.min())}..{int(ctx.max())}, H={H}, KV={KV}, D={D}, "
+                  f"bs={bs}, int8 pools of {nblk} blocks, bf16 q",
+            bound=bound_ms(n_bytes, 4 * ctx_sum * H * D))
+
+    # -- the dequantization rounds to bf16: q = 0 gives every live column
+    #    P = 1/64 exactly, so the output is the exact mean of 64 dequantized
+    #    V rows rounded once to bf16, in any order; codes 64..127 with scale
+    #    1 + 2^-9 dequantize to code + code/512, which bf16 rounds to code.
+    #    Kernel and plain version must agree bit for bit; the plain version
+    #    without the rounding (its f32 mode) must not.
+    kc = torch.randint(-127, 128, (nblk, bs, KV, D), device=dev, dtype=torch.int8)
+    vc = torch.randint(64, 128, (nblk, bs, KV, D), device=dev, dtype=torch.int8)
+    ks = torch.rand((nblk, bs, KV), device=dev) + 0.01
+    vs = torch.full((nblk, bs, KV), 1 + 2.0 ** -9, device=dev)
+    ctx64 = torch.full((S,), 64, dtype=torch.int32, device=dev)
+    q0 = torch.zeros_like(q)
+    o = PA.paged_decode_attention_int8(q0, kc, vc, tables, ctx64, ks, vs)
+    _check_close("int8 dequant rounding", o, PA.paged_decode_attention_plain(
+        q0, kc, vc, tables, ctx64, ks, vs), 0.0, 0.0)
+    unrounded = PA.paged_decode_attention_plain(q0.float(), kc, vc, tables, ctx64, ks, vs)
+    n_off = int((unrounded.to(bf16) != o).sum())
+    if n_off == 0:
+        raise AssertionError("int8 decode: dequantizing without the bf16 rounding passes")
+    out["paged_decode_attention_int8"]["planted_fault_unrounded_dequant_n_elements"] = n_off
+    print(json.dumps({"int8_planted_faults": {
+        "ties_away_from_zero_codes_off": n_fault, "unrounded_dequant_outputs_off": n_off,
+        "subnormal_rows_scales": sub_scale.flatten().tolist()[:4]}}))
+    return out
+
+
 def check_kernels(cfg, dev):
     import torch
 
@@ -637,6 +812,8 @@ def check_kernels(cfg, dev):
             shape=f"S={S}, ctx {int(ctx.min())}..{int(ctx.max())}, H={H}, KV={KV}, D={D}, "
                   f"bs={bs}, arena {nblk} blocks, bf16",
             bound=bound_ms(n_bytes, ops))
+    results.update(_int8_kernel_checks(PA, randn, dev, H, KV, D, bs, nblk, NB, slots, ctx,
+                                       tables, q, bound_ms))
 
     # -- flash forward: the 512-token prefill wave of the serving path (B=1)
     #    and the training shape; the kernels line carries the training one
@@ -768,7 +945,95 @@ def run_train(mcfg, dev):
 # phase 4: the serving slice at full flagship width
 # ---------------------------------------------------------------------------
 
-def run_slice(cfg, dev):
+def _pool_copies(cache, dtype=None):
+    """A copy of a PagedCache; bf16/f32 pools cast to `dtype`, int8 code
+    pools and their f32 scale pools copied as they are."""
+    from deepspeed_tpu_torch.inference import model as M
+
+    if cache.quantized:
+        cp = lambda xs: [x.clone() for x in xs]
+        return M.PagedCache(k=cp(cache.k), v=cp(cache.v), k_scale=cp(cache.k_scale),
+                            v_scale=cp(cache.v_scale))
+    return M.PagedCache(k=[x.to(dtype, copy=True) for x in cache.k],
+                        v=[x.to(dtype, copy=True) for x in cache.v])
+
+
+def _int8_step_pools(eng, cfg, dec):
+    """One counted fused decode step of the int8 engine (kernel path, bf16)
+    on copies of its live pools, held against the plain quantizing write:
+    the k/v rows each layer handed paged_decode_fused_int8 (recorded on the
+    way in), quantized and scattered by paged_kv_write_quant_plain into
+    copies of the pre-step pools, must give the kernel's pools bit for
+    bit. Also the bf16 plain path's own step (use_kernel=False: the
+    separate quantizing write, then plain attention): its layer-0 pools
+    must equal the kernel's bit for bit (layer 0's rows are the same
+    computation on both paths); later layers' rows differ by the two
+    paths' attention rounding, so for them the share of equal codes and the
+    largest code gap are reported."""
+    import torch
+
+    from deepspeed_tpu_torch.inference import model as M
+    from deepspeed_tpu_torch.ops import cuda as K
+    from deepspeed_tpu_torch.ops.cuda import paged_attention as PA
+
+    before = _pool_copies(eng.cache)
+    kern, plain = _pool_copies(before), _pool_copies(before)
+    rows, real = [], M.paged_decode_fused_int8
+
+    def record(q, kc, vc, tbl, ctx, k_new, v_new, slots, ks, vs):
+        rows.append((k_new.clone(), v_new.clone(), slots.clone()))
+        return real(q, kc, vc, tbl, ctx, k_new, v_new, slots, ks, vs)
+
+    M.paged_decode_fused_int8 = record
+    try:
+        K.reset_launch_counts()
+        M.decode_step(eng.params, kern, *dec, cfg, use_kernel=True, unique_rows=True)
+        torch.cuda.synchronize()
+        launches = K.launch_counts()
+    finally:
+        M.paged_decode_fused_int8 = real
+    if launches["paged_decode_fused_int8"] != cfg.n_layers or len(rows) != cfg.n_layers:
+        raise AssertionError(f"a fused int8 decode step should launch the fused int8 kernel "
+                             f"once per layer: {launches}")
+    for li, (k_new, v_new, slots) in enumerate(rows):
+        ref = [before.k[li].clone(), before.v[li].clone(), before.k_scale[li].clone(),
+               before.v_scale[li].clone()]
+        PA.paged_kv_write_quant_plain(*ref, k_new, v_new, slots)
+        got = (kern.k[li], kern.v[li], kern.k_scale[li], kern.v_scale[li])
+        for name, x, y in zip(("k codes", "v codes", "k scales", "v scales"), got, ref):
+            if not torch.equal(x, y):
+                raise AssertionError(f"layer {li} {name}: the fused int8 kernel's pools differ "
+                                     "from the plain quantizing write of the same rows")
+    M.decode_step(eng.params, plain, *dec, cfg, use_kernel=False, unique_rows=True)
+    torch.cuda.synchronize()
+    same, worst_gap, layers_equal = [], 0, 0
+    for li in range(cfg.n_layers):
+        pairs = ((kern.k[li], plain.k[li]), (kern.v[li], plain.v[li]),
+                 (kern.k_scale[li], plain.k_scale[li]), (kern.v_scale[li], plain.v_scale[li]))
+        equal = all(torch.equal(x, y) for x, y in pairs)
+        layers_equal += equal
+        if li == 0 and not equal:
+            raise AssertionError("layer 0: the kernel path's pools differ from the bf16 plain "
+                                 "path's after one fused decode step")
+        gap = max((x.int() - y.int()).abs().max().item() for x, y in pairs[:2])
+        worst_gap = max(worst_gap, gap)
+        n_rows = 2 * dec[0].shape[0] * cfg.kv_heads * cfg.head_dim  # codes this step wrote
+        n_diff = sum(int((x != y).sum()) for x, y in pairs[:2])
+        same.append(1.0 - n_diff / n_rows)
+    return {"kernel_vs_plain_write_of_same_rows": "bit-identical, every layer",
+            "layers_bit_identical_to_bf16_plain_path": layers_equal,
+            "bf16_plain_path_min_share_equal_codes": min(same),
+            "bf16_plain_path_max_code_gap": worst_gap,
+            "launches": {n: c for n, c in launches.items() if c}}
+
+
+def run_serving(cfg, dev, int8=False, bf16=None):
+    """The serving path, counted, on bf16 KV pools (phase 4) or, with
+    int8=True, on int8 pools (kv_cache_dtype="int8", phase "serve_int8"),
+    which adds a prefix-hit put whose tail block is copied with its scale
+    tiles, the pool check of _int8_step_pools, and, against the bf16
+    engine's results `bf16`, the bytes-per-token ratio and logit gaps.
+    Returns (the phase's report, what a later phase compares with)."""
     import numpy as np
     import torch
 
@@ -780,7 +1045,8 @@ def run_slice(cfg, dev):
     t0 = time.perf_counter()
     params = T.init(cfg, torch.Generator(device=dev).manual_seed(0), device=dev,
                     dtype=torch.bfloat16)
-    eng = init_inference(params, cfg, dict(SERVE))  # bf16 on the GPU by default
+    # bf16 on the GPU by default
+    eng = init_inference(params, cfg, dict(SERVE, kv_cache_dtype="int8" if int8 else "auto"))
     del params
     torch.cuda.synchronize()
     init_s = time.perf_counter() - t0
@@ -802,20 +1068,37 @@ def run_slice(cfg, dev):
     toks[0], toks[1] = decode[0].argmax(), chunk[0].argmax()
     fn = eng.decode_multi_fn(N_PROMPTS, DECODE_STEPS)
     gen, last, eng.cache, _ = fn(eng.params, eng.cache, toks, tables, ctx)
+    if int8:
+        # the long prompt's first two blocks match in full: a hit capped at
+        # len - 1, its tail block copied (COW) with its scale tiles
+        hit = eng.put([N_PROMPTS + 1], [long_prompt[:2 * SERVE["kv_block_size"]].copy()])
     torch.cuda.synchronize()
     launches = K.launch_counts()
     # -----------------------------------------------------------------------
 
-    missing = [n for n in SERVE_KERNELS if launches[n] == 0]
-    if missing:
-        raise AssertionError(f"the serving path launched no {missing} kernel: {launches}")
-    for name, x in (("prefill", prefill), ("decode", decode), ("chunk", chunk),
-                    ("decode_multi", last.float().cpu().numpy())):
+    if int8:
+        want = set(INT8_KERNELS)
+        wrong = {n: c for n, c in launches.items() if (c == 0) == (n in want)}
+        if wrong:
+            raise AssertionError(f"the int8 serving path must launch each of {sorted(want)} "
+                                 f"and nothing else; wrong counts: {wrong}")
+    else:
+        missing = [n for n in SERVE_KERNELS if launches[n] == 0]
+        if missing:
+            raise AssertionError(f"the serving path launched no {missing} kernel: {launches}")
+    logits = [("prefill", prefill), ("decode", decode), ("chunk", chunk),
+              ("decode_multi", last.float().cpu().numpy())] + ([("prefix_hit", hit)] if int8
+                                                              else [])
+    for name, x in logits:
         if not np.isfinite(x).all():
             raise AssertionError(f"{name} logits are not finite")
     g = gen.cpu().numpy()
     if g.shape != (DECODE_STEPS, N_PROMPTS) or g.min() < 0 or g.max() >= V:
         raise AssertionError(f"decode_multi tokens out of range: {g.shape}")
+    prefix = {k: v for k, v in eng.prefix_cache_stats().items()
+              if k in ("lookup_hits", "lookup_misses", "cow_copies")}
+    if int8 and (prefix["lookup_hits"] < 1 or prefix["cow_copies"] < 1):
+        raise AssertionError(f"the prefix put took no hit or copied no tail block: {prefix}")
 
     # -- kernel path vs plain versions, same engine weights, on the card ----
     # three runs of the same math: kernel path in bf16 (what put() served),
@@ -835,7 +1118,8 @@ def run_slice(cfg, dev):
              (long_prompt[None], np.array([LONG_LEN], np.int32), tl)]
     plain = {}
     for dtype, prm in ((torch.bfloat16, eng.params), (torch.float32, p32)):
-        scratch = M.init_cache(cfg, N_PROMPTS + LONG_LEN // bs + 1, bs, dtype, dev)
+        scratch = M.init_cache(cfg, N_PROMPTS + LONG_LEN // bs + 1, bs, dtype, dev,
+                               kv_quant=int8)
         plain[dtype] = torch.cat([
             M.prefill_batch(prm, scratch, *(torch.as_tensor(a, device=dev) for a in w),
                             cfg, use_kernel=False)[0] for w in waves]).cpu()
@@ -849,15 +1133,44 @@ def run_slice(cfg, dev):
     for use_kernel, dtype, prm in ((True, torch.bfloat16, eng.params),
                                    (False, torch.bfloat16, eng.params),
                                    (False, torch.float32, p32)):
-        cache = M.PagedCache(k=[x.to(dtype, copy=True) for x in eng.cache.k],
-                             v=[x.to(dtype, copy=True) for x in eng.cache.v])
+        cache = _pool_copies(eng.cache, dtype)
         outs.append(M.decode_step(prm, cache, *dec, cfg, use_kernel=use_kernel,
                                   unique_rows=True)[0].cpu())
         del cache
     decode_stats = _path_errors("decode logits", *outs)
     del p32
+    report = {"init_s": init_s, "launches": launches, "prefill_logits": prefill_stats,
+              "decode_logits": decode_stats}
+    if int8:
+        report["pools_after_fused_step"] = _int8_step_pools(eng, cfg, dec)
+        ratio = bf16["kv_bytes_per_token"] / eng.kv_bytes_per_token()
+        if ratio < 1.8:
+            raise AssertionError(f"bf16 / int8 kv_bytes_per_token {ratio} under the 1.8 pin")
+        report["kv_bytes_per_token"] = {"bf16": bf16["kv_bytes_per_token"],
+                                        "int8": eng.kv_bytes_per_token(), "ratio": ratio}
+        # reported, not asserted: the int8 pools' effect on the logits of
+        # the same decode and continuation puts of the bf16 engine
+        report["int8_vs_bf16_engine_logits"] = {
+            name: {"max_abs": float(np.abs(x - bf16[name]).max()),
+                   "argmax_agree": float((x.argmax(-1) == bf16[name].argmax(-1)).mean())}
+            for name, x in (("decode", decode), ("chunk", chunk))}
 
     # -- timings (after the counted run) ------------------------------------
+    times = _serving_times(eng, fn, toks, tables, ctx, r, V)
+    report.update(times)
+    report["peak_mem_gib"] = torch.cuda.max_memory_allocated(dev) / 2**30
+    report["prefix_cache"] = prefix
+    return report, {"decode": decode, "chunk": chunk,
+                    "kv_bytes_per_token": eng.kv_bytes_per_token()}
+
+
+def _serving_times(eng, fn, toks, tables, ctx, r, V):
+    """TTFT of fresh 512-token prompts (CUDA events around put(); median
+    of 5 after 2 warm-ups), the time of the batch-8 greedy decode_multi
+    `fn`, and where the time goes in each (torch.profiler)."""
+    import numpy as np
+    import torch
+
     ttft = []
     start = torch.cuda.Event(enable_timing=True)
     stop = torch.cuda.Event(enable_timing=True)
@@ -880,20 +1193,11 @@ def run_slice(cfg, dev):
         "prefill_put_512": _where_time_goes(lambda: eng.put([2000], [p])),
     }
     eng.flush(2000)
-    return {
-        "init_s": init_s,
-        "launches": launches,
-        "prefill_logits": prefill_stats,
-        "decode_logits": decode_stats,
-        "ttft_ms_512_p50": statistics.median(ttft),
-        "ttft_ms_512_all": ttft,
-        "decode_multi_ms_b8_24steps": step_ms,
-        "decode_tok_s_b8": N_PROMPTS * DECODE_STEPS / (step_ms / 1e3),
-        "peak_mem_gib": torch.cuda.max_memory_allocated(dev) / 2**30,
-        "where_time_goes": breakdown,
-        "prefix_cache": {k: v for k, v in eng.prefix_cache_stats().items()
-                         if k in ("lookup_hits", "lookup_misses", "cow_copies")},
-    }
+    return {"ttft_ms_512_p50": statistics.median(ttft), "ttft_ms_512_all": ttft,
+            "decode_multi_ms_b8_24steps": step_ms,
+            "decode_tok_s_b8": N_PROMPTS * DECODE_STEPS / (step_ms / 1e3),
+            "where_time_goes": breakdown}
+
 
 # ---------------------------------------------------------------------------
 # phase 5: the evoformer attention path at AlphaFold 2 / OpenFold widths
@@ -1009,8 +1313,10 @@ def main():
     print(json.dumps({"phase": "kernels", "ok": True}))
     tr = run_train(T.TransformerConfig(**TRAIN_MODEL), dev)
     print(json.dumps({"phase": "train", **tr}))
-    sl = run_slice(cfg, dev)
+    sl, bf16_serving = run_serving(cfg, dev)
     print(json.dumps({"phase": "serve", **sl}))
+    q8, _ = run_serving(cfg, dev, int8=True, bf16=bf16_serving)
+    print(json.dumps({"phase": "serve_int8", **q8}))
     ev = run_evoformer(dev)
     print(json.dumps({"phase": "evoformer", **ev}))
 
@@ -1018,7 +1324,7 @@ def main():
     for name, (source, replaces) in KERNELS.items():
         k = kernels[name]
         by_path = {"train": tr["launches"][name], "serve": sl["launches"][name],
-                   "evoformer": ev["launches"][name]}
+                   "serve_int8": q8["launches"][name], "evoformer": ev["launches"][name]}
         line.append({"name": name, "route": "cuda", "source": source,
                      "replaces": replaces, "launches": sum(by_path.values()),
                      "launches_by_path": by_path, "shape": k["shape"],

@@ -1,5 +1,5 @@
 // Paged decode attention: one new query token per row against its paged
-// KV context, in two modes built from one template.
+// KV context, in four modes built from one template.
 //
 //   FUSED = true   replaces deepspeed_tpu/ops/pallas/paged_attention.py
 //                  paged_decode_fused (_decode_fused_kernel): the cache
@@ -9,17 +9,33 @@
 //                  row's flat slot.
 //   FUSED = false  replaces paged_decode_attention (_decode_kernel) in its
 //                  plain bf16 mode: attend over cache positions < ctx.
+//   QUANT = true   the int8 modes of paged_decode_attention
+//                  (_decode_kernel with quant=True, plain and fused): the
+//                  pools hold int8 codes with one f32 scale per (slot, KV
+//                  head) in [NBLK, bs, KV] scale pools. Each tile's codes
+//                  are staged with 16-byte loads (16 codes each) and
+//                  dequantized into the same bf16 shared tiles as
+//                  bf16(code * scale), q's dtype as in the TPU kernel, so
+//                  the score, softmax and P.V code is the bf16 code. The
+//                  tile's scales for head h are staged once per tile.
+//                  Fused, warp 0 of the block of KV head h quantizes that
+//                  head's slice of k_new and warp 1 of v_new with
+//                  kv_quant.cuh (_quant_row_kernel of the TPU kernel; codes
+//                  and scales bit-identical to quantize_kv_rows), writes
+//                  the codes and the scale to the slot, and the new column
+//                  uses the dequantized value, as every later read will.
 //
 // Bound on the H100: bytes. A row with context c reads c * KV * D * 2
-// bytes of K and as many of V and does 4 * c * H * D operations, far below
-// the ~295 operations per byte where the tensor cores would bind. The
-// design therefore reads every live K/V byte exactly once: the grid is
-// (S, KV) and one block serves the G query heads of one KV head, so a K/V
-// tile loaded into shared memory is used by the whole group. Tiles of
-// TILE columns are staged with 16-byte vector loads and only columns
-// below the live length are ever loaded or accumulated (an unwritten or
-// stale slot may hold NaN, and 0 * NaN would poison the sum). The online
-// softmax runs in f32.
+// bytes of K and as many of V (c * KV * (D + 4) * 2 with int8 codes and
+// their scales) and does 4 * c * H * D operations, far below the ~295
+// operations per byte where the tensor cores would bind. The design
+// therefore reads every live K/V byte exactly once: the grid is (S, KV)
+// and one block serves the G query heads of one KV head, so a K/V tile
+// loaded into shared memory is used by the whole group. Tiles of TILE
+// columns are staged with 16-byte vector loads and only columns below the
+// live length are ever loaded or accumulated (an unwritten or stale slot
+// may hold NaN, and 0 * NaN would poison the sum). The online softmax
+// runs in f32.
 //
 // The TPU kernel padded G to 8 sublanes and required D % 128 == 0; both
 // were TPU tiling artifacts and do not carry over. Pad rows (ctx <= 0)
@@ -34,6 +50,9 @@
 #include <cuda_bf16.h>
 #include <cstdint>
 #include <math.h>
+#include <type_traits>
+
+#include "kv_quant.cuh"
 
 namespace {
 
@@ -52,13 +71,34 @@ __device__ __forceinline__ float warp_max(float x) {
   return x;
 }
 
+__device__ __forceinline__ float dequant(int8_t code, float scale) {
+  return __bfloat162float(__float2bfloat16_rn((float)code * scale));
+}
+
+// 16 int8 codes -> 16 bf16(code * scale) at dst (16-byte aligned)
+__device__ __forceinline__ void dequant16(uint4 codes, float scale, __nv_bfloat16* dst) {
+  const uint32_t in[4] = {codes.x, codes.y, codes.z, codes.w};
+  uint32_t w[8];
+#pragma unroll
+  for (int i = 0; i < 8; ++i) {
+    const uint32_t word = in[i / 2] >> (16 * (i % 2));
+    const __nv_bfloat162 p = __floats2bfloat162_rn((float)(int8_t)(word & 0xffu) * scale,
+                                                   (float)(int8_t)(word >> 8) * scale);
+    w[i] = *reinterpret_cast<const uint32_t*>(&p);
+  }
+  reinterpret_cast<uint4*>(dst)[0] = make_uint4(w[0], w[1], w[2], w[3]);
+  reinterpret_cast<uint4*>(dst)[1] = make_uint4(w[4], w[5], w[6], w[7]);
+}
+
 // blockDim.x == D: thread d owns output column d of every query head.
-template <int D, bool FUSED>
+template <int D, bool FUSED, bool QUANT>
 __global__ void __launch_bounds__(D) paged_decode_kernel(
     __nv_bfloat16* __restrict__ out,            // [S, H, D]
     const __nv_bfloat16* __restrict__ q,        // [S, H, D]
-    __nv_bfloat16* __restrict__ k_cache,        // [NBLK, bs, KV, D]
-    __nv_bfloat16* __restrict__ v_cache,        // [NBLK, bs, KV, D]
+    void* __restrict__ k_pool,                  // [NBLK, bs, KV, D] bf16 or int8
+    void* __restrict__ v_pool,                  // [NBLK, bs, KV, D] bf16 or int8
+    float* __restrict__ k_scale,                // [NBLK, bs, KV]   (QUANT)
+    float* __restrict__ v_scale,                // [NBLK, bs, KV]   (QUANT)
     const int32_t* __restrict__ tables,         // [S, NB]
     const int32_t* __restrict__ ctx_lens,       // [S]
     const __nv_bfloat16* __restrict__ k_new,    // [S, KV, D]   (FUSED)
@@ -66,8 +106,11 @@ __global__ void __launch_bounds__(D) paged_decode_kernel(
     const int32_t* __restrict__ slots,          // [S]          (FUSED)
     int n_kv, int group, int n_blocks, int block_size, int table_width,
     float scale) {
-  constexpr int NW = D / 32;    // warps
-  constexpr int VPR = D / 8;    // 16-byte vectors per row
+  using CacheT = std::conditional_t<QUANT, int8_t, __nv_bfloat16>;
+  CacheT* k_cache = static_cast<CacheT*>(k_pool);
+  CacheT* v_cache = static_cast<CacheT*>(v_pool);
+  constexpr int NW = D / 32;                         // warps
+  constexpr int VPR = D * sizeof(CacheT) / 16;       // 16-byte vectors per cache row
   constexpr int EPL = D / 32;   // elements per lane in a warp dot product
 
   __shared__ __align__(16) __nv_bfloat16 ks[TILE][D];
@@ -75,6 +118,8 @@ __global__ void __launch_bounds__(D) paged_decode_kernel(
   __shared__ float qs[MAX_G][D];
   __shared__ float ps[MAX_G][TILE];
   __shared__ float m_s[MAX_G], l_s[MAX_G], corr_s[MAX_G];
+  __shared__ float ksc[QUANT ? TILE : 1], vsc[QUANT ? TILE : 1];  // the tile's scales
+  __shared__ float kn_s[QUANT ? D : 1], vn_s[QUANT ? D : 1];      // dequantized new row
 
   const int s = blockIdx.x;
   const int h = blockIdx.y;
@@ -93,6 +138,11 @@ __global__ void __launch_bounds__(D) paged_decode_kernel(
   limit = min(limit, table_width * block_size);
   const int32_t* table = tables + (size_t)s * table_width;
   const size_t row_stride = (size_t)n_kv * D;  // elements between two slots
+  auto slot_of = [&](int col) {  // flat arena slot of context position col
+    int blk = table[col / block_size];
+    blk = min(max(blk, 0), n_blocks - 1);
+    return (size_t)blk * block_size + col % block_size;
+  };
 
   for (int g = 0; g < group; ++g)
     qs[g][tid] = __bfloat162float(q[((size_t)s * H + (size_t)h * group + g) * D + tid]);
@@ -107,16 +157,28 @@ __global__ void __launch_bounds__(D) paged_decode_kernel(
 
   for (int c0 = 0; c0 < limit; c0 += TILE) {
     const int n = min(TILE, limit - c0);
+    if constexpr (QUANT) {
+      for (int r = tid; r < n; r += D) {
+        const size_t at = slot_of(c0 + r) * n_kv + h;
+        ksc[r] = k_scale[at];
+        vsc[r] = v_scale[at];
+      }
+      __syncthreads();
+    }
     // stage K and V rows [c0, c0 + n) of head h
     for (int i = tid; i < n * VPR; i += D) {
       const int r = i / VPR;
       const int c = i % VPR;
-      const int col = c0 + r;
-      int blk = table[col / block_size];
-      blk = min(max(blk, 0), n_blocks - 1);
-      const size_t base = ((size_t)blk * block_size + col % block_size) * row_stride + (size_t)h * D;
-      reinterpret_cast<uint4*>(&ks[r][0])[c] = reinterpret_cast<const uint4*>(k_cache + base)[c];
-      reinterpret_cast<uint4*>(&vs[r][0])[c] = reinterpret_cast<const uint4*>(v_cache + base)[c];
+      const size_t base = slot_of(c0 + r) * row_stride + (size_t)h * D;
+      const uint4 kv = reinterpret_cast<const uint4*>(k_cache + base)[c];
+      const uint4 vv = reinterpret_cast<const uint4*>(v_cache + base)[c];
+      if constexpr (QUANT) {
+        dequant16(kv, ksc[r], &ks[r][c * 16]);
+        dequant16(vv, vsc[r], &vs[r][c * 16]);
+      } else {
+        reinterpret_cast<uint4*>(&ks[r][0])[c] = kv;
+        reinterpret_cast<uint4*>(&vs[r][0])[c] = vv;
+      }
     }
     __syncthreads();
 
@@ -178,11 +240,39 @@ __global__ void __launch_bounds__(D) paged_decode_kernel(
     if (slot >= 0) {
       const __nv_bfloat16* kn = k_new + ((size_t)s * n_kv + h) * D;
       const __nv_bfloat16* vn = v_new + ((size_t)s * n_kv + h) * D;
+      int blk = slot / block_size;
+      blk = min(max(blk, 0), n_blocks - 1);
+      const size_t dst_slot = (size_t)blk * block_size + slot % block_size;
+      const size_t dst = dst_slot * row_stride + (size_t)h * D;
+      if constexpr (QUANT) {
+        // the new row's slice of head h: warp 0 quantizes K, warp 1 V,
+        // and each writes codes and scale to the slot (after this block's
+        // own loads) and keeps the dequantized value for the column below
+        if (warp < 2) {
+          const __nv_bfloat16* src = (warp ? vn : kn) + lane * EPL;
+          float x[EPL];
+          int8_t code[EPL];
+#pragma unroll
+          for (int e = 0; e < EPL; ++e) x[e] = __bfloat162float(src[e]);
+          const float sc = kv_quant_slice<EPL>(x, code);
+          int8_t* codes = (warp ? v_cache : k_cache) + dst + lane * EPL;
+          float* deq = warp ? vn_s : kn_s;
+#pragma unroll
+          for (int e = 0; e < EPL; ++e) {
+            codes[e] = code[e];
+            deq[lane * EPL + e] = dequant(code[e], sc);
+          }
+          if (lane == 0) (warp ? v_scale : k_scale)[dst_slot * n_kv + h] = sc;
+        }
+        __syncthreads();
+      }
       for (int g = warp; g < group; g += NW) {
         float part = 0.f;
 #pragma unroll
-        for (int e = 0; e < EPL; ++e)
-          part += qs[g][lane * EPL + e] * __bfloat162float(kn[lane * EPL + e]);
+        for (int e = 0; e < EPL; ++e) {
+          const int d = lane * EPL + e;
+          part += qs[g][d] * (QUANT ? kn_s[d] : __bfloat162float(kn[d]));
+        }
         part = warp_sum(part);
         if (lane == 0) {
           const float sc = part * scale;
@@ -197,17 +287,16 @@ __global__ void __launch_bounds__(D) paged_decode_kernel(
         }
       }
       __syncthreads();
-      const float vd = __bfloat162float(vn[tid]);
+      const float vd = QUANT ? vn_s[tid] : __bfloat162float(vn[tid]);
 #pragma unroll
       for (int g = 0; g < MAX_G; ++g)
         if (g < group) acc[g] = acc[g] * corr_s[g] + ps[g][0] * vd;
-      // the new row's slice of head h goes to its slot, after this
-      // block's own loads
-      int blk = slot / block_size;
-      blk = min(max(blk, 0), n_blocks - 1);
-      const size_t dst = ((size_t)blk * block_size + slot % block_size) * row_stride + (size_t)h * D + tid;
-      k_cache[dst] = kn[tid];
-      v_cache[dst] = vn[tid];
+      if constexpr (!QUANT) {
+        // the new row's slice of head h goes to its slot, after this
+        // block's own loads
+        k_cache[dst + tid] = kn[tid];
+        v_cache[dst + tid] = vn[tid];
+      }
     }
   }
 
@@ -220,49 +309,54 @@ __global__ void __launch_bounds__(D) paged_decode_kernel(
   }
 }
 
+struct DecodeArgs {
+  void *out, *k_pool, *v_pool, *k_scale, *v_scale;
+  const void *q, *tables, *ctx_lens, *k_new, *v_new, *slots;
+  int S, n_kv, group, n_blocks, block_size, table_width;
+  float scale;
+};
+
+template <int D, bool FUSED, bool QUANT>
+void launch(const DecodeArgs& a, cudaStream_t stream) {
+  dim3 grid(a.S, a.n_kv);
+  paged_decode_kernel<D, FUSED, QUANT><<<grid, D, 0, stream>>>(
+      (__nv_bfloat16*)a.out, (const __nv_bfloat16*)a.q, a.k_pool, a.v_pool,
+      (float*)a.k_scale, (float*)a.v_scale, (const int32_t*)a.tables,
+      (const int32_t*)a.ctx_lens, (const __nv_bfloat16*)a.k_new,
+      (const __nv_bfloat16*)a.v_new, (const int32_t*)a.slots, a.n_kv, a.group, a.n_blocks,
+      a.block_size, a.table_width, a.scale);
+}
+
 template <int D>
-int launch(bool fused, void* out, const void* q, void* k_cache, void* v_cache,
-           const void* tables, const void* ctx_lens, const void* k_new,
-           const void* v_new, const void* slots, int S, int n_kv, int group,
-           int n_blocks, int block_size, int table_width, float scale,
-           cudaStream_t stream) {
-  dim3 grid(S, n_kv);
-  if (fused) {
-    paged_decode_kernel<D, true><<<grid, D, 0, stream>>>(
-        (__nv_bfloat16*)out, (const __nv_bfloat16*)q, (__nv_bfloat16*)k_cache,
-        (__nv_bfloat16*)v_cache, (const int32_t*)tables, (const int32_t*)ctx_lens,
-        (const __nv_bfloat16*)k_new, (const __nv_bfloat16*)v_new,
-        (const int32_t*)slots, n_kv, group, n_blocks, block_size, table_width, scale);
-  } else {
-    paged_decode_kernel<D, false><<<grid, D, 0, stream>>>(
-        (__nv_bfloat16*)out, (const __nv_bfloat16*)q, (__nv_bfloat16*)k_cache,
-        (__nv_bfloat16*)v_cache, (const int32_t*)tables, (const int32_t*)ctx_lens,
-        nullptr, nullptr, nullptr, n_kv, group, n_blocks, block_size, table_width, scale);
-  }
+int launch_modes(bool fused, bool quant, const DecodeArgs& a, cudaStream_t stream) {
+  if (fused && quant) launch<D, true, true>(a, stream);
+  else if (fused) launch<D, true, false>(a, stream);
+  else if (quant) launch<D, false, true>(a, stream);
+  else launch<D, false, false>(a, stream);
   return (int)cudaGetLastError();
 }
 
 }  // namespace
 
 extern "C" int paged_decode(void* out, const void* q, void* k_cache, void* v_cache,
-                            const void* tables, const void* ctx_lens,
-                            const void* k_new, const void* v_new, const void* slots,
-                            int fused, int S, int H, int KV, int D, int n_blocks,
-                            int block_size, int table_width, float scale,
+                            void* k_scale, void* v_scale, const void* tables,
+                            const void* ctx_lens, const void* k_new, const void* v_new,
+                            const void* slots, int fused, int quant, int S, int H, int KV,
+                            int D, int n_blocks, int block_size, int table_width, float scale,
                             void* stream) {
   if (S <= 0) return 0;
   if (KV <= 0 || H % KV != 0 || H / KV > MAX_G) return (int)cudaErrorInvalidValue;
-  const int group = H / KV;
+  if (quant && (k_scale == nullptr || v_scale == nullptr)) return (int)cudaErrorInvalidValue;
+  if (fused && (k_new == nullptr || v_new == nullptr || slots == nullptr))
+    return (int)cudaErrorInvalidValue;
+  const DecodeArgs a{out, k_cache, v_cache, k_scale, v_scale, q, tables, ctx_lens, k_new,
+                     v_new, slots, S, KV, H / KV, n_blocks, block_size, table_width, scale};
   cudaStream_t st = (cudaStream_t)stream;
   switch (D) {
     case 64:
-      return launch<64>(fused != 0, out, q, k_cache, v_cache, tables, ctx_lens, k_new,
-                        v_new, slots, S, KV, group, n_blocks, block_size, table_width,
-                        scale, st);
+      return launch_modes<64>(fused != 0, quant != 0, a, st);
     case 128:
-      return launch<128>(fused != 0, out, q, k_cache, v_cache, tables, ctx_lens, k_new,
-                         v_new, slots, S, KV, group, n_blocks, block_size, table_width,
-                         scale, st);
+      return launch_modes<128>(fused != 0, quant != 0, a, st);
     default:
       return (int)cudaErrorInvalidValue;
   }

@@ -12,10 +12,10 @@ PyTorch runs eagerly: a "compiled program" of the JAX engine is a plain
 call of the inference/model.py functions here, and the KV cache is
 updated in place instead of being donated and returned.
 
-This slice serves greedy logits on one GPU. Sampling, generate(),
-quantized weights, offload, tensor parallelism, int8 KV pools, KV export
-and import and warmup raise NotImplementedError naming the slice that
-brings them.
+This slice serves greedy logits on one GPU, from bf16/f32 or int8 KV
+pools (kv_cache_dtype="int8"). Sampling, generate(), quantized weights,
+offload, tensor parallelism, KV export and import and warmup raise
+NotImplementedError naming the slice that brings them.
 """
 
 import dataclasses
@@ -36,7 +36,6 @@ _LATER = {
     "quantization": "the slice that ports inference/quantization.py",
     "offload": "the slice that ports the offload tiers",
     "tp": "the multi-GPU slice",
-    "int8_kv": "the slice that ports the int8 KV kernel modes",
     "kv_transfer": "the slice that ports disaggregated serving",
     "warmup": "the slice that adds CUDA graphs",
 }
@@ -72,9 +71,7 @@ class InferenceConfig:
         check_field_types(self)
         if self.tp_size != 1:
             raise _later("tp_size > 1", "tp")
-        if self.kv_cache_dtype == "int8":
-            raise _later("kv_cache_dtype='int8'", "int8_kv")
-        if self.kv_cache_dtype != "auto":
+        if self.kv_cache_dtype not in ("auto", "int8"):
             raise ValueError(
                 f"kv_cache_dtype must be 'auto' or 'int8' (got {self.kv_cache_dtype!r})")
         if self.moe_census:
@@ -129,13 +126,15 @@ class InferenceEngine:
         # write+attend kernel writes every decode row's slot, so padding
         # rows need a target that can never alias a live sequence
         self.pad_block = self.config.num_kv_blocks
+        self.kv_quant = self.config.kv_cache_dtype == "int8"
         self.cache = M.init_cache(model_config, self.config.num_kv_blocks + 1,
-                                  self.config.kv_block_size, dtype, self.device)
-        kv_bytes = sum(x.nbytes for x in self.cache.k + self.cache.v)
+                                  self.config.kv_block_size, dtype, self.device,
+                                  kv_quant=self.kv_quant)
+        cache_dtype = "int8" if self.kv_quant else str(dtype).split('.')[-1]
         log_dist(
             f"inference engine on {self.device}: {self.config.num_kv_blocks} KV "
-            f"blocks x {self.config.kv_block_size} tokens ({kv_bytes / 2**30:.2f} GiB "
-            f"{str(dtype).split('.')[-1]} cache), max_batch {self.config.max_batch_size}",
+            f"blocks x {self.config.kv_block_size} tokens ({self._pool_bytes() / 2**30:.2f} "
+            f"GiB {cache_dtype} cache), max_batch {self.config.max_batch_size}",
             ranks=[0])
 
     def refresh_params(self, params: Any) -> None:
@@ -176,24 +175,37 @@ class InferenceEngine:
 
         return step
 
+    def _pools(self) -> List[torch.Tensor]:
+        """Every per-layer pool of the cache: codes or K/V rows, and the
+        scale pools of an int8 cache (part of each page)."""
+        c = self.cache
+        return c.k + c.v + (c.k_scale + c.v_scale if c.quantized else [])
+
+    def _pool_bytes(self) -> int:
+        return sum(x.nbytes for x in self._pools())
+
     def _copy_block(self, src: int, dst: int) -> None:
         """Cache-page copy (the copy-on-write half of prefix caching): clone
-        block src's K/V rows into block dst in every layer, in place."""
-        for ck, cv in zip(self.cache.k, self.cache.v):
-            ck[dst].copy_(ck[src])
-            cv[dst].copy_(cv[src])
+        block src's K/V rows, and on an int8 cache its scale tiles, into
+        block dst in every layer, in place."""
+        for pool in self._pools():
+            pool[dst].copy_(pool[src])
 
     def kv_bytes_per_token(self) -> int:
-        """Resident KV bytes one token costs across all layers."""
-        return sum(2 * ck[0, 0].nbytes for ck in self.cache.k)
+        """Resident KV bytes one token costs across all layers: its [KV, D]
+        K and V rows (codes on an int8 cache) plus, on an int8 cache, its
+        two [KV] f32 scale rows."""
+        return sum(pool[0, 0].nbytes for pool in self._pools())
 
     def prefix_cache_stats(self) -> Dict[str, float]:
         """Prefix-cache counters (ragged.py StateManager.cache_stats) plus
-        the KV-pool residency numbers."""
+        the KV-pool residency numbers: kv_bytes_per_token, kv_pool_bytes
+        (the whole pool with the scratch block and any scale pools) and
+        kv_quantized (1.0 on int8 pools)."""
         s = self.state.cache_stats()
         s["kv_bytes_per_token"] = float(self.kv_bytes_per_token())
-        s["kv_pool_bytes"] = float(sum(x.nbytes for x in self.cache.k + self.cache.v))
-        s["kv_quantized"] = 0.0
+        s["kv_pool_bytes"] = float(self._pool_bytes())
+        s["kv_quantized"] = 1.0 if self.cache.quantized else 0.0
         return s
 
     # -- scheduling queries ---------------------------------------------

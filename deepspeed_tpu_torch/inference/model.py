@@ -21,7 +21,10 @@ CPU tensors. `use_kernel=False` calls the plain versions directly on any
 device: the reference the kernel path is compared with on the card.
 
 This slice serves Llama-class models (rotary, RMSNorm, gated MLP, no
-biases) in bf16 or f32 caches; `check_served` raises for the rest.
+biases) in bf16 or f32 caches, or in int8 caches (`init_cache(kv_quant=
+True)`: int8 code pools beside per-layer [NBLK, bs, KV] f32 scale pools,
+written and read only through the int8 kernels); `check_served` raises
+for the rest.
 """
 
 from typing import Any, Dict, List, NamedTuple, Optional
@@ -32,10 +35,14 @@ from ..models import transformer as T
 from ..ops.attention import causal_attention
 from ..ops.cuda.paged_attention import (
     paged_decode_attention,
+    paged_decode_attention_int8,
     paged_decode_attention_plain,
     paged_decode_fused,
+    paged_decode_fused_int8,
     paged_kv_write,
+    paged_kv_write_int8,
     paged_kv_write_plain,
+    paged_kv_write_quant_plain,
 )
 
 
@@ -100,36 +107,62 @@ def _lm_logits(x: torch.Tensor, params, cfg: T.TransformerConfig) -> torch.Tenso
 
 
 class PagedCache(NamedTuple):
-    """Per-layer lists (length n_layers) of [NBLK, bs, KV, D] tensors."""
+    """Per-layer lists (length n_layers) of [NBLK, bs, KV, D] tensors.
+
+    int8 caches (kv_quant) also carry per-layer [NBLK, bs, KV] f32 scale
+    pools: block i's codes dequantize by k_scale[i], so every path that
+    moves a page (the COW copy) moves its scales with it."""
 
     k: List[torch.Tensor]
     v: List[torch.Tensor]
+    k_scale: Optional[List[torch.Tensor]] = None
+    v_scale: Optional[List[torch.Tensor]] = None
 
     @property
     def block_size(self) -> int:
         return self.k[0].shape[1]
+
+    @property
+    def num_blocks(self) -> int:
+        return self.k[0].shape[0]
+
+    @property
+    def quantized(self) -> bool:
+        return self.k_scale is not None
 
 
 def init_cache(cfg: T.TransformerConfig, num_blocks: int, block_size: int,
                dtype: torch.dtype = torch.bfloat16,
                device: Optional[torch.device] = None,
                kv_quant: bool = False) -> PagedCache:
-    """Zeroed K and V arenas for every layer."""
-    if kv_quant:
-        raise NotImplementedError(
-            "int8 KV pools come with the slice that ports the int8 modes of "
-            "paged_decode_attention and paged_scale_write")
+    """Zeroed K and V arenas for every layer. kv_quant=True: int8 zero code
+    pools and f32 scale pools filled with ones (as the JAX package
+    allocates them), instead of `dtype` arenas."""
     shape = (num_blocks, block_size, cfg.kv_heads, cfg.head_dim)
     L = cfg.n_layers
-    return PagedCache(
-        k=[torch.zeros(shape, dtype=dtype, device=device) for _ in range(L)],
-        v=[torch.zeros(shape, dtype=dtype, device=device) for _ in range(L)])
+    pool = torch.int8 if kv_quant else dtype
+    k = [torch.zeros(shape, dtype=pool, device=device) for _ in range(L)]
+    v = [torch.zeros(shape, dtype=pool, device=device) for _ in range(L)]
+    if not kv_quant:
+        return PagedCache(k=k, v=v)
+    ones = lambda: torch.ones(shape[:3], dtype=torch.float32, device=device)
+    return PagedCache(k=k, v=v, k_scale=[ones() for _ in range(L)],
+                      v_scale=[ones() for _ in range(L)])
 
 
-def _write_kv(cache_k, cache_v, k_new, v_new, flat_idx, use_kernel: bool):
-    """Write [T, KV, D] rows into the arenas at flat slots [T], in place."""
-    write = paged_kv_write if use_kernel else paged_kv_write_plain
-    return write(cache_k, cache_v, k_new.contiguous(), v_new.contiguous(), flat_idx)
+def _write_kv(cache: PagedCache, li: int, k_new, v_new, flat_idx, use_kernel: bool):
+    """Write layer li's new [T, KV, D] rows at flat slots [T], in place. On
+    an int8 cache they are quantized (quantize_kv_rows, the one rounding
+    rule) and codes and scales are written, one kernel launch on the card:
+    the JAX package's _write_kv_quant."""
+    k_new, v_new = k_new.contiguous(), v_new.contiguous()
+    if cache.quantized:
+        write = paged_kv_write_int8 if use_kernel else paged_kv_write_quant_plain
+        write(cache.k[li], cache.v[li], cache.k_scale[li], cache.v_scale[li], k_new, v_new,
+              flat_idx)
+    else:
+        write = paged_kv_write if use_kernel else paged_kv_write_plain
+        write(cache.k[li], cache.v[li], k_new, v_new, flat_idx)
 
 
 def _mlp(h: torch.Tensor, lp, cfg: T.TransformerConfig) -> torch.Tensor:
@@ -145,19 +178,25 @@ def _mlp(h: torch.Tensor, lp, cfg: T.TransformerConfig) -> torch.Tensor:
     return inner @ lp["w_out"]
 
 
-def _decode_attention(q, ck, cv, tables, ctx, use_kernel: bool,
+def _decode_attention(cache: PagedCache, li: int, q, tables, ctx, use_kernel: bool,
                       k_new=None, v_new=None, slots=None):
-    """k_new/v_new/slots given selects the fused write+attend kernel
-    (single-token rows of distinct sequences; ck/cv hold the pre-write
-    arenas and are written in place). Otherwise the new rows were written
-    before the call and the plain-mode kernel attends over ctx."""
+    """Layer li's decode attention. k_new/v_new/slots given selects the
+    fused write+attend kernel (single-token rows of distinct sequences;
+    the layer's pools hold the pre-write arenas and are written in place).
+    Otherwise the new rows were written before the call and the plain-mode
+    kernel attends over ctx. int8 pools take the int8 kernels; as in the
+    JAX package they never reach paged_decode_fused, which is bf16 only."""
+    ck, cv = cache.k[li], cache.v[li]
+    scales = (cache.k_scale[li], cache.v_scale[li]) if cache.quantized else ()
     if k_new is not None:
-        att, _, _ = paged_decode_fused(q, ck, cv, tables, ctx, k_new.contiguous(),
-                                       v_new.contiguous(), slots)
-        return att
-    if use_kernel:
-        return paged_decode_attention(q, ck, cv, tables, ctx)
-    return paged_decode_attention_plain(q, ck, cv, tables, ctx)
+        fused = paged_decode_fused_int8 if scales else paged_decode_fused
+        return fused(q, ck, cv, tables, ctx, k_new.contiguous(), v_new.contiguous(), slots,
+                     *scales)[0]
+    if not use_kernel:
+        return paged_decode_attention_plain(q, ck, cv, tables, ctx, *scales)
+    if scales:
+        return paged_decode_attention_int8(q, ck, cv, tables, ctx, *scales)
+    return paged_decode_attention(q, ck, cv, tables, ctx)
 
 
 def _qkv(h1: torch.Tensor, lp, cfg: T.TransformerConfig):
@@ -206,13 +245,12 @@ def decode_step(params, cache: PagedCache, tokens, tables, ctx_lens,
         q, k, v = _qkv(h1, lp, cfg)
         q = T._rope_at(q, rope, cfg)
         k = T._rope_at(k, rope, cfg)
-        ck, cv = cache.k[li], cache.v[li]
         if fuse_write:
-            att = _decode_attention(q, ck, cv, tables, ctx_lens, use_kernel,
+            att = _decode_attention(cache, li, q, tables, ctx_lens, use_kernel,
                                     k_new=k, v_new=v, slots=flat_idx)
         else:
-            _write_kv(ck, cv, k, v, flat_idx, use_kernel)
-            att = _decode_attention(q, ck, cv, tables, ctx_lens, use_kernel)
+            _write_kv(cache, li, k, v, flat_idx, use_kernel)
+            att = _decode_attention(cache, li, q, tables, ctx_lens, use_kernel)
         x = x + torch.einsum("shd,hde->se", att, lp["wo"])
         h2 = T._norm(x, lp["ln2_scale"], None, cfg)
         x = x + _mlp(h2, lp, cfg)
@@ -283,8 +321,10 @@ def prefill_batch(params, cache: PagedCache, tokens, n_real, tables,
         q, k, v = _qkv(h1, lp, cfg)
         q = T._rope_at(q, rope, cfg)
         k = T._rope_at(k, rope, cfg)
-        _write_kv(cache.k[li], cache.v[li], k.reshape(B * Tp, KV, D),
-                  v.reshape(B * Tp, KV, D), flat_idx, use_kernel)
+        # the prompt attends over its own full-precision k/v; only the
+        # resident copy is quantized on int8 pools
+        _write_kv(cache, li, k.reshape(B * Tp, KV, D), v.reshape(B * Tp, KV, D), flat_idx,
+                  use_kernel)
         att = causal_attention(q, k, v, use_flash=use_kernel)
         x = x + torch.einsum("bshd,hde->bse", att, lp["wo"])
         h2 = T._norm(x, lp["ln2_scale"], None, cfg)

@@ -41,9 +41,9 @@ _F = ctypes.c_float
 # source -> C signature of each kernel function it exports (all return
 # cudaError_t)
 SIGNATURES = {
-    "paged_kv_write": {"paged_kv_write": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _P]},
-    "paged_decode": {"paged_decode": [_P, _P, _P, _P, _P, _P, _P, _P, _P,
-                                      _I, _I, _I, _I, _I, _I, _I, _I, _F, _P]},
+    "paged_kv_write": {"paged_kv_write": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
+                       "paged_kv_write_int8": [_P] * 7 + [_I] * 5 + [_P]},
+    "paged_decode": {"paged_decode": [_P] * 11 + [_I] * 9 + [_F, _P]},
     "flash_fwd": {"flash_fwd": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _P]},
     "flash_bwd": {
         "flash_bwd_dq": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _P],

@@ -14,6 +14,13 @@ csrc/paged_decode.cu) or raise. Each keeps `launches`, the number of
 kernel launches it made. Kernels take bf16; the plain versions take any
 float dtype and compute attention in f32.
 
+int8 KV (the JAX package's kv_cache_dtype="int8"): the arenas hold int8
+codes and each carries a [NBLK, bs, KV] f32 scale pool, one scale per
+(token slot, KV head), so a block's scales live at k_scale[block].
+quantize_kv_rows is the one rounding rule; the kernels' quantizer
+(csrc/kv_quant.cuh) repeats it bit for bit. A code dequantizes as
+code * scale in f32, rounded to q's dtype before it meets q or P.
+
 The caches are updated IN PLACE (the JAX package donates the arenas and
 gets them back aliased): the write and the fused decode return the same
 tensors they were given.
@@ -26,13 +33,61 @@ from ._common import check_cuda_args, check_shape, ptr, stream_of
 
 _BF16 = torch.bfloat16
 _I32 = torch.int32
+_I8 = torch.int8
+_F32 = torch.float32
 _DECODE_HEAD_DIMS = (64, 128)
 _DECODE_MAX_GROUP = 8
+
+# int8 KV quantization: scale = amax * (1/127) as a MULTIPLY by the f32
+# of the double 1/127 (how the JAX package spells it, so that no compiler
+# turns it into a division that rounds differently), code =
+# clamp(round_half_even(x / scale), -127, 127) with a true division
+KV_QUANT_MAX = 127.0
+_KV_QUANT_INV = 1.0 / 127.0
+
+
+# ---------------------------------------------------------------------------
+# int8 KV quantization
+# ---------------------------------------------------------------------------
+
+def _quantize(x):
+    xf = x.float()
+    scale = xf.abs().amax(dim=-1) * torch.tensor(_KV_QUANT_INV, dtype=_F32)
+    scale = torch.where(scale > 0, scale, torch.ones_like(scale))
+    code = torch.round(xf / scale[..., None]).clamp(-KV_QUANT_MAX, KV_QUANT_MAX)
+    return code.to(_I8), scale
+
+
+def quantize_kv_rows(k, v):
+    """Quantize new KV rows [T, KV, D] -> (k codes int8 [T, KV, D], k
+    scales f32 [T, KV], v codes, v scales): one scale per (row, head), the
+    head's absmax / 127. Counterpart of the JAX package's quantize_kv_rows;
+    the kernels' in-kernel quantizer (csrc/kv_quant.cuh) matches it bit
+    for bit, so a token's codes do not depend on which path wrote it."""
+    qk, ks = _quantize(k)
+    qv, vs = _quantize(v)
+    return qk, ks, qv, vs
+
+
+def dequantize(codes, scale, dtype):
+    """codes [..., D] int8 and scales [...] f32 -> code * scale in f32,
+    rounded to `dtype` (q's dtype), as the TPU kernel's fused dequant."""
+    return (codes.float() * scale[..., None]).to(dtype)
 
 
 # ---------------------------------------------------------------------------
 # paged KV write
 # ---------------------------------------------------------------------------
+
+def _scatter_rows(arena, rows, flat_slots):
+    """arena [NBLK, bs, ...] <- rows [T, ...] at flat slots [T], in place;
+    slots < 0 dropped, block ids clamped to the arena."""
+    NBLK, bs = arena.shape[:2]
+    keep = flat_slots >= 0
+    slot = flat_slots[keep].long()
+    idx = (slot // bs).clamp(max=NBLK - 1) * bs + slot % bs
+    arena.view(NBLK * bs, *arena.shape[2:])[idx] = rows[keep].to(arena.dtype)
+
 
 def paged_kv_write_plain(cache_k, cache_v, k_new, v_new, flat_slots):
     """Scatter [T, KV, D] rows into [NBLK, bs, KV, D] caches at flat slots
@@ -40,13 +95,23 @@ def paged_kv_write_plain(cache_k, cache_v, k_new, v_new, flat_slots):
     block id clamped to the last block, as the kernel and the TPU kernel
     (_arena_block) do. The JAX package's _write_kv_xla drops such a slot
     instead; the two agree on every slot inside the arena."""
-    NBLK, bs, KV, D = cache_k.shape
-    keep = flat_slots >= 0
-    slot = flat_slots[keep].long()
-    idx = (slot // bs).clamp(max=NBLK - 1) * bs + slot % bs
-    cache_k.view(NBLK * bs, KV, D)[idx] = k_new[keep].to(cache_k.dtype)
-    cache_v.view(NBLK * bs, KV, D)[idx] = v_new[keep].to(cache_v.dtype)
+    _scatter_rows(cache_k, k_new, flat_slots)
+    _scatter_rows(cache_v, v_new, flat_slots)
     return cache_k, cache_v
+
+
+def paged_kv_write_quant_plain(cache_k, cache_v, k_scale, v_scale, k_new, v_new,
+                               flat_slots):
+    """Quantize [T, KV, D] rows (quantize_kv_rows) and scatter the int8
+    codes into the code pools [NBLK, bs, KV, D] and the f32 scales into
+    the scale pools [NBLK, bs, KV] at flat slots [T], in place, with the
+    drop and clamp rules of paged_kv_write_plain. The JAX package's
+    single-device _write_kv_quant (paged_kv_write on the codes,
+    paged_scale_write on the scales). Returns the four pools."""
+    qk, ks, qv, vs = quantize_kv_rows(k_new, v_new)
+    for arena, rows in ((cache_k, qk), (cache_v, qv), (k_scale, ks), (v_scale, vs)):
+        _scatter_rows(arena, rows, flat_slots)
+    return cache_k, cache_v, k_scale, v_scale
 
 
 def paged_kv_write(cache_k, cache_v, k_new, v_new, flat_slots):
@@ -87,23 +152,74 @@ def paged_kv_write(cache_k, cache_v, k_new, v_new, flat_slots):
 paged_kv_write.launches = 0
 
 
+def _check_scales(what, cache_k, k_scale, v_scale):
+    check_shape(what, "k_scale", k_scale, cache_k.shape[:3])
+    check_shape(what, "v_scale", v_scale, cache_k.shape[:3])
+
+
+def paged_kv_write_int8(cache_k, cache_v, k_scale, v_scale, k_new, v_new, flat_slots):
+    """Quantize new KV rows and write codes and scales into the int8 pools
+    in place, in one launch (kernel: csrc/paged_kv_write.cu). cache_k/
+    cache_v [NBLK, bs, KV, D] int8, k_scale/v_scale [NBLK, bs, KV] f32,
+    k_new/v_new [T, KV, D] bf16, flat_slots [T] int32 (-1 = dropped row;
+    a slot past the arena lands in the last block). Codes and scales are
+    bit-identical to paged_kv_write_quant_plain's. Returns the four pools."""
+    if not cache_k.is_cuda:
+        return paged_kv_write_quant_plain(cache_k, cache_v, k_scale, v_scale, k_new, v_new,
+                                          flat_slots)
+    what = "paged_kv_write_int8"
+    NBLK, bs, KV, D = cache_k.shape
+    T = flat_slots.shape[0]
+    check_cuda_args(
+        what,
+        {"cache_k": cache_k, "cache_v": cache_v, "k_scale": k_scale, "v_scale": v_scale,
+         "k_new": k_new, "v_new": v_new, "flat_slots": flat_slots},
+        {"cache_k": _I8, "cache_v": _I8, "k_scale": _F32, "v_scale": _F32,
+         "k_new": _BF16, "v_new": _BF16, "flat_slots": _I32})
+    check_shape(what, "cache_v", cache_v, cache_k.shape)
+    _check_scales(what, cache_k, k_scale, v_scale)
+    check_shape(what, "k_new", k_new, (T, KV, D))
+    check_shape(what, "v_new", v_new, (T, KV, D))
+    if D not in _DECODE_HEAD_DIMS:
+        raise ValueError(f"{what}: head_dim {D}; the kernel is built for {_DECODE_HEAD_DIMS}")
+    if T == 0:
+        return cache_k, cache_v, k_scale, v_scale
+    lib = build.load("paged_kv_write")
+    err = lib.paged_kv_write_int8(ptr(cache_k), ptr(cache_v), ptr(k_scale), ptr(v_scale),
+                                  ptr(k_new), ptr(v_new), ptr(flat_slots), T, NBLK, bs, KV,
+                                  D, stream_of(cache_k))
+    build.check(lib, err, what)
+    paged_kv_write_int8.launches += 1
+    return cache_k, cache_v, k_scale, v_scale
+
+
+paged_kv_write_int8.launches = 0
+
+
 # ---------------------------------------------------------------------------
 # decode attention
 # ---------------------------------------------------------------------------
 
-def paged_decode_attention_plain(q, k_cache, v_cache, block_table, ctx_lens):
+def paged_decode_attention_plain(q, k_cache, v_cache, block_table, ctx_lens,
+                                 k_scale=None, v_scale=None):
     """Attention of one query token per row over its paged context, in f32:
     row s attends to positions < ctx_lens[s] of its table. q [S, H, D];
     caches [NBLK, bs, KV, D]; block_table [S, NB]; ctx_lens [S]. Rows with
     ctx 0 are padding and output zeros. Counterpart of the JAX package's
     paged_decode_attention_xla (which gathers the same dense context).
+    k_scale/v_scale [NBLK, bs, KV] given: the caches hold int8 codes, each
+    dequantized to q's dtype (`dequantize`) before the products.
     Returns [S, H, D] in q's dtype."""
     S, H, D = q.shape
     NBLK, bs, KV, _ = k_cache.shape
     G = H // KV
     tbl = block_table.long().clamp(0, NBLK - 1)
-    k = k_cache[tbl].reshape(S, -1, KV, D).float()  # [S, NB*bs, KV, D]
-    v = v_cache[tbl].reshape(S, -1, KV, D).float()
+    k = k_cache[tbl].reshape(S, -1, KV, D)  # [S, NB*bs, KV, D]
+    v = v_cache[tbl].reshape(S, -1, KV, D)
+    if k_scale is not None:
+        k = dequantize(k, k_scale[tbl].reshape(S, -1, KV), q.dtype)
+        v = dequantize(v, v_scale[tbl].reshape(S, -1, KV), q.dtype)
+    k, v = k.float(), v.float()
     live = (torch.arange(k.shape[1], device=q.device)[None, :]
             < ctx_lens[:, None])  # [S, NB*bs]
     # never let a dead slot (unwritten, stale, possibly NaN) reach a sum
@@ -120,26 +236,40 @@ def paged_decode_attention_plain(q, k_cache, v_cache, block_table, ctx_lens):
 
 
 def paged_decode_fused_plain(q, k_cache, v_cache, block_table, ctx_lens,
-                             k_new, v_new, slots):
+                             k_new, v_new, slots, k_scale=None, v_scale=None):
     """Fused-mode reference: write each row's new K/V into its slot, then
     attend over positions < ctx (which include the new token).
-    Returns (out, k_cache, v_cache), the caches updated in place."""
-    paged_kv_write_plain(k_cache, v_cache, k_new, v_new, slots)
-    out = paged_decode_attention_plain(q, k_cache, v_cache, block_table, ctx_lens)
-    return out, k_cache, v_cache
+    Returns (out, k_cache, v_cache), the caches updated in place. With
+    k_scale/v_scale (int8 pools) the new rows are quantized on the way in
+    (paged_kv_write_quant_plain), so attention sees their round-tripped
+    value, as the TPU kernel's does; returns (out, k_cache, v_cache,
+    k_scale, v_scale)."""
+    if k_scale is None:
+        paged_kv_write_plain(k_cache, v_cache, k_new, v_new, slots)
+        out = paged_decode_attention_plain(q, k_cache, v_cache, block_table, ctx_lens)
+        return out, k_cache, v_cache
+    paged_kv_write_quant_plain(k_cache, v_cache, k_scale, v_scale, k_new, v_new, slots)
+    out = paged_decode_attention_plain(q, k_cache, v_cache, block_table, ctx_lens,
+                                       k_scale, v_scale)
+    return out, k_cache, v_cache, k_scale, v_scale
 
 
 def _check_decode(what, q, k_cache, v_cache, block_table, ctx_lens,
-                  k_new=None, v_new=None, slots=None):
+                  k_new=None, v_new=None, slots=None, k_scale=None, v_scale=None):
     S, H, D = q.shape
     NBLK, bs, KV, Dc = k_cache.shape
+    pool = _BF16 if k_scale is None else _I8
     tensors = {"q": q, "k_cache": k_cache, "v_cache": v_cache,
                "block_table": block_table, "ctx_lens": ctx_lens}
-    dtypes = {"q": _BF16, "k_cache": _BF16, "v_cache": _BF16,
+    dtypes = {"q": _BF16, "k_cache": pool, "v_cache": pool,
               "block_table": _I32, "ctx_lens": _I32}
     if k_new is not None:
         tensors.update(k_new=k_new, v_new=v_new, slots=slots)
         dtypes.update(k_new=_BF16, v_new=_BF16, slots=_I32)
+    if k_scale is not None:
+        tensors.update(k_scale=k_scale, v_scale=v_scale)
+        dtypes.update(k_scale=_F32, v_scale=_F32)
+        _check_scales(what, k_cache, k_scale, v_scale)
     check_cuda_args(what, tensors, dtypes, aligned=("k_cache", "v_cache"))
     if Dc != D or D not in _DECODE_HEAD_DIMS:
         raise ValueError(f"{what}: head_dim {D} (cache {Dc}); the kernel is "
@@ -158,22 +288,20 @@ def _check_decode(what, q, k_cache, v_cache, block_table, ctx_lens,
         check_shape(what, "slots", slots, (S,))
 
 
-def _launch_decode(what, fused, q, k_cache, v_cache, block_table, ctx_lens,
-                   k_new=None, v_new=None, slots=None):
+def _launch_decode(what, q, k_cache, v_cache, block_table, ctx_lens,
+                   k_new=None, v_new=None, slots=None, k_scale=None, v_scale=None):
     S, H, D = q.shape
     NBLK, bs, KV, _ = k_cache.shape
     out = torch.empty_like(q)
     if S == 0:
         return out
     lib = build.load("paged_decode")
-    null = None
+    opt = lambda t: None if t is None else ptr(t)
     err = lib.paged_decode(
-        ptr(out), ptr(q), ptr(k_cache), ptr(v_cache), ptr(block_table),
-        ptr(ctx_lens),
-        ptr(k_new) if fused else null, ptr(v_new) if fused else null,
-        ptr(slots) if fused else null,
-        int(fused), S, H, KV, D, NBLK, bs, block_table.shape[1],
-        1.0 / D ** 0.5, stream_of(q))
+        ptr(out), ptr(q), ptr(k_cache), ptr(v_cache), opt(k_scale), opt(v_scale),
+        ptr(block_table), ptr(ctx_lens), opt(k_new), opt(v_new), opt(slots),
+        int(k_new is not None), int(k_scale is not None), S, H, KV, D, NBLK, bs,
+        block_table.shape[1], 1.0 / D ** 0.5, stream_of(q))
     build.check(lib, err, what)
     return out
 
@@ -189,12 +317,34 @@ def paged_decode_attention(q, k_cache, v_cache, block_table, ctx_lens):
         return paged_decode_attention_plain(q, k_cache, v_cache, block_table, ctx_lens)
     what = "paged_decode_attention"
     _check_decode(what, q, k_cache, v_cache, block_table, ctx_lens)
-    out = _launch_decode(what, False, q, k_cache, v_cache, block_table, ctx_lens)
+    out = _launch_decode(what, q, k_cache, v_cache, block_table, ctx_lens)
     paged_decode_attention.launches += 1
     return out
 
 
 paged_decode_attention.launches = 0
+
+
+def paged_decode_attention_int8(q, k_cache, v_cache, block_table, ctx_lens, k_scale,
+                                v_scale):
+    """paged_decode_attention over int8 pools (kernel: csrc/paged_decode.cu,
+    FUSED=false, QUANT=true): the codes are dequantized in the attention
+    loop with their [NBLK, bs, KV] f32 scales. Used after
+    paged_kv_write_int8 for chunked continuations and prefix-hit suffixes.
+    q [S, H, D] bf16, caches [NBLK, bs, KV, D] int8. Returns [S, H, D]."""
+    if not q.is_cuda:
+        return paged_decode_attention_plain(q, k_cache, v_cache, block_table, ctx_lens,
+                                            k_scale, v_scale)
+    what = "paged_decode_attention_int8"
+    _check_decode(what, q, k_cache, v_cache, block_table, ctx_lens,
+                  k_scale=k_scale, v_scale=v_scale)
+    out = _launch_decode(what, q, k_cache, v_cache, block_table, ctx_lens,
+                         k_scale=k_scale, v_scale=v_scale)
+    paged_decode_attention_int8.launches += 1
+    return out
+
+
+paged_decode_attention_int8.launches = 0
 
 
 def paged_decode_fused(q, k_cache, v_cache, block_table, ctx_lens,
@@ -210,10 +360,35 @@ def paged_decode_fused(q, k_cache, v_cache, block_table, ctx_lens,
                                         k_new, v_new, slots)
     what = "paged_decode_fused"
     _check_decode(what, q, k_cache, v_cache, block_table, ctx_lens, k_new, v_new, slots)
-    out = _launch_decode(what, True, q, k_cache, v_cache, block_table, ctx_lens,
+    out = _launch_decode(what, q, k_cache, v_cache, block_table, ctx_lens,
                          k_new, v_new, slots)
     paged_decode_fused.launches += 1
     return out, k_cache, v_cache
 
 
 paged_decode_fused.launches = 0
+
+
+def paged_decode_fused_int8(q, k_cache, v_cache, block_table, ctx_lens, k_new, v_new,
+                            slots, k_scale, v_scale):
+    """paged_decode_fused over int8 pools (kernel: csrc/paged_decode.cu,
+    FUSED=true, QUANT=true): each row's new K/V [S, KV, D] bf16 is
+    quantized in the kernel (codes and scales bit-identical to
+    quantize_kv_rows), written into its flat slot of the code and scale
+    pools, and attended as its dequantized value, in one launch. The JAX
+    package's int8 fused mode of paged_decode_attention (its
+    paged_decode_fused is bf16 only). Returns (out [S, H, D], k_cache,
+    v_cache, k_scale, v_scale), the pools updated in place."""
+    if not q.is_cuda:
+        return paged_decode_fused_plain(q, k_cache, v_cache, block_table, ctx_lens, k_new,
+                                        v_new, slots, k_scale, v_scale)
+    what = "paged_decode_fused_int8"
+    _check_decode(what, q, k_cache, v_cache, block_table, ctx_lens, k_new, v_new, slots,
+                  k_scale, v_scale)
+    out = _launch_decode(what, q, k_cache, v_cache, block_table, ctx_lens, k_new, v_new,
+                         slots, k_scale, v_scale)
+    paged_decode_fused_int8.launches += 1
+    return out, k_cache, v_cache, k_scale, v_scale
+
+
+paged_decode_fused_int8.launches = 0

@@ -125,6 +125,142 @@ class TestKernelsOnCard:
             PF.flash_attention(q, q, q)
 
 
+def _int8_rows(rng, T, KV, D):
+    """f32 rows [T, KV, D] to be rounded to bf16: unit normal, and three
+    built rows: .5 ties (absmax 127, so the scale is exactly 1), zeros, and
+    a subnormal absmax."""
+    x = rng.standard_normal((T, KV, D)).astype(np.float32)
+    x[0] = rng.integers(-126, 126, (KV, D)) + 0.5
+    x[0, :, 0] = 127.0
+    x[1] = 0.0
+    x[2] = 3e-39
+    x[2, :, ::3] = -5e-39
+    return x
+
+
+def _int8_pools(rng, dev, nblk, bs, KV, D):
+    """int8 code pools and f32 scale pools on the card, filled by the plain
+    quantizer from unit-normal bf16 rows."""
+    kf = _bf16_cuda(rng.standard_normal((nblk * bs, KV, D)), dev)
+    vf = _bf16_cuda(rng.standard_normal((nblk * bs, KV, D)), dev)
+    qk, ks, qv, vs = PP.quantize_kv_rows(kf, vf)
+    return (qk.reshape(nblk, bs, KV, D), qv.reshape(nblk, bs, KV, D),
+            ks.reshape(nblk, bs, KV), vs.reshape(nblk, bs, KV))
+
+
+@pytest.mark.cuda
+class TestKvInt8OnCard:
+    """The three int8 kernels against their plain versions on the same card
+    inputs: codes and scales bit-exact (the in-kernel quantizer repeats
+    quantize_kv_rows); attention output at the bf16 decode's tolerance
+    (one bf16 ulp)."""
+
+    DECODE_TOL = dict(rtol=8e-3, atol=1e-3)
+
+    @pytest.mark.parametrize("KV,D", [(8, 128), (8, 64), (2, 128), (1, 64)])
+    def test_kv_write_int8_bit_exact(self, rng, cuda_device, KV, D):
+        """KV = 2 and 1 give [KV] f32 scale rows of 8 and 4 bytes, which the
+        bf16 write's 16-byte rows would refuse."""
+        d = cuda_device
+        pools = _int8_pools(rng, d, 12, 16, KV, D)
+        ref = [p.clone() for p in pools]
+        T = 40
+        kn = _bf16_cuda(_int8_rows(rng, T, KV, D), d)
+        vn = _bf16_cuda(_int8_rows(rng, T, KV, D)[::-1].copy(), d)
+        slots = rng.permutation(11 * 16)[:T].astype(np.int32)
+        slots[5::7] = -1
+        slots[3] = 12 * 16 + 5  # past the arena: clamped into block 11
+        s = torch.from_numpy(slots).to(d)
+        PP.paged_kv_write_int8(*pools, kn, vn, s)
+        PP.paged_kv_write_quant_plain(*ref, kn, vn, s)
+        torch.cuda.synchronize()
+        for got, want in zip(pools, ref):
+            assert torch.equal(got, want)
+        sub = ref[2].view(-1, KV)[slots[2]]  # the subnormal row kept its scale
+        assert 0 < sub.max().item() < torch.finfo(torch.float32).tiny
+
+    def _decode_inputs(self, rng, d, H, D):
+        q, _, _, tbl, ctx = _decode_case(rng, H=H, KV=8, D=D)
+        pools = _int8_pools(rng, d, 20, 16, 8, D)
+        return (_bf16_cuda(q, d), pools, torch.from_numpy(tbl).to(d),
+                torch.from_numpy(ctx).to(d))
+
+    @pytest.mark.parametrize("H,D", [(8, 128), (32, 128), (8, 64), (32, 64)])
+    def test_decode_int8_plain_mode(self, rng, cuda_device, H, D):
+        q, (kc, vc, ks, vs), tbl, ctx = self._decode_inputs(rng, cuda_device, H, D)
+        out = PP.paged_decode_attention_int8(q, kc, vc, tbl, ctx, ks, vs)
+        ref = PP.paged_decode_attention_plain(q, kc, vc, tbl, ctx, ks, vs)
+        torch.testing.assert_close(out.float(), ref.float(), **self.DECODE_TOL)
+        assert not out[3].any()  # the pad row
+
+    @pytest.mark.parametrize("H,D", [(8, 128), (32, 128), (8, 64), (32, 64)])
+    def test_decode_int8_fused_mode(self, rng, cuda_device, H, D):
+        d = cuda_device
+        q, pools, tbl, ctx = self._decode_inputs(rng, d, H, D)
+        ref_pools = [p.clone() for p in pools]
+        S, bs = q.shape[0], pools[0].shape[1]
+        pos = (ctx - 1).clamp(min=0)
+        slots = torch.where(ctx > 0, tbl[torch.arange(S, device=d), pos // bs] * bs + pos % bs,
+                            -1).to(torch.int32)
+        kn = _bf16_cuda(_int8_rows(rng, S, 8, D), d)
+        vn = _bf16_cuda(_int8_rows(rng, S, 8, D)[::-1].copy(), d)
+        out = PP.paged_decode_fused_int8(q, pools[0], pools[1], tbl, ctx, kn, vn, slots,
+                                         pools[2], pools[3])[0]
+        ref = PP.paged_decode_fused_plain(q, ref_pools[0], ref_pools[1], tbl, ctx, kn, vn,
+                                          slots, ref_pools[2], ref_pools[3])[0]
+        torch.testing.assert_close(out.float(), ref.float(), **self.DECODE_TOL)
+        for got, want in zip(pools, ref_pools):  # codes and scales bit-exact
+            assert torch.equal(got, want)
+
+    def test_dequant_rounds_to_bf16(self, rng, cuda_device):
+        """A code dequantizes to bf16(code * scale) before it meets P, as
+        in the TPU kernel. With q = 0 every live column gets P = 1/64
+        exactly, so the output is the exact mean of the 64 dequantized V
+        rows, rounded once to bf16, in any summation order: the kernel
+        must equal the plain version bit for bit. Codes 64..127 with
+        scale 1 + 2^-9 make code * scale = code + code/512, which bf16
+        rounds to code; the plain version without that rounding (its f32
+        mode) must differ."""
+        d = cuda_device
+        S, H, D, bs, nblk = 4, 8, 128, 16, 20
+        kc = torch.from_numpy(rng.integers(-127, 128, (nblk, bs, 8, D)).astype(np.int8)).to(d)
+        vc = torch.from_numpy(rng.integers(64, 128, (nblk, bs, 8, D)).astype(np.int8)).to(d)
+        ks = torch.rand((nblk, bs, 8), device=d) + 0.01
+        vs = torch.full((nblk, bs, 8), 1 + 2.0 ** -9, device=d)
+        tbl = torch.arange(S * 4, dtype=torch.int32, device=d).reshape(S, 4)
+        ctx = torch.full((S,), 64, dtype=torch.int32, device=d)
+        q = torch.zeros((S, H, D), dtype=torch.bfloat16, device=d)
+        out = PP.paged_decode_attention_int8(q, kc, vc, tbl, ctx, ks, vs)
+        ref = PP.paged_decode_attention_plain(q, kc, vc, tbl, ctx, ks, vs)
+        assert torch.equal(out, ref)
+        unrounded = PP.paged_decode_attention_plain(q.float(), kc, vc, tbl, ctx, ks, vs)
+        assert (unrounded.to(torch.bfloat16) != out).sum() > S * H * D // 10
+
+    def test_int8_wrappers_reject_bad_inputs(self, rng, cuda_device):
+        d = cuda_device
+        q, (kc, vc, ks, vs), tbl, ctx = self._decode_inputs(rng, d, 8, 128)
+        with pytest.raises(TypeError):  # bf16 pools to an int8 kernel
+            PP.paged_decode_attention_int8(q, kc.to(torch.bfloat16), vc.to(torch.bfloat16),
+                                           tbl, ctx, ks, vs)
+        with pytest.raises(TypeError):  # bf16 scales
+            PP.paged_decode_attention_int8(q, kc, vc, tbl, ctx, ks.to(torch.bfloat16), vs)
+        with pytest.raises(ValueError):  # scale pool not [NBLK, bs, KV]
+            PP.paged_decode_attention_int8(q, kc, vc, tbl, ctx, ks[:, :8].contiguous(), vs)
+        with pytest.raises(TypeError):  # int8 pools to the bf16 kernel
+            PP.paged_decode_attention(q, kc, vc, tbl, ctx)
+        rows = _bf16_cuda(rng.standard_normal((4, 8, 128)), d)
+        slots = torch.zeros((4,), dtype=torch.int32, device=d)
+        with pytest.raises(TypeError):  # f32 rows
+            PP.paged_kv_write_int8(kc, vc, ks, vs, rows.float(), rows, slots)
+        with pytest.raises(ValueError):  # rows of another head count
+            PP.paged_kv_write_int8(kc, vc, ks, vs, rows[:, :4].contiguous(), rows, slots)
+        with pytest.raises(ValueError):  # scales on the CPU
+            PP.paged_kv_write_int8(kc, vc, ks.cpu(), vs, rows, rows, slots)
+        with pytest.raises(TypeError):  # f32 new rows to the fused kernel
+            PP.paged_decode_fused_int8(q, kc, vc, tbl, ctx, rows[:4].float(), rows[:4],
+                                       slots, ks, vs)
+
+
 def _bwd_case(rng, dev, B, S, H, KV, D):
     """bf16 q, k, v, dO on the card and the forward's o and lse (from the
     forward kernel, as the training step saves them)."""

@@ -109,7 +109,7 @@ class TestSurface:
 
     @pytest.mark.parametrize("config,exc", [
         ({"tp_size": 2}, NotImplementedError),
-        ({"kv_cache_dtype": "int8"}, NotImplementedError),
+        ({"kv_cache_dtype": "int8", "tp_size": 2}, NotImplementedError),
         ({"moe_census": True}, NotImplementedError),
         ({"no_such_knob": 1}, TypeError),
         ({"max_batch_size": "8"}, TypeError),

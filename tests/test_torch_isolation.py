@@ -2,7 +2,7 @@
 
 A fresh interpreter imports the port, serves a tiny model on the CPU end
 to end (prefill, single-token decode, chunked continuation, greedy
-decode_multi), takes one bf16 train step through `initialize` and runs
+decode_multi) from f32 and from int8 KV pools, takes one bf16 train step through `initialize` and runs
 one forward and backward of `ds4sci_evoformer_attention` with both
 biases; no kernel may launch, and afterwards neither `jax` nor
 `deepspeed_tpu` may be in sys.modules. A static scan of the port's sources and chip_smoke.py backs
@@ -40,6 +40,14 @@ gen, last, _, _ = eng.decode_multi_fn(2, 4)(eng.params, eng.cache,
                                             np.array([6, 7], np.int32), tables, ctx)
 assert np.isfinite(logits).all() and torch.isfinite(last).all()
 assert gen.shape == (4, 2)
+q8 = init_inference(params, cfg, dict(max_seq_len=128, kv_block_size=16, num_kv_blocks=32,
+                    min_prefill_bucket=16, max_batch_size=16, kv_cache_dtype="int8"),
+                    dtype=torch.float32, device="cpu")
+l8 = np.concatenate([q8.put([0, 1], [r.integers(0, 512, 24), r.integers(0, 512, 9)]),
+                     q8.put([0], [np.array([3])]), q8.put([1], [np.array([4, 5])])])
+gen8, last8, _, _ = q8.decode_multi_fn(2, 4)(q8.params, q8.cache, np.array([6, 7], np.int32),
+                                             tables, ctx)
+assert np.isfinite(l8).all() and torch.isfinite(last8).all() and q8.cache.quantized
 from deepspeed_tpu_torch import initialize
 tcfg = T.TransformerConfig(vocab_size=512, n_layers=2, n_heads=2, d_model=256,
                            max_seq=256, variant="llama", remat="save_attn_qkv")

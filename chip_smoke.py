@@ -18,7 +18,13 @@ Phases (any failure raises and exits nonzero):
              scales bit for bit, with .5 ties, zero rows and subnormal
              rows, where a quantizer rounding ties away from zero must
              fail, and a case where dequantizing without the bf16 rounding
-             must fail);
+             must fail); the sliding-window modes of #1-#5 at the Mistral 7B
+             shapes (flash at B=1, S=8192, 32 x 128 heads over 8 KV heads;
+             decode at 8 rows with ctx 100..8000) for windows 4096, 1000 and
+             1, window >= S (or ctx) bit-identical to window 0, and planted
+             faults that must fail: a band one column wider, a decode that
+             starts at column 0, and at window 4096 two faults of the flash
+             output alone (a K/V tile's PV term dropped, the PV sum x1.02);
              time kernel, plain version and (where one exists) a single
              PyTorch library call computing the same function: device time
              from torch.profiler, and the time of back-to-back calls from
@@ -55,6 +61,33 @@ Phases (any failure raises and exits nonzero):
              layer 0); bf16 / int8 kv_bytes_per_token >= 1.8; a prefix hit
              and a COW copy. Reports the int8 - bf16 engine logit gap, TTFT
              and decode throughput.
+4c. serve_window - Mistral 7B (MISTRAL: 32 layers, d_model 4096, 32 x 128
+             query heads over 8 KV heads, d_ff 14336, vocab 32000, untied
+             lm_head, sliding window 4096; random bf16 weights, seed 0) in
+             init_inference on bf16 pools (SERVE_W: 512 blocks of 128
+             tokens), counted: a 6144-token prompt, a wave of 7 x 96-token
+             prompts, a single-token decode put, a 2-token continuation of
+             the long sequence (the plain-mode decode past the window) and
+             greedy decode_multi_fn(8, 24). #1, #4, #5 and #6 must launch,
+             each attention launch in its window mode. Checks: finite
+             logits; prefill and decode logits of all 32 layers by the
+             kernel path within 1.5x / 2x of the bf16 plain path's error
+             against f32 (the f32 path casts one layer's weights at a
+             time); locality: every pool row of the long sequence left of
+             the window set to NaN in every layer, the next decode's logits
+             finite and bit-identical. Reports TTFT of a
+             6144-token prompt, batch-8 decode throughput, where the time
+             goes, peak memory.
+4d. serve_window_int8 - the same on int8 pools and the same weights; only
+             the int8 kernels and flash_fwd may launch; the checks against
+             the plain int8 paths.
+4e. train_window - Mistral 7B's width, 4 layers deep (the whole model's
+             weights, fp32 master and Adam moments would not fit), with the
+             flagship's settings on one 8192-token sequence a step: one
+             counted step (#1-#3 once per layer, each in its window mode),
+             the loss falling over 6 steps; per-token loss and gradients of
+             2 layers at S=6144 against the plain paths. Reports step ms,
+             tokens/s, MFU, peak memory, where the time goes.
 5. evoformer - DS4Sci evoformer attention (ds4sci_evoformer_attention) at
              AlphaFold 2 / OpenFold widths, bf16, three cases (EVO_CASES):
              for each, one forward and backward with every launch counter
@@ -152,13 +185,38 @@ EVO_CASES = {
     "E3": dict(what="MSA row attention with pair bias, fine-tuning",
                B=1, S=512, N=384, H=8, D=32),
 }
+# the sliding-window path: Mistral 7B's published shape (arXiv 2310.06825,
+# Table 1, = mistralai/Mistral-7B-v0.1 config.json as the JAX package's
+# config_from_hf maps it, utils/hf_checkpoint.py), random weights from seed
+# 0; max_seq is the paper's context_len 8192 (the config's 32768 is only a
+# cap here). Served at full width and depth: 7,241,732,096 parameters,
+# 14.5 GB in bf16, 131,072 KV bytes per token, 8.6 GB for 512 blocks.
+MISTRAL = dict(variant="llama", vocab_size=32000, n_layers=32, d_model=4096, n_heads=32,
+               n_kv_heads=8, d_ff=14336, sliding_window=4096, rope_theta=10000.0,
+               norm_eps=1e-5, tie_embeddings=False, max_seq=8192)
+WINDOW = MISTRAL["sliding_window"]
+SERVE_W = dict(max_seq_len=8192, kv_block_size=128, num_kv_blocks=512,
+               min_prefill_bucket=64, max_batch_size=64)
+W_LONG, W_PROMPTS = 6144, 7  # one 6144-token prompt (the window bites in rows >= 4096)
+# trained 4 layers deep (7.24B params x 16 B of bf16 weights, fp32 master
+# and Adam moments is 116 GB), full width, one 8192-token sequence a step
+TRAIN_W_MODEL = dict(MISTRAL, n_layers=4, remat="save_attn_qkv", use_flash=True)
+TRAIN_W_S, TRAIN_W_STEPS, TRAIN_W_TIMED = 8192, 6, 3
+TRAIN_W_PATH = (2, 6144)  # layers, S of the gradient three-path check
+# window cases of phase 2 besides >= S: Mistral's 4096 (tile-aligned), 1000
+# (no multiple of the 64-row tiles or the 128-token blocks) and 1
+WINDOW_CASES = (4096, 1000, 1)
+# phase 2's decode rows: ctx on both sides of the 4096 window (6170 starts
+# it mid-block), up to 8000 of the 8192-token cap
+DECODE_W_CTX = (100, 2000, 4095, 4096, 4097, 5000, 6170, 8000)
 # kernel vs plain version on the card, (atol, rtol): the KV write is a copy
 # (bit-exact); decode keeps f32 probabilities, so only the bf16 rounding of
 # the output differs, at most one bf16 ulp (2^-7 of the value: rtol 8e-3,
-# atol 1e-3 near zero); flash also feeds bf16 probabilities to the tensor
-# cores (another 2^-9 relative per term)
+# atol 1e-3 near zero). The flash forward also feeds bf16 probabilities to
+# the tensor cores (another 2^-9 relative per term); its o is held under
+# bwd_mismatch's row-scaled limit (_check_flash_o), its lse at 1e-3.
 KERNEL_TOL = {"paged_kv_write": (0.0, 0.0), "paged_decode_fused": (1e-3, 8e-3),
-              "paged_decode_attention": (1e-3, 8e-3), "flash_fwd": (2e-2, 2e-2),
+              "paged_decode_attention": (1e-3, 8e-3),
               "paged_decode_fused_int8": (1e-3, 8e-3), "paged_decode_attention_int8": (1e-3, 8e-3)}
 # (the int8 write and the codes and scales of the fused int8 decode:
 # bit-exact; the int8 decode output: as the bf16 decode, the plain version
@@ -311,14 +369,24 @@ def _timings(kernel, plain, library, iters):
 # phase 2: each kernel against its plain version at its path's shapes
 # ---------------------------------------------------------------------------
 
+def _check_flash_o(FA, name, o, ro):
+    """Flash forward o against its plain version under FA.bwd_mismatch, a
+    limit that follows each output row: a row that averages n V rows has
+    |o| ~ n^-1/2, far below any fixed tolerance once n is in the
+    thousands. Returns the mismatch stats."""
+    st = FA.bwd_mismatch(o, ro)
+    if st["n_over"]:
+        raise AssertionError(f"{name}: beyond the tolerance of the plain forward: {st}")
+    return st
+
+
 def _flash_fwd_check(FA, randn, B, S, H, KV, D, bound_ms):
     import torch.nn.functional as F
 
     q, k, v = randn(B, S, H, D), randn(B, S, KV, D), randn(B, S, KV, D)
     o, lse = FA.flash_fwd(q, k, v)
     ro, rlse = FA.flash_attention_plain(q, k, v)
-    atol, rtol = KERNEL_TOL["flash_fwd"]
-    err = _check_close("flash_fwd o", o, ro, atol, rtol)
+    err = _check_flash_o(FA, "flash_fwd o", o, ro)["max_abs_err"]
     _check_close("flash_fwd lse", lse, rlse, 1e-3, 1e-3)
     qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
     return dict(
@@ -729,9 +797,286 @@ def _int8_kernel_checks(PA, randn, dev, H, KV, D, bs, nblk, NB, slots, ctx, tabl
     return out
 
 
+def _live_pairs(S, window):
+    """(query, key) pairs one head attends to at sequence length S:
+    sum over rows r of min(r + 1, window)."""
+    if window <= 0 or window >= S:
+        return S * (S + 1) / 2
+    return window * (window + 1) / 2 + (S - window) * window
+
+
+def _plain_fwd_grouped(FA, q, k, v, window):
+    """flash_attention_plain one KV head's group of query heads at a time
+    (the same arithmetic per head, in a quarter of the memory at GQA 4):
+    [1, 32, 8192, 8192] f32 logits would be 8.6 GB a tensor."""
+    G = q.shape[2] // k.shape[2]
+    parts = [FA.flash_attention_plain(q[:, :, g * G:(g + 1) * G], k[:, :, g:g + 1],
+                                      v[:, :, g:g + 1], window) for g in range(k.shape[2])]
+    import torch
+
+    return torch.cat([o for o, _ in parts], 2), torch.cat([lse for _, lse in parts], 1)
+
+
+def _plain_bwd_grouped(FA, q, k, v, lse, delta, do, window):
+    """FA._bwd_plain one KV head's group at a time (as _plain_fwd_grouped)."""
+    import torch
+
+    G = q.shape[2] // k.shape[2]
+    parts = []
+    for g in range(k.shape[2]):
+        h = slice(g * G, (g + 1) * G)
+        parts.append(FA._bwd_plain(q[:, :, h], k[:, :, g:g + 1], v[:, :, g:g + 1], lse[:, h],
+                                   delta[:, h], do[:, :, h], window))
+    return tuple(torch.cat(x, 2) for x in zip(*parts))
+
+
+def _flash_window_checks(FA, randn, B, S, H, KV, D, bound_ms):
+    """The window modes of kernels #1-#3 at the Mistral training shape
+    against their plain versions (run per KV group) on the same bf16 inputs:
+    windows WINDOW_CASES; window S and 2S bit-identical to window 0; the
+    planted fault "one wider" (the kernels at window 2 where 1 was asked)
+    caught. o is held by _check_flash_o: at window 4096 a row averages
+    ~4096 V rows, |o| ~ 0.02, and a fixed 2e-2 would pass a spoiled PV sum.
+    Two faults of the output alone (lse unchanged) must fail it at WINDOW:
+    one 64-row K/V tile's PV term dropped (its V rows zeroed) and the PV
+    sum scaled by 1.02. Window 1 leaves each
+    row only itself: o = v, and dq, dk are zero up to rounding (P = 1 makes
+    dP - delta the difference of two f32 sums of the same product), held
+    below 2^-10 of dv's RMS. Times at window 4096, beside SDPA with the band
+    as a boolean mask (K/V repeated to H heads outside the timed call)."""
+    import torch
+    import torch.nn.functional as F
+
+    q, k, v, do = randn(B, S, H, D), randn(B, S, KV, D), randn(B, S, KV, D), randn(B, S, H, D)
+    rms = lambda x: x.float().square().mean().sqrt().item()
+
+    def kernels(window, lse=None, delta=None):
+        o, lse_k = FA.flash_fwd(q, k, v, window)
+        lse = lse_k if lse is None else lse
+        delta = FA._delta(o, do) if delta is None else delta
+        return (o, lse_k) + (FA.flash_bwd_dq(q, k, v, do, lse, delta, window),) + \
+            FA.flash_bwd_dkv(q, k, v, do, lse, delta, window)
+
+    # window >= S: the same kernels' causal result, bit for bit (the backward
+    # on the causal forward's lse and delta)
+    base = kernels(0)
+    delta0 = FA._delta(base[0], do)
+    for w in (S, 2 * S):
+        got = kernels(w, base[1], delta0)
+        torch.cuda.synchronize()
+        if not all(torch.equal(a, b) for a, b in zip(got, base)):
+            raise AssertionError(f"flash window {w} >= S differs from the causal kernels")
+    del base, delta0, got
+
+    cases, errs = {}, {"fwd": 0.0, "dq": 0.0, "dkv": 0.0}
+    for w in WINDOW_CASES:
+        o, lse, dq, dk, dv = kernels(w)
+        ro, rlse = _plain_fwd_grouped(FA, q, k, v, w)
+        st = _check_flash_o(FA, f"flash_fwd window {w} o", o, ro)
+        err = st["max_abs_err"]
+        _check_close(f"flash_fwd window {w} lse", lse, rlse, 1e-3, 1e-3)
+        if w == WINDOW:  # faults of the output alone, lse untouched
+            dropped = v.clone()
+            dropped[:, w:w + 64] = 0
+            fo, flse = FA.flash_fwd(q, k, dropped, w)
+            torch.cuda.synchronize()
+            if not torch.equal(flse, lse):
+                raise AssertionError("flash_fwd: zeroing V rows changed lse")
+            fault = {"tile_dropped_o_elements_over": FA.bwd_mismatch(fo, ro)["n_over"],
+                     "pv_x1.02_o_elements_over": FA.bwd_mismatch(
+                         (o.float() * 1.02).to(o.dtype), ro)["n_over"]}
+            if not all(fault.values()):
+                raise AssertionError(f"flash window {w}: the o check passes a fault of the "
+                                     f"output alone: {fault}")
+            cases[f"planted_output_faults_at_{w}"] = fault
+            del dropped, fo, flse
+        ref = dict(zip(("dq", "dk", "dv"), _plain_bwd_grouped(FA, q, k, v, lse,
+                                                              FA._delta(o, do), do, w)))
+        got = {"dq": dq, "dk": dk, "dv": dv}
+        case = {"o_max_abs_err": err, "o_worst_ratio": st["worst_ratio"]}
+        for name in got:
+            if w == 1 and name != "dv":  # zero up to rounding
+                m, limit = got[name].float().abs().max().item(), 2.0 ** -10 * rms(dv)
+                if not m <= limit:
+                    raise AssertionError(f"flash_bwd {name} window 1: max {m} above the "
+                                         f"rounding bound {limit}")
+                case[name] = {"max_abs": m, "zero_bound": limit}
+            else:
+                st = FA.bwd_mismatch(got[name], ref[name])
+                if st["n_over"]:
+                    raise AssertionError(f"flash_bwd {name} window {w}: beyond the tolerance "
+                                         f"of the plain backward: {st}")
+                case[name] = {"worst_ratio": st["worst_ratio"], "max_abs": st["max_abs_err"]}
+            key = "dq" if name == "dq" else "dkv"
+            errs[key] = max(errs[key], case[name]["max_abs"])
+        errs["fwd"] = max(errs["fwd"], err)
+        cases[w] = case
+        if w == 1:  # the planted fault: a band one column wider
+            fo, _, fdq, _, fdv = kernels(2)
+            fault = {"o_elements_over": FA.bwd_mismatch(fo, ro)["n_over"],
+                     "dq_max_over_zero_bound": fdq.float().abs().max().item()
+                     / (2.0 ** -10 * rms(dv)),
+                     "dv_n_over": FA.bwd_mismatch(fdv, ref["dv"])["n_over"]}
+            if not (fault["o_elements_over"] and fault["dq_max_over_zero_bound"] > 1
+                    and fault["dv_n_over"]):
+                raise AssertionError(f"flash window: the checks pass a band one column "
+                                     f"wider: {fault}")
+            cases["planted_one_wider_at_1"] = fault
+            del fo, fdq, fdv
+        del o, lse, dq, dk, dv, ro, rlse, ref, got
+        torch.cuda.empty_cache()
+    print(json.dumps({"flash_window_checks": {str(k): v for k, v in cases.items()}}))
+
+    # timings at Mistral's window
+    w = WINDOW
+    o, lse = FA.flash_fwd(q, k, v, w)
+    delta = FA._delta(o, do)
+    band = torch.ones(S, S, dtype=torch.bool, device=q.device).tril().triu(1 - w)
+    G = H // KV
+    qt, dot = q.transpose(1, 2), do.transpose(1, 2)
+    kt, vt = (x.repeat_interleave(G, dim=2).transpose(1, 2) for x in (k, v))
+    leaves = [x.detach().requires_grad_() for x in (qt, kt, vt)]
+    ot = F.scaled_dot_product_attention(*leaves, attn_mask=band)
+    sdpa_bwd = lambda: torch.autograd.grad(ot, leaves, dot, retain_graph=True)
+    pairs = B * H * _live_pairs(S, w)
+    io_in = B * S * (2 * H + 2 * KV) * D * 2 + 2 * B * H * S * 4  # q, k, v, dO, lse, delta
+    shape = f"B={B}, S={S}, H={H}, KV={KV}, D={D}, bf16, window {w}"
+    out = {}
+    out["flash_fwd[window]"] = dict(
+        max_abs_err=errs["fwd"], shape=shape,
+        **_timings(lambda: FA.flash_fwd(q, k, v, w), lambda: _plain_fwd_grouped(FA, q, k, v, w),
+                   lambda: F.scaled_dot_product_attention(qt, kt, vt, attn_mask=band), 5),
+        bound=bound_ms(B * S * (H * 2 + KV * 2) * D * 2 + B * H * S * 4, 4.0 * pairs * D))
+    plain_bwd = lambda: _plain_bwd_grouped(FA, q, k, v, lse, delta, do, w)
+    out["flash_bwd_dq[window]"] = dict(
+        max_abs_err=errs["dq"], shape=shape,
+        **_timings(lambda: FA.flash_bwd_dq(q, k, v, do, lse, delta, w), plain_bwd, sdpa_bwd, 5),
+        bound=bound_ms(io_in + B * S * H * D * 2, 3 * 2.0 * pairs * D))
+    out["flash_bwd_dkv[window]"] = dict(
+        max_abs_err=errs["dkv"], shape=shape,
+        **_timings(lambda: FA.flash_bwd_dkv(q, k, v, do, lse, delta, w), plain_bwd, sdpa_bwd,
+                   5),
+        bound=bound_ms(io_in + 2 * B * S * KV * D * 2, 4 * 2.0 * pairs * D))
+    print(json.dumps({"flash_window_vs_sdpa": {
+        "window": w, "live_pairs_per_head": _live_pairs(S, w),
+        "causal_pairs_per_head": _live_pairs(S, 0),
+        "fwd_ms": out["flash_fwd[window]"]["ms"],
+        "sdpa_fwd_ms": out["flash_fwd[window]"]["library_ms"],
+        "dq_plus_dkv_ms": out["flash_bwd_dq[window]"]["ms"] + out["flash_bwd_dkv[window]"]["ms"],
+        "sdpa_bwd_ms": out["flash_bwd_dq[window]"]["library_ms"], "shape": shape}}))
+    del ot, leaves, band
+    torch.cuda.empty_cache()
+    return out
+
+
+def _decode_window_checks(PA, randn, dev, bound_ms):
+    """The window modes of kernels #4 and #5 (bf16 plain and fused, int8
+    plain and fused) at the Mistral serving shape, 8 rows with ctx on both
+    sides of the window (100 ... 8000; ctx 6170 starts the 4096 window in
+    mid-block), each row's 63 blocks scattered over the arena, against the
+    plain versions (windows WINDOW_CASES; window >= every ctx bit-identical
+    to window 0; the fused modes' written pools bit-exact) and two planted
+    faults: window 1 run as 2 (one column wider) and window 1000 run as 0
+    (the column loop started at 0). Times at window 4096; the bound counts
+    the bytes of min(ctx, window) positions of each row."""
+    import torch
+
+    mid = WINDOW_CASES[1]  # 1000
+    cfg_w = MISTRAL
+    H, KV = cfg_w["n_heads"], cfg_w["n_kv_heads"]
+    D = cfg_w["d_model"] // H
+    bs = SERVE_W["kv_block_size"]
+    NB = SERVE_W["max_seq_len"] // bs
+    ctx_list = list(DECODE_W_CTX)
+    S = len(ctx_list)
+    per_row = -(-max(ctx_list) // bs)
+    nblk = S * per_row + 1
+    g = torch.Generator(device=dev).manual_seed(5)
+    perm = torch.randperm(nblk - 1, generator=g, device=dev).to(torch.int32)
+    tables = torch.full((S, NB), nblk - 1, dtype=torch.int32, device=dev)
+    tables[:, :per_row] = perm.reshape(S, per_row)
+    ctx = torch.tensor(ctx_list, dtype=torch.int32, device=dev)
+    q = randn(S, H, D)
+    k_new, v_new = randn(S, KV, D), randn(S, KV, D)
+    pos = (ctx - 1).long()
+    slots = (tables[torch.arange(S, device=dev), pos // bs].long() * bs + pos % bs).to(torch.int32)
+    bf16_pools = [randn(nblk, bs, KV, D), randn(nblk, bs, KV, D)]
+    qk, ks, qv, vs = PA.quantize_kv_rows(randn(nblk * bs, KV, D), randn(nblk * bs, KV, D))
+    int8_pools = [qk.reshape(nblk, bs, KV, D), qv.reshape(nblk, bs, KV, D),
+                  ks.reshape(nblk, bs, KV), vs.reshape(nblk, bs, KV)]
+
+    kernels = {"paged_decode_fused": PA.paged_decode_fused,
+               "paged_decode_attention": PA.paged_decode_attention,
+               "paged_decode_fused_int8": PA.paged_decode_fused_int8,
+               "paged_decode_attention_int8": PA.paged_decode_attention_int8}
+
+    def call(name, window, pools, kernel=True):
+        """The output of one mode (the kernel or its plain version) on
+        `pools`, which the fused modes write in place."""
+        fused = "fused" in name
+        if kernel:
+            fn = kernels[name]
+        else:
+            fn = PA.paged_decode_fused_plain if fused else PA.paged_decode_attention_plain
+        extra = (k_new, v_new, slots) if fused else ()
+        out = fn(q, pools[0], pools[1], tables, ctx, *extra, *pools[2:], window=window)
+        return out[0] if fused else out
+
+    def run(name, window, kernel=True):
+        """(output, the pools it wrote) of one mode on copies of the pools."""
+        pools = [p.clone() for p in (int8_pools if "int8" in name else bf16_pools)]
+        return call(name, window, pools, kernel), pools
+
+    results, report = {}, {}
+    atol, rtol = KERNEL_TOL["paged_decode_attention"]
+    live = [min(c, WINDOW) for c in ctx_list]
+    io = S * H * D * 2 * 2 + S * NB * 4 + S * 4  # q in, out, tables, ctx
+    for name in kernels:
+        base, _ = run(name, 0)
+        for w in (max(ctx_list), 10 ** 6):
+            o, _ = run(name, w)
+            torch.cuda.synchronize()
+            if not torch.equal(o, base):
+                raise AssertionError(f"{name} window {w} >= ctx differs from window 0")
+        errs, plain = {}, {}
+        for w in WINDOW_CASES:
+            (o, pk), (ref, pr) = run(name, w), run(name, w, kernel=False)
+            errs[w] = _check_close(f"{name} window {w}", o, ref, atol, rtol)
+            if "fused" in name:
+                for a, b in zip(pk, pr):
+                    _check_close(f"{name} window {w} pools", a, b, 0.0, 0.0)
+            plain[w] = ref
+        over = lambda got, ref: int(((got.float() - ref.float()).abs()
+                                     > atol + rtol * ref.float().abs()).sum())
+        faults = {"one_wider_at_1": over(run(name, 2)[0], plain[1]),
+                  f"start_at_0_at_{mid}": over(run(name, 0)[0], plain[mid])}
+        if not all(faults.values()):
+            raise AssertionError(f"{name}: the window check passes a planted fault: {faults}")
+        report[name] = {"max_abs_err": errs, "planted_faults_elements_over": faults}
+        quant = "int8" in name
+        pos_bytes = KV * (D + 4) * 2 if quant else 2 * KV * D * 2  # K and V of one position
+        if "fused" in name:  # the new row: k/v_new in, its slot written, slots in
+            n_bytes = io + (sum(live) - S) * pos_bytes + S * (KV * D * 2 * 2 + pos_bytes + 4)
+        else:
+            n_bytes = io + sum(live) * pos_bytes
+        pools, ref_pools = run(name, 0)[1], run(name, 0)[1]
+        results[f"{name}[window]"] = dict(
+            max_abs_err=max(errs.values()),
+            **_timings(lambda: call(name, WINDOW, pools),
+                       lambda: call(name, WINDOW, ref_pools, kernel=False), None, 20),
+            shape=f"S={S}, ctx {min(ctx_list)}..{max(ctx_list)}, window {WINDOW}, H={H}, "
+                  f"KV={KV}, D={D}, bs={bs}, {'int8' if quant else 'bf16'} pools "
+                  f"of {nblk} blocks",
+            bound=bound_ms(n_bytes, 4 * sum(live) * H * D))
+        del plain, pools, ref_pools
+    print(json.dumps({"decode_window_checks": {"ctx": ctx_list, **report}}))
+    return results
+
+
 def check_kernels(cfg, dev):
     import torch
 
+    from deepspeed_tpu_torch.models.transformer import TransformerConfig
     from deepspeed_tpu_torch.ops.cuda import flash_attention as FA
     from deepspeed_tpu_torch.ops.cuda import paged_attention as PA
     from deepspeed_tpu_torch.platform.accelerator import bound_ms
@@ -819,6 +1164,11 @@ def check_kernels(cfg, dev):
     #    and the training shape; the kernels line carries the training one
     results["flash_fwd@serve"] = _flash_fwd_check(FA, randn, 1, LONG_LEN, H, KV, D, bound_ms)
     results.update(_flash_train_checks(FA, randn, TRAIN_B, TRAIN_S, H, KV, D, bound_ms))
+    # the window modes at the Mistral shapes: training (B=1, S=8192) and serving
+    mw = TransformerConfig(**MISTRAL)
+    results.update(_flash_window_checks(FA, randn, 1, TRAIN_W_S, mw.n_heads, mw.kv_heads,
+                                        mw.head_dim, bound_ms))
+    results.update(_decode_window_checks(PA, randn, dev, bound_ms))
     results.update(_evo_kernel_checks(dev, bound_ms))
     for name, r in results.items():
         print(json.dumps({"kernel_check": name, "max_err": r["max_abs_err"],
@@ -833,23 +1183,22 @@ def check_kernels(cfg, dev):
 # phase 3: the training path at full flagship width and depth
 # ---------------------------------------------------------------------------
 
-def _grads_three_paths(T, eng, cfg, tokens):
+def _grads_three_paths(T, master, cfg, tokens, device):
     """Per-token loss [S] and the flattened gradient of the mean loss on
-    one sequence, by three paths from the engine's weights: the kernel
-    path in bf16 (what training runs), the plain path in bf16 and the
-    plain path in f32 (the reference for both)."""
+    one sequence, by three paths from the fp32 weights `master`: the
+    kernel path in bf16 (what training runs), the plain path in bf16 and
+    the plain path in f32 (the reference for both)."""
     import torch
     import torch.nn.functional as F
 
     from deepspeed_tpu_torch.utils.tree import leaves, tree_map
 
-    tokens = torch.as_tensor(tokens, device=eng.device).long()
+    tokens = torch.as_tensor(tokens, device=device).long()
     inputs, targets = tokens[:, :-1], tokens[:, 1:]
     out = []
     for use_kernel, dtype in ((True, torch.bfloat16), (False, torch.bfloat16),
                               (False, torch.float32)):
-        live = tree_map(lambda m: m.detach().to(dtype, copy=True).requires_grad_(),
-                        eng.state.master)
+        live = tree_map(lambda m: m.detach().to(dtype, copy=True).requires_grad_(), master)
         logits = T.forward(live, inputs, cfg, use_kernel=use_kernel).float()
         nll = F.cross_entropy(logits.flatten(0, 1), targets.flatten(), reduction="none")
         grads = torch.autograd.grad(nll.mean(), leaves(live))
@@ -913,7 +1262,8 @@ def run_train(mcfg, dev):
     # -- kernel path vs plain paths on one sequence -----------------------------
     r = np.random.default_rng(1)
     one = r.integers(0, mcfg.vocab_size, (1, TRAIN_S + 1)).astype(np.int32)
-    (nk, gk), (npl, gp), (n32, g32) = _grads_three_paths(T, eng, mcfg, one)
+    (nk, gk), (npl, gp), (n32, g32) = _grads_three_paths(T, eng.state.master, mcfg, one,
+                                                         eng.device)
     loss_stats = _path_errors("per-token loss", nk, npl, n32)
     # gradients in units of the f32 gradient's RMS, so the fixed slack of
     # _path_errors is relative to the gradient's scale
@@ -980,9 +1330,9 @@ def _int8_step_pools(eng, cfg, dec):
     kern, plain = _pool_copies(before), _pool_copies(before)
     rows, real = [], M.paged_decode_fused_int8
 
-    def record(q, kc, vc, tbl, ctx, k_new, v_new, slots, ks, vs):
+    def record(q, kc, vc, tbl, ctx, k_new, v_new, slots, ks, vs, **kw):
         rows.append((k_new.clone(), v_new.clone(), slots.clone()))
-        return real(q, kc, vc, tbl, ctx, k_new, v_new, slots, ks, vs)
+        return real(q, kc, vc, tbl, ctx, k_new, v_new, slots, ks, vs, **kw)
 
     M.paged_decode_fused_int8 = record
     try:
@@ -1156,7 +1506,7 @@ def run_serving(cfg, dev, int8=False, bf16=None):
             for name, x in (("decode", decode), ("chunk", chunk))}
 
     # -- timings (after the counted run) ------------------------------------
-    times = _serving_times(eng, fn, toks, tables, ctx, r, V)
+    times = _serving_times(eng, fn, toks, tables, ctx, r, V, LONG_LEN)
     report.update(times)
     report["peak_mem_gib"] = torch.cuda.max_memory_allocated(dev) / 2**30
     report["prefix_cache"] = prefix
@@ -1164,10 +1514,11 @@ def run_serving(cfg, dev, int8=False, bf16=None):
                     "kv_bytes_per_token": eng.kv_bytes_per_token()}
 
 
-def _serving_times(eng, fn, toks, tables, ctx, r, V):
-    """TTFT of fresh 512-token prompts (CUDA events around put(); median
-    of 5 after 2 warm-ups), the time of the batch-8 greedy decode_multi
-    `fn`, and where the time goes in each (torch.profiler)."""
+def _serving_times(eng, fn, toks, tables, ctx, r, V, prompt_len):
+    """TTFT of fresh prompts of `prompt_len` tokens (CUDA events around
+    put(); median of 5 after 2 warm-ups), the time of the batch-8 greedy
+    decode_multi `fn` over the rows `toks`, and where the time goes in each
+    (torch.profiler)."""
     import numpy as np
     import torch
 
@@ -1175,7 +1526,7 @@ def _serving_times(eng, fn, toks, tables, ctx, r, V):
     start = torch.cuda.Event(enable_timing=True)
     stop = torch.cuda.Event(enable_timing=True)
     for i in range(7):  # the first two are warm-up
-        p = r.integers(0, V, LONG_LEN).astype(np.int32)
+        p = r.integers(0, V, prompt_len).astype(np.int32)
         uid = 1000 + i
         torch.cuda.synchronize()
         start.record()
@@ -1186,17 +1537,303 @@ def _serving_times(eng, fn, toks, tables, ctx, r, V):
         if i >= 2:
             ttft.append(start.elapsed_time(stop))
     step_ms = _time_ms(lambda: fn(eng.params, eng.cache, toks, tables, ctx), 3, warmup=1)
-    p = r.integers(0, V, LONG_LEN).astype(np.int32)
+    p = r.integers(0, V, prompt_len).astype(np.int32)
     breakdown = {
         "decode_multi_b8_24steps": _where_time_goes(
             lambda: fn(eng.params, eng.cache, toks, tables, ctx)),
-        "prefill_put_512": _where_time_goes(lambda: eng.put([2000], [p])),
+        f"prefill_put_{prompt_len}": _where_time_goes(lambda: eng.put([2000], [p])),
     }
     eng.flush(2000)
-    return {"ttft_ms_512_p50": statistics.median(ttft), "ttft_ms_512_all": ttft,
+    n = prompt_len
+    return {f"ttft_ms_{n}_p50": statistics.median(ttft), f"ttft_ms_{n}_all": ttft,
             "decode_multi_ms_b8_24steps": step_ms,
-            "decode_tok_s_b8": N_PROMPTS * DECODE_STEPS / (step_ms / 1e3),
+            "decode_tok_s_b8": len(toks) * DECODE_STEPS / (step_ms / 1e3),
             "where_time_goes": breakdown}
+
+
+# ---------------------------------------------------------------------------
+# phases serve_window, serve_window_int8, train_window: Mistral 7B
+# ---------------------------------------------------------------------------
+
+def _all_launches(K):
+    """Every wrapper's launches and, as "<name>[window]", those of each
+    window mode."""
+    return {**K.launch_counts(), **K.window_launch_counts()}
+
+
+def _window_locality(M, eng, cfg, uid, dev):
+    """Every pool row of sequence `uid` at a position < ctx - window of its
+    next decode, in every layer, overwritten with NaN (on int8 pools: its
+    scales): the next decode's logits, through the fused kernel and through
+    the write + plain-mode kernel, must stay finite and bit-identical to the
+    same step on the untouched pools. The rows are restored afterwards."""
+    import torch
+
+    bs = eng.config.kv_block_size
+    seen = eng.state.get(uid).seen_tokens
+    ctx = seen + 1
+    table = eng.state.block_table([uid], eng.config.blocks_per_seq, eng.pad_block)
+    tables = torch.as_tensor(table, device=dev)
+    dead = torch.arange(ctx - WINDOW, device=dev)
+    flat = tables[0, dead // bs].long() * bs + dead % bs
+    c = eng.cache
+    pools = (c.k_scale + c.v_scale) if c.quantized else (c.k + c.v)
+    saved = [p.view(-1, *p.shape[2:])[flat].clone() for p in pools]
+    step = (torch.tensor([7], dtype=torch.int32, device=dev), tables,
+            torch.tensor([ctx], dtype=torch.int32, device=dev))
+    out = {"ctx": ctx, "positions_overwritten": int(dead.numel())}
+    try:
+        for unique in (True, False):
+            clean = M.decode_step(eng.params, c, *step, cfg, unique_rows=unique)[0]
+            for p in pools:
+                p.view(-1, *p.shape[2:])[flat] = float("nan")
+            got = M.decode_step(eng.params, c, *step, cfg, unique_rows=unique)[0]
+            torch.cuda.synchronize()
+            if not torch.isfinite(got).all() or not torch.equal(got, clean):
+                raise AssertionError(f"locality (unique_rows={unique}): NaN rows left of the "
+                                     "window reached the decode logits")
+            for p, x in zip(pools, saved):
+                p.view(-1, *p.shape[2:])[flat] = x
+            out["fused" if unique else "plain_mode"] = "bit-identical, finite"
+    finally:
+        for p, x in zip(pools, saved):
+            p.view(-1, *p.shape[2:])[flat] = x
+    return out
+
+
+class _F32Layers(tuple):
+    """The serving layers of a param tree (a tuple, as the serving layout
+    expects), each cast to f32 only when the layer loop reaches it: an f32
+    path at full depth without an f32 copy of the whole model (29 GB for
+    Mistral 7B) beside the engine."""
+
+    def __iter__(self):
+        return ({n: w.float() for n, w in lp.items()} for lp in super().__iter__())
+
+
+def _window_three_paths(M, eng, cfg, int8, long_prompt, prompts, dev):
+    """Prefill (the 6144-token prompt and the 7-prompt wave) and two decode
+    steps (fused, then the write + plain-mode kernel at the next position)
+    of the whole model on the engine's weights, by three paths: the kernel
+    path in bf16, the plain path in bf16 and the plain path in f32 (the
+    reference of both; _F32Layers), each from an empty cache of its own
+    (int8 pools on the int8 phase). Returns the _path_errors stats."""
+    import numpy as np
+    import torch
+
+    p16 = eng.params
+    p32 = dict({k: v.float() for k, v in p16.items() if k != "layers"},
+               layers=_F32Layers(p16["layers"]))
+    bs = SERVE_W["kv_block_size"]
+    NBt = SERVE_W["max_seq_len"] // bs
+    n_long = W_LONG // bs + 1
+    nblk = n_long + W_PROMPTS + 2
+    tl = np.full((1, NBt), nblk - 1, np.int32)
+    tl[0, :n_long] = np.arange(n_long)
+    tb = np.full((W_PROMPTS, NBt), nblk - 1, np.int32)
+    tb[:, 0] = n_long + np.arange(W_PROMPTS)
+    toks_b = np.zeros((W_PROMPTS, PROMPT_BUCKET), np.int32)
+    for i, p in enumerate(prompts):
+        toks_b[i, :PROMPT_LEN] = p
+    waves = [(long_prompt[None], np.array([W_LONG], np.int32), tl),
+             (toks_b, np.full((W_PROMPTS,), PROMPT_LEN, np.int32), tb)]
+    tables = torch.as_tensor(np.concatenate([tl, tb]), device=dev)
+    ctx = torch.as_tensor([W_LONG + 1] + [PROMPT_LEN + 1] * W_PROMPTS, dtype=torch.int32,
+                          device=dev)
+    outs = {"prefill": [], "decode_fused": [], "decode_plain_mode": []}
+    for use_kernel, dtype, prm in ((True, torch.bfloat16, p16), (False, torch.bfloat16, p16),
+                                   (False, torch.float32, p32)):
+        cache = M.init_cache(cfg, nblk, bs, dtype, dev, kv_quant=int8)
+        pre = torch.cat([M.prefill_batch(prm, cache, *(torch.as_tensor(a, device=dev)
+                                                       for a in w), cfg,
+                                         use_kernel=use_kernel)[0] for w in waves])
+        toks = pre.argmax(-1).to(torch.int32) if use_kernel else outs["toks"]
+        outs.setdefault("toks", toks)
+        d1 = M.decode_step(prm, cache, toks, tables, ctx, cfg, use_kernel=use_kernel,
+                           unique_rows=True)[0]
+        d2 = M.decode_step(prm, cache, toks, tables, ctx + 1, cfg, use_kernel=use_kernel,
+                           unique_rows=False)[0]
+        for name, x in (("prefill", pre), ("decode_fused", d1), ("decode_plain_mode", d2)):
+            outs[name].append(x.float().cpu())
+        del cache
+        torch.cuda.empty_cache()
+    del p32
+    return {name: _path_errors(f"{name} logits", *outs[name])
+            for name in ("prefill", "decode_fused", "decode_plain_mode")}
+
+
+def run_serve_window(cfg, dev, params, int8=False):
+    """Mistral 7B served at full width and depth from bf16 pools (phase
+    serve_window) or int8 pools (serve_window_int8), on the weights
+    `params` (the training layout, or the serving layout of an earlier
+    engine). The counted sequence: one put of a 6144-token prompt, a wave
+    of 7 x 96-token prompts, a single-token decode put, a 2-token
+    continuation of the long sequence (the plain-mode kernel at ctx > 4096)
+    and greedy decode_multi_fn(8, 24). Then the three-path check
+    (_window_three_paths), the locality check (_window_locality), TTFT of
+    the 6144-token prompt and batch-8 decode throughput. Returns (report,
+    the engine's serving-layout weights)."""
+    import numpy as np
+    import torch
+
+    from deepspeed_tpu_torch import init_inference
+    from deepspeed_tpu_torch.inference import model as M
+    from deepspeed_tpu_torch.ops import cuda as K
+
+    torch.cuda.reset_peak_memory_stats(dev)
+    t0 = time.perf_counter()
+    eng = init_inference(params, cfg, dict(SERVE_W, kv_cache_dtype="int8" if int8 else "auto"))
+    del params
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    V = cfg.vocab_size
+    r = np.random.default_rng(3)
+    long_prompt = r.integers(0, V, W_LONG).astype(np.int32)
+    prompts = [r.integers(0, V, PROMPT_LEN).astype(np.int32) for _ in range(W_PROMPTS)]
+    L = 100  # the long sequence's uid
+    uids = list(range(W_PROMPTS))
+
+    # -- the main path, counted -------------------------------------------
+    K.reset_launch_counts()
+    long_logits = eng.put([L], [long_prompt])
+    wave = eng.put(uids, prompts)
+    decode = eng.put([0], [wave[:1].argmax(-1).astype(np.int32)])
+    chunk = eng.put([L], [np.array([long_logits[0].argmax(), 1], np.int32)])
+    rows = [L] + uids
+    tables = eng.state.block_table(rows, eng.config.blocks_per_seq, eng.pad_block)
+    ctx = np.array([eng.state.get(u).seen_tokens + 1 for u in rows], np.int32)
+    toks = np.concatenate([chunk.argmax(-1), decode.argmax(-1),
+                           wave[1:].argmax(-1)]).astype(np.int32)
+    fn = eng.decode_multi_fn(len(rows), DECODE_STEPS)
+    gen, last, eng.cache, _ = fn(eng.params, eng.cache, toks, tables, ctx)
+    torch.cuda.synchronize()
+    launches = _all_launches(K)
+    # -----------------------------------------------------------------------
+
+    kern = INT8_KERNELS if int8 else SERVE_KERNELS
+    win = [f"{n}[window]" for n in kern if n in K.WINDOW_MODES]
+    if int8:
+        wrong = {n: c for n, c in launches.items()
+                 if "[window]" not in n and (c == 0) == (n in kern)}
+        if wrong:
+            raise AssertionError(f"the int8 window path must launch each of {sorted(kern)} "
+                                 f"and nothing else; wrong counts: {wrong}")
+    missing = [n for n in list(kern) + win if launches[n] == 0]
+    if missing:
+        raise AssertionError(f"the window serving path launched no {missing}: {launches}")
+    unbanded = [n for n in kern if n in K.WINDOW_MODES and launches[n] != launches[f"{n}[window]"]]
+    if unbanded:  # every layer of the model has the window
+        raise AssertionError(f"launches of {unbanded} outside the window mode: {launches}")
+    for name, x in (("prefill", long_logits), ("wave", wave), ("decode", decode),
+                    ("chunk", chunk), ("decode_multi", last.float().cpu().numpy())):
+        if not np.isfinite(x).all():
+            raise AssertionError(f"{name} logits are not finite")
+    g = gen.cpu().numpy()
+    if g.shape != (DECODE_STEPS, len(rows)) or g.min() < 0 or g.max() >= V:
+        raise AssertionError(f"decode_multi tokens out of range: {g.shape}")
+
+    report = {"init_s": init_s, "launches": {n: c for n, c in launches.items() if c},
+              "long_row_decode_ctx": [int(ctx[0]), int(ctx[0]) + DECODE_STEPS - 1],
+              "locality": _window_locality(M, eng, cfg, L, dev)}
+    report["path"] = _window_three_paths(M, eng, cfg, int8, long_prompt, prompts, dev)
+
+    # -- timings (after the counted run) ------------------------------------
+    report.update(_serving_times(eng, fn, toks, tables, ctx, r, V, W_LONG))
+    report.update({"kv_bytes_per_token": eng.kv_bytes_per_token(),
+                   "peak_mem_gib": torch.cuda.max_memory_allocated(dev) / 2**30})
+    params = eng.params
+    del eng
+    torch.cuda.empty_cache()
+    return report, params
+
+
+def run_train_window(dev):
+    """Mistral 7B's width, 4 layers deep, trained with the flagship's
+    settings on one 8192-token sequence a step: one step with every launch
+    counter at 0 (each flash kernel once per layer, each in its window
+    mode), the loss falling over TRAIN_W_STEPS steps on the fixed batch,
+    the time of TRAIN_W_TIMED async steps, and the three-path check of the
+    per-token loss and the gradients at TRAIN_W_PATH (layers, S) from the
+    engine's master weights, after the engine is freed."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+
+    from deepspeed_tpu_torch import initialize
+    from deepspeed_tpu_torch.models import transformer as T
+    from deepspeed_tpu_torch.ops import cuda as K
+
+    mcfg = T.TransformerConfig(**TRAIN_W_MODEL)
+    torch.cuda.reset_peak_memory_stats(dev)
+    t0 = time.perf_counter()
+    eng = initialize(dict(TRAIN_CONFIG, train_micro_batch_size_per_gpu=1),
+                     loss_fn=T.make_loss_fn(mcfg, loss_chunks=LOSS_CHUNKS),
+                     param_init_fn=lambda g: T.init(mcfg, g, device=dev),
+                     param_logical_specs=T.logical_specs(mcfg))
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    batch = {"tokens": np.random.default_rng(0).integers(
+        0, mcfg.vocab_size, (1, TRAIN_W_S + 1)).astype(np.int32)}
+
+    # -- the main path, counted: one train step --------------------------------
+    K.reset_launch_counts()
+    first = eng.train_batch(batch)
+    launches = _all_launches(K)
+    # ---------------------------------------------------------------------------
+
+    want = {n: (mcfg.n_layers if n in TRAIN_KERNELS
+                or n in [f"{k}[window]" for k in TRAIN_KERNELS] else 0) for n in launches}
+    if launches != want:
+        raise AssertionError(f"a windowed train step should launch each flash kernel once per "
+                             f"layer in its window mode and nothing else: {launches}")
+    history = [first] + [eng.train_batch(batch) for _ in range(TRAIN_W_STEPS - 1)]
+    losses = [m["loss"] for m in history]
+    if not all(np.isfinite(losses + [m["grad_norm"] for m in history])):
+        raise AssertionError(f"non-finite loss or grad_norm: {history}")
+    if not losses[-1] < losses[0]:
+        raise AssertionError(f"the loss did not fall over {TRAIN_W_STEPS} steps: {losses}")
+    start = torch.cuda.Event(enable_timing=True)
+    stop = torch.cuda.Event(enable_timing=True)
+    torch.cuda.synchronize()
+    start.record()
+    for _ in range(TRAIN_W_TIMED):
+        eng.train_batch_async(batch)
+    stop.record()
+    torch.cuda.synchronize()
+    step_ms = start.elapsed_time(stop) / TRAIN_W_TIMED
+    tok_s = TRAIN_W_S / (step_ms / 1e3)
+    breakdown = _where_time_goes(lambda: eng.train_batch(batch), top=10)
+    peak_gib = torch.cuda.max_memory_allocated(dev) / 2**30
+
+    # -- kernel path vs plain paths, 2 layers at S = 6144 -----------------------
+    n_layers, S = TRAIN_W_PATH
+    master = eng.state.master
+    sub = {k: v.detach().clone() for k, v in master.items() if k != "layers"}
+    sub["layers"] = {k: v[:n_layers].detach().clone() for k, v in master["layers"].items()}
+    del eng, master
+    torch.cuda.empty_cache()
+    pcfg = dataclasses.replace(mcfg, n_layers=n_layers)
+    one = np.random.default_rng(1).integers(0, mcfg.vocab_size, (1, S + 1)).astype(np.int32)
+    (nk, gk), (npl, gp), (n32, g32) = _grads_three_paths(T, sub, pcfg, one, dev)
+    loss_stats = _path_errors("per-token loss", nk, npl, n32)
+    unit = g32.square().mean().sqrt()
+    grad_stats = _path_errors("gradients", gk / unit, gp / unit, g32 / unit)
+    grad_stats["f32_grad_rms"] = unit.item()
+    del gk, gp, g32, sub
+    torch.cuda.empty_cache()
+    pairs = _live_pairs(TRAIN_W_S, WINDOW)
+    return {
+        "init_s": init_s, "launches": {n: c for n, c in launches.items() if c},
+        "losses": losses, "grad_norms": [m["grad_norm"] for m in history],
+        "step_ms": step_ms, "tokens_per_s": tok_s,
+        # MFU counts attention as the JAX package's flops_per_token does
+        # (the causal 6 * L * S * E term, the window not discounted)
+        "mfu": tok_s * mcfg.flops_per_token(TRAIN_W_S) / H100_BF16_FLOPS,
+        "flops_per_token": mcfg.flops_per_token(TRAIN_W_S),
+        "attention_pairs_window_over_causal": pairs / _live_pairs(TRAIN_W_S, 0),
+        "peak_mem_gib": peak_gib, "where_time_goes": breakdown,
+        "path_check": {"layers": n_layers, "S": S, "loss": loss_stats, "grads": grad_stats}}
 
 
 # ---------------------------------------------------------------------------
@@ -1294,6 +1931,7 @@ def main():
     import torch
 
     from deepspeed_tpu_torch.models import transformer as T
+    from deepspeed_tpu_torch.ops import cuda as K
     from deepspeed_tpu_torch.ops.cuda import build
 
     dev = torch.device("cuda")
@@ -1317,14 +1955,27 @@ def main():
     print(json.dumps({"phase": "serve", **sl}))
     q8, _ = run_serving(cfg, dev, int8=True, bf16=bf16_serving)
     print(json.dumps({"phase": "serve_int8", **q8}))
+    mw = T.TransformerConfig(**MISTRAL)
+    sw, wparams = run_serve_window(mw, dev, T.init(mw, torch.Generator(device=dev).manual_seed(0),
+                                                   device=dev, dtype=torch.bfloat16))
+    print(json.dumps({"phase": "serve_window", **sw}))
+    sw8, wparams = run_serve_window(mw, dev, wparams, int8=True)
+    print(json.dumps({"phase": "serve_window_int8", **sw8}))
+    del wparams
+    torch.cuda.empty_cache()
+    tw = run_train_window(dev)
+    print(json.dumps({"phase": "train_window", **tw}))
     ev = run_evoformer(dev)
     print(json.dumps({"phase": "evoformer", **ev}))
 
+    paths = {"train": tr, "serve": sl, "serve_int8": q8, "serve_window": sw,
+             "serve_window_int8": sw8, "train_window": tw, "evoformer": ev}
     line = []
-    for name, (source, replaces) in KERNELS.items():
+    # each window mode is a path of its kernel: same source, same TPU kernel
+    sources = {**KERNELS, **{f"{n}[window]": KERNELS[n] for n in K.WINDOW_MODES}}
+    for name, (source, replaces) in sources.items():
         k = kernels[name]
-        by_path = {"train": tr["launches"][name], "serve": sl["launches"][name],
-                   "serve_int8": q8["launches"][name], "evoformer": ev["launches"][name]}
+        by_path = {p: r["launches"].get(name, 0) for p, r in paths.items()}
         line.append({"name": name, "route": "cuda", "source": source,
                      "replaces": replaces, "launches": sum(by_path.values()),
                      "launches_by_path": by_path, "shape": k["shape"],

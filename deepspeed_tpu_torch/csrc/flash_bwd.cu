@@ -24,7 +24,17 @@
 // Grids. dq: (B * H, ceil(S / 64)); the block owns 64 query rows and
 // loops over the K/V tiles up to the diagonal. dkv: (B * KV, ceil(S / 64));
 // the block owns 64 key rows and loops over the G = H / KV query heads of
-// its group and over the query tiles from the diagonal to the end. The
+// its group and over the query tiles from the diagonal to the end.
+//
+// Sliding window (window > 0): (row, col) is live iff row - window < col
+// <= row, as in the forward. dq's K/V loop starts at the first tile the
+// band of its first row needs, max(q0 - window + 1, 0) / 64; dkv's query
+// loop ends after the last tile that can see its last key row,
+// (k0 + 63 + window - 1) / 64 (the TPU kernels' _win_jbase and the
+// q_start <= k_start + block_k - 1 + window - 1 test of _bwd_dkv_kernel);
+// inside a tile the P and dS entries outside the band are zero. window <= 0
+// is plain causal, and any window >= S visits the same tiles and keeps the
+// same entries, so its result is bit-identical to window = 0. The
 // TPU ran those two loops as sequential grid axes with VMEM accumulators;
 // here they are loops inside one block, so the GQA sum needs no atomics
 // and the result is the same from run to run. 4 warps; warp w owns rows
@@ -160,7 +170,7 @@ __global__ void __launch_bounds__(NT) flash_bwd_dq_kernel(
     __nv_bfloat16* __restrict__ dq, const __nv_bfloat16* __restrict__ q,
     const __nv_bfloat16* __restrict__ k, const __nv_bfloat16* __restrict__ v,
     const __nv_bfloat16* __restrict__ dout, const float* __restrict__ lse,
-    const float* __restrict__ delta, int S, int H, int KV, float scale) {
+    const float* __restrict__ delta, int S, int H, int KV, int window, float scale) {
   using Lay = Layout<D>;
   extern __shared__ __align__(128) unsigned char smem[];
   __nv_bfloat16* qs = reinterpret_cast<__nv_bfloat16*>(smem + Lay::T0);
@@ -199,9 +209,11 @@ __global__ void __launch_bounds__(NT) flash_bwd_dq_kernel(
 #pragma unroll
   for (int n = 0; n < D / 16; ++n) wmma::fill_fragment(acc[n], 0.f);
 
-  // causal: K/V tiles up to the one holding this q tile's last row
+  // causal: K/V tiles up to the one holding this q tile's last row;
+  // window: from the one holding its first row's first live column
   const int n_tiles = min((q0 + BT - 1) / BT + 1, (S + BT - 1) / BT);
-  for (int j = 0; j < n_tiles; ++j) {
+  const int j0 = window > 0 ? max(q0 - window + 1, 0) / BT : 0;
+  for (int j = j0; j < n_tiles; ++j) {
     const int k0 = j * BT;
     __syncthreads();  // Q/dO/lse/delta visible; the previous tile's K/V reads done
     load_tile<D>(ks, kb, kv_row, k0, S, tid);
@@ -223,7 +235,8 @@ __global__ void __launch_bounds__(NT) flash_bwd_dq_kernel(
         const int c = lane + 32 * half;
         const int col = k0 + c;
         float p = 0.f;
-        if (row < S && col <= row) p = expf(ss[r * Lay::LDS + c] * scale - l);
+        if (row < S && col <= row && (window <= 0 || col > row - window))
+          p = expf(ss[r * Lay::LDS + c] * scale - l);
         dss[r * Lay::LDP + c] = __float2bfloat16(p * (dps[r * Lay::LDS + c] - dl) * scale);
       }
     }
@@ -241,7 +254,7 @@ __global__ void __launch_bounds__(NT) flash_bwd_dkv_kernel(
     const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ k,
     const __nv_bfloat16* __restrict__ v, const __nv_bfloat16* __restrict__ dout,
     const float* __restrict__ lse, const float* __restrict__ delta, int S, int H, int KV,
-    float scale) {
+    int window, float scale) {
   using Lay = Layout<D>;
   extern __shared__ __align__(128) unsigned char smem[];
   __nv_bfloat16* ks = reinterpret_cast<__nv_bfloat16*>(smem + Lay::T0);
@@ -275,14 +288,16 @@ __global__ void __launch_bounds__(NT) flash_bwd_dkv_kernel(
     wmma::fill_fragment(dv_acc[n], 0.f);
   }
 
+  // causal: query tiles from the one holding key row k0 to the end;
+  // window: up to the one holding the last row that sees key row k0 + 63
   const int nq = (S + BT - 1) / BT;
+  const int i_end = window > 0 ? min(nq, (k0 + BT - 1 + window - 1) / BT + 1) : nq;
   for (int g = 0; g < G; ++g) {
     const int h = kvh * G + g;  // query heads of a group are contiguous
     const size_t q_off = (size_t)b * S * q_row + (size_t)h * D;
     const float* lse_h = lse + ((size_t)b * H + h) * S;
     const float* delta_h = delta + ((size_t)b * H + h) * S;
-    // causal: query tiles from the one holding key row k0 to the end
-    for (int i = k0 / BT; i < nq; ++i) {
+    for (int i = k0 / BT; i < i_end; ++i) {
       const int q0 = i * BT;
       __syncthreads();  // K/V visible; the previous tile's Q/dO/lse reads done
       load_tile<D>(qs, q + q_off, q_row, q0, S, tid);
@@ -307,7 +322,8 @@ __global__ void __launch_bounds__(NT) flash_bwd_dkv_kernel(
           const int c = lane + 32 * half;
           const int qcol = q0 + c;
           float p = 0.f;
-          if (qcol < S && krow <= qcol) p = expf(sts[r * Lay::LDS + c] * scale - lse_s[c]);
+          if (qcol < S && krow <= qcol && (window <= 0 || krow > qcol - window))
+            p = expf(sts[r * Lay::LDS + c] * scale - lse_s[c]);
           pts[r * Lay::LDP + c] = __float2bfloat16(p);
           float* dpt = dpts + r * Lay::LDS + c;
           *dpt = p * (*dpt - delta_s[c]) * scale;
@@ -336,8 +352,8 @@ __global__ void __launch_bounds__(NT) flash_bwd_dkv_kernel(
 
 template <int D>
 int launch_dq(void* dq, const void* q, const void* k, const void* v, const void* dout,
-              const void* lse, const void* delta, int B, int S, int H, int KV, float scale,
-              cudaStream_t stream) {
+              const void* lse, const void* delta, int B, int S, int H, int KV, int window,
+              float scale, cudaStream_t stream) {
   const int smem = (int)Layout<D>::BYTES;
   cudaError_t err = cudaFuncSetAttribute(flash_bwd_dq_kernel<D>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
@@ -346,14 +362,14 @@ int launch_dq(void* dq, const void* q, const void* k, const void* v, const void*
   flash_bwd_dq_kernel<D><<<grid, NT, smem, stream>>>(
       (__nv_bfloat16*)dq, (const __nv_bfloat16*)q, (const __nv_bfloat16*)k,
       (const __nv_bfloat16*)v, (const __nv_bfloat16*)dout, (const float*)lse,
-      (const float*)delta, S, H, KV, scale);
+      (const float*)delta, S, H, KV, window, scale);
   return (int)cudaGetLastError();
 }
 
 template <int D>
 int launch_dkv(void* dk, void* dv, const void* q, const void* k, const void* v,
                const void* dout, const void* lse, const void* delta, int B, int S, int H,
-               int KV, float scale, cudaStream_t stream) {
+               int KV, int window, float scale, cudaStream_t stream) {
   const int smem = (int)Layout<D>::BYTES;
   cudaError_t err = cudaFuncSetAttribute(flash_bwd_dkv_kernel<D>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
@@ -362,7 +378,7 @@ int launch_dkv(void* dk, void* dv, const void* q, const void* k, const void* v,
   flash_bwd_dkv_kernel<D><<<grid, NT, smem, stream>>>(
       (__nv_bfloat16*)dk, (__nv_bfloat16*)dv, (const __nv_bfloat16*)q,
       (const __nv_bfloat16*)k, (const __nv_bfloat16*)v, (const __nv_bfloat16*)dout,
-      (const float*)lse, (const float*)delta, S, H, KV, scale);
+      (const float*)lse, (const float*)delta, S, H, KV, window, scale);
   return (int)cudaGetLastError();
 }
 
@@ -370,15 +386,16 @@ int launch_dkv(void* dk, void* dv, const void* q, const void* k, const void* v,
 
 extern "C" int flash_bwd_dq(void* dq, const void* q, const void* k, const void* v,
                             const void* dout, const void* lse, const void* delta, int B, int S,
-                            int H, int KV, int D, float scale, void* stream) {
+                            int H, int KV, int D, int window, float scale, void* stream) {
   if (B <= 0 || S <= 0) return 0;
   if (KV <= 0 || H % KV != 0) return (int)cudaErrorInvalidValue;
+  if (window > S) window = S;  // the same band, and no overflow in the tile bounds
   cudaStream_t st = (cudaStream_t)stream;
   switch (D) {
     case 64:
-      return launch_dq<64>(dq, q, k, v, dout, lse, delta, B, S, H, KV, scale, st);
+      return launch_dq<64>(dq, q, k, v, dout, lse, delta, B, S, H, KV, window, scale, st);
     case 128:
-      return launch_dq<128>(dq, q, k, v, dout, lse, delta, B, S, H, KV, scale, st);
+      return launch_dq<128>(dq, q, k, v, dout, lse, delta, B, S, H, KV, window, scale, st);
     default:
       return (int)cudaErrorInvalidValue;
   }
@@ -386,15 +403,18 @@ extern "C" int flash_bwd_dq(void* dq, const void* q, const void* k, const void* 
 
 extern "C" int flash_bwd_dkv(void* dk, void* dv, const void* q, const void* k, const void* v,
                              const void* dout, const void* lse, const void* delta, int B, int S,
-                             int H, int KV, int D, float scale, void* stream) {
+                             int H, int KV, int D, int window, float scale, void* stream) {
   if (B <= 0 || S <= 0) return 0;
   if (KV <= 0 || H % KV != 0) return (int)cudaErrorInvalidValue;
+  if (window > S) window = S;  // the same band, and no overflow in the tile bounds
   cudaStream_t st = (cudaStream_t)stream;
   switch (D) {
     case 64:
-      return launch_dkv<64>(dk, dv, q, k, v, dout, lse, delta, B, S, H, KV, scale, st);
+      return launch_dkv<64>(dk, dv, q, k, v, dout, lse, delta, B, S, H, KV, window, scale,
+                            st);
     case 128:
-      return launch_dkv<128>(dk, dv, q, k, v, dout, lse, delta, B, S, H, KV, scale, st);
+      return launch_dkv<128>(dk, dv, q, k, v, dout, lse, delta, B, S, H, KV, window, scale,
+                             st);
     default:
       return (int)cudaErrorInvalidValue;
   }

@@ -1,10 +1,22 @@
 // Causal flash-attention forward (FlashAttention-2 online softmax) over
 // q [B, S, H, D] and k, v [B, S, KV, D] in bf16, writing o [B, S, H, D]
 // in bf16 and the row logsumexp lse [B, H, S] in f32 (kept for the
-// backward a later slice ports).
+// backward, csrc/flash_bwd.cu).
 //
 // Replaces: deepspeed_tpu/ops/pallas/flash_attention.py _flash_fwd
-// (_fwd_kernel), the prefill attention of the serving path.
+// (_fwd_kernel), the prefill attention of the serving path and the
+// forward of the training path, in its causal and sliding-window modes.
+//
+// Sliding window (window > 0, Mistral-class): query row r attends to key
+// column c iff r - window < c <= r. The K-tile loop starts at the first
+// tile the band of the q tile's first row needs, max(q0 - window + 1, 0)
+// / BK (the TPU kernel's _win_jbase), so the work scales with the window,
+// not with S; inside a tile the columns left of a row's band are masked.
+// A row can find a whole tile outside its band (the tile the q tile's
+// first row needs lies left of a later row's band); its running max stays
+// -inf there, and the guard on m_new keeps p = 0 and corr = 1. window <= 0
+// is plain causal attention, and any window >= S visits the same tiles and
+// masks the same columns, so its result is bit-identical to window = 0.
 //
 // Bound on the H100: at prefill lengths of a few hundred tokens and
 // D = 128 the work is 4 * S^2 / 2 * D operations per head against
@@ -74,7 +86,7 @@ template <int D>
 __global__ void __launch_bounds__(NT) flash_fwd_kernel(
     __nv_bfloat16* __restrict__ o, float* __restrict__ lse,
     const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ k,
-    const __nv_bfloat16* __restrict__ v, int S, int H, int KV, float scale) {
+    const __nv_bfloat16* __restrict__ v, int S, int H, int KV, int window, float scale) {
   using Lay = Layout<D>;
   constexpr int VPR = D / 8;  // 16-byte vectors per row
   extern __shared__ __align__(128) unsigned char smem[];
@@ -116,9 +128,11 @@ __global__ void __launch_bounds__(NT) flash_fwd_kernel(
   }
 
   const int r0 = warp * 16;
-  // causal: tiles up to the one holding this q tile's last row
+  // causal: tiles up to the one holding this q tile's last row; window:
+  // from the one holding its first row's first live column
   const int n_tiles = min((q0 + BQ - 1) / BK + 1, (S + BK - 1) / BK);
-  for (int j = 0; j < n_tiles; ++j) {
+  const int j0 = window > 0 ? max(q0 - window + 1, 0) / BK : 0;
+  for (int j = j0; j < n_tiles; ++j) {
     const int k0 = j * BK;
     __syncthreads();  // Q/O init visible; the previous tile's K/V reads done
     for (int i = tid; i < BK * VPR; i += NT) {
@@ -166,8 +180,9 @@ __global__ void __launch_bounds__(NT) flash_fwd_kernel(
       const int c_b = k0 + lane + 32;
       float x_a = srow[lane] * scale;
       float x_b = srow[lane + 32] * scale;
-      if (c_a > row || c_a >= S) x_a = -INFINITY;
-      if (c_b > row || c_b >= S) x_b = -INFINITY;
+      const bool banded = window > 0;
+      if (c_a > row || c_a >= S || (banded && c_a <= row - window)) x_a = -INFINITY;
+      if (c_b > row || c_b >= S || (banded && c_b <= row - window)) x_b = -INFINITY;
       const float m_old = m_s[r];
       const float m_new = fmaxf(m_old, warp_max(fmaxf(x_a, x_b)));
       float p_a = 0.f, p_b = 0.f, corr = 1.f;
@@ -219,7 +234,7 @@ __global__ void __launch_bounds__(NT) flash_fwd_kernel(
 
 template <int D>
 int launch(void* o, void* lse, const void* q, const void* k, const void* v, int B, int S,
-           int H, int KV, float scale, cudaStream_t stream) {
+           int H, int KV, int window, float scale, cudaStream_t stream) {
   const int smem = (int)Layout<D>::BYTES;
   cudaError_t err = cudaFuncSetAttribute(flash_fwd_kernel<D>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
@@ -227,22 +242,24 @@ int launch(void* o, void* lse, const void* q, const void* k, const void* v, int 
   dim3 grid(B * H, (S + BQ - 1) / BQ);
   flash_fwd_kernel<D><<<grid, NT, smem, stream>>>(
       (__nv_bfloat16*)o, (float*)lse, (const __nv_bfloat16*)q, (const __nv_bfloat16*)k,
-      (const __nv_bfloat16*)v, S, H, KV, scale);
+      (const __nv_bfloat16*)v, S, H, KV, window, scale);
   return (int)cudaGetLastError();
 }
 
 }  // namespace
 
 extern "C" int flash_fwd(void* o, void* lse, const void* q, const void* k, const void* v,
-                         int B, int S, int H, int KV, int D, float scale, void* stream) {
+                         int B, int S, int H, int KV, int D, int window, float scale,
+                         void* stream) {
   if (B <= 0 || S <= 0) return 0;
   if (KV <= 0 || H % KV != 0) return (int)cudaErrorInvalidValue;
+  if (window > S) window = S;  // the same band, and no overflow in the tile bounds
   cudaStream_t st = (cudaStream_t)stream;
   switch (D) {
     case 64:
-      return launch<64>(o, lse, q, k, v, B, S, H, KV, scale, st);
+      return launch<64>(o, lse, q, k, v, B, S, H, KV, window, scale, st);
     case 128:
-      return launch<128>(o, lse, q, k, v, B, S, H, KV, scale, st);
+      return launch<128>(o, lse, q, k, v, B, S, H, KV, window, scale, st);
     default:
       return (int)cudaErrorInvalidValue;
   }

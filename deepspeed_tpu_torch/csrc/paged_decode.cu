@@ -37,6 +37,16 @@
 // may hold NaN, and 0 * NaN would poison the sum). The online softmax
 // runs in f32.
 //
+// Sliding window (window > 0, every mode): a row attends to context
+// positions ctx - window <= c < ctx (ctx counts the new token). The column
+// loop starts at max(ctx - window, 0) instead of 0, exact to the token (a
+// tile may start mid-block: slot_of maps any column), so no position left
+// of the window is loaded or masked, and the bytes read are those of
+// min(ctx, window) positions (the TPU kernel's _win_jbase_decode grid and
+// `cols >= ctx - window` mask). The fused mode's new column, ctx - 1, is
+// always inside. window <= 0, or window >= ctx, starts at 0: the result is
+// bit-identical to the causal one.
+//
 // The TPU kernel padded G to 8 sublanes and required D % 128 == 0; both
 // were TPU tiling artifacts and do not carry over. Pad rows (ctx <= 0)
 // output zeros and write nothing. Every block id is clamped to the arena.
@@ -104,7 +114,7 @@ __global__ void __launch_bounds__(D) paged_decode_kernel(
     const __nv_bfloat16* __restrict__ k_new,    // [S, KV, D]   (FUSED)
     const __nv_bfloat16* __restrict__ v_new,    // [S, KV, D]   (FUSED)
     const int32_t* __restrict__ slots,          // [S]          (FUSED)
-    int n_kv, int group, int n_blocks, int block_size, int table_width,
+    int n_kv, int group, int n_blocks, int block_size, int table_width, int window,
     float scale) {
   using CacheT = std::conditional_t<QUANT, int8_t, __nv_bfloat16>;
   CacheT* k_cache = static_cast<CacheT*>(k_pool);
@@ -155,7 +165,8 @@ __global__ void __launch_bounds__(D) paged_decode_kernel(
   for (int g = 0; g < MAX_G; ++g) acc[g] = 0.f;
   __syncthreads();
 
-  for (int c0 = 0; c0 < limit; c0 += TILE) {
+  const int start = window > 0 ? max(ctx - window, 0) : 0;  // the window's first column
+  for (int c0 = start; c0 < limit; c0 += TILE) {
     const int n = min(TILE, limit - c0);
     if constexpr (QUANT) {
       for (int r = tid; r < n; r += D) {
@@ -312,7 +323,7 @@ __global__ void __launch_bounds__(D) paged_decode_kernel(
 struct DecodeArgs {
   void *out, *k_pool, *v_pool, *k_scale, *v_scale;
   const void *q, *tables, *ctx_lens, *k_new, *v_new, *slots;
-  int S, n_kv, group, n_blocks, block_size, table_width;
+  int S, n_kv, group, n_blocks, block_size, table_width, window;
   float scale;
 };
 
@@ -324,7 +335,7 @@ void launch(const DecodeArgs& a, cudaStream_t stream) {
       (float*)a.k_scale, (float*)a.v_scale, (const int32_t*)a.tables,
       (const int32_t*)a.ctx_lens, (const __nv_bfloat16*)a.k_new,
       (const __nv_bfloat16*)a.v_new, (const int32_t*)a.slots, a.n_kv, a.group, a.n_blocks,
-      a.block_size, a.table_width, a.scale);
+      a.block_size, a.table_width, a.window, a.scale);
 }
 
 template <int D>
@@ -342,15 +353,16 @@ extern "C" int paged_decode(void* out, const void* q, void* k_cache, void* v_cac
                             void* k_scale, void* v_scale, const void* tables,
                             const void* ctx_lens, const void* k_new, const void* v_new,
                             const void* slots, int fused, int quant, int S, int H, int KV,
-                            int D, int n_blocks, int block_size, int table_width, float scale,
-                            void* stream) {
+                            int D, int n_blocks, int block_size, int table_width, int window,
+                            float scale, void* stream) {
   if (S <= 0) return 0;
   if (KV <= 0 || H % KV != 0 || H / KV > MAX_G) return (int)cudaErrorInvalidValue;
   if (quant && (k_scale == nullptr || v_scale == nullptr)) return (int)cudaErrorInvalidValue;
   if (fused && (k_new == nullptr || v_new == nullptr || slots == nullptr))
     return (int)cudaErrorInvalidValue;
   const DecodeArgs a{out, k_cache, v_cache, k_scale, v_scale, q, tables, ctx_lens, k_new,
-                     v_new, slots, S, KV, H / KV, n_blocks, block_size, table_width, scale};
+                     v_new, slots, S, KV, H / KV, n_blocks, block_size, table_width, window,
+                     scale};
   cudaStream_t st = (cudaStream_t)stream;
   switch (D) {
     case 64:

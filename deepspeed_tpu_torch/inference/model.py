@@ -21,7 +21,9 @@ CPU tensors. `use_kernel=False` calls the plain versions directly on any
 device: the reference the kernel path is compared with on the card.
 
 This slice serves Llama-class models (rotary, RMSNorm, gated MLP, no
-biases) in bf16 or f32 caches, or in int8 caches (`init_cache(kv_quant=
+biases), with sliding windows (Mistral-class: every layer's prefill and
+decode attention banded to `cfg.window_for_layer(li)`), in bf16 or f32
+caches, or in int8 caches (`init_cache(kv_quant=
 True)`: int8 code pools beside per-layer [NBLK, bs, KV] f32 scale pools,
 written and read only through the int8 kernels); `check_served` raises
 for the rest.
@@ -51,7 +53,7 @@ def check_served(cfg: T.TransformerConfig) -> None:
     bad = T.unported_features(cfg)
     if bad:
         raise NotImplementedError(
-            "the first serving slice serves dense Llama-class models only; "
+            "the serving slices serve dense Llama-class models only; "
             f"this config uses {', '.join(bad)} (later slices port them)")
 
 
@@ -179,8 +181,9 @@ def _mlp(h: torch.Tensor, lp, cfg: T.TransformerConfig) -> torch.Tensor:
 
 
 def _decode_attention(cache: PagedCache, li: int, q, tables, ctx, use_kernel: bool,
-                      k_new=None, v_new=None, slots=None):
-    """Layer li's decode attention. k_new/v_new/slots given selects the
+                      window: int = 0, k_new=None, v_new=None, slots=None):
+    """Layer li's decode attention over the last `window` positions of each
+    row's context (0 = all of it). k_new/v_new/slots given selects the
     fused write+attend kernel (single-token rows of distinct sequences;
     the layer's pools hold the pre-write arenas and are written in place).
     Otherwise the new rows were written before the call and the plain-mode
@@ -191,12 +194,12 @@ def _decode_attention(cache: PagedCache, li: int, q, tables, ctx, use_kernel: bo
     if k_new is not None:
         fused = paged_decode_fused_int8 if scales else paged_decode_fused
         return fused(q, ck, cv, tables, ctx, k_new.contiguous(), v_new.contiguous(), slots,
-                     *scales)[0]
+                     *scales, window=window)[0]
     if not use_kernel:
-        return paged_decode_attention_plain(q, ck, cv, tables, ctx, *scales)
+        return paged_decode_attention_plain(q, ck, cv, tables, ctx, *scales, window=window)
     if scales:
-        return paged_decode_attention_int8(q, ck, cv, tables, ctx, *scales)
-    return paged_decode_attention(q, ck, cv, tables, ctx)
+        return paged_decode_attention_int8(q, ck, cv, tables, ctx, *scales, window=window)
+    return paged_decode_attention(q, ck, cv, tables, ctx, window=window)
 
 
 def _qkv(h1: torch.Tensor, lp, cfg: T.TransformerConfig):
@@ -245,12 +248,13 @@ def decode_step(params, cache: PagedCache, tokens, tables, ctx_lens,
         q, k, v = _qkv(h1, lp, cfg)
         q = T._rope_at(q, rope, cfg)
         k = T._rope_at(k, rope, cfg)
+        window = cfg.window_for_layer(li)
         if fuse_write:
-            att = _decode_attention(cache, li, q, tables, ctx_lens, use_kernel,
+            att = _decode_attention(cache, li, q, tables, ctx_lens, use_kernel, window,
                                     k_new=k, v_new=v, slots=flat_idx)
         else:
             _write_kv(cache, li, k, v, flat_idx, use_kernel)
-            att = _decode_attention(cache, li, q, tables, ctx_lens, use_kernel)
+            att = _decode_attention(cache, li, q, tables, ctx_lens, use_kernel, window)
         x = x + torch.einsum("shd,hde->se", att, lp["wo"])
         h2 = T._norm(x, lp["ln2_scale"], None, cfg)
         x = x + _mlp(h2, lp, cfg)
@@ -325,7 +329,7 @@ def prefill_batch(params, cache: PagedCache, tokens, n_real, tables,
         # resident copy is quantized on int8 pools
         _write_kv(cache, li, k.reshape(B * Tp, KV, D), v.reshape(B * Tp, KV, D), flat_idx,
                   use_kernel)
-        att = causal_attention(q, k, v, use_flash=use_kernel)
+        att = causal_attention(q, k, v, use_flash=use_kernel, window=cfg.window_for_layer(li))
         x = x + torch.einsum("bshd,hde->bse", att, lp["wo"])
         h2 = T._norm(x, lp["ln2_scale"], None, cfg)
         x = x + _mlp(h2.reshape(B * Tp, -1), lp, cfg).reshape(x.shape)

@@ -12,7 +12,8 @@ Besides what serving shares (`_norm`, `_act_fn`, rotary tables, `init`,
 `param_count`), this module holds the training forward and loss:
 `forward_hidden`, `forward` and `make_loss_fn`, with the reference's remat
 policies mapped onto `torch.utils.checkpoint`. Training covers the models
-serving covers (dense Llama-class), without dropout (`check_trained`).
+serving covers (dense Llama-class, with sliding windows: Mistral-class),
+without dropout (`check_trained`).
 """
 
 import dataclasses
@@ -300,6 +301,13 @@ class TransformerConfig:
             return self.mlp_bias
         return self.variant == "gpt2"
 
+    def window_for_layer(self, i: int) -> int:
+        """Layer i's sliding window (0 = global attention)."""
+        if self.attention_window_pattern is not None:
+            return self.attention_window_pattern[
+                i % len(self.attention_window_pattern)]
+        return self.sliding_window
+
     @property
     def kv_heads(self) -> int:
         return self.n_kv_heads or self.n_heads
@@ -570,7 +578,6 @@ def unported_features(cfg: TransformerConfig) -> List[str]:
         "variant != 'llama'": cfg.variant != "llama",
         "MoE (n_experts > 0)": cfg.n_experts > 0,
         "sparse attention": cfg.attention_impl == "sparse",
-        "sliding windows": bool(cfg.sliding_window or cfg.attention_window_pattern),
         "ALiBi": cfg.alibi,
         "q/k/v, output or MLP biases": (cfg.has_qkv_bias or cfg.has_attn_out_bias
                                         or cfg.has_mlp_bias),
@@ -664,8 +671,9 @@ def _mlp_delta(h: torch.Tensor, lp, cfg: TransformerConfig) -> torch.Tensor:
 
 
 def _make_layer_body(cfg: TransformerConfig, use_kernel: bool = True):
-    """One transformer layer, body(h0, lp, rope) -> h, with cfg.remat
-    mapped onto torch.utils.checkpoint (non-reentrant):
+    """One transformer layer, body(h0, lp, rope, window) -> h (window: the
+    layer's sliding window, 0 = global), with cfg.remat mapped onto
+    torch.utils.checkpoint (non-reentrant):
 
     - "none": every activation autograd needs is kept;
     - "full": the whole body is recomputed in the backward (the flash
@@ -684,8 +692,9 @@ def _make_layer_body(cfg: TransformerConfig, use_kernel: bool = True):
         hmid = h0 + _attention_out(att, lp)
         return hmid + _mlp_delta(_norm(hmid, lp["ln2_scale"], None, cfg), lp, cfg)
 
-    def body(h0, lp, rope):
-        return post(h0, causal_attention(*pre(h0, lp, rope), use_flash=use_kernel), lp)
+    def body(h0, lp, rope, window):
+        att = causal_attention(*pre(h0, lp, rope), use_flash=use_kernel, window=window)
+        return post(h0, att, lp)
 
     def ckpt(fn, *args):
         return checkpoint(fn, *args, use_reentrant=False, preserve_rng_state=False)
@@ -693,10 +702,10 @@ def _make_layer_body(cfg: TransformerConfig, use_kernel: bool = True):
     if cfg.remat == "none":
         return body
     if cfg.remat == "full":
-        return lambda h0, lp, rope: ckpt(body, h0, lp, rope)
+        return lambda h0, lp, rope, window: ckpt(body, h0, lp, rope, window)
 
-    def body_save_qkv(h0, lp, rope):
-        att = causal_attention(*ckpt(pre, h0, lp, rope), use_flash=use_kernel)
+    def body_save_qkv(h0, lp, rope, window):
+        att = causal_attention(*ckpt(pre, h0, lp, rope), use_flash=use_kernel, window=window)
         return ckpt(post, h0, att, lp)
 
     return body_save_qkv
@@ -717,7 +726,8 @@ def forward_hidden(params: Dict[str, Any], tokens: torch.Tensor, cfg: Transforme
     body = _make_layer_body(cfg, use_kernel)
     views = {name: w.unbind(0) for name, w in params["layers"].items()}
     for li in range(cfg.n_layers):
-        x = body(x, {name: ws[li] for name, ws in views.items()}, rope)
+        x = body(x, {name: ws[li] for name, ws in views.items()}, rope,
+                 cfg.window_for_layer(li))
     return _norm(x, params["ln_f_scale"], None, cfg)
 
 

@@ -2,7 +2,10 @@
 
 `WRAPPERS` maps each kernel's name to its wrapper; every wrapper carries a
 plain integer `launches`, raised by one per kernel launch, so a run can
-show that its main path went through the kernels.
+show that its main path went through the kernels (`_common.count_launch`).
+The wrappers that take a sliding `window` also carry `window_launches`,
+raised by one per launch in that mode (window > 0), counted as
+"<name>[window]"; `WINDOW_MODES` names them.
 """
 
 from typing import Dict
@@ -28,10 +31,21 @@ WRAPPERS = {
 }
 
 
+WINDOW_MODES = tuple(name for name, fn in WRAPPERS.items() if hasattr(fn, "window_launches"))
+
+
 def launch_counts() -> Dict[str, int]:
     return {name: fn.launches for name, fn in WRAPPERS.items()}
+
+
+def window_launch_counts() -> Dict[str, int]:
+    """"<name>[window]" -> launches in the sliding-window mode (each also
+    counted in launch_counts()[name])."""
+    return {f"{name}[window]": WRAPPERS[name].window_launches for name in WINDOW_MODES}
 
 
 def reset_launch_counts() -> None:
     for fn in WRAPPERS.values():
         fn.launches = 0
+    for name in WINDOW_MODES:
+        WRAPPERS[name].window_launches = 0

@@ -35,6 +35,14 @@ def check_cuda_args(what: str, tensors: dict, dtypes: dict,
             raise ValueError(f"{what}: {name} must start on a 16-byte boundary")
 
 
+def count_launch(wrapper, window: int = 0) -> None:
+    """Count one kernel launch on its wrapper: `launches`, and
+    `window_launches` when it ran in the sliding-window mode."""
+    wrapper.launches += 1
+    if window > 0:
+        wrapper.window_launches += 1
+
+
 def check_shape(what: str, name: str, t: torch.Tensor, shape: Sequence[int]) -> None:
     if tuple(t.shape) != tuple(shape):
         raise ValueError(f"{what}: {name} has shape {tuple(t.shape)}, expected {tuple(shape)}")

@@ -26,7 +26,8 @@ Every kernel wrapper carries `launches`, raised by one per launch.
 import torch
 
 from . import build
-from ._common import bwd_mismatch, check_cuda_args, check_shape, ptr, stream_of  # noqa: F401
+from ._common import (bwd_mismatch, check_cuda_args, check_shape, count_launch,  # noqa: F401
+                      ptr, stream_of)
 
 _HEAD_DIMS = (32, 64)
 _BF16 = torch.bfloat16
@@ -151,7 +152,7 @@ def evoformer_fwd(q, k, v, bias1=None, bias2=None):
                             None if bias2 is None else ptr(bias2), B, S, N, H, D, scale,
                             stream_of(q))
     build.check(lib, err, what)
-    evoformer_fwd.launches += 1
+    count_launch(evoformer_fwd)
     return o, lse
 
 
@@ -180,7 +181,7 @@ def evoformer_bwd_dq(q, k, v, bias1, bias2, do, lse, delta):
     lib = build.load("evoformer_bwd")
     err = lib.evoformer_bwd_dq(ptr(dq), *args, *_dims(q), stream_of(q))
     build.check(lib, err, what)
-    evoformer_bwd_dq.launches += 1
+    count_launch(evoformer_bwd_dq)
     return dq
 
 
@@ -203,7 +204,7 @@ def evoformer_bwd_dkv(q, k, v, bias1, bias2, do, lse, delta):
     lib = build.load("evoformer_bwd")
     err = lib.evoformer_bwd_dkv(ptr(dk), ptr(dv), ptr(dsum), *args, *_dims(q), stream_of(q))
     build.check(lib, err, what)
-    evoformer_bwd_dkv.launches += 1
+    count_launch(evoformer_bwd_dkv)
     return dk, dv, dsum
 
 
@@ -228,7 +229,7 @@ def evoformer_bwd_db2(q, k, v, bias1, bias2, do, lse, delta):
     lib = build.load("evoformer_bwd")
     err = lib.evoformer_bwd_db2(ptr(db2), *args, *_dims(q), stream_of(q))
     build.check(lib, err, what)
-    evoformer_bwd_db2.launches += 1
+    count_launch(evoformer_bwd_db2)
     return db2
 
 

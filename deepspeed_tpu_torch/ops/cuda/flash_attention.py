@@ -1,5 +1,6 @@
-"""Causal flash attention, forward and backward: hand-written CUDA kernels
-beside their plain PyTorch versions, joined by a `torch.autograd.Function`.
+"""Causal flash attention, forward and backward, with an optional sliding
+window: hand-written CUDA kernels beside their plain PyTorch versions,
+joined by a `torch.autograd.Function`.
 
 Counterpart of deepspeed_tpu/ops/pallas/flash_attention.py: `_flash_fwd`
 (kernel #1, csrc/flash_fwd.cu) and `_flash_bwd`'s `_bwd_dq_kernel` (#2)
@@ -17,18 +18,24 @@ CPU tensors they run the plain versions (`flash_attention_plain`,
 `flash_attention_bwd_plain`), which do the same recompute-from-lse math
 densely in f32 (P and dS rounded to the inputs' dtype where the kernels
 round them). Every kernel wrapper carries `launches`, raised by one
-per launch of its kernel.
+per launch of its kernel, and `window_launches`, raised by one per launch
+in the sliding-window mode.
 
-Not in this slice (ROADMAP B2): sliding windows, ALiBi and the lse
-cotangent of `flash_attention_with_lse` (`delta_adjust`, used only by
-ring attention): a loss that reaches lse raises in the backward.
+Sliding window (`window` > 0, Mistral-class; the reference's token-exact
+mode): query row r attends to key column c iff r - window < c <= r.
+window = 0 is plain causal attention; any window >= S gives the causal
+result bit for bit (the same tiles and entries).
+
+Not in this slice (ROADMAP B2): ALiBi and the lse cotangent of
+`flash_attention_with_lse` (`delta_adjust`, used only by ring attention):
+a loss that reaches lse raises in the backward.
 """
 
 import torch
 
 from . import build
 from ._common import (BWD_FLOOR, BWD_ROW_ATOL, BWD_RTOL, bwd_mismatch,  # noqa: F401
-                      check_cuda_args, check_shape, ptr, stream_of)
+                      check_cuda_args, check_shape, count_launch, ptr, stream_of)
 
 _HEAD_DIMS = (64, 128)
 
@@ -41,20 +48,23 @@ def _repeat_kv(k: torch.Tensor, n_rep: int) -> torch.Tensor:
     return k.repeat_interleave(n_rep, dim=2)
 
 
-def _causal_logits(q, k):
-    """f32 scaled logits [B, H, S, S] with the causal mask applied (-inf)."""
+def _causal_logits(q, k, window: int = 0):
+    """f32 scaled logits [B, H, S, S] with the causal mask applied (-inf);
+    window > 0 also masks the columns c <= r - window of row r."""
     B, S, H, D = q.shape
     kf = _repeat_kv(k, H // k.shape[2]).float()
     logits = torch.einsum("bqhd,bkhd->bhqk", q.float(), kf) / D ** 0.5
     mask = torch.ones(S, S, dtype=torch.bool, device=q.device).tril()
+    if window > 0:
+        mask = mask.triu(1 - window)
     return logits.masked_fill(~mask, float("-inf"))
 
 
-def flash_attention_plain(q, k, v):
+def flash_attention_plain(q, k, v, window: int = 0):
     """Dense causal attention computed in f32 (the counterpart of the JAX
-    package's _xla_attention, ops/attention.py). Returns (o in q's dtype,
-    lse [B, H, S] f32)."""
-    logits = _causal_logits(q, k)
+    package's _xla_attention, ops/attention.py), banded to `window` when
+    it is > 0. Returns (o in q's dtype, lse [B, H, S] f32)."""
+    logits = _causal_logits(q, k, window)
     lse = torch.logsumexp(logits, dim=-1)  # [B, H, S]
     probs = torch.exp(logits - lse[..., None])
     vf = _repeat_kv(v, q.shape[2] // k.shape[2]).float()
@@ -68,7 +78,7 @@ def _delta(o, do):
     return (do.float() * o.float()).sum(-1).transpose(1, 2).contiguous()
 
 
-def _bwd_plain(q, k, v, lse, delta, do):
+def _bwd_plain(q, k, v, lse, delta, do, window: int = 0):
     """Dense f32 backward from the saved lse and delta: returns dq, dk, dv
     in the inputs' dtypes, the GQA heads of each group summed into their
     KV head. P and dS are rounded to the inputs' dtype before their
@@ -79,7 +89,7 @@ def _bwd_plain(q, k, v, lse, delta, do):
     KV = k.shape[2]
     G = H // KV
     scale = 1.0 / D ** 0.5
-    p = torch.exp(_causal_logits(q, k) - lse[..., None].float())  # masked -> 0
+    p = torch.exp(_causal_logits(q, k, window) - lse[..., None].float())  # masked -> 0
     dof = do.float()
     vf = _repeat_kv(v, G).float()
     dp = torch.einsum("bqhd,bkhd->bhqk", dof, vf)
@@ -93,12 +103,12 @@ def _bwd_plain(q, k, v, lse, delta, do):
     return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
 
 
-def flash_attention_bwd_plain(q, k, v, o, lse, do):
+def flash_attention_bwd_plain(q, k, v, o, lse, do, window: int = 0):
     """The plain version of the flash backward: dense f32 recompute of the
     probabilities from lse (what kernels #2 and #3 compute tile by tile),
     P and dS rounded to the inputs' dtype as the kernels round them.
     Returns (dq, dk, dv) in the inputs' dtypes."""
-    return _bwd_plain(q, k, v, lse, _delta(o, do), do)
+    return _bwd_plain(q, k, v, lse, _delta(o, do), do, window)
 
 
 def _check_attention_args(what, tensors, dtypes, q, k):
@@ -123,12 +133,13 @@ _BF16 = torch.bfloat16
 _F32 = torch.float32
 
 
-def flash_fwd(q, k, v):
-    """Causal attention forward (kernel #1: csrc/flash_fwd.cu). q [B, S, H,
-    D] bf16, k/v [B, S, KV, D] bf16, all contiguous. Returns (o [B, S, H,
-    D] bf16, lse [B, H, S] f32). CPU tensors take the plain version."""
+def flash_fwd(q, k, v, window: int = 0):
+    """Causal attention forward (kernel #1: csrc/flash_fwd.cu), banded to
+    `window` when it is > 0. q [B, S, H, D] bf16, k/v [B, S, KV, D] bf16,
+    all contiguous. Returns (o [B, S, H, D] bf16, lse [B, H, S] f32). CPU
+    tensors take the plain version."""
     if not q.is_cuda:
-        return flash_attention_plain(q, k, v)
+        return flash_attention_plain(q, k, v, window)
     what = "flash_fwd"
     _check_attention_args(what, {"q": q, "k": k, "v": v},
                           {"q": _BF16, "k": _BF16, "v": _BF16}, q, k)
@@ -139,24 +150,25 @@ def flash_fwd(q, k, v):
         return o, lse
     lib = build.load("flash_fwd")
     err = lib.flash_fwd(ptr(o), ptr(lse), ptr(q), ptr(k), ptr(v), B, S, H, k.shape[2], D,
-                        1.0 / D ** 0.5, stream_of(q))
+                        int(window), 1.0 / D ** 0.5, stream_of(q))
     build.check(lib, err, what)
-    flash_fwd.launches += 1
+    count_launch(flash_fwd, window)
     return o, lse
 
 
-flash_fwd.launches = 0
+flash_fwd.launches = flash_fwd.window_launches = 0
 
 _BWD_DTYPES = {"q": _BF16, "k": _BF16, "v": _BF16, "do": _BF16, "lse": _F32, "delta": _F32}
 
 
-def flash_bwd_dq(q, k, v, do, lse, delta):
-    """dq of causal attention (kernel #2: csrc/flash_bwd.cu) from the
-    forward's lse and delta = rowsum(dO * O): q, do [B, S, H, D] bf16, k,
-    v [B, S, KV, D] bf16, lse, delta [B, H, S] f32, all contiguous.
-    Returns dq [B, S, H, D] bf16. CPU tensors take the plain version."""
+def flash_bwd_dq(q, k, v, do, lse, delta, window: int = 0):
+    """dq of causal attention (kernel #2: csrc/flash_bwd.cu), banded to
+    `window` when it is > 0, from the forward's lse and delta =
+    rowsum(dO * O): q, do [B, S, H, D] bf16, k, v [B, S, KV, D] bf16, lse,
+    delta [B, H, S] f32, all contiguous. Returns dq [B, S, H, D] bf16. CPU
+    tensors take the plain version."""
     if not q.is_cuda:
-        return _bwd_plain(q, k, v, lse, delta, do)[0]
+        return _bwd_plain(q, k, v, lse, delta, do, window)[0]
     what = "flash_bwd_dq"
     _check_attention_args(what, {"q": q, "k": k, "v": v, "do": do, "lse": lse,
                                  "delta": delta}, _BWD_DTYPES, q, k)
@@ -166,23 +178,23 @@ def flash_bwd_dq(q, k, v, do, lse, delta):
         return dq
     lib = build.load("flash_bwd")
     err = lib.flash_bwd_dq(ptr(dq), ptr(q), ptr(k), ptr(v), ptr(do), ptr(lse), ptr(delta),
-                           B, S, H, k.shape[2], D, 1.0 / D ** 0.5, stream_of(q))
+                           B, S, H, k.shape[2], D, int(window), 1.0 / D ** 0.5, stream_of(q))
     build.check(lib, err, what)
-    flash_bwd_dq.launches += 1
+    count_launch(flash_bwd_dq, window)
     return dq
 
 
-flash_bwd_dq.launches = 0
+flash_bwd_dq.launches = flash_bwd_dq.window_launches = 0
 
 
-def flash_bwd_dkv(q, k, v, do, lse, delta):
+def flash_bwd_dkv(q, k, v, do, lse, delta, window: int = 0):
     """dk and dv of causal attention (kernel #3: csrc/flash_bwd.cu), each
     KV head's gradient summed over its group of query heads inside the
     kernel (no atomics: the same bits every run). Arguments as
     `flash_bwd_dq`. Returns (dk, dv) [B, S, KV, D] bf16. CPU tensors take
     the plain version."""
     if not q.is_cuda:
-        return _bwd_plain(q, k, v, lse, delta, do)[1:]
+        return _bwd_plain(q, k, v, lse, delta, do, window)[1:]
     what = "flash_bwd_dkv"
     _check_attention_args(what, {"q": q, "k": k, "v": v, "do": do, "lse": lse,
                                  "delta": delta}, _BWD_DTYPES, q, k)
@@ -193,36 +205,40 @@ def flash_bwd_dkv(q, k, v, do, lse, delta):
         return dk, dv
     lib = build.load("flash_bwd")
     err = lib.flash_bwd_dkv(ptr(dk), ptr(dv), ptr(q), ptr(k), ptr(v), ptr(do), ptr(lse),
-                            ptr(delta), B, S, H, k.shape[2], D, 1.0 / D ** 0.5, stream_of(q))
+                            ptr(delta), B, S, H, k.shape[2], D, int(window), 1.0 / D ** 0.5,
+                            stream_of(q))
     build.check(lib, err, what)
-    flash_bwd_dkv.launches += 1
+    count_launch(flash_bwd_dkv, window)
     return dk, dv
 
 
-flash_bwd_dkv.launches = 0
+flash_bwd_dkv.launches = flash_bwd_dkv.window_launches = 0
 
 
-def flash_attention_bwd(q, k, v, o, lse, do):
+def flash_attention_bwd(q, k, v, o, lse, do, window: int = 0):
     """(dq, dk, dv) of causal attention from the forward's residuals: the
     two backward kernels for CUDA tensors (delta computed here, as the
     reference computes it outside its kernels), the plain version for CPU
     tensors."""
     if not q.is_cuda:
-        return flash_attention_bwd_plain(q, k, v, o, lse, do)
+        return flash_attention_bwd_plain(q, k, v, o, lse, do, window)
     delta = _delta(o, do)
-    return (flash_bwd_dq(q, k, v, do, lse, delta),) + flash_bwd_dkv(q, k, v, do, lse, delta)
+    return ((flash_bwd_dq(q, k, v, do, lse, delta, window),)
+            + flash_bwd_dkv(q, k, v, do, lse, delta, window))
 
 
 class FlashAttention(torch.autograd.Function):
     """Causal flash attention with its backward (the reference's
-    `_flash` custom VJP). forward(q, k, v) -> (o, lse); the lse output
-    carries no gradient in this slice (a cotangent reaching it raises)."""
+    `_flash` custom VJP). forward(q, k, v, window) -> (o, lse); the lse
+    output carries no gradient in this slice (a cotangent reaching it
+    raises)."""
 
     @staticmethod
-    def forward(ctx, q, k, v):
+    def forward(ctx, q, k, v, window):
         q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
-        o, lse = flash_fwd(q, k, v)
+        o, lse = flash_fwd(q, k, v, window)
         ctx.save_for_backward(q, k, v, o, lse)
+        ctx.window = window
         ctx.set_materialize_grads(False)
         return o, lse
 
@@ -234,16 +250,17 @@ class FlashAttention(torch.autograd.Function):
                 "delta_adjust, used by ring attention) is not ported yet "
                 "(ROADMAP B2)")
         if do is None:
-            return None, None, None
+            return None, None, None, None
         q, k, v, o, lse = ctx.saved_tensors
-        return flash_attention_bwd(q, k, v, o, lse, do.contiguous())
+        return flash_attention_bwd(q, k, v, o, lse, do.contiguous(), ctx.window) + (None,)
 
 
 def flash_attention(q, k, v, window: int = 0, alibi=None):
     """Causal attention, differentiable in q, k and v: q [B, S, H, D], k/v
-    [B, S, KV, D] (bf16 on the GPU). Returns (o [B, S, H, D], lse [B, H, S]
-    f32). The reference's sliding-window and ALiBi modes are not ported."""
-    if window or alibi is not None:
-        raise NotImplementedError("flash attention's sliding-window and ALiBi modes are "
-                                  "not ported yet (ROADMAP B2)")
-    return FlashAttention.apply(q, k, v)
+    [B, S, KV, D] (bf16 on the GPU), banded to the last `window` positions
+    when window > 0. Returns (o [B, S, H, D], lse [B, H, S] f32). The
+    reference's ALiBi mode is not ported."""
+    if alibi is not None:
+        raise NotImplementedError("flash attention's ALiBi mode is not ported yet "
+                                  "(ROADMAP B2, B4)")
+    return FlashAttention.apply(q, k, v, int(window))

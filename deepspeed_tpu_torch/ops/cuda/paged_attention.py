@@ -11,8 +11,13 @@ table[s, p // bs] * bs + p % bs.
 Wrappers: for tensors on the CPU they run the plain version; for CUDA
 tensors they launch the kernel (csrc/paged_kv_write.cu,
 csrc/paged_decode.cu) or raise. Each keeps `launches`, the number of
-kernel launches it made. Kernels take bf16; the plain versions take any
-float dtype and compute attention in f32.
+kernel launches it made (the decode wrappers also `window_launches`, those
+in the sliding-window mode). Kernels take bf16; the plain versions take
+any float dtype and compute attention in f32.
+
+Sliding window (`window` > 0, every decode mode): row s attends to the
+positions ctx - window <= p < ctx of its context (ctx counts the new
+token); window = 0, or any window >= ctx, is the full context.
 
 int8 KV (the JAX package's kv_cache_dtype="int8"): the arenas hold int8
 codes and each carries a [NBLK, bs, KV] f32 scale pool, one scale per
@@ -29,7 +34,7 @@ tensors they were given.
 import torch
 
 from . import build
-from ._common import check_cuda_args, check_shape, ptr, stream_of
+from ._common import check_cuda_args, check_shape, count_launch, ptr, stream_of
 
 _BF16 = torch.bfloat16
 _I32 = torch.int32
@@ -145,7 +150,7 @@ def paged_kv_write(cache_k, cache_v, k_new, v_new, flat_slots):
                              ptr(flat_slots), T, NBLK, bs, KV * D * 2,
                              stream_of(cache_k))
     build.check(lib, err, what)
-    paged_kv_write.launches += 1
+    count_launch(paged_kv_write)
     return cache_k, cache_v
 
 
@@ -189,7 +194,7 @@ def paged_kv_write_int8(cache_k, cache_v, k_scale, v_scale, k_new, v_new, flat_s
                                   ptr(k_new), ptr(v_new), ptr(flat_slots), T, NBLK, bs, KV,
                                   D, stream_of(cache_k))
     build.check(lib, err, what)
-    paged_kv_write_int8.launches += 1
+    count_launch(paged_kv_write_int8)
     return cache_k, cache_v, k_scale, v_scale
 
 
@@ -201,9 +206,10 @@ paged_kv_write_int8.launches = 0
 # ---------------------------------------------------------------------------
 
 def paged_decode_attention_plain(q, k_cache, v_cache, block_table, ctx_lens,
-                                 k_scale=None, v_scale=None):
+                                 k_scale=None, v_scale=None, window: int = 0):
     """Attention of one query token per row over its paged context, in f32:
-    row s attends to positions < ctx_lens[s] of its table. q [S, H, D];
+    row s attends to positions < ctx_lens[s] of its table (and, window > 0,
+    >= ctx_lens[s] - window). q [S, H, D];
     caches [NBLK, bs, KV, D]; block_table [S, NB]; ctx_lens [S]. Rows with
     ctx 0 are padding and output zeros. Counterpart of the JAX package's
     paged_decode_attention_xla (which gathers the same dense context).
@@ -220,8 +226,10 @@ def paged_decode_attention_plain(q, k_cache, v_cache, block_table, ctx_lens,
         k = dequantize(k, k_scale[tbl].reshape(S, -1, KV), q.dtype)
         v = dequantize(v, v_scale[tbl].reshape(S, -1, KV), q.dtype)
     k, v = k.float(), v.float()
-    live = (torch.arange(k.shape[1], device=q.device)[None, :]
-            < ctx_lens[:, None])  # [S, NB*bs]
+    pos = torch.arange(k.shape[1], device=q.device)[None, :]
+    live = pos < ctx_lens[:, None]  # [S, NB*bs]
+    if window > 0:
+        live &= pos >= ctx_lens[:, None] - window
     # never let a dead slot (unwritten, stale, possibly NaN) reach a sum
     k = k.masked_fill(~live[:, :, None, None], 0.0)
     v = v.masked_fill(~live[:, :, None, None], 0.0)
@@ -236,9 +244,11 @@ def paged_decode_attention_plain(q, k_cache, v_cache, block_table, ctx_lens,
 
 
 def paged_decode_fused_plain(q, k_cache, v_cache, block_table, ctx_lens,
-                             k_new, v_new, slots, k_scale=None, v_scale=None):
+                             k_new, v_new, slots, k_scale=None, v_scale=None,
+                             window: int = 0):
     """Fused-mode reference: write each row's new K/V into its slot, then
-    attend over positions < ctx (which include the new token).
+    attend over positions < ctx (which include the new token), the last
+    `window` of them when window > 0.
     Returns (out, k_cache, v_cache), the caches updated in place. With
     k_scale/v_scale (int8 pools) the new rows are quantized on the way in
     (paged_kv_write_quant_plain), so attention sees their round-tripped
@@ -246,11 +256,12 @@ def paged_decode_fused_plain(q, k_cache, v_cache, block_table, ctx_lens,
     k_scale, v_scale)."""
     if k_scale is None:
         paged_kv_write_plain(k_cache, v_cache, k_new, v_new, slots)
-        out = paged_decode_attention_plain(q, k_cache, v_cache, block_table, ctx_lens)
+        out = paged_decode_attention_plain(q, k_cache, v_cache, block_table, ctx_lens,
+                                           window=window)
         return out, k_cache, v_cache
     paged_kv_write_quant_plain(k_cache, v_cache, k_scale, v_scale, k_new, v_new, slots)
     out = paged_decode_attention_plain(q, k_cache, v_cache, block_table, ctx_lens,
-                                       k_scale, v_scale)
+                                       k_scale, v_scale, window)
     return out, k_cache, v_cache, k_scale, v_scale
 
 
@@ -288,8 +299,10 @@ def _check_decode(what, q, k_cache, v_cache, block_table, ctx_lens,
         check_shape(what, "slots", slots, (S,))
 
 
-def _launch_decode(what, q, k_cache, v_cache, block_table, ctx_lens,
+def _launch_decode(what, wrapper, window, q, k_cache, v_cache, block_table, ctx_lens,
                    k_new=None, v_new=None, slots=None, k_scale=None, v_scale=None):
+    """Launch csrc/paged_decode.cu in the mode its arguments select and
+    count the launch on `wrapper`. Returns the output [S, H, D]."""
     S, H, D = q.shape
     NBLK, bs, KV, _ = k_cache.shape
     out = torch.empty_like(q)
@@ -301,32 +314,34 @@ def _launch_decode(what, q, k_cache, v_cache, block_table, ctx_lens,
         ptr(out), ptr(q), ptr(k_cache), ptr(v_cache), opt(k_scale), opt(v_scale),
         ptr(block_table), ptr(ctx_lens), opt(k_new), opt(v_new), opt(slots),
         int(k_new is not None), int(k_scale is not None), S, H, KV, D, NBLK, bs,
-        block_table.shape[1], 1.0 / D ** 0.5, stream_of(q))
+        block_table.shape[1], int(window), 1.0 / D ** 0.5, stream_of(q))
     build.check(lib, err, what)
+    count_launch(wrapper, window)
     return out
 
 
-def paged_decode_attention(q, k_cache, v_cache, block_table, ctx_lens):
+def paged_decode_attention(q, k_cache, v_cache, block_table, ctx_lens, window: int = 0):
     """Plain-mode paged decode attention (kernel: csrc/paged_decode.cu,
-    FUSED=false): row s attends to cache positions < ctx_lens[s]. Used when
-    a decode row set is not all single tokens (chunked continuation, the
-    suffix of a prefix-cache hit), after a separate paged_kv_write.
-    q [S, H, D] bf16, caches [NBLK, bs, KV, D] bf16, block_table [S, NB]
-    int32, ctx_lens [S] int32 (0 = pad row, zeros out). Returns [S, H, D]."""
+    FUSED=false): row s attends to cache positions < ctx_lens[s] (the last
+    `window` of them when window > 0). Used when a decode row set is not
+    all single tokens (chunked continuation, the suffix of a prefix-cache
+    hit), after a separate paged_kv_write. q [S, H, D] bf16, caches [NBLK,
+    bs, KV, D] bf16, block_table [S, NB] int32, ctx_lens [S] int32 (0 = pad
+    row, zeros out). Returns [S, H, D]."""
     if not q.is_cuda:
-        return paged_decode_attention_plain(q, k_cache, v_cache, block_table, ctx_lens)
+        return paged_decode_attention_plain(q, k_cache, v_cache, block_table, ctx_lens,
+                                            window=window)
     what = "paged_decode_attention"
     _check_decode(what, q, k_cache, v_cache, block_table, ctx_lens)
-    out = _launch_decode(what, q, k_cache, v_cache, block_table, ctx_lens)
-    paged_decode_attention.launches += 1
-    return out
+    return _launch_decode(what, paged_decode_attention, window, q, k_cache, v_cache,
+                          block_table, ctx_lens)
 
 
-paged_decode_attention.launches = 0
+paged_decode_attention.launches = paged_decode_attention.window_launches = 0
 
 
 def paged_decode_attention_int8(q, k_cache, v_cache, block_table, ctx_lens, k_scale,
-                                v_scale):
+                                v_scale, window: int = 0):
     """paged_decode_attention over int8 pools (kernel: csrc/paged_decode.cu,
     FUSED=false, QUANT=true): the codes are dequantized in the attention
     loop with their [NBLK, bs, KV] f32 scales. Used after
@@ -334,43 +349,41 @@ def paged_decode_attention_int8(q, k_cache, v_cache, block_table, ctx_lens, k_sc
     q [S, H, D] bf16, caches [NBLK, bs, KV, D] int8. Returns [S, H, D]."""
     if not q.is_cuda:
         return paged_decode_attention_plain(q, k_cache, v_cache, block_table, ctx_lens,
-                                            k_scale, v_scale)
+                                            k_scale, v_scale, window)
     what = "paged_decode_attention_int8"
     _check_decode(what, q, k_cache, v_cache, block_table, ctx_lens,
                   k_scale=k_scale, v_scale=v_scale)
-    out = _launch_decode(what, q, k_cache, v_cache, block_table, ctx_lens,
-                         k_scale=k_scale, v_scale=v_scale)
-    paged_decode_attention_int8.launches += 1
-    return out
+    return _launch_decode(what, paged_decode_attention_int8, window, q, k_cache, v_cache,
+                          block_table, ctx_lens, k_scale=k_scale, v_scale=v_scale)
 
 
-paged_decode_attention_int8.launches = 0
+paged_decode_attention_int8.launches = paged_decode_attention_int8.window_launches = 0
 
 
 def paged_decode_fused(q, k_cache, v_cache, block_table, ctx_lens,
-                       k_new, v_new, slots):
+                       k_new, v_new, slots, window: int = 0):
     """Fused single-token decode (kernel: csrc/paged_decode.cu, FUSED=true):
     write each row's new K/V [S, KV, D] into its flat slot [S] AND attend
     over the cache positions < ctx-1 plus the new token, in one launch.
     Rows must be distinct sequences; ctx INCLUDES the new token; slot -1
-    marks a pad row (nothing written). Returns (out [S, H, D], k_cache,
-    v_cache) with the arenas updated in place."""
+    marks a pad row (nothing written); window > 0 attends to the last
+    `window` positions only. Returns (out [S, H, D], k_cache, v_cache)
+    with the arenas updated in place."""
     if not q.is_cuda:
         return paged_decode_fused_plain(q, k_cache, v_cache, block_table, ctx_lens,
-                                        k_new, v_new, slots)
+                                        k_new, v_new, slots, window=window)
     what = "paged_decode_fused"
     _check_decode(what, q, k_cache, v_cache, block_table, ctx_lens, k_new, v_new, slots)
-    out = _launch_decode(what, q, k_cache, v_cache, block_table, ctx_lens,
-                         k_new, v_new, slots)
-    paged_decode_fused.launches += 1
+    out = _launch_decode(what, paged_decode_fused, window, q, k_cache, v_cache, block_table,
+                         ctx_lens, k_new, v_new, slots)
     return out, k_cache, v_cache
 
 
-paged_decode_fused.launches = 0
+paged_decode_fused.launches = paged_decode_fused.window_launches = 0
 
 
 def paged_decode_fused_int8(q, k_cache, v_cache, block_table, ctx_lens, k_new, v_new,
-                            slots, k_scale, v_scale):
+                            slots, k_scale, v_scale, window: int = 0):
     """paged_decode_fused over int8 pools (kernel: csrc/paged_decode.cu,
     FUSED=true, QUANT=true): each row's new K/V [S, KV, D] bf16 is
     quantized in the kernel (codes and scales bit-identical to
@@ -381,14 +394,13 @@ def paged_decode_fused_int8(q, k_cache, v_cache, block_table, ctx_lens, k_new, v
     v_cache, k_scale, v_scale), the pools updated in place."""
     if not q.is_cuda:
         return paged_decode_fused_plain(q, k_cache, v_cache, block_table, ctx_lens, k_new,
-                                        v_new, slots, k_scale, v_scale)
+                                        v_new, slots, k_scale, v_scale, window)
     what = "paged_decode_fused_int8"
     _check_decode(what, q, k_cache, v_cache, block_table, ctx_lens, k_new, v_new, slots,
                   k_scale, v_scale)
-    out = _launch_decode(what, q, k_cache, v_cache, block_table, ctx_lens, k_new, v_new,
-                         slots, k_scale, v_scale)
-    paged_decode_fused_int8.launches += 1
+    out = _launch_decode(what, paged_decode_fused_int8, window, q, k_cache, v_cache,
+                         block_table, ctx_lens, k_new, v_new, slots, k_scale, v_scale)
     return out, k_cache, v_cache, k_scale, v_scale
 
 
-paged_decode_fused_int8.launches = 0
+paged_decode_fused_int8.launches = paged_decode_fused_int8.window_launches = 0

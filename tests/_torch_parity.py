@@ -42,6 +42,8 @@ def numpy_params(cfg, seed=0, std=0.08):
         else:
             layers[name] = r.normal(0, std, full).astype(np.float32)
     params["layers"] = layers
+    if not cfg.tie_embeddings:  # drawn last: tied configs keep their draws
+        params["lm_head"] = r.normal(0, std, (E, V)).astype(np.float32)
     return params
 
 

@@ -456,3 +456,201 @@ class TestEvoformerOnCard:
             PEV.evoformer_bwd_dkv(q, k, v, b1, b2, do, lse[:, :32].contiguous(), delta)
         with pytest.raises(ValueError):
             PEV.evoformer_bwd_db2(q, k, v, b1, None, do, lse, delta)
+
+
+def _window_decode_case(rng, dev, H, KV, D, quant, bs=16, NB=8, nblk=56):
+    """Paged decode rows on the card around windows of 40 and 57: ctx 5
+    (before both), 40 (at the first), 41 (one past it), 100 (window starts
+    mid-block: 60 and 43), 128 (the whole table) and a pad row (ctx 0)."""
+    S = 6
+    q = _bf16_cuda(rng.standard_normal((S, H, D)), dev)
+    if quant:
+        pools = _int8_pools(rng, dev, nblk, bs, KV, D)
+    else:
+        pools = tuple(_bf16_cuda(a, dev) for a in _arena(rng, nblk, bs, KV, D))
+    tbl = rng.permutation(nblk - 1)[: S * NB].reshape(S, NB).astype(np.int32)
+    tbl[-1] = nblk - 1
+    ctx = np.array([5, 40, 41, 100, 128, 0], np.int32)
+    return q, pools, torch.from_numpy(tbl).to(dev), torch.from_numpy(ctx).to(dev)
+
+
+def _window_decode(mode, q, pools, tbl, ctx, window, kn=None, vn=None, slots=None):
+    """(kernel output, plain output) of one decode mode ("plain", "fused",
+    "int8", "fused_int8") at `window`, each on its own copy of the pools;
+    the fused modes also check the written pools bit for bit."""
+    got, ref = [p.clone() for p in pools], [p.clone() for p in pools]
+    scales = lambda ps: ps[2:]
+    if mode in ("plain", "int8"):
+        kern = PP.paged_decode_attention_int8 if mode == "int8" else PP.paged_decode_attention
+        out = kern(q, got[0], got[1], tbl, ctx, *scales(got), window=window)
+        want = PP.paged_decode_attention_plain(q, ref[0], ref[1], tbl, ctx, *scales(ref),
+                                               window=window)
+    else:
+        kern = PP.paged_decode_fused_int8 if mode == "fused_int8" else PP.paged_decode_fused
+        out = kern(q, got[0], got[1], tbl, ctx, kn, vn, slots, *scales(got), window=window)[0]
+        want = PP.paged_decode_fused_plain(q, ref[0], ref[1], tbl, ctx, kn, vn, slots,
+                                           *scales(ref), window=window)[0]
+        torch.cuda.synchronize()
+        for a, b in zip(got, ref):
+            assert torch.equal(a, b)
+    torch.cuda.synchronize()
+    return out, want
+
+
+def _n_over(got, ref, atol, rtol):
+    return int(((got.float() - ref.float()).abs() > atol + rtol * ref.float().abs()).sum())
+
+
+@pytest.mark.cuda
+class TestWindowOnCard:
+    """The sliding-window modes of kernels #1-#5 against their plain
+    versions on the same bf16 inputs: decode at the tolerance of the causal
+    mode above; flash o, dq, dk, dv under `bwd_mismatch` (a limit scaled to
+    each output row, since a wide window averages many V rows into values
+    far below 2e-2); window >= S (or >= ctx) bit-identical to window 0 for
+    the same kernel; and planted faults that the checks must catch: a band
+    one column wider than asked (the kernel run at window + 1), a decode
+    that starts at column 0 (the kernel run without its window), and two
+    faults of the forward's output alone (lse untouched): one K/V tile's
+    PV term dropped, and the PV sum scaled by 1.02."""
+
+    DECODE_TOL = dict(rtol=8e-3, atol=1e-3)
+    MODES = ["plain", "fused", "int8", "fused_int8"]
+
+    def _flash_inputs(self, rng, d, S, KV, D, B=2, H=4):
+        q = _bf16_cuda(rng.standard_normal((B, S, H, D)), d)
+        k = _bf16_cuda(rng.standard_normal((B, S, KV, D)), d)
+        v = _bf16_cuda(rng.standard_normal((B, S, KV, D)), d)
+        do = _bf16_cuda(rng.standard_normal((B, S, H, D)), d)
+        return q, k, v, do
+
+    @pytest.mark.parametrize("window", [1, 5, 63, 64, 100, 1000])
+    @pytest.mark.parametrize("S,KV,D", [(300, 2, 128), (200, 1, 64)])
+    def test_flash_forward(self, rng, cuda_device, S, KV, D, window):
+        q, k, v, _ = self._flash_inputs(rng, cuda_device, S, KV, D)
+        o, lse = PF.flash_fwd(q, k, v, window)
+        ro, rlse = PF.flash_attention_plain(q, k, v, window)
+        _assert_grad_close(o, ro, f"o S={S} KV={KV} D={D} window={window}")
+        torch.testing.assert_close(lse, rlse, rtol=1e-3, atol=1e-3)
+
+    @pytest.mark.parametrize("window", [2, 5, 63, 64, 100, 1000])
+    @pytest.mark.parametrize("S,KV,D", [(300, 2, 128), (200, 1, 64)])
+    def test_flash_backward(self, rng, cuda_device, S, KV, D, window):
+        q, k, v, do = self._flash_inputs(rng, cuda_device, S, KV, D)
+        o, lse = PF.flash_fwd(q, k, v, window)
+        delta = PF._delta(o, do)
+        got = (PF.flash_bwd_dq(q, k, v, do, lse, delta, window),) + PF.flash_bwd_dkv(
+            q, k, v, do, lse, delta, window)
+        ref = PF.flash_attention_bwd_plain(q, k, v, o, lse, do, window)
+        torch.cuda.synchronize()
+        for name, g, r in zip(("dq", "dk", "dv"), got, ref):
+            _assert_grad_close(g, r, f"{name} S={S} KV={KV} D={D} window={window}")
+
+    def test_flash_window_one(self, rng, cuda_device):
+        """Window 1: each row attends to itself alone, so o = v of its KV
+        head, dv sums dO over the group, and dq, dk are zero up to rounding
+        (P = 1 makes dP - delta the difference of two f32 sums of one
+        product): held below 2^-10 of dv's RMS."""
+        q, k, v, do = self._flash_inputs(rng, cuda_device, 200, 2, 128)
+        o, lse = PF.flash_fwd(q, k, v, 1)
+        torch.testing.assert_close(o, v.repeat_interleave(2, dim=2), rtol=0, atol=0)
+        delta = PF._delta(o, do)
+        dq = PF.flash_bwd_dq(q, k, v, do, lse, delta, 1)
+        dk, dv = PF.flash_bwd_dkv(q, k, v, do, lse, delta, 1)
+        _assert_grad_close(dv, PF.flash_attention_bwd_plain(q, k, v, o, lse, do, 1)[2], "dv")
+        for name, g in (("dq", dq), ("dk", dk)):
+            assert g.float().abs().max().item() <= 2.0 ** -10 * _rms(dv), name
+
+    def test_flash_window_at_least_s_is_causal_bit_for_bit(self, rng, cuda_device):
+        q, k, v, do = self._flash_inputs(rng, cuda_device, 300, 2, 128)
+        o0, lse0 = PF.flash_fwd(q, k, v)
+        delta = PF._delta(o0, do)
+        ref = (PF.flash_bwd_dq(q, k, v, do, lse0, delta),) + PF.flash_bwd_dkv(
+            q, k, v, do, lse0, delta)
+        for window in (300, 301, 10 ** 6):
+            o, lse = PF.flash_fwd(q, k, v, window)
+            got = (PF.flash_bwd_dq(q, k, v, do, lse0, delta, window),) + PF.flash_bwd_dkv(
+                q, k, v, do, lse0, delta, window)
+            torch.cuda.synchronize()
+            assert torch.equal(o, o0) and torch.equal(lse, lse0), window
+            for g, r in zip(got, ref):
+                assert torch.equal(g, r), window
+
+    def test_flash_one_wider_band_is_caught(self, rng, cuda_device):
+        """The planted fault: the kernels at window 2 where window 1 was
+        asked fail the checks above (o against the plain forward; dq
+        against zero; dv against the plain backward)."""
+        q, k, v, do = self._flash_inputs(rng, cuda_device, 200, 2, 128)
+        o, lse = PF.flash_fwd(q, k, v, 2)
+        ro, rlse = PF.flash_attention_plain(q, k, v, 1)
+        assert PF.bwd_mismatch(o, ro)["n_over"] > 0
+        delta = PF._delta(o, do)
+        dq = PF.flash_bwd_dq(q, k, v, do, lse, delta, 2)
+        dv = PF.flash_bwd_dkv(q, k, v, do, lse, delta, 2)[1]
+        ref_dv = PF.flash_attention_bwd_plain(q, k, v, ro, rlse, do, 1)[2]
+        assert dq.float().abs().max().item() > 2.0 ** -10 * _rms(ref_dv)
+        assert PF.bwd_mismatch(dv, ref_dv)["n_over"] > 0
+
+    def test_flash_output_faults_are_caught(self, rng, cuda_device):
+        """At window 100 over S=300, the forward with one 64-row K/V tile's
+        PV term dropped (its V rows zeroed: lse unchanged), and the forward
+        with its PV sum scaled by 1.02, both fail the o check above."""
+        q, k, v, _ = self._flash_inputs(rng, cuda_device, 300, 2, 128)
+        ro, rlse = PF.flash_attention_plain(q, k, v, 100)
+        dropped = v.clone()
+        dropped[:, 128:192] = 0
+        o, lse = PF.flash_fwd(q, k, dropped, 100)
+        torch.testing.assert_close(lse, rlse, rtol=1e-3, atol=1e-3)
+        assert PF.bwd_mismatch(o, ro)["n_over"] > 0
+        o = PF.flash_fwd(q, k, v, 100)[0]
+        assert PF.bwd_mismatch((o.float() * 1.02).to(o.dtype), ro)["n_over"] > 0
+
+    def _decode_args(self, rng, d, mode, H=32, KV=8, D=128):
+        q, pools, tbl, ctx = _window_decode_case(rng, d, H, KV, D, "int8" in mode)
+        S, bs = q.shape[0], pools[0].shape[1]
+        pos = (ctx - 1).clamp(min=0)
+        slots = torch.where(ctx > 0, tbl[torch.arange(S, device=d), pos // bs] * bs + pos % bs,
+                            -1).to(torch.int32)
+        kn = _bf16_cuda(rng.standard_normal((S, KV, D)), d)
+        vn = _bf16_cuda(rng.standard_normal((S, KV, D)), d)
+        return q, pools, tbl, ctx, kn, vn, slots
+
+    @pytest.mark.parametrize("window", [1, 40, 57])
+    @pytest.mark.parametrize("mode", MODES)
+    @pytest.mark.parametrize("H,D", [(32, 128), (8, 64)])
+    def test_decode(self, rng, cuda_device, mode, window, H, D):
+        q, pools, tbl, ctx, kn, vn, slots = self._decode_args(rng, cuda_device, mode, H, 8, D)
+        out, ref = _window_decode(mode, q, pools, tbl, ctx, window, kn, vn, slots)
+        torch.testing.assert_close(out.float(), ref.float(), **self.DECODE_TOL)
+        assert not out[-1].any()  # the pad row
+
+    @pytest.mark.parametrize("mode", MODES)
+    def test_decode_window_at_least_ctx_is_causal_bit_for_bit(self, rng, cuda_device, mode):
+        args = self._decode_args(rng, cuda_device, mode)
+        base, _ = _window_decode(mode, *args[:4], 0, *args[4:])
+        for window in (128, 129, 10 ** 6):
+            out, _ = _window_decode(mode, *args[:4], window, *args[4:])
+            assert torch.equal(out, base), window
+
+    @pytest.mark.parametrize("mode", MODES)
+    def test_decode_planted_faults_are_caught(self, rng, cuda_device, mode):
+        """Window 1 run as 2 (one column wider), and window 40 run as 0 (the
+        column loop started at 0): both fail the decode tolerance on the
+        rows past the window."""
+        args = self._decode_args(rng, cuda_device, mode)
+        for asked, run in ((1, 2), (40, 0)):
+            out, _ = _window_decode(mode, *args[:4], run, *args[4:])
+            _, ref = _window_decode(mode, *args[:4], asked, *args[4:])
+            assert _n_over(out, ref, 1e-3, 8e-3) > 0, (asked, run)
+
+    def test_window_launches_are_counted(self, rng, cuda_device):
+        PK.reset_launch_counts()
+        q, k, v, do = self._flash_inputs(rng, cuda_device, 128, 2, 128)
+        leaves = [t.clone().requires_grad_() for t in (q, k, v)]
+        torch.autograd.grad(PF.flash_attention(*leaves, window=16)[0], leaves, do)
+        PF.flash_fwd(q, k, v)
+        counts, windowed = PK.launch_counts(), PK.window_launch_counts()
+        assert counts["flash_fwd"] == 2 and windowed["flash_fwd[window]"] == 1
+        assert counts["flash_bwd_dq"] == windowed["flash_bwd_dq[window]"] == 1
+        assert counts["flash_bwd_dkv"] == windowed["flash_bwd_dkv[window]"] == 1
+        assert windowed["paged_decode_fused[window]"] == 0

@@ -59,12 +59,30 @@ class TestConfigAndInit:
             torch_config(**bad)
 
     @pytest.mark.parametrize("over", [
-        {"n_experts": 2}, {"sliding_window": 8}, {"alibi": True},
+        {"n_experts": 2}, {"parallel_residual": True}, {"alibi": True},
         {"variant": "gpt2"}, {"attention_impl": "sparse"}, {"use_flash": False},
     ])
     def test_unserved_configs_raise(self, over):
         with pytest.raises(NotImplementedError):
             PM.check_served(torch_config(**over))
+
+    @pytest.mark.parametrize("over", [
+        {"sliding_window": 8}, {"attention_window_pattern": (0, 8)},
+        {"sliding_window": 8, "n_kv_heads": 1, "tie_embeddings": False},
+    ])
+    def test_window_configs_are_served(self, over):
+        """Sliding windows (Mistral-class, per-layer patterns) are served
+        since the window modes of the kernels were ported; a window beside
+        ALiBi still raises for the ALiBi."""
+        pc = torch_config(**over)
+        PM.check_served(pc)
+        params = PT.init(pc, torch.Generator().manual_seed(0), device="cpu")
+        cache = PM.init_cache(pc, 8, 16, torch.float32, torch.device("cpu"))
+        logits, _ = PM.prefill_batch(params, cache, torch.arange(24).reshape(1, 24),
+                                     torch.tensor([24]), torch.arange(8).reshape(1, 8), pc)
+        assert logits.shape == (1, pc.vocab_size) and torch.isfinite(logits).all()
+        with pytest.raises(NotImplementedError, match="ALiBi"):
+            PM.check_served(torch_config(**over, alibi=True))
 
     def test_convert_rejects_mismatched_tree(self):
         cfg = jax_config()

@@ -348,12 +348,26 @@ class TestLeftOutRaises:
     @pytest.mark.parametrize("over", [
         {"remat": "dots"}, {"remat": "save_attn"}, {"remat": "save_attn_mlp"},
         {"remat": "save_attn_dots"}, {"dropout": 0.1}, {"n_experts": 2},
-        {"random_ltd_layer_range": (0, 1)}, {"sliding_window": 8}, {"alibi": True},
+        {"random_ltd_layer_range": (0, 1)}, {"activation_quant_bits": 8}, {"alibi": True},
         {"variant": "gpt2"}, {"use_flash": False},
     ])
     def test_model_raises(self, over):
         with pytest.raises(NotImplementedError):
             PT.make_loss_fn(PT.TransformerConfig(**{**MODEL, **over}))
+
+    @pytest.mark.parametrize("over", [{"sliding_window": 4},
+                                      {"attention_window_pattern": (0, 4), "n_layers": 2}])
+    def test_window_models_train(self, over):
+        """Sliding-window models train since the window modes of the flash
+        kernels were ported: two steps on a fixed batch, finite and falling."""
+        pc = PT.TransformerConfig(**{**MODEL, **over})
+        eng = pds.initialize({"train_micro_batch_size_per_gpu": 1,
+                              "optimizer": {"type": "adamw", "params": {"lr": 1e-2}}},
+                             loss_fn=PT.make_loss_fn(pc),
+                             param_init_fn=lambda g: PT.init(pc, g, device="cpu"), device="cpu")
+        batch = {"tokens": np.random.default_rng(1).integers(0, 64, (1, 17)).astype(np.int32)}
+        losses = [eng.train_batch(batch)["loss"] for _ in range(3)]
+        assert np.isfinite(losses).all() and losses[-1] < losses[0]
 
     def test_stages_zero_and_one_train_the_same(self):
         batch = {"tokens": np.random.default_rng(1).integers(0, 64, (1, 9)).astype(np.int32)}

@@ -138,11 +138,22 @@ class TestFlashBackward:
         for g, r in zip(got, ref):
             np.testing.assert_array_equal(g.numpy(), r.numpy())
 
-    @pytest.mark.parametrize("mode", [{"window": 8}, {"alibi": [0.5, 0.25]}])
+    @pytest.mark.parametrize("mode", [{"window": 8, "alibi": [0.5, 0.25]},
+                                      {"alibi": [0.5, 0.25]}])
     def test_window_and_alibi_raise(self, rng, mode):
         q, k, v, _ = (_t(a) for a in _qkv(rng, 1, 16, 2, 2, 64))
         with pytest.raises(NotImplementedError, match="B2"):
             PF.flash_attention(q, k, v, **mode)
+
+    def test_window_runs(self, rng):
+        """The sliding-window mode no longer raises: flash_attention(window=8)
+        is the banded plain version on the CPU, and differentiable."""
+        q, k, v, do = (_t(a).requires_grad_() for a in _qkv(rng, 1, 16, 2, 2, 64))
+        o, lse = PF.flash_attention(q, k, v, window=8)
+        ref, ref_lse = PF.flash_attention_plain(q, k, v, 8)
+        assert torch.equal(o, ref) and torch.equal(lse, ref_lse)
+        o.backward(do.detach())
+        assert all(torch.isfinite(x.grad).all() for x in (q, k, v))
 
     def test_lse_cotangent_raises(self, rng):
         q, k, v, _ = (_t(a).requires_grad_() for a in _qkv(rng, 1, 16, 2, 2, 64))

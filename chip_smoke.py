@@ -25,7 +25,17 @@ Phases (any failure raises and exits nonzero):
              faults that must fail: a band one column wider, a decode that
              starts at column 0, and at window 4096 two faults of the flash
              output alone (a K/V tile's PV term dropped, the PV sum x1.02);
-             time kernel, plain version and (where one exists) a single
+             the ALiBi modes of #1, #4 and #5: flash at BLOOM-7B1's prefill
+             shape (B=1, S=512, 32 x 128 heads), at falcon-rw-1b's head_dim
+             64 with its slope scale, with GQA, with 24 heads (no power of
+             two) and with window 1000 (S=2048); decode in all four modes at
+             8 rows with ctx ~100 to ~2,000, 32 x 128 heads, without and
+             with window 1000; all-zero slopes and windows >= S (or ctx)
+             bit-identical to the existing modes, and planted faults that
+             must fail: the slopes rotated by one head, the flash bias with
+             its sign flipped, with GQA each q head given its KV head's
+             slope, the fused new column biased at position 0; time
+             kernel, plain version and (where one exists) a single
              PyTorch library call computing the same function: device time
              from torch.profiler, and the time of back-to-back calls from
              CUDA events.
@@ -88,6 +98,23 @@ Phases (any failure raises and exits nonzero):
              the loss falling over 6 steps; per-token loss and gradients of
              2 layers at S=6144 against the plain paths. Reports step ms,
              tokens/s, MFU, peak memory, where the time goes.
+4f. serve_alibi - BLOOM-7B1 (BLOOM: 30 layers, d_model 4096, 32 x 128
+             heads, d_ff 16384, vocab 250880, ALiBi, LayerNorm, biases, an
+             embedding LayerNorm, tied embeddings; random bf16 weights, seed
+             0) in init_inference on bf16 pools (SERVE_A: 128 blocks of 128
+             tokens, max_seq_len 2048), after the Mistral weights are freed;
+             counted: a 1920-token prompt, a wave of 7 x 96-token prompts, a
+             single-token decode put, a 2-token continuation of a wave row
+             (the plain-mode decode) and greedy decode_multi_fn(8, 24), the
+             long row at ctx 1921-1944. #1, #4, #5 and #6 must launch, each
+             attention launch in its ALiBi mode. Checks: finite logits;
+             prefill and decode logits of all 30 layers by the kernel path
+             within 1.5x / 2x of the bf16 plain path's error against f32.
+             Reports TTFT of fresh 512- and 1920-token prompts, batch-8
+             decode throughput, where the time goes, peak memory.
+4g. serve_alibi_int8 - the same on int8 pools and the same weights; only
+             the int8 kernels and flash_fwd may launch; the checks against
+             the plain int8 paths.
 5. evoformer - DS4Sci evoformer attention (ds4sci_evoformer_attention) at
              AlphaFold 2 / OpenFold widths, bf16, three cases (EVO_CASES):
              for each, one forward and backward with every launch counter
@@ -203,6 +230,31 @@ W_LONG, W_PROMPTS = 6144, 7  # one 6144-token prompt (the window bites in rows >
 TRAIN_W_MODEL = dict(MISTRAL, n_layers=4, remat="save_attn_qkv", use_flash=True)
 TRAIN_W_S, TRAIN_W_STEPS, TRAIN_W_TIMED = 8192, 6, 3
 TRAIN_W_PATH = (2, 6144)  # layers, S of the gradient three-path check
+# the ALiBi path: BLOOM-7B1 (bigscience/bloom-7b1 config.json as the JAX
+# package's config_from_hf maps it, utils/hf_checkpoint.py: ALiBi, no
+# position table, an embedding LayerNorm, LayerNorm, biases everywhere, a
+# tanh-GELU MLP of 4 x d_model, tied embeddings), random weights from seed
+# 0, full width and depth: 7,069,016,064 parameters, 14.1 GB in bf16,
+# 491,520 KV bytes per token, 8.05 GB for 128 blocks of 128 tokens
+BLOOM = dict(vocab_size=250880, n_layers=30, n_heads=32, d_model=4096, d_ff=16384,
+             max_seq=2048, variant="gpt2", alibi=True, embedding_layernorm=True,
+             activation="gelu", norm_eps=1e-5, tie_embeddings=True)
+SERVE_A = dict(max_seq_len=2048, kv_block_size=128, num_kv_blocks=128,
+               min_prefill_bucket=64, max_batch_size=64)
+# one 1920-token prompt (bucket 2048) and 7 x 96; decode_multi's long row
+# then runs at ctx 1921-1944; TTFT of a fresh 512-token prompt
+A_LONG, A_PROMPTS, A_TTFT = 1920, 7, 512
+# phase 2's ALiBi cases of kernel #1: (B, S, H, KV, D, window, slope scale)
+FLASH_ALIBI_CASES = {
+    "bloom_prefill": dict(B=1, S=512, H=32, KV=32, D=128, window=0, scale=1.0),
+    "falcon_rw_1b": dict(B=1, S=512, H=32, KV=32, D=64, window=0, scale=1.0 / 8.0),
+    "gqa": dict(B=1, S=512, H=32, KV=8, D=128, window=0, scale=1.0),
+    "non_pow2_heads": dict(B=1, S=512, H=24, KV=24, D=128, window=0, scale=1.0),
+    "window_1000": dict(B=1, S=2048, H=32, KV=32, D=128, window=1000, scale=1.0),
+}
+ALIBI_WINDOW = 1000
+# phase 2's ALiBi decode rows: ctx ~100 to ~2,000 (several mid-block)
+DECODE_ALIBI_CTX = (100, 371, 642, 913, 1184, 1455, 1726, 1997)
 # window cases of phase 2 besides >= S: Mistral's 4096 (tile-aligned), 1000
 # (no multiple of the 64-row tiles or the 128-token blocks) and 1
 WINDOW_CASES = (4096, 1000, 1)
@@ -303,17 +355,18 @@ def _where_time_goes(fn, top=8):
         fn()
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t) * 1e3
-    by_name = {}
+    by_name = {}  # by the first 80 characters of the name, as reported
     n_device = 0
     for e in prof.events():
         if e.device_type == DeviceType.CUDA:
             n_device += 1
-            by_name[e.name] = by_name.get(e.name, 0.0) + e.time_range.elapsed_us() / 1e3
+            key = e.name[:80]
+            by_name[key] = by_name.get(key, 0.0) + e.time_range.elapsed_us() / 1e3
     busy = sum(by_name.values())
     ranked = sorted(by_name.items(), key=lambda kv: -kv[1])[:top]
     return {"wall_ms_profiled": wall_ms, "device_busy_ms": busy, "device_ops": n_device,
             "idle_share": 1.0 - busy / wall_ms if wall_ms else None,
-            "top_kernels_ms": {k[:80]: v for k, v in ranked}}
+            "top_kernels_ms": dict(ranked)}
 
 
 def _check_close(name, got, ref, atol, rtol):
@@ -969,6 +1022,71 @@ def _flash_window_checks(FA, randn, B, S, H, KV, D, bound_ms):
     return out
 
 
+DECODE_MODES = ("paged_decode_fused", "paged_decode_attention", "paged_decode_fused_int8",
+                "paged_decode_attention_int8")
+
+
+def _decode_fixture(PA, randn, dev, H, KV, D, bs, NB, ctx_list, seed):
+    """Decode rows with contexts `ctx_list`, each row's blocks scattered
+    over an arena of just enough blocks (a scratch block last), bf16 and
+    int8 pools of the same rows, and new K/V rows with their slots.
+    Returns (inputs dict, call, run): call(name, window, pools, kernel=True,
+    alibi=None) is the output of one decode mode (the kernel, or its plain
+    version) on `pools`, which the fused modes write in place; run(name,
+    window, kernel=True, alibi=None) is (output, written pools) on copies
+    of the mode's pools."""
+    import torch
+
+    S = len(ctx_list)
+    per_row = -(-max(ctx_list) // bs)
+    nblk = S * per_row + 1
+    g = torch.Generator(device=dev).manual_seed(seed)
+    perm = torch.randperm(nblk - 1, generator=g, device=dev).to(torch.int32)
+    tables = torch.full((S, NB), nblk - 1, dtype=torch.int32, device=dev)
+    tables[:, :per_row] = perm.reshape(S, per_row)
+    ctx = torch.tensor(ctx_list, dtype=torch.int32, device=dev)
+    q = randn(S, H, D)
+    k_new, v_new = randn(S, KV, D), randn(S, KV, D)
+    pos = (ctx - 1).long()
+    slots = (tables[torch.arange(S, device=dev), pos // bs].long() * bs + pos % bs).to(torch.int32)
+    bf16_pools = [randn(nblk, bs, KV, D), randn(nblk, bs, KV, D)]
+    qk, ks, qv, vs = PA.quantize_kv_rows(randn(nblk * bs, KV, D), randn(nblk * bs, KV, D))
+    int8_pools = [qk.reshape(nblk, bs, KV, D), qv.reshape(nblk, bs, KV, D),
+                  ks.reshape(nblk, bs, KV), vs.reshape(nblk, bs, KV)]
+    kernels = {name: getattr(PA, name) for name in DECODE_MODES}
+
+    def call(name, window, pools, kernel=True, alibi=None):
+        fused = "fused" in name
+        if kernel:
+            fn = kernels[name]
+        else:
+            fn = PA.paged_decode_fused_plain if fused else PA.paged_decode_attention_plain
+        extra = (k_new, v_new, slots) if fused else ()
+        out = fn(q, pools[0], pools[1], tables, ctx, *extra, *pools[2:], window=window,
+                 alibi_slopes=alibi)
+        return out[0] if fused else out
+
+    def run(name, window, kernel=True, alibi=None):
+        pools = [p.clone() for p in (int8_pools if "int8" in name else bf16_pools)]
+        return call(name, window, pools, kernel, alibi), pools
+
+    inputs = dict(S=S, nblk=nblk, tables=tables, ctx=ctx, q=q, k_new=k_new, v_new=v_new,
+                  slots=slots)
+    return inputs, call, run
+
+
+def _decode_bytes(name, S, H, KV, D, NB, live_positions):
+    """Bytes a decode mode must move: q in and out, tables, ctx, each live
+    position's K and V (codes and scales on int8) once; the fused modes
+    also read the new rows and write their slot."""
+    quant = "int8" in name
+    pos_bytes = KV * (D + 4) * 2 if quant else 2 * KV * D * 2
+    io = S * H * D * 2 * 2 + S * NB * 4 + S * 4
+    if "fused" in name:
+        return io + (live_positions - S) * pos_bytes + S * (KV * D * 2 * 2 + pos_bytes + 4)
+    return io + live_positions * pos_bytes
+
+
 def _decode_window_checks(PA, randn, dev, bound_ms):
     """The window modes of kernels #4 and #5 (bf16 plain and fused, int8
     plain and fused) at the Mistral serving shape, 8 rows with ctx on both
@@ -988,50 +1106,13 @@ def _decode_window_checks(PA, randn, dev, bound_ms):
     bs = SERVE_W["kv_block_size"]
     NB = SERVE_W["max_seq_len"] // bs
     ctx_list = list(DECODE_W_CTX)
-    S = len(ctx_list)
-    per_row = -(-max(ctx_list) // bs)
-    nblk = S * per_row + 1
-    g = torch.Generator(device=dev).manual_seed(5)
-    perm = torch.randperm(nblk - 1, generator=g, device=dev).to(torch.int32)
-    tables = torch.full((S, NB), nblk - 1, dtype=torch.int32, device=dev)
-    tables[:, :per_row] = perm.reshape(S, per_row)
-    ctx = torch.tensor(ctx_list, dtype=torch.int32, device=dev)
-    q = randn(S, H, D)
-    k_new, v_new = randn(S, KV, D), randn(S, KV, D)
-    pos = (ctx - 1).long()
-    slots = (tables[torch.arange(S, device=dev), pos // bs].long() * bs + pos % bs).to(torch.int32)
-    bf16_pools = [randn(nblk, bs, KV, D), randn(nblk, bs, KV, D)]
-    qk, ks, qv, vs = PA.quantize_kv_rows(randn(nblk * bs, KV, D), randn(nblk * bs, KV, D))
-    int8_pools = [qk.reshape(nblk, bs, KV, D), qv.reshape(nblk, bs, KV, D),
-                  ks.reshape(nblk, bs, KV), vs.reshape(nblk, bs, KV)]
-
-    kernels = {"paged_decode_fused": PA.paged_decode_fused,
-               "paged_decode_attention": PA.paged_decode_attention,
-               "paged_decode_fused_int8": PA.paged_decode_fused_int8,
-               "paged_decode_attention_int8": PA.paged_decode_attention_int8}
-
-    def call(name, window, pools, kernel=True):
-        """The output of one mode (the kernel or its plain version) on
-        `pools`, which the fused modes write in place."""
-        fused = "fused" in name
-        if kernel:
-            fn = kernels[name]
-        else:
-            fn = PA.paged_decode_fused_plain if fused else PA.paged_decode_attention_plain
-        extra = (k_new, v_new, slots) if fused else ()
-        out = fn(q, pools[0], pools[1], tables, ctx, *extra, *pools[2:], window=window)
-        return out[0] if fused else out
-
-    def run(name, window, kernel=True):
-        """(output, the pools it wrote) of one mode on copies of the pools."""
-        pools = [p.clone() for p in (int8_pools if "int8" in name else bf16_pools)]
-        return call(name, window, pools, kernel), pools
+    x, call, run = _decode_fixture(PA, randn, dev, H, KV, D, bs, NB, ctx_list, 5)
+    S, nblk = x["S"], x["nblk"]
 
     results, report = {}, {}
     atol, rtol = KERNEL_TOL["paged_decode_attention"]
     live = [min(c, WINDOW) for c in ctx_list]
-    io = S * H * D * 2 * 2 + S * NB * 4 + S * 4  # q in, out, tables, ctx
-    for name in kernels:
+    for name in DECODE_MODES:
         base, _ = run(name, 0)
         for w in (max(ctx_list), 10 ** 6):
             o, _ = run(name, w)
@@ -1046,19 +1127,12 @@ def _decode_window_checks(PA, randn, dev, bound_ms):
                 for a, b in zip(pk, pr):
                     _check_close(f"{name} window {w} pools", a, b, 0.0, 0.0)
             plain[w] = ref
-        over = lambda got, ref: int(((got.float() - ref.float()).abs()
-                                     > atol + rtol * ref.float().abs()).sum())
-        faults = {"one_wider_at_1": over(run(name, 2)[0], plain[1]),
-                  f"start_at_0_at_{mid}": over(run(name, 0)[0], plain[mid])}
+        faults = {"one_wider_at_1": _n_over(run(name, 2)[0], plain[1], atol, rtol),
+                  f"start_at_0_at_{mid}": _n_over(run(name, 0)[0], plain[mid], atol, rtol)}
         if not all(faults.values()):
             raise AssertionError(f"{name}: the window check passes a planted fault: {faults}")
         report[name] = {"max_abs_err": errs, "planted_faults_elements_over": faults}
         quant = "int8" in name
-        pos_bytes = KV * (D + 4) * 2 if quant else 2 * KV * D * 2  # K and V of one position
-        if "fused" in name:  # the new row: k/v_new in, its slot written, slots in
-            n_bytes = io + (sum(live) - S) * pos_bytes + S * (KV * D * 2 * 2 + pos_bytes + 4)
-        else:
-            n_bytes = io + sum(live) * pos_bytes
         pools, ref_pools = run(name, 0)[1], run(name, 0)[1]
         results[f"{name}[window]"] = dict(
             max_abs_err=max(errs.values()),
@@ -1067,9 +1141,204 @@ def _decode_window_checks(PA, randn, dev, bound_ms):
             shape=f"S={S}, ctx {min(ctx_list)}..{max(ctx_list)}, window {WINDOW}, H={H}, "
                   f"KV={KV}, D={D}, bs={bs}, {'int8' if quant else 'bf16'} pools "
                   f"of {nblk} blocks",
-            bound=bound_ms(n_bytes, 4 * sum(live) * H * D))
+            bound=bound_ms(_decode_bytes(name, S, H, KV, D, NB, sum(live)),
+                           4 * sum(live) * H * D))
         del plain, pools, ref_pools
     print(json.dumps({"decode_window_checks": {"ctx": ctx_list, **report}}))
+    return results
+
+
+def _n_over(got, ref, atol, rtol):
+    """Elements of `got` beyond atol + rtol * |ref| (non-finite ones too)."""
+    import torch
+
+    err = (got.float() - ref.float()).abs()
+    return int(((err > atol + rtol * ref.float().abs()) | ~torch.isfinite(got.float())).sum())
+
+
+# ---------------------------------------------------------------------------
+# phase 2, the ALiBi modes: flash #1 and decode #4/#5 with slopes
+# ---------------------------------------------------------------------------
+
+def _slopes(H, scale, dev):
+    from deepspeed_tpu_torch.ops.attention import alibi_slopes
+
+    return (alibi_slopes(H) * scale).to(dev)
+
+
+def _sdpa_alibi_mask(slopes, S, dtype):
+    """SDPA's additive mask for causal ALiBi, [1, H, S, S] in q's dtype:
+    slope_h * (c - r) on and below the diagonal, -inf above it."""
+    import torch
+
+    pos = torch.arange(S, device=slopes.device)
+    rel = (pos[None, :] - pos[:, None]).float()
+    bias = slopes[:, None, None] * rel
+    return bias.masked_fill(rel > 0, float("-inf"))[None].to(dtype)
+
+
+def _flash_alibi_checks(FA, randn, dev, bound_ms):
+    """Kernel #1's ALiBi mode against its plain version on the same bf16
+    inputs (o under bwd_mismatch, lse at 1e-3) in the cases of
+    FLASH_ALIBI_CASES: Bloom's prefill shape, falcon-rw-1b's head_dim 64
+    with its 1/sqrt(64) slope scale, GQA, a head count that is no power of
+    two, and ALiBi with window 1000. All-zero slopes and a window >= S give
+    the causal (ALiBi) result bit for bit. Planted faults that must fail:
+    the slopes rotated by one head, the bias with its sign flipped, and,
+    with GQA, each q head given its KV head's slope. Times at Bloom's
+    prefill shape, beside SDPA with the bias as an additive float mask."""
+    import torch
+    import torch.nn.functional as F
+
+    report, timed = {}, None
+    for case, c in FLASH_ALIBI_CASES.items():
+        B, S, H, KV, D, w = (c[x] for x in ("B", "S", "H", "KV", "D", "window"))
+        q, k, v = randn(B, S, H, D), randn(B, S, KV, D), randn(B, S, KV, D)
+        sl = _slopes(H, c["scale"], dev)
+        o, lse = FA.flash_fwd(q, k, v, w, sl)
+        ro, rlse = FA.flash_attention_plain(q, k, v, w, sl)
+        st = _check_flash_o(FA, f"flash_fwd[alibi] {case} o", o, ro)
+        _check_close(f"flash_fwd[alibi] {case} lse", lse, rlse, 1e-3, 1e-3)
+        G = H // KV
+        faults = {"slopes_rotated_by_one_head": torch.roll(sl, 1)}
+        if case == "bloom_prefill":
+            faults["bias_sign_flipped"] = -sl
+        if G > 1:
+            faults["kv_head_slope_for_q_head"] = sl[torch.arange(H, device=dev) // G * G]
+        over = {f: FA.bwd_mismatch(FA.flash_fwd(q, k, v, w, fs)[0], ro)["n_over"]
+                for f, fs in faults.items()}
+        if not all(over.values()):
+            raise AssertionError(f"flash_fwd[alibi] {case}: the o check passes a planted "
+                                 f"fault: {over}")
+        same = {"zero_slopes_vs_no_alibi": torch.equal(
+            FA.flash_fwd(q, k, v, w, torch.zeros_like(sl))[0], FA.flash_fwd(q, k, v, w)[0])}
+        if w == 0:
+            same["window_ge_s_vs_causal"] = all(
+                torch.equal(a, b) for a, b in zip(FA.flash_fwd(q, k, v, S, sl), (o, lse)))
+        if not all(same.values()):
+            raise AssertionError(f"flash_fwd[alibi] {case}: not bit-identical: {same}")
+        report[case] = {"shape": c, "o_worst_ratio": st["worst_ratio"],
+                        "o_max_abs_err": st["max_abs_err"],
+                        "planted_faults_o_elements_over": over, "bit_identical": same}
+        if case == "bloom_prefill":
+            qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
+            mask = _sdpa_alibi_mask(sl, S, q.dtype)
+            timed = dict(
+                max_abs_err=st["max_abs_err"],
+                **_timings(lambda: FA.flash_fwd(q, k, v, 0, sl),
+                           lambda: FA.flash_attention_plain(q, k, v, 0, sl),
+                           lambda: F.scaled_dot_product_attention(qt, kt, vt, attn_mask=mask),
+                           10),
+                shape=f"B={B}, S={S}, H={H}, KV={KV}, D={D}, bf16, causal ALiBi",
+                bound=bound_ms(B * S * (H * 2 + KV * 2) * D * 2 + B * H * S * 4 + H * 4,
+                               4.0 * B * H * D * S * (S + 1) / 2),
+                causal_ms=_device_ms(lambda: FA.flash_fwd(q, k, v), 10))
+            del qt, kt, vt, mask
+        else:
+            timed["max_abs_err"] = max(timed["max_abs_err"], st["max_abs_err"])
+        del q, k, v, o, lse, ro, rlse
+        torch.cuda.empty_cache()
+    print(json.dumps({"flash_alibi_checks": report}))
+    print(json.dumps({"flash_alibi_vs_sdpa": {
+        "fwd_ms": timed["ms"], "sdpa_float_mask_ms": timed["library_ms"],
+        "ratio": timed["ms"] / timed["library_ms"], "causal_same_shape_ms": timed["causal_ms"],
+        "shape": timed["shape"]}}))
+    return {"flash_fwd[alibi]": timed}
+
+
+def _decode_new_col_at(PA, q, pools, tables, ctx, slopes, at=None):
+    """Dense f32 decode over already-written pools with the ALiBi bias at
+    absolute positions, except that, given `at`, each row's new token
+    (position ctx - 1) is biased as if at position `at`: what a fused
+    kernel that biased its new column there would output (the planted
+    fault at 0)."""
+    import torch
+
+    S, H, D = q.shape
+    KV = pools[0].shape[2]
+    tbl = tables.long()
+    k = pools[0][tbl].reshape(S, -1, KV, D)
+    v = pools[1][tbl].reshape(S, -1, KV, D)
+    if len(pools) > 2:
+        k = PA.dequantize(k, pools[2][tbl].reshape(S, -1, KV), q.dtype)
+        v = PA.dequantize(v, pools[3][tbl].reshape(S, -1, KV), q.dtype)
+    k, v = (x.float().repeat_interleave(H // KV, 2) for x in (k, v))
+    pos = torch.arange(k.shape[1], device=q.device)
+    bias = (slopes[None, :, None] * pos.float()).expand(S, H, -1).clone()
+    if at is not None:
+        bias[torch.arange(S, device=q.device), :, (ctx - 1).long()] = slopes * float(at)
+    logits = torch.einsum("shd,skhd->shk", q.float(), k) / D ** 0.5 + bias
+    logits = logits.masked_fill(~(pos[None, :] < ctx[:, None])[:, None, :], float("-inf"))
+    return torch.einsum("shk,skhd->shd", logits.softmax(-1), v).to(q.dtype)
+
+
+def _decode_alibi_checks(PA, randn, dev, bound_ms):
+    """The ALiBi modes of kernels #4 and #5 (bf16 plain and fused, int8
+    plain and fused) at BLOOM-7B1's decode shape (32 x 128 heads, no GQA),
+    8 rows with ctx DECODE_ALIBI_CTX (~100 to ~2,000, where the bias reaches
+    ~1,700), against the plain versions at one bf16 ulp, without and with
+    window ALIBI_WINDOW; the fused modes' written pools bit-exact; all-zero
+    slopes bit-identical to no ALiBi and a window >= every ctx to window 0.
+    Planted faults that must fail: the slopes rotated by one head, and (the
+    fused modes) the new column biased at position 0 instead of ctx - 1.
+    Times without the window; the bound counts each row's ctx positions."""
+    import torch
+
+    H = KV = BLOOM["n_heads"]  # no GQA
+    D = BLOOM["d_model"] // H
+    bs = SERVE_A["kv_block_size"]
+    NB = SERVE_A["max_seq_len"] // bs
+    ctx_list = list(DECODE_ALIBI_CTX)
+    x, call, run = _decode_fixture(PA, randn, dev, H, KV, D, bs, NB, ctx_list, 6)
+    S, nblk, ctx = x["S"], x["nblk"], x["ctx"]
+    sl = _slopes(H, 1.0, dev)
+    atol, rtol = KERNEL_TOL["paged_decode_attention"]
+    results, report = {}, {}
+    for name in DECODE_MODES:
+        fused = "fused" in name
+        same = {"zero_slopes_vs_no_alibi": torch.equal(
+            run(name, 0, alibi=torch.zeros_like(sl))[0], run(name, 0)[0])}
+        base, _ = run(name, 0, alibi=sl)
+        same["window_ge_ctx_vs_window_0"] = all(
+            torch.equal(run(name, w, alibi=sl)[0], base) for w in (max(ctx_list), 10 ** 6))
+        if not all(same.values()):
+            raise AssertionError(f"{name}[alibi]: not bit-identical: {same}")
+        errs, plain = {}, {}
+        for w in (0, ALIBI_WINDOW):
+            (o, pk), (ref, pr) = run(name, w, alibi=sl), run(name, w, kernel=False, alibi=sl)
+            errs[w] = _check_close(f"{name}[alibi] window {w}", o, ref, atol, rtol)
+            if fused:
+                for a, b in zip(pk, pr):
+                    _check_close(f"{name}[alibi] window {w} pools", a, b, 0.0, 0.0)
+            plain[w] = (ref, pr)
+        faults = {"slopes_rotated_by_one_head": _n_over(
+            run(name, 0, alibi=torch.roll(sl, 1))[0], plain[0][0], atol, rtol)}
+        if fused:
+            # over the plain version's written pools; without its fault the
+            # emulation must agree with the plain version
+            args = (PA, x["q"], plain[0][1], x["tables"], ctx, sl)
+            _check_close(f"{name}[alibi] dense emulation", _decode_new_col_at(*args),
+                         plain[0][0], atol, rtol)
+            faults["new_column_at_position_0"] = _n_over(_decode_new_col_at(*args, at=0),
+                                                         plain[0][0], atol, rtol)
+        if not all(faults.values()):
+            raise AssertionError(f"{name}[alibi]: the check passes a planted fault: {faults}")
+        pools, ref_pools = run(name, 0)[1], run(name, 0)[1]
+        report[name] = {"max_abs_err": errs, "planted_faults_elements_over": faults,
+                        "bit_identical": same,
+                        "no_alibi_same_rows_ms": _device_ms(lambda: call(name, 0, pools), 20)}
+        results[f"{name}[alibi]"] = dict(
+            max_abs_err=max(errs.values()),
+            **_timings(lambda: call(name, 0, pools, alibi=sl),
+                       lambda: call(name, 0, ref_pools, kernel=False, alibi=sl), None, 20),
+            shape=f"S={S}, ctx {min(ctx_list)}..{max(ctx_list)}, H={H}, KV={KV}, D={D}, "
+                  f"bs={bs}, {'int8' if 'int8' in name else 'bf16'} pools of {nblk} blocks, "
+                  "ALiBi",
+            bound=bound_ms(_decode_bytes(name, S, H, KV, D, NB, sum(ctx_list)) + H * 4,
+                           4 * sum(ctx_list) * H * D))
+        del plain, pools, ref_pools
+    print(json.dumps({"decode_alibi_checks": {"ctx": ctx_list, "window": ALIBI_WINDOW,
+                                              **report}}))
     return results
 
 
@@ -1169,6 +1438,9 @@ def check_kernels(cfg, dev):
     results.update(_flash_window_checks(FA, randn, 1, TRAIN_W_S, mw.n_heads, mw.kv_heads,
                                         mw.head_dim, bound_ms))
     results.update(_decode_window_checks(PA, randn, dev, bound_ms))
+    # the ALiBi modes at BLOOM-7B1's shapes (and falcon-rw-1b's, GQA, 24 heads)
+    results.update(_flash_alibi_checks(FA, randn, dev, bound_ms))
+    results.update(_decode_alibi_checks(PA, randn, dev, bound_ms))
     results.update(_evo_kernel_checks(dev, bound_ms))
     for name, r in results.items():
         print(json.dumps({"kernel_check": name, "max_err": r["max_abs_err"],
@@ -1514,11 +1786,9 @@ def run_serving(cfg, dev, int8=False, bf16=None):
                     "kv_bytes_per_token": eng.kv_bytes_per_token()}
 
 
-def _serving_times(eng, fn, toks, tables, ctx, r, V, prompt_len):
-    """TTFT of fresh prompts of `prompt_len` tokens (CUDA events around
-    put(); median of 5 after 2 warm-ups), the time of the batch-8 greedy
-    decode_multi `fn` over the rows `toks`, and where the time goes in each
-    (torch.profiler)."""
+def _ttft(eng, r, V, prompt_len):
+    """TTFT (ms) of fresh prompts of `prompt_len` tokens: CUDA events around
+    put(), 5 after 2 warm-ups."""
     import numpy as np
     import torch
 
@@ -1536,6 +1806,18 @@ def _serving_times(eng, fn, toks, tables, ctx, r, V, prompt_len):
         eng.flush(uid)
         if i >= 2:
             ttft.append(start.elapsed_time(stop))
+    return ttft
+
+
+def _serving_times(eng, fn, toks, tables, ctx, r, V, prompt_len):
+    """TTFT of fresh prompts of `prompt_len` tokens (CUDA events around
+    put(); median of 5 after 2 warm-ups), the time of the batch-8 greedy
+    decode_multi `fn` over the rows `toks`, and where the time goes in each
+    (torch.profiler)."""
+    import numpy as np
+    import torch
+
+    ttft = _ttft(eng, r, V, prompt_len)
     step_ms = _time_ms(lambda: fn(eng.params, eng.cache, toks, tables, ctx), 3, warmup=1)
     p = r.integers(0, V, prompt_len).astype(np.int32)
     breakdown = {
@@ -1552,13 +1834,14 @@ def _serving_times(eng, fn, toks, tables, ctx, r, V, prompt_len):
 
 
 # ---------------------------------------------------------------------------
-# phases serve_window, serve_window_int8, train_window: Mistral 7B
+# phases serve_window, serve_window_int8, train_window (Mistral 7B) and
+# serve_alibi, serve_alibi_int8 (BLOOM-7B1)
 # ---------------------------------------------------------------------------
 
 def _all_launches(K):
-    """Every wrapper's launches and, as "<name>[window]", those of each
-    window mode."""
-    return {**K.launch_counts(), **K.window_launch_counts()}
+    """Every wrapper's launches and, as "<name>[window]" and
+    "<name>[alibi]", those of each window and ALiBi mode."""
+    return {**K.launch_counts(), **K.window_launch_counts(), **K.alibi_launch_counts()}
 
 
 def _window_locality(M, eng, cfg, uid, dev):
@@ -1611,35 +1894,35 @@ class _F32Layers(tuple):
         return ({n: w.float() for n, w in lp.items()} for lp in super().__iter__())
 
 
-def _window_three_paths(M, eng, cfg, int8, long_prompt, prompts, dev):
-    """Prefill (the 6144-token prompt and the 7-prompt wave) and two decode
-    steps (fused, then the write + plain-mode kernel at the next position)
-    of the whole model on the engine's weights, by three paths: the kernel
-    path in bf16, the plain path in bf16 and the plain path in f32 (the
-    reference of both; _F32Layers), each from an empty cache of its own
-    (int8 pools on the int8 phase). Returns the _path_errors stats."""
+def _serve_three_paths(M, eng, cfg, int8, long_prompt, prompts, dev):
+    """Prefill (the long prompt and the wave of 96-token prompts) and two
+    decode steps (fused, then the write + plain-mode kernel at the next
+    position) of the whole model on the engine's weights, by three paths:
+    the kernel path in bf16, the plain path in bf16 and the plain path in
+    f32 (the reference of both; _F32Layers), each from an empty cache of
+    its own (int8 pools on an int8 phase). Returns the _path_errors stats."""
     import numpy as np
     import torch
 
     p16 = eng.params
     p32 = dict({k: v.float() for k, v in p16.items() if k != "layers"},
                layers=_F32Layers(p16["layers"]))
-    bs = SERVE_W["kv_block_size"]
-    NBt = SERVE_W["max_seq_len"] // bs
-    n_long = W_LONG // bs + 1
-    nblk = n_long + W_PROMPTS + 2
+    bs = eng.config.kv_block_size
+    NBt = eng.config.blocks_per_seq
+    n_w, n_l = len(prompts), len(long_prompt)
+    n_long = n_l // bs + 1
+    nblk = n_long + n_w + 2
     tl = np.full((1, NBt), nblk - 1, np.int32)
     tl[0, :n_long] = np.arange(n_long)
-    tb = np.full((W_PROMPTS, NBt), nblk - 1, np.int32)
-    tb[:, 0] = n_long + np.arange(W_PROMPTS)
-    toks_b = np.zeros((W_PROMPTS, PROMPT_BUCKET), np.int32)
+    tb = np.full((n_w, NBt), nblk - 1, np.int32)
+    tb[:, 0] = n_long + np.arange(n_w)
+    toks_b = np.zeros((n_w, PROMPT_BUCKET), np.int32)
     for i, p in enumerate(prompts):
         toks_b[i, :PROMPT_LEN] = p
-    waves = [(long_prompt[None], np.array([W_LONG], np.int32), tl),
-             (toks_b, np.full((W_PROMPTS,), PROMPT_LEN, np.int32), tb)]
+    waves = [(long_prompt[None], np.array([n_l], np.int32), tl),
+             (toks_b, np.full((n_w,), PROMPT_LEN, np.int32), tb)]
     tables = torch.as_tensor(np.concatenate([tl, tb]), device=dev)
-    ctx = torch.as_tensor([W_LONG + 1] + [PROMPT_LEN + 1] * W_PROMPTS, dtype=torch.int32,
-                          device=dev)
+    ctx = torch.as_tensor([n_l + 1] + [PROMPT_LEN + 1] * n_w, dtype=torch.int32, device=dev)
     outs = {"prefill": [], "decode_fused": [], "decode_plain_mode": []}
     for use_kernel, dtype, prm in ((True, torch.bfloat16, p16), (False, torch.bfloat16, p16),
                                    (False, torch.float32, p32)):
@@ -1662,17 +1945,29 @@ def _window_three_paths(M, eng, cfg, int8, long_prompt, prompts, dev):
             for name in ("prefill", "decode_fused", "decode_plain_mode")}
 
 
-def run_serve_window(cfg, dev, params, int8=False):
-    """Mistral 7B served at full width and depth from bf16 pools (phase
-    serve_window) or int8 pools (serve_window_int8), on the weights
-    `params` (the training layout, or the serving layout of an earlier
-    engine). The counted sequence: one put of a 6144-token prompt, a wave
-    of 7 x 96-token prompts, a single-token decode put, a 2-token
-    continuation of the long sequence (the plain-mode kernel at ctx > 4096)
-    and greedy decode_multi_fn(8, 24). Then the three-path check
-    (_window_three_paths), the locality check (_window_locality), TTFT of
-    the 6144-token prompt and batch-8 decode throughput. Returns (report,
-    the engine's serving-layout weights)."""
+# mode -> (serving config, long prompt's tokens, wave of 96-token prompts,
+# prompt seed, the sequence the 2-token continuation extends: "long" or
+# the wave's second row)
+SERVE_LONG = {"window": (SERVE_W, W_LONG, W_PROMPTS, 3, "long"),
+              "alibi": (SERVE_A, A_LONG, A_PROMPTS, 4, "wave")}
+
+
+def run_serve_long(cfg, dev, params, mode, int8=False):
+    """A 7B model served at full width and depth with a long prompt, on
+    the weights `params` (the training layout, or the serving layout of an
+    earlier engine), from bf16 pools or (int8) int8 pools. mode "window":
+    Mistral 7B (phases serve_window, serve_window_int8); mode "alibi":
+    BLOOM-7B1 (serve_alibi, serve_alibi_int8). The counted sequence: one put
+    of the long prompt, a wave of 96-token prompts, a single-token decode
+    put of the wave's first row, a 2-token continuation (the plain-mode
+    kernel; of the long sequence at ctx > 4096 for the window, of the
+    wave's second row for ALiBi, so the long row enters decode_multi right
+    after its prompt) and greedy decode_multi_fn(8, 24). Every attention
+    launch must run in the mode. Then the three-path check
+    (_serve_three_paths), for the window the locality check
+    (_window_locality), TTFT (of the long prompt for the window, of fresh
+    A_TTFT- and A_LONG-token prompts for ALiBi) and batch-8 decode
+    throughput. Returns (report, the engine's serving-layout weights)."""
     import numpy as np
     import torch
 
@@ -1680,52 +1975,56 @@ def run_serve_window(cfg, dev, params, int8=False):
     from deepspeed_tpu_torch.inference import model as M
     from deepspeed_tpu_torch.ops import cuda as K
 
+    serve, n_long, n_wave, seed, chunked = SERVE_LONG[mode]
     torch.cuda.reset_peak_memory_stats(dev)
     t0 = time.perf_counter()
-    eng = init_inference(params, cfg, dict(SERVE_W, kv_cache_dtype="int8" if int8 else "auto"))
+    eng = init_inference(params, cfg, dict(serve, kv_cache_dtype="int8" if int8 else "auto"))
     del params
     torch.cuda.synchronize()
     init_s = time.perf_counter() - t0
     V = cfg.vocab_size
-    r = np.random.default_rng(3)
-    long_prompt = r.integers(0, V, W_LONG).astype(np.int32)
-    prompts = [r.integers(0, V, PROMPT_LEN).astype(np.int32) for _ in range(W_PROMPTS)]
+    r = np.random.default_rng(seed)
+    long_prompt = r.integers(0, V, n_long).astype(np.int32)
+    prompts = [r.integers(0, V, PROMPT_LEN).astype(np.int32) for _ in range(n_wave)]
     L = 100  # the long sequence's uid
-    uids = list(range(W_PROMPTS))
+    uids = list(range(n_wave))
+    chunk_uid = L if chunked == "long" else 1
 
     # -- the main path, counted -------------------------------------------
     K.reset_launch_counts()
     long_logits = eng.put([L], [long_prompt])
     wave = eng.put(uids, prompts)
-    decode = eng.put([0], [wave[:1].argmax(-1).astype(np.int32)])
-    chunk = eng.put([L], [np.array([long_logits[0].argmax(), 1], np.int32)])
+    last = {L: long_logits[0], **{u: wave[u] for u in uids}}
+    decode = eng.put([0], [last[0][None].argmax(-1).astype(np.int32)])
+    last[0] = decode[0]
+    chunk = eng.put([chunk_uid], [np.array([last[chunk_uid].argmax(), 1], np.int32)])
+    last[chunk_uid] = chunk[0]
     rows = [L] + uids
     tables = eng.state.block_table(rows, eng.config.blocks_per_seq, eng.pad_block)
     ctx = np.array([eng.state.get(u).seen_tokens + 1 for u in rows], np.int32)
-    toks = np.concatenate([chunk.argmax(-1), decode.argmax(-1),
-                           wave[1:].argmax(-1)]).astype(np.int32)
+    toks = np.array([last[u].argmax() for u in rows], np.int32)
     fn = eng.decode_multi_fn(len(rows), DECODE_STEPS)
-    gen, last, eng.cache, _ = fn(eng.params, eng.cache, toks, tables, ctx)
+    gen, final, eng.cache, _ = fn(eng.params, eng.cache, toks, tables, ctx)
     torch.cuda.synchronize()
     launches = _all_launches(K)
     # -----------------------------------------------------------------------
 
+    modes = K.WINDOW_MODES if mode == "window" else K.ALIBI_MODES
     kern = INT8_KERNELS if int8 else SERVE_KERNELS
-    win = [f"{n}[window]" for n in kern if n in K.WINDOW_MODES]
+    in_mode = [f"{n}[{mode}]" for n in kern if n in modes]
     if int8:
-        wrong = {n: c for n, c in launches.items()
-                 if "[window]" not in n and (c == 0) == (n in kern)}
+        wrong = {n: c for n, c in launches.items() if "[" not in n and (c == 0) == (n in kern)}
         if wrong:
-            raise AssertionError(f"the int8 window path must launch each of {sorted(kern)} "
+            raise AssertionError(f"the int8 {mode} path must launch each of {sorted(kern)} "
                                  f"and nothing else; wrong counts: {wrong}")
-    missing = [n for n in list(kern) + win if launches[n] == 0]
+    missing = [n for n in list(kern) + in_mode if launches[n] == 0]
     if missing:
-        raise AssertionError(f"the window serving path launched no {missing}: {launches}")
-    unbanded = [n for n in kern if n in K.WINDOW_MODES and launches[n] != launches[f"{n}[window]"]]
-    if unbanded:  # every layer of the model has the window
-        raise AssertionError(f"launches of {unbanded} outside the window mode: {launches}")
+        raise AssertionError(f"the {mode} serving path launched no {missing}: {launches}")
+    outside = [n for n in kern if n in modes and launches[n] != launches[f"{n}[{mode}]"]]
+    if outside:  # every layer of the model has the window, or ALiBi
+        raise AssertionError(f"launches of {outside} outside the {mode} mode: {launches}")
     for name, x in (("prefill", long_logits), ("wave", wave), ("decode", decode),
-                    ("chunk", chunk), ("decode_multi", last.float().cpu().numpy())):
+                    ("chunk", chunk), ("decode_multi", final.float().cpu().numpy())):
         if not np.isfinite(x).all():
             raise AssertionError(f"{name} logits are not finite")
     g = gen.cpu().numpy()
@@ -1733,12 +2032,19 @@ def run_serve_window(cfg, dev, params, int8=False):
         raise AssertionError(f"decode_multi tokens out of range: {g.shape}")
 
     report = {"init_s": init_s, "launches": {n: c for n, c in launches.items() if c},
-              "long_row_decode_ctx": [int(ctx[0]), int(ctx[0]) + DECODE_STEPS - 1],
-              "locality": _window_locality(M, eng, cfg, L, dev)}
-    report["path"] = _window_three_paths(M, eng, cfg, int8, long_prompt, prompts, dev)
+              "long_row_decode_ctx": [int(ctx[0]), int(ctx[0]) + DECODE_STEPS - 1]}
+    if mode == "window":
+        report["locality"] = _window_locality(M, eng, cfg, L, dev)
+    report["path"] = _serve_three_paths(M, eng, cfg, int8, long_prompt, prompts, dev)
 
     # -- timings (after the counted run) ------------------------------------
-    report.update(_serving_times(eng, fn, toks, tables, ctx, r, V, W_LONG))
+    if mode == "window":
+        report.update(_serving_times(eng, fn, toks, tables, ctx, r, V, W_LONG))
+    else:
+        report.update(_serving_times(eng, fn, toks, tables, ctx, r, V, A_TTFT))
+        ttft = _ttft(eng, r, V, A_LONG)
+        report.update({f"ttft_ms_{A_LONG}_p50": statistics.median(ttft),
+                       f"ttft_ms_{A_LONG}_all": ttft})
     report.update({"kv_bytes_per_token": eng.kv_bytes_per_token(),
                    "peak_mem_gib": torch.cuda.max_memory_allocated(dev) / 2**30})
     params = eng.params
@@ -1940,6 +2246,11 @@ def main():
     t0 = time.perf_counter()
     libs = build.build_all()
     build_s = time.perf_counter() - t0
+
+    def done(phase, report):
+        """Print a phase's report with the seconds since the script began."""
+        print(json.dumps({"phase": phase, "elapsed_s": time.perf_counter() - t0, **report}))
+
     print(json.dumps({"phase": "build", "seconds": build_s,
                       "libraries": {n: p.name for n, p in libs.items()}}))
     for name in libs:
@@ -1948,31 +2259,42 @@ def main():
                 print(f"ptxas {name}: {line.strip()}")
 
     kernels = check_kernels(cfg, dev)
-    print(json.dumps({"phase": "kernels", "ok": True}))
+    done("kernels", {"ok": True})
     tr = run_train(T.TransformerConfig(**TRAIN_MODEL), dev)
-    print(json.dumps({"phase": "train", **tr}))
+    done("train", tr)
     sl, bf16_serving = run_serving(cfg, dev)
-    print(json.dumps({"phase": "serve", **sl}))
+    done("serve", sl)
     q8, _ = run_serving(cfg, dev, int8=True, bf16=bf16_serving)
-    print(json.dumps({"phase": "serve_int8", **q8}))
+    done("serve_int8", q8)
     mw = T.TransformerConfig(**MISTRAL)
-    sw, wparams = run_serve_window(mw, dev, T.init(mw, torch.Generator(device=dev).manual_seed(0),
-                                                   device=dev, dtype=torch.bfloat16))
-    print(json.dumps({"phase": "serve_window", **sw}))
-    sw8, wparams = run_serve_window(mw, dev, wparams, int8=True)
-    print(json.dumps({"phase": "serve_window_int8", **sw8}))
+    sw, wparams = run_serve_long(mw, dev, T.init(mw, torch.Generator(device=dev).manual_seed(0),
+                                                 device=dev, dtype=torch.bfloat16), "window")
+    done("serve_window", sw)
+    sw8, wparams = run_serve_long(mw, dev, wparams, "window", int8=True)
+    done("serve_window_int8", sw8)
     del wparams
     torch.cuda.empty_cache()
+    mb = T.TransformerConfig(**BLOOM)
+    sa, bparams = run_serve_long(mb, dev, T.init(mb, torch.Generator(device=dev).manual_seed(0),
+                                                 device=dev, dtype=torch.bfloat16), "alibi")
+    done("serve_alibi", sa)
+    sa8, bparams = run_serve_long(mb, dev, bparams, "alibi", int8=True)
+    done("serve_alibi_int8", sa8)
+    del bparams
+    torch.cuda.empty_cache()
     tw = run_train_window(dev)
-    print(json.dumps({"phase": "train_window", **tw}))
+    done("train_window", tw)
     ev = run_evoformer(dev)
-    print(json.dumps({"phase": "evoformer", **ev}))
+    done("evoformer", ev)
 
     paths = {"train": tr, "serve": sl, "serve_int8": q8, "serve_window": sw,
-             "serve_window_int8": sw8, "train_window": tw, "evoformer": ev}
+             "serve_window_int8": sw8, "serve_alibi": sa, "serve_alibi_int8": sa8,
+             "train_window": tw, "evoformer": ev}
     line = []
-    # each window mode is a path of its kernel: same source, same TPU kernel
-    sources = {**KERNELS, **{f"{n}[window]": KERNELS[n] for n in K.WINDOW_MODES}}
+    # each window or ALiBi mode is a path of its kernel: same source, same
+    # TPU kernel
+    sources = {**KERNELS, **{f"{n}[window]": KERNELS[n] for n in K.WINDOW_MODES},
+               **{f"{n}[alibi]": KERNELS[n] for n in K.ALIBI_MODES}}
     for name, (source, replaces) in sources.items():
         k = kernels[name]
         by_path = {p: r["launches"].get(name, 0) for p, r in paths.items()}

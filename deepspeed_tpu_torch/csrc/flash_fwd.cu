@@ -5,7 +5,8 @@
 //
 // Replaces: deepspeed_tpu/ops/pallas/flash_attention.py _flash_fwd
 // (_fwd_kernel), the prefill attention of the serving path and the
-// forward of the training path, in its causal and sliding-window modes.
+// forward of the training path, in its causal, sliding-window and ALiBi
+// modes.
 //
 // Sliding window (window > 0, Mistral-class): query row r attends to key
 // column c iff r - window < c <= r. The K-tile loop starts at the first
@@ -17,6 +18,16 @@
 // -inf there, and the guard on m_new keeps p = 0 and corr = 1. window <= 0
 // is plain causal attention, and any window >= S visits the same tiles and
 // masks the same columns, so its result is bit-identical to window = 0.
+//
+// ALiBi (slopes != null, Bloom-class): the score of row r and column c
+// gains slopes[h] * (c - r) in f32 after the 1/sqrt(D) scale and before
+// the mask, as the TPU kernel adds it (it read the slope of q head h from
+// SMEM; here one f32 load per block). h is the q head the block serves, so
+// with GQA the slope is that of head kv * G + g, never of the KV head. The
+// bias is one multiply-add per score; ALiBi and the window are independent
+// runtime arguments, so one binary serves causal, window, ALiBi and both.
+// slopes == null adds nothing: the causal and window results are unchanged
+// bit for bit.
 //
 // Bound on the H100: at prefill lengths of a few hundred tokens and
 // D = 128 the work is 4 * S^2 / 2 * D operations per head against
@@ -86,7 +97,8 @@ template <int D>
 __global__ void __launch_bounds__(NT) flash_fwd_kernel(
     __nv_bfloat16* __restrict__ o, float* __restrict__ lse,
     const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ k,
-    const __nv_bfloat16* __restrict__ v, int S, int H, int KV, int window, float scale) {
+    const __nv_bfloat16* __restrict__ v, const float* __restrict__ slopes, int S, int H,
+    int KV, int window, float scale) {
   using Lay = Layout<D>;
   constexpr int VPR = D / 8;  // 16-byte vectors per row
   extern __shared__ __align__(128) unsigned char smem[];
@@ -103,6 +115,8 @@ __global__ void __launch_bounds__(NT) flash_fwd_kernel(
   const int b = bh / H;
   const int h = bh % H;
   const int kvh = h / (H / KV);
+  const bool alibi = slopes != nullptr;
+  const float slope = alibi ? slopes[h] : 0.f;  // of the q head, not the KV head
   const int q0 = blockIdx.y * BQ;
   const int tid = threadIdx.x;
   const int warp = tid >> 5;
@@ -180,6 +194,10 @@ __global__ void __launch_bounds__(NT) flash_fwd_kernel(
       const int c_b = k0 + lane + 32;
       float x_a = srow[lane] * scale;
       float x_b = srow[lane + 32] * scale;
+      if (alibi) {  // slope * (col - row): added before the mask, as the TPU kernel does
+        x_a += slope * (float)(c_a - row);
+        x_b += slope * (float)(c_b - row);
+      }
       const bool banded = window > 0;
       if (c_a > row || c_a >= S || (banded && c_a <= row - window)) x_a = -INFINITY;
       if (c_b > row || c_b >= S || (banded && c_b <= row - window)) x_b = -INFINITY;
@@ -233,8 +251,9 @@ __global__ void __launch_bounds__(NT) flash_fwd_kernel(
 }
 
 template <int D>
-int launch(void* o, void* lse, const void* q, const void* k, const void* v, int B, int S,
-           int H, int KV, int window, float scale, cudaStream_t stream) {
+int launch(void* o, void* lse, const void* q, const void* k, const void* v,
+           const void* slopes, int B, int S, int H, int KV, int window, float scale,
+           cudaStream_t stream) {
   const int smem = (int)Layout<D>::BYTES;
   cudaError_t err = cudaFuncSetAttribute(flash_fwd_kernel<D>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
@@ -242,24 +261,25 @@ int launch(void* o, void* lse, const void* q, const void* k, const void* v, int 
   dim3 grid(B * H, (S + BQ - 1) / BQ);
   flash_fwd_kernel<D><<<grid, NT, smem, stream>>>(
       (__nv_bfloat16*)o, (float*)lse, (const __nv_bfloat16*)q, (const __nv_bfloat16*)k,
-      (const __nv_bfloat16*)v, S, H, KV, window, scale);
+      (const __nv_bfloat16*)v, (const float*)slopes, S, H, KV, window, scale);
   return (int)cudaGetLastError();
 }
 
 }  // namespace
 
+// slopes: [H] f32 ALiBi slopes, or null for none
 extern "C" int flash_fwd(void* o, void* lse, const void* q, const void* k, const void* v,
-                         int B, int S, int H, int KV, int D, int window, float scale,
-                         void* stream) {
+                         const void* slopes, int B, int S, int H, int KV, int D, int window,
+                         float scale, void* stream) {
   if (B <= 0 || S <= 0) return 0;
   if (KV <= 0 || H % KV != 0) return (int)cudaErrorInvalidValue;
   if (window > S) window = S;  // the same band, and no overflow in the tile bounds
   cudaStream_t st = (cudaStream_t)stream;
   switch (D) {
     case 64:
-      return launch<64>(o, lse, q, k, v, B, S, H, KV, window, scale, st);
+      return launch<64>(o, lse, q, k, v, slopes, B, S, H, KV, window, scale, st);
     case 128:
-      return launch<128>(o, lse, q, k, v, B, S, H, KV, window, scale, st);
+      return launch<128>(o, lse, q, k, v, slopes, B, S, H, KV, window, scale, st);
     default:
       return (int)cudaErrorInvalidValue;
   }

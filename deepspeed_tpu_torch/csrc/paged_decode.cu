@@ -47,6 +47,18 @@
 // always inside. window <= 0, or window >= ctx, starts at 0: the result is
 // bit-identical to the causal one.
 //
+// ALiBi (slopes != null, every mode, Bloom-class): the score of q head
+// h * group + g at context position c gains slopes[h * group + g] * c, in
+// f32 after the 1/sqrt(D) scale, with c the ABSOLUTE key position. That is
+// the form of the TPU kernel (`ab_ref * cols`) and of
+// paged_decode_attention_xla: for one query at position ctx - 1 it equals
+// slope * (c - (ctx - 1)) under softmax, but at ctx ~ 2,000 the bias is
+// ~1,700, where an f32 ulp is 1.2e-4, so the two forms round differently
+// and the kernel keeps the reference's. The fused mode's new column is at
+// position ctx - 1. The block's group of slopes is staged in shared memory
+// once; null slopes add nothing (the other modes are unchanged bit for
+// bit). ALiBi and the window are independent runtime arguments.
+//
 // The TPU kernel padded G to 8 sublanes and required D % 128 == 0; both
 // were TPU tiling artifacts and do not carry over. Pad rows (ctx <= 0)
 // output zeros and write nothing. Every block id is clamped to the arena.
@@ -114,6 +126,7 @@ __global__ void __launch_bounds__(D) paged_decode_kernel(
     const __nv_bfloat16* __restrict__ k_new,    // [S, KV, D]   (FUSED)
     const __nv_bfloat16* __restrict__ v_new,    // [S, KV, D]   (FUSED)
     const int32_t* __restrict__ slots,          // [S]          (FUSED)
+    const float* __restrict__ slopes,           // [H] ALiBi slopes, or null
     int n_kv, int group, int n_blocks, int block_size, int table_width, int window,
     float scale) {
   using CacheT = std::conditional_t<QUANT, int8_t, __nv_bfloat16>;
@@ -128,6 +141,7 @@ __global__ void __launch_bounds__(D) paged_decode_kernel(
   __shared__ float qs[MAX_G][D];
   __shared__ float ps[MAX_G][TILE];
   __shared__ float m_s[MAX_G], l_s[MAX_G], corr_s[MAX_G];
+  __shared__ float slope_s[MAX_G];  // ALiBi slope of each query head of the group
   __shared__ float ksc[QUANT ? TILE : 1], vsc[QUANT ? TILE : 1];  // the tile's scales
   __shared__ float kn_s[QUANT ? D : 1], vn_s[QUANT ? D : 1];      // dequantized new row
 
@@ -156,9 +170,11 @@ __global__ void __launch_bounds__(D) paged_decode_kernel(
 
   for (int g = 0; g < group; ++g)
     qs[g][tid] = __bfloat162float(q[((size_t)s * H + (size_t)h * group + g) * D + tid]);
+  const bool alibi = slopes != nullptr;
   if (tid < group) {
     m_s[tid] = -INFINITY;
     l_s[tid] = 0.f;
+    slope_s[tid] = alibi ? slopes[h * group + tid] : 0.f;
   }
   float acc[MAX_G];
 #pragma unroll
@@ -205,7 +221,11 @@ __global__ void __launch_bounds__(D) paged_decode_kernel(
 #pragma unroll
           for (int e = 0; e < EPL; ++e) part += qs[g][lane * EPL + e] * kf[e];
           part = warp_sum(part);
-          if (lane == 0) ps[g][r] = part * scale;
+          if (lane == 0) {
+            float sc = part * scale;
+            if (alibi) sc += slope_s[g] * (float)(c0 + r);  // absolute key position
+            ps[g][r] = sc;
+          }
         }
       }
     }
@@ -286,7 +306,8 @@ __global__ void __launch_bounds__(D) paged_decode_kernel(
         }
         part = warp_sum(part);
         if (lane == 0) {
-          const float sc = part * scale;
+          float sc = part * scale;
+          if (alibi) sc += slope_s[g] * (float)(ctx - 1);  // the new token's position
           const float m_old = m_s[g];
           const float m_new = fmaxf(m_old, sc);
           const float corr = expf(m_old - m_new);
@@ -322,7 +343,7 @@ __global__ void __launch_bounds__(D) paged_decode_kernel(
 
 struct DecodeArgs {
   void *out, *k_pool, *v_pool, *k_scale, *v_scale;
-  const void *q, *tables, *ctx_lens, *k_new, *v_new, *slots;
+  const void *q, *tables, *ctx_lens, *k_new, *v_new, *slots, *slopes;
   int S, n_kv, group, n_blocks, block_size, table_width, window;
   float scale;
 };
@@ -334,8 +355,8 @@ void launch(const DecodeArgs& a, cudaStream_t stream) {
       (__nv_bfloat16*)a.out, (const __nv_bfloat16*)a.q, a.k_pool, a.v_pool,
       (float*)a.k_scale, (float*)a.v_scale, (const int32_t*)a.tables,
       (const int32_t*)a.ctx_lens, (const __nv_bfloat16*)a.k_new,
-      (const __nv_bfloat16*)a.v_new, (const int32_t*)a.slots, a.n_kv, a.group, a.n_blocks,
-      a.block_size, a.table_width, a.window, a.scale);
+      (const __nv_bfloat16*)a.v_new, (const int32_t*)a.slots, (const float*)a.slopes, a.n_kv,
+      a.group, a.n_blocks, a.block_size, a.table_width, a.window, a.scale);
 }
 
 template <int D>
@@ -352,17 +373,17 @@ int launch_modes(bool fused, bool quant, const DecodeArgs& a, cudaStream_t strea
 extern "C" int paged_decode(void* out, const void* q, void* k_cache, void* v_cache,
                             void* k_scale, void* v_scale, const void* tables,
                             const void* ctx_lens, const void* k_new, const void* v_new,
-                            const void* slots, int fused, int quant, int S, int H, int KV,
-                            int D, int n_blocks, int block_size, int table_width, int window,
-                            float scale, void* stream) {
+                            const void* slots, const void* slopes, int fused, int quant,
+                            int S, int H, int KV, int D, int n_blocks, int block_size,
+                            int table_width, int window, float scale, void* stream) {
   if (S <= 0) return 0;
   if (KV <= 0 || H % KV != 0 || H / KV > MAX_G) return (int)cudaErrorInvalidValue;
   if (quant && (k_scale == nullptr || v_scale == nullptr)) return (int)cudaErrorInvalidValue;
   if (fused && (k_new == nullptr || v_new == nullptr || slots == nullptr))
     return (int)cudaErrorInvalidValue;
   const DecodeArgs a{out, k_cache, v_cache, k_scale, v_scale, q, tables, ctx_lens, k_new,
-                     v_new, slots, S, KV, H / KV, n_blocks, block_size, table_width, window,
-                     scale};
+                     v_new, slots, slopes, S, KV, H / KV, n_blocks, block_size, table_width,
+                     window, scale};
   cudaStream_t st = (cudaStream_t)stream;
   switch (D) {
     case 64:

@@ -5,9 +5,9 @@ dict as models/transformer.init gives, passed through `prepare()` into the
 serving layout:
 
 - layers are unstacked into a Python list of per-layer dicts;
-- the Q/K/V projections fuse into one [E, H+2KV, D] weight (`w_qkv`) and
-  the llama gate/up pair into one [E, 2F] weight (`w_gi`): fewer, larger
-  matrix products per layer.
+- the Q/K/V projections fuse into one [E, H+2KV, D] weight (`w_qkv`), their
+  biases into one [H+2KV, D] (`b_qkv`), and the llama gate/up pair into one
+  [E, 2F] weight (`w_gi`): fewer, larger matrix products per layer.
 
 Cache: per layer, K and V arenas [num_blocks, block_size, KV_heads,
 head_dim] (one page is a contiguous (block_size, KV, D) tile). Every cache
@@ -20,13 +20,22 @@ launch the CUDA kernels for CUDA tensors and run the plain versions for
 CPU tensors. `use_kernel=False` calls the plain versions directly on any
 device: the reference the kernel path is compared with on the card.
 
-This slice serves Llama-class models (rotary, RMSNorm, gated MLP, no
-biases), with sliding windows (Mistral-class: every layer's prefill and
-decode attention banded to `cfg.window_for_layer(li)`), in bf16 or f32
-caches, or in int8 caches (`init_cache(kv_quant=
-True)`: int8 code pools beside per-layer [NBLK, bs, KV] f32 scale pools,
-written and read only through the int8 kernels); `check_served` raises
-for the rest.
+What is served:
+
+- Llama-class models (rotary, RMSNorm, gated MLP, no biases), with sliding
+  windows (Mistral-class: every layer's prefill and decode attention
+  banded to `cfg.window_for_layer(li)`);
+- Bloom-class models (BLOOM, falcon-rw): ALiBi instead of rotary (the
+  slopes of `T.model_alibi_slopes`, made once per forward call, bias the flash
+  prefill and every decode mode), LayerNorm with its bias, q/k/v, output
+  and MLP biases, a non-gated MLP, an embedding LayerNorm after the token
+  embedding;
+- in bf16 or f32 caches, or in int8 caches (`init_cache(kv_quant=True)`:
+  int8 code pools beside per-layer [NBLK, bs, KV] f32 scale pools, written
+  and read only through the int8 kernels).
+
+`check_served` raises for the rest (learned positions, parallel
+residuals, MoE, sparse attention: `T.unported_features`).
 """
 
 from typing import Any, Dict, List, NamedTuple, Optional
@@ -53,7 +62,7 @@ def check_served(cfg: T.TransformerConfig) -> None:
     bad = T.unported_features(cfg)
     if bad:
         raise NotImplementedError(
-            "the serving slices serve dense Llama-class models only; "
+            "the serving slices serve dense Llama-class and Bloom-class models only; "
             f"this config uses {', '.join(bad)} (later slices port them)")
 
 
@@ -89,6 +98,8 @@ def prepare_layer(lp: Dict[str, Any], cfg: T.TransformerConfig) -> Dict[str, Any
     lp = dict(lp)
     if "wq" in lp:
         lp["w_qkv"] = torch.cat([lp.pop("wq"), lp.pop("wk"), lp.pop("wv")], dim=1)
+        if "bq" in lp:
+            lp["b_qkv"] = torch.cat([lp.pop("bq"), lp.pop("bk"), lp.pop("bv")], dim=0)
         if cfg.n_experts == 0 and cfg.is_gated and "w_gate" in lp:
             lp["w_gi"] = torch.cat([lp.pop("w_gate"), lp.pop("w_in")], dim=1)
     return lp
@@ -96,6 +107,22 @@ def prepare_layer(lp: Dict[str, Any], cfg: T.TransformerConfig) -> Dict[str, Any
 
 def _embed_rows(embed: torch.Tensor, tokens: torch.Tensor) -> torch.Tensor:
     return embed[tokens.long()]
+
+
+def _embed(params, tokens: torch.Tensor, cfg: T.TransformerConfig) -> torch.Tensor:
+    """Token embedding rows, through the embedding LayerNorm where the
+    model has one (Bloom)."""
+    x = _embed_rows(params["embed"], tokens)
+    if cfg.embedding_layernorm:
+        x = T._norm(x, params["embed_ln_scale"], params.get("embed_ln_bias"), cfg)
+    return x
+
+
+def _alibi(cfg: T.TransformerConfig, device: torch.device) -> Optional[torch.Tensor]:
+    """The model's [H] f32 ALiBi slopes on `device`, None without ALiBi.
+    The copy to the card waits for the work queued before it, so a forward
+    makes them once per call (decode_multi once for all its steps)."""
+    return T.model_alibi_slopes(cfg).to(device) if cfg.alibi else None
 
 
 def _lm_logits(x: torch.Tensor, params, cfg: T.TransformerConfig) -> torch.Tensor:
@@ -168,44 +195,66 @@ def _write_kv(cache: PagedCache, li: int, k_new, v_new, flat_idx, use_kernel: bo
 
 
 def _mlp(h: torch.Tensor, lp, cfg: T.TransformerConfig) -> torch.Tensor:
-    """Dense gated FFN over [T, E] tokens with the fused [E, 2F] gate|up
-    weight when the prepared layout carries it."""
+    """Dense FFN over [T, E] tokens: gated (with the fused [E, 2F] gate|up
+    weight when the prepared layout carries it) or not, with the biases
+    the layer has. As in the JAX package, a gated MLP takes only b_out."""
     act = T._act_fn(cfg)
-    if "w_gi" in lp:
+    if not cfg.is_gated:
+        inner = h @ lp["w_in"]
+        if "b_in" in lp:
+            inner = inner + lp["b_in"]
+        inner = act(inner)
+    elif "w_gi" in lp:
         gi = h @ lp["w_gi"]
         F_ = gi.shape[-1] // 2
         inner = act(gi[:, :F_]) * gi[:, F_:]
     else:
         inner = act(h @ lp["w_gate"]) * (h @ lp["w_in"])
-    return inner @ lp["w_out"]
+    out = inner @ lp["w_out"]
+    return out + lp["b_out"] if "b_out" in lp else out
+
+
+def _attn_out(att: torch.Tensor, lp) -> torch.Tensor:
+    """Attention output [..., H, D] -> its residual delta [..., E], with
+    the output bias where the layer has one."""
+    out = torch.einsum("...hd,hde->...e", att, lp["wo"])
+    return out + lp["bo"] if "bo" in lp else out
 
 
 def _decode_attention(cache: PagedCache, li: int, q, tables, ctx, use_kernel: bool,
-                      window: int = 0, k_new=None, v_new=None, slots=None):
+                      window: int = 0, k_new=None, v_new=None, slots=None, alibi=None):
     """Layer li's decode attention over the last `window` positions of each
-    row's context (0 = all of it). k_new/v_new/slots given selects the
+    row's context (0 = all of it), ALiBi-biased by the [H] slopes `alibi`
+    when given (slope_h * key position). k_new/v_new/slots given selects the
     fused write+attend kernel (single-token rows of distinct sequences;
     the layer's pools hold the pre-write arenas and are written in place).
     Otherwise the new rows were written before the call and the plain-mode
     kernel attends over ctx. int8 pools take the int8 kernels; as in the
     JAX package they never reach paged_decode_fused, which is bf16 only."""
     ck, cv = cache.k[li], cache.v[li]
+    q = q.contiguous()  # without rope, a view into the fused q/k/v product
     scales = (cache.k_scale[li], cache.v_scale[li]) if cache.quantized else ()
     if k_new is not None:
         fused = paged_decode_fused_int8 if scales else paged_decode_fused
         return fused(q, ck, cv, tables, ctx, k_new.contiguous(), v_new.contiguous(), slots,
-                     *scales, window=window)[0]
+                     *scales, window=window, alibi_slopes=alibi)[0]
     if not use_kernel:
-        return paged_decode_attention_plain(q, ck, cv, tables, ctx, *scales, window=window)
+        return paged_decode_attention_plain(q, ck, cv, tables, ctx, *scales, window=window,
+                                            alibi_slopes=alibi)
     if scales:
-        return paged_decode_attention_int8(q, ck, cv, tables, ctx, *scales, window=window)
-    return paged_decode_attention(q, ck, cv, tables, ctx, window=window)
+        return paged_decode_attention_int8(q, ck, cv, tables, ctx, *scales, window=window,
+                                           alibi_slopes=alibi)
+    return paged_decode_attention(q, ck, cv, tables, ctx, window=window, alibi_slopes=alibi)
 
 
 def _qkv(h1: torch.Tensor, lp, cfg: T.TransformerConfig):
-    """[..., E] -> q [..., H, D], k and v [..., KV, D] (k, v contiguous)."""
+    """[..., E] -> q [..., H, D], k and v [..., KV, D] (v contiguous; q and
+    k are views of the product until rope copies them), with the q/k/v
+    biases where the layer has them."""
     H, KV = cfg.n_heads, cfg.kv_heads
     qkv = torch.einsum("...e,ehd->...hd", h1, lp["w_qkv"])
+    if "b_qkv" in lp:
+        qkv = qkv + lp["b_qkv"]
     q, k, v = torch.split(qkv, [H, KV, KV], dim=-2)
     return q, k, v.contiguous()
 
@@ -216,7 +265,7 @@ def _qkv(h1: torch.Tensor, lp, cfg: T.TransformerConfig):
 
 def decode_step(params, cache: PagedCache, tokens, tables, ctx_lens,
                 cfg: T.TransformerConfig, use_kernel: bool = True,
-                unique_rows: bool = False):
+                unique_rows: bool = False, alibi: Optional[torch.Tensor] = None):
     """tokens [S] int32, tables [S, NB] int32, ctx_lens [S] int32 (context
     length INCLUDING the new token) -> (logits [S, V] f32, cache).
 
@@ -228,38 +277,45 @@ def decode_step(params, cache: PagedCache, tokens, tables, ctx_lens,
     chunked-continuation rows sharing a block table): with use_kernel it
     selects the fused write+attend kernel, one launch per layer instead
     of two. The caller must point padding rows' tables at a reserved
-    scratch block (the engine's pad_block)."""
+    scratch block (the engine's pad_block).
+
+    alibi: the model's ALiBi slopes on the device, when the caller made
+    them already (decode_multi); None makes them here."""
     if not is_prepared(params):
         params = prepare(params, cfg)
     bs = cache.block_size
     NB = tables.shape[1]
     valid = ctx_lens > 0
     positions = (ctx_lens - 1).clamp(min=0)  # [S] this token's position
-    x = _embed_rows(params["embed"], tokens)  # [S, E]
+    x = _embed(params, tokens, cfg)  # [S, E]
     fuse_write = unique_rows and use_kernel
-    rope = T._rope_tables(positions, cfg)
+    rope = T._rope_tables(positions, cfg) if cfg.use_rope else None
+    if alibi is None:
+        alibi = _alibi(cfg, x.device)
     # per-row flat slot; padding rows get -1 (dropped)
     blk = tables.gather(1, (positions // bs).clamp(max=NB - 1).long()[:, None])[:, 0]
     flat_idx = torch.where(valid, blk * bs + positions % bs,
                            torch.full_like(positions, -1)).to(torch.int32)
 
     for li, lp in enumerate(params["layers"]):
-        h1 = T._norm(x, lp["ln1_scale"], None, cfg)
+        h1 = T._norm(x, lp["ln1_scale"], lp.get("ln1_bias"), cfg)
         q, k, v = _qkv(h1, lp, cfg)
-        q = T._rope_at(q, rope, cfg)
-        k = T._rope_at(k, rope, cfg)
+        if rope is not None:
+            q = T._rope_at(q, rope, cfg)
+            k = T._rope_at(k, rope, cfg)
         window = cfg.window_for_layer(li)
         if fuse_write:
             att = _decode_attention(cache, li, q, tables, ctx_lens, use_kernel, window,
-                                    k_new=k, v_new=v, slots=flat_idx)
+                                    k_new=k, v_new=v, slots=flat_idx, alibi=alibi)
         else:
             _write_kv(cache, li, k, v, flat_idx, use_kernel)
-            att = _decode_attention(cache, li, q, tables, ctx_lens, use_kernel, window)
-        x = x + torch.einsum("shd,hde->se", att, lp["wo"])
-        h2 = T._norm(x, lp["ln2_scale"], None, cfg)
+            att = _decode_attention(cache, li, q, tables, ctx_lens, use_kernel, window,
+                                    alibi=alibi)
+        x = x + _attn_out(att, lp)
+        h2 = T._norm(x, lp["ln2_scale"], lp.get("ln2_bias"), cfg)
         x = x + _mlp(h2, lp, cfg)
 
-    x = T._norm(x, params["ln_f_scale"], None, cfg)
+    x = T._norm(x, params["ln_f_scale"], params.get("ln_f_bias"), cfg)
     return _lm_logits(x, params, cfg), cache
 
 
@@ -283,9 +339,10 @@ def decode_multi(params, cache: PagedCache, tokens, tables, ctx_lens,
     gen = torch.empty((n_steps, S), dtype=torch.int32, device=tokens.device)
     toks, ctx = tokens, ctx_lens
     logits = torch.zeros((S, cfg.vocab_size), dtype=torch.float32, device=tokens.device)
+    alibi = _alibi(cfg, tokens.device)
     for i in range(n_steps):
         logits, cache = decode_step(params, cache, toks, tables, ctx, cfg, use_kernel,
-                                    unique_rows=unique_rows)
+                                    unique_rows=unique_rows, alibi=alibi)
         toks = logits.argmax(dim=-1).to(torch.int32)
         gen[i] = toks
         ctx = ctx + 1
@@ -311,7 +368,7 @@ def prefill_batch(params, cache: PagedCache, tokens, n_real, tables,
     bs = cache.block_size
     NB = tables.shape[1]
     positions = torch.arange(Tp, dtype=torch.int32, device=tokens.device)
-    x = _embed_rows(params["embed"], tokens)  # [B, Tp, E]
+    x = _embed(params, tokens, cfg)  # [B, Tp, E]
 
     # per-row flat cache slots for the real tokens; -1 rows drop
     blk_idx = (positions // bs).clamp(max=NB - 1).long()[None, :].expand(B, Tp)
@@ -319,24 +376,27 @@ def prefill_batch(params, cache: PagedCache, tokens, n_real, tables,
     flat_idx = torch.where(positions[None, :] < n_real[:, None], slots,
                            torch.full_like(slots, -1)).reshape(B * Tp).to(torch.int32)
 
-    rope = T._rope_tables(positions, cfg)
+    rope = T._rope_tables(positions, cfg) if cfg.use_rope else None
+    alibi = _alibi(cfg, x.device)
     for li, lp in enumerate(params["layers"]):
-        h1 = T._norm(x, lp["ln1_scale"], None, cfg)
+        h1 = T._norm(x, lp["ln1_scale"], lp.get("ln1_bias"), cfg)
         q, k, v = _qkv(h1, lp, cfg)
-        q = T._rope_at(q, rope, cfg)
-        k = T._rope_at(k, rope, cfg)
+        if rope is not None:
+            q = T._rope_at(q, rope, cfg)
+            k = T._rope_at(k, rope, cfg)
         # the prompt attends over its own full-precision k/v; only the
         # resident copy is quantized on int8 pools
         _write_kv(cache, li, k.reshape(B * Tp, KV, D), v.reshape(B * Tp, KV, D), flat_idx,
                   use_kernel)
-        att = causal_attention(q, k, v, use_flash=use_kernel, window=cfg.window_for_layer(li))
-        x = x + torch.einsum("bshd,hde->bse", att, lp["wo"])
-        h2 = T._norm(x, lp["ln2_scale"], None, cfg)
+        att = causal_attention(q, k, v, use_flash=use_kernel, window=cfg.window_for_layer(li),
+                               alibi=alibi)
+        x = x + _attn_out(att, lp)
+        h2 = T._norm(x, lp["ln2_scale"], lp.get("ln2_bias"), cfg)
         x = x + _mlp(h2.reshape(B * Tp, -1), lp, cfg).reshape(x.shape)
 
     # logits for each prompt's last REAL token only: gather before the
     # vocab product so the head runs on B tokens, not B * Tp
     last = (n_real - 1).clamp(min=0).long()
     x_last = x[torch.arange(B, device=x.device), last]
-    x_last = T._norm(x_last, params["ln_f_scale"], None, cfg)
+    x_last = T._norm(x_last, params["ln_f_scale"], params.get("ln_f_bias"), cfg)
     return _lm_logits(x_last, params, cfg), cache

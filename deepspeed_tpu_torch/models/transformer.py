@@ -8,12 +8,15 @@ and shapes: parameters are a plain dict of tensors with the layers
 stacked on a leading [n_layers] dim (the training layout), so the JAX
 package's parameters convert leaf for leaf (utils/convert.py).
 
-Besides what serving shares (`_norm`, `_act_fn`, rotary tables, `init`,
-`param_count`), this module holds the training forward and loss:
-`forward_hidden`, `forward` and `make_loss_fn`, with the reference's remat
-policies mapped onto `torch.utils.checkpoint`. Training covers the models
-serving covers (dense Llama-class, with sliding windows: Mistral-class),
-without dropout (`check_trained`).
+Besides what serving shares (`_norm`, `_act_fn`, rotary tables,
+`model_alibi_slopes`, `init`, `param_count`), this module holds the
+training forward and loss: `forward_hidden`, `forward` and `make_loss_fn`,
+with the reference's remat policies mapped onto `torch.utils.checkpoint`.
+Serving covers dense Llama-class models (with sliding windows:
+Mistral-class) and Bloom-class ones (ALiBi, LayerNorm, biases, a non-gated
+MLP, an embedding LayerNorm: `unported_features`). Training covers the
+Llama-class ones, without dropout (`check_trained`); the Bloom-class knobs
+train with the next slice.
 """
 
 import dataclasses
@@ -25,7 +28,7 @@ import torch
 import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
-from ..ops.attention import causal_attention
+from ..ops.attention import alibi_slopes, causal_attention
 from ..platform.accelerator import resolve_device
 
 # valid TransformerConfig.remat values; __post_init__ validates so a
@@ -507,6 +510,13 @@ def _act_fn(cfg: TransformerConfig):
             "gelu_exact": F.gelu, "relu": F.relu}[cfg.act_name]
 
 
+def model_alibi_slopes(cfg: TransformerConfig) -> torch.Tensor:
+    """Per-head ALiBi slopes [H] f32 on the CPU for this model: the Press
+    et al. ladder times the family's `alibi_slope_scale` (falcon-rw folds
+    the 1/sqrt(head_dim) score scale into its slopes)."""
+    return alibi_slopes(cfg.n_heads) * cfg.alibi_slope_scale
+
+
 def rope_dim(cfg: TransformerConfig) -> int:
     """Rotated dims per head: head_dim, or the partial-rotary slice
     (rotary_pct * head_dim, rounded down to even)."""
@@ -572,20 +582,16 @@ def logical_specs(cfg: TransformerConfig) -> Dict[str, Any]:
 
 
 def unported_features(cfg: TransformerConfig) -> List[str]:
-    """What the config uses beyond the dense Llama-class model the port
-    runs so far (serving and training alike); empty when it is covered."""
+    """What the config uses beyond the models the port serves so far
+    (dense Llama-class and Bloom-class: rotary or ALiBi positions, RMSNorm
+    or LayerNorm, gated or plain MLP, biases, an embedding LayerNorm);
+    empty when it is covered. Training covers less (`check_trained`)."""
     unsupported = {
-        "variant != 'llama'": cfg.variant != "llama",
+        "learned positions (GPT-2/OPT)": cfg.use_learned_pos,
         "MoE (n_experts > 0)": cfg.n_experts > 0,
         "sparse attention": cfg.attention_impl == "sparse",
-        "ALiBi": cfg.alibi,
-        "q/k/v, output or MLP biases": (cfg.has_qkv_bias or cfg.has_attn_out_bias
-                                        or cfg.has_mlp_bias),
-        "a non-gated MLP": not cfg.is_gated,
-        "LayerNorm": cfg.norm_kind != "rms",
         "parallel residuals": cfg.parallel_residual,
         "activation quantization": cfg.activation_quant_bits > 0,
-        "an embedding LayerNorm": cfg.embedding_layernorm,
         "an lm_head bias": cfg.lm_head_bias,
         "pipeline-partitioned layers": cfg.pipeline_stages > 1,
         "use_flash=False (dense attention)": not cfg.use_flash,
@@ -595,8 +601,24 @@ def unported_features(cfg: TransformerConfig) -> List[str]:
 
 def check_trained(cfg: TransformerConfig) -> None:
     """Raise NotImplementedError for a model the training slice does not
-    train: what serving does not cover, plus dropout, random-LTD layers
-    and the remat modes with no torch.utils.checkpoint mapping yet."""
+    train: what serving does not cover; the Bloom-class knobs serving does
+    cover (ALiBi, whose flash backward kernels have no ALiBi mode yet,
+    LayerNorm, biases, a non-gated MLP, an embedding LayerNorm), which the
+    next slice trains; dropout, random-LTD layers and the remat modes with
+    no torch.utils.checkpoint mapping yet."""
+    bloom = [name for name, hit in {
+        "ALiBi": cfg.alibi,
+        "q/k/v, output or MLP biases": (cfg.has_qkv_bias or cfg.has_attn_out_bias
+                                        or cfg.has_mlp_bias),
+        "a non-gated MLP": not cfg.is_gated,
+        "LayerNorm": cfg.norm_kind != "rms",
+        "an embedding LayerNorm": cfg.embedding_layernorm,
+    }.items() if hit]
+    if bloom:
+        raise NotImplementedError(
+            f"the training slice does not train {', '.join(bloom)} yet: the next slice, "
+            "ALiBi training (ROADMAP B2, A19), ports them with the ALiBi modes of the "
+            "flash backward kernels #2/#3")
     bad = unported_features(cfg) + [name for name, hit in {
         "dropout > 0": cfg.dropout > 0.0,
         "random-LTD layers": cfg.random_ltd_layer_range is not None,

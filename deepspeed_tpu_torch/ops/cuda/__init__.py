@@ -5,7 +5,9 @@ plain integer `launches`, raised by one per kernel launch, so a run can
 show that its main path went through the kernels (`_common.count_launch`).
 The wrappers that take a sliding `window` also carry `window_launches`,
 raised by one per launch in that mode (window > 0), counted as
-"<name>[window]"; `WINDOW_MODES` names them.
+"<name>[window]"; `WINDOW_MODES` names them. Those that take ALiBi slopes
+carry `alibi_launches`, counted as "<name>[alibi]"; `ALIBI_MODES` names
+them. A launch in both modes counts in both.
 """
 
 from typing import Dict
@@ -32,6 +34,7 @@ WRAPPERS = {
 
 
 WINDOW_MODES = tuple(name for name, fn in WRAPPERS.items() if hasattr(fn, "window_launches"))
+ALIBI_MODES = tuple(name for name, fn in WRAPPERS.items() if hasattr(fn, "alibi_launches"))
 
 
 def launch_counts() -> Dict[str, int]:
@@ -44,8 +47,16 @@ def window_launch_counts() -> Dict[str, int]:
     return {f"{name}[window]": WRAPPERS[name].window_launches for name in WINDOW_MODES}
 
 
+def alibi_launch_counts() -> Dict[str, int]:
+    """"<name>[alibi]" -> launches in the ALiBi mode (each also counted in
+    launch_counts()[name])."""
+    return {f"{name}[alibi]": WRAPPERS[name].alibi_launches for name in ALIBI_MODES}
+
+
 def reset_launch_counts() -> None:
     for fn in WRAPPERS.values():
         fn.launches = 0
     for name in WINDOW_MODES:
         WRAPPERS[name].window_launches = 0
+    for name in ALIBI_MODES:
+        WRAPPERS[name].alibi_launches = 0

@@ -35,12 +35,15 @@ def check_cuda_args(what: str, tensors: dict, dtypes: dict,
             raise ValueError(f"{what}: {name} must start on a 16-byte boundary")
 
 
-def count_launch(wrapper, window: int = 0) -> None:
+def count_launch(wrapper, window: int = 0, alibi: bool = False) -> None:
     """Count one kernel launch on its wrapper: `launches`, and
-    `window_launches` when it ran in the sliding-window mode."""
+    `window_launches` when it ran in the sliding-window mode,
+    `alibi_launches` when in the ALiBi mode (both, when in both)."""
     wrapper.launches += 1
     if window > 0:
         wrapper.window_launches += 1
+    if alibi:
+        wrapper.alibi_launches += 1
 
 
 def check_shape(what: str, name: str, t: torch.Tensor, shape: Sequence[int]) -> None:

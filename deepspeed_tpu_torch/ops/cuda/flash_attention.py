@@ -19,14 +19,22 @@ CPU tensors they run the plain versions (`flash_attention_plain`,
 densely in f32 (P and dS rounded to the inputs' dtype where the kernels
 round them). Every kernel wrapper carries `launches`, raised by one
 per launch of its kernel, and `window_launches`, raised by one per launch
-in the sliding-window mode.
+in the sliding-window mode; the forward also `alibi_launches`.
 
 Sliding window (`window` > 0, Mistral-class; the reference's token-exact
 mode): query row r attends to key column c iff r - window < c <= r.
 window = 0 is plain causal attention; any window >= S gives the causal
 result bit for bit (the same tiles and entries).
 
-Not in this slice (ROADMAP B2): ALiBi and the lse cotangent of
+ALiBi (`alibi`: [H] f32 slopes, Bloom-class): the score of query row r and
+key column c of q head h gains slope_h * (c - r) after the 1/sqrt(D) scale
+and before the mask, as in the reference's kernel and _xla_attention. It
+composes with the window. With GQA the slope is that of the q head, not
+of its KV head. Only the forward takes it in this slice: the backward
+kernels' ALiBi mode comes with ALiBi training (ROADMAP B2), and until then
+a gradient through an ALiBi forward raises.
+
+Not in this slice either (ROADMAP B2): the lse cotangent of
 `flash_attention_with_lse` (`delta_adjust`, used only by ring attention):
 a loss that reaches lse raises in the backward.
 """
@@ -48,23 +56,29 @@ def _repeat_kv(k: torch.Tensor, n_rep: int) -> torch.Tensor:
     return k.repeat_interleave(n_rep, dim=2)
 
 
-def _causal_logits(q, k, window: int = 0):
+def _causal_logits(q, k, window: int = 0, alibi=None):
     """f32 scaled logits [B, H, S, S] with the causal mask applied (-inf);
-    window > 0 also masks the columns c <= r - window of row r."""
+    window > 0 also masks the columns c <= r - window of row r; alibi [H]
+    adds slope_h * (c - r) before the mask."""
     B, S, H, D = q.shape
     kf = _repeat_kv(k, H // k.shape[2]).float()
     logits = torch.einsum("bqhd,bkhd->bhqk", q.float(), kf) / D ** 0.5
+    if alibi is not None:
+        pos = torch.arange(S, device=q.device)
+        rel = (pos[None, :] - pos[:, None]).float()  # [S, S]: c - r
+        logits = logits + alibi.float().reshape(H)[None, :, None, None] * rel
     mask = torch.ones(S, S, dtype=torch.bool, device=q.device).tril()
     if window > 0:
         mask = mask.triu(1 - window)
     return logits.masked_fill(~mask, float("-inf"))
 
 
-def flash_attention_plain(q, k, v, window: int = 0):
+def flash_attention_plain(q, k, v, window: int = 0, alibi=None):
     """Dense causal attention computed in f32 (the counterpart of the JAX
     package's _xla_attention, ops/attention.py), banded to `window` when
-    it is > 0. Returns (o in q's dtype, lse [B, H, S] f32)."""
-    logits = _causal_logits(q, k, window)
+    it is > 0, ALiBi-biased by the [H] slopes `alibi` when given. Returns
+    (o in q's dtype, lse [B, H, S] f32)."""
+    logits = _causal_logits(q, k, window, alibi)
     lse = torch.logsumexp(logits, dim=-1)  # [B, H, S]
     probs = torch.exp(logits - lse[..., None])
     vf = _repeat_kv(v, q.shape[2] // k.shape[2]).float()
@@ -133,30 +147,35 @@ _BF16 = torch.bfloat16
 _F32 = torch.float32
 
 
-def flash_fwd(q, k, v, window: int = 0):
+def flash_fwd(q, k, v, window: int = 0, alibi=None):
     """Causal attention forward (kernel #1: csrc/flash_fwd.cu), banded to
-    `window` when it is > 0. q [B, S, H, D] bf16, k/v [B, S, KV, D] bf16,
+    `window` when it is > 0, ALiBi-biased by `alibi` ([H] f32 slopes, one
+    per q head) when given. q [B, S, H, D] bf16, k/v [B, S, KV, D] bf16,
     all contiguous. Returns (o [B, S, H, D] bf16, lse [B, H, S] f32). CPU
     tensors take the plain version."""
     if not q.is_cuda:
-        return flash_attention_plain(q, k, v, window)
+        return flash_attention_plain(q, k, v, window, alibi)
     what = "flash_fwd"
     _check_attention_args(what, {"q": q, "k": k, "v": v},
                           {"q": _BF16, "k": _BF16, "v": _BF16}, q, k)
     B, S, H, D = q.shape
+    if alibi is not None:
+        check_cuda_args(what, {"q": q, "alibi": alibi}, {"q": _BF16, "alibi": _F32})
+        check_shape(what, "alibi", alibi, (H,))
     o = torch.empty_like(q)
     lse = torch.empty((B, H, S), dtype=_F32, device=q.device)
     if B * S == 0:
         return o, lse
     lib = build.load("flash_fwd")
-    err = lib.flash_fwd(ptr(o), ptr(lse), ptr(q), ptr(k), ptr(v), B, S, H, k.shape[2], D,
+    err = lib.flash_fwd(ptr(o), ptr(lse), ptr(q), ptr(k), ptr(v),
+                        None if alibi is None else ptr(alibi), B, S, H, k.shape[2], D,
                         int(window), 1.0 / D ** 0.5, stream_of(q))
     build.check(lib, err, what)
-    count_launch(flash_fwd, window)
+    count_launch(flash_fwd, window, alibi is not None)
     return o, lse
 
 
-flash_fwd.launches = flash_fwd.window_launches = 0
+flash_fwd.launches = flash_fwd.window_launches = flash_fwd.alibi_launches = 0
 
 _BWD_DTYPES = {"q": _BF16, "k": _BF16, "v": _BF16, "do": _BF16, "lse": _F32, "delta": _F32}
 
@@ -229,16 +248,19 @@ def flash_attention_bwd(q, k, v, o, lse, do, window: int = 0):
 
 class FlashAttention(torch.autograd.Function):
     """Causal flash attention with its backward (the reference's
-    `_flash` custom VJP). forward(q, k, v, window) -> (o, lse); the lse
-    output carries no gradient in this slice (a cotangent reaching it
-    raises)."""
+    `_flash` custom VJP). forward(q, k, v, window, alibi) -> (o, lse); the
+    lse output carries no gradient in this slice (a cotangent reaching it
+    raises), and neither does an ALiBi forward: the backward kernels have
+    no ALiBi mode yet, and a gradient that left the bias out would be
+    wrong without an error, so it raises."""
 
     @staticmethod
-    def forward(ctx, q, k, v, window):
+    def forward(ctx, q, k, v, window, alibi):
         q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
-        o, lse = flash_fwd(q, k, v, window)
+        o, lse = flash_fwd(q, k, v, window, alibi)
         ctx.save_for_backward(q, k, v, o, lse)
         ctx.window = window
+        ctx.alibi = alibi is not None
         ctx.set_materialize_grads(False)
         return o, lse
 
@@ -250,17 +272,23 @@ class FlashAttention(torch.autograd.Function):
                 "delta_adjust, used by ring attention) is not ported yet "
                 "(ROADMAP B2)")
         if do is None:
-            return None, None, None, None
+            return None, None, None, None, None
+        if ctx.alibi:
+            raise NotImplementedError(
+                "the flash backward has no ALiBi mode yet: kernels #2/#3 take it with "
+                "the next slice, ALiBi training (ROADMAP B2)")
         q, k, v, o, lse = ctx.saved_tensors
-        return flash_attention_bwd(q, k, v, o, lse, do.contiguous(), ctx.window) + (None,)
+        return flash_attention_bwd(q, k, v, o, lse, do.contiguous(), ctx.window) + (None,
+                                                                                    None)
 
 
 def flash_attention(q, k, v, window: int = 0, alibi=None):
-    """Causal attention, differentiable in q, k and v: q [B, S, H, D], k/v
-    [B, S, KV, D] (bf16 on the GPU), banded to the last `window` positions
-    when window > 0. Returns (o [B, S, H, D], lse [B, H, S] f32). The
-    reference's ALiBi mode is not ported."""
+    """Causal attention: q [B, S, H, D], k/v [B, S, KV, D] (bf16 on the
+    GPU), banded to the last `window` positions when window > 0, biased
+    by the [H] ALiBi slopes `alibi` when given (a tensor, array or list;
+    pass an f32 tensor on q's device to spare a copy per call).
+    Differentiable in q, k and v without ALiBi; with it the backward
+    raises (next slice). Returns (o [B, S, H, D], lse [B, H, S] f32)."""
     if alibi is not None:
-        raise NotImplementedError("flash attention's ALiBi mode is not ported yet "
-                                  "(ROADMAP B2, B4)")
-    return FlashAttention.apply(q, k, v, int(window))
+        alibi = torch.as_tensor(alibi, dtype=_F32, device=q.device).reshape(q.shape[2])
+    return FlashAttention.apply(q, k, v, int(window), alibi)

@@ -474,22 +474,24 @@ def _window_decode_case(rng, dev, H, KV, D, quant, bs=16, NB=8, nblk=56):
     return q, pools, torch.from_numpy(tbl).to(dev), torch.from_numpy(ctx).to(dev)
 
 
-def _window_decode(mode, q, pools, tbl, ctx, window, kn=None, vn=None, slots=None):
+def _window_decode(mode, q, pools, tbl, ctx, window, kn=None, vn=None, slots=None,
+                   alibi=None):
     """(kernel output, plain output) of one decode mode ("plain", "fused",
-    "int8", "fused_int8") at `window`, each on its own copy of the pools;
-    the fused modes also check the written pools bit for bit."""
+    "int8", "fused_int8") at `window` (and with ALiBi slopes `alibi`), each
+    on its own copy of the pools; the fused modes also check the written
+    pools bit for bit."""
     got, ref = [p.clone() for p in pools], [p.clone() for p in pools]
     scales = lambda ps: ps[2:]
+    kw = dict(window=window, alibi_slopes=alibi)
     if mode in ("plain", "int8"):
         kern = PP.paged_decode_attention_int8 if mode == "int8" else PP.paged_decode_attention
-        out = kern(q, got[0], got[1], tbl, ctx, *scales(got), window=window)
-        want = PP.paged_decode_attention_plain(q, ref[0], ref[1], tbl, ctx, *scales(ref),
-                                               window=window)
+        out = kern(q, got[0], got[1], tbl, ctx, *scales(got), **kw)
+        want = PP.paged_decode_attention_plain(q, ref[0], ref[1], tbl, ctx, *scales(ref), **kw)
     else:
         kern = PP.paged_decode_fused_int8 if mode == "fused_int8" else PP.paged_decode_fused
-        out = kern(q, got[0], got[1], tbl, ctx, kn, vn, slots, *scales(got), window=window)[0]
+        out = kern(q, got[0], got[1], tbl, ctx, kn, vn, slots, *scales(got), **kw)[0]
         want = PP.paged_decode_fused_plain(q, ref[0], ref[1], tbl, ctx, kn, vn, slots,
-                                           *scales(ref), window=window)[0]
+                                           *scales(ref), **kw)[0]
         torch.cuda.synchronize()
         for a, b in zip(got, ref):
             assert torch.equal(a, b)
@@ -654,3 +656,145 @@ class TestWindowOnCard:
         assert counts["flash_bwd_dq"] == windowed["flash_bwd_dq[window]"] == 1
         assert counts["flash_bwd_dkv"] == windowed["flash_bwd_dkv[window]"] == 1
         assert windowed["paged_decode_fused[window]"] == 0
+
+
+def _slopes(H, dev, scale=1.0):
+    from deepspeed_tpu_torch.ops.attention import alibi_slopes
+
+    return (alibi_slopes(H) * scale).to(dev)
+
+
+@pytest.mark.cuda
+class TestAlibiOnCard:
+    """The ALiBi modes of kernels #1, #4 and #5 against their plain versions
+    on the same bf16 inputs, at the tolerances of the modes above (flash o
+    under `bwd_mismatch`, lse 1e-3; decode one bf16 ulp); all-zero slopes
+    and windows >= S (or ctx) bit-identical to the existing modes; and
+    planted faults the checks must catch: the slopes rotated by one head,
+    the flash bias with its sign flipped, with GQA each q head given its
+    KV head's slope, and the fused decode's new column biased at position
+    0 instead of ctx - 1."""
+
+    DECODE_TOL = dict(rtol=8e-3, atol=1e-3)
+    MODES = ["plain", "fused", "int8", "fused_int8"]
+
+    def _flash_inputs(self, rng, d, S, H, KV, D, B=1):
+        return (_bf16_cuda(rng.standard_normal((B, S, H, D)), d),
+                _bf16_cuda(rng.standard_normal((B, S, KV, D)), d),
+                _bf16_cuda(rng.standard_normal((B, S, KV, D)), d))
+
+    @pytest.mark.parametrize("window", [0, 100])
+    @pytest.mark.parametrize("S,H,KV,D,scale", [(512, 32, 32, 128, 1.0), (300, 32, 32, 64, 0.125),
+                                                (300, 8, 2, 128, 1.0), (200, 6, 3, 64, 1.0)])
+    def test_flash_forward(self, rng, cuda_device, S, H, KV, D, scale, window):
+        q, k, v = self._flash_inputs(rng, cuda_device, S, H, KV, D)
+        sl = _slopes(H, cuda_device, scale)
+        o, lse = PF.flash_fwd(q, k, v, window, sl)
+        ro, rlse = PF.flash_attention_plain(q, k, v, window, sl)
+        _assert_grad_close(o, ro, f"o S={S} H={H} KV={KV} D={D} window={window}")
+        torch.testing.assert_close(lse, rlse, rtol=1e-3, atol=1e-3)
+
+    def test_flash_off_and_wide_window_are_bit_identical(self, rng, cuda_device):
+        q, k, v = self._flash_inputs(rng, cuda_device, 300, 8, 2, 128)
+        sl = _slopes(8, cuda_device)
+        base = PF.flash_fwd(q, k, v)
+        zero = PF.flash_fwd(q, k, v, 0, torch.zeros_like(sl))
+        alibi = PF.flash_fwd(q, k, v, 0, sl)
+        for window in (300, 10 ** 6):
+            wide = PF.flash_fwd(q, k, v, window, sl)
+            assert all(torch.equal(a, b) for a, b in zip(wide, alibi)), window
+        assert all(torch.equal(a, b) for a, b in zip(zero, base))
+
+    def test_flash_planted_faults_are_caught(self, rng, cuda_device):
+        H, KV = 8, 2
+        q, k, v = self._flash_inputs(rng, cuda_device, 300, H, KV, 128)
+        sl = _slopes(H, cuda_device)
+        ro, _ = PF.flash_attention_plain(q, k, v, 0, sl)
+        kv_slope = sl[torch.arange(H, device=cuda_device) // (H // KV) * (H // KV)]
+        for fault in (torch.roll(sl, 1), -sl, kv_slope):
+            o = PF.flash_fwd(q, k, v, 0, fault)[0]
+            assert PF.bwd_mismatch(o, ro)["n_over"] > 0
+
+    def _decode_args(self, rng, d, mode, H=32, KV=32, D=128):
+        q, pools, tbl, ctx = _window_decode_case(rng, d, H, KV, D, "int8" in mode)
+        S, bs = q.shape[0], pools[0].shape[1]
+        pos = (ctx - 1).clamp(min=0)
+        slots = torch.where(ctx > 0, tbl[torch.arange(S, device=d), pos // bs] * bs + pos % bs,
+                            -1).to(torch.int32)
+        kn = _bf16_cuda(rng.standard_normal((S, KV, D)), d)
+        vn = _bf16_cuda(rng.standard_normal((S, KV, D)), d)
+        return q, pools, tbl, ctx, kn, vn, slots
+
+    @pytest.mark.parametrize("window", [0, 40])
+    @pytest.mark.parametrize("mode", MODES)
+    @pytest.mark.parametrize("H,KV,D", [(32, 32, 128), (8, 2, 64)])
+    def test_decode(self, rng, cuda_device, mode, window, H, KV, D):
+        q, pools, tbl, ctx, kn, vn, slots = self._decode_args(rng, cuda_device, mode, H, KV, D)
+        out, ref = _window_decode(mode, q, pools, tbl, ctx, window, kn, vn, slots,
+                                  alibi=_slopes(H, cuda_device))
+        torch.testing.assert_close(out.float(), ref.float(), **self.DECODE_TOL)
+        assert not out[-1].any()  # the pad row
+
+    @pytest.mark.parametrize("mode", MODES)
+    def test_decode_off_and_wide_window_are_bit_identical(self, rng, cuda_device, mode):
+        args = self._decode_args(rng, cuda_device, mode)
+        sl = _slopes(32, cuda_device)
+        base, _ = _window_decode(mode, *args[:4], 0, *args[4:])
+        zero, _ = _window_decode(mode, *args[:4], 0, *args[4:], alibi=torch.zeros_like(sl))
+        assert torch.equal(zero, base)
+        alibi, _ = _window_decode(mode, *args[:4], 0, *args[4:], alibi=sl)
+        for window in (128, 10 ** 6):
+            out, _ = _window_decode(mode, *args[:4], window, *args[4:], alibi=sl)
+            assert torch.equal(out, alibi), window
+
+    @pytest.mark.parametrize("mode", MODES)
+    def test_decode_planted_faults_are_caught(self, rng, cuda_device, mode):
+        """The slopes rotated by one head; in the fused modes, the new
+        column biased at position 0 (_new_col_at_zero)."""
+        q, pools, tbl, ctx, kn, vn, slots = self._decode_args(rng, cuda_device, mode)
+        sl = _slopes(32, cuda_device)
+        _, ref = _window_decode(mode, q, pools, tbl, ctx, 0, kn, vn, slots, alibi=sl)
+        out, _ = _window_decode(mode, q, pools, tbl, ctx, 0, kn, vn, slots,
+                                alibi=torch.roll(sl, 1))
+        assert _n_over(out, ref, 1e-3, 8e-3) > 0
+        if "fused" in mode:
+            got = _new_col_at_zero(mode, q, pools, tbl, ctx, kn, vn, slots, sl)
+            assert _n_over(got, ref, 1e-3, 8e-3) > 0
+
+    def test_alibi_launches_are_counted(self, rng, cuda_device):
+        PK.reset_launch_counts()
+        q, k, v = self._flash_inputs(rng, cuda_device, 128, 4, 2, 128)
+        PF.flash_attention(q, k, v, alibi=_slopes(4, cuda_device))
+        PF.flash_fwd(q, k, v, 16)
+        args = self._decode_args(rng, cuda_device, "plain")
+        _window_decode("plain", *args[:4], 0, *args[4:], alibi=_slopes(32, cuda_device))
+        counts, alibi = PK.launch_counts(), PK.alibi_launch_counts()
+        assert counts["flash_fwd"] == 2 and alibi["flash_fwd[alibi]"] == 1
+        assert counts["paged_decode_attention"] == alibi["paged_decode_attention[alibi]"] == 1
+        assert alibi["paged_decode_fused[alibi]"] == 0
+        assert PK.window_launch_counts()["flash_fwd[window]"] == 1
+
+
+def _new_col_at_zero(mode, q, pools, tbl, ctx, kn, vn, slots, slopes):
+    """What a fused kernel that biased its new column at position 0 (not
+    ctx - 1) would output: the plain fused version's written pools,
+    attended densely in f32 with that one bias moved."""
+    got = [p.clone() for p in pools]
+    PP.paged_decode_fused_plain(q, got[0], got[1], tbl, ctx, kn, vn, slots, *got[2:],
+                                alibi_slopes=slopes)
+    S, H, D = q.shape
+    KV = got[0].shape[2]
+    t = tbl.long()
+    k, v = (x[t].reshape(S, -1, KV, D) for x in got[:2])
+    if mode == "fused_int8":
+        k = PP.dequantize(k, got[2][t].reshape(S, -1, KV), q.dtype)
+        v = PP.dequantize(v, got[3][t].reshape(S, -1, KV), q.dtype)
+    k, v = (x.float().repeat_interleave(H // KV, 2) for x in (k, v))
+    pos = torch.arange(k.shape[1], device=q.device)
+    bias = (slopes[None, :, None] * pos.float()).expand(S, H, -1).clone()
+    live = ctx > 0
+    bias[torch.arange(S, device=q.device)[live], :, (ctx[live] - 1).long()] = 0.0
+    logits = torch.einsum("shd,skhd->shk", q.float(), k) / D ** 0.5 + bias
+    logits = logits.masked_fill(~(pos[None, :] < ctx[:, None])[:, None, :], float("-inf"))
+    out = torch.einsum("shk,skhd->shd", torch.nan_to_num(logits.softmax(-1)), v)
+    return out.to(q.dtype)

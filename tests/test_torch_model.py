@@ -59,7 +59,8 @@ class TestConfigAndInit:
             torch_config(**bad)
 
     @pytest.mark.parametrize("over", [
-        {"n_experts": 2}, {"parallel_residual": True}, {"alibi": True},
+        {"n_experts": 2}, {"parallel_residual": True},
+        {"lm_head_bias": True, "tie_embeddings": False},  # ALiBi here until it was served
         {"variant": "gpt2"}, {"attention_impl": "sparse"}, {"use_flash": False},
     ])
     def test_unserved_configs_raise(self, over):
@@ -73,7 +74,8 @@ class TestConfigAndInit:
     def test_window_configs_are_served(self, over):
         """Sliding windows (Mistral-class, per-layer patterns) are served
         since the window modes of the kernels were ported; a window beside
-        ALiBi still raises for the ALiBi."""
+        ALiBi is served too (the band and the slopes are independent
+        arguments of every kernel), and training it raises for the ALiBi."""
         pc = torch_config(**over)
         PM.check_served(pc)
         params = PT.init(pc, torch.Generator().manual_seed(0), device="cpu")
@@ -81,8 +83,9 @@ class TestConfigAndInit:
         logits, _ = PM.prefill_batch(params, cache, torch.arange(24).reshape(1, 24),
                                      torch.tensor([24]), torch.arange(8).reshape(1, 8), pc)
         assert logits.shape == (1, pc.vocab_size) and torch.isfinite(logits).all()
+        PM.check_served(torch_config(**over, alibi=True))
         with pytest.raises(NotImplementedError, match="ALiBi"):
-            PM.check_served(torch_config(**over, alibi=True))
+            PT.check_trained(torch_config(**over, alibi=True))
 
     def test_convert_rejects_mismatched_tree(self):
         cfg = jax_config()

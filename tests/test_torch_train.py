@@ -141,9 +141,12 @@ class TestFlashBackward:
     @pytest.mark.parametrize("mode", [{"window": 8, "alibi": [0.5, 0.25]},
                                       {"alibi": [0.5, 0.25]}])
     def test_window_and_alibi_raise(self, rng, mode):
-        q, k, v, _ = (_t(a) for a in _qkv(rng, 1, 16, 2, 2, 64))
+        """The ALiBi forward runs (serving); its gradient raises until the
+        backward kernels take ALiBi (next slice), with or without a window."""
+        q, k, v, _ = (_t(a).requires_grad_() for a in _qkv(rng, 1, 16, 2, 2, 64))
+        o, _ = PF.flash_attention(q, k, v, **mode)
         with pytest.raises(NotImplementedError, match="B2"):
-            PF.flash_attention(q, k, v, **mode)
+            o.sum().backward()
 
     def test_window_runs(self, rng):
         """The sliding-window mode no longer raises: flash_attention(window=8)

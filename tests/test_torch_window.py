@@ -214,9 +214,11 @@ class TestFlashWindow:
             assert torch.equal(g, r)
 
     def test_alibi_still_raises(self, rng):
-        q, k, v, _ = (_t(a) for a in _qkv(rng, 1, 16, 2, 2, 64))
+        """Window + ALiBi runs forward (served); its backward still raises."""
+        q, k, v, _ = (_t(a).requires_grad_() for a in _qkv(rng, 1, 16, 2, 2, 64))
+        o, _ = PF.flash_attention(q, k, v, window=8, alibi=[0.5, 0.25])
         with pytest.raises(NotImplementedError, match="B2"):
-            PF.flash_attention(q, k, v, window=8, alibi=[0.5, 0.25])
+            o.sum().backward()
 
 
 # ---------------------------------------------------------------------------

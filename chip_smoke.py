@@ -34,7 +34,14 @@ Phases (any failure raises and exits nonzero):
              bit-identical to the existing modes, and planted faults that
              must fail: the slopes rotated by one head, the flash bias with
              its sign flipped, with GQA each q head given its KV head's
-             slope, the fused new column biased at position 0; time
+             slope, the fused new column biased at position 0; the ALiBi
+             modes of #2 and #3 at S=2048 (Bloom's 32 x 128 heads,
+             falcon-rw-1b's 32 x 64 with its slope scale, GQA 32 / 8, 24
+             heads, window 1000) against the plain backward on the kernel
+             forward's o and lse, all-zero slopes and windows >= S
+             bit-identical, and faults in the backward alone that must
+             fail: slopes rotated, sign flipped, with GQA the KV head's
+             slope, the bias dropped; time
              kernel, plain version and (where one exists) a single
              PyTorch library call computing the same function: device time
              from torch.profiler, and the time of back-to-back calls from
@@ -115,6 +122,16 @@ Phases (any failure raises and exits nonzero):
 4g. serve_alibi_int8 - the same on int8 pools and the same weights; only
              the int8 kernels and flash_fwd may launch; the checks against
              the plain int8 paths.
+4h. train_alibi - BLOOM-7B1's width, 4 layers deep (all 30 with fp32
+             master and Adam moments are 113 GB), with the flagship's
+             settings on a 4 x 2048 micro-batch, as train_window: one
+             counted step (#1-#3 once per layer, each in its ALiBi mode),
+             the loss falling over 6 steps; per-token loss and gradients
+             of 2 layers at S=2048 against the plain paths. Reports step
+             ms, tokens/s, MFU, peak memory, where the time goes.
+4i. train_alibi_falcon_rw - falcon-rw-1b (FALCON_RW) whole, 24 layers,
+             1.31B parameters, micro-batch 8 x 2048; the same checks (the
+             D=64 ALiBi backward on a training path).
 5. evoformer - DS4Sci evoformer attention (ds4sci_evoformer_attention) at
              AlphaFold 2 / OpenFold widths, bf16, three cases (EVO_CASES):
              for each, one forward and backward with every launch counter
@@ -228,7 +245,8 @@ W_LONG, W_PROMPTS = 6144, 7  # one 6144-token prompt (the window bites in rows >
 # trained 4 layers deep (7.24B params x 16 B of bf16 weights, fp32 master
 # and Adam moments is 116 GB), full width, one 8192-token sequence a step
 TRAIN_W_MODEL = dict(MISTRAL, n_layers=4, remat="save_attn_qkv", use_flash=True)
-TRAIN_W_S, TRAIN_W_STEPS, TRAIN_W_TIMED = 8192, 6, 3
+TRAIN_W_S = 8192
+TRAIN_LONG_STEPS, TRAIN_LONG_TIMED = 6, 3  # of every phase of TRAIN_LONG
 TRAIN_W_PATH = (2, 6144)  # layers, S of the gradient three-path check
 # the ALiBi path: BLOOM-7B1 (bigscience/bloom-7b1 config.json as the JAX
 # package's config_from_hf maps it, utils/hf_checkpoint.py: ALiBi, no
@@ -253,6 +271,32 @@ FLASH_ALIBI_CASES = {
     "window_1000": dict(B=1, S=2048, H=32, KV=32, D=128, window=1000, scale=1.0),
 }
 ALIBI_WINDOW = 1000
+# phase 2's ALiBi cases of kernels #2/#3, at the training length 2048
+FLASH_BWD_ALIBI_CASES = {
+    "bloom_train": dict(B=1, S=2048, H=32, KV=32, D=128, window=0, scale=1.0),
+    "falcon_rw_1b": dict(B=1, S=2048, H=32, KV=32, D=64, window=0, scale=1.0 / 8.0),
+    "gqa": dict(B=1, S=2048, H=32, KV=8, D=128, window=0, scale=1.0),
+    "non_pow2_heads": dict(B=1, S=2048, H=24, KV=24, D=128, window=0, scale=1.0),
+    "window_1000": dict(B=1, S=2048, H=32, KV=32, D=128, window=ALIBI_WINDOW, scale=1.0),
+}
+# ... and the shape they are timed at: BLOOM-7B1's training micro-batch
+ALIBI_BWD_TIMED = dict(B=4, S=2048, H=32, KV=32, D=128)
+# the ALiBi training path, BLOOM-7B1 at full width, 4 layers deep (30 layers
+# are 7,069,016,064 parameters; bf16 weights, fp32 master and Adam moments
+# at 16 B each make 113 GB): micro-batch 4 x 2048 (BLOOM's context)
+TRAIN_A_MODEL = dict(BLOOM, n_layers=4, remat="save_attn_qkv", use_flash=True)
+# falcon-rw-1b whole (tiiuae/falcon-rw-1b config.json as the JAX package's
+# config_from_hf maps it, utils/hf_checkpoint.py: LayerNorm, erf GELU, a
+# non-gated 4 x d_model MLP, biases everywhere, ALiBi with falcon's
+# 1/sqrt(head_dim) slope scale, 32 x 64 heads, tied embeddings), random
+# weights, full width and depth: 1,311,625,216 parameters, ~21 GB of
+# training state; micro-batch 8 x 2048 as the flagship's
+FALCON_RW = dict(vocab_size=50304, n_layers=24, n_heads=32, n_kv_heads=32, d_model=2048,
+                 d_ff=8192, max_seq=2048, variant="llama", norm_type="layer", gated_mlp=False,
+                 activation="gelu_exact", qkv_bias=True, attn_out_bias=True, mlp_bias=True,
+                 rope_theta=10000.0, norm_eps=1e-5, tie_embeddings=True, alibi=True,
+                 alibi_slope_scale=1.0 / 8.0)
+TRAIN_F_MODEL = dict(FALCON_RW, remat="save_attn_qkv", use_flash=True)
 # phase 2's ALiBi decode rows: ctx ~100 to ~2,000 (several mid-block)
 DECODE_ALIBI_CTX = (100, 371, 642, 913, 1184, 1455, 1726, 1997)
 # window cases of phase 2 besides >= S: Mistral's 4096 (tile-aligned), 1000
@@ -1246,6 +1290,118 @@ def _flash_alibi_checks(FA, randn, dev, bound_ms):
     return {"flash_fwd[alibi]": timed}
 
 
+def _flash_bwd_alibi_checks(FA, randn, dev, bound_ms):
+    """Kernels #2 (dq) and #3 (dk, dv) in their ALiBi mode against the
+    plain backward on the kernel forward's o and lse, on the same bf16
+    inputs, under bwd_mismatch, in the cases of FLASH_BWD_ALIBI_CASES
+    (S=2048): Bloom's training heads, falcon-rw-1b's head_dim 64 with its
+    1/8 slope scale, GQA 32 / 8, 24 heads and ALiBi with window 1000.
+    All-zero slopes give the backward without ALiBi bit for bit, and a
+    window >= S the causal ALiBi backward (both on the same lse and
+    delta). Planted faults in the backward alone (the forward's lse kept)
+    must fail: the slopes rotated by one head, the bias's sign flipped,
+    with GQA each q head given its KV head's slope (dk, dv), and the bias
+    dropped. Then times both kernels at BLOOM's training micro-batch
+    (ALIBI_BWD_TIMED) beside the causal mode, the plain backward and
+    SDPA's backward with the bias as an additive bf16 mask."""
+    import torch
+    import torch.nn.functional as F
+
+    names = ("dq", "dk", "dv")
+
+    def bwd(q, k, v, do, lse, delta, w, sl):
+        return dict(zip(names, (FA.flash_bwd_dq(q, k, v, do, lse, delta, w, sl),)
+                        + FA.flash_bwd_dkv(q, k, v, do, lse, delta, w, sl)))
+
+    report, errs = {}, {"dq": 0.0, "dkv": 0.0}
+    for case, c in FLASH_BWD_ALIBI_CASES.items():
+        B, S, H, KV, D, w = (c[x] for x in ("B", "S", "H", "KV", "D", "window"))
+        q, k, v, do = randn(B, S, H, D), randn(B, S, KV, D), randn(B, S, KV, D), randn(B, S, H, D)
+        sl = _slopes(H, c["scale"], dev)
+        o, lse = FA.flash_fwd(q, k, v, w, sl)
+        delta = FA._delta(o, do)
+        got = bwd(q, k, v, do, lse, delta, w, sl)
+        ref = dict(zip(names, FA._bwd_plain(q, k, v, lse, delta, do, w, sl)))
+        case_report = {"shape": c}
+        for name in names:
+            st = FA.bwd_mismatch(got[name], ref[name])
+            if st["n_over"]:
+                raise AssertionError(f"flash_bwd[alibi] {case} {name}: beyond the tolerance of "
+                                     f"the plain backward: {st}")
+            case_report[name] = {"worst_ratio": st["worst_ratio"], "max_abs": st["max_abs_err"]}
+            key = "dq" if name == "dq" else "dkv"
+            errs[key] = max(errs[key], st["max_abs_err"])
+        G = H // KV
+        faults = {"slopes_rotated_by_one_head": (torch.roll(sl, 1), names),
+                  "bias_sign_flipped": (-sl, names),
+                  "bias_dropped_from_the_backward": (None, names)}
+        if G > 1:
+            faults["kv_head_slope_for_q_head"] = (sl[torch.arange(H, device=dev) // G],
+                                                  ("dk", "dv"))
+        over = {}
+        for f, (fs, hit) in faults.items():
+            spoiled = bwd(q, k, v, do, lse, delta, w, fs)
+            over[f] = {n: FA.bwd_mismatch(spoiled[n], ref[n])["n_over"] for n in hit}
+            if not all(over[f].values()):
+                raise AssertionError(f"flash_bwd[alibi] {case}: the check passes a planted "
+                                     f"fault: {f} {over[f]}")
+        zero = bwd(q, k, v, do, lse, delta, w, torch.zeros_like(sl))
+        plain_mode = bwd(q, k, v, do, lse, delta, w, None)
+        same = {"zero_slopes_vs_no_alibi": all(torch.equal(zero[n], plain_mode[n])
+                                               for n in names)}
+        if w == 0:
+            wide = bwd(q, k, v, do, lse, delta, S, sl)
+            same["window_ge_s_vs_causal"] = all(torch.equal(wide[n], got[n]) for n in names)
+        if not all(same.values()):
+            raise AssertionError(f"flash_bwd[alibi] {case}: not bit-identical: {same}")
+        case_report.update({"planted_faults_elements_over": over, "bit_identical": same})
+        report[case] = case_report
+        del q, k, v, do, o, lse, delta, got, ref, zero, plain_mode
+        torch.cuda.empty_cache()
+    print(json.dumps({"flash_bwd_alibi_checks": {
+        "rtol": FA.BWD_RTOL, "row_rms_atol": FA.BWD_ROW_ATOL, "floor": FA.BWD_FLOOR,
+        **report}}))
+
+    # timings at BLOOM's training micro-batch
+    B, S, H, KV, D = (ALIBI_BWD_TIMED[x] for x in ("B", "S", "H", "KV", "D"))
+    q, k, v, do = randn(B, S, H, D), randn(B, S, KV, D), randn(B, S, KV, D), randn(B, S, H, D)
+    sl = _slopes(H, 1.0, dev)
+    o, lse = FA.flash_fwd(q, k, v, 0, sl)
+    delta = FA._delta(o, do)
+    o0, lse0 = FA.flash_fwd(q, k, v)
+    delta0 = FA._delta(o0, do)
+    qt, kt, vt = (x.detach().transpose(1, 2).requires_grad_() for x in (q, k, v))
+    ot = F.scaled_dot_product_attention(qt, kt, vt, attn_mask=_sdpa_alibi_mask(sl, S, q.dtype))
+    dot = do.transpose(1, 2)
+    sdpa_bwd = lambda: torch.autograd.grad(ot, (qt, kt, vt), dot, retain_graph=True)
+    plain_bwd = lambda: FA._bwd_plain(q, k, v, lse, delta, do, 0, sl)
+    pairs = B * H * S * (S + 1) / 2
+    io_in = B * S * (2 * H + 2 * KV) * D * 2 + 2 * B * H * S * 4 + H * 4  # + the slopes
+    shape = f"B={B}, S={S}, H={H}, KV={KV}, D={D}, bf16, causal ALiBi"
+    out = {
+        "flash_bwd_dq[alibi]": dict(
+            max_abs_err=errs["dq"], shape=shape,
+            **_timings(lambda: FA.flash_bwd_dq(q, k, v, do, lse, delta, 0, sl), plain_bwd,
+                       sdpa_bwd, 5),
+            bound=bound_ms(io_in + B * S * H * D * 2, 3 * 2.0 * pairs * D),
+            causal_ms=_device_ms(lambda: FA.flash_bwd_dq(q, k, v, do, lse0, delta0), 5)),
+        "flash_bwd_dkv[alibi]": dict(
+            max_abs_err=errs["dkv"], shape=shape,
+            **_timings(lambda: FA.flash_bwd_dkv(q, k, v, do, lse, delta, 0, sl), plain_bwd,
+                       sdpa_bwd, 5),
+            bound=bound_ms(io_in + 2 * B * S * KV * D * 2, 4 * 2.0 * pairs * D),
+            causal_ms=_device_ms(lambda: FA.flash_bwd_dkv(q, k, v, do, lse0, delta0), 5))}
+    dq_, dkv_ = out["flash_bwd_dq[alibi]"], out["flash_bwd_dkv[alibi]"]
+    print(json.dumps({"flash_bwd_alibi_vs_sdpa": {
+        "dq_ms": dq_["ms"], "dkv_ms": dkv_["ms"], "dq_causal_ms": dq_["causal_ms"],
+        "dkv_causal_ms": dkv_["causal_ms"], "plain_bwd_ms": dq_["plain_ms"],
+        "sdpa_bwd_bf16_bias_mask_ms": dq_["library_ms"],
+        "ratio": (dq_["ms"] + dkv_["ms"]) / dq_["library_ms"], "shape": shape}}))
+    del q, k, v, do, o, lse, delta, o0, lse0, delta0, qt, kt, vt, ot, dot
+    torch.cuda.empty_cache()
+    return out
+
+
 def _decode_new_col_at(PA, q, pools, tables, ctx, slopes, at=None):
     """Dense f32 decode over already-written pools with the ALiBi bias at
     absolute positions, except that, given `at`, each row's new token
@@ -1440,6 +1596,7 @@ def check_kernels(cfg, dev):
     results.update(_decode_window_checks(PA, randn, dev, bound_ms))
     # the ALiBi modes at BLOOM-7B1's shapes (and falcon-rw-1b's, GQA, 24 heads)
     results.update(_flash_alibi_checks(FA, randn, dev, bound_ms))
+    results.update(_flash_bwd_alibi_checks(FA, randn, dev, bound_ms))
     results.update(_decode_alibi_checks(PA, randn, dev, bound_ms))
     results.update(_evo_kernel_checks(dev, bound_ms))
     for name, r in results.items():
@@ -2053,14 +2210,23 @@ def run_serve_long(cfg, dev, params, mode, int8=False):
     return report, params
 
 
-def run_train_window(dev):
-    """Mistral 7B's width, 4 layers deep, trained with the flagship's
-    settings on one 8192-token sequence a step: one step with every launch
-    counter at 0 (each flash kernel once per layer, each in its window
-    mode), the loss falling over TRAIN_W_STEPS steps on the fixed batch,
-    the time of TRAIN_W_TIMED async steps, and the three-path check of the
-    per-token loss and the gradients at TRAIN_W_PATH (layers, S) from the
-    engine's master weights, after the engine is freed."""
+# phase -> (model, micro-batch, S, (layers, S) of the three-path check, mode):
+# Mistral 7B's width with its window, BLOOM-7B1's width and falcon-rw-1b
+# whole with ALiBi
+TRAIN_LONG = {"train_window": (TRAIN_W_MODEL, 1, TRAIN_W_S, TRAIN_W_PATH, "window"),
+              "train_alibi": (TRAIN_A_MODEL, 4, 2048, (2, 2048), "alibi"),
+              "train_alibi_falcon_rw": (TRAIN_F_MODEL, 8, 2048, (2, 2048), "alibi")}
+
+
+def run_train_long(dev, phase):
+    """A 7B model's width (or falcon-rw-1b whole) trained with the
+    flagship's settings on the micro-batch of TRAIN_LONG[phase]: one step
+    with every launch counter at 0 (each flash kernel once per layer, each
+    in the phase's window or ALiBi mode, and nothing else), the loss
+    falling over TRAIN_LONG_STEPS steps on the fixed batch, the time of
+    TRAIN_LONG_TIMED async steps, and the three-path check of the per-token
+    loss and the gradients at the phase's (layers, S) from the engine's
+    master weights, after the engine is freed."""
     import dataclasses
 
     import numpy as np
@@ -2070,17 +2236,18 @@ def run_train_window(dev):
     from deepspeed_tpu_torch.models import transformer as T
     from deepspeed_tpu_torch.ops import cuda as K
 
-    mcfg = T.TransformerConfig(**TRAIN_W_MODEL)
+    model, B, S, (n_layers, path_s), mode = TRAIN_LONG[phase]
+    mcfg = T.TransformerConfig(**model)
     torch.cuda.reset_peak_memory_stats(dev)
     t0 = time.perf_counter()
-    eng = initialize(dict(TRAIN_CONFIG, train_micro_batch_size_per_gpu=1),
+    eng = initialize(dict(TRAIN_CONFIG, train_micro_batch_size_per_gpu=B),
                      loss_fn=T.make_loss_fn(mcfg, loss_chunks=LOSS_CHUNKS),
                      param_init_fn=lambda g: T.init(mcfg, g, device=dev),
                      param_logical_specs=T.logical_specs(mcfg))
     torch.cuda.synchronize()
     init_s = time.perf_counter() - t0
     batch = {"tokens": np.random.default_rng(0).integers(
-        0, mcfg.vocab_size, (1, TRAIN_W_S + 1)).astype(np.int32)}
+        0, mcfg.vocab_size, (B, S + 1)).astype(np.int32)}
 
     # -- the main path, counted: one train step --------------------------------
     K.reset_launch_counts()
@@ -2089,38 +2256,37 @@ def run_train_window(dev):
     # ---------------------------------------------------------------------------
 
     want = {n: (mcfg.n_layers if n in TRAIN_KERNELS
-                or n in [f"{k}[window]" for k in TRAIN_KERNELS] else 0) for n in launches}
+                or n in [f"{k}[{mode}]" for k in TRAIN_KERNELS] else 0) for n in launches}
     if launches != want:
-        raise AssertionError(f"a windowed train step should launch each flash kernel once per "
-                             f"layer in its window mode and nothing else: {launches}")
-    history = [first] + [eng.train_batch(batch) for _ in range(TRAIN_W_STEPS - 1)]
+        raise AssertionError(f"a {phase} step should launch each flash kernel once per layer "
+                             f"in its {mode} mode and nothing else: {launches}")
+    history = [first] + [eng.train_batch(batch) for _ in range(TRAIN_LONG_STEPS - 1)]
     losses = [m["loss"] for m in history]
     if not all(np.isfinite(losses + [m["grad_norm"] for m in history])):
         raise AssertionError(f"non-finite loss or grad_norm: {history}")
     if not losses[-1] < losses[0]:
-        raise AssertionError(f"the loss did not fall over {TRAIN_W_STEPS} steps: {losses}")
+        raise AssertionError(f"the loss did not fall over {TRAIN_LONG_STEPS} steps: {losses}")
     start = torch.cuda.Event(enable_timing=True)
     stop = torch.cuda.Event(enable_timing=True)
     torch.cuda.synchronize()
     start.record()
-    for _ in range(TRAIN_W_TIMED):
+    for _ in range(TRAIN_LONG_TIMED):
         eng.train_batch_async(batch)
     stop.record()
     torch.cuda.synchronize()
-    step_ms = start.elapsed_time(stop) / TRAIN_W_TIMED
-    tok_s = TRAIN_W_S / (step_ms / 1e3)
+    step_ms = start.elapsed_time(stop) / TRAIN_LONG_TIMED
+    tok_s = B * S / (step_ms / 1e3)
     breakdown = _where_time_goes(lambda: eng.train_batch(batch), top=10)
     peak_gib = torch.cuda.max_memory_allocated(dev) / 2**30
 
-    # -- kernel path vs plain paths, 2 layers at S = 6144 -----------------------
-    n_layers, S = TRAIN_W_PATH
+    # -- kernel path vs plain paths on one sequence, n_layers deep --------------
     master = eng.state.master
     sub = {k: v.detach().clone() for k, v in master.items() if k != "layers"}
     sub["layers"] = {k: v[:n_layers].detach().clone() for k, v in master["layers"].items()}
     del eng, master
     torch.cuda.empty_cache()
     pcfg = dataclasses.replace(mcfg, n_layers=n_layers)
-    one = np.random.default_rng(1).integers(0, mcfg.vocab_size, (1, S + 1)).astype(np.int32)
+    one = np.random.default_rng(1).integers(0, mcfg.vocab_size, (1, path_s + 1)).astype(np.int32)
     (nk, gk), (npl, gp), (n32, g32) = _grads_three_paths(T, sub, pcfg, one, dev)
     loss_stats = _path_errors("per-token loss", nk, npl, n32)
     unit = g32.square().mean().sqrt()
@@ -2128,18 +2294,20 @@ def run_train_window(dev):
     grad_stats["f32_grad_rms"] = unit.item()
     del gk, gp, g32, sub
     torch.cuda.empty_cache()
-    pairs = _live_pairs(TRAIN_W_S, WINDOW)
-    return {
-        "init_s": init_s, "launches": {n: c for n, c in launches.items() if c},
+    report = {
+        "init_s": init_s, "params": T.param_count(mcfg), "micro_batch": [B, S],
+        "launches": {n: c for n, c in launches.items() if c},
         "losses": losses, "grad_norms": [m["grad_norm"] for m in history],
         "step_ms": step_ms, "tokens_per_s": tok_s,
         # MFU counts attention as the JAX package's flops_per_token does
-        # (the causal 6 * L * S * E term, the window not discounted)
-        "mfu": tok_s * mcfg.flops_per_token(TRAIN_W_S) / H100_BF16_FLOPS,
-        "flops_per_token": mcfg.flops_per_token(TRAIN_W_S),
-        "attention_pairs_window_over_causal": pairs / _live_pairs(TRAIN_W_S, 0),
+        # (the causal 6 * L * S * E term; a window is not discounted)
+        "mfu": tok_s * mcfg.flops_per_token(S) / H100_BF16_FLOPS,
+        "flops_per_token": mcfg.flops_per_token(S),
         "peak_mem_gib": peak_gib, "where_time_goes": breakdown,
-        "path_check": {"layers": n_layers, "S": S, "loss": loss_stats, "grads": grad_stats}}
+        "path_check": {"layers": n_layers, "S": path_s, "loss": loss_stats, "grads": grad_stats}}
+    if mode == "window":
+        report["attention_pairs_window_over_causal"] = _live_pairs(S, WINDOW) / _live_pairs(S, 0)
+    return report
 
 
 # ---------------------------------------------------------------------------
@@ -2282,14 +2450,16 @@ def main():
     done("serve_alibi_int8", sa8)
     del bparams
     torch.cuda.empty_cache()
-    tw = run_train_window(dev)
-    done("train_window", tw)
+    trains = {}
+    for phase in TRAIN_LONG:
+        trains[phase] = run_train_long(dev, phase)
+        done(phase, trains[phase])
     ev = run_evoformer(dev)
     done("evoformer", ev)
 
     paths = {"train": tr, "serve": sl, "serve_int8": q8, "serve_window": sw,
              "serve_window_int8": sw8, "serve_alibi": sa, "serve_alibi_int8": sa8,
-             "train_window": tw, "evoformer": ev}
+             **trains, "evoformer": ev}
     line = []
     # each window or ALiBi mode is a path of its kernel: same source, same
     # TPU kernel

@@ -1,6 +1,7 @@
 // Causal flash-attention backward (recompute from the saved logsumexp) over
 // q, do [B, S, H, D] and k, v [B, S, KV, D] in bf16 with lse and
-// delta = rowsum(dO * O) as [B, H, S] f32. Two kernels:
+// delta = rowsum(dO * O) as [B, H, S] f32, in its causal, sliding-window
+// and ALiBi modes. Two kernels:
 //
 //   flash_bwd_dq   dq [B, S, H, D] bf16
 //   flash_bwd_dkv  dk, dv [B, S, KV, D] bf16 (GQA: summed over the group)
@@ -40,6 +41,21 @@
 // and the result is the same from run to run. 4 warps; warp w owns rows
 // 16w..16w+15 of the block's tile, so the element-wise passes need only
 // warp-level synchronisation.
+//
+// ALiBi (slopes != null, Bloom-class): the recomputed score of query row
+// r and key column c gains slopes[h] * (c - r) after the scale and before
+// the mask and the - lse, as the TPU kernels add it (_bwd_dq_kernel and
+// _bwd_dkv_kernel, both from the q head's SMEM slope). dq's block serves
+// one q head h; dkv's loop over the group visits q heads h = kv * G + g,
+// and each takes the slope of that q head, never of the KV head. The
+// exponent is fmaf(s, scale, fmaf(slope, c - r, -lse)), with slope 0 when
+// slopes == null: the bias joins the subtrahend, so a null pointer and
+// all-zero slopes both give fmaf(s, scale, -lse), the FFMA that the
+// causal and window modes compile s * scale - lse to, bit for bit. (The
+// forward rounds s * scale before it adds the bias; the two exponents
+// differ by an f32 rounding of values of the size of the score, far
+// below the bf16 rounding of P.) ALiBi and the window are independent
+// runtime arguments: one binary serves causal, window, ALiBi and both.
 
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
@@ -170,7 +186,8 @@ __global__ void __launch_bounds__(NT) flash_bwd_dq_kernel(
     __nv_bfloat16* __restrict__ dq, const __nv_bfloat16* __restrict__ q,
     const __nv_bfloat16* __restrict__ k, const __nv_bfloat16* __restrict__ v,
     const __nv_bfloat16* __restrict__ dout, const float* __restrict__ lse,
-    const float* __restrict__ delta, int S, int H, int KV, int window, float scale) {
+    const float* __restrict__ delta, const float* __restrict__ slopes, int S, int H, int KV,
+    int window, float scale) {
   using Lay = Layout<D>;
   extern __shared__ __align__(128) unsigned char smem[];
   __nv_bfloat16* qs = reinterpret_cast<__nv_bfloat16*>(smem + Lay::T0);
@@ -187,6 +204,7 @@ __global__ void __launch_bounds__(NT) flash_bwd_dq_kernel(
   const int b = bh / H;
   const int h = bh % H;
   const int kvh = h / (H / KV);
+  const float slope = slopes != nullptr ? slopes[h] : 0.f;  // of the q head, not the KV head
   const int q0 = blockIdx.y * BT;
   const int tid = threadIdx.x;
   const int r0 = (tid >> 5) * 16;
@@ -224,7 +242,8 @@ __global__ void __launch_bounds__(NT) flash_bwd_dq_kernel(
     rows_times_rows_t<D>(dps + r0 * Lay::LDS, Lay::LDS, dos + r0 * Lay::LDH, vs); // dP = dO V^T
     __syncwarp();
 
-    // P = exp(S * scale - lse) on live (row, col), dS = P (dP - delta) scale
+    // P = exp(S * scale + slope (col - row) - lse) on live (row, col),
+    // dS = P (dP - delta) scale
     for (int rr = 0; rr < 16; ++rr) {
       const int r = r0 + rr;
       const int row = q0 + r;
@@ -236,7 +255,7 @@ __global__ void __launch_bounds__(NT) flash_bwd_dq_kernel(
         const int col = k0 + c;
         float p = 0.f;
         if (row < S && col <= row && (window <= 0 || col > row - window))
-          p = expf(ss[r * Lay::LDS + c] * scale - l);
+          p = expf(fmaf(ss[r * Lay::LDS + c], scale, fmaf(slope, (float)(col - row), -l)));
         dss[r * Lay::LDP + c] = __float2bfloat16(p * (dps[r * Lay::LDS + c] - dl) * scale);
       }
     }
@@ -253,8 +272,8 @@ __global__ void __launch_bounds__(NT) flash_bwd_dkv_kernel(
     __nv_bfloat16* __restrict__ dk, __nv_bfloat16* __restrict__ dv,
     const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ k,
     const __nv_bfloat16* __restrict__ v, const __nv_bfloat16* __restrict__ dout,
-    const float* __restrict__ lse, const float* __restrict__ delta, int S, int H, int KV,
-    int window, float scale) {
+    const float* __restrict__ lse, const float* __restrict__ delta,
+    const float* __restrict__ slopes, int S, int H, int KV, int window, float scale) {
   using Lay = Layout<D>;
   extern __shared__ __align__(128) unsigned char smem[];
   __nv_bfloat16* ks = reinterpret_cast<__nv_bfloat16*>(smem + Lay::T0);
@@ -294,6 +313,7 @@ __global__ void __launch_bounds__(NT) flash_bwd_dkv_kernel(
   const int i_end = window > 0 ? min(nq, (k0 + BT - 1 + window - 1) / BT + 1) : nq;
   for (int g = 0; g < G; ++g) {
     const int h = kvh * G + g;  // query heads of a group are contiguous
+    const float slope = slopes != nullptr ? slopes[h] : 0.f;  // of q head h, not of kvh
     const size_t q_off = (size_t)b * S * q_row + (size_t)h * D;
     const float* lse_h = lse + ((size_t)b * H + h) * S;
     const float* delta_h = delta + ((size_t)b * H + h) * S;
@@ -323,7 +343,8 @@ __global__ void __launch_bounds__(NT) flash_bwd_dkv_kernel(
           const int qcol = q0 + c;
           float p = 0.f;
           if (qcol < S && krow <= qcol && (window <= 0 || krow > qcol - window))
-            p = expf(sts[r * Lay::LDS + c] * scale - lse_s[c]);
+            p = expf(fmaf(sts[r * Lay::LDS + c], scale,  // key krow is the column
+                          fmaf(slope, (float)(krow - qcol), -lse_s[c])));
           pts[r * Lay::LDP + c] = __float2bfloat16(p);
           float* dpt = dpts + r * Lay::LDS + c;
           *dpt = p * (*dpt - delta_s[c]) * scale;
@@ -352,8 +373,8 @@ __global__ void __launch_bounds__(NT) flash_bwd_dkv_kernel(
 
 template <int D>
 int launch_dq(void* dq, const void* q, const void* k, const void* v, const void* dout,
-              const void* lse, const void* delta, int B, int S, int H, int KV, int window,
-              float scale, cudaStream_t stream) {
+              const void* lse, const void* delta, const void* slopes, int B, int S, int H,
+              int KV, int window, float scale, cudaStream_t stream) {
   const int smem = (int)Layout<D>::BYTES;
   cudaError_t err = cudaFuncSetAttribute(flash_bwd_dq_kernel<D>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
@@ -362,14 +383,14 @@ int launch_dq(void* dq, const void* q, const void* k, const void* v, const void*
   flash_bwd_dq_kernel<D><<<grid, NT, smem, stream>>>(
       (__nv_bfloat16*)dq, (const __nv_bfloat16*)q, (const __nv_bfloat16*)k,
       (const __nv_bfloat16*)v, (const __nv_bfloat16*)dout, (const float*)lse,
-      (const float*)delta, S, H, KV, window, scale);
+      (const float*)delta, (const float*)slopes, S, H, KV, window, scale);
   return (int)cudaGetLastError();
 }
 
 template <int D>
 int launch_dkv(void* dk, void* dv, const void* q, const void* k, const void* v,
-               const void* dout, const void* lse, const void* delta, int B, int S, int H,
-               int KV, int window, float scale, cudaStream_t stream) {
+               const void* dout, const void* lse, const void* delta, const void* slopes,
+               int B, int S, int H, int KV, int window, float scale, cudaStream_t stream) {
   const int smem = (int)Layout<D>::BYTES;
   cudaError_t err = cudaFuncSetAttribute(flash_bwd_dkv_kernel<D>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
@@ -378,43 +399,49 @@ int launch_dkv(void* dk, void* dv, const void* q, const void* k, const void* v,
   flash_bwd_dkv_kernel<D><<<grid, NT, smem, stream>>>(
       (__nv_bfloat16*)dk, (__nv_bfloat16*)dv, (const __nv_bfloat16*)q,
       (const __nv_bfloat16*)k, (const __nv_bfloat16*)v, (const __nv_bfloat16*)dout,
-      (const float*)lse, (const float*)delta, S, H, KV, window, scale);
+      (const float*)lse, (const float*)delta, (const float*)slopes, S, H, KV, window, scale);
   return (int)cudaGetLastError();
 }
 
 }  // namespace
 
+// slopes: [H] f32 ALiBi slopes in q head order, or null for none
 extern "C" int flash_bwd_dq(void* dq, const void* q, const void* k, const void* v,
-                            const void* dout, const void* lse, const void* delta, int B, int S,
-                            int H, int KV, int D, int window, float scale, void* stream) {
+                            const void* dout, const void* lse, const void* delta,
+                            const void* slopes, int B, int S, int H, int KV, int D, int window,
+                            float scale, void* stream) {
   if (B <= 0 || S <= 0) return 0;
   if (KV <= 0 || H % KV != 0) return (int)cudaErrorInvalidValue;
   if (window > S) window = S;  // the same band, and no overflow in the tile bounds
   cudaStream_t st = (cudaStream_t)stream;
   switch (D) {
     case 64:
-      return launch_dq<64>(dq, q, k, v, dout, lse, delta, B, S, H, KV, window, scale, st);
+      return launch_dq<64>(dq, q, k, v, dout, lse, delta, slopes, B, S, H, KV, window, scale,
+                           st);
     case 128:
-      return launch_dq<128>(dq, q, k, v, dout, lse, delta, B, S, H, KV, window, scale, st);
+      return launch_dq<128>(dq, q, k, v, dout, lse, delta, slopes, B, S, H, KV, window, scale,
+                            st);
     default:
       return (int)cudaErrorInvalidValue;
   }
 }
 
+// slopes: as flash_bwd_dq; the group's q head kv * G + g takes slopes[kv * G + g]
 extern "C" int flash_bwd_dkv(void* dk, void* dv, const void* q, const void* k, const void* v,
-                             const void* dout, const void* lse, const void* delta, int B, int S,
-                             int H, int KV, int D, int window, float scale, void* stream) {
+                             const void* dout, const void* lse, const void* delta,
+                             const void* slopes, int B, int S, int H, int KV, int D, int window,
+                             float scale, void* stream) {
   if (B <= 0 || S <= 0) return 0;
   if (KV <= 0 || H % KV != 0) return (int)cudaErrorInvalidValue;
   if (window > S) window = S;  // the same band, and no overflow in the tile bounds
   cudaStream_t st = (cudaStream_t)stream;
   switch (D) {
     case 64:
-      return launch_dkv<64>(dk, dv, q, k, v, dout, lse, delta, B, S, H, KV, window, scale,
-                            st);
+      return launch_dkv<64>(dk, dv, q, k, v, dout, lse, delta, slopes, B, S, H, KV, window,
+                            scale, st);
     case 128:
-      return launch_dkv<128>(dk, dv, q, k, v, dout, lse, delta, B, S, H, KV, window, scale,
-                             st);
+      return launch_dkv<128>(dk, dv, q, k, v, dout, lse, delta, slopes, B, S, H, KV, window,
+                             scale, st);
     default:
       return (int)cudaErrorInvalidValue;
   }

@@ -12,11 +12,10 @@ Besides what serving shares (`_norm`, `_act_fn`, rotary tables,
 `model_alibi_slopes`, `init`, `param_count`), this module holds the
 training forward and loss: `forward_hidden`, `forward` and `make_loss_fn`,
 with the reference's remat policies mapped onto `torch.utils.checkpoint`.
-Serving covers dense Llama-class models (with sliding windows:
-Mistral-class) and Bloom-class ones (ALiBi, LayerNorm, biases, a non-gated
-MLP, an embedding LayerNorm: `unported_features`). Training covers the
-Llama-class ones, without dropout (`check_trained`); the Bloom-class knobs
-train with the next slice.
+Serving and training cover dense Llama-class models (with sliding
+windows: Mistral-class) and Bloom-class ones (ALiBi, LayerNorm, biases, a
+non-gated MLP, an embedding LayerNorm: `unported_features`); training
+without dropout (`check_trained`).
 """
 
 import dataclasses
@@ -600,25 +599,10 @@ def unported_features(cfg: TransformerConfig) -> List[str]:
 
 
 def check_trained(cfg: TransformerConfig) -> None:
-    """Raise NotImplementedError for a model the training slice does not
-    train: what serving does not cover; the Bloom-class knobs serving does
-    cover (ALiBi, whose flash backward kernels have no ALiBi mode yet,
-    LayerNorm, biases, a non-gated MLP, an embedding LayerNorm), which the
-    next slice trains; dropout, random-LTD layers and the remat modes with
-    no torch.utils.checkpoint mapping yet."""
-    bloom = [name for name, hit in {
-        "ALiBi": cfg.alibi,
-        "q/k/v, output or MLP biases": (cfg.has_qkv_bias or cfg.has_attn_out_bias
-                                        or cfg.has_mlp_bias),
-        "a non-gated MLP": not cfg.is_gated,
-        "LayerNorm": cfg.norm_kind != "rms",
-        "an embedding LayerNorm": cfg.embedding_layernorm,
-    }.items() if hit]
-    if bloom:
-        raise NotImplementedError(
-            f"the training slice does not train {', '.join(bloom)} yet: the next slice, "
-            "ALiBi training (ROADMAP B2, A19), ports them with the ALiBi modes of the "
-            "flash backward kernels #2/#3")
+    """Raise NotImplementedError for a model the port does not train: what
+    serving does not cover (`unported_features`), dropout, random-LTD
+    layers and the remat modes with no torch.utils.checkpoint mapping yet.
+    Every model it serves, Llama- and Bloom-class, it trains."""
     bad = unported_features(cfg) + [name for name, hit in {
         "dropout > 0": cfg.dropout > 0.0,
         "random-LTD layers": cfg.random_ltd_layer_range is not None,
@@ -626,7 +610,7 @@ def check_trained(cfg: TransformerConfig) -> None:
     }.items() if hit]
     if bad:
         raise NotImplementedError(
-            "the training slice trains dense Llama-class models only (remat "
+            "the port trains dense Llama- and Bloom-class models (remat "
             f"none|full|save_attn_qkv); this config uses {', '.join(bad)} "
             "(later slices port them)")
 
@@ -666,56 +650,75 @@ def _rope_at(x: torch.Tensor, rope, cfg: TransformerConfig) -> torch.Tensor:
 # ---------------------------------------------------------------------------
 
 def _attention_qkv(h: torch.Tensor, lp, cfg: TransformerConfig, rope):
-    """Normed input h [B, S, E] -> rope-rotated q [B, S, H, D] and k, v
-    [B, S, KV, D]: the residuals remat='save_attn_qkv' keeps."""
+    """Normed input h [B, S, E] -> q [B, S, H, D] and k, v [B, S, KV, D],
+    with the q/k/v biases where the model has them and rope-rotated where
+    it uses rope (`rope` is None under ALiBi): the residuals
+    remat='save_attn_qkv' keeps."""
     B, S, E = h.shape
     H, KV, D = cfg.n_heads, cfg.kv_heads, cfg.head_dim
     q = (h @ lp["wq"].to(h.dtype).reshape(E, H * D)).view(B, S, H, D)
     k = (h @ lp["wk"].to(h.dtype).reshape(E, KV * D)).view(B, S, KV, D)
     v = (h @ lp["wv"].to(h.dtype).reshape(E, KV * D)).view(B, S, KV, D)
-    return _rope_at(q, rope, cfg), _rope_at(k, rope, cfg), v
+    if cfg.has_qkv_bias:
+        q, k, v = (x + lp[b].to(h.dtype) for x, b in ((q, "bq"), (k, "bk"), (v, "bv")))
+    if cfg.use_rope:
+        q, k = _rope_at(q, rope, cfg), _rope_at(k, rope, cfg)
+    return q, k, v
 
 
-def _attention_out(att: torch.Tensor, lp) -> torch.Tensor:
-    """Attention output [B, S, H, D] -> its residual delta [B, S, E]."""
+def _attention_out(att: torch.Tensor, lp, cfg: TransformerConfig) -> torch.Tensor:
+    """Attention output [B, S, H, D] -> its residual delta [B, S, E], with
+    the output bias where the model has one."""
     B, S, H, D = att.shape
     wo = lp["wo"].to(att.dtype)
-    return att.reshape(B, S, H * D) @ wo.reshape(H * D, wo.shape[-1])
+    out = att.reshape(B, S, H * D) @ wo.reshape(H * D, wo.shape[-1])
+    return out + lp["bo"].to(att.dtype) if cfg.has_attn_out_bias else out
 
 
 def _mlp_delta(h: torch.Tensor, lp, cfg: TransformerConfig) -> torch.Tensor:
-    """Gated FFN branch over the NORMED input h; returns the residual
-    delta (the reference also returns MoE aux losses, always zero for the
-    dense models this slice trains)."""
+    """Dense FFN branch over the NORMED input h, gated or not, with the
+    biases the model has (as in the reference, a gated MLP takes only
+    b_out); returns the residual delta (the reference also returns MoE aux
+    losses, always zero for the dense models the port trains)."""
     act = _act_fn(cfg)
-    inner = act(h @ lp["w_gate"].to(h.dtype)) * (h @ lp["w_in"].to(h.dtype))
-    return inner @ lp["w_out"].to(h.dtype)
+    bias = cfg.has_mlp_bias
+    if cfg.is_gated:
+        inner = act(h @ lp["w_gate"].to(h.dtype)) * (h @ lp["w_in"].to(h.dtype))
+    else:
+        inner = h @ lp["w_in"].to(h.dtype)
+        inner = act(inner + lp["b_in"].to(h.dtype) if bias else inner)
+    out = inner @ lp["w_out"].to(h.dtype)
+    return out + lp["b_out"].to(h.dtype) if bias else out
 
 
 def _make_layer_body(cfg: TransformerConfig, use_kernel: bool = True):
-    """One transformer layer, body(h0, lp, rope, window) -> h (window: the
-    layer's sliding window, 0 = global), with cfg.remat mapped onto
+    """One transformer layer, body(h0, lp, rope, window, alibi) -> h
+    (window: the layer's sliding window, 0 = global; alibi: the model's
+    [H] slopes on the card, or None), with cfg.remat mapped onto
     torch.utils.checkpoint (non-reentrant):
 
     - "none": every activation autograd needs is kept;
     - "full": the whole body is recomputed in the backward (the flash
       forward included);
     - "save_attn_qkv": two checkpointed regions around the attention, the
-      pre-attention part (norm1, q/k/v projections, rope) and the
-      post-attention part (out projection, residual, norm2, MLP,
+      pre-attention part (norm1, q/k/v projections and biases, rope) and
+      the post-attention part (out projection, residual, norm2, MLP,
       residual). The flash Function sits between them, outside any
       checkpoint, so its saved q, k, v, o and lse persist: the backward
       runs no attention forward, only the projections and the MLP again.
     """
     def pre(h0, lp, rope):
-        return _attention_qkv(_norm(h0, lp["ln1_scale"], None, cfg), lp, cfg, rope)
+        return _attention_qkv(_norm(h0, lp["ln1_scale"], lp.get("ln1_bias"), cfg), lp, cfg,
+                              rope)
 
     def post(h0, att, lp):
-        hmid = h0 + _attention_out(att, lp)
-        return hmid + _mlp_delta(_norm(hmid, lp["ln2_scale"], None, cfg), lp, cfg)
+        hmid = h0 + _attention_out(att, lp, cfg)
+        return hmid + _mlp_delta(_norm(hmid, lp["ln2_scale"], lp.get("ln2_bias"), cfg), lp,
+                                 cfg)
 
-    def body(h0, lp, rope, window):
-        att = causal_attention(*pre(h0, lp, rope), use_flash=use_kernel, window=window)
+    def body(h0, lp, rope, window, alibi):
+        att = causal_attention(*pre(h0, lp, rope), use_flash=use_kernel, window=window,
+                               alibi=alibi)
         return post(h0, att, lp)
 
     def ckpt(fn, *args):
@@ -724,10 +727,11 @@ def _make_layer_body(cfg: TransformerConfig, use_kernel: bool = True):
     if cfg.remat == "none":
         return body
     if cfg.remat == "full":
-        return lambda h0, lp, rope, window: ckpt(body, h0, lp, rope, window)
+        return lambda *args: ckpt(body, *args)
 
-    def body_save_qkv(h0, lp, rope, window):
-        att = causal_attention(*ckpt(pre, h0, lp, rope), use_flash=use_kernel, window=window)
+    def body_save_qkv(h0, lp, rope, window, alibi):
+        att = causal_attention(*ckpt(pre, h0, lp, rope), use_flash=use_kernel, window=window,
+                               alibi=alibi)
         return ckpt(post, h0, att, lp)
 
     return body_save_qkv
@@ -741,16 +745,23 @@ def forward_hidden(params: Dict[str, Any], tokens: torch.Tensor, cfg: Transforme
     layers is a Python loop over views of the [L, ...] leaves (one unbind
     per leaf, so the backward stacks each leaf's gradient once). `rng` is
     accepted for the reference's signature; nothing here draws from it
-    (dropout raises in check_trained)."""
+    (dropout raises in check_trained). The rope tables, or the ALiBi
+    slopes, are made once per call on the tokens' device and shared by
+    every layer (the slopes' copy to the card waits for the queued work)."""
     check_trained(cfg)
+    device = tokens.device
+    rope = _rope_tables(torch.arange(tokens.shape[1], device=device), cfg) if cfg.use_rope \
+        else None
+    alibi = model_alibi_slopes(cfg).to(device) if cfg.alibi else None
     x = F.embedding(tokens.long(), params["embed"])
-    rope = _rope_tables(torch.arange(tokens.shape[1], device=tokens.device), cfg)
+    if cfg.embedding_layernorm:
+        x = _norm(x, params["embed_ln_scale"], params.get("embed_ln_bias"), cfg)
     body = _make_layer_body(cfg, use_kernel)
     views = {name: w.unbind(0) for name, w in params["layers"].items()}
     for li in range(cfg.n_layers):
         x = body(x, {name: ws[li] for name, ws in views.items()}, rope,
-                 cfg.window_for_layer(li))
-    return _norm(x, params["ln_f_scale"], None, cfg)
+                 cfg.window_for_layer(li), alibi)
+    return _norm(x, params["ln_f_scale"], params.get("ln_f_bias"), cfg)
 
 
 def _lm_head(params: Dict[str, Any], cfg: TransformerConfig) -> torch.Tensor:

@@ -14,7 +14,8 @@ plain forward on any device, differentiated by autograd: the reference
 the kernel path is compared with. window > 0 is the token-exact sliding
 window (Mistral-class) on both paths; `alibi` [H] slopes (Bloom-class)
 bias every score by slope_h * (key_pos - query_pos), alone or with a
-window. The flash backward does not take ALiBi yet: it raises.
+window, on both paths and in both directions (the flash backward kernels
+recompute P with the bias; the dense path is differentiated through it).
 """
 
 import math

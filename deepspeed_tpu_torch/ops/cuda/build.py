@@ -46,8 +46,8 @@ SIGNATURES = {
     "paged_decode": {"paged_decode": [_P] * 12 + [_I] * 10 + [_F, _P]},
     "flash_fwd": {"flash_fwd": [_P] * 6 + [_I] * 6 + [_F, _P]},
     "flash_bwd": {
-        "flash_bwd_dq": [_P] * 7 + [_I] * 6 + [_F, _P],
-        "flash_bwd_dkv": [_P] * 8 + [_I] * 6 + [_F, _P],
+        "flash_bwd_dq": [_P] * 8 + [_I] * 6 + [_F, _P],
+        "flash_bwd_dkv": [_P] * 9 + [_I] * 6 + [_F, _P],
     },
     "evoformer_fwd": {"evoformer_fwd": [_P] * 7 + [_I] * 5 + [_F, _P]},
     "evoformer_bwd": {

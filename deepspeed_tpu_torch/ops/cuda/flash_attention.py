@@ -18,8 +18,8 @@ CPU tensors they run the plain versions (`flash_attention_plain`,
 `flash_attention_bwd_plain`), which do the same recompute-from-lse math
 densely in f32 (P and dS rounded to the inputs' dtype where the kernels
 round them). Every kernel wrapper carries `launches`, raised by one
-per launch of its kernel, and `window_launches`, raised by one per launch
-in the sliding-window mode; the forward also `alibi_launches`.
+per launch of its kernel, `window_launches`, raised by one per launch in
+the sliding-window mode, and `alibi_launches`, in the ALiBi mode.
 
 Sliding window (`window` > 0, Mistral-class; the reference's token-exact
 mode): query row r attends to key column c iff r - window < c <= r.
@@ -30,13 +30,13 @@ ALiBi (`alibi`: [H] f32 slopes, Bloom-class): the score of query row r and
 key column c of q head h gains slope_h * (c - r) after the 1/sqrt(D) scale
 and before the mask, as in the reference's kernel and _xla_attention. It
 composes with the window. With GQA the slope is that of the q head, not
-of its KV head. Only the forward takes it in this slice: the backward
-kernels' ALiBi mode comes with ALiBi training (ROADMAP B2), and until then
-a gradient through an ALiBi forward raises.
+of its KV head. The backward recomputes P with the same bias (in dk and
+dv, each q head of a group with its own slope); the slopes carry no
+gradient (architectural constants, as in the reference's rule).
 
-Not in this slice either (ROADMAP B2): the lse cotangent of
-`flash_attention_with_lse` (`delta_adjust`, used only by ring attention):
-a loss that reaches lse raises in the backward.
+Not ported yet (ROADMAP B3, with the non-causal mode): the lse cotangent
+of `flash_attention_with_lse` (`delta_adjust`, used only by ring
+attention): a loss that reaches lse raises in the backward.
 """
 
 import torch
@@ -92,10 +92,11 @@ def _delta(o, do):
     return (do.float() * o.float()).sum(-1).transpose(1, 2).contiguous()
 
 
-def _bwd_plain(q, k, v, lse, delta, do, window: int = 0):
+def _bwd_plain(q, k, v, lse, delta, do, window: int = 0, alibi=None):
     """Dense f32 backward from the saved lse and delta: returns dq, dk, dv
     in the inputs' dtypes, the GQA heads of each group summed into their
-    KV head. P and dS are rounded to the inputs' dtype before their
+    KV head; P recomputed with the ALiBi bias of the [H] slopes `alibi`
+    when given. P and dS are rounded to the inputs' dtype before their
     products, as the reference kernel does (`ds.astype(k.dtype)`) and as
     kernels #2 and #3 do for the tensor cores: a no-op in f32, bf16
     rounding for bf16 inputs."""
@@ -103,7 +104,7 @@ def _bwd_plain(q, k, v, lse, delta, do, window: int = 0):
     KV = k.shape[2]
     G = H // KV
     scale = 1.0 / D ** 0.5
-    p = torch.exp(_causal_logits(q, k, window) - lse[..., None].float())  # masked -> 0
+    p = torch.exp(_causal_logits(q, k, window, alibi) - lse[..., None].float())  # masked -> 0
     dof = do.float()
     vf = _repeat_kv(v, G).float()
     dp = torch.einsum("bqhd,bkhd->bhqk", dof, vf)
@@ -117,12 +118,13 @@ def _bwd_plain(q, k, v, lse, delta, do, window: int = 0):
     return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
 
 
-def flash_attention_bwd_plain(q, k, v, o, lse, do, window: int = 0):
+def flash_attention_bwd_plain(q, k, v, o, lse, do, window: int = 0, alibi=None):
     """The plain version of the flash backward: dense f32 recompute of the
     probabilities from lse (what kernels #2 and #3 compute tile by tile),
-    P and dS rounded to the inputs' dtype as the kernels round them.
-    Returns (dq, dk, dv) in the inputs' dtypes."""
-    return _bwd_plain(q, k, v, lse, _delta(o, do), do, window)
+    ALiBi-biased by `alibi` when given, P and dS rounded to the inputs'
+    dtype as the kernels round them. Returns (dq, dk, dv) in the inputs'
+    dtypes."""
+    return _bwd_plain(q, k, v, lse, _delta(o, do), do, window, alibi)
 
 
 def _check_attention_args(what, tensors, dtypes, q, k):
@@ -147,6 +149,13 @@ _BF16 = torch.bfloat16
 _F32 = torch.float32
 
 
+def _check_slopes(what, q, alibi):
+    """ALiBi slopes: [H] f32 on q's card, contiguous."""
+    if alibi is not None:
+        check_cuda_args(what, {"q": q, "alibi": alibi}, {"q": _BF16, "alibi": _F32})
+        check_shape(what, "alibi", alibi, (q.shape[2],))
+
+
 def flash_fwd(q, k, v, window: int = 0, alibi=None):
     """Causal attention forward (kernel #1: csrc/flash_fwd.cu), banded to
     `window` when it is > 0, ALiBi-biased by `alibi` ([H] f32 slopes, one
@@ -158,10 +167,8 @@ def flash_fwd(q, k, v, window: int = 0, alibi=None):
     what = "flash_fwd"
     _check_attention_args(what, {"q": q, "k": k, "v": v},
                           {"q": _BF16, "k": _BF16, "v": _BF16}, q, k)
+    _check_slopes(what, q, alibi)
     B, S, H, D = q.shape
-    if alibi is not None:
-        check_cuda_args(what, {"q": q, "alibi": alibi}, {"q": _BF16, "alibi": _F32})
-        check_shape(what, "alibi", alibi, (H,))
     o = torch.empty_like(q)
     lse = torch.empty((B, H, S), dtype=_F32, device=q.device)
     if B * S == 0:
@@ -180,87 +187,85 @@ flash_fwd.launches = flash_fwd.window_launches = flash_fwd.alibi_launches = 0
 _BWD_DTYPES = {"q": _BF16, "k": _BF16, "v": _BF16, "do": _BF16, "lse": _F32, "delta": _F32}
 
 
-def flash_bwd_dq(q, k, v, do, lse, delta, window: int = 0):
-    """dq of causal attention (kernel #2: csrc/flash_bwd.cu), banded to
-    `window` when it is > 0, from the forward's lse and delta =
-    rowsum(dO * O): q, do [B, S, H, D] bf16, k, v [B, S, KV, D] bf16, lse,
-    delta [B, H, S] f32, all contiguous. Returns dq [B, S, H, D] bf16. CPU
-    tensors take the plain version."""
-    if not q.is_cuda:
-        return _bwd_plain(q, k, v, lse, delta, do, window)[0]
-    what = "flash_bwd_dq"
+def _launch_bwd(what, q, k, v, do, lse, delta, window, alibi, outs):
+    """Check the arguments of a backward kernel and launch it into `outs`
+    (dq, or dk and dv); returns False, launching nothing, for an empty
+    batch or sequence."""
     _check_attention_args(what, {"q": q, "k": k, "v": v, "do": do, "lse": lse,
                                  "delta": delta}, _BWD_DTYPES, q, k)
+    _check_slopes(what, q, alibi)
     B, S, H, D = q.shape
-    dq = torch.empty_like(q)
     if B * S == 0:
-        return dq
+        return False
     lib = build.load("flash_bwd")
-    err = lib.flash_bwd_dq(ptr(dq), ptr(q), ptr(k), ptr(v), ptr(do), ptr(lse), ptr(delta),
-                           B, S, H, k.shape[2], D, int(window), 1.0 / D ** 0.5, stream_of(q))
+    err = getattr(lib, what)(*(ptr(t) for t in outs), ptr(q), ptr(k), ptr(v), ptr(do),
+                             ptr(lse), ptr(delta), None if alibi is None else ptr(alibi), B, S,
+                             H, k.shape[2], D, int(window), 1.0 / D ** 0.5, stream_of(q))
     build.check(lib, err, what)
-    count_launch(flash_bwd_dq, window)
+    return True
+
+
+def flash_bwd_dq(q, k, v, do, lse, delta, window: int = 0, alibi=None):
+    """dq of causal attention (kernel #2: csrc/flash_bwd.cu), banded to
+    `window` when it is > 0, ALiBi-biased by `alibi` ([H] f32 slopes) when
+    given, from the forward's lse and delta = rowsum(dO * O): q, do [B, S,
+    H, D] bf16, k, v [B, S, KV, D] bf16, lse, delta [B, H, S] f32, all
+    contiguous. Returns dq [B, S, H, D] bf16. CPU tensors take the plain
+    version."""
+    if not q.is_cuda:
+        return _bwd_plain(q, k, v, lse, delta, do, window, alibi)[0]
+    dq = torch.empty_like(q)
+    if _launch_bwd("flash_bwd_dq", q, k, v, do, lse, delta, window, alibi, (dq,)):
+        count_launch(flash_bwd_dq, window, alibi is not None)
     return dq
 
 
-flash_bwd_dq.launches = flash_bwd_dq.window_launches = 0
+flash_bwd_dq.launches = flash_bwd_dq.window_launches = flash_bwd_dq.alibi_launches = 0
 
 
-def flash_bwd_dkv(q, k, v, do, lse, delta, window: int = 0):
+def flash_bwd_dkv(q, k, v, do, lse, delta, window: int = 0, alibi=None):
     """dk and dv of causal attention (kernel #3: csrc/flash_bwd.cu), each
     KV head's gradient summed over its group of query heads inside the
-    kernel (no atomics: the same bits every run). Arguments as
-    `flash_bwd_dq`. Returns (dk, dv) [B, S, KV, D] bf16. CPU tensors take
-    the plain version."""
+    kernel (no atomics: the same bits every run), each q head with its own
+    ALiBi slope. Arguments as `flash_bwd_dq`. Returns (dk, dv) [B, S, KV,
+    D] bf16. CPU tensors take the plain version."""
     if not q.is_cuda:
-        return _bwd_plain(q, k, v, lse, delta, do, window)[1:]
-    what = "flash_bwd_dkv"
-    _check_attention_args(what, {"q": q, "k": k, "v": v, "do": do, "lse": lse,
-                                 "delta": delta}, _BWD_DTYPES, q, k)
-    B, S, H, D = q.shape
-    dk = torch.empty_like(k)
-    dv = torch.empty_like(v)
-    if B * S == 0:
-        return dk, dv
-    lib = build.load("flash_bwd")
-    err = lib.flash_bwd_dkv(ptr(dk), ptr(dv), ptr(q), ptr(k), ptr(v), ptr(do), ptr(lse),
-                            ptr(delta), B, S, H, k.shape[2], D, int(window), 1.0 / D ** 0.5,
-                            stream_of(q))
-    build.check(lib, err, what)
-    count_launch(flash_bwd_dkv, window)
+        return _bwd_plain(q, k, v, lse, delta, do, window, alibi)[1:]
+    dk, dv = torch.empty_like(k), torch.empty_like(v)
+    if _launch_bwd("flash_bwd_dkv", q, k, v, do, lse, delta, window, alibi, (dk, dv)):
+        count_launch(flash_bwd_dkv, window, alibi is not None)
     return dk, dv
 
 
-flash_bwd_dkv.launches = flash_bwd_dkv.window_launches = 0
+flash_bwd_dkv.launches = flash_bwd_dkv.window_launches = flash_bwd_dkv.alibi_launches = 0
 
 
-def flash_attention_bwd(q, k, v, o, lse, do, window: int = 0):
+def flash_attention_bwd(q, k, v, o, lse, do, window: int = 0, alibi=None):
     """(dq, dk, dv) of causal attention from the forward's residuals: the
     two backward kernels for CUDA tensors (delta computed here, as the
     reference computes it outside its kernels), the plain version for CPU
     tensors."""
     if not q.is_cuda:
-        return flash_attention_bwd_plain(q, k, v, o, lse, do, window)
+        return flash_attention_bwd_plain(q, k, v, o, lse, do, window, alibi)
     delta = _delta(o, do)
-    return ((flash_bwd_dq(q, k, v, do, lse, delta, window),)
-            + flash_bwd_dkv(q, k, v, do, lse, delta, window))
+    return ((flash_bwd_dq(q, k, v, do, lse, delta, window, alibi),)
+            + flash_bwd_dkv(q, k, v, do, lse, delta, window, alibi))
 
 
 class FlashAttention(torch.autograd.Function):
     """Causal flash attention with its backward (the reference's
-    `_flash` custom VJP). forward(q, k, v, window, alibi) -> (o, lse); the
-    lse output carries no gradient in this slice (a cotangent reaching it
-    raises), and neither does an ALiBi forward: the backward kernels have
-    no ALiBi mode yet, and a gradient that left the bias out would be
-    wrong without an error, so it raises."""
+    `_flash` custom VJP). forward(q, k, v, window, alibi) -> (o, lse).
+    The backward takes the window and the ALiBi slopes the forward took;
+    neither carries a gradient (the reference returns zeros for the
+    slopes). The lse output carries none yet: a cotangent reaching it
+    raises (ROADMAP B3)."""
 
     @staticmethod
     def forward(ctx, q, k, v, window, alibi):
         q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
         o, lse = flash_fwd(q, k, v, window, alibi)
-        ctx.save_for_backward(q, k, v, o, lse)
+        ctx.save_for_backward(q, k, v, o, lse, alibi)
         ctx.window = window
-        ctx.alibi = alibi is not None
         ctx.set_materialize_grads(False)
         return o, lse
 
@@ -270,16 +275,12 @@ class FlashAttention(torch.autograd.Function):
             raise NotImplementedError(
                 "a gradient through flash_attention's lse (the reference's "
                 "delta_adjust, used by ring attention) is not ported yet "
-                "(ROADMAP B2)")
+                "(ROADMAP B3, with the non-causal mode)")
         if do is None:
             return None, None, None, None, None
-        if ctx.alibi:
-            raise NotImplementedError(
-                "the flash backward has no ALiBi mode yet: kernels #2/#3 take it with "
-                "the next slice, ALiBi training (ROADMAP B2)")
-        q, k, v, o, lse = ctx.saved_tensors
-        return flash_attention_bwd(q, k, v, o, lse, do.contiguous(), ctx.window) + (None,
-                                                                                    None)
+        q, k, v, o, lse, alibi = ctx.saved_tensors
+        return flash_attention_bwd(q, k, v, o, lse, do.contiguous(), ctx.window,
+                                   alibi) + (None, None)
 
 
 def flash_attention(q, k, v, window: int = 0, alibi=None):
@@ -287,8 +288,8 @@ def flash_attention(q, k, v, window: int = 0, alibi=None):
     GPU), banded to the last `window` positions when window > 0, biased
     by the [H] ALiBi slopes `alibi` when given (a tensor, array or list;
     pass an f32 tensor on q's device to spare a copy per call).
-    Differentiable in q, k and v without ALiBi; with it the backward
-    raises (next slice). Returns (o [B, S, H, D], lse [B, H, S] f32)."""
+    Differentiable in q, k and v. Returns (o [B, S, H, D], lse [B, H, S]
+    f32)."""
     if alibi is not None:
         alibi = torch.as_tensor(alibi, dtype=_F32, device=q.device).reshape(q.shape[2])
     return FlashAttention.apply(q, k, v, int(window), alibi)

@@ -775,6 +775,105 @@ class TestAlibiOnCard:
         assert PK.window_launch_counts()["flash_fwd[window]"] == 1
 
 
+@pytest.mark.cuda
+class TestAlibiBackwardOnCard:
+    """The ALiBi modes of kernels #2 (dq) and #3 (dk, dv) against the plain
+    backward on the forward kernel's o and lse, on the same bf16 inputs,
+    under `bwd_mismatch`; all-zero slopes bit-identical to the backward
+    without ALiBi and windows >= S to the causal ALiBi backward (on the
+    same lse and delta); planted faults in the backward alone (the
+    forward's lse kept) caught: the slopes rotated by one head, the bias's
+    sign flipped, the bias dropped, and with GQA each q head given the
+    slope of its KV head's index (dk, dv); the [alibi] launch counters;
+    and the Function's gradients."""
+
+    def _case(self, rng, d, B, S, H, KV, D, window=0, scale=1.0):
+        q, k, v, do = (_bf16_cuda(rng.standard_normal(s), d)
+                       for s in ((B, S, H, D), (B, S, KV, D), (B, S, KV, D), (B, S, H, D)))
+        sl = _slopes(H, d, scale)
+        o, lse = PF.flash_fwd(q, k, v, window, sl)
+        return q, k, v, do, sl, o, lse, PF._delta(o, do)
+
+    @staticmethod
+    def _bwd(q, k, v, do, lse, delta, window, sl):
+        return (PF.flash_bwd_dq(q, k, v, do, lse, delta, window, sl),) + \
+            PF.flash_bwd_dkv(q, k, v, do, lse, delta, window, sl)
+
+    @pytest.mark.parametrize("window", [0, 100])
+    @pytest.mark.parametrize("S,H,KV,D,scale", [(2048, 32, 32, 128, 1.0), (300, 32, 32, 64, 0.125),
+                                                (300, 8, 2, 128, 1.0), (200, 6, 3, 64, 1.0)])
+    def test_kernels_match_plain(self, rng, cuda_device, S, H, KV, D, scale, window):
+        q, k, v, do, sl, o, lse, delta = self._case(rng, cuda_device, 1 if S > 1000 else 2, S,
+                                                    H, KV, D, window, scale)
+        got = self._bwd(q, k, v, do, lse, delta, window, sl)
+        ref = PF.flash_attention_bwd_plain(q, k, v, o, lse, do, window, sl)
+        torch.cuda.synchronize()
+        for name, g, r in zip(("dq", "dk", "dv"), got, ref):
+            _assert_grad_close(g, r, f"{name} S={S} H={H} KV={KV} D={D} window={window}")
+
+    @pytest.mark.parametrize("D", [64, 128])
+    def test_off_and_wide_window_are_bit_identical(self, rng, cuda_device, D):
+        q, k, v, do, sl, o, lse, delta = self._case(rng, cuda_device, 2, 300, 8, 2, D)
+        base = self._bwd(q, k, v, do, lse, delta, 0, None)
+        zero = self._bwd(q, k, v, do, lse, delta, 0, torch.zeros_like(sl))
+        alibi = self._bwd(q, k, v, do, lse, delta, 0, sl)
+        torch.cuda.synchronize()
+        assert all(torch.equal(a, b) for a, b in zip(zero, base))
+        for window in (300, 10 ** 6):
+            wide = self._bwd(q, k, v, do, lse, delta, window, sl)
+            assert all(torch.equal(a, b) for a, b in zip(wide, alibi)), window
+
+    def test_planted_faults_are_caught(self, rng, cuda_device):
+        H, KV = 8, 2
+        q, k, v, do, sl, o, lse, delta = self._case(rng, cuda_device, 2, 300, H, KV, 128)
+        ref = PF.flash_attention_bwd_plain(q, k, v, o, lse, do, 0, sl)
+        kv_index = sl[torch.arange(H, device=cuda_device) // (H // KV)]
+        for fault, hit in ((torch.roll(sl, 1), 3), (-sl, 3), (None, 3), (kv_index, 2)):
+            got = self._bwd(q, k, v, do, lse, delta, 0, fault)
+            for g, r in list(zip(got, ref))[3 - hit:]:  # kv_index: dk and dv
+                assert PF.bwd_mismatch(g, r)["n_over"] > 0
+
+    def test_alibi_launches_are_counted(self, rng, cuda_device):
+        q, k, v, do, sl, o, lse, delta = self._case(rng, cuda_device, 1, 128, 4, 2, 128)
+        PK.reset_launch_counts()
+        self._bwd(q, k, v, do, lse, delta, 0, sl)
+        self._bwd(q, k, v, do, lse, delta, 16, None)
+        counts, alibi = PK.launch_counts(), PK.alibi_launch_counts()
+        assert counts["flash_bwd_dq"] == counts["flash_bwd_dkv"] == 2
+        assert alibi["flash_bwd_dq[alibi]"] == alibi["flash_bwd_dkv[alibi]"] == 1
+        assert PK.window_launch_counts()["flash_bwd_dkv[window]"] == 1
+
+    @pytest.mark.parametrize("window", [0, 40])
+    def test_function_grads_match_plain_backward(self, rng, cuda_device, window):
+        """flash_attention's gradients with slopes are the kernels' on the
+        forward kernel's residuals, under `bwd_mismatch`, and the gradient
+        of ALiBi attention: against autograd through the dense plain
+        forward in f32 within 2^-7 of the gradient's RMS (as the causal
+        Function test above)."""
+        q, k, v, do, sl, o, lse, delta = self._case(rng, cuda_device, 2, 300, 8, 2, 128, window)
+        leaves = [t.clone().requires_grad_() for t in (q, k, v)]
+        PK.reset_launch_counts()
+        got = torch.autograd.grad(PF.flash_attention(*leaves, window=window, alibi=sl)[0],
+                                  leaves, do)
+        assert PK.alibi_launch_counts()["flash_bwd_dkv[alibi]"] == 1
+        same = PF.flash_attention_bwd_plain(q, k, v, o, lse, do, window, sl)
+        leaves = [t.float().clone().requires_grad_() for t in (q, k, v)]
+        dense = torch.autograd.grad(PF.flash_attention_plain(*leaves, window, sl)[0], leaves,
+                                    do.float())
+        for name, g, r, d in zip(("dq", "dk", "dv"), got, same, dense):
+            _assert_grad_close(g, r, name)
+            assert _rms(g.float() - d) <= 2.0 ** -7 * _rms(d), name
+
+    def test_wrappers_reject_bad_slopes(self, rng, cuda_device):
+        q, k, v, do, sl, o, lse, delta = self._case(rng, cuda_device, 1, 64, 4, 2, 128)
+        with pytest.raises(ValueError):
+            PF.flash_bwd_dq(q, k, v, do, lse, delta, 0, sl[:2].contiguous())
+        with pytest.raises(TypeError):
+            PF.flash_bwd_dkv(q, k, v, do, lse, delta, 0, sl.double())
+        with pytest.raises(ValueError):
+            PF.flash_bwd_dkv(q, k, v, do, lse, delta, 0, sl.cpu())
+
+
 def _new_col_at_zero(mode, q, pools, tbl, ctx, kn, vn, slots, slopes):
     """What a fused kernel that biased its new column at position 0 (not
     ctx - 1) would output: the plain fused version's written pools,

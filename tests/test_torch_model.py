@@ -75,7 +75,8 @@ class TestConfigAndInit:
         """Sliding windows (Mistral-class, per-layer patterns) are served
         since the window modes of the kernels were ported; a window beside
         ALiBi is served too (the band and the slopes are independent
-        arguments of every kernel), and training it raises for the ALiBi."""
+        arguments of every kernel), and trained: its loss is finite and
+        reaches every weight."""
         pc = torch_config(**over)
         PM.check_served(pc)
         params = PT.init(pc, torch.Generator().manual_seed(0), device="cpu")
@@ -83,9 +84,16 @@ class TestConfigAndInit:
         logits, _ = PM.prefill_batch(params, cache, torch.arange(24).reshape(1, 24),
                                      torch.tensor([24]), torch.arange(8).reshape(1, 8), pc)
         assert logits.shape == (1, pc.vocab_size) and torch.isfinite(logits).all()
-        PM.check_served(torch_config(**over, alibi=True))
-        with pytest.raises(NotImplementedError, match="ALiBi"):
-            PT.check_trained(torch_config(**over, alibi=True))
+        ac = torch_config(**over, alibi=True)
+        PM.check_served(ac)
+        PT.check_trained(ac)
+        live = {k: ({n: w.requires_grad_() for n, w in v.items()} if k == "layers"
+                    else v.requires_grad_()) for k, v in params.items()}
+        loss = PT.make_loss_fn(ac)(live, {"tokens": np.arange(25).reshape(1, 25) % 512}, None)
+        assert torch.isfinite(loss)
+        loss.backward()
+        assert all(w.grad is not None and w.grad.abs().max() > 0
+                   for w in live["layers"].values())
 
     def test_convert_rejects_mismatched_tree(self):
         cfg = jax_config()

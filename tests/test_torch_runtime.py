@@ -348,18 +348,20 @@ class TestLeftOutRaises:
     @pytest.mark.parametrize("over", [
         {"remat": "dots"}, {"remat": "save_attn"}, {"remat": "save_attn_mlp"},
         {"remat": "save_attn_dots"}, {"dropout": 0.1}, {"n_experts": 2},
-        {"random_ltd_layer_range": (0, 1)}, {"activation_quant_bits": 8}, {"alibi": True},
-        {"variant": "gpt2"}, {"use_flash": False},
+        {"random_ltd_layer_range": (0, 1)}, {"activation_quant_bits": 8},
+        {"parallel_residual": True}, {"variant": "gpt2"}, {"use_flash": False},
     ])
     def test_model_raises(self, over):
         with pytest.raises(NotImplementedError):
             PT.make_loss_fn(PT.TransformerConfig(**{**MODEL, **over}))
 
     @pytest.mark.parametrize("over", [{"sliding_window": 4},
-                                      {"attention_window_pattern": (0, 4), "n_layers": 2}])
+                                      {"attention_window_pattern": (0, 4), "n_layers": 2},
+                                      {"sliding_window": 4, "alibi": True}])
     def test_window_models_train(self, over):
         """Sliding-window models train since the window modes of the flash
-        kernels were ported: two steps on a fixed batch, finite and falling."""
+        kernels were ported, and with ALiBi since its backward modes were:
+        two steps on a fixed batch, finite and falling."""
         pc = PT.TransformerConfig(**{**MODEL, **over})
         eng = pds.initialize({"train_micro_batch_size_per_gpu": 1,
                               "optimizer": {"type": "adamw", "params": {"lr": 1e-2}}},

@@ -214,11 +214,18 @@ class TestFlashWindow:
             assert torch.equal(g, r)
 
     def test_alibi_still_raises(self, rng):
-        """Window + ALiBi runs forward (served); its backward still raises."""
-        q, k, v, _ = (_t(a).requires_grad_() for a in _qkv(rng, 1, 16, 2, 2, 64))
-        o, _ = PF.flash_attention(q, k, v, window=8, alibi=[0.5, 0.25])
-        with pytest.raises(NotImplementedError, match="B2"):
-            o.sum().backward()
+        """(Named for the refusal it pinned until the flash backward took
+        ALiBi.) Window + ALiBi runs forward and backward: the Function's
+        gradient equals autograd through the dense plain forward (1e-5)."""
+        q, k, v, do = (_t(a) for a in _qkv(rng, 1, 16, 2, 2, 64))
+        leaves_ = [t.clone().requires_grad_() for t in (q, k, v)]
+        o, _ = PF.flash_attention(*leaves_, window=8, alibi=[0.5, 0.25])
+        got = torch.autograd.grad(o, leaves_, do)
+        leaves_ = [t.clone().requires_grad_() for t in (q, k, v)]
+        slopes = torch.tensor([0.5, 0.25])
+        ref = torch.autograd.grad(PF.flash_attention_plain(*leaves_, 8, slopes)[0], leaves_, do)
+        for g, r in zip(got, ref):
+            np.testing.assert_allclose(g.numpy(), r.numpy(), rtol=1e-5, atol=1e-5)
 
 
 # ---------------------------------------------------------------------------

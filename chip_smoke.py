@@ -41,7 +41,15 @@ Phases (any failure raises and exits nonzero):
              forward's o and lse, all-zero slopes and windows >= S
              bit-identical, and faults in the backward alone that must
              fail: slopes rotated, sign flipped, with GQA the KV head's
-             slope, the bias dropped; time
+             slope, the bias dropped; the layout-bitmap modes of #4 and #5
+             in all four decode modes at Llama-2-7B's shape (8 rows with ctx
+             ~100 to ~4,000, 32 x 128 heads) at 128-token cache blocks and
+             at 16-token ones (DeepSpeed's FixedSparsityConfig block, where
+             a kernel tile spans four blocks), with the fixed layout's rows,
+             a bigbird layout's and random bitmaps, an all-ones bitmap
+             bit-identical to none, and planted faults that must fail: the
+             kernel given all ones, the bitmap shifted by one block, at bs
+             16 each group of four blocks given its first block's bit; time
              kernel, plain version and (where one exists) a single
              PyTorch library call computing the same function: device time
              from torch.profiler, and the time of back-to-back calls from
@@ -122,6 +130,30 @@ Phases (any failure raises and exits nonzero):
 4g. serve_alibi_int8 - the same on int8 pools and the same weights; only
              the int8 kernels and flash_fwd may launch; the checks against
              the plain int8 paths.
+4j. serve_sparse (run after 4g) - Llama-2-7B (LLAMA2_7B: 32 layers,
+             d_model 4096, 32 x 128 heads, d_ff 11008, vocab 32000, untied;
+             random bf16 weights, seed 0) with a fixed block-sparse layout
+             (block 128, 4 local blocks, 1 global) in init_inference on
+             bf16 pools (SERVE_S: 80 blocks of 128 tokens, max_seq_len
+             4096), after BLOOM's weights are freed; counted: a 3968-token
+             prompt, a wave of 7 x 96-token prompts, a single-token decode
+             put, a 2-token continuation of the long sequence (the
+             plain-mode kernel with a bitmap at ctx ~3970), greedy
+             decode_multi_fn(8, 24) and a 40-token prompt (the masked
+             prefill). #4, #5 and #6 must launch and nothing else (no
+             flash: the prefill is the block gather), each decode launch in
+             its layout-bitmap mode. Checks: finite logits; prefill and
+             decode logits of all 32 layers by the kernel path within 1.5x
+             / 2x of the bf16 plain path's error against f32 (the plain
+             path's decode takes the per-position mask); locality: NaN in
+             every pool row of the long sequence that its layout row does
+             not attend, in every layer, the next decode's logits (fused
+             and plain mode) finite and bit-identical. Reports TTFT of
+             fresh 512- and 3968-token prompts, batch-8 decode throughput,
+             where the time goes, peak memory.
+4k. serve_sparse_int8 - the same on int8 pools and the same weights; only
+             the int8 kernels may launch; the checks against the plain int8
+             paths.
 4h. train_alibi - BLOOM-7B1's width, 4 layers deep (all 30 with fp32
              master and Adam moments are 113 GB), with the flagship's
              settings on a 4 x 2048 micro-batch, as train_window: one
@@ -297,8 +329,38 @@ FALCON_RW = dict(vocab_size=50304, n_layers=24, n_heads=32, n_kv_heads=32, d_mod
                  rope_theta=10000.0, norm_eps=1e-5, tie_embeddings=True, alibi=True,
                  alibi_slope_scale=1.0 / 8.0)
 TRAIN_F_MODEL = dict(FALCON_RW, remat="save_attn_qkv", use_flash=True)
+# the block-sparse path: Llama-2-7B (meta-llama/Llama-2-7b-hf config.json as
+# the JAX package's config_from_hf maps it, utils/hf_checkpoint.py; the
+# shape of bench.py's _serving_7b_bench), random weights from seed 0, full
+# width and depth: 6,738,415,616 parameters, 13.5 GB in bf16, 524,288 KV
+# bytes per token (64 MiB a 128-token block). Served with a fixed sparse
+# layout: DeepSpeed's FixedSparsityConfig defaults (4 local blocks, 1
+# global), the block raised from its 16 to the 128-token cache block, so
+# that the JAX engine itself takes the kernel route
+LLAMA2_7B = dict(variant="llama", vocab_size=32000, n_layers=32, d_model=4096, n_heads=32,
+                 n_kv_heads=32, d_ff=11008, rope_theta=10000.0, norm_eps=1e-5,
+                 tie_embeddings=False, max_seq=4096, attention_impl="sparse",
+                 sparse_mode="fixed", sparse_block=128, sparse_num_local_blocks=4,
+                 sparse_num_global_blocks=1)
+# 80 blocks of 128 tokens, 5 GiB of bf16 pools: the counted sequence below
+# holds 40, a fresh 3968-token prompt 31 more
+SERVE_S = dict(max_seq_len=4096, kv_block_size=128, num_kv_blocks=80,
+               min_prefill_bucket=64, max_batch_size=64)
+# one 3968-token prompt (bucket 4096) and 7 x 96; its 2-token continuation
+# and decode_multi's long row at ctx ~3971-3994 (layout block 31: blocks 0
+# and 28-31 attended, 1-27 skipped); TTFT of fresh 512- and 3968-token
+# prompts; a 40-token prompt, whose 64-token bucket is shorter than the
+# 128-token layout block (the masked prefill)
+S_LONG, S_PROMPTS, S_TTFT, S_SHORT = 3968, 7, 512, 40
 # phase 2's ALiBi decode rows: ctx ~100 to ~2,000 (several mid-block)
 DECODE_ALIBI_CTX = (100, 371, 642, 913, 1184, 1455, 1726, 1997)
+# phase 2's block-sparse decode rows: ctx ~100 to ~4,000 (several
+# mid-block), the longest row reading 5 of its 32 blocks under the fixed
+# layout; and DeepSpeed's FixedSparsityConfig at its documented block 16 (4
+# local blocks, 1 global), checked at 16-token cache blocks, where one
+# 64-column tile of the kernel spans four blocks
+DECODE_SPARSE_CTX = (100, 611, 1180, 1701, 2262, 2823, 3391, 3970)
+SPARSE_BLOCK_16 = dict(block=16, mode="fixed", num_local_blocks=4, num_global_blocks=1)
 # window cases of phase 2 besides >= S: Mistral's 4096 (tile-aligned), 1000
 # (no multiple of the 64-row tiles or the 128-token blocks) and 1
 WINDOW_CASES = (4096, 1000, 1)
@@ -1075,10 +1137,11 @@ def _decode_fixture(PA, randn, dev, H, KV, D, bs, NB, ctx_list, seed):
     over an arena of just enough blocks (a scratch block last), bf16 and
     int8 pools of the same rows, and new K/V rows with their slots.
     Returns (inputs dict, call, run): call(name, window, pools, kernel=True,
-    alibi=None) is the output of one decode mode (the kernel, or its plain
-    version) on `pools`, which the fused modes write in place; run(name,
-    window, kernel=True, alibi=None) is (output, written pools) on copies
-    of the mode's pools."""
+    alibi=None, allowed=None) is the output of one decode mode (the kernel,
+    or its plain version) on `pools`, which the fused modes write in place;
+    run(name, window, kernel=True, alibi=None, allowed=None) is (output,
+    written pools) on copies of the mode's pools. `allowed` is the layout
+    bitmap [S, NB] int32."""
     import torch
 
     S = len(ctx_list)
@@ -1099,7 +1162,7 @@ def _decode_fixture(PA, randn, dev, H, KV, D, bs, NB, ctx_list, seed):
                   ks.reshape(nblk, bs, KV), vs.reshape(nblk, bs, KV)]
     kernels = {name: getattr(PA, name) for name in DECODE_MODES}
 
-    def call(name, window, pools, kernel=True, alibi=None):
+    def call(name, window, pools, kernel=True, alibi=None, allowed=None):
         fused = "fused" in name
         if kernel:
             fn = kernels[name]
@@ -1107,12 +1170,12 @@ def _decode_fixture(PA, randn, dev, H, KV, D, bs, NB, ctx_list, seed):
             fn = PA.paged_decode_fused_plain if fused else PA.paged_decode_attention_plain
         extra = (k_new, v_new, slots) if fused else ()
         out = fn(q, pools[0], pools[1], tables, ctx, *extra, *pools[2:], window=window,
-                 alibi_slopes=alibi)
+                 alibi_slopes=alibi, allowed_slots=allowed)
         return out[0] if fused else out
 
-    def run(name, window, kernel=True, alibi=None):
+    def run(name, window, kernel=True, alibi=None, allowed=None):
         pools = [p.clone() for p in (int8_pools if "int8" in name else bf16_pools)]
-        return call(name, window, pools, kernel, alibi), pools
+        return call(name, window, pools, kernel, alibi, allowed), pools
 
     inputs = dict(S=S, nblk=nblk, tables=tables, ctx=ctx, q=q, k_new=k_new, v_new=v_new,
                   slots=slots)
@@ -1498,6 +1561,109 @@ def _decode_alibi_checks(PA, randn, dev, bound_ms):
     return results
 
 
+# ---------------------------------------------------------------------------
+# phase 2, the block-sparse modes: decode #4/#5 with a layout bitmap
+# ---------------------------------------------------------------------------
+
+def _decode_sparse_checks(PA, randn, dev, bound_ms):
+    """The layout-bitmap modes of kernels #4 and #5 (bf16 plain and fused,
+    int8 plain and fused) at Llama-2-7B's decode shape (32 x 128 heads, no
+    GQA), 8 rows with ctx DECODE_SPARSE_CTX (~100 to ~4,000), against the
+    plain versions at one bf16 ulp, at 128-token cache blocks (table width
+    32) and at 16-token blocks (width 256: a kernel tile spans four
+    blocks). Bitmaps: the rows of the serving layout (LLAMA2_7B's fixed
+    layout at bs 128; SPARSE_BLOCK_16 at bs 16), of a bigbird layout with
+    the same block, and random ones that keep each row's own block; the
+    fused modes' written pools bit-exact; an all-ones bitmap bit-identical
+    to none. Planted faults that must fail against the plain version with
+    the fixed layout: the kernel given all ones (the layout would not
+    bite), the bitmap shifted by one block and, at bs 16, each group of
+    four blocks given its first block's bit (a per-tile decision). Times at
+    bs 128 with the fixed layout, beside the same kernel without a bitmap
+    at the same shape; the bound counts the allowed live positions only."""
+    import dataclasses
+
+    import torch
+
+    from deepspeed_tpu_torch.inference import model as M
+    from deepspeed_tpu_torch.models.transformer import TransformerConfig
+    from deepspeed_tpu_torch.ops.sparse_attention import SparsityConfig
+
+    ml = TransformerConfig(**LLAMA2_7B)
+    H, KV, D = ml.n_heads, ml.kv_heads, ml.head_dim
+    ctx_list = list(DECODE_SPARSE_CTX)
+    S = len(ctx_list)
+    atol, rtol = KERNEL_TOL["paged_decode_attention"]
+    results, report = {}, {}
+    serve_bs = SERVE_S["kv_block_size"]
+    for bs, fixed in ((serve_bs, ml.sparsity_config()), (16, SparsityConfig(**SPARSE_BLOCK_16))):
+        NB = SERVE_S["max_seq_len"] // bs
+        x, call, run = _decode_fixture(PA, randn, dev, H, KV, D, bs, NB, ctx_list, 7 + bs)
+        pos = x["ctx"] - 1
+        g = torch.Generator(device=dev).manual_seed(bs)
+        rand = (torch.rand(S, NB, generator=g, device=dev) < 0.5).to(torch.int32)
+        rand[torch.arange(S, device=dev), pos // bs] = 1
+        bigbird = dataclasses.replace(fixed, mode="bigbird", num_random_blocks=2)
+        lay = M._sparse_decode_allowed_slots(fixed, pos, NB, bs)
+        bitmaps = {"fixed": lay, "bigbird": M._sparse_decode_allowed_slots(bigbird, pos, NB, bs),
+                   "random": rand}
+        ones = torch.ones_like(lay)
+        faulty = {"all_ones": ones, "shifted_by_one_block": torch.roll(lay, 1, dims=1)}
+        if bs < 64:
+            per_tile = 64 // bs
+            faulty["tile_takes_its_first_block"] = lay.view(S, -1, per_tile)[:, :, :1].expand(
+                S, NB // per_tile, per_tile).reshape(S, NB).contiguous()
+        cols = torch.arange(NB * bs, device=dev)
+        allowed_cols = lay.bool().repeat_interleave(bs, 1)
+        for name in DECODE_MODES:
+            fused = "fused" in name
+            same = torch.equal(run(name, 0, allowed=ones)[0], run(name, 0)[0])
+            if not same:
+                raise AssertionError(f"{name}[sparse] bs {bs}: an all-ones bitmap is not "
+                                     "bit-identical to none")
+            errs, plain = {}, {}
+            for b, bm in bitmaps.items():
+                (o, pk), (ref, pr) = run(name, 0, allowed=bm), run(name, 0, kernel=False,
+                                                                   allowed=bm)
+                errs[b] = _check_close(f"{name}[sparse] bs {bs} {b}", o, ref, atol, rtol)
+                if fused:
+                    for a, c in zip(pk, pr):
+                        _check_close(f"{name}[sparse] bs {bs} {b} pools", a, c, 0.0, 0.0)
+                plain[b] = ref
+            faults = {f: _n_over(run(name, 0, allowed=bm)[0], plain["fixed"], atol, rtol)
+                      for f, bm in faulty.items()}
+            if not all(faults.values()):
+                raise AssertionError(f"{name}[sparse] bs {bs}: the check passes a planted "
+                                     f"fault: {faults}")
+            entry = {"max_abs_err": errs, "planted_faults_elements_over": faults,
+                     "all_ones_bit_identical_to_none": same}
+            report[f"{name}@bs{bs}"] = entry
+            if bs != serve_bs:
+                continue
+            pools, ref_pools, null_pools = (run(name, 0)[1] for _ in range(3))
+            null_ms = _device_ms(lambda: call(name, 0, null_pools), 20)
+            live = int(((cols[None] < x["ctx"][:, None] - int(fused)) & allowed_cols).sum())
+            live += S if fused else 0
+            timed = _timings(lambda: call(name, 0, pools, allowed=lay),
+                             lambda: call(name, 0, ref_pools, kernel=False, allowed=lay), None,
+                             20)
+            entry.update(null_bitmap_ms=null_ms, skip_speedup=null_ms / timed["ms"],
+                         live_positions=live, ctx_positions=sum(ctx_list))
+            results[f"{name}[sparse]"] = dict(
+                max_abs_err=max(errs.values()), **timed, null_bitmap_ms=null_ms,
+                shape=f"S={S}, ctx {min(ctx_list)}..{max(ctx_list)}, H={H}, KV={KV}, D={D}, "
+                      f"bs={bs}, {'int8' if 'int8' in name else 'bf16'} pools of "
+                      f"{x['nblk']} blocks, fixed layout (block {fixed.block}, "
+                      f"{live} of {sum(ctx_list)} positions)",
+                bound=bound_ms(_decode_bytes(name, S, H, KV, D, NB, live) + S * NB * 4,
+                               4 * live * H * D))
+            del pools, ref_pools, null_pools
+        del x, call, run, plain
+        torch.cuda.empty_cache()
+    print(json.dumps({"decode_sparse_checks": {"ctx": ctx_list, **report}}))
+    return results
+
+
 def check_kernels(cfg, dev):
     import torch
 
@@ -1598,6 +1764,8 @@ def check_kernels(cfg, dev):
     results.update(_flash_alibi_checks(FA, randn, dev, bound_ms))
     results.update(_flash_bwd_alibi_checks(FA, randn, dev, bound_ms))
     results.update(_decode_alibi_checks(PA, randn, dev, bound_ms))
+    # the layout-bitmap modes at Llama-2-7B's shape, bs 128 and 16
+    results.update(_decode_sparse_checks(PA, randn, dev, bound_ms))
     results.update(_evo_kernel_checks(dev, bound_ms))
     for name, r in results.items():
         print(json.dumps({"kernel_check": name, "max_err": r["max_abs_err"],
@@ -1996,17 +2164,36 @@ def _serving_times(eng, fn, toks, tables, ctx, r, V, prompt_len):
 # ---------------------------------------------------------------------------
 
 def _all_launches(K):
-    """Every wrapper's launches and, as "<name>[window]" and
-    "<name>[alibi]", those of each window and ALiBi mode."""
-    return {**K.launch_counts(), **K.window_launch_counts(), **K.alibi_launch_counts()}
+    """Every wrapper's launches and, as "<name>[window]", "<name>[alibi]"
+    and "<name>[sparse]", those of each window, ALiBi and layout-bitmap
+    mode."""
+    return {**K.launch_counts(), **K.window_launch_counts(), **K.alibi_launch_counts(),
+            **K.sparse_launch_counts()}
 
 
-def _window_locality(M, eng, cfg, uid, dev):
-    """Every pool row of sequence `uid` at a position < ctx - window of its
-    next decode, in every layer, overwritten with NaN (on int8 pools: its
-    scales): the next decode's logits, through the fused kernel and through
-    the write + plain-mode kernel, must stay finite and bit-identical to the
-    same step on the untouched pools. The rows are restored afterwards."""
+def _dead_positions(cfg, mode, ctx, dev):
+    """The context positions a decode at `ctx` must not read: left of the
+    window (mode "window"), or outside its layout row (mode "sparse": the
+    positions < ctx - 1 of the layout blocks its query's block does not
+    attend)."""
+    import torch
+
+    if mode == "window":
+        return torch.arange(ctx - WINDOW, device=dev)
+    scfg = cfg.sparsity_config()
+    nb = -(-ctx // scfg.block)
+    row = torch.from_numpy(scfg.layout(nb * scfg.block)[(ctx - 1) // scfg.block]).to(dev)
+    p = torch.arange(ctx - 1, device=dev)
+    return p[~row[p // scfg.block]]
+
+
+def _locality(M, eng, cfg, uid, dev, mode):
+    """Every pool row of sequence `uid` at a position its next decode must
+    not read (_dead_positions), in every layer, overwritten with NaN (on
+    int8 pools: its scales): the next decode's logits, through the fused
+    kernel and through the write + plain-mode kernel, must stay finite and
+    bit-identical to the same step on the untouched pools. The rows are
+    restored afterwards."""
     import torch
 
     bs = eng.config.kv_block_size
@@ -2014,7 +2201,7 @@ def _window_locality(M, eng, cfg, uid, dev):
     ctx = seen + 1
     table = eng.state.block_table([uid], eng.config.blocks_per_seq, eng.pad_block)
     tables = torch.as_tensor(table, device=dev)
-    dead = torch.arange(ctx - WINDOW, device=dev)
+    dead = _dead_positions(cfg, mode, ctx, dev)
     flat = tables[0, dead // bs].long() * bs + dead % bs
     c = eng.cache
     pools = (c.k_scale + c.v_scale) if c.quantized else (c.k + c.v)
@@ -2030,8 +2217,8 @@ def _window_locality(M, eng, cfg, uid, dev):
             got = M.decode_step(eng.params, c, *step, cfg, unique_rows=unique)[0]
             torch.cuda.synchronize()
             if not torch.isfinite(got).all() or not torch.equal(got, clean):
-                raise AssertionError(f"locality (unique_rows={unique}): NaN rows left of the "
-                                     "window reached the decode logits")
+                raise AssertionError(f"{mode} locality (unique_rows={unique}): NaN rows the "
+                                     "decode must not read reached its logits")
             for p, x in zip(pools, saved):
                 p.view(-1, *p.shape[2:])[flat] = x
             out["fused" if unique else "plain_mode"] = "bit-identical, finite"
@@ -2106,7 +2293,8 @@ def _serve_three_paths(M, eng, cfg, int8, long_prompt, prompts, dev):
 # prompt seed, the sequence the 2-token continuation extends: "long" or
 # the wave's second row)
 SERVE_LONG = {"window": (SERVE_W, W_LONG, W_PROMPTS, 3, "long"),
-              "alibi": (SERVE_A, A_LONG, A_PROMPTS, 4, "wave")}
+              "alibi": (SERVE_A, A_LONG, A_PROMPTS, 4, "wave"),
+              "sparse": (SERVE_S, S_LONG, S_PROMPTS, 5, "long")}
 
 
 def run_serve_long(cfg, dev, params, mode, int8=False):
@@ -2114,16 +2302,20 @@ def run_serve_long(cfg, dev, params, mode, int8=False):
     the weights `params` (the training layout, or the serving layout of an
     earlier engine), from bf16 pools or (int8) int8 pools. mode "window":
     Mistral 7B (phases serve_window, serve_window_int8); mode "alibi":
-    BLOOM-7B1 (serve_alibi, serve_alibi_int8). The counted sequence: one put
-    of the long prompt, a wave of 96-token prompts, a single-token decode
-    put of the wave's first row, a 2-token continuation (the plain-mode
-    kernel; of the long sequence at ctx > 4096 for the window, of the
-    wave's second row for ALiBi, so the long row enters decode_multi right
-    after its prompt) and greedy decode_multi_fn(8, 24). Every attention
-    launch must run in the mode. Then the three-path check
-    (_serve_three_paths), for the window the locality check
-    (_window_locality), TTFT (of the long prompt for the window, of fresh
-    A_TTFT- and A_LONG-token prompts for ALiBi) and batch-8 decode
+    BLOOM-7B1 (serve_alibi, serve_alibi_int8); mode "sparse": Llama-2-7B
+    with a fixed block-sparse layout (serve_sparse, serve_sparse_int8). The
+    counted sequence: one put of the long prompt, a wave of 96-token
+    prompts, a single-token decode put of the wave's first row, a 2-token
+    continuation (the plain-mode kernel; of the long sequence at ctx > 4096
+    for the window and at ctx ~3970 for the layout, of the wave's second
+    row for ALiBi, so the long row enters decode_multi right after its
+    prompt), greedy decode_multi_fn(8, 24) and, for the layout, a
+    S_SHORT-token prompt (the masked prefill). The mode's kernels must
+    launch and nothing else (the layout's prefill is the block gather: no
+    flash), every attention launch in the mode. Then the three-path check
+    (_serve_three_paths), for the window and the layout the locality check
+    (_locality), TTFT (of the long prompt for the window, of fresh short
+    and long prompts for ALiBi and the layout) and batch-8 decode
     throughput. Returns (report, the engine's serving-layout weights)."""
     import numpy as np
     import torch
@@ -2162,26 +2354,29 @@ def run_serve_long(cfg, dev, params, mode, int8=False):
     toks = np.array([last[u].argmax() for u in rows], np.int32)
     fn = eng.decode_multi_fn(len(rows), DECODE_STEPS)
     gen, final, eng.cache, _ = fn(eng.params, eng.cache, toks, tables, ctx)
+    short = None
+    if mode == "sparse":
+        short = eng.put([L + 1], [r.integers(0, V, S_SHORT).astype(np.int32)])
     torch.cuda.synchronize()
     launches = _all_launches(K)
     # -----------------------------------------------------------------------
 
-    modes = K.WINDOW_MODES if mode == "window" else K.ALIBI_MODES
+    modes = {"window": K.WINDOW_MODES, "alibi": K.ALIBI_MODES, "sparse": K.SPARSE_MODES}[mode]
     kern = INT8_KERNELS if int8 else SERVE_KERNELS
-    in_mode = [f"{n}[{mode}]" for n in kern if n in modes]
-    if int8:
-        wrong = {n: c for n, c in launches.items() if "[" not in n and (c == 0) == (n in kern)}
-        if wrong:
-            raise AssertionError(f"the int8 {mode} path must launch each of {sorted(kern)} "
-                                 f"and nothing else; wrong counts: {wrong}")
-    missing = [n for n in list(kern) + in_mode if launches[n] == 0]
-    if missing:
-        raise AssertionError(f"the {mode} serving path launched no {missing}: {launches}")
+    if mode == "sparse":  # the prefill is the block gather (or the masked one)
+        kern = tuple(n for n in kern if n != "flash_fwd")
+    wrong = {n: c for n, c in launches.items() if "[" not in n and (c == 0) == (n in kern)}
+    if wrong:
+        raise AssertionError(f"the {'int8 ' if int8 else ''}{mode} path must launch each of "
+                             f"{sorted(kern)} and nothing else; wrong counts: {wrong}")
     outside = [n for n in kern if n in modes and launches[n] != launches[f"{n}[{mode}]"]]
-    if outside:  # every layer of the model has the window, or ALiBi
+    if outside:  # every layer has the window or ALiBi, every decode row a layout row
         raise AssertionError(f"launches of {outside} outside the {mode} mode: {launches}")
-    for name, x in (("prefill", long_logits), ("wave", wave), ("decode", decode),
-                    ("chunk", chunk), ("decode_multi", final.float().cpu().numpy())):
+    outputs = [("prefill", long_logits), ("wave", wave), ("decode", decode), ("chunk", chunk),
+               ("decode_multi", final.float().cpu().numpy())]
+    if short is not None:
+        outputs.append(("short_prefill", short))
+    for name, x in outputs:
         if not np.isfinite(x).all():
             raise AssertionError(f"{name} logits are not finite")
     g = gen.cpu().numpy()
@@ -2190,18 +2385,23 @@ def run_serve_long(cfg, dev, params, mode, int8=False):
 
     report = {"init_s": init_s, "launches": {n: c for n, c in launches.items() if c},
               "long_row_decode_ctx": [int(ctx[0]), int(ctx[0]) + DECODE_STEPS - 1]}
-    if mode == "window":
-        report["locality"] = _window_locality(M, eng, cfg, L, dev)
+    if mode != "alibi":
+        report["locality"] = _locality(M, eng, cfg, L, dev, mode)
     report["path"] = _serve_three_paths(M, eng, cfg, int8, long_prompt, prompts, dev)
 
     # -- timings (after the counted run) ------------------------------------
     if mode == "window":
         report.update(_serving_times(eng, fn, toks, tables, ctx, r, V, W_LONG))
     else:
-        report.update(_serving_times(eng, fn, toks, tables, ctx, r, V, A_TTFT))
-        ttft = _ttft(eng, r, V, A_LONG)
-        report.update({f"ttft_ms_{A_LONG}_p50": statistics.median(ttft),
-                       f"ttft_ms_{A_LONG}_all": ttft})
+        n_short, n_long = (A_TTFT, A_LONG) if mode == "alibi" else (S_TTFT, S_LONG)
+        report.update(_serving_times(eng, fn, toks, tables, ctx, r, V, n_short))
+        ttft = _ttft(eng, r, V, n_long)
+        report.update({f"ttft_ms_{n_long}_p50": statistics.median(ttft),
+                       f"ttft_ms_{n_long}_all": ttft})
+        p = r.integers(0, V, n_long).astype(np.int32)
+        report["where_time_goes"][f"prefill_put_{n_long}"] = _where_time_goes(
+            lambda: eng.put([2001], [p]))
+        eng.flush(2001)
     report.update({"kv_bytes_per_token": eng.kv_bytes_per_token(),
                    "peak_mem_gib": torch.cuda.max_memory_allocated(dev) / 2**30})
     params = eng.params
@@ -2450,6 +2650,14 @@ def main():
     done("serve_alibi_int8", sa8)
     del bparams
     torch.cuda.empty_cache()
+    ml = T.TransformerConfig(**LLAMA2_7B)
+    ss, lparams = run_serve_long(ml, dev, T.init(ml, torch.Generator(device=dev).manual_seed(0),
+                                                 device=dev, dtype=torch.bfloat16), "sparse")
+    done("serve_sparse", ss)
+    ss8, lparams = run_serve_long(ml, dev, lparams, "sparse", int8=True)
+    done("serve_sparse_int8", ss8)
+    del lparams
+    torch.cuda.empty_cache()
     trains = {}
     for phase in TRAIN_LONG:
         trains[phase] = run_train_long(dev, phase)
@@ -2459,12 +2667,13 @@ def main():
 
     paths = {"train": tr, "serve": sl, "serve_int8": q8, "serve_window": sw,
              "serve_window_int8": sw8, "serve_alibi": sa, "serve_alibi_int8": sa8,
-             **trains, "evoformer": ev}
+             "serve_sparse": ss, "serve_sparse_int8": ss8, **trains, "evoformer": ev}
     line = []
-    # each window or ALiBi mode is a path of its kernel: same source, same
-    # TPU kernel
+    # each window, ALiBi or layout-bitmap mode is a path of its kernel: same
+    # source, same TPU kernel
     sources = {**KERNELS, **{f"{n}[window]": KERNELS[n] for n in K.WINDOW_MODES},
-               **{f"{n}[alibi]": KERNELS[n] for n in K.ALIBI_MODES}}
+               **{f"{n}[alibi]": KERNELS[n] for n in K.ALIBI_MODES},
+               **{f"{n}[sparse]": KERNELS[n] for n in K.SPARSE_MODES}}
     for name, (source, replaces) in sources.items():
         k = kernels[name]
         by_path = {p: r["launches"].get(name, 0) for p, r in paths.items()}

@@ -337,7 +337,6 @@ _LATER_SLICES: Dict[str, str] = {
     "progressive_layer_drop": "slice 5 (ROADMAP A17)",
     "compression_training": "slice 5 (ROADMAP A17)",
     "hybrid_engine": "slice 5 (ROADMAP A17)",
-    "sparse_attention": "slice 5 (ROADMAP A17)",
 }
 
 
@@ -354,6 +353,11 @@ def _compat_filter(config: Dict[str, Any]) -> Dict[str, Any]:
     from ..utils.logging import logger
 
     config = {k: (dict(v) if isinstance(v, dict) else v) for k, v in config.items()}
+    if _enabled(config.pop("sparse_attention", None)):
+        raise NotImplementedError(
+            "the sparse_attention config block has no engine-level consumer; sparse "
+            "attention is set on the model: TransformerConfig(attention_impl='sparse', "
+            "sparse_mode=..., sparse_block=...)")
     later = [k for k in _LATER_SLICES if k in config and _enabled(config.pop(k))]
     if later:
         raise NotImplementedError(

@@ -59,6 +59,31 @@
 // once; null slopes add nothing (the other modes are unchanged bit for
 // bit). ALiBi and the window are independent runtime arguments.
 //
+// Block-sparse layout (allowed != null, every mode): allowed is [S,
+// table_width] int32, row-major, one entry per table slot (cache block),
+// the layout row of the row's query position at cache-block granularity
+// (the TPU kernels' allowed_slots scalar prefetch). Context column c of
+// row s is attended only when allowed[s * table_width + c / block_size]
+// != 0. The column loop walks runs of allowed blocks: at the loop head c0
+// jumps to the start of the next allowed block, and the tile's length n
+// is capped at the end of the current run of allowed blocks as well as at
+// TILE and the live limit. So no byte of a disallowed block is loaded
+// (its K and V rows, and on int8 pools its scales), no value from one
+// reaches a sum (a stale slot may hold NaN), full tiles run over
+// contiguous allowed blocks (the local window), and a hole costs one
+// bitmap read per block. With block_size < TILE (16 and 32 are legal
+// cache blocks) a tile spans several blocks and is cut at the first
+// disallowed one; at block_size 128 a tile never straddles two blocks.
+// The fused modes' new column (position ctx - 1) is attended whatever the
+// bitmap says, as in both TPU kernels (_decode_kernel's final-step
+// column, _decode_fused_kernel's newcol); layouts always allow their
+// diagonal, so in serving this changes nothing. A row with no allowed
+// live column outputs zeros (l = 0), as the TPU kernels' l_safe does.
+// The bitmap, the window and the slopes are independent runtime
+// arguments. Null (dense) walks the same tiles as before, and so does an
+// all-ones bitmap: both are the dense result bit for bit. Bound: bytes,
+// those of the allowed live positions only.
+//
 // The TPU kernel padded G to 8 sublanes and required D % 128 == 0; both
 // were TPU tiling artifacts and do not carry over. Pad rows (ctx <= 0)
 // output zeros and write nothing. Every block id is clamped to the arena.
@@ -127,6 +152,7 @@ __global__ void __launch_bounds__(D) paged_decode_kernel(
     const __nv_bfloat16* __restrict__ v_new,    // [S, KV, D]   (FUSED)
     const int32_t* __restrict__ slots,          // [S]          (FUSED)
     const float* __restrict__ slopes,           // [H] ALiBi slopes, or null
+    const int32_t* __restrict__ allowed,        // [S, NB] layout bitmap, or null
     int n_kv, int group, int n_blocks, int block_size, int table_width, int window,
     float scale) {
   using CacheT = std::conditional_t<QUANT, int8_t, __nv_bfloat16>;
@@ -182,8 +208,22 @@ __global__ void __launch_bounds__(D) paged_decode_kernel(
   __syncthreads();
 
   const int start = window > 0 ? max(ctx - window, 0) : 0;  // the window's first column
-  for (int c0 = start; c0 < limit; c0 += TILE) {
-    const int n = min(TILE, limit - c0);
+  const int32_t* allow = allowed ? allowed + (size_t)s * table_width : nullptr;
+  // Every thread reads the same bitmap entries of one row, so c0 and n are
+  // uniform over the thread block and the __syncthreads() below are
+  // reached by all threads or by none.
+  for (int c0 = start;;) {
+    if (allow) {  // to the start of the next allowed block
+      while (c0 < limit && allow[c0 / block_size] == 0) c0 = (c0 / block_size + 1) * block_size;
+    }
+    if (c0 >= limit) break;
+    int end = min(c0 + TILE, limit);
+    if (allow) {  // cut the tile at the end of the run of allowed blocks
+      int b = c0 / block_size + 1;
+      while (b * block_size < end && allow[b] != 0) ++b;
+      end = min(end, b * block_size);
+    }
+    const int n = end - c0;
     if constexpr (QUANT) {
       for (int r = tid; r < n; r += D) {
         const size_t at = slot_of(c0 + r) * n_kv + h;
@@ -264,6 +304,7 @@ __global__ void __launch_bounds__(D) paged_decode_kernel(
       }
     }
     __syncthreads();  // the next tile overwrites ks, vs and ps
+    c0 = end;
   }
 
   if (FUSED) {
@@ -343,7 +384,7 @@ __global__ void __launch_bounds__(D) paged_decode_kernel(
 
 struct DecodeArgs {
   void *out, *k_pool, *v_pool, *k_scale, *v_scale;
-  const void *q, *tables, *ctx_lens, *k_new, *v_new, *slots, *slopes;
+  const void *q, *tables, *ctx_lens, *k_new, *v_new, *slots, *slopes, *allowed;
   int S, n_kv, group, n_blocks, block_size, table_width, window;
   float scale;
 };
@@ -355,8 +396,9 @@ void launch(const DecodeArgs& a, cudaStream_t stream) {
       (__nv_bfloat16*)a.out, (const __nv_bfloat16*)a.q, a.k_pool, a.v_pool,
       (float*)a.k_scale, (float*)a.v_scale, (const int32_t*)a.tables,
       (const int32_t*)a.ctx_lens, (const __nv_bfloat16*)a.k_new,
-      (const __nv_bfloat16*)a.v_new, (const int32_t*)a.slots, (const float*)a.slopes, a.n_kv,
-      a.group, a.n_blocks, a.block_size, a.table_width, a.window, a.scale);
+      (const __nv_bfloat16*)a.v_new, (const int32_t*)a.slots, (const float*)a.slopes,
+      (const int32_t*)a.allowed, a.n_kv, a.group, a.n_blocks, a.block_size, a.table_width,
+      a.window, a.scale);
 }
 
 template <int D>
@@ -373,17 +415,18 @@ int launch_modes(bool fused, bool quant, const DecodeArgs& a, cudaStream_t strea
 extern "C" int paged_decode(void* out, const void* q, void* k_cache, void* v_cache,
                             void* k_scale, void* v_scale, const void* tables,
                             const void* ctx_lens, const void* k_new, const void* v_new,
-                            const void* slots, const void* slopes, int fused, int quant,
-                            int S, int H, int KV, int D, int n_blocks, int block_size,
-                            int table_width, int window, float scale, void* stream) {
+                            const void* slots, const void* slopes, const void* allowed,
+                            int fused, int quant, int S, int H, int KV, int D, int n_blocks,
+                            int block_size, int table_width, int window, float scale,
+                            void* stream) {
   if (S <= 0) return 0;
   if (KV <= 0 || H % KV != 0 || H / KV > MAX_G) return (int)cudaErrorInvalidValue;
   if (quant && (k_scale == nullptr || v_scale == nullptr)) return (int)cudaErrorInvalidValue;
   if (fused && (k_new == nullptr || v_new == nullptr || slots == nullptr))
     return (int)cudaErrorInvalidValue;
-  const DecodeArgs a{out, k_cache, v_cache, k_scale, v_scale, q, tables, ctx_lens, k_new,
-                     v_new, slots, slopes, S, KV, H / KV, n_blocks, block_size, table_width,
-                     window, scale};
+  const DecodeArgs a{out, k_cache, v_cache, k_scale, v_scale, q, tables, ctx_lens,
+                     k_new, v_new, slots, slopes, allowed, S, KV, H / KV, n_blocks,
+                     block_size, table_width, window, scale};
   cudaStream_t st = (cudaStream_t)stream;
   switch (D) {
     case 64:

@@ -13,7 +13,8 @@ call of the inference/model.py functions here, and the KV cache is
 updated in place instead of being donated and returned.
 
 This slice serves greedy logits on one GPU, from bf16/f32 or int8 KV
-pools (kv_cache_dtype="int8"). Sampling, generate(), quantized weights,
+pools (kv_cache_dtype="int8"), for dense, sliding-window and block-sparse
+models. Sampling, generate(), quantized weights,
 offload, tensor parallelism, KV export and import and warmup raise
 NotImplementedError naming the slice that brings them.
 """
@@ -114,6 +115,16 @@ class InferenceEngine:
         self.config = config or InferenceConfig()
         self.device = resolve_device(device)
         self._dtype = dtype
+        if model_config.attention_impl == "sparse":
+            # block-sparse models serve with the train-time layout
+            # (inference/model.py _sparsity); decode takes the kernels'
+            # layout bitmap when cache blocks nest inside layout blocks,
+            # else the per-position mask on the plain decode attention
+            kernel_ok = model_config.sparse_block % self.config.kv_block_size == 0
+            log_dist(
+                f"serving block-sparse attention (mode={model_config.sparse_mode}); decode "
+                f"uses the {'CUDA layout-masked' if kernel_ok else 'masked torch'} paged path",
+                ranks=[0])
         self.refresh_params(params)
         self.state = StateManager(
             num_blocks=self.config.num_kv_blocks,

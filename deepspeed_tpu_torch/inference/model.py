@@ -30,20 +30,32 @@ What is served:
   prefill and every decode mode), LayerNorm with its bias, q/k/v, output
   and MLP biases, a non-gated MLP, an embedding LayerNorm after the token
   embedding;
+- block-sparse models (attention_impl="sparse": the train-time layout of
+  `cfg.sparsity_config()`, reproduced exactly), routed as in the JAX
+  package. Prefill runs the block-gather `sparse_causal_attention` when
+  the bucket is a multiple of the layout block, else (a bucket shorter
+  than a block) dense attention under the layout's token mask; flash is
+  not called. Decode gives each row the layout row of its position: as a
+  per-cache-block bitmap to the decode kernels when the layout block is a
+  multiple of the cache block (`use_kernel`), else as a per-position mask
+  to the plain decode attention, the port of the JAX package's XLA route,
+  without the fused write. The [nb, nb] layout goes to the device once
+  per call (decode_multi once for all its steps), as the ALiBi slopes do;
 - in bf16 or f32 caches, or in int8 caches (`init_cache(kv_quant=True)`:
   int8 code pools beside per-layer [NBLK, bs, KV] f32 scale pools, written
   and read only through the int8 kernels).
 
 `check_served` raises for the rest (learned positions, parallel
-residuals, MoE, sparse attention: `T.unported_features`).
+residuals, MoE: `T.unported_features`).
 """
 
 from typing import Any, Dict, List, NamedTuple, Optional
 
+import numpy as np
 import torch
 
 from ..models import transformer as T
-from ..ops.attention import causal_attention
+from ..ops.attention import _repeat_kv, causal_attention
 from ..ops.cuda.paged_attention import (
     paged_decode_attention,
     paged_decode_attention_int8,
@@ -55,6 +67,7 @@ from ..ops.cuda.paged_attention import (
     paged_kv_write_plain,
     paged_kv_write_quant_plain,
 )
+from ..ops.sparse_attention import gather_plan, sparse_causal_attention
 
 
 def check_served(cfg: T.TransformerConfig) -> None:
@@ -62,7 +75,7 @@ def check_served(cfg: T.TransformerConfig) -> None:
     bad = T.unported_features(cfg)
     if bad:
         raise NotImplementedError(
-            "the serving slices serve dense Llama-class and Bloom-class models only; "
+            "the serving slices serve Llama-class and Bloom-class models only; "
             f"this config uses {', '.join(bad)} (later slices port them)")
 
 
@@ -123,6 +136,77 @@ def _alibi(cfg: T.TransformerConfig, device: torch.device) -> Optional[torch.Ten
     The copy to the card waits for the work queued before it, so a forward
     makes them once per call (decode_multi once for all its steps)."""
     return T.model_alibi_slopes(cfg).to(device) if cfg.alibi else None
+
+
+# ---------------------------------------------------------------------------
+# block-sparse layouts (the JAX package's inference/model.py helpers)
+# ---------------------------------------------------------------------------
+
+def _sparsity(cfg: T.TransformerConfig):
+    """SparsityConfig of a block-sparse model, else None. Layouts are
+    seeded, so serving reproduces the train-time block mask exactly,
+    bigbird and variable random blocks included."""
+    if cfg.attention_impl != "sparse":
+        return None
+    return cfg.sparsity_config()
+
+
+def _sparse_layout(scfg, n_slots: int, device) -> torch.Tensor:
+    """The [nb, nb] bool layout covering n_slots positions, on `device`.
+    Rows are prefix-stable, so it holds the train-time layout of any
+    shorter sequence. The copy to the card waits for the work queued
+    before it: a caller makes it once per call."""
+    nb = -(-n_slots // scfg.block)
+    return torch.from_numpy(scfg.layout(nb * scfg.block)).to(device)
+
+
+def _sparse_prefill_mask(scfg, Tp: int, device) -> torch.Tensor:
+    """[Tp, Tp] bool token mask from the block layout, causality
+    included."""
+    nb = -(-Tp // scfg.block)
+    lay = scfg.layout(nb * scfg.block)
+    blk = np.arange(Tp) // scfg.block
+    mask = lay[np.ix_(blk, blk)] & (np.arange(Tp)[None, :] <= np.arange(Tp)[:, None])
+    return torch.from_numpy(mask).to(device)
+
+
+def _masked_causal_attention(q, k, v, mask):
+    """[B, S, H, D] attention under an explicit [S, S] token mask, GQA KV
+    heads repeated: the prefill of a sparse model whose bucket is shorter
+    than a layout block (the masked-softmax math of
+    sparse_causal_attention, without the gather)."""
+    D = q.shape[-1]
+    rep = q.shape[2] // k.shape[2]
+    k, v = _repeat_kv(k, rep), _repeat_kv(v, rep)
+    logits = (torch.einsum("bqhd,bkhd->bhqk", q, k) / D ** 0.5).float()
+    logits = logits.masked_fill(~mask, float("-inf"))
+    p = torch.softmax(logits, dim=-1).to(q.dtype)
+    return torch.einsum("bhqk,bkhd->bqhd", p, v)
+
+
+def _sparse_decode_allowed(scfg, positions, n_slots: int, layout=None) -> torch.Tensor:
+    """[S, n_slots] bool: the context positions each decode row may attend
+    to, from the layout row of the row's own position. `layout`:
+    _sparse_layout(scfg, n_slots, positions.device), made here if absent."""
+    if layout is None:
+        layout = _sparse_layout(scfg, n_slots, positions.device)
+    rows = layout[(positions // scfg.block).long()]  # [S, nb]
+    kv_blk = torch.arange(n_slots, device=positions.device) // scfg.block
+    return rows[:, kv_blk]
+
+
+def _sparse_decode_allowed_slots(scfg, positions, n_blocks: int, bs: int,
+                                 layout=None) -> torch.Tensor:
+    """[S, NB] int32 at cache-block granularity: the decode kernels'
+    layout bitmap. Exact only when scfg.block % bs == 0, so that every
+    cache block lies inside one layout block. `layout`:
+    _sparse_layout(scfg, n_blocks * bs, positions.device), made here if
+    absent."""
+    if layout is None:
+        layout = _sparse_layout(scfg, n_blocks * bs, positions.device)
+    rows = layout[(positions // scfg.block).long()]  # [S, nb]
+    slot_blk = torch.arange(n_blocks, device=positions.device) * bs // scfg.block
+    return rows[:, slot_blk].to(torch.int32)
 
 
 def _lm_logits(x: torch.Tensor, params, cfg: T.TransformerConfig) -> torch.Tensor:
@@ -222,29 +306,35 @@ def _attn_out(att: torch.Tensor, lp) -> torch.Tensor:
 
 
 def _decode_attention(cache: PagedCache, li: int, q, tables, ctx, use_kernel: bool,
-                      window: int = 0, k_new=None, v_new=None, slots=None, alibi=None):
+                      window: int = 0, k_new=None, v_new=None, slots=None, alibi=None,
+                      allowed_slots=None, allowed=None):
     """Layer li's decode attention over the last `window` positions of each
     row's context (0 = all of it), ALiBi-biased by the [H] slopes `alibi`
-    when given (slope_h * key position). k_new/v_new/slots given selects the
-    fused write+attend kernel (single-token rows of distinct sequences;
-    the layer's pools hold the pre-write arenas and are written in place).
-    Otherwise the new rows were written before the call and the plain-mode
-    kernel attends over ctx. int8 pools take the int8 kernels; as in the
-    JAX package they never reach paged_decode_fused, which is bf16 only."""
+    when given (slope_h * key position), restricted to the table slots of
+    the [S, NB] int32 layout bitmap `allowed_slots` (the kernels) or to
+    the positions of the [S, NB * bs] mask `allowed` (the plain version,
+    on any device: the JAX package's XLA route, which the configuration
+    chooses when the layout is finer than the cache block). k_new/v_new/
+    slots given selects the fused write+attend kernel (single-token rows
+    of distinct sequences; the layer's pools hold the pre-write arenas and
+    are written in place). Otherwise the new rows were written before the
+    call and the plain-mode kernel attends over ctx. int8 pools take the
+    int8 kernels; as in the JAX package they never reach
+    paged_decode_fused, which is bf16 only."""
     ck, cv = cache.k[li], cache.v[li]
     q = q.contiguous()  # without rope, a view into the fused q/k/v product
     scales = (cache.k_scale[li], cache.v_scale[li]) if cache.quantized else ()
     if k_new is not None:
         fused = paged_decode_fused_int8 if scales else paged_decode_fused
         return fused(q, ck, cv, tables, ctx, k_new.contiguous(), v_new.contiguous(), slots,
-                     *scales, window=window, alibi_slopes=alibi)[0]
-    if not use_kernel:
+                     *scales, window=window, alibi_slopes=alibi,
+                     allowed_slots=allowed_slots)[0]
+    if not use_kernel or allowed is not None:
         return paged_decode_attention_plain(q, ck, cv, tables, ctx, *scales, window=window,
-                                            alibi_slopes=alibi)
-    if scales:
-        return paged_decode_attention_int8(q, ck, cv, tables, ctx, *scales, window=window,
-                                           alibi_slopes=alibi)
-    return paged_decode_attention(q, ck, cv, tables, ctx, window=window, alibi_slopes=alibi)
+                                            alibi_slopes=alibi, allowed=allowed)
+    kernel = paged_decode_attention_int8 if scales else paged_decode_attention
+    return kernel(q, ck, cv, tables, ctx, *scales, window=window, alibi_slopes=alibi,
+                  allowed_slots=allowed_slots)
 
 
 def _qkv(h1: torch.Tensor, lp, cfg: T.TransformerConfig):
@@ -265,7 +355,8 @@ def _qkv(h1: torch.Tensor, lp, cfg: T.TransformerConfig):
 
 def decode_step(params, cache: PagedCache, tokens, tables, ctx_lens,
                 cfg: T.TransformerConfig, use_kernel: bool = True,
-                unique_rows: bool = False, alibi: Optional[torch.Tensor] = None):
+                unique_rows: bool = False, alibi: Optional[torch.Tensor] = None,
+                layout: Optional[torch.Tensor] = None):
     """tokens [S] int32, tables [S, NB] int32, ctx_lens [S] int32 (context
     length INCLUDING the new token) -> (logits [S, V] f32, cache).
 
@@ -280,7 +371,12 @@ def decode_step(params, cache: PagedCache, tokens, tables, ctx_lens,
     scratch block (the engine's pad_block).
 
     alibi: the model's ALiBi slopes on the device, when the caller made
-    them already (decode_multi); None makes them here."""
+    them already (decode_multi); None makes them here. layout: likewise a
+    block-sparse model's [nb, nb] layout over the table's positions
+    (_sparse_layout). A sparse model's decode attention takes the kernels'
+    layout bitmap when use_kernel and the layout block is a multiple of
+    the cache block, else the per-position mask and no fused write (the
+    JAX package's routing)."""
     if not is_prepared(params):
         params = prepare(params, cfg)
     bs = cache.block_size
@@ -288,7 +384,18 @@ def decode_step(params, cache: PagedCache, tokens, tables, ctx_lens,
     valid = ctx_lens > 0
     positions = (ctx_lens - 1).clamp(min=0)  # [S] this token's position
     x = _embed(params, tokens, cfg)  # [S, E]
-    fuse_write = unique_rows and use_kernel
+    scfg = _sparsity(cfg)
+    allowed = allowed_slots = None
+    if scfg is not None:
+        if layout is None:
+            layout = _sparse_layout(scfg, NB * bs, x.device)
+        if use_kernel and scfg.block % bs == 0:
+            # cache blocks nest inside layout blocks: the kernels skip
+            # whole blocks, exactly; one bitmap serves every layer
+            allowed_slots = _sparse_decode_allowed_slots(scfg, positions, NB, bs, layout)
+        else:
+            allowed = _sparse_decode_allowed(scfg, positions, NB * bs, layout)
+    fuse_write = unique_rows and use_kernel and allowed is None
     rope = T._rope_tables(positions, cfg) if cfg.use_rope else None
     if alibi is None:
         alibi = _alibi(cfg, x.device)
@@ -306,11 +413,12 @@ def decode_step(params, cache: PagedCache, tokens, tables, ctx_lens,
         window = cfg.window_for_layer(li)
         if fuse_write:
             att = _decode_attention(cache, li, q, tables, ctx_lens, use_kernel, window,
-                                    k_new=k, v_new=v, slots=flat_idx, alibi=alibi)
+                                    k_new=k, v_new=v, slots=flat_idx, alibi=alibi,
+                                    allowed_slots=allowed_slots)
         else:
             _write_kv(cache, li, k, v, flat_idx, use_kernel)
             att = _decode_attention(cache, li, q, tables, ctx_lens, use_kernel, window,
-                                    alibi=alibi)
+                                    alibi=alibi, allowed_slots=allowed_slots, allowed=allowed)
         x = x + _attn_out(att, lp)
         h2 = T._norm(x, lp["ln2_scale"], lp.get("ln2_bias"), cfg)
         x = x + _mlp(h2, lp, cfg)
@@ -340,9 +448,12 @@ def decode_multi(params, cache: PagedCache, tokens, tables, ctx_lens,
     toks, ctx = tokens, ctx_lens
     logits = torch.zeros((S, cfg.vocab_size), dtype=torch.float32, device=tokens.device)
     alibi = _alibi(cfg, tokens.device)
+    scfg = _sparsity(cfg)
+    layout = (None if scfg is None else
+              _sparse_layout(scfg, tables.shape[1] * cache.block_size, tokens.device))
     for i in range(n_steps):
         logits, cache = decode_step(params, cache, toks, tables, ctx, cfg, use_kernel,
-                                    unique_rows=unique_rows, alibi=alibi)
+                                    unique_rows=unique_rows, alibi=alibi, layout=layout)
         toks = logits.argmax(dim=-1).to(torch.int32)
         gen[i] = toks
         ctx = ctx + 1
@@ -357,7 +468,9 @@ def prefill_batch(params, cache: PagedCache, tokens, n_real, tables,
                   cfg: T.TransformerConfig, use_kernel: bool = True):
     """Cross-prompt batched prefill: tokens [B, Tp] int32 (padded), n_real
     [B] int32, tables [B, NB] int32 -> (last-real-token logits [B, V] f32,
-    cache). Attention over each prompt is causal flash; the new KV rows of
+    cache). Attention over each prompt is causal flash (a block-sparse
+    model: the block gather when Tp is a multiple of the layout block, else
+    dense attention under the layout's token mask); the new KV rows of
     every prompt scatter into the paged cache in one write per layer, in
     place. Rows with n_real == 0 are batch padding (garbage logits, their
     KV writes dropped)."""
@@ -378,6 +491,12 @@ def prefill_batch(params, cache: PagedCache, tokens, n_real, tables,
 
     rope = T._rope_tables(positions, cfg) if cfg.use_rope else None
     alibi = _alibi(cfg, x.device)
+    scfg = _sparsity(cfg)
+    plan = mask = None  # made once for all layers
+    if scfg is not None and Tp % scfg.block == 0:
+        plan = gather_plan(scfg, Tp, x.device)
+    elif scfg is not None:
+        mask = _sparse_prefill_mask(scfg, Tp, x.device)
     for li, lp in enumerate(params["layers"]):
         h1 = T._norm(x, lp["ln1_scale"], lp.get("ln1_bias"), cfg)
         q, k, v = _qkv(h1, lp, cfg)
@@ -388,8 +507,15 @@ def prefill_batch(params, cache: PagedCache, tokens, n_real, tables,
         # resident copy is quantized on int8 pools
         _write_kv(cache, li, k.reshape(B * Tp, KV, D), v.reshape(B * Tp, KV, D), flat_idx,
                   use_kernel)
-        att = causal_attention(q, k, v, use_flash=use_kernel, window=cfg.window_for_layer(li),
-                               alibi=alibi)
+        if plan is not None:  # FLOPs and bytes scale with the layout's density
+            rep = q.shape[2] // k.shape[2]
+            att = sparse_causal_attention(q, _repeat_kv(k, rep), _repeat_kv(v, rep), scfg,
+                                          plan)
+        elif mask is not None:  # a bucket shorter than a layout block
+            att = _masked_causal_attention(q, k, v, mask)
+        else:
+            att = causal_attention(q, k, v, use_flash=use_kernel,
+                                   window=cfg.window_for_layer(li), alibi=alibi)
         x = x + _attn_out(att, lp)
         h2 = T._norm(x, lp["ln2_scale"], lp.get("ln2_bias"), cfg)
         x = x + _mlp(h2.reshape(B * Tp, -1), lp, cfg).reshape(x.shape)

@@ -14,8 +14,10 @@ training forward and loss: `forward_hidden`, `forward` and `make_loss_fn`,
 with the reference's remat policies mapped onto `torch.utils.checkpoint`.
 Serving and training cover dense Llama-class models (with sliding
 windows: Mistral-class) and Bloom-class ones (ALiBi, LayerNorm, biases, a
-non-gated MLP, an embedding LayerNorm: `unported_features`); training
-without dropout (`check_trained`).
+non-gated MLP, an embedding LayerNorm: `unported_features`); serving also
+covers block-sparse models (attention_impl="sparse", the layout of
+`sparsity_config()`), which training does not yet; training runs without
+dropout (`check_trained`).
 """
 
 import dataclasses
@@ -303,6 +305,24 @@ class TransformerConfig:
             return self.mlp_bias
         return self.variant == "gpt2"
 
+    def sparsity_config(self):
+        """SparsityConfig assembled from the sparse_* knobs (one place:
+        the training forward and the serving engine must reproduce the
+        SAME layout)."""
+        from ..ops.sparse_attention import SparsityConfig
+
+        return SparsityConfig(
+            block=self.sparse_block, mode=self.sparse_mode,
+            num_local_blocks=self.sparse_num_local_blocks,
+            num_global_blocks=self.sparse_num_global_blocks,
+            num_random_blocks=self.sparse_num_random_blocks,
+            local_window_blocks=tuple(self.sparse_local_window_blocks),
+            global_block_indices=tuple(self.sparse_global_block_indices),
+            global_block_end_indices=(
+                tuple(self.sparse_global_block_end_indices)
+                if self.sparse_global_block_end_indices is not None else None),
+        )
+
     def window_for_layer(self, i: int) -> int:
         """Layer i's sliding window (0 = global attention)."""
         if self.attention_window_pattern is not None:
@@ -582,13 +602,13 @@ def logical_specs(cfg: TransformerConfig) -> Dict[str, Any]:
 
 def unported_features(cfg: TransformerConfig) -> List[str]:
     """What the config uses beyond the models the port serves so far
-    (dense Llama-class and Bloom-class: rotary or ALiBi positions, RMSNorm
-    or LayerNorm, gated or plain MLP, biases, an embedding LayerNorm);
-    empty when it is covered. Training covers less (`check_trained`)."""
+    (Llama-class and Bloom-class: rotary or ALiBi positions, RMSNorm or
+    LayerNorm, gated or plain MLP, biases, an embedding LayerNorm; dense,
+    sliding-window or block-sparse attention); empty when it is covered.
+    Training covers less (`check_trained`)."""
     unsupported = {
         "learned positions (GPT-2/OPT)": cfg.use_learned_pos,
         "MoE (n_experts > 0)": cfg.n_experts > 0,
-        "sparse attention": cfg.attention_impl == "sparse",
         "parallel residuals": cfg.parallel_residual,
         "activation quantization": cfg.activation_quant_bits > 0,
         "an lm_head bias": cfg.lm_head_bias,
@@ -600,10 +620,13 @@ def unported_features(cfg: TransformerConfig) -> List[str]:
 
 def check_trained(cfg: TransformerConfig) -> None:
     """Raise NotImplementedError for a model the port does not train: what
-    serving does not cover (`unported_features`), dropout, random-LTD
-    layers and the remat modes with no torch.utils.checkpoint mapping yet.
-    Every model it serves, Llama- and Bloom-class, it trains."""
+    serving does not cover (`unported_features`), block-sparse attention
+    (served, not trained: ROADMAP A2), dropout, random-LTD layers and the
+    remat modes with no torch.utils.checkpoint mapping yet. Every dense
+    Llama- and Bloom-class model it serves, it trains."""
     bad = unported_features(cfg) + [name for name, hit in {
+        "sparse attention (the training forward's sparse_causal_attention branch, "
+        "ROADMAP A2)": cfg.attention_impl == "sparse",
         "dropout > 0": cfg.dropout > 0.0,
         "random-LTD layers": cfg.random_ltd_layer_range is not None,
         f"remat='{cfg.remat}'": cfg.remat not in ("none", "full", "save_attn_qkv"),

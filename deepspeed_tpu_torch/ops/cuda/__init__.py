@@ -7,7 +7,9 @@ The wrappers that take a sliding `window` also carry `window_launches`,
 raised by one per launch in that mode (window > 0), counted as
 "<name>[window]"; `WINDOW_MODES` names them. Those that take ALiBi slopes
 carry `alibi_launches`, counted as "<name>[alibi]"; `ALIBI_MODES` names
-them. A launch in both modes counts in both.
+them. Those that take a block-sparse layout bitmap carry
+`sparse_launches`, counted as "<name>[sparse]"; `SPARSE_MODES` names them.
+A launch in several modes counts in each.
 """
 
 from typing import Dict
@@ -35,6 +37,7 @@ WRAPPERS = {
 
 WINDOW_MODES = tuple(name for name, fn in WRAPPERS.items() if hasattr(fn, "window_launches"))
 ALIBI_MODES = tuple(name for name, fn in WRAPPERS.items() if hasattr(fn, "alibi_launches"))
+SPARSE_MODES = tuple(name for name, fn in WRAPPERS.items() if hasattr(fn, "sparse_launches"))
 
 
 def launch_counts() -> Dict[str, int]:
@@ -53,6 +56,12 @@ def alibi_launch_counts() -> Dict[str, int]:
     return {f"{name}[alibi]": WRAPPERS[name].alibi_launches for name in ALIBI_MODES}
 
 
+def sparse_launch_counts() -> Dict[str, int]:
+    """"<name>[sparse]" -> launches with a layout bitmap (each also counted
+    in launch_counts()[name])."""
+    return {f"{name}[sparse]": WRAPPERS[name].sparse_launches for name in SPARSE_MODES}
+
+
 def reset_launch_counts() -> None:
     for fn in WRAPPERS.values():
         fn.launches = 0
@@ -60,3 +69,5 @@ def reset_launch_counts() -> None:
         WRAPPERS[name].window_launches = 0
     for name in ALIBI_MODES:
         WRAPPERS[name].alibi_launches = 0
+    for name in SPARSE_MODES:
+        WRAPPERS[name].sparse_launches = 0

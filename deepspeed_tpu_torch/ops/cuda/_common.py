@@ -35,15 +35,18 @@ def check_cuda_args(what: str, tensors: dict, dtypes: dict,
             raise ValueError(f"{what}: {name} must start on a 16-byte boundary")
 
 
-def count_launch(wrapper, window: int = 0, alibi: bool = False) -> None:
+def count_launch(wrapper, window: int = 0, alibi: bool = False, sparse: bool = False) -> None:
     """Count one kernel launch on its wrapper: `launches`, and
     `window_launches` when it ran in the sliding-window mode,
-    `alibi_launches` when in the ALiBi mode (both, when in both)."""
+    `alibi_launches` when in the ALiBi mode, `sparse_launches` when with a
+    block-sparse layout bitmap (each mode it ran in)."""
     wrapper.launches += 1
     if window > 0:
         wrapper.window_launches += 1
     if alibi:
         wrapper.alibi_launches += 1
+    if sparse:
+        wrapper.sparse_launches += 1
 
 
 def check_shape(what: str, name: str, t: torch.Tensor, shape: Sequence[int]) -> None:

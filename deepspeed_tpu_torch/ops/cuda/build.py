@@ -43,7 +43,7 @@ _F = ctypes.c_float
 SIGNATURES = {
     "paged_kv_write": {"paged_kv_write": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
                        "paged_kv_write_int8": [_P] * 7 + [_I] * 5 + [_P]},
-    "paged_decode": {"paged_decode": [_P] * 12 + [_I] * 10 + [_F, _P]},
+    "paged_decode": {"paged_decode": [_P] * 13 + [_I] * 10 + [_F, _P]},
     "flash_fwd": {"flash_fwd": [_P] * 6 + [_I] * 6 + [_F, _P]},
     "flash_bwd": {
         "flash_bwd_dq": [_P] * 8 + [_I] * 6 + [_F, _P],

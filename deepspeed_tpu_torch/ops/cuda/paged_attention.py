@@ -12,9 +12,9 @@ Wrappers: for tensors on the CPU they run the plain version; for CUDA
 tensors they launch the kernel (csrc/paged_kv_write.cu,
 csrc/paged_decode.cu) or raise. Each keeps `launches`, the number of
 kernel launches it made (the decode wrappers also `window_launches`, those
-in the sliding-window mode, and `alibi_launches`, those in the ALiBi
-mode). Kernels take bf16; the plain versions take any float dtype and
-compute attention in f32.
+in the sliding-window mode, `alibi_launches`, those in the ALiBi mode, and
+`sparse_launches`, those with a layout bitmap). Kernels take bf16; the
+plain versions take any float dtype and compute attention in f32.
 
 Sliding window (`window` > 0, every decode mode): row s attends to the
 positions ctx - window <= p < ctx of its context (ctx counts the new
@@ -27,6 +27,16 @@ query of a row (at position ctx - 1) that is slope_h * (p - (ctx - 1)) up
 to a constant softmax cancels, but the two forms round differently (the
 bias reaches ~1,700 at ctx ~ 2,000), so kernel and plain versions keep the
 reference's form.
+
+Block-sparse layouts (`allowed_slots`: [S, NB] int32, every decode mode):
+row s attends to the positions of table slot j only when
+allowed_slots[s, j] != 0 (the layout row of the row's query position at
+cache-block granularity, exact when the layout block is a multiple of the
+cache block); the fused modes attend their new token at ctx - 1 whatever
+the bitmap says, as the TPU kernels do. A row with no allowed live
+position outputs zeros. The plain version of the attention also takes
+`allowed` [S, NB * bs], a per-position mask: the JAX package's
+paged_decode_attention_xla route for layouts finer than the cache block.
 
 int8 KV (the JAX package's kv_cache_dtype="int8"): the arenas hold int8
 codes and each carries a [NBLK, bs, KV] f32 scale pool, one scale per
@@ -56,6 +66,7 @@ _DECODE_MAX_GROUP = 8
 def _zero_counts(wrapper):
     """Start a decode wrapper's launch counters (all modes) at 0."""
     wrapper.launches = wrapper.window_launches = wrapper.alibi_launches = 0
+    wrapper.sparse_launches = 0
 
 
 # int8 KV quantization: scale = amax * (1/127) as a MULTIPLY by the f32
@@ -222,14 +233,17 @@ paged_kv_write_int8.launches = 0
 
 def paged_decode_attention_plain(q, k_cache, v_cache, block_table, ctx_lens,
                                  k_scale=None, v_scale=None, window: int = 0,
-                                 alibi_slopes=None):
+                                 alibi_slopes=None, allowed_slots=None, allowed=None):
     """Attention of one query token per row over its paged context, in f32:
     row s attends to positions < ctx_lens[s] of its table (and, window > 0,
     >= ctx_lens[s] - window); alibi_slopes [H] bias the score of position p
-    by slope_h * p. q [S, H, D];
+    by slope_h * p; allowed_slots [S, NB] (nonzero = attended) restricts
+    each row to the positions of its allowed table slots, allowed [S, NB *
+    bs] (bool) to its allowed positions. q [S, H, D];
     caches [NBLK, bs, KV, D]; block_table [S, NB]; ctx_lens [S]. Rows with
-    ctx 0 are padding and output zeros. Counterpart of the JAX package's
-    paged_decode_attention_xla (which gathers the same dense context).
+    ctx 0, or with no allowed live position, output zeros. Counterpart of
+    the JAX package's paged_decode_attention_xla (which gathers the same
+    dense context).
     k_scale/v_scale [NBLK, bs, KV] given: the caches hold int8 codes, each
     dequantized to q's dtype (`dequantize`) before the products.
     Returns [S, H, D] in q's dtype."""
@@ -247,6 +261,10 @@ def paged_decode_attention_plain(q, k_cache, v_cache, block_table, ctx_lens,
     live = pos < ctx_lens[:, None]  # [S, NB*bs]
     if window > 0:
         live &= pos >= ctx_lens[:, None] - window
+    if allowed_slots is not None:
+        live &= (allowed_slots != 0).repeat_interleave(bs, dim=1)
+    if allowed is not None:
+        live &= allowed.bool()
     # never let a dead slot (unwritten, stale, possibly NaN) reach a sum
     k = k.masked_fill(~live[:, :, None, None], 0.0)
     v = v.masked_fill(~live[:, :, None, None], 0.0)
@@ -258,35 +276,44 @@ def paged_decode_attention_plain(q, k_cache, v_cache, block_table, ctx_lens,
         logits = logits + alibi_slopes.float().reshape(H)[None, :, None] * pos.float()
     logits = logits.masked_fill(~live[:, None, :], float("-inf"))
     probs = torch.softmax(logits, dim=-1)
-    probs = torch.where((ctx_lens > 0)[:, None, None], probs, torch.zeros_like(probs))
+    probs = torch.where(live.any(-1)[:, None, None], probs, torch.zeros_like(probs))
     return torch.einsum("shk,skhd->shd", probs, v).to(q.dtype)
 
 
 def paged_decode_fused_plain(q, k_cache, v_cache, block_table, ctx_lens,
                              k_new, v_new, slots, k_scale=None, v_scale=None,
-                             window: int = 0, alibi_slopes=None):
+                             window: int = 0, alibi_slopes=None, allowed_slots=None):
     """Fused-mode reference: write each row's new K/V into its slot, then
     attend over positions < ctx (which include the new token, at position
-    ctx - 1, ALiBi-biased there), the last `window` of them when window > 0.
+    ctx - 1, ALiBi-biased there), the last `window` of them when window > 0,
+    those of the table slots allowed_slots [S, NB] allows when given (and
+    the new token's, whatever the bitmap says).
     Returns (out, k_cache, v_cache), the caches updated in place. With
     k_scale/v_scale (int8 pools) the new rows are quantized on the way in
     (paged_kv_write_quant_plain), so attention sees their round-tripped
     value, as the TPU kernel's does; returns (out, k_cache, v_cache,
     k_scale, v_scale)."""
+    allowed = None
+    if allowed_slots is not None:
+        bs = k_cache.shape[1]
+        allowed = (allowed_slots != 0).repeat_interleave(bs, dim=1)
+        rows = torch.arange(q.shape[0], device=q.device)
+        allowed[rows, (ctx_lens.long() - 1).clamp(0, allowed.shape[1] - 1)] = True
     if k_scale is None:
         paged_kv_write_plain(k_cache, v_cache, k_new, v_new, slots)
         out = paged_decode_attention_plain(q, k_cache, v_cache, block_table, ctx_lens,
-                                           window=window, alibi_slopes=alibi_slopes)
+                                           window=window, alibi_slopes=alibi_slopes,
+                                           allowed=allowed)
         return out, k_cache, v_cache
     paged_kv_write_quant_plain(k_cache, v_cache, k_scale, v_scale, k_new, v_new, slots)
     out = paged_decode_attention_plain(q, k_cache, v_cache, block_table, ctx_lens,
-                                       k_scale, v_scale, window, alibi_slopes)
+                                       k_scale, v_scale, window, alibi_slopes, allowed=allowed)
     return out, k_cache, v_cache, k_scale, v_scale
 
 
 def _check_decode(what, q, k_cache, v_cache, block_table, ctx_lens,
                   k_new=None, v_new=None, slots=None, k_scale=None, v_scale=None,
-                  alibi_slopes=None):
+                  alibi_slopes=None, allowed_slots=None):
     S, H, D = q.shape
     NBLK, bs, KV, Dc = k_cache.shape
     pool = _BF16 if k_scale is None else _I8
@@ -305,6 +332,10 @@ def _check_decode(what, q, k_cache, v_cache, block_table, ctx_lens,
         tensors.update(alibi_slopes=alibi_slopes)
         dtypes.update(alibi_slopes=_F32)
         check_shape(what, "alibi_slopes", alibi_slopes, (H,))
+    if allowed_slots is not None:
+        tensors.update(allowed_slots=allowed_slots)
+        dtypes.update(allowed_slots=_I32)
+        check_shape(what, "allowed_slots", allowed_slots, tuple(block_table.shape))
     check_cuda_args(what, tensors, dtypes, aligned=("k_cache", "v_cache"))
     if Dc != D or D not in _DECODE_HEAD_DIMS:
         raise ValueError(f"{what}: head_dim {D} (cache {Dc}); the kernel is "
@@ -323,8 +354,8 @@ def _check_decode(what, q, k_cache, v_cache, block_table, ctx_lens,
         check_shape(what, "slots", slots, (S,))
 
 
-def _launch_decode(what, wrapper, window, alibi_slopes, q, k_cache, v_cache, block_table,
-                   ctx_lens, k_new=None, v_new=None, slots=None, k_scale=None,
+def _launch_decode(what, wrapper, window, alibi_slopes, allowed_slots, q, k_cache, v_cache,
+                   block_table, ctx_lens, k_new=None, v_new=None, slots=None, k_scale=None,
                    v_scale=None):
     """Launch csrc/paged_decode.cu in the mode its arguments select and
     count the launch on `wrapper`. Returns the output [S, H, D]."""
@@ -338,75 +369,88 @@ def _launch_decode(what, wrapper, window, alibi_slopes, q, k_cache, v_cache, blo
     err = lib.paged_decode(
         ptr(out), ptr(q), ptr(k_cache), ptr(v_cache), opt(k_scale), opt(v_scale),
         ptr(block_table), ptr(ctx_lens), opt(k_new), opt(v_new), opt(slots),
-        opt(alibi_slopes), int(k_new is not None), int(k_scale is not None), S, H, KV, D,
-        NBLK, bs, block_table.shape[1], int(window), 1.0 / D ** 0.5, stream_of(q))
+        opt(alibi_slopes), opt(allowed_slots), int(k_new is not None),
+        int(k_scale is not None), S, H, KV, D, NBLK, bs, block_table.shape[1], int(window),
+        1.0 / D ** 0.5, stream_of(q))
     build.check(lib, err, what)
-    count_launch(wrapper, window, alibi_slopes is not None)
+    count_launch(wrapper, window, alibi_slopes is not None, allowed_slots is not None)
     return out
 
 
 def paged_decode_attention(q, k_cache, v_cache, block_table, ctx_lens, window: int = 0,
-                           alibi_slopes=None):
+                           alibi_slopes=None, allowed_slots=None):
     """Plain-mode paged decode attention (kernel: csrc/paged_decode.cu,
     FUSED=false): row s attends to cache positions < ctx_lens[s] (the last
     `window` of them when window > 0; ALiBi-biased by the [H] f32
-    `alibi_slopes` when given). Used when a decode row set is not
+    `alibi_slopes` when given; only those of the table slots the [S, NB]
+    int32 `allowed_slots` bitmap allows, when given). Used when a decode
+    row set is not
     all single tokens (chunked continuation, the suffix of a prefix-cache
     hit), after a separate paged_kv_write. q [S, H, D] bf16, caches [NBLK,
     bs, KV, D] bf16, block_table [S, NB] int32, ctx_lens [S] int32 (0 = pad
     row, zeros out). Returns [S, H, D]."""
     if not q.is_cuda:
         return paged_decode_attention_plain(q, k_cache, v_cache, block_table, ctx_lens,
-                                            window=window, alibi_slopes=alibi_slopes)
+                                            window=window, alibi_slopes=alibi_slopes,
+                                            allowed_slots=allowed_slots)
     what = "paged_decode_attention"
-    _check_decode(what, q, k_cache, v_cache, block_table, ctx_lens, alibi_slopes=alibi_slopes)
-    return _launch_decode(what, paged_decode_attention, window, alibi_slopes, q, k_cache,
-                          v_cache, block_table, ctx_lens)
+    _check_decode(what, q, k_cache, v_cache, block_table, ctx_lens, alibi_slopes=alibi_slopes,
+                  allowed_slots=allowed_slots)
+    return _launch_decode(what, paged_decode_attention, window, alibi_slopes, allowed_slots, q,
+                          k_cache, v_cache, block_table, ctx_lens)
 
 
 _zero_counts(paged_decode_attention)
 
 
 def paged_decode_attention_int8(q, k_cache, v_cache, block_table, ctx_lens, k_scale,
-                                v_scale, window: int = 0, alibi_slopes=None):
+                                v_scale, window: int = 0, alibi_slopes=None,
+                                allowed_slots=None):
     """paged_decode_attention over int8 pools (kernel: csrc/paged_decode.cu,
     FUSED=false, QUANT=true): the codes are dequantized in the attention
-    loop with their [NBLK, bs, KV] f32 scales (window and alibi_slopes as
-    in paged_decode_attention). Used after
+    loop with their [NBLK, bs, KV] f32 scales (window, alibi_slopes and
+    allowed_slots as in paged_decode_attention; a disallowed block's codes
+    and scales are never read). Used after
     paged_kv_write_int8 for chunked continuations and prefix-hit suffixes.
     q [S, H, D] bf16, caches [NBLK, bs, KV, D] int8. Returns [S, H, D]."""
     if not q.is_cuda:
         return paged_decode_attention_plain(q, k_cache, v_cache, block_table, ctx_lens,
-                                            k_scale, v_scale, window, alibi_slopes)
+                                            k_scale, v_scale, window, alibi_slopes,
+                                            allowed_slots)
     what = "paged_decode_attention_int8"
-    _check_decode(what, q, k_cache, v_cache, block_table, ctx_lens,
-                  k_scale=k_scale, v_scale=v_scale, alibi_slopes=alibi_slopes)
-    return _launch_decode(what, paged_decode_attention_int8, window, alibi_slopes, q, k_cache,
-                          v_cache, block_table, ctx_lens, k_scale=k_scale, v_scale=v_scale)
+    _check_decode(what, q, k_cache, v_cache, block_table, ctx_lens, k_scale=k_scale,
+                  v_scale=v_scale, alibi_slopes=alibi_slopes, allowed_slots=allowed_slots)
+    return _launch_decode(what, paged_decode_attention_int8, window, alibi_slopes,
+                          allowed_slots, q, k_cache, v_cache, block_table, ctx_lens,
+                          k_scale=k_scale, v_scale=v_scale)
 
 
 _zero_counts(paged_decode_attention_int8)
 
 
 def paged_decode_fused(q, k_cache, v_cache, block_table, ctx_lens,
-                       k_new, v_new, slots, window: int = 0, alibi_slopes=None):
+                       k_new, v_new, slots, window: int = 0, alibi_slopes=None,
+                       allowed_slots=None):
     """Fused single-token decode (kernel: csrc/paged_decode.cu, FUSED=true):
     write each row's new K/V [S, KV, D] into its flat slot [S] AND attend
     over the cache positions < ctx-1 plus the new token, in one launch.
     Rows must be distinct sequences; ctx INCLUDES the new token; slot -1
     marks a pad row (nothing written); window > 0 attends to the last
     `window` positions only; alibi_slopes [H] f32 bias each score by
-    slope_h * its position (the new token's is ctx - 1). Returns (out
-    [S, H, D], k_cache, v_cache) with the arenas updated in place."""
+    slope_h * its position (the new token's is ctx - 1); allowed_slots
+    [S, NB] int32 restricts the cache positions to the allowed table slots
+    (the new token is attended whatever it says). Returns (out [S, H, D],
+    k_cache, v_cache) with the arenas updated in place."""
     if not q.is_cuda:
         return paged_decode_fused_plain(q, k_cache, v_cache, block_table, ctx_lens,
                                         k_new, v_new, slots, window=window,
-                                        alibi_slopes=alibi_slopes)
+                                        alibi_slopes=alibi_slopes,
+                                        allowed_slots=allowed_slots)
     what = "paged_decode_fused"
     _check_decode(what, q, k_cache, v_cache, block_table, ctx_lens, k_new, v_new, slots,
-                  alibi_slopes=alibi_slopes)
-    out = _launch_decode(what, paged_decode_fused, window, alibi_slopes, q, k_cache, v_cache,
-                         block_table, ctx_lens, k_new, v_new, slots)
+                  alibi_slopes=alibi_slopes, allowed_slots=allowed_slots)
+    out = _launch_decode(what, paged_decode_fused, window, alibi_slopes, allowed_slots, q,
+                         k_cache, v_cache, block_table, ctx_lens, k_new, v_new, slots)
     return out, k_cache, v_cache
 
 
@@ -414,24 +458,27 @@ _zero_counts(paged_decode_fused)
 
 
 def paged_decode_fused_int8(q, k_cache, v_cache, block_table, ctx_lens, k_new, v_new,
-                            slots, k_scale, v_scale, window: int = 0, alibi_slopes=None):
+                            slots, k_scale, v_scale, window: int = 0, alibi_slopes=None,
+                            allowed_slots=None):
     """paged_decode_fused over int8 pools (kernel: csrc/paged_decode.cu,
     FUSED=true, QUANT=true): each row's new K/V [S, KV, D] bf16 is
     quantized in the kernel (codes and scales bit-identical to
     quantize_kv_rows), written into its flat slot of the code and scale
     pools, and attended as its dequantized value, in one launch. The JAX
     package's int8 fused mode of paged_decode_attention (its
-    paged_decode_fused is bf16 only; window and alibi_slopes as in
-    paged_decode_fused). Returns (out [S, H, D], k_cache,
-    v_cache, k_scale, v_scale), the pools updated in place."""
+    paged_decode_fused is bf16 only; window, alibi_slopes and
+    allowed_slots as in paged_decode_fused). Returns (out [S, H, D],
+    k_cache, v_cache, k_scale, v_scale), the pools updated in place."""
     if not q.is_cuda:
         return paged_decode_fused_plain(q, k_cache, v_cache, block_table, ctx_lens, k_new,
-                                        v_new, slots, k_scale, v_scale, window, alibi_slopes)
+                                        v_new, slots, k_scale, v_scale, window, alibi_slopes,
+                                        allowed_slots)
     what = "paged_decode_fused_int8"
     _check_decode(what, q, k_cache, v_cache, block_table, ctx_lens, k_new, v_new, slots,
-                  k_scale, v_scale, alibi_slopes)
-    out = _launch_decode(what, paged_decode_fused_int8, window, alibi_slopes, q, k_cache,
-                         v_cache, block_table, ctx_lens, k_new, v_new, slots, k_scale, v_scale)
+                  k_scale, v_scale, alibi_slopes, allowed_slots)
+    out = _launch_decode(what, paged_decode_fused_int8, window, alibi_slopes, allowed_slots, q,
+                         k_cache, v_cache, block_table, ctx_lens, k_new, v_new, slots, k_scale,
+                         v_scale)
     return out, k_cache, v_cache, k_scale, v_scale
 
 

@@ -475,14 +475,14 @@ def _window_decode_case(rng, dev, H, KV, D, quant, bs=16, NB=8, nblk=56):
 
 
 def _window_decode(mode, q, pools, tbl, ctx, window, kn=None, vn=None, slots=None,
-                   alibi=None):
+                   alibi=None, allowed=None):
     """(kernel output, plain output) of one decode mode ("plain", "fused",
-    "int8", "fused_int8") at `window` (and with ALiBi slopes `alibi`), each
-    on its own copy of the pools; the fused modes also check the written
-    pools bit for bit."""
+    "int8", "fused_int8") at `window` (and with ALiBi slopes `alibi`, the
+    layout bitmap `allowed`), each on its own copy of the pools; the fused
+    modes also check the written pools bit for bit."""
     got, ref = [p.clone() for p in pools], [p.clone() for p in pools]
     scales = lambda ps: ps[2:]
-    kw = dict(window=window, alibi_slopes=alibi)
+    kw = dict(window=window, alibi_slopes=alibi, allowed_slots=allowed)
     if mode in ("plain", "int8"):
         kern = PP.paged_decode_attention_int8 if mode == "int8" else PP.paged_decode_attention
         out = kern(q, got[0], got[1], tbl, ctx, *scales(got), **kw)
@@ -897,3 +897,125 @@ def _new_col_at_zero(mode, q, pools, tbl, ctx, kn, vn, slots, slopes):
     logits = logits.masked_fill(~(pos[None, :] < ctx[:, None])[:, None, :], float("-inf"))
     out = torch.einsum("shk,skhd->shd", torch.nan_to_num(logits.softmax(-1)), v)
     return out.to(q.dtype)
+
+
+def _sparse_decode_case(rng, dev, mode, bs, H=8, KV=2, D=128):
+    """Decode rows on the card for the layout bitmap: at bs 128, ctx 5, 300
+    (mid-block), 700, 1024 (the whole table) and a pad row; at bs 16 (a
+    64-column tile spans four cache blocks) ctx 5, 100, 333, 640 and a pad
+    row. Bitmaps: each row's fixed layout row (local 2, global 1, block =
+    bs) and a random one that keeps the row's own block; the pad row's are
+    all ones."""
+    from deepspeed_tpu_torch.ops.sparse_attention import SparsityConfig
+
+    S, NB = 5, 8 if bs == 128 else 40
+    nblk = S * NB + 1
+    q = _bf16_cuda(rng.standard_normal((S, H, D)), dev)
+    if "int8" in mode:
+        pools = _int8_pools(rng, dev, nblk, bs, KV, D)
+    else:
+        pools = tuple(_bf16_cuda(a, dev) for a in _arena(rng, nblk, bs, KV, D))
+    tbl = rng.permutation(nblk - 1)[: S * NB].reshape(S, NB).astype(np.int32)
+    tbl[-1] = nblk - 1
+    ctx = np.array([5, 300, 700, 1024, 0] if bs == 128 else [5, 100, 333, 640, 0], np.int32)
+    pos = np.maximum(ctx - 1, 0)
+    lay = SparsityConfig(block=bs, num_local_blocks=2, num_global_blocks=1).layout(NB * bs)
+    fixed = lay[pos // bs].astype(np.int32)
+    rand = rng.integers(0, 2, (S, NB)).astype(np.int32)
+    rand[np.arange(S), pos // bs] = 1
+    fixed[-1] = rand[-1] = 1
+    slots = np.where(ctx > 0, tbl[np.arange(S), pos // bs] * bs + pos % bs, -1)
+    t = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(dev)
+    kn = _bf16_cuda(rng.standard_normal((S, KV, D)), dev)
+    vn = _bf16_cuda(rng.standard_normal((S, KV, D)), dev)
+    return (q, pools, t(tbl), t(ctx), kn, vn, t(slots.astype(np.int32)),
+            {"fixed": t(fixed), "random": t(rand)})
+
+
+@pytest.mark.cuda
+class TestSparseOnCard:
+    """The layout-bitmap mode of kernels #4 and #5 (all four decode modes)
+    against the plain versions on the same bf16 inputs, at bs 128 (a tile
+    inside one block) and bs 16 (a tile across four blocks), at the decode
+    tolerance; an all-ones bitmap bit-identical to none, also with a window
+    and with ALiBi; NaN in every disallowed block leaving the output
+    bit-identical (no byte of one is read); and a bitmap shifted by one
+    block, which the check must catch."""
+
+    DECODE_TOL = dict(rtol=8e-3, atol=1e-3)
+    MODES = ["plain", "fused", "int8", "fused_int8"]
+
+    @pytest.mark.parametrize("bitmap", ["fixed", "random"])
+    @pytest.mark.parametrize("bs", [128, 16])
+    @pytest.mark.parametrize("mode", MODES)
+    def test_decode(self, rng, cuda_device, mode, bs, bitmap):
+        q, pools, tbl, ctx, kn, vn, slots, bitmaps = _sparse_decode_case(rng, cuda_device,
+                                                                        mode, bs)
+        out, ref = _window_decode(mode, q, pools, tbl, ctx, 0, kn, vn, slots,
+                                  allowed=bitmaps[bitmap])
+        torch.testing.assert_close(out.float(), ref.float(), **self.DECODE_TOL)
+        assert not out[-1].any()  # the pad row
+        dense, _ = _window_decode(mode, q, pools, tbl, ctx, 0, kn, vn, slots)
+        assert _n_over(out, dense, 1e-3, 8e-3) > 0  # the bitmap bites
+
+    @pytest.mark.parametrize("bs", [128, 16])
+    @pytest.mark.parametrize("mode", MODES)
+    def test_all_ones_is_bit_identical_to_none(self, rng, cuda_device, mode, bs):
+        q, pools, tbl, ctx, kn, vn, slots, _ = _sparse_decode_case(rng, cuda_device, mode, bs)
+        ones = torch.ones(tbl.shape, dtype=torch.int32, device=cuda_device)
+        for kw in ({}, {"alibi": _slopes(8, cuda_device)}):
+            for window in (0, 200):
+                base, _ = _window_decode(mode, q, pools, tbl, ctx, window, kn, vn, slots, **kw)
+                got, _ = _window_decode(mode, q, pools, tbl, ctx, window, kn, vn, slots,
+                                        allowed=ones, **kw)
+                assert torch.equal(got, base), (kw, window)
+
+    @pytest.mark.parametrize("bs", [128, 16])
+    @pytest.mark.parametrize("mode", MODES)
+    def test_disallowed_blocks_are_never_read(self, rng, cuda_device, mode, bs):
+        """NaN in every K/V row (on int8 pools: every scale) of each row's
+        disallowed blocks: the kernel's output stays bit-identical."""
+        q, pools, tbl, ctx, kn, vn, slots, bitmaps = _sparse_decode_case(rng, cuda_device,
+                                                                        mode, bs)
+        allow = bitmaps["fixed"]
+        clean, _ = _window_decode(mode, q, pools, tbl, ctx, 0, kn, vn, slots, allowed=allow)
+        dead = tbl[allow == 0].long()
+        poisoned = [p.clone() for p in pools]
+        for p in (poisoned[2:] if "int8" in mode else poisoned):
+            p[dead] = float("nan")
+        kern = {"plain": PP.paged_decode_attention, "int8": PP.paged_decode_attention_int8,
+                "fused": PP.paged_decode_fused, "fused_int8": PP.paged_decode_fused_int8}[mode]
+        extra = (kn, vn, slots) if "fused" in mode else ()
+        got = kern(q, poisoned[0], poisoned[1], tbl, ctx, *extra, *poisoned[2:],
+                   allowed_slots=allow)
+        got = got[0] if "fused" in mode else got
+        torch.cuda.synchronize()
+        assert dead.numel() > 0 and torch.isfinite(got.float()).all()
+        assert torch.equal(got, clean)
+
+    @pytest.mark.parametrize("bs", [128, 16])
+    @pytest.mark.parametrize("mode", MODES)
+    def test_shifted_bitmap_is_caught(self, rng, cuda_device, mode, bs):
+        q, pools, tbl, ctx, kn, vn, slots, bitmaps = _sparse_decode_case(rng, cuda_device,
+                                                                        mode, bs)
+        allow = bitmaps["fixed"]
+        _, ref = _window_decode(mode, q, pools, tbl, ctx, 0, kn, vn, slots, allowed=allow)
+        out, _ = _window_decode(mode, q, pools, tbl, ctx, 0, kn, vn, slots,
+                                allowed=torch.roll(allow, 1, dims=1))
+        assert _n_over(out, ref, 1e-3, 8e-3) > 0
+
+    def test_sparse_launches_are_counted(self, rng, cuda_device):
+        PK.reset_launch_counts()
+        q, pools, tbl, ctx, kn, vn, slots, bitmaps = _sparse_decode_case(rng, cuda_device,
+                                                                        "plain", 128)
+        _window_decode("plain", q, pools, tbl, ctx, 0, allowed=bitmaps["fixed"])
+        _window_decode("fused", q, pools, tbl, ctx, 0, kn, vn, slots)
+        counts, sparse = PK.launch_counts(), PK.sparse_launch_counts()
+        assert counts["paged_decode_attention"] == 1 and counts["paged_decode_fused"] == 1
+        assert sparse["paged_decode_attention[sparse]"] == 1
+        assert sparse["paged_decode_fused[sparse]"] == 0
+        with pytest.raises(TypeError):
+            PP.paged_decode_attention(q, *pools, tbl, ctx, allowed_slots=bitmaps["fixed"].bool())
+        with pytest.raises(ValueError):
+            PP.paged_decode_attention(q, *pools, tbl, ctx,
+                                      allowed_slots=bitmaps["fixed"][:, :4].contiguous())

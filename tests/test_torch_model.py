@@ -61,7 +61,7 @@ class TestConfigAndInit:
     @pytest.mark.parametrize("over", [
         {"n_experts": 2}, {"parallel_residual": True},
         {"lm_head_bias": True, "tie_embeddings": False},  # ALiBi here until it was served
-        {"variant": "gpt2"}, {"attention_impl": "sparse"}, {"use_flash": False},
+        {"variant": "gpt2"}, {"activation_quant_bits": 8}, {"use_flash": False},
     ])
     def test_unserved_configs_raise(self, over):
         with pytest.raises(NotImplementedError):

@@ -126,6 +126,18 @@ class TestConfig:
         with pytest.raises(NotImplementedError):
             parse_config({"train_micro_batch_size_per_gpu": 1, **extra})
 
+    def test_sparse_attention_block_points_at_the_model(self):
+        """As in the JAX package, the block has no engine-level consumer:
+        the message says where sparse attention is set, and a disabled
+        block parses."""
+        with pytest.raises(NotImplementedError,
+                           match=r"no engine-level consumer.*attention_impl='sparse'"):
+            parse_config({"train_micro_batch_size_per_gpu": 1,
+                          "sparse_attention": {"mode": "fixed"}})
+        cfg = parse_config({"train_micro_batch_size_per_gpu": 1,
+                            "sparse_attention": {"enabled": False}})
+        assert cfg.train_micro_batch_size_per_gpu == 1
+
     def test_disabled_blocks_and_noop_keys_parse(self):
         cfg = parse_config({"train_micro_batch_size_per_gpu": 1,
                             "autotuning": {"enabled": False},

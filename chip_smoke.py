@@ -49,7 +49,19 @@ Phases (any failure raises and exits nonzero):
              a bigbird layout's and random bitmaps, an all-ones bitmap
              bit-identical to none, and planted faults that must fail: the
              kernel given all ones, the bitmap shifted by one block, at bs
-             16 each group of four blocks given its first block's bit; time
+             16 each group of four blocks given its first block's bit; the
+             wide-group modes of #4 and #5 (all four decode modes at
+             Falcon-7B's 71 query heads of 64 over one KV head and at GQA
+             16 over 2, 8 rows with ctx ~100 to ~1,950) and the head_dim-80
+             modes of #1, #4, #5 and #6 (flash at Phi-2's prefill shapes,
+             B=1, S=512 and 2048, 32 x 80; decode in all four modes; both
+             writes bit-exact), and flash at Falcon-7B's prefill shape
+             (S=1920, 71 x 64 over 1), with planted faults that must fail:
+             chunks c > 0 given chunk 0's query heads, the partial last
+             chunk dropped, in the int8 fused mode chunks attending the
+             un-rounded new column, at head_dim 80 the output's columns
+             64-79 left zero and the scores taken over the first 64 dims;
+             time
              kernel, plain version and (where one exists) a single
              PyTorch library call computing the same function: device time
              from torch.profiler, and the time of back-to-back calls from
@@ -154,6 +166,27 @@ Phases (any failure raises and exits nonzero):
 4k. serve_sparse_int8 - the same on int8 pools and the same weights; only
              the int8 kernels may launch; the checks against the plain int8
              paths.
+4l. serve_falcon (run after 4k) - Falcon-7B (FALCON_7B: 32 layers, d_model
+             4544, 71 query heads of 64 over one KV head, d_ff 18176, vocab
+             65024, erf GELU, one LayerNorm shared by the parallel
+             attention and MLP, no biases, tied; random bf16 weights, seed
+             0) in init_inference on bf16 pools (SERVE_A), with BLOOM's
+             counted traffic: a 1920-token prompt, 7 x 96, a decode put, a
+             2-token continuation of a wave row and greedy
+             decode_multi_fn(8, 24). #1, #4, #5 and #6 must launch, every
+             attention launch in its wide-group mode. Checks: finite
+             logits; prefill and decode logits of all 32 layers by the
+             kernel path within 1.5x / 2x of the bf16 plain path's error
+             against f32. Reports TTFT of fresh 512- and 1920-token
+             prompts, batch-8 decode throughput, where the time goes, peak
+             memory. serve_falcon_int8: the same on int8 pools, the same
+             weights, all 32 layers, against the plain int8 paths.
+4m. serve_phi - Phi-2 (PHI_2: 32 layers, d_model 2560, 32 heads of 80,
+             partial rotary 0.4, d_ff 10240, vocab 51200, tanh GELU, one
+             shared LayerNorm, biases everywhere, an untied lm_head with
+             its bias; random bf16 weights, seed 0, every bias drawn too)
+             as 4l, every launch of #1, #4, #5 and #6 in its head_dim-80
+             mode; serve_phi_int8 likewise.
 4h. train_alibi - BLOOM-7B1's width, 4 layers deep (all 30 with fp32
              master and Adam moments are 113 GB), with the flagship's
              settings on a 4 x 2048 micro-batch, as train_window: one
@@ -361,6 +394,37 @@ DECODE_ALIBI_CTX = (100, 371, 642, 913, 1184, 1455, 1726, 1997)
 # 64-column tile of the kernel spans four blocks
 DECODE_SPARSE_CTX = (100, 611, 1180, 1701, 2262, 2823, 3391, 3970)
 SPARSE_BLOCK_16 = dict(block=16, mode="fixed", num_local_blocks=4, num_global_blocks=1)
+# the parallel-residual paths, served at full width and depth from random
+# weights (seed 0) as the JAX package's config_from_hf maps each published
+# config.json (utils/hf_checkpoint.py). Falcon-7B (tiiuae/falcon-7b:
+# multi-query, 71 query heads of 64 over one KV head, one LayerNorm shared
+# by the parallel attention and MLP, erf GELU, no biases, tied, rotary):
+# 6,921,720,704 parameters, 13.8 GB in bf16, 8,192 KV bytes per token
+FALCON_7B = dict(vocab_size=65024, n_layers=32, n_heads=71, n_kv_heads=1, d_model=4544,
+                 d_ff=18176, max_seq=2048, variant="llama", norm_type="layer", gated_mlp=False,
+                 activation="gelu_exact", qkv_bias=False, attn_out_bias=False, mlp_bias=False,
+                 parallel_residual=True, shared_ln=True, rope_theta=10000.0, norm_eps=1e-5,
+                 tie_embeddings=True, alibi=False)
+# Phi-2 (microsoft/phi-2: 32 heads of 80, partial rotary 0.4 = 32 of 80
+# dims, one shared LayerNorm, tanh GELU, biases everywhere, an untied
+# lm_head with its bias): 2,779,683,840 parameters, 5.6 GB in bf16, 327,680
+# KV bytes per token. Both serve as BLOOM-7B1 does (SERVE_A; a 1920-token
+# prompt, 7 x 96, TTFT at 512 and 1920 tokens)
+PHI_2 = dict(vocab_size=51200, n_layers=32, n_heads=32, n_kv_heads=32, d_model=2560,
+             d_ff=10240, max_seq=2048, variant="llama", norm_type="layer", gated_mlp=False,
+             activation="gelu", qkv_bias=True, attn_out_bias=True, mlp_bias=True,
+             parallel_residual=True, shared_ln=True, rotary_pct=0.4, rope_theta=10000.0,
+             norm_eps=1e-5, tie_embeddings=False, lm_head_bias=True)
+# phase 2's wide-group and head_dim-80 decode rows: ctx ~100 to ~1,950 (the
+# serving phases' long row decodes at 1921-1944), several mid-block
+DECODE_FP_CTX = (100, 373, 646, 919, 1192, 1465, 1738, 1950)
+# phase 2's wide-group decode shapes: Falcon-7B's 71 query heads of 64 over
+# one KV head (8 full chunks of 8 heads and a partial one of 7), and a
+# generic GQA 16 over 2 at head_dim 128 (two full chunks per KV head)
+DECODE_GROUP_CASES = {"falcon_7b": dict(H=71, KV=1, D=64),
+                      "gqa_16_over_2": dict(H=32, KV=2, D=128)}
+# phase 2's head_dim-80 flash cases: Phi-2's prefill shapes
+FLASH_D80_S = (512, 2048)
 # window cases of phase 2 besides >= S: Mistral's 4096 (tile-aligned), 1000
 # (no multiple of the 64-row tiles or the 128-token blocks) and 1
 WINDOW_CASES = (4096, 1000, 1)
@@ -389,6 +453,11 @@ KERNEL_TOL = {"paged_kv_write": (0.0, 0.0), "paged_decode_fused": (1e-3, 8e-3),
 # in f32, and the kernel path's error must stay within these factors of
 # the plain bf16 path's error (RMS and max over all logits)
 PATH_RMS_FACTOR, PATH_MAX_FACTOR = 1.5, 2.0
+# the 7B-class serving paths, in the order they run (mode, model): each
+# from bf16 pools (phase serve_<mode>), then from int8 pools on the same
+# weights (serve_<mode>_int8)
+SERVED_7B = (("window", MISTRAL), ("alibi", BLOOM), ("sparse", LLAMA2_7B),
+             ("falcon", FALCON_7B), ("phi", PHI_2))
 
 
 def _require_environment():
@@ -403,6 +472,26 @@ def _require_environment():
               "run it from the root of a checkout", file=sys.stderr)
         sys.exit(2)
     sys.path.insert(0, str(ROOT))
+
+
+# seconds the script has spent reading torch.profiler's events, so far
+PROFILER_POST_S = [0.0]
+
+
+def _device_events(prof):
+    """(name, microseconds) of every kernel, copy and memset a finished
+    torch.profiler profile recorded on the card, read from its kineto
+    results: prof.events() first builds a Python event tree of every host
+    op, which took more than half of this script's time (~10^5 host ops
+    per profiled 32-layer decode_multi)."""
+    from torch.autograd import DeviceType
+
+    t = time.perf_counter()
+    out = [(e.name(), e.duration_ns() / 1e3) for e in prof.profiler.kineto_results.events()
+           if e.device_type() == DeviceType.CUDA
+           and not getattr(e, "is_hidden_event", lambda: False)()]
+    PROFILER_POST_S[0] += time.perf_counter() - t
+    return out
 
 
 def _time_ms(fn, iters, warmup=3):
@@ -428,7 +517,6 @@ def _device_ms(fn, iters, warmup=3):
     activity at all is taken again (this happened once in a long run);
     raises after three such profiles."""
     import torch
-    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     for _ in range(warmup):
@@ -439,8 +527,7 @@ def _device_ms(fn, iters, warmup=3):
             for _ in range(iters):
                 fn()
             torch.cuda.synchronize()
-        us = sum(e.time_range.elapsed_us() for e in prof.events()
-                 if e.device_type == DeviceType.CUDA)
+        us = sum(d for _, d in _device_events(prof))
         if us > 0:
             return us / 1e3 / iters
     raise RuntimeError("torch.profiler recorded no device time (CUPTI tracing is off)")
@@ -452,7 +539,6 @@ def _where_time_goes(fn, top=8):
     copies it ran (torch.profiler), the idle share, and the largest
     device-time consumers by kernel name."""
     import torch
-    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
@@ -463,11 +549,9 @@ def _where_time_goes(fn, top=8):
         wall_ms = (time.perf_counter() - t) * 1e3
     by_name = {}  # by the first 80 characters of the name, as reported
     n_device = 0
-    for e in prof.events():
-        if e.device_type == DeviceType.CUDA:
-            n_device += 1
-            key = e.name[:80]
-            by_name[key] = by_name.get(key, 0.0) + e.time_range.elapsed_us() / 1e3
+    for name, us in _device_events(prof):
+        n_device += 1
+        by_name[name[:80]] = by_name.get(name[:80], 0.0) + us / 1e3
     busy = sum(by_name.values())
     ranked = sorted(by_name.items(), key=lambda kv: -kv[1])[:top]
     return {"wall_ms_profiled": wall_ms, "device_busy_ms": busy, "device_ops": n_device,
@@ -539,23 +623,37 @@ def _check_flash_o(FA, name, o, ro):
     return st
 
 
-def _flash_fwd_check(FA, randn, B, S, H, KV, D, bound_ms):
+def _flash_case(FA, randn, bound_ms, B, S, H, KV, D):
+    """Kernel #1 against its plain version on one causal case (o under
+    bwd_mismatch, lse at 1e-3). Returns (q, k, v, o, plain o, the o stats,
+    the timing entry beside SDPA)."""
     import torch.nn.functional as F
 
     q, k, v = randn(B, S, H, D), randn(B, S, KV, D), randn(B, S, KV, D)
     o, lse = FA.flash_fwd(q, k, v)
     ro, rlse = FA.flash_attention_plain(q, k, v)
-    err = _check_flash_o(FA, "flash_fwd o", o, ro)["max_abs_err"]
-    _check_close("flash_fwd lse", lse, rlse, 1e-3, 1e-3)
-    qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
-    return dict(
-        max_abs_err=err,
-        **_timings(lambda: FA.flash_fwd(q, k, v), lambda: FA.flash_attention_plain(q, k, v),
-                   lambda: F.scaled_dot_product_attention(qt, kt, vt, is_causal=True,
-                                                          enable_gqa=KV != H), 10),
-        shape=f"B={B}, S={S}, H={H}, KV={KV}, D={D}, bf16, causal",
-        bound=bound_ms(B * S * (H * 2 + KV * 2) * D * 2 + B * H * S * 4,
-                       4.0 * B * H * D * S * (S + 1) / 2))
+    shape = f"B={B}, S={S}, H={H}, KV={KV}, D={D}, bf16, causal"
+    st = _check_flash_o(FA, f"flash_fwd {shape} o", o, ro)
+    _check_close(f"flash_fwd {shape} lse", lse, rlse, 1e-3, 1e-3)
+    qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
+
+    def timed():
+        return dict(
+            max_abs_err=st["max_abs_err"],
+            **_timings(lambda: FA.flash_fwd(q, k, v), lambda: FA.flash_attention_plain(q, k, v),
+                       lambda: F.scaled_dot_product_attention(qt, kt, vt, is_causal=True,
+                                                              enable_gqa=KV != H), 10),
+            shape=shape,
+            bound=bound_ms(B * S * (H * 2 + KV * 2) * D * 2 + B * H * S * 4,
+                           4.0 * B * H * D * S * (S + 1) / 2))
+
+    return q, k, v, o, ro, st, timed
+
+
+def _flash_fwd_check(FA, randn, B, S, H, KV, D, bound_ms):
+    """Kernel #1 against its plain version at one causal shape, timed
+    beside SDPA (_flash_case)."""
+    return _flash_case(FA, randn, bound_ms, B, S, H, KV, D)[-1]()
 
 
 def _planted_faults(FA, got, ref, q, k, v, do, lse, delta, tile=64):
@@ -1137,11 +1235,12 @@ def _decode_fixture(PA, randn, dev, H, KV, D, bs, NB, ctx_list, seed):
     over an arena of just enough blocks (a scratch block last), bf16 and
     int8 pools of the same rows, and new K/V rows with their slots.
     Returns (inputs dict, call, run): call(name, window, pools, kernel=True,
-    alibi=None, allowed=None) is the output of one decode mode (the kernel,
-    or its plain version) on `pools`, which the fused modes write in place;
-    run(name, window, kernel=True, alibi=None, allowed=None) is (output,
-    written pools) on copies of the mode's pools. `allowed` is the layout
-    bitmap [S, NB] int32."""
+    alibi=None, allowed=None, q=None) is the output of one decode mode (the
+    kernel, or its plain version) on `pools`, which the fused modes write
+    in place; run(name, window, kernel=True, alibi=None, allowed=None,
+    q=None) is (output, written pools) on copies of the mode's pools.
+    `allowed` is the layout bitmap [S, NB] int32; `q` replaces the
+    fixture's queries."""
     import torch
 
     S = len(ctx_list)
@@ -1152,7 +1251,7 @@ def _decode_fixture(PA, randn, dev, H, KV, D, bs, NB, ctx_list, seed):
     tables = torch.full((S, NB), nblk - 1, dtype=torch.int32, device=dev)
     tables[:, :per_row] = perm.reshape(S, per_row)
     ctx = torch.tensor(ctx_list, dtype=torch.int32, device=dev)
-    q = randn(S, H, D)
+    queries = randn(S, H, D)
     k_new, v_new = randn(S, KV, D), randn(S, KV, D)
     pos = (ctx - 1).long()
     slots = (tables[torch.arange(S, device=dev), pos // bs].long() * bs + pos % bs).to(torch.int32)
@@ -1162,23 +1261,23 @@ def _decode_fixture(PA, randn, dev, H, KV, D, bs, NB, ctx_list, seed):
                   ks.reshape(nblk, bs, KV), vs.reshape(nblk, bs, KV)]
     kernels = {name: getattr(PA, name) for name in DECODE_MODES}
 
-    def call(name, window, pools, kernel=True, alibi=None, allowed=None):
+    def call(name, window, pools, kernel=True, alibi=None, allowed=None, q=None):
         fused = "fused" in name
         if kernel:
             fn = kernels[name]
         else:
             fn = PA.paged_decode_fused_plain if fused else PA.paged_decode_attention_plain
         extra = (k_new, v_new, slots) if fused else ()
-        out = fn(q, pools[0], pools[1], tables, ctx, *extra, *pools[2:], window=window,
-                 alibi_slopes=alibi, allowed_slots=allowed)
+        out = fn(queries if q is None else q, pools[0], pools[1], tables, ctx, *extra,
+                 *pools[2:], window=window, alibi_slopes=alibi, allowed_slots=allowed)
         return out[0] if fused else out
 
-    def run(name, window, kernel=True, alibi=None, allowed=None):
+    def run(name, window, kernel=True, alibi=None, allowed=None, q=None):
         pools = [p.clone() for p in (int8_pools if "int8" in name else bf16_pools)]
-        return call(name, window, pools, kernel, alibi, allowed), pools
+        return call(name, window, pools, kernel, alibi, allowed, q), pools
 
-    inputs = dict(S=S, nblk=nblk, tables=tables, ctx=ctx, q=q, k_new=k_new, v_new=v_new,
-                  slots=slots)
+    inputs = dict(S=S, nblk=nblk, tables=tables, ctx=ctx, q=queries, k_new=k_new,
+                  v_new=v_new, slots=slots)
     return inputs, call, run
 
 
@@ -1664,6 +1763,270 @@ def _decode_sparse_checks(PA, randn, dev, bound_ms):
     return results
 
 
+# ---------------------------------------------------------------------------
+# phase 2, the wide-group and head_dim-80 modes (Falcon-7B, Phi-2)
+# ---------------------------------------------------------------------------
+
+def _chunk0_heads(q, KV):
+    """q [S, H, D] with each query head of chunk c > 0 of every KV head's
+    group given the query of the same head of chunk 0 (head g -> g % 8):
+    what a kernel whose chunks c > 0 read chunk 0's heads attends with."""
+    import torch
+
+    S, H, D = q.shape
+    G = H // KV
+    idx = torch.arange(G, device=q.device) % 8
+    return q.view(S, KV, G, D)[:, :, idx].reshape(S, H, D).contiguous()
+
+
+def _unrounded_new_column(PA, q, pools, tables, ctx, k_new, v_new, slots):
+    """What a fused int8 decode outputs if it attends each row's new token
+    with the raw bf16 k_new/v_new instead of their dequantized codes: the
+    plain decode over the written int8 pools dequantized to bf16, each
+    row's new slot holding the raw row."""
+    KV, D = pools[0].shape[2:]
+    k = PA.dequantize(pools[0], pools[2], q.dtype)
+    v = PA.dequantize(pools[1], pools[3], q.dtype)
+    k.view(-1, KV, D)[slots.long()] = k_new
+    v.view(-1, KV, D)[slots.long()] = v_new
+    return PA.paged_decode_attention_plain(q, k, v, tables, ctx)
+
+
+def _unrounded_column_fault(PA, x, run, name, KV, G):
+    """The int8 fused wide-group fault. Every q head is made 4 x its KV
+    head's new key, so the new column dominates each softmax (a score of
+    ~32 against ~±4 for the others) and its rounding reaches the output.
+    There the kernel must still pass against the plain version, and the
+    output whose chunks c > 0 attended the un-rounded new column must not.
+    Returns the elements of that output beyond the tolerance."""
+    S, H, D = x["q"].shape
+    q = (4.0 * x["k_new"].float()).repeat_interleave(G, dim=1).to(x["q"].dtype).contiguous()
+    (o, pk), (ref, _) = run(name, 0, q=q), run(name, 0, kernel=False, q=q)
+    _check_close(f"{name}[wide_group] dominant new column", o, ref, *KERNEL_TOL[name])
+    bad = _unrounded_new_column(PA, q, pk, x["tables"], x["ctx"], x["k_new"], x["v_new"],
+                                x["slots"])
+    fault = o.clone()
+    fault.view(S, KV, G, D)[:, :, 8:] = bad.view(S, KV, G, D)[:, :, 8:]
+    return _n_over(fault, ref, *KERNEL_TOL[name])
+
+
+def _decode_group_checks(PA, randn, dev, bound_ms):
+    """The wide-group mode of kernels #4 and #5 (bf16 plain and fused, int8
+    plain and fused: a grid axis over chunks of 8 query heads) in the
+    cases of DECODE_GROUP_CASES (Falcon-7B's 71 query heads of 64 over one
+    KV head, a generic GQA 16 over 2 at 128), 8 rows with ctx
+    DECODE_FP_CTX (~100 to ~1,950) at 128-token blocks, against the plain
+    versions at one bf16 ulp; the fused modes' written pools bit-exact.
+    Planted faults that must fail against the plain version: every chunk
+    c > 0 given chunk 0's query heads (the kernel run on _chunk0_heads),
+    at Falcon's shape the partial last chunk (heads 64-70) dropped, and in
+    the int8 fused mode chunks c > 0 attending the un-rounded new column
+    (_unrounded_column_fault). Times at Falcon-7B's shape; the bound
+    counts each row's ctx positions once (a KV head's chunks read the same
+    bytes again, from L2 where they fit)."""
+    import torch
+
+    bs = SERVE_A["kv_block_size"]
+    NB = SERVE_A["max_seq_len"] // bs
+    ctx_list = list(DECODE_FP_CTX)
+    atol, rtol = KERNEL_TOL["paged_decode_attention"]
+    results, report = {}, {}
+    for seed, (case, c) in enumerate(DECODE_GROUP_CASES.items()):
+        H, KV, D = c["H"], c["KV"], c["D"]
+        G = H // KV
+        x, call, run = _decode_fixture(PA, randn, dev, H, KV, D, bs, NB, ctx_list, 11 + seed)
+        S, nblk = x["S"], x["nblk"]
+        q_bad = _chunk0_heads(x["q"], KV)
+        for name in DECODE_MODES:
+            (o, pk), (ref, pr) = run(name, 0), run(name, 0, kernel=False)
+            err = _check_close(f"{name}[wide_group] {case}", o, ref, atol, rtol)
+            if "fused" in name:
+                for a, b in zip(pk, pr):
+                    _check_close(f"{name}[wide_group] {case} pools", a, b, 0.0, 0.0)
+            faults = {"chunk_c_given_chunk_0_heads": _n_over(run(name, 0, q=q_bad)[0], ref,
+                                                             atol, rtol)}
+            if G % 8:
+                dropped = o.clone()
+                dropped.view(S, KV, G, D)[:, :, G // 8 * 8:] = 0
+                faults[f"last_chunk_heads_{G // 8 * 8}_{G - 1}_dropped"] = _n_over(
+                    dropped, ref, atol, rtol)
+            if name == "paged_decode_fused_int8":
+                faults["chunk_uses_unrounded_new_column"] = _unrounded_column_fault(
+                    PA, x, run, name, KV, G)
+            if not all(faults.values()):
+                raise AssertionError(f"{name}[wide_group] {case}: the check passes a planted "
+                                     f"fault: {faults}")
+            report[f"{name}@{case}"] = {"max_abs_err": err,
+                                        "planted_faults_elements_over": faults}
+            if case != "falcon_7b":
+                continue
+            pools, ref_pools = run(name, 0)[1], run(name, 0)[1]
+            results[f"{name}[wide_group]"] = dict(
+                max_abs_err=err,
+                **_timings(lambda: call(name, 0, pools),
+                           lambda: call(name, 0, ref_pools, kernel=False), None, 20),
+                shape=f"S={S}, ctx {min(ctx_list)}..{max(ctx_list)}, H={H}, KV={KV}, D={D}, "
+                      f"bs={bs}, {'int8' if 'int8' in name else 'bf16'} pools of {nblk} "
+                      f"blocks, {-(-G // 8)} chunks of 8 query heads per KV head",
+                bound=bound_ms(_decode_bytes(name, S, H, KV, D, NB, sum(ctx_list)),
+                               4 * sum(ctx_list) * H * D))
+            del pools, ref_pools
+        del x, call, run
+        torch.cuda.empty_cache()
+    print(json.dumps({"decode_group_checks": {"ctx": ctx_list, **report}}))
+    return results
+
+
+def _d80_write_checks(PA, randn, dev, bound_ms):
+    """The head_dim-80 writes at Phi-2's prefill of the 1920-token prompt
+    (bucket 2048: 2048 rows, 1920 live, 32 KV heads of 80): the bf16 write
+    and the quantizing int8 write bit-exact against their plain versions,
+    live rows built as .5 ties, zeros and subnormals (_int8_rows), where
+    the quantizer rounding ties away from zero must fail."""
+    import torch
+
+    KV = PHI_2["n_heads"]
+    D = PHI_2["d_model"] // KV
+    bs = SERVE_A["kv_block_size"]
+    nblk = SERVE_A["num_kv_blocks"] + 1
+    T = SERVE_A["max_seq_len"]
+    slots = torch.arange(T, device=dev, dtype=torch.int32)
+    slots[A_LONG:] = -1
+    live = torch.nonzero(slots >= 0)[:, 0]
+    n_live = int(live.numel())
+    built = (live[:16], live[16:20], live[20:24])
+    kn, vn = _int8_rows(randn, T, KV, D, built), _int8_rows(randn, T, KV, D, built)
+    out = {}
+    ka, va = randn(nblk, bs, KV, D), randn(nblk, bs, KV, D)
+    kb, vb = ka.clone(), va.clone()
+    PA.paged_kv_write(ka, va, kn, vn, slots)
+    PA.paged_kv_write_plain(kb, vb, kn, vn, slots)
+    _check_close("paged_kv_write[d80] k", ka, kb, 0.0, 0.0)
+    _check_close("paged_kv_write[d80] v", va, vb, 0.0, 0.0)
+    idx, k_live, v_live = slots[live].long(), kn[live], vn[live]
+    out["paged_kv_write[d80]"] = dict(
+        max_abs_err=0.0,
+        **_timings(lambda: PA.paged_kv_write(ka, va, kn, vn, slots),
+                   lambda: PA.paged_kv_write_plain(kb, vb, kn, vn, slots),
+                   lambda: (kb.view(-1, KV, D).index_copy_(0, idx, k_live),
+                            vb.view(-1, KV, D).index_copy_(0, idx, v_live)), 50),
+        shape=f"T={T} rows ({n_live} live), arena [{nblk},{bs},{KV},{D}] bf16",
+        bound=bound_ms(4 * n_live * KV * D * 2 + 4 * T, 0.0))
+    del ka, va, kb, vb
+    qk, ks, qv, vs = PA.quantize_kv_rows(randn(nblk * bs, KV, D), randn(nblk * bs, KV, D))
+    got = [qk.reshape(nblk, bs, KV, D), qv.reshape(nblk, bs, KV, D),
+           ks.reshape(nblk, bs, KV), vs.reshape(nblk, bs, KV)]
+    want = [p.clone() for p in got]
+    PA.paged_kv_write_int8(*got, kn, vn, slots)
+    PA.paged_kv_write_quant_plain(*want, kn, vn, slots)
+    for name, a, b in zip(("k codes", "v codes", "k scales", "v scales"), got, want):
+        _check_close(f"paged_kv_write_int8[d80] {name}", a, b, 0.0, 0.0)
+    n_fault = int((_quantize_ties_away(kn[live]) != got[0].view(-1, KV, D)[idx]).sum())
+    if n_fault == 0:
+        raise AssertionError("paged_kv_write_int8[d80]: the quantizer with ties rounded away "
+                             "from zero passes the bit-exact check")
+    out["paged_kv_write_int8[d80]"] = dict(
+        max_abs_err=0.0,
+        **_timings(lambda: PA.paged_kv_write_int8(*got, kn, vn, slots),
+                   lambda: PA.paged_kv_write_quant_plain(*want, kn, vn, slots), None, 50),
+        shape=f"T={T} rows ({n_live} live), pools [{nblk},{bs},{KV},{D}] int8 + "
+              f"[{nblk},{bs},{KV}] f32",
+        bound=bound_ms(n_live * KV * D * 2 * 2 + n_live * KV * (D + 4) * 2 + 4 * T, 0.0),
+        planted_fault_ties_away_n_codes=n_fault)
+    return out
+
+
+def _first_64_dims(t):
+    """A copy of t with its last axis's entries 64 and up set to zero."""
+    t = t.clone()
+    t[..., 64:] = 0
+    return t
+
+
+def _d80_checks(FA, PA, randn, dev, bound_ms):
+    """The head_dim-80 modes (Phi-2: 32 heads of 80): flash #1 at Phi-2's
+    prefill shapes (B=1, S in FLASH_D80_S) against its plain version;
+    decode #4/#5 in all four modes at 8 rows with ctx DECODE_FP_CTX at one
+    bf16 ulp (the fused modes' pools bit-exact); the writes
+    (_d80_write_checks). Planted faults that must fail: the output's
+    columns 64-79 left zero, and the scores taken over the first 64 dims
+    only (the kernel run on q with dims 64-79 zeroed). Also kernel #1 at
+    Falcon-7B's prefill shape (B=1, S=1920, 71 query heads of 64 over one
+    KV head), its wide-group mode. Times flash at S=2048 and at Falcon's
+    shape beside SDPA, decode at the rows above."""
+    import torch
+
+    H = PHI_2["n_heads"]
+    D = PHI_2["d_model"] // H
+    results, report = {}, {}
+    for S in FLASH_D80_S:
+        q, k, v, o, ro, st, timed = _flash_case(FA, randn, bound_ms, 1, S, H, H, D)
+        faults = {"columns_64_79_zero": FA.bwd_mismatch(_first_64_dims(o), ro)["n_over"],
+                  "scores_over_first_64_dims": FA.bwd_mismatch(
+                      FA.flash_fwd(_first_64_dims(q), k, v)[0], ro)["n_over"]}
+        if not all(faults.values()):
+            raise AssertionError(f"flash_fwd[d80] S={S}: the o check passes a planted fault: "
+                                 f"{faults}")
+        report[f"flash_fwd@S{S}"] = {"o_worst_ratio": st["worst_ratio"],
+                                     "o_max_abs_err": st["max_abs_err"],
+                                     "planted_faults_o_elements_over": faults}
+        if S == max(FLASH_D80_S):
+            results["flash_fwd[d80]"] = timed()
+        del q, k, v, o, ro, timed
+        torch.cuda.empty_cache()
+    results["flash_fwd[d80]"]["max_abs_err"] = max(
+        r["o_max_abs_err"] for r in report.values())
+
+    from deepspeed_tpu_torch.models.transformer import TransformerConfig
+
+    mf = TransformerConfig(**FALCON_7B)
+    q, k, v, o, ro, st, timed = _flash_case(FA, randn, bound_ms, 1, A_LONG, mf.n_heads,
+                                            mf.kv_heads, mf.head_dim)
+    report["flash_fwd@falcon_7b"] = {"o_worst_ratio": st["worst_ratio"],
+                                     "o_max_abs_err": st["max_abs_err"]}
+    results["flash_fwd[wide_group]"] = timed()
+    del q, k, v, o, ro, timed
+    torch.cuda.empty_cache()
+
+    bs = SERVE_A["kv_block_size"]
+    NB = SERVE_A["max_seq_len"] // bs
+    ctx_list = list(DECODE_FP_CTX)
+    atol, rtol = KERNEL_TOL["paged_decode_attention"]
+    x, call, run = _decode_fixture(PA, randn, dev, H, H, D, bs, NB, ctx_list, 17)
+    S, nblk = x["S"], x["nblk"]
+    q64 = _first_64_dims(x["q"])
+    for name in DECODE_MODES:
+        (o, pk), (ref, pr) = run(name, 0), run(name, 0, kernel=False)
+        err = _check_close(f"{name}[d80]", o, ref, atol, rtol)
+        if "fused" in name:
+            for a, b in zip(pk, pr):
+                _check_close(f"{name}[d80] pools", a, b, 0.0, 0.0)
+        faults = {"columns_64_79_zero": _n_over(_first_64_dims(o), ref, atol, rtol),
+                  "scores_over_first_64_dims": _n_over(run(name, 0, q=q64)[0], ref, atol,
+                                                       rtol)}
+        if not all(faults.values()):
+            raise AssertionError(f"{name}[d80]: the check passes a planted fault: {faults}")
+        report[name] = {"max_abs_err": err, "planted_faults_elements_over": faults}
+        pools, ref_pools = run(name, 0)[1], run(name, 0)[1]
+        results[f"{name}[d80]"] = dict(
+            max_abs_err=err,
+            **_timings(lambda: call(name, 0, pools),
+                       lambda: call(name, 0, ref_pools, kernel=False), None, 20),
+            shape=f"S={S}, ctx {min(ctx_list)}..{max(ctx_list)}, H={H}, KV={H}, D={D}, "
+                  f"bs={bs}, {'int8' if 'int8' in name else 'bf16'} pools of {nblk} blocks",
+            bound=bound_ms(_decode_bytes(name, S, H, H, D, NB, sum(ctx_list)),
+                           4 * sum(ctx_list) * H * D))
+        del pools, ref_pools
+    del x, call, run
+    torch.cuda.empty_cache()
+    results.update(_d80_write_checks(PA, randn, dev, bound_ms))
+    report["writes_bit_exact"] = True
+    report["write_int8_planted_fault_ties_away_codes_off"] = results[
+        "paged_kv_write_int8[d80]"]["planted_fault_ties_away_n_codes"]
+    print(json.dumps({"d80_checks": {"decode_ctx": ctx_list, **report}}))
+    return results
+
+
 def check_kernels(cfg, dev):
     import torch
 
@@ -1672,6 +2035,7 @@ def check_kernels(cfg, dev):
     from deepspeed_tpu_torch.ops.cuda import paged_attention as PA
     from deepspeed_tpu_torch.platform.accelerator import bound_ms
 
+    t0 = time.perf_counter()
     bf16 = torch.bfloat16
     g = torch.Generator(device=dev).manual_seed(1)
     H, KV, D = cfg.n_heads, cfg.kv_heads, cfg.head_dim
@@ -1748,25 +2112,39 @@ def check_kernels(cfg, dev):
             shape=f"S={S}, ctx {int(ctx.min())}..{int(ctx.max())}, H={H}, KV={KV}, D={D}, "
                   f"bs={bs}, arena {nblk} blocks, bf16",
             bound=bound_ms(n_bytes, ops))
-    results.update(_int8_kernel_checks(PA, randn, dev, H, KV, D, bs, nblk, NB, slots, ctx,
-                                       tables, q, bound_ms))
-
-    # -- flash forward: the 512-token prefill wave of the serving path (B=1)
-    #    and the training shape; the kernels line carries the training one
-    results["flash_fwd@serve"] = _flash_fwd_check(FA, randn, 1, LONG_LEN, H, KV, D, bound_ms)
-    results.update(_flash_train_checks(FA, randn, TRAIN_B, TRAIN_S, H, KV, D, bound_ms))
-    # the window modes at the Mistral shapes: training (B=1, S=8192) and serving
     mw = TransformerConfig(**MISTRAL)
-    results.update(_flash_window_checks(FA, randn, 1, TRAIN_W_S, mw.n_heads, mw.kv_heads,
-                                        mw.head_dim, bound_ms))
-    results.update(_decode_window_checks(PA, randn, dev, bound_ms))
-    # the ALiBi modes at BLOOM-7B1's shapes (and falcon-rw-1b's, GQA, 24 heads)
-    results.update(_flash_alibi_checks(FA, randn, dev, bound_ms))
-    results.update(_flash_bwd_alibi_checks(FA, randn, dev, bound_ms))
-    results.update(_decode_alibi_checks(PA, randn, dev, bound_ms))
-    # the layout-bitmap modes at Llama-2-7B's shape, bs 128 and 16
-    results.update(_decode_sparse_checks(PA, randn, dev, bound_ms))
-    results.update(_evo_kernel_checks(dev, bound_ms))
+    # each further check, and the seconds it takes (kernel_check_seconds)
+    checks = {
+        "int8": lambda: _int8_kernel_checks(PA, randn, dev, H, KV, D, bs, nblk, NB, slots, ctx,
+                                            tables, q, bound_ms),
+        # flash forward: the 512-token prefill wave of the serving path (B=1)
+        # and the training shape; the kernels line carries the training one
+        "flash_serve": lambda: {"flash_fwd@serve": _flash_fwd_check(FA, randn, 1, LONG_LEN, H,
+                                                                    KV, D, bound_ms)},
+        "flash_train": lambda: _flash_train_checks(FA, randn, TRAIN_B, TRAIN_S, H, KV, D,
+                                                   bound_ms),
+        # the window modes at the Mistral shapes: training (B=1, S=8192) and serving
+        "flash_window": lambda: _flash_window_checks(FA, randn, 1, TRAIN_W_S, mw.n_heads,
+                                                     mw.kv_heads, mw.head_dim, bound_ms),
+        "decode_window": lambda: _decode_window_checks(PA, randn, dev, bound_ms),
+        # the ALiBi modes at BLOOM-7B1's shapes (and falcon-rw-1b's, GQA, 24 heads)
+        "flash_alibi": lambda: _flash_alibi_checks(FA, randn, dev, bound_ms),
+        "flash_bwd_alibi": lambda: _flash_bwd_alibi_checks(FA, randn, dev, bound_ms),
+        "decode_alibi": lambda: _decode_alibi_checks(PA, randn, dev, bound_ms),
+        # the layout-bitmap modes at Llama-2-7B's shape, bs 128 and 16
+        "decode_sparse": lambda: _decode_sparse_checks(PA, randn, dev, bound_ms),
+        # the wide-group and head_dim-80 modes at Falcon-7B's and Phi-2's shapes
+        "decode_group": lambda: _decode_group_checks(PA, randn, dev, bound_ms),
+        "d80": lambda: _d80_checks(FA, PA, randn, dev, bound_ms),
+        "evoformer": lambda: _evo_kernel_checks(dev, bound_ms),
+    }
+    seconds = {"flagship_serving": time.perf_counter() - t0}
+    for label, check in checks.items():
+        t = time.perf_counter()
+        results.update(check())
+        seconds[label] = time.perf_counter() - t
+    print(json.dumps({"kernel_check_seconds": seconds,
+                      "profiler_events_s_so_far": PROFILER_POST_S[0]}))
     for name, r in results.items():
         print(json.dumps({"kernel_check": name, "max_err": r["max_abs_err"],
                           "kernel_ms": r["ms"], "plain_ms": r["plain_ms"],
@@ -2163,14 +2541,6 @@ def _serving_times(eng, fn, toks, tables, ctx, r, V, prompt_len):
 # serve_alibi, serve_alibi_int8 (BLOOM-7B1)
 # ---------------------------------------------------------------------------
 
-def _all_launches(K):
-    """Every wrapper's launches and, as "<name>[window]", "<name>[alibi]"
-    and "<name>[sparse]", those of each window, ALiBi and layout-bitmap
-    mode."""
-    return {**K.launch_counts(), **K.window_launch_counts(), **K.alibi_launch_counts(),
-            **K.sparse_launch_counts()}
-
-
 def _dead_positions(cfg, mode, ctx, dev):
     """The context positions a decode at `ctx` must not read: left of the
     window (mode "window"), or outside its layout row (mode "sparse": the
@@ -2294,7 +2664,13 @@ def _serve_three_paths(M, eng, cfg, int8, long_prompt, prompts, dev):
 # the wave's second row)
 SERVE_LONG = {"window": (SERVE_W, W_LONG, W_PROMPTS, 3, "long"),
               "alibi": (SERVE_A, A_LONG, A_PROMPTS, 4, "wave"),
-              "sparse": (SERVE_S, S_LONG, S_PROMPTS, 5, "long")}
+              "sparse": (SERVE_S, S_LONG, S_PROMPTS, 5, "long"),
+              "falcon": (SERVE_A, A_LONG, A_PROMPTS, 8, "wave"),
+              "phi": (SERVE_A, A_LONG, A_PROMPTS, 9, "wave")}
+# serving mode -> the kernel mode (ops.cuda.MODES) every attention launch of
+# its path must run in
+KERNEL_MODE = {"window": "window", "alibi": "alibi", "sparse": "sparse",
+               "falcon": "wide_group", "phi": "d80"}
 
 
 def run_serve_long(cfg, dev, params, mode, int8=False):
@@ -2303,19 +2679,22 @@ def run_serve_long(cfg, dev, params, mode, int8=False):
     earlier engine), from bf16 pools or (int8) int8 pools. mode "window":
     Mistral 7B (phases serve_window, serve_window_int8); mode "alibi":
     BLOOM-7B1 (serve_alibi, serve_alibi_int8); mode "sparse": Llama-2-7B
-    with a fixed block-sparse layout (serve_sparse, serve_sparse_int8). The
-    counted sequence: one put of the long prompt, a wave of 96-token
-    prompts, a single-token decode put of the wave's first row, a 2-token
-    continuation (the plain-mode kernel; of the long sequence at ctx > 4096
-    for the window and at ctx ~3970 for the layout, of the wave's second
-    row for ALiBi, so the long row enters decode_multi right after its
-    prompt), greedy decode_multi_fn(8, 24) and, for the layout, a
-    S_SHORT-token prompt (the masked prefill). The mode's kernels must
-    launch and nothing else (the layout's prefill is the block gather: no
-    flash), every attention launch in the mode. Then the three-path check
-    (_serve_three_paths), for the window and the layout the locality check
-    (_locality), TTFT (of the long prompt for the window, of fresh short
-    and long prompts for ALiBi and the layout) and batch-8 decode
+    with a fixed block-sparse layout (serve_sparse, serve_sparse_int8);
+    mode "falcon": Falcon-7B (serve_falcon, serve_falcon_int8); mode "phi":
+    Phi-2 (serve_phi, serve_phi_int8). The counted sequence: one put of the
+    long prompt, a wave of 96-token prompts, a single-token decode put of
+    the wave's first row, a 2-token continuation (the plain-mode kernel; of
+    the long sequence at ctx > 4096 for the window and at ctx ~3970 for
+    the layout, else of the wave's second row, so the long row enters
+    decode_multi right after its prompt), greedy decode_multi_fn(8, 24)
+    and, for the layout, a S_SHORT-token prompt (the masked prefill). The
+    mode's kernels must launch and nothing else (the layout's prefill is
+    the block gather: no flash), every launch of a wrapper with the mode's
+    counter in that mode (KERNEL_MODE: Falcon's attention in the
+    wide-group mode, all of Phi-2's in the head_dim-80 mode). Then the
+    three-path check (_serve_three_paths), for the window and the layout
+    the locality check (_locality), TTFT (of the long prompt for the
+    window, else of fresh short and long prompts) and batch-8 decode
     throughput. Returns (report, the engine's serving-layout weights)."""
     import numpy as np
     import torch
@@ -2358,10 +2737,11 @@ def run_serve_long(cfg, dev, params, mode, int8=False):
     if mode == "sparse":
         short = eng.put([L + 1], [r.integers(0, V, S_SHORT).astype(np.int32)])
     torch.cuda.synchronize()
-    launches = _all_launches(K)
+    launches = K.all_launch_counts()
     # -----------------------------------------------------------------------
 
-    modes = {"window": K.WINDOW_MODES, "alibi": K.ALIBI_MODES, "sparse": K.SPARSE_MODES}[mode]
+    kmode = KERNEL_MODE[mode]
+    modes = K.MODES[kmode]
     kern = INT8_KERNELS if int8 else SERVE_KERNELS
     if mode == "sparse":  # the prefill is the block gather (or the masked one)
         kern = tuple(n for n in kern if n != "flash_fwd")
@@ -2369,9 +2749,9 @@ def run_serve_long(cfg, dev, params, mode, int8=False):
     if wrong:
         raise AssertionError(f"the {'int8 ' if int8 else ''}{mode} path must launch each of "
                              f"{sorted(kern)} and nothing else; wrong counts: {wrong}")
-    outside = [n for n in kern if n in modes and launches[n] != launches[f"{n}[{mode}]"]]
-    if outside:  # every layer has the window or ALiBi, every decode row a layout row
-        raise AssertionError(f"launches of {outside} outside the {mode} mode: {launches}")
+    outside = [n for n in kern if n in modes and launches[n] != launches[f"{n}[{kmode}]"]]
+    if outside:  # every layer has the window or ALiBi, every decode row a layout row, ...
+        raise AssertionError(f"launches of {outside} outside the {kmode} mode: {launches}")
     outputs = [("prefill", long_logits), ("wave", wave), ("decode", decode), ("chunk", chunk),
                ("decode_multi", final.float().cpu().numpy())]
     if short is not None:
@@ -2385,15 +2765,19 @@ def run_serve_long(cfg, dev, params, mode, int8=False):
 
     report = {"init_s": init_s, "launches": {n: c for n, c in launches.items() if c},
               "long_row_decode_ctx": [int(ctx[0]), int(ctx[0]) + DECODE_STEPS - 1]}
-    if mode != "alibi":
+    steps_s = {"counted_path": time.perf_counter() - t0 - init_s}
+    t1 = time.perf_counter()
+    if mode in ("window", "sparse"):
         report["locality"] = _locality(M, eng, cfg, L, dev, mode)
     report["path"] = _serve_three_paths(M, eng, cfg, int8, long_prompt, prompts, dev)
+    steps_s["checks"] = time.perf_counter() - t1
+    t1 = time.perf_counter()
 
     # -- timings (after the counted run) ------------------------------------
     if mode == "window":
         report.update(_serving_times(eng, fn, toks, tables, ctx, r, V, W_LONG))
     else:
-        n_short, n_long = (A_TTFT, A_LONG) if mode == "alibi" else (S_TTFT, S_LONG)
+        n_short, n_long = (S_TTFT, S_LONG) if mode == "sparse" else (A_TTFT, A_LONG)
         report.update(_serving_times(eng, fn, toks, tables, ctx, r, V, n_short))
         ttft = _ttft(eng, r, V, n_long)
         report.update({f"ttft_ms_{n_long}_p50": statistics.median(ttft),
@@ -2402,8 +2786,10 @@ def run_serve_long(cfg, dev, params, mode, int8=False):
         report["where_time_goes"][f"prefill_put_{n_long}"] = _where_time_goes(
             lambda: eng.put([2001], [p]))
         eng.flush(2001)
+    steps_s["timings"] = time.perf_counter() - t1
     report.update({"kv_bytes_per_token": eng.kv_bytes_per_token(),
-                   "peak_mem_gib": torch.cuda.max_memory_allocated(dev) / 2**30})
+                   "peak_mem_gib": torch.cuda.max_memory_allocated(dev) / 2**30,
+                   "steps_s": steps_s})
     params = eng.params
     del eng
     torch.cuda.empty_cache()
@@ -2452,7 +2838,7 @@ def run_train_long(dev, phase):
     # -- the main path, counted: one train step --------------------------------
     K.reset_launch_counts()
     first = eng.train_batch(batch)
-    launches = _all_launches(K)
+    launches = K.all_launch_counts()
     # ---------------------------------------------------------------------------
 
     want = {n: (mcfg.n_layers if n in TRAIN_KERNELS
@@ -2593,6 +2979,24 @@ def run_evoformer(dev):
     return out
 
 
+def _init_served(T, cfg, dev):
+    """Random bf16 weights of a served model from seed 0 (T.init), with
+    every bias (zero at init: q/k/v, output, MLP, LayerNorm and lm_head
+    biases) drawn as normal(0, 0.02), so that the path check reaches each
+    bias term."""
+    import torch
+
+    g = torch.Generator(device=dev).manual_seed(0)
+    params = T.init(cfg, g, device=dev, dtype=torch.bfloat16)
+    is_bias = lambda n: n == "lm_head_b" or n.endswith("_bias") or n in (
+        "bq", "bk", "bv", "bo", "b_in", "b_out")
+    for tree in (params, params["layers"]):
+        for name, w in tree.items():
+            if not isinstance(w, dict) and is_bias(name):
+                w.copy_(torch.randn(w.shape, generator=g, device=dev) * 0.02)
+    return params
+
+
 def _gpu_line():
     out = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True, text=True,
@@ -2616,8 +3020,10 @@ def main():
     build_s = time.perf_counter() - t0
 
     def done(phase, report):
-        """Print a phase's report with the seconds since the script began."""
-        print(json.dumps({"phase": phase, "elapsed_s": time.perf_counter() - t0, **report}))
+        """Print a phase's report with the seconds since the script began
+        (and those spent reading profiler events so far)."""
+        print(json.dumps({"phase": phase, "elapsed_s": time.perf_counter() - t0,
+                          "profiler_events_s_so_far": PROFILER_POST_S[0], **report}))
 
     print(json.dumps({"phase": "build", "seconds": build_s,
                       "libraries": {n: p.name for n, p in libs.items()}}))
@@ -2634,30 +3040,16 @@ def main():
     done("serve", sl)
     q8, _ = run_serving(cfg, dev, int8=True, bf16=bf16_serving)
     done("serve_int8", q8)
-    mw = T.TransformerConfig(**MISTRAL)
-    sw, wparams = run_serve_long(mw, dev, T.init(mw, torch.Generator(device=dev).manual_seed(0),
-                                                 device=dev, dtype=torch.bfloat16), "window")
-    done("serve_window", sw)
-    sw8, wparams = run_serve_long(mw, dev, wparams, "window", int8=True)
-    done("serve_window_int8", sw8)
-    del wparams
-    torch.cuda.empty_cache()
-    mb = T.TransformerConfig(**BLOOM)
-    sa, bparams = run_serve_long(mb, dev, T.init(mb, torch.Generator(device=dev).manual_seed(0),
-                                                 device=dev, dtype=torch.bfloat16), "alibi")
-    done("serve_alibi", sa)
-    sa8, bparams = run_serve_long(mb, dev, bparams, "alibi", int8=True)
-    done("serve_alibi_int8", sa8)
-    del bparams
-    torch.cuda.empty_cache()
-    ml = T.TransformerConfig(**LLAMA2_7B)
-    ss, lparams = run_serve_long(ml, dev, T.init(ml, torch.Generator(device=dev).manual_seed(0),
-                                                 device=dev, dtype=torch.bfloat16), "sparse")
-    done("serve_sparse", ss)
-    ss8, lparams = run_serve_long(ml, dev, lparams, "sparse", int8=True)
-    done("serve_sparse_int8", ss8)
-    del lparams
-    torch.cuda.empty_cache()
+    served = {}
+    for mode, model in SERVED_7B:
+        mc = T.TransformerConfig(**model)
+        phase = f"serve_{mode}"
+        served[phase], params = run_serve_long(mc, dev, _init_served(T, mc, dev), mode)
+        done(phase, served[phase])
+        served[phase + "_int8"], params = run_serve_long(mc, dev, params, mode, int8=True)
+        done(phase + "_int8", served[phase + "_int8"])
+        del params
+        torch.cuda.empty_cache()
     trains = {}
     for phase in TRAIN_LONG:
         trains[phase] = run_train_long(dev, phase)
@@ -2665,15 +3057,12 @@ def main():
     ev = run_evoformer(dev)
     done("evoformer", ev)
 
-    paths = {"train": tr, "serve": sl, "serve_int8": q8, "serve_window": sw,
-             "serve_window_int8": sw8, "serve_alibi": sa, "serve_alibi_int8": sa8,
-             "serve_sparse": ss, "serve_sparse_int8": ss8, **trains, "evoformer": ev}
+    paths = {"train": tr, "serve": sl, "serve_int8": q8, **served, **trains, "evoformer": ev}
     line = []
-    # each window, ALiBi or layout-bitmap mode is a path of its kernel: same
-    # source, same TPU kernel
-    sources = {**KERNELS, **{f"{n}[window]": KERNELS[n] for n in K.WINDOW_MODES},
-               **{f"{n}[alibi]": KERNELS[n] for n in K.ALIBI_MODES},
-               **{f"{n}[sparse]": KERNELS[n] for n in K.SPARSE_MODES}}
+    # each mode (window, ALiBi, layout bitmap, wide group, head_dim 80) is a
+    # path of its kernel: same source, same TPU kernel
+    sources = {**KERNELS, **{f"{n}[{mode}]": KERNELS[n]
+                             for mode, names in K.MODES.items() for n in names}}
     for name, (source, replaces) in sources.items():
         k = kernels[name]
         by_path = {p: r["launches"].get(name, 0) for p, r in paths.items()}

@@ -42,8 +42,16 @@
 // TMA pipelines are left for a later PR.
 //
 // Grid (B * H, ceil(S / 64)), 4 warps; warp w owns query rows 16w..16w+15
-// of the tile. GQA: query head h reads KV head h / (H / KV); K/V are never
-// repeated in memory. The TPU kernel's grid ran its k axis in order with
+// of the tile. GQA: query head h reads KV head h / (H / KV), for any whole
+// group (Falcon-7B: 71 query heads over one KV head); K/V are never
+// repeated in memory.
+//
+// Head dims 64, 80 (Phi-2) and 128. The WMMA 16 x 16 x 16 tiles divide
+// each (80: five steps of the Q K^T depth loop, five output column tiles);
+// Layout<80> keeps 16-byte row strides (LDH 88 bf16, LDO 84 f32) and
+// 32-byte-aligned regions and fragment pointers, a row is ten 16-byte
+// vectors, and the per-lane loops over D stride by 32 with a bound, so
+// none assumes D % 32 == 0. The TPU kernel's grid ran its k axis in order with
 // the accumulators in VMEM scratch; here that axis is the loop inside the
 // block.
 
@@ -78,6 +86,7 @@ __device__ __forceinline__ float warp_max(float x) {
 // WMMA loads and stores require.
 template <int D>
 struct Layout {
+  static_assert(D % 16 == 0, "WMMA tiles are 16 wide");
   static constexpr int LDH = D + 8;   // bf16 stride of the Q, K and V tiles
   static constexpr int LDS = BK + 4;  // f32 stride of the score tile
   static constexpr int LDP = BK + 8;  // bf16 stride of the probability tile
@@ -278,6 +287,8 @@ extern "C" int flash_fwd(void* o, void* lse, const void* q, const void* k, const
   switch (D) {
     case 64:
       return launch<64>(o, lse, q, k, v, slopes, B, S, H, KV, window, scale, st);
+    case 80:
+      return launch<80>(o, lse, q, k, v, slopes, B, S, H, KV, window, scale, st);
     case 128:
       return launch<128>(o, lse, q, k, v, slopes, B, S, H, KV, window, scale, st);
     default:

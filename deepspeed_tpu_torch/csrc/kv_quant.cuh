@@ -34,7 +34,10 @@ constexpr float KV_QUANT_INV = (float)(1.0 / 127.0);
 
 // One warp quantizes one [32 * EPL] head slice: lane l holds elements
 // l * EPL .. l * EPL + EPL - 1 in x. Writes their codes and returns the
-// slice's scale (the same in every lane).
+// slice's scale (the same in every lane). A head dim that is no multiple
+// of 32 (80: EPL = 3, 96 slots) pads the slots past D with zeros, which
+// leave amax, and so the scale and every real code, unchanged; the caller
+// never stores their codes.
 template <int EPL>
 __device__ __forceinline__ float kv_quant_slice(const float (&x)[EPL], int8_t (&code)[EPL]) {
   float amax = 0.f;

@@ -6,7 +6,11 @@
 //                  holds positions < ctx-1, the new token's K/V enter as
 //                  one extra softmax column from k_new/v_new, and the block
 //                  writes its own head's slice of the new row into the
-//                  row's flat slot.
+//                  row's flat slot. The same template serves the bf16
+//                  fused mode of paged_decode_attention (_decode_kernel
+//                  with k_new), which the JAX package takes where
+//                  paged_decode_fused's D % 128 == 0 does not hold
+//                  (head_dim 64 or 80: supports_fused_v2).
 //   FUSED = false  replaces paged_decode_attention (_decode_kernel) in its
 //                  plain bf16 mode: attend over cache positions < ctx.
 //   QUANT = true   the int8 modes of paged_decode_attention
@@ -29,9 +33,11 @@
 // bytes of K and as many of V (c * KV * (D + 4) * 2 with int8 codes and
 // their scales) and does 4 * c * H * D operations, far below the ~295
 // operations per byte where the tensor cores would bind. The design
-// therefore reads every live K/V byte exactly once: the grid is (S, KV)
-// and one block serves the G query heads of one KV head, so a K/V tile
-// loaded into shared memory is used by the whole group. Tiles of TILE
+// therefore reads every live K/V byte once per block: the grid is (S, KV,
+// chunks) and one block serves up to 8 query heads of one KV head, so a
+// K/V tile loaded into shared memory is used by each of them (a group of
+// at most 8, every model before Falcon-7B, reads each byte exactly once;
+// below, wider groups). Tiles of TILE
 // columns are staged with 16-byte vector loads and only columns below the
 // live length are ever loaded or accumulated (an unwritten or stale slot
 // may hold NaN, and 0 * NaN would poison the sum). The online softmax
@@ -84,14 +90,38 @@
 // all-ones bitmap: both are the dense result bit for bit. Bound: bytes,
 // those of the allowed live positions only.
 //
-// The TPU kernel padded G to 8 sublanes and required D % 128 == 0; both
-// were TPU tiling artifacts and do not carry over. Pad rows (ctx <= 0)
-// output zeros and write nothing. Every block id is clamped to the arena.
+// Query groups of any size (Falcon-7B: 71 query heads over one KV head):
+// the grid is (S, KV, ceil(G / 8)) and block (s, h, c) serves query heads
+// 8c .. min(8c + 8, G) - 1 of KV head h's group, so a wide group spreads
+// over many blocks (Falcon-7B at 8 rows: 72 blocks, not 8) while each
+// block keeps the <= 8 heads' q rows, probabilities and accumulators of
+// the G <= 8 design; the last chunk may be partial (71 = 8 x 8 + 7).
+// Every chunk of a KV head reads the same K/V tiles (the second and later
+// reads mostly from L2). The TPU kernel padded G to 8 sublanes (Gp =
+// max(G, 8)) and read K/V once for the whole padded group. Fused modes:
+// every chunk attends the new column from k_new/v_new, and chunk 0 alone
+// stores the new row; on int8 pools every chunk runs the same
+// deterministic quantizer, so all use the value chunk 0 stores.
 //
-// Fused-mode ordering: a block writes the new row's slice for its own
-// head only after its own loads, and no other block reads that slice (it
-// is position ctx-1 of this row, outside every cache loop; rows are
-// distinct sequences), so no cross-block ordering is needed.
+// Head dims 64, 80 and 128 (Phi-2 has 80): the block has D threads
+// rounded up to whole warps (96 at D = 80), thread d < D owns output
+// column d, and the idle lanes of the last warp join every barrier and
+// full-mask shuffle but own no column. A warp's dot product over D gives
+// lane l the EPL = ceil(D / 32) neighbouring elements l * EPL .. (3 at
+// D = 80: lanes 27-31 hold none), and the quantizer pads a lane's missing
+// elements with zeros, which leave amax unchanged and are never stored.
+// A row is 160 bytes in bf16 and 80 in int8 at D = 80, so 16-byte loads
+// still divide it. At D 64 and 128 with a group of at most 8 the loops,
+// and so the results, are those of the kernel before these two modes.
+//
+// The TPU kernel's D % 128 == 0 requirement was a TPU tiling artifact and
+// does not carry over. Pad rows (ctx <= 0) output zeros and write nothing.
+// Every block id is clamped to the arena.
+//
+// Fused-mode ordering: chunk 0 writes the new row's slice for its own
+// head only after its own loads, and no block reads that slice (it is
+// position ctx-1 of this row, outside every cache loop; rows are distinct
+// sequences), so no cross-block ordering is needed.
 
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
@@ -103,8 +133,11 @@
 
 namespace {
 
-constexpr int TILE = 64;   // cache columns staged per pass
-constexpr int MAX_G = 8;   // query heads per KV head
+constexpr int TILE = 64;  // cache columns staged per pass
+constexpr int GC = 8;     // query heads per block: one chunk of a KV head's group
+
+// threads per block: D rounded up to whole warps
+__host__ __device__ constexpr int threads_for(int D) { return (D + 31) / 32 * 32; }
 
 __device__ __forceinline__ float warp_sum(float x) {
 #pragma unroll
@@ -137,9 +170,10 @@ __device__ __forceinline__ void dequant16(uint4 codes, float scale, __nv_bfloat1
   reinterpret_cast<uint4*>(dst)[1] = make_uint4(w[4], w[5], w[6], w[7]);
 }
 
-// blockDim.x == D: thread d owns output column d of every query head.
+// blockDim.x == threads_for(D): thread d < D owns output column d of every
+// query head of the block's chunk; grid (S, KV, ceil(group / GC)).
 template <int D, bool FUSED, bool QUANT>
-__global__ void __launch_bounds__(D) paged_decode_kernel(
+__global__ void __launch_bounds__((D + 31) / 32 * 32) paged_decode_kernel(
     __nv_bfloat16* __restrict__ out,            // [S, H, D]
     const __nv_bfloat16* __restrict__ q,        // [S, H, D]
     void* __restrict__ k_pool,                  // [NBLK, bs, KV, D] bf16 or int8
@@ -158,53 +192,63 @@ __global__ void __launch_bounds__(D) paged_decode_kernel(
   using CacheT = std::conditional_t<QUANT, int8_t, __nv_bfloat16>;
   CacheT* k_cache = static_cast<CacheT*>(k_pool);
   CacheT* v_cache = static_cast<CacheT*>(v_pool);
-  constexpr int NW = D / 32;                         // warps
+  constexpr int NT = threads_for(D);
+  constexpr int NW = NT / 32;                        // warps
   constexpr int VPR = D * sizeof(CacheT) / 16;       // 16-byte vectors per cache row
-  constexpr int EPL = D / 32;   // elements per lane in a warp dot product
+  constexpr int EPL = (D + 31) / 32;  // elements per lane in a warp dot product
+  static_assert(D * sizeof(CacheT) % 16 == 0, "a cache row must be whole 16-byte vectors");
+  // element e of lane l is column l * EPL + e; it exists when that is < D
+  auto in_row = [](int d) { return D % 32 == 0 || d < D; };
 
   __shared__ __align__(16) __nv_bfloat16 ks[TILE][D];
   __shared__ __align__(16) __nv_bfloat16 vs[TILE][D];
-  __shared__ float qs[MAX_G][D];
-  __shared__ float ps[MAX_G][TILE];
-  __shared__ float m_s[MAX_G], l_s[MAX_G], corr_s[MAX_G];
-  __shared__ float slope_s[MAX_G];  // ALiBi slope of each query head of the group
+  __shared__ float qs[GC][D];
+  __shared__ float ps[GC][TILE];
+  __shared__ float m_s[GC], l_s[GC], corr_s[GC];
+  __shared__ float slope_s[GC];  // ALiBi slope of each query head of the chunk
   __shared__ float ksc[QUANT ? TILE : 1], vsc[QUANT ? TILE : 1];  // the tile's scales
   __shared__ float kn_s[QUANT ? D : 1], vn_s[QUANT ? D : 1];      // dequantized new row
 
   const int s = blockIdx.x;
   const int h = blockIdx.y;
+  const int chunk = blockIdx.z;
+  const int gc = min(GC, group - chunk * GC);  // query heads of this block
   const int tid = threadIdx.x;
   const int lane = tid & 31;
   const int warp = tid >> 5;
+  const bool col = tid < D;  // this thread owns output column tid
   const int H = n_kv * group;
+  const int head0 = h * group + chunk * GC;  // the block's first query head
   const int ctx = ctx_lens[s];
-  __nv_bfloat16* o_row = out + ((size_t)s * H + (size_t)h * group) * D;
+  __nv_bfloat16* o_row = out + ((size_t)s * H + head0) * D;
 
   if (ctx <= 0) {  // pad row
-    for (int g = 0; g < group; ++g) o_row[(size_t)g * D + tid] = __float2bfloat16(0.f);
+    if (col)
+      for (int g = 0; g < gc; ++g) o_row[(size_t)g * D + tid] = __float2bfloat16(0.f);
     return;
   }
   int limit = FUSED ? ctx - 1 : ctx;
   limit = min(limit, table_width * block_size);
   const int32_t* table = tables + (size_t)s * table_width;
   const size_t row_stride = (size_t)n_kv * D;  // elements between two slots
-  auto slot_of = [&](int col) {  // flat arena slot of context position col
-    int blk = table[col / block_size];
+  auto slot_of = [&](int c) {  // flat arena slot of context position c
+    int blk = table[c / block_size];
     blk = min(max(blk, 0), n_blocks - 1);
-    return (size_t)blk * block_size + col % block_size;
+    return (size_t)blk * block_size + c % block_size;
   };
 
-  for (int g = 0; g < group; ++g)
-    qs[g][tid] = __bfloat162float(q[((size_t)s * H + (size_t)h * group + g) * D + tid]);
+  if (col)
+    for (int g = 0; g < gc; ++g)
+      qs[g][tid] = __bfloat162float(q[((size_t)s * H + head0 + g) * D + tid]);
   const bool alibi = slopes != nullptr;
-  if (tid < group) {
+  if (tid < gc) {
     m_s[tid] = -INFINITY;
     l_s[tid] = 0.f;
-    slope_s[tid] = alibi ? slopes[h * group + tid] : 0.f;
+    slope_s[tid] = alibi ? slopes[head0 + tid] : 0.f;
   }
-  float acc[MAX_G];
+  float acc[GC];
 #pragma unroll
-  for (int g = 0; g < MAX_G; ++g) acc[g] = 0.f;
+  for (int g = 0; g < GC; ++g) acc[g] = 0.f;
   __syncthreads();
 
   const int start = window > 0 ? max(ctx - window, 0) : 0;  // the window's first column
@@ -225,7 +269,7 @@ __global__ void __launch_bounds__(D) paged_decode_kernel(
     }
     const int n = end - c0;
     if constexpr (QUANT) {
-      for (int r = tid; r < n; r += D) {
+      for (int r = tid; r < n; r += NT) {
         const size_t at = slot_of(c0 + r) * n_kv + h;
         ksc[r] = k_scale[at];
         vsc[r] = v_scale[at];
@@ -233,7 +277,7 @@ __global__ void __launch_bounds__(D) paged_decode_kernel(
       __syncthreads();
     }
     // stage K and V rows [c0, c0 + n) of head h
-    for (int i = tid; i < n * VPR; i += D) {
+    for (int i = tid; i < n * VPR; i += NT) {
       const int r = i / VPR;
       const int c = i % VPR;
       const size_t base = slot_of(c0 + r) * row_stride + (size_t)h * D;
@@ -253,13 +297,19 @@ __global__ void __launch_bounds__(D) paged_decode_kernel(
     for (int r = warp; r < n; r += NW) {
       float kf[EPL];
 #pragma unroll
-      for (int e = 0; e < EPL; ++e) kf[e] = __bfloat162float(ks[r][lane * EPL + e]);
+      for (int e = 0; e < EPL; ++e) {
+        const int d = lane * EPL + e;
+        kf[e] = in_row(d) ? __bfloat162float(ks[r][d]) : 0.f;
+      }
 #pragma unroll
-      for (int g = 0; g < MAX_G; ++g) {
-        if (g < group) {
+      for (int g = 0; g < GC; ++g) {
+        if (g < gc) {
           float part = 0.f;
 #pragma unroll
-          for (int e = 0; e < EPL; ++e) part += qs[g][lane * EPL + e] * kf[e];
+          for (int e = 0; e < EPL; ++e) {
+            const int d = lane * EPL + e;
+            if (in_row(d)) part += qs[g][d] * kf[e];
+          }
           part = warp_sum(part);
           if (lane == 0) {
             float sc = part * scale;
@@ -272,7 +322,7 @@ __global__ void __launch_bounds__(D) paged_decode_kernel(
     __syncthreads();
 
     // online softmax: warp w takes heads w, w + NW, ...
-    for (int g = warp; g < group; g += NW) {
+    for (int g = warp; g < gc; g += NW) {
       float mx = -INFINITY;
       for (int r = lane; r < n; r += 32) mx = fmaxf(mx, ps[g][r]);
       mx = warp_max(mx);
@@ -295,12 +345,14 @@ __global__ void __launch_bounds__(D) paged_decode_kernel(
     __syncthreads();
 
     // P V: thread tid owns column tid; only the n live columns are read
+    if (col) {
 #pragma unroll
-    for (int g = 0; g < MAX_G; ++g) {
-      if (g < group) {
-        float a = acc[g] * corr_s[g];
-        for (int r = 0; r < n; ++r) a += ps[g][r] * __bfloat162float(vs[r][tid]);
-        acc[g] = a;
+      for (int g = 0; g < GC; ++g) {
+        if (g < gc) {
+          float a = acc[g] * corr_s[g];
+          for (int r = 0; r < n; ++r) a += ps[g][r] * __bfloat162float(vs[r][tid]);
+          acc[g] = a;
+        }
       }
     }
     __syncthreads();  // the next tile overwrites ks, vs and ps
@@ -316,34 +368,42 @@ __global__ void __launch_bounds__(D) paged_decode_kernel(
       blk = min(max(blk, 0), n_blocks - 1);
       const size_t dst_slot = (size_t)blk * block_size + slot % block_size;
       const size_t dst = dst_slot * row_stride + (size_t)h * D;
+      const bool writer = chunk == 0;  // one chunk stores the new row
       if constexpr (QUANT) {
-        // the new row's slice of head h: warp 0 quantizes K, warp 1 V,
-        // and each writes codes and scale to the slot (after this block's
-        // own loads) and keeps the dequantized value for the column below
+        // the new row's slice of head h: warp 0 quantizes K, warp 1 V, in
+        // every chunk (the same deterministic codes); chunk 0 writes codes
+        // and scale to the slot (after this block's own loads), and every
+        // chunk keeps the dequantized value for the column below
         if (warp < 2) {
-          const __nv_bfloat16* src = (warp ? vn : kn) + lane * EPL;
+          const __nv_bfloat16* src = warp ? vn : kn;
           float x[EPL];
           int8_t code[EPL];
 #pragma unroll
-          for (int e = 0; e < EPL; ++e) x[e] = __bfloat162float(src[e]);
+          for (int e = 0; e < EPL; ++e) {
+            const int d = lane * EPL + e;
+            x[e] = in_row(d) ? __bfloat162float(src[d]) : 0.f;  // zeros leave amax as it is
+          }
           const float sc = kv_quant_slice<EPL>(x, code);
-          int8_t* codes = (warp ? v_cache : k_cache) + dst + lane * EPL;
+          int8_t* codes = (warp ? v_cache : k_cache) + dst;
           float* deq = warp ? vn_s : kn_s;
 #pragma unroll
           for (int e = 0; e < EPL; ++e) {
-            codes[e] = code[e];
-            deq[lane * EPL + e] = dequant(code[e], sc);
+            const int d = lane * EPL + e;
+            if (in_row(d)) {
+              if (writer) codes[d] = code[e];
+              deq[d] = dequant(code[e], sc);
+            }
           }
-          if (lane == 0) (warp ? v_scale : k_scale)[dst_slot * n_kv + h] = sc;
+          if (writer && lane == 0) (warp ? v_scale : k_scale)[dst_slot * n_kv + h] = sc;
         }
         __syncthreads();
       }
-      for (int g = warp; g < group; g += NW) {
+      for (int g = warp; g < gc; g += NW) {
         float part = 0.f;
 #pragma unroll
         for (int e = 0; e < EPL; ++e) {
           const int d = lane * EPL + e;
-          part += qs[g][d] * (QUANT ? kn_s[d] : __bfloat162float(kn[d]));
+          if (in_row(d)) part += qs[g][d] * (QUANT ? kn_s[d] : __bfloat162float(kn[d]));
         }
         part = warp_sum(part);
         if (lane == 0) {
@@ -360,24 +420,30 @@ __global__ void __launch_bounds__(D) paged_decode_kernel(
         }
       }
       __syncthreads();
-      const float vd = QUANT ? vn_s[tid] : __bfloat162float(vn[tid]);
+      if (col) {
+        const float vd = QUANT ? vn_s[tid] : __bfloat162float(vn[tid]);
 #pragma unroll
-      for (int g = 0; g < MAX_G; ++g)
-        if (g < group) acc[g] = acc[g] * corr_s[g] + ps[g][0] * vd;
-      if constexpr (!QUANT) {
-        // the new row's slice of head h goes to its slot, after this
-        // block's own loads
-        k_cache[dst + tid] = kn[tid];
-        v_cache[dst + tid] = vn[tid];
+        for (int g = 0; g < GC; ++g)
+          if (g < gc) acc[g] = acc[g] * corr_s[g] + ps[g][0] * vd;
+        if constexpr (!QUANT) {
+          // the new row's slice of head h goes to its slot, after this
+          // block's own loads
+          if (writer) {
+            k_cache[dst + tid] = kn[tid];
+            v_cache[dst + tid] = vn[tid];
+          }
+        }
       }
     }
   }
 
+  if (col) {
 #pragma unroll
-  for (int g = 0; g < MAX_G; ++g) {
-    if (g < group) {
-      const float l = l_s[g];
-      o_row[(size_t)g * D + tid] = __float2bfloat16(l > 0.f ? acc[g] / l : 0.f);
+    for (int g = 0; g < GC; ++g) {
+      if (g < gc) {
+        const float l = l_s[g];
+        o_row[(size_t)g * D + tid] = __float2bfloat16(l > 0.f ? acc[g] / l : 0.f);
+      }
     }
   }
 }
@@ -391,8 +457,8 @@ struct DecodeArgs {
 
 template <int D, bool FUSED, bool QUANT>
 void launch(const DecodeArgs& a, cudaStream_t stream) {
-  dim3 grid(a.S, a.n_kv);
-  paged_decode_kernel<D, FUSED, QUANT><<<grid, D, 0, stream>>>(
+  dim3 grid(a.S, a.n_kv, (a.group + GC - 1) / GC);
+  paged_decode_kernel<D, FUSED, QUANT><<<grid, threads_for(D), 0, stream>>>(
       (__nv_bfloat16*)a.out, (const __nv_bfloat16*)a.q, a.k_pool, a.v_pool,
       (float*)a.k_scale, (float*)a.v_scale, (const int32_t*)a.tables,
       (const int32_t*)a.ctx_lens, (const __nv_bfloat16*)a.k_new,
@@ -420,7 +486,7 @@ extern "C" int paged_decode(void* out, const void* q, void* k_cache, void* v_cac
                             int block_size, int table_width, int window, float scale,
                             void* stream) {
   if (S <= 0) return 0;
-  if (KV <= 0 || H % KV != 0 || H / KV > MAX_G) return (int)cudaErrorInvalidValue;
+  if (KV <= 0 || H % KV != 0 || H / KV > 65535 * GC) return (int)cudaErrorInvalidValue;
   if (quant && (k_scale == nullptr || v_scale == nullptr)) return (int)cudaErrorInvalidValue;
   if (fused && (k_new == nullptr || v_new == nullptr || slots == nullptr))
     return (int)cudaErrorInvalidValue;
@@ -431,6 +497,8 @@ extern "C" int paged_decode(void* out, const void* q, void* k_cache, void* v_cac
   switch (D) {
     case 64:
       return launch_modes<64>(fused != 0, quant != 0, a, st);
+    case 80:
+      return launch_modes<80>(fused != 0, quant != 0, a, st);
     case 128:
       return launch_modes<128>(fused != 0, quant != 0, a, st);
     default:

@@ -26,9 +26,13 @@
 // codes and one scale per (row, head). Bound: bytes, T_live * KV * D * 2
 // read and T_live * KV * (D + 4) written for K and V each. One block per
 // row; warp w quantizes the [D] slices w, w + warps, ... of the row's 2*KV
-// slices (K heads, then V heads) with kv_quant.cuh, lane l holding D/32
-// neighbouring elements. A scale is one 4-byte store, so any KV works (the
-// bf16 write's 16-byte rows would refuse a [KV] f32 scale row for KV < 4).
+// slices (K heads, then V heads) with kv_quant.cuh, lane l holding
+// ceil(D/32) neighbouring elements (at D = 80, 3: lanes 27-31 hold only
+// the zero padding, which is never stored). A scale is one 4-byte store,
+// so any KV works (the bf16 write's 16-byte rows would refuse a [KV] f32
+// scale row for KV < 4). The bf16 write moves whole rows of KV * D * 2
+// bytes, so it takes any head dim and KV whose row is a multiple of 16
+// bytes (Falcon-7B's one KV head of 64: 128 bytes; Phi-2's 32 x 80: 5,120).
 
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
@@ -65,7 +69,7 @@ __global__ void kv_write_int8_kernel(int8_t* __restrict__ k_codes,        // [NB
                                      const __nv_bfloat16* __restrict__ v_new,
                                      const int32_t* __restrict__ slots,   // [T]
                                      int n_blocks, int block_size, int n_kv) {
-  constexpr int EPL = D / 32;
+  constexpr int EPL = (D + 31) / 32;
   const int t = blockIdx.x;
   const int slot = slots[t];
   if (slot < 0) return;
@@ -80,12 +84,15 @@ __global__ void kv_write_int8_kernel(int8_t* __restrict__ k_codes,        // [NB
     const __nv_bfloat16* src = (is_v ? v_new : k_new) + ((long long)t * n_kv + h) * D + lane * EPL;
     float x[EPL];
     int8_t code[EPL];
+    // element e of this lane is column lane * EPL + e of the slice
+    const int n_own = min(EPL, max(D - lane * EPL, 0));
 #pragma unroll
-    for (int e = 0; e < EPL; ++e) x[e] = __bfloat162float(src[e]);
+    for (int e = 0; e < EPL; ++e) x[e] = e < n_own ? __bfloat162float(src[e]) : 0.f;
     const float scale = kv_quant_slice<EPL>(x, code);
     int8_t* dst = (is_v ? v_codes : k_codes) + (off * n_kv + h) * D + lane * EPL;
 #pragma unroll
-    for (int e = 0; e < EPL; ++e) dst[e] = code[e];
+    for (int e = 0; e < EPL; ++e)
+      if (e < n_own) dst[e] = code[e];
     if (lane == 0) (is_v ? v_scale : k_scale)[off * n_kv + h] = scale;
   }
 }
@@ -120,6 +127,12 @@ extern "C" int paged_kv_write_int8(void* k_codes, void* v_codes, void* k_scale, 
   switch (head_dim) {
     case 64:
       kv_write_int8_kernel<64><<<n_rows, threads, 0, st>>>(
+          (int8_t*)k_codes, (int8_t*)v_codes, (float*)k_scale, (float*)v_scale,
+          (const __nv_bfloat16*)k_new, (const __nv_bfloat16*)v_new, (const int32_t*)slots,
+          n_blocks, block_size, n_kv);
+      break;
+    case 80:
+      kv_write_int8_kernel<80><<<n_rows, threads, 0, st>>>(
           (int8_t*)k_codes, (int8_t*)v_codes, (float*)k_scale, (float*)v_scale,
           (const __nv_bfloat16*)k_new, (const __nv_bfloat16*)v_new, (const int32_t*)slots,
           n_blocks, block_size, n_kv);

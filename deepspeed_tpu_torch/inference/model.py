@@ -41,12 +41,18 @@ What is served:
   to the plain decode attention, the port of the JAX package's XLA route,
   without the fused write. The [nb, nb] layout goes to the device once
   per call (decode_multi once for all its steps), as the ALiBi slopes do;
+- Falcon/Phi-class models: the parallel residual x + attn(ln1 x) +
+  mlp(ln2 x), with ln2 x replaced by ln1 x under `shared_ln` (Falcon-7B,
+  Phi; such layers have no ln2 leaves), in every layer loop; partial
+  rotary (`T.rope_dim`); an lm_head bias added to the f32 logits;
+  multi-query attention with any query group (Falcon-7B: 71 over one KV
+  head) and head_dim 80 (Phi-2) in every kernel;
 - in bf16 or f32 caches, or in int8 caches (`init_cache(kv_quant=True)`:
   int8 code pools beside per-layer [NBLK, bs, KV] f32 scale pools, written
   and read only through the int8 kernels).
 
-`check_served` raises for the rest (learned positions, parallel
-residuals, MoE: `T.unported_features`).
+`check_served` raises for the rest (learned positions, MoE, activation
+quantization: `T.unported_features`).
 """
 
 from typing import Any, Dict, List, NamedTuple, Optional
@@ -75,7 +81,7 @@ def check_served(cfg: T.TransformerConfig) -> None:
     bad = T.unported_features(cfg)
     if bad:
         raise NotImplementedError(
-            "the serving slices serve Llama-class and Bloom-class models only; "
+            "the serving slices serve Llama-, Bloom-, Falcon- and Phi-class models only; "
             f"this config uses {', '.join(bad)} (later slices port them)")
 
 
@@ -212,11 +218,15 @@ def _sparse_decode_allowed_slots(scfg, positions, n_blocks: int, bs: int,
 def _lm_logits(x: torch.Tensor, params, cfg: T.TransformerConfig) -> torch.Tensor:
     """Final-normed activations [.., E] -> f32 logits [.., V]. Tied
     embeddings contract against embed without materialising its
-    transpose."""
+    transpose; an lm_head bias (Phi-2) is added in f32 after the product,
+    as the JAX package adds it."""
     if cfg.tie_embeddings:
         w = params["embed"].to(x.dtype)
         return torch.einsum("...e,ve->...v", x, w).float()
-    return torch.einsum("...e,ev->...v", x, params["lm_head"].to(x.dtype)).float()
+    y = torch.einsum("...e,ev->...v", x, params["lm_head"].to(x.dtype)).float()
+    if "lm_head_b" in params:
+        y = y + params["lm_head_b"].float()
+    return y
 
 
 class PagedCache(NamedTuple):
@@ -303,6 +313,21 @@ def _attn_out(att: torch.Tensor, lp) -> torch.Tensor:
     the output bias where the layer has one."""
     out = torch.einsum("...hd,hde->...e", att, lp["wo"])
     return out + lp["bo"] if "bo" in lp else out
+
+
+def _residual(x: torch.Tensor, h1: torch.Tensor, att_out: torch.Tensor, lp,
+              cfg: T.TransformerConfig) -> torch.Tensor:
+    """The layer's output from its input x [T, E] (any leading dims), its
+    normed input h1 = ln1(x) and its attention delta: sequential, x + a +
+    mlp(ln2(x + a)); parallel (Falcon, Phi), x + a + mlp(ln2(x)), with
+    ln2(x) replaced by h1 under shared_ln (the JAX package's
+    inference/model.py layer body, summed in its order)."""
+    if cfg.parallel_residual:
+        h2 = h1 if cfg.shared_ln else T._norm(x, lp["ln2_scale"], lp.get("ln2_bias"), cfg)
+        return x + att_out + _mlp(h2.reshape(-1, h2.shape[-1]), lp, cfg).reshape(x.shape)
+    x = x + att_out
+    h2 = T._norm(x, lp["ln2_scale"], lp.get("ln2_bias"), cfg)
+    return x + _mlp(h2.reshape(-1, h2.shape[-1]), lp, cfg).reshape(x.shape)
 
 
 def _decode_attention(cache: PagedCache, li: int, q, tables, ctx, use_kernel: bool,
@@ -419,9 +444,7 @@ def decode_step(params, cache: PagedCache, tokens, tables, ctx_lens,
             _write_kv(cache, li, k, v, flat_idx, use_kernel)
             att = _decode_attention(cache, li, q, tables, ctx_lens, use_kernel, window,
                                     alibi=alibi, allowed_slots=allowed_slots, allowed=allowed)
-        x = x + _attn_out(att, lp)
-        h2 = T._norm(x, lp["ln2_scale"], lp.get("ln2_bias"), cfg)
-        x = x + _mlp(h2, lp, cfg)
+        x = _residual(x, h1, _attn_out(att, lp), lp, cfg)
 
     x = T._norm(x, params["ln_f_scale"], params.get("ln_f_bias"), cfg)
     return _lm_logits(x, params, cfg), cache
@@ -516,9 +539,7 @@ def prefill_batch(params, cache: PagedCache, tokens, n_real, tables,
         else:
             att = causal_attention(q, k, v, use_flash=use_kernel,
                                    window=cfg.window_for_layer(li), alibi=alibi)
-        x = x + _attn_out(att, lp)
-        h2 = T._norm(x, lp["ln2_scale"], lp.get("ln2_bias"), cfg)
-        x = x + _mlp(h2.reshape(B * Tp, -1), lp, cfg).reshape(x.shape)
+        x = _residual(x, h1, _attn_out(att, lp), lp, cfg)
 
     # logits for each prompt's last REAL token only: gather before the
     # vocab product so the head runs on B tokens, not B * Tp

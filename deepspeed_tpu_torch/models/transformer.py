@@ -16,8 +16,10 @@ Serving and training cover dense Llama-class models (with sliding
 windows: Mistral-class) and Bloom-class ones (ALiBi, LayerNorm, biases, a
 non-gated MLP, an embedding LayerNorm: `unported_features`); serving also
 covers block-sparse models (attention_impl="sparse", the layout of
-`sparsity_config()`), which training does not yet; training runs without
-dropout (`check_trained`).
+`sparsity_config()`) and Falcon/Phi-class ones (parallel residuals with
+one shared or two LayerNorms, partial rotary, an lm_head bias, head_dim
+80), which training does not yet; training runs without dropout
+(`check_trained`).
 """
 
 import dataclasses
@@ -30,6 +32,7 @@ import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
 from ..ops.attention import alibi_slopes, causal_attention
+from ..ops.cuda.flash_attention import SERVED_ONLY_HEAD_DIMS
 from ..platform.accelerator import resolve_device
 
 # valid TransformerConfig.remat values; __post_init__ validates so a
@@ -602,16 +605,16 @@ def logical_specs(cfg: TransformerConfig) -> Dict[str, Any]:
 
 def unported_features(cfg: TransformerConfig) -> List[str]:
     """What the config uses beyond the models the port serves so far
-    (Llama-class and Bloom-class: rotary or ALiBi positions, RMSNorm or
-    LayerNorm, gated or plain MLP, biases, an embedding LayerNorm; dense,
-    sliding-window or block-sparse attention); empty when it is covered.
-    Training covers less (`check_trained`)."""
+    (Llama-class, Bloom-class and Falcon/Phi-class: rotary, partial rotary
+    or ALiBi positions, RMSNorm or LayerNorm, gated or plain MLP, biases,
+    an embedding LayerNorm, sequential or parallel residuals with one
+    shared or two LayerNorms, an lm_head bias; dense, sliding-window or
+    block-sparse attention); empty when it is covered. Training covers
+    less (`check_trained`)."""
     unsupported = {
         "learned positions (GPT-2/OPT)": cfg.use_learned_pos,
         "MoE (n_experts > 0)": cfg.n_experts > 0,
-        "parallel residuals": cfg.parallel_residual,
         "activation quantization": cfg.activation_quant_bits > 0,
-        "an lm_head bias": cfg.lm_head_bias,
         "pipeline-partitioned layers": cfg.pipeline_stages > 1,
         "use_flash=False (dense attention)": not cfg.use_flash,
     }
@@ -621,12 +624,21 @@ def unported_features(cfg: TransformerConfig) -> List[str]:
 def check_trained(cfg: TransformerConfig) -> None:
     """Raise NotImplementedError for a model the port does not train: what
     serving does not cover (`unported_features`), block-sparse attention
-    (served, not trained: ROADMAP A2), dropout, random-LTD layers and the
-    remat modes with no torch.utils.checkpoint mapping yet. Every dense
-    Llama- and Bloom-class model it serves, it trains."""
+    (served, not trained: ROADMAP A2), the Falcon/Phi-class knobs (parallel
+    residuals, an lm_head bias) and the head dims the flash forward kernel
+    serves and its backward kernels lack (SERVED_ONLY_HEAD_DIMS: Phi-2's
+    80), dropout, random-LTD layers and the remat modes with no
+    torch.utils.checkpoint mapping yet. Every other dense Llama- and
+    Bloom-class model it serves, it trains (head dims that no kernel takes
+    train through the plain versions on the CPU and raise at the kernels
+    on the card)."""
     bad = unported_features(cfg) + [name for name, hit in {
         "sparse attention (the training forward's sparse_causal_attention branch, "
         "ROADMAP A2)": cfg.attention_impl == "sparse",
+        "parallel residuals (served, not trained yet)": cfg.parallel_residual,
+        "an lm_head bias (served, not trained yet)": cfg.lm_head_bias,
+        f"head_dim {cfg.head_dim} (served; the flash backward kernels lack it)":
+            cfg.head_dim in SERVED_ONLY_HEAD_DIMS,
         "dropout > 0": cfg.dropout > 0.0,
         "random-LTD layers": cfg.random_ltd_layer_range is not None,
         f"remat='{cfg.remat}'": cfg.remat not in ("none", "full", "save_attn_qkv"),

@@ -3,13 +3,14 @@
 `WRAPPERS` maps each kernel's name to its wrapper; every wrapper carries a
 plain integer `launches`, raised by one per kernel launch, so a run can
 show that its main path went through the kernels (`_common.count_launch`).
-The wrappers that take a sliding `window` also carry `window_launches`,
-raised by one per launch in that mode (window > 0), counted as
-"<name>[window]"; `WINDOW_MODES` names them. Those that take ALiBi slopes
-carry `alibi_launches`, counted as "<name>[alibi]"; `ALIBI_MODES` names
-them. Those that take a block-sparse layout bitmap carry
-`sparse_launches`, counted as "<name>[sparse]"; `SPARSE_MODES` names them.
-A launch in several modes counts in each.
+A wrapper that runs a kernel in a further mode also carries that mode's
+counter (`_common.MODE_COUNTERS`), raised by one per launch in the mode
+and counted as "<name>[<mode>]": `window_launches` (a sliding window > 0),
+`alibi_launches` (ALiBi slopes), `sparse_launches` (a block-sparse layout
+bitmap), `wide_group_launches` (more than 8 query heads per KV head) and
+`d80_launches` (head_dim 80). `MODES[mode]` names the wrappers with that
+counter, `mode_launch_counts(mode)` gives their counts. A launch in
+several modes counts in each.
 """
 
 from typing import Dict
@@ -17,6 +18,7 @@ from typing import Dict
 from . import evoformer_attention as _evo
 from . import flash_attention as _flash
 from . import paged_attention as _paged
+from ._common import MODE_COUNTERS
 
 WRAPPERS = {
     "paged_kv_write": _paged.paged_kv_write,
@@ -34,40 +36,32 @@ WRAPPERS = {
     "evoformer_bwd_db2": _evo.evoformer_bwd_db2,
 }
 
-
-WINDOW_MODES = tuple(name for name, fn in WRAPPERS.items() if hasattr(fn, "window_launches"))
-ALIBI_MODES = tuple(name for name, fn in WRAPPERS.items() if hasattr(fn, "alibi_launches"))
-SPARSE_MODES = tuple(name for name, fn in WRAPPERS.items() if hasattr(fn, "sparse_launches"))
+MODES = {mode: tuple(name for name, fn in WRAPPERS.items() if hasattr(fn, attr))
+         for mode, attr in MODE_COUNTERS.items()}
 
 
 def launch_counts() -> Dict[str, int]:
     return {name: fn.launches for name, fn in WRAPPERS.items()}
 
 
-def window_launch_counts() -> Dict[str, int]:
-    """"<name>[window]" -> launches in the sliding-window mode (each also
-    counted in launch_counts()[name])."""
-    return {f"{name}[window]": WRAPPERS[name].window_launches for name in WINDOW_MODES}
-
-
-def alibi_launch_counts() -> Dict[str, int]:
-    """"<name>[alibi]" -> launches in the ALiBi mode (each also counted in
+def mode_launch_counts(mode: str) -> Dict[str, int]:
+    """"<name>[<mode>]" -> launches in that mode (each also counted in
     launch_counts()[name])."""
-    return {f"{name}[alibi]": WRAPPERS[name].alibi_launches for name in ALIBI_MODES}
+    attr = MODE_COUNTERS[mode]
+    return {f"{name}[{mode}]": getattr(WRAPPERS[name], attr) for name in MODES[mode]}
 
 
-def sparse_launch_counts() -> Dict[str, int]:
-    """"<name>[sparse]" -> launches with a layout bitmap (each also counted
-    in launch_counts()[name])."""
-    return {f"{name}[sparse]": WRAPPERS[name].sparse_launches for name in SPARSE_MODES}
+def all_launch_counts() -> Dict[str, int]:
+    """Every wrapper's launches and every mode's, "<name>[<mode>]"."""
+    out = launch_counts()
+    for mode in MODES:
+        out.update(mode_launch_counts(mode))
+    return out
 
 
 def reset_launch_counts() -> None:
     for fn in WRAPPERS.values():
         fn.launches = 0
-    for name in WINDOW_MODES:
-        WRAPPERS[name].window_launches = 0
-    for name in ALIBI_MODES:
-        WRAPPERS[name].alibi_launches = 0
-    for name in SPARSE_MODES:
-        WRAPPERS[name].sparse_launches = 0
+    for mode, attr in MODE_COUNTERS.items():
+        for name in MODES[mode]:
+            setattr(WRAPPERS[name], attr, 0)

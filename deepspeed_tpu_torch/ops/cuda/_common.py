@@ -35,18 +35,40 @@ def check_cuda_args(what: str, tensors: dict, dtypes: dict,
             raise ValueError(f"{what}: {name} must start on a 16-byte boundary")
 
 
-def count_launch(wrapper, window: int = 0, alibi: bool = False, sparse: bool = False) -> None:
+# the launch modes a wrapper may count besides `launches`: mode -> the
+# wrapper attribute that counts it (ops/cuda/__init__.py names them
+# "<name>[<mode>]")
+MODE_COUNTERS = {"window": "window_launches", "alibi": "alibi_launches",
+                 "sparse": "sparse_launches", "wide_group": "wide_group_launches",
+                 "d80": "d80_launches"}
+# a launch whose KV heads each serve more query heads than this runs in the
+# wide-group mode (Falcon-7B: 71 over one)
+WIDE_GROUP = 8
+
+
+def zero_counts(wrapper, *modes: str) -> None:
+    """Give a wrapper its `launches` and the counters of `modes`
+    (MODE_COUNTERS keys), all at 0."""
+    wrapper.launches = 0
+    for mode in modes:
+        setattr(wrapper, MODE_COUNTERS[mode], 0)
+
+
+def count_launch(wrapper, window: int = 0, alibi: bool = False, sparse: bool = False,
+                 group: int = 1, head_dim: int = 0) -> None:
     """Count one kernel launch on its wrapper: `launches`, and
     `window_launches` when it ran in the sliding-window mode,
     `alibi_launches` when in the ALiBi mode, `sparse_launches` when with a
-    block-sparse layout bitmap (each mode it ran in)."""
+    block-sparse layout bitmap, `wide_group_launches` when a KV head
+    served more than WIDE_GROUP query heads, `d80_launches` at head_dim 80
+    (each mode it ran in)."""
     wrapper.launches += 1
-    if window > 0:
-        wrapper.window_launches += 1
-    if alibi:
-        wrapper.alibi_launches += 1
-    if sparse:
-        wrapper.sparse_launches += 1
+    hits = {"window": window > 0, "alibi": alibi, "sparse": sparse,
+            "wide_group": group > WIDE_GROUP, "d80": head_dim == 80}
+    for mode, hit in hits.items():
+        if hit:
+            attr = MODE_COUNTERS[mode]
+            setattr(wrapper, attr, getattr(wrapper, attr) + 1)
 
 
 def check_shape(what: str, name: str, t: torch.Tensor, shape: Sequence[int]) -> None:

@@ -19,7 +19,13 @@ CPU tensors they run the plain versions (`flash_attention_plain`,
 densely in f32 (P and dS rounded to the inputs' dtype where the kernels
 round them). Every kernel wrapper carries `launches`, raised by one
 per launch of its kernel, `window_launches`, raised by one per launch in
-the sliding-window mode, and `alibi_launches`, in the ALiBi mode.
+the sliding-window mode, and `alibi_launches`, in the ALiBi mode; the
+forward also `wide_group_launches` (more than 8 query heads per KV head)
+and `d80_launches` (head_dim 80).
+
+Head dims: the forward kernel takes 64, 80 (Phi-2) and 128, the backward
+kernels 64 and 128; `FlashAttention` raises before its forward launches
+when the inputs need a gradient at a head dim the backward lacks.
 
 Sliding window (`window` > 0, Mistral-class; the reference's token-exact
 mode): query row r attends to key column c iff r - window < c <= r.
@@ -43,9 +49,15 @@ import torch
 
 from . import build
 from ._common import (BWD_FLOOR, BWD_ROW_ATOL, BWD_RTOL, bwd_mismatch,  # noqa: F401
-                      check_cuda_args, check_shape, count_launch, ptr, stream_of)
+                      check_cuda_args, check_shape, count_launch, ptr, stream_of, zero_counts)
 
-_HEAD_DIMS = (64, 128)
+# head dims the kernels are built for: the forward takes Phi-2's 80, the
+# backward not yet (training of head_dim 80 is a later slice)
+_HEAD_DIMS = (64, 80, 128)
+_BWD_HEAD_DIMS = (64, 128)
+# served (forward) and not yet trained (backward): models/transformer's
+# check_trained refuses them
+SERVED_ONLY_HEAD_DIMS = tuple(d for d in _HEAD_DIMS if d not in _BWD_HEAD_DIMS)
 
 
 def _repeat_kv(k: torch.Tensor, n_rep: int) -> torch.Tensor:
@@ -127,7 +139,7 @@ def flash_attention_bwd_plain(q, k, v, o, lse, do, window: int = 0, alibi=None):
     return _bwd_plain(q, k, v, lse, _delta(o, do), do, window, alibi)
 
 
-def _check_attention_args(what, tensors, dtypes, q, k):
+def _check_attention_args(what, tensors, dtypes, q, k, head_dims=_HEAD_DIMS):
     B, S, H, D = q.shape
     KV = k.shape[2]
     check_cuda_args(what, tensors, dtypes,
@@ -139,8 +151,8 @@ def _check_attention_args(what, tensors, dtypes, q, k):
             check_shape(what, name, t, (B, S, KV, D))
         else:
             check_shape(what, name, t, (B, S, H, D))
-    if D not in _HEAD_DIMS:
-        raise ValueError(f"{what}: head_dim {D}; the kernel is built for {_HEAD_DIMS}")
+    if D not in head_dims:
+        raise ValueError(f"{what}: head_dim {D}; the kernel is built for {head_dims}")
     if KV == 0 or H % KV:
         raise ValueError(f"{what}: {H} query heads are not a multiple of {KV} KV heads")
 
@@ -178,11 +190,11 @@ def flash_fwd(q, k, v, window: int = 0, alibi=None):
                         None if alibi is None else ptr(alibi), B, S, H, k.shape[2], D,
                         int(window), 1.0 / D ** 0.5, stream_of(q))
     build.check(lib, err, what)
-    count_launch(flash_fwd, window, alibi is not None)
+    count_launch(flash_fwd, window, alibi is not None, group=H // k.shape[2], head_dim=D)
     return o, lse
 
 
-flash_fwd.launches = flash_fwd.window_launches = flash_fwd.alibi_launches = 0
+zero_counts(flash_fwd, "window", "alibi", "wide_group", "d80")
 
 _BWD_DTYPES = {"q": _BF16, "k": _BF16, "v": _BF16, "do": _BF16, "lse": _F32, "delta": _F32}
 
@@ -192,7 +204,7 @@ def _launch_bwd(what, q, k, v, do, lse, delta, window, alibi, outs):
     (dq, or dk and dv); returns False, launching nothing, for an empty
     batch or sequence."""
     _check_attention_args(what, {"q": q, "k": k, "v": v, "do": do, "lse": lse,
-                                 "delta": delta}, _BWD_DTYPES, q, k)
+                                 "delta": delta}, _BWD_DTYPES, q, k, _BWD_HEAD_DIMS)
     _check_slopes(what, q, alibi)
     B, S, H, D = q.shape
     if B * S == 0:
@@ -220,7 +232,7 @@ def flash_bwd_dq(q, k, v, do, lse, delta, window: int = 0, alibi=None):
     return dq
 
 
-flash_bwd_dq.launches = flash_bwd_dq.window_launches = flash_bwd_dq.alibi_launches = 0
+zero_counts(flash_bwd_dq, "window", "alibi")
 
 
 def flash_bwd_dkv(q, k, v, do, lse, delta, window: int = 0, alibi=None):
@@ -237,7 +249,7 @@ def flash_bwd_dkv(q, k, v, do, lse, delta, window: int = 0, alibi=None):
     return dk, dv
 
 
-flash_bwd_dkv.launches = flash_bwd_dkv.window_launches = flash_bwd_dkv.alibi_launches = 0
+zero_counts(flash_bwd_dkv, "window", "alibi")
 
 
 def flash_attention_bwd(q, k, v, o, lse, do, window: int = 0, alibi=None):
@@ -262,6 +274,12 @@ class FlashAttention(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, q, k, v, window, alibi):
+        D = q.shape[-1]
+        if q.is_cuda and any(ctx.needs_input_grad[:3]) and D not in _BWD_HEAD_DIMS:
+            raise NotImplementedError(
+                f"flash attention's backward kernels are built for head_dim "
+                f"{_BWD_HEAD_DIMS}, not {D} (its forward serves head_dim {D}; training "
+                "it is a later slice)")
         q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
         o, lse = flash_fwd(q, k, v, window, alibi)
         ctx.save_for_backward(q, k, v, o, lse, alibi)

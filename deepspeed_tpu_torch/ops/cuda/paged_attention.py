@@ -12,9 +12,13 @@ Wrappers: for tensors on the CPU they run the plain version; for CUDA
 tensors they launch the kernel (csrc/paged_kv_write.cu,
 csrc/paged_decode.cu) or raise. Each keeps `launches`, the number of
 kernel launches it made (the decode wrappers also `window_launches`, those
-in the sliding-window mode, `alibi_launches`, those in the ALiBi mode, and
-`sparse_launches`, those with a layout bitmap). Kernels take bf16; the
-plain versions take any float dtype and compute attention in f32.
+in the sliding-window mode, `alibi_launches`, those in the ALiBi mode,
+`sparse_launches`, those with a layout bitmap, and `wide_group_launches`,
+those with more than 8 query heads per KV head; the decode wrappers and
+both writes `d80_launches`, those at head_dim 80). Kernels take bf16,
+head dims 64, 80 and 128 and any whole query group (Falcon-7B: 71 query
+heads over one KV head); the plain versions take any float dtype and
+compute attention in f32.
 
 Sliding window (`window` > 0, every decode mode): row s attends to the
 positions ctx - window <= p < ctx of its context (ctx counts the new
@@ -53,20 +57,15 @@ tensors they were given.
 import torch
 
 from . import build
-from ._common import check_cuda_args, check_shape, count_launch, ptr, stream_of
+from ._common import check_cuda_args, check_shape, count_launch, ptr, stream_of, zero_counts
 
 _BF16 = torch.bfloat16
 _I32 = torch.int32
 _I8 = torch.int8
 _F32 = torch.float32
-_DECODE_HEAD_DIMS = (64, 128)
-_DECODE_MAX_GROUP = 8
-
-
-def _zero_counts(wrapper):
-    """Start a decode wrapper's launch counters (all modes) at 0."""
-    wrapper.launches = wrapper.window_launches = wrapper.alibi_launches = 0
-    wrapper.sparse_launches = 0
+_DECODE_HEAD_DIMS = (64, 80, 128)
+# the counters of every decode wrapper
+_DECODE_MODES = ("window", "alibi", "sparse", "wide_group", "d80")
 
 
 # int8 KV quantization: scale = amax * (1/127) as a MULTIPLY by the f32
@@ -176,11 +175,11 @@ def paged_kv_write(cache_k, cache_v, k_new, v_new, flat_slots):
                              ptr(flat_slots), T, NBLK, bs, KV * D * 2,
                              stream_of(cache_k))
     build.check(lib, err, what)
-    count_launch(paged_kv_write)
+    count_launch(paged_kv_write, head_dim=D)
     return cache_k, cache_v
 
 
-paged_kv_write.launches = 0
+zero_counts(paged_kv_write, "d80")
 
 
 def _check_scales(what, cache_k, k_scale, v_scale):
@@ -220,11 +219,11 @@ def paged_kv_write_int8(cache_k, cache_v, k_scale, v_scale, k_new, v_new, flat_s
                                   ptr(k_new), ptr(v_new), ptr(flat_slots), T, NBLK, bs, KV,
                                   D, stream_of(cache_k))
     build.check(lib, err, what)
-    count_launch(paged_kv_write_int8)
+    count_launch(paged_kv_write_int8, head_dim=D)
     return cache_k, cache_v, k_scale, v_scale
 
 
-paged_kv_write_int8.launches = 0
+zero_counts(paged_kv_write_int8, "d80")
 
 
 # ---------------------------------------------------------------------------
@@ -340,9 +339,8 @@ def _check_decode(what, q, k_cache, v_cache, block_table, ctx_lens,
     if Dc != D or D not in _DECODE_HEAD_DIMS:
         raise ValueError(f"{what}: head_dim {D} (cache {Dc}); the kernel is "
                          f"built for {_DECODE_HEAD_DIMS}")
-    if H % KV or H // KV > _DECODE_MAX_GROUP:
-        raise ValueError(f"{what}: {H} query heads over {KV} KV heads; need a "
-                         f"whole group of at most {_DECODE_MAX_GROUP}")
+    if H % KV:
+        raise ValueError(f"{what}: {H} query heads are not a multiple of {KV} KV heads")
     check_shape(what, "v_cache", v_cache, k_cache.shape)
     if block_table.dim() != 2 or block_table.shape[0] != S:
         raise ValueError(f"{what}: block_table has shape {tuple(block_table.shape)}, "
@@ -373,7 +371,8 @@ def _launch_decode(what, wrapper, window, alibi_slopes, allowed_slots, q, k_cach
         int(k_scale is not None), S, H, KV, D, NBLK, bs, block_table.shape[1], int(window),
         1.0 / D ** 0.5, stream_of(q))
     build.check(lib, err, what)
-    count_launch(wrapper, window, alibi_slopes is not None, allowed_slots is not None)
+    count_launch(wrapper, window, alibi_slopes is not None, allowed_slots is not None,
+                 group=H // KV, head_dim=D)
     return out
 
 
@@ -400,7 +399,7 @@ def paged_decode_attention(q, k_cache, v_cache, block_table, ctx_lens, window: i
                           k_cache, v_cache, block_table, ctx_lens)
 
 
-_zero_counts(paged_decode_attention)
+zero_counts(paged_decode_attention, *_DECODE_MODES)
 
 
 def paged_decode_attention_int8(q, k_cache, v_cache, block_table, ctx_lens, k_scale,
@@ -425,7 +424,7 @@ def paged_decode_attention_int8(q, k_cache, v_cache, block_table, ctx_lens, k_sc
                           k_scale=k_scale, v_scale=v_scale)
 
 
-_zero_counts(paged_decode_attention_int8)
+zero_counts(paged_decode_attention_int8, *_DECODE_MODES)
 
 
 def paged_decode_fused(q, k_cache, v_cache, block_table, ctx_lens,
@@ -454,7 +453,7 @@ def paged_decode_fused(q, k_cache, v_cache, block_table, ctx_lens,
     return out, k_cache, v_cache
 
 
-_zero_counts(paged_decode_fused)
+zero_counts(paged_decode_fused, *_DECODE_MODES)
 
 
 def paged_decode_fused_int8(q, k_cache, v_cache, block_table, ctx_lens, k_new, v_new,
@@ -482,4 +481,4 @@ def paged_decode_fused_int8(q, k_cache, v_cache, block_table, ctx_lens, k_new, v
     return out, k_cache, v_cache, k_scale, v_scale
 
 
-_zero_counts(paged_decode_fused_int8)
+zero_counts(paged_decode_fused_int8, *_DECODE_MODES)

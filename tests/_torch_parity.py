@@ -44,6 +44,8 @@ def numpy_params(cfg, seed=0, std=0.08):
     params["layers"] = layers
     if not cfg.tie_embeddings:  # drawn last: tied configs keep their draws
         params["lm_head"] = r.normal(0, std, (E, V)).astype(np.float32)
+        if cfg.lm_head_bias:  # Phi-2
+            params["lm_head_b"] = r.normal(0, std, (V,)).astype(np.float32)
     # the Bloom-class top-level leaves, after every draw above
     if cfg.embedding_layernorm:
         params["embed_ln_scale"] = (1 + r.normal(0, 0.1, (E,))).astype(np.float32)

@@ -164,8 +164,8 @@ def test_flash_cpu_wrapper_is_the_plain_alibi_version(rng):
         o, _ = PA.causal_attention(q, k, v, use_flash=True, window=window, alibi=slopes), None
         assert torch.equal(o, ro)
     assert PK.launch_counts() == {n: 0 for n in PK.WRAPPERS}
-    assert set(PK.alibi_launch_counts()) == {f"{n}[alibi]" for n in PK.ALIBI_MODES}
-    assert set(PK.alibi_launch_counts().values()) == {0}
+    assert set(PK.mode_launch_counts("alibi")) == {f"{n}[alibi]" for n in PK.MODES["alibi"]}
+    assert set(PK.mode_launch_counts("alibi").values()) == {0}
 
 
 def test_flash_backward_and_training_still_raise_for_alibi(rng):

@@ -185,8 +185,8 @@ def test_cpu_wrappers_are_the_plain_alibi_backward(rng):
         assert all(torch.equal(g, r) for g, r in zip(
             PF.flash_attention_bwd(pq, pk, pv, o, lse, pdo, w, ps), ref))
     assert PK.launch_counts() == {n: 0 for n in PK.WRAPPERS}  # CPU: plain versions
-    assert {"flash_fwd", "flash_bwd_dq", "flash_bwd_dkv"} <= set(PK.ALIBI_MODES)
-    assert set(PK.alibi_launch_counts().values()) == {0}
+    assert {"flash_fwd", "flash_bwd_dq", "flash_bwd_dkv"} <= set(PK.MODES["alibi"])
+    assert set(PK.mode_launch_counts("alibi").values()) == {0}
 
 
 @pytest.mark.parametrize("source", sorted(PB.SIGNATURES))

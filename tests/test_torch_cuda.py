@@ -651,7 +651,7 @@ class TestWindowOnCard:
         leaves = [t.clone().requires_grad_() for t in (q, k, v)]
         torch.autograd.grad(PF.flash_attention(*leaves, window=16)[0], leaves, do)
         PF.flash_fwd(q, k, v)
-        counts, windowed = PK.launch_counts(), PK.window_launch_counts()
+        counts, windowed = PK.launch_counts(), PK.mode_launch_counts("window")
         assert counts["flash_fwd"] == 2 and windowed["flash_fwd[window]"] == 1
         assert counts["flash_bwd_dq"] == windowed["flash_bwd_dq[window]"] == 1
         assert counts["flash_bwd_dkv"] == windowed["flash_bwd_dkv[window]"] == 1
@@ -768,11 +768,11 @@ class TestAlibiOnCard:
         PF.flash_fwd(q, k, v, 16)
         args = self._decode_args(rng, cuda_device, "plain")
         _window_decode("plain", *args[:4], 0, *args[4:], alibi=_slopes(32, cuda_device))
-        counts, alibi = PK.launch_counts(), PK.alibi_launch_counts()
+        counts, alibi = PK.launch_counts(), PK.mode_launch_counts("alibi")
         assert counts["flash_fwd"] == 2 and alibi["flash_fwd[alibi]"] == 1
         assert counts["paged_decode_attention"] == alibi["paged_decode_attention[alibi]"] == 1
         assert alibi["paged_decode_fused[alibi]"] == 0
-        assert PK.window_launch_counts()["flash_fwd[window]"] == 1
+        assert PK.mode_launch_counts("window")["flash_fwd[window]"] == 1
 
 
 @pytest.mark.cuda
@@ -838,10 +838,10 @@ class TestAlibiBackwardOnCard:
         PK.reset_launch_counts()
         self._bwd(q, k, v, do, lse, delta, 0, sl)
         self._bwd(q, k, v, do, lse, delta, 16, None)
-        counts, alibi = PK.launch_counts(), PK.alibi_launch_counts()
+        counts, alibi = PK.launch_counts(), PK.mode_launch_counts("alibi")
         assert counts["flash_bwd_dq"] == counts["flash_bwd_dkv"] == 2
         assert alibi["flash_bwd_dq[alibi]"] == alibi["flash_bwd_dkv[alibi]"] == 1
-        assert PK.window_launch_counts()["flash_bwd_dkv[window]"] == 1
+        assert PK.mode_launch_counts("window")["flash_bwd_dkv[window]"] == 1
 
     @pytest.mark.parametrize("window", [0, 40])
     def test_function_grads_match_plain_backward(self, rng, cuda_device, window):
@@ -855,7 +855,7 @@ class TestAlibiBackwardOnCard:
         PK.reset_launch_counts()
         got = torch.autograd.grad(PF.flash_attention(*leaves, window=window, alibi=sl)[0],
                                   leaves, do)
-        assert PK.alibi_launch_counts()["flash_bwd_dkv[alibi]"] == 1
+        assert PK.mode_launch_counts("alibi")["flash_bwd_dkv[alibi]"] == 1
         same = PF.flash_attention_bwd_plain(q, k, v, o, lse, do, window, sl)
         leaves = [t.float().clone().requires_grad_() for t in (q, k, v)]
         dense = torch.autograd.grad(PF.flash_attention_plain(*leaves, window, sl)[0], leaves,
@@ -1010,7 +1010,7 @@ class TestSparseOnCard:
                                                                         "plain", 128)
         _window_decode("plain", q, pools, tbl, ctx, 0, allowed=bitmaps["fixed"])
         _window_decode("fused", q, pools, tbl, ctx, 0, kn, vn, slots)
-        counts, sparse = PK.launch_counts(), PK.sparse_launch_counts()
+        counts, sparse = PK.launch_counts(), PK.mode_launch_counts("sparse")
         assert counts["paged_decode_attention"] == 1 and counts["paged_decode_fused"] == 1
         assert sparse["paged_decode_attention[sparse]"] == 1
         assert sparse["paged_decode_fused[sparse]"] == 0
@@ -1019,3 +1019,188 @@ class TestSparseOnCard:
         with pytest.raises(ValueError):
             PP.paged_decode_attention(q, *pools, tbl, ctx,
                                       allowed_slots=bitmaps["fixed"][:, :4].contiguous())
+
+
+def _group_decode_case(rng, dev, mode, H, KV, D, bs=16):
+    """The window cases' decode rows (_window_decode_case) with new K/V
+    rows and their slots for the fused modes."""
+    q, pools, tbl, ctx = _window_decode_case(rng, dev, H, KV, D, "int8" in mode, bs=bs)
+    S = q.shape[0]
+    pos = (ctx - 1).clamp(min=0).long()
+    slots = torch.where(ctx > 0, tbl[torch.arange(S, device=dev), pos // bs] * bs + pos % bs,
+                        -1).to(torch.int32)
+    kn = _bf16_cuda(rng.standard_normal((S, KV, D)), dev)
+    vn = _bf16_cuda(rng.standard_normal((S, KV, D)), dev)
+    return q, pools, tbl, ctx, kn, vn, slots
+
+
+def _chunk0_heads(q, KV):
+    """Each query head of chunk c > 0 of every KV head's group given the
+    query of head g % 8 of chunk 0: what a kernel whose chunks c > 0 read
+    chunk 0's heads attends with."""
+    S, H, D = q.shape
+    G = H // KV
+    idx = torch.arange(G, device=q.device) % 8
+    return q.view(S, KV, G, D)[:, :, idx].reshape(S, H, D).contiguous()
+
+
+@pytest.mark.cuda
+class TestWideGroupAndHeadDim80OnCard:
+    """The wide-group mode (more than 8 query heads per KV head: a grid
+    axis over chunks of 8; Falcon-7B has 71 over one) and the head_dim-80
+    mode (Phi-2: blocks of 96 threads, lanes past 80 idle, the quantizer
+    padded with zeros) of kernels #1, #4, #5 and #6 against their plain
+    versions on the same bf16 inputs, at the tolerances of the modes
+    above (decode one bf16 ulp; flash o under bwd_mismatch, lse 1e-3;
+    writes, codes and scales bit-exact), with the window and ALiBi
+    composed; and the planted faults the checks must catch: chunks c > 0
+    given chunk 0's query heads, the partial last chunk dropped, in the
+    int8 fused mode chunks c > 0 attending the un-rounded new column, at
+    head_dim 80 the output's columns 64-79 left zero and the scores taken
+    over the first 64 dims."""
+
+    DECODE_TOL = dict(rtol=8e-3, atol=1e-3)
+    MODES = ["plain", "fused", "int8", "fused_int8"]
+    SHAPES = {"falcon_71_over_1": (71, 1, 64), "mqa_12_over_1_d80": (12, 1, 80),
+              "gqa_16_over_2": (32, 2, 128), "phi_mha_d80": (8, 8, 80),
+              "gqa_20_over_2_d80": (40, 2, 80)}
+
+    @pytest.mark.parametrize("shape", sorted(SHAPES))
+    @pytest.mark.parametrize("mode", MODES)
+    def test_decode(self, rng, cuda_device, mode, shape):
+        H, KV, D = self.SHAPES[shape]
+        args = _group_decode_case(rng, cuda_device, mode, H, KV, D)
+        q, pools, tbl, ctx, kn, vn, slots = args
+        for window, alibi in ((0, None), (57, None), (0, _slopes(H, cuda_device))):
+            out, ref = _window_decode(mode, q, pools, tbl, ctx, window, kn, vn, slots,
+                                      alibi=alibi)
+            torch.testing.assert_close(out.float(), ref.float(), **self.DECODE_TOL)
+            assert not out[-1].any()  # the pad row
+
+    @pytest.mark.parametrize("shape", ["falcon_71_over_1", "gqa_16_over_2"])
+    @pytest.mark.parametrize("mode", MODES)
+    def test_chunk_given_chunk_0_heads_is_caught(self, rng, cuda_device, mode, shape):
+        H, KV, D = self.SHAPES[shape]
+        q, pools, tbl, ctx, kn, vn, slots = _group_decode_case(rng, cuda_device, mode, H, KV, D)
+        _, ref = _window_decode(mode, q, pools, tbl, ctx, 0, kn, vn, slots)
+        bad, _ = _window_decode(mode, _chunk0_heads(q, KV), pools, tbl, ctx, 0, kn, vn, slots)
+        assert _n_over(bad, ref, 1e-3, 8e-3) > 0
+
+    @pytest.mark.parametrize("mode", MODES)
+    def test_dropped_last_chunk_is_caught(self, rng, cuda_device, mode):
+        H, KV, D = self.SHAPES["falcon_71_over_1"]
+        q, pools, tbl, ctx, kn, vn, slots = _group_decode_case(rng, cuda_device, mode, H, KV, D)
+        out, ref = _window_decode(mode, q, pools, tbl, ctx, 0, kn, vn, slots)
+        out[:, 64:] = 0
+        assert _n_over(out, ref, 1e-3, 8e-3) > 0
+
+    @pytest.mark.parametrize("shape", ["falcon_71_over_1", "gqa_16_over_2",
+                                       "gqa_20_over_2_d80"])
+    def test_int8_fused_unrounded_new_column_is_caught(self, rng, cuda_device, shape):
+        """Queries 4 x the new key make the new column dominate each
+        softmax: the kernel still passes there, while an output whose
+        chunks c > 0 attended the raw bf16 new row (not its dequantized
+        codes) does not."""
+        H, KV, D = self.SHAPES[shape]
+        G = H // KV
+        q, pools, tbl, ctx, kn, vn, slots = _group_decode_case(rng, cuda_device, "fused_int8",
+                                                               H, KV, D)
+        q = (4.0 * kn.float()).repeat_interleave(G, dim=1).to(torch.bfloat16).contiguous()
+        written = [p.clone() for p in pools]
+        out = PP.paged_decode_fused_int8(q, written[0], written[1], tbl, ctx, kn, vn, slots,
+                                         *written[2:])[0]
+        _, ref = _window_decode("fused_int8", q, pools, tbl, ctx, 0, kn, vn, slots)
+        torch.testing.assert_close(out.float(), ref.float(), **self.DECODE_TOL)
+        k = PP.dequantize(written[0], written[2], torch.bfloat16)
+        v = PP.dequantize(written[1], written[3], torch.bfloat16)
+        live = slots >= 0
+        k.view(-1, KV, D)[slots[live].long()] = kn[live]
+        v.view(-1, KV, D)[slots[live].long()] = vn[live]
+        raw = PP.paged_decode_attention_plain(q, k, v, tbl, ctx)
+        fault = out.clone()
+        S = q.shape[0]
+        fault.view(S, KV, G, D)[:, :, 8:] = raw.view(S, KV, G, D)[:, :, 8:]
+        assert _n_over(fault, ref, 1e-3, 8e-3) > 0
+
+    @pytest.mark.parametrize("mode", MODES)
+    def test_d80_faults_are_caught(self, rng, cuda_device, mode):
+        H, KV, D = self.SHAPES["phi_mha_d80"]
+        q, pools, tbl, ctx, kn, vn, slots = _group_decode_case(rng, cuda_device, mode, H, KV, D)
+        out, ref = _window_decode(mode, q, pools, tbl, ctx, 0, kn, vn, slots)
+        zeroed = out.clone()
+        zeroed[..., 64:] = 0
+        assert _n_over(zeroed, ref, 1e-3, 8e-3) > 0
+        q64 = q.clone()
+        q64[..., 64:] = 0
+        first64, _ = _window_decode(mode, q64, pools, tbl, ctx, 0, kn, vn, slots)
+        assert _n_over(first64, ref, 1e-3, 8e-3) > 0
+
+    @pytest.mark.parametrize("S,H,KV,D", [(77, 4, 4, 80), (300, 8, 2, 80), (200, 71, 1, 64),
+                                          (130, 20, 1, 80)])
+    def test_flash(self, rng, cuda_device, S, H, KV, D):
+        d = cuda_device
+        q = _bf16_cuda(rng.standard_normal((2, S, H, D)), d)
+        k = _bf16_cuda(rng.standard_normal((2, S, KV, D)), d)
+        v = _bf16_cuda(rng.standard_normal((2, S, KV, D)), d)
+        for window, alibi in ((0, None), (50, None), (0, _slopes(H, d))):
+            o, lse = PF.flash_fwd(q, k, v, window, alibi)
+            ro, rlse = PF.flash_attention_plain(q, k, v, window, alibi)
+            torch.cuda.synchronize()
+            assert PF.bwd_mismatch(o, ro)["n_over"] == 0
+            torch.testing.assert_close(lse, rlse, rtol=1e-3, atol=1e-3)
+        if D == 80:
+            o, _ = PF.flash_fwd(q, k, v)
+            ro, _ = PF.flash_attention_plain(q, k, v)
+            zeroed = o.clone()
+            zeroed[..., 64:] = 0
+            q64 = q.clone()
+            q64[..., 64:] = 0
+            assert PF.bwd_mismatch(zeroed, ro)["n_over"] > 0
+            assert PF.bwd_mismatch(PF.flash_fwd(q64, k, v)[0], ro)["n_over"] > 0
+
+    @pytest.mark.parametrize("KV", [32, 1])
+    def test_kv_writes_d80_bit_exact(self, rng, cuda_device, KV):
+        d, D, T = cuda_device, 80, 40
+        slots = rng.permutation(11 * 16)[:T].astype(np.int32)
+        slots[5::7] = -1
+        slots[3] = 12 * 16 + 5  # past the arena: clamped into block 11
+        s = torch.from_numpy(slots).to(d)
+        kn = _bf16_cuda(_int8_rows(rng, T, KV, D), d)
+        vn = _bf16_cuda(_int8_rows(rng, T, KV, D)[::-1].copy(), d)
+        arena = [_bf16_cuda(a, d) for a in _arena(rng, 12, 16, KV, D)]
+        ref = [a.clone() for a in arena]
+        PP.paged_kv_write(*arena, kn, vn, s)
+        PP.paged_kv_write_plain(*ref, kn, vn, s)
+        pools = _int8_pools(rng, d, 12, 16, KV, D)
+        ref8 = [p.clone() for p in pools]
+        PP.paged_kv_write_int8(*pools, kn, vn, s)
+        PP.paged_kv_write_quant_plain(*ref8, kn, vn, s)
+        torch.cuda.synchronize()
+        for got, want in zip(arena + list(pools), ref + ref8):
+            assert torch.equal(got, want)
+
+    def test_flash_backward_raises_before_launch_at_d80(self, rng, cuda_device):
+        """The forward serves head_dim 80; a forward whose inputs need a
+        gradient raises before it launches (the backward kernels take 64
+        and 128), and the backward wrappers refuse 80."""
+        q = _bf16_cuda(rng.standard_normal((1, 64, 4, 80)), cuda_device)
+        PK.reset_launch_counts()
+        with pytest.raises(NotImplementedError, match="head_dim"):
+            PF.flash_attention(q.clone().requires_grad_(), q, q)
+        assert PK.launch_counts()["flash_fwd"] == 0
+        o, lse = PF.flash_attention(q, q, q)  # no gradient asked: served
+        assert PK.launch_counts()["flash_fwd"] == 1
+        with pytest.raises(ValueError, match="head_dim 80"):
+            PF.flash_bwd_dq(q, q, q, q, lse, lse, 0)
+
+    def test_new_mode_launches_are_counted(self, rng, cuda_device):
+        PK.reset_launch_counts()
+        for shape in ("falcon_71_over_1", "phi_mha_d80", "gqa_16_over_2"):
+            H, KV, D = self.SHAPES[shape]
+            q, pools, tbl, ctx, kn, vn, slots = _group_decode_case(rng, cuda_device, "fused",
+                                                                   H, KV, D)
+            PP.paged_decode_fused(q, *[p.clone() for p in pools], tbl, ctx, kn, vn, slots)
+        counts = PK.all_launch_counts()
+        assert counts["paged_decode_fused"] == 3
+        assert counts["paged_decode_fused[wide_group]"] == 2
+        assert counts["paged_decode_fused[d80]"] == 1

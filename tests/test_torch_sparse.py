@@ -339,10 +339,10 @@ def test_decode_row_with_nothing_allowed_outputs_zeros(rng):
 def test_sparse_modes_and_counts():
     """The four decode wrappers carry `sparse_launches`; on CPU tensors
     nothing launches."""
-    assert set(PK.SPARSE_MODES) == {"paged_decode_fused", "paged_decode_attention",
+    assert set(PK.MODES["sparse"]) == {"paged_decode_fused", "paged_decode_attention",
                                     "paged_decode_fused_int8", "paged_decode_attention_int8"}
     PK.reset_launch_counts()
-    assert PK.sparse_launch_counts() == {f"{n}[sparse]": 0 for n in PK.SPARSE_MODES}
+    assert PK.mode_launch_counts("sparse") == {f"{n}[sparse]": 0 for n in PK.MODES["sparse"]}
 
 
 # ---------------------------------------------------------------------------

@@ -199,7 +199,7 @@ class TestFlashWindow:
                                        err_msg=name)
         # CPU tensors: the plain versions, no kernel launch in any mode
         assert PK.launch_counts() == {n: 0 for n in PK.WRAPPERS}
-        assert set(PK.window_launch_counts().values()) == {0}
+        assert set(PK.mode_launch_counts("window").values()) == {0}
 
     def test_cpu_wrappers_are_the_plain_windowed_versions(self, rng):
         q, k, v, do = (_t(a) for a in _qkv(rng, 1, 50, 4, 2, 128))
@@ -325,7 +325,7 @@ def test_decode_wrappers_on_cpu_are_the_plain_windowed_versions(rng):
     assert torch.equal(PP.paged_decode_attention(*args, window=12),
                        PP.paged_decode_attention_plain(*args, window=12))
     assert PK.launch_counts() == {n: 0 for n in PK.WRAPPERS}
-    assert set(PK.window_launch_counts()) == {f"{n}[window]" for n in PK.WINDOW_MODES}
+    assert set(PK.mode_launch_counts("window")) == {f"{n}[window]" for n in PK.MODES["window"]}
 
 
 # ---------------------------------------------------------------------------

@@ -61,7 +61,17 @@ Phases (any failure raises and exits nonzero):
              chunk dropped, in the int8 fused mode chunks attending the
              un-rounded new column, at head_dim 80 the output's columns
              64-79 left zero and the scores taken over the first 64 dims;
-             time
+             the head_dim-80 and wide-group modes of #2 and #3 at S=2048
+             (Phi-2's training micro-batch B=2, 32 x 80; GQA 40 over 2 at
+             80; window 1000 and ALiBi slopes at 80; Falcon-7B's training
+             micro-batch B=4, 71 x 64 over one KV head; GQA 16 over 2)
+             against the plain backward on the kernel forward's o and lse,
+             every launch counted in its modes, with planted faults that
+             must fail: at head_dim 80 the gradients' columns 64-79 zeroed
+             and the scores taken over the first 64 dims, in a wide group
+             dk and dv summed without the group's last chunk of 8 heads
+             (at 71 over 1 the first 64 heads) and each q head given KV
+             head (h // 8) % KV; time
              kernel, plain version and (where one exists) a single
              PyTorch library call computing the same function: device time
              from torch.profiler, and the time of back-to-back calls from
@@ -197,6 +207,17 @@ Phases (any failure raises and exits nonzero):
 4i. train_alibi_falcon_rw - falcon-rw-1b (FALCON_RW) whole, 24 layers,
              1.31B parameters, micro-batch 8 x 2048; the same checks (the
              D=64 ALiBi backward on a training path).
+4n. train_falcon - Falcon-7B's width (FALCON_7B: 71 query heads of 64
+             over one KV head, parallel residual, one shared LayerNorm), 4
+             layers deep (all 32 with fp32 master and Adam moments are
+             ~150 GB), 1.12B parameters, micro-batch 4 x 2048, as
+             train_alibi: one counted step (#1-#3 once per layer, each in
+             its wide-group mode, and nothing else), the loss falling over
+             6 steps, the three-path check at 2 layers and S=2048.
+4o. train_phi - Phi-2 (PHI_2: 32 heads of 80, partial rotary, biases, an
+             untied biased lm_head) whole, 32 layers, 2.78B parameters,
+             micro-batch 2 x 2048; the same checks, every launch of #1-#3
+             in its head_dim-80 mode.
 5. evoformer - DS4Sci evoformer attention (ds4sci_evoformer_attention) at
              AlphaFold 2 / OpenFold widths, bf16, three cases (EVO_CASES):
              for each, one forward and backward with every launch counter
@@ -415,6 +436,14 @@ PHI_2 = dict(vocab_size=51200, n_layers=32, n_heads=32, n_kv_heads=32, d_model=2
              activation="gelu", qkv_bias=True, attn_out_bias=True, mlp_bias=True,
              parallel_residual=True, shared_ln=True, rotary_pct=0.4, rope_theta=10000.0,
              norm_eps=1e-5, tie_embeddings=False, lm_head_bias=True)
+# the parallel-residual training paths, with the flagship's settings.
+# Falcon-7B's width 4 layers deep: 1,123,758,464 parameters (all 32 layers
+# are 6.92B, ~150 GB of training state at ~20 B a parameter: bf16 weights,
+# fp32 master, Adam moments, the fp32 accumulator and one micro-batch's
+# bf16 gradients); micro-batch 4 x 2048, as BLOOM-7B1's width. Phi-2
+# whole, 32 layers: ~56 GB of state, micro-batch 2 x 2048
+TRAIN_FALCON_MODEL = dict(FALCON_7B, n_layers=4, remat="save_attn_qkv", use_flash=True)
+TRAIN_PHI_MODEL = dict(PHI_2, remat="save_attn_qkv", use_flash=True)
 # phase 2's wide-group and head_dim-80 decode rows: ctx ~100 to ~1,950 (the
 # serving phases' long row decodes at 1921-1944), several mid-block
 DECODE_FP_CTX = (100, 373, 646, 919, 1192, 1465, 1738, 1950)
@@ -425,6 +454,23 @@ DECODE_GROUP_CASES = {"falcon_7b": dict(H=71, KV=1, D=64),
                       "gqa_16_over_2": dict(H=32, KV=2, D=128)}
 # phase 2's head_dim-80 flash cases: Phi-2's prefill shapes
 FLASH_D80_S = (512, 2048)
+# phase 2's cases of the flash backward #2/#3 in its head_dim-80 and
+# wide-group modes, at the training length 2048: Phi-2's training
+# micro-batch (32 heads of 80), a GQA case at 80 (40 query heads over 2 KV
+# heads: groups of 20, both modes at once), the window 1000 and ALiBi
+# slopes at 80 once each (independent runtime arguments; no model of this
+# script runs them together); Falcon-7B's training micro-batch (71 query
+# heads of 64 over one KV head) and GQA 16 over 2 (32 heads of 64 over 2).
+# "timed": the case each mode's kernels-line entry is timed at
+FLASH_BWD_MODE_CASES = {
+    "phi_2_train": dict(B=2, S=2048, H=32, KV=32, D=80, window=0, alibi=False, timed="d80"),
+    "d80_gqa_20_over_2": dict(B=1, S=2048, H=40, KV=2, D=80, window=0, alibi=False),
+    "d80_window_1000": dict(B=1, S=2048, H=32, KV=32, D=80, window=ALIBI_WINDOW, alibi=False),
+    "d80_alibi": dict(B=1, S=2048, H=32, KV=32, D=80, window=0, alibi=True),
+    "falcon_7b_train": dict(B=4, S=2048, H=71, KV=1, D=64, window=0, alibi=False,
+                            timed="wide_group"),
+    "gqa_16_over_2": dict(B=1, S=2048, H=32, KV=2, D=64, window=0, alibi=False),
+}
 # window cases of phase 2 besides >= S: Mistral's 4096 (tile-aligned), 1000
 # (no multiple of the 64-row tiles or the 128-token blocks) and 1
 WINDOW_CASES = (4096, 1000, 1)
@@ -2027,6 +2073,153 @@ def _d80_checks(FA, PA, randn, dev, bound_ms):
     return results
 
 
+def _plain_bwd_by_batch(FA, q, k, v, lse, delta, do, window=0, alibi=None):
+    """The plain backward one batch row at a time (the rows are
+    independent): a [1, H, S, S] f32 tensor at Falcon-7B's 71 heads is
+    1.2 GB, the whole micro-batch's 4.8 GB, several of them at once."""
+    import torch
+
+    rows = [FA._bwd_plain(*(t[b:b + 1] for t in (q, k, v, lse, delta)), do[b:b + 1], window,
+                          alibi) for b in range(q.shape[0])]
+    return tuple(torch.cat(parts) for parts in zip(*rows))
+
+
+def _bwd_mode_faults(FA, q, k, v, do, lse, delta, window, alibi, ref):
+    """Planted faults of the head_dim-80 and wide-group modes, each what a
+    wrong kernel would output, made by running the kernels themselves on
+    spoiled inputs from the same forward's lse and delta; each must fail
+    bwd_mismatch against the plain backward `ref` in every gradient it
+    touches. D 80: the gradients' columns 64-79 zeroed; the scores taken
+    over the first 64 dims (q's dims 64-79 zeroed). G > 8: dk and dv
+    summed without each group's last chunk of 8 heads (at 71 over 1, over
+    the first 64 heads: the partial chunk dropped); with several KV heads
+    and H a multiple of 8 KV, each q head given KV head (h // 8) % KV (a
+    group capped at 8). Returns {fault: {tensor: elements over}}."""
+    import torch
+
+    B, S, H, D = q.shape
+    KV = k.shape[2]
+    G = H // KV
+    names = ("dq", "dk", "dv")
+
+    def bwd(q_, k_, v_, lse_, delta_, do_):
+        return (FA.flash_bwd_dq(q_, k_, v_, do_, lse_, delta_, window, alibi),) + \
+            FA.flash_bwd_dkv(q_, k_, v_, do_, lse_, delta_, window, alibi)
+
+    faults = {}
+    if D == 80:
+        good = bwd(q, k, v, lse, delta, do)
+        faults["columns_64_79_zeroed"] = (names, tuple(_first_64_dims(g) for g in good))
+        faults["scores_over_first_64_dims"] = (names, bwd(_first_64_dims(q), k, v, lse, delta,
+                                                          do))
+    if G > 8 and alibi is None:
+        keep = torch.arange(H, device=q.device).view(KV, G)[:, :8 * ((G - 1) // 8)].flatten()
+        pick = lambda t, dim: t.index_select(dim, keep).contiguous()
+        dk, dv = FA.flash_bwd_dkv(pick(q, 2), k, v, pick(do, 2), pick(lse, 1), pick(delta, 1),
+                                  window)
+        faults["last_chunk_of_8_dropped"] = (("dk", "dv"), (None, dk, dv))
+    if G > 8 and KV > 1 and H % (8 * KV) == 0 and alibi is None:
+        idx = torch.arange(H // 8, device=q.device) % KV
+        k8, v8 = k[:, :, idx].contiguous(), v[:, :, idx].contiguous()
+        dq, dk8, dv8 = bwd(q, k8, v8, lse, delta, do)
+        fold = lambda t: t.float().view(B, S, H // 8 // KV, KV, D).sum(2).to(t.dtype)
+        faults["q_head_given_kv_head_h_div_8"] = (names, (dq, fold(dk8), fold(dv8)))
+    out = {}
+    for fault, (hit, grads) in faults.items():
+        out[fault] = {n: FA.bwd_mismatch(grads[i], ref[i])["n_over"]
+                      for i, n in enumerate(names) if n in hit}
+        if not all(out[fault].values()):
+            raise AssertionError(f"the backward check passes a planted fault: {fault} "
+                                 f"{out[fault]}")
+    return out
+
+
+def _flash_bwd_mode_checks(FA, randn, dev, bound_ms):
+    """Kernels #2 (dq) and #3 (dk, dv) in their head_dim-80 and wide-group
+    modes against the plain backward on the kernel forward's o and lse, on
+    the same bf16 inputs, under bwd_mismatch, in the cases of
+    FLASH_BWD_MODE_CASES (S=2048): Phi-2's training micro-batch, GQA 40
+    over 2 at 80, window 1000 and ALiBi at 80, Falcon-7B's training
+    micro-batch (71 query heads of 64 over one KV head) and GQA 16 over 2.
+    Every launch must count in the case's modes. Planted faults must fail
+    (_bwd_mode_faults). Then times both kernels at each mode's timed case
+    beside the plain backward and SDPA's backward at the same shape."""
+    import torch
+    import torch.nn.functional as F
+
+    from deepspeed_tpu_torch.ops import cuda as K
+
+    names = ("dq", "dk", "dv")
+    report, out = {}, {}
+    errs = {m: {"dq": 0.0, "dkv": 0.0} for m in ("d80", "wide_group")}
+    for case, c in FLASH_BWD_MODE_CASES.items():
+        B, S, H, KV, D, w = (c[x] for x in ("B", "S", "H", "KV", "D", "window"))
+        modes = [m for m, hit in (("d80", D == 80), ("wide_group", H // KV > 8)) if hit]
+        q, k, v, do = randn(B, S, H, D), randn(B, S, KV, D), randn(B, S, KV, D), randn(B, S, H, D)
+        sl = _slopes(H, 1.0, dev) if c["alibi"] else None
+        o, lse = FA.flash_fwd(q, k, v, w, sl)
+        delta = FA._delta(o, do)
+        K.reset_launch_counts()
+        got = (FA.flash_bwd_dq(q, k, v, do, lse, delta, w, sl),) + \
+            FA.flash_bwd_dkv(q, k, v, do, lse, delta, w, sl)
+        counts = K.all_launch_counts()
+        want = {f"{n}[{m}]": int(m in modes) for n in ("flash_bwd_dq", "flash_bwd_dkv")
+                for m in ("d80", "wide_group")}
+        if {n: counts[n] for n in want} != want:
+            raise AssertionError(f"flash_bwd {case}: not counted in its modes {modes}: "
+                                 f"{counts}")
+        ref = _plain_bwd_by_batch(FA, q, k, v, lse, delta, do, w, sl)
+        case_report = {"shape": c, "modes": modes}
+        for i, name in enumerate(names):
+            st = FA.bwd_mismatch(got[i], ref[i])
+            if st["n_over"]:
+                raise AssertionError(f"flash_bwd {case} {name}: beyond the tolerance of the "
+                                     f"plain backward: {st}")
+            case_report[name] = {"worst_ratio": st["worst_ratio"], "max_abs": st["max_abs_err"]}
+            for m in modes:
+                key = "dq" if name == "dq" else "dkv"
+                errs[m][key] = max(errs[m][key], st["max_abs_err"])
+        case_report["planted_faults_elements_over"] = _bwd_mode_faults(
+            FA, q, k, v, do, lse, delta, w, sl, ref)
+        report[case] = case_report
+        del got, ref
+        torch.cuda.empty_cache()
+        mode = c.get("timed")
+        if mode is not None:
+            qt, kt, vt = (x.detach().transpose(1, 2).requires_grad_() for x in (q, k, v))
+            ot = F.scaled_dot_product_attention(qt, kt, vt, is_causal=True, enable_gqa=KV != H)
+            dot = do.transpose(1, 2)
+            sdpa_bwd = lambda: torch.autograd.grad(ot, (qt, kt, vt), dot, retain_graph=True)
+            plain_bwd = lambda: _plain_bwd_by_batch(FA, q, k, v, lse, delta, do)
+            pairs = B * H * S * (S + 1) / 2
+            io_in = B * S * (2 * H + 2 * KV) * D * 2 + 2 * B * H * S * 4
+            shape = f"B={B}, S={S}, H={H}, KV={KV}, D={D}, bf16, causal"
+            out[f"flash_bwd_dq[{mode}]"] = dict(
+                max_abs_err=0.0, shape=shape,
+                **_timings(lambda: FA.flash_bwd_dq(q, k, v, do, lse, delta), plain_bwd,
+                           sdpa_bwd, 5),
+                bound=bound_ms(io_in + B * S * H * D * 2, 3 * 2.0 * pairs * D))
+            out[f"flash_bwd_dkv[{mode}]"] = dict(
+                max_abs_err=0.0, shape=shape,
+                **_timings(lambda: FA.flash_bwd_dkv(q, k, v, do, lse, delta), plain_bwd,
+                           sdpa_bwd, 5),
+                bound=bound_ms(io_in + 2 * B * S * KV * D * 2, 4 * 2.0 * pairs * D))
+            del qt, kt, vt, ot, dot
+        del q, k, v, do, o, lse, delta
+        torch.cuda.empty_cache()
+    for m, e in errs.items():
+        out[f"flash_bwd_dq[{m}]"]["max_abs_err"] = e["dq"]
+        out[f"flash_bwd_dkv[{m}]"]["max_abs_err"] = e["dkv"]
+    print(json.dumps({"flash_bwd_mode_checks": {
+        "rtol": FA.BWD_RTOL, "row_rms_atol": FA.BWD_ROW_ATOL, "floor": FA.BWD_FLOOR,
+        **report}}))
+    print(json.dumps({"flash_bwd_modes_vs_sdpa": {
+        m: {"dq_ms": out[f"flash_bwd_dq[{m}]"]["ms"], "dkv_ms": out[f"flash_bwd_dkv[{m}]"]["ms"],
+            "sdpa_bwd_ms": out[f"flash_bwd_dq[{m}]"]["library_ms"],
+            "shape": out[f"flash_bwd_dq[{m}]"]["shape"]} for m in errs}}))
+    return out
+
+
 def check_kernels(cfg, dev):
     import torch
 
@@ -2136,6 +2329,9 @@ def check_kernels(cfg, dev):
         # the wide-group and head_dim-80 modes at Falcon-7B's and Phi-2's shapes
         "decode_group": lambda: _decode_group_checks(PA, randn, dev, bound_ms),
         "d80": lambda: _d80_checks(FA, PA, randn, dev, bound_ms),
+        # the backward's head_dim-80 and wide-group modes at Phi-2's and
+        # Falcon-7B's training shapes
+        "flash_bwd_modes": lambda: _flash_bwd_mode_checks(FA, randn, dev, bound_ms),
         "evoformer": lambda: _evo_kernel_checks(dev, bound_ms),
     }
     seconds = {"flagship_serving": time.perf_counter() - t0}
@@ -2798,17 +2994,21 @@ def run_serve_long(cfg, dev, params, mode, int8=False):
 
 # phase -> (model, micro-batch, S, (layers, S) of the three-path check, mode):
 # Mistral 7B's width with its window, BLOOM-7B1's width and falcon-rw-1b
-# whole with ALiBi
+# whole with ALiBi, Falcon-7B's width in the wide-group mode (71 query
+# heads over one KV head) and Phi-2 whole in the head_dim-80 mode
 TRAIN_LONG = {"train_window": (TRAIN_W_MODEL, 1, TRAIN_W_S, TRAIN_W_PATH, "window"),
               "train_alibi": (TRAIN_A_MODEL, 4, 2048, (2, 2048), "alibi"),
-              "train_alibi_falcon_rw": (TRAIN_F_MODEL, 8, 2048, (2, 2048), "alibi")}
+              "train_alibi_falcon_rw": (TRAIN_F_MODEL, 8, 2048, (2, 2048), "alibi"),
+              "train_falcon": (TRAIN_FALCON_MODEL, 4, 2048, (2, 2048), "wide_group"),
+              "train_phi": (TRAIN_PHI_MODEL, 2, 2048, (2, 2048), "d80")}
 
 
 def run_train_long(dev, phase):
-    """A 7B model's width (or falcon-rw-1b whole) trained with the
-    flagship's settings on the micro-batch of TRAIN_LONG[phase]: one step
-    with every launch counter at 0 (each flash kernel once per layer, each
-    in the phase's window or ALiBi mode, and nothing else), the loss
+    """A 7B model's width (or falcon-rw-1b or Phi-2 whole) trained with
+    the flagship's settings on the micro-batch of TRAIN_LONG[phase]: one
+    step with every launch counter at 0 (each flash kernel once per layer,
+    each in the phase's window, ALiBi, wide-group or head_dim-80 mode, and
+    nothing else), the loss
     falling over TRAIN_LONG_STEPS steps on the fixed batch, the time of
     TRAIN_LONG_TIMED async steps, and the three-path check of the per-token
     loss and the gradients at the phase's (layers, S) from the engine's

@@ -1,7 +1,9 @@
 // Causal flash-attention backward (recompute from the saved logsumexp) over
 // q, do [B, S, H, D] and k, v [B, S, KV, D] in bf16 with lse and
 // delta = rowsum(dO * O) as [B, H, S] f32, in its causal, sliding-window
-// and ALiBi modes. Two kernels:
+// and ALiBi modes, at head dims 64, 80 and 128 and any whole query group
+// (counted as the wide-group mode above 8 heads a group, and as the
+// head_dim-80 mode). Two kernels:
 //
 //   flash_bwd_dq   dq [B, S, H, D] bf16
 //   flash_bwd_dkv  dk, dv [B, S, KV, D] bf16 (GQA: summed over the group)
@@ -26,6 +28,28 @@
 // loops over the K/V tiles up to the diagonal. dkv: (B * KV, ceil(S / 64));
 // the block owns 64 key rows and loops over the G = H / KV query heads of
 // its group and over the query tiles from the diagonal to the end.
+//
+// Query groups of any size (the wide-group mode, G > 8: Falcon-7B's 71
+// query heads over one KV head). dq's grid has one block per q head, so G
+// changes nothing there. dkv's block walks all G heads of its KV head in
+// turn and sums them in its accumulators, without atomics; at Falcon-7B's
+// training shape (B = 4, S = 2048) that is B * KV * S / 64 = 128 blocks,
+// under one wave of the 132 SMs, each looping over 71 heads. Right, and
+// slow: splitting the group over blocks with a deterministic second pass
+// is queued as speed work.
+//
+// Head dims 64, 80 (Phi-2) and 128. The WMMA 16 x 16 x 16 tiles divide
+// each (80: five steps of every depth loop, five accumulator fragments per
+// warp). Layout<80> keeps 16-byte row strides (LDH 88 bf16: rows of 176
+// bytes; LDO 84 f32: rows of 336 bytes), so every 16-row fragment offset
+// (16 x 88 x 2 = 2816 bytes, 16 x 84 x 4 = 5376) and every region stays
+// 32-byte aligned, and the f32 staging tile (21,504 bytes) fits in the two
+// 64 x D tiles it reuses (22,528); the static_asserts of Layout check all
+// of this for each instantiation. A row is ten 16-byte vectors in
+// load_tile, and write_rows's per-lane loop over D / 2 strides by 32 with
+// a bound, so neither assumes D % 32 == 0. Shared memory is 89,600 bytes a
+// block at 80 (81,408 at 64, 114,176 at 128), set per instantiation by
+// cudaFuncSetAttribute.
 //
 // Sliding window (window > 0): (row, col) is live iff row - window < col
 // <= row, as in the forward. dq's K/V loop starts at the first tile the
@@ -92,8 +116,17 @@ struct Layout {
   static constexpr size_t LSE = P + (size_t)BT * LDP * 2;
   static constexpr size_t DELTA = LSE + (size_t)BT * 4;
   static constexpr size_t BYTES = DELTA + (size_t)BT * 4;
+  static_assert(D % 16 == 0, "WMMA tiles are 16 wide");
+  static_assert(LDH % 8 == 0 && LDP % 8 == 0 && LDS % 4 == 0 && LDO % 4 == 0,
+                "row strides must be whole 16-byte vectors");
+  static_assert((16 * LDH * 2) % 32 == 0 && (16 * LDP * 2) % 32 == 0 &&
+                    (16 * LDS * 4) % 32 == 0 && (16 * LDO * 4) % 32 == 0,
+                "every 16-row fragment offset must stay 32-byte aligned");
+  static_assert(TILE % 32 == 0 && S1 % 32 == 0 && S2 % 32 == 0 && P % 32 == 0,
+                "every WMMA region must start 32-byte aligned");
   // the output staging tile (64 x LDO f32) reuses two adjacent 64 x D tiles
   static_assert((size_t)BT * LDO * 4 <= 2 * TILE, "staging tile does not fit");
+  static_assert(BYTES <= 232448, "more shared memory than a block can have");
 };
 
 // Copy rows [r_begin, r_begin + 64) of a [S, row_stride] bf16 matrix (from
@@ -418,6 +451,9 @@ extern "C" int flash_bwd_dq(void* dq, const void* q, const void* k, const void* 
     case 64:
       return launch_dq<64>(dq, q, k, v, dout, lse, delta, slopes, B, S, H, KV, window, scale,
                            st);
+    case 80:
+      return launch_dq<80>(dq, q, k, v, dout, lse, delta, slopes, B, S, H, KV, window, scale,
+                           st);
     case 128:
       return launch_dq<128>(dq, q, k, v, dout, lse, delta, slopes, B, S, H, KV, window, scale,
                             st);
@@ -438,6 +474,9 @@ extern "C" int flash_bwd_dkv(void* dk, void* dv, const void* q, const void* k, c
   switch (D) {
     case 64:
       return launch_dkv<64>(dk, dv, q, k, v, dout, lse, delta, slopes, B, S, H, KV, window,
+                            scale, st);
+    case 80:
+      return launch_dkv<80>(dk, dv, q, k, v, dout, lse, delta, slopes, B, S, H, KV, window,
                             scale, st);
     case 128:
       return launch_dkv<128>(dk, dv, q, k, v, dout, lse, delta, slopes, B, S, H, KV, window,

@@ -13,13 +13,13 @@ Besides what serving shares (`_norm`, `_act_fn`, rotary tables,
 training forward and loss: `forward_hidden`, `forward` and `make_loss_fn`,
 with the reference's remat policies mapped onto `torch.utils.checkpoint`.
 Serving and training cover dense Llama-class models (with sliding
-windows: Mistral-class) and Bloom-class ones (ALiBi, LayerNorm, biases, a
-non-gated MLP, an embedding LayerNorm: `unported_features`); serving also
-covers block-sparse models (attention_impl="sparse", the layout of
-`sparsity_config()`) and Falcon/Phi-class ones (parallel residuals with
-one shared or two LayerNorms, partial rotary, an lm_head bias, head_dim
-80), which training does not yet; training runs without dropout
-(`check_trained`).
+windows: Mistral-class), Bloom-class ones (ALiBi, LayerNorm, biases, a
+non-gated MLP, an embedding LayerNorm) and Falcon/Phi-class ones
+(parallel residuals with one shared or two LayerNorms, partial rotary, an
+lm_head bias, head_dim 80): `unported_features`; serving also covers
+block-sparse models (attention_impl="sparse", the layout of
+`sparsity_config()`), which training does not yet; training runs without
+dropout (`check_trained`).
 """
 
 import dataclasses
@@ -32,7 +32,6 @@ import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
 from ..ops.attention import alibi_slopes, causal_attention
-from ..ops.cuda.flash_attention import SERVED_ONLY_HEAD_DIMS
 from ..platform.accelerator import resolve_device
 
 # valid TransformerConfig.remat values; __post_init__ validates so a
@@ -624,28 +623,22 @@ def unported_features(cfg: TransformerConfig) -> List[str]:
 def check_trained(cfg: TransformerConfig) -> None:
     """Raise NotImplementedError for a model the port does not train: what
     serving does not cover (`unported_features`), block-sparse attention
-    (served, not trained: ROADMAP A2), the Falcon/Phi-class knobs (parallel
-    residuals, an lm_head bias) and the head dims the flash forward kernel
-    serves and its backward kernels lack (SERVED_ONLY_HEAD_DIMS: Phi-2's
-    80), dropout, random-LTD layers and the remat modes with no
-    torch.utils.checkpoint mapping yet. Every other dense Llama- and
-    Bloom-class model it serves, it trains (head dims that no kernel takes
-    train through the plain versions on the CPU and raise at the kernels
-    on the card)."""
+    (served, not trained: ROADMAP A2), dropout, random-LTD layers and the
+    remat modes with no torch.utils.checkpoint mapping yet. Every other
+    dense model it serves, it trains: Llama-, Bloom-, Falcon- and
+    Phi-class (parallel residuals, an lm_head bias, head_dim 80). Head
+    dims that no kernel takes train through the plain versions on the CPU
+    and raise at the kernels on the card."""
     bad = unported_features(cfg) + [name for name, hit in {
         "sparse attention (the training forward's sparse_causal_attention branch, "
         "ROADMAP A2)": cfg.attention_impl == "sparse",
-        "parallel residuals (served, not trained yet)": cfg.parallel_residual,
-        "an lm_head bias (served, not trained yet)": cfg.lm_head_bias,
-        f"head_dim {cfg.head_dim} (served; the flash backward kernels lack it)":
-            cfg.head_dim in SERVED_ONLY_HEAD_DIMS,
         "dropout > 0": cfg.dropout > 0.0,
         "random-LTD layers": cfg.random_ltd_layer_range is not None,
         f"remat='{cfg.remat}'": cfg.remat not in ("none", "full", "save_attn_qkv"),
     }.items() if hit]
     if bad:
         raise NotImplementedError(
-            "the port trains dense Llama- and Bloom-class models (remat "
+            "the port trains dense Llama-, Bloom-, Falcon- and Phi-class models (remat "
             f"none|full|save_attn_qkv); this config uses {', '.join(bad)} "
             "(later slices port them)")
 
@@ -741,13 +734,28 @@ def _make_layer_body(cfg: TransformerConfig, use_kernel: bool = True):
       residual). The flash Function sits between them, outside any
       checkpoint, so its saved q, k, v, o and lse persist: the backward
       runs no attention forward, only the projections and the MLP again.
+
+    The residual is sequential (h = h0 + attn; h + mlp(norm2(h))) or, with
+    cfg.parallel_residual (Falcon/Phi-class), parallel as in the
+    reference's layer_body: both branches read h0, the MLP the attention's
+    norm1(h0) when cfg.shared_ln and its own norm2(h0) otherwise, and
+    h = h0 + attn + mlp. `post` recomputes the MLP's norm of h0 inside its
+    own checkpoint, so save_attn_qkv keeps nothing more than q, k, v, o,
+    lse and the checkpoints' inputs.
     """
+    def norm1(h0, lp):
+        return _norm(h0, lp["ln1_scale"], lp.get("ln1_bias"), cfg)
+
     def pre(h0, lp, rope):
-        return _attention_qkv(_norm(h0, lp["ln1_scale"], lp.get("ln1_bias"), cfg), lp, cfg,
-                              rope)
+        return _attention_qkv(norm1(h0, lp), lp, cfg, rope)
 
     def post(h0, att, lp):
-        hmid = h0 + _attention_out(att, lp, cfg)
+        attn = _attention_out(att, lp, cfg)
+        if cfg.parallel_residual:
+            h2 = norm1(h0, lp) if cfg.shared_ln else _norm(h0, lp["ln2_scale"],
+                                                           lp.get("ln2_bias"), cfg)
+            return h0 + attn + _mlp_delta(h2, lp, cfg)
+        hmid = h0 + attn
         return hmid + _mlp_delta(_norm(hmid, lp["ln2_scale"], lp.get("ln2_bias"), cfg), lp,
                                  cfg)
 
@@ -804,23 +812,32 @@ def _lm_head(params: Dict[str, Any], cfg: TransformerConfig) -> torch.Tensor:
     return params["embed"].t() if cfg.tie_embeddings else params["lm_head"]
 
 
+def _logits(x: torch.Tensor, head: torch.Tensor, head_b: Optional[torch.Tensor]):
+    """x @ head in x's dtype, plus the lm_head bias (Phi-2) in that dtype
+    when the model has one, as the reference adds it."""
+    logits = x @ head.to(x.dtype)
+    return logits if head_b is None else logits + head_b.to(x.dtype)
+
+
 def forward(params: Dict[str, Any], tokens: torch.Tensor, cfg: TransformerConfig,
             rng: Optional[torch.Generator] = None, use_kernel: bool = True) -> torch.Tensor:
     """tokens [B, S] -> logits [B, S, V] in the compute dtype."""
     x = forward_hidden(params, tokens, cfg, rng, use_kernel)
-    return x @ _lm_head(params, cfg).to(x.dtype)
+    return _logits(x, _lm_head(params, cfg), params.get("lm_head_b"))
 
 
-def _ce_chunk(x_c, head, t_c, m_c):
+def _ce_chunk(x_c, head, t_c, m_c, head_b=None):
     """Summed next-token NLL and mask count of one sequence chunk; the
-    [B, C, V] logits are computed in f32 from the compute-dtype product."""
-    logits = (x_c @ head.to(x_c.dtype)).float()
+    [B, C, V] logits (with the lm_head bias `head_b` where the model has
+    one) are computed in the compute dtype and taken to f32 for the
+    logsumexp."""
+    logits = _logits(x_c, head, head_b).float()
     lse = torch.logsumexp(logits, dim=-1)
     tgt = logits.gather(-1, t_c.long()[..., None])[..., 0]
     return ((lse - tgt) * m_c).sum(), m_c.sum()
 
 
-def _chunked_ce(x, head, targets, mask, n_chunks: int):
+def _chunked_ce(x, head, targets, mask, n_chunks: int, head_b=None):
     """Cross-entropy without materialising [B, S, V] through the backward:
     each chunk's logits and logsumexp run under a checkpoint, so they are
     recomputed in the backward and peak memory is [B, S / n_chunks, V].
@@ -829,7 +846,7 @@ def _chunked_ce(x, head, targets, mask, n_chunks: int):
     tot = cnt = 0.0
     for c in range(n_chunks):
         sl = slice(c * C, (c + 1) * C)
-        s, n = checkpoint(_ce_chunk, x[:, sl], head, targets[:, sl], mask[:, sl],
+        s, n = checkpoint(_ce_chunk, x[:, sl], head, targets[:, sl], mask[:, sl], head_b,
                           use_reentrant=False, preserve_rng_state=False)
         tot, cnt = tot + s, cnt + n
     return tot, cnt
@@ -846,9 +863,9 @@ def _ce_chunk_count(seq_len: int, loss_chunks: int) -> int:
     return max(loss_chunks if seq_len % max(loss_chunks, 1) == 0 else 1, 1)
 
 
-def _token_mean_ce(x, head, targets, mask, n_chunks: int):
+def _token_mean_ce(x, head, targets, mask, n_chunks: int, head_b=None):
     """Token-mean CE for one (micro)batch."""
-    tot, cnt = _chunked_ce(x, head, targets, mask, n_chunks)
+    tot, cnt = _chunked_ce(x, head, targets, mask, n_chunks, head_b)
     return tot / cnt.clamp(min=1.0)
 
 
@@ -867,6 +884,7 @@ def make_loss_fn(cfg: TransformerConfig, loss_chunks: int = 8, use_kernel: bool 
         inputs, targets = tokens[:, :-1], tokens[:, 1:]
         x = forward_hidden(params, inputs, cfg, rng, use_kernel)
         n = _ce_chunk_count(inputs.shape[1], loss_chunks)
-        return _token_mean_ce(x, _lm_head(params, cfg), targets, _shift_mask(batch, targets), n)
+        return _token_mean_ce(x, _lm_head(params, cfg), targets, _shift_mask(batch, targets), n,
+                              params.get("lm_head_b"))
 
     return loss_fn

@@ -19,13 +19,13 @@ CPU tensors they run the plain versions (`flash_attention_plain`,
 densely in f32 (P and dS rounded to the inputs' dtype where the kernels
 round them). Every kernel wrapper carries `launches`, raised by one
 per launch of its kernel, `window_launches`, raised by one per launch in
-the sliding-window mode, and `alibi_launches`, in the ALiBi mode; the
-forward also `wide_group_launches` (more than 8 query heads per KV head)
-and `d80_launches` (head_dim 80).
+the sliding-window mode, `alibi_launches`, in the ALiBi mode,
+`wide_group_launches`, with more than 8 query heads per KV head
+(Falcon-7B: 71 over one), and `d80_launches`, at head_dim 80 (Phi-2).
 
-Head dims: the forward kernel takes 64, 80 (Phi-2) and 128, the backward
-kernels 64 and 128; `FlashAttention` raises before its forward launches
-when the inputs need a gradient at a head dim the backward lacks.
+Head dims: the forward and both backward kernels take 64, 80 and 128;
+`FlashAttention` raises before its forward launches when the inputs need
+a gradient at a head dim no backward kernel takes.
 
 Sliding window (`window` > 0, Mistral-class; the reference's token-exact
 mode): query row r attends to key column c iff r - window < c <= r.
@@ -51,13 +51,9 @@ from . import build
 from ._common import (BWD_FLOOR, BWD_ROW_ATOL, BWD_RTOL, bwd_mismatch,  # noqa: F401
                       check_cuda_args, check_shape, count_launch, ptr, stream_of, zero_counts)
 
-# head dims the kernels are built for: the forward takes Phi-2's 80, the
-# backward not yet (training of head_dim 80 is a later slice)
+# head dims the kernels are built for (80: Phi-2), forward and backward
 _HEAD_DIMS = (64, 80, 128)
-_BWD_HEAD_DIMS = (64, 128)
-# served (forward) and not yet trained (backward): models/transformer's
-# check_trained refuses them
-SERVED_ONLY_HEAD_DIMS = tuple(d for d in _HEAD_DIMS if d not in _BWD_HEAD_DIMS)
+_BWD_HEAD_DIMS = (64, 80, 128)
 
 
 def _repeat_kv(k: torch.Tensor, n_rep: int) -> torch.Tensor:
@@ -228,11 +224,12 @@ def flash_bwd_dq(q, k, v, do, lse, delta, window: int = 0, alibi=None):
         return _bwd_plain(q, k, v, lse, delta, do, window, alibi)[0]
     dq = torch.empty_like(q)
     if _launch_bwd("flash_bwd_dq", q, k, v, do, lse, delta, window, alibi, (dq,)):
-        count_launch(flash_bwd_dq, window, alibi is not None)
+        count_launch(flash_bwd_dq, window, alibi is not None, group=q.shape[2] // k.shape[2],
+                     head_dim=q.shape[3])
     return dq
 
 
-zero_counts(flash_bwd_dq, "window", "alibi")
+zero_counts(flash_bwd_dq, "window", "alibi", "wide_group", "d80")
 
 
 def flash_bwd_dkv(q, k, v, do, lse, delta, window: int = 0, alibi=None):
@@ -245,11 +242,12 @@ def flash_bwd_dkv(q, k, v, do, lse, delta, window: int = 0, alibi=None):
         return _bwd_plain(q, k, v, lse, delta, do, window, alibi)[1:]
     dk, dv = torch.empty_like(k), torch.empty_like(v)
     if _launch_bwd("flash_bwd_dkv", q, k, v, do, lse, delta, window, alibi, (dk, dv)):
-        count_launch(flash_bwd_dkv, window, alibi is not None)
+        count_launch(flash_bwd_dkv, window, alibi is not None, group=q.shape[2] // k.shape[2],
+                     head_dim=q.shape[3])
     return dk, dv
 
 
-zero_counts(flash_bwd_dkv, "window", "alibi")
+zero_counts(flash_bwd_dkv, "window", "alibi", "wide_group", "d80")
 
 
 def flash_attention_bwd(q, k, v, o, lse, do, window: int = 0, alibi=None):
@@ -278,8 +276,7 @@ class FlashAttention(torch.autograd.Function):
         if q.is_cuda and any(ctx.needs_input_grad[:3]) and D not in _BWD_HEAD_DIMS:
             raise NotImplementedError(
                 f"flash attention's backward kernels are built for head_dim "
-                f"{_BWD_HEAD_DIMS}, not {D} (its forward serves head_dim {D}; training "
-                "it is a later slice)")
+                f"{_BWD_HEAD_DIMS}; no backward kernel takes head_dim {D}")
         q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
         o, lse = flash_fwd(q, k, v, window, alibi)
         ctx.save_for_backward(q, k, v, o, lse, alibi)

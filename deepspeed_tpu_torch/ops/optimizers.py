@@ -6,10 +6,11 @@ Counterpart of deepspeed_tpu/ops/optimizers.py: functional
 owns the master-weight policy and hands them fp32 masters.
 
 The update is elementwise fp32 work that XLA fuses in the JAX package;
-here it runs as `torch._foreach_*` ops over the flat leaf lists (one
-multi-tensor launch per op on the GPU). `update` works IN PLACE: it
-writes the new parameters into `params` and the new moments into `state`
-and returns both.
+here the moments update as `torch._foreach_*` ops over the flat leaf
+lists (one multi-tensor launch per op on the GPU) and the parameters one
+leaf at a time, so that the step's f32 temporaries stay the size of one
+leaf. `update` works IN PLACE: it writes the new parameters into `params`
+and the new moments into `state` and returns both.
 
 This slice ports Adam and AdamW; the other optimizers of the reference
 (lamb, lion, adagrad, sgd, the 1-bit and 0/1 Adam families) raise
@@ -61,14 +62,13 @@ def adam(betas=(0.9, 0.999), eps: float = 1e-8, weight_decay: float = 0.0,
         torch._foreach_add_(m, g, alpha=1.0 - b1)
         torch._foreach_mul_(v, b2)
         torch._foreach_addcmul_(v, g, g, value=1.0 - b2)
-        denom = torch._foreach_div(v, c2)
-        torch._foreach_sqrt_(denom)
-        torch._foreach_add_(denom, eps)
-        upd = torch._foreach_div(m, c1)
-        torch._foreach_div_(upd, denom)
-        if weight_decay != 0.0 and adam_w_mode:
-            torch._foreach_add_(upd, p, alpha=weight_decay)  # decoupled decay
-        torch._foreach_add_(p, upd, alpha=-lr)
+        # one leaf at a time: the two f32 temporaries are then the size of
+        # the largest leaf, not two copies of every parameter
+        for m_i, v_i, p_i in zip(m, v, p):
+            upd = (m_i / c1).div_((v_i / c2).sqrt_().add_(eps))
+            if weight_decay != 0.0 and adam_w_mode:
+                upd.add_(p_i, alpha=weight_decay)  # decoupled decay
+            p_i.add_(upd, alpha=-lr)
         return params, state
 
     return Optimizer(init, update, "adamw" if adam_w_mode else "adam")

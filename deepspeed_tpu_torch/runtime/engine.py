@@ -211,6 +211,7 @@ class DeepSpeedTPUEngine:
                 if g is not None:
                     a.add_(g)
             loss_sum += loss.detach().float()
+        del grads  # the last micro-batch's gradients: freed before the update
         gas = cfg.gradient_accumulation_steps
         torch._foreach_mul_(acc_leaves, float(np.float32(1.0) / np.float32(gas)))
         grad_norm = global_grad_norm(acc)

@@ -1,6 +1,7 @@
 """Shared inputs for the port's parity tests (tests/test_torch_*.py): one
-tiny Llama config built for both packages, and its parameters made from a
-numpy seed so the JAX package and the port get the same numbers."""
+tiny Llama config built for both packages, the tiny Falcon- and
+Phi-class forms, and parameters made from a numpy seed so the JAX package
+and the port get the same numbers."""
 
 import numpy as np
 
@@ -10,6 +11,36 @@ TINY = dict(vocab_size=512, n_layers=2, n_heads=2, d_model=256, max_seq=256,
 # serving geometry: 16-token KV blocks, 8 of them per sequence
 SERVE = dict(max_seq_len=128, kv_block_size=16, num_kv_blocks=48,
              min_prefill_bucket=16, max_batch_size=16)
+
+# the Falcon- and Phi-class forms of the serving and training parity
+# tests (tests/test_torch_falcon_phi*.py), tiny widths
+_BASE = dict(vocab_size=512, n_layers=2, max_seq=256, variant="llama", norm_type="layer",
+             gated_mlp=False, parallel_residual=True)
+# the Falcon-7B form (config_from_hf of a FalconConfig with multi_query,
+# parallel_attn and no bias): one shared LayerNorm, 12 query heads of 64
+# over one KV head, erf GELU, tied embeddings
+FALCON_7B_TINY = dict(_BASE, n_heads=12, n_kv_heads=1, d_model=768, d_ff=3072,
+                      activation="gelu_exact", qkv_bias=False, attn_out_bias=False,
+                      mlp_bias=False, shared_ln=True)
+# the Falcon-40B form (new_decoder_architecture): two LayerNorms (ln_attn,
+# ln_mlp), GQA with groups of 16 (32 query heads of 64 over 2 KV heads), a
+# narrow MLP
+FALCON_40B_TINY = dict(_BASE, n_heads=32, n_kv_heads=2, d_model=2048, d_ff=1024,
+                       activation="gelu_exact", qkv_bias=False, attn_out_bias=False,
+                       mlp_bias=False, shared_ln=False)
+# the Phi-2 form: 4 heads of 80, partial rotary 0.4 (32 of 80 dims), tanh
+# GELU, biases everywhere, an untied lm_head with its bias
+PHI_2_TINY = dict(_BASE, n_heads=4, d_model=320, d_ff=1280, activation="gelu",
+                  qkv_bias=True, attn_out_bias=True, mlp_bias=True, shared_ln=True,
+                  rotary_pct=0.4, tie_embeddings=False, lm_head_bias=True)
+FALCON_PHI = {"falcon_7b": FALCON_7B_TINY, "falcon_40b": FALCON_40B_TINY, "phi_2": PHI_2_TINY}
+# weight std of each form's numpy weights: the ALiBi engine tests' 0.3 at
+# their d_model 256 (large enough that greedy tokens vary), scaled by
+# sqrt(256 / d_model) so that the logits keep the size they have there,
+# where the 1e-4 pin was set (logit RMS ~ std * sqrt(E); the two
+# frameworks' f32 sums differ by ~1e-5 of a logit's size)
+FALCON_PHI_STD = {name: 0.3 * (256 / over["d_model"]) ** 0.5
+                  for name, over in FALCON_PHI.items()}
 
 
 def jax_config(**over):

@@ -1180,18 +1180,27 @@ class TestWideGroupAndHeadDim80OnCard:
             assert torch.equal(got, want)
 
     def test_flash_backward_raises_before_launch_at_d80(self, rng, cuda_device):
-        """The forward serves head_dim 80; a forward whose inputs need a
-        gradient raises before it launches (the backward kernels take 64
-        and 128), and the backward wrappers refuse 80."""
-        q = _bf16_cuda(rng.standard_normal((1, 64, 4, 80)), cuda_device)
+        """(Named when the backward kernels lacked head_dim 80.) A forward
+        whose inputs need a gradient at head_dim 80 launches, and its
+        backward launches both backward kernels in their head_dim-80 mode,
+        never the plain version: the gradients equal the wrappers' own on
+        the forward's residuals, and match the plain backward."""
+        q, k, v, do = (_bf16_cuda(rng.standard_normal(s), cuda_device)
+                       for s in ((1, 64, 4, 80), (1, 64, 4, 80), (1, 64, 4, 80), (1, 64, 4, 80)))
         PK.reset_launch_counts()
-        with pytest.raises(NotImplementedError, match="head_dim"):
-            PF.flash_attention(q.clone().requires_grad_(), q, q)
-        assert PK.launch_counts()["flash_fwd"] == 0
-        o, lse = PF.flash_attention(q, q, q)  # no gradient asked: served
-        assert PK.launch_counts()["flash_fwd"] == 1
-        with pytest.raises(ValueError, match="head_dim 80"):
-            PF.flash_bwd_dq(q, q, q, q, lse, lse, 0)
+        leaves = [t.clone().requires_grad_() for t in (q, k, v)]
+        o, lse = PF.flash_attention(*leaves)
+        got = torch.autograd.grad(o, leaves, do)
+        counts = PK.all_launch_counts()
+        for name in ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv"):
+            assert counts[name] == counts[f"{name}[d80]"] == 1, counts
+        delta = PF._delta(o.detach(), do)
+        same = (PF.flash_bwd_dq(q, k, v, do, lse, delta),) + PF.flash_bwd_dkv(q, k, v, do, lse,
+                                                                                delta)
+        ref = PF.flash_attention_bwd_plain(q, k, v, o.detach(), lse, do)
+        for name, g, s_, r in zip(("dq", "dk", "dv"), got, same, ref):
+            assert torch.equal(g, s_), name
+            _assert_grad_close(g, r, name)
 
     def test_new_mode_launches_are_counted(self, rng, cuda_device):
         PK.reset_launch_counts()
@@ -1204,3 +1213,117 @@ class TestWideGroupAndHeadDim80OnCard:
         assert counts["paged_decode_fused"] == 3
         assert counts["paged_decode_fused[wide_group]"] == 2
         assert counts["paged_decode_fused[d80]"] == 1
+
+
+def _drop_last_chunk(q, do, lse, delta, KV):
+    """q, dO, lse and delta of each group's query heads without the
+    group's last chunk of 8 (at 71 over 1: the first 64 heads)."""
+    H = q.shape[2]
+    G = H // KV
+    keep = torch.arange(H, device=q.device).view(KV, G)[:, :8 * ((G - 1) // 8)].flatten()
+    return (q.index_select(2, keep).contiguous(), do.index_select(2, keep).contiguous(),
+            lse.index_select(1, keep).contiguous(), delta.index_select(1, keep).contiguous())
+
+
+@pytest.mark.cuda
+class TestFlashBackwardWideGroupAndHeadDim80OnCard:
+    """Kernels #2 (dq) and #3 (dk, dv) in their head_dim-80 mode (Phi-2)
+    and their wide-group mode (more than 8 query heads per KV head:
+    Falcon-7B's 71 over one; dkv's block walks the whole group) against the
+    plain backward on the forward kernel's o and lse, under `bwd_mismatch`,
+    with the window and ALiBi composed; the planted faults the check must
+    catch (at head_dim 80 the gradients' columns 64-79 zeroed and the
+    scores taken over the first 64 dims; in a wide group dk and dv summed
+    without the group's last chunk of 8 heads, and each q head given KV
+    head (h // 8) % KV); and the autograd Function at 80 and at 71 over 1."""
+
+    SHAPES = {"phi_mha_d80": (32, 32, 80), "gqa_20_over_2_d80": (40, 2, 80),
+              "falcon_71_over_1": (71, 1, 64), "gqa_16_over_2": (32, 2, 64),
+              "gqa_12_over_1_d128": (12, 1, 128)}
+
+    @staticmethod
+    def _bwd(q, k, v, do, lse, delta, window=0, alibi=None):
+        return (PF.flash_bwd_dq(q, k, v, do, lse, delta, window, alibi),) + \
+            PF.flash_bwd_dkv(q, k, v, do, lse, delta, window, alibi)
+
+    @pytest.mark.parametrize("S", [77, 300])
+    @pytest.mark.parametrize("shape", sorted(SHAPES))
+    def test_kernels_match_plain(self, rng, cuda_device, shape, S):
+        H, KV, D = self.SHAPES[shape]
+        q, k, v, _, _, do = _bwd_case(rng, cuda_device, 2, S, H, KV, D)
+        for window, alibi in ((0, None), (50, None), (0, _slopes(H, cuda_device))):
+            o, lse = PF.flash_fwd(q, k, v, window, alibi)
+            delta = PF._delta(o, do)
+            PK.reset_launch_counts()
+            got = self._bwd(q, k, v, do, lse, delta, window, alibi)
+            counts = PK.all_launch_counts()
+            for name in ("flash_bwd_dq", "flash_bwd_dkv"):
+                assert counts[f"{name}[d80]"] == int(D == 80)
+                assert counts[f"{name}[wide_group]"] == int(H // KV > 8)
+            ref = PF.flash_attention_bwd_plain(q, k, v, o, lse, do, window, alibi)
+            for name, g, r in zip(("dq", "dk", "dv"), got, ref):
+                _assert_grad_close(g, r, f"{shape} window {window} alibi {alibi is not None} "
+                                         f"{name}")
+
+    @pytest.mark.parametrize("shape", ["phi_mha_d80", "gqa_20_over_2_d80"])
+    def test_d80_faults_are_caught(self, rng, cuda_device, shape):
+        H, KV, D = self.SHAPES[shape]
+        q, k, v, o, lse, do = _bwd_case(rng, cuda_device, 1, 200, H, KV, D)
+        delta = PF._delta(o, do)
+        ref = PF.flash_attention_bwd_plain(q, k, v, o, lse, do)
+        got = self._bwd(q, k, v, do, lse, delta)
+        q64 = q.clone()
+        q64[..., 64:] = 0
+        first64 = self._bwd(q64, k, v, do, lse, delta)
+        for name, g, f, r in zip(("dq", "dk", "dv"), got, first64, ref):
+            zeroed = g.clone()
+            zeroed[..., 64:] = 0
+            assert PF.bwd_mismatch(zeroed, r)["n_over"] > 0, name
+            assert PF.bwd_mismatch(f, r)["n_over"] > 0, name
+
+    @pytest.mark.parametrize("shape", ["falcon_71_over_1", "gqa_16_over_2", "gqa_20_over_2_d80"])
+    def test_last_chunk_dropped_is_caught(self, rng, cuda_device, shape):
+        H, KV, D = self.SHAPES[shape]
+        q, k, v, o, lse, do = _bwd_case(rng, cuda_device, 1, 200, H, KV, D)
+        delta = PF._delta(o, do)
+        ref = PF.flash_attention_bwd_plain(q, k, v, o, lse, do)
+        q_, do_, lse_, delta_ = _drop_last_chunk(q, do, lse, delta, KV)
+        dk, dv = PF.flash_bwd_dkv(q_, k, v, do_, lse_, delta_)
+        assert PF.bwd_mismatch(dk, ref[1])["n_over"] > 0
+        assert PF.bwd_mismatch(dv, ref[2])["n_over"] > 0
+
+    def test_group_capped_at_8_is_caught(self, rng, cuda_device):
+        H, KV, D = self.SHAPES["gqa_16_over_2"]
+        B, S = 1, 200
+        q, k, v, o, lse, do = _bwd_case(rng, cuda_device, B, S, H, KV, D)
+        delta = PF._delta(o, do)
+        ref = PF.flash_attention_bwd_plain(q, k, v, o, lse, do)
+        idx = torch.arange(H // 8, device=cuda_device) % KV
+        dq, dk8, dv8 = self._bwd(q, k[:, :, idx].contiguous(), v[:, :, idx].contiguous(), do,
+                                 lse, delta)
+        fold = lambda t: t.float().view(B, S, H // 8 // KV, KV, D).sum(2).to(t.dtype)
+        for name, g, r in zip(("dq", "dk", "dv"), (dq, fold(dk8), fold(dv8)), ref):
+            assert PF.bwd_mismatch(g, r)["n_over"] > 0, name
+
+    @pytest.mark.parametrize("shape", ["phi_mha_d80", "falcon_71_over_1"])
+    def test_function_grads_match_autograd_through_plain(self, rng, cuda_device, shape):
+        """As TestFlashBackwardOnCard's Function test: the Function's
+        gradients are the kernels' on the forward kernel's residuals (under
+        `bwd_mismatch`), every launch in the shape's mode, and against
+        autograd through the dense plain forward in f32 the error's RMS
+        stays within 2^-7 of the gradient's."""
+        H, KV, D = self.SHAPES[shape]
+        q, k, v, o, lse, do = _bwd_case(rng, cuda_device, 2, 300, H, KV, D)
+        mode = "d80" if D == 80 else "wide_group"
+        PK.reset_launch_counts()
+        leaves = [t.clone().requires_grad_() for t in (q, k, v)]
+        got = torch.autograd.grad(PF.flash_attention(*leaves)[0], leaves, do)
+        counts = PK.all_launch_counts()
+        for name in ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv"):
+            assert counts[name] == counts[f"{name}[{mode}]"] == 1, counts
+        same = PF.flash_attention_bwd_plain(q, k, v, o, lse, do)
+        leaves = [t.float().clone().requires_grad_() for t in (q, k, v)]
+        dense = torch.autograd.grad(PF.flash_attention_plain(*leaves)[0], leaves, do.float())
+        for name, g, r, d in zip(("dq", "dk", "dv"), got, same, dense):
+            _assert_grad_close(g, r, name)
+            assert _rms(g.float() - d) <= 2.0 ** -7 * _rms(d), name

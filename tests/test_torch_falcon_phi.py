@@ -31,7 +31,10 @@ has 71 query heads over one KV head) and head_dim 80 (Phi-2).
   package's config_from_hf of tiiuae/falcon-7b's and microsoft/phi-2's
   config.json (6,921,720,704 and 2,779,683,840 parameters in both
   packages);
-- training still raises for every form (check_trained).
+- every form, and a sequential Llama-class model at head_dim 80, trains
+  (check_trained, make_loss_fn; the head_dim-80 model's loss and
+  gradients against the JAX package's); tests/test_torch_falcon_phi_train.py
+  holds their training against the JAX package in full.
 """
 
 import dataclasses
@@ -45,7 +48,8 @@ import numpy as np
 import pytest
 import torch
 
-from _torch_parity import SERVE, numpy_params, to_jax
+from _torch_parity import (FALCON_PHI as MODELS, FALCON_PHI_STD as STD, PHI_2_TINY, SERVE,
+                           flatten, numpy_params, to_jax)
 from deepspeed_tpu.inference import init_inference as jax_init_inference
 from deepspeed_tpu.models import transformer as JT
 from deepspeed_tpu.ops import attention as JA
@@ -58,36 +62,11 @@ from deepspeed_tpu_torch.models import transformer as PT
 from deepspeed_tpu_torch.ops.cuda import flash_attention as PF
 from deepspeed_tpu_torch.ops.cuda import paged_attention as PP
 from deepspeed_tpu_torch.utils.convert import params_from_numpy
+from deepspeed_tpu_torch.utils.tree import leaves
 
 FLASH_TOL = dict(rtol=2e-4, atol=2e-4)
 KERNEL_VS_ORACLE_ATOL = 5e-5
 TOL = {"auto": dict(rtol=1e-4, atol=1e-4), "int8": dict(rtol=2e-3, atol=2e-3)}
-_BASE = dict(vocab_size=512, n_layers=2, max_seq=256, variant="llama", norm_type="layer",
-             gated_mlp=False, parallel_residual=True)
-# the Falcon-7B form (config_from_hf of a FalconConfig with multi_query,
-# parallel_attn and no bias): one shared LayerNorm, 12 query heads of 64
-# over one KV head, erf GELU, tied embeddings
-FALCON_7B_TINY = dict(_BASE, n_heads=12, n_kv_heads=1, d_model=768, d_ff=3072,
-                      activation="gelu_exact", qkv_bias=False, attn_out_bias=False,
-                      mlp_bias=False, shared_ln=True)
-# the Falcon-40B form (new_decoder_architecture): two LayerNorms (ln_attn,
-# ln_mlp), GQA with groups of 16 (32 query heads of 64 over 2 KV heads), a
-# narrow MLP
-FALCON_40B_TINY = dict(_BASE, n_heads=32, n_kv_heads=2, d_model=2048, d_ff=1024,
-                       activation="gelu_exact", qkv_bias=False, attn_out_bias=False,
-                       mlp_bias=False, shared_ln=False)
-# the Phi-2 form: 4 heads of 80, partial rotary 0.4 (32 of 80 dims), tanh
-# GELU, biases everywhere, an untied lm_head with its bias
-PHI_2_TINY = dict(_BASE, n_heads=4, d_model=320, d_ff=1280, activation="gelu",
-                  qkv_bias=True, attn_out_bias=True, mlp_bias=True, shared_ln=True,
-                  rotary_pct=0.4, tie_embeddings=False, lm_head_bias=True)
-MODELS = {"falcon_7b": FALCON_7B_TINY, "falcon_40b": FALCON_40B_TINY, "phi_2": PHI_2_TINY}
-# weight std of each form's numpy weights: the ALiBi engine tests' 0.3 at
-# their d_model 256 (large enough that greedy tokens vary), scaled by
-# sqrt(256 / d_model) so that the logits keep the size they have there,
-# where the 1e-4 pin was set (logit RMS ~ std * sqrt(E); the two
-# frameworks' f32 sums differ by ~1e-5 of a logit's size)
-STD = {name: 0.3 * (256 / over["d_model"]) ** 0.5 for name, over in MODELS.items()}
 # tiiuae/falcon-7b and microsoft/phi-2 config.json, the values
 # config_from_hf reads
 FALCON_7B_HF = {"architectures": ["FalconForCausalLM"], "vocab_size": 65024,
@@ -408,22 +387,47 @@ def test_params_from_numpy_takes_the_family_leaves(name):
 
 @pytest.mark.parametrize("name", sorted(MODELS))
 def test_served_but_training_still_raises(name):
+    """(Named when training raised for these forms.) Every served form now
+    trains: check_trained accepts it, make_loss_fn builds, and one loss
+    and backward on the CPU is finite and reaches every leaf."""
     cfg = PT.TransformerConfig(**MODELS[name])
     assert PT.unported_features(cfg) == []
     PM.check_served(cfg)
-    with pytest.raises(NotImplementedError, match="parallel residuals"):
-        PT.check_trained(cfg)
-    with pytest.raises(NotImplementedError):
-        PT.make_loss_fn(cfg)
+    PT.check_trained(cfg)
+    params = params_from_numpy(numpy_params(JT.TransformerConfig(**MODELS[name]), seed=3,
+                                            std=STD[name]), cfg, device="cpu")
+    live = [p.requires_grad_() for p in leaves(params)]
+    tokens = np.random.default_rng(3).integers(0, cfg.vocab_size, (2, 17)).astype(np.int32)
+    loss = PT.make_loss_fn(cfg, loss_chunks=4)(params, {"tokens": tokens}, None)
+    grads = torch.autograd.grad(loss, live)
+    assert torch.isfinite(loss) and all(torch.isfinite(g).all() and g.abs().max() > 0
+                                        for g in grads)
 
 
 def test_training_raises_at_head_dim_80_alone():
-    """A sequential Llama-class model at head_dim 80 is served and not
-    trained: the flash backward kernels take 64 and 128."""
-    cfg = PT.TransformerConfig(vocab_size=512, n_layers=2, n_heads=4, d_model=320)
+    """(Named when the flash backward lacked head_dim 80.) A sequential
+    Llama-class model at head_dim 80 is served and trained: its loss and
+    every gradient match jax.value_and_grad of the JAX package's loss
+    (f32, rtol 1e-4 and atol 1e-4 of each leaf's largest gradient, the pin
+    of tests/test_torch_alibi_train.py), under remat save_attn_qkv and
+    chunked CE."""
+    over = dict(vocab_size=512, n_layers=2, n_heads=4, d_model=320)
+    cfg = PT.TransformerConfig(**over, remat="save_attn_qkv")
     PM.check_served(cfg)
-    with pytest.raises(NotImplementedError, match="head_dim 80"):
-        PT.check_trained(cfg)
+    PT.check_trained(cfg)
+    assert cfg.head_dim == 80
+    jc = JT.TransformerConfig(**over)
+    tree = numpy_params(jc, seed=5, std=0.3 * (256 / 320) ** 0.5)
+    batch = {"tokens": np.random.default_rng(2).integers(0, 512, (2, 33)).astype(np.int32)}
+    jl, jg = jax.value_and_grad(JT.make_loss_fn(jc, loss_chunks=4))(to_jax(tree), batch, None)
+    params = params_from_numpy(tree, cfg, device="cpu")
+    live = [p.requires_grad_() for p in leaves(params)]
+    loss = PT.make_loss_fn(cfg, loss_chunks=4)(params, batch, None)
+    np.testing.assert_allclose(loss.item(), float(jl), rtol=1e-4, atol=1e-4)
+    ref = flatten(jax.tree.map(np.asarray, jg))
+    assert list(ref) == list(flatten(params))
+    for g, r in zip(torch.autograd.grad(loss, live), ref.values()):
+        np.testing.assert_allclose(g.numpy(), r, rtol=1e-4, atol=1e-4 * np.abs(r).max())
 
 
 def _chip_smoke():

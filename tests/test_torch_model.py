@@ -18,6 +18,7 @@ from deepspeed_tpu.models import transformer as JT
 from deepspeed_tpu_torch.inference import model as PM
 from deepspeed_tpu_torch.models import transformer as PT
 from deepspeed_tpu_torch.utils.convert import params_from_numpy
+from deepspeed_tpu_torch.utils.tree import leaves
 
 TOL = dict(rtol=1e-4, atol=1e-4)
 
@@ -72,10 +73,18 @@ class TestConfigAndInit:
     ])
     def test_served_configs_still_raise_in_training(self, over):
         """The Falcon/Phi-class knobs (in test_unserved_configs_raise until
-        their serving was ported) are served and not yet trained."""
-        PM.check_served(torch_config(**over))
-        with pytest.raises(NotImplementedError):
-            PT.check_trained(torch_config(**over))
+        their serving was ported; named when they were served and not yet
+        trained) are served and trained: check_trained accepts them, and a
+        loss on the CPU is finite and reaches every leaf, the lm_head bias
+        and both LayerNorms of the parallel residual included."""
+        pc = torch_config(**over)
+        PM.check_served(pc)
+        PT.check_trained(pc)
+        params = params_from_numpy(numpy_params(jax_config(**over), seed=1), pc, device="cpu")
+        live = [w.requires_grad_() for w in leaves(params)]
+        loss = PT.make_loss_fn(pc)(params, {"tokens": np.arange(25).reshape(1, 25) % 512}, None)
+        assert torch.isfinite(loss)
+        assert all(g.abs().max() > 0 for g in torch.autograd.grad(loss, live))
 
     @pytest.mark.parametrize("over", [
         {"sliding_window": 8}, {"attention_window_pattern": (0, 8)},

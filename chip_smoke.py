@@ -8,12 +8,18 @@ Phases (any failure raises and exits nonzero):
 
 1. build   - compile every kernel from deepspeed_tpu_torch/csrc/*.cu with
              nvcc for sm_90a, one nvcc per source, all in parallel
-             (ops/cuda/build.py; into build/kernels/).
+             (ops/cuda/build.py; into build/kernels/); the build line
+             gives each source's seconds, flash_fwd's on its own.
 2. kernels - call each kernel's wrapper on CUDA tensors at the shapes its
              path gives it (the flash kernels at the training shape B=8,
              S=2048, the serving kernels at the serving shapes) and hold the
              result against its plain PyTorch version on the same inputs
-             (for the flash backward, two faults planted in the kernels'
+             (the flash forward at the training shape also launched twice,
+             bit-identical, with two faults aimed at its wgmma/TMA design
+             that must fail the o check: the diagonal tile taken unmasked,
+             and one K/V ring stage consumed before its barrier, a stale
+             tile; and the host time to encode its TMA maps; for the flash
+             backward, two faults planted in the kernels'
              output must fail that check; the int8 KV kernels' codes and
              scales bit for bit, with .5 ties, zero rows and subnormal
              rows, where a quantizer rounding ties away from zero must
@@ -21,7 +27,8 @@ Phases (any failure raises and exits nonzero):
              must fail); the sliding-window modes of #1-#5 at the Mistral 7B
              shapes (flash at B=1, S=8192, 32 x 128 heads over 8 KV heads;
              decode at 8 rows with ctx 100..8000) for windows 4096, 1000 and
-             1, window >= S (or ctx) bit-identical to window 0, and planted
+             1, window >= S (or ctx) bit-identical to window 0, two
+             flash launches at window 4096 bit-identical, and planted
              faults that must fail: a band one column wider, a decode that
              starts at column 0, and at window 4096 two faults of the flash
              output alone (a K/V tile's PV term dropped, the PV sum x1.02);
@@ -702,6 +709,78 @@ def _flash_fwd_check(FA, randn, B, S, H, KV, D, bound_ms):
     return _flash_case(FA, randn, bound_ms, B, S, H, KV, D)[-1]()
 
 
+# kernel #1's tiles at the training shape: 128-row CTAs (two consumer
+# warpgroups of 64 rows) over 128-key tiles in a two-stage TMA ring
+FLASH_BM, FLASH_BN, FLASH_STAGES = 128, 128, 2
+
+
+def _diag_tile_unmasked(FA, q, k, v):
+    """What a kernel #1 that took its diagonal tiles unmasked would output:
+    dense f32 attention where row r also sees every column of its own
+    FLASH_BM x FLASH_BN diagonal tile (future keys included), P rounded
+    to bf16 as the kernel rounds it."""
+    import torch
+
+    B, S, H, D = q.shape
+    kf = FA._repeat_kv(k, H // k.shape[2]).float()
+    vf = FA._repeat_kv(v, H // k.shape[2]).float()
+    pos = torch.arange(S, device=q.device)
+    seen = (pos[None, :] <= pos[:, None]) | (pos[None, :] // FLASH_BN == pos[:, None] // FLASH_BM)
+    out = torch.empty_like(q)
+    for b in range(B):  # one batch row at a time: [H, S, S] f32 each
+        logits = torch.einsum("qhd,khd->hqk", q[b].float(), kf[b]) / D ** 0.5
+        p = torch.softmax(logits.masked_fill(~seen, float("-inf")), -1)
+        out[b] = torch.einsum("hqk,khd->qhd", p.to(q.dtype).float(), vf[b]).to(q.dtype)
+    return out
+
+
+def _stale_stage(FA, q, k, v):
+    """What a kernel #1 that consumed one K/V ring stage before its full
+    barrier had landed would output: the third tile of each CTA's walk read
+    in place of the tile the ring held before it (FLASH_STAGES back). Made
+    by running the kernel itself on K and V whose key tile FLASH_STAGES
+    holds the rows of tile 0."""
+    j, n = FLASH_STAGES, FLASH_BN
+    k2, v2 = k.clone(), v.clone()
+    k2[:, j * n:(j + 1) * n] = k[:, :n]
+    v2[:, j * n:(j + 1) * n] = v[:, :n]
+    return FA.flash_fwd(q, k2, v2)[0]
+
+
+def _flash_fwd_design_checks(FA, q, k, v, o, ro):
+    """Checks aimed at kernel #1's wgmma/TMA design, at the training shape:
+    a second launch on the same inputs bit-identical to the first (no
+    atomics, a fixed order), and two planted faults that the o check
+    (bwd_mismatch against the plain forward) must fail: the diagonal tile
+    taken unmasked, and one K/V ring stage consumed before its barrier (a
+    stale tile). Also the host time to encode a call's three TMA maps."""
+    import torch
+
+    from deepspeed_tpu_torch.ops.cuda import build
+
+    (o1, lse1), (o2, lse2) = FA.flash_fwd(q, k, v), FA.flash_fwd(q, k, v)
+    torch.cuda.synchronize()
+    same = torch.equal(o1, o) and torch.equal(o2, o) and torch.equal(lse1, lse2)
+    del o1, o2
+    faults = {"diagonal_tile_unmasked": FA.bwd_mismatch(_diag_tile_unmasked(FA, q, k, v), ro)[
+                  "n_over"],
+              "stale_ring_stage": FA.bwd_mismatch(_stale_stage(FA, q, k, v), ro)["n_over"]}
+    B, S, H, D = q.shape
+    iters = 1000
+    ns = build.load("flash_fwd").flash_fwd_encode_ns(q.data_ptr(), k.data_ptr(), v.data_ptr(),
+                                                      B, S, H, k.shape[2], D, iters)
+    report = {"two_launches_bit_identical": same, "planted_faults_o_elements_over": faults,
+              "tma_map_encode_us_per_call": ns / iters / 1e3 if ns >= 0 else None}
+    print(json.dumps({"flash_fwd_design_checks": report}))
+    if not same:
+        raise AssertionError("flash_fwd: two launches on the same inputs differ")
+    if not all(faults.values()):
+        raise AssertionError(f"flash_fwd: the o check passes a planted fault: {faults}")
+    if ns < 0:
+        raise AssertionError("flash_fwd: encoding the TMA maps failed")
+    return report
+
+
 def _planted_faults(FA, got, ref, q, k, v, do, lse, delta, tile=64):
     """Proof that the backward tolerance catches a wrong kernel: two faults
     planted in the kernels' own output, each of which must fail
@@ -734,8 +813,9 @@ def _planted_faults(FA, got, ref, q, k, v, do, lse, delta, tile=64):
 
 
 def _flash_train_checks(FA, randn, B, S, H, KV, D, bound_ms):
-    """Kernel #1 at the training shape, and kernels #2 (dq) and #3 (dk,
-    dv) against the plain backward on the forward kernel's o and lse.
+    """Kernel #1 at the training shape (with _flash_fwd_design_checks),
+    and kernels #2 (dq) and #3 (dk, dv) against the plain backward on the
+    forward kernel's o and lse.
     library_ms of both backward kernels is the device time of the
     backward of F.scaled_dot_product_attention, which computes dq, dk and
     dv in one call; plain_ms is that of the dense plain backward, which
@@ -743,7 +823,10 @@ def _flash_train_checks(FA, randn, B, S, H, KV, D, bound_ms):
     import torch
     import torch.nn.functional as F
 
-    out = {"flash_fwd": _flash_fwd_check(FA, randn, B, S, H, KV, D, bound_ms)}
+    q, k, v, o, ro, _, timed = _flash_case(FA, randn, bound_ms, B, S, H, KV, D)
+    _flash_fwd_design_checks(FA, q, k, v, o, ro)
+    out = {"flash_fwd": timed()}
+    del q, k, v, o, ro
     q, k, v, do = randn(B, S, H, D), randn(B, S, KV, D), randn(B, S, KV, D), randn(B, S, H, D)
     o, lse = FA.flash_fwd(q, k, v)
     delta = FA._delta(o, do)
@@ -1178,7 +1261,14 @@ def _flash_window_checks(FA, randn, B, S, H, KV, D, bound_ms):
         st = _check_flash_o(FA, f"flash_fwd window {w} o", o, ro)
         err = st["max_abs_err"]
         _check_close(f"flash_fwd window {w} lse", lse, rlse, 1e-3, 1e-3)
-        if w == WINDOW:  # faults of the output alone, lse untouched
+        if w == WINDOW:  # two launches bit-identical; faults of the output alone, lse untouched
+            o2, lse2 = FA.flash_fwd(q, k, v, w)
+            torch.cuda.synchronize()
+            if not (torch.equal(o2, o) and torch.equal(lse2, lse)):
+                raise AssertionError(f"flash_fwd window {w}: two launches on the same inputs "
+                                     f"differ")
+            cases[f"two_launches_bit_identical_at_{w}"] = True
+            del o2, lse2
             dropped = v.clone()
             dropped[:, w:w + 64] = 0
             fo, flse = FA.flash_fwd(q, k, dropped, w)
@@ -3226,6 +3316,8 @@ def main():
                           "profiler_events_s_so_far": PROFILER_POST_S[0], **report}))
 
     print(json.dumps({"phase": "build", "seconds": build_s,
+                      "flash_fwd_build_s": build.BUILD_SECONDS.get("flash_fwd"),
+                      "seconds_by_source": build.BUILD_SECONDS,
                       "libraries": {n: p.name for n, p in libs.items()}}))
     for name in libs:
         for line in (build.build_log(name) or "").splitlines():

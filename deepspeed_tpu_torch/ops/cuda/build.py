@@ -13,7 +13,8 @@ in .gitignore), named by a hash of the source, the shared headers
 unchanged one loads at once. The compiler's `-Xptxas -v` report
 (registers, shared memory, spills) is kept beside it as
 `<name>-<hash>.log`. `build_all()` starts one `nvcc` per source, all at
-once. A missing `nvcc`, a failed build or a failed load raises.
+once, and records each one's seconds in `BUILD_SECONDS`. A missing
+`nvcc`, a failed build or a failed load raises.
 
 Each kernel function returns its `cudaError_t` as an int (the launch
 status from `cudaGetLastError`); `check()` raises on a nonzero value.
@@ -24,6 +25,7 @@ import hashlib
 import os
 import shutil
 import subprocess
+import time
 from pathlib import Path
 from typing import Dict, Iterable, Optional
 
@@ -44,7 +46,9 @@ SIGNATURES = {
     "paged_kv_write": {"paged_kv_write": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
                        "paged_kv_write_int8": [_P] * 7 + [_I] * 5 + [_P]},
     "paged_decode": {"paged_decode": [_P] * 13 + [_I] * 10 + [_F, _P]},
-    "flash_fwd": {"flash_fwd": [_P] * 6 + [_I] * 6 + [_F, _P]},
+    "flash_fwd": {"flash_fwd": [_P] * 6 + [_I] * 6 + [_F, _P],
+                  # host nanoseconds to encode a call's three TMA maps `iters` times
+                  "flash_fwd_encode_ns": [_P] * 3 + [_I] * 6},
     "flash_bwd": {
         "flash_bwd_dq": [_P] * 8 + [_I] * 6 + [_F, _P],
         "flash_bwd_dkv": [_P] * 9 + [_I] * 6 + [_F, _P],
@@ -58,6 +62,8 @@ SIGNATURES = {
 }
 
 _loaded: Dict[str, ctypes.CDLL] = {}
+# source -> seconds its nvcc took in the last build_all() that built it
+BUILD_SECONDS: Dict[str, float] = {}
 
 
 def find_nvcc() -> str:
@@ -92,20 +98,30 @@ def build_all(names: Iterable[str] = SOURCES) -> Dict[str, Path]:
     nvcc = find_nvcc()
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     procs = {}
+    t0 = time.perf_counter()
     for n in todo:
         tmp = out[n].with_suffix(f".{os.getpid()}.tmp")
         cmd = [nvcc, *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{n}.cu")]
-        procs[n] = (subprocess.Popen(cmd, stdout=subprocess.PIPE,
-                                     stderr=subprocess.STDOUT, text=True), tmp)
+        # the report goes to a file of this process's own, not a pipe: nothing blocks on it
+        log = open(out[n].with_suffix(f".{os.getpid()}.log"), "w")
+        procs[n] = (subprocess.Popen(cmd, stdout=log, stderr=subprocess.STDOUT), tmp, log)
     failed = []
-    for n, (proc, tmp) in procs.items():
-        log, _ = proc.communicate()
-        out[n].with_suffix(".log").write_text(log)
-        if proc.returncode != 0:
-            failed.append(f"{n}.cu (exit {proc.returncode}):\n{log}")
-            tmp.unlink(missing_ok=True)
-        else:
-            os.replace(tmp, out[n])  # atomic: a concurrent loader sees all or nothing
+    while procs:
+        for n, (proc, tmp, log) in list(procs.items()):
+            if proc.poll() is None:
+                continue
+            BUILD_SECONDS[n] = time.perf_counter() - t0
+            log.close()
+            del procs[n]
+            os.replace(log.name, out[n].with_suffix(".log"))
+            if proc.returncode != 0:
+                text = out[n].with_suffix(".log").read_text()
+                failed.append(f"{n}.cu (exit {proc.returncode}):\n{text}")
+                tmp.unlink(missing_ok=True)
+            else:
+                os.replace(tmp, out[n])  # atomic: a concurrent loader sees all or nothing
+        if procs:
+            time.sleep(0.05)
     if failed:
         raise RuntimeError("nvcc failed for " + "\n".join(failed))
     return out

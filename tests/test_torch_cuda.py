@@ -108,7 +108,8 @@ class TestKernelsOnCard:
         torch.testing.assert_close(out.float(), ref.float(), **self.DECODE_TOL)
         assert torch.equal(ka, kb) and torch.equal(va, vb)
 
-    @pytest.mark.parametrize("S,KV,D", [(128, 2, 128), (200, 1, 128), (77, 1, 64)])
+    @pytest.mark.parametrize("S,KV,D", [(128, 2, 128), (200, 1, 128), (77, 1, 64), (1, 2, 128),
+                                        (63, 1, 80), (129, 2, 64)])
     def test_flash(self, rng, cuda_device, S, KV, D):
         d = cuda_device
         q = _bf16_cuda(rng.standard_normal((2, S, 2, D)), d)
@@ -123,6 +124,63 @@ class TestKernelsOnCard:
         q = torch.zeros((1, 8, 2, 128), device=cuda_device)  # f32, not bf16
         with pytest.raises(TypeError):
             PF.flash_attention(q, q, q)
+
+
+def _flash_batches(S, H):
+    """Batch sizes that put kernel #1 in each of its two CTA heights: 64-row
+    CTAs while B * H * ceil(S / 128) leaves SMs idle, 128-row CTAs once it
+    does not (the launcher's choice by shape)."""
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    full = -(-sms // (H * -(-S // 128)))
+    return sorted({1, full})
+
+
+@pytest.mark.cuda
+class TestFlashForwardOnCard:
+    """Kernel #1 (wgmma, a TMA ring, register-resident softmax) against its
+    plain version on the same bf16 inputs at the edges of its design: o
+    under `bwd_mismatch` (P is rounded to bf16 for the tensor cores), lse
+    at 1e-3. Sequence lengths around the 64- and 128-row tiles (the
+    ragged last tile, a single tile, rows past S as TMA's zeros), whole
+    query groups of 1, 2, 8 and 71 over their KV heads, head dims 64, 80
+    (two swizzle atoms, the second zero past column 80) and 128; in each,
+    both CTA heights, the causal band, windows 1, 63, 64, 65, 129 and S,
+    each with and without ALiBi slopes."""
+
+    @pytest.mark.parametrize("D", [64, 80, 128])
+    @pytest.mark.parametrize("G", [1, 2, 8, 71])
+    @pytest.mark.parametrize("S", [1, 63, 64, 65, 127, 128, 129, 200, 1000])
+    def test_flash_forward(self, rng, cuda_device, S, G, D):
+        KV = 1 if G == 71 else 2
+        H = G * KV
+        batches = _flash_batches(S, H)
+        B = max(batches)
+        q = _bf16_cuda(rng.standard_normal((B, S, H, D)), cuda_device)
+        k = _bf16_cuda(rng.standard_normal((B, S, KV, D)), cuda_device)
+        v = _bf16_cuda(rng.standard_normal((B, S, KV, D)), cuda_device)
+        for b in batches:
+            for window in sorted({0, 1, 63, 64, 65, 129, S}):
+                for alibi in (None, _slopes(H, cuda_device)):
+                    args = (q[:b], k[:b], v[:b], window, alibi)
+                    what = (f"B={b} S={S} H={H} KV={KV} D={D} window={window} "
+                            f"alibi={alibi is not None}")
+                    o, lse = PF.flash_fwd(*args)
+                    ro, rlse = PF.flash_attention_plain(*args)
+                    _assert_grad_close(o, ro, f"o {what}")
+                    torch.testing.assert_close(lse, rlse, rtol=1e-3, atol=1e-3,
+                                               msg=lambda m: f"lse {what}: {m}")
+
+    @pytest.mark.parametrize("B,S,H,KV,D", [(8, 2048, 8, 8, 128), (1, 512, 8, 8, 128),
+                                            (1, 1920, 71, 1, 64), (1, 1000, 32, 32, 80)])
+    def test_two_launches_bit_identical(self, rng, cuda_device, B, S, H, KV, D):
+        q = _bf16_cuda(rng.standard_normal((B, S, H, D)), cuda_device)
+        k = _bf16_cuda(rng.standard_normal((B, S, KV, D)), cuda_device)
+        v = _bf16_cuda(rng.standard_normal((B, S, KV, D)), cuda_device)
+        for window, alibi in ((0, None), (129, _slopes(H, cuda_device))):
+            first = PF.flash_fwd(q, k, v, window, alibi)
+            second = PF.flash_fwd(q, k, v, window, alibi)
+            torch.cuda.synchronize()
+            assert all(torch.equal(a, b) for a, b in zip(first, second)), (window, alibi)
 
 
 def _int8_rows(rng, T, KV, D):
@@ -526,7 +584,7 @@ class TestWindowOnCard:
         do = _bf16_cuda(rng.standard_normal((B, S, H, D)), d)
         return q, k, v, do
 
-    @pytest.mark.parametrize("window", [1, 5, 63, 64, 100, 1000])
+    @pytest.mark.parametrize("window", [1, 5, 63, 64, 65, 100, 129, 1000])
     @pytest.mark.parametrize("S,KV,D", [(300, 2, 128), (200, 1, 64)])
     def test_flash_forward(self, rng, cuda_device, S, KV, D, window):
         q, k, v, _ = self._flash_inputs(rng, cuda_device, S, KV, D)

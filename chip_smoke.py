@@ -20,9 +20,14 @@ Phases (any failure raises and exits nonzero):
              and one K/V ring stage consumed before its barrier, a stale
              tile; and the host time to encode its TMA maps; for the flash
              backward, two faults planted in the kernels'
-             output must fail that check; the int8 KV kernels' codes and
-             scales bit for bit, with .5 ties, zero rows and subnormal
-             rows, where a quantizer rounding ties away from zero must
+             output must fail that check, a second launch of #2 and #3
+             must be bit-identical, and faults aimed at their wgmma/TMA
+             design must fail it: a ring stage read before its barrier
+             (dkv on Q/dO whose tile FLASH_BWD_STAGES holds tile 0's
+             rows, dq on such K/V) and the diagonal tiles taken
+             unmasked); the int8 KV kernels' codes and scales bit for
+             bit, with .5 ties, zero rows and subnormal rows, where a
+             quantizer rounding ties away from zero must
              fail, and a case where dequantizing without the bf16 rounding
              must fail); the sliding-window modes of #1-#5 at the Mistral 7B
              shapes (flash at B=1, S=8192, 32 x 128 heads over 8 KV heads;
@@ -78,7 +83,10 @@ Phases (any failure raises and exits nonzero):
              and the scores taken over the first 64 dims, in a wide group
              dk and dv summed without the group's last chunk of 8 heads
              (at 71 over 1 the first 64 heads) and each q head given KV
-             head (h // 8) % KV; time
+             head (h // 8) % KV; at Falcon-7B's shape the group split of
+             #3 (its plan and scratch bytes printed), two launches
+             bit-identical and one chunk's partial left out of the
+             combining pass, which must fail; time
              kernel, plain version and (where one exists) a single
              PyTorch library call computing the same function: device time
              from torch.profiler, and the time of back-to-back calls from
@@ -812,6 +820,89 @@ def _planted_faults(FA, got, ref, q, k, v, do, lse, delta, tile=64):
     return out
 
 
+# kernels #2 and #3 with two warpgroups (the training shapes): a ring of
+# FLASH_BWD_STAGES stages of 64-row tiles (Q/dO for dkv, K/V for dq)
+FLASH_BWD_TILE, FLASH_BWD_STAGES = 64, 3
+
+
+def _stale_bwd_tile(x, dim):
+    """x with its 64-row tile FLASH_BWD_STAGES along `dim` holding tile 0's
+    rows: the tile a kernel #2 or #3 that read a ring stage before its
+    full barrier landed would see (the stage's previous contents)."""
+    n, j = FLASH_BWD_TILE, FLASH_BWD_STAGES
+    y = x.clone()
+    y.narrow(dim, j * n, n).copy_(x.narrow(dim, 0, n))
+    return y
+
+
+def _bwd_diag_tile_unmasked(FA, q, k, v, lse, delta, do):
+    """What kernels #2 and #3 would output if they took their diagonal
+    64 x 64 tiles unmasked: the plain backward's math, one batch row at a
+    time, with each row also seeing the later keys of its own diagonal
+    tile (P and dS rounded to bf16 as the kernels round them)."""
+    import torch
+
+    B, S, H, D = q.shape
+    KV = k.shape[2]
+    G = H // KV
+    n = FLASH_BWD_TILE
+    pos = torch.arange(S, device=q.device)
+    seen = (pos[None, :] <= pos[:, None]) | (pos[None, :] // n == pos[:, None] // n)
+    out = [torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)]
+    for b in range(B):
+        kf, vf = FA._repeat_kv(k[b:b + 1], G).float(), FA._repeat_kv(v[b:b + 1], G).float()
+        qf, dof = q[b:b + 1].float(), do[b:b + 1].float()
+        logits = torch.einsum("bqhd,bkhd->bhqk", qf, kf) / D ** 0.5
+        p = torch.exp(logits.masked_fill(~seen, float("-inf")) - lse[b:b + 1, ..., None])
+        del logits
+        dp = torch.einsum("bqhd,bkhd->bhqk", dof, vf)
+        ds = (p * (dp - delta[b:b + 1, ..., None]) / D ** 0.5).to(q.dtype).float()
+        del dp
+        p = p.to(q.dtype).float()
+        out[0][b] = torch.einsum("bhqk,bkhd->bqhd", ds, kf)[0].to(q.dtype)
+        out[1][b] = torch.einsum("bhqk,bqhd->bkhd", ds, qf).reshape(S, KV, G, D).sum(2).to(
+            k.dtype)
+        out[2][b] = torch.einsum("bhqk,bqhd->bkhd", p, dof).reshape(S, KV, G, D).sum(2).to(
+            v.dtype)
+        del p, ds
+    return tuple(out)
+
+
+def _flash_bwd_design_checks(FA, q, k, v, do, lse, delta, got, ref):
+    """Checks aimed at the wgmma/TMA design of kernels #2 and #3 at the
+    training shape: a second launch on the same inputs bit-identical in
+    dq, dk and dv, and planted faults that bwd_mismatch against the plain
+    backward must fail in every gradient each touches: a ring stage read
+    before its barrier (dkv: Q, dO, lse and delta whose tile
+    FLASH_BWD_STAGES holds tile 0's rows; dq: K and V), and the diagonal
+    tiles taken unmasked."""
+    import torch
+
+    again = (FA.flash_bwd_dq(q, k, v, do, lse, delta),) + FA.flash_bwd_dkv(q, k, v, do, lse,
+                                                                         delta)
+    torch.cuda.synchronize()
+    same = all(torch.equal(a, got[n]) for a, n in zip(again, ("dq", "dk", "dv")))
+    del again
+    faults = {
+        "dkv_stale_ring_stage": (("dk", "dv"), (None,) + FA.flash_bwd_dkv(
+            _stale_bwd_tile(q, 1), k, v, _stale_bwd_tile(do, 1), _stale_bwd_tile(lse, 2),
+            _stale_bwd_tile(delta, 2))),
+        "dq_stale_ring_stage": (("dq",), (FA.flash_bwd_dq(
+            q, _stale_bwd_tile(k, 1), _stale_bwd_tile(v, 1), do, lse, delta),)),
+        "diagonal_tile_unmasked": (("dq", "dk", "dv"), _bwd_diag_tile_unmasked(
+            FA, q, k, v, lse, delta, do))}
+    over = {f: {n: FA.bwd_mismatch(g[i], ref[n])["n_over"]
+                for i, n in enumerate(("dq", "dk", "dv")) if n in hit}
+            for f, (hit, g) in faults.items()}
+    report = {"two_launches_bit_identical": same, "planted_faults_elements_over": over}
+    print(json.dumps({"flash_bwd_design_checks": report}))
+    if not same:
+        raise AssertionError("flash_bwd: two launches on the same inputs differ")
+    if not all(v for f in over.values() for v in f.values()):
+        raise AssertionError(f"flash_bwd: the check passes a planted fault: {over}")
+    return report
+
+
 def _flash_train_checks(FA, randn, B, S, H, KV, D, bound_ms):
     """Kernel #1 at the training shape (with _flash_fwd_design_checks),
     and kernels #2 (dq) and #3 (dk, dv) against the plain backward on the
@@ -838,6 +929,7 @@ def _flash_train_checks(FA, randn, B, S, H, KV, D, bound_ms):
     f32 = dict(zip(got, FA.flash_attention_bwd_plain(q.float(), k.float(), v.float(),
                                                      o.float(), lse, do.float())))
     planted = _planted_faults(FA, got, ref, q, k, v, do, lse, delta)
+    _flash_bwd_design_checks(FA, q, k, v, do, lse, delta, got, ref)
     report = {}
     for name in got:
         stats = FA.bwd_mismatch(got[name], ref[name])
@@ -2224,6 +2316,46 @@ def _bwd_mode_faults(FA, q, k, v, do, lse, delta, window, alibi, ref):
     return out
 
 
+def _bwd_split_checks(FA, q, k, v, do, lse, delta, got, ref):
+    """The group split of kernel #3 at a wide-group shape: the plan
+    (dkv_split_plan: chunk count, each chunk's q heads, the f32 scratch
+    and its bytes), a second launch of #2 and #3 bit-identical (the split
+    and its combining pass included), and a planted fault that must fail
+    bwd_mismatch in dk and dv: one chunk's partial left out of the
+    combining pass (the kernel run on the group without that chunk's q
+    heads)."""
+    import torch
+
+    B, S, H, D = q.shape
+    KV = k.shape[2]
+    plan = FA.dkv_split_plan(B, S, H, KV, D,
+                             torch.cuda.get_device_properties(q.device).multi_processor_count)
+    again = (FA.flash_bwd_dq(q, k, v, do, lse, delta),) + FA.flash_bwd_dkv(q, k, v, do, lse,
+                                                                         delta)
+    torch.cuda.synchronize()
+    same = all(torch.equal(a, g) for a, g in zip(again, got))
+    del again
+    G = H // KV
+    first, end = plan.chunks[min(1, plan.n_chunks - 1)]
+    keep = torch.tensor([h for h in range(H) if not first <= h % G < end], device=q.device)
+    pick = lambda t, dim: t.index_select(dim, keep).contiguous()
+    dk, dv = FA.flash_bwd_dkv(pick(q, 2), k, v, pick(do, 2), pick(lse, 1), pick(delta, 1))
+    left_out = {"dk": FA.bwd_mismatch(dk, ref[1])["n_over"],
+                "dv": FA.bwd_mismatch(dv, ref[2])["n_over"]}
+    report = {"n_chunks": plan.n_chunks, "chunk_heads": [list(c) for c in plan.chunks],
+              "scratch_shape": list(plan.scratch_shape), "scratch_bytes": plan.scratch_bytes,
+              "two_launches_bit_identical": same,
+              "planted_fault_chunk_left_out_elements_over": left_out}
+    print(json.dumps({"flash_bwd_group_split": {"shape": [B, S, H, KV, D], **report}}))
+    if plan.n_chunks < 2:
+        raise AssertionError(f"flash_bwd_dkv: no group split at {[B, S, H, KV, D]}")
+    if not same:
+        raise AssertionError("flash_bwd: two launches with the group split differ")
+    if not all(left_out.values()):
+        raise AssertionError(f"flash_bwd_dkv: the check passes a chunk left out: {left_out}")
+    return report
+
+
 def _flash_bwd_mode_checks(FA, randn, dev, bound_ms):
     """Kernels #2 (dq) and #3 (dk, dv) in their head_dim-80 and wide-group
     modes against the plain backward on the kernel forward's o and lse, on
@@ -2271,6 +2403,9 @@ def _flash_bwd_mode_checks(FA, randn, dev, bound_ms):
                 errs[m][key] = max(errs[m][key], st["max_abs_err"])
         case_report["planted_faults_elements_over"] = _bwd_mode_faults(
             FA, q, k, v, do, lse, delta, w, sl, ref)
+        if H // KV > 8 and not c["alibi"]:
+            case_report["group_split"] = _bwd_split_checks(FA, q, k, v, do, lse, delta, got,
+                                                           ref)
         report[case] = case_report
         del got, ref
         torch.cuda.empty_cache()

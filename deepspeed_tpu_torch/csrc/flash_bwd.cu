@@ -12,428 +12,733 @@
 // _bwd_dq_kernel (the pallas_call at :438) and _bwd_dkv_kernel (:467),
 // which the training step runs once per layer.
 //
-// Bound on the H100: at the training shape (S = 2048, D = 128) dq does
-// three S x S x D products per head under the causal mask and dkv four,
-// against about 2 S D bytes per operand: hundreds of operations per byte,
-// so both are bound by the tensor cores, not by memory. The design keeps
-// every S x S quantity (scores, P, dP, dS) out of device memory: 64-row
-// tiles are staged in shared memory, products run on the tensor cores
-// through WMMA (bf16 in, f32 accumulate), and the dq / dk / dv sums live
-// in WMMA accumulator fragments (registers) for the whole block. P and dS
-// are rounded to bf16 before their products, as the TPU kernel does.
-// Simple and correct first: WMMA instead of wgmma and synchronous tile
-// loads instead of TMA pipelines are left for a later PR.
+// Bound on the H100: per live (query, key) pair and head, dq does three
+// products of depth D (S, dP, dS K) and dkv four (S^T, dP^T, P^T dO,
+// dS^T Q), against about 2 S D bytes per operand and head: at the
+// training shapes (S = 2048) hundreds of operations per byte, so both are
+// bound by the tensor cores. The design is kernel #1's (flash_fwd.cu),
+// with the machinery in hopper.cuh:
 //
-// Grids. dq: (B * H, ceil(S / 64)); the block owns 64 query rows and
-// loops over the K/V tiles up to the diagonal. dkv: (B * KV, ceil(S / 64));
-// the block owns 64 key rows and loops over the G = H / KV query heads of
-// its group and over the query tiles from the diagonal to the end.
+// - Warpgroups of 64 rows each and a TMA ring: one elected thread issues
+//   every load, and the tiles stream through a ring of shared memory with
+//   full and empty mbarriers, two tiles ahead, so the next tiles' loads
+//   overlap this tile's products (a ring of two stages, three with two
+//   warpgroups). Tiles are TMA boxes of 64 columns with the
+//   128-byte swizzle; rows past S arrive as zeros. A lost arrival in the
+//   ring traps rather than hangs. Unlike #1 there is no producer
+//   warpgroup and no setmaxnreg: ptxas sizes a thread's registers by the
+//   launch bounds and the warps that share an SM sub-partition (16K
+//   registers each), so any CTA of 9 to 12 warps gets at most 168, and
+//   dkv's warpgroups, which hold dK, dV, S^T and dP^T at once (~230 a
+//   thread at D 128), spilled there, setmaxnreg 240 or not. CTAs of at
+//   most 8 warps get up to 255. The loads are issued by thread 0 (dkv:
+//   with its warp staging lse and delta) as its warp leaves a tile; the
+//   stage it refills is that of the tile before last (DkvCfg), so it
+//   seldom waits for the other warpgroup.
+// - Every product runs on wgmma in one of the two forms #1 runs: K-major
+//   A and B from shared memory (S = Q K^T), or A from registers times an
+//   MN-major B (O += P V). No S x S quantity leaves registers: the
+//   exponent, the mask and dS are computed on the accumulator fragments,
+//   P and dS are rounded to bf16 into A fragments there (as the TPU
+//   kernels round them), and the dq, dk, dv sums stay in registers to the
+//   end. The epilogue stages each sum in bf16 in the warpgroup's own
+//   input rows (now spent) and writes 16-byte vectors; rows past S write
+//   nothing.
+// - Only the tiles that the diagonal or the window's edge cuts take mask
+//   arithmetic; a warpgroup skips a tile that its band misses whole.
 //
-// Query groups of any size (the wide-group mode, G > 8: Falcon-7B's 71
-// query heads over one KV head). dq's grid has one block per q head, so G
-// changes nothing there. dkv's block walks all G heads of its KV head in
-// turn and sums them in its accumulators, without atomics; at Falcon-7B's
-// training shape (B = 4, S = 2048) that is B * KV * S / 64 = 128 blocks,
-// under one wave of the 132 SMs, each looping over 71 heads. Right, and
-// slow: splitting the group over blocks with a deterministic second pass
-// is queued as speed work.
+// dkv: a CTA owns BNK = 64 x NWG key rows of one (batch, KV head), K and V
+// loaded once by TMA, warpgroup w its keys 64w..64w+63. The ring streams
+// the 64-query tiles of Q and dO of each q head of its group, and beside
+// them each tile's lse (in log2 units; +inf past S, so P = 0 there) and
+// delta, which warp 0 stages as it refills the stage. Per tile:
+// S^T = K Q^T and dP^T = V dO^T (K-major x K-major; the query is the
+// fragment column, so lse and delta are indexed by column), then
+// dV += P^T dO and dK += dS^T Q with P^T and dS^T as register A fragments
+// and dO and Q read MN-major: the same Q tile is read K-major for S^T and
+// MN-major for dK. Causal: query tiles from the CTA's first key to S;
+// window: up to the last query that sees its last key,
+// (k0 + BNK - 1 + window - 1) / 64 (the TPU kernel's
+// q_start <= k_start + block_k - 1 + window - 1). Key tiles run in order,
+// so the CTAs with the longest causal walks take the first block indices.
+// Two warpgroups (128 keys) where B * KV * ceil(S / 128) fills the card,
+// else one (64 keys, two CTAs an SM).
 //
-// Head dims 64, 80 (Phi-2) and 128. The WMMA 16 x 16 x 16 tiles divide
-// each (80: five steps of every depth loop, five accumulator fragments per
-// warp). Layout<80> keeps 16-byte row strides (LDH 88 bf16: rows of 176
-// bytes; LDO 84 f32: rows of 336 bytes), so every 16-row fragment offset
-// (16 x 88 x 2 = 2816 bytes, 16 x 84 x 4 = 5376) and every region stays
-// 32-byte aligned, and the f32 staging tile (21,504 bytes) fits in the two
-// 64 x D tiles it reuses (22,528); the static_asserts of Layout check all
-// of this for each instantiation. A row is ten 16-byte vectors in
-// load_tile, and write_rows's per-lane loop over D / 2 strides by 32 with
-// a bound, so neither assumes D % 32 == 0. Shared memory is 89,600 bytes a
-// block at 80 (81,408 at 64, 114,176 at 128), set per instantiation by
-// cudaFuncSetAttribute.
+// The group split (wide groups on a grid that would not fill the card:
+// Falcon-7B's 71 q heads over one KV head at B = 4, S = 2048 is 64 CTAs of
+// 128 keys for 132 SMs). The TPU ran the group as a sequential grid axis
+// with its sum in VMEM; here the wrapper splits each group into n_chunks
+// contiguous chunks of ceil(G / n_chunks) q heads (the last may be
+// partial; its plan is flash_attention.dkv_split_plan), one CTA per
+// (key block, chunk). Each chunk CTA writes its partial dk and dv in f32
+// to the wrapper's scratch [n_chunks, 2, B, S, KV, D], and a second
+// kernel adds the partials in chunk order and writes bf16: no atomics, so
+// two launches give the same bits. With n_chunks = 1 (the flagship, and
+// any grid that fills the card) one pass writes bf16 and no scratch
+// exists.
+//
+// dq: a CTA owns BM = 64 x NWG query rows of one q head (128 where
+// B * H * ceil(S / 128) fills the card, else 64), Q and dO loaded once; K
+// and V stream through the ring in 64-key tiles. Per tile S = Q K^T and
+// dP = dO V^T, then dQ += dS K with K read MN-major. lse and delta are
+// known (no online softmax) and indexed by fragment row. Query tiles run
+// in reverse (the longest causal rows first). Causal: key tiles up to
+// the CTA's last row; window: from the tile holding the first live column
+// of its first row, max(q0 - window + 1, 0) / 64 (the TPU's _win_jbase).
 //
 // Sliding window (window > 0): (row, col) is live iff row - window < col
-// <= row, as in the forward. dq's K/V loop starts at the first tile the
-// band of its first row needs, max(q0 - window + 1, 0) / 64; dkv's query
-// loop ends after the last tile that can see its last key row,
-// (k0 + 63 + window - 1) / 64 (the TPU kernels' _win_jbase and the
-// q_start <= k_start + block_k - 1 + window - 1 test of _bwd_dkv_kernel);
-// inside a tile the P and dS entries outside the band are zero. window <= 0
-// is plain causal, and any window >= S visits the same tiles and keeps the
-// same entries, so its result is bit-identical to window = 0. The
-// TPU ran those two loops as sequential grid axes with VMEM accumulators;
-// here they are loops inside one block, so the GQA sum needs no atomics
-// and the result is the same from run to run. 4 warps; warp w owns rows
-// 16w..16w+15 of the block's tile, so the element-wise passes need only
-// warp-level synchronisation.
+// <= row, as in the forward. window <= 0 is plain causal, and any
+// window >= S is the causal band, so the launcher runs it as window 0: the
+// result is the causal one bit for bit.
 //
 // ALiBi (slopes != null, Bloom-class): the recomputed score of query row
 // r and key column c gains slopes[h] * (c - r) after the scale and before
-// the mask and the - lse, as the TPU kernels add it (_bwd_dq_kernel and
-// _bwd_dkv_kernel, both from the q head's SMEM slope). dq's block serves
-// one q head h; dkv's loop over the group visits q heads h = kv * G + g,
-// and each takes the slope of that q head, never of the KV head. The
-// exponent is fmaf(s, scale, fmaf(slope, c - r, -lse)), with slope 0 when
-// slopes == null: the bias joins the subtrahend, so a null pointer and
-// all-zero slopes both give fmaf(s, scale, -lse), the FFMA that the
-// causal and window modes compile s * scale - lse to, bit for bit. (The
-// forward rounds s * scale before it adds the bias; the two exponents
-// differ by an f32 rounding of values of the size of the score, far
-// below the bf16 rounding of P.) ALiBi and the window are independent
-// runtime arguments: one binary serves causal, window, ALiBi and both.
+// the mask and the - lse, as the TPU kernels add it, with h the q head:
+// dq's CTA serves one q head; dkv visits q heads h = kv * G + g, each with
+// its own slope, never that of the KV head. In log2 units the exponent is
+// fmaf(s, scale log2 e, fmaf(slope log2 e, c - r, -lse log2 e)), slope 0
+// when slopes == null: the bias joins the subtrahend, so a null pointer
+// and all-zero slopes give the same bits, and the chain is written out
+// (never contracted), alike in masked and unmasked tiles.
+//
+// Head dim 80 (Phi-2): a row is two swizzle atoms whose columns 80-127
+// TMA fills with zeros; the products of depth D take five 16-wide steps,
+// the dq, dk and dv accumulators run 128 wide (their columns past 80 are
+// zero) and the epilogue writes the first 80.
 
-#include <cuda_runtime.h>
-#include <cuda_bf16.h>
-#include <mma.h>
-#include <cstdint>
-#include <math.h>
+#include "hopper.cuh"
 
 namespace {
 
-using namespace nvcuda;
+using namespace hopper;
 
-constexpr int BT = 64;   // rows of every tile (query and key tiles alike)
-constexpr int NT = 128;  // threads per block (4 warps)
+constexpr int TILE = 64;    // rows of a warpgroup's products and of a ring tile
+constexpr int AHEAD = 2;    // ring tiles loaded ahead of the one in use
+constexpr int ROW_BYTES = TILE * 128;  // one TMA box: 64 rows of one swizzle atom
+constexpr float LOG2E = 1.4426950408889634f;
 
-using AccFrag = wmma::fragment<wmma::accumulator, 16, 16, 16, float>;
-
-// Shared-memory layout, the same for both kernels. Row strides are padded
-// against bank conflicts and kept multiples of 16 bytes; every region
-// starts 32-byte aligned, as WMMA loads and stores require.
-template <int D>
-struct Layout {
-  static constexpr int LDH = D + 8;   // bf16 stride of the 64 x D tiles
-  static constexpr int LDS = BT + 4;  // f32 stride of the 64 x 64 score tiles
-  static constexpr int LDP = BT + 8;  // bf16 stride of the 64 x 64 P / dS tile
-  static constexpr int LDO = D + 4;   // f32 stride of the output staging tile
-  static constexpr size_t TILE = (size_t)BT * LDH * 2;
-  static constexpr size_t T0 = 0;            // dq: Q   | dkv: K
-  static constexpr size_t T1 = T0 + TILE;    // dq: dO  | dkv: V
-  static constexpr size_t T2 = T1 + TILE;    // dq: K   | dkv: Q
-  static constexpr size_t T3 = T2 + TILE;    // dq: V   | dkv: dO
-  static constexpr size_t S1 = T3 + TILE;    // f32 scores (S, or S^T)
-  static constexpr size_t S2 = S1 + (size_t)BT * LDS * 4;  // f32 dP (or dP^T, then dS^T)
-  static constexpr size_t P = S2 + (size_t)BT * LDS * 4;   // bf16 dS (or P^T, then dS^T)
-  static constexpr size_t LSE = P + (size_t)BT * LDP * 2;
-  static constexpr size_t DELTA = LSE + (size_t)BT * 4;
-  static constexpr size_t BYTES = DELTA + (size_t)BT * 4;
-  static_assert(D % 16 == 0, "WMMA tiles are 16 wide");
-  static_assert(LDH % 8 == 0 && LDP % 8 == 0 && LDS % 4 == 0 && LDO % 4 == 0,
-                "row strides must be whole 16-byte vectors");
-  static_assert((16 * LDH * 2) % 32 == 0 && (16 * LDP * 2) % 32 == 0 &&
-                    (16 * LDS * 4) % 32 == 0 && (16 * LDO * 4) % 32 == 0,
-                "every 16-row fragment offset must stay 32-byte aligned");
-  static_assert(TILE % 32 == 0 && S1 % 32 == 0 && S2 % 32 == 0 && P % 32 == 0,
-                "every WMMA region must start 32-byte aligned");
-  // the output staging tile (64 x LDO f32) reuses two adjacent 64 x D tiles
-  static_assert((size_t)BT * LDO * 4 <= 2 * TILE, "staging tile does not fit");
-  static_assert(BYTES <= 232448, "more shared memory than a block can have");
+// Tiling of one dkv instantiation: head dim D, NWG warpgroups of 64 keys.
+// Shared memory (byte offsets from a 1024-aligned base): K and V
+// [NA][BNK][64] each, the ring of Q and dO tiles [STAGES][2][NA][64][64],
+// each stage's lse (log2 units) and delta [STAGES][64] f32, the mbarriers
+// (K/V; full[STAGES]; empty[STAGES]). The ring holds AHEAD tiles in flight
+// and, with two warpgroups, one more: the stage a refill takes is the one
+// of the tile before last, which the other warpgroup has most likely freed
+// already, so the warpgroups do not wait on each other tile by tile.
+template <int D_, int NWG_>
+struct DkvCfg {
+  static constexpr int D = D_;
+  static constexpr int NWG = NWG_;
+  static constexpr int BNK = 64 * NWG;
+  static constexpr int NA = (D + ATOM - 1) / ATOM;  // swizzle atoms across a row
+  static constexpr int DP = NA * ATOM;              // width of the dK and dV accumulators
+  static constexpr int KSTEPS = D / 16;             // depth steps of S^T and dP^T
+  static constexpr int THREADS = NWG * WG;
+  static constexpr int K_ATOM = BNK * 128;          // one atom of the CTA's K (or V) rows
+  static constexpr int KV_BYTES = NA * K_ATOM;
+  static constexpr int Q_TILE = NA * ROW_BYTES;     // one Q (or dO) tile
+  static constexpr int K_OFF = 0;
+  static constexpr int V_OFF = K_OFF + KV_BYTES;
+  static constexpr int RING_OFF = V_OFF + KV_BYTES;
+  static constexpr int STAGES = AHEAD + NWG - 1;   // ring depth
+  static constexpr int STAGE_BYTES = 2 * Q_TILE;    // Q, then dO
+  static constexpr int LSE_OFF = RING_OFF + STAGES * STAGE_BYTES;
+  static constexpr int DELTA_OFF = LSE_OFF + STAGES * TILE * 4;
+  static constexpr int BAR_OFF = DELTA_OFF + STAGES * TILE * 4;
+  static constexpr int SMEM = BAR_OFF + (1 + 2 * STAGES) * 8 + 1024;  // + alignment slack
+  static constexpr int MIN_BLOCKS = NWG == 2 ? 1 : 2;
+  static_assert(D % 16 == 0 && D <= 128, "head dim");
+  static_assert(V_OFF % 1024 == 0 && RING_OFF % 1024 == 0 && Q_TILE % 1024 == 0,
+                "swizzle alignment");
+  static_assert(BAR_OFF % 8 == 0, "mbarrier alignment");
+  static_assert(MIN_BLOCKS * (SMEM + 1024) <= 233472, "shared memory per SM");
 };
 
-// Copy rows [r_begin, r_begin + 64) of a [S, row_stride] bf16 matrix (from
-// `src`, which already points at the head's first column) into a 64 x D
-// shared tile; rows at or past S load as zeros.
-template <int D>
-__device__ __forceinline__ void load_tile(__nv_bfloat16* dst, const __nv_bfloat16* src,
-                                          size_t row_stride, int r_begin, int S, int tid) {
-  constexpr int VPR = D / 8;  // 16-byte vectors per row
-  const uint4 zero = make_uint4(0u, 0u, 0u, 0u);
-  for (int i = tid; i < BT * VPR; i += NT) {
-    const int r = i / VPR;
-    const int c = i % VPR;
-    uint4 val = zero;
-    if (r_begin + r < S) val = reinterpret_cast<const uint4*>(src + (size_t)(r_begin + r) * row_stride)[c];
-    reinterpret_cast<uint4*>(dst + r * Layout<D>::LDH)[c] = val;
-  }
+// Tiling of one dq instantiation: NWG warpgroups of 64 query rows, 64-key
+// tiles. Shared memory: Q and dO [NWG][NA][64][64] each, the ring of K and
+// V tiles [STAGES][2][NA][64][64] (as dkv's ring), the mbarriers (Q/dO;
+// full[STAGES]; empty[STAGES]).
+template <int D_, int NWG_>
+struct DqCfg {
+  static constexpr int D = D_;
+  static constexpr int NWG = NWG_;
+  static constexpr int BM = 64 * NWG;
+  static constexpr int BN = TILE;
+  static constexpr int NA = (D + ATOM - 1) / ATOM;
+  static constexpr int DP = NA * ATOM;              // width of the dQ accumulator
+  static constexpr int KSTEPS = D / 16;             // depth steps of S and dP
+  static constexpr int THREADS = NWG * WG;
+  static constexpr int WG_TILE = NA * ROW_BYTES;    // a warpgroup's Q (or dO) rows; a K or V tile
+  static constexpr int Q_OFF = 0;
+  static constexpr int DO_OFF = Q_OFF + NWG * WG_TILE;
+  static constexpr int RING_OFF = DO_OFF + NWG * WG_TILE;
+  static constexpr int STAGES = AHEAD + NWG - 1;   // ring depth
+  static constexpr int STAGE_BYTES = 2 * WG_TILE;   // K, then V
+  static constexpr int BAR_OFF = RING_OFF + STAGES * STAGE_BYTES;
+  static constexpr int SMEM = BAR_OFF + (1 + 2 * STAGES) * 8 + 1024;
+  static constexpr int MIN_BLOCKS = NWG == 2 ? 1 : 2;
+  static_assert(D % 16 == 0 && D <= 128, "head dim");
+  static_assert(DO_OFF % 1024 == 0 && RING_OFF % 1024 == 0, "swizzle alignment");
+  static_assert(BAR_OFF % 8 == 0, "mbarrier alignment");
+  static_assert(MIN_BLOCKS * (SMEM + 1024) <= 233472, "shared memory per SM");
+};
+
+// Byte offset, inside a run of swizzle atoms `atom_bytes` apart, of the
+// 16-byte chunk holding columns 8v..8v+7 of `row` in the epilogue's
+// staging (the chunk index XOR the row's low three bits, as the 128-byte
+// swizzle places it: the 8 rows a fragment store touches at once land in
+// 8 different bank groups).
+__device__ __forceinline__ int stage_off(int row, int v, int atom_bytes) {
+  return (v / 8) * atom_bytes + row * 128 + (((v % 8) ^ (row & 7)) << 4);
 }
 
-// out[16][64] (f32, stride ldo) = a[16][D] * b[64][D]^T, with a and b
-// bf16 tiles of stride LDH. One warp.
-template <int D>
-__device__ __forceinline__ void rows_times_rows_t(float* out, int ldo, const __nv_bfloat16* a,
-                                                  const __nv_bfloat16* b) {
-  constexpr int LDH = Layout<D>::LDH;
-  AccFrag acc[BT / 16];
+// Stage a warpgroup's 64 x DP f32 accumulator as bf16 rows (rows lr and
+// lr + 8 of the fragments) in shared memory at `dst`.
+template <int DP, int N>
+__device__ __forceinline__ void stage_rows(unsigned char* dst, const float (&acc)[N], int lr,
+                                           int cq, int atom_bytes) {
 #pragma unroll
-  for (int n = 0; n < BT / 16; ++n) wmma::fill_fragment(acc[n], 0.f);
+  for (int j = 0; j < DP / 8; ++j) {
 #pragma unroll
-  for (int kk = 0; kk < D; kk += 16) {
-    wmma::fragment<wmma::matrix_a, 16, 16, 16, __nv_bfloat16, wmma::row_major> fa;
-    wmma::load_matrix_sync(fa, a + kk, LDH);
-#pragma unroll
-    for (int n = 0; n < BT / 16; ++n) {
-      wmma::fragment<wmma::matrix_b, 16, 16, 16, __nv_bfloat16, wmma::col_major> fb;
-      wmma::load_matrix_sync(fb, b + (n * 16) * LDH + kk, LDH);
-      wmma::mma_sync(acc[n], fa, fb, acc[n]);
-    }
-  }
-#pragma unroll
-  for (int n = 0; n < BT / 16; ++n)
-    wmma::store_matrix_sync(out + n * 16, acc[n], ldo, wmma::mem_row_major);
-}
-
-// acc[16][D] += p[16][64] * m[64][D]: p a bf16 tile of stride LDP, m a
-// bf16 tile of stride LDH. One warp; acc stays in registers.
-template <int D>
-__device__ __forceinline__ void accumulate(AccFrag (&acc)[D / 16], const __nv_bfloat16* p,
-                                           const __nv_bfloat16* m) {
-  constexpr int LDH = Layout<D>::LDH;
-  constexpr int LDP = Layout<D>::LDP;
-#pragma unroll
-  for (int kk = 0; kk < BT; kk += 16) {
-    wmma::fragment<wmma::matrix_a, 16, 16, 16, __nv_bfloat16, wmma::row_major> fa;
-    wmma::load_matrix_sync(fa, p + kk, LDP);
-#pragma unroll
-    for (int n = 0; n < D / 16; ++n) {
-      wmma::fragment<wmma::matrix_b, 16, 16, 16, __nv_bfloat16, wmma::row_major> fb;
-      wmma::load_matrix_sync(fb, m + kk * LDH + n * 16, LDH);
-      wmma::mma_sync(acc[n], fa, fb, acc[n]);
+    for (int half = 0; half < 2; ++half) {
+      const int row = lr + 8 * half;
+      *reinterpret_cast<__nv_bfloat162*>(dst + stage_off(row, j, atom_bytes) + cq * 2) =
+          __floats2bfloat162_rn(acc[4 * j + 2 * half], acc[4 * j + 2 * half + 1]);
     }
   }
 }
 
-// Write this warp's 16 accumulator rows (tile rows r0..r0+15, i.e. matrix
-// rows row_begin + r0 + ...) to dst [S, row_stride] in bf16 through the
-// f32 staging tile; rows at or past S are not written.
-template <int D>
-__device__ __forceinline__ void write_rows(__nv_bfloat16* dst, size_t row_stride, float* stage,
-                                           AccFrag (&acc)[D / 16], int r0, int row_begin, int S,
-                                           int lane) {
-  constexpr int LDO = Layout<D>::LDO;
-#pragma unroll
-  for (int n = 0; n < D / 16; ++n)
-    wmma::store_matrix_sync(stage + r0 * LDO + n * 16, acc[n], LDO, wmma::mem_row_major);
+// The CTA's mbarriers: bars (the tiles loaded once), full[STAGES] (`fill`
+// arrivals each), empty[STAGES]
+template <class C>
+__device__ __forceinline__ void init_bars(uint32_t bars, int fill) {
+  if (threadIdx.x == 0) {
+    mbar_init(bars, 1);
+    for (int s = 0; s < C::STAGES; ++s) {
+      mbar_init(bars + 8 * (1 + s), fill);
+      mbar_init(bars + 8 * (1 + C::STAGES + s), 4 * C::NWG);  // one arrival per warp
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+  }
+  __syncthreads();
+}
+
+// A warp is done with ring tile t (stage t % STAGES): one arrival per
+// warp frees it. The loader (thread 0, or warp 0) then loads tile
+// u = t + AHEAD into stage u % STAGES once every warp has freed that
+// stage's previous tile (its fill u / STAGES waits for the empty barrier's
+// phase before; the first fill of a stage finds it free).
+template <class C, class Load>
+__device__ __forceinline__ void release(uint32_t bars, int t, int n_tiles, int lane, bool loader,
+                                       const Load& load) {
   __syncwarp();
-  for (int rr = 0; rr < 16; ++rr) {
-    const int row = row_begin + r0 + rr;
-    if (row >= S) break;
-    const float* srow = stage + (r0 + rr) * LDO;
-    __nv_bfloat162* drow = reinterpret_cast<__nv_bfloat162*>(dst + (size_t)row * row_stride);
-    for (int d2 = lane; d2 < D / 2; d2 += 32)
-      drow[d2] = __floats2bfloat162_rn(srow[2 * d2], srow[2 * d2 + 1]);
+  if (lane == 0) mbar_arrive(bars + 8 * (1 + C::STAGES + t % C::STAGES));
+  const int u = t + AHEAD;
+  if (loader && u < n_tiles) {
+    mbar_wait(bars + 8 * (1 + C::STAGES + u % C::STAGES), ((u / C::STAGES) & 1) ^ 1);
+    load(u);
   }
-  __syncwarp();
+  __syncwarp();  // warp 0 whole again before its next wgmma (.sync.aligned)
 }
 
-template <int D>
-__global__ void __launch_bounds__(NT) flash_bwd_dq_kernel(
-    __nv_bfloat16* __restrict__ dq, const __nv_bfloat16* __restrict__ q,
-    const __nv_bfloat16* __restrict__ k, const __nv_bfloat16* __restrict__ v,
-    const __nv_bfloat16* __restrict__ dout, const float* __restrict__ lse,
-    const float* __restrict__ delta, const float* __restrict__ slopes, int S, int H, int KV,
-    int window, float scale) {
-  using Lay = Layout<D>;
-  extern __shared__ __align__(128) unsigned char smem[];
-  __nv_bfloat16* qs = reinterpret_cast<__nv_bfloat16*>(smem + Lay::T0);
-  __nv_bfloat16* dos = reinterpret_cast<__nv_bfloat16*>(smem + Lay::T1);
-  __nv_bfloat16* ks = reinterpret_cast<__nv_bfloat16*>(smem + Lay::T2);
-  __nv_bfloat16* vs = reinterpret_cast<__nv_bfloat16*>(smem + Lay::T3);
-  float* ss = reinterpret_cast<float*>(smem + Lay::S1);
-  float* dps = reinterpret_cast<float*>(smem + Lay::S2);
-  __nv_bfloat16* dss = reinterpret_cast<__nv_bfloat16*>(smem + Lay::P);
-  float* lse_s = reinterpret_cast<float*>(smem + Lay::LSE);
-  float* delta_s = reinterpret_cast<float*>(smem + Lay::DELTA);
+// dkv: one CTA per (key block, batch x KV head, chunk), key blocks in
+// order (the longest causal walks first); warpgroup wg takes keys
+// kw..kw+63 of the block.
+template <class C>
+__global__ void __launch_bounds__(C::THREADS, C::MIN_BLOCKS)
+    flash_bwd_dkv_kernel(const __grid_constant__ CUtensorMap tq,
+                         const __grid_constant__ CUtensorMap tk,
+                         const __grid_constant__ CUtensorMap tv,
+                         const __grid_constant__ CUtensorMap tdo,
+                         __nv_bfloat16* __restrict__ dk, __nv_bfloat16* __restrict__ dv,
+                         float* __restrict__ part, const float* __restrict__ lse,
+                         const float* __restrict__ delta, const float* __restrict__ slopes,
+                         int B, int S, int H, int KV, int window, int n_chunks, float scale) {
+  extern __shared__ __align__(1024) unsigned char smem_raw[];
+  const uint32_t raw = smem_u32(smem_raw);
+  const uint32_t base = (raw + 1023u) & ~1023u;
+  unsigned char* smem = smem_raw + (base - raw);
+  const uint32_t bars = base + C::BAR_OFF;
 
-  const int bh = blockIdx.x;
-  const int b = bh / H;
-  const int h = bh % H;
-  const int kvh = h / (H / KV);
-  const float slope = slopes != nullptr ? slopes[h] : 0.f;  // of the q head, not the KV head
-  const int q0 = blockIdx.y * BT;
-  const int tid = threadIdx.x;
-  const int r0 = (tid >> 5) * 16;
-  const int lane = tid & 31;
-  const size_t q_row = (size_t)H * D;    // elements between two positions of q / do / dq
-  const size_t kv_row = (size_t)KV * D;  // of k / v
-  const size_t q_off = (size_t)b * S * q_row + (size_t)h * D;
-  const __nv_bfloat16* kb = k + (size_t)b * S * kv_row + (size_t)kvh * D;
-  const __nv_bfloat16* vb = v + (size_t)b * S * kv_row + (size_t)kvh * D;
-
-  load_tile<D>(qs, q + q_off, q_row, q0, S, tid);
-  load_tile<D>(dos, dout + q_off, q_row, q0, S, tid);
-  if (tid < BT) {
-    const int row = q0 + tid;
-    const size_t i = ((size_t)b * H + h) * S + row;
-    lse_s[tid] = row < S ? lse[i] : 0.f;
-    delta_s[tid] = row < S ? delta[i] : 0.f;
-  }
-  AccFrag acc[D / 16];
-#pragma unroll
-  for (int n = 0; n < D / 16; ++n) wmma::fill_fragment(acc[n], 0.f);
-
-  // causal: K/V tiles up to the one holding this q tile's last row;
-  // window: from the one holding its first row's first live column
-  const int n_tiles = min((q0 + BT - 1) / BT + 1, (S + BT - 1) / BT);
-  const int j0 = window > 0 ? max(q0 - window + 1, 0) / BT : 0;
-  for (int j = j0; j < n_tiles; ++j) {
-    const int k0 = j * BT;
-    __syncthreads();  // Q/dO/lse/delta visible; the previous tile's K/V reads done
-    load_tile<D>(ks, kb, kv_row, k0, S, tid);
-    load_tile<D>(vs, vb, kv_row, k0, S, tid);
-    __syncthreads();
-
-    rows_times_rows_t<D>(ss + r0 * Lay::LDS, Lay::LDS, qs + r0 * Lay::LDH, ks);   // S = Q K^T
-    rows_times_rows_t<D>(dps + r0 * Lay::LDS, Lay::LDS, dos + r0 * Lay::LDH, vs); // dP = dO V^T
-    __syncwarp();
-
-    // P = exp(S * scale + slope (col - row) - lse) on live (row, col),
-    // dS = P (dP - delta) scale
-    for (int rr = 0; rr < 16; ++rr) {
-      const int r = r0 + rr;
-      const int row = q0 + r;
-      const float l = lse_s[r];
-      const float dl = delta_s[r];
-#pragma unroll
-      for (int half = 0; half < 2; ++half) {
-        const int c = lane + 32 * half;
-        const int col = k0 + c;
-        float p = 0.f;
-        if (row < S && col <= row && (window <= 0 || col > row - window))
-          p = expf(fmaf(ss[r * Lay::LDS + c], scale, fmaf(slope, (float)(col - row), -l)));
-        dss[r * Lay::LDP + c] = __float2bfloat16(p * (dps[r * Lay::LDS + c] - dl) * scale);
-      }
-    }
-    __syncwarp();
-    accumulate<D>(acc, dss + r0 * Lay::LDP, ks);  // dQ += dS K
-  }
-  __syncthreads();  // every warp is done with Q/dO before staging overwrites them
-  write_rows<D>(dq + q_off, q_row, reinterpret_cast<float*>(smem + Lay::T0), acc, r0, q0, S,
-                lane);
-}
-
-template <int D>
-__global__ void __launch_bounds__(NT) flash_bwd_dkv_kernel(
-    __nv_bfloat16* __restrict__ dk, __nv_bfloat16* __restrict__ dv,
-    const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ k,
-    const __nv_bfloat16* __restrict__ v, const __nv_bfloat16* __restrict__ dout,
-    const float* __restrict__ lse, const float* __restrict__ delta,
-    const float* __restrict__ slopes, int S, int H, int KV, int window, float scale) {
-  using Lay = Layout<D>;
-  extern __shared__ __align__(128) unsigned char smem[];
-  __nv_bfloat16* ks = reinterpret_cast<__nv_bfloat16*>(smem + Lay::T0);
-  __nv_bfloat16* vs = reinterpret_cast<__nv_bfloat16*>(smem + Lay::T1);
-  __nv_bfloat16* qs = reinterpret_cast<__nv_bfloat16*>(smem + Lay::T2);
-  __nv_bfloat16* dos = reinterpret_cast<__nv_bfloat16*>(smem + Lay::T3);
-  float* sts = reinterpret_cast<float*>(smem + Lay::S1);
-  float* dpts = reinterpret_cast<float*>(smem + Lay::S2);
-  __nv_bfloat16* pts = reinterpret_cast<__nv_bfloat16*>(smem + Lay::P);
-  float* lse_s = reinterpret_cast<float*>(smem + Lay::LSE);
-  float* delta_s = reinterpret_cast<float*>(smem + Lay::DELTA);
-
-  const int bk = blockIdx.x;
+  const int per_block = B * KV * n_chunks;
+  const int k0 = (blockIdx.x / per_block) * C::BNK;
+  const int chunk = blockIdx.x % n_chunks;
+  const int bk = (blockIdx.x % per_block) / n_chunks;
   const int b = bk / KV;
   const int kvh = bk % KV;
   const int G = H / KV;
-  const int k0 = blockIdx.y * BT;
-  const int tid = threadIdx.x;
-  const int r0 = (tid >> 5) * 16;
-  const int lane = tid & 31;
-  const size_t q_row = (size_t)H * D;
-  const size_t kv_row = (size_t)KV * D;
-  const size_t kv_off = (size_t)b * S * kv_row + (size_t)kvh * D;
+  const int csize = (G + n_chunks - 1) / n_chunks;
+  const int g0 = min(G, chunk * csize);
+  const int g1 = min(G, g0 + csize);
+  // causal: query tiles from the one holding key k0 to the end; window: up
+  // to the one holding the last query that sees key k0 + BNK - 1. The ring
+  // walks them for each q head of the chunk: tile t is q head
+  // kvh * G + g0 + t / n_i, query tile i0 + t % n_i.
+  const int nq = (S + TILE - 1) / TILE;
+  const int i0 = k0 / TILE;
+  const int n_i = (window > 0 ? min(nq, (k0 + C::BNK - 1 + window - 1) / TILE + 1) : nq) - i0;
+  const int n_tiles = (g1 - g0) * n_i;
 
-  load_tile<D>(ks, k + kv_off, kv_row, k0, S, tid);
-  load_tile<D>(vs, v + kv_off, kv_row, k0, S, tid);
-  AccFrag dk_acc[D / 16], dv_acc[D / 16];
+  const int wg = threadIdx.x / WG;
+  const int wtid = threadIdx.x % WG;
+  const int warp = wtid / 32;
+  const int lane = wtid % 32;
+  const bool loader = threadIdx.x < 32;  // warp 0
+  float* lse_s = reinterpret_cast<float*>(smem + C::LSE_OFF);
+  float* delta_s = reinterpret_cast<float*>(smem + C::DELTA_OFF);
+
+  // warp 0 fills stage t % C::STAGES: fetch(t) reads each lane's two rows of
+  // lse and delta into registers a tile ahead (their latency off the ring's
+  // path); load(t) has lane 0 load the Q and dO tiles by TMA and each lane
+  // store its rows, then arrive
+  float pre_l[2], pre_d[2];
+  auto fetch = [&](int t) {
+    const int q0 = (i0 + t % n_i) * TILE;
+    const size_t row = (static_cast<size_t>(b) * H + kvh * G + g0 + t / n_i) * S;
 #pragma unroll
-  for (int n = 0; n < D / 16; ++n) {
-    wmma::fill_fragment(dk_acc[n], 0.f);
-    wmma::fill_fragment(dv_acc[n], 0.f);
-  }
-
-  // causal: query tiles from the one holding key row k0 to the end;
-  // window: up to the one holding the last row that sees key row k0 + 63
-  const int nq = (S + BT - 1) / BT;
-  const int i_end = window > 0 ? min(nq, (k0 + BT - 1 + window - 1) / BT + 1) : nq;
-  for (int g = 0; g < G; ++g) {
-    const int h = kvh * G + g;  // query heads of a group are contiguous
-    const float slope = slopes != nullptr ? slopes[h] : 0.f;  // of q head h, not of kvh
-    const size_t q_off = (size_t)b * S * q_row + (size_t)h * D;
-    const float* lse_h = lse + ((size_t)b * H + h) * S;
-    const float* delta_h = delta + ((size_t)b * H + h) * S;
-    for (int i = k0 / BT; i < i_end; ++i) {
-      const int q0 = i * BT;
-      __syncthreads();  // K/V visible; the previous tile's Q/dO/lse reads done
-      load_tile<D>(qs, q + q_off, q_row, q0, S, tid);
-      load_tile<D>(dos, dout + q_off, q_row, q0, S, tid);
-      if (tid < BT) {
-        const int col = q0 + tid;
-        lse_s[tid] = col < S ? lse_h[col] : 0.f;
-        delta_s[tid] = col < S ? delta_h[col] : 0.f;
+    for (int x = 0; x < 2; ++x) {
+      const int q = q0 + lane + 32 * x;
+      pre_l[x] = q < S ? __fmul_rn(lse[row + q], LOG2E) : INFINITY;
+      pre_d[x] = q < S ? delta[row + q] : 0.f;
+    }
+  };
+  auto load = [&](int t) {
+    const int st = t % C::STAGES;
+    const uint32_t full = bars + 8 * (1 + st);
+    const uint32_t q_tile = base + C::RING_OFF + st * C::STAGE_BYTES;
+    const int h = kvh * G + g0 + t / n_i;
+    const int q0 = (i0 + t % n_i) * TILE;
+    if (lane == 0) {
+      mbar_expect_tx(full, C::STAGE_BYTES);
+      for (int a = 0; a < C::NA; ++a) {
+        tma_load(q_tile + a * ROW_BYTES, &tq, full, a * ATOM, h, q0, b);
+        tma_load(q_tile + C::Q_TILE + a * ROW_BYTES, &tdo, full, a * ATOM, h, q0, b);
       }
-      __syncthreads();
-
-      rows_times_rows_t<D>(sts + r0 * Lay::LDS, Lay::LDS, ks + r0 * Lay::LDH, qs);    // S^T = K Q^T
-      rows_times_rows_t<D>(dpts + r0 * Lay::LDS, Lay::LDS, vs + r0 * Lay::LDH, dos);  // dP^T = V dO^T
-      __syncwarp();
-
-      // P^T (bf16, for dV) and dS^T (f32, in place of dP^T)
-      for (int rr = 0; rr < 16; ++rr) {
-        const int r = r0 + rr;
-        const int krow = k0 + r;
+    }
 #pragma unroll
-        for (int half = 0; half < 2; ++half) {
-          const int c = lane + 32 * half;
-          const int qcol = q0 + c;
-          float p = 0.f;
-          if (qcol < S && krow <= qcol && (window <= 0 || krow > qcol - window))
-            p = expf(fmaf(sts[r * Lay::LDS + c], scale,  // key krow is the column
-                          fmaf(slope, (float)(krow - qcol), -lse_s[c])));
-          pts[r * Lay::LDP + c] = __float2bfloat16(p);
-          float* dpt = dpts + r * Lay::LDS + c;
-          *dpt = p * (*dpt - delta_s[c]) * scale;
-        }
+    for (int x = 0; x < 2; ++x) {
+      lse_s[st * TILE + lane + 32 * x] = pre_l[x];
+      delta_s[st * TILE + lane + 32 * x] = pre_d[x];
+    }
+    mbar_arrive(full);
+  };
+
+  init_bars<C>(bars, 1 + 32);  // full: lane 0's expect_tx, then each lane of warp 0
+  if (loader) {
+    if (lane == 0) {
+      mbar_expect_tx(bars, 2 * C::KV_BYTES);
+      for (int a = 0; a < C::NA; ++a) {
+        tma_load(base + C::K_OFF + a * C::K_ATOM, &tk, bars, a * ATOM, kvh, k0, b);
+        tma_load(base + C::V_OFF + a * C::K_ATOM, &tv, bars, a * ATOM, kvh, k0, b);
       }
-      __syncwarp();
-      accumulate<D>(dv_acc, pts + r0 * Lay::LDP, dos);  // dV += P^T dO
-      __syncwarp();
-      for (int rr = 0; rr < 16; ++rr) {
-        const int r = r0 + rr;
-#pragma unroll
-        for (int half = 0; half < 2; ++half) {
-          const int c = lane + 32 * half;
-          pts[r * Lay::LDP + c] = __float2bfloat16(dpts[r * Lay::LDS + c]);
-        }
-      }
-      __syncwarp();
-      accumulate<D>(dk_acc, pts + r0 * Lay::LDP, qs);  // dK += dS^T Q
+    }
+    for (int t = 0; t < min(AHEAD, n_tiles); ++t) {
+      fetch(t);
+      load(t);
     }
   }
-  __syncthreads();  // every warp is done with Q/dO before staging overwrites them
-  float* stage = reinterpret_cast<float*>(smem + Lay::T2);
-  write_rows<D>(dk + kv_off, kv_row, stage, dk_acc, r0, k0, S, lane);
-  write_rows<D>(dv + kv_off, kv_row, stage, dv_acc, r0, k0, S, lane);
+  __syncwarp();
+
+  const int lr = 16 * warp + lane / 4;  // the thread's key rows lr and lr + 8 of the 64
+  const int cq = 2 * (lane % 4);        // its first query column in each 8-column group
+  const int kw = k0 + 64 * wg;          // the warpgroup's first key
+  const int ka = kw + lr;
+  const float scale_log2 = scale * LOG2E;
+  const uint32_t k_rows = base + C::K_OFF + wg * ROW_BYTES;  // this warpgroup's rows of atom 0
+  const uint32_t v_rows = base + C::V_OFF + wg * ROW_BYTES;
+
+  float dka[C::DP / 2], dva[C::DP / 2];  // f32, wgmma fragment layout
+#pragma unroll
+  for (int i = 0; i < C::DP / 2; ++i) dka[i] = dva[i] = 0.f;
+  float slope_log2 = 0.f;
+
+  mbar_wait(bars, 0);  // K, V
+  for (int t = 0; t < n_tiles; ++t) {
+    const int st = t % C::STAGES;
+    const int q0 = (i0 + t % n_i) * TILE;
+    const uint32_t q_tile = base + C::RING_OFF + st * C::STAGE_BYTES;
+    const uint32_t do_tile = q_tile + C::Q_TILE;
+    if (t % n_i == 0 && slopes != nullptr)  // a new q head: its own slope
+      slope_log2 = __fmul_rn(slopes[kvh * G + g0 + t / n_i], LOG2E);
+    if (loader && t + AHEAD < n_tiles) fetch(t + AHEAD);
+    mbar_wait(bars + 8 * (1 + st), (t / C::STAGES) & 1);
+    // a tile the warpgroup's band misses whole (every query before its
+    // first key, or at least `window` past its last) takes no products
+    if (q0 + TILE - 1 >= kw && !(window > 0 && q0 - (kw + 63) >= window)) {
+      // S^T = K Q^T, dP^T = V dO^T
+      float s[32], dp[32];
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < C::KSTEPS; ++kk) {
+        const uint32_t off = (kk / 4) * C::K_ATOM + (kk % 4) * 32;
+        const uint32_t qoff = (kk / 4) * ROW_BYTES + (kk % 4) * 32;
+        wgmma_ss(s, gmma_desc(k_rows + off, 16, 1024), gmma_desc(q_tile + qoff, 16, 1024),
+                 kk > 0);
+      }
+#pragma unroll
+      for (int kk = 0; kk < C::KSTEPS; ++kk) {
+        const uint32_t off = (kk / 4) * C::K_ATOM + (kk % 4) * 32;
+        const uint32_t qoff = (kk / 4) * ROW_BYTES + (kk % 4) * 32;
+        wgmma_ss(dp, gmma_desc(v_rows + off, 16, 1024), gmma_desc(do_tile + qoff, 16, 1024),
+                 kk > 0);
+      }
+      wgmma_commit();
+      wgmma_wait();
+      fence_regs(s);
+      fence_regs(dp);
+
+      // P^T = 2^(s scale + slope (key - query) - lse) on live (key,
+      // query), dS^T = P^T (dP^T - delta) scale; the query is the column
+      const bool cut = kw + 63 > q0 || (window > 0 && kw <= q0 + TILE - 1 - window);
+      const float* ls = lse_s + st * TILE;
+      const float* dl = delta_s + st * TILE;
+      uint32_t pa[4][4], da[4][4];  // P^T, dS^T in bf16 as A fragments (k-step: 16 queries)
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk) {
+#pragma unroll
+        for (int x = 0; x < 8; ++x) {
+          const int i = 8 * kk + x;
+          const int qc = 8 * (i / 4) + cq + (i & 1);  // the query's column in the tile
+          const int c = q0 + qc;
+          const int r = ka + 8 * ((i >> 1) & 1);
+          float p = ex2(fmaf(s[i], scale_log2,
+                             fmaf(slope_log2, static_cast<float>(r - c), -ls[qc])));
+          if (cut && (r > c || (window > 0 && r <= c - window))) p = 0.f;
+          s[i] = p;
+          dp[i] = __fmul_rn(__fmul_rn(p, __fsub_rn(dp[i], dl[qc])), scale);
+        }
+#pragma unroll
+        for (int x = 0; x < 4; ++x) {
+          pa[kk][x] = pack_bf16(s[8 * kk + 2 * x], s[8 * kk + 2 * x + 1]);
+          da[kk][x] = pack_bf16(dp[8 * kk + 2 * x], dp[8 * kk + 2 * x + 1]);
+        }
+      }
+
+      // dV += P^T dO, dK += dS^T Q (dO and Q read MN-major)
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk)
+        wgmma_rs(dva, pa[kk], gmma_desc(do_tile + kk * 16 * 128, ROW_BYTES, 1024));
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk)
+        wgmma_rs(dka, da[kk], gmma_desc(q_tile + kk * 16 * 128, ROW_BYTES, 1024));
+      wgmma_commit();
+      wgmma_wait();
+      fence_regs(dva);
+      fence_regs(dka);
+    }
+    release<C>(bars, t, n_tiles, lane, loader, load);
+  }
+
+  const size_t row_stride = static_cast<size_t>(KV) * C::D;
+  if (part != nullptr) {
+    // a chunk of a split group: its f32 partial, added up by the combine pass
+    const size_t n = static_cast<size_t>(B) * S * row_stride;
+    float* pk = part + static_cast<size_t>(chunk) * 2 * n;
+    float* pv = pk + n;
+#pragma unroll
+    for (int j = 0; j < C::D / 8; ++j) {
+#pragma unroll
+      for (int half = 0; half < 2; ++half) {
+        const int key = ka + 8 * half;
+        if (key < S) {
+          const size_t idx = (static_cast<size_t>(b) * S + key) * row_stride +
+                             static_cast<size_t>(kvh) * C::D + 8 * j + cq;
+          *reinterpret_cast<float2*>(pk + idx) =
+              make_float2(dka[4 * j + 2 * half], dka[4 * j + 2 * half + 1]);
+          *reinterpret_cast<float2*>(pv + idx) =
+              make_float2(dva[4 * j + 2 * half], dva[4 * j + 2 * half + 1]);
+        }
+      }
+    }
+    return;
+  }
+  // stage dK in the warpgroup's K rows and dV in its V rows (spent), then
+  // write 16-byte vectors
+  unsigned char* sk = smem + C::K_OFF + wg * ROW_BYTES;
+  unsigned char* sv = smem + C::V_OFF + wg * ROW_BYTES;
+  stage_rows<C::DP>(sk, dka, lr, cq, C::K_ATOM);
+  stage_rows<C::DP>(sv, dva, lr, cq, C::K_ATOM);
+  asm volatile("bar.sync %0, %1;" ::"r"(1 + wg), "n"(WG) : "memory");
+  constexpr int VPR = C::D / 8;  // 16-byte vectors per row
+  for (int x = wtid; x < 64 * VPR; x += WG) {
+    const int row = x / VPR;
+    const int v = x % VPR;
+    if (kw + row >= S) continue;
+    const size_t dst = (static_cast<size_t>(b) * S + kw + row) * row_stride +
+                       static_cast<size_t>(kvh) * C::D + v * 8;
+    const int off = stage_off(row, v, C::K_ATOM);
+    *reinterpret_cast<uint4*>(dk + dst) = *reinterpret_cast<const uint4*>(sk + off);
+    *reinterpret_cast<uint4*>(dv + dst) = *reinterpret_cast<const uint4*>(sv + off);
+  }
 }
 
-template <int D>
+// The group split's second pass: dk, dv (n elements each) = the sum over
+// chunks, in chunk order, of the f32 partials [n_chunks][2][n]; one
+// thread per 4 elements.
+__global__ void __launch_bounds__(256)
+    flash_bwd_dkv_combine(__nv_bfloat16* __restrict__ dk, __nv_bfloat16* __restrict__ dv,
+                          const float* __restrict__ part, int n_chunks, long long n4) {
+  const long long x = static_cast<long long>(blockIdx.x) * 256 + threadIdx.x;
+  if (x >= 2 * n4) return;
+  const long long t = x / n4;  // 0: dk, 1: dv
+  const long long e = x % n4;
+  const float4* p = reinterpret_cast<const float4*>(part) + t * n4 + e;
+  float4 s = p[0];
+  for (int c = 1; c < n_chunks; ++c) {
+    const float4 v = p[c * 2 * n4];
+    s.x += v.x;
+    s.y += v.y;
+    s.z += v.z;
+    s.w += v.w;
+  }
+  __nv_bfloat16* out = t == 0 ? dk : dv;
+  *reinterpret_cast<uint2*>(out + 4 * e) = make_uint2(pack_bf16(s.x, s.y), pack_bf16(s.z, s.w));
+}
+
+// dq: one CTA per (q tile, batch, q head), q tiles in reverse order (the
+// longest causal rows first); warpgroup wg takes rows rw..rw+63.
+template <class C>
+__global__ void __launch_bounds__(C::THREADS, C::MIN_BLOCKS)
+    flash_bwd_dq_kernel(const __grid_constant__ CUtensorMap tq,
+                        const __grid_constant__ CUtensorMap tk,
+                        const __grid_constant__ CUtensorMap tv,
+                        const __grid_constant__ CUtensorMap tdo, __nv_bfloat16* __restrict__ dq,
+                        const float* __restrict__ lse, const float* __restrict__ delta,
+                        const float* __restrict__ slopes, int S, int H, int KV, int window,
+                        float scale) {
+  extern __shared__ __align__(1024) unsigned char smem_raw[];
+  const uint32_t raw = smem_u32(smem_raw);
+  const uint32_t base = (raw + 1023u) & ~1023u;
+  unsigned char* smem = smem_raw + (base - raw);
+  const uint32_t bars = base + C::BAR_OFF;
+
+  const int n_m = (S + C::BM - 1) / C::BM;
+  const int BH = gridDim.x / n_m;
+  const int bh = blockIdx.x % BH;
+  const int b = bh / H;
+  const int h = bh % H;
+  const int kvh = h / (H / KV);
+  const int q0 = (n_m - 1 - blockIdx.x / BH) * C::BM;
+  // causal: key tiles up to the one holding the CTA's last row; window:
+  // from the one holding its first row's first live column. Ring tile t is
+  // key tile j0 + t.
+  const int j0 = window > 0 ? max(q0 - window + 1, 0) / C::BN : 0;
+  const int n_tiles = min((q0 + C::BM - 1) / C::BN + 1, (S + C::BN - 1) / C::BN) - j0;
+
+  auto load = [&](int t) {
+    const int st = t % C::STAGES;
+    const uint32_t full = bars + 8 * (1 + st);
+    const uint32_t k_tile = base + C::RING_OFF + st * C::STAGE_BYTES;
+    mbar_expect_tx(full, C::STAGE_BYTES);
+    for (int a = 0; a < C::NA; ++a) {
+      tma_load(k_tile + a * ROW_BYTES, &tk, full, a * ATOM, kvh, (j0 + t) * C::BN, b);
+      tma_load(k_tile + C::WG_TILE + a * ROW_BYTES, &tv, full, a * ATOM, kvh, (j0 + t) * C::BN,
+               b);
+    }
+  };
+
+  init_bars<C>(bars, 1);
+  if (threadIdx.x == 0) {
+    // Q and dO: one box per warpgroup and atom; a warpgroup whose rows all
+    // lie past S gets none (its rows are never written)
+    uint32_t bytes = 0;
+    for (int w = 0; w < C::NWG; ++w)
+      if (q0 + 64 * w < S) bytes += 2 * C::WG_TILE;
+    mbar_expect_tx(bars, bytes);
+    for (int w = 0; w < C::NWG; ++w)
+      if (q0 + 64 * w < S)
+        for (int a = 0; a < C::NA; ++a) {
+          tma_load(base + C::Q_OFF + w * C::WG_TILE + a * ROW_BYTES, &tq, bars, a * ATOM, h,
+                   q0 + 64 * w, b);
+          tma_load(base + C::DO_OFF + w * C::WG_TILE + a * ROW_BYTES, &tdo, bars, a * ATOM, h,
+                   q0 + 64 * w, b);
+        }
+    for (int t = 0; t < min(AHEAD, n_tiles); ++t) load(t);
+  }
+  __syncwarp();
+
+  const int wg = threadIdx.x / WG;
+  const int wtid = threadIdx.x % WG;
+  const int warp = wtid / 32;
+  const int lane = wtid % 32;
+  const int lr = 16 * warp + lane / 4;  // the thread's rows lr and lr + 8 of the 64
+  const int rw = q0 + 64 * wg;          // the warpgroup's first row
+  const int ra = rw + lr;
+  const int cq = 2 * (lane % 4);        // its first key column in each 8-column group
+  const float scale_log2 = scale * LOG2E;
+  const float slope_log2 = slopes != nullptr ? __fmul_rn(slopes[h], LOG2E) : 0.f;
+  const uint32_t q_tile = base + C::Q_OFF + wg * C::WG_TILE;
+  const uint32_t do_tile = base + C::DO_OFF + wg * C::WG_TILE;
+  // lse (log2 units; +inf past S, so P = 0 there) and delta of rows ra, ra + 8
+  const size_t row = (static_cast<size_t>(b) * H + h) * S;
+  const float l0 = ra < S ? __fmul_rn(lse[row + ra], LOG2E) : INFINITY;
+  const float l1 = ra + 8 < S ? __fmul_rn(lse[row + ra + 8], LOG2E) : INFINITY;
+  const float d0 = ra < S ? delta[row + ra] : 0.f;
+  const float d1 = ra + 8 < S ? delta[row + ra + 8] : 0.f;
+
+  float acc[C::DP / 2];  // dQ, f32, wgmma fragment layout
+#pragma unroll
+  for (int i = 0; i < C::DP / 2; ++i) acc[i] = 0.f;
+
+  mbar_wait(bars, 0);  // Q, dO
+  for (int t = 0; t < n_tiles; ++t) {
+    const int st = t % C::STAGES;
+    const int c0 = (j0 + t) * C::BN;
+    const uint32_t k_tile = base + C::RING_OFF + st * C::STAGE_BYTES;
+    const uint32_t v_tile = k_tile + C::WG_TILE;
+    mbar_wait(bars + 8 * (1 + st), (t / C::STAGES) & 1);
+    // a tile the warpgroup's band misses whole takes no products
+    if (c0 <= rw + 63 && !(window > 0 && rw - (c0 + C::BN - 1) >= window)) {
+      // S = Q K^T, dP = dO V^T
+      float s[32], dp[32];
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < C::KSTEPS; ++kk) {
+        const uint32_t off = (kk / 4) * ROW_BYTES + (kk % 4) * 32;
+        wgmma_ss(s, gmma_desc(q_tile + off, 16, 1024), gmma_desc(k_tile + off, 16, 1024), kk > 0);
+      }
+#pragma unroll
+      for (int kk = 0; kk < C::KSTEPS; ++kk) {
+        const uint32_t off = (kk / 4) * ROW_BYTES + (kk % 4) * 32;
+        wgmma_ss(dp, gmma_desc(do_tile + off, 16, 1024), gmma_desc(v_tile + off, 16, 1024),
+                 kk > 0);
+      }
+      wgmma_commit();
+      wgmma_wait();
+      fence_regs(s);
+      fence_regs(dp);
+
+      // P = 2^(s scale + slope (col - row) - lse), dS = P (dP - delta) scale
+      const bool cut = c0 + C::BN - 1 > rw || (window > 0 && c0 <= rw + 63 - window);
+      uint32_t da[4][4];  // dS in bf16 as A fragments (k-step: 16 keys)
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk) {
+#pragma unroll
+        for (int x = 0; x < 8; ++x) {
+          const int i = 8 * kk + x;
+          const int c = c0 + 8 * (i / 4) + cq + (i & 1);
+          const int r = ra + 8 * ((i >> 1) & 1);
+          const bool second = (i >> 1) & 1;
+          float p = ex2(fmaf(s[i], scale_log2,
+                             fmaf(slope_log2, static_cast<float>(c - r), -(second ? l1 : l0))));
+          if (cut && (c > r || (window > 0 && c <= r - window))) p = 0.f;
+          dp[i] = __fmul_rn(__fmul_rn(p, __fsub_rn(dp[i], second ? d1 : d0)), scale);
+        }
+#pragma unroll
+        for (int x = 0; x < 4; ++x)
+          da[kk][x] = pack_bf16(dp[8 * kk + 2 * x], dp[8 * kk + 2 * x + 1]);
+      }
+
+      // dQ += dS K (K read MN-major)
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk)
+        wgmma_rs(acc, da[kk], gmma_desc(k_tile + kk * 16 * 128, ROW_BYTES, 1024));
+      wgmma_commit();
+      wgmma_wait();
+      fence_regs(acc);
+    }
+    release<C>(bars, t, n_tiles, lane, threadIdx.x == 0, load);
+  }
+
+  // stage dQ in the warpgroup's Q rows (spent), then write 16-byte vectors
+  unsigned char* sq = smem + C::Q_OFF + wg * C::WG_TILE;
+  stage_rows<C::DP>(sq, acc, lr, cq, ROW_BYTES);
+  asm volatile("bar.sync %0, %1;" ::"r"(1 + wg), "n"(WG) : "memory");
+  constexpr int VPR = C::D / 8;
+  for (int x = wtid; x < 64 * VPR; x += WG) {
+    const int r = x / VPR;
+    const int v = x % VPR;
+    if (rw + r >= S) continue;
+    *reinterpret_cast<uint4*>(dq + ((static_cast<size_t>(b) * S + rw + r) * H + h) * C::D +
+                              v * 8) =
+        *reinterpret_cast<const uint4*>(sq + stage_off(r, v, ROW_BYTES));
+  }
+}
+
+// Tensor maps of q and dO (64-row boxes) and of k and v (kv_rows-row boxes).
+int encode_maps(CUtensorMap* maps, const void* q, const void* k, const void* v, const void* dout,
+                int B, int S, int H, int KV, int D, int kv_rows) {
+  int err = encode_map(&maps[0], q, B, S, H, D, TILE);
+  if (err == 0) err = encode_map(&maps[1], k, B, S, KV, D, kv_rows);
+  if (err == 0) err = encode_map(&maps[2], v, B, S, KV, D, kv_rows);
+  if (err == 0) err = encode_map(&maps[3], dout, B, S, H, D, TILE);
+  return err;
+}
+
+template <class C>
 int launch_dq(void* dq, const void* q, const void* k, const void* v, const void* dout,
               const void* lse, const void* delta, const void* slopes, int B, int S, int H,
               int KV, int window, float scale, cudaStream_t stream) {
-  const int smem = (int)Layout<D>::BYTES;
-  cudaError_t err = cudaFuncSetAttribute(flash_bwd_dq_kernel<D>,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-  if (err != cudaSuccess) return (int)err;
-  dim3 grid(B * H, (S + BT - 1) / BT);
-  flash_bwd_dq_kernel<D><<<grid, NT, smem, stream>>>(
-      (__nv_bfloat16*)dq, (const __nv_bfloat16*)q, (const __nv_bfloat16*)k,
-      (const __nv_bfloat16*)v, (const __nv_bfloat16*)dout, (const float*)lse,
-      (const float*)delta, (const float*)slopes, S, H, KV, window, scale);
-  return (int)cudaGetLastError();
+  CUtensorMap maps[4];
+  int err = encode_maps(maps, q, k, v, dout, B, S, H, KV, C::D, C::BN);
+  if (err != 0) return err;
+  cudaError_t e = cudaFuncSetAttribute(flash_bwd_dq_kernel<C>,
+                                       cudaFuncAttributeMaxDynamicSharedMemorySize, C::SMEM);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  const long long ctas = static_cast<long long>(B) * H * ((S + C::BM - 1) / C::BM);
+  flash_bwd_dq_kernel<C><<<static_cast<unsigned>(ctas), C::THREADS, C::SMEM, stream>>>(
+      maps[0], maps[1], maps[2], maps[3], static_cast<__nv_bfloat16*>(dq),
+      static_cast<const float*>(lse), static_cast<const float*>(delta),
+      static_cast<const float*>(slopes), S, H, KV, window, scale);
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <class C>
+int launch_dkv(void* dk, void* dv, void* part, const void* q, const void* k, const void* v,
+               const void* dout, const void* lse, const void* delta, const void* slopes, int B,
+               int S, int H, int KV, int window, int n_chunks, float scale,
+               cudaStream_t stream) {
+  CUtensorMap maps[4];
+  int err = encode_maps(maps, q, k, v, dout, B, S, H, KV, C::D, C::BNK);
+  if (err != 0) return err;
+  cudaError_t e = cudaFuncSetAttribute(flash_bwd_dkv_kernel<C>,
+                                       cudaFuncAttributeMaxDynamicSharedMemorySize, C::SMEM);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  const long long ctas =
+      static_cast<long long>((S + C::BNK - 1) / C::BNK) * B * KV * n_chunks;
+  flash_bwd_dkv_kernel<C><<<static_cast<unsigned>(ctas), C::THREADS, C::SMEM, stream>>>(
+      maps[0], maps[1], maps[2], maps[3], static_cast<__nv_bfloat16*>(dk),
+      static_cast<__nv_bfloat16*>(dv), n_chunks > 1 ? static_cast<float*>(part) : nullptr,
+      static_cast<const float*>(lse), static_cast<const float*>(delta),
+      static_cast<const float*>(slopes), B, S, H, KV, window, n_chunks, scale);
+  e = cudaGetLastError();
+  if (e != cudaSuccess || n_chunks == 1) return static_cast<int>(e);
+  const long long n4 = static_cast<long long>(B) * S * KV * C::D / 4;
+  flash_bwd_dkv_combine<<<static_cast<unsigned>((2 * n4 + 255) / 256), 256, 0, stream>>>(
+      static_cast<__nv_bfloat16*>(dk), static_cast<__nv_bfloat16*>(dv),
+      static_cast<const float*>(part), n_chunks, n4);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// 128-row CTAs (two warpgroups) where B * heads * ceil(S / 128) fills the
+// card, else 64-row CTAs (one warpgroup, two CTAs an SM); dkv always takes
+// 128 keys when its group is split.
+bool fills_card(int B, int S, int heads) {
+  return static_cast<long long>(B) * heads * ((S + 127) / 128) >= sm_count();
 }
 
 template <int D>
-int launch_dkv(void* dk, void* dv, const void* q, const void* k, const void* v,
-               const void* dout, const void* lse, const void* delta, const void* slopes,
-               int B, int S, int H, int KV, int window, float scale, cudaStream_t stream) {
-  const int smem = (int)Layout<D>::BYTES;
-  cudaError_t err = cudaFuncSetAttribute(flash_bwd_dkv_kernel<D>,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-  if (err != cudaSuccess) return (int)err;
-  dim3 grid(B * KV, (S + BT - 1) / BT);
-  flash_bwd_dkv_kernel<D><<<grid, NT, smem, stream>>>(
-      (__nv_bfloat16*)dk, (__nv_bfloat16*)dv, (const __nv_bfloat16*)q,
-      (const __nv_bfloat16*)k, (const __nv_bfloat16*)v, (const __nv_bfloat16*)dout,
-      (const float*)lse, (const float*)delta, (const float*)slopes, S, H, KV, window, scale);
-  return (int)cudaGetLastError();
+int dispatch_dq(void* dq, const void* q, const void* k, const void* v, const void* dout,
+                const void* lse, const void* delta, const void* slopes, int B, int S, int H,
+                int KV, int window, float scale, cudaStream_t st) {
+  if (fills_card(B, S, H))
+    return launch_dq<DqCfg<D, 2>>(dq, q, k, v, dout, lse, delta, slopes, B, S, H, KV, window,
+                                  scale, st);
+  return launch_dq<DqCfg<D, 1>>(dq, q, k, v, dout, lse, delta, slopes, B, S, H, KV, window,
+                                scale, st);
+}
+
+template <int D>
+int dispatch_dkv(void* dk, void* dv, void* part, const void* q, const void* k, const void* v,
+                 const void* dout, const void* lse, const void* delta, const void* slopes, int B,
+                 int S, int H, int KV, int window, int n_chunks, float scale, cudaStream_t st) {
+  if (n_chunks > 1 || fills_card(B, S, KV))
+    return launch_dkv<DkvCfg<D, 2>>(dk, dv, part, q, k, v, dout, lse, delta, slopes, B, S, H,
+                                    KV, window, n_chunks, scale, st);
+  return launch_dkv<DkvCfg<D, 1>>(dk, dv, part, q, k, v, dout, lse, delta, slopes, B, S, H, KV,
+                                  window, n_chunks, scale, st);
 }
 
 }  // namespace
@@ -444,48 +749,52 @@ extern "C" int flash_bwd_dq(void* dq, const void* q, const void* k, const void* 
                             const void* slopes, int B, int S, int H, int KV, int D, int window,
                             float scale, void* stream) {
   if (B <= 0 || S <= 0) return 0;
-  if (KV <= 0 || H % KV != 0) return (int)cudaErrorInvalidValue;
-  if (window > S) window = S;  // the same band, and no overflow in the tile bounds
-  cudaStream_t st = (cudaStream_t)stream;
+  if (KV <= 0 || H % KV != 0) return static_cast<int>(cudaErrorInvalidValue);
+  if (window >= S) window = 0;  // the causal band: the same result, no overflow in tile bounds
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
   switch (D) {
     case 64:
-      return launch_dq<64>(dq, q, k, v, dout, lse, delta, slopes, B, S, H, KV, window, scale,
-                           st);
+      return dispatch_dq<64>(dq, q, k, v, dout, lse, delta, slopes, B, S, H, KV, window, scale,
+                             st);
     case 80:
-      return launch_dq<80>(dq, q, k, v, dout, lse, delta, slopes, B, S, H, KV, window, scale,
-                           st);
+      return dispatch_dq<80>(dq, q, k, v, dout, lse, delta, slopes, B, S, H, KV, window, scale,
+                             st);
     case 128:
-      return launch_dq<128>(dq, q, k, v, dout, lse, delta, slopes, B, S, H, KV, window, scale,
-                            st);
+      return dispatch_dq<128>(dq, q, k, v, dout, lse, delta, slopes, B, S, H, KV, window, scale,
+                              st);
     default:
-      return (int)cudaErrorInvalidValue;
+      return static_cast<int>(cudaErrorInvalidValue);
   }
 }
 
-// slopes: as flash_bwd_dq; the group's q head kv * G + g takes slopes[kv * G + g]
+// slopes: as flash_bwd_dq; the group's q head kv * G + g takes slopes[kv * G + g].
+// n_chunks: the group split (1: none); part: its f32 scratch
+// [n_chunks, 2, B, S, KV, D], unused (may be null) when n_chunks is 1.
 extern "C" int flash_bwd_dkv(void* dk, void* dv, const void* q, const void* k, const void* v,
                              const void* dout, const void* lse, const void* delta,
-                             const void* slopes, int B, int S, int H, int KV, int D, int window,
-                             float scale, void* stream) {
+                             const void* slopes, void* part, int B, int S, int H, int KV, int D,
+                             int window, int n_chunks, float scale, void* stream) {
   if (B <= 0 || S <= 0) return 0;
-  if (KV <= 0 || H % KV != 0) return (int)cudaErrorInvalidValue;
-  if (window > S) window = S;  // the same band, and no overflow in the tile bounds
-  cudaStream_t st = (cudaStream_t)stream;
+  if (KV <= 0 || H % KV != 0) return static_cast<int>(cudaErrorInvalidValue);
+  if (n_chunks < 1 || n_chunks > H / KV || (n_chunks > 1 && part == nullptr))
+    return static_cast<int>(cudaErrorInvalidValue);
+  if (window >= S) window = 0;
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
   switch (D) {
     case 64:
-      return launch_dkv<64>(dk, dv, q, k, v, dout, lse, delta, slopes, B, S, H, KV, window,
-                            scale, st);
+      return dispatch_dkv<64>(dk, dv, part, q, k, v, dout, lse, delta, slopes, B, S, H, KV,
+                              window, n_chunks, scale, st);
     case 80:
-      return launch_dkv<80>(dk, dv, q, k, v, dout, lse, delta, slopes, B, S, H, KV, window,
-                            scale, st);
+      return dispatch_dkv<80>(dk, dv, part, q, k, v, dout, lse, delta, slopes, B, S, H, KV,
+                              window, n_chunks, scale, st);
     case 128:
-      return launch_dkv<128>(dk, dv, q, k, v, dout, lse, delta, slopes, B, S, H, KV, window,
-                             scale, st);
+      return dispatch_dkv<128>(dk, dv, part, q, k, v, dout, lse, delta, slopes, B, S, H, KV,
+                               window, n_chunks, scale, st);
     default:
-      return (int)cudaErrorInvalidValue;
+      return static_cast<int>(cudaErrorInvalidValue);
   }
 }
 
 extern "C" const char* ds_cuda_error_string(int err) {
-  return cudaGetErrorString((cudaError_t)err);
+  return cudaGetErrorString(static_cast<cudaError_t>(err));
 }

@@ -51,7 +51,8 @@ SIGNATURES = {
                   "flash_fwd_encode_ns": [_P] * 3 + [_I] * 6},
     "flash_bwd": {
         "flash_bwd_dq": [_P] * 8 + [_I] * 6 + [_F, _P],
-        "flash_bwd_dkv": [_P] * 9 + [_I] * 6 + [_F, _P],
+        # ... slopes, the group split's f32 scratch; ..., window, its chunk count
+        "flash_bwd_dkv": [_P] * 10 + [_I] * 7 + [_F, _P],
     },
     "evoformer_fwd": {"evoformer_fwd": [_P] * 7 + [_I] * 5 + [_F, _P]},
     "evoformer_bwd": {

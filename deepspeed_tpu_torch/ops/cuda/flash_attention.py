@@ -23,6 +23,11 @@ the sliding-window mode, `alibi_launches`, in the ALiBi mode,
 `wide_group_launches`, with more than 8 query heads per KV head
 (Falcon-7B: 71 over one), and `d80_launches`, at head_dim 80 (Phi-2).
 
+Kernel #3 sums each KV head's dk and dv over its group of query heads in
+registers; where its grid would leave SMs idle it splits the group into
+chunks (`dkv_split_plan`) whose f32 partials a second pass adds in chunk
+order (the scratch comes from `torch.empty`; no atomics either way).
+
 Head dims: the forward and both backward kernels take 64, 80 and 128;
 `FlashAttention` raises before its forward launches when the inputs need
 a gradient at a head dim no backward kernel takes.
@@ -44,6 +49,9 @@ Not ported yet (ROADMAP B3, with the non-causal mode): the lse cotangent
 of `flash_attention_with_lse` (`delta_adjust`, used only by ring
 attention): a loss that reaches lse raises in the backward.
 """
+
+import math
+from typing import NamedTuple, Tuple
 
 import torch
 
@@ -197,18 +205,28 @@ _BWD_DTYPES = {"q": _BF16, "k": _BF16, "v": _BF16, "do": _BF16, "lse": _F32, "de
 
 def _launch_bwd(what, q, k, v, do, lse, delta, window, alibi, outs):
     """Check the arguments of a backward kernel and launch it into `outs`
-    (dq, or dk and dv); returns False, launching nothing, for an empty
-    batch or sequence."""
+    (dq, or dk and dv with the group split of `dkv_split_plan` and its f32
+    scratch); returns False, launching nothing, for an empty batch or
+    sequence."""
     _check_attention_args(what, {"q": q, "k": k, "v": v, "do": do, "lse": lse,
                                  "delta": delta}, _BWD_DTYPES, q, k, _BWD_HEAD_DIMS)
     _check_slopes(what, q, alibi)
     B, S, H, D = q.shape
+    KV = k.shape[2]
     if B * S == 0:
         return False
+    ptrs = [*(ptr(t) for t in outs), ptr(q), ptr(k), ptr(v), ptr(do), ptr(lse), ptr(delta),
+            None if alibi is None else ptr(alibi)]
+    ints = [B, S, H, KV, D, int(window)]
+    if what == "flash_bwd_dkv":
+        plan = dkv_split_plan(B, S, H, KV, D,
+                              torch.cuda.get_device_properties(q.device).multi_processor_count)
+        part = (torch.empty(plan.scratch_shape, dtype=_F32, device=q.device)
+                if plan.n_chunks > 1 else None)
+        ptrs.append(None if part is None else ptr(part))
+        ints.append(plan.n_chunks)
     lib = build.load("flash_bwd")
-    err = getattr(lib, what)(*(ptr(t) for t in outs), ptr(q), ptr(k), ptr(v), ptr(do),
-                             ptr(lse), ptr(delta), None if alibi is None else ptr(alibi), B, S,
-                             H, k.shape[2], D, int(window), 1.0 / D ** 0.5, stream_of(q))
+    err = getattr(lib, what)(*ptrs, *ints, 1.0 / D ** 0.5, stream_of(q))
     build.check(lib, err, what)
     return True
 
@@ -232,11 +250,52 @@ def flash_bwd_dq(q, k, v, do, lse, delta, window: int = 0, alibi=None):
 zero_counts(flash_bwd_dq, "window", "alibi", "wide_group", "d80")
 
 
+# Kernel #3's group split: where B * KV * ceil(S / 128) CTAs of 128 keys
+# would leave SMs idle, each group of q heads is cut into chunks (one CTA
+# per key block and chunk) until the grid holds SPLIT_WAVES CTAs an SM.
+SPLIT_WAVES = 4
+
+
+class DkvSplit(NamedTuple):
+    """The group split of kernel #3 (`dkv_split_plan`): `n_chunks` CTAs
+    per (key block, batch, KV head); `chunks[c]` = (first, end) of chunk
+    c's q heads within the group (contiguous, in order, ceil(G /
+    n_chunks) each, the last possibly fewer); `scratch_shape` = [n_chunks,
+    2, B, S, KV, D] f32, the chunks' partial dk and dv that the combine
+    pass adds in chunk order (() when the group is not split)."""
+    n_chunks: int
+    chunks: Tuple[Tuple[int, int], ...]
+    scratch_shape: Tuple[int, ...]
+
+    @property
+    def scratch_bytes(self) -> int:
+        return 4 * math.prod(self.scratch_shape) if self.scratch_shape else 0
+
+
+def dkv_split_plan(B, S, H, KV, D, sm_count) -> DkvSplit:
+    """The split kernel #3 takes on a card of `sm_count` SMs: none (one
+    chunk) when B * KV * ceil(S / 128) fills the card or the group is one
+    head; else about SPLIT_WAVES * sm_count CTAs, the chunk count then cut
+    to ceil(G / ceil(G / wanted)) so that no chunk is empty (the kernel
+    gives chunk c heads c * ceil(G / n) onwards)."""
+    G = H // KV
+    blocks = B * KV * -(-S // 128)
+    n = 1
+    if blocks < sm_count and G > 1:
+        wanted = min(G, -(-SPLIT_WAVES * sm_count // blocks))
+        n = -(-G // -(-G // wanted))
+    size = -(-G // n)
+    chunks = tuple((c * size, min(G, (c + 1) * size)) for c in range(n))
+    return DkvSplit(n, chunks, (n, 2, B, S, KV, D) if n > 1 else ())
+
+
 def flash_bwd_dkv(q, k, v, do, lse, delta, window: int = 0, alibi=None):
     """dk and dv of causal attention (kernel #3: csrc/flash_bwd.cu), each
-    KV head's gradient summed over its group of query heads inside the
-    kernel (no atomics: the same bits every run), each q head with its own
-    ALiBi slope. Arguments as `flash_bwd_dq`. Returns (dk, dv) [B, S, KV,
+    KV head's gradient summed over its group of query heads, each q head
+    with its own ALiBi slope: in the kernel's registers, or where the
+    group is split (`dkv_split_plan`) per chunk into an f32 scratch that a
+    second pass adds in chunk order (no atomics either way: the same bits
+    every run). Arguments as `flash_bwd_dq`. Returns (dk, dv) [B, S, KV,
     D] bf16. CPU tensors take the plain version."""
     if not q.is_cuda:
         return _bwd_plain(q, k, v, lse, delta, do, window, alibi)[1:]

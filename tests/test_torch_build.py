@@ -5,6 +5,7 @@ beside the library, a failed build raising with its report, and an
 unchanged source not rebuilt. The real compiler runs only on the GPU
 machine (`chip_smoke.py` prints the seconds there)."""
 
+import shutil
 import stat
 
 import pytest
@@ -69,3 +70,20 @@ def test_an_unchanged_source_is_not_rebuilt(fake_cuda):
     assert [line.split("/")[-1].split("-")[0] for line in fake_cuda.read_text().split()] == [
         "flash_fwd", "flash_bwd"]
     assert list(PB.BUILD_SECONDS) == ["flash_bwd"]
+
+
+def test_the_shared_hopper_header_rebuilds_both_flash_libraries(tmp_path, monkeypatch):
+    """flash_fwd.cu and flash_bwd.cu take their mbarrier, TMA and wgmma
+    helpers from csrc/hopper.cuh: an edit of it changes both libraries'
+    names, so neither loads a stale build."""
+    csrc = tmp_path / "csrc"
+    shutil.copytree(PB.CSRC, csrc)
+    monkeypatch.setattr(PB, "CSRC", csrc)
+    names = ("flash_fwd", "flash_bwd")
+    for name in names:
+        assert '#include "hopper.cuh"' in (csrc / f"{name}.cu").read_text()
+    before = {n: PB._library_path(n) for n in names}
+    header = csrc / "hopper.cuh"
+    header.write_text(header.read_text() + "\n// an edit\n")
+    after = {n: PB._library_path(n) for n in names}
+    assert all(before[n] != after[n] for n in names)

@@ -1385,3 +1385,190 @@ class TestFlashBackwardWideGroupAndHeadDim80OnCard:
         for name, g, r, d in zip(("dq", "dk", "dv"), got, same, dense):
             _assert_grad_close(g, r, name)
             assert _rms(g.float() - d) <= 2.0 ** -7 * _rms(d), name
+
+
+def _dkv_batches(S, KV, H):
+    """Batch sizes that put kernel #3 in each of its launch forms: B = 1
+    (one consumer warpgroup of 64 keys, or with a group of several heads
+    the group split) and the least B at which B * KV * ceil(S / 128) CTAs
+    of 128 keys fill the card (no split); and kernel #2 likewise in both
+    CTA heights (_flash_batches)."""
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    return sorted({1, -(-sms // (KV * -(-S // 128))), *_flash_batches(S, H)})
+
+
+def _plain_bwd_rows(q, k, v, o, lse, do, window=0, alibi=None):
+    """The plain backward one batch row at a time (the rows are
+    independent; one [1, H, S, S] f32 tensor at a time)."""
+    rows = [PF.flash_attention_bwd_plain(*(t[b:b + 1] for t in (q, k, v, o, lse, do)), window,
+                                         alibi) for b in range(q.shape[0])]
+    return tuple(torch.cat(parts) for parts in zip(*rows))
+
+
+def _bwd_diag_tile_unmasked(q, k, v, lse, delta, do, tile=64):
+    """What kernels #2 and #3 would output if they took their diagonal
+    tile x tile tiles unmasked: the plain backward's math with each row
+    also seeing the later keys of its own diagonal tile (P and dS rounded
+    to bf16 as the kernels round them)."""
+    B, S, H, D = q.shape
+    KV = k.shape[2]
+    G = H // KV
+    pos = torch.arange(S, device=q.device)
+    seen = (pos[None, :] <= pos[:, None]) | (pos[None, :] // tile == pos[:, None] // tile)
+    kf, vf = PF._repeat_kv(k, G).float(), PF._repeat_kv(v, G).float()
+    logits = torch.einsum("bqhd,bkhd->bhqk", q.float(), kf) / D ** 0.5
+    p = torch.exp(logits.masked_fill(~seen, float("-inf")) - lse[..., None])
+    dp = torch.einsum("bqhd,bkhd->bhqk", do.float(), vf)
+    ds = p * (dp - delta[..., None]) / D ** 0.5
+    p, ds = p.to(q.dtype).float(), ds.to(q.dtype).float()
+    dq = torch.einsum("bhqk,bkhd->bqhd", ds, kf)
+    dk = torch.einsum("bhqk,bqhd->bkhd", ds, q.float()).reshape(B, S, KV, G, D).sum(3)
+    dv = torch.einsum("bhqk,bqhd->bkhd", p, do.float()).reshape(B, S, KV, G, D).sum(3)
+    return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
+
+
+def _ring_stages(B, S, heads, split=False):
+    """The ring depth of kernels #2 and #3: three stages with two
+    warpgroups (where B * heads * ceil(S / 128) fills the card, and in
+    dkv's group split), two with one."""
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    return 3 if split or B * heads * -(-S // 128) >= sms else 2
+
+
+def _stale_tile(x, dim, stages, tile=64):
+    """x with rows [stages * tile, (stages + 1) * tile) of axis `dim` (the
+    first tile a ring of `stages` stages loads into a used stage) holding
+    tile 0's rows: what a kernel that read a ring stage before its full
+    barrier landed would see."""
+    y = x.clone()
+    y.narrow(dim, stages * tile, tile).copy_(x.narrow(dim, 0, tile))
+    return y
+
+
+@pytest.mark.cuda
+class TestFlashBackwardHopperOnCard:
+    """Kernels #2 (dq) and #3 (dk, dv) in their wgmma/TMA design against
+    the plain backward on the forward kernel's o and lse, under
+    `bwd_mismatch`: sequence lengths at the edges of the 64- and 128-row
+    tiles (a single row, the ragged last tile, rows past S as TMA's
+    zeros), whole query groups of 1, 2, 8, 9, 16 and 71 over their KV
+    heads (the group split on a grid that leaves SMs idle, its last chunk
+    partial where the chunk size does not divide G), head dims 64, 80 and
+    128; in each, every launch form (_dkv_batches), the causal band and
+    windows 1, 2, S - 1, S and S + 5, each with and without ALiBi slopes
+    (where every row sees one key, window 1 or S = 1, dq and dk are zero
+    up to rounding and are held below 2^-10 of dv's RMS, as in
+    TestWindowOnCard).
+    Then two launches bit-identical, a split and an unsplit result of the
+    same rows within the tolerance, and planted faults aimed at the
+    design that the check must catch."""
+
+    @staticmethod
+    def _bwd(q, k, v, do, lse, delta, window=0, alibi=None):
+        return (PF.flash_bwd_dq(q, k, v, do, lse, delta, window, alibi),) + \
+            PF.flash_bwd_dkv(q, k, v, do, lse, delta, window, alibi)
+
+    def _check(self, q, k, v, do, S, what):
+        H = q.shape[2]
+        for window in sorted({0, 1, 2, max(S - 1, 0), S, S + 5}):
+            for alibi in (None, _slopes(H, q.device)):
+                o, lse = PF.flash_fwd(q, k, v, window, alibi)
+                delta = PF._delta(o, do)
+                got = self._bwd(q, k, v, do, lse, delta, window, alibi)
+                ref = _plain_bwd_rows(q, k, v, o, lse, do, window, alibi)
+                for name, g, r in zip(("dq", "dk", "dv"), got, ref):
+                    case = f"{name} {what} window={window} alibi={alibi is not None}"
+                    if name != "dv" and (window == 1 or S == 1):
+                        # every row sees one key: P = 1 and dq, dk are zero up to
+                        # rounding (TestWindowOnCard.test_flash_window_one)
+                        assert g.float().abs().max().item() <= 2.0 ** -10 * _rms(got[2]), case
+                    else:
+                        _assert_grad_close(g, r, case)
+
+    @pytest.mark.parametrize("D", [64, 80, 128])
+    @pytest.mark.parametrize("G", [1, 2, 8, 9, 16, 71])
+    @pytest.mark.parametrize("S", [1, 63, 64, 65, 127, 129, 300])
+    def test_kernels_match_plain(self, rng, cuda_device, S, G, D):
+        KV = 1 if G == 71 else 2
+        H = G * KV
+        batches = _dkv_batches(S, KV, H)
+        B = max(batches)
+        q = _bf16_cuda(rng.standard_normal((B, S, H, D)), cuda_device)
+        k = _bf16_cuda(rng.standard_normal((B, S, KV, D)), cuda_device)
+        v = _bf16_cuda(rng.standard_normal((B, S, KV, D)), cuda_device)
+        do = _bf16_cuda(rng.standard_normal((B, S, H, D)), cuda_device)
+        for b in batches:
+            self._check(q[:b], k[:b], v[:b], do[:b], S, f"B={b} S={S} H={H} KV={KV} D={D}")
+
+    @pytest.mark.parametrize("D", [64, 80, 128])
+    @pytest.mark.parametrize("H,KV", [(2, 2), (71, 1)])
+    def test_kernels_match_plain_at_2048(self, rng, cuda_device, H, KV, D):
+        S = 2048
+        for b in (1, _dkv_batches(S, KV, H)[-1]):
+            q = _bf16_cuda(rng.standard_normal((b, S, H, D)), cuda_device)
+            k = _bf16_cuda(rng.standard_normal((b, S, KV, D)), cuda_device)
+            v = _bf16_cuda(rng.standard_normal((b, S, KV, D)), cuda_device)
+            do = _bf16_cuda(rng.standard_normal((b, S, H, D)), cuda_device)
+            self._check(q, k, v, do, S, f"B={b} S={S} H={H} KV={KV} D={D}")
+
+    @pytest.mark.parametrize("B,S,H,KV,D", [(8, 2048, 8, 8, 128), (4, 2048, 71, 1, 64),
+                                            (2, 2048, 32, 32, 80), (1, 300, 16, 2, 128)])
+    def test_two_launches_bit_identical(self, rng, cuda_device, B, S, H, KV, D):
+        q, k, v, o, lse, do = _bwd_case(rng, cuda_device, B, S, H, KV, D)
+        delta = PF._delta(o, do)
+        for window, alibi in ((0, None), (129, _slopes(H, cuda_device))):
+            first = self._bwd(q, k, v, do, lse, delta, window, alibi)
+            second = self._bwd(q, k, v, do, lse, delta, window, alibi)
+            torch.cuda.synchronize()
+            assert all(torch.equal(a, b) for a, b in zip(first, second)), (window, alibi)
+
+    def test_split_and_unsplit_agree(self, rng, cuda_device):
+        """The same batch row through the group split (B = 1: 3 key blocks
+        of one KV head leave SMs idle) and unsplit (within a batch that
+        fills the card) agree within the tolerance."""
+        S, H, KV, D = 300, 71, 1, 64
+        sms = torch.cuda.get_device_properties(0).multi_processor_count
+        B = _dkv_batches(S, KV, H)[-1]
+        assert PF.dkv_split_plan(1, S, H, KV, D, sms).n_chunks > 1
+        assert PF.dkv_split_plan(B, S, H, KV, D, sms).n_chunks == 1
+        q, k, v, o, lse, do = _bwd_case(rng, cuda_device, B, S, H, KV, D)
+        delta = PF._delta(o, do)
+        one = lambda t: t[:1].contiguous()
+        split = PF.flash_bwd_dkv(one(q), one(k), one(v), one(do), one(lse), one(delta))
+        whole = PF.flash_bwd_dkv(q, k, v, do, lse, delta)
+        for name, s, w in zip(("dk", "dv"), split, whole):
+            _assert_grad_close(s, w[:1], f"{name} split vs unsplit")
+
+    @pytest.mark.parametrize("H,KV", [(8, 2), (71, 1)])
+    def test_design_faults_are_caught(self, rng, cuda_device, H, KV):
+        """A ring stage read before its barrier (dkv: Q/dO whose tile
+        `stages` holds tile 0's rows; dq: K/V), and the diagonal tiles taken
+        unmasked, each fail the check in every gradient it touches; at 71
+        over 1, so does one chunk of the group split left out of the
+        combining pass."""
+        B, S, D = 1, 300, 64
+        q, k, v, o, lse, do = _bwd_case(rng, cuda_device, B, S, H, KV, D)
+        delta = PF._delta(o, do)
+        ref = PF.flash_attention_bwd_plain(q, k, v, o, lse, do)
+        plan = PF.dkv_split_plan(B, S, H, KV, D,
+                                 torch.cuda.get_device_properties(0).multi_processor_count)
+        n = _ring_stages(B, S, KV, plan.n_chunks > 1)
+        m = _ring_stages(B, S, H)
+        faults = {"dkv_stale_ring_stage": (("dk", "dv"), (None,) + PF.flash_bwd_dkv(
+                      _stale_tile(q, 1, n), k, v, _stale_tile(do, 1, n), _stale_tile(lse, 2, n),
+                      _stale_tile(delta, 2, n))),
+                  "dq_stale_ring_stage": (("dq",), (PF.flash_bwd_dq(
+                      q, _stale_tile(k, 1, m), _stale_tile(v, 1, m), do, lse, delta),)),
+                  "diagonal_tile_unmasked": (("dq", "dk", "dv"), _bwd_diag_tile_unmasked(
+                      q, k, v, lse, delta, do))}
+        if KV == 1:
+            assert plan.n_chunks > 1
+            first, end = plan.chunks[1]
+            keep = torch.tensor([h for h in range(H) if not first <= h < end], device=q.device)
+            pick = lambda t, dim: t.index_select(dim, keep).contiguous()
+            faults["chunk_left_out"] = (("dk", "dv"), (None,) + PF.flash_bwd_dkv(
+                pick(q, 2), k, v, pick(do, 2), pick(lse, 1), pick(delta, 1)))
+        for fault, (hit, grads) in faults.items():
+            for i, name in enumerate(("dq", "dk", "dv")):
+                if name in hit:
+                    assert PF.bwd_mismatch(grads[i], ref[i])["n_over"] > 0, (fault, name)

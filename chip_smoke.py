@@ -239,11 +239,19 @@ Phases (any failure raises and exits nonzero):
              at 0 (each evoformer kernel must launch exactly once). Checks:
              o and the five gradients of the kernel path no further from
              the f32 plain path than the bf16 plain path is; the fwd+bwd
-             peak memory under one f32 [G, N, N] logits tensor. Then times
-             forward and forward+backward, beside SDPA with the biases as
-             a materialised mask. (Phase 2 holds each of the four kernels
-             against its plain version at E1, and the forward also at E3,
-             with four planted faults that must fail that check.)
+             peak memory (#10's f32 scratch included) under one f32
+             [G, N, N] logits tensor. Then times forward and
+             forward+backward, beside SDPA with the biases as a
+             materialised mask. (Phase 2 holds each of the four kernels
+             against its plain version at E1 and E3, with four planted
+             faults in the outputs at E1 that must fail that check, and
+             evo_design_checks at both: #7 and #10 launched twice,
+             bit-identical, and faults aimed at their wgmma/TMA design
+             that must fail it: a stale K/V ring tile, #7's bias2 band of
+             the wrong head or query tile, bias1 staged one key off, a
+             chunk of #10's sequence split left out of the combining
+             pass; the sequence plans, #10's scratch bytes and the new
+             kernels' ptxas registers and spills.)
 6. report  - one JSON line with every kernel's launches (per path and in
              all), error and times beside its bound; the card's name and
              power limit; and last, {"ok": true, "device": {...}}.
@@ -307,7 +315,7 @@ KERNELS = {
                          "deepspeed_tpu/ops/pallas/evoformer_attention.py:310"),
     "evoformer_bwd_dkv": ("deepspeed_tpu_torch/csrc/evoformer_bwd.cu",
                           "deepspeed_tpu/ops/pallas/evoformer_attention.py:347"),
-    "evoformer_bwd_db2": ("deepspeed_tpu_torch/csrc/evoformer_bwd.cu",
+    "evoformer_bwd_db2": ("deepspeed_tpu_torch/csrc/evoformer_db2.cu",
                           "deepspeed_tpu/ops/pallas/evoformer_attention.py:394"),
 }
 TRAIN_KERNELS = ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv")
@@ -1062,14 +1070,115 @@ def _sdpa_evo(q, k, v, b1, b2, do):
             lambda: torch.autograd.grad(out, leaves, dot, retain_graph=True))
 
 
+# kernel #7's key tile at head dim 32 (csrc/evoformer_fwd.cu Cfg<32, 128, 3>)
+EVO_FWD_KEY_TILE = 128
+
+
+def _ptxas_registers(build, source, kernels):
+    """{kernel<template ints>: registers, spill stores and loads} of the
+    entry functions of `source` whose names hold one of `kernels`, read
+    from the compiler's -Xptxas -v report of this run's build."""
+    import re
+
+    out, current = {}, None
+    for line in (build.build_log(source) or "").splitlines():
+        m = re.search(r"Compiling entry function '([^']+)'", line)
+        if m:
+            name = next((k for k in kernels if k in m.group(1)), None)
+            ints = re.findall(r"Li(\d+)E", m.group(1))
+            current = f"{name}<{','.join(ints)}>" if name and ints else name
+            if current:
+                out[current] = {}
+            continue
+        if current is None:
+            continue
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line)
+        if m:
+            out[current].update(spill_stores=int(m.group(1)), spill_loads=int(m.group(2)))
+        m = re.search(r"Used (\d+) registers", line)
+        if m:
+            out[current]["registers"] = int(m.group(1))
+    return out
+
+
+def _evo_design_checks(EV, name, args, o, db2, ro, rdb2):
+    """Checks aimed at the wgmma/TMA designs of kernels #7 and #10 at one
+    evoformer case: second launches bit-identical to the first (no atomics,
+    a fixed order, #10's chunks added in chunk order); planted faults, each
+    made by running the kernel on altered inputs, that the check against
+    the plain version on the true inputs must fail: a K/V ring tile of #7
+    consumed before its barrier (key tile 1 holding tile 0's rows), #7's
+    bias2 band of the wrong head or of the other 128-row query tile, bias1
+    staged one key off, one chunk of #10's sequence split left out of the
+    combining pass; the plans (#7's runs, #10's chunks and scratch bytes);
+    the ptxas registers and spills of the new kernels; and the floor the
+    exponentials set at D 32, G N^2 ex2 (each of #7-#10 takes one per
+    (query, key) pair) at 16 a clock an SM (compute capability 9.0) and
+    the card's maximum SM clock."""
+    import torch
+
+    from deepspeed_tpu_torch.ops.cuda import build
+
+    q, k, v, b1, b2, do, lse, delta = args
+    B, S, N, H, D = q.shape
+    sms = torch.cuda.get_device_properties(q.device).multi_processor_count
+    fplan, dplan = EV.fwd_run_plan(B, S, N, H, sms), EV.db2_split_plan(B, S, N, H, D, sms)
+    o2, lse2 = EV.evoformer_fwd(q, k, v, b1, b2)
+    d2 = EV.evoformer_bwd_db2(*args)
+    torch.cuda.synchronize()
+    same = {"evoformer_fwd": torch.equal(o2, o) and torch.equal(lse2, lse),
+            "evoformer_bwd_db2": torch.equal(d2, db2)}
+    del o2, lse2, d2
+    bn = EVO_FWD_KEY_TILE
+    stale = lambda x: torch.cat([x[:, :, :bn], x[:, :, :bn], x[:, :, 2 * bn:]], 2)
+    faults = {
+        "fwd_stale_ring_tile": lambda: EV.evoformer_fwd(q, stale(k), stale(v), b1, b2)[0],
+        "fwd_band_of_the_wrong_head": lambda: EV.evoformer_fwd(q, k, v, b1, b2.roll(1, 2))[0],
+        "fwd_band_of_the_other_query_tile": lambda: EV.evoformer_fwd(q, k, v, b1,
+                                                                     b2.roll(128, 3))[0],
+        "fwd_bias1_one_key_off": lambda: EV.evoformer_fwd(q, k, v, b1.roll(1, -1), b2)[0]}
+    over = {f: EV.bwd_mismatch(run(), ro)["n_over"] for f, run in faults.items()}
+    first, end = dplan.runs[1]
+    keep = torch.tensor([s for s in range(S) if not first <= s < end], device=q.device)
+    pick = lambda t: t.index_select(1, keep).contiguous()
+    rows = lambda x: x.reshape(B, S, H, N).index_select(1, keep).reshape(-1, N).contiguous()
+    over["db2_chunk_left_out"] = EV.bwd_mismatch(
+        EV.evoformer_bwd_db2(pick(q), pick(k), pick(v), pick(b1), b2, pick(do), rows(lse),
+                             rows(delta)), rdb2)["n_over"]
+    clock = subprocess.run(["nvidia-smi", "--query-gpu=clocks.max.sm",
+                            "--format=csv,noheader,nounits"],
+                           capture_output=True, text=True, timeout=60, check=True)
+    mhz = float(clock.stdout.strip().splitlines()[0])
+    report = {"case": name, "two_launches_bit_identical": same,
+              "exp2_floor_ms": B * S * H * N * N / (16 * sms * mhz * 1e6) * 1e3,
+              "sm_clock_max_mhz": mhz,
+              "planted_faults_elements_over": over,
+              "fwd_runs": {"n": fplan.n, "sequences_each": fplan.runs[0][1], "ctas": fplan.ctas},
+              "db2_split": {"n": dplan.n, "sequences_each": dplan.runs[0][1], "ctas": dplan.ctas,
+                            "scratch_bytes": dplan.scratch_bytes,
+                            "logits_f32_bytes": 4 * B * S * H * N * N},
+              "ptxas": {**_ptxas_registers(build, "evoformer_fwd", ("evo_fwd_kernel",)),
+                        **_ptxas_registers(build, "evoformer_db2",
+                                           ("evo_db2_kernel", "evo_db2_combine"))}}
+    print(json.dumps({"evo_design_checks": report}))
+    if not all(same.values()):
+        raise AssertionError(f"evoformer {name}: two launches on the same inputs differ: {same}")
+    if not all(over.values()):
+        raise AssertionError(f"evoformer {name}: a check passes a planted fault: {over}")
+    if dplan.n < 2:
+        raise AssertionError(f"evoformer {name}: #10 is not split, so no chunk can be left out")
+    return report
+
+
 def _evo_kernel_checks(dev, bound_ms):
-    """Kernels #7-#10 at E1 against their plain versions on the same bf16
-    inputs (the backward ones on the forward kernel's o and lse), under
-    bwd_mismatch, with the planted faults of _evo_planted_faults; #7 also
-    at E3 (N = 384, no multiple of the TPU kernel's 256-row q block).
-    library_ms: SDPA's forward for #7, SDPA's backward for #8-#10;
-    plain_ms of the backward kernels is the dense plain backward, which
-    also computes all of their outputs."""
+    """Kernels #7-#10 at E1 and E3 against their plain versions on the same
+    bf16 inputs (the backward ones on the forward kernel's o and lse),
+    under bwd_mismatch, #7's lse at 1e-4; at E1 also the planted faults of
+    _evo_planted_faults, and at both the design checks of
+    _evo_design_checks. library_ms: SDPA's forward for #7, SDPA's backward
+    for #8-#10; plain_ms of the backward kernels is the dense plain
+    backward, which also computes all of their outputs. The E3 rows are
+    named "<kernel>@E3"."""
     import torch
 
     from deepspeed_tpu_torch.ops.cuda import evoformer_attention as EV
@@ -1077,6 +1186,7 @@ def _evo_kernel_checks(dev, bound_ms):
     out = {}
     for name in ("E3", "E1"):
         case = EVO_CASES[name]
+        at = "" if name == "E1" else "@E3"
         q, k, v, b1, b2, do = _evo_inputs(case, dev, seed=2)
         bounds = _evo_bounds(case, bound_ms)
         shape = "B={B}, S={S}, N={N}, H={H}, D={D}, bf16, both biases".format(**case)
@@ -1087,14 +1197,10 @@ def _evo_kernel_checks(dev, bound_ms):
             raise AssertionError(f"evoformer_fwd {name}: o beyond the tolerance: {stats}")
         _check_close(f"evoformer_fwd {name} lse", lse, rlse, 1e-4, 1e-4)
         sdpa_fwd, sdpa_bwd = _sdpa_evo(q, k, v, b1, b2, do)
-        out["evoformer_fwd" if name == "E1" else "evoformer_fwd@E3"] = dict(
+        out["evoformer_fwd" + at] = dict(
             max_abs_err=stats["max_abs_err"], shape=shape, bound=bounds["evoformer_fwd"],
             **_timings(lambda: EV.evoformer_fwd(q, k, v, b1, b2),
                        lambda: EV.evoformer_fwd_plain(q, k, v, b1, b2), sdpa_fwd, 5))
-        if name == "E3":
-            del q, k, v, b1, b2, do, o, lse, ro, rlse, sdpa_fwd, sdpa_bwd
-            torch.cuda.empty_cache()
-            continue
 
         delta = EV._delta(o, do)
         args = (q, k, v, b1, b2, do, lse, delta)
@@ -1104,28 +1210,33 @@ def _evo_kernel_checks(dev, bound_ms):
         ref = dict(zip(("dq", "dk", "dv", "dsum", "db2"),
                        EV._bwd_plain(q, k, v, b1, b2, lse, delta, do)), o=ro)
         ref["db1"] = EV._db1(ref["dsum"], b1)
-        planted = _evo_planted_faults(EV, got, ref, args)
+        planted = _evo_planted_faults(EV, got, ref, args) if name == "E1" else {}
         report = {}
         for t, g in got.items():
             stats = EV.bwd_mismatch(g, ref[t])
             if stats["n_over"]:
-                raise AssertionError(f"evoformer {t}: kernel beyond the tolerance of the plain "
-                                     f"version: {stats}")
+                raise AssertionError(f"evoformer {t} {name}: kernel beyond the tolerance of the "
+                                     f"plain version: {stats}")
             report[t] = {"worst_ratio": stats["worst_ratio"], "max_abs_err": stats["max_abs_err"],
                          "err_rms_over_ref_rms": stats["err_rms"] / stats["ref_rms"],
                          "planted_faults_n_over": planted.get(t)}
         print(json.dumps({"evoformer_tolerance": {"case": name, "shape": shape, **report}}))
+        _evo_design_checks(EV, name, args, o, got["db2"], ro, ref["db2"])
         plain_bwd = lambda: EV._bwd_plain(q, k, v, b1, b2, lse, delta, do)
         for kname, run, tensors in (
                 ("evoformer_bwd_dq", lambda: EV.evoformer_bwd_dq(*args), ("dq",)),
                 ("evoformer_bwd_dkv", lambda: EV.evoformer_bwd_dkv(*args), ("dk", "dv", "dsum")),
                 ("evoformer_bwd_db2", lambda: EV.evoformer_bwd_db2(*args), ("db2",))):
-            out[kname] = dict(max_abs_err=max(report[t]["max_abs_err"] for t in tensors),
-                              shape=shape, bound=bounds[kname],
-                              **_timings(run, plain_bwd, sdpa_bwd, 5))
-        print(json.dumps({"evoformer_sdpa_kernels": {
-            "forward": list(_where_time_goes(sdpa_fwd, top=3)["top_kernels_ms"]),
-            "backward": list(_where_time_goes(sdpa_bwd, top=3)["top_kernels_ms"])}}))
+            out[kname + at] = dict(max_abs_err=max(report[t]["max_abs_err"] for t in tensors),
+                                   shape=shape, bound=bounds[kname],
+                                   **_timings(run, plain_bwd, sdpa_bwd, 5))
+        if name == "E1":
+            print(json.dumps({"evoformer_sdpa_kernels": {
+                "forward": list(_where_time_goes(sdpa_fwd, top=3)["top_kernels_ms"]),
+                "backward": list(_where_time_goes(sdpa_bwd, top=3)["top_kernels_ms"])}}))
+        del q, k, v, b1, b2, do, o, lse, ro, rlse, delta, args, got, ref, sdpa_fwd, sdpa_bwd
+        del plain_bwd
+        torch.cuda.empty_cache()
     return out
 
 

@@ -1,27 +1,28 @@
 // Evoformer (DS4Sci) attention backward, recomputing the probabilities
 // from the forward's logsumexp: P = exp(q k^T * scale + bias1 + bias2 -
-// lse), dS = P (dO v^T - delta) with delta = rowsum(dO * O). Three
+// lse), dS = P (dO v^T - delta) with delta = rowsum(dO * O). Two
 // kernels, over the layout of evoformer_common.cuh:
 //
 //   evo_bwd_dq   dq = dS k * scale
 //   evo_bwd_dkv  dk = dS^T q * scale, dv = P^T dO, and dsum [G, N] f32 =
 //                the sum of dS over queries for each key (bias1's gradient
 //                is its sum over heads, taken outside the kernels)
-//   evo_bwd_db2  db2 [B, 1, H, N, N] = the sum of dS over the S sequences
-//                (bias2 is shared by them), in bias2's dtype
+//
+// bias2's gradient, the sum of dS over the sequences, is kernel #10 in
+// evoformer_db2.cu.
 //
 // Replaces: deepspeed_tpu/ops/pallas/evoformer_attention.py
-// _evo_bwd_dq_kernel (the pallas_call at :310), _evo_bwd_dkv_kernel (:347)
-// and _evo_bwd_db2_kernel (:394).
+// _evo_bwd_dq_kernel (the pallas_call at :310) and _evo_bwd_dkv_kernel
+// (:347).
 //
 // Bound on the H100: as the forward, about N / 2 operations per byte at
-// D = 32, so all three are bound by the bytes they must move. Every N x N
+// D = 32, so both are bound by the bytes they must move. Every N x N
 // quantity (scores, P, dP, dS) stays out of device memory: 64 x 64 tiles
 // of S, dP (f32) and P or dS (bf16) live in shared memory, products run on
 // the tensor cores through WMMA (bf16 in, f32 accumulate), and P and dS
 // are rounded to bf16 before their products as the TPU kernels round them
 // (dS unscaled; the scale multiplies the finished dq and dk). The row sums
-// of dS (for bias1) and db2 add the unrounded f32 dS. Inputs are read in
+// of dS (for bias1) add the unrounded f32 dS. Inputs are read in
 // place in [B, S, N, H, D]: no transposed copy is made. Simple first, as
 // the forward: WMMA, and tiles by cp.async without a load pipeline.
 //
@@ -32,14 +33,11 @@
 //        tiles, dq in WMMA accumulator fragments.
 //   dkv: (G, ceil(N / 64)); the block owns 64 key rows and walks the query
 //        tiles, dk and dv in fragments, the row sums in registers.
-//   db2: (B * H, ceil(N / 64), ceil(N / 64)); the block owns one 64 x 64
-//        tile of db2 and walks the S sequences, the tile in f32 registers.
-//        Its grid is small (B * H * (N / 64)^2 blocks, 128 at B = 1, H = 8,
-//        N = 256) and each block makes S serial passes: far from its bound
-//        until a later PR splits S with a deterministic second pass.
-// 4 warps; warp w owns rows 16w..16w+15 of the block's tile, so the
-// element-wise passes need only warp-level synchronisation. Ragged tiles
-// are masked: P = 0 past N, rows past N are not stored.
+// Both read bias2 tile by tile once per sequence (G N^2 2 bytes of L2
+// traffic each, 1.21 GB at S 512, N 384, H 8). 4 warps; warp w owns rows
+// 16w..16w+15 of the block's tile, so the element-wise passes need only
+// warp-level synchronisation. Ragged tiles are masked: P = 0 past N, rows
+// past N are not stored.
 
 #include "evoformer_common.cuh"
 
@@ -47,13 +45,13 @@ namespace {
 
 using namespace evo;
 
-// Shared-memory layout, the same for the three kernels.
+// Shared-memory layout, the same for the two kernels.
 template <int D>
 struct Layout {
-  static constexpr size_t T0 = 0;                       // dq: Q  | dkv: K  | db2: Q
-  static constexpr size_t T1 = T0 + tile_bytes<D>();    // dq: dO | dkv: V  | db2: dO
-  static constexpr size_t T2 = T1 + tile_bytes<D>();    // dq: K  | dkv: Q  | db2: K
-  static constexpr size_t T3 = T2 + tile_bytes<D>();    // dq: V  | dkv: dO | db2: V
+  static constexpr size_t T0 = 0;                       // dq: Q  | dkv: K
+  static constexpr size_t T1 = T0 + tile_bytes<D>();    // dq: dO | dkv: V
+  static constexpr size_t T2 = T1 + tile_bytes<D>();    // dq: K  | dkv: Q
+  static constexpr size_t T3 = T2 + tile_bytes<D>();    // dq: V  | dkv: dO
   static constexpr size_t S1 = T3 + tile_bytes<D>();    // f32 S (dkv: S^T)
   static constexpr size_t S2 = S1 + SCORE_BYTES;        // f32 dP (dkv: dP^T, then dS^T)
   static constexpr size_t P = S2 + SCORE_BYTES;         // bf16 dS (dkv: P^T, then dS^T)
@@ -266,89 +264,6 @@ __global__ void __launch_bounds__(NT) evo_bwd_dkv_kernel(__nv_bfloat16* __restri
   write_rows<D>(dv + off, row, stage, dv_acc, 1.f, r0, k0, N, lane);
 }
 
-template <int D>
-__global__ void __launch_bounds__(NT) evo_bwd_db2_kernel(__nv_bfloat16* __restrict__ db2,
-                                                         const Args a) {
-  using Lay = Layout<D>;
-  constexpr int LDH = ldh<D>();
-  extern __shared__ __align__(128) unsigned char smem[];
-  __nv_bfloat16* qs = reinterpret_cast<__nv_bfloat16*>(smem + Lay::T0);
-  __nv_bfloat16* dos = reinterpret_cast<__nv_bfloat16*>(smem + Lay::T1);
-  __nv_bfloat16* ks = reinterpret_cast<__nv_bfloat16*>(smem + Lay::T2);
-  __nv_bfloat16* vs = reinterpret_cast<__nv_bfloat16*>(smem + Lay::T3);
-  float* ss = reinterpret_cast<float*>(smem + Lay::S1);
-  float* dps = reinterpret_cast<float*>(smem + Lay::S2);
-  __nv_bfloat16* b2s = reinterpret_cast<__nv_bfloat16*>(smem + Lay::B2);
-  float* b1s = reinterpret_cast<float*>(smem + Lay::B1);
-  float* lse_s = reinterpret_cast<float*>(smem + Lay::LSE);
-  float* delta_s = reinterpret_cast<float*>(smem + Lay::DELTA);
-
-  const int N = a.N, H = a.H, S = a.S;
-  const int bh = blockIdx.x;  // b * H + h
-  const int b = bh / H;
-  const int h = bh % H;
-  const int q0 = blockIdx.y * BT;
-  const int k0 = blockIdx.z * BT;
-  const int tid = threadIdx.x;
-  const int r0 = (tid >> 5) * 16;
-  const int lane = tid & 31;
-  const size_t row = (size_t)H * D;
-  const bool has_b1 = a.b1 != nullptr;
-
-  // the bias2 tile is the same for every sequence: loaded once
-  load_bias_tile(b2s, a.b2 + (size_t)bh * N * N, q0, k0, N, tid);
-  float acc[16][2];
-#pragma unroll
-  for (int rr = 0; rr < 16; ++rr) acc[rr][0] = acc[rr][1] = 0.f;
-
-  for (int s = 0; s < S; ++s) {
-    const int bs = b * S + s;
-    const int g = bs * H + h;  // the slice of (b, s, h)
-    const size_t off = slice_offset<D>(g, N, H);
-    __syncthreads();  // bias2 visible; the previous sequence's reads done
-    load_tile<D>(qs, a.q + off, row, q0, N, tid);
-    load_tile<D>(dos, a.dout + off, row, q0, N, tid);
-    load_tile<D>(ks, a.k + off, row, k0, N, tid);
-    load_tile<D>(vs, a.v + off, row, k0, N, tid);
-    if (has_b1) load_row(b1s, a.b1 + (size_t)bs * N, k0, N, tid);
-    load_row(lse_s, a.lse + (size_t)g * N, q0, N, tid);
-    load_row(delta_s, a.delta + (size_t)g * N, q0, N, tid);
-    wait_loads();
-    __syncthreads();
-
-    rows_times_rows_t<D>(ss + r0 * LDS, qs + r0 * LDH, ks);    // S = Q K^T
-    rows_times_rows_t<D>(dps + r0 * LDS, dos + r0 * LDH, vs);  // dP = dO V^T
-    __syncwarp();
-
-#pragma unroll
-    for (int rr = 0; rr < 16; ++rr) {
-      const int r = r0 + rr;
-      const bool live_row = q0 + r < N;
-#pragma unroll
-      for (int half = 0; half < 2; ++half) {
-        const int c = lane + 32 * half;
-        if (live_row && k0 + c < N) {
-          const float p = expf(
-              logit(ss[r * LDS + c], a.scale, has_b1, b1s[c], true, b2s[r * LDB + c]) -
-              lse_s[r]);
-          acc[rr][half] += p * (dps[r * LDS + c] - delta_s[r]);
-        }
-      }
-    }
-  }
-  // fully unrolled (no early exit), so acc stays in registers
-#pragma unroll
-  for (int rr = 0; rr < 16; ++rr) {
-    const int qi = q0 + r0 + rr;
-    __nv_bfloat16* drow = db2 + ((size_t)bh * N + qi) * N;
-#pragma unroll
-    for (int half = 0; half < 2; ++half) {
-      const int c = lane + 32 * half;
-      if (qi < N && k0 + c < N) drow[k0 + c] = __float2bfloat16(acc[rr][half]);
-    }
-  }
-}
-
 template <typename Kernel>
 int prepare(Kernel kernel, int smem) {
   return (int)cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
@@ -375,17 +290,6 @@ int launch_dkv(void* dk, void* dv, void* dsum, const Args& a, int B, cudaStream_
   return (int)cudaGetLastError();
 }
 
-template <int D>
-int launch_db2(void* db2, const Args& a, int B, cudaStream_t stream) {
-  const int smem = (int)Layout<D>::BYTES;
-  int err = prepare(evo_bwd_db2_kernel<D>, smem);
-  if (err) return err;
-  const int nt = (a.N + BT - 1) / BT;
-  dim3 grid(B * a.H, nt, nt);
-  evo_bwd_db2_kernel<D><<<grid, NT, smem, stream>>>((__nv_bfloat16*)db2, a);
-  return (int)cudaGetLastError();
-}
-
 Args make_args(const void* q, const void* k, const void* v, const void* b1, const void* b2,
                const void* dout, const void* lse, const void* delta, int S, int N, int H,
                float scale) {
@@ -398,8 +302,7 @@ Args make_args(const void* q, const void* k, const void* v, const void* b1, cons
 
 }  // namespace
 
-// In all three: b1 / b2 may be NULL (the bias is absent); evoformer_bwd_db2
-// needs b2.
+// In both: b1 / b2 may be NULL (the bias is absent).
 extern "C" int evoformer_bwd_dq(void* dq, const void* q, const void* k, const void* v,
                                 const void* b1, const void* b2, const void* dout,
                                 const void* lse, const void* delta, int B, int S, int N, int H,
@@ -429,24 +332,6 @@ extern "C" int evoformer_bwd_dkv(void* dk, void* dv, void* dsum, const void* q, 
       return launch_dkv<32>(dk, dv, dsum, a, B, st);
     case 64:
       return launch_dkv<64>(dk, dv, dsum, a, B, st);
-    default:
-      return (int)cudaErrorInvalidValue;
-  }
-}
-
-extern "C" int evoformer_bwd_db2(void* db2, const void* q, const void* k, const void* v,
-                                 const void* b1, const void* b2, const void* dout,
-                                 const void* lse, const void* delta, int B, int S, int N, int H,
-                                 int D, float scale, void* stream) {
-  if (B <= 0 || S <= 0 || N <= 0 || H <= 0) return 0;
-  if (b2 == nullptr) return (int)cudaErrorInvalidValue;
-  const Args a = make_args(q, k, v, b1, b2, dout, lse, delta, S, N, H, scale);
-  cudaStream_t st = (cudaStream_t)stream;
-  switch (D) {
-    case 32:
-      return launch_db2<32>(db2, a, B, st);
-    case 64:
-      return launch_db2<64>(db2, a, B, st);
     default:
       return (int)cudaErrorInvalidValue;
   }

@@ -1,10 +1,10 @@
-// Tile helpers shared by the evoformer attention kernels (evoformer_fwd.cu,
-// evoformer_bwd.cu). Tensors use the DS4Sci layout: q, k, v, o, dO and
-// their gradients [B, S, N, H, D] bf16, read in place (a head row is D
-// contiguous elements, rows H * D apart); bias1 [B, S, 1, 1, N] and
-// bias2 [B, 1, H, N, N] bf16; lse, delta and row sums [G, N] f32 with
-// G = B * S * H in (b, s, h) order. Every block runs 4 warps over 64-row
-// tiles; warp w owns rows 16w..16w+15 of its tile.
+// Tile helpers of the evoformer backward kernels #8 and #9
+// (evoformer_bwd.cu; #7 and #10 are built on hopper.cuh). Tensors use the
+// DS4Sci layout: q, k, v, o, dO and their gradients [B, S, N, H, D] bf16,
+// read in place (a head row is D contiguous elements, rows H * D apart);
+// bias1 [B, S, 1, 1, N] and bias2 [B, 1, H, N, N] bf16; lse, delta and row
+// sums [G, N] f32 with G = B * S * H in (b, s, h) order. Every block runs 4
+// warps over 64-row tiles; warp w owns rows 16w..16w+15 of its tile.
 #pragma once
 
 #include <cuda_runtime.h>
@@ -43,19 +43,6 @@ using AccFrag = wmma::fragment<wmma::accumulator, 16, 16, 16, float>;
 __device__ __forceinline__ float warp_sum(float x) {
 #pragma unroll
   for (int o = 16; o > 0; o >>= 1) x += __shfl_xor_sync(0xffffffffu, x, o);
-  return x;
-}
-
-// reductions over each group of 8 neighbouring lanes
-__device__ __forceinline__ float group8_sum(float x) {
-#pragma unroll
-  for (int o = 4; o > 0; o >>= 1) x += __shfl_xor_sync(0xffffffffu, x, o);
-  return x;
-}
-
-__device__ __forceinline__ float group8_max(float x) {
-#pragma unroll
-  for (int o = 4; o > 0; o >>= 1) x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, o));
   return x;
 }
 

@@ -1,14 +1,16 @@
 // Hopper (sm_90a) machinery shared by the flash-attention kernels
-// (flash_fwd.cu, flash_bwd.cu): mbarriers, TMA loads and tensor maps,
-// wgmma descriptors and products, and small helpers of the register
-// arithmetic. Hand-written PTX; no CUTLASS or CuTe.
+// (flash_fwd.cu, flash_bwd.cu) and the evoformer forward and pair-bias
+// gradient (evoformer_fwd.cu, evoformer_db2.cu): mbarriers, TMA loads and
+// tensor maps, wgmma descriptors and products, and small helpers of the
+// register arithmetic. Hand-written PTX; no CUTLASS or CuTe.
 //
 // Tiles live in shared memory as TMA boxes of 64 bf16 columns (one
 // 128-byte swizzle atom) by some rows, rows 128 bytes apart, every box
 // 1024-byte aligned. One descriptor form then serves a tile read K-major
 // (8-row groups 1024 bytes apart, a k-step 32 bytes into the atom) and
 // read MN-major (8-row groups 1024 apart along K, atoms a box apart
-// along N).
+// along N). Tiles of 32 columns (head dim 32) take the 64-byte swizzle
+// the same way: rows 64 bytes apart, 8-row groups 512 apart.
 #pragma once
 
 #include <cuda.h>
@@ -67,6 +69,53 @@ __device__ __forceinline__ void tma_load(uint32_t dst, const CUtensorMap* map, u
       : "memory");
 }
 
+// 4 bytes from global to shared memory without passing through registers:
+// the first `src_bytes` of them copied, the rest zero-filled (0: zeros,
+// `src` unread but still a valid address).
+__device__ __forceinline__ void cp_async4(uint32_t dst, const void* src, uint32_t src_bytes) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;" ::"r"(dst), "l"(src), "r"(src_bytes)
+               : "memory");
+}
+
+// Arrive on `bar` once every cp.async this thread issued before has landed
+// (no pending count is added: the arrival counts against the barrier's
+// expected count, so a stage's consumers see the copies when it completes).
+__device__ __forceinline__ void cp_async_arrive(uint32_t bar) {
+  asm volatile("cp.async.mbarrier.arrive.noinc.shared::cta.b64 [%0];" ::"r"(bar) : "memory");
+}
+
+// bias1 of keys k0 .. k0 + n - 1 of one row (its first element at
+// b1 + row_off), its bf16 values as aligned 32-bit words: counting
+// elements from the 4-byte boundary at or before b1 (m = 1 element before
+// it when b1 sits 2 bytes past one, else 0), word i of the stage holds
+// elements 2 (w0 + i) and 2 (w0 + i) + 1, w0 = (m + row_off + k0) / 2, so
+// key k0 + c sits at bf16 index par + c of the stage, par = (m + row_off +
+// k0) % 2 (bias1_parity). Elements at or past the row's end (key N) are
+// zeros. Lane `lane` of the loading warp copies words lane, lane + 32, ...
+// up to n / 2.
+__device__ __forceinline__ int bias1_parity(const __nv_bfloat16* b1, size_t row_off, int k0) {
+  return static_cast<int>(((reinterpret_cast<uintptr_t>(b1) >> 1) + row_off + k0) & 1);
+}
+
+__device__ __forceinline__ void stage_bias1(uint32_t dst, const __nv_bfloat16* b1,
+                                            size_t row_off, int k0, int n, int N, int lane) {
+  const size_t m = (reinterpret_cast<uintptr_t>(b1) >> 1) & 1;
+  const __nv_bfloat16* base = b1 - m;  // 4-byte aligned
+  const size_t first = m + row_off + k0;
+  const size_t end = m + row_off + N;  // one past the row's last element
+  for (int i = lane; i <= n / 2; i += 32) {
+    const size_t e = 2 * (first / 2 + i);  // the word's first element
+    const uint32_t bytes = e >= end ? 0u : (e + 1 >= end ? 2u : 4u);
+    cp_async4(dst + 4 * i, base + (bytes ? e : 0), bytes);
+  }
+}
+
+// The bf16 pair (keys k0 + c, k0 + c + 1; c even) of a stage that
+// stage_bias1 filled, as one 32-bit word (low half: key k0 + c).
+__device__ __forceinline__ uint32_t bias1_pair(const uint32_t* words, int par, int c) {
+  return par ? __byte_perm(words[c / 2], words[c / 2 + 1], 0x5432) : words[c / 2];
+}
+
 __device__ __forceinline__ void wgmma_fence() {
   asm volatile("wgmma.fence.sync.aligned;" ::: "memory");
 }
@@ -85,15 +134,19 @@ __device__ __forceinline__ void fence_regs(float (&r)[N]) {
   for (int i = 0; i < N; ++i) asm volatile("" : "+f"(r[i])::"memory");
 }
 
-// wgmma shared-memory matrix descriptor, 128-byte swizzle: start address,
-// leading and stride byte offsets (all in 16-byte units). K-major tiles:
-// rows 128 bytes apart, 8-row groups 1024 apart (the stride offset), the
-// leading offset unused. MN-major (B read along its rows): the 8-row
-// groups 1024 apart, the 64-column atoms a box apart (the leading offset).
-__device__ __forceinline__ uint64_t gmma_desc(uint32_t addr, uint32_t lbo, uint32_t sbo) {
+// wgmma shared-memory matrix descriptor: start address, leading and stride
+// byte offsets (all in 16-byte units), and the swizzle of the tile's rows
+// (128 bytes by default; 64 for tiles of 32 bf16 columns). K-major tiles:
+// rows `swizzle` bytes apart, 8-row groups 8 rows apart (the stride
+// offset), the leading offset unused. MN-major (B read along its rows):
+// the 8-row groups 8 rows apart, the swizzle atoms a box apart (the
+// leading offset).
+__device__ __forceinline__ uint64_t gmma_desc(uint32_t addr, uint32_t lbo, uint32_t sbo,
+                                              int swizzle = 128) {
+  const uint64_t layout = swizzle == 128 ? 1 : swizzle == 64 ? 2 : 3;
   return static_cast<uint64_t>((addr & 0x3FFFFu) >> 4) |
          (static_cast<uint64_t>(lbo >> 4) << 16) | (static_cast<uint64_t>(sbo >> 4) << 32) |
-         (1ull << 62);
+         (layout << 62);
 }
 
 __device__ __forceinline__ float ex2(float x) {  // 2^x; -inf gives +0
@@ -101,6 +154,10 @@ __device__ __forceinline__ float ex2(float x) {  // 2^x; -inf gives +0
   asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
   return y;
 }
+
+// The low and high bf16 halves of a 32-bit word, widened to f32 (exact).
+__device__ __forceinline__ float bf16_lo(uint32_t w) { return __uint_as_float(w << 16); }
+__device__ __forceinline__ float bf16_hi(uint32_t w) { return __uint_as_float(w & 0xffff0000u); }
 
 __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
   __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
@@ -130,6 +187,18 @@ __device__ __forceinline__ void wgmma_ss(float (&d)[32], uint64_t a, uint64_t b,
         "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
         "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
       : "l"(a), "l"(b), "r"(scale_d));
+}
+
+__device__ __forceinline__ void wgmma_rs(float (&d)[16], const uint32_t (&a)[4], uint64_t b) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %21, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7,"
+      "%8, %9, %10, %11, %12, %13, %14, %15"
+      "}, {%16, %17, %18, %19}, %20, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
 }
 
 __device__ __forceinline__ void wgmma_rs(float (&d)[32], const uint32_t (&a)[4], uint64_t b) {
@@ -219,9 +288,11 @@ inline EncodeTiled encode_tiled() {
 }
 
 // 4-D tensor map over x [B, S, heads, D] bf16 (innermost first: D, heads,
-// S, B): boxes of `rows` positions x 64 columns of one head, 128-byte
-// swizzle, zeros outside the tensor (columns past D, rows past S).
-inline int encode_map(CUtensorMap* map, const void* x, int B, int S, int heads, int D, int rows) {
+// S, B): boxes of `rows` positions x `cols` columns of one head (64: the
+// 128-byte swizzle; 32: the 64-byte one), zeros outside the tensor
+// (columns past D, rows past S).
+inline int encode_map(CUtensorMap* map, const void* x, int B, int S, int heads, int D, int rows,
+                      int cols = ATOM) {
   const EncodeTiled enc = encode_tiled();
   if (enc == nullptr) return static_cast<int>(cudaErrorNotSupported);
   const cuuint64_t dims[4] = {static_cast<cuuint64_t>(D), static_cast<cuuint64_t>(heads),
@@ -229,11 +300,12 @@ inline int encode_map(CUtensorMap* map, const void* x, int B, int S, int heads, 
   const cuuint64_t strides[3] = {static_cast<cuuint64_t>(D) * 2,
                                  static_cast<cuuint64_t>(heads) * D * 2,
                                  static_cast<cuuint64_t>(S) * heads * D * 2};
-  const cuuint32_t box[4] = {static_cast<cuuint32_t>(ATOM), 1, static_cast<cuuint32_t>(rows), 1};
+  const cuuint32_t box[4] = {static_cast<cuuint32_t>(cols), 1, static_cast<cuuint32_t>(rows), 1};
   const cuuint32_t elem[4] = {1, 1, 1, 1};
   const CUresult r = enc(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(x), dims,
                          strides, box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE,
-                         CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+                         cols == ATOM ? CU_TENSOR_MAP_SWIZZLE_128B : CU_TENSOR_MAP_SWIZZLE_64B,
+                         CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
                          CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
   return r == CUDA_SUCCESS ? 0 : static_cast<int>(cudaErrorInvalidValue);
 }

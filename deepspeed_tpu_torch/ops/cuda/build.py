@@ -32,7 +32,7 @@ from typing import Dict, Iterable, Optional
 CSRC = Path(__file__).resolve().parents[2] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
 SOURCES = ("paged_kv_write", "paged_decode", "flash_fwd", "flash_bwd", "evoformer_fwd",
-           "evoformer_bwd")
+           "evoformer_bwd", "evoformer_db2")
 ARCH_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a")
 NVCC_FLAGS = ARCH_FLAGS + ("-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
                            "-Xptxas", "-v")
@@ -54,12 +54,14 @@ SIGNATURES = {
         # ... slopes, the group split's f32 scratch; ..., window, its chunk count
         "flash_bwd_dkv": [_P] * 10 + [_I] * 7 + [_F, _P],
     },
-    "evoformer_fwd": {"evoformer_fwd": [_P] * 7 + [_I] * 5 + [_F, _P]},
+    # ..., D, the count of sequence runs
+    "evoformer_fwd": {"evoformer_fwd": [_P] * 7 + [_I] * 6 + [_F, _P]},
     "evoformer_bwd": {
         "evoformer_bwd_dq": [_P] * 9 + [_I] * 5 + [_F, _P],
         "evoformer_bwd_dkv": [_P] * 11 + [_I] * 5 + [_F, _P],
-        "evoformer_bwd_db2": [_P] * 9 + [_I] * 5 + [_F, _P],
     },
+    # db2, the sequence split's f32 scratch, ...; ..., D, its chunk count
+    "evoformer_db2": {"evoformer_bwd_db2": [_P] * 10 + [_I] * 6 + [_F, _P]},
 }
 
 _loaded: Dict[str, ctypes.CDLL] = {}

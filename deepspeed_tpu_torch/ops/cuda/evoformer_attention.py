@@ -4,8 +4,9 @@ kernels beside their plain PyTorch versions, joined by a
 
 Counterpart of deepspeed_tpu/ops/pallas/evoformer_attention.py:
 `_evo_kernel` (kernel #7, csrc/evoformer_fwd.cu), `_evo_bwd_dq_kernel`
-(#8), `_evo_bwd_dkv_kernel` (#9) and `_evo_bwd_db2_kernel` (#10, all three
-in csrc/evoformer_bwd.cu), and the custom VJP that ties them together
+(#8) and `_evo_bwd_dkv_kernel` (#9, both in csrc/evoformer_bwd.cu),
+`_evo_bwd_db2_kernel` (#10, csrc/evoformer_db2.cu), and the custom VJP
+that ties them together
 (deepspeed_tpu/ops/evoformer_attention.py `_evo_fused`). The layout is
 the reference's public one:
 
@@ -21,7 +22,16 @@ which compute the same recompute-from-lse math densely in f32, with P
 rounded to the inputs' dtype before P V and P and dS before their backward
 products, as the kernels (and the TPU kernels) round them: a no-op in f32.
 Every kernel wrapper carries `launches`, raised by one per launch.
+
+#7 and #10 split the sequence axis across CTAs where the grid would not
+keep the card busy: `fwd_run_plan` (each CTA walks a run of sequences
+with its bias2 band resident) and `db2_split_plan` (each CTA sums a chunk
+of sequences; a second pass adds the chunks in order).
 """
+
+import functools
+import math
+from typing import NamedTuple, Tuple
 
 import torch
 
@@ -132,11 +142,77 @@ def _dims(q):
     return B, S, N, H, D, 1.0 / D ** 0.5
 
 
+# The sequence split of kernels #7 and #10. A CTA of #7 owns 128 query rows
+# of one (b, h) and walks a run of sequences; a CTA of #10 owns a 128 x 64
+# tile of db2 and sums a chunk of sequences. Both hold one CTA an SM. A
+# grid of at least SPLIT_WAVES waves of unsplit CTAs (each walking all S)
+# is not split: its tail is at most a fraction of a wave in several. Else
+# the plan takes the count of runs that minimises waves x (sequences per
+# CTA + RUN_SETUP), RUN_SETUP being a CTA's fixed cost in sequences (the
+# bias2 band or tile, filling the ring, the partial's write), with runs of
+# at least MIN_RUN sequences: #10's f32 scratch then stays under a quarter
+# of one f32 [G, N, N] logits tensor.
+BM, BK = 128, 64  # a CTA's query rows (#7 and #10) and keys (#10)
+SPLIT_WAVES, RUN_SETUP, MIN_RUN = 4, 1, 4
+
+
+class SeqSplit(NamedTuple):
+    """A split of the S sequences: `n` runs (#7) or chunks (#10) of
+    ceil(S / n) sequences, `runs[c]` = (first, end) of run c (contiguous,
+    in order, the last possibly shorter, none empty), `ctas` in the grid,
+    and `scratch_shape`, #10's [n, B H, N, N] f32 partial sums (() when
+    nothing is split, and always for #7)."""
+    n: int
+    runs: Tuple[Tuple[int, int], ...]
+    ctas: int
+    scratch_shape: Tuple[int, ...]
+
+    @property
+    def scratch_bytes(self) -> int:
+        return 4 * math.prod(self.scratch_shape) if self.scratch_shape else 0
+
+
+@functools.lru_cache(maxsize=None)
+def _split(units, S, sm_count):
+    """(n, runs) for `units` CTAs a run on `sm_count` SMs (one CTA an SM)."""
+    n = 1
+    if units < SPLIT_WAVES * sm_count and S >= 2 * MIN_RUN:
+        cost = lambda k: (-(-units * k // sm_count) * (-(-S // k) + RUN_SETUP), k)
+        n = min(range(1, S // MIN_RUN + 1), key=cost)
+    size = -(-S // n)
+    n = -(-S // size)  # no run left empty: run c starts at c * size
+    return n, tuple((c * size, min(S, (c + 1) * size)) for c in range(n))
+
+
+def fwd_run_plan(B, S, N, H, sm_count) -> SeqSplit:
+    """The runs of kernel #7 on a card of `sm_count` SMs: B * H *
+    ceil(N / 128) CTAs per run, each loading its 128 x N band of bias2 once
+    for the run's sequences."""
+    units = B * H * -(-N // BM)
+    n, runs = _split(units, S, sm_count)
+    return SeqSplit(n, runs, n * units, ())
+
+
+def db2_split_plan(B, S, N, H, D, sm_count) -> SeqSplit:
+    """The chunks of kernel #10 on a card of `sm_count` SMs: B * H *
+    ceil(N / 128) * ceil(N / 64) CTAs per chunk, each summing its chunk's
+    sequences into an f32 tile; with more than one chunk, the partials
+    [n, B H, N, N] f32 that the combining pass adds in chunk order."""
+    units = B * H * -(-N // BM) * -(-N // BK)
+    n, runs = _split(units, S, sm_count)
+    return SeqSplit(n, runs, n * units, (n, B * H, N, N) if n > 1 else ())
+
+
+def _sm_count(device):
+    return torch.cuda.get_device_properties(device).multi_processor_count
+
+
 def evoformer_fwd(q, k, v, bias1=None, bias2=None):
-    """Evoformer attention forward (kernel #7: csrc/evoformer_fwd.cu). q,
-    k, v [B, S, N, H, D] bf16, bias1 [B, S, 1, 1, N] / bias2 [B, 1, H, N, N]
-    bf16 or None, all contiguous. Returns (o [B, S, N, H, D] bf16, lse
-    [G, N] f32). CPU tensors take the plain version."""
+    """Evoformer attention forward (kernel #7: csrc/evoformer_fwd.cu, its
+    sequences in the runs of `fwd_run_plan`). q, k, v [B, S, N, H, D] bf16,
+    bias1 [B, S, 1, 1, N] / bias2 [B, 1, H, N, N] bf16 or None, all
+    contiguous. Returns (o [B, S, N, H, D] bf16, lse [G, N] f32). CPU
+    tensors take the plain version."""
     if not q.is_cuda:
         return evoformer_fwd_plain(q, k, v, bias1, bias2)
     what = "evoformer_fwd"
@@ -146,11 +222,12 @@ def evoformer_fwd(q, k, v, bias1=None, bias2=None):
     lse = torch.empty((B * S * H, N), dtype=_F32, device=q.device)
     if o.numel() == 0:
         return o, lse
+    plan = fwd_run_plan(B, S, N, H, _sm_count(q.device))
     lib = build.load("evoformer_fwd")
     err = lib.evoformer_fwd(ptr(o), ptr(lse), ptr(q), ptr(k), ptr(v),
                             None if bias1 is None else ptr(bias1),
-                            None if bias2 is None else ptr(bias2), B, S, N, H, D, scale,
-                            stream_of(q))
+                            None if bias2 is None else ptr(bias2), B, S, N, H, D, plan.n,
+                            scale, stream_of(q))
     build.check(lib, err, what)
     count_launch(evoformer_fwd)
     return o, lse
@@ -213,10 +290,14 @@ evoformer_bwd_dkv.launches = 0
 
 def evoformer_bwd_db2(q, k, v, bias1, bias2, do, lse, delta):
     """bias2's gradient, the sum of dS over the S sequences (kernel #10:
-    csrc/evoformer_bwd.cu; each output tile is one block that walks the
-    sequences, no atomics). bias2 is required; other arguments as
-    `evoformer_bwd_dq`. Returns db2 [B, 1, H, N, N] in bias2's dtype. CPU
-    tensors take the plain version."""
+    csrc/evoformer_db2.cu). Each CTA sums its 128 x 64 tile over a chunk of
+    the sequences (`db2_split_plan`); with more than one chunk, into an f32
+    scratch that this wrapper allocates and a second kernel adds in chunk
+    order, rounding once (no atomics: the same bits every run). The
+    combining pass counts under this wrapper's `launches`, so a forward and
+    backward still counts each of the four evoformer names once. bias2 is
+    required; other arguments as `evoformer_bwd_dq`. Returns db2 [B, 1, H,
+    N, N] in bias2's dtype. CPU tensors take the plain version."""
     if bias2 is None:
         raise ValueError("evoformer_bwd_db2: bias2 is None, so it has no gradient")
     if not q.is_cuda:
@@ -226,8 +307,13 @@ def evoformer_bwd_db2(q, k, v, bias1, bias2, do, lse, delta):
     db2 = torch.empty_like(bias2)
     if db2.numel() == 0:
         return db2
-    lib = build.load("evoformer_bwd")
-    err = lib.evoformer_bwd_db2(ptr(db2), *args, *_dims(q), stream_of(q))
+    B, S, N, H, D, scale = _dims(q)
+    plan = db2_split_plan(B, S, N, H, D, _sm_count(q.device))
+    part = (torch.empty(plan.scratch_shape, dtype=_F32, device=q.device)
+            if plan.scratch_shape else None)
+    lib = build.load("evoformer_db2")
+    err = lib.evoformer_bwd_db2(ptr(db2), None if part is None else ptr(part), *args, B, S, N,
+                                H, D, plan.n, scale, stream_of(q))
     build.check(lib, err, what)
     count_launch(evoformer_bwd_db2)
     return db2

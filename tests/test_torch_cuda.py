@@ -516,6 +516,185 @@ class TestEvoformerOnCard:
             PEV.evoformer_bwd_db2(q, k, v, b1, None, do, lse, delta)
 
 
+def _evo_check(q, k, v, do, b1, b2, what):
+    """#7 (o under bwd_mismatch, lse at 1e-4) and, with bias2, #10 against
+    their plain versions; returns (o, lse, db2 or None)."""
+    o, lse = PEV.evoformer_fwd(q, k, v, b1, b2)
+    ro, rlse = PEV.evoformer_fwd_plain(q, k, v, b1, b2)
+    torch.cuda.synchronize()
+    _assert_grad_close(o, ro, f"o {what}")
+    torch.testing.assert_close(lse, rlse, rtol=1e-4, atol=1e-4, msg=f"lse {what}")
+    if b2 is None:
+        return o, lse, None
+    delta = PEV._delta(o, do)
+    db2 = PEV.evoformer_bwd_db2(q, k, v, b1, b2, do, lse, delta)
+    torch.cuda.synchronize()
+    if q.shape[2] == 1:
+        # one key: P = 1 and dS = dO (v - o) = 0, so db2 is zero up to
+        # rounding (as window 1's flash dq and dk, TestWindowOnCard): held
+        # below 2^-10 of delta's largest value
+        assert db2.float().abs().max().item() <= 2.0 ** -10 * delta.abs().max().item(), what
+    else:
+        _assert_grad_close(db2, PEV._bwd_plain(q, k, v, b1, b2, lse, delta, do)[4],
+                           f"db2 {what}")
+    return o, lse, db2
+
+
+def _evo_units(B, N, H, which):
+    """CTAs a sequence run of #7 (128-row query tiles) or #10 (128 x 64 db2
+    tiles); a batch of at least 4 waves of them is not split."""
+    return B * H * -(-N // 128) * (-(-N // 64) if which == "db2" else 1)
+
+
+@pytest.mark.cuda
+class TestEvoformerHopperOnCard:
+    """Kernels #7 (the forward) and #10 (db2) in their wgmma/TMA design,
+    against their plain versions on the same bf16 inputs under
+    `bwd_mismatch`, #7's lse at 1e-4 (at N = 1 db2 is zero up to rounding
+    and is held below 2^-10 of delta): N at the edges of the 64- and 128-row
+    tiles and odd (the band's element loads, bias1 words of either parity),
+    N past the band's limit of 512 (bias2 read from device memory), S 1, 3,
+    4, 17 and 128 (runs of #7 and chunks of #10, partial last ones), D 32
+    (64-byte swizzle) and 64, every bias set. Then two launches
+    bit-identical; the sequence split against none (#7 bit-identical, its
+    runs change no arithmetic; #10 within f32 rounding, its chunks add in
+    another order); a bias1 that starts 2 bytes past a 4-byte boundary;
+    peak memory with #10's scratch; and planted faults aimed at the
+    design, which the checks must catch."""
+
+    @pytest.mark.parametrize("D", [32, 64])
+    @pytest.mark.parametrize("N", [1, 37, 48, 63, 64, 65, 129, 200, 256, 384])
+    def test_kernels_match_plain(self, rng, cuda_device, N, D):
+        for S in (1, 3, 4, 17, 128):
+            for which in ("both", "mask", "pair", "none"):
+                q, k, v, do, b1, b2 = _evo_case(rng, cuda_device, S, N, 2, D, which)
+                _evo_check(q, k, v, do, b1, b2, f"N={N} D={D} S={S} {which}")
+
+    @pytest.mark.parametrize("D", [32, 64])
+    @pytest.mark.parametrize("N", [520, 999])
+    def test_past_the_band(self, rng, cuda_device, N, D):
+        """N above 512: no band fits beside the ring, bias2 comes from
+        device memory in the fragment layout (odd N: element loads)."""
+        q, k, v, do, b1, b2 = _evo_case(rng, cuda_device, 3, N, 1, D, "both")
+        _evo_check(q, k, v, do, b1, b2, f"N={N} D={D}")
+
+    def test_bias1_off_a_word_boundary(self, rng, cuda_device):
+        for N in (37, 200):
+            q, k, v, do, b1, b2 = _evo_case(rng, cuda_device, 5, N, 2, 32, "both")
+            b1 = b1 + _bf16_cuda(rng.standard_normal(b1.shape), cuda_device)  # distinct per key
+            flat = torch.empty(b1.numel() + 1, dtype=torch.bfloat16, device=cuda_device)
+            flat[1:] = b1.reshape(-1)
+            shifted = flat[1:].view(b1.shape)
+            assert shifted.data_ptr() % 4 == 2
+            _evo_check(q, k, v, do, shifted, b2, f"N={N} bias1 at 2 mod 4")
+
+    @pytest.mark.parametrize("B,S,N,H,D", [(1, 128, 256, 8, 32), (1, 17, 200, 2, 64),
+                                           (2, 9, 37, 3, 32)])
+    def test_two_launches_bit_identical(self, rng, cuda_device, B, S, N, H, D):
+        q, k, v, do, b1, b2 = _evo_case(rng, cuda_device, S, N, H, D, "both", B=B)
+        first = PEV.evoformer_fwd(q, k, v, b1, b2)
+        second = PEV.evoformer_fwd(q, k, v, b1, b2)
+        delta = PEV._delta(first[0], do)
+        args = (q, k, v, b1, b2, do, first[1], delta)
+        d1, d2 = PEV.evoformer_bwd_db2(*args), PEV.evoformer_bwd_db2(*args)
+        torch.cuda.synchronize()
+        assert torch.equal(first[0], second[0]) and torch.equal(first[1], second[1])
+        assert torch.equal(d1, d2)
+
+    def test_split_and_unsplit_agree(self, rng, cuda_device):
+        """Batch row 0 alone (B = 1: its grid leaves SMs idle, so #7 walks
+        runs of sequences and #10 sums chunks) and inside a batch of at
+        least four waves of CTAs (no split). #7: bit-identical (every
+        sequence takes the same arithmetic in any run). #10: within f32
+        rounding (the chunks' partial sums add in another order): under
+        the tolerance, and equal bits in all but a few elements."""
+        S, N, H, D = 17, 200, 2, 32
+        sms = torch.cuda.get_device_properties(0).multi_processor_count
+        for which in ("fwd", "db2"):
+            B = -(-PEV.SPLIT_WAVES * sms // _evo_units(1, N, H, which))
+            plan = PEV.fwd_run_plan if which == "fwd" else (
+                lambda *a: PEV.db2_split_plan(*a[:4], D, a[4]))
+            assert plan(1, S, N, H, sms).n > 1 and plan(B, S, N, H, sms).n == 1
+            q, k, v, do, b1, b2 = _evo_case(rng, cuda_device, S, N, H, D, "both", B=B)
+            one = lambda t: t[:1].contiguous()
+            o, lse = PEV.evoformer_fwd(q, k, v, b1, b2)
+            o1, lse1 = PEV.evoformer_fwd(one(q), one(k), one(v), one(b1), one(b2))
+            if which == "fwd":
+                torch.cuda.synchronize()
+                assert torch.equal(o1, o[:1]) and torch.equal(lse1, lse[: S * H])
+                continue
+            delta = PEV._delta(o, do)
+            whole = PEV.evoformer_bwd_db2(q, k, v, b1, b2, do, lse, delta)[:1]
+            split = PEV.evoformer_bwd_db2(one(q), one(k), one(v), one(b1), one(b2), one(do),
+                                          lse[: S * H].contiguous(), delta[: S * H].contiguous())
+            torch.cuda.synchronize()
+            _assert_grad_close(split, whole, "db2 split vs unsplit")
+            assert (split != whole).float().mean().item() < 0.01
+
+    def test_peak_memory_with_the_scratch(self, rng, cuda_device):
+        """E1's shape: #10's scratch (2 chunks of [B H, N, N] f32 on an
+        H100's 132 SMs) is allocated within the call and counted, and a
+        forward and backward through the Function stays under one f32
+        [G, N, N] logits tensor."""
+        B, S, N, H, D = 1, 128, 256, 8, 32
+        q, k, v, do, b1, b2 = _evo_case(rng, cuda_device, S, N, H, D, "both", B=B)
+        o, lse = PEV.evoformer_fwd(q, k, v, b1, b2)
+        delta = PEV._delta(o, do)
+        sms = torch.cuda.get_device_properties(0).multi_processor_count
+        plan = PEV.db2_split_plan(B, S, N, H, D, sms)
+        logits = 4 * B * S * H * N * N
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        before = torch.cuda.memory_allocated()
+        PEV.evoformer_bwd_db2(q, k, v, b1, b2, do, lse, delta)
+        torch.cuda.synchronize()
+        peak = torch.cuda.max_memory_allocated() - before
+        assert plan.scratch_bytes + b2.numel() * 2 <= peak < logits
+        leaves = [t.clone().requires_grad_() for t in (q, k, v, b1, b2)]
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        before = torch.cuda.memory_allocated()
+        out = PE.ds4sci_evoformer_attention(*leaves[:3], leaves[3:])
+        torch.autograd.grad(out, leaves, do)
+        torch.cuda.synchronize()
+        assert torch.cuda.max_memory_allocated() - before < logits
+
+    @pytest.mark.parametrize("D", [32, 64])
+    def test_design_faults_are_caught(self, rng, cuda_device, D):
+        """Each fault, made by running the kernel on altered inputs, must
+        fail its check against the plain version on the true ones: a K/V
+        ring tile consumed before its barrier (key tile 1 holding tile 0's
+        rows), the bias2 band of the wrong head or of the other 128-row
+        query tile, bias1 staged one key off (its word parity wrong), and
+        one chunk of #10's split left out of the combining pass."""
+        S, N, H = 17, 256, 2
+        bn = 128 if D == 32 else 64  # #7's key tile
+        q, k, v, do, b1, b2 = _evo_case(rng, cuda_device, S, N, H, D, "both")
+        b1 = b1 + _bf16_cuda(rng.standard_normal(b1.shape), cuda_device)
+        ro, rlse = PEV.evoformer_fwd_plain(q, k, v, b1, b2)
+        stale = lambda x: torch.cat([x[:, :, :bn], x[:, :, :bn], x[:, :, 2 * bn:]], 2)
+        o_faults = {
+            "stale_ring_tile": PEV.evoformer_fwd(q, stale(k), stale(v), b1, b2)[0],
+            "band_of_the_wrong_head": PEV.evoformer_fwd(q, k, v, b1, b2.roll(1, 2))[0],
+            "band_of_the_other_query_tile": PEV.evoformer_fwd(q, k, v, b1, b2.roll(128, 3))[0],
+            "bias1_one_key_off": PEV.evoformer_fwd(q, k, v, b1.roll(1, -1), b2)[0]}
+        for fault, o in o_faults.items():
+            assert PEV.bwd_mismatch(o, ro)["n_over"] > 0, fault
+        o, lse = PEV.evoformer_fwd(q, k, v, b1, b2)
+        delta = PEV._delta(o, do)
+        ref = PEV._bwd_plain(q, k, v, b1, b2, lse, delta, do)[4]
+        sms = torch.cuda.get_device_properties(0).multi_processor_count
+        plan = PEV.db2_split_plan(1, S, N, H, D, sms)
+        assert plan.n > 1
+        first, end = plan.runs[1]
+        keep = torch.tensor([s for s in range(S) if not first <= s < end], device=q.device)
+        pick = lambda t: t.index_select(1, keep).contiguous()
+        rows = lambda x: x.reshape(S, H, N).index_select(0, keep).reshape(-1, N).contiguous()
+        left_out = PEV.evoformer_bwd_db2(pick(q), pick(k), pick(v), pick(b1), b2, pick(do),
+                                         rows(lse), rows(delta))
+        assert PEV.bwd_mismatch(left_out, ref)["n_over"] > 0
+
+
 def _window_decode_case(rng, dev, H, KV, D, quant, bs=16, NB=8, nblk=56):
     """Paged decode rows on the card around windows of 40 and 57: ctx 5
     (before both), 40 (at the first), 41 (one past it), 100 (window starts

@@ -86,8 +86,14 @@ Phases (any failure raises and exits nonzero):
              head (h // 8) % KV; at Falcon-7B's shape the group split of
              #3 (its plan and scratch bytes printed), two launches
              bit-identical and one chunk's partial left out of the
-             combining pass, which must fail; time
-             kernel, plain version and (where one exists) a single
+             combining pass, which must fail; the split-K design of #4/#5
+             at Falcon-7B's and Mistral's decode rows in all four modes
+             (decode_design_checks): two launches bit-identical, and
+             planted faults that must fail: one split left out of the
+             combine, the fused new column attended by every split, each
+             split's last cache position dropped, one ring stage consumed
+             stale; the plans, scratch bytes, ptxas registers and spills;
+             time kernel, plain version and (where one exists) a single
              PyTorch library call computing the same function: device time
              from torch.profiler, and the time of back-to-back calls from
              CUDA events.
@@ -501,9 +507,10 @@ WINDOW_CASES = (4096, 1000, 1)
 # it mid-block), up to 8000 of the 8192-token cap
 DECODE_W_CTX = (100, 2000, 4095, 4096, 4097, 5000, 6170, 8000)
 # kernel vs plain version on the card, (atol, rtol): the KV write is a copy
-# (bit-exact); decode keeps f32 probabilities, so only the bf16 rounding of
-# the output differs, at most one bf16 ulp (2^-7 of the value: rtol 8e-3,
-# atol 1e-3 near zero). The flash forward also feeds bf16 probabilities to
+# (bit-exact); decode keeps its probabilities in f32 to ~16 bits (the mma
+# P V of csrc/paged_decode.cu takes P as bf16(P) + bf16(P - bf16(P))), so
+# only the summation order and the bf16 rounding of the output differ, at
+# most one bf16 ulp (2^-7 of the value: rtol 8e-3, atol 1e-3 near zero). The flash forward also feeds bf16 probabilities to
 # the tensor cores (another 2^-9 relative per term); its o is held under
 # bwd_mismatch's row-scaled limit (_check_flash_o), its lse at 1e-3.
 KERNEL_TOL = {"paged_kv_write": (0.0, 0.0), "paged_decode_fused": (1e-3, 8e-3),
@@ -1085,7 +1092,7 @@ def _ptxas_registers(build, source, kernels):
         m = re.search(r"Compiling entry function '([^']+)'", line)
         if m:
             name = next((k for k in kernels if k in m.group(1)), None)
-            ints = re.findall(r"Li(\d+)E", m.group(1))
+            ints = re.findall(r"L[ib](\d+)E", m.group(1))  # ints and bools, in order
             current = f"{name}<{','.join(ints)}>" if name and ints else name
             if current:
                 out[current] = {}
@@ -2151,18 +2158,22 @@ def _unrounded_column_fault(PA, x, run, name, KV, G):
 
 def _decode_group_checks(PA, randn, dev, bound_ms):
     """The wide-group mode of kernels #4 and #5 (bf16 plain and fused, int8
-    plain and fused: a grid axis over chunks of 8 query heads) in the
-    cases of DECODE_GROUP_CASES (Falcon-7B's 71 query heads of 64 over one
-    KV head, a generic GQA 16 over 2 at 128), 8 rows with ctx
-    DECODE_FP_CTX (~100 to ~1,950) at 128-token blocks, against the plain
-    versions at one bf16 ulp; the fused modes' written pools bit-exact.
-    Planted faults that must fail against the plain version: every chunk
-    c > 0 given chunk 0's query heads (the kernel run on _chunk0_heads),
-    at Falcon's shape the partial last chunk (heads 64-70) dropped, and in
-    the int8 fused mode chunks c > 0 attending the un-rounded new column
-    (_unrounded_column_fault). Times at Falcon-7B's shape; the bound
-    counts each row's ctx positions once (a KV head's chunks read the same
-    bytes again, from L2 where they fit)."""
+    plain and fused: one CTA holds a KV head's whole group, in 16-row
+    slices of the mma products) in the cases of DECODE_GROUP_CASES
+    (Falcon-7B's 71 query heads of 64 over one KV head, a generic GQA 16
+    over 2 at 128), 8 rows with ctx DECODE_FP_CTX (~100 to ~1,950) at
+    128-token blocks, against the plain versions at one bf16 ulp; the fused
+    modes' written pools bit-exact. Planted faults that must fail against
+    the plain version (named for the chunks of 8 heads of the kernel
+    before split-K; what they guard now): query heads 8 and up given the
+    query of head g % 8 (the kernel run on _chunk0_heads: each 16-row
+    slice, and each half of one, must read its own heads), at Falcon-7B's
+    shape heads 64-70
+    dropped (the partial last slice, 7 live rows of 16), and in the int8
+    fused mode heads 8 and up attending the un-rounded new column
+    (_unrounded_column_fault: every slice must attend the dequantized new
+    row). Times at Falcon-7B's shape; the bound counts each row's ctx
+    positions once."""
     import torch
 
     bs = SERVE_A["kv_block_size"]
@@ -2206,7 +2217,7 @@ def _decode_group_checks(PA, randn, dev, bound_ms):
                            lambda: call(name, 0, ref_pools, kernel=False), None, 20),
                 shape=f"S={S}, ctx {min(ctx_list)}..{max(ctx_list)}, H={H}, KV={KV}, D={D}, "
                       f"bs={bs}, {'int8' if 'int8' in name else 'bf16'} pools of {nblk} "
-                      f"blocks, {-(-G // 8)} chunks of 8 query heads per KV head",
+                      f"blocks, the group in {-(-G // 16)} slices of 16 rows",
                 bound=bound_ms(_decode_bytes(name, S, H, KV, D, NB, sum(ctx_list)),
                                4 * sum(ctx_list) * H * D))
             del pools, ref_pools
@@ -2214,6 +2225,164 @@ def _decode_group_checks(PA, randn, dev, bound_ms):
         torch.cuda.empty_cache()
     print(json.dumps({"decode_group_checks": {"ctx": ctx_list, **report}}))
     return results
+
+
+# phase 2's split-K design checks of #4/#5: the cases (the
+# phase-2 fixtures of Falcon-7B's wide group and Mistral's window), the
+# ring depth of csrc/paged_decode.cu and its tile
+DECODE_DESIGN_CASES = {"falcon_7b": dict(H=71, KV=1, D=64, serve=SERVE_A, ctx=DECODE_FP_CTX,
+                                         window=0),
+                       "mistral_window": dict(H=32, KV=8, D=128, serve=SERVE_W,
+                                              ctx=DECODE_W_CTX, window=WINDOW)}
+DECODE_RING_STAGES, DECODE_TILE = 3, 64
+
+
+def _dense_decode(PA, q, pools, tables, ctx, live, bias=None):
+    """f32 decode over already-written pools: row s attends to the
+    positions where live [S, NB * bs] holds, each score plus bias [S, NB *
+    bs] when given (a planted fault's emulation). Returns q's dtype."""
+    import torch
+
+    S, H, D = q.shape
+    KV = pools[0].shape[2]
+    tbl = tables.long()
+    k = pools[0][tbl].reshape(S, -1, KV, D)
+    v = pools[1][tbl].reshape(S, -1, KV, D)
+    if len(pools) > 2:
+        k = PA.dequantize(k, pools[2][tbl].reshape(S, -1, KV), q.dtype)
+        v = PA.dequantize(v, pools[3][tbl].reshape(S, -1, KV), q.dtype)
+    k, v = (x.float().masked_fill(~live[:, :, None, None], 0.0).repeat_interleave(H // KV, 2)
+            for x in (k, v))
+    logits = torch.einsum("shd,skhd->shk", q.float(), k) / D ** 0.5
+    if bias is not None:
+        logits = logits + bias[:, None, :]
+    logits = logits.masked_fill(~live[:, None, :], float("-inf"))
+    probs = torch.nan_to_num(logits.softmax(-1))
+    return torch.einsum("shk,skhd->shd", probs, v).to(q.dtype)
+
+
+def _stale_ring_pools(pools, tables, ctx, window, fused, split_len, bs):
+    """Copies of `pools` in which, for every row and split, the fourth tile
+    the split's CTA computes holds its first tile's K/V rows (codes and
+    scales on int8): what a kernel that consumed a ring stage
+    (DECODE_RING_STAGES deep) before its copies landed would read. The
+    CTA's tiles: the 64-aligned tiles of [max(split start, ctx - window),
+    min(split end, ctx - fused)). Returns (pools, rows changed)."""
+    out = [p.clone() for p in pools]
+    span = tables.shape[1] * bs
+    tbl = tables.tolist()
+    n_changed = 0
+    src_slots, dst_slots = [], []
+    for s, c_ in enumerate(ctx.tolist()):
+        wlo = max(c_ - window, 0) if window > 0 else 0
+        hi_all = min(c_ - int(fused), span)
+        for sp0 in range(0, span, split_len):
+            lo, hi = max(sp0, wlo), min(sp0 + split_len, hi_all)
+            first = lo // DECODE_TILE * DECODE_TILE
+            stale = first + DECODE_RING_STAGES * DECODE_TILE
+            for r in range(DECODE_TILE):
+                src, dst = first + r, stale + r
+                if lo >= hi or dst >= hi:
+                    break
+                src_slots.append(tbl[s][src // bs] * bs + src % bs)
+                dst_slots.append(tbl[s][dst // bs] * bs + dst % bs)
+                n_changed += 1
+    if n_changed:
+        import torch
+
+        dev = pools[0].device
+        fs, fd = (torch.tensor(x, device=dev) for x in (src_slots, dst_slots))
+        for p in out:
+            flat = p.view(-1, *p.shape[2:])
+            flat[fd] = flat[fs]
+    return out, n_changed
+
+
+def _decode_design_checks(PA, randn, dev):
+    """Checks aimed at the split-K design of kernels #4/#5 at
+    DECODE_DESIGN_CASES, in all four modes: a second launch bit-identical
+    to the first; planted faults, each an
+    output the check against the plain version must fail: one split left
+    out of the combine (split 1's positions taken out: _dense_decode), the
+    fused new column attended by every split (its weight x n: the score +
+    ln n), each split's last cache position dropped, and one ring stage
+    consumed stale (the kernel run on _stale_ring_pools, where a CTA
+    computes four tiles or more); without a fault the emulation must pass.
+    Also the plans (splits, CTAs, scratch bytes) and the ptxas registers
+    and spills of every instantiation."""
+    import math
+
+    import torch
+
+    from deepspeed_tpu_torch.ops.cuda import build
+
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    atol, rtol = KERNEL_TOL["paged_decode_attention"]
+    report = {}
+    for seed, (case, c) in enumerate(DECODE_DESIGN_CASES.items()):
+        H, KV, D, window = c["H"], c["KV"], c["D"], c["window"]
+        bs = c["serve"]["kv_block_size"]
+        NB = c["serve"]["max_seq_len"] // bs
+        ctx_list = list(c["ctx"])
+        x, call, run = _decode_fixture(PA, randn, dev, H, KV, D, bs, NB, ctx_list, 21 + seed)
+        S, ctx = x["S"], x["ctx"]
+        plan = PA.decode_split_plan(S, KV, H // KV, D, NB * bs, sms)
+        L, n = plan.split_len, plan.n
+        if n < 2:
+            raise AssertionError(f"decode {case}: not split, so no split can be left out")
+        pos = torch.arange(NB * bs, device=dev)[None, :]
+        live = pos < ctx[:, None]
+        if window:
+            live &= pos >= ctx[:, None] - window
+        entry = {"plan": {"splits": n, "split_len": L, "ctas": plan.ctas,
+                          "scratch_bytes": plan.scratch_bytes}, "modes": {}}
+        for name in DECODE_MODES:
+            fused = "fused" in name
+            (o, pools), (ref, _) = run(name, window), run(name, window, kernel=False)
+            _check_close(f"{name} design {case}", o, ref, atol, rtol)
+            o2, _ = run(name, window)
+            torch.cuda.synchronize()
+            same = {"two_launches": torch.equal(o2, o)}
+            emulate = lambda keep, bias=None: _dense_decode(PA, x["q"], pools, x["tables"], ctx,
+                                                            keep, bias)
+            if _n_over(emulate(live), ref, atol, rtol):
+                raise AssertionError(f"{name} {case}: the dense emulation fails without a fault")
+            last = torch.zeros_like(live)  # each split's last cache position
+            limit = ctx.long() - int(fused)
+            first_live = (ctx.long() - window).clamp(min=0) if window else torch.zeros_like(limit)
+            for c_ in range(n):
+                end = limit.clamp(max=(c_ + 1) * L) - 1
+                ok = end >= first_live.clamp(min=c_ * L)
+                last[torch.arange(S, device=dev)[ok], end[ok]] = True
+            faults = {"split_1_left_out": _n_over(emulate(live & ((pos < L) | (pos >= 2 * L))),
+                                                  ref, atol, rtol),
+                      "each_split_last_position_dropped": _n_over(emulate(live & ~last), ref,
+                                                                  atol, rtol)}
+            if fused:
+                bias = torch.zeros(S, NB * bs, device=dev)
+                bias[torch.arange(S, device=dev), (ctx - 1).long()] = math.log(n)
+                faults["new_column_in_every_split"] = _n_over(emulate(live, bias), ref, atol,
+                                                              rtol)
+            stale, changed = _stale_ring_pools(run(name, window)[1], x["tables"], ctx, window,
+                                               fused, L, bs)
+            if changed:
+                faults["stale_ring_stage"] = _n_over(call(name, window, stale), ref, atol, rtol)
+            elif case == "mistral_window":
+                raise AssertionError(f"{name} {case}: no CTA computes four tiles; the stale "
+                                     "ring stage cannot be planted")
+            entry["modes"][name] = {"bit_identical": same, "planted_faults_elements_over": faults,
+                                    "stale_ring_rows_changed": changed}
+            if not all(same.values()):
+                raise AssertionError(f"{name} {case}: launches differ: {same}")
+            if not all(faults.values()):
+                raise AssertionError(f"{name} {case}: the check passes a planted fault: {faults}")
+            del stale, pools, o, o2, ref
+        report[case] = entry
+        del x, call, run
+        torch.cuda.empty_cache()
+    report["ptxas"] = _ptxas_registers(build, "paged_decode", ("decode_kernel",))
+    print(json.dumps({"decode_design_checks": report}))
+    return {}
 
 
 def _d80_write_checks(PA, randn, dev, bound_ms):
@@ -2664,6 +2833,8 @@ def check_kernels(cfg, dev):
         "decode_sparse": lambda: _decode_sparse_checks(PA, randn, dev, bound_ms),
         # the wide-group and head_dim-80 modes at Falcon-7B's and Phi-2's shapes
         "decode_group": lambda: _decode_group_checks(PA, randn, dev, bound_ms),
+        # the split-K design of #4/#5 at Falcon-7B's and Mistral's shapes
+        "decode_design": lambda: _decode_design_checks(PA, randn, dev),
         "d80": lambda: _d80_checks(FA, PA, randn, dev, bound_ms),
         # the backward's head_dim-80 and wide-group modes at Phi-2's and
         # Falcon-7B's training shapes

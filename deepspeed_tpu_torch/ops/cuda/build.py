@@ -45,7 +45,9 @@ _F = ctypes.c_float
 SIGNATURES = {
     "paged_kv_write": {"paged_kv_write": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
                        "paged_kv_write_int8": [_P] * 7 + [_I] * 5 + [_P]},
-    "paged_decode": {"paged_decode": [_P] * 13 + [_I] * 10 + [_F, _P]},
+    # ..., allowed, the split's f32 partials, its arrival counters; ...,
+    # window, the split count and length
+    "paged_decode": {"paged_decode": [_P] * 15 + [_I] * 12 + [_F, _P]},
     "flash_fwd": {"flash_fwd": [_P] * 6 + [_I] * 6 + [_F, _P],
                   # host nanoseconds to encode a call's three TMA maps `iters` times
                   "flash_fwd_encode_ns": [_P] * 3 + [_I] * 6},

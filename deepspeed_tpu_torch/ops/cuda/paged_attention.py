@@ -52,7 +52,17 @@ code * scale in f32, rounded to q's dtype before it meets q or P.
 The caches are updated IN PLACE (the JAX package donates the arenas and
 gets them back aliased): the write and the fused decode return the same
 tensors they were given.
+
+Split-K (`decode_split_plan`): the decode kernel runs one CTA per (row, KV
+head, split of the context), each holding the KV head's whole query group,
+where S x KV alone would leave the card idle; the splits' f32 partials are
+added in split order (no float atomics: the same bits every run) by the
+last CTA of each (row, KV head) to arrive, in the same launch.
 """
+
+import functools
+import math
+from typing import NamedTuple, Tuple
 
 import torch
 
@@ -352,24 +362,119 @@ def _check_decode(what, q, k_cache, v_cache, block_table, ctx_lens,
         check_shape(what, "slots", slots, (S,))
 
 
+# The split-K plan of the decode kernel (csrc/paged_decode.cu). A CTA takes
+# one (row, KV head, split) and holds the KV head's group (up to
+# MAX_GROUP_CTA query heads, in 16-row slices; a larger group takes one CTA
+# per 128). A split is a run of split_len absolute context positions,
+# whole TILE-column tiles. The plan reads shapes only (never ctx_lens,
+# which would stall the host on the card, nor the window, the slopes or
+# the bitmap), so a split that holds no live position of its row exits at
+# once. No split where the unsplit grid already holds SPLIT_WAVES CTAs an
+# SM. Else the count aims at TARGET_CTAS CTAs an SM, with at least
+# MIN_SPLIT_WORK tile-slices a split (a CTA's fixed cost, its partial's
+# write and the combine's read of it, against its tiles' work: a wide
+# group's tiles are 5 slices deep at Falcon-7B, a narrow one's 1), and at
+# most MAX_SPLITS. Measured on the H100 (port_timing.py splits, PERF.md).
+TILE = 64
+SLICE = 16
+MAX_GROUP_CTA = 128
+MAX_SPLITS = 64
+SPLIT_WAVES, TARGET_CTAS, MIN_SPLIT_WORK = 2, 8, 8
+
+
+class DecodeSplit(NamedTuple):
+    """`n` splits of `split_len` context positions (a multiple of TILE;
+    split c holds positions [c * split_len, (c + 1) * split_len) of the
+    span, the last cut at the span, none empty of it), `ctas` in the grid,
+    and `scratch_shape`, the f32 partials [S, KV, n * G * (D + 2)] (O, m
+    and l of each split and query head; () when nothing is split)."""
+    n: int
+    split_len: int
+    ctas: int
+    scratch_shape: Tuple[int, ...]
+
+    @property
+    def scratch_bytes(self) -> int:
+        return 4 * math.prod(self.scratch_shape) if self.scratch_shape else 0
+
+
+def decode_split_plan_for(S, KV, G, D, span, n) -> DecodeSplit:
+    """The plan of about `n` splits over a span of `span` positions: whole
+    tiles each, ceil(tiles / n) of them, so that none is empty."""
+    tiles = max(1, -(-span // TILE))
+    n = max(1, min(n, tiles, MAX_SPLITS))
+    size = -(-tiles // n)
+    n = -(-tiles // size)
+    ctas = S * KV * -(-G // MAX_GROUP_CTA) * n
+    return DecodeSplit(n, size * TILE, ctas, (S, KV, n * G * (D + 2)) if n > 1 else ())
+
+
+@functools.lru_cache(maxsize=None)
+def decode_split_plan(S, KV, G, D, span, sm_count) -> DecodeSplit:
+    """The split the decode kernel takes for S rows over KV heads of G query
+    heads at head_dim D, with tables of `span` = NB * block_size positions,
+    on a card of `sm_count` SMs (see the constants above; cached: a decode
+    step asks once a layer)."""
+    units = S * KV * -(-G // MAX_GROUP_CTA)
+    n = 1
+    if units < SPLIT_WAVES * sm_count:
+        tiles = max(1, -(-span // TILE))
+        slices = -(-min(G, MAX_GROUP_CTA) // SLICE)
+        n = max(1, min(-(-TARGET_CTAS * sm_count // units),
+                       tiles // -(-MIN_SPLIT_WORK // slices)))
+    return decode_split_plan_for(S, KV, G, D, span, n)
+
+
+@functools.lru_cache(maxsize=None)
+def _sm_count(device_index):
+    return torch.cuda.get_device_properties(device_index).multi_processor_count
+
+
+# (device index, stream) -> the split kernel's f32 partials and int32
+# arrival counters, allocated by the first launch that needs them (grown by
+# a larger one) and reused after: launches on one stream run in order, and
+# each has added its partials and reset its counters to 0 before the next
+# starts. A decode step thus allocates nothing beside its output.
+_WORKSPACE = {}
+
+
+def _workspace(device, stream, n_part, n_counters):
+    key = (device.index, stream)
+    ws = _WORKSPACE.get(key)
+    if ws is None or ws[0].numel() < n_part or ws[1].numel() < n_counters:
+        ws = (torch.empty(n_part, dtype=_F32, device=device),
+              torch.zeros(max(n_counters, 4096), dtype=_I32, device=device))
+        _WORKSPACE[key] = ws
+    return ws
+
+
 def _launch_decode(what, wrapper, window, alibi_slopes, allowed_slots, q, k_cache, v_cache,
                    block_table, ctx_lens, k_new=None, v_new=None, slots=None, k_scale=None,
                    v_scale=None):
-    """Launch csrc/paged_decode.cu in the mode its arguments select and
-    count the launch on `wrapper`. Returns the output [S, H, D]."""
+    """Launch csrc/paged_decode.cu in the mode its arguments select, split
+    by `decode_split_plan` (the f32 partials and arrival counters in this
+    stream's `_workspace`; the combine runs in the same launch), and count
+    the launch on `wrapper`. Returns the output [S, H, D]."""
     S, H, D = q.shape
     NBLK, bs, KV, _ = k_cache.shape
     out = torch.empty_like(q)
     if S == 0:
         return out
+    NB = block_table.shape[1]
+    plan = decode_split_plan(S, KV, H // KV, D, NB * bs, _sm_count(q.device.index))
+    stream = stream_of(q)
+    part = counters = None
+    if plan.n > 1:
+        part, counters = _workspace(q.device, stream, math.prod(plan.scratch_shape),
+                                    S * KV * -(-(H // KV) // MAX_GROUP_CTA))
     lib = build.load("paged_decode")
     opt = lambda t: None if t is None else ptr(t)
     err = lib.paged_decode(
         ptr(out), ptr(q), ptr(k_cache), ptr(v_cache), opt(k_scale), opt(v_scale),
         ptr(block_table), ptr(ctx_lens), opt(k_new), opt(v_new), opt(slots),
-        opt(alibi_slopes), opt(allowed_slots), int(k_new is not None),
-        int(k_scale is not None), S, H, KV, D, NBLK, bs, block_table.shape[1], int(window),
-        1.0 / D ** 0.5, stream_of(q))
+        opt(alibi_slopes), opt(allowed_slots), opt(part), opt(counters),
+        int(k_new is not None), int(k_scale is not None), S, H, KV, D, NBLK, bs, NB,
+        int(window), plan.n, plan.split_len, 1.0 / D ** 0.5, stream)
     build.check(lib, err, what)
     count_launch(wrapper, window, alibi_slopes is not None, allowed_slots is not None,
                  group=H // KV, head_dim=D)

@@ -1,0 +1,452 @@
+#!/usr/bin/env python3
+"""Time the port on one GPU, in one or more checkouts, in turns.
+
+    python3 port_timing.py MODE [ROOT ...]   # default ROOT: this checkout
+
+ROOT is a directory holding a `deepspeed_tpu_torch/` package (this checkout,
+or an older commit unpacked with `git archive <commit> deepspeed_tpu_torch |
+tar -x -C ROOT`). Give the roots in the order to run them, e.g. `OLD NEW NEW
+OLD`, to compare two versions on one card. For each root a fresh Python
+process imports that root's package and builds the kernels MODE needs from
+its own sources (into ROOT/build/kernels); the shapes, models and helpers
+are this checkout's chip_smoke.py. Prints one JSON line per root, then the
+card's name and power limit as nvidia-smi gives them. Imports nothing of
+JAX.
+
+MODE:
+- evo: at the evoformer cases E1-E3 of chip_smoke.py (bf16, both biases,
+  inputs from a seeded generator), `ds4sci_evoformer_attention`'s forward
+  and forward+backward (gradients of q, k, v and both biases): CUDA events
+  around 10 back-to-back calls after 3 warm-ups, the median of 3 such runs;
+  and each evoformer kernel's device time per call over 5 forward+backward
+  calls (torch.profiler).
+- serve: every model chip_smoke.py serves (the flagship and SERVED_7B, at
+  full width and depth, random bf16 weights from seed 0), from bf16 and
+  from int8 KV pools: the long prompt (the 7B models) and the wave of
+  96-token prompts, then greedy decode_multi_fn(8, 24) over 8 rows: the
+  median and the least of 5 CUDA-event timings of one call (after one
+  warm-up), decode tok/s = 8 x 24 / the median, the host's time to issue
+  the call (until it returns, the card still working), and where the time
+  of one call goes (torch.profiler: busy and idle share, the largest
+  kernels). Also the decode wrapper's own cost at the flagship's decode
+  shape (8 rows, 8 heads of 128, 1024-position tables), where the kernel
+  is shorter than its launch: 5 runs of 200 back-to-back
+  paged_decode_fused calls, CUDA-event ms a call and host us a call, the
+  median and the least of the runs.
+- splits: the decode kernel's device time (torch.profiler) at chip_smoke.py's
+  phase-2 decode rows (Falcon-7B, Mistral's window, BLOOM-7B1, Phi-2) and
+  the flagship's, fused bf16 and int8, for split counts 1, 2, 4, ... forced
+  in place of decode_split_plan, beside the plan's own choice.
+- tiles: where a 64-column tile's time goes in the one-CTA-a-row decode
+  kernel that split-K replaced (ROOT a checkout of that kernel: one CTA
+  walks its row's whole context, 8 query heads a CTA; its source has the
+  anchors of _CLOCK_PATCHES, and another source raises): a copy of ROOT's
+  csrc/paged_decode.cu with clock64() counters read by thread 0 at the tile
+  loop's phase boundaries, built beside ROOT (ROOT/build/decode_clk), at
+  Falcon-7B's, Mistral's and BLOOM-7B1's phase-2 decode rows, bf16 and
+  int8 fused: cycles a tile by phase summed over all CTAs, and the longest
+  CTA's loop cycles.
+"""
+
+import json
+import os
+import shutil
+import statistics
+import subprocess
+import sys
+import time
+from pathlib import Path
+
+HERE = Path(__file__).resolve().parent
+
+
+def _import_root(root):
+    """Put ROOT's package first on the path (this checkout's chip_smoke.py
+    next), check that it is the one imported, and return chip_smoke."""
+    root = Path(root).resolve()
+    sys.path[:0] = [str(root), str(HERE)]
+    import chip_smoke
+    import deepspeed_tpu_torch
+
+    if not Path(deepspeed_tpu_torch.__file__).resolve().is_relative_to(root):
+        raise RuntimeError(f"imported {deepspeed_tpu_torch.__file__}, not the package in {root}")
+    return root, chip_smoke
+
+
+def _seeded_randn(torch, dev, seed):
+    g = torch.Generator(device=dev).manual_seed(seed)
+    return lambda *shape: torch.randn(shape, generator=g, device=dev).to(torch.bfloat16)
+
+
+# ---------------------------------------------------------------------------
+# evo: the evoformer attention path
+# ---------------------------------------------------------------------------
+
+def _events_ms(torch, fn, iters=10, warmup=3, runs=3):
+    for _ in range(warmup):
+        fn()
+    out = []
+    for _ in range(runs):
+        torch.cuda.synchronize()
+        start, stop = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+        start.record()
+        for _ in range(iters):
+            fn()
+        stop.record()
+        torch.cuda.synchronize()
+        out.append(start.elapsed_time(stop) / iters)
+    return statistics.median(out)
+
+
+def _kernel_ms(torch, fn, iters=5):
+    """Device ms per call of each evoformer kernel (by its name's first 60
+    characters) over `iters` calls of fn."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+    out = {}
+    for e in prof.profiler.kineto_results.events():
+        if e.device_type() == DeviceType.CUDA and "evo_" in e.name():
+            key = e.name()[:60]
+            out[key] = out.get(key, 0.0) + e.duration_ns() / 1e6 / iters
+    return out
+
+
+def evo_worker(root):
+    root, C = _import_root(root)
+    import torch
+
+    from deepspeed_tpu_torch.ops.cuda import build
+    from deepspeed_tpu_torch.ops.evoformer_attention import ds4sci_evoformer_attention
+
+    build.build_all([n for n in build.SOURCES if n.startswith("evoformer")])
+    dev = torch.device("cuda")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    out = {"mode": "evo", "root": str(root), "cases": {}}
+    for i, (name, case) in enumerate(C.EVO_CASES.items()):
+        q, k, v, b1, b2, do = C._evo_inputs(case, dev, seed=10 + i)
+        leaves = [x.clone().requires_grad_() for x in (q, k, v, b1, b2)]
+        fwd = lambda: ds4sci_evoformer_attention(q, k, v, [b1, b2])
+
+        def fwd_bwd():
+            o = ds4sci_evoformer_attention(leaves[0], leaves[1], leaves[2], leaves[3:])
+            return torch.autograd.grad(o, leaves, do)
+
+        with torch.no_grad():
+            fwd_ms = _events_ms(torch, fwd)
+        out["cases"][name] = {"shape": [case[x] for x in "BSNHD"], "fwd_ms": fwd_ms,
+                              "fwd_bwd_ms": _events_ms(torch, fwd_bwd),
+                              "kernel_device_ms": _kernel_ms(torch, fwd_bwd)}
+        del q, k, v, b1, b2, do, leaves
+        torch.cuda.empty_cache()
+    return out
+
+
+# ---------------------------------------------------------------------------
+# serve: decode tok/s of every served model, and the decode wrapper's cost
+# ---------------------------------------------------------------------------
+
+def _served_models(C):
+    """name -> (model, serving config, long prompt's tokens (0: none),
+    96-token prompts, prompt seed): chip_smoke.py's flagship (phase serve)
+    and SERVED_7B (phases serve_<mode>), 8 decode rows each."""
+    out = {"flagship": (C.FLAGSHIP, C.SERVE, 0, C.N_PROMPTS, 0)}
+    for mode, model in C.SERVED_7B:
+        serve, n_long, n_wave, seed, _ = C.SERVE_LONG[mode]
+        out[mode] = (model, serve, n_long, n_wave, seed)
+    return out
+
+
+def _decode_rate(C, torch, eng, V, n_long, n_wave, seed, runs=5):
+    import numpy as np
+
+    r = np.random.default_rng(seed)
+    last, rows = {}, []
+    if n_long:
+        last[100] = eng.put([100], [r.integers(0, V, n_long).astype(np.int32)])[0]
+        rows.append(100)
+    uids = list(range(n_wave))
+    wave = eng.put(uids, [r.integers(0, V, C.PROMPT_LEN).astype(np.int32) for _ in uids])
+    last.update({u: wave[u] for u in uids})
+    rows += uids
+    tables = eng.state.block_table(rows, eng.config.blocks_per_seq, eng.pad_block)
+    ctx = np.array([eng.state.get(u).seen_tokens + 1 for u in rows], np.int32)
+    toks = np.array([last[u].argmax() for u in rows], np.int32)
+    fn = eng.decode_multi_fn(len(rows), C.DECODE_STEPS)
+    call = lambda: fn(eng.params, eng.cache, toks, tables, ctx)
+    call()
+    start, stop = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    ms, issue_ms = [], []
+    for _ in range(runs):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        start.record()
+        call()
+        stop.record()
+        issue_ms.append((time.perf_counter() - t) * 1e3)
+        torch.cuda.synchronize()
+        ms.append(start.elapsed_time(stop))
+    step_ms = statistics.median(ms)
+    return {"decode_multi_ms_b8_24steps": step_ms, "runs_ms": ms, "least_ms": min(ms),
+            "issue_ms": statistics.median(issue_ms), "issue_runs_ms": issue_ms,
+            "decode_tok_s_b8": len(rows) * C.DECODE_STEPS / (step_ms / 1e3),
+            "ctx": [int(ctx.min()), int(ctx.max())],
+            "where_time_goes": C._where_time_goes(call)}
+
+
+def _wrapper_cost(C, torch, PA, dev, iters=200, runs=5):
+    """paged_decode_fused at the flagship's decode shape: CUDA-event ms a
+    call and host us a call over `iters` back-to-back calls, the median and
+    the least of `runs`."""
+    H = KV = C.FLAGSHIP["n_heads"]
+    D = C.FLAGSHIP["d_model"] // H
+    bs = C.SERVE["kv_block_size"]
+    NB = -(-C.SERVE["max_seq_len"] // bs)
+    ctx_list = [C.PROMPT_LEN + 1 + 3 * i for i in range(C.N_PROMPTS)]
+    _, call, run = C._decode_fixture(PA, _seeded_randn(torch, dev, 31), dev, H, KV, D, bs, NB,
+                                     ctx_list, 31)
+    pools = run("paged_decode_fused", 0)[1]
+    fn = lambda: call("paged_decode_fused", 0, pools)
+    call_ms, host_us = [], []
+    for _ in range(runs):
+        call_ms.append(C._time_ms(fn, iters))
+        t = time.perf_counter()
+        for _ in range(iters):
+            fn()
+        host_us.append((time.perf_counter() - t) / iters * 1e6)
+        torch.cuda.synchronize()
+    return {"call_ms": statistics.median(call_ms), "call_ms_least": min(call_ms),
+            "host_us": statistics.median(host_us), "host_us_least": min(host_us),
+            "host_us_runs": host_us}
+
+
+def serve_worker(root):
+    root, C = _import_root(root)
+    import torch
+
+    from deepspeed_tpu_torch import init_inference
+    from deepspeed_tpu_torch.models import transformer as T
+    from deepspeed_tpu_torch.ops.cuda import build
+    from deepspeed_tpu_torch.ops.cuda import paged_attention as PA
+
+    build.build_all(["paged_kv_write", "paged_decode", "flash_fwd"])
+    dev = torch.device("cuda")
+    out = {"mode": "serve", "root": str(root),
+           "decode_wrapper_at_flagship": _wrapper_cost(C, torch, PA, dev), "models": {}}
+    for name, (model, serve, n_long, n_wave, seed) in _served_models(C).items():
+        cfg = T.TransformerConfig(**model)
+        params = C._init_served(T, cfg, dev)
+        for dtype in ("bf16", "int8"):
+            eng = init_inference(params, cfg, dict(serve, kv_cache_dtype=(
+                "int8" if dtype == "int8" else "auto")))
+            params = eng.params  # the serving layout, for the int8 engine
+            out["models"][f"{name}/{dtype}"] = _decode_rate(
+                C, torch, eng, cfg.vocab_size, n_long, n_wave, seed)
+            del eng
+            torch.cuda.empty_cache()
+        del params
+        torch.cuda.empty_cache()
+    return out
+
+
+# ---------------------------------------------------------------------------
+# splits: the decode kernel at forced split counts
+# ---------------------------------------------------------------------------
+
+def _decode_cases(C):
+    """name -> (H, KV, D, serving config, decode rows' ctx, window): the
+    phase-2 decode rows of chip_smoke.py and the flagship's decode."""
+    return {"falcon_7b": (71, 1, 64, C.SERVE_A, C.DECODE_FP_CTX, 0),
+            "mistral_window_4096": (32, 8, 128, C.SERVE_W, C.DECODE_W_CTX, C.WINDOW),
+            "bloom_alibi": (32, 32, 128, C.SERVE_A, C.DECODE_ALIBI_CTX, 0),
+            "phi_2": (32, 32, 80, C.SERVE_A, C.DECODE_FP_CTX, 0),
+            "flagship": (8, 8, 128, C.SERVE,
+                         [C.PROMPT_LEN + 1 + 3 * i for i in range(C.N_PROMPTS)], 0)}
+
+
+def splits_worker(root):
+    root, C = _import_root(root)
+    import torch
+
+    from deepspeed_tpu_torch.ops.cuda import build
+    from deepspeed_tpu_torch.ops.cuda import paged_attention as PA
+
+    build.build_all(["paged_decode"])
+    dev = torch.device("cuda")
+    randn = _seeded_randn(torch, dev, 1)
+    plan = PA.decode_split_plan
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    out = {"mode": "splits", "root": str(root), "cases": {}}
+    for case, (H, KV, D, serve, ctx_list, window) in _decode_cases(C).items():
+        bs = serve["kv_block_size"]
+        NB = -(-serve["max_seq_len"] // bs)
+        x, call, run = C._decode_fixture(PA, randn, dev, H, KV, D, bs, NB, list(ctx_list), 5)
+        own = plan(len(ctx_list), KV, H // KV, D, NB * bs, sms)
+        res = {"plan": {"n": own.n, "split_len": own.split_len}}
+        for name in ("paged_decode_fused", "paged_decode_fused_int8"):
+            pools = run(name, window)[1]
+            times = {}
+            for n in sorted({1, 2, 4, 8, 16, 32, own.n}):
+                forced = PA.decode_split_plan_for(len(ctx_list), KV, H // KV, D, NB * bs, n)
+                PA.decode_split_plan = lambda *a, _p=forced: _p
+                try:
+                    times[forced.n] = C._device_ms(lambda: call(name, window, pools), 20)
+                finally:
+                    PA.decode_split_plan = plan
+            res[name] = times
+        out["cases"][case] = res
+        del x, call, run
+        torch.cuda.empty_cache()
+    return out
+
+
+# ---------------------------------------------------------------------------
+# tiles: the phases of the one-CTA-a-row kernel's tile loop, by clock64()
+# ---------------------------------------------------------------------------
+
+# (anchor, text put after it, or before it when the anchor starts with
+# "<"): the phases of the tile loop of the one-CTA-a-row kernel are the K/V
+# staging with its barrier, the warp-shuffle scores, the online softmax and
+# the scalar P V; thread 0 adds each phase's cycles, and at the end flushes
+# them, its tile count and its loop's cycles to g_decode_clk
+_FLUSH = """  if (threadIdx.x == 0) {
+    for (int i = 0; i < 4; ++i) atomicAdd(&g_decode_clk[i], (unsigned long long)_ph[i]);
+    atomicAdd(&g_decode_clk[5], (unsigned long long)_nt);
+    const unsigned long long cta = (unsigned long long)(clock64() - _cs);
+    atomicAdd(&g_decode_clk[6], cta);
+    atomicMax(&g_decode_clk[7], cta);
+    atomicAdd(&g_decode_clk[8], 1ull);
+    atomicAdd(&g_decode_clk[9], (unsigned long long)(_cs - _cb));
+  }
+"""
+_CLOCK_PATCHES = (
+    ("<namespace {\n", "__device__ unsigned long long g_decode_clk[10];\n"),
+    ("  const int tid = threadIdx.x;\n", "  const long long _cb = clock64();\n"),
+    ("  const int32_t* allow = allowed ? allowed + (size_t)s * table_width : nullptr;\n",
+     "  long long _ph[4] = {0, 0, 0, 0};\n  long long _nt = 0;\n"
+     "  const long long _cs = clock64();\n"),
+    ("  for (int c0 = start;;) {\n", "    const long long _c0 = clock64();\n"),
+    ("<\n    // scores: warp w takes columns", "\n    const long long _c1 = clock64();"),
+    ("<\n    // online softmax: warp w takes heads", "\n    const long long _c2 = clock64();"),
+    ("<\n    // P V: thread tid owns column tid", "\n    const long long _c3 = clock64();"),
+    ("<    c0 = end;\n  }\n", """    if (threadIdx.x == 0) {
+      _ph[0] += _c1 - _c0; _ph[1] += _c2 - _c1; _ph[2] += _c3 - _c2;
+      _ph[3] += clock64() - _c3; ++_nt;
+    }
+"""),
+    ("    c0 = end;\n  }\n", _FLUSH))
+_CLOCK_READ = """
+extern "C" int decode_clocks(unsigned long long* out) {
+  cudaError_t e = cudaMemcpyFromSymbol(out, g_decode_clk, sizeof(g_decode_clk));
+  if (e != cudaSuccess) return (int)e;
+  const unsigned long long zero[10] = {0, 0, 0, 0, 0, 0, 0, 0, 0, 0};
+  return (int)cudaMemcpyToSymbol(g_decode_clk, zero, sizeof(zero));
+}
+"""
+PHASES = ("stage_kv_and_barrier", "scores_warp_shuffle", "online_softmax", "p_v_scalar")
+
+
+def _clock_source(src):
+    """The one-CTA-a-row kernel's source with the clock64() counters."""
+    for anchor, text in _CLOCK_PATCHES:
+        before = anchor.startswith("<")
+        anchor = anchor.lstrip("<")
+        if src.count(anchor) != 1:
+            raise RuntimeError("ROOT's csrc/paged_decode.cu is not the one-CTA-a-row kernel: "
+                               f"anchor not found once: {anchor!r}")
+        src = src.replace(anchor, text + anchor if before else anchor + text)
+    return src + _CLOCK_READ
+
+
+def tiles_worker(root):
+    root, C = _import_root(root)
+    import ctypes
+
+    import torch
+
+    from deepspeed_tpu_torch.ops.cuda import build
+    from deepspeed_tpu_torch.ops.cuda import paged_attention as PA
+
+    work = root / "build" / "decode_clk"
+    csrc = work / "csrc"
+    shutil.rmtree(work, ignore_errors=True)
+    csrc.mkdir(parents=True)
+    for h in build.CSRC.glob("*.cuh"):
+        shutil.copy(h, csrc)
+    (csrc / "paged_decode.cu").write_text(_clock_source((build.CSRC / "paged_decode.cu")
+                                                        .read_text()))
+    build.CSRC, build.BUILD_DIR = csrc, work / "kernels"
+    lib = build.load("paged_decode")
+    lib.decode_clocks.argtypes = [ctypes.c_void_p]
+    lib.decode_clocks.restype = ctypes.c_int
+    clocks = (ctypes.c_ulonglong * 10)()
+    dev = torch.device("cuda")
+    randn = _seeded_randn(torch, dev, 1)
+    mhz = float(subprocess.run(["nvidia-smi", "--query-gpu=clocks.max.sm",
+                                "--format=csv,noheader,nounits"], capture_output=True,
+                               text=True, timeout=60, check=True).stdout.split()[0])
+    out = {"mode": "tiles", "root": str(root), "sm_clock_max_mhz": mhz, "cases": {}}
+    cases = {k: v for k, v in _decode_cases(C).items()
+             if k in ("falcon_7b", "mistral_window_4096", "bloom_alibi")}
+    for case, (H, KV, D, serve, ctx_list, window) in cases.items():
+        bs = serve["kv_block_size"]
+        NB = serve["max_seq_len"] // bs
+        x, call, run = C._decode_fixture(PA, randn, dev, H, KV, D, bs, NB, list(ctx_list), 5)
+        for name in ("paged_decode_fused", "paged_decode_fused_int8"):
+            pools = run(name, window)[1]
+            call(name, window, pools)
+            torch.cuda.synchronize()
+            build.check(lib, lib.decode_clocks(clocks), "decode_clocks")  # reset
+            call(name, window, pools)
+            torch.cuda.synchronize()
+            build.check(lib, lib.decode_clocks(clocks), "decode_clocks")
+            ph, (n_tiles, cta_sum, cta_max, ctas, setup) = list(clocks[:4]), clocks[5:]
+            tile_cycles = sum(ph) / max(n_tiles, 1)
+            out["cases"][f"{case}/{name}"] = {
+                "ctas": ctas, "tiles": n_tiles,
+                "cycles_a_tile": tile_cycles,
+                "us_a_tile_at_max_clock": tile_cycles / mhz,
+                "cycles_a_tile_by_phase": {p: c / max(n_tiles, 1) for p, c in zip(PHASES, ph)},
+                "share_by_phase": {p: c / max(sum(ph), 1) for p, c in zip(PHASES, ph)},
+                "longest_cta_loop_cycles": cta_max,
+                "longest_cta_loop_us_at_max_clock": cta_max / mhz,
+                "mean_cta_loop_cycles": cta_sum / max(ctas, 1),
+                "mean_cta_setup_cycles": setup / max(ctas, 1),
+                "device_ms": C._device_ms(lambda: call(name, window, pools), 10)}
+        del x, call, run
+        torch.cuda.empty_cache()
+    return out
+
+
+WORKERS = {"evo": evo_worker, "serve": serve_worker, "splits": splits_worker,
+           "tiles": tiles_worker}
+
+
+def main(mode, roots):
+    import torch
+
+    if not torch.cuda.is_available():
+        sys.exit("port_timing.py: no CUDA device")
+    if mode not in WORKERS:
+        sys.exit(f"port_timing.py: MODE must be one of {sorted(WORKERS)}")
+    for root in roots or [str(HERE)]:
+        subprocess.run([sys.executable, os.path.abspath(__file__), "--worker", mode, root],
+                       check=True)
+    gpu = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+                         capture_output=True, text=True, timeout=60, check=True)
+    print(gpu.stdout.strip().splitlines()[0])
+
+
+if __name__ == "__main__":
+    if sys.argv[1:2] == ["--worker"]:
+        print(json.dumps(WORKERS[sys.argv[2]](sys.argv[3])), flush=True)
+    elif len(sys.argv) < 2:
+        sys.exit(__doc__)
+    else:
+        main(sys.argv[1], sys.argv[2:])

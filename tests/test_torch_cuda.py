@@ -7,6 +7,10 @@ imports neither JAX nor the JAX package, so it runs on the GPU machine
     python -m pytest --noconftest -p no:cacheprovider tests/test_torch_cuda.py
 """
 
+import functools
+import importlib.util
+from pathlib import Path
+
 import numpy as np
 import pytest
 import torch
@@ -1751,3 +1755,227 @@ class TestFlashBackwardHopperOnCard:
             for i, name in enumerate(("dq", "dk", "dv")):
                 if name in hit:
                     assert PF.bwd_mismatch(grads[i], ref[i])["n_over"] > 0, (fault, name)
+
+
+def _split_case(rng, dev, mode, H, KV, D, bs, span=1024):
+    """Seven decode rows over tables of `span` positions, around the split
+    boundary of the plan at this shape (split_len L): ctx 1, L - 1, L,
+    L + 1, L + 37 (a window of 100 then starts mid-block), the whole span,
+    and a pad row (ctx 0, table on the scratch block). Returns (q, pools,
+    tables, ctx, k_new, v_new, slots, plan)."""
+    S, NB = 7, span // bs
+    nblk = S * NB + 1
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    plan = PP.decode_split_plan(S, KV, H // KV, D, span, sms)
+    L = plan.split_len
+    ctx_np = np.minimum(np.array([1, L - 1, L, L + 1, L + 37, span, 0]), span).astype(np.int32)
+    tbl_np = rng.permutation(nblk - 1)[: S * NB].reshape(S, NB).astype(np.int32)
+    tbl_np[-1] = nblk - 1
+    if "int8" in mode:
+        pools = _int8_pools(rng, dev, nblk, bs, KV, D)
+    else:
+        pools = tuple(_bf16_cuda(a, dev) for a in _arena(rng, nblk, bs, KV, D))
+    q = _bf16_cuda(rng.standard_normal((S, H, D)), dev)
+    tbl, ctx = torch.from_numpy(tbl_np).to(dev), torch.from_numpy(ctx_np).to(dev)
+    pos = (ctx - 1).clamp(min=0).long()
+    slots = torch.where(ctx > 0, tbl[torch.arange(S, device=dev), pos // bs] * bs + pos % bs,
+                        -1).to(torch.int32)
+    kn = _bf16_cuda(rng.standard_normal((S, KV, D)), dev)
+    vn = _bf16_cuda(rng.standard_normal((S, KV, D)), dev)
+    return q, pools, tbl, ctx, kn, vn, slots, plan
+
+
+def _decode_kernel(mode, q, pools, tbl, ctx, kn, vn, slots, window=0, **opts):
+    """One decode mode's kernel output on `pools` (written in place by the
+    fused modes); `opts` are the wrapper's (alibi_slopes, allowed_slots)."""
+    if mode in ("plain", "int8"):
+        kern = PP.paged_decode_attention_int8 if mode == "int8" else PP.paged_decode_attention
+        return kern(q, pools[0], pools[1], tbl, ctx, *pools[2:], window=window, **opts)
+    kern = PP.paged_decode_fused_int8 if mode == "fused_int8" else PP.paged_decode_fused
+    return kern(q, pools[0], pools[1], tbl, ctx, kn, vn, slots, *pools[2:], window=window,
+                **opts)[0]
+
+
+@functools.lru_cache(maxsize=None)
+def _chip_smoke():
+    spec = importlib.util.spec_from_file_location(
+        "chip_smoke", Path(__file__).resolve().parents[1] / "chip_smoke.py")
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def _dense_f32(q, pools, tbl, ctx, live, bias=None):
+    """chip_smoke.py's dense f32 decode over written pools at the positions
+    `live` [S, NB * bs] holds, each score plus `bias` when given."""
+    return _chip_smoke()._dense_decode(PP, q, pools, tbl, ctx, live, bias)
+
+
+@pytest.mark.cuda
+class TestDecodeSplitOnCard:
+    """Kernels #4/#5 in their split-K design (csrc/paged_decode.cu: a CTA
+    per (row, KV head, split) holding the whole group, a cp.async ring,
+    mma.sync, partials added in split order) against their plain versions
+    at one bf16 ulp: groups of 1, 4, 8, 16, 71 and 130 at head dims 64, 80 and
+    128 and cache blocks of 16, 32 and 128, rows at a split boundary and
+    one position either side, at ctx 1, over the whole span, with a window
+    starting mid-block, with ALiBi, and a pad row, in all four modes (the
+    fused pools bit-exact); two launches bit-identical; a window past ctx,
+    an all-ones bitmap and zero slopes bit-identical to none; the scratch
+    within the plan's bytes; NaN in every dead pool row leaving the output
+    bit-identical; and planted faults aimed at the design that the check
+    must catch."""
+
+    DECODE_TOL = dict(rtol=8e-3, atol=1e-3)
+    MODES = ["plain", "fused", "int8", "fused_int8"]
+
+    @pytest.mark.parametrize("bs", [16, 32, 128])
+    @pytest.mark.parametrize("D", [64, 80, 128])
+    @pytest.mark.parametrize("G", [1, 4, 8, 16, 71, 130])
+    def test_modes_match_plain(self, rng, cuda_device, G, D, bs):
+        KV = 1 if G > 16 else 2  # 130: two CTAs of the group (128 + 2 heads)
+        H = G * KV
+        for mode in self.MODES:
+            q, pools, tbl, ctx, kn, vn, slots, plan = _split_case(rng, cuda_device, mode, H, KV,
+                                                                  D, bs)
+            assert plan.n > 1
+            for window, alibi in ((0, None), (100, None), (0, _slopes(H, cuda_device))):
+                out, ref = _window_decode(mode, q, pools, tbl, ctx, window, kn, vn, slots,
+                                          alibi=alibi)
+                torch.testing.assert_close(out.float(), ref.float(), **self.DECODE_TOL)
+                assert not out[-1].any()  # the pad row
+
+    @pytest.mark.parametrize("mode", MODES)
+    @pytest.mark.parametrize("H,KV,D,window", [(71, 1, 64, 0), (32, 8, 128, 600)])
+    def test_two_launches_bit_identical(self, rng, cuda_device, mode, H, KV, D, window):
+        q, pools, tbl, ctx, kn, vn, slots, plan = _split_case(rng, cuda_device, mode, H, KV, D,
+                                                              128, span=2048)
+        assert plan.n > 1
+        runs = [_decode_kernel(mode, q, [p.clone() for p in pools], tbl, ctx, kn, vn, slots,
+                               window) for _ in range(2)]
+        torch.cuda.synchronize()
+        assert torch.equal(runs[0], runs[1])
+
+    @pytest.mark.parametrize("mode", MODES)
+    def test_neutral_options_bit_identical_to_none(self, rng, cuda_device, mode):
+        """The split boundaries do not move with the window, the bitmap or
+        the slopes: a window past every row's ctx, an all-ones bitmap and
+        zero slopes give none's output bit for bit, on a split shape."""
+        H, KV = 32, 8
+        q, pools, tbl, ctx, kn, vn, slots, plan = _split_case(rng, cuda_device, mode, H, KV, 128,
+                                                              32, span=2048)
+        assert plan.n > 1
+        run = lambda **opts: _decode_kernel(mode, q, [p.clone() for p in pools], tbl, ctx, kn, vn,
+                                            slots, **opts)
+        base = run()
+        neutral = {"window_past_ctx": run(window=tbl.shape[1] * 32 + 1),
+                   "all_ones_bitmap": run(allowed_slots=torch.ones_like(tbl)),
+                   "zero_slopes": run(alibi_slopes=torch.zeros(H, device=cuda_device))}
+        torch.cuda.synchronize()
+        for name, out in neutral.items():
+            assert torch.equal(out, base), name
+
+    def test_scratch_within_the_plan(self, rng, cuda_device):
+        """At Falcon-7B's phase-2 decode shape (8 rows, 71 heads over one KV
+        head, 2048-position tables): 16 splits, ~2.4 MB of f32 partials and
+        16 KB of arrival counters allocated by the first launch, nothing
+        beside the output by the next."""
+        S, H, KV, D, bs, NB = 8, 71, 1, 64, 128, 16
+        sms = torch.cuda.get_device_properties(cuda_device).multi_processor_count
+        plan = PP.decode_split_plan(S, KV, H, D, NB * bs, sms)
+        assert plan.n > 1 and plan.scratch_bytes <= 2_500_000
+        nblk = S * NB + 1
+        pools = [_bf16_cuda(a, cuda_device) for a in _arena(rng, nblk, bs, KV, D)]
+        tbl = torch.from_numpy(rng.permutation(nblk - 1)[: S * NB].reshape(S, NB)
+                               .astype(np.int32)).to(cuda_device)
+        ctx = torch.full((S,), NB * bs, dtype=torch.int32, device=cuda_device)
+        q = _bf16_cuda(rng.standard_normal((S, H, D)), cuda_device)
+        PP._WORKSPACE.clear()
+        extras = []
+        for _ in range(2):
+            torch.cuda.synchronize()
+            before = torch.cuda.memory_allocated(cuda_device)
+            torch.cuda.reset_peak_memory_stats(cuda_device)
+            out = PP.paged_decode_attention(q, *pools, tbl, ctx)
+            torch.cuda.synchronize()
+            extras.append(torch.cuda.max_memory_allocated(cuda_device) - before)
+        counters = 4 * 4096
+        assert extras[0] <= plan.scratch_bytes + counters + out.numel() * 2 + 3 * 512, (extras,
+                                                                                       plan)
+        assert extras[1] <= out.numel() * 2 + 512, extras
+
+    @pytest.mark.parametrize("mode", MODES)
+    @pytest.mark.parametrize("window", [0, 300])
+    def test_nan_in_dead_rows_leaves_the_output_bit_identical(self, rng, cuda_device, mode,
+                                                              window):
+        """NaN in every pool row no decode row may read (past its live
+        length, left of its window, blocks of no table; on int8 pools the
+        scales) changes no bit of the output."""
+        q, pools, tbl, ctx, kn, vn, slots, plan = _split_case(rng, cuda_device, mode, 16, 2, 128,
+                                                              16)
+        S, NB = tbl.shape
+        bs = pools[0].shape[1]
+        pos = torch.arange(NB * bs, device=cuda_device)[None, :]
+        live = (pos < ctx[:, None]) & ((pos >= ctx[:, None] - window) if window else True)
+        dead = torch.ones(pools[0].shape[0] * bs, dtype=torch.bool, device=cuda_device)
+        flat = (tbl.long()[:, :, None] * bs + torch.arange(bs, device=cuda_device)).reshape(S, -1)
+        dead[flat[live]] = False
+        clean = _decode_kernel(mode, q, [p.clone() for p in pools], tbl, ctx, kn, vn, slots,
+                               window)
+        dirty = [p.clone() for p in pools]
+        for p in dirty:
+            if p.is_floating_point():
+                p.view(-1, *p.shape[2:])[dead] = float("nan")
+        got = _decode_kernel(mode, q, dirty, tbl, ctx, kn, vn, slots, window)
+        torch.cuda.synchronize()
+        assert torch.isfinite(got.float()).all() and torch.equal(got, clean)
+
+    @pytest.mark.parametrize("mode", MODES)
+    def test_design_faults_are_caught(self, rng, cuda_device, mode):
+        """Outputs the check against the plain version must fail: one split
+        left out of the combine, each split's last cache position dropped,
+        the fused new column attended by every split (its weight x n), and
+        the kernel run on pools whose fourth tile of each split holds its
+        first tile's rows (a ring stage consumed before its copies landed)."""
+        H, KV, D, bs = 32, 8, 128, 16
+        q, pools, tbl, ctx, kn, vn, slots, plan = _split_case(rng, cuda_device, mode, H, KV, D,
+                                                              bs, span=2048)
+        L, n = plan.split_len, plan.n
+        assert n > 1 and L >= 4 * 64
+        written = [p.clone() for p in pools]
+        out = _decode_kernel(mode, q, written, tbl, ctx, kn, vn, slots)
+        _, ref = _window_decode(mode, q, pools, tbl, ctx, 0, kn, vn, slots)
+        torch.testing.assert_close(out.float(), ref.float(), **self.DECODE_TOL)
+        S, NB = tbl.shape
+        fused = "fused" in mode
+        pos = torch.arange(NB * bs, device=cuda_device)[None, :]
+        live = pos < ctx[:, None]
+        assert _n_over(_dense_f32(q, written, tbl, ctx, live), ref, 1e-3, 8e-3) == 0
+        limit = ctx.long() - int(fused)
+        last = torch.zeros_like(live)
+        for c in range(n):
+            end = limit.clamp(max=(c + 1) * L) - 1
+            ok = end >= c * L
+            last[torch.arange(S, device=cuda_device)[ok], end[ok]] = True
+        faults = {"split_left_out": _dense_f32(q, written, tbl, ctx,
+                                               live & ((pos < L) | (pos >= 2 * L))),
+                  "last_position_dropped": _dense_f32(q, written, tbl, ctx, live & ~last)}
+        if fused:
+            bias = torch.zeros(S, NB * bs, device=cuda_device)
+            bias[torch.arange(S, device=cuda_device), (ctx - 1).clamp(min=0).long()] = \
+                float(np.log(n))
+            faults["new_column_in_every_split"] = _dense_f32(q, written, tbl, ctx, live, bias)
+        stale = [p.clone() for p in pools]
+        for s in range(S):  # each split's tile 3 <- its tile 0 (the ring has 3 stages)
+            for sp0 in range(0, NB * bs, L):
+                for r in range(64):
+                    src, dst = sp0 + r, sp0 + 192 + r
+                    if dst >= min(sp0 + L, int(limit[s])):
+                        break
+                    fs = int(tbl[s, src // bs]) * bs + src % bs
+                    fd = int(tbl[s, dst // bs]) * bs + dst % bs
+                    for p in stale:
+                        p.view(-1, *p.shape[2:])[fd] = p.view(-1, *p.shape[2:])[fs]
+        faults["stale_ring_stage"] = _decode_kernel(mode, q, stale, tbl, ctx, kn, vn, slots)
+        for name, bad in faults.items():
+            assert _n_over(bad, ref, 1e-3, 8e-3) > 0, name

@@ -1077,8 +1077,11 @@ def _sdpa_evo(q, k, v, b1, b2, do):
             lambda: torch.autograd.grad(out, leaves, dot, retain_graph=True))
 
 
-# kernel #7's key tile at head dim 32 (csrc/evoformer_fwd.cu Cfg<32, 128, 3>)
+# the key tile of #7 and #8 at head dim 32 (csrc/evoformer_fwd.cu Cfg<32, 128, 3>,
+# csrc/evoformer_bwd.cu DqCfg<32, 128, 3>)
 EVO_FWD_KEY_TILE = 128
+# the evoformer backward wrappers' arguments, in order
+EVO_BWD_ARGS = ("q", "k", "v", "b1", "b2", "do", "lse", "delta")
 
 
 def _ptxas_registers(build, source, kernels):
@@ -1108,20 +1111,43 @@ def _ptxas_registers(build, source, kernels):
     return out
 
 
-def _evo_design_checks(EV, name, args, o, db2, ro, rdb2):
-    """Checks aimed at the wgmma/TMA designs of kernels #7 and #10 at one
+def _stale_tile(x, tile):
+    """x [B, S, N, H, D] with rows tile .. 2 tile - 1 of every sequence
+    holding rows 0 .. tile - 1: the input a kernel would see if it read
+    ring tile 1 before its load landed (tile 0's rows still there)."""
+    import torch
+
+    return torch.cat([x[:, :, :tile], x[:, :, :tile], x[:, :, 2 * tile:]], 2)
+
+
+def _previous_sequence_left(x, runs):
+    """x [B, S, ...] with every sequence that is not the first of its run
+    given the previous sequence's values added: the output of a kernel
+    that did not reset its accumulators between the sequences of a run."""
+    out = x.float()
+    for first, end in runs:
+        out[:, first + 1:end] += x[:, first:end - 1].float()
+    return out.to(x.dtype)
+
+
+def _evo_design_checks(EV, name, args, o, got, ref):
+    """Checks aimed at the wgmma/TMA designs of kernels #7-#10 at one
     evoformer case: second launches bit-identical to the first (no atomics,
-    a fixed order, #10's chunks added in chunk order); planted faults, each
-    made by running the kernel on altered inputs, that the check against
-    the plain version on the true inputs must fail: a K/V ring tile of #7
-    consumed before its barrier (key tile 1 holding tile 0's rows), #7's
-    bias2 band of the wrong head or of the other 128-row query tile, bias1
-    staged one key off, one chunk of #10's sequence split left out of the
-    combining pass; the plans (#7's runs, #10's chunks and scratch bytes);
-    the ptxas registers and spills of the new kernels; and the floor the
-    exponentials set at D 32, G N^2 ex2 (each of #7-#10 takes one per
-    (query, key) pair) at 16 a clock an SM (compute capability 9.0) and
-    the card's maximum SM clock."""
+    a fixed order, #10's chunks added in chunk order), and #8's and #9's
+    outputs the same bits in one run as in the plan's runs; planted faults,
+    each made by running the kernel on altered inputs or by altering its
+    output, that the check against the plain version on the true inputs
+    must fail: a K/V ring tile of #7 or #8 consumed before its barrier (key
+    tile 1 holding tile 0's rows), a Q/dO ring tile of #9 (query tile 1
+    holding tile 0's), the bias2 band of the wrong head or of the other
+    128-row tile (#7 and #8: query rows; #9: keys), bias1 staged one key
+    off, a sequence's dq, dk and dv with the previous sequence of its run
+    left in the accumulators, one chunk of #10's sequence split left out of
+    the combining pass; the plans (#7's and #8/#9's runs, #10's chunks and
+    scratch bytes); the ptxas registers and spills of the kernels; and the
+    floor the exponentials set at D 32, G N^2 ex2 (each of #7-#10 takes one
+    per (query, key) pair) at 16 a clock an SM (compute capability 9.0)
+    and the card's maximum SM clock."""
     import torch
 
     from deepspeed_tpu_torch.ops.cuda import build
@@ -1130,46 +1156,81 @@ def _evo_design_checks(EV, name, args, o, db2, ro, rdb2):
     B, S, N, H, D = q.shape
     sms = torch.cuda.get_device_properties(q.device).multi_processor_count
     fplan, dplan = EV.fwd_run_plan(B, S, N, H, sms), EV.db2_split_plan(B, S, N, H, D, sms)
+    bplan = EV.bwd_run_plan(B, S, N, H, D, sms)
     o2, lse2 = EV.evoformer_fwd(q, k, v, b1, b2)
     d2 = EV.evoformer_bwd_db2(*args)
+    dq2, dkv2 = EV.evoformer_bwd_dq(*args), EV.evoformer_bwd_dkv(*args)
     torch.cuda.synchronize()
     same = {"evoformer_fwd": torch.equal(o2, o) and torch.equal(lse2, lse),
-            "evoformer_bwd_db2": torch.equal(d2, db2)}
-    del o2, lse2, d2
+            "evoformer_bwd_dq": torch.equal(dq2, got["dq"]),
+            "evoformer_bwd_dkv": all(torch.equal(a, got[t])
+                                     for a, t in zip(dkv2, ("dk", "dv", "dsum"))),
+            "evoformer_bwd_db2": torch.equal(d2, got["db2"])}
+    dq1, dkv1 = EV.evoformer_bwd_dq(*args, n_runs=1), EV.evoformer_bwd_dkv(*args, n_runs=1)
+    torch.cuda.synchronize()
+    one_run = {"evoformer_bwd_dq": torch.equal(dq1, got["dq"]),
+               "evoformer_bwd_dkv": all(torch.equal(a, got[t])
+                                        for a, t in zip(dkv1, ("dk", "dv", "dsum")))}
+    del o2, lse2, d2, dq2, dkv2, dq1, dkv1
     bn = EVO_FWD_KEY_TILE
-    stale = lambda x: torch.cat([x[:, :, :bn], x[:, :, :bn], x[:, :, 2 * bn:]], 2)
+    stale = lambda x: _stale_tile(x, bn)
+    bwd = (q, k, v, b1, b2, do, lse, delta)
+    dq_on = lambda **a: EV.evoformer_bwd_dq(*[a.get(n, x) for n, x in zip(EVO_BWD_ARGS, bwd)])
+    dk_on = lambda **a: EV.evoformer_bwd_dkv(*[a.get(n, x) for n, x in zip(EVO_BWD_ARGS, bwd)])[0]
     faults = {
-        "fwd_stale_ring_tile": lambda: EV.evoformer_fwd(q, stale(k), stale(v), b1, b2)[0],
-        "fwd_band_of_the_wrong_head": lambda: EV.evoformer_fwd(q, k, v, b1, b2.roll(1, 2))[0],
-        "fwd_band_of_the_other_query_tile": lambda: EV.evoformer_fwd(q, k, v, b1,
-                                                                     b2.roll(128, 3))[0],
-        "fwd_bias1_one_key_off": lambda: EV.evoformer_fwd(q, k, v, b1.roll(1, -1), b2)[0]}
-    over = {f: EV.bwd_mismatch(run(), ro)["n_over"] for f, run in faults.items()}
+        "fwd_stale_ring_tile": (lambda: EV.evoformer_fwd(q, stale(k), stale(v), b1, b2)[0], "o"),
+        "fwd_band_of_the_wrong_head": (lambda: EV.evoformer_fwd(q, k, v, b1, b2.roll(1, 2))[0],
+                                       "o"),
+        "fwd_band_of_the_other_query_tile": (
+            lambda: EV.evoformer_fwd(q, k, v, b1, b2.roll(128, 3))[0], "o"),
+        "fwd_bias1_one_key_off": (lambda: EV.evoformer_fwd(q, k, v, b1.roll(1, -1), b2)[0], "o"),
+        "dq_stale_ring_tile": (lambda: dq_on(k=stale(k), v=stale(v)), "dq"),
+        "dq_band_of_the_wrong_head": (lambda: dq_on(b2=b2.roll(1, 2)), "dq"),
+        "dq_band_of_the_other_query_tile": (lambda: dq_on(b2=b2.roll(128, 3)), "dq"),
+        "dq_bias1_one_key_off": (lambda: dq_on(b1=b1.roll(1, -1)), "dq"),
+        "dkv_stale_ring_tile": (lambda: dk_on(q=_stale_tile(q, 64), do=_stale_tile(do, 64)),
+                                "dk"),
+        "dkv_band_of_the_wrong_head": (lambda: dk_on(b2=b2.roll(1, 2)), "dk"),
+        "dkv_band_of_the_other_key_tile": (lambda: dk_on(b2=b2.roll(128, 4)), "dk"),
+        "dkv_bias1_one_key_off": (lambda: dk_on(b1=b1.roll(1, -1)), "dk")}
+    for t in ("dq", "dk", "dv"):
+        faults[f"{t}_previous_sequence_left_in_the_accumulators"] = (
+            lambda t=t: _previous_sequence_left(got[t], bplan.runs), t)
+    over = {f: EV.bwd_mismatch(run(), ref[t])["n_over"] for f, (run, t) in faults.items()}
     first, end = dplan.runs[1]
     keep = torch.tensor([s for s in range(S) if not first <= s < end], device=q.device)
     pick = lambda t: t.index_select(1, keep).contiguous()
     rows = lambda x: x.reshape(B, S, H, N).index_select(1, keep).reshape(-1, N).contiguous()
     over["db2_chunk_left_out"] = EV.bwd_mismatch(
         EV.evoformer_bwd_db2(pick(q), pick(k), pick(v), pick(b1), b2, pick(do), rows(lse),
-                             rows(delta)), rdb2)["n_over"]
+                             rows(delta)), ref["db2"])["n_over"]
     clock = subprocess.run(["nvidia-smi", "--query-gpu=clocks.max.sm",
                             "--format=csv,noheader,nounits"],
                            capture_output=True, text=True, timeout=60, check=True)
     mhz = float(clock.stdout.strip().splitlines()[0])
     report = {"case": name, "two_launches_bit_identical": same,
+              "one_run_bit_identical_to_the_plans": one_run,
               "exp2_floor_ms": B * S * H * N * N / (16 * sms * mhz * 1e6) * 1e3,
               "sm_clock_max_mhz": mhz,
               "planted_faults_elements_over": over,
               "fwd_runs": {"n": fplan.n, "sequences_each": fplan.runs[0][1], "ctas": fplan.ctas},
+              "bwd_runs": {"n": bplan.n, "sequences_each": bplan.runs[0][1], "ctas": bplan.ctas},
               "db2_split": {"n": dplan.n, "sequences_each": dplan.runs[0][1], "ctas": dplan.ctas,
                             "scratch_bytes": dplan.scratch_bytes,
                             "logits_f32_bytes": 4 * B * S * H * N * N},
               "ptxas": {**_ptxas_registers(build, "evoformer_fwd", ("evo_fwd_kernel",)),
+                        **_ptxas_registers(build, "evoformer_bwd",
+                                           ("evo_bwd_dq_kernel", "evo_bwd_dkv_kernel")),
                         **_ptxas_registers(build, "evoformer_db2",
                                            ("evo_db2_kernel", "evo_db2_combine"))}}
     print(json.dumps({"evo_design_checks": report}))
     if not all(same.values()):
         raise AssertionError(f"evoformer {name}: two launches on the same inputs differ: {same}")
+    if not all(one_run.values()):
+        raise AssertionError(f"evoformer {name}: one run and the plan's differ: {one_run}")
+    if bplan.n < 2:
+        raise AssertionError(f"evoformer {name}: #8/#9 walk one run, so no run boundary is "
+                             f"checked")
     if not all(over.values()):
         raise AssertionError(f"evoformer {name}: a check passes a planted fault: {over}")
     if dplan.n < 2:
@@ -1228,7 +1289,7 @@ def _evo_kernel_checks(dev, bound_ms):
                          "err_rms_over_ref_rms": stats["err_rms"] / stats["ref_rms"],
                          "planted_faults_n_over": planted.get(t)}
         print(json.dumps({"evoformer_tolerance": {"case": name, "shape": shape, **report}}))
-        _evo_design_checks(EV, name, args, o, got["db2"], ro, ref["db2"])
+        _evo_design_checks(EV, name, args, o, got, ref)
         plain_bwd = lambda: EV._bwd_plain(q, k, v, b1, b2, lse, delta, do)
         for kname, run, tensors in (
                 ("evoformer_bwd_dq", lambda: EV.evoformer_bwd_dq(*args), ("dq",)),

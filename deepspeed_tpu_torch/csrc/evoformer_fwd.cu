@@ -31,7 +31,8 @@
 //   (b, h) and a run of consecutive sequences s of that (b, h), and walks
 //   them in order. Its 128 x N band of bias2 is loaded into shared memory
 //   once (cp.async; 16-byte copies where N % 8 == 0, element loads
-//   otherwise) and serves every sequence of the run, so the L2 -> SM
+//   otherwise; evoformer_band.cuh, shared with the backward's dq, #8)
+//   and serves every sequence of the run, so the L2 -> SM
 //   bias2 bytes fall by the run length: B H n_runs N^2 2 bytes in all,
 //   8.4 MB at E1 (8 runs of 16 sequences on 132 SMs) and 26 MB at E3 (11
 //   runs of 47). The run length comes from the wrapper's plan
@@ -71,17 +72,16 @@
 // VMEM, is the key-tile loop inside the CTA; its sequence axis, which
 // reread the bias block from HBM per (b, s, h), is the run a CTA walks.
 
-#include "hopper.cuh"
+#include "evoformer_band.cuh"
 
 namespace {
 
 using namespace hopper;
+using namespace evo;
 
 constexpr int NWG = 2;              // consumer warpgroups, 64 query rows each
 constexpr int BM = 64 * NWG;        // query rows of a CTA
 constexpr int THREADS = NWG * WG;
-constexpr int SMEM_LIMIT = 232448;   // dynamic shared memory a CTA may opt into
-constexpr float LOG2E = 1.4426950408889634f;
 constexpr float LN2 = 0.6931471805599453f;
 
 // Tiling of one instantiation: head dim D (32 or 64: one swizzle atom of
@@ -121,67 +121,6 @@ struct Cfg {
   static_assert(RING_OFF % 1024 == 0 && STAGE_BYTES % 1024 == 0, "swizzle alignment");
   static_assert(BAR_OFF % 8 == 0, "mbarrier alignment");
 };
-
-// bias2's band stride: the key tiles' whole width plus 8, i.e. 8 mod 64
-// elements (16 mod 128 bytes), so the fragment reads are conflict-free and
-// every row start is 16-byte aligned; 0 when the band is not made (no
-// bias2, or it would not fit).
-template <class C>
-int band_stride(int N, bool has_b2) {
-  const int ld = (N + C::BN - 1) / C::BN * C::BN + 8;
-  const long long bytes = C::BAND_OFF + static_cast<long long>(BM) * ld * 2 + 1024;
-  return has_b2 && bytes <= SMEM_LIMIT ? ld : 0;
-}
-
-template <class C>
-int smem_bytes(int band_ld) {
-  return C::BAND_OFF + BM * band_ld * 2 + 1024;  // + alignment slack
-}
-
-// bias2 at (row r of the CTA's 128, columns c and c + 1) as a bf16 pair,
-// read from device memory when no band is made (`rows` at the CTA's first
-// row): zeros past N, element loads (a row of odd N starts on any byte).
-__device__ __forceinline__ uint32_t b2_global(const __nv_bfloat16* rows, int N, int row0, int r,
-                                              int c) {
-  if (row0 + r >= N) return 0u;
-  const unsigned short* p = reinterpret_cast<const unsigned short*>(rows) +
-                            static_cast<size_t>(r) * N + c;
-  const uint32_t lo = c < N ? __ldg(p) : 0u;
-  const uint32_t hi = c + 1 < N ? __ldg(p + 1) : 0u;
-  return lo | (hi << 16);
-}
-
-__device__ __forceinline__ void cp_async16(uint32_t dst, const void* src, bool valid) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(dst), "l"(src),
-               "r"(valid ? 16 : 0)
-               : "memory");
-}
-
-// The CTA's band: bias2 rows q0 .. q0 + BM - 1 of its (b, h), columns 0 ..
-// band_ld - 1, zeros past N. Asynchronous 16-byte copies where every row
-// starts 16-byte aligned (N % 8 == 0 and an aligned base; the caller
-// waits), element loads otherwise.
-__device__ __forceinline__ void load_band(__nv_bfloat16* band, int band_ld,
-                                          const __nv_bfloat16* src, int q0, int N) {
-  if (N % 8 == 0 && reinterpret_cast<uintptr_t>(src) % 16 == 0) {
-    const int vpr = band_ld / 8;
-    for (int x = threadIdx.x; x < BM * vpr; x += THREADS) {
-      const int r = x / vpr;
-      const int c = (x % vpr) * 8;
-      const bool live = q0 + r < N && c < N;
-      cp_async16(smem_u32(band + r * band_ld + c),
-                 live ? src + static_cast<size_t>(q0 + r) * N + c : src, live);
-    }
-    asm volatile("cp.async.commit_group;" ::: "memory");
-  } else {
-    for (int x = threadIdx.x; x < BM * band_ld; x += THREADS) {
-      const int r = x / band_ld;
-      const int c = x % band_ld;
-      band[x] = q0 + r < N && c < N ? src[static_cast<size_t>(q0 + r) * N + c]
-                                    : __float2bfloat16(0.f);
-    }
-  }
-}
 
 // Grid: one CTA per (query tile, b x h, run of sequences), query tiles
 // fastest (the CTAs that read the same K/V tiles run together). Threads:
@@ -227,7 +166,8 @@ __global__ void __launch_bounds__(THREADS, 1)
   const __nv_bfloat16* b2_rows =
       bias2 != nullptr ? bias2 + static_cast<size_t>(bh) * N * N + static_cast<size_t>(q0) * N
                        : nullptr;
-  if (band != nullptr) load_band(band, band_ld, bias2 + static_cast<size_t>(bh) * N * N, q0, N);
+  if (band != nullptr)
+    load_band<BM, THREADS>(band, band_ld, bias2 + static_cast<size_t>(bh) * N * N, q0, N);
 
   // warp 0 fills ring stage t % STAGES: lane 0 loads the K and V tiles by
   // TMA, every lane copies its words of the tile's bias1; each lane's
@@ -466,8 +406,8 @@ int launch(void* o, void* lse, const void* q, const void* k, const void* v, cons
   if (err == 0) err = encode_map(&maps[1], k, B * S, N, H, C::D, C::BN, C::D);
   if (err == 0) err = encode_map(&maps[2], v, B * S, N, H, C::D, C::BN, C::D);
   if (err != 0) return err;
-  const int band_ld = band_stride<C>(N, b2 != nullptr);
-  const int smem = smem_bytes<C>(band_ld);
+  const int band_ld = band_stride(N, b2 != nullptr, C::BN, BM, C::BAND_OFF);
+  const int smem = static_cast<int>(band_smem(C::BAND_OFF, BM, band_ld));
   cudaError_t e =
       cudaFuncSetAttribute(evo_fwd_kernel<C>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (e != cudaSuccess) return static_cast<int>(e);

@@ -1,6 +1,6 @@
 // Hopper (sm_90a) machinery shared by the flash-attention kernels
-// (flash_fwd.cu, flash_bwd.cu) and the evoformer forward and pair-bias
-// gradient (evoformer_fwd.cu, evoformer_db2.cu): mbarriers, TMA loads and
+// (flash_fwd.cu, flash_bwd.cu) and the evoformer kernels (evoformer_fwd.cu,
+// evoformer_bwd.cu, evoformer_db2.cu): mbarriers, TMA loads and
 // tensor maps, wgmma descriptors and products, and small helpers of the
 // register arithmetic. Hand-written PTX; no CUTLASS or CuTe.
 //
@@ -114,6 +114,13 @@ __device__ __forceinline__ void stage_bias1(uint32_t dst, const __nv_bfloat16* b
 // stage_bias1 filled, as one 32-bit word (low half: key k0 + c).
 __device__ __forceinline__ uint32_t bias1_pair(const uint32_t* words, int par, int c) {
   return par ? __byte_perm(words[c / 2], words[c / 2 + 1], 0x5432) : words[c / 2];
+}
+
+// Orders this thread's generic-proxy accesses of shared memory before later
+// async-proxy ones: a buffer the thread wrote or read as staging, which a
+// TMA load is about to refill once the buffer's empty barrier completes.
+__device__ __forceinline__ void fence_proxy_async() {
+  asm volatile("fence.proxy.async.shared::cta;" ::: "memory");
 }
 
 __device__ __forceinline__ void wgmma_fence() {

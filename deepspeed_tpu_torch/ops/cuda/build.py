@@ -58,9 +58,10 @@ SIGNATURES = {
     },
     # ..., D, the count of sequence runs
     "evoformer_fwd": {"evoformer_fwd": [_P] * 7 + [_I] * 6 + [_F, _P]},
+    # ..., D, the count of sequence runs
     "evoformer_bwd": {
-        "evoformer_bwd_dq": [_P] * 9 + [_I] * 5 + [_F, _P],
-        "evoformer_bwd_dkv": [_P] * 11 + [_I] * 5 + [_F, _P],
+        "evoformer_bwd_dq": [_P] * 9 + [_I] * 6 + [_F, _P],
+        "evoformer_bwd_dkv": [_P] * 11 + [_I] * 6 + [_F, _P],
     },
     # db2, the sequence split's f32 scratch, ...; ..., D, its chunk count
     "evoformer_db2": {"evoformer_bwd_db2": [_P] * 10 + [_I] * 6 + [_F, _P]},

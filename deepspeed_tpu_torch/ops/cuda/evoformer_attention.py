@@ -23,10 +23,11 @@ rounded to the inputs' dtype before P V and P and dS before their backward
 products, as the kernels (and the TPU kernels) round them: a no-op in f32.
 Every kernel wrapper carries `launches`, raised by one per launch.
 
-#7 and #10 split the sequence axis across CTAs where the grid would not
-keep the card busy: `fwd_run_plan` (each CTA walks a run of sequences
-with its bias2 band resident) and `db2_split_plan` (each CTA sums a chunk
-of sequences; a second pass adds the chunks in order).
+#7-#10 split the sequence axis across CTAs where the grid would not keep
+the card busy: `fwd_run_plan` (#7) and `bwd_run_plan` (#8, #9: each CTA
+walks a run of sequences with its part of bias2 resident) and
+`db2_split_plan` (#10: each CTA sums a chunk of sequences; a second pass
+adds the chunks in order).
 """
 
 import functools
@@ -142,9 +143,10 @@ def _dims(q):
     return B, S, N, H, D, 1.0 / D ** 0.5
 
 
-# The sequence split of kernels #7 and #10. A CTA of #7 owns 128 query rows
-# of one (b, h) and walks a run of sequences; a CTA of #10 owns a 128 x 64
-# tile of db2 and sums a chunk of sequences. Both hold one CTA an SM. A
+# The sequence split of kernels #7-#10. A CTA of #7 or #8 owns 128 query
+# rows of one (b, h) and walks a run of sequences, a CTA of #9 128 key rows;
+# a CTA of #10 owns a 128 x 64 tile of db2 and sums a chunk of sequences.
+# All hold one CTA an SM. A
 # grid of at least SPLIT_WAVES waves of unsplit CTAs (each walking all S)
 # is not split: its tail is at most a fraction of a wave in several. Else
 # the plan takes the count of runs that minimises waves x (sequences per
@@ -152,16 +154,16 @@ def _dims(q):
 # bias2 band or tile, filling the ring, the partial's write), with runs of
 # at least MIN_RUN sequences: #10's f32 scratch then stays under a quarter
 # of one f32 [G, N, N] logits tensor.
-BM, BK = 128, 64  # a CTA's query rows (#7 and #10) and keys (#10)
+BM, BK = 128, 64  # a CTA's query rows (#7, #8, #10) or keys (#9), and keys (#10)
 SPLIT_WAVES, RUN_SETUP, MIN_RUN = 4, 1, 4
 
 
 class SeqSplit(NamedTuple):
-    """A split of the S sequences: `n` runs (#7) or chunks (#10) of
+    """A split of the S sequences: `n` runs (#7-#9) or chunks (#10) of
     ceil(S / n) sequences, `runs[c]` = (first, end) of run c (contiguous,
     in order, the last possibly shorter, none empty), `ctas` in the grid,
     and `scratch_shape`, #10's [n, B H, N, N] f32 partial sums (() when
-    nothing is split, and always for #7)."""
+    nothing is split, and always for #7-#9)."""
     n: int
     runs: Tuple[Tuple[int, int], ...]
     ctas: int
@@ -191,6 +193,16 @@ def fwd_run_plan(B, S, N, H, sm_count) -> SeqSplit:
     units = B * H * -(-N // BM)
     n, runs = _split(units, S, sm_count)
     return SeqSplit(n, runs, n * units, ())
+
+
+def bwd_run_plan(B, S, N, H, D, sm_count) -> SeqSplit:
+    """The runs of kernels #8 (dq: 128 query rows a CTA) and #9 (dk, dv:
+    128 key rows a CTA) on a card of `sm_count` SMs, each CTA loading its
+    band of bias2 once for the run's sequences. At both head dims their
+    grids are #7's, B * H * ceil(N / 128) CTAs per run, so the runs are
+    `fwd_run_plan`'s. Every sequence's outputs are computed alone, so the
+    run count changes no bits."""
+    return fwd_run_plan(B, S, N, H, sm_count)
 
 
 def db2_split_plan(B, S, N, H, D, sm_count) -> SeqSplit:
@@ -243,11 +255,23 @@ def _bwd_args(what, q, k, v, bias1, bias2, do, lse, delta):
             None if bias2 is None else ptr(bias2), ptr(do), ptr(lse), ptr(delta))
 
 
-def evoformer_bwd_dq(q, k, v, bias1, bias2, do, lse, delta):
-    """dq of evoformer attention (kernel #8: csrc/evoformer_bwd.cu) from the
-    forward's lse and delta = rowsum(dO * O) [G, N] f32; other arguments as
-    `evoformer_fwd`, do like q. Returns dq [B, S, N, H, D] bf16. CPU
-    tensors take the plain version."""
+def _bwd_runs(what, q, n_runs):
+    """The run count of #8 / #9: `bwd_run_plan`'s, or `n_runs` where given
+    (any count from 1 to S gives the same bits)."""
+    B, S, N, H, D = q.shape
+    if n_runs is None:
+        return bwd_run_plan(B, S, N, H, D, _sm_count(q.device)).n
+    if not 1 <= n_runs <= S:
+        raise ValueError(f"{what}: n_runs {n_runs} outside 1..{S}")
+    return n_runs
+
+
+def evoformer_bwd_dq(q, k, v, bias1, bias2, do, lse, delta, n_runs=None):
+    """dq of evoformer attention (kernel #8: csrc/evoformer_bwd.cu, its
+    sequences in the runs of `bwd_run_plan`, or in `n_runs` runs where
+    given) from the forward's lse and delta = rowsum(dO * O) [G, N] f32;
+    other arguments as `evoformer_fwd`, do like q. Returns dq [B, S, N, H,
+    D] bf16. CPU tensors take the plain version."""
     if not q.is_cuda:
         return _bwd_plain(q, k, v, bias1, bias2, lse, delta, do)[0]
     what = "evoformer_bwd_dq"
@@ -255,8 +279,10 @@ def evoformer_bwd_dq(q, k, v, bias1, bias2, do, lse, delta):
     dq = torch.empty_like(q)
     if dq.numel() == 0:
         return dq
+    runs = _bwd_runs(what, q, n_runs)
+    B, S, N, H, D, scale = _dims(q)
     lib = build.load("evoformer_bwd")
-    err = lib.evoformer_bwd_dq(ptr(dq), *args, *_dims(q), stream_of(q))
+    err = lib.evoformer_bwd_dq(ptr(dq), *args, B, S, N, H, D, runs, scale, stream_of(q))
     build.check(lib, err, what)
     count_launch(evoformer_bwd_dq)
     return dq
@@ -265,7 +291,7 @@ def evoformer_bwd_dq(q, k, v, bias1, bias2, do, lse, delta):
 evoformer_bwd_dq.launches = 0
 
 
-def evoformer_bwd_dkv(q, k, v, bias1, bias2, do, lse, delta):
+def evoformer_bwd_dkv(q, k, v, bias1, bias2, do, lse, delta, n_runs=None):
     """dk, dv and the per-(g, key) row sums of dS (kernel #9:
     csrc/evoformer_bwd.cu; bias1's gradient is their sum over heads,
     `_db1`). Arguments as `evoformer_bwd_dq`. Returns (dk, dv [B, S, N, H,
@@ -278,8 +304,11 @@ def evoformer_bwd_dkv(q, k, v, bias1, bias2, do, lse, delta):
     dsum = torch.empty_like(lse)
     if dk.numel() == 0:
         return dk, dv, dsum
+    runs = _bwd_runs(what, q, n_runs)
+    B, S, N, H, D, scale = _dims(q)
     lib = build.load("evoformer_bwd")
-    err = lib.evoformer_bwd_dkv(ptr(dk), ptr(dv), ptr(dsum), *args, *_dims(q), stream_of(q))
+    err = lib.evoformer_bwd_dkv(ptr(dk), ptr(dv), ptr(dsum), *args, B, S, N, H, D, runs, scale,
+                                stream_of(q))
     build.check(lib, err, what)
     count_launch(evoformer_bwd_dkv)
     return dk, dv, dsum

@@ -18,8 +18,10 @@ MODE:
   inputs from a seeded generator), `ds4sci_evoformer_attention`'s forward
   and forward+backward (gradients of q, k, v and both biases): CUDA events
   around 10 back-to-back calls after 3 warm-ups, the median of 3 such runs;
-  and each evoformer kernel's device time per call over 5 forward+backward
-  calls (torch.profiler).
+  and where a forward+backward's device time goes, per call over 5 of them
+  (torch.profiler): each evoformer kernel, the torch ops of the wrapper's
+  `_delta` (delta = rowsum(dO * O)) and `_db1` (bias1's head sum), the
+  rest, and the busy total.
 - serve: every model chip_smoke.py serves (the flagship and SERVED_7B, at
   full width and depth, random bf16 weights from seed 0), from bf16 and
   from int8 KV pools: the long prompt (the 7B models) and the wave of
@@ -98,24 +100,56 @@ def _events_ms(torch, fn, iters=10, warmup=3, runs=3):
     return statistics.median(out)
 
 
-def _kernel_ms(torch, fn, iters=5):
-    """Device ms per call of each evoformer kernel (by its name's first 60
-    characters) over `iters` calls of fn."""
+# the torch functions of the evoformer wrapper around its kernels, timed by name
+EVO_AROUND = ("_delta", "_db1")
+
+
+def _kernel_ms(torch, EV, fn, iters=5):
+    """Device ms per call over `iters` calls of fn: each evoformer kernel
+    (by its name's first 60 characters), and the torch ops around them:
+    those `_delta` launches (delta's casts, product and sum), those `_db1`
+    launches (bias1's gradient, the head sum of the row sums; each traced
+    in a profiler range while this runs), the rest ("other": autograd's
+    and the wrapper's casts and copies) and the sum of all ("busy")."""
     from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
+    from torch.profiler import ProfilerActivity, profile, record_function
+
+    def traced(name, f):
+        def run(*args):
+            with record_function(f"evo::{name}"):
+                return f(*args)
+        return run
 
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        for _ in range(iters):
-            fn()
-        torch.cuda.synchronize()
-    out = {}
+    saved = {n: getattr(EV, n) for n in EVO_AROUND}
+    try:
+        for n, f in saved.items():
+            setattr(EV, n, traced(n, f))
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            for _ in range(iters):
+                fn()
+            torch.cuda.synchronize()
+    finally:
+        for n, f in saved.items():
+            setattr(EV, n, f)
+    kernels, busy = {}, 0.0
     for e in prof.profiler.kineto_results.events():
-        if e.device_type() == DeviceType.CUDA and "evo_" in e.name():
+        if e.device_type() != DeviceType.CUDA:
+            continue
+        ms = e.duration_ns() / 1e6 / iters
+        busy += ms
+        if "evo_" in e.name():
             key = e.name()[:60]
-            out[key] = out.get(key, 0.0) + e.duration_ns() / 1e6 / iters
-    return out
+            kernels[key] = kernels.get(key, 0.0) + ms
+    around = {n: 0.0 for n in EVO_AROUND}
+    for a in prof.key_averages():
+        if a.key.startswith("evo::"):
+            us = getattr(a, "device_time_total", None)
+            around[a.key[5:]] = (a.cuda_time_total if us is None else us) / 1e3 / iters
+    around["other"] = busy - sum(kernels.values()) - sum(around.values())
+    around["busy"] = busy
+    return kernels, around
 
 
 def evo_worker(root):
@@ -123,6 +157,7 @@ def evo_worker(root):
     import torch
 
     from deepspeed_tpu_torch.ops.cuda import build
+    from deepspeed_tpu_torch.ops.cuda import evoformer_attention as EV
     from deepspeed_tpu_torch.ops.evoformer_attention import ds4sci_evoformer_attention
 
     build.build_all([n for n in build.SOURCES if n.startswith("evoformer")])
@@ -140,9 +175,10 @@ def evo_worker(root):
 
         with torch.no_grad():
             fwd_ms = _events_ms(torch, fwd)
+        kernels, around = _kernel_ms(torch, EV, fwd_bwd)
         out["cases"][name] = {"shape": [case[x] for x in "BSNHD"], "fwd_ms": fwd_ms,
                               "fwd_bwd_ms": _events_ms(torch, fwd_bwd),
-                              "kernel_device_ms": _kernel_ms(torch, fwd_bwd)}
+                              "kernel_device_ms": kernels, "around_kernels_device_ms": around}
         del q, k, v, b1, b2, do, leaves
         torch.cuda.empty_cache()
     return out

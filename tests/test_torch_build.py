@@ -5,6 +5,7 @@ beside the library, a failed build raising with its report, and an
 unchanged source not rebuilt. The real compiler runs only on the GPU
 machine (`chip_smoke.py` prints the seconds there)."""
 
+import re
 import shutil
 import stat
 
@@ -90,18 +91,61 @@ def test_the_shared_hopper_header_rebuilds_both_flash_libraries(tmp_path, monkey
     assert all(before[n] != after[n] for n in names)
 
 
-def test_the_shared_hopper_header_rebuilds_the_evoformer_libraries(tmp_path, monkeypatch):
-    """The evoformer forward (#7) and pair-bias gradient (#10) take their
-    TMA, mbarrier and wgmma helpers from csrc/hopper.cuh too: an edit of it
-    changes their libraries' names, as it does the flash kernels'."""
+def _includes(csrc, source, header):
+    """Whether `source` (a file in csrc) includes `header`, directly or
+    through another header of csrc."""
+    seen, todo = set(), [source]
+    while todo:
+        for inc in re.findall(r'#include "([^"]+)"', (csrc / todo.pop()).read_text()):
+            if inc == header:
+                return True
+            if inc not in seen:
+                seen.add(inc)
+                todo.append(inc)
+    return False
+
+
+@pytest.mark.parametrize("header,names", [
+    # the evoformer kernels (#7-#10) take their TMA, mbarrier and wgmma
+    # helpers from hopper.cuh too (#7 and the backward through
+    # evoformer_band.cuh), as the flash kernels do
+    ("hopper.cuh", ("evoformer_fwd", "evoformer_bwd", "evoformer_db2", "flash_fwd", "flash_bwd")),
+    # the pair-bias band of #7 and of the backward's #8 and #9
+    ("evoformer_band.cuh", ("evoformer_fwd", "evoformer_bwd")),
+])
+def test_the_shared_hopper_header_rebuilds_the_evoformer_libraries(tmp_path, monkeypatch, header,
+                                                                   names):
+    """An edit of a shared header changes the library names of the sources
+    that include it, and of every other source (the build hash covers all
+    of csrc/*.cuh), so none loads a stale build: the evoformer backward's
+    as well as the forward's and db2's."""
     csrc = tmp_path / "csrc"
     shutil.copytree(PB.CSRC, csrc)
     monkeypatch.setattr(PB, "CSRC", csrc)
-    names = ("evoformer_fwd", "evoformer_db2", "flash_fwd", "flash_bwd")
     for name in names:
-        assert '#include "hopper.cuh"' in (csrc / f"{name}.cu").read_text()
-    before = {n: PB._library_path(n) for n in names}
-    header = csrc / "hopper.cuh"
-    header.write_text(header.read_text() + "\n// an edit\n")
-    after = {n: PB._library_path(n) for n in names}
-    assert all(before[n] != after[n] for n in names)
+        assert _includes(csrc, f"{name}.cu", header), name
+    before = {n: PB._library_path(n) for n in PB.SOURCES}
+    path = csrc / header
+    path.write_text(path.read_text() + "\n// an edit\n")
+    after = {n: PB._library_path(n) for n in PB.SOURCES}
+    assert all(before[n] != after[n] for n in PB.SOURCES)
+
+
+def test_no_wmma_kernel_and_no_old_header_remain():
+    """Every kernel of csrc runs on wgmma or mma.sync: no WMMA API call is
+    left, and the WMMA tile helpers' header is gone."""
+    assert not (PB.CSRC / "evoformer_common.cuh").exists()
+    for path in sorted(PB.CSRC.glob("*.cu*")):
+        assert not re.search(r"\bwmma::", path.read_text()), path.name
+
+
+@pytest.mark.parametrize("fn,n_ptrs", [("evoformer_bwd_dq", 9), ("evoformer_bwd_dkv", 11)])
+def test_the_evoformer_backward_takes_its_run_count(fn, n_ptrs):
+    """#8 and #9 walk runs of sequences: their C entry points take the run
+    count after D, and build.SIGNATURES passes it as an int."""
+    text = (PB.CSRC / "evoformer_bwd.cu").read_text()
+    m = re.search(r'extern "C" int ' + fn + r"\(([^)]*)\)", text)
+    params = [" ".join(p.split()) for p in m.group(1).split(",")]
+    assert params[n_ptrs:] == ["int B", "int S", "int N", "int H", "int D", "int n_runs",
+                               "float scale", "void* stream"]
+    assert PB.SIGNATURES["evoformer_bwd"][fn] == [PB._P] * n_ptrs + [PB._I] * 6 + [PB._F, PB._P]

@@ -8,6 +8,7 @@ imports neither JAX nor the JAX package, so it runs on the GPU machine
 """
 
 import functools
+import hashlib
 import importlib.util
 from pathlib import Path
 
@@ -550,6 +551,56 @@ def _evo_units(B, N, H, which):
     return B * H * -(-N // 128) * (-(-N // 64) if which == "db2" else 1)
 
 
+EVO_BWD = ("dq", "dk", "dv", "dsum")
+
+
+def _evo_bwd(args, n_runs=None):
+    """#8 and #9 on the backward's arguments: {dq, dk, dv, dsum}."""
+    out = (PEV.evoformer_bwd_dq(*args, n_runs=n_runs),) + PEV.evoformer_bwd_dkv(*args,
+                                                                                n_runs=n_runs)
+    return dict(zip(EVO_BWD, out))
+
+
+def _evo_bwd_check(q, k, v, do, b1, b2, what):
+    """#8 and #9 against the plain backward on the forward kernel's o and
+    lse under `bwd_mismatch`, and the same bits with the run count forced
+    to 1 and to S as in the plan's runs. With one key (N = 1) P = 1 and dS =
+    dO (v - o) is zero up to rounding, so dq, dk and the row sums are held
+    below 2^-10 of dv's RMS (as window 1's flash dq and dk). Returns the
+    plan's outputs and the plain ones."""
+    o, lse = PEV.evoformer_fwd(q, k, v, b1, b2)
+    args = (q, k, v, b1, b2, do, lse, PEV._delta(o, do))
+    got = _evo_bwd(args)
+    ref = dict(zip(EVO_BWD, PEV._bwd_plain(q, k, v, b1, b2, lse, args[7], do)[:4]))
+    for n_runs in (1, q.shape[1]):
+        forced = _evo_bwd(args, n_runs)
+        torch.cuda.synchronize()
+        for t in EVO_BWD:
+            assert torch.equal(forced[t], got[t]), f"{t} {what}: {n_runs} runs differ from the plan's"
+    for t in EVO_BWD:
+        if q.shape[2] == 1 and t != "dv":
+            assert _rms(got[t]) <= 2.0 ** -10 * _rms(got["dv"]), f"{t} {what}"
+        else:
+            _assert_grad_close(got[t], ref[t], f"{t} {what}")
+    return got, ref
+
+
+def _evo_fwd_digest(o, lse):
+    """The first 16 hex digits of the sha256 of o's and lse's bytes."""
+    h = hashlib.sha256(o.view(torch.int16).cpu().numpy().tobytes())
+    h.update(lse.cpu().numpy().tobytes())
+    return h.hexdigest()[:16]
+
+
+# #7's o and lse on an H100 (_evo_fwd_digest) for the inputs _evo_case makes
+# from numpy seed 0 with both biases, at (S, N, H, D): those of the kernel
+# before its band helpers moved to csrc/evoformer_band.cuh (shared with
+# #8): the move changed no bit. The last shape takes no band (bias2 from
+# device memory).
+EVO_FWD_DIGESTS = {(3, 200, 2, 32): "fd83e8404656a171", (3, 129, 2, 64): "1fe44b1c7102a197",
+                   (17, 256, 2, 32): "0308ea8c472cb2e9", (3, 600, 1, 32): "8ed119d16b44c1b2"}
+
+
 @pytest.mark.cuda
 class TestEvoformerHopperOnCard:
     """Kernels #7 (the forward) and #10 (db2) in their wgmma/TMA design,
@@ -601,9 +652,12 @@ class TestEvoformerHopperOnCard:
         delta = PEV._delta(first[0], do)
         args = (q, k, v, b1, b2, do, first[1], delta)
         d1, d2 = PEV.evoformer_bwd_db2(*args), PEV.evoformer_bwd_db2(*args)
+        b1_, b2_ = _evo_bwd(args), _evo_bwd(args)
         torch.cuda.synchronize()
         assert torch.equal(first[0], second[0]) and torch.equal(first[1], second[1])
         assert torch.equal(d1, d2)
+        for t in EVO_BWD:
+            assert torch.equal(b1_[t], b2_[t]), t
 
     def test_split_and_unsplit_agree(self, rng, cuda_device):
         """Batch row 0 alone (B = 1: its grid leaves SMs idle, so #7 walks
@@ -697,6 +751,80 @@ class TestEvoformerHopperOnCard:
         left_out = PEV.evoformer_bwd_db2(pick(q), pick(k), pick(v), pick(b1), b2, pick(do),
                                          rows(lse), rows(delta))
         assert PEV.bwd_mismatch(left_out, ref)["n_over"] > 0
+
+    @pytest.mark.parametrize("D", [32, 64])
+    @pytest.mark.parametrize("N", [1, 37, 48, 63, 64, 65, 127, 128, 129, 200, 256, 384])
+    def test_backward_matches_plain(self, rng, cuda_device, N, D):
+        """#8 and #9 (dq; dk, dv and the dS row sums) in their wgmma/TMA
+        design: N at the edges of the 64- and 128-row tiles and odd (the
+        bands' element loads, bias1 words of either parity), S 1, 3 and 17
+        (17 walks several runs at two heads), every bias set; the run count
+        forced to 1 and to S gives the plan's bits."""
+        for S in (1, 3, 17):
+            for which in ("both", "mask", "pair", "none"):
+                q, k, v, do, b1, b2 = _evo_case(rng, cuda_device, S, N, 2, D, which)
+                _evo_bwd_check(q, k, v, do, b1, b2, f"N={N} D={D} S={S} {which}")
+
+    @pytest.mark.parametrize("D", [32, 64])
+    @pytest.mark.parametrize("N", [520, 999])
+    def test_backward_past_the_band(self, rng, cuda_device, N, D):
+        """N past the bands' limits: #8 reads bias2 from device memory at
+        both (its 128 x N band does not fit beside its rings), #9 at 999 and
+        at D 64 (its N x 128 band still fits at 520 and D 32)."""
+        q, k, v, do, b1, b2 = _evo_case(rng, cuda_device, 3, N, 1, D, "both")
+        _evo_bwd_check(q, k, v, do, b1, b2, f"N={N} D={D}")
+
+    @pytest.mark.parametrize("D", [32, 64])
+    def test_backward_design_faults_are_caught(self, rng, cuda_device, D):
+        """Each fault, made by running #8 or #9 on altered inputs or by
+        altering its output, must fail its check against the plain backward
+        on the true inputs: a K/V ring tile of #8 consumed before its barrier
+        (key tile 1 holding tile 0's rows), a Q/dO ring tile of #9 (query
+        tile 1 holding tile 0's), the band of the wrong head or of the other
+        128-row tile (#8: query rows; #9: keys), bias1 one key off, and a
+        sequence's dq, dk and dv with the previous sequence of its run left
+        in the accumulators."""
+        S, N, H = 17, 256, 2
+        bn = 128 if D == 32 else 64  # #8's key tile
+        q, k, v, do, b1, b2 = _evo_case(rng, cuda_device, S, N, H, D, "both")
+        b1 = b1 + _bf16_cuda(rng.standard_normal(b1.shape), cuda_device)
+        got, ref = _evo_bwd_check(q, k, v, do, b1, b2, f"D={D}")
+        o, lse = PEV.evoformer_fwd(q, k, v, b1, b2)
+        bwd = dict(q=q, k=k, v=v, b1=b1, b2=b2, do=do, lse=lse, delta=PEV._delta(o, do))
+        on = lambda **alt: tuple({**bwd, **alt}.values())
+        stale = lambda x, tile: torch.cat([x[:, :, :tile], x[:, :, :tile], x[:, :, 2 * tile:]], 2)
+        faults = {
+            "dq_stale_ring_tile": ("dq", PEV.evoformer_bwd_dq(*on(k=stale(k, bn), v=stale(v, bn)))),
+            "dq_band_of_the_wrong_head": ("dq", PEV.evoformer_bwd_dq(*on(b2=b2.roll(1, 2)))),
+            "dq_band_of_the_other_query_tile": ("dq",
+                                                PEV.evoformer_bwd_dq(*on(b2=b2.roll(128, 3)))),
+            "dq_bias1_one_key_off": ("dq", PEV.evoformer_bwd_dq(*on(b1=b1.roll(1, -1)))),
+            "dkv_stale_ring_tile": ("dk", PEV.evoformer_bwd_dkv(
+                *on(q=stale(q, 64), do=stale(do, 64)))[0]),
+            "dkv_band_of_the_wrong_head": ("dk", PEV.evoformer_bwd_dkv(*on(b2=b2.roll(1, 2)))[0]),
+            "dkv_band_of_the_other_key_tile": ("dk",
+                                               PEV.evoformer_bwd_dkv(*on(b2=b2.roll(128, 4)))[0]),
+            "dkv_bias1_one_key_off": ("dk", PEV.evoformer_bwd_dkv(*on(b1=b1.roll(1, -1)))[0])}
+        sms = torch.cuda.get_device_properties(0).multi_processor_count
+        plan = PEV.bwd_run_plan(1, S, N, H, D, sms)
+        assert plan.n > 1
+        for t in ("dq", "dk", "dv"):
+            left = got[t].float()
+            for first, end in plan.runs:
+                left[:, first + 1:end] += got[t][:, first:end - 1].float()
+            faults[f"{t}_previous_sequence_left"] = (t, left.to(got[t].dtype))
+        for fault, (t, out) in faults.items():
+            assert PEV.bwd_mismatch(out, ref[t])["n_over"] > 0, fault
+
+    @pytest.mark.parametrize("shape", sorted(EVO_FWD_DIGESTS))
+    def test_forward_bits_unchanged_by_the_header_move(self, cuda_device, shape):
+        """#7's o and lse on fixed inputs are the bits the kernel gave before
+        its band helpers moved to csrc/evoformer_band.cuh."""
+        S, N, H, D = shape
+        q, k, v, _, b1, b2 = _evo_case(np.random.default_rng(0), cuda_device, S, N, H, D, "both")
+        o, lse = PEV.evoformer_fwd(q, k, v, b1, b2)
+        torch.cuda.synchronize()
+        assert _evo_fwd_digest(o, lse) == EVO_FWD_DIGESTS[shape]
 
 
 def _window_decode_case(rng, dev, H, KV, D, quant, bs=16, NB=8, nblk=56):

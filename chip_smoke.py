@@ -1308,19 +1308,6 @@ def _evo_kernel_checks(dev, bound_ms):
     return out
 
 
-def _quantize_ties_away(x):
-    """quantize_kv_rows with .5 ties rounded away from zero (C's roundf)
-    instead of to even: the planted fault the bit-exact check of the int8
-    kernels must catch. Returns the codes."""
-    import torch
-
-    xf = x.float()
-    scale = xf.abs().amax(-1) * torch.tensor(1.0 / 127.0, dtype=torch.float32)
-    scale = torch.where(scale > 0, scale, torch.ones_like(scale))
-    r = xf / scale[..., None]
-    return (torch.sign(r) * torch.floor(r.abs() + 0.5)).clamp(-127, 127).to(torch.int8)
-
-
 def _int8_rows(randn, T, KV, D, built):
     """bf16 rows [T, KV, D], unit normal, with rows `built[0]`, `built[1]`,
     `built[2]` (each a list of row ids) made into .5 ties (absmax 127, so
@@ -1375,7 +1362,7 @@ def _int8_kernel_checks(PA, randn, dev, H, KV, D, bs, nblk, NB, slots, ctx, tabl
         _check_close(f"paged_kv_write_int8 {name}", a, b, 0.0, 0.0)
     idx = slots[live].long()
     codes = got[0].view(-1, KV, D)[idx]
-    fault = _quantize_ties_away(kn[live])
+    fault = _quant_fault(kn[live], "ties_away_from_zero")[0]
     n_fault = int((fault != codes).sum())
     if n_fault == 0:
         raise AssertionError("paged_kv_write_int8: the quantizer with ties rounded away from "
@@ -2297,6 +2284,25 @@ DECODE_DESIGN_CASES = {"falcon_7b": dict(H=71, KV=1, D=64, serve=SERVE_A, ctx=DE
                                               ctx=DECODE_W_CTX, window=WINDOW)}
 DECODE_RING_STAGES, DECODE_TILE = 3, 64
 
+# #6's int8 write at the shapes that bound it (csrc/paged_kv_write.cu): the
+# flagship's prefill wave (8 prompts of 96 tokens in 128-row buckets: 768
+# of 1024 rows live), Phi-2's and Falcon-7B's 1920-token prompts in the
+# 2048 bucket (32 KV heads of 80; one of 64) and Mistral 7B's 6144-token
+# prompt in the 8192 bucket (8 KV heads of 128): T rows in buckets of
+# `bucket`, the first `live` of each live; H query heads and the decode
+# rows' ctx of the fused int8 decode checked beside it
+KV_WRITE_CASES = {
+    "flagship_wave": dict(H=8, KV=8, D=128, T=N_PROMPTS * PROMPT_BUCKET, bucket=PROMPT_BUCKET,
+                          live=PROMPT_LEN, serve=SERVE,
+                          ctx=tuple(PROMPT_LEN + 1 + 3 * i for i in range(N_PROMPTS))),
+    "phi_2_prefill": dict(H=32, KV=32, D=80, T=2048, bucket=2048, live=A_LONG, serve=SERVE_A,
+                          ctx=DECODE_FP_CTX),
+    "mistral_prefill": dict(H=32, KV=8, D=128, T=8192, bucket=8192, live=W_LONG, serve=SERVE_W,
+                            ctx=DECODE_W_CTX),
+    "falcon_7b_prefill": dict(H=71, KV=1, D=64, T=2048, bucket=2048, live=A_LONG,
+                              serve=SERVE_A, ctx=DECODE_FP_CTX),
+}
+
 
 def _dense_decode(PA, q, pools, tables, ctx, live, bias=None):
     """f32 decode over already-written pools: row s attends to the
@@ -2446,6 +2452,245 @@ def _decode_design_checks(PA, randn, dev):
     return {}
 
 
+def _nonfinite_rows(x, rows):
+    """x [T, KV, D] with the four rows `rows` made non-finite in every head,
+    in place: a NaN (head 0 of the first row holds 0.5, -3, NaN, 1.25, 2,
+    -0.75, 0, 7 and zeros), +inf, -inf (in the last column), and a NaN
+    beside a +inf. Returns x."""
+    import torch
+
+    D = x.shape[-1]
+    nan, inf = float("nan"), float("inf")
+    a, b, c, d = (int(r) for r in rows)
+    x[a, :, 5] = nan
+    x[a, 0] = 0.0
+    x[a, 0, :8] = torch.tensor([0.5, -3.0, nan, 1.25, 2.0, -0.75, 0.0, 7.0], dtype=x.dtype)
+    x[b, :, 3] = inf
+    x[c, :, D - 1] = -inf
+    x[d, :, 0] = nan
+    x[d, :, D // 2] = inf
+    return x
+
+
+def _kv_write_fixture(PA, randn, dev, case):
+    """Inputs of #6's int8 write at one KV_WRITE_CASES shape: int8 code and
+    f32 scale pools of num_kv_blocks + 1 blocks, filled by the plain
+    quantizer; new rows [T, KV, D] with live rows built as .5 ties, zeros,
+    subnormals (_int8_rows) and non-finite rows (_nonfinite_rows); the
+    path's slots (bucket b's row p at slot b * bucket + p, -1 past the
+    live rows). Returns a dict: pools, kn, vn, slots, n_live, and `bytes`,
+    what the write must move (each live row read, its codes and scales
+    written, the slots read)."""
+    import torch
+
+    KV, D, T, bucket = case["KV"], case["D"], case["T"], case["bucket"]
+    bs = case["serve"]["kv_block_size"]
+    nblk = case["serve"]["num_kv_blocks"] + 1
+    row = torch.arange(T, device=dev)
+    slots = torch.where(row % bucket < case["live"], row, -1).to(torch.int32)
+    live = torch.nonzero(slots >= 0)[:, 0]
+    built = (live[:16], live[16:20], live[20:24])
+    kn, vn = _int8_rows(randn, T, KV, D, built), _int8_rows(randn, T, KV, D, built)
+    _nonfinite_rows(kn, live[24:28])
+    _nonfinite_rows(vn, live[28:32])
+    qk, ks, qv, vs = PA.quantize_kv_rows(randn(nblk * bs, KV, D), randn(nblk * bs, KV, D))
+    pools = [qk.reshape(nblk, bs, KV, D), qv.reshape(nblk, bs, KV, D),
+             ks.reshape(nblk, bs, KV), vs.reshape(nblk, bs, KV)]
+    n_live = int(live.numel())
+    return dict(pools=pools, kn=kn, vn=vn, slots=slots, n_live=n_live,
+                bytes=n_live * KV * D * 2 * 2 + n_live * KV * (D + 4) * 2 + 4 * T)
+
+
+def _pools_off(a, b):
+    """Elements of four pools (codes, codes, scales, scales) whose bits
+    differ between a and b."""
+    import torch
+
+    bits = lambda t: t.view(torch.int32) if t.dtype == torch.float32 else t
+    return sum(int((bits(x) != bits(y)).sum()) for x, y in zip(a, b))
+
+
+def _quant_fault(x, fault=None):
+    """quantize_kv_rows's rule on rows [..., D] -> (codes, scales), with one
+    planted fault: "amax_first_64_columns" (a head_dim-80 slice scaled by
+    its first 64 columns), "ties_away_from_zero" (C's roundf), or
+    "nan_dropping_absmax" (fmaxf's max, which drops a NaN, and a clamp
+    by fmaxf/fminf, which takes a NaN quotient to -127: the quantizer
+    before the NaN repair)."""
+    import torch
+
+    xf = x.float()
+    a = xf.abs()
+    if fault == "amax_first_64_columns":
+        a = a[..., :64]
+    if fault == "nan_dropping_absmax":
+        a = torch.where(torch.isnan(a), torch.zeros_like(a), a)
+    scale = a.amax(-1) * torch.tensor(1.0 / 127.0, dtype=torch.float32)
+    scale = torch.where(scale > 0, scale, torch.ones_like(scale))
+    r = xf / scale[..., None]
+    r = torch.sign(r) * torch.floor(r.abs() + 0.5) if fault == "ties_away_from_zero" else r.round()
+    r = torch.where(torch.isnan(r), torch.full_like(r, -127.0 if fault == "nan_dropping_absmax"
+                                                    else 0.0), r)
+    return r.clamp(-127, 127).to(torch.int8), scale
+
+
+def _emulated_write(PA, pools, kn, vn, slots, fault=None, scale_shift=False, skip_from=None):
+    """The int8 write in the plain math on copies of `pools`: rows quantized
+    by _quant_fault(fault) and scattered with the plain write's drop and
+    clamp rules; scale_shift: each slice's scale written to the next slice
+    of its row (head h's to head h + 1, the last K head's to V head 0,
+    the last V head's to K head 0); skip_from: the slices from this one on
+    (the int8 kernel's flat order: a row's K heads, then its V heads) left
+    unwritten. Returns the four pools."""
+    import torch
+
+    out = [p.clone() for p in pools]
+    (qk, ks), (qv, vs) = _quant_fault(kn, fault), _quant_fault(vn, fault)
+    if scale_shift:
+        ks, vs = torch.cat([ks, vs], -1).roll(1, -1).split(ks.shape[-1], -1)
+    for arena, rows in zip(out, (qk, qv, ks, vs)):
+        PA._scatter_rows(arena, rows.contiguous(), slots)
+    if skip_from is not None:
+        nblk, bs, KV, D = pools[0].shape
+        j = torch.arange(skip_from, 2 * kn.shape[0] * KV, device=kn.device)
+        slot = slots[j // (2 * KV)].long()
+        j, slot = j[slot >= 0], slot[slot >= 0]
+        at = (slot // bs).clamp(max=nblk - 1) * bs + slot % bs
+        half, h = j % (2 * KV) // KV, j % KV
+        for x in (0, 1):
+            m = half == x
+            for i in (x, x + 2):
+                flat = out[i].view(nblk * bs, KV, -1)
+                flat[at[m], h[m]] = pools[i].view(nblk * bs, KV, -1)[at[m], h[m]]
+    return out
+
+
+def _stale_tile_rows(kn, vn, tile):
+    """K and V rows [T, KV, D] whose head slices (the int8 kernel's flat
+    order) from `tile` on each hold the slice `tile` before it: what a CTA
+    that quantized the tile before its own would write."""
+    import torch
+
+    T, KV, D = kn.shape
+    x = torch.stack([kn, vn], 1).reshape(T * 2 * KV, D)
+    j = torch.arange(T * 2 * KV, device=kn.device)
+    x = x[torch.where(j >= tile, j - tile, j)].view(T, 2, KV, D)
+    return x[:, 0].contiguous(), x[:, 1].contiguous()
+
+
+def _kv_write_design_checks(PA, randn, dev, bound_ms):
+    """Checks aimed at the tiled design of #6's int8 write
+    (csrc/paged_kv_write.cu) at KV_WRITE_CASES: codes and scales bit-exact
+    against the plain write, rows of .5 ties, zeros, subnormals, NaN and
+    inf included; a second launch bit-identical; then a ragged write (T - 3
+    rows, scattered slots, every 7th row dropped, one past the arena)
+    bit-exact, and planted faults, each an output the check must fail: a
+    tile given the previous tile's slices, each slice's
+    scale written to the next head, the last tile (partial where the
+    slices do not fill it) left unwritten, at head_dim 80 the amax of the
+    first 64 columns, ties rounded away from zero, and the NaN-dropping
+    absmax of the quantizer before the NaN repair. Beside it, #4's fused
+    int8 write with non-finite new rows (pools bit-exact). Also the
+    quantizer's exhaustive check of its two division routes (every (x,
+    amax) pair: no code may differ), the grids and the ptxas registers and
+    spills (a spill fails). Returns the timing rows of the cases phase 2
+    times nowhere else (Mistral's and Falcon-7B's prefills)."""
+    import torch
+
+    from deepspeed_tpu_torch.ops.cuda import build
+
+    atol, rtol = KERNEL_TOL["paged_decode_attention_int8"]
+    tile = PA.KV8_TILE
+    report, out = {"division_routes": PA.quantizer_route_check(dev)}, {}
+    if report["division_routes"]["codes_off"] or report["division_routes"]["pairs"] < 2**30:
+        raise AssertionError(f"the quantizer's division routes differ: {report}")
+    for seed, (case, c) in enumerate(KV_WRITE_CASES.items()):
+        KV, D, T = c["KV"], c["D"], c["T"]
+        x = _kv_write_fixture(PA, randn, dev, c)
+        pools, kn, vn, slots = x["pools"], x["kn"], x["vn"], x["slots"]
+        got = [p.clone() for p in pools]
+        PA.paged_kv_write_int8(*got, kn, vn, slots)
+        want = _emulated_write(PA, pools, kn, vn, slots)
+        plain = [p.clone() for p in pools]
+        PA.paged_kv_write_quant_plain(*plain, kn, vn, slots)
+        again = [p.clone() for p in pools]
+        PA.paged_kv_write_int8(*again, kn, vn, slots)
+        torch.cuda.synchronize()
+        off = {"kernel_vs_plain": _pools_off(got, plain), "two_launches": _pools_off(got, again),
+               "emulation_vs_plain": _pools_off(want, plain)}
+        if any(off.values()):
+            raise AssertionError(f"paged_kv_write_int8 {case}: bits differ: {off}")
+        # the ragged write: its slots a permutation of the arena's blocks
+        # but the last, which only the past-arena row reaches
+        Tr = T - 3
+        g = torch.Generator(device=dev).manual_seed(60 + seed)
+        nblk, bs = pools[0].shape[:2]
+        sr = torch.randperm((nblk - 1) * bs, generator=g, device=dev)[:Tr].to(torch.int32)
+        sr[2:-1:7] = -1  # the last row, in the last tile, stays live
+        sr[1] = nblk * bs + 5
+        kr, vr = kn[:Tr].contiguous(), vn[:Tr].contiguous()
+        ctas = -(-2 * Tr * KV // tile)
+        got = [p.clone() for p in pools]
+        PA.paged_kv_write_int8(*got, kr, vr, sr)
+        plain = [p.clone() for p in pools]
+        PA.paged_kv_write_quant_plain(*plain, kr, vr, sr)
+        torch.cuda.synchronize()
+        if _pools_off(got, plain):
+            raise AssertionError(f"paged_kv_write_int8 {case} ragged: {_pools_off(got, plain)} "
+                                 f"elements differ (T {Tr})")
+        faults = {
+            "stale_tile": _emulated_write(PA, pools, *_stale_tile_rows(kr, vr, tile), sr),
+            "scale_to_the_next_head": _emulated_write(PA, pools, kr, vr, sr, scale_shift=True),
+            "last_tile_left_unwritten": _emulated_write(PA, pools, kr, vr, sr,
+                                                        skip_from=(ctas - 1) * tile),
+            "ties_away_from_zero": _emulated_write(PA, pools, kr, vr, sr, "ties_away_from_zero"),
+            "nan_dropping_absmax": _emulated_write(PA, pools, kr, vr, sr, "nan_dropping_absmax")}
+        if D == 80:
+            faults["amax_first_64_columns"] = _emulated_write(PA, pools, kr, vr, sr,
+                                                              "amax_first_64_columns")
+        faults = {name: _pools_off(got, f) for name, f in faults.items()}
+        if not all(faults.values()):
+            raise AssertionError(f"paged_kv_write_int8 {case}: the check passes a planted "
+                                 f"fault: {faults}")
+        # #4's fused int8 write with non-finite new rows
+        NB = c["serve"]["max_seq_len"] // bs
+        d, _, run = _decode_fixture(PA, randn, dev, c["H"], KV, D, bs, NB, list(c["ctx"]),
+                                    70 + seed)
+        _nonfinite_rows(d["k_new"], range(4))
+        _nonfinite_rows(d["v_new"], range(3, -1, -1))
+        (o, fused), (ref, fused_plain) = (run("paged_decode_fused_int8", 0),
+                                         run("paged_decode_fused_int8", 0, kernel=False))
+        torch.cuda.synchronize()
+        fused_off = _pools_off(fused, fused_plain)
+        finite = torch.isfinite(ref.float()).flatten(1).all(1)
+        if fused_off or int(finite.sum()) == 0:
+            raise AssertionError(f"paged_decode_fused_int8 {case}: {fused_off} pool elements "
+                                 f"differ with non-finite new rows")
+        _check_close(f"paged_decode_fused_int8 {case} finite rows", o[finite], ref[finite],
+                     atol, rtol)
+        report[case] = {"ctas": -(-2 * T * KV // tile), "lane_chunk_bf16": PA.KV8_CHUNK[D],
+                        "ragged_last_tile_slices": 2 * Tr * KV - (ctas - 1) * tile,
+                        "bits_off": off, "planted_faults_elements_off": faults,
+                        "fused_int8_pools_off_nonfinite_rows": fused_off}
+        if case in ("mistral_prefill", "falcon_7b_prefill"):
+            out[f"paged_kv_write_int8@{case}"] = dict(
+                max_abs_err=0.0,
+                **_timings(lambda: PA.paged_kv_write_int8(*got, kn, vn, slots),
+                           lambda: PA.paged_kv_write_quant_plain(*plain, kn, vn, slots),
+                           None, 50),
+                shape=f"T={T} rows ({x['n_live']} live), pools [{nblk},{bs},{KV},{D}] int8 + "
+                      f"[{nblk},{bs},{KV}] f32",
+                bound=bound_ms(x["bytes"], 0.0))
+        del x, pools, kn, vn, got, want, plain, again, faults, d, run, fused, fused_plain
+        torch.cuda.empty_cache()
+    report["ptxas"] = _ptxas_registers(build, "paged_kv_write", ("kv_write_int8_kernel",))
+    spills = {k: v for k, v in report["ptxas"].items() if v.get("spill_stores")}
+    if spills or not report["ptxas"]:
+        raise AssertionError(f"kv_write_int8_kernel spills or was not found: {report['ptxas']}")
+    print(json.dumps({"kv_write_design_checks": report}))
+    return out
+
+
 def _d80_write_checks(PA, randn, dev, bound_ms):
     """The head_dim-80 writes at Phi-2's prefill of the 1920-token prompt
     (bucket 2048: 2048 rows, 1920 live, 32 KV heads of 80): the bf16 write
@@ -2490,7 +2735,8 @@ def _d80_write_checks(PA, randn, dev, bound_ms):
     PA.paged_kv_write_quant_plain(*want, kn, vn, slots)
     for name, a, b in zip(("k codes", "v codes", "k scales", "v scales"), got, want):
         _check_close(f"paged_kv_write_int8[d80] {name}", a, b, 0.0, 0.0)
-    n_fault = int((_quantize_ties_away(kn[live]) != got[0].view(-1, KV, D)[idx]).sum())
+    n_fault = int((_quant_fault(kn[live], "ties_away_from_zero")[0]
+                   != got[0].view(-1, KV, D)[idx]).sum())
     if n_fault == 0:
         raise AssertionError("paged_kv_write_int8[d80]: the quantizer with ties rounded away "
                              "from zero passes the bit-exact check")
@@ -2896,6 +3142,8 @@ def check_kernels(cfg, dev):
         "decode_group": lambda: _decode_group_checks(PA, randn, dev, bound_ms),
         # the split-K design of #4/#5 at Falcon-7B's and Mistral's shapes
         "decode_design": lambda: _decode_design_checks(PA, randn, dev),
+        # the tiled design of #6's int8 write at its four bounding shapes
+        "kv_write_design": lambda: _kv_write_design_checks(PA, randn, dev, bound_ms),
         "d80": lambda: _d80_checks(FA, PA, randn, dev, bound_ms),
         # the backward's head_dim-80 and wide-group modes at Phi-2's and
         # Falcon-7B's training shapes

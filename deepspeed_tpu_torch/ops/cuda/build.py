@@ -40,11 +40,16 @@ NVCC_FLAGS = ARCH_FLAGS + ("-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC"
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _F = ctypes.c_float
+_U = ctypes.c_uint
 # source -> C signature of each kernel function it exports (all return
 # cudaError_t)
 SIGNATURES = {
     "paged_kv_write": {"paged_kv_write": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
-                       "paged_kv_write_int8": [_P] * 7 + [_I] * 5 + [_P]},
+                       # ..., head_dim, the magic numbers and shifts of 2 KV and
+                       # of the block size
+                       "paged_kv_write_int8": [_P] * 7 + [_I] * 5 + [_U, _I, _U, _I, _P],
+                       # the quantizer's exhaustive route check: out[3], stream
+                       "kv_quant_check": [_P, _P]},
     # ..., allowed, the split's f32 partials, its arrival counters; ...,
     # window, the split count and length
     "paged_decode": {"paged_decode": [_P] * 15 + [_I] * 12 + [_F, _P]},

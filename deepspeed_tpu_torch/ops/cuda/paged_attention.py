@@ -197,13 +197,49 @@ def _check_scales(what, cache_k, k_scale, v_scale):
     check_shape(what, "v_scale", v_scale, cache_k.shape[:3])
 
 
+# The int8 write's tiles (csrc/paged_kv_write.cu): the [T, KV, D] rows are
+# 2 * T * KV head slices in a flat order (a row's K heads, then its V
+# heads), KV8_TILE of them a CTA of 256 threads, one slice a group of 16
+# lanes, each lane a chunk of KV8_CHUNK[D] bf16 (8 bytes at D 64, 16 at D
+# 80 and 128)
+KV8_TILE = 16
+KV8_CHUNK = {64: 4, 80: 8, 128: 8}
+
+
+@functools.lru_cache(maxsize=None)
+def _divisor_magic(d):
+    """(magic, shift) with n // d == (umulhi(n, magic) + n) >> shift for
+    every 0 <= n < 2^31 (the int8 write divides by 2 * KV and the block
+    size so; umulhi(n, magic) <= n keeps the sum under 2^32)."""
+    shift = (d - 1).bit_length()
+    return (2**32 * (2**shift - d)) // d + 1, shift
+
+
+def quantizer_route_check(device) -> dict:
+    """Run kv_quant_check (csrc/paged_kv_write.cu) on the card: every
+    (x, amax) pair of bf16 values the int8 quantizer can meet, its code by
+    the short division route against the IEEE division's. Returns pairs
+    (tried), codes_off (pairs whose codes differ) and first_off ((amax bits,
+    x bits) of the least such pair, or None)."""
+    out = torch.tensor([0, 0, -1], dtype=torch.int64, device=device)
+    lib = build.load("paged_kv_write")
+    build.check(lib, lib.kv_quant_check(ptr(out), stream_of(out)), "kv_quant_check")
+    n, off, first = out.tolist()
+    return {"pairs": n, "codes_off": off,
+            "first_off": None if off == 0 else [(first >> 16) & 0x7FFF, first & 0xFFFF]}
+
+
 def paged_kv_write_int8(cache_k, cache_v, k_scale, v_scale, k_new, v_new, flat_slots):
     """Quantize new KV rows and write codes and scales into the int8 pools
     in place, in one launch (kernel: csrc/paged_kv_write.cu). cache_k/
     cache_v [NBLK, bs, KV, D] int8, k_scale/v_scale [NBLK, bs, KV] f32,
     k_new/v_new [T, KV, D] bf16, flat_slots [T] int32 (-1 = dropped row;
-    a slot past the arena lands in the last block). Codes and scales are
-    bit-identical to paged_kv_write_quant_plain's. Returns the four pools."""
+    a slot past the arena lands in the last block).
+    Codes and scales are bit-identical to paged_kv_write_quant_plain's,
+    NaN and inf included: a NaN in a (row, head) slice makes its scale 1
+    and its own code 0; an inf without a NaN makes the scale inf and every
+    code of the slice 0 (x / inf, and inf / inf taken as NaN, round to 0);
+    a subnormal amax keeps its subnormal scale. Returns the four pools."""
     if not cache_k.is_cuda:
         return paged_kv_write_quant_plain(cache_k, cache_v, k_scale, v_scale, k_new, v_new,
                                           flat_slots)
@@ -215,7 +251,8 @@ def paged_kv_write_int8(cache_k, cache_v, k_scale, v_scale, k_new, v_new, flat_s
         {"cache_k": cache_k, "cache_v": cache_v, "k_scale": k_scale, "v_scale": v_scale,
          "k_new": k_new, "v_new": v_new, "flat_slots": flat_slots},
         {"cache_k": _I8, "cache_v": _I8, "k_scale": _F32, "v_scale": _F32,
-         "k_new": _BF16, "v_new": _BF16, "flat_slots": _I32})
+         "k_new": _BF16, "v_new": _BF16, "flat_slots": _I32},
+        aligned=("cache_k", "cache_v", "k_scale", "v_scale", "k_new", "v_new"))
     check_shape(what, "cache_v", cache_v, cache_k.shape)
     _check_scales(what, cache_k, k_scale, v_scale)
     check_shape(what, "k_new", k_new, (T, KV, D))
@@ -227,7 +264,8 @@ def paged_kv_write_int8(cache_k, cache_v, k_scale, v_scale, k_new, v_new, flat_s
     lib = build.load("paged_kv_write")
     err = lib.paged_kv_write_int8(ptr(cache_k), ptr(cache_v), ptr(k_scale), ptr(v_scale),
                                   ptr(k_new), ptr(v_new), ptr(flat_slots), T, NBLK, bs, KV,
-                                  D, stream_of(cache_k))
+                                  D, *_divisor_magic(2 * KV), *_divisor_magic(bs),
+                                  stream_of(cache_k))
     build.check(lib, err, what)
     count_launch(paged_kv_write_int8, head_dim=D)
     return cache_k, cache_v, k_scale, v_scale

@@ -39,6 +39,16 @@ MODE:
   phase-2 decode rows (Falcon-7B, Mistral's window, BLOOM-7B1, Phi-2) and
   the flagship's, fused bf16 and int8, for split counts 1, 2, 4, ... forced
   in place of decode_split_plan, beside the plan's own choice.
+- write: #6's int8 write (paged_kv_write_int8) at chip_smoke.py's
+  KV_WRITE_CASES (the flagship's prefill wave, Phi-2's, Mistral 7B's and
+  Falcon-7B's prefills; inputs from a seeded generator): device ms a call
+  (torch.profiler over 50 calls), the median of 3 such and each, and its
+  byte bound; the static SASS instruction count of each
+  instantiation of the int8 kernel (cuobjdump, where the toolkit has it);
+  and #6's share of one int8 prefill: where the device time of a Mistral
+  7B put() of a fresh 6144-token prompt goes (torch.profiler: busy, idle
+  share, the int8 write's kernels' ms and share of busy), the model at
+  full width and depth from int8 pools, random bf16 weights from seed 0.
 - tiles: where a 64-column tile's time goes in the one-CTA-a-row decode
   kernel that split-K replaced (ROOT a checkout of that kernel: one CTA
   walks its row's whole context, 8 query heads a CTA; its source has the
@@ -460,8 +470,102 @@ def tiles_worker(root):
     return out
 
 
+# ---------------------------------------------------------------------------
+# write: #6's int8 write at its bounding shapes, and its share of a prefill
+# ---------------------------------------------------------------------------
+
+def _sass_counts(lib_path, kernel="kv_write_int8_kernel"):
+    """{instantiation: {"instructions": n, "FCHK"/"MUFU"/...: n}}: the
+    static SASS of each entry function of the library whose mangled name
+    holds `kernel` (cuobjdump -sass), or None where cuobjdump is missing."""
+    import re
+
+    tool = Path(os.environ.get("CUDA_HOME", "/usr/local/cuda")) / "bin" / "cuobjdump"
+    if not tool.is_file():
+        return None
+    text = subprocess.run([str(tool), "-sass", str(lib_path)], capture_output=True, text=True,
+                          timeout=120, check=True).stdout
+    out, current = {}, None
+    for line in text.splitlines():
+        m = re.search(r"Function : (\S+)", line)
+        if m:
+            current = None
+            if kernel in m.group(1):
+                ints = re.findall(r"L[ib](\d+)E", m.group(1))
+                current = f"{kernel}<{','.join(ints)}>"
+                out[current] = {"instructions": 0}
+            continue
+        m = re.search(r"/\*[0-9a-f]{4}\*/\s+(?:@!?U?P\w+\s+)?([A-Z][A-Z0-9_]*)", line)
+        if current and m:
+            op = m.group(1)
+            out[current]["instructions"] += 1
+            if op in ("FCHK", "MUFU", "CALL", "LDG", "STG", "SHFL", "F2I", "BRA"):
+                out[current][op] = out[current].get(op, 0) + 1
+    return out
+
+
+def _prefill_share(C, torch, dev):
+    """Where one int8 Mistral 7B put() of a fresh W_LONG-token prompt spends
+    its device time: busy ms, idle share, the ms of the int8 write's
+    kernels and their share of busy (torch.profiler), after one warm-up
+    put."""
+    import numpy as np
+    from torch.profiler import ProfilerActivity, profile
+
+    from deepspeed_tpu_torch import init_inference
+    from deepspeed_tpu_torch.models import transformer as T
+
+    cfg = T.TransformerConfig(**C.MISTRAL)
+    eng = init_inference(C._init_served(T, cfg, dev), cfg, dict(C.SERVE_W, kv_cache_dtype="int8"))
+    r = np.random.default_rng(0)
+    prompt = lambda: r.integers(0, cfg.vocab_size, C.W_LONG).astype(np.int32)
+    eng.put([1], [prompt()])
+    eng.flush(1)
+    p = prompt()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t = time.perf_counter()
+        eng.put([2], [p])
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t) * 1e3
+    events = C._device_events(prof)
+    busy = sum(us for _, us in events) / 1e3
+    write = [us / 1e3 for n, us in events if "kv_write_int8" in n]
+    del eng
+    torch.cuda.empty_cache()
+    return {"prompt_tokens": C.W_LONG, "wall_ms_profiled": wall, "device_busy_ms": busy,
+            "idle_share": 1.0 - busy / wall, "write_launches": len(write),
+            "write_ms": sum(write), "write_share_of_busy": sum(write) / busy}
+
+
+def write_worker(root):
+    root, C = _import_root(root)
+    import torch
+
+    from deepspeed_tpu_torch.ops.cuda import build
+    from deepspeed_tpu_torch.ops.cuda import paged_attention as PA
+    from deepspeed_tpu_torch.platform.accelerator import bound_ms
+
+    libs = build.build_all(["paged_kv_write", "paged_decode", "flash_fwd"])
+    dev = torch.device("cuda")
+    out = {"mode": "write", "root": str(root), "sass": _sass_counts(libs["paged_kv_write"]),
+           "cases": {}}
+    for i, (name, case) in enumerate(C.KV_WRITE_CASES.items()):
+        KV, D, T = case["KV"], case["D"], case["T"]
+        x = C._kv_write_fixture(PA, _seeded_randn(torch, dev, 40 + i), dev, case)
+        run = lambda: PA.paged_kv_write_int8(*x["pools"], x["kn"], x["vn"], x["slots"])
+        ms = [C._device_ms(run, 50) for _ in range(3)]
+        out["cases"][name] = {"shape": [T, x["n_live"], KV, D],
+                              "device_ms": statistics.median(ms), "runs_ms": ms,
+                              "bound_ms": bound_ms(x["bytes"], 0.0)[0]}
+        del x, run
+        torch.cuda.empty_cache()
+    out["mistral_int8_prefill"] = _prefill_share(C, torch, dev)
+    return out
+
+
 WORKERS = {"evo": evo_worker, "serve": serve_worker, "splits": splits_worker,
-           "tiles": tiles_worker}
+           "tiles": tiles_worker, "write": write_worker}
 
 
 def main(mode, roots):

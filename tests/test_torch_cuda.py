@@ -2107,3 +2107,118 @@ class TestDecodeSplitOnCard:
         faults["stale_ring_stage"] = _decode_kernel(mode, q, stale, tbl, ctx, kn, vn, slots)
         for name, bad in faults.items():
             assert _n_over(bad, ref, 1e-3, 8e-3) > 0, name
+
+
+@pytest.mark.cuda
+class TestKvWriteTilesOnCard:
+    """Kernel #6's int8 write in its tiled design (csrc/paged_kv_write.cu:
+    tiles of head slices, 16-lane groups of vector chunks, the quantizer's
+    short division route) against its plain version, bit for bit: at the
+    four shapes chip_smoke.py times (KV_WRITE_CASES: rows of .5 ties,
+    zeros, subnormals, NaN and inf) and on ragged writes, two launches
+    bit-identical; #4's fused int8 write with
+    NaN and inf in its new rows; the quantizer's two division routes on
+    every (x, amax) pair; the planted faults of chip_smoke.py's
+    kv_write_design_checks; no register spills."""
+
+    @staticmethod
+    def _randn(dev, seed):
+        g = torch.Generator(device=dev).manual_seed(seed)
+        return lambda *shape: torch.randn(shape, generator=g, device=dev).to(torch.bfloat16)
+
+    @pytest.mark.parametrize("case", ["flagship_wave", "phi_2_prefill", "mistral_prefill",
+                                      "falcon_7b_prefill"])
+    def test_bit_exact_at_the_chip_shapes(self, cuda_device, case):
+        C = _chip_smoke()
+        x = C._kv_write_fixture(PP, self._randn(cuda_device, 3), cuda_device,
+                                C.KV_WRITE_CASES[case])
+        runs = []
+        for write in (PP.paged_kv_write_int8, PP.paged_kv_write_int8,
+                      PP.paged_kv_write_quant_plain):
+            pools = [p.clone() for p in x["pools"]]
+            write(*pools, x["kn"], x["vn"], x["slots"])
+            runs.append(pools)
+        torch.cuda.synchronize()
+        assert C._pools_off(runs[0], runs[2]) == 0
+        assert C._pools_off(runs[0], runs[1]) == 0  # two launches
+        assert torch.isinf(runs[0][2]).any()  # the inf rows reached the pools
+
+    @pytest.mark.parametrize("KV,D", [(1, 64), (2, 80), (8, 128), (32, 80), (130, 64), (3, 128)])
+    def test_ragged_writes_bit_exact(self, rng, cuda_device, KV, D):
+        """T = 45 rows, scattered slots, dropped and past-arena rows, a NaN
+        and an inf row, the last tile partial where 90 KV slices do not
+        fill it; KV 130 spans several tiles a row."""
+        d, T = cuda_device, 45
+        slots = rng.permutation(11 * 16)[:T].astype(np.int32)
+        slots[5::7] = -1
+        slots[3] = 12 * 16 + 5
+        s = torch.from_numpy(slots).to(d)
+        rows = _int8_rows(rng, T, KV, D)
+        rows[6, :, 3], rows[9, :, 1] = np.nan, np.inf
+        kn, vn = _bf16_cuda(rows, d), _bf16_cuda(rows[::-1].copy(), d)
+        pools = _int8_pools(rng, d, 12, 16, KV, D)
+        ref = [p.clone() for p in pools]
+        PP.paged_kv_write_int8(*pools, kn, vn, s)
+        PP.paged_kv_write_quant_plain(*ref, kn, vn, s)
+        torch.cuda.synchronize()
+        assert _chip_smoke()._pools_off(pools, ref) == 0
+
+    @pytest.mark.parametrize("H,KV,D", [(8, 8, 128), (32, 32, 80), (71, 1, 64)])
+    def test_fused_int8_write_with_nonfinite_rows(self, cuda_device, H, KV, D):
+        C = _chip_smoke()
+        x, _, run = C._decode_fixture(PP, self._randn(cuda_device, 5), cuda_device, H, KV, D,
+                                      16, 8, [5, 17, 40, 100, 128, 1, 64, 90], 7)
+        C._nonfinite_rows(x["k_new"], range(4))
+        C._nonfinite_rows(x["v_new"], range(3, -1, -1))
+        (o, pools), (ref, ref_pools) = (run("paged_decode_fused_int8", 0),
+                                       run("paged_decode_fused_int8", 0, kernel=False))
+        torch.cuda.synchronize()
+        assert C._pools_off(pools, ref_pools) == 0
+        torch.testing.assert_close(o[4:].float(), ref[4:].float(), rtol=8e-3, atol=1e-3)
+
+    def test_division_routes_agree_on_every_pair(self, cuda_device):
+        out = PP.quantizer_route_check(cuda_device)
+        assert out["pairs"] > 2**30 and out["codes_off"] == 0, out
+
+    @pytest.mark.parametrize("KV,D", [(8, 128), (32, 80), (1, 64)])
+    def test_design_faults_are_caught(self, cuda_device, KV, D):
+        C = _chip_smoke()
+        case = dict(KV=KV, D=D, T=301, bucket=301, live=301,
+                    serve=dict(kv_block_size=16, num_kv_blocks=31))
+        x = C._kv_write_fixture(PP, self._randn(cuda_device, 9), cuda_device, case)
+        pools, kn, vn, slots = x["pools"], x["kn"], x["vn"], x["slots"]
+        got = [p.clone() for p in pools]
+        PP.paged_kv_write_int8(*got, kn, vn, slots)
+        tile = PP.KV8_TILE
+        faults = {
+            "stale_tile": C._emulated_write(PP, pools, *C._stale_tile_rows(kn, vn, tile), slots),
+            "scale_to_the_next_head": C._emulated_write(PP, pools, kn, vn, slots,
+                                                        scale_shift=True),
+            "last_tile_left_unwritten": C._emulated_write(
+                PP, pools, kn, vn, slots, skip_from=(2 * 301 * KV - 1) // tile * tile),
+            "ties_away_from_zero": C._emulated_write(PP, pools, kn, vn, slots,
+                                                     "ties_away_from_zero"),
+            "nan_dropping_absmax": C._emulated_write(PP, pools, kn, vn, slots,
+                                                     "nan_dropping_absmax")}
+        if D == 80:
+            faults["amax_first_64_columns"] = C._emulated_write(PP, pools, kn, vn, slots,
+                                                                "amax_first_64_columns")
+        torch.cuda.synchronize()
+        assert C._pools_off(got, C._emulated_write(PP, pools, kn, vn, slots)) == 0
+        off = {name: C._pools_off(got, f) for name, f in faults.items()}
+        assert all(off.values()), off
+
+    def test_no_register_spills(self, cuda_device):
+        from deepspeed_tpu_torch.ops.cuda import build
+
+        build.load("paged_kv_write")
+        regs = _chip_smoke()._ptxas_registers(build, "paged_kv_write", ("kv_write_int8_kernel",))
+        assert len(regs) == 3 and not any(r.get("spill_stores") for r in regs.values()), regs
+
+    def test_rejects_unaligned_rows(self, rng, cuda_device):
+        d = cuda_device
+        pools = _int8_pools(rng, d, 4, 16, 2, 64)
+        rows = _bf16_cuda(rng.standard_normal((5 * 2 * 64 + 4,)), d)
+        kn = rows[4:].view(5, 2, 64)  # contiguous, 8 bytes off a 16-byte boundary
+        with pytest.raises(ValueError):
+            PP.paged_kv_write_int8(*pools, kn, kn, torch.zeros(5, dtype=torch.int32, device=d))

@@ -86,17 +86,45 @@ def _np_quantize(x):
     return code, scale
 
 
+def _nonfinite(x):
+    """x [T, KV, D] with rows 1-4 non-finite in every head (copied): a NaN
+    (head 0 of row 1 holds 0.5, -3, NaN, 1.25, 2, -0.75, 0, 7 and zeros),
+    +inf, -inf, and a NaN beside a +inf."""
+    x = x.copy()
+    D = x.shape[-1]
+    x[1, :, 5] = np.nan
+    x[1, 0] = 0.0
+    x[1, 0, :8] = [0.5, -3.0, np.nan, 1.25, 2.0, -0.75, 0.0, 7.0]
+    x[2, :, 3] = np.inf
+    x[3, :, D - 1] = -np.inf
+    x[4, :, 0] = np.nan
+    x[4, :, D // 2] = np.inf
+    return x
+
+
 class TestQuantizer:
-    def test_bit_identical_to_jax(self, rng):
+    @pytest.mark.parametrize("nonfinite", [False, True])
+    def test_bit_identical_to_jax(self, rng, nonfinite):
+        """With `nonfinite`, rows of NaN and inf (_nonfinite): a NaN makes
+        its slice's scale 1 and its own code 0, an inf without a NaN the
+        scale inf and every code 0, in both."""
         k, v = _rows(rng), _rows(rng)[::-1].copy()
-        code, scale = _np_quantize(k)
-        assert (np.abs(k / scale[..., None]) % 1 == 0.5).sum() > 1000  # ties
+        if nonfinite:
+            k, v = _nonfinite(k), _nonfinite(v)
         want = [np.asarray(a) for a in JP.quantize_kv_rows(jnp.asarray(k), jnp.asarray(v))]
         got = [a.numpy() for a in PP.quantize_kv_rows(_t(k), _t(v))]
         for w, g in zip(want, got):
             assert g.dtype == w.dtype
             np.testing.assert_array_equal(g, w)
-        np.testing.assert_array_equal(got[0], code)
+        if nonfinite:  # (numpy's cast of a NaN to int8 is the platform's)
+            assert got[0][1, 0, :8].tolist() == [0, -3, 0, 1, 2, -1, 0, 7]
+            assert (got[1][1] == 1).all() and (got[1][4] == 1).all()
+            assert np.isinf(got[1][2]).all() and not got[0][2].any()
+            assert (got[0][4, :, k.shape[-1] // 2] == 127).all()
+        else:
+            code, scale = _np_quantize(k)
+            assert (np.abs(k / scale[..., None]) % 1 == 0.5).sum() > 1000  # ties
+            np.testing.assert_array_equal(got[0], code)
 
     def test_subnormal_absmax(self):
         """A row whose absmax is subnormal gets a subnormal scale and full

@@ -129,6 +129,27 @@ Phases (any failure raises and exits nonzero):
              layer 0); bf16 / int8 kv_bytes_per_token >= 1.8; a prefix hit
              and a COW copy. Reports the int8 - bf16 engine logit gap, TTFT
              and decode throughput.
+4x. serve_graphs (run after 4b) - engine.warmup() captures the decode
+             programs as CUDA graphs (inference/graphs.py) and every replay is
+             held against an eager call of the same program from the same
+             cache state, bit for bit (tokens, final logits). The flagship
+             on bf16 and int8 pools (64 x 96-token prompts): warmup(widths
+             [8, 32, 64], decode_chunks [24]) and again with bench.py's
+             sampling config (T 0.9, top-k 40, top-p 0.95) at width 32;
+             greedy decode_multi_fn(b, 24) at b = 8, 32, 64 and the sampled
+             lane at 32 (keys _row_keys(0, arange(32)), counters from ctx)
+             replayed, the sampled lane's every token equal to the CPU
+             oracle's (host_oracle_token on the step's logits, replayed
+             stepwise on the card). Every 7B server and Phi-2 (SERVED_7B,
+             bf16 and int8 pools; the long prompt and 7 x 96): width 8, 24
+             steps, greedy. Planted faults that must fail the check, each
+             beside its genuine case: a stale table buffer, weights kept
+             stale after refresh_params, a replay without clones, keys not
+             copied, the decode workspace replaced after capture. Reports
+             eager and replayed decode ms, tok/s, busy ms and idle share,
+             the host us to issue a replay, the warmup footprints, the
+             graph counts; the launches of one eager call of each flagship
+             program are the phase's.
 4c. serve_window - Mistral 7B (MISTRAL: 32 layers, d_model 4096, 32 x 128
              query heads over 8 KV heads, d_ff 14336, vocab 32000, untied
              lm_head, sliding window 4096; random bf16 weights, seed 0) in
@@ -3549,6 +3570,455 @@ def _serving_times(eng, fn, toks, tables, ctx, r, V, prompt_len):
 
 
 # ---------------------------------------------------------------------------
+# phase serve_graphs: warmup() captures decode as CUDA graphs; every replay
+# held against an eager call of the same program, bit for bit
+# ---------------------------------------------------------------------------
+
+# the flagship's rows: 64 prompts of 96 tokens, one 128-token block each
+# (ctx 97-120 over the 24 steps); greedy decode_multi at bench.py's serving
+# batches and its sampled lane at batch 32 (bench.py _serving_bench)
+GRAPH_WIDTHS, SAMPLED_WIDTH, GRAPH_PROMPTS = (8, 32, 64), 32, 64
+SAMPLED_LANE = dict(do_sample=True, temperature=0.9, top_k=40, top_p=0.95)
+SERVE_G = dict(SERVE, num_kv_blocks=96)  # 64 rows, and free blocks to move 8 of them to
+# the workspace fault's rows: ctx 601-624 spans the flagship decode's two
+# 512-position splits (decode_split_plan at 8 rows over 1024 positions)
+SPLIT_PROMPT = 600
+
+
+def _same_bits(a, b):
+    """Bit identity of two tensors (f32 compared as their bits) or Nones."""
+    import torch
+
+    if a is None or b is None:
+        return a is None and b is None
+    if a.shape != b.shape or a.dtype != b.dtype:
+        return False
+    if a.dtype == torch.float32:
+        a, b = a.contiguous().view(torch.int32), b.contiguous().view(torch.int32)
+    return torch.equal(a, b)
+
+
+def _replay_vs_eager(eng, fn, args):
+    """One replayed call of the decode_multi step `fn` and one eager call
+    of the same program from the same cache state (the eager call is given
+    a copy of the weights dict, which the engine does not replay; the two
+    write the same positions, which no earlier step reads). Returns (bit
+    identity of tokens, final logits and presence; the replay's result;
+    the gaps)."""
+    import torch
+
+    r0, e0 = eng.graphs.replays, eng.graphs.eager_runs
+    got = fn(eng.params, eng.cache, *args)
+    want = fn(dict(eng.params), eng.cache, *args)
+    torch.cuda.synchronize()  # a replay's launch error surfaces here
+    if (eng.graphs.replays, eng.graphs.eager_runs) != (r0 + 1, e0 + 1):
+        raise AssertionError(f"expected one replay and one eager run: replays {r0} -> "
+                             f"{eng.graphs.replays}, eager {e0} -> {eng.graphs.eager_runs}")
+    same = all(_same_bits(x, y) for x, y in ((got[0], want[0]), (got[1], want[1]),
+                                             (got[3], want[3])))
+    gap = {"tokens_off": int((got[0] != want[0]).sum()),
+           "logits_max_abs": float((got[1] - want[1]).abs().nan_to_num(1e30).max())}
+    return same, got, gap
+
+
+def _decode_call_stats(call, n_rows, runs=3):
+    """One decode_multi call of n_rows x DECODE_STEPS tokens: the median and
+    the least of `runs` CUDA-event timings (after a warm-up), tok/s from
+    the median, the host's time to issue the call (until it returns, the
+    card still working) and where its time goes (_where_time_goes)."""
+    import torch
+
+    call()
+    start, stop = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    ms, issue_ms = [], []
+    for _ in range(runs):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        start.record()
+        call()
+        stop.record()
+        issue_ms.append((time.perf_counter() - t) * 1e3)
+        torch.cuda.synchronize()
+        ms.append(start.elapsed_time(stop))
+    step = statistics.median(ms)
+    return {"ms": step, "runs_ms": ms, "least_ms": min(ms),
+            "issue_ms": statistics.median(issue_ms), "issue_runs_ms": issue_ms,
+            "tok_s": n_rows * DECODE_STEPS / (step / 1e3),
+            "where_time_goes": _where_time_goes(call)}
+
+
+def _graph_times(eng, fn, args, n_rows):
+    """_decode_call_stats of the program eagerly (a copy of the weights
+    dict, which the engine never replays) and replayed, with each one's
+    idle share also taken of the CUDA-event time (the profiled busy time
+    over the unprofiled call: the profiler's own host cost left out)."""
+    out = {}
+    for how, params in (("eager", dict(eng.params)), ("replayed", eng.params)):
+        st = _decode_call_stats(lambda: fn(params, eng.cache, *args), n_rows)
+        where = st.pop("where_time_goes")
+        st.update(device_busy_ms=where["device_busy_ms"], device_ops=where["device_ops"],
+                  idle_share=where["idle_share"],
+                  idle_share_of_event_ms=1.0 - where["device_busy_ms"] / st["ms"])
+        out[how] = st
+    out["speedup"] = out["eager"]["ms"] / out["replayed"]["ms"]
+    return out
+
+
+def _sampled_oracle(eng, scfg, toks, tables, ctx, keys, step0, replay):
+    """The sampled lane stepwise on the card (decode_step, then
+    sample_tokens: decode_multi's loop body, one call each), keeping every
+    step's logits. Its tokens and final logits must equal the replay's bit
+    for bit, and every token the CPU oracle's (host_oracle_token on that
+    step's logits row, the row's key and draw counter); a disagreement
+    prints the oracle's two best candidates and their margin."""
+    import torch
+
+    from deepspeed_tpu_torch.inference import model as M
+    from deepspeed_tpu_torch.inference import sampling as S
+
+    dev = eng.device
+    t = torch.as_tensor(toks, device=dev)
+    tb, cx = torch.as_tensor(tables, device=dev), torch.as_tensor(ctx, device=dev)
+    s0 = torch.as_tensor(step0, device=dev)
+    logits, gen = [], []
+    for i in range(DECODE_STEPS):
+        lg = M.decode_step(eng.params, eng.cache, t, tb, cx + i, eng.cfg, unique_rows=True,
+                           alibi=eng._alibi, layout=eng._layout)[0]
+        t = S.sample_tokens(lg, scfg, keys, s0 + i)
+        logits.append(lg)
+        gen.append(t)
+    gen = torch.stack(gen)
+    if not (_same_bits(gen, replay[0]) and _same_bits(logits[-1], replay[1])):
+        raise AssertionError("the stepwise sampled decode differs from the replayed one: "
+                             f"{int((gen != replay[0]).sum())} tokens off")
+    keys_h = keys.cpu().numpy()
+    gen_h = gen.cpu().numpy()
+    t0 = time.perf_counter()
+    off = []
+    for i, lg in enumerate(logits):
+        lg = lg.cpu().numpy()
+        for s in range(gen_h.shape[1]):
+            pos = int(step0[s]) + i
+            want = S.host_oracle_token(lg[s], scfg, keys_h[s], pos)
+            if want != gen_h[i, s]:
+                off.append({"step": i, "row": s, "card": int(gen_h[i, s]), "oracle": want,
+                            **S.oracle_margin(lg[s], scfg, keys_h[s], pos)})
+    if off:
+        print(json.dumps({"sampled_oracle_mismatches": off}))
+        raise AssertionError(f"{len(off)} sampled tokens differ from the CPU oracle's")
+    return {"tokens_checked": int(gen_h.size), "distinct_tokens": int(len(set(gen_h.ravel()))),
+            "oracle_s": time.perf_counter() - t0}
+
+
+def _graph_checks(eng, widths, sampled_width, rows, step0_of):
+    """warmup() over `widths` (greedy, 24 steps) and, with `sampled_width`,
+    again with the bench's sampling config at that width; then each
+    width's greedy decode_multi_fn(b, 24) and the sampled lane replayed
+    against eager (bit identity), the sampled tokens against the CPU
+    oracle, and the times. rows: the uids, their tokens; step0_of: the
+    draw counters of the sampled rows. Returns the report and the
+    per-program arguments."""
+    import numpy as np
+
+    from deepspeed_tpu_torch.inference.sampling import SamplingConfig
+
+    uids, toks = rows
+    rep = {"warmup": eng.warmup(widths=list(widths), decode_chunks=[DECODE_STEPS])}
+    want = len(widths) * 3  # two single steps and one decode_multi a width
+    if rep["warmup"]["graphs"] != want:
+        raise AssertionError(f"warmup captured {rep['warmup']['graphs']} graphs, not {want}")
+    scfg = None
+    if sampled_width:
+        scfg = SamplingConfig(**SAMPLED_LANE)
+        rep["warmup_sampled"] = eng.warmup(sampling=SAMPLED_LANE, widths=[sampled_width],
+                                           decode_chunks=[DECODE_STEPS])
+        if rep["warmup_sampled"]["graphs"] != 1:  # its single steps: captured above
+            raise AssertionError(f"the sampled warmup captured {rep['warmup_sampled']}")
+    rep["footprints"] = dict(eng.warmup_footprints)
+    args = {}
+    for b in widths:
+        tables = eng.state.block_table(uids[:b], eng.config.blocks_per_seq, eng.pad_block)
+        ctx = np.array([eng.state.get(u).seen_tokens + 1 for u in uids[:b]], np.int32)
+        args[b] = (eng.decode_multi_fn(b, DECODE_STEPS), (toks[:b].copy(), tables, ctx))
+    if sampled_width:
+        b = sampled_width
+        _, (t, tables, ctx) = args[b]
+        keys = eng._row_keys(0, np.arange(b))
+        args["sampled"] = (eng.decode_multi_fn(b, DECODE_STEPS, sampling=scfg),
+                           (t, tables, ctx, keys, step0_of(ctx)))
+    for name, (fn, a) in args.items():
+        same, got, gap = _replay_vs_eager(eng, fn, a)
+        if not same:
+            raise AssertionError(f"{name}: the replayed decode differs from eager: {gap}")
+        entry = {"bit_identical": True}
+        if name == "sampled":
+            entry["oracle"] = _sampled_oracle(eng, scfg, *a, got)
+        entry["times"] = _graph_times(eng, fn, a, len(a[0]))
+        rep[f"b{name}" if name != "sampled" else f"sampled_b{sampled_width}"] = entry
+    return rep, args
+
+
+def _free_blocks(eng, n):
+    """n blocks no live sequence holds (the allocator's range, without the
+    scratch block)."""
+    used = {b for u in eng.state.tracked_uids for b in eng.state.get(u).blocks}
+    free = [b for b in range(eng.config.num_kv_blocks) if b not in used]
+    if len(free) < n:
+        raise AssertionError(f"{n} free blocks wanted, {len(free)} free")
+    return free[:n]
+
+
+def _planted_graph_faults(eng, args):
+    """Faults that must fail the replay check, each beside its genuine
+    case, which must pass (the flagship's bf16 engine, width 8 greedy and
+    the sampled lane):
+    - stale_table_buffer: the rows' pages moved to free blocks and the old
+      blocks overwritten; the replay with the new tables must equal eager,
+      a replay whose table copy is skipped reads the old blocks;
+    - output_without_clone: a second replay with other tokens must leave
+      the first replay's result as it was; returning the static outputs
+      lets it change;
+    - keys_not_copied: the sampled lane with seed 1's keys after seed 0's
+      must equal eager and change the tokens; with the key copy skipped it
+      keeps seed 0's draws;
+    - stale_weights_after_refresh_params: new weights (every float leaf
+      halved) drop the graphs; the width-8 graph put back reads the old
+      weights and differs from eager; warmup() again captures one that
+      matches;
+    - workspace_replaced_after_capture: 8 rows of SPLIT_PROMPT tokens,
+      whose decode adds two splits through the workspace, replayed against
+      eager; then the capture stream's decode workspace replaced, and the
+      old one's memory given another tensor's data in place (NaN partials,
+      arrival counters at 2^20), as a freed block reused by the allocator
+      would hold it: the width-8 replay then combines no split and must
+      differ from eager. (Freeing the block and allocating again does not
+      reliably hand the same block back.) Last, since it leaves the
+      engine's graphs broken: they are dropped."""
+    import numpy as np
+    import torch
+
+    from deepspeed_tpu_torch.inference.graphs import CapturedProgram
+    from deepspeed_tpu_torch.ops.cuda import paged_attention as PA
+
+    out = {}
+    fn8, (toks, tables, ctx) = args[8]
+    prog8 = next(p for k, p in eng.graphs.programs.items() if k.width == 8 and k.n_steps)
+    V = eng.cfg.vocab_size
+
+    def verdict(name, genuine, planted):
+        out[name] = {"genuine_passes": genuine[0], "planted_fails": not planted[0],
+                     "genuine": genuine[1], "planted": planted[1]}
+        if not genuine[0] or planted[0]:
+            raise AssertionError(f"planted fault {name}: {out[name]}")
+
+    def skip_copy(prog, index):
+        """The fault: prog's next loads leave static input `index` as it is."""
+        prog.load = lambda ins: CapturedProgram.load(
+            prog, [prog.static[i] if i == index else x for i, x in enumerate(ins)])
+
+    # stale table buffer
+    moved = tables.copy()
+    moved[:, 0] = _free_blocks(eng, len(tables))
+    old, new = (torch.as_tensor(x[:, 0], dtype=torch.long, device=eng.device)
+                for x in (tables, moved))
+    pools = eng._pools()
+    saved = [(p[old].clone(), p[new].clone()) for p in pools]
+    for s, d in zip(old, new):
+        eng._copy_block(int(s), int(d))
+    for p in pools:  # each old block overwritten by its neighbour's page
+        p[old] = p[new].roll(1, dims=0)
+    res = []
+    for fault in (False, True):
+        fn8(eng.params, eng.cache, toks, tables, ctx)  # the static tables: the old blocks
+        if fault:
+            skip_copy(prog8, 1)
+        same, _, gap = _replay_vs_eager(eng, fn8, (toks, moved, ctx))
+        res.append((same, gap))
+        prog8.__dict__.pop("load", None)
+    for p, (a, b) in zip(pools, saved):
+        p[old], p[new] = a, b
+    verdict("stale_table_buffer", *res)
+
+    # output without clone
+    toks2 = (toks + 1) % V
+    res = []
+    for fault in (False, True):
+        if fault:
+            prog8.results = lambda: prog8.outputs
+        first = fn8(eng.params, eng.cache, toks, tables, ctx)
+        kept = [first[0].clone(), first[1].clone()]
+        fn8(eng.params, eng.cache, toks2, tables, ctx)
+        torch.cuda.synchronize()
+        res.append((_same_bits(first[0], kept[0]) and _same_bits(first[1], kept[1]),
+                    {"tokens_changed": int((first[0] != kept[0]).sum())}))
+        prog8.__dict__.pop("results", None)
+    verdict("output_without_clone", *res)
+
+    # keys not copied into the static buffer
+    fns, (t, tb, cx, keys0, step0) = args["sampled"]
+    progs = next(p for k, p in eng.graphs.programs.items() if k.sampling is not None
+                 and k.n_steps)
+    keys1 = eng._row_keys(1, np.arange(len(t)))
+    res = []
+    for fault in (False, True):
+        base = fns(eng.params, eng.cache, t, tb, cx, keys0, step0)[0]
+        if fault:
+            skip_copy(progs, 3)
+        same, got, gap = _replay_vs_eager(eng, fns, (t, tb, cx, keys1, step0))
+        changed = int((got[0] != base).sum())
+        res.append((same and changed > 0, dict(gap, tokens_changed_with_seed=changed)))
+        progs.__dict__.pop("load", None)
+    verdict("keys_not_copied", *res)
+
+    # stale weights after refresh_params
+    old_params = eng.params
+    half = lambda x: x * 0.5 if x.is_floating_point() else x
+    eng.refresh_params({k: ([{n: half(w) for n, w in lp.items()} for lp in v]
+                            if k == "layers" else half(v)) for k, v in old_params.items()})
+    dropped = len(eng.graphs) == 0
+    r0 = eng.graphs.replays
+    fn8(eng.params, eng.cache, toks, tables, ctx)
+    ran_eager = eng.graphs.replays == r0
+    eng.warmup(widths=[8], decode_chunks=[DECODE_STEPS], footprint=False)
+    genuine = _replay_vs_eager(eng, fn8, (toks, tables, ctx))
+    key8 = next(k for k in eng.graphs.programs if k.width == 8 and k.n_steps)
+    fresh = eng.graphs.programs[key8]
+    eng.graphs.programs[key8] = prog8  # the fault: the graph of the old weights kept
+    planted = _replay_vs_eager(eng, fn8, (toks, tables, ctx))
+    eng.graphs.programs[key8] = fresh
+    del old_params
+    verdict("stale_weights_after_refresh_params",
+            (genuine[0] and dropped and ran_eager, dict(genuine[2], graphs_dropped=dropped,
+                                                        eager_until_warmup=ran_eager)),
+            planted[::2])
+
+    # workspace replaced after capture (the fresh width-8 graph), on rows
+    # whose context spans two of the decode's 512-position splits (the 96-
+    # token rows above have one live split, which writes its output without
+    # the workspace)
+    for u in eng.state.tracked_uids:
+        eng.flush(u)
+    rr = np.random.default_rng(1)
+    long_rows = list(range(1000, 1000 + len(toks)))
+    toks = eng.put(long_rows, [rr.integers(0, V, SPLIT_PROMPT).astype(np.int32)
+                               for _ in long_rows]).argmax(-1).astype(np.int32)
+    tables = eng.state.block_table(long_rows, eng.config.blocks_per_seq, eng.pad_block)
+    ctx = np.array([eng.state.get(u).seen_tokens + 1 for u in long_rows], np.int32)
+    genuine = _replay_vs_eager(eng, fn8, (toks, tables, ctx))
+    fn8(eng.params, eng.cache, (toks + 1) % V, tables, ctx)  # stale outputs: another input's
+    wkey = (eng.cache.k[0].device.index, eng.graphs.stream.cuda_stream)
+    part, counters = PA._WORKSPACE[wkey]
+    with torch.cuda.stream(eng.graphs.stream):  # the replacement, as a larger plan makes it
+        PA._WORKSPACE[wkey] = (torch.empty_like(part), torch.zeros_like(counters))
+    # had the old blocks been freed, the allocator could hand them to any
+    # tensor; stand in for that tensor, which the graph's launches now share
+    part.fill_(float("nan"))
+    counters.fill_(1 << 20)
+    planted = _replay_vs_eager(eng, fn8, (toks, tables, ctx))
+    verdict("workspace_replaced_after_capture", genuine[::2], planted[::2])
+    eng.graphs.clear()
+    return out
+
+
+def _graph_model_done(report, name, rep):
+    """Print one engine's whole report on its own line, and keep its times
+    in the phase's report: per program, eager and replayed tok/s and idle
+    share, and the replay's host us to issue."""
+    print(json.dumps({"serve_graphs_model": name, **rep}))
+    report["models"][name] = {
+        prog: {"eager_tok_s": e["times"]["eager"]["tok_s"],
+               "replayed_tok_s": e["times"]["replayed"]["tok_s"],
+               "eager_idle": e["times"]["eager"]["idle_share"],
+               "replayed_idle": e["times"]["replayed"]["idle_share"],
+               "replayed_idle_of_event_ms": e["times"]["replayed"]["idle_share_of_event_ms"],
+               "replay_issue_ms": e["times"]["replayed"]["issue_ms"]}
+        for prog, e in rep.items() if isinstance(e, dict) and "times" in e}
+
+
+def run_serve_graphs(cfg, dev):
+    """Phase serve_graphs: the flagship (bf16 and int8 pools) at batches
+    8, 32 and 64 greedy and the sampled lane at 32, and every 7B server
+    and Phi-2 (SERVED_7B, bf16 and int8 pools) at batch 8 greedy, each
+    replayed from the graphs warmup() captured against eager, bit for
+    bit; the sampled tokens against the CPU oracle; the planted faults
+    (_planted_graph_faults) on the flagship's bf16 engine; decode tok/s
+    and idle share eager and replayed. The counted launches are those of
+    one eager call of each of the flagship's programs (a replay launches
+    what its capture counted, uncounted)."""
+    import numpy as np
+    import torch
+
+    from deepspeed_tpu_torch import init_inference
+    from deepspeed_tpu_torch.models import transformer as T
+    from deepspeed_tpu_torch.ops import cuda as K
+    from deepspeed_tpu_torch.ops.cuda import paged_attention as PA
+
+    t0 = time.perf_counter()
+    report = {"models": {}}
+    launches = {}
+    params = T.init(cfg, torch.Generator(device=dev).manual_seed(0), device=dev,
+                    dtype=torch.bfloat16)
+    r = np.random.default_rng(0)
+    prompts = [r.integers(0, cfg.vocab_size, PROMPT_LEN).astype(np.int32)
+               for _ in range(GRAPH_PROMPTS)]
+    uids = list(range(GRAPH_PROMPTS))
+    for int8 in (False, True):
+        eng = init_inference(params, cfg, dict(SERVE_G, kv_cache_dtype="int8" if int8 else "auto"))
+        params = eng.params
+        toks = eng.put(uids, [p.copy() for p in prompts]).argmax(-1).astype(np.int32)
+        retired = len(PA._RETIRED)
+        rep, args = _graph_checks(eng, GRAPH_WIDTHS, SAMPLED_WIDTH, (uids, toks),
+                                  lambda ctx: ctx.copy())
+        rep["workspaces_retired"] = len(PA._RETIRED) - retired
+        K.reset_launch_counts()
+        for fn, a in args.values():
+            fn(dict(eng.params), eng.cache, *a)
+        torch.cuda.synchronize()
+        for n, c in K.all_launch_counts().items():
+            launches[n] = launches.get(n, 0) + c
+        if not int8:
+            rep["planted_faults"] = _planted_graph_faults(eng, args)
+        rep["graph_counts"] = {"replays": eng.graphs.replays, "eager_runs": eng.graphs.eager_runs,
+                               "captures": eng.graphs.captures}
+        _graph_model_done(report, "flagship/" + ("int8" if int8 else "bf16"), rep)
+        del eng
+        torch.cuda.empty_cache()
+    del params
+    torch.cuda.empty_cache()
+    report["flagship_s"] = time.perf_counter() - t0
+    for mode, model in SERVED_7B:
+        mc = T.TransformerConfig(**model)
+        serve, n_long, n_wave, seed, _ = SERVE_LONG[mode]
+        params = _init_served(T, mc, dev)
+        for int8 in (False, True):
+            eng = init_inference(params, mc, dict(serve, kv_cache_dtype="int8" if int8 else "auto"))
+            params = eng.params
+            rr = np.random.default_rng(seed)
+            last = eng.put([100], [rr.integers(0, mc.vocab_size, n_long).astype(np.int32)])
+            wave = eng.put(list(range(n_wave)), [rr.integers(0, mc.vocab_size, PROMPT_LEN)
+                                                 .astype(np.int32) for _ in range(n_wave)])
+            rows = [100] + list(range(n_wave))
+            toks = np.concatenate([last, wave]).argmax(-1).astype(np.int32)
+            rep, _ = _graph_checks(eng, (len(rows),), 0, (rows, toks), None)
+            rep["graph_counts"] = {"replays": eng.graphs.replays,
+                                   "eager_runs": eng.graphs.eager_runs,
+                                   "captures": eng.graphs.captures}
+            _graph_model_done(report, f"{mode}/{'int8' if int8 else 'bf16'}", rep)
+            del eng
+            torch.cuda.empty_cache()
+        del params
+        torch.cuda.empty_cache()
+    want = ("paged_decode_fused", "paged_decode_fused_int8")  # decode_multi's rows are distinct
+    wrong = {n: c for n, c in launches.items() if "[" not in n and (c == 0) == (n in want)}
+    if wrong:
+        raise AssertionError(f"the eager decode_multi calls must launch each of {want} and "
+                             f"nothing else: {wrong}")
+    report["launches"] = {n: c for n, c in launches.items() if c}
+    report["seconds"] = time.perf_counter() - t0
+    return report
+
+
+# ---------------------------------------------------------------------------
 # phases serve_window, serve_window_int8, train_window (Mistral 7B) and
 # serve_alibi, serve_alibi_int8 (BLOOM-7B1)
 # ---------------------------------------------------------------------------
@@ -4058,6 +4528,8 @@ def main():
     done("serve", sl)
     q8, _ = run_serving(cfg, dev, int8=True, bf16=bf16_serving)
     done("serve_int8", q8)
+    gr = run_serve_graphs(cfg, dev)
+    done("serve_graphs", gr)
     served = {}
     for mode, model in SERVED_7B:
         mc = T.TransformerConfig(**model)
@@ -4075,7 +4547,8 @@ def main():
     ev = run_evoformer(dev)
     done("evoformer", ev)
 
-    paths = {"train": tr, "serve": sl, "serve_int8": q8, **served, **trains, "evoformer": ev}
+    paths = {"train": tr, "serve": sl, "serve_int8": q8, "serve_graphs": gr, **served, **trains,
+             "evoformer": ev}
     line = []
     # each mode (window, ALiBi, layout bitmap, wide group, head_dim 80) is a
     # path of its kernel: same source, same TPU kernel

@@ -8,18 +8,23 @@ of all in-flight sequences advance in one forward per put(), and all
 raggedness lives in the StateManager (inference/ragged.py), so the device
 only sees dense token buffers, block tables and context lengths.
 
-PyTorch runs eagerly: a "compiled program" of the JAX engine is a plain
-call of the inference/model.py functions here, and the KV cache is
-updated in place instead of being donated and returned.
+A "compiled program" of the JAX engine is a call of the inference/model.py
+functions here, and the KV cache is updated in place instead of being
+donated and returned. Programs run eagerly until `warmup()` captures the
+decode programs as CUDA graphs (inference/graphs.py); from then on
+decode_multi_fn and put()'s decode rows replay the matching graph, and a
+program without one runs eagerly, as a JAX program compiles on first use.
 
-This slice serves greedy logits on one GPU, from bf16/f32 or int8 KV
-pools (kv_cache_dtype="int8"), for dense, sliding-window and block-sparse
-models. Sampling, generate(), quantized weights,
-offload, tensor parallelism, KV export and import and warmup raise
-NotImplementedError naming the slice that brings them.
+The engine serves on one GPU, from bf16/f32 or int8 KV pools
+(kv_cache_dtype="int8"), dense, sliding-window and block-sparse models:
+logits, or tokens sampled on the device (inference/sampling.py) with the
+JAX engine's per-row streams. generate(), quantized weights, offload,
+tensor parallelism and KV export and import raise NotImplementedError
+naming the slice that brings them.
 """
 
 import dataclasses
+import time
 from typing import Any, Dict, Iterable, List, Optional, Sequence, Tuple, Union
 
 import numpy as np
@@ -28,17 +33,19 @@ import torch
 from ..config.config import PrefixCacheConfig, check_field_types
 from ..models import transformer as T
 from ..platform.accelerator import resolve_device
+from ..utils import prng
 from ..utils.logging import log_dist
 from . import model as M
+from .graphs import DecodeGraphs, GraphKey
 from .ragged import StateManager
+from .sampling import SamplingConfig, sample_tokens
 
 _LATER = {
-    "sampling": "the slice that ports inference/sampling.py",
+    "scheduler": "the slice that ports inference/scheduler.py (ROADMAP A10)",
     "quantization": "the slice that ports inference/quantization.py",
     "offload": "the slice that ports the offload tiers",
     "tp": "the multi-GPU slice",
     "kv_transfer": "the slice that ports disaggregated serving",
-    "warmup": "the slice that adds CUDA graphs",
 }
 
 
@@ -125,6 +132,8 @@ class InferenceEngine:
                 f"serving block-sparse attention (mode={model_config.sparse_mode}); decode "
                 f"uses the {'CUDA layout-masked' if kernel_ok else 'masked torch'} paged path",
                 ranks=[0])
+        self.graphs = DecodeGraphs(self.device)
+        self.warmup_footprints: Dict[int, Dict[str, float]] = {}
         self.refresh_params(params)
         self.state = StateManager(
             num_blocks=self.config.num_kv_blocks,
@@ -141,6 +150,12 @@ class InferenceEngine:
         self.cache = M.init_cache(model_config, self.config.num_kv_blocks + 1,
                                   self.config.kv_block_size, dtype, self.device,
                                   kv_quant=self.kv_quant)
+        # made once, here: a copy from the host inside a decode call would
+        # wait for the card, and cannot run inside a captured graph
+        self._alibi = M._alibi(model_config, self.device)
+        scfg = M._sparsity(model_config)
+        self._layout = (None if scfg is None else M._sparse_layout(
+            scfg, self.config.blocks_per_seq * self.config.kv_block_size, self.device))
         cache_dtype = "int8" if self.kv_quant else str(dtype).split('.')[-1]
         log_dist(
             f"inference engine on {self.device}: {self.config.num_kv_blocks} KV "
@@ -164,27 +179,106 @@ class InferenceEngine:
         else:
             top["layers"] = [{k: cast(v) for k, v in lp.items()} for lp in layers]
         self.params = M.prepare(top, self.cfg)
+        dropped = self.graphs.clear()
+        if dropped:  # they read the old weight tensors
+            log_dist(f"refresh_params dropped {dropped} captured decode graphs; call warmup() "
+                     "to capture them again", ranks=[0])
 
     def _dev(self, x) -> torch.Tensor:
         """Host array -> tensor on the serving device."""
         return torch.as_tensor(x, device=self.device)
 
-    def decode_multi_fn(self, s: int, n_steps: int, sampling=None):
-        """Greedy fused decode (model.decode_multi) for batch width `s`:
-        returns step(params, cache, tokens, tables, ctx) ->
-        (generated [n_steps, s] int32, final logits [s, V], cache, None),
-        the cache updated in place. Inputs may be numpy arrays or tensors."""
-        if sampling is not None:
-            raise _later("sampled decode", "sampling")
-        cfg = self.cfg
+    def _host(self, x, dtype: torch.dtype) -> torch.Tensor:
+        """A numpy array or tensor -> a tensor of `dtype` where it lies (the
+        host for numpy), for a replay's copy or an eager run's input."""
+        if isinstance(x, np.ndarray):
+            x = torch.from_numpy(x.astype(np.int64) if x.dtype == np.uint32 else x)
+        return torch.as_tensor(x).to(dtype)
 
-        def step(params, cache, tokens, tables, ctx):
-            toks, tbl, cx = (self._dev(a).to(torch.int32) for a in (tokens, tables, ctx))
-            if toks.shape[0] != s:
-                raise ValueError(f"decode_multi_fn({s}) got {toks.shape[0]} rows")
-            return M.decode_multi(params, cache, toks, tbl, cx, cfg, n_steps=n_steps)
+    def _program(self, key: GraphKey, sampling: Optional[SamplingConfig]):
+        """The decode program of `key` as a function of (params, cache,
+        *inputs): n_steps > 0 is model.decode_multi -> (gen, logits,
+        presence or None); n_steps 0 one model.decode_step -> (logits,).
+        Inputs: tokens, tables, ctx, then for a sampled decode_multi keys,
+        step0 and, with presence, presence."""
+        cfg, n_steps, uniq = self.cfg, key.n_steps, key.unique_rows
+
+        def extras(tables):  # the engine's ALiBi slopes and layout, made once
+            own = tables.shape[1] == self.config.blocks_per_seq
+            return dict(alibi=self._alibi, layout=self._layout if own else None)
+
+        if n_steps == 0:
+            def run(params, cache, toks, tables, ctx):
+                return (M.decode_step(params, cache, toks, tables, ctx, cfg,
+                                      unique_rows=uniq, **extras(tables))[0],)
+            return run
+
+        def run(params, cache, toks, tables, ctx, keys=None, step0=None, presence=None):
+            gen, logits, _, pres = M.decode_multi(
+                params, cache, toks, tables, ctx, cfg, n_steps=n_steps, unique_rows=uniq,
+                sampling=sampling, keys=keys, step0=step0, presence=presence, **extras(tables))
+            return gen, logits, pres
+        return run
+
+    def _inputs(self, key: GraphKey, args) -> List[torch.Tensor]:
+        dtypes = [torch.int32, torch.int32, torch.int32]
+        if key.sampling is not None:
+            dtypes += [torch.int64, torch.int32] + ([torch.uint8] if key.with_presence else [])
+        if len(args) != len(dtypes):
+            raise TypeError(f"decode program {key} takes {len(dtypes)} inputs, got {len(args)}")
+        return [self._host(a, dt) for a, dt in zip(args, dtypes)]
+
+    def _run_program(self, key: GraphKey, sampling, params, cache, args):
+        """Replay the captured graph of `key` when there is one and the call
+        is on the engine's own weights and cache; else run eagerly."""
+        ins = self._inputs(key, args)
+        prog = self.graphs.get(key)
+        if prog is not None and params is self.params and cache is self.cache:
+            self.graphs.replays += 1
+            return prog(*ins)
+        self.graphs.eager_runs += 1
+        return self._program(key, sampling)(params, cache, *(x.to(self.device) for x in ins))
+
+    def decode_multi_fn(self, s: int, n_steps: int, sampling: Optional[SamplingConfig] = None,
+                        with_presence: bool = False):
+        """Fused decode (model.decode_multi) for batch width `s`, n_steps
+        tokens a call. Greedy: step(params, cache, tokens, tables, ctx);
+        sampled (a SamplingConfig): step(params, cache, tokens, tables, ctx,
+        keys, step0), with_presence adding the [s, vocab] uint8 presence
+        bitmap. Returns (generated [n_steps, s] int32, final logits [s, V],
+        cache, final presence or None), the cache updated in place. Inputs
+        may be numpy arrays or tensors (keys: `_row_keys`, or their uint32
+        words). A graph captured by warmup() for this program replays."""
+        if sampling is not None and not isinstance(sampling, SamplingConfig):
+            raise TypeError(f"sampling must be a SamplingConfig (got {type(sampling).__name__})")
+        with_presence = with_presence and sampling is not None  # greedy carries none
+
+        def step(params, cache, tokens, tables, ctx, *sampled):
+            key = GraphKey(s, n_steps, True, int(np.shape(tables)[1]),
+                           None if sampling is None else sampling.key(), with_presence)
+            if int(np.shape(tokens)[0]) != s:
+                raise ValueError(f"decode_multi_fn({s}) got {np.shape(tokens)[0]} rows")
+            gen, logits, pres = self._run_program(key, sampling, params, cache,
+                                                  (tokens, tables, ctx) + sampled)
+            return gen, logits, cache, pres
 
         return step
+
+    def _sample_fn(self, scfg: SamplingConfig, with_presence: bool):
+        """The sampling epilogue over a [n, V] logits batch (put()'s token
+        return): fn(logits, keys, steps[, presence]) -> [n] int32."""
+        if with_presence:
+            return lambda lg, keys, steps, pres: sample_tokens(lg, scfg, keys, steps,
+                                                               presence=pres)
+        return lambda lg, keys, steps: sample_tokens(lg, scfg, keys, steps)
+
+    def _row_keys(self, seed: int, streams) -> torch.Tensor:
+        """Per-row keys [S, 2] int64 on the serving device: fold_in of
+        PRNGKey(seed) with each row's stream id (uint32), the JAX engine's
+        `_row_keys`. A row's draw at position t then uses fold_in(key, t):
+        batch composition never changes a sequence's stream."""
+        return prng.fold_in(prng.prng_key(seed), prng.words(np.asarray(streams))).to(
+            self.device)
 
     def _pools(self) -> List[torch.Tensor]:
         """Every per-layer pool of the cache: codes or K/V rows, and the
@@ -247,26 +341,33 @@ class InferenceEngine:
     # -- the engine step --------------------------------------------------
     def put(self, uids: Sequence[int], tokens: Sequence[np.ndarray],
             return_tokens: bool = False, sampling: Optional[Dict[str, Any]] = None,
-            strict: bool = True) -> Any:
+            seed: int = 0, presence: Optional[np.ndarray] = None, strict: bool = True,
+            sampling_streams: Optional[Sequence[int]] = None) -> Any:
         """Run one engine step over a ragged batch.
 
         New uids carry their whole prompt; known uids carry one or more
         continuation tokens. Returns next-token logits [len(uids), vocab]
-        f32 numpy, in input order.
+        f32 numpy, in input order, or with return_tokens=True the tokens
+        [len(uids)] int32 sampled on the device (only they cross to the
+        host).
+
+        sampling: SamplingConfig kwargs (greedy when omitted). seed, the
+        row's stream (its uid, or sampling_streams[i] for input row i) and
+        the sampled token's position define each draw, as in the JAX
+        engine: batch composition never changes a sequence's tokens.
+        presence: [len(uids), vocab] uint8 seen-token bitmap, required when
+        repetition_penalty != 1.
 
         strict=True raises BEFORE any state mutation when the batch's new
         prompts do not fit the KV pool. strict=False admits prompts per
-        uid while capacity lasts and returns (logits, rejected_uids);
+        uid while capacity lasts and returns (results, rejected_uids);
         rejected rows are zeros."""
-        if return_tokens or sampling is not None:
-            raise _later("on-device token sampling in put()", "sampling")
         uids = list(uids)
         tokens = [np.atleast_1d(np.asarray(t, np.int32)) for t in tokens]
         if len(uids) != len(set(uids)):
             raise ValueError("duplicate uids in one put()")
         if len(uids) != len(tokens):
             raise ValueError("uids and tokens length mismatch")
-
         prefills: List[Tuple[int, int, np.ndarray]] = []  # (pos, uid, toks)
         # chunked continuation: an in-flight sequence's multi-token chunk
         # becomes len(chunk) decode rows sharing one block table with
@@ -291,6 +392,35 @@ class InferenceEngine:
             raise RuntimeError(
                 f"{n_rows} decode rows > max_batch_size "
                 f"{self.config.max_batch_size}; split the put()")
+
+        sample = None
+        if return_tokens:
+            scfg = SamplingConfig(**(sampling or {}))
+            if scfg.needs_presence and presence is None:
+                raise ValueError(
+                    "repetition_penalty needs the seen-token bitmap: pass "
+                    "presence=[len(uids), vocab] uint8")
+            tok_out = np.zeros((len(uids),), np.int32)
+            stream_of = {u: (sampling_streams[i] if sampling_streams is not None else u)
+                         for i, u in enumerate(uids)}
+
+            def sample(logits_all, rows, row_uids, row_steps, row_pos):
+                """Sample the bucketed logits [bucket, V] on the device: the
+                real rows are `rows`; pad rows draw garbage never read."""
+                bucket = logits_all.shape[0]
+                streams = np.zeros((bucket,), np.uint32)
+                steps = np.zeros((bucket,), np.int32)
+                streams[np.asarray(rows)] = [stream_of[u] for u in row_uids]
+                steps[np.asarray(rows)] = row_steps
+                keys = self._row_keys(seed, streams)
+                if presence is not None and scfg.needs_presence:
+                    pres = np.zeros((bucket, presence.shape[1]), presence.dtype)
+                    pres[np.asarray(rows)] = presence[np.asarray(row_pos)]
+                    toks = self._sample_fn(scfg, True)(logits_all, keys, self._dev(steps),
+                                                       self._dev(pres))
+                else:
+                    toks = self._sample_fn(scfg, False)(logits_all, keys, self._dev(steps))
+                tok_out[np.asarray(row_pos)] = toks.cpu().numpy()[np.asarray(rows)]
 
         out = np.zeros((len(uids), self.cfg.vocab_size), np.float32)
         rejected: List[int] = []
@@ -332,14 +462,15 @@ class InferenceEngine:
                     missed.append((pos, uid, toks))
             prefills = missed
         if prefills:
-            self._prefill_waves(prefills, out)
+            self._prefill_waves(prefills, out, sample)
         if decodes:
-            self._decode_rows(decodes, n_rows, out)
+            self._decode_rows(decodes, n_rows, out, sample)
+        result = tok_out if return_tokens else out
         if not strict:
-            return out, rejected
-        return out
+            return result, rejected
+        return result
 
-    def _prefill_waves(self, prefills, out: np.ndarray) -> None:
+    def _prefill_waves(self, prefills, out: np.ndarray, sample=None) -> None:
         """Prompts run as waves grouped by power-of-two token bucket (a
         solo prompt is a wave of one), at most the largest power of two
         <= max_batch_size prompts each."""
@@ -368,11 +499,15 @@ class InferenceEngine:
                 self._dev(tables), self.cfg)
             for pos, uid, toks in wave:
                 self.state.commit(uid, len(toks), token_ids=toks)
+            if sample is not None:  # each row's draw counter: its token's position
+                sample(logits, list(range(len(wave))), [uid for _, uid, _ in wave],
+                       [len(toks) for _, _, toks in wave], [pos for pos, _, _ in wave])
+                continue
             logits = logits.cpu().numpy()
             for row, (pos, uid, toks) in enumerate(wave):
                 out[pos] = logits[row]
 
-    def _decode_rows(self, decodes, n_rows: int, out: np.ndarray) -> None:
+    def _decode_rows(self, decodes, n_rows: int, out: np.ndarray, sample=None) -> None:
         sp = _bucket(n_rows, 8)
         toks = np.zeros((sp,), np.int32)
         ctx = np.zeros((sp,), np.int32)  # pad rows: ctx 0 = inert
@@ -394,11 +529,15 @@ class InferenceEngine:
         # write+attend kernel; multi-token chunks share a table across rows
         # and take the separate write + plain decode kernel
         unique = all(len(c) == 1 for _, _, c in decodes)
-        logits, self.cache = M.decode_step(
-            self.params, self.cache, self._dev(toks), self._dev(tables),
-            self._dev(ctx), self.cfg, unique_rows=unique)
+        key = GraphKey(sp, 0, unique, self.config.blocks_per_seq, None, False)
+        logits, = self._run_program(key, None, self.params, self.cache, (toks, tables, ctx))
         for pos, uid, chunk in decodes:
             self.state.commit(uid, len(chunk), token_ids=chunk)
+        if sample is not None:
+            sample(logits, last_row, [uid for _, uid, _ in decodes],
+                   [self.state.get(uid).seen_tokens for _, uid, _ in decodes],
+                   [pos for pos, _, _ in decodes])
+            return
         logits_np = logits[:n_rows].cpu().numpy()
         for (pos, uid, chunk), lr in zip(decodes, last_row):
             out[pos] = logits_np[lr]
@@ -407,9 +546,112 @@ class InferenceEngine:
         """Free a sequence's KV blocks."""
         self.state.flush(uid)
 
+    # -- warmup: capture the decode programs ---------------------------------
+    def warmup(self, sampling: Optional[Dict[str, Any]] = None,
+               widths: Optional[Sequence[int]] = None, chunked: bool = True,
+               decode_chunks: Sequence[int] = (), presence: bool = False,
+               footprint: bool = True) -> Dict[str, Any]:
+        """Run every decode program the engine can dispatch at these widths
+        once, over inert pad rows (ctx 0, tables on the reserved pad_block:
+        the live cache is untouched), and on a CUDA engine capture each
+        decode program as a CUDA graph (inference/graphs.py), so that
+        serving replays instead of issuing every op from the host. The
+        program grid and its count are the JAX engine's warmup's.
+
+        widths: decode-row buckets (default: powers of two from 8 up to
+        bucket(max_batch_size)). chunked=True adds the shared-table step of
+        mixed prefill chunks. decode_chunks: decode_multi depths to warm
+        per width. sampling/presence select the sampling variant (the put()
+        epilogue runs once per width; it is not captured). footprint=True
+        fills `warmup_footprints[width]` on a CUDA engine from the CUDA
+        allocator around that width's programs: peak_hbm_bytes (the most
+        allocated), arg_bytes (allocated when the width began: weights,
+        KV pools, everything resident) and temp_bytes (their difference).
+
+        Returns {programs, graphs (captured by this call: a program
+        captured before replays instead; 0 on the CPU), seconds, widths,
+        chunks, hbm_per_bucket}. A failed capture raises."""
+        scfg = SamplingConfig(**(sampling or {}))
+        if widths is None:
+            widths, w = [], 8
+            while w <= _bucket(self.config.max_batch_size, 8):
+                widths.append(w)
+                w *= 2
+        widths = [int(w) for w in widths]
+        chunks = [int(c) for c in decode_chunks]
+        use_sampler = not (scfg.greedy and not scfg.needs_presence)
+        with_pres = bool(presence and scfg.needs_presence)
+        capture = self.graphs.enabled
+        NB, V = self.config.blocks_per_seq, self.cfg.vocab_size
+        t0 = time.perf_counter()
+        n, graphs0 = 0, self.graphs.captures
+
+        def run(key, sampled, inputs):
+            ins = [x.to(self.device) for x in self._inputs(key, inputs)]
+            if capture and self.graphs.get(key) is not None:  # captured already: replay
+                return self.graphs.get(key)(*ins)
+            if capture:
+                return self.graphs.capture(
+                    key, lambda *a: self._program(key, sampled)(self.params, self.cache, *a),
+                    ins)
+            return self._program(key, sampled)(self.params, self.cache, *ins)
+
+        for w in widths:
+            toks = np.zeros((w,), np.int32)
+            ctx = np.zeros((w,), np.int32)
+            tables = np.full((w, NB), self.pad_block, np.int32)
+            steps = np.zeros((w,), np.int32)
+            keys = self._row_keys(0, np.zeros((w,), np.uint32))
+            if footprint and capture:
+                torch.cuda.synchronize(self.device)
+                torch.cuda.reset_peak_memory_stats(self.device)
+                base = torch.cuda.memory_allocated(self.device)
+            logits = None
+            for uniq in ((True, False) if chunked else (True,)):
+                logits, = run(GraphKey(w, 0, uniq, NB, None, False), None, (toks, tables, ctx))
+                n += 1
+            if with_pres:
+                self._sample_fn(scfg, True)(logits, keys, self._dev(steps),
+                                            self._dev(np.zeros((w, V), np.uint8)))
+            else:
+                self._sample_fn(scfg, False)(logits, keys, self._dev(steps))
+            n += 1
+            for C in chunks:
+                if C < 1:
+                    continue
+                sampled = scfg if use_sampler else None
+                key = GraphKey(w, C, True, NB, None if sampled is None else scfg.key(),
+                               with_pres)
+                ins = (toks, tables, ctx)
+                if use_sampler:
+                    ins += (keys, steps) + ((np.zeros((w, V), np.uint8),) if with_pres else ())
+                run(key, sampled, ins)
+                n += 1
+            if footprint and capture:
+                torch.cuda.synchronize(self.device)
+                peak = torch.cuda.max_memory_allocated(self.device)
+                self.warmup_footprints[w] = {"peak_hbm_bytes": float(peak),
+                                             "arg_bytes": float(base),
+                                             "temp_bytes": float(peak - base)}
+        if capture:
+            torch.cuda.synchronize(self.device)
+        dt = time.perf_counter() - t0
+        n_graphs = self.graphs.captures - graphs0
+        fp = self.warmup_footprints
+        fp_note = (f", peak {max(f['peak_hbm_bytes'] for f in fp.values()) / 2**20:.0f} MiB"
+                   if fp else "")
+        log_dist(
+            f"serving warmup: {n} programs, {n_graphs} captured as CUDA graphs (decode widths "
+            f"{widths}{' +chunked' if chunked else ''}, fused depths {chunks}, "
+            f"sampling={'on' if use_sampler else 'greedy'}) in {dt:.1f}s{fp_note}",
+            ranks=[0])
+        return {"programs": n, "graphs": n_graphs, "seconds": dt, "widths": widths,
+                "chunks": chunks,
+                "hbm_per_bucket": {w: f["peak_hbm_bytes"] for w, f in sorted(fp.items())}}
+
     # -- later slices -----------------------------------------------------
     def generate(self, *args, **kwargs):
-        raise _later("generate()", "sampling")
+        raise _later("generate()", "scheduler")
 
     def export_kv(self, uid: int):
         raise _later("export_kv()", "kv_transfer")
@@ -417,8 +659,6 @@ class InferenceEngine:
     def import_kv(self, uid: int, payload):
         raise _later("import_kv()", "kv_transfer")
 
-    def warmup(self, *args, **kwargs):
-        raise _later("warmup()", "warmup")
 
 
 def init_inference(params: Any, model_config: T.TransformerConfig,

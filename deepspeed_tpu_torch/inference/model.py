@@ -140,7 +140,9 @@ def _embed(params, tokens: torch.Tensor, cfg: T.TransformerConfig) -> torch.Tens
 def _alibi(cfg: T.TransformerConfig, device: torch.device) -> Optional[torch.Tensor]:
     """The model's [H] f32 ALiBi slopes on `device`, None without ALiBi.
     The copy to the card waits for the work queued before it, so a forward
-    makes them once per call (decode_multi once for all its steps)."""
+    makes them once per call (decode_multi once for all its steps; the
+    engine once, at construction, since no such copy may run in a captured
+    CUDA graph)."""
     return T.model_alibi_slopes(cfg).to(device) if cfg.alibi else None
 
 
@@ -161,7 +163,8 @@ def _sparse_layout(scfg, n_slots: int, device) -> torch.Tensor:
     """The [nb, nb] bool layout covering n_slots positions, on `device`.
     Rows are prefix-stable, so it holds the train-time layout of any
     shorter sequence. The copy to the card waits for the work queued
-    before it: a caller makes it once per call."""
+    before it: a caller makes it once per call (the engine once, at
+    construction, as the ALiBi slopes)."""
     nb = -(-n_slots // scfg.block)
     return torch.from_numpy(scfg.layout(nb * scfg.block)).to(device)
 
@@ -452,35 +455,53 @@ def decode_step(params, cache: PagedCache, tokens, tables, ctx_lens,
 
 def decode_multi(params, cache: PagedCache, tokens, tables, ctx_lens,
                  cfg: T.TransformerConfig, n_steps: int, use_kernel: bool = True,
-                 unique_rows: bool = True, sampling=None):
-    """Greedy multi-token decode: n_steps decode_steps in a Python loop
-    (the JAX package's lax.scan), each step's argmax fed back as the next
-    token and ctx advanced by one. Block tables must already cover
-    ctx_lens + n_steps positions. Rows are distinct sequences, so the
-    fused write+attend kernel applies.
+                 unique_rows: bool = True, sampling=None, keys=None, step0=None,
+                 presence=None, alibi: Optional[torch.Tensor] = None,
+                 layout: Optional[torch.Tensor] = None):
+    """Multi-token decode: n_steps decode_steps in a Python loop (the JAX
+    package's lax.scan), each step's token fed back as the next input and
+    ctx advanced by one. Block tables must already cover ctx_lens +
+    n_steps positions. Rows are distinct sequences, so the fused
+    write+attend kernel applies. Nothing in the loop waits for the host:
+    the engine captures the whole call as one CUDA graph.
 
-    Returns (generated [n_steps, S] int32, final logits [S, V], cache,
-    None); the last slot mirrors the JAX signature (no presence state)."""
-    if sampling is not None:
-        raise NotImplementedError(
-            "sampled decode comes with the slice that ports inference/sampling.py")
+    sampling: an inference/sampling.py SamplingConfig (None = greedy
+    argmax), drawing step i of row s with keys[s] ([S, 2] int64) at
+    counter step0[s] + i ([S] int32); presence [S, V] uint8 (the
+    repetition penalty's seen tokens) is updated with each step's tokens
+    as max(presence, one_hot(token)). alibi and layout: as decode_step,
+    made here once for all steps when not given.
+
+    Returns (generated [n_steps, S] int32, final logits [S, V] f32, cache,
+    final presence or None)."""
+    from .sampling import sample_tokens, update_presence
+
     if not is_prepared(params):
         params = prepare(params, cfg)
     S = tokens.shape[0]
-    gen = torch.empty((n_steps, S), dtype=torch.int32, device=tokens.device)
     toks, ctx = tokens, ctx_lens
     logits = torch.zeros((S, cfg.vocab_size), dtype=torch.float32, device=tokens.device)
-    alibi = _alibi(cfg, tokens.device)
+    if alibi is None:
+        alibi = _alibi(cfg, tokens.device)
     scfg = _sparsity(cfg)
-    layout = (None if scfg is None else
-              _sparse_layout(scfg, tables.shape[1] * cache.block_size, tokens.device))
+    if scfg is not None and layout is None:
+        layout = _sparse_layout(scfg, tables.shape[1] * cache.block_size, tokens.device)
+    gen = []
     for i in range(n_steps):
         logits, cache = decode_step(params, cache, toks, tables, ctx, cfg, use_kernel,
                                     unique_rows=unique_rows, alibi=alibi, layout=layout)
-        toks = logits.argmax(dim=-1).to(torch.int32)
-        gen[i] = toks
+        if sampling is None:
+            toks = logits.argmax(dim=-1).to(torch.int32)
+        else:
+            toks = sample_tokens(logits, sampling, keys, None if step0 is None else step0 + i,
+                                 presence=presence)
+        if presence is not None:
+            presence = update_presence(presence, toks)
+        gen.append(toks)
         ctx = ctx + 1
-    return gen, logits, cache, None
+    gen = (torch.stack(gen) if gen else
+           torch.empty((0, S), dtype=torch.int32, device=tokens.device))
+    return gen, logits, cache, presence
 
 
 # ---------------------------------------------------------------------------

@@ -474,12 +474,30 @@ def _sm_count(device_index):
 # each has added its partials and reset its counters to 0 before the next
 # starts. A decode step thus allocates nothing beside its output.
 _WORKSPACE = {}
+# workspaces a larger one replaced: a CUDA graph captured before the growth
+# still launches on their pointers, so they are never freed
+_RETIRED = []
+
+
+def _capturing(device) -> bool:
+    return device.type == "cuda" and torch.cuda.is_current_stream_capturing()
 
 
 def _workspace(device, stream, n_part, n_counters):
+    """The workspace of `stream`. Under a CUDA graph capture it must exist
+    at its size already: memory allocated during a capture belongs to the
+    graph's pool, and counters zeroed there would be zeroed only when that
+    graph replays. The engine runs each program once on its capture stream
+    before capturing it."""
     key = (device.index, stream)
     ws = _WORKSPACE.get(key)
     if ws is None or ws[0].numel() < n_part or ws[1].numel() < n_counters:
+        if _capturing(device):
+            raise RuntimeError(
+                "paged decode: the split workspace of the capturing stream is missing or too "
+                "small; run the program once on that stream before capturing it")
+        if ws is not None:
+            _RETIRED.append(ws)
         ws = (torch.empty(n_part, dtype=_F32, device=device),
               torch.zeros(max(n_counters, 4096), dtype=_I32, device=device))
         _WORKSPACE[key] = ws

@@ -25,12 +25,16 @@ MODE:
 - serve: every model chip_smoke.py serves (the flagship and SERVED_7B, at
   full width and depth, random bf16 weights from seed 0), from bf16 and
   from int8 KV pools: the long prompt (the 7B models) and the wave of
-  96-token prompts, then greedy decode_multi_fn(8, 24) over 8 rows: the
-  median and the least of 5 CUDA-event timings of one call (after one
-  warm-up), decode tok/s = 8 x 24 / the median, the host's time to issue
-  the call (until it returns, the card still working), and where the time
-  of one call goes (torch.profiler: busy and idle share, the largest
-  kernels). Also the decode wrapper's own cost at the flagship's decode
+  96-token prompts (64 for the flagship), then greedy decode_multi_fn(b,
+  24) over the first b rows (the 7B models: b = 8; the flagship: b = 8, 32
+  and 64, and chip_smoke's sampled lane at 32), eagerly and, where the
+  root has warmup()'s CUDA graphs, replayed: the median and the least of
+  5 CUDA-event timings of one call (after one warm-up), decode tok/s = b x
+  24 / the median, the host's time to issue the call (until it returns,
+  the card still working), and where the time of one call goes
+  (torch.profiler: busy and idle share, the largest kernels). A root
+  without the sampled lane or warmup() gives the eager greedy numbers
+  only. Also the decode wrapper's own cost at the flagship's decode
   shape (8 rows, 8 heads of 128, 1024-position tables), where the kernel
   is shorter than its launch: 5 runs of 200 back-to-back
   paged_decode_fused calls, CUDA-event ms a call and host us a call, the
@@ -200,16 +204,23 @@ def evo_worker(root):
 
 def _served_models(C):
     """name -> (model, serving config, long prompt's tokens (0: none),
-    96-token prompts, prompt seed): chip_smoke.py's flagship (phase serve)
-    and SERVED_7B (phases serve_<mode>), 8 decode rows each."""
-    out = {"flagship": (C.FLAGSHIP, C.SERVE, 0, C.N_PROMPTS, 0)}
+    96-token prompts, prompt seed): chip_smoke.py's flagship (phase
+    serve_graphs: 64 prompts) and SERVED_7B (phases serve_<mode>: 8 rows)."""
+    out = {"flagship": (C.FLAGSHIP, C.SERVE_G, 0, C.GRAPH_PROMPTS, 0)}
     for mode, model in C.SERVED_7B:
         serve, n_long, n_wave, seed, _ = C.SERVE_LONG[mode]
         out[mode] = (model, serve, n_long, n_wave, seed)
     return out
 
 
-def _decode_rate(C, torch, eng, V, n_long, n_wave, seed, runs=5):
+def _decode_rates(C, eng, V, n_long, n_wave, seed, widths, sampled_width=0):
+    """Prefill the rows (a long prompt when n_long, then n_wave 96-token
+    prompts), then for each width b the greedy decode_multi_fn(b, 24) over
+    the first b rows, eagerly and, where the root's engine has warmup()
+    (its CUDA graphs), replayed; with sampled_width, the sampled lane
+    (chip_smoke.SAMPLED_LANE, keys _row_keys(0, arange(b)), counters from
+    ctx) at that width likewise. A root without the sampled lane or
+    warmup leaves those entries out."""
     import numpy as np
 
     r = np.random.default_rng(seed)
@@ -221,29 +232,38 @@ def _decode_rate(C, torch, eng, V, n_long, n_wave, seed, runs=5):
     wave = eng.put(uids, [r.integers(0, V, C.PROMPT_LEN).astype(np.int32) for _ in uids])
     last.update({u: wave[u] for u in uids})
     rows += uids
-    tables = eng.state.block_table(rows, eng.config.blocks_per_seq, eng.pad_block)
-    ctx = np.array([eng.state.get(u).seen_tokens + 1 for u in rows], np.int32)
-    toks = np.array([last[u].argmax() for u in rows], np.int32)
-    fn = eng.decode_multi_fn(len(rows), C.DECODE_STEPS)
-    call = lambda: fn(eng.params, eng.cache, toks, tables, ctx)
-    call()
-    start, stop = (torch.cuda.Event(enable_timing=True) for _ in range(2))
-    ms, issue_ms = [], []
-    for _ in range(runs):
-        torch.cuda.synchronize()
-        t = time.perf_counter()
-        start.record()
-        call()
-        stop.record()
-        issue_ms.append((time.perf_counter() - t) * 1e3)
-        torch.cuda.synchronize()
-        ms.append(start.elapsed_time(stop))
-    step_ms = statistics.median(ms)
-    return {"decode_multi_ms_b8_24steps": step_ms, "runs_ms": ms, "least_ms": min(ms),
-            "issue_ms": statistics.median(issue_ms), "issue_runs_ms": issue_ms,
-            "decode_tok_s_b8": len(rows) * C.DECODE_STEPS / (step_ms / 1e3),
-            "ctx": [int(ctx.min()), int(ctx.max())],
-            "where_time_goes": C._where_time_goes(call)}
+    calls = {}
+    for b in widths:
+        tables = eng.state.block_table(rows[:b], eng.config.blocks_per_seq, eng.pad_block)
+        ctx = np.array([eng.state.get(u).seen_tokens + 1 for u in rows[:b]], np.int32)
+        toks = np.array([last[u].argmax() for u in rows[:b]], np.int32)
+        calls[f"b{b}"] = (eng.decode_multi_fn(b, C.DECODE_STEPS), (toks, tables, ctx))
+    if sampled_width:
+        try:
+            from deepspeed_tpu_torch.inference.sampling import SamplingConfig
+        except ImportError:
+            sampled_width = 0
+    if sampled_width:
+        fn, (toks, tables, ctx) = calls[f"b{sampled_width}"]
+        calls[f"sampled_b{sampled_width}"] = (
+            eng.decode_multi_fn(sampled_width, C.DECODE_STEPS,
+                                sampling=SamplingConfig(**C.SAMPLED_LANE)),
+            (toks, tables, ctx, eng._row_keys(0, np.arange(sampled_width)), ctx.copy()))
+    out = {}
+    for name, (fn, args) in calls.items():
+        eager = dict(eng.params)  # not the engine's dict: never replayed
+        out[name] = {"ctx": [int(args[2].min()), int(args[2].max())],
+                     "eager": C._decode_call_stats(lambda: fn(eager, eng.cache, *args),
+                                                   len(args[0]), runs=5)}
+    if hasattr(eng, "graphs"):
+        eng.warmup(widths=list(widths), decode_chunks=[C.DECODE_STEPS])
+        if sampled_width:
+            eng.warmup(sampling=C.SAMPLED_LANE, widths=[sampled_width],
+                       decode_chunks=[C.DECODE_STEPS])
+        for name, (fn, args) in calls.items():
+            out[name]["replayed"] = C._decode_call_stats(
+                lambda: fn(eng.params, eng.cache, *args), len(args[0]), runs=5)
+    return out
 
 
 def _wrapper_cost(C, torch, PA, dev, iters=200, runs=5):
@@ -288,12 +308,15 @@ def serve_worker(root):
     for name, (model, serve, n_long, n_wave, seed) in _served_models(C).items():
         cfg = T.TransformerConfig(**model)
         params = C._init_served(T, cfg, dev)
+        flagship = name == "flagship"
         for dtype in ("bf16", "int8"):
             eng = init_inference(params, cfg, dict(serve, kv_cache_dtype=(
                 "int8" if dtype == "int8" else "auto")))
             params = eng.params  # the serving layout, for the int8 engine
-            out["models"][f"{name}/{dtype}"] = _decode_rate(
-                C, torch, eng, cfg.vocab_size, n_long, n_wave, seed)
+            out["models"][f"{name}/{dtype}"] = _decode_rates(
+                C, eng, cfg.vocab_size, n_long, n_wave, seed,
+                C.GRAPH_WIDTHS if flagship else (n_wave + bool(n_long),),
+                C.SAMPLED_WIDTH if flagship else 0)
             del eng
             torch.cuda.empty_cache()
         del params

@@ -2019,14 +2019,20 @@ class TestDecodeSplitOnCard:
         ctx = torch.full((S,), NB * bs, dtype=torch.int32, device=cuda_device)
         q = _bf16_cuda(rng.standard_normal((S, H, D)), cuda_device)
         PP._WORKSPACE.clear()
+        # the bytes the launches ask the allocator for: the bytes it hands
+        # out can exceed them by up to 1 MB, where it does not split a free
+        # block whose tail would be shorter (which blocks are free depends
+        # on the tests before this one)
+        requested = lambda: torch.cuda.memory_stats(cuda_device)["requested_bytes.all.current"]
         extras = []
         for _ in range(2):
             torch.cuda.synchronize()
-            before = torch.cuda.memory_allocated(cuda_device)
+            before = requested()
             torch.cuda.reset_peak_memory_stats(cuda_device)
             out = PP.paged_decode_attention(q, *pools, tbl, ctx)
             torch.cuda.synchronize()
-            extras.append(torch.cuda.max_memory_allocated(cuda_device) - before)
+            extras.append(torch.cuda.memory_stats(cuda_device)["requested_bytes.all.peak"]
+                          - before)
         counters = 4 * 4096
         assert extras[0] <= plan.scratch_bytes + counters + out.numel() * 2 + 3 * 512, (extras,
                                                                                        plan)
@@ -2222,3 +2228,162 @@ class TestKvWriteTilesOnCard:
         kn = rows[4:].view(5, 2, 64)  # contiguous, 8 bytes off a 16-byte boundary
         with pytest.raises(ValueError):
             PP.paged_kv_write_int8(*pools, kn, kn, torch.zeros(5, dtype=torch.int32, device=d))
+
+
+# a tiny Llama served from 16-token blocks over 2048-position tables: the
+# decode splits its rows' tables (a split workspace at every width here)
+GRAPH_MODEL = dict(vocab_size=512, n_layers=2, n_heads=2, d_model=256, max_seq=2048,
+                   variant="llama")
+GRAPH_SERVE = dict(max_seq_len=2048, kv_block_size=16, num_kv_blocks=320,
+                   min_prefill_bucket=16, max_batch_size=64)
+GRAPH_LANE = dict(do_sample=True, temperature=0.9, top_k=40, top_p=0.95)
+
+
+@pytest.mark.cuda
+class TestGraphsOnCard:
+    """warmup()'s CUDA graphs (inference/graphs.py) against eager decode:
+    bit identity, the capture order of the decode workspace, block tables
+    and weights that change after capture, clones, a failing capture."""
+
+    def _engine(self, dev, rows=16, seed=0, **over):
+        from deepspeed_tpu_torch import init_inference
+        from deepspeed_tpu_torch.models import transformer as T
+
+        cfg = T.TransformerConfig(**GRAPH_MODEL)
+        params = T.init(cfg, torch.Generator(device=dev).manual_seed(seed), device=dev,
+                        dtype=torch.bfloat16)
+        eng = init_inference(params, cfg, dict(GRAPH_SERVE, **over))
+        r = np.random.default_rng(seed)
+        uids = list(range(rows))
+        lg = eng.put(uids, [r.integers(0, 512, 5 + 3 * (i % 13)).astype(np.int32) for i in uids])
+        return eng, uids, lg.argmax(-1).astype(np.int32)
+
+    def _rows(self, eng, uids):
+        tables = eng.state.block_table(uids, eng.config.blocks_per_seq, eng.pad_block)
+        ctx = np.array([eng.state.get(u).seen_tokens + 1 for u in uids], np.int32)
+        return tables, ctx
+
+    def _same(self, a, b):
+        return _chip_smoke()._same_bits(a, b)
+
+    def _replay_and_eager(self, eng, fn, args):
+        got = fn(eng.params, eng.cache, *args)
+        want = fn(dict(eng.params), eng.cache, *args)  # not the engine's dict: eager
+        torch.cuda.synchronize()
+        return got, want
+
+    @pytest.mark.parametrize("width", [8, 16])
+    def test_greedy_replay_bit_identical(self, cuda_device, width):
+        eng, uids, toks = self._engine(cuda_device, rows=width)
+        out = eng.warmup(widths=[width], decode_chunks=[6])
+        assert out["graphs"] == 3 and out["programs"] == 4
+        fn = eng.decode_multi_fn(width, 6)
+        tables, ctx = self._rows(eng, uids)
+        r0 = eng.graphs.replays
+        got, want = self._replay_and_eager(eng, fn, (toks, tables, ctx))
+        assert eng.graphs.replays == r0 + 1
+        assert self._same(got[0], want[0]) and self._same(got[1], want[1])
+        assert eng.warmup_footprints[width]["peak_hbm_bytes"] > 0
+
+    def test_sampled_replay_matches_eager_and_oracle(self, cuda_device):
+        from deepspeed_tpu_torch.inference.sampling import SamplingConfig, host_oracle_token
+
+        eng, uids, toks = self._engine(cuda_device, rows=8)
+        eng.warmup(sampling=GRAPH_LANE, widths=[8], decode_chunks=[1, 5])
+        cfg = SamplingConfig(**GRAPH_LANE)
+        tables, ctx = self._rows(eng, uids)
+        keys = eng._row_keys(0, np.arange(8))
+        got, want = self._replay_and_eager(eng, eng.decode_multi_fn(8, 5, sampling=cfg),
+                                           (toks, tables, ctx, keys, ctx))
+        assert self._same(got[0], want[0]) and self._same(got[1], want[1])
+        one = eng.decode_multi_fn(8, 1, sampling=cfg)
+        g, lg, _, _ = one(eng.params, eng.cache, toks, tables, ctx, keys, ctx)
+        lg, kh = lg.cpu().numpy(), keys.cpu().numpy()
+        for s in range(8):
+            assert host_oracle_token(lg[s], cfg, kh[s], int(ctx[s])) == int(g[0, s])
+
+    def test_put_decode_rows_replay(self, cuda_device):
+        eng, uids, toks = self._engine(cuda_device, rows=8)
+        twin, _, _ = self._engine(cuda_device, rows=8)
+        eng.warmup(widths=[8])
+        r0 = eng.graphs.replays
+        a = eng.put(uids, [np.array([t], np.int32) for t in toks])
+        b = twin.put(uids, [np.array([t], np.int32) for t in toks])
+        assert eng.graphs.replays == r0 + 1 and twin.graphs.replays == 0
+        np.testing.assert_array_equal(a.view(np.int32), b.view(np.int32))
+
+    def test_capture_order_keeps_earlier_workspace(self, cuda_device):
+        """Width 8 captured first, then wider ones whose split plans need a
+        larger workspace: the replaced workspace stays alive for the width-8
+        graph, whose replay still equals eager."""
+        eng, uids, toks = self._engine(cuda_device, rows=64)
+        retired = len(PP._RETIRED)
+        eng.warmup(widths=[8], decode_chunks=[4])
+        eng.warmup(widths=[16, 32, 64], decode_chunks=[4])
+        assert len(PP._RETIRED) > retired, "no wider plan grew the workspace"
+        tables, ctx = self._rows(eng, uids[:8])
+        got, want = self._replay_and_eager(eng, eng.decode_multi_fn(8, 4),
+                                           (toks[:8], tables, ctx))
+        assert self._same(got[0], want[0]) and self._same(got[1], want[1])
+
+    def test_replay_reads_new_tables(self, cuda_device):
+        eng, uids, toks = self._engine(cuda_device, rows=8)
+        eng.warmup(widths=[8], decode_chunks=[3])
+        fn = eng.decode_multi_fn(8, 3)
+        tables, ctx = self._rows(eng, uids)
+        fn(eng.params, eng.cache, toks, tables, ctx)
+        # row 0's first page moved to a free block, the old one overwritten
+        used = {b for u in eng.state.tracked_uids for b in eng.state.get(u).blocks}
+        free = next(b for b in range(eng.config.num_kv_blocks) if b not in used)
+        moved = tables.copy()
+        moved[0, 0] = free
+        eng._copy_block(int(tables[0, 0]), free)
+        eng._copy_block(int(tables[1, 0]), int(tables[0, 0]))
+        got, want = self._replay_and_eager(eng, fn, (toks, moved, ctx))
+        assert self._same(got[0], want[0]) and self._same(got[1], want[1])
+
+    def test_refresh_params_drops_graphs(self, cuda_device):
+        eng, uids, toks = self._engine(cuda_device, rows=8)
+        eng.warmup(widths=[8], decode_chunks=[3])
+        fn = eng.decode_multi_fn(8, 3)
+        tables, ctx = self._rows(eng, uids)
+        before = fn(eng.params, eng.cache, toks, tables, ctx)[1]
+        half = lambda x: x * 0.5 if x.is_floating_point() else x
+        eng.refresh_params({k: ([{n: half(w) for n, w in lp.items()} for lp in v]
+                                if k == "layers" else half(v)) for k, v in eng.params.items()})
+        assert len(eng.graphs) == 0
+        r0 = eng.graphs.replays
+        eager = fn(eng.params, eng.cache, toks, tables, ctx)[1]
+        assert eng.graphs.replays == r0 and not self._same(eager, before)
+        eng.warmup(widths=[8], decode_chunks=[3])
+        got, want = self._replay_and_eager(eng, fn, (toks, tables, ctx))
+        assert eng.graphs.replays == r0 + 1
+        assert self._same(got[1], want[1]) and self._same(got[1], eager)
+
+    def test_replay_returns_clones(self, cuda_device):
+        eng, uids, toks = self._engine(cuda_device, rows=8)
+        eng.warmup(widths=[8], decode_chunks=[3])
+        fn = eng.decode_multi_fn(8, 3)
+        tables, ctx = self._rows(eng, uids)
+        first = fn(eng.params, eng.cache, toks, tables, ctx)
+        kept = (first[0].clone(), first[1].clone())
+        second = fn(eng.params, eng.cache, (toks + 1) % 512, tables, ctx)
+        torch.cuda.synchronize()
+        assert not self._same(second[1], kept[1])
+        assert self._same(first[0], kept[0]) and self._same(first[1], kept[1])
+
+    def test_failed_capture_raises(self, cuda_device, monkeypatch):
+        from deepspeed_tpu_torch.inference import model as M
+
+        eng, _, _ = self._engine(cuda_device, rows=8)
+        real = M.decode_step
+
+        def syncing(*a, **k):  # a host read of a device value: fine eagerly, not in a capture
+            out = real(*a, **k)
+            out[0].sum().item()
+            return out
+
+        monkeypatch.setattr(M, "decode_step", syncing)
+        with pytest.raises(RuntimeError, match="capturing"):
+            eng.warmup(widths=[8])
+        assert len(eng.graphs) == 0

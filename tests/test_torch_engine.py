@@ -128,11 +128,9 @@ class TestSurface:
             with pytest.raises(NotImplementedError):
                 init_inference(self._params(), torch_config(), dict(SERVE), device="cpu",
                                **kw)
-        with pytest.raises(NotImplementedError, match="sampling"):
-            eng.put([0], [np.array([1, 2, 3])], return_tokens=True)
-        for call in (lambda: eng.generate([[1, 2]]), lambda: eng.export_kv(0),
-                     lambda: eng.import_kv(0, {}), lambda: eng.warmup(),
-                     lambda: eng.decode_multi_fn(8, 4, sampling=object())):
+        with pytest.raises(NotImplementedError, match="scheduler"):
+            eng.generate([[1, 2]])
+        for call in (lambda: eng.export_kv(0), lambda: eng.import_kv(0, {})):
             with pytest.raises(NotImplementedError):
                 call()
 

@@ -93,6 +93,18 @@ Phases (any failure raises and exits nonzero):
              combine, the fused new column attended by every split, each
              split's last cache position dropped, one ring stage consumed
              stale; the plans, scratch bytes, ptxas registers and spills;
+             the W8A16 GEMM of the int8-weight lane (int8_matmul) at every
+             per-channel int8 product of the served shapes (INT8_MM_SHAPES:
+             the flagship's, Llama-2-7B's, Falcon-7B's at K 4544, BLOOM-7B1's
+             and Phi-2's logits, tails in K and N) at M = 1, 8, 32, 64, 512
+             and 4096 in both output forms, codes with both extremes and a
+             zero column: its error against the exact (f64) product within
+             1.5x (RMS) and 2x (max) of the plain bf16 version's, two
+             launches bit-identical, timed beside cuBLAS bf16 on the codes
+             as bf16 weights, and planted faults that must fail: each
+             scale on the next column, the last 128-deep slice dropped, the
+             K tail dropped, the codes read as unsigned, the tied [V, E]
+             codes read as [E, V], one split left out;
              time kernel, plain version and (where one exists) a single
              PyTorch library call computing the same function: device time
              from torch.profiler, and the time of back-to-back calls from
@@ -150,6 +162,24 @@ Phases (any failure raises and exits nonzero):
              the host us to issue a replay, the warmup footprints, the
              graph counts; the launches of one eager call of each flagship
              program are the phase's.
+4w. serve_int8w (run after 4x) - the per-channel int8 weight lane
+             (init_inference(..., quantization={"bits": 8, "per_channel":
+             True}), bench.py's _serving_bench lane and _serving_7b_bench):
+             the flagship's weights from bf16 and from int8 KV pools (64 x
+             96-token rows, warmup and replays at b = 8 and 64), and
+             Llama-2-7B at bench.py's widths (random weights built and
+             quantized layer by layer on the card, b = 1, 8, 32), with its
+             bf16 engine on the same weights beside it. Counted: a wave of
+             8 x 96, the 512-token prompt, one eager decode_multi_fn(b,
+             24): the W8A16 GEMM launches once per quantized product of
+             every forward (4 a layer + the logits), with the attention
+             kernels of the pools and nothing else. Checks: resident weight
+             bytes at most 0.51x the bf16 engine's; prefill and decode
+             logits of the kernel path within 1.5x / 2x of the bf16 plain
+             path's error against the f32 plain path on the same codes;
+             replays bit-identical to eager; no library GEMM in a replayed
+             call. Reports TTFT at 512 and eager and replayed tok/s at
+             each width beside the bf16 engine's of this run.
 4c. serve_window - Mistral 7B (MISTRAL: 32 layers, d_model 4096, 32 x 128
              query heads over 8 KV heads, d_ff 14336, vocab 32000, untied
              lm_head, sliding window 4096; random bf16 weights, seed 0) in
@@ -344,6 +374,10 @@ KERNELS = {
                           "deepspeed_tpu/ops/pallas/evoformer_attention.py:347"),
     "evoformer_bwd_db2": ("deepspeed_tpu_torch/csrc/evoformer_db2.cu",
                           "deepspeed_tpu/ops/pallas/evoformer_attention.py:394"),
+    # a kernel the port adds: the per-channel int8 product the JAX package
+    # leaves to XLA (_wmm; _lm_logits at :216), no pallas_call
+    "int8_matmul": ("deepspeed_tpu_torch/csrc/int8_matmul.cu",
+                    "deepspeed_tpu/inference/model.py:198"),
 }
 TRAIN_KERNELS = ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv")
 SERVE_KERNELS = ("paged_kv_write", "paged_decode_fused", "paged_decode_attention", "flash_fwd")
@@ -3053,6 +3087,204 @@ def _flash_bwd_mode_checks(FA, randn, dev, bound_ms):
     return out
 
 
+# ---------------------------------------------------------------------------
+# phase 2: the W8A16 GEMM of the per-channel int8 weight lane
+# ---------------------------------------------------------------------------
+
+# [M, K] x [N, K]^T at every per-channel int8 product of the served
+# shapes: name -> (N, K, f32 output: the logits form). The flagship's
+# (d 1024, 8 x 128 heads over 8, gated MLP 2816, tied vocab 32000),
+# Llama-2-7B's at bench.py:3614-3616 (tied vocab 32000), Falcon-7B's
+# (K 4544 = 71 x 64; q/k/v N 73 x 64; its MLP), BLOOM-7B1's tied vocab,
+# Phi-2's untied lm_head, and tails past the kernel's tiles: N 4673 (odd,
+# 65 past a 128-column tile), K 4560 (16 past a 64-deep slice)
+INT8_MM_SHAPES = {
+    "flagship_qkv": (3072, 1024, False), "flagship_wo": (1024, 1024, False),
+    "flagship_gate_up": (5632, 1024, False), "flagship_down": (1024, 2816, False),
+    "flagship_logits": (32000, 1024, True),
+    "llama2_7b_qkv": (12288, 4096, False), "llama2_7b_wo": (4096, 4096, False),
+    "llama2_7b_gate_up": (22016, 4096, False), "llama2_7b_down": (4096, 11008, False),
+    "llama2_7b_logits": (32000, 4096, True),
+    "falcon_7b_qkv": (4672, 4544, False), "falcon_7b_wo": (4544, 4544, False),
+    "falcon_7b_mlp_in": (18176, 4544, False), "falcon_7b_mlp_out": (4544, 18176, False),
+    "bloom_7b1_logits": (250880, 4096, True), "phi_2_lm_head": (51200, 2560, True),
+    "tails": (4673, 4560, False),
+}
+INT8_MM_M = (1, 8, 32, 64, 512, 4096)
+# the rows of the kernel_check lines: the kernels line's row (Llama-2-7B's
+# q/k/v product in decode at batch 8) first
+INT8_MM_ROWS = {"int8_matmul": ("llama2_7b_qkv", 8), "int8_matmul@flagship_qkv_b8": (
+    "flagship_qkv", 8), "int8_matmul@7b_logits_b8": ("llama2_7b_logits", 8),
+    "int8_matmul@7b_qkv_prefill_512": ("llama2_7b_qkv", 512)}
+INT8_MM_COLS = 16384  # columns of the f64 reference at a time
+
+
+def _int8_mm_inputs(N, K, M_max, dev, seed):
+    """Codes [N, K] uniform in [-127, 127] with both extremes in column 1
+    and column N // 2 all zero (its scale 1), scales ~1e-3 (a weight's
+    absmax / 127 at the served widths), x [M_max, K] bf16 normal."""
+    import torch
+
+    g = torch.Generator(device=dev).manual_seed(seed)
+    q = torch.randint(-127, 128, (N, K), generator=g, device=dev, dtype=torch.int8)
+    q[1, 0], q[1, 1] = 127, -127
+    s = torch.rand((N,), generator=g, device=dev) * 2e-3 + 2e-4
+    q[N // 2] = 0
+    s[N // 2] = 1.0
+    x = torch.randn((M_max, K), generator=g, device=dev).to(torch.bfloat16)
+    return x, q, s
+
+
+def _int8_mm_errors(x, q, s, got, plain):
+    """RMS and max of |got - exact| and |plain - exact|, exact = (x q^T) s
+    in f64 (column chunks of INT8_MM_COLS)."""
+    import torch
+
+    xd = x.double()
+    acc = {"kernel": [0.0, 0.0], "plain": [0.0, 0.0]}
+    for c in range(0, q.shape[0], INT8_MM_COLS):
+        ref = (xd @ q[c:c + INT8_MM_COLS].double().t()) * s[c:c + INT8_MM_COLS].double()
+        for name, y in (("kernel", got), ("plain", plain)):
+            e = (y[:, c:c + INT8_MM_COLS].double() - ref).abs()
+            if not torch.isfinite(e).all():
+                acc[name][1] = float("inf")
+            acc[name][0] += e.square().sum().item()
+            acc[name][1] = max(acc[name][1], e.max().item())
+        del ref
+    n = got.numel()
+    return {"kernel_rms": (acc["kernel"][0] / n) ** 0.5, "kernel_max": acc["kernel"][1],
+            "plain_rms": (acc["plain"][0] / n) ** 0.5, "plain_max": acc["plain"][1]}
+
+
+def _int8_mm_within(st):
+    """The kernel's error against the exact product within PATH_RMS_FACTOR
+    (RMS) and PATH_MAX_FACTOR (max) of the plain bf16 version's."""
+    return (st["kernel_rms"] <= PATH_RMS_FACTOR * st["plain_rms"]
+            and st["kernel_max"] <= PATH_MAX_FACTOR * st["plain_max"])
+
+
+def _int8_mm_faults(IM, dev):
+    """Planted faults that the tolerance must catch, each beside its
+    genuine case: every column's scale on the next column; the last
+    slice (IM.BK deep) dropped (Llama-2-7B's K 4096) and the K tail dropped
+    (K 4560: its last 16); the codes read as unsigned (the plain math on
+    code mod 256); the tied [V, E] codes read as [E, V]; and with split-K
+    one split left out (x zeroed over its K range)."""
+    import torch
+
+    out = {}
+
+    def case(name, shape, M, fault):
+        N, K, f32 = INT8_MM_SHAPES[shape]
+        x, q, s = _int8_mm_inputs(N, K, M, dev, seed=7)
+        plain = IM.int8_matmul_plain(x, q, s, f32)
+        genuine = _int8_mm_errors(x, q, s, IM.int8_matmul(x, q, s, f32), plain)
+        bad = _int8_mm_errors(x, q, s, fault(x, q, s, f32), plain)
+        if not _int8_mm_within(genuine) or _int8_mm_within(bad):
+            raise AssertionError(f"int8_matmul planted fault {name}: genuine {genuine}, "
+                                 f"fault {bad}; the fault must fail and the genuine pass")
+        out[name] = {"kernel_rms_over_plain": bad["kernel_rms"] / bad["plain_rms"],
+                     "kernel_max_over_plain": bad["kernel_max"] / bad["plain_max"]}
+
+    def drop_k(n):  # the kernel given all but the last n of K
+        return lambda x, q, s, f32: IM.int8_matmul(x[:, :-n].contiguous(),
+                                                   q[:, :-n].contiguous(), s, f32)
+
+    def split_left_out(x, q, s, f32):
+        plan = IM.matmul_split_plan(x.shape[0], q.shape[0], q.shape[1],
+                                    torch.cuda.get_device_properties(dev).multi_processor_count)
+        if plan.n < 2:
+            raise AssertionError(f"the split fault needs a split plan: {plan}")
+        x = x.clone()
+        x[:, plan.split_len:2 * plan.split_len] = 0  # split 1's K range
+        return IM.int8_matmul(x, q, s, f32)
+
+    case("scale_on_the_next_column", "llama2_7b_qkv", 8,
+         lambda x, q, s, f32: IM.int8_matmul(x, q, torch.roll(s, -1), f32))
+    case("last_k_slice_dropped", "llama2_7b_qkv", 8, drop_k(IM.BK))
+    case("k_tail_dropped", "tails", 8, drop_k(INT8_MM_SHAPES["tails"][1] % 64))
+    case("codes_read_as_unsigned", "llama2_7b_qkv", 8,
+         lambda x, q, s, f32: IM.int8_matmul_plain(x, q.view(torch.uint8), s, f32))
+    case("tied_codes_read_as_e_by_v", "llama2_7b_logits", 8,
+         lambda x, q, s, f32: IM.int8_matmul(x, q.view(q.shape[1], q.shape[0]).t()
+                                             .contiguous(), s, f32))
+    case("split_left_out", "llama2_7b_wo", 8, split_left_out)
+    return out
+
+
+def _int8_mm_checks(dev, bound_ms):
+    """The W8A16 GEMM (csrc/int8_matmul.cu) against its plain version at
+    every INT8_MM_SHAPES shape and M in INT8_MM_M, in both output forms:
+    the kernel's error against the exact product (f64) within 1.5x (RMS)
+    and 2x (max) of the plain bf16 version's; two launches bit-identical;
+    the planted faults (_int8_mm_faults). Timed in the form its path uses
+    (device ms, torch.profiler): the kernel, the plain version and cuBLAS
+    bf16 on the codes as bf16 weights (the yardstick), beside the bound.
+    One line a shape (int8_matmul_checks); the INT8_MM_ROWS rows go to the
+    kernel_check lines."""
+    import torch
+
+    from deepspeed_tpu_torch.ops.cuda import int8_matmul as IM
+
+    reduced = torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction
+    # the plain version's bf16 GEMM sums in f32 throughout: a tighter bar
+    torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    results = {}
+    try:
+        for si, (shape, (N, K, f32_path)) in enumerate(INT8_MM_SHAPES.items()):
+            x_all, q, s = _int8_mm_inputs(N, K, max(INT8_MM_M), dev, seed=100 + si)
+            w16 = q.to(torch.bfloat16)  # the yardstick's bf16 weights
+            line = {}
+            for M in INT8_MM_M:
+                x = x_all[:M].contiguous()
+                row = {"plan": list(IM.matmul_split_plan(M, N, K, sms)[:3])}
+                for f32 in (False, True):
+                    got = IM.int8_matmul(x, q, s, f32)
+                    again = IM.int8_matmul(x, q, s, f32)
+                    plain = IM.int8_matmul_plain(x, q, s, f32)
+                    st = _int8_mm_errors(x, q, s, got, plain)
+                    form = "f32" if f32 else "bf16"
+                    if not _same_bits(got, again):
+                        raise AssertionError(f"int8_matmul {shape} M={M} {form}: two launches "
+                                             "differ")
+                    if not _int8_mm_within(st):
+                        raise AssertionError(f"int8_matmul {shape} M={M} {form}: beyond the "
+                                             f"tolerance of the plain version: {st}")
+                    st["max_abs_err_vs_plain"] = (got.float() - plain.float()).abs().max().item()
+                    row[form] = st
+                    del got, again, plain
+                f32 = f32_path
+                iters = 20 if M <= 64 else 5
+                out_bytes = 4 if f32 else 2
+                row.update(
+                    ms=_device_ms(lambda: IM.int8_matmul(x, q, s, f32), iters),
+                    plain_ms=_device_ms(lambda: IM.int8_matmul_plain(x, q, s, f32), iters),
+                    cublas_bf16_ms=_device_ms(lambda: x @ w16.t(), iters),
+                    bound=bound_ms(M * K * 2 + N * K + N * 4 + M * N * out_bytes,
+                                   2.0 * M * N * K))
+                line[M] = row
+                for name, (rs, rm) in INT8_MM_ROWS.items():
+                    if (rs, rm) == (shape, M):
+                        timed = _timings(lambda: IM.int8_matmul(x, q, s, f32),
+                                         lambda: IM.int8_matmul_plain(x, q, s, f32),
+                                         lambda: x @ w16.t(), iters)
+                        results[name] = dict(
+                            max_abs_err=row["f32" if f32 else "bf16"]["max_abs_err_vs_plain"],
+                            **timed, bound=row["bound"],
+                            shape=f"M={M}, N={N}, K={K}, {'f32' if f32 else 'bf16'} out, "
+                                  f"split {row['plan']}, library = cuBLAS bf16 x @ W^T")
+            print(json.dumps({"int8_matmul_checks": shape, "N": N, "K": K,
+                              "path_form": "f32" if f32_path else "bf16", "by_M": line}))
+            del x_all, q, s, w16
+            torch.cuda.empty_cache()
+        faults = _int8_mm_faults(IM, dev)
+    finally:
+        torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = reduced
+    print(json.dumps({"int8_matmul_planted_faults": faults}))
+    return results
+
+
 def check_kernels(cfg, dev):
     import torch
 
@@ -3170,6 +3402,8 @@ def check_kernels(cfg, dev):
         # Falcon-7B's training shapes
         "flash_bwd_modes": lambda: _flash_bwd_mode_checks(FA, randn, dev, bound_ms),
         "evoformer": lambda: _evo_kernel_checks(dev, bound_ms),
+        # the W8A16 GEMM of the per-channel int8 weight lane at every served shape
+        "int8_matmul": lambda: _int8_mm_checks(dev, bound_ms),
     }
     seconds = {"flagship_serving": time.perf_counter() - t0}
     for label, check in checks.items():
@@ -4019,6 +4253,272 @@ def run_serve_graphs(cfg, dev):
 
 
 # ---------------------------------------------------------------------------
+# phase serve_int8w: the per-channel int8 weight lane (bench.py
+# _serving_bench's int8 lane, bench.py:3553-3561, and _serving_7b_bench's
+# Llama-2-7B, bench.py:3584-3680), every weight product on the W8A16 GEMM
+# ---------------------------------------------------------------------------
+
+INT8W = {"bits": 8, "per_channel": True}
+# the flagship's lane: its weights per-channel int8, greedy
+# decode_multi_fn(b, 24) at the bench's b = 8 and 64, from bf16 and int8
+# KV pools (SERVE_G: 64 rows of 96 tokens)
+INT8W_FLAGSHIP_WIDTHS = (8, 64)
+# Llama-2-7B at bench.py:3614-3616 (tied embeddings, as there), random
+# weights built and quantized layer by layer on the card; TTFT at 512 and
+# decode at batches 1, 8 and 32; a pool of 32 rows of one block, the
+# 512-token prompts and the pad block
+LLAMA2_7B_BENCH = dict(vocab_size=32000, n_layers=32, n_heads=32, d_model=4096, d_ff=11008,
+                       max_seq=4096, variant="llama")
+INT8W_7B_WIDTHS = (1, 8, 32)
+SERVE_7B_INT8W = dict(max_seq_len=1024, kv_block_size=128, num_kv_blocks=48,
+                      min_prefill_bucket=128, max_batch_size=32)
+# names of the library GEMMs none of which may run in a replayed int8 step
+GEMM_NAMES = ("gemm", "cublas", "cutlass", "xmma")
+# resident weight bytes of the int8 lane over the bf16 engine's, at most
+INT8W_BYTES_RATIO = 0.51
+
+
+def _f32(w):
+    """A serving-tree leaf for the f32 plain path: a tensor cast to f32; a
+    per-channel int8 weight keeps its codes and f32 scales (the same
+    codes), its embedding rows in f32."""
+    import dataclasses
+
+    return (dataclasses.replace(w, dtype_name="float32") if hasattr(w, "dtype_name")
+            else w.float())
+
+
+def _device_kernel_names(fn):
+    """The names of the kernels one call of fn ran on the card."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    return sorted({name for name, _ in _device_events(prof)})
+
+
+def _int8w_7b_weights(T, M, mc, dev):
+    """Random bf16 weights of `mc` built layer by layer on the card, as
+    _serving_7b_bench builds them (normal x 0.5 / sqrt(fan_in), norm scales
+    1, embedding normal x 0.02), each layer prepared (fused q/k/v and
+    gate/up) and per-channel quantized as it is made. Returns the bf16 and
+    the int8 prepared trees (the int8 one's embedding still bf16: the
+    engine quantizes it per row)."""
+    import torch
+
+    bf16 = torch.bfloat16
+    g = torch.Generator(device=dev).manual_seed(0)
+    bf16_layers, int8_layers = [], []
+    for _ in range(mc.n_layers):
+        lp = {}
+        for name, (shape, _) in sorted(T._layer_shapes(mc).items()):
+            if "ln" in name:
+                lp[name] = torch.ones(shape, dtype=bf16, device=dev)
+            else:
+                lp[name] = (torch.randn(shape, generator=g, device=dev)
+                            * (0.5 / shape[0] ** 0.5)).to(bf16)
+        lp = M.prepare_layer(lp, mc)
+        bf16_layers.append(lp)
+        int8_layers.append(M.quantize_layer(lp, mc))
+    top = {"embed": (torch.randn((mc.vocab_size, mc.d_model), generator=g, device=dev)
+                     * 0.02).to(bf16),
+           "ln_f_scale": torch.ones((mc.d_model,), dtype=bf16, device=dev)}
+    return dict(top, layers=bf16_layers), dict(top, layers=int8_layers)
+
+
+def _int8w_lane(eng, mc, widths, n_rows, dev, seed, bf16_bytes):
+    """One per-channel int8 engine: the counted main path (a wave of 8
+    96-token prompts, the 512-token prompt, one eager greedy
+    decode_multi_fn(widths[0], 24)), each call launching the W8A16 GEMM
+    once per quantized product of every forward (the layers' ChannelQuant
+    leaves + the logits), with the attention kernels of its pools and
+    nothing else; resident weight bytes over the bf16 engine's
+    (`bf16_bytes`); the three-path logit check (_serve_three_paths on the
+    same codes); warmup() and every width's replay against eager, bit for
+    bit, with eager and replayed times (_graph_checks); no library GEMM in
+    a replayed call; TTFT at 512."""
+    import numpy as np
+    import torch
+
+    from deepspeed_tpu_torch.inference import model as M
+    from deepspeed_tpu_torch.inference.quantization import ChannelQuantWeight, quantized_nbytes
+    from deepspeed_tpu_torch.ops import cuda as K
+
+    t0 = time.perf_counter()
+    V = mc.vocab_size
+    r = np.random.default_rng(seed)
+    prompts = [r.integers(0, V, PROMPT_LEN).astype(np.int32) for _ in range(n_rows)]
+    long_prompt = r.integers(0, V, LONG_LEN).astype(np.int32)
+    uids = list(range(n_rows))
+    per_call = 1 + sum(isinstance(w, ChannelQuantWeight)
+                       for lp in eng.params["layers"] for w in lp.values())
+    int8_pools = eng.cache.quantized
+    want = {"int8_matmul", "flash_fwd"} | ({"paged_kv_write_int8", "paged_decode_fused_int8"}
+                                           if int8_pools else
+                                           {"paged_kv_write", "paged_decode_fused"})
+
+    # -- the main path, counted -------------------------------------------
+    launches, toks = {}, []
+
+    def counted(what, n_forward, call):
+        K.reset_launch_counts()
+        out = call()
+        torch.cuda.synchronize()
+        got = K.launch_counts()
+        if got["int8_matmul"] != per_call * n_forward:
+            raise AssertionError(f"{what}: {got['int8_matmul']} W8A16 launches, not "
+                                 f"{per_call} products x {n_forward} forwards")
+        for n, c in got.items():
+            launches[n] = launches.get(n, 0) + c
+        return out
+
+    wave = counted("the 8-prompt wave", 1, lambda: eng.put(uids[:N_PROMPTS],
+                                                          prompts[:N_PROMPTS]))
+    toks.append(wave.argmax(-1))
+    for w0 in range(N_PROMPTS, n_rows, N_PROMPTS):
+        toks.append(eng.put(uids[w0:w0 + N_PROMPTS], prompts[w0:w0 + N_PROMPTS]).argmax(-1))
+    long = counted("the 512-token prompt", 1, lambda: eng.put([n_rows], [long_prompt]))
+    toks = np.concatenate(toks).astype(np.int32)
+    b = widths[0]
+    tables = eng.state.block_table(uids[:b], eng.config.blocks_per_seq, eng.pad_block)
+    ctx = np.array([eng.state.get(u).seen_tokens + 1 for u in uids[:b]], np.int32)
+    fn = eng.decode_multi_fn(b, DECODE_STEPS)
+    gen, final, _, _ = counted(f"decode_multi_fn({b}, {DECODE_STEPS})", DECODE_STEPS,
+                               lambda: fn(dict(eng.params), eng.cache, toks[:b].copy(),
+                                          tables, ctx))
+    wrong = {n: c for n, c in launches.items() if (c == 0) == (n in want)}
+    if wrong:
+        raise AssertionError(f"the int8-weight path must launch each of {sorted(want)} and "
+                             f"nothing else: {wrong}")
+    for name, x in (("wave", wave), ("long", long), ("decode_multi", final.float().cpu().numpy())):
+        if not np.isfinite(x).all():
+            raise AssertionError(f"{name} logits are not finite")
+    eng.flush(n_rows)
+    g = gen.cpu().numpy()
+    if g.shape != (DECODE_STEPS, b) or g.min() < 0 or g.max() >= V:
+        raise AssertionError(f"decode_multi tokens out of range: {g.shape}")
+    rep = {"products_a_forward": per_call, "launches": {n: c for n, c in launches.items() if c}}
+    int8_bytes = quantized_nbytes(eng.params)
+    rep["weights"] = {"int8_lane_bytes": int8_bytes, "bf16_engine_bytes": bf16_bytes,
+                      "ratio": int8_bytes / bf16_bytes}
+    if rep["weights"]["ratio"] > INT8W_BYTES_RATIO:
+        raise AssertionError(f"resident weights {rep['weights']} above {INT8W_BYTES_RATIO}x "
+                             "the bf16 engine's")
+    t1 = time.perf_counter()
+    rep["path"] = _serve_three_paths(M, eng, mc, int8_pools, long_prompt,
+                                     prompts[:N_PROMPTS], dev)
+    rep["path_s"] = time.perf_counter() - t1
+
+    # -- graphs: replays against eager, and the times ------------------------
+    rep["graphs"], args = _graph_checks(eng, widths, 0, (uids, toks), None)
+    gfn, a = args[widths[-1]]
+    names = _device_kernel_names(lambda: gfn(eng.params, eng.cache, *a))
+    gemms = [n for n in names if any(s in n.lower() for s in GEMM_NAMES)]
+    if gemms or not any("w8a16" in n for n in names):
+        raise AssertionError(f"a replayed int8 decode ran library GEMMs {gemms} or no W8A16 "
+                             f"kernel: {names}")
+    rep["replayed_call_kernels"] = {"distinct": len(names),
+                                    "w8a16": [n[:80] for n in names if "w8a16" in n]}
+    ttft = _ttft(eng, r, V, LONG_LEN)
+    rep.update({f"ttft_ms_{LONG_LEN}_p50": statistics.median(ttft),
+                f"ttft_ms_{LONG_LEN}_all": ttft, "seconds": time.perf_counter() - t0})
+    return rep
+
+
+def _lane_summary(rep, widths):
+    """TTFT and each width's eager and replayed decode tok/s of a lane."""
+    out = {f"ttft_ms_{LONG_LEN}_p50": rep.get(f"ttft_ms_{LONG_LEN}_p50")}
+    for b in widths:
+        t = rep["graphs"][f"b{b}"]["times"]
+        out[f"b{b}"] = {"eager_tok_s": t["eager"]["tok_s"], "replayed_tok_s": t["replayed"]["tok_s"],
+                        "replayed_idle_of_event_ms": t["replayed"]["idle_share_of_event_ms"]}
+    return out
+
+
+def run_serve_int8w(cfg, dev, bf16_serve, bf16_graphs):
+    """Phase serve_int8w. The flagship's int8-weight lane (the weights of
+    phases serve and serve_graphs, seed 0) from bf16 and from int8 KV pools
+    (_int8w_lane at INT8W_FLAGSHIP_WIDTHS), its bf16 engine's TTFT and
+    replayed tok/s beside it (phases serve and serve_graphs of this run);
+    then Llama-2-7B (LLAMA2_7B_BENCH, _int8w_7b_weights) per-channel int8
+    at INT8W_7B_WIDTHS, and its bf16 engine on the same bf16 weights (TTFT,
+    replay against eager, times) beside it."""
+    import torch
+
+    from deepspeed_tpu_torch import init_inference
+    from deepspeed_tpu_torch.inference import model as M
+    from deepspeed_tpu_torch.models import transformer as T
+
+    t0 = time.perf_counter()
+    report = {"lanes": {}}
+    params = T.init(cfg, torch.Generator(device=dev).manual_seed(0), device=dev,
+                    dtype=torch.bfloat16)
+    for int8_pools in (False, True):
+        kv = "int8" if int8_pools else "auto"
+        eng = init_inference(params, cfg, dict(SERVE_G, kv_cache_dtype=kv), quantization=INT8W)
+        rep = _int8w_lane(eng, cfg, INT8W_FLAGSHIP_WIDTHS, GRAPH_PROMPTS, dev, seed=0,
+                          bf16_bytes=2 * T.param_count(cfg))
+        name = f"flagship/{'int8' if int8_pools else 'bf16'}_pools"
+        print(json.dumps({"serve_int8w_lane": name, **rep}))
+        report["lanes"][name] = _lane_summary(rep, INT8W_FLAGSHIP_WIDTHS)
+        report["lanes"][name].update(path=rep["path"], weights=rep["weights"],
+                                     launches=rep["launches"])
+        del eng
+        torch.cuda.empty_cache()
+    del params
+    torch.cuda.empty_cache()
+    bf16_replayed = bf16_graphs["models"]["flagship/bf16"]
+    report["flagship_bf16_engine_this_run"] = {
+        f"ttft_ms_{LONG_LEN}_p50": bf16_serve.get(f"ttft_ms_{LONG_LEN}_p50"),
+        **{f"b{b}": {"eager_tok_s": bf16_replayed[f"b{b}"]["eager_tok_s"],
+                     "replayed_tok_s": bf16_replayed[f"b{b}"]["replayed_tok_s"]}
+           for b in INT8W_FLAGSHIP_WIDTHS}}
+    report["flagship_s"] = time.perf_counter() - t0
+
+    t1 = time.perf_counter()
+    mc = T.TransformerConfig(**LLAMA2_7B_BENCH)
+    bf16_tree, int8_tree = _int8w_7b_weights(T, M, mc, dev)
+    report["llama2_7b_build_s"] = time.perf_counter() - t1
+    eng = init_inference(int8_tree, mc, dict(SERVE_7B_INT8W), quantization=INT8W)
+    del int8_tree
+    rep = _int8w_lane(eng, mc, INT8W_7B_WIDTHS, max(INT8W_7B_WIDTHS), dev, seed=1,
+                      bf16_bytes=2 * T.param_count(mc))
+    print(json.dumps({"serve_int8w_lane": "llama2_7b/bf16_pools", **rep}))
+    report["lanes"]["llama2_7b/bf16_pools"] = _lane_summary(rep, INT8W_7B_WIDTHS)
+    report["lanes"]["llama2_7b/bf16_pools"].update(path=rep["path"], weights=rep["weights"],
+                                                   launches=rep["launches"])
+    del eng
+    torch.cuda.empty_cache()
+    # the bf16 engine on the same bf16 weights, timed in the same call
+    import numpy as np
+
+    eng = init_inference(bf16_tree, mc, dict(SERVE_7B_INT8W))
+    r = np.random.default_rng(1)
+    n = max(INT8W_7B_WIDTHS)
+    uids = list(range(n))
+    toks = np.concatenate([eng.put(uids[w0:w0 + N_PROMPTS], [
+        r.integers(0, mc.vocab_size, PROMPT_LEN).astype(np.int32) for _ in range(N_PROMPTS)])
+        .argmax(-1) for w0 in range(0, n, N_PROMPTS)]).astype(np.int32)
+    graphs, _ = _graph_checks(eng, INT8W_7B_WIDTHS, 0, (uids, toks), None)
+    ttft = _ttft(eng, r, mc.vocab_size, LONG_LEN)
+    report["llama2_7b_bf16_engine_this_run"] = _lane_summary(
+        {"graphs": graphs, f"ttft_ms_{LONG_LEN}_p50": statistics.median(ttft)}, INT8W_7B_WIDTHS)
+    del eng, bf16_tree
+    torch.cuda.empty_cache()
+    report["llama2_7b_s"] = time.perf_counter() - t1
+    report["launches"] = {}
+    for lane in report["lanes"].values():
+        for k, c in lane["launches"].items():
+            report["launches"][k] = report["launches"].get(k, 0) + c
+    report["seconds"] = time.perf_counter() - t0
+    return report
+
+
+# ---------------------------------------------------------------------------
 # phases serve_window, serve_window_int8, train_window (Mistral 7B) and
 # serve_alibi, serve_alibi_int8 (BLOOM-7B1)
 # ---------------------------------------------------------------------------
@@ -4087,7 +4587,7 @@ class _F32Layers(tuple):
     Mistral 7B) beside the engine."""
 
     def __iter__(self):
-        return ({n: w.float() for n, w in lp.items()} for lp in super().__iter__())
+        return ({n: _f32(w) for n, w in lp.items()} for lp in super().__iter__())
 
 
 def _serve_three_paths(M, eng, cfg, int8, long_prompt, prompts, dev):
@@ -4101,7 +4601,7 @@ def _serve_three_paths(M, eng, cfg, int8, long_prompt, prompts, dev):
     import torch
 
     p16 = eng.params
-    p32 = dict({k: v.float() for k, v in p16.items() if k != "layers"},
+    p32 = dict({k: _f32(v) for k, v in p16.items() if k != "layers"},
                layers=_F32Layers(p16["layers"]))
     bs = eng.config.kv_block_size
     NBt = eng.config.blocks_per_seq
@@ -4530,6 +5030,8 @@ def main():
     done("serve_int8", q8)
     gr = run_serve_graphs(cfg, dev)
     done("serve_graphs", gr)
+    q8w = run_serve_int8w(cfg, dev, sl, gr)
+    done("serve_int8w", q8w)
     served = {}
     for mode, model in SERVED_7B:
         mc = T.TransformerConfig(**model)
@@ -4547,8 +5049,8 @@ def main():
     ev = run_evoformer(dev)
     done("evoformer", ev)
 
-    paths = {"train": tr, "serve": sl, "serve_int8": q8, "serve_graphs": gr, **served, **trains,
-             "evoformer": ev}
+    paths = {"train": tr, "serve": sl, "serve_int8": q8, "serve_graphs": gr, "serve_int8w": q8w,
+             **served, **trains, "evoformer": ev}
     line = []
     # each mode (window, ALiBi, layout bitmap, wide group, head_dim 80) is a
     # path of its kernel: same source, same TPU kernel

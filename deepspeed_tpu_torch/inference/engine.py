@@ -18,9 +18,13 @@ program without one runs eagerly, as a JAX program compiles on first use.
 The engine serves on one GPU, from bf16/f32 or int8 KV pools
 (kv_cache_dtype="int8"), dense, sliding-window and block-sparse models:
 logits, or tokens sampled on the device (inference/sampling.py) with the
-JAX engine's per-row streams. generate(), quantized weights, offload,
-tensor parallelism and KV export and import raise NotImplementedError
-naming the slice that brings them.
+JAX engine's per-row streams. Weights may be quantized (`quantization`,
+the JAX engine's argument): per-channel int8 ({"bits": 8, "per_channel":
+True}), whose products stream the codes through the W8A16 GEMM, or
+groupwise int8/int4 ({"bits", "group_size", "min_ndim"}), dequantized to
+the serving dtype at the entry of each program, as the JAX engine does in
+each compiled step. generate(), offload, tensor parallelism and KV export
+and import raise NotImplementedError naming the slice that brings them.
 """
 
 import dataclasses
@@ -35,18 +39,27 @@ from ..models import transformer as T
 from ..platform.accelerator import resolve_device
 from ..utils import prng
 from ..utils.logging import log_dist
+from ..utils.tree import leaves
 from . import model as M
 from .graphs import DecodeGraphs, GraphKey
+from .quantization import (
+    ChannelQuantWeight,
+    QuantizedWeight,
+    dequantize_tree,
+    quantize_for_inference,
+)
 from .ragged import StateManager
 from .sampling import SamplingConfig, sample_tokens
 
 _LATER = {
     "scheduler": "the slice that ports inference/scheduler.py (ROADMAP A10)",
-    "quantization": "the slice that ports inference/quantization.py",
-    "offload": "the slice that ports the offload tiers",
-    "tp": "the multi-GPU slice",
+    "offload": "the slice that ports the offload tiers (ROADMAP A14)",
+    "offload_quant": ("the slice that ports the offload tiers (ROADMAP A14), which parks "
+                      "quantized layers in host memory"),
+    "tp": "the multi-GPU slice (ROADMAP A11), which also shards quantized weights",
     "kv_transfer": "the slice that ports disaggregated serving",
 }
+_QUANT_KEYS = {"bits", "group_size", "min_ndim"}
 
 
 def _later(what: str, key: str) -> NotImplementedError:
@@ -108,13 +121,30 @@ class InferenceEngine:
                  quantization: Optional[Dict[str, Any]] = None,
                  offload: Optional[Dict[str, Any]] = None):
         """params: the training-layout dict (models/transformer.init, or
-        utils/convert.params_from_numpy); floating leaves are cast to
-        `dtype` and moved to `device` (None = the GPU; raises when absent).
+        utils/convert.params_from_numpy), or a prepared (serving-layout)
+        tree, whose leaves may be quantized already (inference/
+        quantization.py); floating leaves are cast to `dtype` and moved to
+        `device` (None = the GPU; raises when absent).
+
+        quantization: weight-only quantization, the JAX engine's keys:
+        {"bits": 8, "per_channel": True} for per-channel int8, or
+        {"bits": 4|8, "group_size", "min_ndim"} for groupwise. Unknown keys
+        raise TypeError; per_channel with bits other than 8 ValueError.
         """
-        if quantization:
-            raise _later("weight quantization", "quantization")
+        self._quantization = dict(quantization) if quantization else None
+        self._per_channel = bool(self._quantization
+                                 and self._quantization.pop("per_channel", False))
+        if self._quantization is not None:
+            unknown = set(self._quantization) - _QUANT_KEYS
+            if unknown:
+                raise TypeError(f"unknown quantization keys {sorted(unknown)}; expected "
+                                "bits / group_size / min_ndim / per_channel")
+        if self._per_channel and int(quantization.get("bits", 8)) != 8:
+            raise ValueError("per_channel quantization is int8-only (int4 uses the "
+                             "groupwise memory path)")
         if offload is not None:
-            raise _later("offload serving", "offload")
+            raise (_later("offload serving of quantized weights", "offload_quant")
+                   if quantization else _later("offload serving", "offload"))
         M.check_served(model_config)
         if dtype not in (torch.bfloat16, torch.float32):
             raise ValueError(f"serving dtype must be bfloat16 or float32 (got {dtype})")
@@ -165,9 +195,17 @@ class InferenceEngine:
 
     def refresh_params(self, params: Any) -> None:
         """(Re)point the served weights: cast floating leaves to the serving
-        dtype on the serving device and convert to the serving layout
-        (model.prepare: unstacked layers, fused QKV and gate/up)."""
+        dtype on the serving device, convert to the serving layout
+        (model.prepare: unstacked layers, fused QKV and gate/up) and, on a
+        quantized engine, quantize again (model.quantize_prepared, or
+        quantize_for_inference for groupwise). Leaves quantized already
+        keep their codes; their scales are rounded to the serving dtype
+        (kept in f32), as the JAX engine's cast rounds a carried tree's."""
         def cast(x):
+            if isinstance(x, (ChannelQuantWeight, QuantizedWeight)):
+                return dataclasses.replace(
+                    x, q=x.q.to(self.device),
+                    scale=x.scale.to(self.device).to(self._dtype).float())
             x = torch.as_tensor(x)
             dt = self._dtype if x.is_floating_point() else x.dtype
             return x.to(device=self.device, dtype=dt)
@@ -178,7 +216,16 @@ class InferenceEngine:
             top["layers"] = {k: cast(v) for k, v in layers.items()}
         else:
             top["layers"] = [{k: cast(v) for k, v in lp.items()} for lp in layers]
-        self.params = M.prepare(top, self.cfg)
+        prepared = M.prepare(top, self.cfg)
+        if self._per_channel:
+            prepared = M.quantize_prepared(prepared, self.cfg)
+        elif self._quantization:
+            prepared = quantize_for_inference(prepared, **self._quantization)
+        self.params = prepared
+        # groupwise codes are dequantized at each program's entry;
+        # per-channel codes feed the products directly (model._wmm)
+        groupwise = any(isinstance(x, QuantizedWeight) for x in leaves(prepared))
+        self._dequant = dequantize_tree if groupwise else (lambda p: p)
         dropped = self.graphs.clear()
         if dropped:  # they read the old weight tensors
             log_dist(f"refresh_params dropped {dropped} captured decode graphs; call warmup() "
@@ -207,15 +254,16 @@ class InferenceEngine:
             own = tables.shape[1] == self.config.blocks_per_seq
             return dict(alibi=self._alibi, layout=self._layout if own else None)
 
+        deq = self._dequant
         if n_steps == 0:
             def run(params, cache, toks, tables, ctx):
-                return (M.decode_step(params, cache, toks, tables, ctx, cfg,
+                return (M.decode_step(deq(params), cache, toks, tables, ctx, cfg,
                                       unique_rows=uniq, **extras(tables))[0],)
             return run
 
         def run(params, cache, toks, tables, ctx, keys=None, step0=None, presence=None):
             gen, logits, _, pres = M.decode_multi(
-                params, cache, toks, tables, ctx, cfg, n_steps=n_steps, unique_rows=uniq,
+                deq(params), cache, toks, tables, ctx, cfg, n_steps=n_steps, unique_rows=uniq,
                 sampling=sampling, keys=keys, step0=step0, presence=presence, **extras(tables))
             return gen, logits, pres
         return run
@@ -495,7 +543,7 @@ class InferenceEngine:
                 n_real[row] = n
                 tables[row] = self.state.block_table([uid], self.config.blocks_per_seq)[0]
             logits, self.cache = M.prefill_batch(
-                self.params, self.cache, self._dev(toks_b), self._dev(n_real),
+                self._dequant(self.params), self.cache, self._dev(toks_b), self._dev(n_real),
                 self._dev(tables), self.cfg)
             for pos, uid, toks in wave:
                 self.state.commit(uid, len(toks), token_ids=toks)

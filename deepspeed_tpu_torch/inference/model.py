@@ -49,7 +49,14 @@ What is served:
   head) and head_dim 80 (Phi-2) in every kernel;
 - in bf16 or f32 caches, or in int8 caches (`init_cache(kv_quant=True)`:
   int8 code pools beside per-layer [NBLK, bs, KV] f32 scale pools, written
-  and read only through the int8 kernels).
+  and read only through the int8 kernels);
+- with per-channel int8 weights (`quantize_prepared`: inference/
+  quantization.py ChannelQuantWeight leaves, the embedding scaled per row):
+  every weight product goes through `_wmm`, which on the card is the W8A16
+  GEMM (ops/cuda/int8_matmul.py) streaming the codes, with the scale
+  applied to its output; the embedding lookup gathers code rows and scales
+  them. Groupwise weights (QuantizedWeight) are dequantized by the engine
+  before a program runs and reach this module as full-precision tensors.
 
 `check_served` raises for the rest (learned positions, MoE, activation
 quantization: `T.unported_features`).
@@ -62,6 +69,7 @@ import torch
 
 from ..models import transformer as T
 from ..ops.attention import _repeat_kv, causal_attention
+from ..ops.cuda.int8_matmul import int8_matmul, int8_matmul_plain
 from ..ops.cuda.paged_attention import (
     paged_decode_attention,
     paged_decode_attention_int8,
@@ -74,6 +82,7 @@ from ..ops.cuda.paged_attention import (
     paged_kv_write_quant_plain,
 )
 from ..ops.sparse_attention import gather_plan, sparse_causal_attention
+from .quantization import ChannelQuantWeight, channel_quantize
 
 
 def check_served(cfg: T.TransformerConfig) -> None:
@@ -124,8 +133,64 @@ def prepare_layer(lp: Dict[str, Any], cfg: T.TransformerConfig) -> Dict[str, Any
     return lp
 
 
-def _embed_rows(embed: torch.Tensor, tokens: torch.Tensor) -> torch.Tensor:
-    return embed[tokens.long()]
+# per-layer serving weight name -> how many leading dims its product
+# contracts (per-channel quantization; the JAX package's _SERVING_SPECS,
+# limited to what the port serves: norm scales and biases stay full
+# precision, MoE is not served)
+_SERVING_SPECS = {"w_qkv": 1, "wq": 1, "wk": 1, "wv": 1, "wo": 2, "w_gi": 1, "w_gate": 1,
+                  "w_in": 1, "w_out": 1}
+
+
+def quantize_prepared(prepared: Dict[str, Any], cfg: T.TransformerConfig) -> Dict[str, Any]:
+    """Per-channel int8 over the prepared tree (the decode speed path; see
+    inference/quantization.py). The embedding quantizes per ROW, so one
+    scale serves both the lookup and the tied logits; norm scales, biases
+    and the lm_head bias stay full precision. A leaf already quantized
+    (a prepared int8 tree carried in whole) is kept."""
+    out = dict(prepared)
+    if not isinstance(out["embed"], ChannelQuantWeight):
+        out["embed"] = channel_quantize(prepared["embed"], 1, scale_first=True)
+    if "lm_head" in prepared and not isinstance(out["lm_head"], ChannelQuantWeight):
+        out["lm_head"] = channel_quantize(prepared["lm_head"], 1)
+    out["layers"] = [quantize_layer(lp, cfg) for lp in prepared["layers"]]
+    return out
+
+
+def quantize_layer(lp: Dict[str, Any], cfg: T.TransformerConfig) -> Dict[str, Any]:
+    """Per-channel int8 for one prepared layer (see quantize_prepared): the
+    weights of _SERVING_SPECS, each with its contraction's dims."""
+    check_served(cfg)
+    return {name: (channel_quantize(w, _SERVING_SPECS[name])
+                   if name in _SERVING_SPECS and isinstance(w, torch.Tensor) else w)
+            for name, w in lp.items()}
+
+
+def _wmm(x: torch.Tensor, w, use_kernel: bool, n_contract: int = 1) -> torch.Tensor:
+    """x [..., K-dims] times a weight whose leading n_contract dims it
+    contracts -> [..., output dims]. A per-channel int8 weight (the JAX
+    package's _wmm): codes x in x's dtype, times the scale in x's dtype,
+    through the W8A16 GEMM (use_kernel: the kernel for CUDA tensors) or
+    its plain version; a full-precision weight: the plain product."""
+    if isinstance(w, ChannelQuantWeight):
+        K = w.q.shape[1]
+        mm = int8_matmul if use_kernel else int8_matmul_plain
+        y = mm(x.reshape(-1, K).contiguous(), w.q, w.scale)
+        return y.reshape(*x.shape[:x.dim() - n_contract], *w.out_shape)
+    if n_contract == 2:
+        return torch.einsum("...hd,hde->...e", x, w)
+    if w.dim() == 3:
+        return torch.einsum("...e,ehd->...hd", x, w)
+    return x @ w
+
+
+def _embed_rows(embed, tokens: torch.Tensor) -> torch.Tensor:
+    """Embedding rows of `tokens`; from a per-channel int8 embedding, the
+    code rows times their row scales in the serving dtype."""
+    idx = tokens.long()
+    if isinstance(embed, ChannelQuantWeight):
+        dt = embed.dtype
+        return embed.q[idx].to(dt) * embed.scale[idx][..., None].to(dt)
+    return embed[idx]
 
 
 def _embed(params, tokens: torch.Tensor, cfg: T.TransformerConfig) -> torch.Tensor:
@@ -218,16 +283,24 @@ def _sparse_decode_allowed_slots(scfg, positions, n_blocks: int, bs: int,
     return rows[:, slot_blk].to(torch.int32)
 
 
-def _lm_logits(x: torch.Tensor, params, cfg: T.TransformerConfig) -> torch.Tensor:
+def _lm_logits(x: torch.Tensor, params, cfg: T.TransformerConfig,
+               use_kernel: bool = True) -> torch.Tensor:
     """Final-normed activations [.., E] -> f32 logits [.., V]. Tied
     embeddings contract against embed without materialising its
     transpose; an lm_head bias (Phi-2) is added in f32 after the product,
-    as the JAX package adds it."""
-    if cfg.tie_embeddings:
-        w = params["embed"].to(x.dtype)
-        return torch.einsum("...e,ve->...v", x, w).float()
-    y = torch.einsum("...e,ev->...v", x, params["lm_head"].to(x.dtype)).float()
-    if "lm_head_b" in params:
+    as the JAX package adds it. A per-channel int8 head (or tied
+    embedding): the product in x's dtype, cast to f32, times the f32
+    scale (the W8A16 GEMM's f32 form under use_kernel)."""
+    w = params["embed"] if cfg.tie_embeddings else params["lm_head"]
+    if isinstance(w, ChannelQuantWeight):
+        mm = int8_matmul if use_kernel else int8_matmul_plain
+        y = mm(x.reshape(-1, x.shape[-1]).contiguous(), w.q, w.scale, out_f32=True)
+        y = y.reshape(*x.shape[:-1], y.shape[-1])
+    elif cfg.tie_embeddings:
+        y = torch.einsum("...e,ve->...v", x, w.to(x.dtype)).float()
+    else:
+        y = torch.einsum("...e,ev->...v", x, w.to(x.dtype)).float()
+    if not cfg.tie_embeddings and "lm_head_b" in params:
         y = y + params["lm_head_b"].float()
     return y
 
@@ -291,35 +364,36 @@ def _write_kv(cache: PagedCache, li: int, k_new, v_new, flat_idx, use_kernel: bo
         write(cache.k[li], cache.v[li], k_new, v_new, flat_idx)
 
 
-def _mlp(h: torch.Tensor, lp, cfg: T.TransformerConfig) -> torch.Tensor:
+def _mlp(h: torch.Tensor, lp, cfg: T.TransformerConfig, use_kernel: bool = True) -> torch.Tensor:
     """Dense FFN over [T, E] tokens: gated (with the fused [E, 2F] gate|up
     weight when the prepared layout carries it) or not, with the biases
     the layer has. As in the JAX package, a gated MLP takes only b_out."""
     act = T._act_fn(cfg)
+    mm = lambda a, name: _wmm(a, lp[name], use_kernel)
     if not cfg.is_gated:
-        inner = h @ lp["w_in"]
+        inner = mm(h, "w_in")
         if "b_in" in lp:
             inner = inner + lp["b_in"]
         inner = act(inner)
     elif "w_gi" in lp:
-        gi = h @ lp["w_gi"]
+        gi = mm(h, "w_gi")
         F_ = gi.shape[-1] // 2
         inner = act(gi[:, :F_]) * gi[:, F_:]
     else:
-        inner = act(h @ lp["w_gate"]) * (h @ lp["w_in"])
-    out = inner @ lp["w_out"]
+        inner = act(mm(h, "w_gate")) * mm(h, "w_in")
+    out = mm(inner, "w_out")
     return out + lp["b_out"] if "b_out" in lp else out
 
 
-def _attn_out(att: torch.Tensor, lp) -> torch.Tensor:
+def _attn_out(att: torch.Tensor, lp, use_kernel: bool = True) -> torch.Tensor:
     """Attention output [..., H, D] -> its residual delta [..., E], with
     the output bias where the layer has one."""
-    out = torch.einsum("...hd,hde->...e", att, lp["wo"])
+    out = _wmm(att, lp["wo"], use_kernel, n_contract=2)
     return out + lp["bo"] if "bo" in lp else out
 
 
 def _residual(x: torch.Tensor, h1: torch.Tensor, att_out: torch.Tensor, lp,
-              cfg: T.TransformerConfig) -> torch.Tensor:
+              cfg: T.TransformerConfig, use_kernel: bool = True) -> torch.Tensor:
     """The layer's output from its input x [T, E] (any leading dims), its
     normed input h1 = ln1(x) and its attention delta: sequential, x + a +
     mlp(ln2(x + a)); parallel (Falcon, Phi), x + a + mlp(ln2(x)), with
@@ -327,10 +401,11 @@ def _residual(x: torch.Tensor, h1: torch.Tensor, att_out: torch.Tensor, lp,
     inference/model.py layer body, summed in its order)."""
     if cfg.parallel_residual:
         h2 = h1 if cfg.shared_ln else T._norm(x, lp["ln2_scale"], lp.get("ln2_bias"), cfg)
-        return x + att_out + _mlp(h2.reshape(-1, h2.shape[-1]), lp, cfg).reshape(x.shape)
+        return x + att_out + _mlp(h2.reshape(-1, h2.shape[-1]), lp, cfg,
+                                  use_kernel).reshape(x.shape)
     x = x + att_out
     h2 = T._norm(x, lp["ln2_scale"], lp.get("ln2_bias"), cfg)
-    return x + _mlp(h2.reshape(-1, h2.shape[-1]), lp, cfg).reshape(x.shape)
+    return x + _mlp(h2.reshape(-1, h2.shape[-1]), lp, cfg, use_kernel).reshape(x.shape)
 
 
 def _decode_attention(cache: PagedCache, li: int, q, tables, ctx, use_kernel: bool,
@@ -365,12 +440,19 @@ def _decode_attention(cache: PagedCache, li: int, q, tables, ctx, use_kernel: bo
                   allowed_slots=allowed_slots)
 
 
-def _qkv(h1: torch.Tensor, lp, cfg: T.TransformerConfig):
+def _qkv(h1: torch.Tensor, lp, cfg: T.TransformerConfig, use_kernel: bool = True):
     """[..., E] -> q [..., H, D], k and v [..., KV, D] (v contiguous; q and
     k are views of the product until rope copies them), with the q/k/v
-    biases where the layer has them."""
+    biases where the layer has them. A layer in the split form (wq, wk,
+    wv: a prepared tree from elsewhere) takes three products."""
+    if "w_qkv" not in lp:
+        out = []
+        for w, b in (("wq", "bq"), ("wk", "bk"), ("wv", "bv")):
+            y = _wmm(h1, lp[w], use_kernel)
+            out.append(y + lp[b] if b in lp else y)
+        return out[0], out[1], out[2].contiguous()
     H, KV = cfg.n_heads, cfg.kv_heads
-    qkv = torch.einsum("...e,ehd->...hd", h1, lp["w_qkv"])
+    qkv = _wmm(h1, lp["w_qkv"], use_kernel)
     if "b_qkv" in lp:
         qkv = qkv + lp["b_qkv"]
     q, k, v = torch.split(qkv, [H, KV, KV], dim=-2)
@@ -434,7 +516,7 @@ def decode_step(params, cache: PagedCache, tokens, tables, ctx_lens,
 
     for li, lp in enumerate(params["layers"]):
         h1 = T._norm(x, lp["ln1_scale"], lp.get("ln1_bias"), cfg)
-        q, k, v = _qkv(h1, lp, cfg)
+        q, k, v = _qkv(h1, lp, cfg, use_kernel)
         if rope is not None:
             q = T._rope_at(q, rope, cfg)
             k = T._rope_at(k, rope, cfg)
@@ -447,10 +529,10 @@ def decode_step(params, cache: PagedCache, tokens, tables, ctx_lens,
             _write_kv(cache, li, k, v, flat_idx, use_kernel)
             att = _decode_attention(cache, li, q, tables, ctx_lens, use_kernel, window,
                                     alibi=alibi, allowed_slots=allowed_slots, allowed=allowed)
-        x = _residual(x, h1, _attn_out(att, lp), lp, cfg)
+        x = _residual(x, h1, _attn_out(att, lp, use_kernel), lp, cfg, use_kernel)
 
     x = T._norm(x, params["ln_f_scale"], params.get("ln_f_bias"), cfg)
-    return _lm_logits(x, params, cfg), cache
+    return _lm_logits(x, params, cfg, use_kernel), cache
 
 
 def decode_multi(params, cache: PagedCache, tokens, tables, ctx_lens,
@@ -543,7 +625,7 @@ def prefill_batch(params, cache: PagedCache, tokens, n_real, tables,
         mask = _sparse_prefill_mask(scfg, Tp, x.device)
     for li, lp in enumerate(params["layers"]):
         h1 = T._norm(x, lp["ln1_scale"], lp.get("ln1_bias"), cfg)
-        q, k, v = _qkv(h1, lp, cfg)
+        q, k, v = _qkv(h1, lp, cfg, use_kernel)
         if rope is not None:
             q = T._rope_at(q, rope, cfg)
             k = T._rope_at(k, rope, cfg)
@@ -560,11 +642,11 @@ def prefill_batch(params, cache: PagedCache, tokens, n_real, tables,
         else:
             att = causal_attention(q, k, v, use_flash=use_kernel,
                                    window=cfg.window_for_layer(li), alibi=alibi)
-        x = _residual(x, h1, _attn_out(att, lp), lp, cfg)
+        x = _residual(x, h1, _attn_out(att, lp, use_kernel), lp, cfg, use_kernel)
 
     # logits for each prompt's last REAL token only: gather before the
     # vocab product so the head runs on B tokens, not B * Tp
     last = (n_real - 1).clamp(min=0).long()
     x_last = x[torch.arange(B, device=x.device), last]
     x_last = T._norm(x_last, params["ln_f_scale"], params.get("ln_f_bias"), cfg)
-    return _lm_logits(x_last, params, cfg), cache
+    return _lm_logits(x_last, params, cfg, use_kernel), cache

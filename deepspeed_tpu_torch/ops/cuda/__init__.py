@@ -17,6 +17,7 @@ from typing import Dict
 
 from . import evoformer_attention as _evo
 from . import flash_attention as _flash
+from . import int8_matmul as _int8_matmul
 from . import paged_attention as _paged
 from ._common import MODE_COUNTERS
 
@@ -34,6 +35,7 @@ WRAPPERS = {
     "evoformer_bwd_dq": _evo.evoformer_bwd_dq,
     "evoformer_bwd_dkv": _evo.evoformer_bwd_dkv,
     "evoformer_bwd_db2": _evo.evoformer_bwd_db2,
+    "int8_matmul": _int8_matmul.int8_matmul,
 }
 
 MODES = {mode: tuple(name for name, fn in WRAPPERS.items() if hasattr(fn, attr))

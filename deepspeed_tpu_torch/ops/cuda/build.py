@@ -32,7 +32,7 @@ from typing import Dict, Iterable, Optional
 CSRC = Path(__file__).resolve().parents[2] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
 SOURCES = ("paged_kv_write", "paged_decode", "flash_fwd", "flash_bwd", "evoformer_fwd",
-           "evoformer_bwd", "evoformer_db2")
+           "evoformer_bwd", "evoformer_db2", "int8_matmul")
 ARCH_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a")
 NVCC_FLAGS = ARCH_FLAGS + ("-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
                            "-Xptxas", "-v")
@@ -70,6 +70,9 @@ SIGNATURES = {
     },
     # db2, the sequence split's f32 scratch, ...; ..., D, its chunk count
     "evoformer_db2": {"evoformer_bwd_db2": [_P] * 10 + [_I] * 6 + [_F, _P]},
+    # out, x, codes, scale, the split's f32 partials, its arrival counters;
+    # M, N, K, rows a CTA, the split count and length, f32 output
+    "int8_matmul": {"int8_matmul": [_P] * 6 + [_I] * 7 + [_P]},
 }
 
 _loaded: Dict[str, ctypes.CDLL] = {}

@@ -39,6 +39,16 @@ MODE:
   is shorter than its launch: 5 runs of 200 back-to-back
   paged_decode_fused calls, CUDA-event ms a call and host us a call, the
   median and the least of the runs.
+- serve8w: the per-channel int8 weight lane (chip_smoke.py's serve_int8w
+  engines, from bf16 pools): the flagship (random bf16 weights from seed 0,
+  64 rows of 96 tokens, greedy decode_multi_fn(b, 24) at b = 8 and 64) and
+  Llama-2-7B at bench.py's widths (weights built and quantized layer by
+  layer, 32 rows, b = 1, 8 and 32), eagerly and replayed after warmup(),
+  as `serve` times them; and the W8A16 GEMM alone (int8_matmul) at the two
+  models' products for M = 1, 8, 32 and 64 (the decode rows): device ms a
+  call (torch.profiler over 20 calls, the median of 3) beside its bound. A
+  root whose engine takes no `quantization` raises: this mode compares
+  versions of the int8 lane.
 - splits: the decode kernel's device time (torch.profiler) at chip_smoke.py's
   phase-2 decode rows (Falcon-7B, Mistral's window, BLOOM-7B1, Phi-2) and
   the flagship's, fused bf16 and int8, for split counts 1, 2, 4, ... forced
@@ -324,6 +334,62 @@ def serve_worker(root):
     return out
 
 
+def _gemm_ms(C, torch, IM, dev, ms_of):
+    """The W8A16 GEMM's device ms a call at the flagship's and Llama-2-7B's
+    products (chip_smoke.INT8_MM_SHAPES) for the decode rows M = 1, 8, 32
+    and 64, in the form each path uses, and its bound."""
+    from deepspeed_tpu_torch.platform.accelerator import bound_ms
+
+    out = {}
+    for i, (name, (N, K, f32)) in enumerate(C.INT8_MM_SHAPES.items()):
+        if not name.startswith(("flagship", "llama2_7b")):
+            continue
+        x_all, q, s = C._int8_mm_inputs(N, K, 64, dev, seed=100 + i)
+        for M in (1, 8, 32, 64):
+            x = x_all[:M].contiguous()
+            ms = [ms_of(lambda: IM.int8_matmul(x, q, s, f32)) for _ in range(3)]
+            out[f"{name}/M{M}"] = {
+                "device_ms": statistics.median(ms), "runs_ms": ms,
+                "bound_ms": bound_ms(M * K * 2 + N * K + N * 4 + M * N * (4 if f32 else 2),
+                                     2.0 * M * N * K)[0]}
+        del x_all, q, s
+        torch.cuda.empty_cache()
+    return out
+
+
+def serve8w_worker(root):
+    root, C = _import_root(root)
+    import torch
+
+    from deepspeed_tpu_torch import init_inference
+    from deepspeed_tpu_torch.inference import model as M
+    from deepspeed_tpu_torch.models import transformer as T
+    from deepspeed_tpu_torch.ops.cuda import build
+    from deepspeed_tpu_torch.ops.cuda import int8_matmul as IM
+
+    build.build_all(["paged_kv_write", "paged_decode", "flash_fwd", "int8_matmul"])
+    dev = torch.device("cuda")
+    out = {"mode": "serve8w", "root": str(root),
+           "gemm": _gemm_ms(C, torch, IM, dev, lambda fn: C._device_ms(fn, 20)), "models": {}}
+    cfg = T.TransformerConfig(**C.FLAGSHIP)
+    eng = init_inference(C._init_served(T, cfg, dev), cfg, dict(C.SERVE_G),
+                         quantization=C.INT8W)
+    out["models"]["flagship"] = _decode_rates(C, eng, cfg.vocab_size, 0, C.GRAPH_PROMPTS, 0,
+                                              C.INT8W_FLAGSHIP_WIDTHS)
+    del eng
+    torch.cuda.empty_cache()
+    mc = T.TransformerConfig(**C.LLAMA2_7B_BENCH)
+    int8_tree = C._int8w_7b_weights(T, M, mc, dev)[1]
+    torch.cuda.empty_cache()
+    eng = init_inference(int8_tree, mc, dict(C.SERVE_7B_INT8W), quantization=C.INT8W)
+    del int8_tree
+    out["models"]["llama2_7b"] = _decode_rates(C, eng, mc.vocab_size, 0,
+                                               max(C.INT8W_7B_WIDTHS), 1, C.INT8W_7B_WIDTHS)
+    del eng
+    torch.cuda.empty_cache()
+    return out
+
+
 # ---------------------------------------------------------------------------
 # splits: the decode kernel at forced split counts
 # ---------------------------------------------------------------------------
@@ -587,8 +653,8 @@ def write_worker(root):
     return out
 
 
-WORKERS = {"evo": evo_worker, "serve": serve_worker, "splits": splits_worker,
-           "tiles": tiles_worker, "write": write_worker}
+WORKERS = {"evo": evo_worker, "serve": serve_worker, "serve8w": serve8w_worker,
+           "splits": splits_worker, "tiles": tiles_worker, "write": write_worker}
 
 
 def main(mode, roots):

@@ -2387,3 +2387,115 @@ class TestGraphsOnCard:
         with pytest.raises(RuntimeError, match="capturing"):
             eng.warmup(widths=[8])
         assert len(eng.graphs) == 0
+
+
+# the W8A16 GEMM's cases: decode rows over the flagship's and Falcon-7B's
+# products (K 4544 = 71 x 64, q/k/v N 73 x 64), tails in K (16 past a
+# 64-deep slice) and N (odd; past a 128-column tile), every CTA height
+# (16, 32, 64, 128 rows), a prefill, the tied logits
+INT8_MM_CASES = [(1, 3072, 1024), (8, 1024, 1024), (8, 4672, 4544), (5, 133, 4560),
+                 (33, 4673, 48), (64, 1000, 2816), (130, 333, 208), (512, 4096, 1024),
+                 (8, 32000, 1024)]
+
+
+@pytest.mark.cuda
+class TestInt8MatmulOnCard:
+    """The W8A16 GEMM (csrc/int8_matmul.cu) against its plain version on
+    the same inputs: its error against the exact product (f64) within 1.5x
+    (RMS) and 2x (max) of the plain bf16 version's, chip_smoke.py's
+    tolerance; two launches bit-identical; any split count within the same
+    tolerance, its counters left for the next launch; a per-channel int8
+    engine's replays bit-identical to eager, every product on the kernel."""
+
+    def _inputs(self, M, N, K, dev, seed=0):
+        return _chip_smoke()._int8_mm_inputs(N, K, M, dev, seed)
+
+    def _within(self, x, q, s, got, plain):
+        cs = _chip_smoke()
+        st = cs._int8_mm_errors(x, q, s, got, plain)
+        return cs._int8_mm_within(st), st
+
+    @pytest.mark.parametrize("f32", [False, True])
+    @pytest.mark.parametrize("M,N,K", INT8_MM_CASES)
+    def test_kernel_vs_plain(self, cuda_device, M, N, K, f32):
+        from deepspeed_tpu_torch.ops.cuda import int8_matmul as IM
+
+        x, q, s = self._inputs(M, N, K, cuda_device)
+        n0 = IM.int8_matmul.launches
+        got = IM.int8_matmul(x, q, s, f32)
+        again = IM.int8_matmul(x, q, s, f32)
+        torch.cuda.synchronize()
+        assert IM.int8_matmul.launches == n0 + 2
+        assert got.dtype == (torch.float32 if f32 else torch.bfloat16) and got.shape == (M, N)
+        assert _chip_smoke()._same_bits(got, again)
+        ok, st = self._within(x, q, s, got, IM.int8_matmul_plain(x, q, s, f32))
+        assert ok, st
+        assert (got[:, N // 2] == 0).all()  # the zero column
+
+    @pytest.mark.parametrize("M,N,K", [(8, 1024, 4096), (16, 4673, 4560), (64, 300, 2816)])
+    def test_every_split_count(self, cuda_device, monkeypatch, M, N, K):
+        from deepspeed_tpu_torch.ops.cuda import int8_matmul as IM
+
+        x, q, s = self._inputs(M, N, K, cuda_device, seed=1)
+        plain = IM.int8_matmul_plain(x, q, s)
+        for n in (1, 2, 3, 5, 8, 64):
+            monkeypatch.setattr(IM, "matmul_split_plan",
+                                lambda M_, N_, K_, sms, n=n: IM.matmul_split_plan_for(M_, N_, K_, n))
+            got = IM.int8_matmul(x, q, s)
+            again = IM.int8_matmul(x, q, s)  # the counters were left at 0
+            torch.cuda.synchronize()
+            assert _chip_smoke()._same_bits(got, again), n
+            ok, st = self._within(x, q, s, got, plain)
+            assert ok, (n, st)
+
+    def test_rejects_what_it_does_not_take(self, cuda_device):
+        from deepspeed_tpu_torch.ops.cuda import int8_matmul as IM
+
+        x, q, s = self._inputs(4, 64, 64, cuda_device)
+        with pytest.raises(ValueError, match="multiple of 16"):
+            IM.int8_matmul(x[:, :40].contiguous(), q[:, :40].contiguous(), s)
+        with pytest.raises(TypeError):
+            IM.int8_matmul(x.float(), q, s)
+        with pytest.raises(ValueError, match="shape"):
+            IM.int8_matmul(x, q, s[:10])
+
+    def test_quantized_engine_replay_and_launches(self, cuda_device):
+        from deepspeed_tpu_torch import init_inference
+        from deepspeed_tpu_torch.inference import model as M
+        from deepspeed_tpu_torch.models import transformer as T
+
+        cfg = T.TransformerConfig(**GRAPH_MODEL)
+        params = T.init(cfg, torch.Generator(device=cuda_device).manual_seed(0),
+                        device=cuda_device, dtype=torch.bfloat16)
+        eng = init_inference(params, cfg, dict(GRAPH_SERVE),
+                             quantization={"bits": 8, "per_channel": True})
+        r = np.random.default_rng(0)
+        uids = list(range(8))
+        PK.reset_launch_counts()
+        # prompts of 5-12 tokens: one prefill wave in the 16-token bucket
+        lg = eng.put(uids, [r.integers(0, 512, 5 + i).astype(np.int32) for i in uids])
+        torch.cuda.synchronize()
+        per_forward = 4 * cfg.n_layers + 1  # q/k/v, out, gate|up, down; the logits
+        assert PK.launch_counts()["int8_matmul"] == per_forward
+        toks = lg.argmax(-1).astype(np.int32)
+        eng.warmup(widths=[8], decode_chunks=[4])
+        tables = eng.state.block_table(uids, eng.config.blocks_per_seq, eng.pad_block)
+        ctx = np.array([eng.state.get(u).seen_tokens + 1 for u in uids], np.int32)
+        fn = eng.decode_multi_fn(8, 4)
+        got = fn(eng.params, eng.cache, toks, tables, ctx)
+        PK.reset_launch_counts()
+        want = fn(dict(eng.params), eng.cache, toks, tables, ctx)
+        torch.cuda.synchronize()
+        assert PK.launch_counts()["int8_matmul"] == 4 * per_forward
+        same = _chip_smoke()._same_bits
+        assert same(got[0], want[0]) and same(got[1], want[1])
+        # the kernel path against the plain path on the same codes
+        t = torch.as_tensor(toks, device=cuda_device)
+        tb, cx = torch.as_tensor(tables, device=cuda_device), torch.as_tensor(ctx, device=cuda_device)
+        outs = []
+        for use_kernel in (True, False):
+            cache = _chip_smoke()._pool_copies(eng.cache, torch.bfloat16)
+            outs.append(M.decode_step(eng.params, cache, t, tb, cx, cfg, use_kernel=use_kernel,
+                                      unique_rows=True)[0].float())
+        np.testing.assert_allclose(outs[0].cpu().numpy(), outs[1].cpu().numpy(),
+                                   atol=0.05 * float(outs[1].abs().max()), rtol=0)

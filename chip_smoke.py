@@ -96,15 +96,20 @@ Phases (any failure raises and exits nonzero):
              the W8A16 GEMM of the int8-weight lane (int8_matmul) at every
              per-channel int8 product of the served shapes (INT8_MM_SHAPES:
              the flagship's, Llama-2-7B's, Falcon-7B's at K 4544, BLOOM-7B1's
-             and Phi-2's logits, tails in K and N) at M = 1, 8, 32, 64, 512
-             and 4096 in both output forms, codes with both extremes and a
-             zero column: its error against the exact (f64) product within
+             and Phi-2's logits, tails in K and N) at M = 1, 8, 32, 64, 512,
+             768 and 4096 in both output forms, codes with both extremes and
+             a zero column: its error against the exact (f64) product within
              1.5x (RMS) and 2x (max) of the plain bf16 version's, two
-             launches bit-identical, timed beside cuBLAS bf16 on the codes
-             as bf16 weights, and planted faults that must fail: each
-             scale on the next column, the last 128-deep slice dropped, the
-             K tail dropped, the codes read as unsigned, the tied [V, E]
-             codes read as [E, V], one split left out;
+             launches bit-identical, timed cold (weights rotated past the
+             L2) and warm beside cuBLAS bf16 on the codes as bf16 weights,
+             and planted faults that must fail: each scale on the next
+             column, the last 128-deep unit dropped, the K tail dropped,
+             the codes read as unsigned, the tied [V, E] codes read as
+             [E, V], a cut tile's partial left out, a ring stage consumed
+             stale, a warpgroup given the next 64 channels, a tile stored
+             untransposed, rows past M stored (M 5 and 33); its design line
+             (int8_matmul_design_checks: ptxas, shared memory, stages,
+             CTAs an SM, host us a call for the tensor maps);
              time kernel, plain version and (where one exists) a single
              PyTorch library call computing the same function: device time
              from torch.profiler, and the time of back-to-back calls from
@@ -645,14 +650,17 @@ def _device_ms(fn, iters, warmup=3):
     """Device time per call: the summed duration of every kernel and copy
     the call ran on the card (torch.profiler over `iters` calls), with the
     host's launch overhead left out. A profile that recorded no device
-    activity at all is taken again (this happened once in a long run);
-    raises after three such profiles."""
+    activity at all is taken again, after a pause of a second (this
+    happened once in a long run, and three times in a row in a run of the
+    W8A16 checks alone); raises after six such profiles."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
     for _ in range(warmup):
         fn()
-    for _ in range(3):
+    for attempt in range(6):
+        if attempt:
+            time.sleep(1.0)
         torch.cuda.synchronize()
         with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
             for _ in range(iters):
@@ -662,6 +670,30 @@ def _device_ms(fn, iters, warmup=3):
         if us > 0:
             return us / 1e3 / iters
     raise RuntimeError("torch.profiler recorded no device time (CUPTI tracing is off)")
+
+
+# the H100's L2 cache: a weight that a decode or prefill step reads once
+# comes from HBM, so its product is timed cold (_cold_ms)
+L2_BYTES = 50 << 20
+
+
+def _weight_copies(make, nbytes):
+    """Copies of a weight of `nbytes` (each from make()), enough that a
+    call's weight was last read more than twice the L2's bytes before."""
+    return [make() for _ in range(max(2, -(-2 * L2_BYTES // nbytes) + 1))]
+
+
+def _cold_ms(fn, copies, iters):
+    """Device ms a call of fn(*copy) (_device_ms), each call taking the
+    next of `copies` in turn, so its weight comes cold from HBM as it does
+    in a step of a served model."""
+    k = [0]
+
+    def call():
+        k[0] += 1
+        return fn(*copies[k[0] % len(copies)])
+
+    return _device_ms(call, iters)
 
 
 def _where_time_goes(fn, top=8):
@@ -3097,7 +3129,8 @@ def _flash_bwd_mode_checks(FA, randn, dev, bound_ms):
 # Llama-2-7B's at bench.py:3614-3616 (tied vocab 32000), Falcon-7B's
 # (K 4544 = 71 x 64; q/k/v N 73 x 64; its MLP), BLOOM-7B1's tied vocab,
 # Phi-2's untied lm_head, and tails past the kernel's tiles: N 4673 (odd,
-# 65 past a 128-column tile), K 4560 (16 past a 64-deep slice)
+# 65 past a 128-column tile), K 4560 (80 past a 128-deep unit, 16 past a
+# 64-deep half)
 INT8_MM_SHAPES = {
     "flagship_qkv": (3072, 1024, False), "flagship_wo": (1024, 1024, False),
     "flagship_gate_up": (5632, 1024, False), "flagship_down": (1024, 2816, False),
@@ -3110,7 +3143,9 @@ INT8_MM_SHAPES = {
     "bloom_7b1_logits": (250880, 4096, True), "phi_2_lm_head": (51200, 2560, True),
     "tails": (4673, 4560, False),
 }
-INT8_MM_M = (1, 8, 32, 64, 512, 4096)
+# decode rows, a 512-token prompt, _serving_bench's prefill wave (8 x 96)
+# and a long prefill
+INT8_MM_M = (1, 8, 32, 64, 512, 768, 4096)
 # the rows of the kernel_check lines: the kernels line's row (Llama-2-7B's
 # q/k/v product in decode at batch 8) first
 INT8_MM_ROWS = {"int8_matmul": ("llama2_7b_qkv", 8), "int8_matmul@flagship_qkv_b8": (
@@ -3166,13 +3201,22 @@ def _int8_mm_within(st):
 def _int8_mm_faults(IM, dev):
     """Planted faults that the tolerance must catch, each beside its
     genuine case: every column's scale on the next column; the last
-    slice (IM.BK deep) dropped (Llama-2-7B's K 4096) and the K tail dropped
+    128-deep unit dropped (Llama-2-7B's K 4096) and the K tail dropped
     (K 4560: its last 16); the codes read as unsigned (the plain math on
-    code mod 256); the tied [V, E] codes read as [E, V]; and with split-K
-    one split left out (x zeroed over its K range)."""
+    code mod 256); the tied [V, E] codes read as [E, V]; a cut tile's
+    partial left out (x zeroed over the units of the first CTA's first
+    segment). Faults of the wgmma design, emulated on its inputs or
+    output: a ring stage consumed before its full barrier (the unit
+    STAGES into a tile reading the stage's previous unit, the tile's
+    first); a warpgroup given the next 64 channels' codes; the epilogue
+    storing a tile [channel][token] where Y[token, channel] belongs; the
+    token rows past M stored (M 5 and 33: the rows of the output buffer
+    past M must keep their NaN, _int8_mm_rows_past_m). The codes and x keep
+    their natural k order, so no permutation fault applies."""
     import torch
 
     out = {}
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
 
     def case(name, shape, M, fault):
         N, K, f32 = INT8_MM_SHAPES[shape]
@@ -3190,26 +3234,95 @@ def _int8_mm_faults(IM, dev):
         return lambda x, q, s, f32: IM.int8_matmul(x[:, :-n].contiguous(),
                                                    q[:, :-n].contiguous(), s, f32)
 
-    def split_left_out(x, q, s, f32):
-        plan = IM.matmul_split_plan(x.shape[0], q.shape[0], q.shape[1],
-                                    torch.cuda.get_device_properties(dev).multi_processor_count)
-        if plan.n < 2:
-            raise AssertionError(f"the split fault needs a split plan: {plan}")
+    def partial_left_out(x, q, s, f32):
+        plan = IM.matmul_split_plan(x.shape[0], q.shape[0], q.shape[1], sms)
+        cut = [seg for seg in IM.segments(plan) if seg[4] is not None]
+        if not cut:
+            raise AssertionError(f"the partial fault needs a plan that cuts tiles: {plan}")
+        _, tile, u0, u1, _ = cut[0]
+        k0 = (u0 - tile * plan.chunks) * IM.UK
         x = x.clone()
-        x[:, plan.split_len:2 * plan.split_len] = 0  # split 1's K range
+        x[:, k0:(u1 - tile * plan.chunks) * IM.UK] = 0  # that segment's K range
         return IM.int8_matmul(x, q, s, f32)
+
+    def stale_stage(x, q, s, f32):
+        st = IM.matmul_split_plan(x.shape[0], q.shape[0], q.shape[1], sms).stages
+        k = slice(st * IM.UK, (st + 1) * IM.UK)
+        x, q = x.clone(), q.clone()
+        x[:, k], q[:, k] = x[:, :IM.UK], q[:, :IM.UK]
+        return IM.int8_matmul(x, q, s, f32)
+
+    def next_channels(x, q, s, f32):  # warpgroup 0 of each tile given warpgroup 1's codes
+        qt = q.clone().view(-1, 2, 64, q.shape[1])
+        qt[:, 0] = qt[:, 1]
+        return IM.int8_matmul(x, qt.view_as(q), s, f32)
+
+    def untransposed(x, q, s, f32):  # each [tn, 128] tile written as its [128, tn] transpose
+        y = IM.int8_matmul(x, q, s, f32)
+        tn = IM.matmul_split_plan(x.shape[0], q.shape[0], q.shape[1], sms).tn
+        M, N = y.shape
+        t = y.view(M // tn, tn, N // IM.CH, IM.CH).permute(0, 2, 3, 1)
+        return t.reshape(M // tn, N // IM.CH, tn, IM.CH).permute(0, 2, 1, 3).reshape(M, N)
 
     case("scale_on_the_next_column", "llama2_7b_qkv", 8,
          lambda x, q, s, f32: IM.int8_matmul(x, q, torch.roll(s, -1), f32))
-    case("last_k_slice_dropped", "llama2_7b_qkv", 8, drop_k(IM.BK))
+    case("last_k_unit_dropped", "llama2_7b_qkv", 8, drop_k(IM.UK))
     case("k_tail_dropped", "tails", 8, drop_k(INT8_MM_SHAPES["tails"][1] % 64))
     case("codes_read_as_unsigned", "llama2_7b_qkv", 8,
          lambda x, q, s, f32: IM.int8_matmul_plain(x, q.view(torch.uint8), s, f32))
     case("tied_codes_read_as_e_by_v", "llama2_7b_logits", 8,
          lambda x, q, s, f32: IM.int8_matmul(x, q.view(q.shape[1], q.shape[0]).t()
                                              .contiguous(), s, f32))
-    case("split_left_out", "llama2_7b_wo", 8, split_left_out)
+    case("split_left_out", "llama2_7b_wo", 8, partial_left_out)
+    case("stale_ring_stage", "llama2_7b_qkv", 8, stale_stage)
+    case("warpgroup_given_the_next_64_channels", "llama2_7b_qkv", 64, next_channels)
+    case("tile_stored_untransposed", "llama2_7b_qkv", 8, untransposed)
+    for M in (5, 33):
+        out[f"rows_past_m_stored_m{M}"] = _int8_mm_rows_past_m(IM, dev, M)
     return out
+
+
+def _int8_mm_rows_past_m(IM, dev, M):
+    """The kernel (its C entry, on an output buffer with NaN rows past M)
+    at M rows stores rows 0..M-1 within the tolerance and leaves the rest
+    NaN; the fault, the kernel run over the tile's token width with rows
+    past M in x, must write some of them."""
+    import math
+
+    import torch
+
+    from deepspeed_tpu_torch.ops.cuda import build
+    from deepspeed_tpu_torch.ops.cuda._common import ptr, stream_of
+    from deepspeed_tpu_torch.ops.cuda.paged_attention import _sm_count, _workspace
+
+    N, K, _ = INT8_MM_SHAPES["tails"]
+    tn = IM.token_width(M)
+    x, q, s = _int8_mm_inputs(N, K, tn, dev, seed=9)
+    lib = build.load("int8_matmul")
+
+    def run(rows):
+        buf = torch.full((tn + 8, N), float("nan"), dtype=torch.bfloat16, device=dev)
+        plan = IM.matmul_split_plan(rows, N, K, _sm_count(dev.index or 0))
+        part = counters = None
+        if plan.splits:
+            part, counters = _workspace(dev, stream_of(x), math.prod(plan.scratch_shape),
+                                        plan.tiles)
+        opt = lambda t: None if t is None else ptr(t)
+        build.check(lib, lib.int8_matmul(ptr(buf), ptr(x), ptr(q), ptr(s), opt(part),
+                                         opt(counters), rows, N, K, plan.tn, plan.ctas, 0,
+                                         stream_of(x)), "int8_matmul")
+        torch.cuda.synchronize()
+        return buf
+
+    genuine, fault = run(M), run(tn)
+    st = _int8_mm_errors(x[:M], q, s, genuine[:M], IM.int8_matmul_plain(x[:M], q, s))
+    kept = bool(torch.isnan(genuine[M:]).all())
+    caught = not bool(torch.isnan(fault[M:]).all())
+    if not (_int8_mm_within(st) and kept and caught):
+        raise AssertionError(f"int8_matmul rows past M={M}: genuine within {_int8_mm_within(st)}, "
+                             f"rows past M left NaN {kept}; the fault wrote them {caught}")
+    return {"genuine_rows_past_m_untouched": kept,
+            "fault_rows_past_m_written": int((~torch.isnan(fault[M:])).any(1).sum())}
 
 
 def _int8_mm_checks(dev, bound_ms):
@@ -3218,10 +3331,12 @@ def _int8_mm_checks(dev, bound_ms):
     the kernel's error against the exact product (f64) within 1.5x (RMS)
     and 2x (max) of the plain bf16 version's; two launches bit-identical;
     the planted faults (_int8_mm_faults). Timed in the form its path uses
-    (device ms, torch.profiler): the kernel, the plain version and cuBLAS
-    bf16 on the codes as bf16 weights (the yardstick), beside the bound.
-    One line a shape (int8_matmul_checks); the INT8_MM_ROWS rows go to the
-    kernel_check lines."""
+    (device ms, torch.profiler): the kernel and cuBLAS bf16 on the codes as
+    bf16 weights (the yardstick) cold (_cold_ms: as a step finds its
+    weights) and warm, the plain version warm, beside the bound. One line
+    a shape (int8_matmul_checks), each M naming the design and the plan it
+    ran; the INT8_MM_ROWS rows go to the kernel_check lines with their
+    cold times as ms and library_ms."""
     import torch
 
     from deepspeed_tpu_torch.ops.cuda import int8_matmul as IM
@@ -3235,10 +3350,15 @@ def _int8_mm_checks(dev, bound_ms):
         for si, (shape, (N, K, f32_path)) in enumerate(INT8_MM_SHAPES.items()):
             x_all, q, s = _int8_mm_inputs(N, K, max(INT8_MM_M), dev, seed=100 + si)
             w16 = q.to(torch.bfloat16)  # the yardstick's bf16 weights
+            copies = _weight_copies(lambda: (q.clone(), s.clone()), N * K)
+            w16s = _weight_copies(lambda: (w16.clone(),), 2 * N * K)
             line = {}
             for M in INT8_MM_M:
                 x = x_all[:M].contiguous()
-                row = {"plan": list(IM.matmul_split_plan(M, N, K, sms)[:3])}
+                plan = IM.matmul_split_plan(M, N, K, sms)
+                row = {"design": "wgmma", "plan": {"tn": plan.tn, "ctas": plan.ctas,
+                                                   "tiles": plan.tiles, "stages": plan.stages,
+                                                   "cuts_tiles": plan.splits}}
                 for f32 in (False, True):
                     got = IM.int8_matmul(x, q, s, f32)
                     again = IM.int8_matmul(x, q, s, f32)
@@ -3257,32 +3377,70 @@ def _int8_mm_checks(dev, bound_ms):
                 f32 = f32_path
                 iters = 20 if M <= 64 else 5
                 out_bytes = 4 if f32 else 2
+                kern = lambda q_, s_: IM.int8_matmul(x, q_, s_, f32)
+                cublas = lambda w: x @ w.t()
                 row.update(
-                    ms=_device_ms(lambda: IM.int8_matmul(x, q, s, f32), iters),
+                    cold_ms=_cold_ms(kern, copies, iters),
+                    ms=_device_ms(lambda: kern(q, s), iters),
                     plain_ms=_device_ms(lambda: IM.int8_matmul_plain(x, q, s, f32), iters),
-                    cublas_bf16_ms=_device_ms(lambda: x @ w16.t(), iters),
+                    cublas_bf16_cold_ms=_cold_ms(cublas, w16s, iters),
+                    cublas_bf16_ms=_device_ms(lambda: cublas(w16), iters),
                     bound=bound_ms(M * K * 2 + N * K + N * 4 + M * N * out_bytes,
                                    2.0 * M * N * K))
+                row["bound_over_cold"] = row["bound"][0] / row["cold_ms"]
                 line[M] = row
                 for name, (rs, rm) in INT8_MM_ROWS.items():
                     if (rs, rm) == (shape, M):
-                        timed = _timings(lambda: IM.int8_matmul(x, q, s, f32),
+                        timed = _timings(lambda: kern(q, s),
                                          lambda: IM.int8_matmul_plain(x, q, s, f32),
-                                         lambda: x @ w16.t(), iters)
+                                         lambda: cublas(w16), iters)
+                        timed.update(warm_ms=timed["ms"], ms=row["cold_ms"],
+                                     library_warm_ms=timed["library_ms"],
+                                     library_ms=row["cublas_bf16_cold_ms"])
                         results[name] = dict(
                             max_abs_err=row["f32" if f32 else "bf16"]["max_abs_err_vs_plain"],
                             **timed, bound=row["bound"],
                             shape=f"M={M}, N={N}, K={K}, {'f32' if f32 else 'bf16'} out, "
-                                  f"split {row['plan']}, library = cuBLAS bf16 x @ W^T")
+                                  f"wgmma plan {row['plan']}, cold (weights rotated past the "
+                                  "L2), library = cuBLAS bf16 x @ W^T, cold")
             print(json.dumps({"int8_matmul_checks": shape, "N": N, "K": K,
                               "path_form": "f32" if f32_path else "bf16", "by_M": line}))
-            del x_all, q, s, w16
+            del x_all, q, s, w16, copies, w16s
             torch.cuda.empty_cache()
         faults = _int8_mm_faults(IM, dev)
     finally:
         torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = reduced
     print(json.dumps({"int8_matmul_planted_faults": faults}))
     return results
+
+
+def _int8_mm_design_checks(dev):
+    """One line (int8_matmul_design_checks): for each token width of the
+    kernel (Cfg<TN>), ptxas registers and spills (any spill fails), the
+    dynamic shared memory a CTA, its ring stages, the CTAs an SM holds
+    (by shared memory and by 384 threads' registers), and the host us a
+    call spends on its two tensor maps at Llama-2-7B's q/k/v (the codes'
+    found in the table, x's encoded; the mean of 1000)."""
+    import torch
+
+    from deepspeed_tpu_torch.ops.cuda import build
+    from deepspeed_tpu_torch.ops.cuda import int8_matmul as IM
+
+    ptxas = _ptxas_registers(build, "int8_matmul", ["w8a16_wgmma_kernel"])
+    N, K, _ = INT8_MM_SHAPES["llama2_7b_qkv"]
+    _, q, _ = _int8_mm_inputs(N, K, 1, dev, seed=5)
+    out = {}
+    for tn in IM.TOKEN_WIDTHS:
+        x = torch.randn((min(tn, 128), K), device=dev).to(torch.bfloat16)
+        rep = ptxas.get(f"w8a16_wgmma_kernel<{tn}>", {})
+        if rep.get("spill_stores", 1) or rep.get("spill_loads", 1):
+            raise AssertionError(f"int8_matmul Cfg<{tn}>: ptxas {rep} (spills or no report)")
+        out[tn] = {"ptxas": rep, "smem_bytes": IM.wgmma_smem(tn), "stages": IM.wgmma_stages(tn),
+                   "ctas_per_sm": min(IM.SM_SHARED_BYTES // IM.wgmma_smem(tn),
+                                      65536 // (384 * rep["registers"])),
+                   "host_us_maps_a_call": IM.encode_ns(x, q) / 1e3}
+    print(json.dumps({"int8_matmul_design_checks": out}))
+    return {}
 
 
 def check_kernels(cfg, dev):
@@ -3404,6 +3562,7 @@ def check_kernels(cfg, dev):
         "evoformer": lambda: _evo_kernel_checks(dev, bound_ms),
         # the W8A16 GEMM of the per-channel int8 weight lane at every served shape
         "int8_matmul": lambda: _int8_mm_checks(dev, bound_ms),
+        "int8_matmul_design": lambda: _int8_mm_design_checks(dev),
     }
     seconds = {"flagship_serving": time.perf_counter() - t0}
     for label, check in checks.items():

@@ -17,113 +17,74 @@
 //
 // Bound on the H100: bytes at decode (M = 1-64: N K code bytes against 2 M
 // N K operations, far below the 295 operations a byte where the tensor
-// cores would bind), operations at prefill (M in the hundreds or
-// thousands). The design, simple first:
-// - CTAs of 4 warps (8 at 128 rows) own a 128-column tile of Y and BM
-//   rows (16, 32, 64 or 128, the wrapper's plan: the least that holds M,
-//   or 16 for a decode step's small product) over a range of K; a
-//   3-stage cp.async ring brings each 128-deep slice of X
-//   (bf16 rows padded to 272 bytes) and of the codes (128-byte rows: a
-//   column's slice is one whole cache line; odd rows keep the two halves
-//   of their line swapped, so that the two rows a quarter-warp reads fall
-//   on different banks) to shared memory; out-of-range rows, columns and
-//   the K tail are zero-filled by the copy (K must be a multiple of 16).
-//   64-deep slices, or 4 stages, or warps of 32 rows measured slower at
-//   the decode rows (PERF.md).
-// - Products on mma.sync.m16n8k16 (bf16 in, f32 accumulate); a warp holds
-//   32 columns and up to 64 rows. The contraction order within each
-//   64-deep half of a slice is permuted so that a lane's B fragments for
-//   all four k16 steps of a column come from ONE 16-byte load of its codes
-//   (lane (g, t) reads codes [16t, 16t + 16) of column g; step j uses
-//   16t + 4j .. 16t + 4j + 3), and its A fragments from two 16-byte loads
-//   per row of the same k range: the sum runs over the same k either way.
-//   No ldmatrix; both loads are free of bank conflicts.
-// - Each int8 code converts to bf16 in registers, exactly: its sign bit
-//   flipped is code + 128, which placed under the exponent of 2^23 reads
-//   as 2^23 + code + 128 in f32; less 2^23 + 128 that is the code, whose
-//   f32 upper half is its bf16 (at most 8 significant bits).
-// - Split-K where the tiles alone would leave the card idle (decode):
-//   the plan (ops/cuda/int8_matmul.py matmul_split_plan) cuts K into
-//   n_splits ranges of whole slices; each CTA writes its f32
-//   partial tile, and the last CTA of a tile to arrive adds the partials
-//   in split order (no float atomics: the same bits every launch) and
-//   applies the epilogue. Arrival counters are left at 0 for the next
-//   launch (the wrapper keeps them, with the partials, in the stream's
-//   decode workspace).
-// - The epilogue rounds the f32 sum to bf16, then applies the scale as
-//   _wmm does (the product of two bf16 values is exact in f32, so one
-//   rounding), or for the logits multiplies in f32.
-// A wgmma/TMA design for prefill and a decode that reaches the int8 byte
-// bound are later work (ROADMAP B8).
+// cores would bind; at M 1-8 the 7B products stream their codes at 2.0-2.4
+// TB/s, close to what the TMA ring reaches with no arithmetic at all),
+// operations at prefill (M in the hundreds or thousands). Tokens 1-64 take
+// a tile 8-64 wide, prefill tiles of 128 (ops/cuda/int8_matmul.py
+// matmul_split_plan). The design:
+// - Operands swapped: a consumer warpgroup owns 64 output channels as
+//   wgmma's M and the token rows as wgmma's N (TN), so decode's 1-64 rows
+//   cost one n8-n64 product, not a 64-row tile of padding, the codes (the
+//   large operand) are read once a CTA, and the scale is one per
+//   accumulator row. Two consumer warpgroups make a tile of 128 channels
+//   x TN tokens.
+// - A producer warpgroup (one thread issues every load; setmaxnreg gives
+//   its registers to the consumers) keeps a ring of mbarrier-guarded
+//   stages in flight, as many as shared memory holds up to MAX_STAGES (6:
+//   12 at TN 8 measured slower). A stage is one unit of 128 contraction
+//   columns: the codes [128][128 B] as one TMA box, X [TN][128] as two
+//   boxes of 64 bf16, all with the 128-byte swizzle, from 2-D tensor maps
+//   (hopper.cuh encode_map_2d). TMA fills everything past N, M and K with
+//   zeros, so the loop masks nothing (K must be a multiple of 16 for the
+//   maps' row strides).
+// - Codes to bf16 once, in registers (A from registers, wgmma_rs_kb): each
+//   consumer thread reads its two rows' code pairs (k 2t, 2t + 1 and 2t +
+//   8, 2t + 9 of each k16 step; 2-byte shared loads, free of bank
+//   conflicts under the swizzle, two of them a 4-code word) and converts
+//   them exactly: an int8 code's sign bit flipped is code + 128, which
+//   placed under the exponent of 2^23 reads as 2^23 + code + 128 in f32;
+//   less 2^23 + 128 that is the code, whose f32 upper half is its bf16 (at
+//   most 8 significant bits). Shared memory is read once a code and
+//   nothing is written back; codes and X keep their natural k order, so
+//   nothing is permuted. The next 64-deep half's fragments are converted
+//   while the products of the last DEPTH - 1 halves run (DEPTH register
+//   sets).
+// - The grid is at most one wave and balanced: `ctas` CTAs each take a
+//   contiguous range of the units (tile, 128-deep slice), tile-major with
+//   token tiles fastest, so every CTA streams the same bytes whatever the
+//   tile count. A tile that one CTA covers is stored directly; a tile cut
+//   between CTAs (at most the first and the last of each CTA's range)
+//   leaves f32 partials in the CTAs' slots, and the CTA that ends the
+//   tile adds them after its run, in CTA order, which is k order (no float
+//   atomics: the same bits every launch). It waits only on CTAs of lower
+//   index; the others count their arrival without waiting. Arrival
+//   counters are left at 0 for the next launch (the wrapper keeps them,
+//   with the partials, in the stream's decode workspace). The plan takes a
+//   grid of one CTA a tile where the tiles fill the card (prefill).
+// - The epilogue stores the tile transposed, Y[token, channel], from the
+//   accumulators (eight lanes write a run of eight channels of one token
+//   row): rounds the f32 sum to bf16, then applies the scale as _wmm does
+//   (the product of two bf16 values is exact in f32, so one rounding), or
+//   for the logits multiplies in f32. Rows past M and channels past N are
+//   not written.
+// - Host: the codes are static weights, so their tensor map (a function of
+//   pointer, N, K and box) is encoded once and found in a table after; a
+//   call encodes only X's (int8_matmul_encode_ns reports the cost). Maps
+//   pass as __grid_constant__ parameters, so a CUDA graph captures them
+//   by value: a replay relies on X being the graph's static buffer.
+// The mma.sync kernel this replaces (its first design: 128-deep slices in
+// a 3-stage cp.async ring, both operands in registers) measured slower,
+// cold, at every product and width of the served lanes but M 1 on the
+// 4096 x 4096 product and the flagship's, and the flagship's logits at M
+// 8 (by 0.4-1.4 us; PERF.md); replayed decode ran faster at every lane
+// and width.
 
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
-#include <stdint.h>
+#include <chrono>
+#include <mutex>
+
+#include "hopper.cuh"
 
 namespace {
-
-// ops/cuda/int8_matmul.py's split plan keeps copies of BN, BK and STAGES
-constexpr int BN = 128;               // output columns a CTA
-constexpr int BK = 128;               // contraction depth of a ring stage (a multiple of 64)
-constexpr int STAGES = 3;             // stages in the cp.async ring
-constexpr int WN = 32;                // columns a warp: four n8 tiles
-constexpr int XS = BK + 8;            // bf16 row stride of an X slice in shared memory
-// a code row's 16-byte chunk c lives at chunk c ^ swz(row): rows of 128
-// bytes or more alternate halves of each 128-byte line, so that the two
-// rows a quarter-warp reads fall on different banks
-__device__ __forceinline__ int swz(int row) { return BK >= 128 ? (row & 1) << 2 : 0; }
-
-template <int BM>
-struct Cfg {
-  static constexpr int WM = BM < 64 ? BM : 64;  // rows a warp
-  static constexpr int MT = WM / 16;            // m16 tiles a warp
-  static constexpr int WARPS_M = BM / WM;
-  static constexpr int WARPS = WARPS_M * (BN / WN);
-  static constexpr int THREADS = WARPS * 32;
-  static constexpr int X_BYTES = BM * XS * 2;
-  static constexpr int Q_BYTES = BN * BK;
-  static constexpr int STAGE_BYTES = X_BYTES + Q_BYTES;
-  static constexpr int SMEM = STAGES * STAGE_BYTES;
-};
-
-struct Args {
-  void* out;
-  const __nv_bfloat16* x;
-  const int8_t* q;
-  const float* scale;
-  float* part;    // [n_splits, M, N] f32 partials (n_splits > 1)
-  int* counters;  // one arrival counter a tile (n_splits > 1), 0 between launches
-  int M, N, K, n_splits, split_len, f32_out;
-};
-
-__device__ __forceinline__ uint32_t smem_u32(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-// 16 bytes global -> shared; src-size 0 (valid false) zero-fills and reads nothing
-__device__ __forceinline__ void cp_async16(void* dst, const void* src, bool valid) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(smem_u32(dst)), "l"(src),
-               "r"(valid ? 16 : 0)
-               : "memory");
-}
-
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::: "memory");
-}
-
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
-}
-
-// c += a b: m16n8k16, bf16 in, f32 accumulate
-__device__ __forceinline__ void mma(float (&c)[4], const uint32_t (&a)[4], uint32_t b0,
-                                    uint32_t b1) {
-  asm("mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 {%0, %1, %2, %3}, "
-      "{%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
 
 // four int8 codes (code i in byte i of w) -> bf16x2 words lo = (c0, c1),
 // hi = (c2, c3), exactly (see the header)
@@ -137,249 +98,471 @@ __device__ __forceinline__ void codes_to_bf16(uint32_t w, uint32_t& lo, uint32_t
   hi = __byte_perm(__float_as_uint(f2), __float_as_uint(f3), 0x7632);
 }
 
-// slice [k0, k0 + BK) of X rows m0.. and of the codes of columns n0.. into
-// a ring stage; rows past M or N and k at or past k_end are zero-filled
-template <int BM>
-__device__ __forceinline__ void load_stage(const Args& a, uint8_t* stage, int m0, int n0, int k0,
-                                           int k_end, int tid) {
-  using C = Cfg<BM>;
-  __nv_bfloat16* xs = reinterpret_cast<__nv_bfloat16*>(stage);
-  int8_t* qs = reinterpret_cast<int8_t*>(stage + C::X_BYTES);
-#pragma unroll
-  for (int i = tid; i < BM * (BK / 8); i += C::THREADS) {
-    const int r = i / (BK / 8), c = i % (BK / 8);
-    const int m = m0 + r, k = k0 + c * 8;
-    const bool ok = m < a.M && k < k_end;
-    cp_async16(xs + r * XS + c * 8, ok ? a.x + (size_t)m * a.K + k : a.x, ok);
-  }
-#pragma unroll
-  for (int i = tid; i < BN * (BK / 16); i += C::THREADS) {
-    const int r = i / (BK / 16), c = i % (BK / 16);
-    const int n = n0 + r, k = k0 + c * 16;
-    const bool ok = n < a.N && k < k_end;
-    cp_async16(qs + r * BK + ((c ^ swz(r)) * 16), ok ? a.q + (size_t)n * a.K + k : a.q, ok);
-  }
-}
-
-// one ring stage's products into the warp's accumulators
-template <int BM>
-__device__ __forceinline__ void compute_stage(const uint8_t* stage,
-                                              float (&acc)[Cfg<BM>::MT][4][4], int warp_m,
-                                              int warp_n, int lane) {
-  using C = Cfg<BM>;
-  const __nv_bfloat16* xs = reinterpret_cast<const __nv_bfloat16*>(stage);
-  const int8_t* qs = reinterpret_cast<const int8_t*>(stage + C::X_BYTES);
-  const int g = lane >> 2, t = lane & 3;
-#pragma unroll
-  for (int h = 0; h < BK / 64; ++h) {  // each 64-deep part of the slice
-    uint32_t b[4][4][2];  // [n8 tile][k16 step][b0, b1]
-#pragma unroll
-    for (int nt = 0; nt < 4; ++nt) {
-      const int row = warp_n * WN + nt * 8 + g;
-      const uint4 raw =
-          *reinterpret_cast<const uint4*>(qs + row * BK + (((4 * h + t) ^ swz(row)) * 16));
-      codes_to_bf16(raw.x, b[nt][0][0], b[nt][0][1]);
-      codes_to_bf16(raw.y, b[nt][1][0], b[nt][1][1]);
-      codes_to_bf16(raw.z, b[nt][2][0], b[nt][2][1]);
-      codes_to_bf16(raw.w, b[nt][3][0], b[nt][3][1]);
-    }
-#pragma unroll
-    for (int mt = 0; mt < C::MT; ++mt) {
-      const __nv_bfloat16* r0 = xs + (warp_m * C::WM + mt * 16 + g) * XS + 64 * h + 16 * t;
-      const __nv_bfloat16* r1 = r0 + 8 * XS;
-      const uint4 p0 = *reinterpret_cast<const uint4*>(r0);
-      const uint4 p1 = *reinterpret_cast<const uint4*>(r0 + 8);
-      const uint4 q0 = *reinterpret_cast<const uint4*>(r1);
-      const uint4 q1 = *reinterpret_cast<const uint4*>(r1 + 8);
-      const uint32_t w0[8] = {p0.x, p0.y, p0.z, p0.w, p1.x, p1.y, p1.z, p1.w};
-      const uint32_t w1[8] = {q0.x, q0.y, q0.z, q0.w, q1.x, q1.y, q1.z, q1.w};
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const uint32_t af[4] = {w0[2 * j], w1[2 * j], w0[2 * j + 1], w1[2 * j + 1]};
-#pragma unroll
-        for (int nt = 0; nt < 4; ++nt) mma(acc[mt][nt], af, b[nt][j][0], b[nt][j][1]);
-      }
-    }
-  }
-}
-
 __device__ __forceinline__ float bf16_round(float v) {
   return __bfloat162float(__float2bfloat16_rn(v));
 }
 
-// Y[r, c] and Y[r, c + 1] from their f32 sums (c + 1 may be past N)
-__device__ __forceinline__ void store_pair(const Args& a, int r, int c, float v0, float v1) {
-  if (r >= a.M || c >= a.N) return;
-  const bool both = c + 1 < a.N;
-  const size_t at = (size_t)r * a.N + c;
-  if (a.f32_out) {
-    float* out = reinterpret_cast<float*>(a.out) + at;
-    const float y0 = bf16_round(v0) * a.scale[c];
-    if (both) {
-      const float y1 = bf16_round(v1) * a.scale[c + 1];
-      if ((a.N & 1) == 0) {
-        *reinterpret_cast<float2*>(out) = make_float2(y0, y1);
-      } else {
-        out[0] = y0;
-        out[1] = y1;
-      }
-    } else {
-      out[0] = y0;
-    }
-    return;
-  }
-  __nv_bfloat16* out = reinterpret_cast<__nv_bfloat16*>(a.out) + at;
-  const __nv_bfloat16 y0 = __float2bfloat16_rn(bf16_round(v0) * bf16_round(a.scale[c]));
-  if (both) {
-    const __nv_bfloat16 y1 = __float2bfloat16_rn(bf16_round(v1) * bf16_round(a.scale[c + 1]));
-    if ((a.N & 1) == 0) {
-      *reinterpret_cast<__nv_bfloat162*>(out) = __halves2bfloat162(y0, y1);
-    } else {
-      out[0] = y0;
-      out[1] = y1;
-    }
-  } else {
-    out[0] = y0;
+using namespace hopper;
+
+constexpr int UK = 128;           // contraction depth of a unit (a ring stage): a 128-byte code row
+constexpr int NWG = 2;            // consumer warpgroups
+constexpr int SMEM_CAP = 232448;  // dynamic shared memory a CTA may take (H100)
+// stages in the ring at most: more in flight (12 at TN 8) measured slower
+// at every decode product of Llama-2-7B (PERF.md)
+constexpr int MAX_STAGES = 6;
+constexpr int FIXED = 1024 + 2 * MAX_STAGES * 8;  // alignment slack, mbarriers
+
+// One instantiation: TN token rows a tile (wgmma's N; 8-64 at decode, 128
+// at prefill). Each consumer warpgroup owns one m64 tile of 64 output
+// channels (WGM = 1: CH = 128 channels a tile) and keeps DEPTH register
+// sets of A fragments (DEPTH - 1 groups of products in flight while the
+// next half-stage converts: 4 at decode, 3 at prefill, where the
+// accumulators take more registers). A ring stage holds one unit: the
+// codes [CH rows][128 B] as one TMA box and X [TN rows][128 k] as two
+// boxes of 64 bf16, all with the 128-byte swizzle; as many stages as
+// shared memory holds, at most MAX_STAGES. ops/cuda/int8_matmul.py
+// (wgmma_stages) keeps a copy of this rule.
+template <int TN_>
+struct Cfg {
+  static constexpr int TN = TN_;
+  static constexpr int DEPTH = TN <= 64 ? 4 : 3;
+  static constexpr int CH = 64 * NWG;
+  static constexpr int THREADS = (NWG + 1) * WG;
+  static constexpr int Q_BYTES = CH * UK;
+  static constexpr int X_BOX = TN * 128;
+  static constexpr int STAGE = Q_BYTES + 2 * X_BOX;
+  static constexpr int FIT = (SMEM_CAP - FIXED) / STAGE;
+  static constexpr int STAGES = FIT < MAX_STAGES ? FIT : MAX_STAGES;
+  static constexpr int BAR_OFF = STAGES * STAGE;
+  static constexpr int SMEM = BAR_OFF + 2 * STAGES * 8 + 1024;
+  static constexpr int ACC = TN / 2;  // f32 accumulators a thread
+  // registers a thread after setmaxnreg: the producer's given to the consumers
+  static constexpr int PRODUCER_REGS = 40;
+  static constexpr int CONSUMER_REGS = 232;
+  // the consumer holds the stages of DEPTH / 2 units while it waits for the next
+  static_assert(DEPTH >= 2 && DEPTH <= 4 && STAGES >= DEPTH / 2 + 1, "ring and register sets");
+  static_assert(SMEM <= SMEM_CAP, "shared memory");
+  static_assert(X_BOX % 1024 == 0 && Q_BYTES % 1024 == 0, "swizzle alignment");
+  static_assert((PRODUCER_REGS + NWG * CONSUMER_REGS) * WG <= 65536, "registers");
+};
+
+struct Args {
+  void* out;
+  const float* scale;
+  float* part;    // [2 x ctas, TN, CH] f32 partial tiles (a grid that splits tiles)
+  int* counters;  // one arrival counter a tile, 0 between launches
+  int M, N, K, f32_out;
+  int tok_tiles;  // ceil(M / TN); tile t: channel tile t / tok_tiles, token tile t % tok_tiles
+  int chunks;     // units a tile: ceil(K / UK)
+  long long units;
+};
+
+// CTA g of G takes units [start(g), start(g + 1)) in tile-major order
+__host__ __device__ __forceinline__ long long unit_start(long long g, long long units, int G) {
+  return g * units / G;
+}
+// the CTA whose range holds unit u
+__host__ __device__ __forceinline__ int cta_of(long long u, long long units, int G) {
+  return static_cast<int>(((u + 1) * G + units - 1) / units - 1);
+}
+
+__device__ __forceinline__ uint32_t lds_u16(uint32_t addr) {
+  uint32_t v;
+  asm volatile("ld.shared.u16 %0, [%1];" : "=r"(v) : "r"(addr));
+  return v;
+}
+
+__device__ __forceinline__ int ld_acquire(const int* p) {
+  int v;
+  asm volatile("ld.acquire.gpu.global.b32 %0, [%1];" : "=r"(v) : "l"(p) : "memory");
+  return v;
+}
+
+__device__ __forceinline__ void consumers_sync() {
+  asm volatile("bar.sync 1, %0;" ::"n"(NWG * WG) : "memory");
+}
+
+// The A fragments of one 64-deep half of a stage for the thread's rows
+// (rows 16 warp + g and + 8 of warpgroup wg's 64; k-steps kk 0-3: k 16 (4
+// half + kk) + 2t, +1 and +8, +9), each code converted once. The codes
+// box keeps row r's 16-byte chunk j at chunk j ^ (r % 8), so the eight
+// rows a warp reads at once fall on eight chunks: no bank conflicts.
+template <class C>
+__device__ __forceinline__ void convert(uint32_t (&af)[4][4], uint32_t codes, int half, int wg,
+                                        int warp, int g, int t) {
+  const uint32_t row = codes + (64 * wg + 16 * warp + g) * UK;
+#pragma unroll
+  for (int kk = 0; kk < 4; ++kk) {
+    const uint32_t off = (((4 * half + kk) ^ g) << 4) + 2 * t;
+    const uint32_t r0 = __byte_perm(lds_u16(row + off), lds_u16(row + off + 8), 0x5410);
+    const uint32_t r8 =
+        __byte_perm(lds_u16(row + 8 * UK + off), lds_u16(row + 8 * UK + off + 8), 0x5410);
+    codes_to_bf16(r0, af[kk][0], af[kk][2]);
+    codes_to_bf16(r8, af[kk][1], af[kk][3]);
   }
 }
 
-template <int BM>
-__global__ void __launch_bounds__(Cfg<BM>::THREADS) w8a16_kernel(const Args a) {
-  using C = Cfg<BM>;
-  extern __shared__ __align__(16) uint8_t smem[];
-  __shared__ int is_last;
-  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-  const int warp_m = warp / (BN / WN), warp_n = warp % (BN / WN);
-  const int n0 = blockIdx.x * BN, m0 = blockIdx.y * BM, split = blockIdx.z;
-  const int k_begin = split * a.split_len;
-  const int k_end = min(a.K, k_begin + a.split_len);
-  const int chunks = (k_end - k_begin + BK - 1) / BK;
-
-  float acc[C::MT][4][4];
+// acc += A (this half's codes) X^T (the half's X box, K-major)
+template <class C>
+__device__ __forceinline__ void issue(float (&acc)[C::ACC], const uint32_t (&af)[4][4],
+                                      uint32_t xbox) {
+  wgmma_fence();
 #pragma unroll
-  for (int mt = 0; mt < C::MT; ++mt)
-#pragma unroll
-    for (int nt = 0; nt < 4; ++nt)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) acc[mt][nt][e] = 0.f;
-
-#pragma unroll
-  for (int s = 0; s < STAGES - 1; ++s) {
-    if (s < chunks)
-      load_stage<BM>(a, smem + s * C::STAGE_BYTES, m0, n0, k_begin + s * BK, k_end, tid);
-    cp_async_commit();
-  }
-  for (int c = 0; c < chunks; ++c) {
-    cp_async_wait<STAGES - 2>();  // slice c has landed
-    __syncthreads();              // and every warp is done with slice c - 1's stage
-    const int next = c + STAGES - 1;
-    if (next < chunks)
-      load_stage<BM>(a, smem + (next % STAGES) * C::STAGE_BYTES, m0, n0, k_begin + next * BK,
-                     k_end, tid);
-    cp_async_commit();
-    compute_stage<BM>(smem + (c % STAGES) * C::STAGE_BYTES, acc, warp_m, warp_n, lane);
-  }
-  cp_async_wait<0>();
-
-  const int g = lane >> 2, t = lane & 3;
-  const int row0 = m0 + warp_m * C::WM + g, col0 = n0 + warp_n * WN + 2 * t;
-  if (a.n_splits == 1) {
-#pragma unroll
-    for (int mt = 0; mt < C::MT; ++mt)
-#pragma unroll
-      for (int nt = 0; nt < 4; ++nt) {
-        const int r = row0 + mt * 16, c = col0 + nt * 8;
-        store_pair(a, r, c, acc[mt][nt][0], acc[mt][nt][1]);
-        store_pair(a, r + 8, c, acc[mt][nt][2], acc[mt][nt][3]);
-      }
-    return;
-  }
-
-  // split-K: this split's partial tile, then the last CTA to arrive adds
-  // all of them in split order
-  float* part = a.part + (size_t)split * a.M * a.N;
-#pragma unroll
-  for (int mt = 0; mt < C::MT; ++mt)
-#pragma unroll
-    for (int nt = 0; nt < 4; ++nt)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int r = row0 + mt * 16 + (e >> 1) * 8, c = col0 + nt * 8 + (e & 1);
-        if (r < a.M && c < a.N) part[(size_t)r * a.N + c] = acc[mt][nt][e];
-      }
-  __threadfence();
-  __syncthreads();
-  const int tile = blockIdx.y * gridDim.x + blockIdx.x;
-  if (tid == 0) is_last = atomicAdd(a.counters + tile, 1) == a.n_splits - 1;
-  __syncthreads();
-  if (!is_last) return;
-  __threadfence();
-  for (int i = tid; i < BM * (BN / 2); i += C::THREADS) {
-    const int r = m0 + i / (BN / 2), c = n0 + 2 * (i % (BN / 2));
-    if (r >= a.M || c >= a.N) continue;
-    float v0 = 0.f, v1 = 0.f;
-    for (int s = 0; s < a.n_splits; ++s) {
-      const float* p = a.part + ((size_t)s * a.M + r) * a.N + c;
-      v0 += __ldcg(p);
-      if (c + 1 < a.N) v1 += __ldcg(p + 1);
-    }
-    store_pair(a, r, c, v0, v1);
-  }
-  if (tid == 0) a.counters[tile] = 0;  // ready for the next launch
+  for (int kk = 0; kk < 4; ++kk)
+    wgmma_rs_kb<C::TN>(acc, af[kk], gmma_desc(xbox + kk * 32, 16, 1024));
+  wgmma_commit();
 }
 
-template <int BM>
-int launch(const Args& a, cudaStream_t stream) {
-  using C = Cfg<BM>;
+__device__ __forceinline__ void keep(uint32_t (&af)[4][4]) {
+#pragma unroll
+  for (int kk = 0; kk < 4; ++kk) fence_regs(af[kk]);
+}
+
+// Where the thread's accumulator i sits in the tile: channel 64 wg + 16
+// warp + g (+8 for i % 4 >= 2), token 8 (i / 4) + 2t (+1 for odd i).
+struct Frag {
+  int wg, warp, g, t;
+  __device__ __forceinline__ int ch(int i) const {
+    return 64 * wg + 16 * warp + g + 8 * ((i >> 1) & 1);
+  }
+  __device__ __forceinline__ int tok(int i) const { return 8 * (i / 4) + 2 * t + (i & 1); }
+};
+
+// Y[tok, ch] of the thread's accumulators: the tile stored transposed;
+// rows past M and channels past N are not written.
+template <class C>
+__device__ __forceinline__ void store_tile(const Args& a, const float (&v)[C::ACC], int tile,
+                                           const Frag& f) {
+  const int ch_base = (tile / a.tok_tiles) * C::CH;
+  const int tok_base = (tile % a.tok_tiles) * C::TN;
+  const int ch0 = ch_base + f.ch(0);
+  const float s0 = ch0 < a.N ? a.scale[ch0] : 0.f;
+  const float s1 = ch0 + 8 < a.N ? a.scale[ch0 + 8] : 0.f;
+#pragma unroll
+  for (int i = 0; i < C::ACC; ++i) {
+    const int tok = tok_base + f.tok(i);
+    const int ch = ch_base + f.ch(i);
+    if (tok >= a.M || ch >= a.N) continue;
+    const float s = (i >> 1) & 1 ? s1 : s0;
+    const size_t at = static_cast<size_t>(tok) * a.N + ch;
+    if (a.f32_out)
+      static_cast<float*>(a.out)[at] = bf16_round(v[i]) * s;
+    else
+      static_cast<__nv_bfloat16*>(a.out)[at] =
+          __float2bfloat16_rn(bf16_round(v[i]) * bf16_round(s));
+  }
+}
+
+// A tile cut between CTAs ga..gb: each leaves its f32 partial in a
+// [TN][CH] slot of its own (2 g: its first segment, 2 g + 1: its last);
+// the CTA that ends the tile (gb, for which it is the first segment) adds
+// them at the end of its run, once the others have arrived, in CTA order,
+// which is k order (no float atomics: the same bits every launch). gb
+// waits only on CTAs of lower index, which run before it or beside it.
+template <class C>
+__device__ __forceinline__ void combine(const Args& a, int tile, const Frag& f) {
+  const int G = gridDim.x;
+  const long long tu0 = static_cast<long long>(tile) * a.chunks;
+  const int ga = cta_of(tu0, a.units, G);
+  if (threadIdx.x == 0) {
+    int* c = a.counters + tile;
+    for (uint32_t n = 0; ld_acquire(c) != static_cast<int>(blockIdx.x) - ga; ++n) {
+      if (n == (1u << 26)) __trap();  // a lost arrival fails the launch, never hangs the card
+      __nanosleep(64);
+    }
+    *c = 0;  // ready for the next launch
+  }
+  consumers_sync();
+  const bool ga_mid = unit_start(ga, a.units, G) < tu0;  // CTA ga began in an earlier tile
+  float v[C::ACC];
+#pragma unroll
+  for (int i = 0; i < C::ACC; ++i) v[i] = 0.f;
+  for (int c = ga; c <= static_cast<int>(blockIdx.x); ++c) {
+    const float* p = a.part + static_cast<size_t>(2 * c + (c == ga && ga_mid)) * C::TN * C::CH;
+#pragma unroll
+    for (int i = 0; i < C::ACC; ++i) v[i] += __ldcg(p + f.tok(i) * C::CH + f.ch(i));
+  }
+  store_tile<C>(a, v, tile, f);
+}
+
+// After a segment [u0, u1) of a tile: a whole tile is stored; a part goes
+// to the CTA's slot, and a CTA that does not end the tile counts its
+// arrival (no wait). Returns the tile if this CTA ends it (combined after
+// its run), else -1.
+template <class C>
+__device__ __forceinline__ int epilogue(const Args& a, const float (&acc)[C::ACC], int tile,
+                                        long long u0, long long u1, long long ub, const Frag& f) {
+  const long long tu0 = static_cast<long long>(tile) * a.chunks;
+  if (u0 == tu0 && u1 == tu0 + a.chunks) {
+    store_tile<C>(a, acc, tile, f);
+    return -1;
+  }
+  float* mine = a.part + static_cast<size_t>(2 * blockIdx.x + (u0 > ub)) * C::TN * C::CH;
+#pragma unroll
+  for (int i = 0; i < C::ACC; ++i) mine[f.tok(i) * C::CH + f.ch(i)] = acc[i];
+  if (u1 == tu0 + a.chunks) return tile;  // this CTA ends the tile
+  consumers_sync();                       // every thread's part is written
+  if (threadIdx.x == 0) {
+    __threadfence();
+    atomicAdd(a.counters + tile, 1);
+  }
+  return -1;
+}
+
+// A consumer warpgroup: for each segment of the CTA's units (the part of
+// one tile), the pipeline below, then the epilogue. The segment runs as
+// half-stages (64 deep): the A fragments of half-step s + 1 are converted
+// while the products of steps s - DEPTH + 2 .. s run, in DEPTH register
+// sets taken in turn (so no set is rewritten while a product reads it);
+// a stage is released once its second half's products are done.
+template <class C>
+__device__ __forceinline__ void consume(const Args& a, uint32_t base, int wg, long long ub,
+                                        long long ue) {
+  const int wtid = threadIdx.x % WG;
+  const int lane = wtid % 32;
+  const Frag f{wg, wtid / 32, lane / 4, lane % 4};
+  const uint32_t full = base + C::BAR_OFF;
+  const uint32_t empty = full + 8 * C::STAGES;
+  float acc[C::ACC];
+  uint32_t af[C::DEPTH][4][4];
+#pragma unroll
+  for (int d = 0; d < C::DEPTH; ++d)
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) af[d][kk][e] = 0u;
+  auto release = [&](int unit) {
+    __syncwarp();
+    if (lane == 0) mbar_arrive(empty + 8 * (unit % C::STAGES));
+  };
+  auto stage = [&](int unit) { return base + (unit % C::STAGES) * C::STAGE; };
+  auto arrived = [&](int unit) {
+    mbar_wait(full + 8 * (unit % C::STAGES), (unit / C::STAGES) & 1);
+  };
+  int deferred = -1;  // the tile this CTA ends, combined after its run
+  int it = 0;         // the ring position of the segment's first unit
+  for (long long u = ub; u < ue;) {
+    const int tile = static_cast<int>(u / a.chunks);
+    const long long seg_end = min(ue, static_cast<long long>(tile + 1) * a.chunks);
+    const int steps = 2 * static_cast<int>(seg_end - u);
+#pragma unroll
+    for (int i = 0; i < C::ACC; ++i) acc[i] = 0.f;
+    arrived(it);
+    convert<C>(af[0], stage(it), 0, wg, f.warp, f.g, f.t);
+    for (int s0 = 0; s0 < steps; s0 += C::DEPTH) {
+#pragma unroll
+      for (int d = 0; d < C::DEPTH; ++d) {
+        const int s = s0 + d;
+        if (s < steps) {
+          issue<C>(acc, af[d], stage(it + s / 2) + C::Q_BYTES + (s & 1) * C::X_BOX);
+          wgmma_wait_n<C::DEPTH - 1>();  // step s - DEPTH + 1 is done: its set is free
+          keep(af[(d + 1) % C::DEPTH]);
+          const int done = s - (C::DEPTH - 1);
+          if (done >= 0 && (done & 1)) release(it + done / 2);
+          if (s + 1 < steps) {
+            if (((s + 1) & 1) == 0) arrived(it + (s + 1) / 2);
+            convert<C>(af[(d + 1) % C::DEPTH], stage(it + (s + 1) / 2), (s + 1) & 1, wg, f.warp,
+                       f.g, f.t);
+          }
+        }
+      }
+    }
+    wgmma_wait_n<0>();
+#pragma unroll
+    for (int d = 0; d < C::DEPTH; ++d) keep(af[d]);
+    fence_regs(acc);
+    for (int done = max(steps - C::DEPTH + 1, 0); done < steps; ++done)
+      if (done & 1) release(it + done / 2);
+    const int ends = epilogue<C>(a, acc, tile, u, seg_end, ub, f);
+    if (ends >= 0) deferred = ends;
+    it += static_cast<int>(seg_end - u);
+    u = seg_end;
+  }
+  if (deferred >= 0) combine<C>(a, deferred, f);
+}
+
+// Grid: `ctas` CTAs, each a contiguous range of the units (tile-major,
+// token tiles fastest within a channel tile). Threads: NWG consumer
+// warpgroups, then the producer warpgroup, one thread of which issues
+// every load.
+template <class C>
+__global__ void __launch_bounds__(C::THREADS, 1)
+    w8a16_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
+                       const __grid_constant__ CUtensorMap tx, const Args a) {
+  extern __shared__ __align__(1024) unsigned char smem_raw[];
+  const uint32_t raw = smem_u32(smem_raw);
+  const uint32_t base = (raw + 1023u) & ~1023u;
+  const uint32_t full = base + C::BAR_OFF;
+  const uint32_t empty = full + 8 * C::STAGES;
+  const long long ub = unit_start(blockIdx.x, a.units, gridDim.x);
+  const long long ue = unit_start(blockIdx.x + 1, a.units, gridDim.x);
+
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < C::STAGES; ++s) {
+      mbar_init(full + 8 * s, 1);
+      mbar_init(empty + 8 * s, 4 * NWG);  // one arrival per consumer warp
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+  }
+  __syncthreads();
+
+  const int wg = threadIdx.x / WG;
+  if (wg == NWG) {  // producer
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;" ::"n"(C::PRODUCER_REGS));
+    if (threadIdx.x % WG == 0) {
+      int it = 0;
+      for (long long u = ub; u < ue; ++u, ++it) {
+        const int st = it % C::STAGES;
+        const int tile = static_cast<int>(u / a.chunks);
+        const int k0 = static_cast<int>(u - static_cast<long long>(tile) * a.chunks) * UK;
+        const int ch0 = (tile / a.tok_tiles) * C::CH;
+        const int tok0 = (tile % a.tok_tiles) * C::TN;
+        mbar_wait(empty + 8 * st, ((it / C::STAGES) & 1) ^ 1);  // the first pass finds it free
+        const uint32_t bar = full + 8 * st;
+        const uint32_t dst = base + st * C::STAGE;
+        mbar_expect_tx(bar, C::STAGE);
+        tma_load_2d(dst, &tq, bar, k0, ch0);
+        tma_load_2d(dst + C::Q_BYTES, &tx, bar, k0, tok0);
+        tma_load_2d(dst + C::Q_BYTES + C::X_BOX, &tx, bar, k0 + 64, tok0);
+      }
+    }
+    return;
+  }
+  asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;" ::"n"(C::CONSUMER_REGS));
+  consume<C>(a, base, wg, ub, ue);
+}
+
+// The codes' tensor map is a function of (pointer, N, K, box rows) alone,
+// so it is encoded once and kept: a weight's later calls find it here
+// (a direct-mapped table; a collision encodes again).
+constexpr int MAP_SLOTS = 4096;
+struct MapSlot {
+  const void* p;
+  int rows, cols, box;
+  CUtensorMap map;
+};
+MapSlot map_slots[MAP_SLOTS];
+std::mutex map_mutex;
+
+int codes_map(CUtensorMap* out, const void* q, int N, int K, int box_rows) {
+  const size_t h = (reinterpret_cast<uintptr_t>(q) >> 8) ^ (static_cast<size_t>(N) * 31 + K) ^
+                   (static_cast<size_t>(box_rows) << 3);
+  MapSlot& s = map_slots[h % MAP_SLOTS];
+  std::lock_guard<std::mutex> lock(map_mutex);
+  if (s.p != q || s.rows != N || s.cols != K || s.box != box_rows) {
+    const int err = encode_map_2d(&s.map, q, CU_TENSOR_MAP_DATA_TYPE_UINT8, 1, N, K, box_rows, UK);
+    if (err != 0) {
+      s.p = nullptr;
+      return err;
+    }
+    s.p = q;
+    s.rows = N;
+    s.cols = K;
+    s.box = box_rows;
+  }
+  *out = s.map;
+  return 0;
+}
+
+template <class C>
+int encode_maps(CUtensorMap* tq, CUtensorMap* tx, const void* x, const void* q, int M, int N,
+                int K) {
+  int err = codes_map(tq, q, N, K, C::CH);
+  if (err == 0)
+    err = encode_map_2d(tx, x, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, M, K, C::TN, 64);
+  return err;
+}
+
+template <class C>
+int launch(const void* x, const void* q, const Args& a, int ctas, cudaStream_t stream) {
+  CUtensorMap tq, tx;
+  const int err = encode_maps<C>(&tq, &tx, x, q, a.M, a.N, a.K);
+  if (err != 0) return err;
   static int attr_device = -1;  // the device whose shared memory cap was last set
   int dev = 0;
   cudaGetDevice(&dev);
   if (attr_device != dev) {
     const cudaError_t e = cudaFuncSetAttribute(
-        w8a16_kernel<BM>, cudaFuncAttributeMaxDynamicSharedMemorySize, C::SMEM);
-    if (e != cudaSuccess) return (int)e;
+        w8a16_wgmma_kernel<C>, cudaFuncAttributeMaxDynamicSharedMemorySize, C::SMEM);
+    if (e != cudaSuccess) return static_cast<int>(e);
     attr_device = dev;
   }
-  const dim3 grid((a.N + BN - 1) / BN, (a.M + BM - 1) / BM, a.n_splits);
-  w8a16_kernel<BM><<<grid, C::THREADS, C::SMEM, stream>>>(a);
-  return (int)cudaGetLastError();
+  w8a16_wgmma_kernel<C><<<ctas, C::THREADS, C::SMEM, stream>>>(tq, tx, a);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// the token widths (ops/cuda/int8_matmul.py TOKEN_WIDTHS)
+template <class F>
+int with_cfg(int tn, F&& f) {
+  switch (tn) {
+    case 8:
+      return f(Cfg<8>{});
+    case 16:
+      return f(Cfg<16>{});
+    case 32:
+      return f(Cfg<32>{});
+    case 64:
+      return f(Cfg<64>{});
+    case 128:
+      return f(Cfg<128>{});
+    default:
+      return static_cast<int>(cudaErrorInvalidValue);
+  }
+}
+
+// whether some CTA's range starts inside a tile (then tiles are split)
+bool splits_tiles(long long units, int chunks, int ctas) {
+  if (units % ctas == 0) return (units / ctas) % chunks != 0;
+  for (int g = 1; g < ctas; ++g)
+    if (unit_start(g, units, ctas) % chunks != 0) return true;
+  return false;
 }
 
 }  // namespace
 
 // out [M, N] bf16 (f32_out 0) or f32 (f32_out 1); x [M, K] bf16; codes
-// [N, K] int8; scale [N] f32; K a multiple of 16. bm: 16, 32, 64 or 128
-// rows a CTA. n_splits ranges of split_len (a multiple of 64) along K,
-// none empty; with n_splits > 1, `partials` is the f32 scratch [n_splits,
-// M, N] and `counters` ceil(M / bm) * ceil(N / 128) int32 counters (all 0,
-// left 0).
+// [N, K] int8; scale [N] f32; K a multiple of 16; x and codes 16-byte
+// aligned. tn: token rows a tile, 8, 16, 32, 64 or 128. ctas: the grid,
+// at most the units (ceil(N / 128) ceil(M / tn) tiles x ceil(K / 128));
+// where it cuts a tile between CTAs, `partials` holds 2 x ctas x tn x 128
+// f32 and `counters` one int32 a tile (all 0, left 0).
 extern "C" int int8_matmul(void* out, const void* x, const void* codes, const void* scale,
-                           void* partials, void* counters, int M, int N, int K, int bm,
-                           int n_splits, int split_len, int f32_out, void* stream) {
+                           void* partials, void* counters, int M, int N, int K, int tn, int ctas,
+                           int f32_out, void* stream) {
   if (M <= 0 || N <= 0) return 0;
-  if (K <= 0 || K % 16 != 0 || n_splits < 1 || n_splits > 65535 || split_len <= 0 ||
-      split_len % BK != 0 || (long long)(n_splits - 1) * split_len >= K)
-    return (int)cudaErrorInvalidValue;
-  if (n_splits > 1 && (partials == nullptr || counters == nullptr))
-    return (int)cudaErrorInvalidValue;
-  if (bm <= 0 || (M + bm - 1) / bm > 65535) return (int)cudaErrorInvalidValue;
-  const Args a{out, (const __nv_bfloat16*)x, (const int8_t*)codes, (const float*)scale,
-               (float*)partials, (int*)counters, M, N, K, n_splits, split_len, f32_out != 0};
-  cudaStream_t st = (cudaStream_t)stream;
-  switch (bm) {
-    case 16:
-      return launch<16>(a, st);
-    case 32:
-      return launch<32>(a, st);
-    case 64:
-      return launch<64>(a, st);
-    case 128:
-      return launch<128>(a, st);
-    default:
-      return (int)cudaErrorInvalidValue;
-  }
+  if (K <= 0 || K % 16 != 0) return static_cast<int>(cudaErrorInvalidValue);
+  return with_cfg(tn, [&](auto cfg) {
+    using C = decltype(cfg);
+    const int tok_tiles = (M + C::TN - 1) / C::TN;
+    const long long tiles = static_cast<long long>((N + C::CH - 1) / C::CH) * tok_tiles;
+    const int chunks = (K + UK - 1) / UK;
+    const long long units = tiles * chunks;
+    if (tiles > (1LL << 30) || ctas < 1 || ctas > units)
+      return static_cast<int>(cudaErrorInvalidValue);
+    if (splits_tiles(units, chunks, ctas) && (partials == nullptr || counters == nullptr))
+      return static_cast<int>(cudaErrorInvalidValue);
+    const Args a{out, static_cast<const float*>(scale), static_cast<float*>(partials),
+                 static_cast<int*>(counters), M, N, K, f32_out != 0, tok_tiles, chunks, units};
+    return launch<C>(x, codes, a, ctas, static_cast<cudaStream_t>(stream));
+  });
+}
+
+// Host cost of one call's tensor maps: nanoseconds to find the codes' map
+// (encoded at its first call, found in the table after) and encode x's,
+// `iters` times, or -1.
+extern "C" int int8_matmul_encode_ns(const void* x, const void* codes, int M, int N, int K, int tn,
+                                     int iters) {
+  return with_cfg(tn, [&](auto cfg) {
+    using C = decltype(cfg);
+    CUtensorMap tq, tx;
+    const auto t0 = std::chrono::steady_clock::now();
+    for (int i = 0; i < iters; ++i)
+      if (encode_maps<C>(&tq, &tx, x, codes, M, N, K) != 0) return -1;
+    const auto t1 = std::chrono::steady_clock::now();
+    return static_cast<int>(std::chrono::duration_cast<std::chrono::nanoseconds>(t1 - t0).count());
+  });
 }
 
 extern "C" const char* ds_cuda_error_string(int err) {
-  return cudaGetErrorString((cudaError_t)err);
+  return cudaGetErrorString(static_cast<cudaError_t>(err));
 }

@@ -70,9 +70,11 @@ SIGNATURES = {
     },
     # db2, the sequence split's f32 scratch, ...; ..., D, its chunk count
     "evoformer_db2": {"evoformer_bwd_db2": [_P] * 10 + [_I] * 6 + [_F, _P]},
-    # out, x, codes, scale, the split's f32 partials, its arrival counters;
-    # M, N, K, rows a CTA, the split count and length, f32 output
-    "int8_matmul": {"int8_matmul": [_P] * 6 + [_I] * 7 + [_P]},
+    # out, x, codes, scale, the cut tiles' f32 partials, their arrival
+    # counters; M, N, K, token rows a tile, the grid, f32 output
+    "int8_matmul": {"int8_matmul": [_P] * 6 + [_I] * 6 + [_P],
+                    # host nanoseconds to make a call's two TMA maps `iters` times
+                    "int8_matmul_encode_ns": [_P] * 2 + [_I] * 5},
 }
 
 _loaded: Dict[str, ctypes.CDLL] = {}

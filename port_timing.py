@@ -40,15 +40,23 @@ MODE:
   paged_decode_fused calls, CUDA-event ms a call and host us a call, the
   median and the least of the runs.
 - serve8w: the per-channel int8 weight lane (chip_smoke.py's serve_int8w
-  engines, from bf16 pools): the flagship (random bf16 weights from seed 0,
-  64 rows of 96 tokens, greedy decode_multi_fn(b, 24) at b = 8 and 64) and
-  Llama-2-7B at bench.py's widths (weights built and quantized layer by
-  layer, 32 rows, b = 1, 8 and 32), eagerly and replayed after warmup(),
-  as `serve` times them; and the W8A16 GEMM alone (int8_matmul) at the two
-  models' products for M = 1, 8, 32 and 64 (the decode rows): device ms a
-  call (torch.profiler over 20 calls, the median of 3) beside its bound. A
+  engines, from bf16 pools) beside the bf16 engine of the same weights:
+  the flagship (random bf16 weights from seed 0, 64 rows of 96 tokens,
+  greedy decode_multi_fn(b, 24) at b = 8 and 64) and Llama-2-7B at
+  bench.py's widths (weights built and quantized layer by layer, 32 rows,
+  b = 1, 8 and 32), eagerly and replayed after warmup(), as `serve` times
+  them, and each engine's TTFT at chip_smoke's LONG_LEN (512 tokens); and
+  the W8A16 GEMM alone (int8_matmul) at the two models' products and
+  Falcon-7B's mlp_out (GEMM_SHAPES) for M = 1, 8, 32, 64 (decode) and 512,
+  768, 4096 (prefill): device ms a call, cold (the weights rotated through
+  copies that total more than twice the 50 MB L2, as a step finds them)
+  and warm, beside cuBLAS bf16 timed the same two ways and the bound. A
   root whose engine takes no `quantization` raises: this mode compares
   versions of the int8 lane.
+- gemm: the W8A16 GEMM alone as serve8w times it, and in a root whose
+  wrapper has the wgmma plan also each alternative plan of
+  _gemm_variants (other token widths and grids) forced in its place,
+  cold: the sweep that sets matmul_split_plan's rules.
 - splits: the decode kernel's device time (torch.profiler) at chip_smoke.py's
   phase-2 decode rows (Falcon-7B, Mistral's window, BLOOM-7B1, Phi-2) and
   the flagship's, fused bf16 and int8, for split counts 1, 2, 4, ... forced
@@ -334,26 +342,101 @@ def serve_worker(root):
     return out
 
 
-def _gemm_ms(C, torch, IM, dev, ms_of):
-    """The W8A16 GEMM's device ms a call at the flagship's and Llama-2-7B's
-    products (chip_smoke.INT8_MM_SHAPES) for the decode rows M = 1, 8, 32
-    and 64, in the form each path uses, and its bound."""
+# the W8A16 GEMM's products timed by serve8w and gemm: the flagship's and
+# Llama-2-7B's (chip_smoke.INT8_MM_SHAPES), and Falcon-7B's 18176-deep
+# mlp_out; decode rows and the prefill waves (512: a 512-token prompt;
+# 768: _serving_bench's 8 x 96 wave; 4096)
+GEMM_SHAPES = ("flagship_qkv", "flagship_wo", "flagship_gate_up", "flagship_down",
+               "flagship_logits", "llama2_7b_qkv", "llama2_7b_wo", "llama2_7b_gate_up",
+               "llama2_7b_down", "llama2_7b_logits", "falcon_7b_mlp_out")
+GEMM_M = (1, 8, 32, 64, 512, 768, 4096)
+
+
+def _gemm_variants(IM, M, N, K, sms):
+    """name -> plan: the alternatives to the root's own plan that `gemm`
+    times (the next token width at decode; grids of one wave of balanced
+    CTAs, of one CTA a tile and of at least 4 units a CTA), where the
+    root's wrapper has the wgmma plan; else none."""
+    if not hasattr(IM, "TOKEN_WIDTHS"):
+        return {}
+    tn0 = IM.token_width(M)
+    out = {}
+    for tn in (tn0, 2 * tn0) if tn0 <= 64 else (tn0,):
+        base = IM.matmul_split_plan_for(M, N, K, sms, tn)
+        for ctas in sorted({sms, base.tiles, max(1, min(sms, base.units // 4))}):
+            if ctas <= min(base.units, 8 * sms):
+                out[f"tn{tn}_ctas{ctas}"] = IM.matmul_split_plan_for(M, N, K, ctas, tn)
+    return out
+
+
+def _gemm_ms(C, torch, IM, dev, Ms=GEMM_M, variants=False):
+    """The W8A16 GEMM's device ms a call (torch.profiler, chip_smoke's
+    _device_ms) at GEMM_SHAPES for each M, in the form each path uses,
+    cold (_cold_ms: the weights rotated through copies that total more
+    than twice the 50 MB L2, as a step finds them) and warm (the same
+    weights back to back), beside cuBLAS bf16 on the codes as bf16 weights
+    (the yardstick, timed the same two ways) and the bound. With
+    `variants`, each of _gemm_variants' plans too (cold), forced in place
+    of the root's plan."""
     from deepspeed_tpu_torch.platform.accelerator import bound_ms
 
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
     out = {}
-    for i, (name, (N, K, f32)) in enumerate(C.INT8_MM_SHAPES.items()):
-        if not name.startswith(("flagship", "llama2_7b")):
-            continue
-        x_all, q, s = C._int8_mm_inputs(N, K, 64, dev, seed=100 + i)
-        for M in (1, 8, 32, 64):
+    for name in GEMM_SHAPES:
+        N, K, f32 = C.INT8_MM_SHAPES[name]
+        x_all, q, s = C._int8_mm_inputs(N, K, max(Ms), dev,
+                                        seed=100 + list(C.INT8_MM_SHAPES).index(name))
+        copies = C._weight_copies(lambda: (q.clone(), s.clone()), N * K)
+        w16 = q.to(torch.bfloat16)
+        w16s = C._weight_copies(lambda: (w16.clone(),), 2 * N * K)
+        for M in Ms:
             x = x_all[:M].contiguous()
-            ms = [ms_of(lambda: IM.int8_matmul(x, q, s, f32)) for _ in range(3)]
-            out[f"{name}/M{M}"] = {
-                "device_ms": statistics.median(ms), "runs_ms": ms,
-                "bound_ms": bound_ms(M * K * 2 + N * K + N * 4 + M * N * (4 if f32 else 2),
-                                     2.0 * M * N * K)[0]}
-        del x_all, q, s
+            iters = 20 if M <= 64 else 5
+            kern = lambda q_, s_: IM.int8_matmul(x, q_, s_, f32)
+            row = {"bound_ms": bound_ms(M * K * 2 + N * K + N * 4 + M * N * (4 if f32 else 2),
+                                        2.0 * M * N * K)[0],
+                   "cold_ms": C._cold_ms(kern, copies, iters),
+                   "warm_ms": C._device_ms(lambda: kern(q, s), iters),
+                   "cublas_bf16_cold_ms": C._cold_ms(lambda w: x @ w.t(), w16s, iters),
+                   "cublas_bf16_warm_ms": C._device_ms(lambda: x @ w16.t(), iters)}
+            if hasattr(IM, "TOKEN_WIDTHS"):
+                row["plan"] = IM.matmul_split_plan(M, N, K, sms)._asdict()
+            if variants:
+                own = IM.matmul_split_plan
+                row["variants"] = {}
+                try:
+                    for vname, plan in _gemm_variants(IM, M, N, K, sms).items():
+                        IM.matmul_split_plan = lambda *a, plan=plan: plan
+                        row["variants"][vname] = C._cold_ms(kern, copies, iters)
+                finally:
+                    IM.matmul_split_plan = own
+            out[f"{name}/M{M}"] = row
+        del x_all, q, s, copies, w16, w16s
         torch.cuda.empty_cache()
+    return out
+
+
+def gemm_worker(root):
+    root, C = _import_root(root)
+    import torch
+
+    from deepspeed_tpu_torch.ops.cuda import build
+    from deepspeed_tpu_torch.ops.cuda import int8_matmul as IM
+
+    build.build_all(["int8_matmul"])
+    return {"mode": "gemm", "root": str(root),
+            "gemm": _gemm_ms(C, torch, IM, torch.device("cuda"), variants=True)}
+
+
+def _lane(C, eng, V, n_wave, seed, widths):
+    """_decode_rates of an engine, then its TTFT at chip_smoke's LONG_LEN
+    (chip_smoke._ttft: CUDA events around put() of a fresh prompt, 5
+    after 2 warm-ups) and their median."""
+    import numpy as np
+
+    out = _decode_rates(C, eng, V, 0, n_wave, seed, widths)
+    ttft = C._ttft(eng, np.random.default_rng(seed + 7), V, C.LONG_LEN)
+    out[f"ttft_ms_{C.LONG_LEN}"] = {"p50": statistics.median(ttft), "all": ttft}
     return out
 
 
@@ -369,24 +452,27 @@ def serve8w_worker(root):
 
     build.build_all(["paged_kv_write", "paged_decode", "flash_fwd", "int8_matmul"])
     dev = torch.device("cuda")
-    out = {"mode": "serve8w", "root": str(root),
-           "gemm": _gemm_ms(C, torch, IM, dev, lambda fn: C._device_ms(fn, 20)), "models": {}}
+    out = {"mode": "serve8w", "root": str(root), "gemm": _gemm_ms(C, torch, IM, dev),
+           "models": {}}
     cfg = T.TransformerConfig(**C.FLAGSHIP)
-    eng = init_inference(C._init_served(T, cfg, dev), cfg, dict(C.SERVE_G),
-                         quantization=C.INT8W)
-    out["models"]["flagship"] = _decode_rates(C, eng, cfg.vocab_size, 0, C.GRAPH_PROMPTS, 0,
-                                              C.INT8W_FLAGSHIP_WIDTHS)
-    del eng
-    torch.cuda.empty_cache()
+    params = C._init_served(T, cfg, dev)
+    for lane, quant in (("int8w", C.INT8W), ("bf16", None)):
+        eng = init_inference(params, cfg, dict(C.SERVE_G), quantization=quant)
+        out["models"][f"flagship/{lane}"] = _lane(C, eng, cfg.vocab_size, C.GRAPH_PROMPTS, 0,
+                                                  C.INT8W_FLAGSHIP_WIDTHS)
+        del eng
+        torch.cuda.empty_cache()
+    del params
     mc = T.TransformerConfig(**C.LLAMA2_7B_BENCH)
-    int8_tree = C._int8w_7b_weights(T, M, mc, dev)[1]
+    trees = dict(zip(("bf16", "int8w"), C._int8w_7b_weights(T, M, mc, dev)))
     torch.cuda.empty_cache()
-    eng = init_inference(int8_tree, mc, dict(C.SERVE_7B_INT8W), quantization=C.INT8W)
-    del int8_tree
-    out["models"]["llama2_7b"] = _decode_rates(C, eng, mc.vocab_size, 0,
-                                               max(C.INT8W_7B_WIDTHS), 1, C.INT8W_7B_WIDTHS)
-    del eng
-    torch.cuda.empty_cache()
+    for lane in ("int8w", "bf16"):
+        eng = init_inference(trees.pop(lane), mc, dict(C.SERVE_7B_INT8W),
+                             quantization=C.INT8W if lane == "int8w" else None)
+        out["models"][f"llama2_7b/{lane}"] = _lane(C, eng, mc.vocab_size,
+                                                   max(C.INT8W_7B_WIDTHS), 1, C.INT8W_7B_WIDTHS)
+        del eng
+        torch.cuda.empty_cache()
     return out
 
 
@@ -654,7 +740,8 @@ def write_worker(root):
 
 
 WORKERS = {"evo": evo_worker, "serve": serve_worker, "serve8w": serve8w_worker,
-           "splits": splits_worker, "tiles": tiles_worker, "write": write_worker}
+           "gemm": gemm_worker, "splits": splits_worker, "tiles": tiles_worker,
+           "write": write_worker}
 
 
 def main(mode, roots):

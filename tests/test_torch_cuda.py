@@ -2395,7 +2395,7 @@ class TestGraphsOnCard:
 # (16, 32, 64, 128 rows), a prefill, the tied logits
 INT8_MM_CASES = [(1, 3072, 1024), (8, 1024, 1024), (8, 4672, 4544), (5, 133, 4560),
                  (33, 4673, 48), (64, 1000, 2816), (130, 333, 208), (512, 4096, 1024),
-                 (8, 32000, 1024)]
+                 (8, 32000, 1024), (768, 4544, 1040), (768, 1024, 2816)]
 
 
 @pytest.mark.cuda
@@ -2403,9 +2403,11 @@ class TestInt8MatmulOnCard:
     """The W8A16 GEMM (csrc/int8_matmul.cu) against its plain version on
     the same inputs: its error against the exact product (f64) within 1.5x
     (RMS) and 2x (max) of the plain bf16 version's, chip_smoke.py's
-    tolerance; two launches bit-identical; any split count within the same
-    tolerance, its counters left for the next launch; a per-channel int8
-    engine's replays bit-identical to eager, every product on the kernel."""
+    tolerance; two launches bit-identical; any grid (tiles cut between CTAs
+    or not) and any token width within the same tolerance, its counters
+    left for the next launch; chip_smoke.py's planted faults failing and
+    the rows past M left untouched; a per-channel int8 engine's replays
+    bit-identical to eager, every product on the kernel."""
 
     def _inputs(self, M, N, K, dev, seed=0):
         return _chip_smoke()._int8_mm_inputs(N, K, M, dev, seed)
@@ -2432,21 +2434,40 @@ class TestInt8MatmulOnCard:
         assert ok, st
         assert (got[:, N // 2] == 0).all()  # the zero column
 
-    @pytest.mark.parametrize("M,N,K", [(8, 1024, 4096), (16, 4673, 4560), (64, 300, 2816)])
+    @pytest.mark.parametrize("M,N,K", [(8, 1024, 4096), (16, 4673, 4560), (64, 300, 2816),
+                                       (200, 1024, 2816)])
     def test_every_split_count(self, cuda_device, monkeypatch, M, N, K):
+        """Every grid from one CTA to one a unit, at every token width that
+        holds M: the same tolerance, two launches the same bits."""
         from deepspeed_tpu_torch.ops.cuda import int8_matmul as IM
 
         x, q, s = self._inputs(M, N, K, cuda_device, seed=1)
         plain = IM.int8_matmul_plain(x, q, s)
-        for n in (1, 2, 3, 5, 8, 64):
-            monkeypatch.setattr(IM, "matmul_split_plan",
-                                lambda M_, N_, K_, sms, n=n: IM.matmul_split_plan_for(M_, N_, K_, n))
-            got = IM.int8_matmul(x, q, s)
-            again = IM.int8_matmul(x, q, s)  # the counters were left at 0
-            torch.cuda.synchronize()
-            assert _chip_smoke()._same_bits(got, again), n
-            ok, st = self._within(x, q, s, got, plain)
-            assert ok, (n, st)
+        for tn in (t for t in IM.TOKEN_WIDTHS if t >= min(M, 128)):
+            for n in (1, 2, 3, 5, 8, 64, 132, 10**6):
+                plan = IM.matmul_split_plan_for(M, N, K, n, tn)
+                monkeypatch.setattr(IM, "matmul_split_plan", lambda *a, plan=plan: plan)
+                got = IM.int8_matmul(x, q, s)
+                again = IM.int8_matmul(x, q, s)  # the counters were left at 0
+                torch.cuda.synchronize()
+                assert _chip_smoke()._same_bits(got, again), plan
+                ok, st = self._within(x, q, s, got, plain)
+                assert ok, (plan, st)
+
+    def test_planted_faults(self, cuda_device):
+        from deepspeed_tpu_torch.ops.cuda import int8_matmul as IM
+
+        faults = _chip_smoke()._int8_mm_faults(IM, cuda_device)  # raises if one passes
+        assert {"split_left_out", "stale_ring_stage", "warpgroup_given_the_next_64_channels",
+                "tile_stored_untransposed", "rows_past_m_stored_m5",
+                "rows_past_m_stored_m33"} <= set(faults)
+
+    @pytest.mark.parametrize("M", [1, 5, 33, 100])  # M below its token width
+    def test_rows_past_m_untouched(self, cuda_device, M):
+        from deepspeed_tpu_torch.ops.cuda import int8_matmul as IM
+
+        rep = _chip_smoke()._int8_mm_rows_past_m(IM, cuda_device, M)
+        assert rep["genuine_rows_past_m_untouched"]
 
     def test_rejects_what_it_does_not_take(self, cuda_device):
         from deepspeed_tpu_torch.ops.cuda import int8_matmul as IM

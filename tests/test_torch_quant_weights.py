@@ -27,9 +27,10 @@ path), from the same numpy-made weights.
   `refresh_params` quantizes again and drops captured graphs; `warmup()`;
   the JAX tests' row scales, memory, int8-only and unknown-key checks;
   offload still raising.
-- The W8A16 GEMM's split plan (ops/cuda/int8_matmul.py) at the served
-  shapes. (The kernel runs only on the card: tests/test_torch_cuda.py and
-  chip_smoke.py hold it against its plain version.)
+- The W8A16 GEMM's plan (ops/cuda/int8_matmul.py: token width and grid)
+  at the served shapes. (The kernel runs only on the card:
+  tests/test_torch_cuda.py and chip_smoke.py hold it against its plain
+  version; tests/test_torch_int8_matmul_design.py models its arithmetic.)
 """
 
 import math
@@ -614,62 +615,89 @@ def test_offload_still_raises_naming_its_item(quantization):
 # ---------------------------------------------------------------------------
 
 # (M, N, K): decode and prefill products of the flagship (d 1024, 8 x 128
-# heads over 8, vocab 32000), Llama-2-7B, Falcon-7B (K 4544, N 4672) and
-# BLOOM-7B1's vocab
-PLAN_SHAPES = [(M, N, K) for M in (1, 8, 32, 64, 512, 4096)
+# heads over 8, vocab 32000), Llama-2-7B, Falcon-7B (K 4544, N 4672; its
+# 18176-deep mlp_out) and BLOOM-7B1's vocab; M: decode rows, a 512-token
+# prompt, _serving_bench's 8 x 96 wave, a long prefill
+PLAN_M = (1, 8, 32, 64, 512, 768, 4096)
+PLAN_SHAPES = [(M, N, K) for M in PLAN_M
                for N, K in ((3072, 1024), (1024, 1024), (5632, 1024), (1024, 2816),
                             (32000, 1024), (12288, 4096), (4096, 4096), (22016, 4096),
-                            (4096, 11008), (4672, 4544), (4544, 4544), (250880, 4096))]
+                            (4096, 11008), (4672, 4544), (4544, 18176), (250880, 4096))]
 
 
-@pytest.mark.parametrize("M", [1, 8, 32, 64, 512, 4096])
+def _cdiv(a, b):
+    return -(-a // b)
+
+
+@pytest.mark.parametrize("M", PLAN_M)
 def test_split_plan_rules(M):
+    """At every served shape: the tiles cover M and N, no CTA's range is
+    empty, a CTA's shared memory within the H100's 227 KB, a grid that
+    cuts tiles fits one wave, and the grid PERF.md records at each M
+    (decode widths: one balanced wave, at least DECODE_MIN_UNITS units a
+    CTA at 32 and 64 tokens; prefill: one CTA a tile where that fills the
+    waves or the tiles are few and shallow, else one wave)."""
     for m, N, K in PLAN_SHAPES:
         if m != M:
             continue
         plan = PI.matmul_split_plan(M, N, K, 132)
-        small = N * K <= PI.SMALL_CODE_BYTES and M <= 64
-        assert plan.bm == (16 if small else PI.block_rows(M))
-        assert plan.bm >= min(M, 128) or small
-        assert plan.split_len % PI.BK == 0 and 1 <= plan.n <= PI.MAX_SPLITS
-        assert (plan.n - 1) * plan.split_len < K <= plan.n * plan.split_len  # none empty
-        assert plan.tiles == -(-M // plan.bm) * -(-N // PI.BN)
-        assert plan.ctas == plan.tiles * plan.n
-        if plan.n > 1:
-            assert plan.ctas <= PI.resident_ctas(plan.bm) * 132  # one wave
-            assert plan.scratch_shape == (plan.n, M, N)
-            if not small:
-                assert 2 * plan.scratch_bytes <= N * K / 2 + 1  # partials <= half the codes
-                assert plan.split_len >= PI.MIN_SPLIT_CHUNKS * PI.BK
+        tn = plan.tn
+        assert tn in PI.TOKEN_WIDTHS and tn >= min(M, 128)
+        assert tn == min(t for t in PI.TOKEN_WIDTHS if t >= min(M, 128))
+        assert plan.tiles == _cdiv(N, PI.CH) * _cdiv(M, tn)  # cover N and M
+        assert plan.chunks == _cdiv(K, PI.UK)
+        starts = [PI.unit_start(g, plan.units, plan.ctas) for g in range(plan.ctas + 1)]
+        assert starts[0] == 0 and starts[-1] == plan.units
+        assert all(a < b for a, b in zip(starts, starts[1:]))  # no range empty
+        assert PI.wgmma_smem(tn) <= 232448 and plan.stages == PI.wgmma_stages(tn) >= 3
+        cut = any(s % plan.chunks for s in starts)
+        assert plan.splits == cut
+        if cut:
+            assert plan.ctas <= 132  # one wave
+            assert plan.scratch_shape == (2 * plan.ctas, tn, PI.CH)
         else:
             assert plan.scratch_bytes == 0
-    if M >= 512:  # prefill: enough tiles, never split
-        assert all(PI.matmul_split_plan(m, N, K, 132).n == 1
-                   for m, N, K in PLAN_SHAPES if m == M and N >= 1024)
+        if tn <= 64:
+            assert plan.ctas == min(132, plan.units // (PI.DECODE_MIN_UNITS if tn >= 32 else 1))
+        else:
+            fill = plan.tiles / (_cdiv(plan.tiles, 132) * 132)
+            one_a_tile = fill >= PI.WAVE_FILL or (plan.tiles < 132
+                                                  and plan.chunks < PI.PREFILL_SPLIT_CHUNKS)
+            assert plan.ctas == (plan.tiles if one_a_tile else 132)
 
 
 def test_split_plan_pins():
-    """Llama-2-7B's decode splits: one wave of resident CTAs (3 of 16 or
-    32 rows an SM, 2 of 64, 1 of 128, by shared memory), at least 512 deep,
-    the partials at most half the codes' bytes."""
-    assert [PI.resident_ctas(bm) for bm in (16, 32, 64, 128)] == [3, 3, 2, 1]
-    assert PI.matmul_split_plan(8, 12288, 4096, 132)[:3] == (16, 4, 1024)
-    assert PI.matmul_split_plan(8, 4096, 4096, 132)[:3] == (16, 8, 512)
-    assert PI.matmul_split_plan(8, 4096, 11008, 132)[:3] == (16, 8, 1408)
-    assert PI.matmul_split_plan(8, 32000, 4096, 132)[:3] == (16, 1, 4096)
-    assert PI.matmul_split_plan(64, 4096, 4096, 132)[:3] == (64, 4, 1024)
+    """Llama-2-7B's and Falcon-7B's plans: the ring's stages by token
+    width (6 up to 64 tokens, 4 at 128, by shared memory), decode in one
+    balanced wave that cuts tiles, prefill one CTA a tile where the tiles
+    fill >= 95% of their waves, else one wave."""
+    assert [PI.wgmma_stages(tn) for tn in PI.TOKEN_WIDTHS] == [6, 6, 6, 6, 4]
+    assert [PI.wgmma_smem(tn) for tn in (8, 64, 128)] == [111712, 197728, 197696]
+    assert PI.matmul_split_plan(8, 12288, 4096, 132)[:4] == (8, 6, 132, 96)
+    assert PI.matmul_split_plan(8, 12288, 4096, 132).splits
+    assert PI.matmul_split_plan(64, 4096, 4096, 132)[:4] == (64, 6, 132, 32)
+    assert PI.matmul_split_plan(512, 12288, 4096, 132)[:4] == (128, 4, 384, 384)
+    assert not PI.matmul_split_plan(512, 12288, 4096, 132).splits
+    assert PI.matmul_split_plan(512, 22016, 4096, 132)[2:4] == (132, 688)
+    assert PI.matmul_split_plan(768, 22016, 4096, 132)[2:4] == (1032, 1032)
+    assert PI.matmul_split_plan(768, 4544, 18176, 132)[2:4] == (132, 216)
+    assert PI.matmul_split_plan(4096, 4544, 18176, 132)[2:4] == (1152, 1152)
 
 
 def test_split_plan_small_codes():
-    """The flagship's decode products (codes of at most 8 MB): 16-row CTAs
-    at every decode width and splits down to one 128-deep slice; prefill
-    and the 32 MB tied logits keep the large-code rule."""
-    assert PI.matmul_split_plan(8, 3072, 1024, 132)[:3] == (16, 8, 128)
-    assert PI.matmul_split_plan(64, 3072, 1024, 132)[:3] == (16, 4, 256)
-    assert PI.matmul_split_plan(64, 1024, 2816, 132)[:3] == (16, 8, 384)
-    assert PI.matmul_split_plan(64, 32000, 1024, 132)[:3] == (64, 1, 1024)
-    assert PI.matmul_split_plan(512, 1024, 1024, 132)[:3] == (128, 1, 1024)
-    assert PI.matmul_split_plan(512, 12288, 4096, 132)[:2] == (128, 1)
+    """The flagship's products (codes of 1-6 MB): at 8 tokens a wave of
+    132 CTAs of 1-2 units; at 32 and 64 tokens at least 4 units a CTA (a
+    cut tile's slot is 16-32 KB there); prefill cuts tiles only where they
+    are fewer than the SMs and at least 16 units deep (the 2816-deep
+    down projection), else one CTA a tile."""
+    assert PI.matmul_split_plan(8, 3072, 1024, 132)[2:4] == (132, 24)
+    assert PI.matmul_split_plan(32, 3072, 1024, 132)[2:4] == (48, 24)
+    assert PI.matmul_split_plan(64, 1024, 2816, 132)[2:4] == (44, 8)
+    assert PI.matmul_split_plan(64, 1024, 1024, 132)[2:4] == (16, 8)
+    assert PI.matmul_split_plan(512, 1024, 1024, 132)[2:4] == (32, 32)
+    assert not PI.matmul_split_plan(512, 3072, 1024, 132).splits
+    assert PI.matmul_split_plan(512, 1024, 2816, 132)[2:4] == (132, 32)
+    assert PI.matmul_split_plan(768, 5632, 1024, 132)[2:4] == (264, 264)
 
 
 def test_the_gemm_is_a_registered_kernel():

@@ -73,6 +73,24 @@ Phases (any failure raises and exits nonzero):
              chunk dropped, in the int8 fused mode chunks attending the
              un-rounded new column, at head_dim 80 the output's columns
              64-79 left zero and the scores taken over the first 64 dims;
+             the head_dim-96 and head_dim-256 modes of #1, #4, #5 and #6
+             (wide_head_checks, GPT-NeoX-20B's 64 x 96 and GPT-J-6B's 16 x
+             256 heads: flash at B=1, S=512 and 2048, with window 1000,
+             with ALiBi and with GQA 32 over 2; decode in all four modes
+             at 8 rows with ctx ~100 to ~1,950 and at GQA 32 over 2; both
+             writes bit-exact at the 1920-token prefill), two launches
+             bit-identical, with planted faults that must fail: flash's O
+             columns 64-95 (D 96) or 128-255 (D 256) left zero and the
+             scores over the dims below, decode's output with columns
+             80-95 (D 96) or 128-255 (D 256) zeroed (what dropping the last
+             P V column-tile pair or the second half of the column tiles
+             leaves), the int8 write at D 256 with each lane's second chunk
+             unwritten and with the amax over 128 of 256 columns; and two
+             faults planted in the D-256 code by a define (FAULT_BUILDS,
+             built beside the kernels): flash's pv_step without its second
+             wgmma (columns 128-255), and decode's per-tile Q fragments of
+             the 16-row slices (GQA 32 over 2) read one k-step ahead; the
+             new instantiations' ptxas registers and spills;
              the head_dim-80 and wide-group modes of #2 and #3 at S=2048
              (Phi-2's training micro-batch B=2, 32 x 80; GQA 40 over 2 at
              80; window 1000 and ALiBi slopes at 80; Falcon-7B's training
@@ -157,8 +175,9 @@ Phases (any failure raises and exits nonzero):
              lane at 32 (keys _row_keys(0, arange(32)), counters from ctx)
              replayed, the sampled lane's every token equal to the CPU
              oracle's (host_oracle_token on the step's logits, replayed
-             stepwise on the card). Every 7B server and Phi-2 (SERVED_7B,
-             bf16 and int8 pools; the long prompt and 7 x 96): width 8, 24
+             stepwise on the card). Every 7B server, Phi-2, GPT-NeoX-20B
+             and GPT-J-6B (SERVED_7B, bf16 and int8 pools; the long
+             prompt and 7 x 96): width 8, 24
              steps, greedy. Planted faults that must fail the check, each
              beside its genuine case: a stale table buffer, weights kept
              stale after refresh_params, a replay without clones, keys not
@@ -274,6 +293,23 @@ Phases (any failure raises and exits nonzero):
              its bias; random bf16 weights, seed 0, every bias drawn too)
              as 4l, every launch of #1, #4, #5 and #6 in its head_dim-80
              mode; serve_phi_int8 likewise.
+4p. serve_neox - GPT-NeoX-20B (GPT_NEOX_20B: 44 layers, d_model 6144,
+             64 heads of 96, rotary on 24 of 96 dims in split halves, two
+             LayerNorms and the parallel residual, biases, tanh GELU,
+             untied, vocab 50432; random bf16 weights, seed 0, drawn one
+             layer at a time) in init_inference on bf16 pools (SERVE_NEOX:
+             64 blocks of 128), BLOOM's counted traffic; #1, #4, #5 and #6
+             must launch and nothing else, every launch in its head_dim-96
+             mode (the fused decode is #4's bf16 fused-write mode, as the
+             JAX package routes D % 128 != 0); the three-path check of all
+             44 layers; TTFT at 512 and 1920 tokens, batch-8 decode, where
+             the time goes, peak memory (under 76 GiB). serve_neox_int8:
+             the same on int8 pools.
+4q. serve_gptj - GPT-J-6B (GPT_J_6B: 28 layers, d_model 4096, 16 heads
+             of 256, interleaved rotary on 64 of 256 dims, one shared
+             LayerNorm, unbiased attention, a biased MLP and lm_head) as
+             4p on SERVE_A, every launch in its head_dim-256 mode (the
+             fused decode is #5 there); serve_gptj_int8 likewise.
 4h. train_alibi - BLOOM-7B1's width, 4 layers deep (all 30 with fp32
              master and Adam moments are 113 GB), with the flagship's
              settings on a 4 x 2048 micro-batch, as train_window: one
@@ -525,6 +561,28 @@ PHI_2 = dict(vocab_size=51200, n_layers=32, n_heads=32, n_kv_heads=32, d_model=2
              activation="gelu", qkv_bias=True, attn_out_bias=True, mlp_bias=True,
              parallel_residual=True, shared_ln=True, rotary_pct=0.4, rope_theta=10000.0,
              norm_eps=1e-5, tie_embeddings=False, lm_head_bias=True)
+# the GPT-NeoX- and GPT-J-class paths, served at full width and depth from
+# random weights (seed 0) as the JAX package's config_from_hf maps each
+# published config.json (utils/hf_checkpoint.py). GPT-NeoX-20B
+# (EleutherAI/gpt-neox-20b: 64 heads of 96, rotary on 24 of 96 dims in
+# split halves, two LayerNorms and the parallel residual, biases on q/k/v,
+# output and MLP, tanh GELU (gelu_fast), untied): 20,554,567,680
+# parameters, 41.1 GB in bf16, 1,081,344 KV bytes per token
+GPT_NEOX_20B = dict(vocab_size=50432, n_layers=44, n_heads=64, d_model=6144, d_ff=24576,
+                    max_seq=2048, variant="llama", norm_type="layer", gated_mlp=False,
+                    activation="gelu", qkv_bias=True, attn_out_bias=True, mlp_bias=True,
+                    parallel_residual=True, rotary_pct=0.25, rope_theta=10000.0,
+                    norm_eps=1e-5, tie_embeddings=False)
+# GPT-J-6B (EleutherAI/gpt-j-6b: 16 heads of 256, interleaved rotary on 64
+# of 256 dims, one LayerNorm shared by the parallel attention and MLP,
+# unbiased attention, a biased MLP, an untied lm_head with its bias):
+# 6,050,882,784 parameters, 12.1 GB in bf16, 458,752 KV bytes per token
+GPT_J_6B = dict(vocab_size=50400, n_layers=28, n_heads=16, d_model=4096, d_ff=16384,
+                max_seq=2048, variant="llama", norm_type="layer", gated_mlp=False,
+                activation="gelu", qkv_bias=False, attn_out_bias=False, mlp_bias=True,
+                parallel_residual=True, shared_ln=True, rotary_pct=0.25,
+                rope_interleaved=True, norm_eps=1e-5, tie_embeddings=False,
+                lm_head_bias=True)
 # the parallel-residual training paths, with the flagship's settings.
 # Falcon-7B's width 4 layers deep: 1,123,758,464 parameters (all 32 layers
 # are 6.92B, ~150 GB of training state at ~20 B a parameter: bf16 weights,
@@ -593,7 +651,11 @@ PATH_RMS_FACTOR, PATH_MAX_FACTOR = 1.5, 2.0
 # from bf16 pools (phase serve_<mode>), then from int8 pools on the same
 # weights (serve_<mode>_int8)
 SERVED_7B = (("window", MISTRAL), ("alibi", BLOOM), ("sparse", LLAMA2_7B),
-             ("falcon", FALCON_7B), ("phi", PHI_2))
+             ("falcon", FALCON_7B), ("phi", PHI_2), ("neox", GPT_NEOX_20B), ("gptj", GPT_J_6B))
+# GPT-NeoX-20B's pools: SERVE_A with 64 blocks (8.9 GB of bf16 pools beside
+# 41.1 GB of weights; the counted sequence holds 23 blocks, a fresh
+# 1920-token prompt 15 more)
+SERVE_NEOX = dict(SERVE_A, num_kv_blocks=64)
 
 
 def _require_environment():
@@ -2599,8 +2661,9 @@ def _pools_off(a, b):
 
 def _quant_fault(x, fault=None):
     """quantize_kv_rows's rule on rows [..., D] -> (codes, scales), with one
-    planted fault: "amax_first_64_columns" (a head_dim-80 slice scaled by
-    its first 64 columns), "ties_away_from_zero" (C's roundf), or
+    planted fault: "amax_first_<n>_columns" (a slice scaled by its first n
+    columns: 64 of head_dim 80 or 96, 128 of 256), "ties_away_from_zero"
+    (C's roundf), or
     "nan_dropping_absmax" (fmaxf's max, which drops a NaN, and a clamp
     by fmaxf/fminf, which takes a NaN quotient to -127: the quantizer
     before the NaN repair)."""
@@ -2608,8 +2671,8 @@ def _quant_fault(x, fault=None):
 
     xf = x.float()
     a = xf.abs()
-    if fault == "amax_first_64_columns":
-        a = a[..., :64]
+    if fault and fault.startswith("amax_first_"):
+        a = a[..., :int(fault.split("_")[2])]
     if fault == "nan_dropping_absmax":
         a = torch.where(torch.isnan(a), torch.zeros_like(a), a)
     scale = a.amax(-1) * torch.tensor(1.0 / 127.0, dtype=torch.float32)
@@ -2778,70 +2841,10 @@ def _kv_write_design_checks(PA, randn, dev, bound_ms):
     return out
 
 
-def _d80_write_checks(PA, randn, dev, bound_ms):
-    """The head_dim-80 writes at Phi-2's prefill of the 1920-token prompt
-    (bucket 2048: 2048 rows, 1920 live, 32 KV heads of 80): the bf16 write
-    and the quantizing int8 write bit-exact against their plain versions,
-    live rows built as .5 ties, zeros and subnormals (_int8_rows), where
-    the quantizer rounding ties away from zero must fail."""
-    import torch
-
-    KV = PHI_2["n_heads"]
-    D = PHI_2["d_model"] // KV
-    bs = SERVE_A["kv_block_size"]
-    nblk = SERVE_A["num_kv_blocks"] + 1
-    T = SERVE_A["max_seq_len"]
-    slots = torch.arange(T, device=dev, dtype=torch.int32)
-    slots[A_LONG:] = -1
-    live = torch.nonzero(slots >= 0)[:, 0]
-    n_live = int(live.numel())
-    built = (live[:16], live[16:20], live[20:24])
-    kn, vn = _int8_rows(randn, T, KV, D, built), _int8_rows(randn, T, KV, D, built)
-    out = {}
-    ka, va = randn(nblk, bs, KV, D), randn(nblk, bs, KV, D)
-    kb, vb = ka.clone(), va.clone()
-    PA.paged_kv_write(ka, va, kn, vn, slots)
-    PA.paged_kv_write_plain(kb, vb, kn, vn, slots)
-    _check_close("paged_kv_write[d80] k", ka, kb, 0.0, 0.0)
-    _check_close("paged_kv_write[d80] v", va, vb, 0.0, 0.0)
-    idx, k_live, v_live = slots[live].long(), kn[live], vn[live]
-    out["paged_kv_write[d80]"] = dict(
-        max_abs_err=0.0,
-        **_timings(lambda: PA.paged_kv_write(ka, va, kn, vn, slots),
-                   lambda: PA.paged_kv_write_plain(kb, vb, kn, vn, slots),
-                   lambda: (kb.view(-1, KV, D).index_copy_(0, idx, k_live),
-                            vb.view(-1, KV, D).index_copy_(0, idx, v_live)), 50),
-        shape=f"T={T} rows ({n_live} live), arena [{nblk},{bs},{KV},{D}] bf16",
-        bound=bound_ms(4 * n_live * KV * D * 2 + 4 * T, 0.0))
-    del ka, va, kb, vb
-    qk, ks, qv, vs = PA.quantize_kv_rows(randn(nblk * bs, KV, D), randn(nblk * bs, KV, D))
-    got = [qk.reshape(nblk, bs, KV, D), qv.reshape(nblk, bs, KV, D),
-           ks.reshape(nblk, bs, KV), vs.reshape(nblk, bs, KV)]
-    want = [p.clone() for p in got]
-    PA.paged_kv_write_int8(*got, kn, vn, slots)
-    PA.paged_kv_write_quant_plain(*want, kn, vn, slots)
-    for name, a, b in zip(("k codes", "v codes", "k scales", "v scales"), got, want):
-        _check_close(f"paged_kv_write_int8[d80] {name}", a, b, 0.0, 0.0)
-    n_fault = int((_quant_fault(kn[live], "ties_away_from_zero")[0]
-                   != got[0].view(-1, KV, D)[idx]).sum())
-    if n_fault == 0:
-        raise AssertionError("paged_kv_write_int8[d80]: the quantizer with ties rounded away "
-                             "from zero passes the bit-exact check")
-    out["paged_kv_write_int8[d80]"] = dict(
-        max_abs_err=0.0,
-        **_timings(lambda: PA.paged_kv_write_int8(*got, kn, vn, slots),
-                   lambda: PA.paged_kv_write_quant_plain(*want, kn, vn, slots), None, 50),
-        shape=f"T={T} rows ({n_live} live), pools [{nblk},{bs},{KV},{D}] int8 + "
-              f"[{nblk},{bs},{KV}] f32",
-        bound=bound_ms(n_live * KV * D * 2 * 2 + n_live * KV * (D + 4) * 2 + 4 * T, 0.0),
-        planted_fault_ties_away_n_codes=n_fault)
-    return out
-
-
-def _first_64_dims(t):
-    """A copy of t with its last axis's entries 64 and up set to zero."""
+def _zero_from(t, c):
+    """A copy of t with its last axis's entries c and up set to zero."""
     t = t.clone()
-    t[..., 64:] = 0
+    t[..., c:] = 0
     return t
 
 
@@ -2850,7 +2853,7 @@ def _d80_checks(FA, PA, randn, dev, bound_ms):
     prefill shapes (B=1, S in FLASH_D80_S) against its plain version;
     decode #4/#5 in all four modes at 8 rows with ctx DECODE_FP_CTX at one
     bf16 ulp (the fused modes' pools bit-exact); the writes
-    (_d80_write_checks). Planted faults that must fail: the output's
+    (_head_dim_write_checks). Planted faults that must fail: the output's
     columns 64-79 left zero, and the scores taken over the first 64 dims
     only (the kernel run on q with dims 64-79 zeroed). Also kernel #1 at
     Falcon-7B's prefill shape (B=1, S=1920, 71 query heads of 64 over one
@@ -2863,9 +2866,9 @@ def _d80_checks(FA, PA, randn, dev, bound_ms):
     results, report = {}, {}
     for S in FLASH_D80_S:
         q, k, v, o, ro, st, timed = _flash_case(FA, randn, bound_ms, 1, S, H, H, D)
-        faults = {"columns_64_79_zero": FA.bwd_mismatch(_first_64_dims(o), ro)["n_over"],
+        faults = {"columns_64_79_zero": FA.bwd_mismatch(_zero_from(o, 64), ro)["n_over"],
                   "scores_over_first_64_dims": FA.bwd_mismatch(
-                      FA.flash_fwd(_first_64_dims(q), k, v)[0], ro)["n_over"]}
+                      FA.flash_fwd(_zero_from(q, 64), k, v)[0], ro)["n_over"]}
         if not all(faults.values()):
             raise AssertionError(f"flash_fwd[d80] S={S}: the o check passes a planted fault: "
                                  f"{faults}")
@@ -2896,14 +2899,14 @@ def _d80_checks(FA, PA, randn, dev, bound_ms):
     atol, rtol = KERNEL_TOL["paged_decode_attention"]
     x, call, run = _decode_fixture(PA, randn, dev, H, H, D, bs, NB, ctx_list, 17)
     S, nblk = x["S"], x["nblk"]
-    q64 = _first_64_dims(x["q"])
+    q64 = _zero_from(x["q"], 64)
     for name in DECODE_MODES:
         (o, pk), (ref, pr) = run(name, 0), run(name, 0, kernel=False)
         err = _check_close(f"{name}[d80]", o, ref, atol, rtol)
         if "fused" in name:
             for a, b in zip(pk, pr):
                 _check_close(f"{name}[d80] pools", a, b, 0.0, 0.0)
-        faults = {"columns_64_79_zero": _n_over(_first_64_dims(o), ref, atol, rtol),
+        faults = {"columns_64_79_zero": _n_over(_zero_from(o, 64), ref, atol, rtol),
                   "scores_over_first_64_dims": _n_over(run(name, 0, q=q64)[0], ref, atol,
                                                        rtol)}
         if not all(faults.values()):
@@ -2921,11 +2924,257 @@ def _d80_checks(FA, PA, randn, dev, bound_ms):
         del pools, ref_pools
     del x, call, run
     torch.cuda.empty_cache()
-    results.update(_d80_write_checks(PA, randn, dev, bound_ms))
-    report["writes_bit_exact"] = True
-    report["write_int8_planted_fault_ties_away_codes_off"] = results[
-        "paged_kv_write_int8[d80]"]["planted_fault_ties_away_n_codes"]
+    results.update(_head_dim_write_checks(PA, randn, dev, bound_ms, "d80", H, D))
+    report["writes"] = "bit-exact, two launches bit-identical"
+    report["write_int8_planted_faults_elements_off"] = results[
+        "paged_kv_write_int8[d80]"]["planted_faults_elements_off"]
     print(json.dumps({"d80_checks": {"decode_ctx": ctx_list, **report}}))
+    return results
+
+
+# phase 2's head_dim-96 and head_dim-256 modes: GPT-NeoX-20B's 64 heads of
+# 96 and GPT-J-6B's 16 heads of 256 (one query head per KV head: the decode
+# kernel's transposed NARROW products), and a GQA group of 16 at each width
+# (32 query heads over 2 KV heads: its 16-row slices, at D 256 with the Q
+# fragments read per tile)
+WIDE_HEAD_MODELS = {"d96": GPT_NEOX_20B, "d256": GPT_J_6B}
+WIDE_HEAD_GQA = dict(H=32, KV=2)
+# the planted faults' column split at each head-dim mode: the flash
+# output's columns from it left zero, the scores taken over the dims below
+# it, the int8 write's amax over the columns below it
+HEAD_DIM_CUT = {"d80": 64, "d96": 64, "d256": 128}
+# decode's: the columns the dropped P V column tiles leave out (the last
+# 16-column pair at D 96, the second half at D 256)
+WIDE_HEAD_DECODE_CUT = {"d96": 80, "d256": 128}
+# builds of the head_dim-256 code with a fault planted by a define (built
+# beside the kernels, all at once), each run in place of its source's
+# library at D 256 and required to fail: flash's pv_step without its second
+# (columns 128-255) wgmma, and decode's per-tile Q fragments (q_frag, the
+# 16-row slices at D 256) read for k-step ks + 1 at k-step ks
+FAULT_BUILDS = {"pv_hi_product_skipped": "flash_fwd+DS_FAULT_PV_HI_SKIPPED",
+                "q_frag_of_the_next_k_step": "paged_decode+DS_FAULT_Q_FRAG_NEXT_KSTEP"}
+
+
+def _head_dim_write_checks(PA, randn, dev, bound_ms, mode, KV, D):
+    """The writes at head_dim D (mode "d80", "d96" or "d256") at the
+    prefill of the 1920-token prompt (bucket 2048: 2048 rows, 1920 live,
+    KV heads of D): the bf16 write and the quantizing int8 write bit-exact
+    against their plain versions, live rows built as .5 ties, zeros and
+    subnormals (_int8_rows), a second launch of each bit-identical, and
+    planted faults in the int8 write that must fail: ties rounded away
+    from zero, the amax over the first HEAD_DIM_CUT columns (64 of 80 or
+    96, 128 of 256), at D 256 each lane's second chunk (columns 128-255)
+    left unwritten."""
+    import torch
+
+    bs = SERVE_A["kv_block_size"]
+    nblk = SERVE_A["num_kv_blocks"] + 1
+    T = SERVE_A["max_seq_len"]
+    slots = torch.arange(T, device=dev, dtype=torch.int32)
+    slots[A_LONG:] = -1
+    live = torch.nonzero(slots >= 0)[:, 0]
+    n_live = int(live.numel())
+    built = (live[:16], live[16:20], live[20:24])
+    kn, vn = _int8_rows(randn, T, KV, D, built), _int8_rows(randn, T, KV, D, built)
+    out = {}
+    ka, va = randn(nblk, bs, KV, D), randn(nblk, bs, KV, D)
+    kb, vb, kc, vc = ka.clone(), va.clone(), ka.clone(), va.clone()
+    PA.paged_kv_write(ka, va, kn, vn, slots)
+    PA.paged_kv_write(kc, vc, kn, vn, slots)
+    PA.paged_kv_write_plain(kb, vb, kn, vn, slots)
+    for name, a, b in (("k", ka, kb), ("v", va, vb), ("k second launch", kc, kb),
+                       ("v second launch", vc, vb)):
+        _check_close(f"paged_kv_write[{mode}] {name}", a, b, 0.0, 0.0)
+    idx, k_live, v_live = slots[live].long(), kn[live], vn[live]
+    out[f"paged_kv_write[{mode}]"] = dict(
+        max_abs_err=0.0,
+        **_timings(lambda: PA.paged_kv_write(ka, va, kn, vn, slots),
+                   lambda: PA.paged_kv_write_plain(kb, vb, kn, vn, slots),
+                   lambda: (kb.view(-1, KV, D).index_copy_(0, idx, k_live),
+                            vb.view(-1, KV, D).index_copy_(0, idx, v_live)), 50),
+        shape=f"T={T} rows ({n_live} live), arena [{nblk},{bs},{KV},{D}] bf16",
+        bound=bound_ms(4 * n_live * KV * D * 2 + 4 * T, 0.0))
+    del ka, va, kb, vb, kc, vc
+    qk, ks, qv, vs = PA.quantize_kv_rows(randn(nblk * bs, KV, D), randn(nblk * bs, KV, D))
+    pools = [qk.reshape(nblk, bs, KV, D), qv.reshape(nblk, bs, KV, D),
+             ks.reshape(nblk, bs, KV), vs.reshape(nblk, bs, KV)]
+    got, again, want = ([p.clone() for p in pools] for _ in range(3))
+    PA.paged_kv_write_int8(*got, kn, vn, slots)
+    PA.paged_kv_write_int8(*again, kn, vn, slots)
+    PA.paged_kv_write_quant_plain(*want, kn, vn, slots)
+    torch.cuda.synchronize()
+    off = {"kernel_vs_plain": _pools_off(got, want), "two_launches": _pools_off(got, again)}
+    if any(off.values()):
+        raise AssertionError(f"paged_kv_write_int8[{mode}]: bits differ: {off}")
+    cut = HEAD_DIM_CUT[mode]
+    faults = {"ties_away_from_zero": _emulated_write(PA, pools, kn, vn, slots,
+                                                     "ties_away_from_zero"),
+              f"amax_first_{cut}_columns": _emulated_write(PA, pools, kn, vn, slots,
+                                                           f"amax_first_{cut}_columns")}
+    if D == 256:
+        unwritten = _emulated_write(PA, pools, kn, vn, slots)
+        for i in (0, 1):
+            unwritten[i][..., 128:] = pools[i][..., 128:]
+        faults["second_chunk_unwritten"] = unwritten
+    faults = {name: _pools_off(got, f) for name, f in faults.items()}
+    if not all(faults.values()):
+        raise AssertionError(f"paged_kv_write_int8[{mode}]: the check passes a planted fault: "
+                             f"{faults}")
+    out[f"paged_kv_write_int8[{mode}]"] = dict(
+        max_abs_err=0.0,
+        **_timings(lambda: PA.paged_kv_write_int8(*got, kn, vn, slots),
+                   lambda: PA.paged_kv_write_quant_plain(*want, kn, vn, slots), None, 50),
+        shape=f"T={T} rows ({n_live} live), pools [{nblk},{bs},{KV},{D}] int8 + "
+              f"[{nblk},{bs},{KV}] f32",
+        bound=bound_ms(n_live * KV * D * 2 * 2 + n_live * KV * (D + 4) * 2 + 4 * T, 0.0),
+        planted_faults_elements_off=faults)
+    return out
+
+
+def _wide_head_checks(FA, PA, randn, dev, bound_ms):
+    """The head_dim-96 and head_dim-256 modes (WIDE_HEAD_MODELS:
+    GPT-NeoX-20B's 64 heads of 96, GPT-J-6B's 16 heads of 256): flash #1
+    at their prefill shapes (B=1, S in FLASH_D80_S), with the window 1000
+    (S=2048), with ALiBi slopes (S=512) and with GQA 32 over 2 (S=512),
+    against its plain version (o under bwd_mismatch, lse at 1e-3); decode
+    #4/#5 in all four modes at 8 rows with ctx DECODE_FP_CTX at the
+    models' heads and at GQA 32 over 2, at one bf16 ulp (the fused modes'
+    pools bit-exact); the writes (_head_dim_write_checks). A second launch
+    of each kernel at the models' shapes bit-identical. Planted faults
+    that must fail: flash with the output's columns from HEAD_DIM_CUT on
+    left zero and the scores taken over the dims below it; decode's
+    output with the columns from WIDE_HEAD_DECODE_CUT on zeroed (what
+    dropping D 96's last P V column-tile pair, or D 256's second half,
+    leaves) and the scores over the dims below HEAD_DIM_CUT; at D 256 the
+    FAULT_BUILDS, run through the wrappers by build.routed: flash at
+    S 512 and 2048, decode in all four modes at GQA 32 over 2. Times flash at S=2048
+    beside SDPA, decode at the rows above; reports the ptxas registers
+    and spills of the new instantiations."""
+    import torch
+
+    from deepspeed_tpu_torch.models.transformer import TransformerConfig
+    from deepspeed_tpu_torch.ops.cuda import build
+
+    results, report = {}, {}
+    bs = SERVE_A["kv_block_size"]
+    NB = SERVE_A["max_seq_len"] // bs
+    ctx_list = list(DECODE_FP_CTX)
+    atol, rtol = KERNEL_TOL["paged_decode_attention"]
+    for seed, (mode, model) in enumerate(WIDE_HEAD_MODELS.items()):
+        mc = TransformerConfig(**model)
+        H, KV, D = mc.n_heads, mc.kv_heads, mc.head_dim
+        cut, dcut = HEAD_DIM_CUT[mode], WIDE_HEAD_DECODE_CUT[mode]
+        rep = report[mode] = {}
+        for S in FLASH_D80_S:
+            q, k, v, o, ro, st, timed = _flash_case(FA, randn, bound_ms, 1, S, H, KV, D)
+            o2, _ = FA.flash_fwd(q, k, v)
+            faults = {f"columns_{cut}_{D - 1}_zero": FA.bwd_mismatch(_zero_from(o, cut),
+                                                                     ro)["n_over"],
+                      f"scores_over_first_{cut}_dims": FA.bwd_mismatch(
+                          FA.flash_fwd(_zero_from(q, cut), k, v)[0], ro)["n_over"]}
+            if D == 256:
+                with build.routed("flash_fwd", FAULT_BUILDS["pv_hi_product_skipped"]):
+                    faults["pv_hi_product_skipped"] = FA.bwd_mismatch(
+                        FA.flash_fwd(q, k, v)[0], ro)["n_over"]
+            if not torch.equal(o, o2):
+                raise AssertionError(f"flash_fwd[{mode}] S={S}: two launches differ")
+            if not all(faults.values()):
+                raise AssertionError(f"flash_fwd[{mode}] S={S}: the o check passes a planted "
+                                     f"fault: {faults}")
+            rep[f"flash_fwd@S{S}"] = {"o_worst_ratio": st["worst_ratio"],
+                                      "o_max_abs_err": st["max_abs_err"],
+                                      "two_launches": "bit-identical",
+                                      "planted_faults_o_elements_over": faults}
+            if S == max(FLASH_D80_S):
+                results[f"flash_fwd[{mode}]"] = timed()
+            del q, k, v, o, o2, ro, timed
+            torch.cuda.empty_cache()
+        flash_cases = (("window_1000", 2048, H, KV, ALIBI_WINDOW, False),
+                       ("alibi", 512, H, KV, 0, True),
+                       ("gqa_32_over_2", 512, WIDE_HEAD_GQA["H"], WIDE_HEAD_GQA["KV"], 0, False))
+        for label, S, h, kv, window, alibi in flash_cases:
+            slopes = _slopes(h, 1.0, dev) if alibi else None
+            q, k, v = randn(1, S, h, D), randn(1, S, kv, D), randn(1, S, kv, D)
+            o, lse = FA.flash_fwd(q, k, v, window, slopes)
+            ro, rlse = FA.flash_attention_plain(q, k, v, window, slopes)
+            name = f"flash_fwd[{mode}] {label}"
+            st = _check_flash_o(FA, name + " o", o, ro)
+            _check_close(name + " lse", lse, rlse, 1e-3, 1e-3)
+            rep[f"flash_fwd@{label}"] = {"o_worst_ratio": st["worst_ratio"],
+                                         "o_max_abs_err": st["max_abs_err"]}
+            del q, k, v, o, lse, ro, rlse
+        results[f"flash_fwd[{mode}]"]["max_abs_err"] = max(
+            r["o_max_abs_err"] for n, r in rep.items() if n.startswith("flash_fwd"))
+        torch.cuda.empty_cache()
+
+        x, call, run = _decode_fixture(PA, randn, dev, H, KV, D, bs, NB, ctx_list, 90 + seed)
+        S, nblk = x["S"], x["nblk"]
+        q_cut = _zero_from(x["q"], cut)
+        for name in DECODE_MODES:
+            (o, pk), (ref, pr) = run(name, 0), run(name, 0, kernel=False)
+            o2, pk2 = run(name, 0)
+            err = _check_close(f"{name}[{mode}]", o, ref, atol, rtol)
+            if "fused" in name:
+                for a, b in zip(pk, pr):
+                    _check_close(f"{name}[{mode}] pools", a, b, 0.0, 0.0)
+            if not torch.equal(o, o2) or _pools_off(pk, pk2):
+                raise AssertionError(f"{name}[{mode}]: two launches differ")
+            faults = {f"columns_{dcut}_{D - 1}_zeroed": _n_over(_zero_from(o, dcut), ref, atol,
+                                                                rtol),
+                      f"scores_over_first_{cut}_dims": _n_over(run(name, 0, q=q_cut)[0], ref,
+                                                               atol, rtol)}
+            if not all(faults.values()):
+                raise AssertionError(f"{name}[{mode}]: the check passes a planted fault: "
+                                     f"{faults}")
+            rep[name] = {"max_abs_err": err, "two_launches": "bit-identical",
+                         "planted_faults_elements_over": faults}
+            pools, ref_pools = run(name, 0)[1], run(name, 0)[1]
+            results[f"{name}[{mode}]"] = dict(
+                max_abs_err=err,
+                **_timings(lambda: call(name, 0, pools),
+                           lambda: call(name, 0, ref_pools, kernel=False), None, 20),
+                shape=f"S={S}, ctx {min(ctx_list)}..{max(ctx_list)}, H={H}, KV={KV}, D={D}, "
+                      f"bs={bs}, {'int8' if 'int8' in name else 'bf16'} pools of {nblk} blocks",
+                bound=bound_ms(_decode_bytes(name, S, H, KV, D, NB, sum(ctx_list)),
+                               4 * sum(ctx_list) * H * D))
+            del pools, ref_pools
+        del x, call, run
+        h, kv = WIDE_HEAD_GQA["H"], WIDE_HEAD_GQA["KV"]
+        x, call, run = _decode_fixture(PA, randn, dev, h, kv, D, bs, NB, ctx_list, 95 + seed)
+        for name in DECODE_MODES:
+            (o, pk), (ref, pr) = run(name, 0), run(name, 0, kernel=False)
+            err = _check_close(f"{name}[{mode}] gqa {h} over {kv}", o, ref, atol, rtol)
+            if "fused" in name:
+                for a, b in zip(pk, pr):
+                    _check_close(f"{name}[{mode}] gqa pools", a, b, 0.0, 0.0)
+            rep[f"{name}@gqa_{h}_over_{kv}"] = {"max_abs_err": err}
+            if D == 256:
+                fault = "q_frag_of_the_next_k_step"
+                with build.routed("paged_decode", FAULT_BUILDS[fault]):
+                    n_over = _n_over(run(name, 0)[0], ref, atol, rtol)
+                if not n_over:
+                    raise AssertionError(f"{name}[{mode}] gqa: the check passes the planted "
+                                         f"fault {fault}")
+                rep[f"{name}@gqa_{h}_over_{kv}"]["planted_faults_elements_over"] = {
+                    fault: n_over}
+        del x, call, run
+        torch.cuda.empty_cache()
+        results.update(_head_dim_write_checks(PA, randn, dev, bound_ms, mode, KV, D))
+        rep["write_int8_planted_faults_elements_off"] = results[
+            f"paged_kv_write_int8[{mode}]"]["planted_faults_elements_off"]
+        rep["writes"] = "bit-exact, two launches bit-identical"
+    ptxas = {}
+    for source, kernels in (("flash_fwd", ("flash_fwd_kernel",)),
+                            ("paged_decode", ("decode_kernel",)),
+                            ("paged_kv_write", ("kv_write_int8_kernel",))):
+        ptxas.update({k: v for k, v in _ptxas_registers(build, source, kernels).items()
+                      if "<96," in k or "<256," in k or k.endswith("<96>")
+                      or k.endswith("<256>")})
+    report["ptxas"] = ptxas
+    report["flash_fwd_d256_spills"] = {k: v for k, v in ptxas.items()
+                                       if k.startswith("flash_fwd_kernel<256")
+                                       and (v.get("spill_stores") or v.get("spill_loads"))}
+    print(json.dumps({"wide_head_checks": {"decode_ctx": ctx_list, **report}}))
     return results
 
 
@@ -2965,8 +3214,8 @@ def _bwd_mode_faults(FA, q, k, v, do, lse, delta, window, alibi, ref):
     faults = {}
     if D == 80:
         good = bwd(q, k, v, lse, delta, do)
-        faults["columns_64_79_zeroed"] = (names, tuple(_first_64_dims(g) for g in good))
-        faults["scores_over_first_64_dims"] = (names, bwd(_first_64_dims(q), k, v, lse, delta,
+        faults["columns_64_79_zeroed"] = (names, tuple(_zero_from(g, 64) for g in good))
+        faults["scores_over_first_64_dims"] = (names, bwd(_zero_from(q, 64), k, v, lse, delta,
                                                           do))
     if G > 8 and alibi is None:
         keep = torch.arange(H, device=q.device).view(KV, G)[:, :8 * ((G - 1) // 8)].flatten()
@@ -3556,6 +3805,8 @@ def check_kernels(cfg, dev):
         # the tiled design of #6's int8 write at its four bounding shapes
         "kv_write_design": lambda: _kv_write_design_checks(PA, randn, dev, bound_ms),
         "d80": lambda: _d80_checks(FA, PA, randn, dev, bound_ms),
+        # the head_dim-96 and head_dim-256 modes at GPT-NeoX-20B's and GPT-J-6B's shapes
+        "wide_head": lambda: _wide_head_checks(FA, PA, randn, dev, bound_ms),
         # the backward's head_dim-80 and wide-group modes at Phi-2's and
         # Falcon-7B's training shapes
         "flash_bwd_modes": lambda: _flash_bwd_mode_checks(FA, randn, dev, bound_ms),
@@ -4330,8 +4581,9 @@ def _graph_model_done(report, name, rep):
 
 def run_serve_graphs(cfg, dev):
     """Phase serve_graphs: the flagship (bf16 and int8 pools) at batches
-    8, 32 and 64 greedy and the sampled lane at 32, and every 7B server
-    and Phi-2 (SERVED_7B, bf16 and int8 pools) at batch 8 greedy, each
+    8, 32 and 64 greedy and the sampled lane at 32, and every 7B server,
+    Phi-2, GPT-NeoX-20B and GPT-J-6B (SERVED_7B, bf16 and int8 pools) at
+    batch 8 greedy, each
     replayed from the graphs warmup() captured against eager, bit for
     bit; the sampled tokens against the CPU oracle; the planted faults
     (_planted_graph_faults) on the flagship's bf16 engine; decode tok/s
@@ -4807,11 +5059,13 @@ SERVE_LONG = {"window": (SERVE_W, W_LONG, W_PROMPTS, 3, "long"),
               "alibi": (SERVE_A, A_LONG, A_PROMPTS, 4, "wave"),
               "sparse": (SERVE_S, S_LONG, S_PROMPTS, 5, "long"),
               "falcon": (SERVE_A, A_LONG, A_PROMPTS, 8, "wave"),
-              "phi": (SERVE_A, A_LONG, A_PROMPTS, 9, "wave")}
+              "phi": (SERVE_A, A_LONG, A_PROMPTS, 9, "wave"),
+              "neox": (SERVE_NEOX, A_LONG, A_PROMPTS, 10, "wave"),
+              "gptj": (SERVE_A, A_LONG, A_PROMPTS, 11, "wave")}
 # serving mode -> the kernel mode (ops.cuda.MODES) every attention launch of
 # its path must run in
 KERNEL_MODE = {"window": "window", "alibi": "alibi", "sparse": "sparse",
-               "falcon": "wide_group", "phi": "d80"}
+               "falcon": "wide_group", "phi": "d80", "neox": "d96", "gptj": "d256"}
 
 
 def run_serve_long(cfg, dev, params, mode, int8=False):
@@ -4822,7 +5076,9 @@ def run_serve_long(cfg, dev, params, mode, int8=False):
     BLOOM-7B1 (serve_alibi, serve_alibi_int8); mode "sparse": Llama-2-7B
     with a fixed block-sparse layout (serve_sparse, serve_sparse_int8);
     mode "falcon": Falcon-7B (serve_falcon, serve_falcon_int8); mode "phi":
-    Phi-2 (serve_phi, serve_phi_int8). The counted sequence: one put of the
+    Phi-2 (serve_phi, serve_phi_int8); mode "neox": GPT-NeoX-20B
+    (serve_neox, serve_neox_int8); mode "gptj": GPT-J-6B (serve_gptj,
+    serve_gptj_int8). The counted sequence: one put of the
     long prompt, a wave of 96-token prompts, a single-token decode put of
     the wave's first row, a 2-token continuation (the plain-mode kernel; of
     the long sequence at ctx > 4096 for the window and at ctx ~3970 for
@@ -4832,7 +5088,8 @@ def run_serve_long(cfg, dev, params, mode, int8=False):
     mode's kernels must launch and nothing else (the layout's prefill is
     the block gather: no flash), every launch of a wrapper with the mode's
     counter in that mode (KERNEL_MODE: Falcon's attention in the
-    wide-group mode, all of Phi-2's in the head_dim-80 mode). Then the
+    wide-group mode, all of Phi-2's in the head_dim-80 mode, GPT-NeoX-20B's
+    in the head_dim-96 one, GPT-J-6B's in the head_dim-256 one). Then the
     three-path check (_serve_three_paths), for the window and the layout
     the locality check (_locality), TTFT (of the long prompt for the
     window, else of fresh short and long prompts) and batch-8 decode
@@ -5161,7 +5418,7 @@ def main():
     cfg = T.TransformerConfig(**FLAGSHIP)
 
     t0 = time.perf_counter()
-    libs = build.build_all()
+    libs = build.build_all(build.SOURCES + tuple(FAULT_BUILDS.values()))
     build_s = time.perf_counter() - t0
 
     def done(phase, report):
@@ -5211,8 +5468,8 @@ def main():
     paths = {"train": tr, "serve": sl, "serve_int8": q8, "serve_graphs": gr, "serve_int8w": q8w,
              **served, **trains, "evoformer": ev}
     line = []
-    # each mode (window, ALiBi, layout bitmap, wide group, head_dim 80) is a
-    # path of its kernel: same source, same TPU kernel
+    # each mode (window, ALiBi, layout bitmap, wide group, head_dim 80, 96
+    # and 256) is a path of its kernel: same source, same TPU kernel
     sources = {**KERNELS, **{f"{n}[{mode}]": KERNELS[n]
                              for mode, names in K.MODES.items() for n in names}}
     for name, (source, replaces) in sources.items():

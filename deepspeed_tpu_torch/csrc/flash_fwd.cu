@@ -6,7 +6,7 @@
 // Replaces: deepspeed_tpu/ops/pallas/flash_attention.py _flash_fwd
 // (_fwd_kernel), the prefill attention of the serving path and the
 // forward of the training path, in its causal, sliding-window and ALiBi
-// modes, for any whole GQA group and head dims 64, 80 and 128.
+// modes, for any whole GQA group and head dims 64, 80, 96, 128 and 256.
 //
 // Bound on the H100: the work is 4 * D operations per live (query, key)
 // pair per head against 2 * S * (H + 2 KV) * D bytes of q, k, v and o,
@@ -65,10 +65,28 @@
 // ALiBi and the window are independent runtime arguments. Zero slopes add
 // +0 to every score, so they give the result without ALiBi bit for bit.
 //
-// Head dim 80 (Phi-2): a row of 160 bytes is two 64-column swizzle atoms
-// whose columns 80-127 TMA fills with zeros. Q K^T takes the five 16-wide
-// depth steps that hold data; P V and the O accumulator run 128 wide (the
-// zero columns of V add nothing) and the epilogue writes the first 80.
+// Head dims 80 (Phi-2) and 96 (GPT-NeoX-20B): a row of 160 or 192 bytes
+// is two 64-column swizzle atoms whose columns past D TMA fills with
+// zeros. Q K^T takes the five or six 16-wide depth steps that hold data;
+// P V and the O accumulator run 128 wide (the zero columns of V add
+// nothing) and the epilogue writes the first D.
+//
+// Head dim 256 (GPT-J-6B): four atoms a row, and every D 256 launch takes
+// 64-row CTAs (one consumer warpgroup and the producer) over 64-key tiles
+// in the two-stage ring: 32 KB of Q, 64 KB of K, 64 KB of V, one CTA an
+// SM. The O staging has no room of its own: it goes over the
+// warpgroup's Q, dead once the last tile's Q K^T has completed, in two
+// passes of 128 columns (64 x 136 bf16, 17 KB of Q's 32). P V is two
+// 128-wide products a depth step (V's atoms 0-1, then 2-3). Registers
+// set the CTA: a warpgroup's O accumulator is 64 x 256 f32, 128
+// registers a thread beside the 32 of the score tile and the 16 of P.
+// ptxas allocates the consumers' code under the launch's cap, not under
+// setmaxnreg's: 128-row CTAs (two consumer warpgroups and a producer, 168
+// registers) spilled 248 bytes a thread, with 32-key tiles still 64. A
+// lone 64-row CTA of 256 threads holds 255 registers a thread without
+// setmaxnreg (ptxas: 189, no spills) and ran 14% faster at GPT-J-6B's
+// 2048-token prefill and 1.9x at 512, where the 128-row CTAs left half
+// the SMs idle (port_timing.py flash; PERF.md).
 //
 // The TPU kernel's grid ran its k axis in order with the accumulators in
 // VMEM scratch; here that axis is the loop inside the CTA.
@@ -104,7 +122,11 @@ struct Cfg {
   static constexpr int DP = NA * ATOM;              // width of P V and of the O accumulator
   static constexpr int KSTEPS = D / 16;             // Q K^T depth steps
   static constexpr int THREADS = (NWG + 1) * WG;
-  static constexpr int LDO = DP + 8;                // bf16 stride of an O staging row
+  // the O staging: its own region, or (D 256) the warpgroup's Q, in
+  // passes of OC columns
+  static constexpr bool O_OVER_Q = D > 128;
+  static constexpr int OC = O_OVER_Q ? 128 : DP;    // columns an epilogue pass stages
+  static constexpr int LDO = OC + 8;                // bf16 stride of an O staging row
   static constexpr int Q_BOX_BYTES = QBOX * ATOM * 2;
   static constexpr int KV_BOX_BYTES = BN * ATOM * 2;
   static constexpr int KV_TILE = NA * KV_BOX_BYTES;  // one stage of K, or of V
@@ -112,21 +134,46 @@ struct Cfg {
   static constexpr int K_OFF = Q_OFF + NWG * NA * Q_BOX_BYTES;
   static constexpr int V_OFF = K_OFF + STAGES * KV_TILE;
   static constexpr int O_OFF = V_OFF + STAGES * KV_TILE;
-  static constexpr int BAR_OFF = O_OFF + NWG * 64 * LDO * 2;
+  static constexpr int BAR_OFF = O_OFF + (O_OVER_Q ? 0 : NWG * 64 * LDO * 2);
   static constexpr int SMEM = BAR_OFF + (1 + 4 * STAGES) * 8 + 1024;  // + alignment slack
-  static constexpr int MIN_BLOCKS = NWG == 2 ? 1 : 2;
+  // CTAs an SM: two 64-row CTAs where their shared memory fits
+  static constexpr int MIN_BLOCKS = NWG == 2 || 2 * (SMEM + 1024) > 233472 ? 1 : 2;
   // registers per thread after setmaxnreg: what the CTA holds at launch
   // (65536 / (THREADS * MIN_BLOCKS), at most 255), the producer's given
-  // to the consumers
+  // to the consumers; a lone 64-row CTA an SM (D 256) may hold 255 a
+  // thread from the launch and takes no setmaxnreg
+  static constexpr bool SETMAXNREG = NWG == 2 || MIN_BLOCKS == 2;
   static constexpr int PRODUCER_REGS = 24;
   static constexpr int CONSUMER_REGS = NWG == 2 ? 240 : 232;
-  static_assert(D % 16 == 0 && D <= 128, "head dim");
+  static_assert(D % 16 == 0 && (D <= 128 || D == 256), "head dim");
   static_assert(BN % 64 == 0 && BN <= 128, "key tile");
+  static_assert(DP % OC == 0 && (!O_OVER_Q || 64 * LDO * 2 <= NA * Q_BOX_BYTES), "O staging");
   static_assert(O_OFF % 1024 == 0 && K_OFF % 1024 == 0 && V_OFF % 1024 == 0, "swizzle alignment");
   static_assert(BAR_OFF % 8 == 0, "mbarrier alignment");
   static_assert(MIN_BLOCKS * (SMEM + 1024) <= 233472, "shared memory per SM");
-  static_assert((PRODUCER_REGS + NWG * CONSUMER_REGS) * WG * MIN_BLOCKS <= 65536, "registers");
+  static_assert(!SETMAXNREG || (PRODUCER_REGS + NWG * CONSUMER_REGS) * WG * MIN_BLOCKS <= 65536,
+                "registers");
 };
+
+// O += P V for one 16-key depth step kk: one wgmma 128 columns wide (D up
+// to 128), or two (D 256: V's atoms 0-1 into columns 0-127 of O, atoms
+// 2-3 into 128-255)
+template <class C>
+__device__ __forceinline__ void pv_step(float (&acc)[C::DP / 2], const uint32_t (&pa)[4],
+                                        uint32_t v_tile, int kk) {
+  if constexpr (C::DP <= 128) {
+    wgmma_rs(acc, pa, gmma_desc(v_tile + kk * 16 * 128, C::KV_BOX_BYTES, 1024));
+  } else {
+    static_assert(C::DP == 256, "P V width");
+    float(&lo)[64] = *reinterpret_cast<float(*)[64]>(&acc[0]);
+    float(&hi)[64] = *reinterpret_cast<float(*)[64]>(&acc[64]);
+    wgmma_rs(lo, pa, gmma_desc(v_tile + kk * 16 * 128, C::KV_BOX_BYTES, 1024));
+#ifndef DS_FAULT_PV_HI_SKIPPED  // defined only in a planted fault's build (chip_smoke.py)
+    wgmma_rs(hi, pa, gmma_desc(v_tile + 2 * C::KV_BOX_BYTES + kk * 16 * 128, C::KV_BOX_BYTES,
+                               1024));
+#endif
+  }
+}
 
 // The consumer warpgroup `wg` of a CTA: 64 query rows from r0.
 template <class C>
@@ -247,8 +294,7 @@ __device__ __forceinline__ void consume(unsigned char* smem, uint32_t base, int 
     mbar_wait(bars + 8 * (1 + 2 * STAGES + st), ph);
     wgmma_fence();
 #pragma unroll
-    for (int kk = 0; kk < C::BN / 16; ++kk)
-      wgmma_rs(acc, pa[kk], gmma_desc(v_tile + kk * 16 * 128, C::KV_BOX_BYTES, 1024));
+    for (int kk = 0; kk < C::BN / 16; ++kk) pv_step<C>(acc, pa[kk], v_tile, kk);
     wgmma_commit();
     wgmma_wait();
     fence_regs(acc);
@@ -264,29 +310,39 @@ __device__ __forceinline__ void consume(unsigned char* smem, uint32_t base, int 
   l1 += __shfl_xor_sync(0xffffffffu, l1, 2);
   const float inv0 = l0 > 0.f ? 1.f / l0 : 0.f;
   const float inv1 = l1 > 0.f ? 1.f / l1 : 0.f;
-  __nv_bfloat16* so = reinterpret_cast<__nv_bfloat16*>(smem + C::O_OFF) + wg * 64 * C::LDO;
-#pragma unroll
-  for (int g = 0; g < C::DP / 8; ++g) {
-    const int c = 8 * g + cq;
-    *reinterpret_cast<__nv_bfloat162*>(so + lr * C::LDO + c) =
-        __floats2bfloat162_rn(acc[4 * g] * inv0, acc[4 * g + 1] * inv0);
-    *reinterpret_cast<__nv_bfloat162*>(so + (lr + 8) * C::LDO + c) =
-        __floats2bfloat162_rn(acc[4 * g + 2] * inv1, acc[4 * g + 3] * inv1);
-  }
   if (lane % 4 == 0) {
     float* lrow = lse + (static_cast<size_t>(b) * H + h) * S;
     if (ra < S) lrow[ra] = m0 * LN2 + logf(l0 > 0.f ? l0 : 1.f);
     if (ra + 8 < S) lrow[ra + 8] = m1 * LN2 + logf(l1 > 0.f ? l1 : 1.f);
   }
-  asm volatile("bar.sync %0, %1;" ::"r"(1 + wg), "n"(WG) : "memory");
-  constexpr int VPR = C::D / 8;  // 16-byte vectors per row
-  for (int x = wtid; x < 64 * VPR; x += WG) {
-    const int row = x / VPR;
-    const int cv = x % VPR;
-    if (r0 + row < S)
-      *reinterpret_cast<uint4*>(o + ((static_cast<size_t>(b) * S + r0 + row) * H + h) * C::D +
-                                cv * 8) =
-          *reinterpret_cast<const uint4*>(so + row * C::LDO + cv * 8);
+  // the staging rows: the warpgroup's own region, or (D 256) its Q, whose
+  // last reader (the last tile's Q K^T) has completed
+  __nv_bfloat16* so =
+      C::O_OVER_Q ? reinterpret_cast<__nv_bfloat16*>(smem + (q_tile - base))
+                  : reinterpret_cast<__nv_bfloat16*>(smem + C::O_OFF) + wg * 64 * C::LDO;
+#pragma unroll
+  for (int p = 0; p < C::DP / C::OC; ++p) {
+    if (p > 0) asm volatile("bar.sync %0, %1;" ::"r"(1 + wg), "n"(WG) : "memory");
+#pragma unroll
+    for (int g = 0; g < C::OC / 8; ++g) {
+      const int c = 8 * g + cq;
+      const int a = 4 * (p * C::OC / 8 + g);
+      *reinterpret_cast<__nv_bfloat162*>(so + lr * C::LDO + c) =
+          __floats2bfloat162_rn(acc[a] * inv0, acc[a + 1] * inv0);
+      *reinterpret_cast<__nv_bfloat162*>(so + (lr + 8) * C::LDO + c) =
+          __floats2bfloat162_rn(acc[a + 2] * inv1, acc[a + 3] * inv1);
+    }
+    asm volatile("bar.sync %0, %1;" ::"r"(1 + wg), "n"(WG) : "memory");
+    // 16-byte vectors per row of this pass: the first D columns
+    constexpr int VPR = (C::D < C::OC ? C::D : C::OC) / 8;
+    for (int x = wtid; x < 64 * VPR; x += WG) {
+      const int row = x / VPR;
+      const int cv = x % VPR;
+      if (r0 + row < S)
+        *reinterpret_cast<uint4*>(o + ((static_cast<size_t>(b) * S + r0 + row) * H + h) * C::D +
+                                  p * C::OC + cv * 8) =
+            *reinterpret_cast<const uint4*>(so + row * C::LDO + cv * 8);
+    }
   }
 }
 
@@ -331,7 +387,8 @@ __global__ void __launch_bounds__(C::THREADS, C::MIN_BLOCKS)
 
   const int wg = threadIdx.x / WG;
   if (wg == C::NWG) {  // producer
-    asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;" ::"n"(C::PRODUCER_REGS));
+    if constexpr (C::SETMAXNREG)
+      asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;" ::"n"(C::PRODUCER_REGS));
     if (threadIdx.x % WG == 0) {
       // Q: one box per warpgroup and atom; a warpgroup whose rows all lie
       // past S gets none (its rows are never written)
@@ -362,7 +419,8 @@ __global__ void __launch_bounds__(C::THREADS, C::MIN_BLOCKS)
       }
     }
   } else {
-    asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;" ::"n"(C::CONSUMER_REGS));
+    if constexpr (C::SETMAXNREG)
+      asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;" ::"n"(C::CONSUMER_REGS));
     consume<C>(smem, base, wg, q0 + 64 * wg, j0, n_tiles, b, h, S, H, window, scale_log2,
                slopes, o, lse);
   }
@@ -394,13 +452,16 @@ int launch(void* o, void* lse, const void* q, const void* k, const void* v, cons
 
 // 128-row CTAs (two consumer warpgroups, 128-key tiles) where they fill
 // the card; else 64-row CTAs (one consumer warpgroup, 64-key tiles, two
-// CTAs to an SM), which double the CTAs of a short prefill.
+// CTAs to an SM), which double the CTAs of a short prefill. D 256 always
+// takes 64-row CTAs, one an SM (see the top of the file).
 template <int D>
 int dispatch(void* o, void* lse, const void* q, const void* k, const void* v, const void* slopes,
              int B, int S, int H, int KV, int window, float scale, cudaStream_t st) {
-  const long long ctas128 = static_cast<long long>(B) * H * ((S + 127) / 128);
-  if (ctas128 >= sm_count())
-    return launch<Cfg<D, 2, 128>>(o, lse, q, k, v, slopes, B, S, H, KV, window, scale, st);
+  if constexpr (D != 256) {
+    const long long ctas128 = static_cast<long long>(B) * H * ((S + 127) / 128);
+    if (ctas128 >= sm_count())
+      return launch<Cfg<D, 2, 128>>(o, lse, q, k, v, slopes, B, S, H, KV, window, scale, st);
+  }
   return launch<Cfg<D, 1, 64>>(o, lse, q, k, v, slopes, B, S, H, KV, window, scale, st);
 }
 
@@ -419,8 +480,12 @@ extern "C" int flash_fwd(void* o, void* lse, const void* q, const void* k, const
       return dispatch<64>(o, lse, q, k, v, slopes, B, S, H, KV, window, scale, st);
     case 80:
       return dispatch<80>(o, lse, q, k, v, slopes, B, S, H, KV, window, scale, st);
+    case 96:
+      return dispatch<96>(o, lse, q, k, v, slopes, B, S, H, KV, window, scale, st);
     case 128:
       return dispatch<128>(o, lse, q, k, v, slopes, B, S, H, KV, window, scale, st);
+    case 256:
+      return dispatch<256>(o, lse, q, k, v, slopes, B, S, H, KV, window, scale, st);
     default:
       return static_cast<int>(cudaErrorInvalidValue);
   }

@@ -9,7 +9,7 @@
 //                  same template serves the bf16 fused mode of
 //                  paged_decode_attention (_decode_kernel with k_new), which
 //                  the JAX package takes where paged_decode_fused's
-//                  D % 128 == 0 does not hold (head_dim 64 or 80).
+//                  D % 128 == 0 does not hold (head_dim 64, 80 or 96).
 //   FUSED = false  replaces paged_decode_attention (_decode_kernel) in its
 //                  plain bf16 mode: attend over cache positions < ctx.
 //   QUANT = true   the int8 modes of paged_decode_attention
@@ -61,7 +61,7 @@
 //   split) is zero-filled by cp.async with src-size 0 and never read from
 //   device memory, and a tile with no live position is not loaded at all.
 //   Rows are padded to a 16-byte-odd stride (D + 8 bf16) so that ldmatrix
-//   reads them without bank conflicts at D 64, 80 and 128.
+//   reads them without bank conflicts at D 64, 80, 96, 128 and 256.
 // - S = Q K^T and O += P V on mma.sync.m16n8k16 (bf16 in, f32
 //   accumulate), fragments by ldmatrix (.trans for V). wgmma is not used:
 //   it takes 64-row tiles and the group is 1-71 rows, and the tensor cores
@@ -107,10 +107,17 @@
 // column (ctx - 1) is attended whatever the bitmap says, as in both TPU
 // kernels. An all-ones bitmap walks the tiles and masks of none.
 //
-// Head dims 64, 80 and 128 (Phi-2 has 80): D / 16 k-steps of 16 (5 at D 80:
-// the last by ldmatrix.x2), D / 8 output column tiles. The int8 quantizer
-// pads a lane's missing elements with zeros, which leave amax unchanged
-// and are never stored.
+// Head dims 64, 80, 96, 128 and 256 (Phi-2 has 80, GPT-NeoX-20B 96, GPT-J-6B
+// 256): D / 16 k-steps of 16 (5 at D 80: the last by ldmatrix.x2; 6 at D
+// 96, no power of two: the row loops and the column-tile pairs take any
+// count), D / 8 output column tiles. The int8 quantizer pads a lane's
+// missing elements with zeros, which leave amax unchanged and are never
+// stored. At D 256 a stage of bf16 K and V is 67,584 bytes, so the
+// 3-stage ring takes 202,752 of the 227 KB a block may use (one CTA an
+// SM); a 16-row slice's O is 128 f32 registers a thread, which leave no
+// room for Q's 64 outside NARROW: there each k-step's Q fragments are
+// read again from q (an L1 hit) when a tile needs them. A NARROW warp's
+// O^T at D 256 is 64 registers and keeps Q resident.
 //
 // Pad rows (ctx <= 0) output zeros and write nothing. A fused row with slot
 // < 0 attends its cache only. Every block id is clamped to the arena. A row
@@ -595,8 +602,12 @@ __global__ void __launch_bounds__(NARROW ? 4 * 32 : MAX_WARPS * 32) decode_kerne
   const bool computes = warp < nw;
   const int gid = lane >> 2, qid = lane & 3;
   // Q as A fragments (rows: heads gid, gid + 8 of the slice) or, NARROW, as
-  // B fragments of S^T = K Q^T (columns: heads gid of the group)
-  uint32_t qf[Gm::KSTEPS][NARROW ? 2 : 4];
+  // B fragments of S^T = K Q^T (columns: heads gid of the group); held in
+  // registers but at D 256 outside NARROW (QREG false), where each tile
+  // reads them from the rows qrows (null: a padding row)
+  constexpr bool QREG = NARROW || D <= 128;
+  uint32_t qf[QREG ? Gm::KSTEPS : 1][NARROW ? 2 : 4];
+  const __nv_bfloat16* qrows[2] = {nullptr, nullptr};
   float slope[2];  // rows gid, gid + 8; NARROW: columns 2 qid, 2 qid + 1
   if constexpr (NARROW) {
     const bool valid = computes && gid < Gc && n_tiles > 0;
@@ -619,14 +630,31 @@ __global__ void __launch_bounds__(NARROW ? 4 * 32 : MAX_WARPS * 32) decode_kerne
       const bool valid = computes && g < Gc && n_tiles > 0;
       const __nv_bfloat16* qrow = a.q + ((size_t)s * H + head0 + (valid ? g : 0)) * D;
       slope[rr] = valid && a.slopes ? a.slopes[head0 + g] : 0.f;
+      if constexpr (QREG) {
 #pragma unroll
-      for (int ks = 0; ks < Gm::KSTEPS; ++ks) {
-        const int col = ks * 16 + qid * 2;
-        qf[ks][rr] = valid ? *reinterpret_cast<const uint32_t*>(qrow + col) : 0u;
-        qf[ks][2 + rr] = valid ? *reinterpret_cast<const uint32_t*>(qrow + col + 8) : 0u;
+        for (int ks = 0; ks < Gm::KSTEPS; ++ks) {
+          const int col = ks * 16 + qid * 2;
+          qf[ks][rr] = valid ? *reinterpret_cast<const uint32_t*>(qrow + col) : 0u;
+          qf[ks][2 + rr] = valid ? *reinterpret_cast<const uint32_t*>(qrow + col + 8) : 0u;
+        }
+      } else {
+        qrows[rr] = valid ? qrow : nullptr;
       }
     }
   }
+  // k-step ks's A fragments from qrows (QREG false)
+  auto q_frag = [&](int ks, uint32_t(&f)[4]) {
+#ifdef DS_FAULT_Q_FRAG_NEXT_KSTEP  // defined only in a planted fault's build (chip_smoke.py)
+    const int col = (ks + 1) % Gm::KSTEPS * 16 + qid * 2;
+#else
+    const int col = ks * 16 + qid * 2;
+#endif
+#pragma unroll
+    for (int rr = 0; rr < 2; ++rr) {
+      f[rr] = qrows[rr] ? *reinterpret_cast<const uint32_t*>(qrows[rr] + col) : 0u;
+      f[2 + rr] = qrows[rr] ? *reinterpret_cast<const uint32_t*>(qrows[rr] + col + 8) : 0u;
+    }
+  };
   // O (rows as the scores'), or NARROW O^T: D / 16 tiles of 16 columns x 8 heads
   constexpr int NO = NARROW ? Gm::KSTEPS : 2 * Gm::KSTEPS;
   float o[NO][4];
@@ -709,6 +737,11 @@ __global__ void __launch_bounds__(NARROW ? 4 * 32 : MAX_WARPS * 32) decode_kerne
     for (int j = 0; j < 8; ++j) sc[j][0] = sc[j][1] = sc[j][2] = sc[j][3] = 0.f;
 #pragma unroll
     for (int ks = 0; ks < Gm::KSTEPS; ks += 2) {
+      uint32_t qa[2][4];  // QREG false: k-steps ks and ks + 1 (D 256: an even count)
+      if constexpr (!QREG) {
+        q_frag(ks, qa[0]);
+        q_frag(ks + 1, qa[1]);
+      }
 #pragma unroll
       for (int j = 0; j < 8; ++j) {
         if (j < ntw) {
@@ -716,14 +749,18 @@ __global__ void __launch_bounds__(NARROW ? 4 * 32 : MAX_WARPS * 32) decode_kerne
           if (ks + 1 < Gm::KSTEPS) {
             uint32_t b[4];
             ldsm_x4(b, krow + (lane >> 3) * 8);
-            if constexpr (!NARROW) {
+            if constexpr (!NARROW && QREG) {
               mma(sc[j], qf[ks], b[0], b[1]);
               mma(sc[j], qf[ks + 1], b[2], b[3]);
+            } else if constexpr (!NARROW) {
+              mma(sc[j], qa[0], b[0], b[1]);
+              mma(sc[j], qa[1], b[2], b[3]);
             }
           } else {
             uint32_t b[2];
             ldsm_x2(b, krow + ((lane >> 3) & 1) * 8);
-            if constexpr (!NARROW) mma(sc[j], qf[ks], b[0], b[1]);
+            if constexpr (!NARROW && QREG) mma(sc[j], qf[ks], b[0], b[1]);
+            else if constexpr (!NARROW) mma(sc[j], qa[0], b[0], b[1]);
           }
         }
       }
@@ -1057,8 +1094,12 @@ extern "C" int paged_decode(void* out, const void* q, void* k_cache, void* v_cac
       return launch_modes<64>(fused != 0, quant != 0, a, S, st);
     case 80:
       return launch_modes<80>(fused != 0, quant != 0, a, S, st);
+    case 96:
+      return launch_modes<96>(fused != 0, quant != 0, a, S, st);
     case 128:
       return launch_modes<128>(fused != 0, quant != 0, a, S, st);
+    case 256:
+      return launch_modes<256>(fused != 0, quant != 0, a, S, st);
     default:
       return (int)cudaErrorInvalidValue;
   }

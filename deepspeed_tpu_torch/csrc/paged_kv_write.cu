@@ -27,7 +27,7 @@
 // [NBLK, bs, KV]. One launch reads each live bf16 row once and writes its
 // codes and one scale per (row, head), with the quantizer of kv_quant.cuh
 // (NaN and inf as the JAX package gives them: see there), and the drop and
-// clamp contract above. Head dims 64, 80 and 128, any KV >= 1.
+// clamp contract above. Head dims 64, 80, 96, 128 and 256, any KV >= 1.
 //
 // Bound: bytes, T_live * KV * D * 2 read and T_live * KV * (D + 4) written
 // for K and V each, a few operations a byte (a max, a divide and a
@@ -38,10 +38,13 @@
 // - the rows are 2 * T * KV head slices in a flat order (a row's K heads,
 //   then its V heads); a CTA of 256 threads takes a tile of 16
 //   consecutive slices, one slice a half-warp of 16 lanes, one lane a
-//   chunk of 8 bf16 (16 bytes) at D 80 and 128 (lanes 10-15 idle at 80)
-//   and of 4 (8 bytes) at D 64, so a warp reads two neighbouring slices,
-//   contiguous bytes; the index of a slice's row and of a slot's block are
-//   multiplies by magic numbers, not divisions;
+//   chunk of 8 bf16 (16 bytes) at D 80, 96 and 128 (lanes 10-15 idle at
+//   80, 12-15 at 96) and of 4 (8 bytes) at D 64, so a warp reads two
+//   neighbouring slices, contiguous bytes; at D 256 (GPT-J-6B) a slice is
+//   32 chunks and lane l takes two, chunks l and l + 16, so that each of
+//   its two loads is still 16 lanes on 256 contiguous bytes; the index of
+//   a slice's row and of a slot's block are multiplies by magic numbers,
+//   not divisions;
 // - a slice's amax is the max of the bits of |x| (16-bit halves, two
 //   elements an instruction), then a shuffle max within the half-warp:
 //   exact in any order, NaN kept;
@@ -50,7 +53,7 @@
 //   route: the IEEE quotient and code bit for bit; kv_quant_check below
 //   tries every pair), so a lane's quotients are independent chains
 //   (__fdiv_rn's call to its slow path kept them apart);
-// - a lane's codes go out as one 8- or 4-byte store (a slot's [KV, D]
+// - a chunk's codes go out as one 8- or 4-byte store (a slot's [KV, D]
 //   codes are contiguous, so a warp writes whole sectors), the slice's
 //   scale as one 4-byte store of its lane 0;
 // - a warp whose slices are both dropped rows stops after its lookups.
@@ -94,8 +97,10 @@ constexpr int KV8_TILE = KV8_THREADS / KV8_LANES;
 
 template <int D>
 struct Kv8 {
-  static constexpr int EPL = D == 64 ? 4 : 8;  // bf16 a lane: 8 bytes at D 64, else 16
-  static constexpr int CHUNKS = D / EPL;       // lanes that hold some: 16, 10, 16
+  static constexpr int EPL = D == 64 ? 4 : 8;  // bf16 a chunk: 8 bytes at D 64, else 16
+  static constexpr int CHUNKS = D / EPL;       // chunks of a slice: 16, 10, 12, 16, 32
+  static constexpr int NC = (CHUNKS + KV8_LANES - 1) / KV8_LANES;  // chunks a lane: 2 at D 256
+  static_assert(D % EPL == 0 && NC <= 2, "head dim");
 };
 
 template <int EPL>
@@ -173,47 +178,60 @@ kv_write_int8_kernel(int8_t* __restrict__ k_codes,   // [NBLK, bs, KV, D]
                      Kv8Div per_block) {
   using C = Kv8<D>;
   using Chunk = typename Kv8Chunk<C::EPL>::T;
-  constexpr int W = C::EPL / 2;  // 32-bit words a lane: two bf16 each
-  const int lane = threadIdx.x % KV8_LANES;  // the chunk of the slice
+  constexpr int W = C::EPL / 2;  // 32-bit words a chunk: two bf16 each
+  const int lane = threadIdx.x % KV8_LANES;  // the slice's chunks lane (and lane + 16)
   const int j = blockIdx.x * KV8_TILE + threadIdx.x / KV8_LANES;
-  Chunk raw{};
+  Chunk raw[C::NC] = {};
   Kv8Slice s{0, -1, false};
   if (j < n_slices) {
     s = kv8_slice(j, n_kv, per_row, slots, n_blocks, block_size, per_block);
-    if (s.dst >= 0 && lane < C::CHUNKS)
-      raw = __ldg(static_cast<const Chunk*>(s.is_v ? v_new : k_new) + (long long)s.src * C::CHUNKS +
-                  lane);
+    const Chunk* src = static_cast<const Chunk*>(s.is_v ? v_new : k_new) +
+                       (long long)s.src * C::CHUNKS + lane;
+#pragma unroll
+    for (int i = 0; i < C::NC; ++i)
+      if (s.dst >= 0 && lane + i * KV8_LANES < C::CHUNKS) raw[i] = __ldg(src + i * KV8_LANES);
   }
   // a warp whose two slices are both dropped rows (or past the end) is
   // done; else all its lanes go on, so every shuffle runs with the whole warp
   if (!__any_sync(0xffffffffu, s.dst >= 0)) return;
-  uint32_t w[W];
-  kv8_words(raw, w);
+  uint32_t w[C::NC * W];
+#pragma unroll
+  for (int i = 0; i < C::NC; ++i) {
+    uint32_t wi[W];
+    kv8_words(raw[i], wi);
+#pragma unroll
+    for (int e = 0; e < W; ++e) w[i * W + e] = wi[e];
+  }
   // the max of |x| on the bf16 pairs' bits (16-bit halves; the bits of a
   // bf16 and of its f32 share their order), then across the group
   uint32_t m2 = 0;
 #pragma unroll
-  for (int i = 0; i < W; ++i) m2 = __vmaxu2(m2, w[i] & 0x7fff7fffu);
+  for (int i = 0; i < C::NC * W; ++i) m2 = __vmaxu2(m2, w[i] & 0x7fff7fffu);
   uint32_t amax = max(m2 << 16, m2 & 0xffff0000u);
 #pragma unroll
   for (int o = KV8_LANES / 2; o > 0; o >>= 1)
     amax = max(amax, __shfl_xor_sync(0xffffffffu, amax, o));
-  float x[C::EPL];
+  float x[C::NC * C::EPL];
 #pragma unroll
-  for (int i = 0; i < W; ++i) {
+  for (int i = 0; i < C::NC * W; ++i) {
     x[2 * i] = __uint_as_float(w[i] << 16);  // element 2i: the low half
     x[2 * i + 1] = __uint_as_float(w[i] & 0xffff0000u);
   }
   const KvScale sc = kv_scale(amax);
-  int c[C::EPL];
+  int c[C::NC * C::EPL];
   kv_codes(x, sc, c);
   if (s.dst < 0) return;
-  if (lane < C::CHUNKS) {
-    int8_t* out = (s.is_v ? v_codes : k_codes) + s.dst * D + lane * C::EPL;
-    if constexpr (C::EPL == 8)
-      *reinterpret_cast<uint2*>(out) = make_uint2(kv8_pack(c), kv8_pack(c + 4));
-    else
-      *reinterpret_cast<uint32_t*>(out) = kv8_pack(c);
+#pragma unroll
+  for (int i = 0; i < C::NC; ++i) {
+    const int chunk = lane + i * KV8_LANES;
+    if (chunk < C::CHUNKS) {
+      int8_t* out = (s.is_v ? v_codes : k_codes) + s.dst * D + chunk * C::EPL;
+      const int* ci = c + i * C::EPL;
+      if constexpr (C::EPL == 8)
+        *reinterpret_cast<uint2*>(out) = make_uint2(kv8_pack(ci), kv8_pack(ci + 4));
+      else
+        *reinterpret_cast<uint32_t*>(out) = kv8_pack(ci);
+    }
   }
   if (lane == 0) (s.is_v ? v_scale : k_scale)[s.dst] = sc.scale;
 }
@@ -291,8 +309,14 @@ extern "C" int paged_kv_write_int8(void* k_codes, void* v_codes, void* k_scale, 
     case 80:
       return launch_int8<80>(k_codes, v_codes, k_scale, v_scale, k_new, v_new, slots, n,
                              n_blocks, block_size, n_kv, per_row, per_block, st);
+    case 96:
+      return launch_int8<96>(k_codes, v_codes, k_scale, v_scale, k_new, v_new, slots, n,
+                             n_blocks, block_size, n_kv, per_row, per_block, st);
     case 128:
       return launch_int8<128>(k_codes, v_codes, k_scale, v_scale, k_new, v_new, slots, n,
+                              n_blocks, block_size, n_kv, per_row, per_block, st);
+    case 256:
+      return launch_int8<256>(k_codes, v_codes, k_scale, v_scale, k_new, v_new, slots, n,
                               n_blocks, block_size, n_kv, per_row, per_block, st);
     default:
       return (int)cudaErrorInvalidValue;

@@ -47,6 +47,12 @@ What is served:
   rotary (`T.rope_dim`); an lm_head bias added to the f32 logits;
   multi-query attention with any query group (Falcon-7B: 71 over one KV
   head) and head_dim 80 (Phi-2) in every kernel;
+- GPT-NeoX- and GPT-J-class models: the same parallel residual (two
+  LayerNorms: GPT-NeoX; one shared: GPT-J), partial rotary with
+  split-halves pairs (GPT-NeoX) or interleaved ones (GPT-J,
+  `rope_interleaved`), head_dim 96 (GPT-NeoX-20B) and 256 (GPT-J-6B) in
+  every kernel: #1 at prefill, #4/#5 in every decode mode, #6 bf16 and
+  int8;
 - in bf16 or f32 caches, or in int8 caches (`init_cache(kv_quant=True)`:
   int8 code pools beside per-layer [NBLK, bs, KV] f32 scale pools, written
   and read only through the int8 kernels);
@@ -90,7 +96,8 @@ def check_served(cfg: T.TransformerConfig) -> None:
     bad = T.unported_features(cfg)
     if bad:
         raise NotImplementedError(
-            "the serving slices serve Llama-, Bloom-, Falcon- and Phi-class models only; "
+            "the serving slices serve Llama-, Bloom-, Falcon-, Phi-, GPT-NeoX- and "
+            "GPT-J-class models only; "
             f"this config uses {', '.join(bad)} (later slices port them)")
 
 

@@ -18,7 +18,9 @@ non-gated MLP, an embedding LayerNorm) and Falcon/Phi-class ones
 (parallel residuals with one shared or two LayerNorms, partial rotary, an
 lm_head bias, head_dim 80): `unported_features`; serving also covers
 block-sparse models (attention_impl="sparse", the layout of
-`sparsity_config()`), which training does not yet; training runs without
+`sparsity_config()`) and GPT-NeoX- and GPT-J-class ones (head_dim 96 and
+256, interleaved partial rotary), which training does not yet on the card
+(no backward kernel takes those head dims); training runs without
 dropout (`check_trained`).
 """
 
@@ -458,9 +460,12 @@ def init(cfg: TransformerConfig, generator: Optional[torch.Generator] = None,
     residual-output projections, ones for norm scales, zeros for biases.
 
     Draws come from `generator` on the generator's own device and are
-    then moved to `device` (a CUDA generator draws on the card). The
-    values differ from the JAX package's for the same seed: tests that
-    compare the two make their weights with numpy (utils/convert.py)."""
+    then moved to `device` (a CUDA generator draws on the card). Each
+    weight is scaled in place, so its draw holds one f32 copy of the leaf
+    before the cast (GPT-NeoX-20B's [44, 6144, 24576] MLP leaves are
+    26.6 GB each in f32). The values differ from the JAX package's for
+    the same seed: tests that compare the two make their weights with
+    numpy (utils/convert.py)."""
     if cfg.pipeline_stages > 1:
         raise NotImplementedError(
             "pipeline-partitioned layers come with the pipeline slice "
@@ -472,7 +477,7 @@ def init(cfg: TransformerConfig, generator: Optional[torch.Generator] = None,
 
     def normal(shape, scale):
         x = torch.randn(shape, generator=generator, device=gen_device,
-                        dtype=torch.float32) * scale
+                        dtype=torch.float32).mul_(scale)
         return x.to(device=device, dtype=dtype)
 
     def const(shape, value):
@@ -604,12 +609,14 @@ def logical_specs(cfg: TransformerConfig) -> Dict[str, Any]:
 
 def unported_features(cfg: TransformerConfig) -> List[str]:
     """What the config uses beyond the models the port serves so far
-    (Llama-class, Bloom-class and Falcon/Phi-class: rotary, partial rotary
-    or ALiBi positions, RMSNorm or LayerNorm, gated or plain MLP, biases,
-    an embedding LayerNorm, sequential or parallel residuals with one
-    shared or two LayerNorms, an lm_head bias; dense, sliding-window or
-    block-sparse attention); empty when it is covered. Training covers
-    less (`check_trained`)."""
+    (Llama-class, Bloom-class, Falcon/Phi-class and GPT-NeoX/GPT-J-class:
+    rotary with split-halves or interleaved pairs, partial rotary or ALiBi
+    positions, RMSNorm or LayerNorm, gated or plain MLP, biases, an
+    embedding LayerNorm, sequential or parallel residuals with one shared
+    or two LayerNorms, an lm_head bias, head dims 64, 80, 96, 128 and 256
+    in every serving kernel; dense, sliding-window or block-sparse
+    attention); empty when it is covered. Training covers less
+    (`check_trained`)."""
     unsupported = {
         "learned positions (GPT-2/OPT)": cfg.use_learned_pos,
         "MoE (n_experts > 0)": cfg.n_experts > 0,
@@ -628,7 +635,9 @@ def check_trained(cfg: TransformerConfig) -> None:
     dense model it serves, it trains: Llama-, Bloom-, Falcon- and
     Phi-class (parallel residuals, an lm_head bias, head_dim 80). Head
     dims that no kernel takes train through the plain versions on the CPU
-    and raise at the kernels on the card."""
+    and raise at the kernels on the card: GPT-NeoX's 96 and GPT-J's 256
+    raise at the flash backward (ops/cuda/flash_attention.py) until the
+    slice that ports kernels #2/#3 at those widths (ROADMAP B5)."""
     bad = unported_features(cfg) + [name for name, hit in {
         "sparse attention (the training forward's sparse_causal_attention branch, "
         "ROADMAP A2)": cfg.attention_impl == "sparse",

@@ -7,8 +7,10 @@ A wrapper that runs a kernel in a further mode also carries that mode's
 counter (`_common.MODE_COUNTERS`), raised by one per launch in the mode
 and counted as "<name>[<mode>]": `window_launches` (a sliding window > 0),
 `alibi_launches` (ALiBi slopes), `sparse_launches` (a block-sparse layout
-bitmap), `wide_group_launches` (more than 8 query heads per KV head) and
-`d80_launches` (head_dim 80). `MODES[mode]` names the wrappers with that
+bitmap), `wide_group_launches` (more than 8 query heads per KV head),
+`d80_launches` (head_dim 80: Phi-2), `d96_launches` (head_dim 96:
+GPT-NeoX-20B) and `d256_launches` (head_dim 256: GPT-J-6B; the head-dim
+counters on the forward and serving kernels, #1 and #4-#6, only). `MODES[mode]` names the wrappers with that
 counter, `mode_launch_counts(mode)` gives their counts. A launch in
 several modes counts in each.
 """

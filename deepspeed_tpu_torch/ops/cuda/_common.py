@@ -40,7 +40,7 @@ def check_cuda_args(what: str, tensors: dict, dtypes: dict,
 # "<name>[<mode>]")
 MODE_COUNTERS = {"window": "window_launches", "alibi": "alibi_launches",
                  "sparse": "sparse_launches", "wide_group": "wide_group_launches",
-                 "d80": "d80_launches"}
+                 "d80": "d80_launches", "d96": "d96_launches", "d256": "d256_launches"}
 # a launch whose KV heads each serve more query heads than this runs in the
 # wide-group mode (Falcon-7B: 71 over one)
 WIDE_GROUP = 8
@@ -60,11 +60,13 @@ def count_launch(wrapper, window: int = 0, alibi: bool = False, sparse: bool = F
     `window_launches` when it ran in the sliding-window mode,
     `alibi_launches` when in the ALiBi mode, `sparse_launches` when with a
     block-sparse layout bitmap, `wide_group_launches` when a KV head
-    served more than WIDE_GROUP query heads, `d80_launches` at head_dim 80
-    (each mode it ran in)."""
+    served more than WIDE_GROUP query heads, `d80_launches`,
+    `d96_launches` and `d256_launches` at head_dim 80, 96 and 256 (each
+    mode it ran in)."""
     wrapper.launches += 1
     hits = {"window": window > 0, "alibi": alibi, "sparse": sparse,
-            "wide_group": group > WIDE_GROUP, "d80": head_dim == 80}
+            "wide_group": group > WIDE_GROUP, "d80": head_dim == 80, "d96": head_dim == 96,
+            "d256": head_dim == 256}
     for mode, hit in hits.items():
         if hit:
             attr = MODE_COUNTERS[mode]

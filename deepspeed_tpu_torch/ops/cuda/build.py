@@ -16,10 +16,17 @@ unchanged one loads at once. The compiler's `-Xptxas -v` report
 once, and records each one's seconds in `BUILD_SECONDS`. A missing
 `nvcc`, a failed build or a failed load raises.
 
+A name may carry preprocessor defines after the source, joined by `+`
+(`flash_fwd+DS_FAULT_PV_HI_SKIPPED`): that source built with `-D` of each,
+in a library of its own. Such builds hold the planted faults that
+`chip_smoke.py` aims at a kernel's own code; `routed(name, variant)`
+makes the wrappers load the variant for the length of a block.
+
 Each kernel function returns its `cudaError_t` as an int (the launch
 status from `cudaGetLastError`); `check()` raises on a nonzero value.
 """
 
+import contextlib
 import ctypes
 import hashlib
 import os
@@ -78,7 +85,9 @@ SIGNATURES = {
 }
 
 _loaded: Dict[str, ctypes.CDLL] = {}
-# source -> seconds its nvcc took in the last build_all() that built it
+# name -> the variant that load(name) returns inside routed()
+_routes: Dict[str, str] = {}
+# name -> seconds its nvcc took in the last build_all() that built it
 BUILD_SECONDS: Dict[str, float] = {}
 
 
@@ -94,12 +103,18 @@ def find_nvcc() -> str:
     return found
 
 
+def _source_and_flags(name: str):
+    """`name` -> its source file and nvcc flags (`+DEFINE` suffixes -> -D)."""
+    source, *defines = name.split("+")
+    return CSRC / f"{source}.cu", NVCC_FLAGS + tuple(f"-D{d}" for d in defines)
+
+
 def _library_path(name: str) -> Path:
-    src = CSRC / f"{name}.cu"
+    src, flags = _source_and_flags(name)
     h = hashlib.sha256(src.read_bytes())
     for header in sorted(CSRC.glob("*.cuh")):  # a shared header's edit rebuilds too
         h.update(header.read_bytes())
-    h.update(" ".join(NVCC_FLAGS).encode())
+    h.update(" ".join(flags).encode())
     return BUILD_DIR / f"{name}-{h.hexdigest()[:16]}.so"
 
 
@@ -117,7 +132,8 @@ def build_all(names: Iterable[str] = SOURCES) -> Dict[str, Path]:
     t0 = time.perf_counter()
     for n in todo:
         tmp = out[n].with_suffix(f".{os.getpid()}.tmp")
-        cmd = [nvcc, *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{n}.cu")]
+        src, flags = _source_and_flags(n)
+        cmd = [nvcc, *flags, "-o", str(tmp), str(src)]
         # the report goes to a file of this process's own, not a pipe: nothing blocks on it
         log = open(out[n].with_suffix(f".{os.getpid()}.log"), "w")
         procs[n] = (subprocess.Popen(cmd, stdout=log, stderr=subprocess.STDOUT), tmp, log)
@@ -132,7 +148,9 @@ def build_all(names: Iterable[str] = SOURCES) -> Dict[str, Path]:
             os.replace(log.name, out[n].with_suffix(".log"))
             if proc.returncode != 0:
                 text = out[n].with_suffix(".log").read_text()
-                failed.append(f"{n}.cu (exit {proc.returncode}):\n{text}")
+                src, flags = _source_and_flags(n)
+                label = " ".join((src.name,) + flags[len(NVCC_FLAGS):])
+                failed.append(f"{label} (exit {proc.returncode}):\n{text}")
                 tmp.unlink(missing_ok=True)
             else:
                 os.replace(tmp, out[n])  # atomic: a concurrent loader sees all or nothing
@@ -150,13 +168,15 @@ def build_log(name: str) -> Optional[str]:
 
 
 def load(name: str) -> ctypes.CDLL:
-    """The loaded library of kernel `name`, built first if needed."""
+    """The loaded library of kernel `name`, built first if needed (inside
+    routed(name, variant): the variant's)."""
+    name = _routes.get(name, name)
     lib = _loaded.get(name)
     if lib is not None:
         return lib
     path = build_all([name])[name]
     lib = ctypes.CDLL(str(path))
-    for fn_name, argtypes in SIGNATURES[name].items():
+    for fn_name, argtypes in SIGNATURES[name.split("+")[0]].items():
         fn = getattr(lib, fn_name)
         fn.argtypes = argtypes
         fn.restype = ctypes.c_int
@@ -164,6 +184,20 @@ def load(name: str) -> ctypes.CDLL:
     lib.ds_cuda_error_string.restype = ctypes.c_char_p
     _loaded[name] = lib
     return lib
+
+
+@contextlib.contextmanager
+def routed(name: str, variant: str):
+    """Within the block, load(name) returns the library of `variant` (the
+    same source with `+DEFINE` suffixes), so every wrapper of `name` runs
+    that build."""
+    if variant.split("+")[0] != name:
+        raise ValueError(f"{variant!r} is not a build of {name!r}")
+    _routes[name] = variant
+    try:
+        yield
+    finally:
+        del _routes[name]
 
 
 def check(lib: ctypes.CDLL, err: int, what: str) -> None:

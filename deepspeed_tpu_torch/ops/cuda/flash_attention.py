@@ -21,16 +21,19 @@ round them). Every kernel wrapper carries `launches`, raised by one
 per launch of its kernel, `window_launches`, raised by one per launch in
 the sliding-window mode, `alibi_launches`, in the ALiBi mode,
 `wide_group_launches`, with more than 8 query heads per KV head
-(Falcon-7B: 71 over one), and `d80_launches`, at head_dim 80 (Phi-2).
+(Falcon-7B: 71 over one), and `d80_launches`, at head_dim 80 (Phi-2);
+the forward also `d96_launches` and `d256_launches`, at head_dim 96
+(GPT-NeoX-20B) and 256 (GPT-J-6B).
 
 Kernel #3 sums each KV head's dk and dv over its group of query heads in
 registers; where its grid would leave SMs idle it splits the group into
 chunks (`dkv_split_plan`) whose f32 partials a second pass adds in chunk
 order (the scratch comes from `torch.empty`; no atomics either way).
 
-Head dims: the forward and both backward kernels take 64, 80 and 128;
-`FlashAttention` raises before its forward launches when the inputs need
-a gradient at a head dim no backward kernel takes.
+Head dims: the forward takes 64, 80, 96, 128 and 256, both backward
+kernels 64, 80 and 128; `FlashAttention` raises before its forward
+launches when the inputs need a gradient at a head dim no backward kernel
+takes (96 and 256 come with GPT-NeoX and GPT-J training, ROADMAP B5).
 
 Sliding window (`window` > 0, Mistral-class; the reference's token-exact
 mode): query row r attends to key column c iff r - window < c <= r.
@@ -59,8 +62,9 @@ from . import build
 from ._common import (BWD_FLOOR, BWD_ROW_ATOL, BWD_RTOL, bwd_mismatch,  # noqa: F401
                       check_cuda_args, check_shape, count_launch, ptr, stream_of, zero_counts)
 
-# head dims the kernels are built for (80: Phi-2), forward and backward
-_HEAD_DIMS = (64, 80, 128)
+# head dims the kernels are built for (80: Phi-2; 96: GPT-NeoX-20B and 256:
+# GPT-J-6B, the forward only), forward and backward
+_HEAD_DIMS = (64, 80, 96, 128, 256)
 _BWD_HEAD_DIMS = (64, 80, 128)
 
 
@@ -198,7 +202,7 @@ def flash_fwd(q, k, v, window: int = 0, alibi=None):
     return o, lse
 
 
-zero_counts(flash_fwd, "window", "alibi", "wide_group", "d80")
+zero_counts(flash_fwd, "window", "alibi", "wide_group", "d80", "d96", "d256")
 
 _BWD_DTYPES = {"q": _BF16, "k": _BF16, "v": _BF16, "do": _BF16, "lse": _F32, "delta": _F32}
 
@@ -335,7 +339,9 @@ class FlashAttention(torch.autograd.Function):
         if q.is_cuda and any(ctx.needs_input_grad[:3]) and D not in _BWD_HEAD_DIMS:
             raise NotImplementedError(
                 f"flash attention's backward kernels are built for head_dim "
-                f"{_BWD_HEAD_DIMS}; no backward kernel takes head_dim {D}")
+                f"{_BWD_HEAD_DIMS}; no backward kernel takes head_dim {D} yet (head_dim 96 "
+                "and 256, GPT-NeoX and GPT-J training, come with the slice that ports "
+                "kernels #2/#3 at those widths: ROADMAP B5)")
         q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
         o, lse = flash_fwd(q, k, v, window, alibi)
         ctx.save_for_backward(q, k, v, o, lse, alibi)

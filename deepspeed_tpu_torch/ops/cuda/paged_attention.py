@@ -15,10 +15,11 @@ kernel launches it made (the decode wrappers also `window_launches`, those
 in the sliding-window mode, `alibi_launches`, those in the ALiBi mode,
 `sparse_launches`, those with a layout bitmap, and `wide_group_launches`,
 those with more than 8 query heads per KV head; the decode wrappers and
-both writes `d80_launches`, those at head_dim 80). Kernels take bf16,
-head dims 64, 80 and 128 and any whole query group (Falcon-7B: 71 query
-heads over one KV head); the plain versions take any float dtype and
-compute attention in f32.
+both writes `d80_launches`, `d96_launches` and `d256_launches`, those at
+head_dim 80, 96 and 256). Kernels take bf16, head dims 64, 80, 96, 128
+and 256 (Phi-2: 80, GPT-NeoX-20B: 96, GPT-J-6B: 256) and any whole query
+group (Falcon-7B: 71 query heads over one KV head); the plain versions
+take any float dtype and compute attention in f32.
 
 Sliding window (`window` > 0, every decode mode): row s attends to the
 positions ctx - window <= p < ctx of its context (ctx counts the new
@@ -73,9 +74,9 @@ _BF16 = torch.bfloat16
 _I32 = torch.int32
 _I8 = torch.int8
 _F32 = torch.float32
-_DECODE_HEAD_DIMS = (64, 80, 128)
+_DECODE_HEAD_DIMS = (64, 80, 96, 128, 256)
 # the counters of every decode wrapper
-_DECODE_MODES = ("window", "alibi", "sparse", "wide_group", "d80")
+_DECODE_MODES = ("window", "alibi", "sparse", "wide_group", "d80", "d96", "d256")
 
 
 # int8 KV quantization: scale = amax * (1/127) as a MULTIPLY by the f32
@@ -189,7 +190,7 @@ def paged_kv_write(cache_k, cache_v, k_new, v_new, flat_slots):
     return cache_k, cache_v
 
 
-zero_counts(paged_kv_write, "d80")
+zero_counts(paged_kv_write, "d80", "d96", "d256")
 
 
 def _check_scales(what, cache_k, k_scale, v_scale):
@@ -200,10 +201,11 @@ def _check_scales(what, cache_k, k_scale, v_scale):
 # The int8 write's tiles (csrc/paged_kv_write.cu): the [T, KV, D] rows are
 # 2 * T * KV head slices in a flat order (a row's K heads, then its V
 # heads), KV8_TILE of them a CTA of 256 threads, one slice a group of 16
-# lanes, each lane a chunk of KV8_CHUNK[D] bf16 (8 bytes at D 64, 16 at D
-# 80 and 128)
+# lanes, the slice's chunks of KV8_CHUNK[D] bf16 (8 bytes at D 64, 16 at D
+# 80, 96, 128 and 256) spread over its lanes: lane l takes chunks l, l +
+# 16, ... (two at D 256)
 KV8_TILE = 16
-KV8_CHUNK = {64: 4, 80: 8, 128: 8}
+KV8_CHUNK = {64: 4, 80: 8, 96: 8, 128: 8, 256: 8}
 
 
 @functools.lru_cache(maxsize=None)
@@ -271,7 +273,7 @@ def paged_kv_write_int8(cache_k, cache_v, k_scale, v_scale, k_new, v_new, flat_s
     return cache_k, cache_v, k_scale, v_scale
 
 
-zero_counts(paged_kv_write_int8, "d80")
+zero_counts(paged_kv_write_int8, "d80", "d96", "d256")
 
 
 # ---------------------------------------------------------------------------

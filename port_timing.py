@@ -71,6 +71,14 @@ MODE:
   7B put() of a fresh 6144-token prompt goes (torch.profiler: busy, idle
   share, the int8 write's kernels' ms and share of busy), the model at
   full width and depth from int8 pools, random bf16 weights from seed 0.
+- flash: kernel #1 (flash_fwd) in ROOT's package, causal, at the flagship's
+  training shape (B=8, S=2048, 8 heads of 128), Phi-2's prefill (S=2048,
+  32 x 80) and chip_smoke.py's WIDE_HEAD_MODELS prefills (GPT-NeoX-20B's
+  64 x 96 and GPT-J-6B's 16 x 256, S in FLASH_D80_S; inputs from a
+  seeded generator): device ms a call (torch.profiler over 10 calls), the
+  median of 3 such and each; a head dim the root's kernel is not built
+  for is reported as such; and the ptxas registers and spills of each
+  instantiation.
 - tiles: where a 64-column tile's time goes in the one-CTA-a-row decode
   kernel that split-K replaced (ROOT a checkout of that kernel: one CTA
   walks its row's whole context, 8 query heads a CTA; its source has the
@@ -739,9 +747,39 @@ def write_worker(root):
     return out
 
 
+def flash_worker(root):
+    root, C = _import_root(root)
+    import torch
+
+    from deepspeed_tpu_torch.models.transformer import TransformerConfig
+    from deepspeed_tpu_torch.ops.cuda import build
+    from deepspeed_tpu_torch.ops.cuda import flash_attention as FA
+
+    build.build_all(["flash_fwd"])
+    dev = torch.device("cuda")
+    cases = {"flagship_train": (8, 2048, 8, 8, 128), "phi_2@S2048": (1, 2048, 32, 32, 80)}
+    for mode, model in C.WIDE_HEAD_MODELS.items():
+        mc = TransformerConfig(**model)
+        for S in C.FLASH_D80_S:
+            cases[f"{mode}@S{S}"] = (1, S, mc.n_heads, mc.kv_heads, mc.head_dim)
+    out = {"mode": "flash", "root": str(root), "cases": {},
+           "ptxas": C._ptxas_registers(build, "flash_fwd", ("flash_fwd_kernel",))}
+    randn = _seeded_randn(torch, dev, 50)
+    for name, (B, S, H, KV, D) in cases.items():
+        if D not in FA._HEAD_DIMS:
+            out["cases"][name] = "head dim not built"
+            continue
+        q, k, v = randn(B, S, H, D), randn(B, S, KV, D), randn(B, S, KV, D)
+        ms = [C._device_ms(lambda: FA.flash_fwd(q, k, v), 10) for _ in range(3)]
+        out["cases"][name] = {"shape": [B, S, H, KV, D], "device_ms": statistics.median(ms),
+                              "runs_ms": ms}
+        del q, k, v
+    return out
+
+
 WORKERS = {"evo": evo_worker, "serve": serve_worker, "serve8w": serve8w_worker,
            "gemm": gemm_worker, "splits": splits_worker, "tiles": tiles_worker,
-           "write": write_worker}
+           "write": write_worker, "flash": flash_worker}
 
 
 def main(mode, roots):

@@ -1,7 +1,7 @@
 """Shared inputs for the port's parity tests (tests/test_torch_*.py): one
-tiny Llama config built for both packages, the tiny Falcon- and
-Phi-class forms, and parameters made from a numpy seed so the JAX package
-and the port get the same numbers."""
+tiny Llama config built for both packages, the tiny Falcon-, Phi-,
+GPT-NeoX- and GPT-J-class forms, and parameters made from a numpy seed so
+the JAX package and the port get the same numbers."""
 
 import numpy as np
 
@@ -34,6 +34,22 @@ PHI_2_TINY = dict(_BASE, n_heads=4, d_model=320, d_ff=1280, activation="gelu",
                   qkv_bias=True, attn_out_bias=True, mlp_bias=True, shared_ln=True,
                   rotary_pct=0.4, tie_embeddings=False, lm_head_bias=True)
 FALCON_PHI = {"falcon_7b": FALCON_7B_TINY, "falcon_40b": FALCON_40B_TINY, "phi_2": PHI_2_TINY}
+# the GPT-NeoX-20B form (config_from_hf of a GPTNeoXConfig): 2 heads of 96,
+# rotary on 24 of 96 dims (rotary_pct 0.25, split halves), two LayerNorms
+# and the parallel residual, biases on q/k/v, output and MLP, tanh GELU
+# (gelu_fast), an untied lm_head without a bias
+GPT_NEOX_TINY = dict(_BASE, n_heads=2, d_model=192, d_ff=768, activation="gelu",
+                     qkv_bias=True, attn_out_bias=True, mlp_bias=True, shared_ln=False,
+                     rotary_pct=0.25, tie_embeddings=False)
+# the GPT-J-6B form (config_from_hf of a GPTJConfig): 2 heads of 256,
+# interleaved rotary on 64 of 256 dims (rotary_dim / head_dim), one shared
+# LayerNorm, unbiased attention, a biased MLP, an untied lm_head with its
+# bias
+GPT_J_TINY = dict(_BASE, n_heads=2, d_model=512, d_ff=2048, activation="gelu",
+                  qkv_bias=False, attn_out_bias=False, mlp_bias=True, shared_ln=True,
+                  rotary_pct=0.25, rope_interleaved=True, tie_embeddings=False,
+                  lm_head_bias=True)
+NEOX_GPTJ = {"gpt_neox": GPT_NEOX_TINY, "gpt_j": GPT_J_TINY}
 # weight std of each form's numpy weights: the ALiBi engine tests' 0.3 at
 # their d_model 256 (large enough that greedy tokens vary), scaled by
 # sqrt(256 / d_model) so that the logits keep the size they have there,
@@ -41,6 +57,8 @@ FALCON_PHI = {"falcon_7b": FALCON_7B_TINY, "falcon_40b": FALCON_40B_TINY, "phi_2
 # frameworks' f32 sums differ by ~1e-5 of a logit's size)
 FALCON_PHI_STD = {name: 0.3 * (256 / over["d_model"]) ** 0.5
                   for name, over in FALCON_PHI.items()}
+NEOX_GPTJ_STD = {name: 0.3 * (256 / over["d_model"]) ** 0.5
+                 for name, over in NEOX_GPTJ.items()}
 
 
 def jax_config(**over):

@@ -5,6 +5,7 @@ beside the library, a failed build raising with its report, and an
 unchanged source not rebuilt. The real compiler runs only on the GPU
 machine (`chip_smoke.py` prints the seconds there)."""
 
+import importlib.util
 import re
 import shutil
 import stat
@@ -19,6 +20,7 @@ FAKE_NVCC = """#!/bin/bash
 out=""; prev=""
 for a in "$@"; do if [ "$prev" = "-o" ]; then out="$a"; fi; prev="$a"; done
 echo "$out" >> "$CALLS"
+echo "$@" >> "$CALLS.args"
 for i in $(seq 1 4000); do echo "ptxas info    : Used 128 registers, line $i of the report"; done
 for name in $FAIL_ON; do
   case "$out" in *"/$name-"*) echo "error: planted failure"; exit 3;; esac
@@ -72,6 +74,51 @@ def test_an_unchanged_source_is_not_rebuilt(fake_cuda):
     assert [line.split("/")[-1].split("-")[0] for line in fake_cuda.read_text().split()] == [
         "flash_fwd", "flash_bwd"]
     assert list(PB.BUILD_SECONDS) == ["flash_bwd"]
+
+
+def test_a_define_variant_builds_a_library_of_its_own(fake_cuda):
+    """`source+DEFINE` names that source built with -DDEFINE, beside the
+    plain build and at the same time, in a library of another name."""
+    libs = PB.build_all(["flash_fwd", "flash_fwd+DS_A+DS_B"])
+    assert libs["flash_fwd"] != libs["flash_fwd+DS_A+DS_B"]
+    assert libs["flash_fwd+DS_A+DS_B"].name.startswith("flash_fwd+DS_A+DS_B-")
+    assert all(p.exists() for p in libs.values())
+    args = {line.split(" -o ")[1].split()[0].split("/")[-1].split("-")[0]: line.split()
+            for line in (fake_cuda.parent / "calls.txt.args").read_text().splitlines()}
+    assert args["flash_fwd+DS_A+DS_B"][-1].endswith("/flash_fwd.cu")
+    assert {"-DDS_A", "-DDS_B"} <= set(args["flash_fwd+DS_A+DS_B"])
+    assert not any(a.startswith("-D") for a in args["flash_fwd"])
+    assert sorted(PB.BUILD_SECONDS) == ["flash_fwd", "flash_fwd+DS_A+DS_B"]
+
+
+def test_routed_loads_the_variant_within_its_block(monkeypatch):
+    plain, variant = object(), object()
+    monkeypatch.setattr(PB, "_loaded", {"flash_fwd": plain, "flash_fwd+DS_A": variant})
+    assert PB.load("flash_fwd") is plain
+    with PB.routed("flash_fwd", "flash_fwd+DS_A"):
+        assert PB.load("flash_fwd") is variant
+        assert PB.load("flash_fwd+DS_A") is variant
+    assert PB.load("flash_fwd") is plain
+    with pytest.raises(ValueError, match="not a build of"):
+        with PB.routed("flash_fwd", "paged_decode+DS_A"):
+            pass
+    assert not PB._routes
+
+
+def test_the_planted_fault_defines_are_in_their_sources():
+    """Each of chip_smoke.py's FAULT_BUILDS names a define that its source
+    tests: a define the source does not know would build the genuine
+    kernel under a fault's name."""
+    spec = importlib.util.spec_from_file_location("chip_smoke",
+                                                  PB.CSRC.parents[1] / "chip_smoke.py")
+    smoke = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(smoke)
+    assert smoke.FAULT_BUILDS
+    for variant in smoke.FAULT_BUILDS.values():
+        source, *defines = variant.split("+")
+        text = (PB.CSRC / f"{source}.cu").read_text()
+        for d in defines:
+            assert re.search(r"#if(n?def| defined\()\s*" + d + r"\b", text), variant
 
 
 def test_the_shared_hopper_header_rebuilds_both_flash_libraries(tmp_path, monkeypatch):

@@ -18,6 +18,7 @@ import torch
 
 from deepspeed_tpu_torch.ops import cuda as PK
 from deepspeed_tpu_torch.ops import evoformer_attention as PE
+from deepspeed_tpu_torch.ops.cuda import build
 from deepspeed_tpu_torch.ops.cuda import evoformer_attention as PEV
 from deepspeed_tpu_torch.ops.cuda import flash_attention as PF
 from deepspeed_tpu_torch.ops.cuda import paged_attention as PP
@@ -1584,6 +1585,182 @@ class TestWideGroupAndHeadDim80OnCard:
         assert counts["paged_decode_fused[d80]"] == 1
 
 
+@pytest.mark.cuda
+class TestHeadDim96or256OnCard:
+    """The head_dim-96 mode (GPT-NeoX-20B: 64 heads of 96; flash on two
+    swizzle atoms whose second is zero past column 96, decode's 6 k-steps
+    and 12 output column tiles, the int8 write's lanes 12-15 idle) and the
+    head_dim-256 mode (GPT-J-6B: 16 heads of 256; flash on 64-row CTAs,
+    one an SM, over 64-key tiles with O staged over Q, decode's 3-stage
+    ring of 67,584-byte stages and, outside the transposed products, Q
+    fragments read per tile, the int8 write's two chunks a lane) of #1, #4,
+    #5 and #6 against their plain versions on the same bf16 inputs, at the
+    tolerances of the modes above (decode one bf16 ulp; flash o under
+    bwd_mismatch, lse 1e-3; writes, codes and scales bit-exact), with the
+    window and ALiBi composed, and GQA groups of 16 (the decode kernel's
+    16-row slices); two launches bit-identical; and the planted faults the
+    checks must catch: flash with O columns from 64 (D 96) or 128 (D 256)
+    on left zero and the scores over the dims below; decode's output with
+    columns 80-95 (D 96) or 128-255 (D 256) zeroed, what dropping the last
+    P V column-tile pair or the second half of the column tiles leaves;
+    the int8 write at D 256 with each lane's second chunk (columns
+    128-255) unwritten, and with the amax over the first 128 columns; and
+    faults planted in the D-256 code by a define (builds of their own,
+    run through the wrappers by build.routed): flash's pv_step without
+    its second wgmma, decode's per-tile Q fragments read one k-step
+    ahead. Training at D 96 and 256 raises at the flash backward before
+    any launch."""
+
+    DECODE_TOL = dict(rtol=8e-3, atol=1e-3)
+    MODES = ["plain", "fused", "int8", "fused_int8"]
+    SHAPES = {"neox_mha_d96": (8, 8, 96), "gqa_16_over_2_d96": (32, 2, 96),
+              "gptj_mha_d256": (4, 4, 256), "gqa_16_over_2_d256": (32, 2, 256),
+              "gqa_4_over_1_d256": (4, 1, 256)}
+    CUT = {96: 64, 256: 128}  # flash's and the scores' column split
+    DECODE_CUT = {96: 80, 256: 128}  # the dropped P V column tiles' first column
+
+    @pytest.mark.parametrize("shape", sorted(SHAPES))
+    @pytest.mark.parametrize("mode", MODES)
+    def test_decode(self, rng, cuda_device, mode, shape):
+        H, KV, D = self.SHAPES[shape]
+        args = _group_decode_case(rng, cuda_device, mode, H, KV, D)
+        q, pools, tbl, ctx, kn, vn, slots = args
+        for window, alibi in ((0, None), (57, None), (0, _slopes(H, cuda_device))):
+            out, ref = _window_decode(mode, q, pools, tbl, ctx, window, kn, vn, slots,
+                                      alibi=alibi)
+            torch.testing.assert_close(out.float(), ref.float(), **self.DECODE_TOL)
+            assert not out[-1].any()  # the pad row
+            again, _ = _window_decode(mode, q, pools, tbl, ctx, window, kn, vn, slots,
+                                      alibi=alibi)
+            assert torch.equal(out, again)
+
+    @pytest.mark.parametrize("shape", ["neox_mha_d96", "gptj_mha_d256", "gqa_16_over_2_d256"])
+    @pytest.mark.parametrize("mode", MODES)
+    def test_decode_faults_are_caught(self, rng, cuda_device, mode, shape):
+        H, KV, D = self.SHAPES[shape]
+        q, pools, tbl, ctx, kn, vn, slots = _group_decode_case(rng, cuda_device, mode, H, KV, D)
+        out, ref = _window_decode(mode, q, pools, tbl, ctx, 0, kn, vn, slots)
+        dropped = out.clone()
+        dropped[..., self.DECODE_CUT[D]:] = 0
+        assert _n_over(dropped, ref, 1e-3, 8e-3) > 0
+        q_cut = q.clone()
+        q_cut[..., self.CUT[D]:] = 0
+        cut, _ = _window_decode(mode, q_cut, pools, tbl, ctx, 0, kn, vn, slots)
+        assert _n_over(cut, ref, 1e-3, 8e-3) > 0
+
+    @pytest.mark.parametrize("mode", MODES)
+    def test_decode_q_frag_fault_build_is_caught(self, rng, cuda_device, mode):
+        H, KV, D = self.SHAPES["gqa_16_over_2_d256"]
+        q, pools, tbl, ctx, kn, vn, slots = _group_decode_case(rng, cuda_device, mode, H, KV, D)
+        _, ref = _window_decode(mode, q, pools, tbl, ctx, 0, kn, vn, slots)
+        with build.routed("paged_decode", "paged_decode+DS_FAULT_Q_FRAG_NEXT_KSTEP"):
+            bad, _ = _window_decode(mode, q, pools, tbl, ctx, 0, kn, vn, slots)
+        assert _n_over(bad, ref, 1e-3, 8e-3) > 0
+
+    def test_flash_pv_hi_fault_build_is_caught(self, rng, cuda_device):
+        d = cuda_device
+        q, k, v = (_bf16_cuda(rng.standard_normal((2, 200, 4, 256)), d) for _ in range(3))
+        ro, _ = PF.flash_attention_plain(q, k, v)
+        assert PF.bwd_mismatch(PF.flash_fwd(q, k, v)[0], ro)["n_over"] == 0
+        with build.routed("flash_fwd", "flash_fwd+DS_FAULT_PV_HI_SKIPPED"):
+            bad, _ = PF.flash_fwd(q, k, v)
+        assert PF.bwd_mismatch(bad, ro)["n_over"] > 0
+
+    @pytest.mark.parametrize("S,H,KV,D", [(77, 4, 4, 96), (300, 8, 2, 96), (130, 64, 64, 96),
+                                          (200, 4, 4, 256), (130, 16, 1, 256),
+                                          (300, 32, 2, 256)])
+    def test_flash(self, rng, cuda_device, S, H, KV, D):
+        d = cuda_device
+        q = _bf16_cuda(rng.standard_normal((2, S, H, D)), d)
+        k = _bf16_cuda(rng.standard_normal((2, S, KV, D)), d)
+        v = _bf16_cuda(rng.standard_normal((2, S, KV, D)), d)
+        for window, alibi in ((0, None), (50, None), (0, _slopes(H, d))):
+            o, lse = PF.flash_fwd(q, k, v, window, alibi)
+            ro, rlse = PF.flash_attention_plain(q, k, v, window, alibi)
+            again = PF.flash_fwd(q, k, v, window, alibi)
+            torch.cuda.synchronize()
+            assert PF.bwd_mismatch(o, ro)["n_over"] == 0
+            torch.testing.assert_close(lse, rlse, rtol=1e-3, atol=1e-3)
+            assert torch.equal(o, again[0]) and torch.equal(lse, again[1])
+        o, _ = PF.flash_fwd(q, k, v)
+        ro, _ = PF.flash_attention_plain(q, k, v)
+        c = self.CUT[D]
+        zeroed = o.clone()
+        zeroed[..., c:] = 0
+        q_cut = q.clone()
+        q_cut[..., c:] = 0
+        assert PF.bwd_mismatch(zeroed, ro)["n_over"] > 0
+        assert PF.bwd_mismatch(PF.flash_fwd(q_cut, k, v)[0], ro)["n_over"] > 0
+
+    @pytest.mark.parametrize("KV", [16, 1])
+    @pytest.mark.parametrize("D", [96, 256])
+    def test_kv_writes_bit_exact(self, rng, cuda_device, D, KV):
+        d, T = cuda_device, 40
+        slots = rng.permutation(11 * 16)[:T].astype(np.int32)
+        slots[5::7] = -1
+        slots[3] = 12 * 16 + 5  # past the arena: clamped into block 11
+        s = torch.from_numpy(slots).to(d)
+        kn = _bf16_cuda(_int8_rows(rng, T, KV, D), d)
+        vn = _bf16_cuda(_int8_rows(rng, T, KV, D)[::-1].copy(), d)
+        arena = [_bf16_cuda(a, d) for a in _arena(rng, 12, 16, KV, D)]
+        ref = [a.clone() for a in arena]
+        PP.paged_kv_write(*arena, kn, vn, s)
+        PP.paged_kv_write_plain(*ref, kn, vn, s)
+        pools = _int8_pools(rng, d, 12, 16, KV, D)
+        old = [p.clone() for p in pools]
+        ref8, again = [p.clone() for p in pools], [p.clone() for p in pools]
+        PP.paged_kv_write_int8(*pools, kn, vn, s)
+        PP.paged_kv_write_int8(*again, kn, vn, s)
+        PP.paged_kv_write_quant_plain(*ref8, kn, vn, s)
+        torch.cuda.synchronize()
+        for got, want in zip(arena + list(pools) + list(again), ref + ref8 + ref8):
+            assert torch.equal(got, want)
+        if D == 256:  # each lane's second chunk unwritten
+            for i in (0, 1):
+                fault = ref8[i].clone()
+                fault[..., 128:] = old[i][..., 128:]
+                assert not torch.equal(pools[i], fault)
+            # the amax over the first 128 columns
+            live = s >= 0
+            x = kn[live].float()
+            scale = x[..., :128].abs().amax(-1) * torch.tensor(1.0 / 127.0)
+            scale = torch.where(scale > 0, scale, torch.ones_like(scale))
+            slot = s[live].long()
+            got_scale = pools[2].view(-1, KV)[(slot // 16).clamp(max=11) * 16 + slot % 16]
+            assert not torch.equal(got_scale, scale)
+
+    @pytest.mark.parametrize("D", [96, 256])
+    def test_flash_backward_raises_before_launch(self, rng, cuda_device, D):
+        """Training at head_dim 96 and 256 (GPT-NeoX, GPT-J) waits for the
+        slice that ports kernels #2/#3 at those widths: a forward whose
+        inputs need a gradient raises before any launch; without a
+        gradient it launches #1 in its head-dim mode."""
+        q, k, v = (_bf16_cuda(rng.standard_normal((1, 64, 4, D)), cuda_device)
+                   for _ in range(3))
+        PK.reset_launch_counts()
+        leaves = [t.clone().requires_grad_() for t in (q, k, v)]
+        with pytest.raises(NotImplementedError, match="ROADMAP B5"):
+            PF.flash_attention(*leaves)
+        assert sum(PK.launch_counts().values()) == 0
+        PF.flash_attention(q, k, v)
+        counts = PK.all_launch_counts()
+        assert counts["flash_fwd"] == counts[f"flash_fwd[d{D}]"] == 1
+
+    def test_new_mode_launches_are_counted(self, rng, cuda_device):
+        PK.reset_launch_counts()
+        for shape in ("neox_mha_d96", "gptj_mha_d256", "gqa_16_over_2_d256"):
+            H, KV, D = self.SHAPES[shape]
+            q, pools, tbl, ctx, kn, vn, slots = _group_decode_case(rng, cuda_device, "fused",
+                                                                   H, KV, D)
+            PP.paged_decode_fused(q, *[p.clone() for p in pools], tbl, ctx, kn, vn, slots)
+        counts = PK.all_launch_counts()
+        assert counts["paged_decode_fused"] == 3
+        assert counts["paged_decode_fused[d96]"] == 1
+        assert counts["paged_decode_fused[d256]"] == 2
+        assert counts["paged_decode_fused[wide_group]"] == 1
+        assert counts["paged_decode_fused[d80]"] == 0
+
+
 def _drop_last_chunk(q, do, lse, delta, KV):
     """q, dO, lse and delta of each group's query heads without the
     group's last chunk of 8 (at 71 over 1: the first 64 heads)."""
@@ -2215,11 +2392,11 @@ class TestKvWriteTilesOnCard:
         assert all(off.values()), off
 
     def test_no_register_spills(self, cuda_device):
-        from deepspeed_tpu_torch.ops.cuda import build
-
         build.load("paged_kv_write")
         regs = _chip_smoke()._ptxas_registers(build, "paged_kv_write", ("kv_write_int8_kernel",))
-        assert len(regs) == 3 and not any(r.get("spill_stores") for r in regs.values()), regs
+        # one instantiation a head dim (64, 80, 96, 128, 256)
+        assert len(regs) == len(PP.KV8_CHUNK), regs
+        assert not any(r.get("spill_stores") for r in regs.values()), regs
 
     def test_rejects_unaligned_rows(self, rng, cuda_device):
         d = cuda_device

@@ -3,10 +3,12 @@ CPU, where its layout and its arithmetic can be held in Python.
 
 - The tiles: the [T, KV, D] rows are 2 T KV head slices in a flat order
   (a row's K heads, then its V heads), KV8_TILE of them a CTA, one slice
-  a group of 16 lanes, one lane a chunk of KV8_CHUNK[D] bf16 (a vector
-  load: 8 bytes at D 64, 16 at D 80 and 128): the tiles cover every slice
+  a group of 16 lanes, its chunks of KV8_CHUNK[D] bf16 (a vector load: 8
+  bytes at D 64, 16 at D 80, 96, 128 and 256) spread over the lanes
+  (chunks l and l + 16 of lane l at D 256): the tiles cover every slice
   once, the last one partial where the slices do not fill it; a slice's
-  chunks fill its 16 lanes but at D 80 (10 of them). `_divisor_magic`,
+  chunks fill its 16 lanes (twice at D 256) but at D 80 (10 of them) and
+  96 (12). `_divisor_magic`,
   the kernel's division of a slice index by 2 KV and of a slot by the
   block size, against Python's // over ranges of n up to 2^31 - 1.
 - `_kernel_model`, the kernel's walk: tiles of slices, groups of 16 lanes
@@ -18,7 +20,7 @@ CPU, where its layout and its arithmetic can be held in Python.
   and against the JAX package's _write_kv_quant (the interpret-mode
   Pallas paged_kv_write on the codes and paged_scale_write on the
   scales; KV 1, 2, 8 and 32 side by side in one call a head dim), codes
-  and scales, at D 64, 80 and 128 and KV 1, 2, 8 and 32 with T not a
+  and scales, at D 64, 80, 96, 128 and 256 and KV 1, 2, 8 and 32 with T not a
   multiple of a tile's rows, rows built as .5 ties, zeros,
   subnormals, a NaN, +inf, -inf and a NaN beside an inf, dropped (-1) and
   past-arena slots; and at two head counts whose row spans several tiles
@@ -77,6 +79,11 @@ def _chip_smoke():
     return mod
 
 
+def _lane_chunks(D):
+    """Chunks a lane takes: a slice's D / KV8_CHUNK[D] chunks over 16 lanes."""
+    return -(-(D // PP.KV8_CHUNK[D]) // LANES)
+
+
 def _tiles(T, KV):
     """[(first slice, slices)] of each CTA's tile."""
     n = 2 * T * KV
@@ -100,10 +107,11 @@ def test_tiles_cover_every_slice_once(shape):
 
 @pytest.mark.parametrize("D", sorted(PP.KV8_CHUNK))
 def test_chunks_fill_the_lane_group(D):
-    chunk = PP.KV8_CHUNK[D]
-    assert chunk * 2 in (8, 16)  # a lane's load is one 8- or 16-byte vector
-    assert D % chunk == 0 and D // chunk <= LANES
-    assert D // chunk == LANES or D == 80  # D 80: 10 of the 16 lanes
+    chunk, per_lane = PP.KV8_CHUNK[D], _lane_chunks(D)
+    assert chunk * 2 in (8, 16)  # a chunk's load is one 8- or 16-byte vector
+    assert D % chunk == 0 and LANES * (per_lane - 1) < D // chunk <= LANES * per_lane
+    # D 80: 10 of the 16 lanes, D 96: 12; D 256: every lane twice
+    assert D // chunk == LANES * per_lane or D in (80, 96)
 
 
 @pytest.mark.parametrize("d", [1, 2, 3, 7, 16, 64, 128, 130, 260, 1000, 2**20 + 1])
@@ -132,7 +140,7 @@ def _kernel_model(pools, k_new, v_new, slots):
     cache_k, cache_v, k_scale, v_scale = (p.clone() for p in pools)
     T, KV, D = k_new.shape
     nblk, bs = cache_k.shape[:2]
-    chunk = PP.KV8_CHUNK[D]
+    chunk, per_lane = PP.KV8_CHUNK[D], _lane_chunks(D)
     chunks, per_row = D // chunk, 2 * KV
     src = torch.stack([k_new, v_new], 1).reshape(T * per_row, D)  # the flat slice order
     # the slices of each CTA's tile, in tile order: group g takes base + g
@@ -142,12 +150,13 @@ def _kernel_model(pools, k_new, v_new, slots):
     slot = slots[row].long()
     blk = (slot // bs).clamp(0, nblk - 1)
     dst = torch.where(slot >= 0, (blk * bs + slot % bs) * KV + h, -1)
-    # the loads: a lane's chunk, zeros for a dropped row and for the lanes
-    # past the slice's chunks
-    x = torch.zeros(len(j), LANES, chunk)
+    # the loads: chunk c in lane c % LANES, zeros for a dropped row and
+    # for the chunks past the slice's
+    x = torch.zeros(len(j), per_lane * LANES, chunk)
     live = dst >= 0
     x[live, :chunks] = src[j[live]].float().view(-1, chunks, chunk)
-    amax = (_bits(x) & 0x7FFFFFFF).amax(-1)  # each lane's values
+    # each lane's values: its chunks l, l + LANES, ...
+    amax = (_bits(x) & 0x7FFFFFFF).amax(-1).view(len(j), per_lane, LANES).amax(1)
     lane_ids, o = torch.arange(LANES), LANES // 2
     while o:  # the shuffle tree
         amax = torch.maximum(amax, amax[:, lane_ids ^ o])
@@ -211,7 +220,8 @@ def _assert_pools_equal(got, want, skip_slots=()):
         assert torch.equal(g, w), int((g != w).sum())
 
 
-CASES = [(KV, D) for D in (64, 80, 128) for KV in (1, 2, 8, 32)] + [(130, 64), (68, 128)]
+CASES = [(KV, D) for D in (64, 80, 96, 128, 256) for KV in (1, 2, 8, 32)] + [(130, 64),
+                                                                           (68, 128)]
 
 
 @pytest.mark.parametrize("KV,D", CASES)
@@ -234,7 +244,7 @@ def test_model_matches_plain(rng, KV, D):
     assert ((sub > 0) & (sub < torch.finfo(torch.float32).tiny)).all()
 
 
-@pytest.mark.parametrize("D", [64, 80, 128])
+@pytest.mark.parametrize("D", [64, 80, 96, 128, 256])
 def test_model_matches_jax(rng, D):
     """KV 1, 2, 8 and 32 at one head dim, against one run of the JAX
     package's write on their heads side by side (a slice's codes and scale

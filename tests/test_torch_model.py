@@ -12,7 +12,7 @@ import numpy as np
 import pytest
 import torch
 
-from _torch_parity import jax_config, numpy_params, to_jax, torch_config
+from _torch_parity import GPT_NEOX_TINY, jax_config, numpy_params, to_jax, torch_config
 from deepspeed_tpu.inference import model as JM
 from deepspeed_tpu.models import transformer as JT
 from deepspeed_tpu_torch.inference import model as PM
@@ -48,6 +48,33 @@ class TestConfigAndInit:
         assert {k: tuple(v.shape) for k, v in pp["layers"].items()} == \
                {k: tuple(v.shape) for k, v in jp["layers"].items()}
         assert pp["embed"].shape == jp["embed"].shape
+
+    @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+    def test_init_values_pinned(self, dtype):
+        """init's values, pinned: from the generator in init's order (embed,
+        lm_head, then the layer leaves by name), each weight a whole-leaf
+        normal(0, 0.02) draw in f32, scaled and cast, with 0.02 / sqrt(2 L)
+        for the residual outputs; norm scales ones, norm and linear biases
+        zeros (a GPT-NeoX form: two LayerNorms, biases everywhere, an
+        untied lm_head)."""
+        pc = PT.TransformerConfig(**GPT_NEOX_TINY)
+        got = PT.init(pc, torch.Generator().manual_seed(3), device="cpu", dtype=dtype)
+        g = torch.Generator().manual_seed(3)
+        draw = lambda shape, s: (torch.randn(shape, generator=g) * s).to(dtype)
+        L = pc.n_layers
+        for name in ("embed", "lm_head"):
+            assert torch.equal(got[name], draw(got[name].shape, 0.02)), name
+        assert torch.equal(got["ln_f_scale"], torch.ones(pc.d_model, dtype=dtype))
+        assert torch.equal(got["ln_f_bias"], torch.zeros(pc.d_model, dtype=dtype))
+        for name, w in sorted(got["layers"].items()):
+            if "ln" in name:
+                want = torch.full(w.shape, 1.0 if "scale" in name else 0.0, dtype=dtype)
+            elif name.startswith("b"):
+                want = torch.zeros(w.shape, dtype=dtype)
+            else:
+                s = 0.02 / (2 * L) ** 0.5 if name in ("wo", "w_out") else 0.02
+                want = draw(w.shape, s)
+            assert w.dtype == dtype and torch.equal(w, want), name
 
     @pytest.mark.parametrize("bad", [
         {"remat": "bogus"}, {"variant": "t5"}, {"rope_scaling_type": "yarn"},

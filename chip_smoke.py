@@ -91,20 +91,27 @@ Phases (any failure raises and exits nonzero):
              wgmma (columns 128-255), and decode's per-tile Q fragments of
              the 16-row slices (GQA 32 over 2) read one k-step ahead; the
              new instantiations' ptxas registers and spills;
-             the head_dim-80 and wide-group modes of #2 and #3 at S=2048
-             (Phi-2's training micro-batch B=2, 32 x 80; GQA 40 over 2 at
-             80; window 1000 and ALiBi slopes at 80; Falcon-7B's training
-             micro-batch B=4, 71 x 64 over one KV head; GQA 16 over 2)
-             against the plain backward on the kernel forward's o and lse,
-             every launch counted in its modes, with planted faults that
-             must fail: at head_dim 80 the gradients' columns 64-79 zeroed
-             and the scores taken over the first 64 dims, in a wide group
+             the head_dim-80, -96 and -256 and wide-group modes of #2 and
+             #3 at S=2048 (Phi-2's training micro-batch B=2, 32 x 80; GQA
+             40 over 2 at 80; window 1000 and ALiBi slopes at 80;
+             Falcon-7B's training micro-batch B=4, 71 x 64 over one KV
+             head; GQA 16 over 2; GPT-NeoX-20B's B=2, 64 x 96 and
+             GPT-J-6B's B=4, 16 x 256; GQA 32 over 2, window 1000 and ALiBi
+             at 96 and at 256) against the plain backward on the kernel
+             forward's o and lse, every launch counted in its modes, two
+             launches bit-identical, with planted faults that must fail:
+             the gradients' columns 64-79 (D 80), 80-95 (D 96) or 128-255
+             (D 256) zeroed and the scores taken over the first 64, 64 or
+             128 dims, at D 256 dkv built with its P^T hand-off losing the
+             second 32 queries of each tile (FAULT_BUILDS), in a wide group
              dk and dv summed without the group's last chunk of 8 heads
              (at 71 over 1 the first 64 heads) and each q head given KV
              head (h // 8) % KV; at Falcon-7B's shape the group split of
              #3 (its plan and scratch bytes printed), two launches
              bit-identical and one chunk's partial left out of the
-             combining pass, which must fail; the split-K design of #4/#5
+             combining pass, which must fail (and the same at GQA 32 over
+             2 at 96 and 256); the D-96 and D-256 instantiations' ptxas
+             registers and spills; the split-K design of #4/#5
              at Falcon-7B's and Mistral's decode rows in all four modes
              (decode_design_checks): two launches bit-identical, and
              planted faults that must fail: one split left out of the
@@ -331,6 +338,17 @@ Phases (any failure raises and exits nonzero):
              untied biased lm_head) whole, 32 layers, 2.78B parameters,
              micro-batch 2 x 2048; the same checks, every launch of #1-#3
              in its head_dim-80 mode.
+4r. train_neox - GPT-NeoX-20B's width (GPT_NEOX_20B: 64 heads of 96,
+             partial rotary, two LayerNorms and the parallel residual,
+             biases), 4 layers deep (all 44 with fp32 master and Adam
+             moments are ~411 GB), 2.43B parameters, micro-batch 2 x
+             2048; the same checks, every launch of #1-#3 in its
+             head_dim-96 mode; peak memory under 76 GiB.
+4s. train_gptj - GPT-J-6B's width (GPT_J_6B: 16 heads of 256,
+             interleaved rotary, one shared LayerNorm, an lm_head bias), 4
+             layers deep (all 28: ~121 GB), 1.22B parameters, micro-batch
+             4 x 2048; the same checks, every launch of #1-#3 in its
+             head_dim-256 mode; peak memory under 76 GiB.
 5. evoformer - DS4Sci evoformer attention (ds4sci_evoformer_attention) at
              AlphaFold 2 / OpenFold widths, bf16, three cases (EVO_CASES):
              for each, one forward and backward with every launch counter
@@ -458,6 +476,7 @@ W_LONG, W_PROMPTS = 6144, 7  # one 6144-token prompt (the window bites in rows >
 TRAIN_W_MODEL = dict(MISTRAL, n_layers=4, remat="save_attn_qkv", use_flash=True)
 TRAIN_W_S = 8192
 TRAIN_LONG_STEPS, TRAIN_LONG_TIMED = 6, 3  # of every phase of TRAIN_LONG
+TRAIN_PEAK_GIB = 76  # each TRAIN_LONG phase's peak device memory stays under it (of 80 GB)
 TRAIN_W_PATH = (2, 6144)  # layers, S of the gradient three-path check
 # the ALiBi path: BLOOM-7B1 (bigscience/bloom-7b1 config.json as the JAX
 # package's config_from_hf maps it, utils/hf_checkpoint.py: ALiBi, no
@@ -617,7 +636,27 @@ FLASH_BWD_MODE_CASES = {
     "falcon_7b_train": dict(B=4, S=2048, H=71, KV=1, D=64, window=0, alibi=False,
                             timed="wide_group"),
     "gqa_16_over_2": dict(B=1, S=2048, H=32, KV=2, D=64, window=0, alibi=False),
+    # the head_dim-96 and -256 modes: GPT-NeoX-20B's training micro-batch
+    # (64 heads of 96) and GPT-J-6B's (16 heads of 256), GQA 32 over 2 at
+    # each width (groups of 16: the wide-group mode and kernel #3's group
+    # split at once), the window 1000 and ALiBi slopes at each width on the
+    # model's heads
+    "neox_20b_train": dict(B=2, S=2048, H=64, KV=64, D=96, window=0, alibi=False,
+                           timed="d96"),
+    "d96_gqa_32_over_2": dict(B=1, S=2048, H=32, KV=2, D=96, window=0, alibi=False),
+    "d96_window_1000": dict(B=1, S=2048, H=64, KV=64, D=96, window=ALIBI_WINDOW, alibi=False),
+    "d96_alibi": dict(B=1, S=2048, H=64, KV=64, D=96, window=0, alibi=True),
+    "gptj_6b_train": dict(B=4, S=2048, H=16, KV=16, D=256, window=0, alibi=False,
+                          timed="d256"),
+    "d256_gqa_32_over_2": dict(B=1, S=2048, H=32, KV=2, D=256, window=0, alibi=False),
+    "d256_window_1000": dict(B=1, S=2048, H=16, KV=16, D=256, window=ALIBI_WINDOW,
+                             alibi=False),
+    "d256_alibi": dict(B=1, S=2048, H=16, KV=16, D=256, window=0, alibi=True),
 }
+# the backward's planted faults at the head-dim modes: the gradients'
+# columns from BWD_ZERO_FROM on zeroed (80-95 of 96, 128-255 of 256), the
+# scores taken over the dims below HEAD_DIM_CUT (64 of 96, 128 of 256)
+BWD_ZERO_FROM = {"d80": 64, "d96": 80, "d256": 128}
 # window cases of phase 2 besides >= S: Mistral's 4096 (tile-aligned), 1000
 # (no multiple of the 64-row tiles or the 128-token blocks) and 1
 WINDOW_CASES = (4096, 1000, 1)
@@ -650,6 +689,12 @@ PATH_RMS_FACTOR, PATH_MAX_FACTOR = 1.5, 2.0
 # the 7B-class serving paths, in the order they run (mode, model): each
 # from bf16 pools (phase serve_<mode>), then from int8 pools on the same
 # weights (serve_<mode>_int8)
+# the head_dim-96 and -256 training paths, with the flagship's settings:
+# GPT-NeoX-20B's width 4 layers deep, 2,431,979,520 parameters (~49 GB of
+# training state at ~20 B a parameter; all 44 layers ~411 GB), and
+# GPT-J-6B's, 1,218,356,448 (~24 GB; all 28 ~121 GB)
+TRAIN_NEOX_MODEL = dict(GPT_NEOX_20B, n_layers=4, remat="save_attn_qkv", use_flash=True)
+TRAIN_GPTJ_MODEL = dict(GPT_J_6B, n_layers=4, remat="save_attn_qkv", use_flash=True)
 SERVED_7B = (("window", MISTRAL), ("alibi", BLOOM), ("sparse", LLAMA2_7B),
              ("falcon", FALCON_7B), ("phi", PHI_2), ("neox", GPT_NEOX_20B), ("gptj", GPT_J_6B))
 # GPT-NeoX-20B's pools: SERVE_A with 64 blocks (8.9 GB of bf16 pools beside
@@ -2949,10 +2994,13 @@ WIDE_HEAD_DECODE_CUT = {"d96": 80, "d256": 128}
 # builds of the head_dim-256 code with a fault planted by a define (built
 # beside the kernels, all at once), each run in place of its source's
 # library at D 256 and required to fail: flash's pv_step without its second
-# (columns 128-255) wgmma, and decode's per-tile Q fragments (q_frag, the
-# 16-row slices at D 256) read for k-step ks + 1 at k-step ks
+# (columns 128-255) wgmma, decode's per-tile Q fragments (q_frag, the
+# 16-row slices at D 256) read for k-step ks + 1 at k-step ks, and the
+# backward's dkv hand-off losing the second 32 queries of each P^T tile on
+# its way to the dK warpgroup
 FAULT_BUILDS = {"pv_hi_product_skipped": "flash_fwd+DS_FAULT_PV_HI_SKIPPED",
-                "q_frag_of_the_next_k_step": "paged_decode+DS_FAULT_Q_FRAG_NEXT_KSTEP"}
+                "q_frag_of_the_next_k_step": "paged_decode+DS_FAULT_Q_FRAG_NEXT_KSTEP",
+                "handoff_second_half_lost": "flash_bwd+DS_FAULT_HANDOFF_HALF"}
 
 
 def _head_dim_write_checks(PA, randn, dev, bound_ms, mode, KV, D):
@@ -3190,17 +3238,23 @@ def _plain_bwd_by_batch(FA, q, k, v, lse, delta, do, window=0, alibi=None):
 
 
 def _bwd_mode_faults(FA, q, k, v, do, lse, delta, window, alibi, ref):
-    """Planted faults of the head_dim-80 and wide-group modes, each what a
+    """Planted faults of the head-dim and wide-group modes, each what a
     wrong kernel would output, made by running the kernels themselves on
-    spoiled inputs from the same forward's lse and delta; each must fail
-    bwd_mismatch against the plain backward `ref` in every gradient it
-    touches. D 80: the gradients' columns 64-79 zeroed; the scores taken
-    over the first 64 dims (q's dims 64-79 zeroed). G > 8: dk and dv
-    summed without each group's last chunk of 8 heads (at 71 over 1, over
-    the first 64 heads: the partial chunk dropped); with several KV heads
-    and H a multiple of 8 KV, each q head given KV head (h // 8) % KV (a
-    group capped at 8). Returns {fault: {tensor: elements over}}."""
+    spoiled inputs from the same forward's lse and delta (or, at D 256, a
+    kernel built with a fault); each must fail bwd_mismatch against the
+    plain backward `ref` in every gradient it touches. D 80, 96, 256: the
+    gradients' columns from BWD_ZERO_FROM on zeroed (64-79, 80-95,
+    128-255); the scores taken over the dims below HEAD_DIM_CUT (q's dims
+    from 64, 64, 128 zeroed). D 256: dkv built with the hand-off fault
+    (FAULT_BUILDS: dK from P^T whose second 32 queries of each tile are
+    lost). G > 8: dk and dv summed without each group's last chunk of 8
+    heads (at 71 over 1, over the first 64 heads: the partial chunk
+    dropped); with several KV heads and H a multiple of 8 KV, each q head
+    given KV head (h // 8) % KV (a group capped at 8). Returns {fault:
+    {tensor: elements over}}."""
     import torch
+
+    from deepspeed_tpu_torch.ops.cuda import build
 
     B, S, H, D = q.shape
     KV = k.shape[2]
@@ -3212,11 +3266,20 @@ def _bwd_mode_faults(FA, q, k, v, do, lse, delta, window, alibi, ref):
             FA.flash_bwd_dkv(q_, k_, v_, do_, lse_, delta_, window, alibi)
 
     faults = {}
-    if D == 80:
+    mode = {80: "d80", 96: "d96", 256: "d256"}.get(D)
+    if mode is not None:
         good = bwd(q, k, v, lse, delta, do)
-        faults["columns_64_79_zeroed"] = (names, tuple(_zero_from(g, 64) for g in good))
-        faults["scores_over_first_64_dims"] = (names, bwd(_zero_from(q, 64), k, v, lse, delta,
-                                                          do))
+        zero, cut = BWD_ZERO_FROM[mode], HEAD_DIM_CUT[mode]
+        faults[f"columns_{zero}_{D - 1}_zeroed"] = (names, tuple(_zero_from(g, zero)
+                                                                 for g in good))
+        del good
+        faults[f"scores_over_first_{cut}_dims"] = (names, bwd(_zero_from(q, cut), k, v, lse,
+                                                              delta, do))
+    if D == 256:
+        fault = "handoff_second_half_lost"
+        with build.routed("flash_bwd", FAULT_BUILDS[fault]):
+            faults[fault] = (("dk",), (None,) + FA.flash_bwd_dkv(q, k, v, do, lse, delta,
+                                                                 window, alibi))
     if G > 8 and alibi is None:
         keep = torch.arange(H, device=q.device).view(KV, G)[:, :8 * ((G - 1) // 8)].flatten()
         pick = lambda t, dim: t.index_select(dim, keep).contiguous()
@@ -3279,27 +3342,36 @@ def _bwd_split_checks(FA, q, k, v, do, lse, delta, got, ref):
     return report
 
 
+BWD_MODES = ("d80", "d96", "d256", "wide_group")
+
+
 def _flash_bwd_mode_checks(FA, randn, dev, bound_ms):
-    """Kernels #2 (dq) and #3 (dk, dv) in their head_dim-80 and wide-group
-    modes against the plain backward on the kernel forward's o and lse, on
-    the same bf16 inputs, under bwd_mismatch, in the cases of
+    """Kernels #2 (dq) and #3 (dk, dv) in their head_dim-80, -96 and -256
+    and wide-group modes against the plain backward on the kernel forward's
+    o and lse, on the same bf16 inputs, under bwd_mismatch, in the cases of
     FLASH_BWD_MODE_CASES (S=2048): Phi-2's training micro-batch, GQA 40
     over 2 at 80, window 1000 and ALiBi at 80, Falcon-7B's training
-    micro-batch (71 query heads of 64 over one KV head) and GQA 16 over 2.
-    Every launch must count in the case's modes. Planted faults must fail
-    (_bwd_mode_faults). Then times both kernels at each mode's timed case
-    beside the plain backward and SDPA's backward at the same shape."""
+    micro-batch (71 query heads of 64 over one KV head), GQA 16 over 2,
+    GPT-NeoX-20B's and GPT-J-6B's training micro-batches, and GQA 32 over
+    2, window 1000 and ALiBi at 96 and at 256. Every launch must count in
+    the case's modes; a second launch of both kernels must give the same
+    bits. Planted faults must fail (_bwd_mode_faults). Then times both
+    kernels at each mode's timed case beside the plain backward and SDPA's
+    backward at the same shape, and reports the ptxas registers and spills
+    of the head_dim-96 and -256 instantiations."""
     import torch
     import torch.nn.functional as F
 
     from deepspeed_tpu_torch.ops import cuda as K
+    from deepspeed_tpu_torch.ops.cuda import build
 
     names = ("dq", "dk", "dv")
     report, out = {}, {}
-    errs = {m: {"dq": 0.0, "dkv": 0.0} for m in ("d80", "wide_group")}
+    errs = {m: {"dq": 0.0, "dkv": 0.0} for m in BWD_MODES}
     for case, c in FLASH_BWD_MODE_CASES.items():
         B, S, H, KV, D, w = (c[x] for x in ("B", "S", "H", "KV", "D", "window"))
-        modes = [m for m, hit in (("d80", D == 80), ("wide_group", H // KV > 8)) if hit]
+        modes = [m for m, hit in (("d80", D == 80), ("d96", D == 96), ("d256", D == 256),
+                                  ("wide_group", H // KV > 8)) if hit]
         q, k, v, do = randn(B, S, H, D), randn(B, S, KV, D), randn(B, S, KV, D), randn(B, S, H, D)
         sl = _slopes(H, 1.0, dev) if c["alibi"] else None
         o, lse = FA.flash_fwd(q, k, v, w, sl)
@@ -3309,12 +3381,18 @@ def _flash_bwd_mode_checks(FA, randn, dev, bound_ms):
             FA.flash_bwd_dkv(q, k, v, do, lse, delta, w, sl)
         counts = K.all_launch_counts()
         want = {f"{n}[{m}]": int(m in modes) for n in ("flash_bwd_dq", "flash_bwd_dkv")
-                for m in ("d80", "wide_group")}
+                for m in BWD_MODES}
         if {n: counts[n] for n in want} != want:
             raise AssertionError(f"flash_bwd {case}: not counted in its modes {modes}: "
                                  f"{counts}")
+        again = (FA.flash_bwd_dq(q, k, v, do, lse, delta, w, sl),) + \
+            FA.flash_bwd_dkv(q, k, v, do, lse, delta, w, sl)
+        torch.cuda.synchronize()
+        if not all(torch.equal(a, g) for a, g in zip(again, got)):
+            raise AssertionError(f"flash_bwd {case}: two launches differ")
+        del again
         ref = _plain_bwd_by_batch(FA, q, k, v, lse, delta, do, w, sl)
-        case_report = {"shape": c, "modes": modes}
+        case_report = {"shape": c, "modes": modes, "two_launches": "bit-identical"}
         for i, name in enumerate(names):
             st = FA.bwd_mismatch(got[i], ref[i])
             if st["n_over"]:
@@ -3358,9 +3436,13 @@ def _flash_bwd_mode_checks(FA, randn, dev, bound_ms):
     for m, e in errs.items():
         out[f"flash_bwd_dq[{m}]"]["max_abs_err"] = e["dq"]
         out[f"flash_bwd_dkv[{m}]"]["max_abs_err"] = e["dkv"]
+    ptxas = {k: r for k, r in _ptxas_registers(
+        build, "flash_bwd", ("flash_bwd_dq_kernel", "flash_bwd_dkv_kernel",
+                             "flash_bwd_dkv_wide_kernel")).items()
+        if "<96," in k or "<256" in k}
     print(json.dumps({"flash_bwd_mode_checks": {
         "rtol": FA.BWD_RTOL, "row_rms_atol": FA.BWD_ROW_ATOL, "floor": FA.BWD_FLOOR,
-        **report}}))
+        "ptxas_d96_d256": ptxas, **report}}))
     print(json.dumps({"flash_bwd_modes_vs_sdpa": {
         m: {"dq_ms": out[f"flash_bwd_dq[{m}]"]["ms"], "dkv_ms": out[f"flash_bwd_dkv[{m}]"]["ms"],
             "sdpa_bwd_ms": out[f"flash_bwd_dq[{m}]"]["library_ms"],
@@ -5197,24 +5279,27 @@ def run_serve_long(cfg, dev, params, mode, int8=False):
 # phase -> (model, micro-batch, S, (layers, S) of the three-path check, mode):
 # Mistral 7B's width with its window, BLOOM-7B1's width and falcon-rw-1b
 # whole with ALiBi, Falcon-7B's width in the wide-group mode (71 query
-# heads over one KV head) and Phi-2 whole in the head_dim-80 mode
+# heads over one KV head), Phi-2 whole in the head_dim-80 mode, and
+# GPT-NeoX-20B's and GPT-J-6B's widths in the head_dim-96 and -256 modes
 TRAIN_LONG = {"train_window": (TRAIN_W_MODEL, 1, TRAIN_W_S, TRAIN_W_PATH, "window"),
               "train_alibi": (TRAIN_A_MODEL, 4, 2048, (2, 2048), "alibi"),
               "train_alibi_falcon_rw": (TRAIN_F_MODEL, 8, 2048, (2, 2048), "alibi"),
               "train_falcon": (TRAIN_FALCON_MODEL, 4, 2048, (2, 2048), "wide_group"),
-              "train_phi": (TRAIN_PHI_MODEL, 2, 2048, (2, 2048), "d80")}
+              "train_phi": (TRAIN_PHI_MODEL, 2, 2048, (2, 2048), "d80"),
+              "train_neox": (TRAIN_NEOX_MODEL, 2, 2048, (2, 2048), "d96"),
+              "train_gptj": (TRAIN_GPTJ_MODEL, 4, 2048, (2, 2048), "d256")}
 
 
 def run_train_long(dev, phase):
-    """A 7B model's width (or falcon-rw-1b or Phi-2 whole) trained with
-    the flagship's settings on the micro-batch of TRAIN_LONG[phase]: one
-    step with every launch counter at 0 (each flash kernel once per layer,
-    each in the phase's window, ALiBi, wide-group or head_dim-80 mode, and
-    nothing else), the loss
-    falling over TRAIN_LONG_STEPS steps on the fixed batch, the time of
-    TRAIN_LONG_TIMED async steps, and the three-path check of the per-token
-    loss and the gradients at the phase's (layers, S) from the engine's
-    master weights, after the engine is freed."""
+    """A 7B-class model's width (or falcon-rw-1b or Phi-2 whole) trained
+    with the flagship's settings on the micro-batch of TRAIN_LONG[phase]:
+    one step with every launch counter at 0 (each flash kernel once per
+    layer, each in the phase's window, ALiBi, wide-group, head_dim-80, -96
+    or -256 mode, and nothing else), the loss falling over
+    TRAIN_LONG_STEPS steps on the fixed batch, the time of TRAIN_LONG_TIMED
+    async steps, peak memory under TRAIN_PEAK_GIB, and the three-path
+    check of the per-token loss and the gradients at the phase's (layers,
+    S) from the engine's master weights, after the engine is freed."""
     import dataclasses
 
     import numpy as np
@@ -5266,6 +5351,8 @@ def run_train_long(dev, phase):
     tok_s = B * S / (step_ms / 1e3)
     breakdown = _where_time_goes(lambda: eng.train_batch(batch), top=10)
     peak_gib = torch.cuda.max_memory_allocated(dev) / 2**30
+    if peak_gib >= TRAIN_PEAK_GIB:
+        raise AssertionError(f"{phase}: peak memory {peak_gib:.1f} GiB, over {TRAIN_PEAK_GIB}")
 
     # -- kernel path vs plain paths on one sequence, n_layers deep --------------
     master = eng.state.master

@@ -1,9 +1,9 @@
 // Causal flash-attention backward (recompute from the saved logsumexp) over
 // q, do [B, S, H, D] and k, v [B, S, KV, D] in bf16 with lse and
 // delta = rowsum(dO * O) as [B, H, S] f32, in its causal, sliding-window
-// and ALiBi modes, at head dims 64, 80 and 128 and any whole query group
-// (counted as the wide-group mode above 8 heads a group, and as the
-// head_dim-80 mode). Two kernels:
+// and ALiBi modes, at head dims 64, 80, 96, 128 and 256 and any whole
+// query group (counted as the wide-group mode above 8 heads a group, and
+// as the head_dim-80, -96 and -256 modes). Two kernels:
 //
 //   flash_bwd_dq   dq [B, S, H, D] bf16
 //   flash_bwd_dkv  dk, dv [B, S, KV, D] bf16 (GQA: summed over the group)
@@ -101,10 +101,32 @@
 // and all-zero slopes give the same bits, and the chain is written out
 // (never contracted), alike in masked and unmasked tiles.
 //
-// Head dim 80 (Phi-2): a row is two swizzle atoms whose columns 80-127
-// TMA fills with zeros; the products of depth D take five 16-wide steps,
-// the dq, dk and dv accumulators run 128 wide (their columns past 80 are
-// zero) and the epilogue writes the first 80.
+// Head dims 80 (Phi-2) and 96 (GPT-NeoX-20B): a row is two swizzle atoms
+// whose columns past D TMA fills with zeros; the products of depth D take
+// five or six 16-wide steps, the dq, dk and dv accumulators run 128 wide
+// (their columns past D are zero) and the epilogue writes the first D.
+//
+// Head dim 256 (GPT-J-6B): four atoms a row, and the tiles no longer fit
+// the CTAs above. A 64-row tile of Q or dO is 32 KB, so a CTA of one
+// warpgroup already holds 192 KB (dq: Q, dO and two K/V stages; dkv: K,
+// V and two Q/dO stages): one CTA an SM. dq keeps its design with one
+// warpgroup (DqCfg<256, 1>): its 64 x 256 f32 dQ accumulator is 128
+// registers a thread beside the 64 of S and dP, under the 255 that a lone
+// 128-thread CTA gets, and dQ += dS K runs as two 128-wide products a
+// depth step (the accumulator in two halves). dkv cannot: dK and dV for
+// 64 keys x 256 columns are 256 f32 registers a thread in one warpgroup.
+// So a D-256 dkv CTA (DkvWideCfg, flash_bwd_dkv_wide_kernel) owns 64 keys
+// with two warpgroups that split the work by output: warpgroup 0
+// computes S^T = K Q^T and P^T, and accumulates dV += P^T dO; warpgroup 1
+// computes dP^T = V dO^T and accumulates dK += dS^T Q, taking P^T from
+// warpgroup 0 through shared memory (the hand-off: two 16 KB f32 slots,
+// each guarded by a full and an empty mbarrier, each thread's 32 values
+// at the same fragment positions in both warpgroups). Every product runs
+// once, as in the narrower tilings; the hand-off costs 32 KB of shared
+// memory and one f32 round trip a tile. Each warpgroup stages its sum in
+// its own spent operand (dV over K, dK over V). The ring's loader is
+// warpgroup 1's first warp, which finishes each tile last. The group
+// split counts 64-key blocks at this width (dkv_split_plan).
 
 #include "hopper.cuh"
 
@@ -154,10 +176,50 @@ struct DkvCfg {
   static_assert(MIN_BLOCKS * (SMEM + 1024) <= 233472, "shared memory per SM");
 };
 
+// Tiling of dkv at head dim 256 (flash_bwd_dkv_wide_kernel): 64 keys a
+// CTA, warpgroup 0 on dV and warpgroup 1 on dK. Shared memory: K and V
+// [NA][64][64] each, the ring of Q and dO tiles [STAGES][2][NA][64][64],
+// the P^T hand-off [2][64 x 64] f32, each stage's lse and delta [STAGES][64]
+// f32, the mbarriers (K/V; full[STAGES]; empty[STAGES]; hand_full[2];
+// hand_empty[2]). dV and dK are PARTS products of ACC_N = 128 columns.
+template <int D_>
+struct DkvWideCfg {
+  static constexpr int D = D_;
+  static constexpr int NWG = 2;
+  static constexpr int BNK = TILE;
+  static constexpr int NA = D / ATOM;
+  static constexpr int ACC_N = 128;
+  static constexpr int PARTS = D / ACC_N;
+  static constexpr int KSTEPS = D / 16;
+  static constexpr int THREADS = NWG * WG;
+  static constexpr int K_ATOM = BNK * 128;
+  static constexpr int KV_BYTES = NA * K_ATOM;
+  static constexpr int Q_TILE = NA * ROW_BYTES;
+  static constexpr int K_OFF = 0;
+  static constexpr int V_OFF = K_OFF + KV_BYTES;
+  static constexpr int RING_OFF = V_OFF + KV_BYTES;
+  static constexpr int STAGES = AHEAD;
+  static constexpr int STAGE_BYTES = 2 * Q_TILE;
+  static constexpr int HAND_BYTES = TILE * TILE * 4;  // one slot: a 64 x 64 f32 P^T tile
+  static constexpr int HAND_OFF = RING_OFF + STAGES * STAGE_BYTES;
+  static constexpr int LSE_OFF = HAND_OFF + 2 * HAND_BYTES;
+  static constexpr int DELTA_OFF = LSE_OFF + STAGES * TILE * 4;
+  static constexpr int BAR_OFF = DELTA_OFF + STAGES * TILE * 4;
+  static constexpr int HAND_BAR = 1 + 2 * STAGES;  // index of hand_full[0]
+  static constexpr int SMEM = BAR_OFF + (HAND_BAR + 4) * 8 + 1024;
+  static constexpr int MIN_BLOCKS = 1;
+  static_assert(D % 128 == 0 && D <= 256, "head dim");
+  static_assert(V_OFF % 1024 == 0 && RING_OFF % 1024 == 0 && HAND_OFF % 1024 == 0,
+                "swizzle alignment");
+  static_assert(BAR_OFF % 8 == 0, "mbarrier alignment");
+  static_assert(SMEM + 1024 <= 233472, "shared memory per SM");
+};
+
 // Tiling of one dq instantiation: NWG warpgroups of 64 query rows, 64-key
 // tiles. Shared memory: Q and dO [NWG][NA][64][64] each, the ring of K and
 // V tiles [STAGES][2][NA][64][64] (as dkv's ring), the mbarriers (Q/dO;
-// full[STAGES]; empty[STAGES]).
+// full[STAGES]; empty[STAGES]). The dQ accumulator is PARTS products of
+// ACC_N columns (one up to 128 wide, two halves of 128 at D 256).
 template <int D_, int NWG_>
 struct DqCfg {
   static constexpr int D = D_;
@@ -166,6 +228,8 @@ struct DqCfg {
   static constexpr int BN = TILE;
   static constexpr int NA = (D + ATOM - 1) / ATOM;
   static constexpr int DP = NA * ATOM;              // width of the dQ accumulator
+  static constexpr int ACC_N = DP < 128 ? DP : 128;  // columns of one dS K product
+  static constexpr int PARTS = DP / ACC_N;
   static constexpr int KSTEPS = D / 16;             // depth steps of S and dP
   static constexpr int THREADS = NWG * WG;
   static constexpr int WG_TILE = NA * ROW_BYTES;    // a warpgroup's Q (or dO) rows; a K or V tile
@@ -176,8 +240,10 @@ struct DqCfg {
   static constexpr int STAGE_BYTES = 2 * WG_TILE;   // K, then V
   static constexpr int BAR_OFF = RING_OFF + STAGES * STAGE_BYTES;
   static constexpr int SMEM = BAR_OFF + (1 + 2 * STAGES) * 8 + 1024;
-  static constexpr int MIN_BLOCKS = NWG == 2 ? 1 : 2;
-  static_assert(D % 16 == 0 && D <= 128, "head dim");
+  // CTAs an SM: two of one warpgroup where their shared memory fits (not
+  // at D 256)
+  static constexpr int MIN_BLOCKS = NWG == 2 || 2 * (SMEM + 1024) > 233472 ? 1 : 2;
+  static_assert(D % 16 == 0 && D <= 256 && DP % ACC_N == 0, "head dim");
   static_assert(DO_OFF % 1024 == 0 && RING_OFF % 1024 == 0, "swizzle alignment");
   static_assert(BAR_OFF % 8 == 0, "mbarrier alignment");
   static_assert(MIN_BLOCKS * (SMEM + 1024) <= 233472, "shared memory per SM");
@@ -473,6 +539,254 @@ __global__ void __launch_bounds__(C::THREADS, C::MIN_BLOCKS)
   }
 }
 
+// dkv at head dim 256: one CTA per (64-key block, batch x KV head, chunk),
+// key blocks in order. Warpgroup 0 takes S^T, P^T and dV; warpgroup 1
+// dP^T, dS^T and dK, with P^T from warpgroup 0 through the hand-off slot
+// t % 2 of tile t. Every tile of the walk meets the CTA's keys (the walk
+// starts at the tile holding k0 and, with a window, ends at the last tile
+// that sees key k0 + 63), so both warpgroups take every tile.
+template <class C>
+__global__ void __launch_bounds__(C::THREADS, C::MIN_BLOCKS)
+    flash_bwd_dkv_wide_kernel(const __grid_constant__ CUtensorMap tq,
+                              const __grid_constant__ CUtensorMap tk,
+                              const __grid_constant__ CUtensorMap tv,
+                              const __grid_constant__ CUtensorMap tdo,
+                              __nv_bfloat16* __restrict__ dk, __nv_bfloat16* __restrict__ dv,
+                              float* __restrict__ part, const float* __restrict__ lse,
+                              const float* __restrict__ delta, const float* __restrict__ slopes,
+                              int B, int S, int H, int KV, int window, int n_chunks,
+                              float scale) {
+  extern __shared__ __align__(1024) unsigned char smem_raw[];
+  const uint32_t raw = smem_u32(smem_raw);
+  const uint32_t base = (raw + 1023u) & ~1023u;
+  unsigned char* smem = smem_raw + (base - raw);
+  const uint32_t bars = base + C::BAR_OFF;
+
+  const int per_block = B * KV * n_chunks;
+  const int k0 = (blockIdx.x / per_block) * C::BNK;
+  const int chunk = blockIdx.x % n_chunks;
+  const int bk = (blockIdx.x % per_block) / n_chunks;
+  const int b = bk / KV;
+  const int kvh = bk % KV;
+  const int G = H / KV;
+  const int csize = (G + n_chunks - 1) / n_chunks;
+  const int g0 = min(G, chunk * csize);
+  const int g1 = min(G, g0 + csize);
+  const int nq = (S + TILE - 1) / TILE;
+  const int i0 = k0 / TILE;
+  const int n_i = (window > 0 ? min(nq, (k0 + C::BNK - 1 + window - 1) / TILE + 1) : nq) - i0;
+  const int n_tiles = (g1 - g0) * n_i;
+
+  const int wg = threadIdx.x / WG;
+  const int wtid = threadIdx.x % WG;
+  const int warp = wtid / 32;
+  const int lane = wtid % 32;
+  const bool loader = wg == 1 && warp == 0;  // warpgroup 1 leaves each tile last
+  float* lse_s = reinterpret_cast<float*>(smem + C::LSE_OFF);
+  float* delta_s = reinterpret_cast<float*>(smem + C::DELTA_OFF);
+  const uint32_t hand_full = bars + 8 * C::HAND_BAR;  // + 8 s: slot s
+  const uint32_t hand_empty = hand_full + 16;
+
+  // the loader warp fills stage t % STAGES as dkv's loader does
+  float pre_l[2], pre_d[2];
+  auto fetch = [&](int t) {
+    const int q0 = (i0 + t % n_i) * TILE;
+    const size_t row = (static_cast<size_t>(b) * H + kvh * G + g0 + t / n_i) * S;
+#pragma unroll
+    for (int x = 0; x < 2; ++x) {
+      const int q = q0 + lane + 32 * x;
+      pre_l[x] = q < S ? __fmul_rn(lse[row + q], LOG2E) : INFINITY;
+      pre_d[x] = q < S ? delta[row + q] : 0.f;
+    }
+  };
+  auto load = [&](int t) {
+    const int st = t % C::STAGES;
+    const uint32_t full = bars + 8 * (1 + st);
+    const uint32_t q_tile = base + C::RING_OFF + st * C::STAGE_BYTES;
+    const int h = kvh * G + g0 + t / n_i;
+    const int q0 = (i0 + t % n_i) * TILE;
+    if (lane == 0) {
+      mbar_expect_tx(full, C::STAGE_BYTES);
+      for (int a = 0; a < C::NA; ++a) {
+        tma_load(q_tile + a * ROW_BYTES, &tq, full, a * ATOM, h, q0, b);
+        tma_load(q_tile + C::Q_TILE + a * ROW_BYTES, &tdo, full, a * ATOM, h, q0, b);
+      }
+    }
+#pragma unroll
+    for (int x = 0; x < 2; ++x) {
+      lse_s[st * TILE + lane + 32 * x] = pre_l[x];
+      delta_s[st * TILE + lane + 32 * x] = pre_d[x];
+    }
+    mbar_arrive(full);
+  };
+
+  if (threadIdx.x == 0)
+    for (int s = 0; s < 4; ++s) mbar_init(hand_full + 8 * s, WG);  // every thread of a warpgroup
+  init_bars<C>(bars, 1 + 32);
+  if (loader) {
+    if (lane == 0) {
+      mbar_expect_tx(bars, 2 * C::KV_BYTES);
+      for (int a = 0; a < C::NA; ++a) {
+        tma_load(base + C::K_OFF + a * C::K_ATOM, &tk, bars, a * ATOM, kvh, k0, b);
+        tma_load(base + C::V_OFF + a * C::K_ATOM, &tv, bars, a * ATOM, kvh, k0, b);
+      }
+    }
+    for (int t = 0; t < min(AHEAD, n_tiles); ++t) {
+      fetch(t);
+      load(t);
+    }
+  }
+  __syncwarp();
+
+  const int lr = 16 * warp + lane / 4;  // the thread's key rows lr and lr + 8 of the 64
+  const int cq = 2 * (lane % 4);        // its first query column in each 8-column group
+  const int ka = k0 + lr;
+  const float scale_log2 = scale * LOG2E;
+  // warpgroup 0 multiplies K by Q (S^T) and P^T by dO; warpgroup 1 V by
+  // dO (dP^T) and dS^T by Q
+  const uint32_t kv_rows = base + (wg == 0 ? C::K_OFF : C::V_OFF);
+
+  float acc[C::PARTS][C::ACC_N / 2];  // dV (warpgroup 0) or dK (1), f32, by column part
+#pragma unroll
+  for (int p = 0; p < C::PARTS; ++p)
+#pragma unroll
+    for (int i = 0; i < C::ACC_N / 2; ++i) acc[p][i] = 0.f;
+  float slope_log2 = 0.f;
+
+  mbar_wait(bars, 0);  // K, V
+  for (int t = 0; t < n_tiles; ++t) {
+    const int st = t % C::STAGES;
+    const int hs = t & 1;  // the hand-off slot
+    const int q0 = (i0 + t % n_i) * TILE;
+    const uint32_t q_tile = base + C::RING_OFF + st * C::STAGE_BYTES;
+    const uint32_t do_tile = q_tile + C::Q_TILE;
+    float4* hand = reinterpret_cast<float4*>(smem + C::HAND_OFF + hs * C::HAND_BYTES);
+    if (t % n_i == 0 && slopes != nullptr)  // a new q head: its own slope
+      slope_log2 = __fmul_rn(slopes[kvh * G + g0 + t / n_i], LOG2E);
+    if (loader && t + AHEAD < n_tiles) fetch(t + AHEAD);
+    mbar_wait(bars + 8 * (1 + st), (t / C::STAGES) & 1);
+
+    // S^T = K Q^T (warpgroup 0) or dP^T = V dO^T (warpgroup 1)
+    float x[32];
+    const uint32_t b_tile = wg == 0 ? q_tile : do_tile;
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < C::KSTEPS; ++kk) {
+      const uint32_t off = (kk / 4) * C::K_ATOM + (kk % 4) * 32;
+      const uint32_t qoff = (kk / 4) * ROW_BYTES + (kk % 4) * 32;
+      wgmma_ss(x, gmma_desc(kv_rows + off, 16, 1024), gmma_desc(b_tile + qoff, 16, 1024),
+               kk > 0);
+    }
+    wgmma_commit();
+    wgmma_wait();
+    fence_regs(x);
+
+    uint32_t a[4][4];  // P^T or dS^T in bf16 as A fragments (k-step: 16 queries)
+    if (wg == 0) {
+      // P^T = 2^(s scale + slope (key - query) - lse) on live (key, query)
+      const bool cut = k0 + 63 > q0 || (window > 0 && k0 <= q0 + TILE - 1 - window);
+      const float* ls = lse_s + st * TILE;
+#pragma unroll
+      for (int i = 0; i < 32; ++i) {
+        const int qc = 8 * (i / 4) + cq + (i & 1);
+        const int c = q0 + qc;
+        const int r = ka + 8 * ((i >> 1) & 1);
+        float p = ex2(fmaf(x[i], scale_log2,
+                           fmaf(slope_log2, static_cast<float>(r - c), -ls[qc])));
+        if (cut && (r > c || (window > 0 && r <= c - window))) p = 0.f;
+        x[i] = p;
+      }
+      // hand P^T to warpgroup 1 once it has read this slot's tile t - 2
+      mbar_wait(hand_empty + 8 * hs, ((t >> 1) & 1) ^ 1);
+#pragma unroll
+      for (int j = 0; j < 8; ++j)
+        hand[j * WG + wtid] = make_float4(x[4 * j], x[4 * j + 1], x[4 * j + 2], x[4 * j + 3]);
+      mbar_arrive(hand_full + 8 * hs);
+    } else {
+      // dS^T = P^T (dP^T - delta) scale, P^T from warpgroup 0 (entries
+      // 4j..4j+3 of the fragment: 8-column group j)
+      const float* dl = delta_s + st * TILE;
+      mbar_wait(hand_full + 8 * hs, (t >> 1) & 1);
+#pragma unroll
+      for (int j = 0; j < 8; ++j) {
+        float4 h4 = hand[j * WG + wtid];
+#ifdef DS_FAULT_HANDOFF_HALF
+        if (j >= 4) h4 = make_float4(0.f, 0.f, 0.f, 0.f);  // planted fault: queries 32-63 lost
+#endif
+        const float p[4] = {h4.x, h4.y, h4.z, h4.w};
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int qc = 8 * j + cq + (e & 1);
+          x[4 * j + e] = __fmul_rn(__fmul_rn(p[e], __fsub_rn(x[4 * j + e], dl[qc])), scale);
+        }
+      }
+      mbar_arrive(hand_empty + 8 * hs);
+    }
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk)
+#pragma unroll
+      for (int j = 0; j < 4; ++j) a[kk][j] = pack_bf16(x[8 * kk + 2 * j], x[8 * kk + 2 * j + 1]);
+
+    // dV += P^T dO (warpgroup 0), dK += dS^T Q (warpgroup 1); dO and Q read
+    // MN-major, part p from their atom 2p
+    const uint32_t mn_tile = wg == 0 ? do_tile : q_tile;
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk)
+#pragma unroll
+      for (int p = 0; p < C::PARTS; ++p)
+        wgmma_rs(acc[p], a[kk],
+                 gmma_desc(mn_tile + p * (C::ACC_N / ATOM) * ROW_BYTES + kk * 16 * 128,
+                           ROW_BYTES, 1024));
+    wgmma_commit();
+    wgmma_wait();
+#pragma unroll
+    for (int p = 0; p < C::PARTS; ++p) fence_regs(acc[p]);
+    release<C>(bars, t, n_tiles, lane, loader, load);
+  }
+
+  const size_t row_stride = static_cast<size_t>(KV) * C::D;
+  if (part != nullptr) {
+    // a chunk of a split group: its f32 partial (dk at 0, dv at n), added
+    // up by the combine pass
+    const size_t n = static_cast<size_t>(B) * S * row_stride;
+    float* pw = part + static_cast<size_t>(chunk) * 2 * n + (wg == 0 ? n : 0);
+#pragma unroll
+    for (int p = 0; p < C::PARTS; ++p)
+#pragma unroll
+      for (int j = 0; j < C::ACC_N / 8; ++j)
+#pragma unroll
+        for (int half = 0; half < 2; ++half) {
+          const int key = ka + 8 * half;
+          if (key < S) {
+            const size_t idx = (static_cast<size_t>(b) * S + key) * row_stride +
+                               static_cast<size_t>(kvh) * C::D + p * C::ACC_N + 8 * j + cq;
+            *reinterpret_cast<float2*>(pw + idx) =
+                make_float2(acc[p][4 * j + 2 * half], acc[p][4 * j + 2 * half + 1]);
+          }
+        }
+    return;
+  }
+  // stage dV in K (warpgroup 0's own operand, spent) and dK in V (warpgroup
+  // 1's), then write 16-byte vectors
+  unsigned char* so = smem + (wg == 0 ? C::K_OFF : C::V_OFF);
+#pragma unroll
+  for (int p = 0; p < C::PARTS; ++p)
+    stage_rows<C::ACC_N>(so + p * (C::ACC_N / ATOM) * C::K_ATOM, acc[p], lr, cq, C::K_ATOM);
+  asm volatile("bar.sync %0, %1;" ::"r"(1 + wg), "n"(WG) : "memory");
+  __nv_bfloat16* out = wg == 0 ? dv : dk;
+  constexpr int VPR = C::D / 8;  // 16-byte vectors per row
+  for (int x = wtid; x < 64 * VPR; x += WG) {
+    const int row = x / VPR;
+    const int v = x % VPR;
+    if (k0 + row >= S) continue;
+    const size_t dst = (static_cast<size_t>(b) * S + k0 + row) * row_stride +
+                       static_cast<size_t>(kvh) * C::D + v * 8;
+    *reinterpret_cast<uint4*>(out + dst) =
+        *reinterpret_cast<const uint4*>(so + stage_off(row, v, C::K_ATOM));
+  }
+}
+
 // The group split's second pass: dk, dv (n elements each) = the sum over
 // chunks, in chunk order, of the f32 partials [n_chunks][2][n]; one
 // thread per 4 elements.
@@ -577,9 +891,11 @@ __global__ void __launch_bounds__(C::THREADS, C::MIN_BLOCKS)
   const float d0 = ra < S ? delta[row + ra] : 0.f;
   const float d1 = ra + 8 < S ? delta[row + ra + 8] : 0.f;
 
-  float acc[C::DP / 2];  // dQ, f32, wgmma fragment layout
+  float acc[C::PARTS][C::ACC_N / 2];  // dQ, f32, wgmma fragment layout, by column part
 #pragma unroll
-  for (int i = 0; i < C::DP / 2; ++i) acc[i] = 0.f;
+  for (int p = 0; p < C::PARTS; ++p)
+#pragma unroll
+    for (int i = 0; i < C::ACC_N / 2; ++i) acc[p][i] = 0.f;
 
   mbar_wait(bars, 0);  // Q, dO
   for (int t = 0; t < n_tiles; ++t) {
@@ -630,21 +946,29 @@ __global__ void __launch_bounds__(C::THREADS, C::MIN_BLOCKS)
           da[kk][x] = pack_bf16(dp[8 * kk + 2 * x], dp[8 * kk + 2 * x + 1]);
       }
 
-      // dQ += dS K (K read MN-major)
+      // dQ += dS K (K read MN-major; part p takes K's atoms from
+      // p * ACC_N / 64)
       wgmma_fence();
 #pragma unroll
       for (int kk = 0; kk < 4; ++kk)
-        wgmma_rs(acc, da[kk], gmma_desc(k_tile + kk * 16 * 128, ROW_BYTES, 1024));
+#pragma unroll
+        for (int p = 0; p < C::PARTS; ++p)
+          wgmma_rs(acc[p], da[kk],
+                   gmma_desc(k_tile + p * (C::ACC_N / ATOM) * ROW_BYTES + kk * 16 * 128,
+                             ROW_BYTES, 1024));
       wgmma_commit();
       wgmma_wait();
-      fence_regs(acc);
+#pragma unroll
+      for (int p = 0; p < C::PARTS; ++p) fence_regs(acc[p]);
     }
     release<C>(bars, t, n_tiles, lane, threadIdx.x == 0, load);
   }
 
   // stage dQ in the warpgroup's Q rows (spent), then write 16-byte vectors
   unsigned char* sq = smem + C::Q_OFF + wg * C::WG_TILE;
-  stage_rows<C::DP>(sq, acc, lr, cq, ROW_BYTES);
+#pragma unroll
+  for (int p = 0; p < C::PARTS; ++p)
+    stage_rows<C::ACC_N>(sq + p * (C::ACC_N / ATOM) * ROW_BYTES, acc[p], lr, cq, ROW_BYTES);
   asm volatile("bar.sync %0, %1;" ::"r"(1 + wg), "n"(WG) : "memory");
   constexpr int VPR = C::D / 8;
   for (int x = wtid; x < 64 * VPR; x += WG) {
@@ -685,20 +1009,20 @@ int launch_dq(void* dq, const void* q, const void* k, const void* v, const void*
   return static_cast<int>(cudaGetLastError());
 }
 
-template <class C>
-int launch_dkv(void* dk, void* dv, void* part, const void* q, const void* k, const void* v,
-               const void* dout, const void* lse, const void* delta, const void* slopes, int B,
-               int S, int H, int KV, int window, int n_chunks, float scale,
-               cudaStream_t stream) {
+template <class C, class Kernel>
+int launch_dkv(Kernel kernel, void* dk, void* dv, void* part, const void* q, const void* k,
+               const void* v, const void* dout, const void* lse, const void* delta,
+               const void* slopes, int B, int S, int H, int KV, int window, int n_chunks,
+               float scale, cudaStream_t stream) {
   CUtensorMap maps[4];
   int err = encode_maps(maps, q, k, v, dout, B, S, H, KV, C::D, C::BNK);
   if (err != 0) return err;
-  cudaError_t e = cudaFuncSetAttribute(flash_bwd_dkv_kernel<C>,
-                                       cudaFuncAttributeMaxDynamicSharedMemorySize, C::SMEM);
+  cudaError_t e = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                       C::SMEM);
   if (e != cudaSuccess) return static_cast<int>(e);
   const long long ctas =
       static_cast<long long>((S + C::BNK - 1) / C::BNK) * B * KV * n_chunks;
-  flash_bwd_dkv_kernel<C><<<static_cast<unsigned>(ctas), C::THREADS, C::SMEM, stream>>>(
+  kernel<<<static_cast<unsigned>(ctas), C::THREADS, C::SMEM, stream>>>(
       maps[0], maps[1], maps[2], maps[3], static_cast<__nv_bfloat16*>(dk),
       static_cast<__nv_bfloat16*>(dv), n_chunks > 1 ? static_cast<float*>(part) : nullptr,
       static_cast<const float*>(lse), static_cast<const float*>(delta),
@@ -714,7 +1038,8 @@ int launch_dkv(void* dk, void* dv, void* part, const void* q, const void* k, con
 
 // 128-row CTAs (two warpgroups) where B * heads * ceil(S / 128) fills the
 // card, else 64-row CTAs (one warpgroup, two CTAs an SM); dkv always takes
-// 128 keys when its group is split.
+// 128 keys when its group is split. Head dim 256 has one tiling each:
+// DqCfg<256, 1> and DkvWideCfg<256> (64 keys), split or not.
 bool fills_card(int B, int S, int heads) {
   return static_cast<long long>(B) * heads * ((S + 127) / 128) >= sm_count();
 }
@@ -723,9 +1048,10 @@ template <int D>
 int dispatch_dq(void* dq, const void* q, const void* k, const void* v, const void* dout,
                 const void* lse, const void* delta, const void* slopes, int B, int S, int H,
                 int KV, int window, float scale, cudaStream_t st) {
-  if (fills_card(B, S, H))
-    return launch_dq<DqCfg<D, 2>>(dq, q, k, v, dout, lse, delta, slopes, B, S, H, KV, window,
-                                  scale, st);
+  if constexpr (D <= 128)
+    if (fills_card(B, S, H))
+      return launch_dq<DqCfg<D, 2>>(dq, q, k, v, dout, lse, delta, slopes, B, S, H, KV, window,
+                                    scale, st);
   return launch_dq<DqCfg<D, 1>>(dq, q, k, v, dout, lse, delta, slopes, B, S, H, KV, window,
                                 scale, st);
 }
@@ -734,11 +1060,19 @@ template <int D>
 int dispatch_dkv(void* dk, void* dv, void* part, const void* q, const void* k, const void* v,
                  const void* dout, const void* lse, const void* delta, const void* slopes, int B,
                  int S, int H, int KV, int window, int n_chunks, float scale, cudaStream_t st) {
-  if (n_chunks > 1 || fills_card(B, S, KV))
-    return launch_dkv<DkvCfg<D, 2>>(dk, dv, part, q, k, v, dout, lse, delta, slopes, B, S, H,
-                                    KV, window, n_chunks, scale, st);
-  return launch_dkv<DkvCfg<D, 1>>(dk, dv, part, q, k, v, dout, lse, delta, slopes, B, S, H, KV,
-                                  window, n_chunks, scale, st);
+  if constexpr (D > 128) {
+    using C = DkvWideCfg<D>;
+    return launch_dkv<C>(flash_bwd_dkv_wide_kernel<C>, dk, dv, part, q, k, v, dout, lse, delta,
+                         slopes, B, S, H, KV, window, n_chunks, scale, st);
+  } else if (n_chunks > 1 || fills_card(B, S, KV)) {
+    using C = DkvCfg<D, 2>;
+    return launch_dkv<C>(flash_bwd_dkv_kernel<C>, dk, dv, part, q, k, v, dout, lse, delta,
+                         slopes, B, S, H, KV, window, n_chunks, scale, st);
+  } else {
+    using C = DkvCfg<D, 1>;
+    return launch_dkv<C>(flash_bwd_dkv_kernel<C>, dk, dv, part, q, k, v, dout, lse, delta,
+                         slopes, B, S, H, KV, window, n_chunks, scale, st);
+  }
 }
 
 }  // namespace
@@ -759,8 +1093,14 @@ extern "C" int flash_bwd_dq(void* dq, const void* q, const void* k, const void* 
     case 80:
       return dispatch_dq<80>(dq, q, k, v, dout, lse, delta, slopes, B, S, H, KV, window, scale,
                              st);
+    case 96:
+      return dispatch_dq<96>(dq, q, k, v, dout, lse, delta, slopes, B, S, H, KV, window, scale,
+                             st);
     case 128:
       return dispatch_dq<128>(dq, q, k, v, dout, lse, delta, slopes, B, S, H, KV, window, scale,
+                              st);
+    case 256:
+      return dispatch_dq<256>(dq, q, k, v, dout, lse, delta, slopes, B, S, H, KV, window, scale,
                               st);
     default:
       return static_cast<int>(cudaErrorInvalidValue);
@@ -787,8 +1127,14 @@ extern "C" int flash_bwd_dkv(void* dk, void* dv, const void* q, const void* k, c
     case 80:
       return dispatch_dkv<80>(dk, dv, part, q, k, v, dout, lse, delta, slopes, B, S, H, KV,
                               window, n_chunks, scale, st);
+    case 96:
+      return dispatch_dkv<96>(dk, dv, part, q, k, v, dout, lse, delta, slopes, B, S, H, KV,
+                              window, n_chunks, scale, st);
     case 128:
       return dispatch_dkv<128>(dk, dv, part, q, k, v, dout, lse, delta, slopes, B, S, H, KV,
+                               window, n_chunks, scale, st);
+    case 256:
+      return dispatch_dkv<256>(dk, dv, part, q, k, v, dout, lse, delta, slopes, B, S, H, KV,
                                window, n_chunks, scale, st);
     default:
       return static_cast<int>(cudaErrorInvalidValue);

@@ -16,12 +16,10 @@ Serving and training cover dense Llama-class models (with sliding
 windows: Mistral-class), Bloom-class ones (ALiBi, LayerNorm, biases, a
 non-gated MLP, an embedding LayerNorm) and Falcon/Phi-class ones
 (parallel residuals with one shared or two LayerNorms, partial rotary, an
-lm_head bias, head_dim 80): `unported_features`; serving also covers
-block-sparse models (attention_impl="sparse", the layout of
-`sparsity_config()`) and GPT-NeoX- and GPT-J-class ones (head_dim 96 and
-256, interleaved partial rotary), which training does not yet on the card
-(no backward kernel takes those head dims); training runs without
-dropout (`check_trained`).
+lm_head bias, head_dim 80) and GPT-NeoX- and GPT-J-class ones (head_dim
+96 and 256, interleaved partial rotary): `unported_features`; serving
+also covers block-sparse models (attention_impl="sparse", the layout of
+`sparsity_config()`); training runs without dropout (`check_trained`).
 """
 
 import dataclasses
@@ -632,12 +630,10 @@ def check_trained(cfg: TransformerConfig) -> None:
     serving does not cover (`unported_features`), block-sparse attention
     (served, not trained: ROADMAP A2), dropout, random-LTD layers and the
     remat modes with no torch.utils.checkpoint mapping yet. Every other
-    dense model it serves, it trains: Llama-, Bloom-, Falcon- and
-    Phi-class (parallel residuals, an lm_head bias, head_dim 80). Head
-    dims that no kernel takes train through the plain versions on the CPU
-    and raise at the kernels on the card: GPT-NeoX's 96 and GPT-J's 256
-    raise at the flash backward (ops/cuda/flash_attention.py) until the
-    slice that ports kernels #2/#3 at those widths (ROADMAP B5)."""
+    dense model it serves, it trains: Llama-, Bloom-, Falcon-, Phi-,
+    GPT-NeoX- and GPT-J-class (parallel residuals, an lm_head bias, head
+    dims 80, 96 and 256), on the card through the flash kernels #1-#3 at
+    every one of those head dims."""
     bad = unported_features(cfg) + [name for name, hit in {
         "sparse attention (the training forward's sparse_causal_attention branch, "
         "ROADMAP A2)": cfg.attention_impl == "sparse",
@@ -647,8 +643,8 @@ def check_trained(cfg: TransformerConfig) -> None:
     }.items() if hit]
     if bad:
         raise NotImplementedError(
-            "the port trains dense Llama-, Bloom-, Falcon- and Phi-class models (remat "
-            f"none|full|save_attn_qkv); this config uses {', '.join(bad)} "
+            "the port trains dense Llama-, Bloom-, Falcon-, Phi-, GPT-NeoX- and GPT-J-class "
+            f"models (remat none|full|save_attn_qkv); this config uses {', '.join(bad)} "
             "(later slices port them)")
 
 

@@ -10,7 +10,8 @@ and counted as "<name>[<mode>]": `window_launches` (a sliding window > 0),
 bitmap), `wide_group_launches` (more than 8 query heads per KV head),
 `d80_launches` (head_dim 80: Phi-2), `d96_launches` (head_dim 96:
 GPT-NeoX-20B) and `d256_launches` (head_dim 256: GPT-J-6B; the head-dim
-counters on the forward and serving kernels, #1 and #4-#6, only). `MODES[mode]` names the wrappers with that
+counters on the flash kernels #1-#3 and the serving kernels #4-#6).
+`MODES[mode]` names the wrappers with that
 counter, `mode_launch_counts(mode)` gives their counts. A launch in
 several modes counts in each.
 """

@@ -21,19 +21,19 @@ round them). Every kernel wrapper carries `launches`, raised by one
 per launch of its kernel, `window_launches`, raised by one per launch in
 the sliding-window mode, `alibi_launches`, in the ALiBi mode,
 `wide_group_launches`, with more than 8 query heads per KV head
-(Falcon-7B: 71 over one), and `d80_launches`, at head_dim 80 (Phi-2);
-the forward also `d96_launches` and `d256_launches`, at head_dim 96
-(GPT-NeoX-20B) and 256 (GPT-J-6B).
+(Falcon-7B: 71 over one), `d80_launches`, at head_dim 80 (Phi-2), and
+`d96_launches` and `d256_launches`, at head_dim 96 (GPT-NeoX-20B) and 256
+(GPT-J-6B).
 
 Kernel #3 sums each KV head's dk and dv over its group of query heads in
 registers; where its grid would leave SMs idle it splits the group into
 chunks (`dkv_split_plan`) whose f32 partials a second pass adds in chunk
 order (the scratch comes from `torch.empty`; no atomics either way).
 
-Head dims: the forward takes 64, 80, 96, 128 and 256, both backward
-kernels 64, 80 and 128; `FlashAttention` raises before its forward
-launches when the inputs need a gradient at a head dim no backward kernel
-takes (96 and 256 come with GPT-NeoX and GPT-J training, ROADMAP B5).
+Head dims: all three kernels take 64, 80, 96, 128 and 256 (at 256 kernel
+#3 runs 64-key CTAs of two warpgroups, one on dV and one on dK, and its
+group split counts 64-key blocks). A CUDA tensor of another head dim
+raises.
 
 Sliding window (`window` > 0, Mistral-class; the reference's token-exact
 mode): query row r attends to key column c iff r - window < c <= r.
@@ -62,10 +62,9 @@ from . import build
 from ._common import (BWD_FLOOR, BWD_ROW_ATOL, BWD_RTOL, bwd_mismatch,  # noqa: F401
                       check_cuda_args, check_shape, count_launch, ptr, stream_of, zero_counts)
 
-# head dims the kernels are built for (80: Phi-2; 96: GPT-NeoX-20B and 256:
-# GPT-J-6B, the forward only), forward and backward
+# head dims the kernels are built for, forward and backward (80: Phi-2;
+# 96: GPT-NeoX-20B; 256: GPT-J-6B)
 _HEAD_DIMS = (64, 80, 96, 128, 256)
-_BWD_HEAD_DIMS = (64, 80, 128)
 
 
 def _repeat_kv(k: torch.Tensor, n_rep: int) -> torch.Tensor:
@@ -147,7 +146,7 @@ def flash_attention_bwd_plain(q, k, v, o, lse, do, window: int = 0, alibi=None):
     return _bwd_plain(q, k, v, lse, _delta(o, do), do, window, alibi)
 
 
-def _check_attention_args(what, tensors, dtypes, q, k, head_dims=_HEAD_DIMS):
+def _check_attention_args(what, tensors, dtypes, q, k):
     B, S, H, D = q.shape
     KV = k.shape[2]
     check_cuda_args(what, tensors, dtypes,
@@ -159,8 +158,8 @@ def _check_attention_args(what, tensors, dtypes, q, k, head_dims=_HEAD_DIMS):
             check_shape(what, name, t, (B, S, KV, D))
         else:
             check_shape(what, name, t, (B, S, H, D))
-    if D not in head_dims:
-        raise ValueError(f"{what}: head_dim {D}; the kernel is built for {head_dims}")
+    if D not in _HEAD_DIMS:
+        raise ValueError(f"{what}: head_dim {D}; the kernel is built for {_HEAD_DIMS}")
     if KV == 0 or H % KV:
         raise ValueError(f"{what}: {H} query heads are not a multiple of {KV} KV heads")
 
@@ -213,7 +212,7 @@ def _launch_bwd(what, q, k, v, do, lse, delta, window, alibi, outs):
     scratch); returns False, launching nothing, for an empty batch or
     sequence."""
     _check_attention_args(what, {"q": q, "k": k, "v": v, "do": do, "lse": lse,
-                                 "delta": delta}, _BWD_DTYPES, q, k, _BWD_HEAD_DIMS)
+                                 "delta": delta}, _BWD_DTYPES, q, k)
     _check_slopes(what, q, alibi)
     B, S, H, D = q.shape
     KV = k.shape[2]
@@ -251,13 +250,20 @@ def flash_bwd_dq(q, k, v, do, lse, delta, window: int = 0, alibi=None):
     return dq
 
 
-zero_counts(flash_bwd_dq, "window", "alibi", "wide_group", "d80")
+zero_counts(flash_bwd_dq, "window", "alibi", "wide_group", "d80", "d96", "d256")
 
 
-# Kernel #3's group split: where B * KV * ceil(S / 128) CTAs of 128 keys
-# would leave SMs idle, each group of q heads is cut into chunks (one CTA
-# per key block and chunk) until the grid holds SPLIT_WAVES CTAs an SM.
+# Kernel #3's group split: where B * KV * ceil(S / key_block) CTAs would
+# leave SMs idle, each group of q heads is cut into chunks (one CTA per key
+# block and chunk) until the grid holds SPLIT_WAVES CTAs an SM.
 SPLIT_WAVES = 4
+
+
+def dkv_key_block(D) -> int:
+    """Keys a CTA of kernel #3 owns when its group is split (and at D 256
+    always): 128 (two warpgroups of 64 keys), 64 at head dim 256 (one
+    64-key block, its two warpgroups on dV and dK)."""
+    return 64 if D > 128 else 128
 
 
 class DkvSplit(NamedTuple):
@@ -278,12 +284,12 @@ class DkvSplit(NamedTuple):
 
 def dkv_split_plan(B, S, H, KV, D, sm_count) -> DkvSplit:
     """The split kernel #3 takes on a card of `sm_count` SMs: none (one
-    chunk) when B * KV * ceil(S / 128) fills the card or the group is one
-    head; else about SPLIT_WAVES * sm_count CTAs, the chunk count then cut
-    to ceil(G / ceil(G / wanted)) so that no chunk is empty (the kernel
-    gives chunk c heads c * ceil(G / n) onwards)."""
+    chunk) when B * KV * ceil(S / dkv_key_block(D)) fills the card or the
+    group is one head; else about SPLIT_WAVES * sm_count CTAs, the chunk
+    count then cut to ceil(G / ceil(G / wanted)) so that no chunk is empty
+    (the kernel gives chunk c heads c * ceil(G / n) onwards)."""
     G = H // KV
-    blocks = B * KV * -(-S // 128)
+    blocks = B * KV * -(-S // dkv_key_block(D))
     n = 1
     if blocks < sm_count and G > 1:
         wanted = min(G, -(-SPLIT_WAVES * sm_count // blocks))
@@ -310,7 +316,7 @@ def flash_bwd_dkv(q, k, v, do, lse, delta, window: int = 0, alibi=None):
     return dk, dv
 
 
-zero_counts(flash_bwd_dkv, "window", "alibi", "wide_group", "d80")
+zero_counts(flash_bwd_dkv, "window", "alibi", "wide_group", "d80", "d96", "d256")
 
 
 def flash_attention_bwd(q, k, v, o, lse, do, window: int = 0, alibi=None):
@@ -335,13 +341,6 @@ class FlashAttention(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, q, k, v, window, alibi):
-        D = q.shape[-1]
-        if q.is_cuda and any(ctx.needs_input_grad[:3]) and D not in _BWD_HEAD_DIMS:
-            raise NotImplementedError(
-                f"flash attention's backward kernels are built for head_dim "
-                f"{_BWD_HEAD_DIMS}; no backward kernel takes head_dim {D} yet (head_dim 96 "
-                "and 256, GPT-NeoX and GPT-J training, come with the slice that ports "
-                "kernels #2/#3 at those widths: ROADMAP B5)")
         q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
         o, lse = flash_fwd(q, k, v, window, alibi)
         ctx.save_for_backward(q, k, v, o, lse, alibi)

@@ -79,6 +79,16 @@ MODE:
   median of 3 such and each; a head dim the root's kernel is not built
   for is reported as such; and the ptxas registers and spills of each
   instantiation.
+- bwd: kernels #2 (flash_bwd_dq) and #3 (flash_bwd_dkv) in ROOT's package,
+  causal, at the flagship's training shape (B=8, S=2048, 8 heads of 128)
+  and at the timed cases of chip_smoke.py's FLASH_BWD_MODE_CASES (Phi-2's,
+  Falcon-7B's, GPT-NeoX-20B's and GPT-J-6B's training micro-batches, S
+  2048) and its GQA 32 over 2 cases at 96 and 256 (the group split; inputs
+  from a seeded generator, lse and delta from ROOT's forward): device ms a
+  call of each (torch.profiler over 5 calls, the combining pass of a split
+  included), the median of 3 such and each; a head dim the root's
+  backward is not built for is reported as such; and the ptxas registers
+  and spills of each instantiation.
 - tiles: where a 64-column tile's time goes in the one-CTA-a-row decode
   kernel that split-K replaced (ROOT a checkout of that kernel: one CTA
   walks its row's whole context, 8 query heads a CTA; its source has the
@@ -777,9 +787,46 @@ def flash_worker(root):
     return out
 
 
+def bwd_worker(root):
+    root, C = _import_root(root)
+    import torch
+
+    from deepspeed_tpu_torch.ops.cuda import build
+    from deepspeed_tpu_torch.ops.cuda import flash_attention as FA
+
+    build.build_all(["flash_fwd", "flash_bwd"])
+    dev = torch.device("cuda")
+    cases = {"flagship_train": (8, 2048, 8, 8, 128)}
+    for name, c in C.FLASH_BWD_MODE_CASES.items():
+        if "timed" in c or name.endswith("gqa_32_over_2"):
+            cases[name] = tuple(c[x] for x in ("B", "S", "H", "KV", "D"))
+    out = {"mode": "bwd", "root": str(root), "cases": {},
+           "ptxas": C._ptxas_registers(build, "flash_bwd", (
+               "flash_bwd_dq_kernel", "flash_bwd_dkv_kernel", "flash_bwd_dkv_wide_kernel"))}
+    randn = _seeded_randn(torch, dev, 51)
+    for name, (B, S, H, KV, D) in cases.items():
+        q, k, v, do = randn(B, S, H, D), randn(B, S, KV, D), randn(B, S, KV, D), randn(B, S, H, D)
+        o, lse = FA.flash_fwd(q, k, v)
+        delta = FA._delta(o, do)
+        try:
+            FA.flash_bwd_dq(q, k, v, do, lse, delta)
+        except ValueError:
+            out["cases"][name] = "head dim not built"
+            continue
+        row = {"shape": [B, S, H, KV, D]}
+        for kernel, fn in (("dq", FA.flash_bwd_dq), ("dkv", FA.flash_bwd_dkv)):
+            ms = [C._device_ms(lambda: fn(q, k, v, do, lse, delta), 5) for _ in range(3)]
+            row[f"{kernel}_device_ms"] = statistics.median(ms)
+            row[f"{kernel}_runs_ms"] = ms
+        out["cases"][name] = row
+        del q, k, v, do, o, lse, delta
+        torch.cuda.empty_cache()
+    return out
+
+
 WORKERS = {"evo": evo_worker, "serve": serve_worker, "serve8w": serve8w_worker,
            "gemm": gemm_worker, "splits": splits_worker, "tiles": tiles_worker,
-           "write": write_worker, "flash": flash_worker}
+           "write": write_worker, "flash": flash_worker, "bwd": bwd_worker}
 
 
 def main(mode, roots):

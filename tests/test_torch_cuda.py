@@ -409,10 +409,11 @@ class TestFlashBackwardOnCard:
             PF.flash_bwd_dkv(q, k[:, :32].contiguous(), v, do, lse, delta)
         with pytest.raises(ValueError):
             PF.flash_bwd_dq(q.transpose(1, 2), k, v, do, lse, delta)
-        q96 = torch.zeros((1, 64, 4, 96), dtype=torch.bfloat16, device=cuda_device)
-        with pytest.raises(ValueError):
-            PF.flash_bwd_dq(q96, q96[:, :, :2].contiguous(), q96[:, :, :2].contiguous(), q96,
-                            lse, delta)
+        q112 = torch.zeros((1, 64, 4, 112), dtype=torch.bfloat16, device=cuda_device)
+        for fn in (PF.flash_bwd_dq, PF.flash_bwd_dkv):  # a head dim no kernel takes
+            with pytest.raises(ValueError):
+                fn(q112, q112[:, :, :2].contiguous(), q112[:, :, :2].contiguous(), q112, lse,
+                   delta)
 
 
 def _evo_case(rng, dev, S, N, H, D, which, B=1):
@@ -1608,8 +1609,7 @@ class TestHeadDim96or256OnCard:
     faults planted in the D-256 code by a define (builds of their own,
     run through the wrappers by build.routed): flash's pv_step without
     its second wgmma, decode's per-tile Q fragments read one k-step
-    ahead. Training at D 96 and 256 raises at the flash backward before
-    any launch."""
+    ahead. (The backward at these widths: TestFlashBackwardHeadDim96or256OnCard.)"""
 
     DECODE_TOL = dict(rtol=8e-3, atol=1e-3)
     MODES = ["plain", "fused", "int8", "fused_int8"]
@@ -1729,23 +1729,6 @@ class TestHeadDim96or256OnCard:
             got_scale = pools[2].view(-1, KV)[(slot // 16).clamp(max=11) * 16 + slot % 16]
             assert not torch.equal(got_scale, scale)
 
-    @pytest.mark.parametrize("D", [96, 256])
-    def test_flash_backward_raises_before_launch(self, rng, cuda_device, D):
-        """Training at head_dim 96 and 256 (GPT-NeoX, GPT-J) waits for the
-        slice that ports kernels #2/#3 at those widths: a forward whose
-        inputs need a gradient raises before any launch; without a
-        gradient it launches #1 in its head-dim mode."""
-        q, k, v = (_bf16_cuda(rng.standard_normal((1, 64, 4, D)), cuda_device)
-                   for _ in range(3))
-        PK.reset_launch_counts()
-        leaves = [t.clone().requires_grad_() for t in (q, k, v)]
-        with pytest.raises(NotImplementedError, match="ROADMAP B5"):
-            PF.flash_attention(*leaves)
-        assert sum(PK.launch_counts().values()) == 0
-        PF.flash_attention(q, k, v)
-        counts = PK.all_launch_counts()
-        assert counts["flash_fwd"] == counts[f"flash_fwd[d{D}]"] == 1
-
     def test_new_mode_launches_are_counted(self, rng, cuda_device):
         PK.reset_launch_counts()
         for shape in ("neox_mha_d96", "gptj_mha_d256", "gqa_16_over_2_d256"):
@@ -1759,6 +1742,146 @@ class TestHeadDim96or256OnCard:
         assert counts["paged_decode_fused[d256]"] == 2
         assert counts["paged_decode_fused[wide_group]"] == 1
         assert counts["paged_decode_fused[d80]"] == 0
+
+
+@pytest.mark.cuda
+class TestFlashBackwardHeadDim96or256OnCard:
+    """Kernels #2 (dq) and #3 (dk, dv) at head_dim 96 (GPT-NeoX-20B: two
+    swizzle atoms, six depth steps, 128-wide sums of which the epilogue
+    writes 96) and 256 (GPT-J-6B: dq on one 64-row warpgroup a CTA with
+    dQ in two 128-column halves; dkv on 64-key CTAs whose warpgroup 0
+    takes S^T, P^T and dV and warpgroup 1 dP^T, dS^T and dK, P^T handed
+    across in shared memory) against the plain backward on the forward
+    kernel's o and lse, under `bwd_mismatch`, with the window, ALiBi and
+    GQA (the wide group and kernel #3's group split included); every
+    launch counted in its d96/d256 mode; two launches bit-identical; the
+    planted faults the check must catch: the gradients' columns 80-95 (D
+    96) or 128-255 (D 256) zeroed, the scores taken over the first 64 or
+    128 dims, and at D 256 the fault built into the hand-off by a define
+    (warpgroup 1 losing the second 32 queries of each P^T tile); the
+    autograd Function at both widths; and no register spills in the new
+    instantiations."""
+
+    SHAPES = {"neox_mha_d96": (8, 8, 96), "gqa_16_over_2_d96": (32, 2, 96),
+              "gqa_12_over_1_d96": (12, 1, 96), "gptj_mha_d256": (4, 4, 256),
+              "gqa_16_over_2_d256": (32, 2, 256), "gqa_12_over_1_d256": (12, 1, 256)}
+    ZERO_FROM = {96: 80, 256: 128}  # the zeroed gradient columns' first
+    SCORE_DIMS = {96: 64, 256: 128}  # the dims the spoiled scores are taken over
+
+    @staticmethod
+    def _bwd(q, k, v, do, lse, delta, window=0, alibi=None):
+        return (PF.flash_bwd_dq(q, k, v, do, lse, delta, window, alibi),) + \
+            PF.flash_bwd_dkv(q, k, v, do, lse, delta, window, alibi)
+
+    @pytest.mark.parametrize("S", [77, 300])
+    @pytest.mark.parametrize("shape", sorted(SHAPES))
+    def test_kernels_match_plain(self, rng, cuda_device, shape, S):
+        H, KV, D = self.SHAPES[shape]
+        q, k, v, _, _, do = _bwd_case(rng, cuda_device, 2, S, H, KV, D)
+        for window, alibi in ((0, None), (50, None), (0, _slopes(H, cuda_device)),
+                              (50, _slopes(H, cuda_device))):
+            o, lse = PF.flash_fwd(q, k, v, window, alibi)
+            delta = PF._delta(o, do)
+            PK.reset_launch_counts()
+            got = self._bwd(q, k, v, do, lse, delta, window, alibi)
+            counts = PK.all_launch_counts()
+            for name in ("flash_bwd_dq", "flash_bwd_dkv"):
+                assert counts[name] == counts[f"{name}[d{D}]"] == 1, counts
+                assert counts[f"{name}[wide_group]"] == int(H // KV > 8)
+                assert counts[f"{name}[window]"] == int(window > 0)
+                assert counts[f"{name}[alibi]"] == int(alibi is not None)
+            again = self._bwd(q, k, v, do, lse, delta, window, alibi)
+            ref = PF.flash_attention_bwd_plain(q, k, v, o, lse, do, window, alibi)
+            torch.cuda.synchronize()
+            for name, g, a, r in zip(("dq", "dk", "dv"), got, again, ref):
+                what = f"{shape} S={S} window {window} alibi {alibi is not None} {name}"
+                _assert_grad_close(g, r, what)
+                assert torch.equal(g, a), what + ": two launches differ"
+
+    @pytest.mark.parametrize("D", [96, 256])
+    def test_group_split(self, rng, cuda_device, D):
+        """GQA 16 over 2 at B = 1, S = 520: a grid that leaves SMs idle, so
+        kernel #3 splits each group (the plan counts 128-key blocks at 96,
+        64-key blocks at 256) and a second pass adds the f32 partials;
+        against the plain backward, two launches bit-identical."""
+        H, KV = 32, 2
+        q, k, v, o, lse, do = _bwd_case(rng, cuda_device, 1, 520, H, KV, D)
+        sms = torch.cuda.get_device_properties(0).multi_processor_count
+        plan = PF.dkv_split_plan(1, 520, H, KV, D, sms)
+        assert plan.n_chunks > 1 and PF.dkv_key_block(D) == (64 if D == 256 else 128)
+        delta = PF._delta(o, do)
+        got, again = self._bwd(q, k, v, do, lse, delta), self._bwd(q, k, v, do, lse, delta)
+        ref = PF.flash_attention_bwd_plain(q, k, v, o, lse, do)
+        torch.cuda.synchronize()
+        for name, g, a, r in zip(("dq", "dk", "dv"), got, again, ref):
+            _assert_grad_close(g, r, f"D {D} split {plan.n_chunks} {name}")
+            assert torch.equal(g, a), name
+
+    @pytest.mark.parametrize("shape", ["neox_mha_d96", "gqa_16_over_2_d96", "gptj_mha_d256",
+                                       "gqa_16_over_2_d256"])
+    def test_faults_are_caught(self, rng, cuda_device, shape):
+        H, KV, D = self.SHAPES[shape]
+        q, k, v, o, lse, do = _bwd_case(rng, cuda_device, 1, 200, H, KV, D)
+        delta = PF._delta(o, do)
+        ref = PF.flash_attention_bwd_plain(q, k, v, o, lse, do)
+        got = self._bwd(q, k, v, do, lse, delta)
+        q_cut = q.clone()
+        q_cut[..., self.SCORE_DIMS[D]:] = 0
+        spoiled = self._bwd(q_cut, k, v, do, lse, delta)
+        for name, g, f, r in zip(("dq", "dk", "dv"), got, spoiled, ref):
+            _assert_grad_close(g, r, name)
+            zeroed = g.clone()
+            zeroed[..., self.ZERO_FROM[D]:] = 0
+            assert PF.bwd_mismatch(zeroed, r)["n_over"] > 0, name
+            assert PF.bwd_mismatch(f, r)["n_over"] > 0, name
+
+    @pytest.mark.parametrize("shape", ["gptj_mha_d256", "gqa_16_over_2_d256"])
+    def test_handoff_fault_build_is_caught(self, rng, cuda_device, shape):
+        H, KV, D = self.SHAPES[shape]
+        q, k, v, o, lse, do = _bwd_case(rng, cuda_device, 1, 200, H, KV, D)
+        delta = PF._delta(o, do)
+        ref = PF.flash_attention_bwd_plain(q, k, v, o, lse, do)
+        with build.routed("flash_bwd", "flash_bwd+DS_FAULT_HANDOFF_HALF"):
+            dk, dv = PF.flash_bwd_dkv(q, k, v, do, lse, delta)
+        assert PF.bwd_mismatch(dk, ref[1])["n_over"] > 0
+        _assert_grad_close(dv, ref[2], "dv (warpgroup 0's own P^T)")
+
+    @pytest.mark.parametrize("D", [96, 256])
+    def test_function_grads_match_autograd_through_plain(self, rng, cuda_device, D):
+        """The autograd Function (what training runs) at head_dim 96 and 256:
+        #1-#3 each launch once in the d96/d256 mode; the gradients are the
+        wrappers' own on the forward's residuals, under `bwd_mismatch`
+        against the plain backward, and against autograd through the dense
+        plain forward in f32 the error's RMS stays within 2^-7 of the
+        gradient's."""
+        H, KV = (8, 8) if D == 96 else (4, 4)
+        q, k, v, o, lse, do = _bwd_case(rng, cuda_device, 2, 300, H, KV, D)
+        PK.reset_launch_counts()
+        leaves = [t.clone().requires_grad_() for t in (q, k, v)]
+        got = torch.autograd.grad(PF.flash_attention(*leaves)[0], leaves, do)
+        counts = PK.all_launch_counts()
+        for name in ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv"):
+            assert counts[name] == counts[f"{name}[d{D}]"] == 1, counts
+        delta = PF._delta(o, do)
+        same = self._bwd(q, k, v, do, lse, delta)
+        ref = PF.flash_attention_bwd_plain(q, k, v, o, lse, do)
+        leaves = [t.float().clone().requires_grad_() for t in (q, k, v)]
+        dense = torch.autograd.grad(PF.flash_attention_plain(*leaves)[0], leaves, do.float())
+        for name, g, s_, r, d in zip(("dq", "dk", "dv"), got, same, ref, dense):
+            assert torch.equal(g, s_), name
+            _assert_grad_close(g, r, name)
+            assert _rms(g.float() - d) <= 2.0 ** -7 * _rms(d), name
+
+    def test_no_register_spills(self, cuda_device):
+        build.load("flash_bwd")
+        regs = _chip_smoke()._ptxas_registers(
+            build, "flash_bwd", ("flash_bwd_dq_kernel", "flash_bwd_dkv_kernel",
+                                 "flash_bwd_dkv_wide_kernel"))
+        new = {k: r for k, r in regs.items() if "<96," in k or "<256" in k}
+        # dq at 96 (one and two warpgroups) and 256, dkv at 96 (one and two)
+        # and 256
+        assert len(new) == 6, regs
+        assert not any(r.get("spill_stores") or r.get("spill_loads") for r in new.values()), new
 
 
 def _drop_last_chunk(q, do, lse, delta, KV):

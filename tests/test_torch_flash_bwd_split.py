@@ -3,12 +3,15 @@ CPU, where its plan and its arithmetic live in Python.
 
 - `dkv_split_plan`: every q head of a group falls into exactly one chunk,
   in order, chunks of ceil(G / n_chunks) heads (the kernel's own rule for
-  chunk c's first head), none empty; no split where B * KV * ceil(S / 128)
-  CTAs fill the card or the group is one head, else a grid of at least
-  one CTA an SM; at Falcon-7B's training shape (B = 4, S = 2048, 71 q heads
-  over one KV head, D 64, 132 SMs) the 9 chunks the kernel runs (8 of 8
-  heads, one of 7) and its [9, 2, B, S, KV, D] f32 scratch of 37,748,736
-  bytes.
+  chunk c's first head), none empty; no split where B * KV * ceil(S /
+  key_block) CTAs fill the card or the group is one head (key_block 128,
+  and 64 at head_dim 256, where a CTA of #3 owns 64 keys), else a grid of
+  at least one CTA an SM; at Falcon-7B's training shape (B = 4, S = 2048,
+  71 q heads over one KV head, D 64, 132 SMs) the 9 chunks the kernel runs
+  (8 of 8 heads, one of 7) and its [9, 2, B, S, KV, D] f32 scratch of
+  37,748,736 bytes; at GQA 32 over 2 (B = 1, S = 2048) 16 chunks of one
+  head at D 96 (32 CTAs of 128 keys) and 8 of two at D 256 (64 of 64
+  keys); none at GPT-J-6B's training shape.
 - A plain model of split then combine: the plain backward of each chunk's
   q heads (f32 partial dk, dv), added in chunk order, equals the unsplit
   plain backward within f32 rounding (rtol 1e-5), and both equal jax.vjp
@@ -33,7 +36,11 @@ FLASH_TOL = dict(rtol=2e-4, atol=2e-4)
 PLAN_SHAPES = [(8, 2048, 8, 8, 128), (4, 2048, 71, 1, 64), (2, 2048, 32, 32, 80),
                (1, 2048, 32, 2, 64), (1, 2048, 40, 2, 80), (1, 300, 71, 1, 64),
                (1, 1, 9, 1, 64), (3, 129, 16, 2, 128), (1, 65, 2, 2, 64), (44, 300, 71, 1, 64),
-               (1, 8192, 32, 8, 128), (2, 63, 18, 2, 80)]
+               (1, 8192, 32, 8, 128), (2, 63, 18, 2, 80),
+               # GPT-NeoX-20B's and GPT-J-6B's training micro-batches, GQA 32
+               # over 2 at both widths, and small D-256 grids around 64-key blocks
+               (2, 2048, 64, 64, 96), (4, 2048, 16, 16, 256), (1, 2048, 32, 2, 96),
+               (1, 2048, 32, 2, 256), (1, 65, 12, 1, 256), (2, 300, 16, 4, 256)]
 
 
 def _cdiv(a, b):
@@ -57,7 +64,7 @@ def test_every_q_head_falls_in_one_chunk_in_order(shape, sms):
 @pytest.mark.parametrize("shape", PLAN_SHAPES)
 def test_split_only_where_the_grid_leaves_sms_idle(shape, sms):
     B, S, H, KV, D = shape
-    blocks = B * KV * _cdiv(S, 128)
+    blocks = B * KV * _cdiv(S, 64 if D == 256 else 128)
     plan = PF.dkv_split_plan(B, S, H, KV, D, sms)
     if blocks >= sms or H == KV:
         assert (plan.n_chunks, plan.scratch_shape, plan.scratch_bytes) == (1, (), 0)
@@ -76,12 +83,26 @@ def test_falcon_7b_plan_is_the_kernels():
     assert plan.scratch_bytes == 37_748_736
 
 
+@pytest.mark.parametrize("D,n_chunks", [(96, 16), (256, 8)])
+def test_gqa_32_over_2_plans_are_the_kernels(D, n_chunks):
+    """chip_smoke.py's GQA 32 over 2 cases at S 2048: 32 CTAs of 128 keys
+    at D 96 take one head a chunk; 64 CTAs of 64 keys at D 256 two."""
+    plan = PF.dkv_split_plan(1, 2048, 32, 2, D, H100_SMS)
+    size = 16 // n_chunks
+    assert plan.n_chunks == n_chunks
+    assert plan.chunks == tuple((size * c, size * c + size) for c in range(n_chunks))
+    assert plan.scratch_shape == (n_chunks, 2, 1, 2048, 2, D)
+    assert PF.dkv_split_plan(4, 2048, 16, 16, 256, H100_SMS).n_chunks == 1  # GPT-J-6B
+
+
 # (S, H, KV, D, sms): S 100 is no multiple of the 64-row tiles; the SM
 # counts make splits with partial last chunks (G 11 in 6 chunks: five of 2
 # and one of 1; G 71 in 8: seven of 9 and one of 8; GQA, G 7 in 4: three
-# of 2 and one of 1)
+# of 2 and one of 1, at D 80 and 96; at D 256, two 64-key blocks, G 11 in
+# 6 chunks again)
 SPLIT_CASES = {"g11_over_1": (100, 11, 1, 64, 2), "g71_over_1": (64, 71, 1, 64, 2),
-               "gqa_14_over_2_d80": (100, 14, 2, 80, 3)}
+               "gqa_14_over_2_d80": (100, 14, 2, 80, 3), "gqa_14_over_2_d96": (100, 14, 2, 96, 3),
+               "g11_over_1_d256": (100, 11, 1, 256, 4)}
 
 
 def _inputs(case):

@@ -40,8 +40,9 @@ of 96) and head_dim 256 (GPT-J-6B: 16 heads of 256).
   EleutherAI/gpt-neox-20b's and EleutherAI/gpt-j-6b's config.json
   (20,554,567,680 and 6,050,882,784 parameters in both packages);
 - both forms train on the CPU through the plain versions (check_trained,
-  make_loss_fn); on the card the flash backward raises at D 96 and 256
-  (tests/test_torch_cuda.py).
+  make_loss_fn); their training is held against the JAX package in
+  tests/test_torch_neox_gptj_train.py, and the flash backward kernels at
+  D 96 and 256 on the card in tests/test_torch_cuda.py.
 """
 
 import dataclasses
@@ -452,18 +453,19 @@ def test_rope_matches_jax(rng, scaling, interleaved):
 
 
 def test_head_dim_counters():
-    """The d96 and d256 counters sit on the forward and serving kernels
-    (#1, both writes of #6, the four decode modes of #4/#5), at 0 where no
-    kernel launched, and on no backward kernel (which raises at these
-    widths on the card)."""
+    """The d96 and d256 counters sit on every flash kernel (#1, and the
+    backward kernels #2 and #3, which take both widths) and on the serving
+    kernels (both writes of #6, the four decode modes of #4/#5), at 0 where
+    no kernel launched."""
     from deepspeed_tpu_torch.ops import cuda as PK
 
-    want = {"flash_fwd", "paged_kv_write", "paged_kv_write_int8", "paged_decode_fused",
-            "paged_decode_attention", "paged_decode_fused_int8", "paged_decode_attention_int8"}
+    want = {"flash_fwd", "flash_bwd_dq", "flash_bwd_dkv", "paged_kv_write",
+            "paged_kv_write_int8", "paged_decode_fused", "paged_decode_attention",
+            "paged_decode_fused_int8", "paged_decode_attention_int8"}
     for mode in ("d96", "d256"):
         assert set(PK.MODES[mode]) == want
         assert set(PK.mode_launch_counts(mode).values()) == {0}
-    assert PF._HEAD_DIMS == (64, 80, 96, 128, 256) and PF._BWD_HEAD_DIMS == (64, 80, 128)
+    assert PF._HEAD_DIMS == (64, 80, 96, 128, 256)  # forward and backward alike
     assert PP._DECODE_HEAD_DIMS == (64, 80, 96, 128, 256)
 
 
@@ -503,8 +505,8 @@ def test_params_from_numpy_takes_the_family_leaves(name):
 def test_served_and_trained_on_the_cpu(name):
     """Both forms are served (unported_features empty, check_served) and
     pass check_trained: one loss and backward through the plain versions
-    on the CPU is finite and reaches every leaf. (On the card the flash
-    backward raises at D 96 and 256: tests/test_torch_cuda.py.)"""
+    on the CPU is finite and reaches every leaf. (The flash backward
+    kernels at D 96 and 256 on the card: tests/test_torch_cuda.py.)"""
     cfg = PT.TransformerConfig(**MODELS[name])
     assert PT.unported_features(cfg) == []
     PM.check_served(cfg)

@@ -183,9 +183,9 @@ Phases (any failure raises and exits nonzero):
              replayed, the sampled lane's every token equal to the CPU
              oracle's (host_oracle_token on the step's logits, replayed
              stepwise on the card). Every 7B server, Phi-2, GPT-NeoX-20B
-             and GPT-J-6B (SERVED_7B, bf16 and int8 pools; the long
-             prompt and 7 x 96): width 8, 24
-             steps, greedy. Planted faults that must fail the check, each
+             and GPT-J-6B (SERVED_7B at full width, GRAPH_7B_LAYERS = 8
+             layers deep; bf16 and int8 pools; the long prompt and 7 x
+             96): width 8, 24 steps, greedy. Planted faults that must fail the check, each
              beside its genuine case: a stale table buffer, weights kept
              stale after refresh_params, a replay without clones, keys not
              copied, the decode workspace replaced after capture. Reports
@@ -211,6 +211,41 @@ Phases (any failure raises and exits nonzero):
              replays bit-identical to eager; no library GEMM in a replayed
              call. Reports TTFT at 512 and eager and replayed tok/s at
              each width beside the bf16 engine's of this run.
+4y. serve_scheduler (run after 4w) - the serving control plane
+             (inference/scheduler.py ServingScheduler) on the flagship at
+             full width and depth, bf16 weights and pools (SCHED_SERVE: 80
+             blocks of 128 tokens, max batch 32), SCHED_CONFIG (chunked
+             prefill of 256, 2048 batched tokens, fused depth 8, warmup,
+             pressure governor (RED at 0.95, brownout at 0.98) with a 512
+             MiB HostKvSpillStore): a greedy
+             trace of 64 requests (SCHED_TRACE: 64-1536-token prompts, 16
+             sharing a 512-token prefix, 32-128 new tokens; 8 arrive at
+             step 0 and 4 at each step after), then a sampled trace of 16
+             (bench.py's sampling config) through prefill waves. Counted,
+             each run eagerly with its graphs set aside: the first wave
+             (#1 and #6 once a layer), the first shared-table mixed step
+             (#6 and #4 plain once a layer, #5 never) and the first fused
+             step of depth 8 (#5 8 x layers times); nothing else of #1-#6
+             launches, and no other decode dispatch runs eagerly. Checks:
+             every request ends by length with its token count, the pool
+             holds no live block at the end, preemptions, spills and
+             spill resumes > 0, the counted mixed step rerun from copied
+             pools on the plain path (bf16 and f32) within 1.5x RMS / 2x
+             max of the plain bf16 path's error, and a chained step (a
+             replay fed the previous step's device tokens) held the same
+             way, where a replay that skips the token copy must fail.
+             Reports TTFT p50/p99, TPOT p50, output tok/s, steps, wall ms
+             a step and the idle share of a steady window of steps.
+4z. kv_handoff - export_kv from engine A (8 prompts of 96-1920 tokens,
+             prefilled) into engine B of the same weights and geometry,
+             from bf16 and from int8 pools: decode_multi_fn(8, 24) on B
+             bit-identical to A's own continuation (tokens and final
+             logits), page bytes = kv_payload_nbytes(n_blocks); a payload
+             with a flipped bit (corrupt_payload) refused with
+             HandoffIntegrityError and an int8 payload without its scales
+             with KvCacheDtypeError, each before B allocates a block and
+             beside its genuine case. Reports export and import ms a
+             sequence and the digest's ms in them.
 4c. serve_window - Mistral 7B (MISTRAL: 32 layers, d_model 4096, 32 x 128
              query heads over 8 KV heads, d_ff 14336, vocab 32000, untied
              lm_head, sliding window 4096; random bf16 weights, seed 0) in
@@ -817,6 +852,11 @@ def _where_time_goes(fn, top=8):
         fn()
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t) * 1e3
+    return _time_summary(prof, wall_ms, top)
+
+
+def _time_summary(prof, wall_ms, top=8):
+    """_where_time_goes' report of a finished profile over `wall_ms`."""
     by_name = {}  # by the first 80 characters of the name, as reported
     n_device = 0
     for name, us in _device_events(prof):
@@ -4309,6 +4349,10 @@ SERVE_G = dict(SERVE, num_kv_blocks=96)  # 64 rows, and free blocks to move 8 of
 # the workspace fault's rows: ctx 601-624 spans the flagship decode's two
 # 512-position splits (decode_split_plan at 8 rows over 1024 positions)
 SPLIT_PROMPT = 600
+# the depth of the SERVED_7B servers here: their replay-vs-eager checks run
+# at full width, 8 layers deep (the flagship's stay at full depth), which
+# keeps the whole script inside its time limit
+GRAPH_7B_LAYERS = 8
 
 
 def _same_bits(a, b):
@@ -4664,8 +4708,8 @@ def _graph_model_done(report, name, rep):
 def run_serve_graphs(cfg, dev):
     """Phase serve_graphs: the flagship (bf16 and int8 pools) at batches
     8, 32 and 64 greedy and the sampled lane at 32, and every 7B server,
-    Phi-2, GPT-NeoX-20B and GPT-J-6B (SERVED_7B, bf16 and int8 pools) at
-    batch 8 greedy, each
+    Phi-2, GPT-NeoX-20B and GPT-J-6B (SERVED_7B at their widths, cut to
+    GRAPH_7B_LAYERS layers; bf16 and int8 pools) at batch 8 greedy, each
     replayed from the graphs warmup() captured against eager, bit for
     bit; the sampled tokens against the CPU oracle; the planted faults
     (_planted_graph_faults) on the flagship's bf16 engine; decode tok/s
@@ -4714,7 +4758,7 @@ def run_serve_graphs(cfg, dev):
     torch.cuda.empty_cache()
     report["flagship_s"] = time.perf_counter() - t0
     for mode, model in SERVED_7B:
-        mc = T.TransformerConfig(**model)
+        mc = T.TransformerConfig(**dict(model, n_layers=GRAPH_7B_LAYERS))
         serve, n_long, n_wave, seed, _ = SERVE_LONG[mode]
         params = _init_served(T, mc, dev)
         for int8 in (False, True):
@@ -5007,6 +5051,514 @@ def run_serve_int8w(cfg, dev, bf16_serve, bf16_graphs):
     for lane in report["lanes"].values():
         for k, c in lane["launches"].items():
             report["launches"][k] = report["launches"].get(k, 0) + c
+    report["seconds"] = time.perf_counter() - t0
+    return report
+
+
+# ---------------------------------------------------------------------------
+# phases serve_scheduler and kv_handoff: the single-replica serving control
+# plane (inference/scheduler.py, pressure.py, offload_store.py) and the
+# engine's KV export/import on the flagship at full width and depth
+# ---------------------------------------------------------------------------
+
+# the flagship's scheduler engine: 80 blocks of 128 tokens (10,240 token
+# slots, 0.94 GiB of bf16 pools at 96 KiB a token) against 64 requests of up
+# to 1,664 tokens, with fresh admissions paused at 95% live occupancy (RED)
+# and brownout at 98%, so that RED pressure, preemption, spill and resume
+# fire. (A victim spills only with KV written, seen_tokens >= 1; at 96
+# blocks, or with the default watermarks 0.85/0.95, every victim of this
+# trace is a prompt admitted in the same iteration, with none.)
+SCHED_SERVE = dict(max_seq_len=2048, kv_block_size=128, num_kv_blocks=80,
+                   min_prefill_bucket=64, max_batch_size=32)
+SCHED_CONFIG = dict(prefill_mode="chunked", prefill_chunk=256, max_num_batched_tokens=2048,
+                    decode_chunk=8, warmup=True,
+                    pressure=dict(enabled=True, red=0.95, brownout=0.98, spill_host_mb=512.0))
+# the greedy trace: prompt and new-token lengths drawn uniformly from seed
+# 0, every 4th request shares one 512-token prefix; 8 requests arrive at
+# step 0 and 4 at each step after
+SCHED_TRACE = dict(requests=64, prompt=(64, 1536), shared=16, prefix=512, new=(32, 128),
+                   first=8, per_step=4, seed=0)
+# the sampled trace (bench.py's sampling config), whole prompts in waves
+SCHED_SAMPLED = dict(requests=16, prompt=(64, 1536), shared=0, prefix=0, new=(32, 128),
+                     first=16, per_step=0, seed=1)
+# the steps of the greedy trace profiled for the idle share: after the
+# last arrival and its first chunks, before the trace drains
+SCHED_WINDOW = (400, 64)
+# the chained-step check: 8 sampled requests decoding one step a dispatch
+SCHED_CHAINED = dict(requests=8, prompt=(96, 96), shared=0, prefix=0, new=(24, 24), first=8,
+                     per_step=0, seed=2)
+# kv_handoff: 8 prompts of 96-1920 tokens on engines of the scheduler's
+# geometry with room for all of them and their 24 decode steps
+HANDOFF_SERVE = dict(SCHED_SERVE, num_kv_blocks=160)
+HANDOFF_PROMPTS = (8, 96, 1920)
+
+
+def _sched_trace(V, requests, prompt, shared, prefix, new, seed, **_):
+    """[(prompt tokens, max_new_tokens)] of a trace: lengths uniform in
+    `prompt` and `new`; every 4th of the first 4 * shared requests starts
+    with one shared `prefix`-token prefix."""
+    import numpy as np
+
+    r = np.random.default_rng(seed)
+    pre = r.integers(0, V, prefix)
+    out = []
+    for i in range(requests):
+        share = i % 4 == 0 and i // 4 < shared
+        lo = max(prompt[0], prefix + 64) if share else prompt[0]
+        n = int(r.integers(lo, prompt[1] + 1))
+        toks = r.integers(0, V, n)
+        if share:
+            toks[:prefix] = pre
+        out.append(([int(t) for t in toks], int(r.integers(new[0], new[1] + 1))))
+    return out
+
+
+def _arrivals(trace, first, per_step, **_):
+    """A run() tick that submits the trace's requests (stream = index):
+    `first` at step 0, then `per_step` a step. Returns (tick, rids)."""
+    rids = []
+
+    def tick(s):
+        due = first + per_step * s.counters["steps"]
+        while len(rids) < min(due, len(trace)):
+            p, n = trace[len(rids)]
+            rids.append(s.submit(p, n, stream=len(rids)))
+
+    return tick, rids
+
+
+def _probe_steps(eng, K, depth):
+    """Set on `eng` wrappers of its three program makers under which the
+    first prefill wave, the first shared-table mixed step and the first
+    fused step of `depth` run eagerly, their graphs set aside, with the
+    kernel launches read around each ('wave', 'mixed_shared', 'fused').
+    The shared-table step also keeps its inputs, logits and the pools
+    before it. rec['forced_eager'] counts the eager decode runs this
+    caused. `del` the three attributes to restore the engine."""
+    import numpy as np
+    import torch
+
+    rec = {"forced_eager": 0}
+    orig = {n: getattr(eng, n) for n in ("_decode_fn", "decode_multi_fn", "_prefill_batch_fn")}
+
+    def counted(kind, call, keep=None):
+        torch.cuda.synchronize()
+        before = K.launch_counts()
+        pools = _pool_copies(eng.cache, torch.bfloat16) if keep is not None else None
+        progs, eng.graphs.programs = eng.graphs.programs, {}
+        e0 = eng.graphs.eager_runs
+        try:
+            out = call()
+            torch.cuda.synchronize()
+        finally:
+            eng.graphs.programs = progs
+        rec["forced_eager"] += eng.graphs.eager_runs - e0
+        after = K.launch_counts()
+        rec[kind] = {"launches": {n: after[n] - before[n] for n in after
+                                  if after[n] != before[n]}}
+        if keep is not None:
+            rec[kind].update(inputs=keep, pools=pools, logits=out[0].float().cpu())
+        return out
+
+    def decode_fn(s, unique_rows=False):
+        step = orig["_decode_fn"](s, unique_rows)
+        if unique_rows or "mixed_shared" in rec:
+            return step
+        return lambda p, c, t, tb, cx: counted(
+            "mixed_shared", lambda: step(p, c, t, tb, cx),
+            keep=tuple(np.array(x) for x in (t, tb, cx)))
+
+    def multi_fn(s, n_steps, sampling=None, with_presence=False):
+        step = orig["decode_multi_fn"](s, n_steps, sampling, with_presence)
+        if n_steps != depth or "fused" in rec:
+            return step
+        return lambda *a: counted("fused", lambda: step(*a))
+
+    def prefill_fn(bp, tp):
+        step = orig["_prefill_batch_fn"](bp, tp)
+        if "wave" in rec:
+            return step
+        return lambda *a: counted("wave", lambda: step(*a))
+
+    eng._decode_fn, eng.decode_multi_fn, eng._prefill_batch_fn = decode_fn, multi_fn, prefill_fn
+    return rec
+
+
+def _plain_step_check(eng, name, p32, pools, toks, tables, ctx, kernel_logits, unique):
+    """One decode step's kernel-path logits held against the plain path
+    rerun from copies of the pools before it, in bf16 and in f32
+    (_path_errors), over the step's real rows (ctx > 0)."""
+    import numpy as np
+    import torch
+
+    from deepspeed_tpu_torch.inference import model as M
+
+    real = torch.from_numpy(np.asarray(ctx) > 0)
+    dev = eng.device
+    ins = [torch.as_tensor(np.asarray(x), device=dev) for x in (toks, tables, ctx)]
+    plain = []
+    for dtype, prm in ((torch.bfloat16, eng.params), (torch.float32, p32)):
+        cache = _pool_copies(pools, dtype)
+        plain.append(M.decode_step(prm, cache, *ins, eng.cfg, use_kernel=False,
+                                   unique_rows=unique, alibi=eng._alibi,
+                                   layout=eng._layout)[0].float().cpu()[real])
+        del cache
+    return _path_errors(name, kernel_logits[real], *plain)
+
+
+def _chained_check(eng, p32, planted):
+    """SCHED_CHAINED through a scheduler of decode depth 1, so that decode
+    steps chain: the first chained step whose device tokens differ from
+    what its graph's static token buffer holds is replayed with the pools
+    before it kept, and its logits held against the plain path fed those
+    device tokens (_plain_step_check). planted: the replay skips copying
+    the tokens into the static buffer (it reads the last step's). Returns
+    the check's stats, or raises AssertionError when it fails."""
+    import torch
+
+    from deepspeed_tpu_torch.inference import ServingScheduler
+    from deepspeed_tpu_torch.inference.graphs import CapturedProgram, GraphKey
+
+    NB = eng.config.blocks_per_seq
+    seen = {}
+    orig = eng._decode_fn
+
+    def decode_fn(s, unique_rows=False):
+        step = orig(s, unique_rows)
+
+        def run(params, cache, toks, tables, ctx):
+            prog = eng.graphs.get(GraphKey(s, 0, True, NB, None, False))
+            if "stats" in seen or not isinstance(toks, torch.Tensor) or prog is None:
+                return step(params, cache, toks, tables, ctx)
+            real = torch.as_tensor(ctx > 0, device=toks.device)
+            if not bool((prog.static[0] != toks)[real].any()):
+                return step(params, cache, toks, tables, ctx)  # the fault would not show
+            pools = _pool_copies(eng.cache, torch.bfloat16)
+            kept = toks.clone()
+            if planted:
+                prog.load = lambda ins: CapturedProgram.load(prog, [prog.static[0]] + list(ins[1:]))
+            try:
+                r0 = eng.graphs.replays
+                out = step(params, cache, toks, tables, ctx)
+                torch.cuda.synchronize()
+            finally:
+                prog.__dict__.pop("load", None)
+            if eng.graphs.replays != r0 + 1:
+                raise AssertionError("the chained step did not replay its graph")
+            seen["stats"] = None
+            seen["stats"] = _plain_step_check(eng, "chained step logits", p32, pools,
+                                              kept.cpu().numpy(), tables, ctx,
+                                              out[0].float().cpu(), True)
+            return out
+        return run
+
+    sched = ServingScheduler(eng, dict(prefill_chunk=256, max_num_batched_tokens=2048,
+                                       decode_chunk=1, warmup=False),
+                             sampling=SAMPLED_LANE, seed=2)
+    trace = _sched_trace(eng.cfg.vocab_size, **SCHED_CHAINED)
+    tick, rids = _arrivals(trace, **SCHED_CHAINED)
+    eng._decode_fn = decode_fn
+    try:
+        sched.run(tick=tick)
+    finally:
+        del eng._decode_fn
+    if "stats" not in seen or sched.counters["chained_steps"] == 0:
+        raise AssertionError(f"no chained step changed its tokens: {sched.counters}")
+    return dict(seen["stats"], chained_steps=sched.counters["chained_steps"])
+
+
+def _trace_checks(eng, sched, trace, rids):
+    """Every request ended by length (or EOS) with its token count, in the
+    vocabulary; the pool holds no live block."""
+    bad = []
+    for (prompt, n), rid in zip(trace, rids):
+        req = sched.finished.get(rid)
+        if req is None or req.finish_reason not in ("length", "eos") or (
+                req.finish_reason == "length" and len(req.output) != n) or not all(
+                0 <= t < eng.cfg.vocab_size for t in req.output):
+            bad.append((rid, None if req is None else (req.finish_reason, len(req.output), n)))
+    if bad or len(rids) != len(trace):
+        raise AssertionError(f"requests that did not end with their tokens: {bad[:8]}")
+    live = eng.config.num_kv_blocks - eng.state.allocator.available_blocks
+    if live or eng.state.tracked_uids:
+        raise AssertionError(f"{live} blocks still live, {len(eng.state.tracked_uids)} "
+                             "sequences tracked after the trace")
+
+
+def _run_trace(eng, K, sched, trace, spec, window=None):
+    """Drive `sched` through `trace` under its arrivals (`spec`), with the
+    first wave, shared-table mixed step and fused step counted
+    (_probe_steps), optionally profiling the steps of `window`. Returns
+    (rids, probe record, wall s, eager decode runs outside the probes,
+    window summary or None)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    tick, rids = _arrivals(trace, **spec)
+    win = {}
+
+    def ticked(s):
+        tick(s)
+        if window is None:
+            return
+        st = s.counters["steps"]
+        if "prof" not in win and st >= window[0]:
+            torch.cuda.synchronize()
+            win.update(prof=profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]),
+                       s0=st)
+            win["prof"].start()
+            win["t"] = time.perf_counter()
+        elif "prof" in win and "summary" not in win and st >= win["s0"] + window[1]:
+            torch.cuda.synchronize()
+            wall = (time.perf_counter() - win["t"]) * 1e3
+            win["prof"].stop()
+            win["summary"] = dict(_time_summary(win["prof"], wall), steps=st - win["s0"],
+                                  first_step=win["s0"])
+
+    rec = _probe_steps(eng, K, sched.cfg.decode_chunk)
+    e0 = eng.graphs.eager_runs
+    t0 = time.perf_counter()
+    try:
+        sched.run(tick=ticked)
+        torch.cuda.synchronize()
+    finally:
+        del eng._decode_fn, eng.decode_multi_fn, eng._prefill_batch_fn
+    wall = time.perf_counter() - t0
+    if "prof" in win and "summary" not in win:
+        win["prof"].stop()
+    eager = eng.graphs.eager_runs - e0 - rec["forced_eager"]
+    return rids, rec, wall, eager, win.get("summary")
+
+
+def _counted_step(rec, kind, want):
+    """The counted step `kind` launched exactly `want` of #1-#6."""
+    if kind not in rec:
+        raise AssertionError(f"the trace ran no {kind} step to count")
+    got = {n: c for n, c in rec[kind]["launches"].items() if "[" not in n}
+    if got != want:
+        raise AssertionError(f"a counted {kind} step should launch {want}, launched {got}")
+    return got
+
+
+def _trace_times(sched, trace, rids, wall):
+    """Host-wall serving metrics of a finished trace: TTFT p50/p99 and
+    TPOT p50 (ms, as ServingScheduler.metrics computes them), output
+    tok/s over the trace's wall time, steps, wall ms a step."""
+    import numpy as np
+
+    m = sched.metrics()
+    n_out = sum(len(sched.finished[r].output) for r in rids)
+    return {"ttft_p50_ms": m["ttft_p50_ms"],
+            "ttft_p99_ms": float(np.percentile(np.asarray(sched._ttft), 99) * 1e3),
+            "tpot_p50_ms": m["tpot_p50_ms"], "output_tokens": n_out,
+            "prompt_tokens": sum(len(p) for p, _ in trace),
+            "output_tok_s": n_out / wall, "wall_s": wall, "steps": sched.counters["steps"],
+            "wall_ms_per_step": wall * 1e3 / sched.counters["steps"]}
+
+
+def run_serve_scheduler(cfg, dev):
+    """Phase serve_scheduler: the flagship served by ServingScheduler
+    under arriving traffic (SCHED_TRACE greedy, SCHED_SAMPLED sampled), the
+    counted steps and checks of the module docstring (4y), the chained
+    step's check with its planted fault."""
+    import torch
+
+    from deepspeed_tpu_torch import init_inference
+    from deepspeed_tpu_torch.inference import ServingScheduler
+    from deepspeed_tpu_torch.models import transformer as T
+    from deepspeed_tpu_torch.ops import cuda as K
+
+    t0 = time.perf_counter()
+    L = cfg.n_layers
+    params = T.init(cfg, torch.Generator(device=dev).manual_seed(0), device=dev,
+                    dtype=torch.bfloat16)
+    eng = init_inference(params, cfg, dict(SCHED_SERVE))
+    del params
+    sched = ServingScheduler(eng, dict(SCHED_CONFIG))
+    warm = {"graphs": eng.graphs.captures, "s": time.perf_counter() - t0,
+            "footprints_mib": {w: f["peak_hbm_bytes"] / 2**20
+                               for w, f in eng.warmup_footprints.items()}}
+    sampled = ServingScheduler(eng, dict(SCHED_CONFIG, prefill_mode="wave"),
+                               sampling=SAMPLED_LANE, seed=1)
+    warm.update(graphs=eng.graphs.captures, s=time.perf_counter() - t0)
+    V = cfg.vocab_size
+    trace = _sched_trace(V, **SCHED_TRACE)
+    strace = _sched_trace(V, **SCHED_SAMPLED)
+
+    # -- the main path, counted -------------------------------------------
+    K.reset_launch_counts()
+    rids, rec, wall, eager, window = _run_trace(eng, K, sched, trace, SCHED_TRACE,
+                                                SCHED_WINDOW)
+    _trace_checks(eng, sched, trace, rids)
+    srids, srec, swall, seager, _ = _run_trace(eng, K, sampled, strace, SCHED_SAMPLED)
+    _trace_checks(eng, sampled, strace, srids)
+    torch.cuda.synchronize()
+    launches = {n: c for n, c in K.launch_counts().items() if c}
+    # -----------------------------------------------------------------------
+
+    if window is None:
+        raise AssertionError(f"the trace ran {sched.counters['steps']} steps, fewer than the "
+                             f"window {SCHED_WINDOW} needs")
+    counted = {"wave": _counted_step(srec, "wave", {"flash_fwd": L, "paged_kv_write": L}),
+               "mixed_shared": _counted_step(rec, "mixed_shared", {"paged_kv_write": L,
+                                                                   "paged_decode_attention": L}),
+               "fused": _counted_step(rec, "fused",
+                                      {"paged_decode_fused": SCHED_CONFIG["decode_chunk"] * L})}
+    want = {"flash_fwd", "paged_kv_write", "paged_decode_attention", "paged_decode_fused"}
+    if set(launches) != want:
+        raise AssertionError(f"the scheduler's path must launch each of {sorted(want)} and "
+                             f"nothing else: {launches}")
+    if eager or seager:
+        raise AssertionError(f"{eager} greedy and {seager} sampled decode dispatches ran "
+                             "eagerly after warmup")
+    c = sched.counters
+    gov = sched.governor.metrics()
+    fired = {"red_steps": gov["pressure_steps_red"], "preemptions": c["preemptions"],
+             "spills": c["spills"], "spill_resumes": c["spill_resumes"]}
+    if not all(fired.values()):
+        raise AssertionError(f"the greedy trace must reach RED pressure, preempt, spill and "
+                             f"resume: {fired}")
+
+    # -- kernel path vs plain, and the chained step with its planted fault ---
+    p32 = {k: ([{n: w.float() for n, w in lp.items()} for lp in v] if k == "layers"
+               else v.float()) for k, v in eng.params.items()}
+    ms = rec["mixed_shared"]
+    mixed = _plain_step_check(eng, "mixed step logits", p32, ms["pools"], *ms["inputs"],
+                              ms["logits"], False)
+    del rec["mixed_shared"]["pools"]
+    chained = _chained_check(eng, p32, planted=False)
+    try:
+        planted = _chained_check(eng, p32, planted=True)
+        planted_fails = False
+    except AssertionError as e:
+        planted, planted_fails = str(e)[:300], True
+    if not planted_fails:
+        raise AssertionError(f"a chained replay without its token copy passed: {planted}")
+    del p32
+
+    report = {"launches": launches, "warmup": warm,
+              "counted_steps": counted, "counters": dict(c),
+              "pressure": gov, "spill": sched.spill_store.stats(),
+              "greedy": dict(_trace_times(sched, trace, rids, wall), idle_window=window),
+              "sampled": dict(_trace_times(sampled, strace, srids, swall),
+                              counters=dict(sampled.counters)),
+              "graph_counts": {"replays": eng.graphs.replays, "captures": eng.graphs.captures,
+                               "eager_runs_outside_counted_steps": eager + seager},
+              "mixed_step_logits": mixed, "chained_step_logits": chained,
+              "planted_chained_without_token_copy": {"fails": True, "error": planted}}
+    print(json.dumps({"serve_scheduler_metrics": {
+        k: report["greedy"][k] for k in ("ttft_p50_ms", "ttft_p99_ms", "tpot_p50_ms",
+                                          "output_tok_s", "steps", "wall_ms_per_step")},
+        "idle_share_window": window["idle_share"]}))
+    del sched, sampled, eng
+    torch.cuda.empty_cache()
+    report["seconds"] = time.perf_counter() - t0
+    return report
+
+
+def run_kv_handoff(cfg, dev):
+    """Phase kv_handoff (4z): A's export_kv payloads into B, from bf16 and
+    int8 pools, checked as the module docstring says."""
+    import numpy as np
+    import torch
+
+    from deepspeed_tpu_torch import init_inference
+    from deepspeed_tpu_torch.inference import HandoffIntegrityError, KvCacheDtypeError
+    from deepspeed_tpu_torch.models import transformer as T
+    from deepspeed_tpu_torch.ops import cuda as K
+    from deepspeed_tpu_torch.resilience.integrity import corrupt_payload, payload_digest
+
+    t0 = time.perf_counter()
+    params = T.init(cfg, torch.Generator(device=dev).manual_seed(0), device=dev,
+                    dtype=torch.bfloat16)
+    n, lo, hi = HANDOFF_PROMPTS
+    r = np.random.default_rng(3)
+    prompts = [r.integers(0, cfg.vocab_size, int(k)).astype(np.int32)
+               for k in r.integers(lo, hi + 1, n)]
+    uids = list(range(n))
+    report = {"prompt_lens": [len(p) for p in prompts]}
+    K.reset_launch_counts()
+    for kind in ("bf16", "int8"):
+        serve = dict(HANDOFF_SERVE, kv_cache_dtype="int8" if kind == "int8" else "auto")
+        a = init_inference(params, cfg, serve)
+        params = a.params
+        b = init_inference(params, cfg, serve)
+        first = a.put(uids, [p.copy() for p in prompts]).argmax(-1).astype(np.int32)
+        a.warmup_kv_transfer()
+        b.warmup_kv_transfer()
+        exp_ms, imp_ms, digest_ms, payloads = [], [], [], []
+        for u in uids:
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            payloads.append(a.export_kv(u))
+            exp_ms.append((time.perf_counter() - t) * 1e3)
+            p = payloads[-1]
+            t = time.perf_counter()  # the envelope's share of export (and of import)
+            payload_digest(p)
+            digest_ms.append((time.perf_counter() - t) * 1e3)
+            pages = sum(p[f].nbytes for f in ("k", "v", "k_scale", "v_scale") if f in p)
+            if pages != a.kv_payload_nbytes(p["n_blocks"]):
+                raise AssertionError(f"{kind} payload of uid {u}: {pages} page bytes, "
+                                     f"kv_payload_nbytes says {a.kv_payload_nbytes(p['n_blocks'])}")
+        for u, p in zip(uids, payloads):
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            b.import_kv(u, p)
+            torch.cuda.synchronize()
+            imp_ms.append((time.perf_counter() - t) * 1e3)
+        outs = []
+        for eng in (a, b):
+            tables = eng.state.block_table(uids, eng.config.blocks_per_seq, eng.pad_block)
+            ctx = np.array([eng.state.get(u).seen_tokens + 1 for u in uids], np.int32)
+            gen, last, _, _ = eng.decode_multi_fn(n, 24)(eng.params, eng.cache, first, tables,
+                                                         ctx)
+            torch.cuda.synchronize()
+            outs.append((gen, last))
+        if not (_same_bits(outs[0][0], outs[1][0]) and _same_bits(outs[0][1], outs[1][1])):
+            raise AssertionError(f"{kind}: B's continuation from the imported pages differs "
+                                 f"from A's: {int((outs[0][0] != outs[1][0]).sum())} tokens off")
+
+        def refused(bad, err, name):
+            """bad must raise err before B allocates; the genuine payload
+            it was made from then lands on the same uid."""
+            free = b.state.free_blocks
+            try:
+                b.import_kv(100, bad)
+            except err:
+                pass
+            else:
+                raise AssertionError(f"{kind}: the {name} payload was imported")
+            if b.state.free_blocks != free or b.state.get(100) is not None:
+                raise AssertionError(f"{kind}: the {name} payload allocated blocks")
+            b.import_kv(100, payloads[0])
+            if b.state.get(100).seen_tokens != payloads[0]["seen_tokens"]:
+                raise AssertionError(f"{kind}: the genuine payload beside {name} did not land")
+            b.flush(100)
+            return {"refused_with": err.__name__, "genuine_lands": True}
+
+        checks = {"corrupt": refused(corrupt_payload(payloads[0], 7, 1)[0],
+                                     HandoffIntegrityError, "corrupt")}
+        if kind == "int8":
+            bare = {k: v for k, v in payloads[0].items()
+                    if k not in ("k_scale", "v_scale", "digest")}
+            bare["digest"] = payload_digest(bare)
+            checks["no_scales"] = refused(bare, KvCacheDtypeError, "scaleless")
+        report[kind] = {"export_ms": exp_ms, "import_ms": imp_ms, "digest_ms": digest_ms,
+                        "export_ms_median": statistics.median(exp_ms),
+                        "import_ms_median": statistics.median(imp_ms),
+                        "digest_ms_median": statistics.median(digest_ms),
+                        "n_blocks": [p["n_blocks"] for p in payloads],
+                        "page_mib": [a.kv_payload_nbytes(p["n_blocks"]) / 2**20
+                                     for p in payloads],
+                        "continuation_bit_identical": True,
+                        "distinct_tokens": int(len(torch.unique(outs[0][0]))),
+                        "refusals": checks}
+        del a, b, payloads, outs
+        torch.cuda.empty_cache()
+    torch.cuda.synchronize()
+    report["launches"] = {k: c for k, c in K.launch_counts().items() if c}
+    del params
+    torch.cuda.empty_cache()
     report["seconds"] = time.perf_counter() - t0
     return report
 
@@ -5535,6 +6087,10 @@ def main():
     done("serve_graphs", gr)
     q8w = run_serve_int8w(cfg, dev, sl, gr)
     done("serve_int8w", q8w)
+    sch = run_serve_scheduler(cfg, dev)
+    done("serve_scheduler", sch)
+    kvh = run_kv_handoff(cfg, dev)
+    done("kv_handoff", kvh)
     served = {}
     for mode, model in SERVED_7B:
         mc = T.TransformerConfig(**model)
@@ -5553,7 +6109,7 @@ def main():
     done("evoformer", ev)
 
     paths = {"train": tr, "serve": sl, "serve_int8": q8, "serve_graphs": gr, "serve_int8w": q8w,
-             **served, **trains, "evoformer": ev}
+             "serve_scheduler": sch, "kv_handoff": kvh, **served, **trains, "evoformer": ev}
     line = []
     # each mode (window, ALiBi, layout bitmap, wide group, head_dim 80, 96
     # and 256) is a path of its kernel: same source, same TPU kernel

@@ -1,3 +1,10 @@
-from .config import DeepSpeedTPUConfig, PrefixCacheConfig, parse_config
+from .config import (
+    DeepSpeedTPUConfig,
+    PrefixCacheConfig,
+    PressureConfig,
+    ServingSchedulerConfig,
+    parse_config,
+)
 
-__all__ = ["DeepSpeedTPUConfig", "PrefixCacheConfig", "parse_config"]
+__all__ = ["DeepSpeedTPUConfig", "PrefixCacheConfig", "PressureConfig",
+           "ServingSchedulerConfig", "parse_config"]

@@ -64,6 +64,122 @@ class PrefixCacheConfig:
         check_field_types(self)
 
 
+@dataclasses.dataclass
+class PressureConfig:
+    """Memory-pressure governor of the serving scheduler
+    (inference/pressure.py PressureGovernor). Off by default: preemption
+    then stays flush-and-recompute.
+
+    Watermarks are LIVE block-pool occupancy fractions (parked prefix-cache
+    blocks are evictable headroom, not pressure), scaled down when the
+    warmup footprint crowds the device memory budget past
+    `static_headroom` (PressureGovernor.watermark_scale):
+
+      occupancy >= yellow    evict up to yellow_trim_blocks LRU-parked
+                             prefix-cache blocks per iteration
+      occupancy >= red       preemption victims spill their paged KV to
+                             the bounded pinned-host tier (spill_host_mb;
+                             resume = import_kv, recompute on any failure)
+      occupancy >= brownout  speculative mode degrades to plain decode,
+                             the prefill chunk shrinks by
+                             brownout_chunk_div, admission caps at
+                             brownout_admit requests per iteration
+
+    hysteresis: the margin occupancy must clear a level's entry watermark
+    by before the governor relaxes one level (per update)."""
+
+    enabled: bool = False
+    yellow: float = 0.65
+    red: float = 0.85
+    brownout: float = 0.95
+    hysteresis: float = 0.05
+    static_headroom: float = 0.8
+    yellow_trim_blocks: int = 4
+    spill_enabled: bool = True
+    spill_host_mb: float = 256.0
+    brownout_chunk_div: int = 4
+    brownout_admit: int = 1
+
+    def __post_init__(self):
+        check_field_types(self)
+        if not (0.0 < self.yellow <= self.red <= self.brownout <= 1.0):
+            raise ValueError("pressure watermarks need 0 < yellow <= red <= brownout <= 1")
+        if self.hysteresis < 0 or self.hysteresis >= self.yellow:
+            raise ValueError("pressure.hysteresis must be in [0, yellow)")
+        if self.static_headroom <= 0 or self.static_headroom > 1:
+            raise ValueError("pressure.static_headroom must be in (0, 1]")
+        if self.yellow_trim_blocks < 0 or self.spill_host_mb < 0:
+            raise ValueError("yellow_trim_blocks and spill_host_mb must be >= 0")
+        if self.brownout_chunk_div < 1 or self.brownout_admit < 0:
+            raise ValueError("brownout_chunk_div must be >= 1, brownout_admit >= 0")
+
+
+@dataclasses.dataclass
+class ServingSchedulerConfig:
+    """Continuous-batching serving scheduler (inference/scheduler.py
+    ServingScheduler), the request-level control plane over the paged KV
+    pool.
+
+    max_num_batched_tokens: per-iteration token budget (Sarathi-Serve's
+    chunked-prefill knob): decode rows spend 1 token each, prefill chunks
+    fill the remainder. prefill_chunk: max prompt tokens one sequence feeds
+    per iteration. decode_chunk: steady-state fused decode depth (one
+    decode_multi program of decode_chunk tokens when every active sequence
+    decodes). admission: 'fcfs' stops at the first waiting request that
+    does not fit the KV pool; 'skip' scans past it. prefill_mode:
+    'chunked' feeds prompts through the decode path in prefill_chunk
+    pieces beside the decode rows; 'wave' prefills whole prompts through
+    the batched prefill (the generate() path). warmup: run
+    engine.warmup() at construction (on the GPU: capture the decode
+    programs as CUDA graphs). hbm_budget_gb: device memory budget the
+    warmup footprints are checked against (0 = the device's own).
+    max_preemptions: starvation bound (a request preempted this many times
+    is never chosen as a victim again; 0 = off). slo_classes: named TTFT
+    deadlines in modeled seconds (inference/pressure.py cost model).
+    pressure: the memory-pressure governor block (PressureConfig)."""
+
+    max_num_batched_tokens: int = 256
+    prefill_chunk: int = 32
+    decode_chunk: int = 1
+    admission: str = "fcfs"
+    prefill_mode: str = "chunked"
+    warmup: bool = True
+    hbm_budget_gb: float = 0.0
+    max_preemptions: int = 8
+    slo_classes: Dict[str, float] = dataclasses.field(default_factory=dict)
+    pressure: PressureConfig = dataclasses.field(default_factory=PressureConfig)
+
+    def __post_init__(self):
+        if isinstance(self.pressure, dict):
+            self.pressure = PressureConfig(**self.pressure)
+        if not isinstance(self.pressure, PressureConfig):
+            raise TypeError("pressure must be a PressureConfig or a dict")
+        if not isinstance(self.slo_classes, dict) or not all(
+                isinstance(k, str) and isinstance(v, (int, float)) and not isinstance(v, bool)
+                for k, v in self.slo_classes.items()):
+            raise TypeError("slo_classes must map class names to deadlines in seconds")
+        check_field_types(self)
+        if self.max_preemptions < 0:
+            raise ValueError("max_preemptions must be >= 0 (0 = off)")
+        for name, dl in self.slo_classes.items():
+            if dl <= 0:
+                raise ValueError(f"slo_classes[{name!r}] deadline must be > 0 s")
+        if self.admission not in ("fcfs", "skip"):
+            raise ValueError(f"unknown admission policy '{self.admission}' "
+                             "(expected fcfs|skip)")
+        if self.prefill_mode not in ("chunked", "wave"):
+            raise ValueError(f"unknown prefill_mode '{self.prefill_mode}' "
+                             "(expected chunked|wave)")
+        if self.prefill_chunk < 1:
+            raise ValueError("prefill_chunk must be >= 1")
+        if self.decode_chunk < 1:
+            raise ValueError("decode_chunk must be >= 1")
+        if self.max_num_batched_tokens < 1:
+            raise ValueError("max_num_batched_tokens must be >= 1")
+        if self.hbm_budget_gb < 0:
+            raise ValueError("hbm_budget_gb must be >= 0 (0 = auto)")
+
+
 # ---------------------------------------------------------------------------
 # training config (the reference's DeepSpeedTPUConfig)
 # ---------------------------------------------------------------------------

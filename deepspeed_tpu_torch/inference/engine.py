@@ -23,8 +23,16 @@ the JAX engine's argument): per-channel int8 ({"bits": 8, "per_channel":
 True}), whose products stream the codes through the W8A16 GEMM, or
 groupwise int8/int4 ({"bits", "group_size", "min_ndim"}), dequantized to
 the serving dtype at the entry of each program, as the JAX engine does in
-each compiled step. generate(), offload, tensor parallelism and KV export
-and import raise NotImplementedError naming the slice that brings them.
+each compiled step.
+
+generate() and generate_speculative() are thin wrappers over the serving
+scheduler (inference/scheduler.py), as in the JAX engine. export_kv and
+import_kv move one sequence's paged KV between engines of one geometry
+(the scheduler's spill tier rides on them): a gather of its written pages
+over every layer into pinned host memory, sealed with a blake2b digest
+(resilience/integrity.py), and a digest-checked scatter into the
+receiver's pool. Offload and tensor parallelism raise NotImplementedError
+naming their ROADMAP items.
 """
 
 import dataclasses
@@ -37,6 +45,8 @@ import torch
 from ..config.config import PrefixCacheConfig, check_field_types
 from ..models import transformer as T
 from ..platform.accelerator import resolve_device
+from ..resilience.faults import fault_point
+from ..resilience.integrity import HandoffIntegrityError, corrupt_payload, payload_digest
 from ..utils import prng
 from ..utils.logging import log_dist
 from ..utils.tree import leaves
@@ -52,18 +62,24 @@ from .ragged import StateManager
 from .sampling import SamplingConfig, sample_tokens
 
 _LATER = {
-    "scheduler": "the slice that ports inference/scheduler.py (ROADMAP A10)",
     "offload": "the slice that ports the offload tiers (ROADMAP A14)",
     "offload_quant": ("the slice that ports the offload tiers (ROADMAP A14), which parks "
                       "quantized layers in host memory"),
     "tp": "the multi-GPU slice (ROADMAP A11), which also shards quantized weights",
-    "kv_transfer": "the slice that ports disaggregated serving",
 }
 _QUANT_KEYS = {"bits", "group_size", "min_ndim"}
 
 
 def _later(what: str, key: str) -> NotImplementedError:
     return NotImplementedError(f"{what} is not ported yet: it comes with {_LATER[key]}")
+
+
+class KvCacheDtypeError(ValueError):
+    """KV pages cannot move between engines whose cache dtypes differ: an
+    int8 payload's codes and scales mean nothing to a bf16 pool and vice
+    versa, and dequantizing on the way would break the token identity of
+    the recompute fallback. Also raised for an int8 payload without its
+    scales."""
 
 
 @dataclasses.dataclass
@@ -287,6 +303,39 @@ class InferenceEngine:
         self.graphs.eager_runs += 1
         return self._program(key, sampling)(params, cache, *(x.to(self.device) for x in ins))
 
+    def _decode_fn(self, s: int, unique_rows: bool = False):
+        """One decode step over `s` rows (put()'s decode rows, the
+        scheduler's mixed and chained steps, speculative verification):
+        step(params, cache, tokens, tables, ctx) -> (logits [s, V] f32,
+        cache), the cache updated in place. unique_rows: every row is its
+        own sequence (the fused write+attend kernel); else rows may share a
+        block table (the separate write, then the plain decode kernel).
+        Inputs may be numpy arrays or tensors, the tokens a device tensor
+        of an earlier step; a graph warmup() captured for this program
+        replays, its static token buffer loaded from them."""
+        key = GraphKey(s, 0, bool(unique_rows), self.config.blocks_per_seq, None, False)
+
+        def step(params, cache, tokens, tables, ctx):
+            if int(np.shape(tokens)[0]) != s:
+                raise ValueError(f"_decode_fn({s}) got {np.shape(tokens)[0]} rows")
+            logits, = self._run_program(key, None, params, cache, (tokens, tables, ctx))
+            return logits, cache
+
+        return step
+
+    def _prefill_batch_fn(self, bp: int, tp: int):
+        """The batched prefill of a wave of bp prompts padded to tp tokens:
+        step(params, cache, tokens [bp, tp], n_real [bp], tables [bp, NB])
+        -> (last-token logits [bp, V] f32, cache). Runs eagerly (flash
+        forward #1 and the KV write #6 each launch once a layer)."""
+        def step(params, cache, tokens, n_real, tables):
+            if tuple(np.shape(tokens)) != (bp, tp):
+                raise ValueError(f"_prefill_batch_fn({bp}, {tp}) got {np.shape(tokens)}")
+            return M.prefill_batch(self._dequant(params), cache, self._dev(tokens),
+                                   self._dev(n_real), self._dev(tables), self.cfg)
+
+        return step
+
     def decode_multi_fn(self, s: int, n_steps: int, sampling: Optional[SamplingConfig] = None,
                         with_presence: bool = False):
         """Fused decode (model.decode_multi) for batch width `s`, n_steps
@@ -331,8 +380,7 @@ class InferenceEngine:
     def _pools(self) -> List[torch.Tensor]:
         """Every per-layer pool of the cache: codes or K/V rows, and the
         scale pools of an int8 cache (part of each page)."""
-        c = self.cache
-        return c.k + c.v + (c.k_scale + c.v_scale if c.quantized else [])
+        return [p for group in self._pool_groups() for p in group]
 
     def _pool_bytes(self) -> int:
         return sum(x.nbytes for x in self._pools())
@@ -542,9 +590,8 @@ class InferenceEngine:
                 toks_b[row, :n] = toks
                 n_real[row] = n
                 tables[row] = self.state.block_table([uid], self.config.blocks_per_seq)[0]
-            logits, self.cache = M.prefill_batch(
-                self._dequant(self.params), self.cache, self._dev(toks_b), self._dev(n_real),
-                self._dev(tables), self.cfg)
+            logits, self.cache = self._prefill_batch_fn(bp, tp)(
+                self.params, self.cache, toks_b, n_real, tables)
             for pos, uid, toks in wave:
                 self.state.commit(uid, len(toks), token_ids=toks)
             if sample is not None:  # each row's draw counter: its token's position
@@ -577,8 +624,7 @@ class InferenceEngine:
         # write+attend kernel; multi-token chunks share a table across rows
         # and take the separate write + plain decode kernel
         unique = all(len(c) == 1 for _, _, c in decodes)
-        key = GraphKey(sp, 0, unique, self.config.blocks_per_seq, None, False)
-        logits, = self._run_program(key, None, self.params, self.cache, (toks, tables, ctx))
+        logits, _ = self._decode_fn(sp, unique)(self.params, self.cache, toks, tables, ctx)
         for pos, uid, chunk in decodes:
             self.state.commit(uid, len(chunk), token_ids=chunk)
         if sample is not None:
@@ -697,16 +743,337 @@ class InferenceEngine:
                 "chunks": chunks,
                 "hbm_per_bucket": {w: f["peak_hbm_bytes"] for w, f in sorted(fp.items())}}
 
-    # -- later slices -----------------------------------------------------
-    def generate(self, *args, **kwargs):
-        raise _later("generate()", "scheduler")
+    # -- paged-KV block transfer -------------------------------------------
+    def _kv_dtype_name(self) -> str:
+        """The pool's dtype as the JAX engine names it (str of a numpy or
+        jnp dtype): "bfloat16", "float32" or "int8"."""
+        return str(self.cache.k[0].dtype).split(".")[-1]
 
-    def export_kv(self, uid: int):
-        raise _later("export_kv()", "kv_transfer")
+    def _pad_block_idx(self, blocks: List[int]) -> np.ndarray:
+        idx = np.full((self.config.blocks_per_seq,), self.pad_block, np.int32)
+        idx[:len(blocks)] = blocks
+        return idx
 
-    def import_kv(self, uid: int, payload):
-        raise _later("import_kv()", "kv_transfer")
+    def _pool_groups(self) -> List[List[torch.Tensor]]:
+        """The cache's per-layer pools by payload field: k, v and, on an
+        int8 cache, k_scale and v_scale."""
+        c = self.cache
+        return [c.k, c.v] + ([c.k_scale, c.v_scale] if c.quantized else [])
 
+    def kv_payload_nbytes(self, n_blocks: int) -> int:
+        """Bytes of an export_kv payload's page stacks (codes plus, on an
+        int8 cache, the scale tiles) for a sequence of `n_blocks` blocks,
+        computed without the gather: the spill tier's budget pre-check."""
+        per_page = int(self.cache.k[0][0].nbytes)
+        if self.cache.quantized:
+            per_page += int(self.cache.k_scale[0][0].nbytes)
+        return 2 * self.cfg.n_layers * n_blocks * per_page
+
+    def _kv_gather(self, blocks: Sequence[int]) -> List[np.ndarray]:
+        """The pages `blocks` of every layer, one gather a payload field
+        into a [L, n, ...] device stack, copied to the host (pinned memory
+        on a CUDA engine) and waited for: the digest that follows reads
+        these bytes, so they must be whole."""
+        idx = torch.as_tensor(np.asarray(blocks, np.int64), device=self.device)
+        stacks = []
+        for pools in self._pool_groups():
+            dst = torch.empty((len(pools), len(blocks)) + tuple(pools[0].shape[1:]),
+                              dtype=pools[0].dtype, device=self.device)
+            for li, pool in enumerate(pools):
+                torch.index_select(pool, 0, idx, out=dst[li])
+            stacks.append(dst)
+        if self.device.type == "cuda":
+            host = [torch.empty(x.shape, dtype=x.dtype, pin_memory=True) for x in stacks]
+            for h, x in zip(host, stacks):
+                h.copy_(x, non_blocking=True)
+            torch.cuda.current_stream(self.device).synchronize()
+            stacks = host
+        return [_to_numpy(x) for x in stacks]
+
+    def _kv_scatter(self, blocks: List[int], arrays: Sequence[np.ndarray]) -> None:
+        """Write transferred pages into this cache, one scatter a payload
+        field over every layer: a [L, blocks_per_seq, ...] stack whose rows
+        past len(blocks) (zero pages, unit scales) land on the reserved
+        scratch block, never on a live page."""
+        nb = len(blocks)
+        idx = torch.as_tensor(self._pad_block_idx(blocks).astype(np.int64), device=self.device)
+        B = self.config.blocks_per_seq
+        for pools, arr, fill in zip(self._pool_groups(), arrays, (0.0, 0.0, 1.0, 1.0)):
+            src = _from_numpy(arr, pools[0].dtype)
+            dev = torch.full((len(pools), B) + tuple(pools[0].shape[1:]), fill,
+                             dtype=pools[0].dtype, device=self.device)
+            dev[:, :nb].copy_(src)
+            for li, pool in enumerate(pools):
+                pool.index_copy_(0, idx, dev[li])
+
+    def _payload(self, seen: int, blocks: List[int], token_ids) -> Dict[str, Any]:
+        stacks = self._kv_gather(blocks)
+        payload = {"seen_tokens": int(seen), "n_blocks": len(blocks),
+                   "kv_dtype": self._kv_dtype_name(), "token_ids": token_ids,
+                   "k": stacks[0], "v": stacks[1]}
+        if self.cache.quantized:
+            # scale tiles ship with their code pages, under the digest
+            payload["k_scale"], payload["v_scale"] = stacks[2], stacks[3]
+        payload["digest"] = payload_digest(payload)
+        return payload
+
+    def export_kv(self, uid: int) -> Dict[str, Any]:
+        """Serialize one sequence's paged KV for a move to another engine
+        of the same geometry (or the scheduler's spill tier): its written
+        pages of every layer gathered and read back to host numpy. The
+        payload is self-describing: seen_tokens, n_blocks, kv_dtype, the
+        token record (for the receiver's prefix index, None when the host
+        never saw some tokens), the [L, n_blocks, bs, KV, D] K and V page
+        stacks and, from an int8 pool, the [L, n_blocks, bs, KV] f32
+        k_scale and v_scale tiles, sealed by "digest" (blake2b over every
+        field, resilience/integrity.py payload_digest).
+
+        Only the blocks holding written KV ship: min(len(blocks),
+        ceil(seen_tokens / block_size)); a preempted sequence's reservation
+        tail carries no data. bf16 pages are numpy uint16 arrays of the
+        bf16 bit patterns (numpy has no bfloat16), tagged kv_dtype
+        "bfloat16"; the digest names their dtype "bfloat16", so it equals
+        the JAX engine's digest of the same bytes."""
+        act = fault_point("engine.export_kv", uid=uid)
+        if act is not None and act.kind == "delay":
+            time.sleep(act.value)  # a hung transfer
+        seq = self.state.get(uid)
+        if seq is None:
+            raise KeyError(f"unknown sequence uid {uid}")
+        nb = min(len(seq.blocks), -(-seq.seen_tokens // self.state.block_size))
+        token_ids = list(seq.tokens[:seq.seen_tokens]) if seq.tokens_valid else None
+        return self._payload(seq.seen_tokens, seq.blocks[:nb], token_ids)
+
+    def import_kv(self, uid: int, payload: Dict[str, Any]) -> None:
+        """Adopt a sequence whose KV pages arrive from export_kv() of a peer
+        engine (the port's or the JAX package's): allocate its blocks,
+        scatter the pages, and commit the token record (which registers the
+        prefix in this engine's index). Checks, in this order and all
+        before any block is allocated: the digest (HandoffIntegrityError),
+        the pool dtype (KvCacheDtypeError), the page geometry (ValueError)
+        and an int8 payload's scales (KvCacheDtypeError). Raises
+        KVCacheExhaustedError when the pool cannot take the sequence."""
+        fault_point("engine.import_kv", uid=uid)
+        # 'corrupt' flips one bit of a COPY of the payload's page stacks
+        act = fault_point("handoff.payload", uid=uid)
+        if act is not None and act.kind == "corrupt":
+            payload, flips = corrupt_payload(payload, act.seed, act.invocation)
+            log_dist(f"chaos: corrupted KV handoff payload of uid {uid} ({flips})", ranks=[0])
+        if "digest" in payload and payload_digest(payload) != payload["digest"]:
+            raise HandoffIntegrityError(
+                f"KV handoff payload of uid {uid} failed digest verification; discarding "
+                "it (recompute fallback)")
+        own_dtype = self._kv_dtype_name()
+        sent_dtype = payload.get("kv_dtype", own_dtype)
+        if sent_dtype != own_dtype:
+            raise KvCacheDtypeError(
+                f"KV payload of uid {uid} carries {sent_dtype} pages but this engine's pool "
+                f"is {own_dtype}; recompute the sequence instead")
+        n_tok = int(payload["seen_tokens"])
+        nb = int(payload["n_blocks"])
+        k, v = payload["k"], payload["v"]
+        want = tuple(self.cache.k[0].shape[1:])  # (bs, KV, D) a page
+        if (tuple(k.shape[2:]) != want or k.shape[0] != self.cfg.n_layers
+                or k.shape[1] != nb or tuple(v.shape) != tuple(k.shape)):
+            raise ValueError(
+                f"KV payload geometry {tuple(k.shape)} does not match this engine's cache "
+                f"pages {(self.cfg.n_layers, nb) + want}: the engines must be "
+                "model- and geometry-identical")
+        if self.kv_quant and ("k_scale" not in payload or "v_scale" not in payload):
+            raise KvCacheDtypeError(
+                f"int8 KV payload of uid {uid} is missing its per-block scale tensors; "
+                "refusing to scatter scaleless codes")
+        seq = self.state.extend(uid, n_tok)  # may raise: pool exhausted
+        if len(seq.blocks) != nb:
+            raise AssertionError(f"import of {n_tok} tokens took {len(seq.blocks)} blocks, "
+                                 f"the payload carries {nb}")
+        arrays = [k, v] + ([payload["k_scale"], payload["v_scale"]] if self.kv_quant else [])
+        self._kv_scatter(list(seq.blocks), arrays)
+        self.state.commit(uid, n_tok, token_ids=payload["token_ids"])
+
+    def warmup_kv_transfer(self) -> None:
+        """Run the handoff gather and scatter once over the scratch block
+        alone, so that the first real transfer meets warm kernels and a
+        warm pinned-memory pool."""
+        self._kv_scatter([], self._kv_gather([self.pad_block]))
+
+    def export_parked_kv(self, limit: int) -> List[Dict[str, Any]]:
+        """export_kv-format payloads of up to `limit` of this engine's
+        hottest PARKED prefix chains (StateManager.parked_chains,
+        MRU-first), one a chain: seen_tokens covers exactly the chain's
+        full blocks, chains longer than blocks_per_seq are cut to it. A
+        joining replica import_kv()s each onto a scratch uid and flushes
+        it, which parks the pages and registers the prefix in its own
+        index. Read-only here."""
+        payloads: List[Dict[str, Any]] = []
+        bs = self.state.block_size
+        for tokens, blocks in self.state.parked_chains(limit):
+            nb = min(len(blocks), self.config.blocks_per_seq)
+            payloads.append(self._payload(nb * bs, list(blocks[:nb]), list(tokens[:nb * bs])))
+        return payloads
+
+    # -- speculative (multi-token-per-stream) decoding -----------------------
+    def _verify_chunks(self, uids: Sequence[int],
+                       chunks: Sequence[np.ndarray]) -> List[np.ndarray]:
+        """Run each uid's candidate chunk through ONE decode step of
+        shared-table rows and return every row's logits ([len(chunk), V]
+        a uid): the verification half of speculative decoding. KV of all
+        candidate rows is written but seen_tokens is NOT committed: the
+        caller commits the accepted prefix, and later tokens overwrite the
+        rejected rows' slots."""
+        rows = sum(len(c) for c in chunks)
+        if rows > self.config.max_batch_size:
+            raise RuntimeError(f"{rows} verify rows > max_batch_size "
+                               f"{self.config.max_batch_size}")
+        sp = _bucket(rows, 8)
+        toks = np.zeros((sp,), np.int32)
+        ctx = np.zeros((sp,), np.int32)
+        tables = np.full((sp, self.config.blocks_per_seq), self.pad_block, np.int32)
+        spans: List[Tuple[int, int]] = []
+        row = 0
+        for uid, chunk in zip(uids, chunks):
+            base = self.state.get(uid).seen_tokens
+            self.state.extend(uid, len(chunk))
+            table = self.state.block_table([uid], self.config.blocks_per_seq,
+                                           self.pad_block)[0]
+            spans.append((row, row + len(chunk)))
+            for j, tok in enumerate(chunk):
+                toks[row] = int(tok)
+                ctx[row] = base + j + 1
+                tables[row] = table
+                row += 1
+        logits, _ = self._decode_fn(sp, False)(self.params, self.cache, toks, tables, ctx)
+        logits_np = logits[:rows].float().cpu().numpy()
+        return [logits_np[a:b] for a, b in spans]
+
+    @staticmethod
+    def _ngram_draft(hist: List[int], ngram: int, k: int) -> List[int]:
+        """Prompt-lookup drafting: the most recent earlier occurrence of the
+        last `ngram` tokens proposes the k tokens that followed it."""
+        if k <= 0 or len(hist) <= ngram:
+            return []
+        pat = hist[-ngram:]
+        for i in range(len(hist) - ngram - 1, -1, -1):
+            if hist[i:i + ngram] == pat:
+                return hist[i + ngram: i + ngram + k]
+        return []
+
+    def generate_speculative(self, prompts: Sequence[Sequence[int]], max_new_tokens: int = 32,
+                             eos_token_id: Optional[int] = None, ngram: int = 3,
+                             draft_len: int = 4, return_stats: bool = False) -> Any:
+        """Greedy generation with prompt-lookup self-speculation: each step
+        feeds [pending, draft_1..draft_k] through ONE decode step and
+        accepts the longest greedy-consistent prefix. Exact: the output
+        equals plain greedy decoding token for token. The request
+        lifecycle runs through ServingScheduler in speculative mode.
+        return_stats=True also returns the scheduler's spec_summary()."""
+        from .scheduler import ServingScheduler, ServingSchedulerConfig
+
+        if len(prompts) > self.config.max_batch_size:
+            raise ValueError(
+                f"{len(prompts)} prompts > max_batch_size {self.config.max_batch_size} "
+                "(every live sequence needs at least one verify row per step)")
+        sched = ServingScheduler(
+            self, ServingSchedulerConfig(prefill_mode="wave", warmup=False), seed=0,
+            speculative={"ngram": int(ngram), "draft_len": int(draft_len)})
+        rids = [sched.submit(list(p), max_new_tokens, eos_token_id, stream=i)
+                for i, p in enumerate(prompts)]
+        sched.run()
+        outs = [sched.finished[r].output for r in rids]
+        if return_stats:
+            return outs, sched.spec_summary()
+        return outs
+
+    @staticmethod
+    def sample_token(logits: np.ndarray, *, temperature: float = 1.0, top_k: int = 0,
+                     top_p: float = 1.0, repetition_penalty: float = 1.0,
+                     seen_tokens: Sequence[int] = (),
+                     rng: Optional[np.random.Generator] = None) -> int:
+        """One next-token draw from a [V] float logits row, on the host in
+        numpy. temperature <= 0 is greedy argmax. top_k/top_p filter before
+        the softmax draw (both may combine). repetition_penalty follows the
+        CTRL rule: a seen token's logit is divided by the penalty when
+        positive, multiplied when negative. Pass `rng` for replayable
+        draws."""
+        row = np.asarray(logits, np.float64).copy()
+        if repetition_penalty != 1.0 and len(seen_tokens):
+            idx = np.unique(np.asarray(list(seen_tokens), np.int64))
+            pos = row[idx] > 0
+            row[idx] = np.where(pos, row[idx] / repetition_penalty,
+                                row[idx] * repetition_penalty)
+        if temperature <= 0.0:
+            return int(np.argmax(row))
+        row = row / temperature
+        if top_k and 0 < top_k < row.size:
+            kth = np.partition(row, -top_k)[-top_k]
+            row[row < kth] = -np.inf
+        if 0.0 < top_p < 1.0:
+            order = np.argsort(row)[::-1]
+            probs = np.exp(row[order] - row[order[0]])
+            probs /= probs.sum()
+            keep = np.cumsum(probs) - probs < top_p  # always keeps the top-1
+            row[order[~keep]] = -np.inf
+        probs = np.exp(row - row.max())
+        probs /= probs.sum()
+        gen = rng if rng is not None else np.random.default_rng()
+        return int(gen.choice(row.size, p=probs))
+
+    def generate(self, prompts: Sequence[Sequence[int]], max_new_tokens: int = 32,
+                 eos_token_id: Optional[int] = None, do_sample: bool = False,
+                 temperature: float = 1.0, top_k: int = 0, top_p: float = 1.0,
+                 repetition_penalty: float = 1.0, seed: Optional[int] = None,
+                 chunk: int = 8) -> List[List[int]]:
+        """Continuous-batch generation; returns the new tokens of each
+        prompt. A thin wrapper over ServingScheduler (prefill_mode='wave',
+        decode_chunk=chunk, warmup off), as in the JAX engine: prompts
+        prefill in waves, then decode in fused decode_multi chunks of
+        `chunk` steps with sampling on the device. Draws are keyed by
+        (seed, stream = the prompt's index, position), so a fixed seed
+        reproduces the tokens whatever the batching; seed=None draws a
+        fresh seed. A sequence that finishes is flushed at once, more
+        prompts than max_batch_size queue, and KV pressure preempts the
+        youngest sequence for recompute."""
+        from .scheduler import ServingScheduler, ServingSchedulerConfig
+
+        seed_val = int(np.random.default_rng().integers(2**31)) if seed is None else int(seed)
+        sched = ServingScheduler(
+            self,
+            ServingSchedulerConfig(
+                decode_chunk=max(1, int(chunk)), prefill_mode="wave",
+                max_num_batched_tokens=max(self.config.max_batch_size,
+                                           ServingSchedulerConfig().max_num_batched_tokens),
+                warmup=False),
+            sampling=dict(do_sample=do_sample, temperature=temperature, top_k=top_k,
+                          top_p=top_p, repetition_penalty=repetition_penalty),
+            seed=seed_val)
+        rids = [sched.submit(list(p), max_new_tokens, eos_token_id, stream=i)
+                for i, p in enumerate(prompts)]
+        sched.run()
+        return [sched.finished[r].output for r in rids]
+
+
+def _to_numpy(x: torch.Tensor) -> np.ndarray:
+    """A host tensor as numpy, sharing its memory; bf16 as its uint16 bits
+    (numpy has no bfloat16)."""
+    if x.dtype == torch.bfloat16:
+        return x.view(torch.int16).numpy().view(np.uint16)
+    return x.numpy()
+
+
+def _from_numpy(arr, dtype: torch.dtype) -> torch.Tensor:
+    """A payload array as a host tensor of the pool's dtype: bf16 pages come
+    as uint16 bits (the port's payloads) or as an ml_dtypes bfloat16 array
+    (the JAX package's); anything else must already have the pool's
+    dtype."""
+    arr = np.ascontiguousarray(arr)
+    if dtype == torch.bfloat16:
+        if arr.dtype != np.uint16 and arr.dtype.name != "bfloat16":
+            raise KvCacheDtypeError(f"bf16 pages must come as 16-bit words, got {arr.dtype}")
+        return torch.from_numpy(arr.view(np.int16)).view(torch.bfloat16)
+    t = torch.from_numpy(arr)
+    if t.dtype != dtype:
+        raise KvCacheDtypeError(f"pages of {arr.dtype} for a {dtype} pool")
+    return t
 
 
 def init_inference(params: Any, model_config: T.TransformerConfig,

@@ -38,6 +38,16 @@ def device_name(device: Union[str, torch.device, None] = None) -> str:
     return "cpu"
 
 
+def hbm_per_device(device: Union[str, torch.device, None] = None) -> int:
+    """Device memory in bytes: the budget the serving scheduler checks the
+    warmup footprints against. The CPU reports the JAX package's 16 GiB
+    default."""
+    dev = resolve_device(device)
+    if dev.type == "cuda":
+        return int(torch.cuda.get_device_properties(dev).total_memory)
+    return 16 * 2**30
+
+
 def bound_ms(n_bytes: float, n_flops: float,
              peaks: Optional[dict] = None) -> Tuple[float, str]:
     """Least time (ms) the card could take for work that must move

@@ -131,11 +131,14 @@ class TestSurface:
             with pytest.raises(NotImplementedError):
                 init_inference(self._params(), torch_config(), dict(SERVE), device="cpu",
                                **kw)
-        with pytest.raises(NotImplementedError, match="scheduler"):
-            eng.generate([[1, 2]])
-        for call in (lambda: eng.export_kv(0), lambda: eng.import_kv(0, {})):
-            with pytest.raises(NotImplementedError):
-                call()
+        # generate() and the KV transfer are ported (tests/test_torch_scheduler.py,
+        # tests/test_torch_kv_handoff.py): they serve instead of raising
+        out = eng.generate([[1, 2]], max_new_tokens=3)
+        assert len(out) == 1 and len(out[0]) == 3
+        eng.put([0], [np.arange(20, dtype=np.int32)])
+        payload = eng.export_kv(0)
+        eng.import_kv(1, payload)
+        assert eng.state.get(1).seen_tokens == 20
 
     def test_query_and_capacity(self):
         eng = init_inference(self._params(), torch_config(), dict(SERVE),

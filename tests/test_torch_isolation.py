@@ -2,7 +2,10 @@
 
 A fresh interpreter imports the port, serves a tiny model on the CPU end
 to end (prefill, single-token decode, chunked continuation, greedy
-decode_multi) from f32 and from int8 KV pools, takes one bf16 train step through `initialize` and runs
+decode_multi) from f32 and from int8 KV pools, drives the serving
+scheduler under pressure (spill to the host tier and resume, a corrupted
+spill caught by its digest, inference/ and resilience/), generate(), and
+an int8 export_kv/import_kv, takes one bf16 train step through `initialize` and runs
 one forward and backward of `ds4sci_evoformer_attention` with both
 biases; no kernel may launch, and afterwards neither `jax` nor
 `deepspeed_tpu` may be in sys.modules. A static scan of the port's sources and chip_smoke.py backs
@@ -65,6 +68,23 @@ mask = torch.from_numpy(np.where(r.random((1, 2, 1, 1, 40)) < 0.1, -1e9, 0.0).as
 pair = torch.from_numpy(r.standard_normal((1, 1, 2, 40, 40)).astype(np.float32)).requires_grad_()
 ds4sci_evoformer_attention(*qkv, [mask, pair]).sum().backward()
 assert all(torch.isfinite(x.grad).all() for x in qkv + [pair])
+from deepspeed_tpu_torch.inference import ServingScheduler, ServingSchedulerConfig
+from deepspeed_tpu_torch.resilience import armed
+small = init_inference(params, cfg, dict(max_seq_len=128, kv_block_size=16, num_kv_blocks=6,
+                       min_prefill_bucket=16, max_batch_size=16), dtype=torch.float32,
+                       device="cpu")
+sched = ServingScheduler(small, ServingSchedulerConfig(
+    prefill_chunk=8, max_num_batched_tokens=32, decode_chunk=4, warmup=False,
+    pressure={"enabled": True, "yellow": 0.6, "red": 0.7, "brownout": 1.0}))
+rids = [sched.submit(list(r.integers(0, 512, n)), 24) for n in (20, 30, 12, 25)]
+with armed({"faults": [{"point": "handoff.payload", "kind": "corrupt", "at": 2}]}):
+    sched.run()
+assert all(len(sched.finished[i].output) == 24 for i in rids), sched.counters
+assert sched.counters["spill_resumes"] > 0, sched.counters
+assert sched.counters["spill_integrity_failures"] == 1, sched.counters
+assert eng.generate([[1, 2, 3]], max_new_tokens=4, do_sample=True, seed=3)
+q8.put([9], [r.integers(0, 512, 40)])
+q8.import_kv(10, q8.export_kv(9))
 assert K.launch_counts() == {n: 0 for n in K.WRAPPERS}  # CPU: no kernel launched
 bad = sorted(m for m in sys.modules if m == "jax" or m.startswith("jax.")
              or m == "deepspeed_tpu" or m.startswith("deepspeed_tpu."))

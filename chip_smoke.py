@@ -132,7 +132,16 @@ Phases (any failure raises and exits nonzero):
              the codes read as unsigned, the tied [V, E] codes read as
              [E, V], a cut tile's partial left out, a ring stage consumed
              stale, a warpgroup given the next 64 channels, a tile stored
-             untransposed, rows past M stored (M 5 and 33); its design line
+             untransposed, rows past M stored (M 5 and 33); the grouped
+             GEMM of dropless MoE (grouped_gemm_checks) at Mixtral-8x7B's
+             two expert product shapes x decode (A 16) and prefill (A 1024)
+             rows x a routed draw with an empty expert and every row in one
+             expert: within bwd_mismatch of its plain version (the masked
+             scan), rows past the segments zero, two launches
+             bit-identical, a CUDA-graph replay bit-identical to eager
+             before and after its counts change, the build that starts
+             segment 1 a row late (FAULT_BUILDS) failing, timed beside
+             torch._grouped_mm; its design line
              (int8_matmul_design_checks: ptxas, shared memory, stages,
              CTAs an SM, host us a call for the tensor maps);
              time kernel, plain version and (where one exists) a single
@@ -198,8 +207,9 @@ Phases (any failure raises and exits nonzero):
              True}), bench.py's _serving_bench lane and _serving_7b_bench):
              the flagship's weights from bf16 and from int8 KV pools (64 x
              96-token rows, warmup and replays at b = 8 and 64), and
-             Llama-2-7B at bench.py's widths (random weights built and
-             quantized layer by layer on the card, b = 1, 8, 32), with its
+             Llama-2-7B at bench.py's widths, 8 of its 32 layers deep
+             (random weights built and quantized layer by layer on the
+             card, b = 1, 8, 32), with its
              bf16 engine on the same weights beside it. Counted: a wave of
              8 x 96, the 512-token prompt, one eager decode_multi_fn(b,
              24): the W8A16 GEMM launches once per quantized product of
@@ -246,6 +256,28 @@ Phases (any failure raises and exits nonzero):
              with KvCacheDtypeError, each before B allocates a block and
              beside its genuine case. Reports export and import ms a
              sequence and the digest's ms in them.
+4m. serve_mixtral - Mixtral-8x7B whole (MIXTRAL_8X7B: 32 layers, d_model
+             4096, 32 x 128 query heads over 8 KV heads, 8 experts of
+             d_ff 14336, top-2, rope_theta 1e6, untied head; 46.7 B
+             parameters) in the per-channel int8 lane, built and quantized
+             layer by layer on the card (the expert stacks groupwise int8
+             in groups of 128), on bf16 pools through the scan path, with
+             the expert census: serve_int8w's counted traffic at b = 8
+             (only the W8A16 GEMM, #1, #6 and #5 launch), the census after
+             it exactly layers x 2 x the rows run, the three-path logits
+             check on the same codes (the bf16 paths routed by the f32
+             path's expert choices, their own flips counted), warmup and
+             the replay bit-identical to eager; resident weights under
+             0.55x the bf16 model's, peak under 76 GiB. Reports TTFT at
+             512, eager and replayed b8 tok/s beside the weight-read bound
+             and where a replay's device time goes.
+4n. serve_mixtral_dropless - Mixtral-8x7B's width 4 layers deep, bf16
+             weights, moe_dropless: the same counted traffic launching the
+             grouped GEMM 3 times a layer a forward beside #1, #6 and #5,
+             the census check, the logits of the dropless kernel path
+             against the scan path's plain paths on the same weights
+             (three-path, routed as in 4m), replays bit-identical; TTFT
+             and tok/s.
 4c. serve_window - Mistral 7B (MISTRAL: 32 layers, d_model 4096, 32 x 128
              query heads over 8 KV heads, d_ff 14336, vocab 32000, untied
              lm_head, sliding window 4096; random bf16 weights, seed 0) in
@@ -472,6 +504,10 @@ KERNELS = {
     # leaves to XLA (_wmm; _lm_logits at :216), no pallas_call
     "int8_matmul": ("deepspeed_tpu_torch/csrc/int8_matmul.cu",
                     "deepspeed_tpu/inference/model.py:198"),
+    # a kernel the port adds: the grouped GEMM of dropless MoE serving,
+    # jax.lax.ragged_dot in the JAX package (grouped_mm), no pallas_call
+    "grouped_gemm": ("deepspeed_tpu_torch/csrc/grouped_gemm.cu",
+                     "deepspeed_tpu/moe/dropless.py:134"),
 }
 TRAIN_KERNELS = ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv")
 SERVE_KERNELS = ("paged_kv_write", "paged_decode_fused", "paged_decode_attention", "flash_fwd")
@@ -732,6 +768,14 @@ TRAIN_NEOX_MODEL = dict(GPT_NEOX_20B, n_layers=4, remat="save_attn_qkv", use_fla
 TRAIN_GPTJ_MODEL = dict(GPT_J_6B, n_layers=4, remat="save_attn_qkv", use_flash=True)
 SERVED_7B = (("window", MISTRAL), ("alibi", BLOOM), ("sparse", LLAMA2_7B),
              ("falcon", FALCON_7B), ("phi", PHI_2), ("neox", GPT_NEOX_20B), ("gptj", GPT_J_6B))
+# the MoE path: Mixtral-8x7B's published shape (mistralai/Mixtral-8x7B-v0.1
+# config.json as the JAX package's config_from_hf maps it: 8 experts, top-2,
+# rope_theta 1e6, no sliding window, untied head), random weights from a
+# seed; max_seq is a cap here. 46,702,792,704 parameters, 93.4 GB in bf16:
+# served whole in the per-channel int8 lane only (phase serve_mixtral)
+MIXTRAL_8X7B = dict(vocab_size=32000, n_layers=32, n_heads=32, n_kv_heads=8, d_model=4096,
+                    d_ff=14336, max_seq=32768, variant="llama", rope_theta=1e6, norm_eps=1e-5,
+                    tie_embeddings=False, n_experts=8, moe_top_k=2)
 # GPT-NeoX-20B's pools: SERVE_A with 64 blocks (8.9 GB of bf16 pools beside
 # 41.1 GB of weights; the counted sequence holds 23 blocks, a fresh
 # 1920-token prompt 15 more)
@@ -3037,10 +3081,12 @@ WIDE_HEAD_DECODE_CUT = {"d96": 80, "d256": 128}
 # (columns 128-255) wgmma, decode's per-tile Q fragments (q_frag, the
 # 16-row slices at D 256) read for k-step ks + 1 at k-step ks, and the
 # backward's dkv hand-off losing the second 32 queries of each P^T tile on
-# its way to the dK warpgroup
+# its way to the dK warpgroup; and the grouped GEMM with segment 1 starting
+# one row late (its offset shifted by a row), at every shape
 FAULT_BUILDS = {"pv_hi_product_skipped": "flash_fwd+DS_FAULT_PV_HI_SKIPPED",
                 "q_frag_of_the_next_k_step": "paged_decode+DS_FAULT_Q_FRAG_NEXT_KSTEP",
-                "handoff_second_half_lost": "flash_bwd+DS_FAULT_HANDOFF_HALF"}
+                "handoff_second_half_lost": "flash_bwd+DS_FAULT_HANDOFF_HALF",
+                "segment_1_one_row_late": "grouped_gemm+DS_FAULT_SEGMENT_SHIFT"}
 
 
 def _head_dim_write_checks(PA, randn, dev, bound_ms, mode, KV, D):
@@ -3814,6 +3860,188 @@ def _int8_mm_design_checks(dev):
     return {}
 
 
+# the grouped GEMM of the dropless MoE path (csrc/grouped_gemm.cu) at
+# Mixtral-8x7B's expert products, (K, N): w_gate and w_in, then w_out
+GROUPED_SHAPES = {"gate_in": (4096, 14336), "out": (14336, 4096)}
+GROUPED_X = 8
+# assignment rows A = tokens x top-2: decode at b 8, the 512-token prefill
+GROUPED_A = {"decode": 16, "prefill": 1024}
+
+
+def _grouped_counts(A, X, routing, seed):
+    """[X] int32 segment sizes of A rows: "routed", a skewed draw as a
+    router gives (a Dirichlet(0.5) share of each expert) with expert 5
+    empty and expert 1 holding rows (the fault build shifts segment 1);
+    "one_expert", every row in expert 3, the others empty."""
+    import numpy as np
+
+    if routing == "one_expert":
+        counts = np.zeros(X, np.int64)
+        counts[3] = A
+        return counts.astype(np.int32)
+    r = np.random.default_rng(seed)
+    counts = r.multinomial(A - 2, r.dirichlet(np.full(X, 0.5)))
+    counts[1] += counts[5] + 2
+    counts[5] = 0
+    return counts.astype(np.int32)
+
+
+def _grouped_inputs(A, K, N, X, counts, dev, seed):
+    """xs [A, K] bf16 (unit normal), w [X, K, N] bf16 (normal / sqrt(K):
+    unit-sized products), counts [X] int32 on the card."""
+    import torch
+
+    g = torch.Generator(device=dev).manual_seed(seed)
+    xs = torch.randn((A, K), generator=g, device=dev).to(torch.bfloat16)
+    w = (torch.randn((X, K, N), generator=g, device=dev) * K ** -0.5).to(torch.bfloat16)
+    return xs, w, torch.as_tensor(counts, dtype=torch.int32, device=dev)
+
+
+def _grouped_within(got, plain):
+    """The kernel against the plain version on the same bf16 inputs under
+    FA.bwd_mismatch's row-scaled limit (one bf16 ulp of the value + 2^-5
+    of the row's RMS): both sum in f32 and round to bf16 once, in other
+    orders. Returns (within, stats)."""
+    from deepspeed_tpu_torch.ops.cuda._common import bwd_mismatch
+
+    st = bwd_mismatch(got, plain)
+    return st["n_over"] == 0, st
+
+
+def _grouped_library(xs, w, counts):
+    """The yardstick: one PyTorch call of the same function where this torch
+    has one (torch._grouped_mm over the cumulative offsets; w as given, or
+    K-major if it wants that), else a torch.matmul a segment (the counts
+    read on the host). Returns (fn, what it is)."""
+    import torch
+
+    offs = torch.cumsum(counts, 0, dtype=torch.int32)
+    if hasattr(torch, "_grouped_mm"):
+        for wl, what in ((w, "torch._grouped_mm"),
+                         (w.transpose(1, 2).contiguous().transpose(1, 2),
+                          "torch._grouped_mm, w K-major")):
+            try:
+                torch._grouped_mm(xs, wl, offs=offs)
+                torch.cuda.synchronize()
+            except (RuntimeError, TypeError, ValueError):
+                continue
+            return (lambda wl=wl: torch._grouped_mm(xs, wl, offs=offs)), what
+    c = counts.tolist()
+    o = [sum(c[:e]) for e in range(len(c))]
+    return (lambda: torch.cat([xs[o[e]:o[e] + c[e]] @ w[e] for e in range(len(c))])), \
+        "torch.matmul a segment"
+
+
+def _grouped_graph_check(GG, xs, w, counts, other):
+    """One launch captured in a CUDA graph: its replay bit-identical to an
+    eager launch, and, after the counts are overwritten in place with
+    `other` (same A), a replay bit-identical to an eager launch on them
+    (the offsets come from the device at every launch)."""
+    import torch
+
+    s = torch.cuda.Stream(device=xs.device)
+    s.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(s):
+        GG.grouped_gemm(xs, w, counts)
+    torch.cuda.current_stream().wait_stream(s)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out = GG.grouped_gemm(xs, w, counts)
+    saved = counts.clone()
+    ok = []
+    for c in (saved, other):
+        counts.copy_(c)
+        graph.replay()
+        ok.append(_same_bits(out.clone(), GG.grouped_gemm(xs, w, counts)))
+    counts.copy_(saved)
+    torch.cuda.synchronize()
+    return all(ok)
+
+
+def _grouped_gemm_checks(dev, bound_ms):
+    """The grouped GEMM (csrc/grouped_gemm.cu) against its plain version
+    (the masked scan, grouped_gemm_plain) at Mixtral-8x7B's two product
+    shapes x decode (A 16) and prefill (A 1024) rows x a routed draw (an
+    empty expert) and every row in one expert: within _grouped_within,
+    rows past the segments zero, two launches bit-identical, a captured
+    launch's replays bit-identical to eager before and after its counts
+    change; the fault build that starts segment 1 one row late
+    (FAULT_BUILDS) must fail. Timed (device ms) beside the plain version,
+    the library yardstick (_grouped_library) and the bound: the rows, the
+    active experts' weights and the output once, 2 A K N operations. One
+    grouped_gemm_checks line; rows grouped_gemm (decode, w_gate/w_in) and
+    grouped_gemm@<A>_<shape> go to the kernel_check lines."""
+    import torch
+
+    from deepspeed_tpu_torch.ops.cuda import build
+    from deepspeed_tpu_torch.ops.cuda import grouped_gemm as GG
+
+    reduced = torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction
+    # the plain version's bf16 GEMMs sum in f32 throughout: a tighter bar
+    torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
+    results, line = {}, {}
+    try:
+        for si, (shape, (K, N)) in enumerate(GROUPED_SHAPES.items()):
+            for at, A in GROUPED_A.items():
+                for routing in ("routed", "one_expert"):
+                    counts_h = _grouped_counts(A, GROUPED_X, routing, seed=10 + si)
+                    xs, w, counts = _grouped_inputs(A, K, N, GROUPED_X, counts_h, dev,
+                                                    seed=20 + si)
+                    got = GG.grouped_gemm(xs, w, counts)
+                    again = GG.grouped_gemm(xs, w, counts)
+                    plain = GG.grouped_gemm_plain(xs, w, counts)
+                    ok, st = _grouped_within(got, plain)
+                    case = f"{shape} A={A} {routing} counts {counts_h.tolist()}"
+                    if not ok:
+                        raise AssertionError(f"grouped_gemm {case}: beyond the tolerance of "
+                                             f"the plain version: {st}")
+                    if not _same_bits(got, again):
+                        raise AssertionError(f"grouped_gemm {case}: two launches differ")
+                    other = torch.as_tensor(_grouped_counts(A, GROUPED_X, "routed", seed=99),
+                                            dtype=torch.int32, device=dev)
+                    if not _grouped_graph_check(GG, xs, w, counts, other):
+                        raise AssertionError(f"grouped_gemm {case}: a replay differs from "
+                                             "eager")
+                    row = {"counts": counts_h.tolist(), "max_abs_err": st["max_abs_err"],
+                           "worst_ratio": st["worst_ratio"], "bit_identical_relaunch": True,
+                           "graph_replay_bit_identical": True}
+                    if routing == "routed":
+                        with build.routed("grouped_gemm",
+                                          FAULT_BUILDS["segment_1_one_row_late"]):
+                            bad = GG.grouped_gemm(xs, w, counts)
+                        caught, fst = _grouped_within(bad, plain)
+                        if caught:
+                            raise AssertionError(f"grouped_gemm {case}: the fault build "
+                                                 f"passed the check: {fst}")
+                        row["fault_segment_1_one_row_late"] = {
+                            "caught": True, "n_over": fst["n_over"]}
+                        lib, what = _grouped_library(xs, w, counts)
+                        active = int((counts_h > 0).sum())
+                        timed = _timings(lambda: GG.grouped_gemm(xs, w, counts),
+                                         lambda: GG.grouped_gemm_plain(xs, w, counts), lib,
+                                         20 if A <= 64 else 5)
+                        bound = bound_ms(2 * A * K + active * K * N * 2 + 4 * GROUPED_X
+                                         + 2 * A * N, 2.0 * A * K * N)
+                        row.update(ms=timed["ms"], plain_ms=timed["plain_ms"],
+                                   library_ms=timed["library_ms"], library=what,
+                                   bound_ms=bound[0], bound_by=bound[1])
+                        name = ("grouped_gemm" if (at, shape) == ("decode", "gate_in")
+                                else f"grouped_gemm@{at}_{shape}")
+                        results[name] = dict(
+                            max_abs_err=st["max_abs_err"], **timed, bound=bound,
+                            shape=f"A={A} rows ({at}, counts {counts_h.tolist()}), K={K}, "
+                                  f"N={N}, X={GROUPED_X} bf16 (Mixtral-8x7B {shape}); "
+                                  f"library = {what}")
+                    line[f"{shape}/{at}/{routing}"] = row
+                    del xs, w, counts, got, again, plain
+                    torch.cuda.empty_cache()
+    finally:
+        torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = reduced
+    ptxas = _ptxas_registers(build, "grouped_gemm", ["grouped_gemm_kernel"])
+    print(json.dumps({"grouped_gemm_checks": line, "ptxas": ptxas}))
+    return results
+
+
 def check_kernels(cfg, dev):
     import torch
 
@@ -3936,6 +4164,8 @@ def check_kernels(cfg, dev):
         # the W8A16 GEMM of the per-channel int8 weight lane at every served shape
         "int8_matmul": lambda: _int8_mm_checks(dev, bound_ms),
         "int8_matmul_design": lambda: _int8_mm_design_checks(dev),
+        # the grouped GEMM of the dropless MoE path at Mixtral-8x7B's products
+        "grouped_gemm": lambda: _grouped_gemm_checks(dev, bound_ms),
     }
     seconds = {"flagship_serving": time.perf_counter() - t0}
     for label, check in checks.items():
@@ -4807,6 +5037,10 @@ INT8W_FLAGSHIP_WIDTHS = (8, 64)
 LLAMA2_7B_BENCH = dict(vocab_size=32000, n_layers=32, n_heads=32, d_model=4096, d_ff=11008,
                        max_seq=4096, variant="llama")
 INT8W_7B_WIDTHS = (1, 8, 32)
+# its depth here: 8 of the 32 layers (full width; the lane's whole-depth
+# check of the W8A16 GEMM is serve_mixtral's 32 layers), which keeps the
+# script inside its time limit
+INT8W_7B_LAYERS = 8
 SERVE_7B_INT8W = dict(max_seq_len=1024, kv_block_size=128, num_kv_blocks=48,
                       min_prefill_bucket=128, max_batch_size=32)
 # names of the library GEMMs none of which may run in a replayed int8 step
@@ -4867,17 +5101,22 @@ def _int8w_7b_weights(T, M, mc, dev):
     return dict(top, layers=bf16_layers), dict(top, layers=int8_layers)
 
 
-def _int8w_lane(eng, mc, widths, n_rows, dev, seed, bf16_bytes):
+def _int8w_lane(eng, mc, widths, n_rows, dev, seed, bf16_bytes, bytes_ratio=None):
     """One per-channel int8 engine: the counted main path (a wave of 8
     96-token prompts, the 512-token prompt, one eager greedy
     decode_multi_fn(widths[0], 24)), each call launching the W8A16 GEMM
     once per quantized product of every forward (the layers' ChannelQuant
     leaves + the logits), with the attention kernels of its pools and
     nothing else; resident weight bytes over the bf16 engine's
-    (`bf16_bytes`); the three-path logit check (_serve_three_paths on the
-    same codes); warmup() and every width's replay against eager, bit for
-    bit, with eager and replayed times (_graph_checks); no library GEMM in
-    a replayed call; TTFT at 512."""
+    (`bf16_bytes`) at most `bytes_ratio` (default INT8W_BYTES_RATIO); the
+    three-path logit check (_serve_three_paths on the same codes);
+    warmup() and every width's replay against eager, bit for bit, with
+    eager and replayed times (_graph_checks); no library GEMM in a
+    replayed call but, on an MoE model's scan path, the expert products
+    (the groupwise stacks dequantized, then torch.matmul, as the JAX
+    package leaves them to XLA); TTFT at 512. An engine with the expert
+    census: after the counted path it holds layers x top-k x the rows of
+    the programs that ran (_census_rows)."""
     import numpy as np
     import torch
 
@@ -4939,11 +5178,15 @@ def _int8w_lane(eng, mc, widths, n_rows, dev, seed, bf16_bytes):
     if g.shape != (DECODE_STEPS, b) or g.min() < 0 or g.max() >= V:
         raise AssertionError(f"decode_multi tokens out of range: {g.shape}")
     rep = {"products_a_forward": per_call, "launches": {n: c for n, c in launches.items() if c}}
+    if eng._census_enabled:
+        rep["census"] = _census_check(eng, mc, [_census_rows(eng, [PROMPT_LEN] * N_PROMPTS)] * (
+            -(-n_rows // N_PROMPTS)) + [_census_rows(eng, [LONG_LEN]), b * DECODE_STEPS])
     int8_bytes = quantized_nbytes(eng.params)
+    ratio_max = bytes_ratio or INT8W_BYTES_RATIO
     rep["weights"] = {"int8_lane_bytes": int8_bytes, "bf16_engine_bytes": bf16_bytes,
-                      "ratio": int8_bytes / bf16_bytes}
-    if rep["weights"]["ratio"] > INT8W_BYTES_RATIO:
-        raise AssertionError(f"resident weights {rep['weights']} above {INT8W_BYTES_RATIO}x "
+                      "ratio": int8_bytes / bf16_bytes, "ratio_max": ratio_max}
+    if rep["weights"]["ratio"] > ratio_max:
+        raise AssertionError(f"resident weights {rep['weights']} above {ratio_max}x "
                              "the bf16 engine's")
     t1 = time.perf_counter()
     rep["path"] = _serve_three_paths(M, eng, mc, int8_pools, long_prompt,
@@ -4951,19 +5194,53 @@ def _int8w_lane(eng, mc, widths, n_rows, dev, seed, bf16_bytes):
     rep["path_s"] = time.perf_counter() - t1
 
     # -- graphs: replays against eager, and the times ------------------------
+    rep["peak_bytes_before_graphs"] = torch.cuda.max_memory_allocated(dev)
     rep["graphs"], args = _graph_checks(eng, widths, 0, (uids, toks), None)
     gfn, a = args[widths[-1]]
     names = _device_kernel_names(lambda: gfn(eng.params, eng.cache, *a))
     gemms = [n for n in names if any(s in n.lower() for s in GEMM_NAMES)]
-    if gemms or not any("w8a16" in n for n in names):
+    expert_gemms = mc.n_experts > 0 and not mc.moe_dropless
+    if (gemms and not expert_gemms) or not any("w8a16" in n for n in names):
         raise AssertionError(f"a replayed int8 decode ran library GEMMs {gemms} or no W8A16 "
                              f"kernel: {names}")
     rep["replayed_call_kernels"] = {"distinct": len(names),
-                                    "w8a16": [n[:80] for n in names if "w8a16" in n]}
+                                    "w8a16": [n[:80] for n in names if "w8a16" in n],
+                                    "library_gemms_expert_products": len(gemms)}
+    if mc.n_experts > 0:  # where an MoE replay's device time goes, by kernel
+        rep["replayed_where_time_goes"] = _where_time_goes(
+            lambda: gfn(eng.params, eng.cache, *a), top=10)
     ttft = _ttft(eng, r, V, LONG_LEN)
     rep.update({f"ttft_ms_{LONG_LEN}_p50": statistics.median(ttft),
                 f"ttft_ms_{LONG_LEN}_all": ttft, "seconds": time.perf_counter() - t0})
     return rep
+
+
+def _census_rows(eng, prompt_lens):
+    """Rows one prefill wave of prompts of these lengths runs (the engine's
+    bucket: a power-of-two count x a power-of-two length), each of which the
+    MoE census counts once a layer and choice, pad rows included."""
+    from deepspeed_tpu_torch.inference.engine import _bucket
+
+    return (_bucket(len(prompt_lens), 1)
+            * _bucket(max(prompt_lens), eng.config.min_prefill_bucket))
+
+
+def _census_check(eng, mc, program_rows):
+    """The engine's expert census against layers x top-k x the rows of the
+    programs run since it was built (raises if they differ); its counts,
+    shares and imbalance (max / mean)."""
+    import numpy as np
+
+    census = eng.moe_expert_census()
+    want = mc.n_layers * mc.moe_top_k * sum(program_rows)
+    if int(census.sum()) != want or census.shape != (mc.n_experts,):
+        raise AssertionError(f"expert census {census.tolist()} sums to {int(census.sum())}, "
+                             f"not {mc.n_layers} layers x top-{mc.moe_top_k} x "
+                             f"{sum(program_rows)} rows = {want}")
+    return {"counts": census.tolist(), "rows": int(sum(program_rows)),
+            "shares": (census / census.sum()).round(4).tolist(),
+            "imbalance": float(census.max() / census.mean()),
+            "experts_hit": int(np.count_nonzero(census))}
 
 
 def _lane_summary(rep, widths):
@@ -4981,9 +5258,9 @@ def run_serve_int8w(cfg, dev, bf16_serve, bf16_graphs):
     phases serve and serve_graphs, seed 0) from bf16 and from int8 KV pools
     (_int8w_lane at INT8W_FLAGSHIP_WIDTHS), its bf16 engine's TTFT and
     replayed tok/s beside it (phases serve and serve_graphs of this run);
-    then Llama-2-7B (LLAMA2_7B_BENCH, _int8w_7b_weights) per-channel int8
-    at INT8W_7B_WIDTHS, and its bf16 engine on the same bf16 weights (TTFT,
-    replay against eager, times) beside it."""
+    then Llama-2-7B (LLAMA2_7B_BENCH, _int8w_7b_weights) INT8W_7B_LAYERS
+    deep, per-channel int8 at INT8W_7B_WIDTHS, and its bf16 engine on the
+    same bf16 weights (TTFT, replay against eager, times) beside it."""
     import torch
 
     from deepspeed_tpu_torch import init_inference
@@ -5017,7 +5294,8 @@ def run_serve_int8w(cfg, dev, bf16_serve, bf16_graphs):
     report["flagship_s"] = time.perf_counter() - t0
 
     t1 = time.perf_counter()
-    mc = T.TransformerConfig(**LLAMA2_7B_BENCH)
+    mc = T.TransformerConfig(**dict(LLAMA2_7B_BENCH, n_layers=INT8W_7B_LAYERS))
+    report["llama2_7b_layers"] = INT8W_7B_LAYERS
     bf16_tree, int8_tree = _int8w_7b_weights(T, M, mc, dev)
     report["llama2_7b_build_s"] = time.perf_counter() - t1
     eng = init_inference(int8_tree, mc, dict(SERVE_7B_INT8W), quantization=INT8W)
@@ -5051,6 +5329,213 @@ def run_serve_int8w(cfg, dev, bf16_serve, bf16_graphs):
     for lane in report["lanes"].values():
         for k, c in lane["launches"].items():
             report["launches"][k] = report["launches"].get(k, 0) + c
+    report["seconds"] = time.perf_counter() - t0
+    return report
+
+
+# ---------------------------------------------------------------------------
+# phases serve_mixtral and serve_mixtral_dropless: Mixtral-class MoE serving
+# ---------------------------------------------------------------------------
+
+# Mixtral-8x7B's engine: 48 blocks of 128 (8 rows of 96 tokens, the
+# 512-token prompt and its TTFT copies, 0.8 GB of bf16 pools at 128 KiB a
+# token), the expert census on
+SERVE_MIXTRAL = dict(max_seq_len=1024, kv_block_size=128, num_kv_blocks=48,
+                     min_prefill_bucket=128, max_batch_size=8, moe_census=True)
+MIXTRAL_WIDTHS = (8,)
+# resident weights of the int8 lane over the bf16 model's at most (the
+# expert stacks groupwise: a scale per 128 codes, 1/32 of a byte a weight
+# on top of the per-channel lane's ~0.5), and the phase's peak memory
+MIXTRAL_BYTES_RATIO = 0.55
+MIXTRAL_PEAK_GIB = 76
+# the dropless path at Mixtral's width, this many layers deep, bf16 weights
+MIXTRAL_DROPLESS_LAYERS = 4
+H100_HBM_BYTES_S = 3.35e12
+
+
+def _mixtral_int8_tree(T, M, mc, dev):
+    """Mixtral-8x7B's prepared per-channel int8 tree, made layer by layer on
+    the card (93.4 GB in bf16 does not fit it): each layer's weights drawn
+    in bf16 (normal x 0.5 / sqrt(fan-in), norm scales 1; the router's
+    logits then have ~0.5 of the normed input's size), prepared (fused
+    q/k/v) and quantized (model.quantize_layer: the expert stacks groupwise
+    int8 in groups of 128, q/k/v and the output per channel, the router
+    full precision), its bf16 weights freed before the next is drawn. The
+    embedding normal x 0.02 and the untied lm_head stay bf16 here (the
+    engine quantizes both per channel)."""
+    import torch
+
+    bf16 = torch.bfloat16
+    g = torch.Generator(device=dev).manual_seed(0)
+
+    def draw(shape, scale):
+        return torch.randn(shape, generator=g, device=dev).mul_(scale).to(bf16)
+
+    def fan_in(name, shape):
+        if name in ("w_gate", "w_in", "w_out"):  # [X, in, out]
+            return shape[1]
+        return shape[0] * shape[1] if name == "wo" else shape[0]
+
+    layers = []
+    for _ in range(mc.n_layers):
+        lp = {name: (torch.ones(shape, dtype=bf16, device=dev) if "ln" in name
+                     else draw(shape, 0.5 / fan_in(name, shape) ** 0.5))
+              for name, (shape, _) in sorted(T._layer_shapes(mc).items())}
+        layers.append(M.quantize_layer(M.prepare_layer(lp, mc), mc))
+        del lp
+    E, V = mc.d_model, mc.vocab_size
+    return {"embed": draw((V, E), 0.02), "lm_head": draw((E, V), 0.5 / E ** 0.5),
+            "ln_f_scale": torch.ones((E,), dtype=bf16, device=dev), "layers": layers}
+
+
+def _peak_bytes(eng, dev, before_graphs):
+    """The most device memory allocated over an engine's phase: warmup()
+    resets the allocator's peak for each width it captures, so the peak
+    read before the graphs, each width's and the one since are taken."""
+    import torch
+
+    return max([before_graphs, torch.cuda.max_memory_allocated(dev)]
+               + [f["peak_hbm_bytes"] for f in eng.warmup_footprints.values()])
+
+
+def run_serve_mixtral(dev):
+    """Phase serve_mixtral: Mixtral-8x7B whole (MIXTRAL_8X7B, all 32 layers,
+    46.7 B parameters) in the per-channel int8 lane on bf16 pools, through
+    the default scan path over the experts, with the expert census:
+    _int8w_lane at b 8 (the counted wave of 8 x 96, the 512-token prompt
+    and decode_multi_fn(8, 24), launching only the W8A16 GEMM, #1, #6 and
+    #5; the census after them exactly layers x 2 x the rows run; the
+    three-path check layer by layer on the same codes; warmup() and the
+    replay bit-identical to eager; TTFT at 512), resident weight bytes
+    under MIXTRAL_BYTES_RATIO of the bf16 model's, the peak under
+    MIXTRAL_PEAK_GIB; eager and replayed b 8 tok/s beside the weight-read
+    bound (the resident weight bytes over 3.35 TB/s a step)."""
+    import torch
+
+    from deepspeed_tpu_torch import init_inference
+    from deepspeed_tpu_torch.inference import model as M
+    from deepspeed_tpu_torch.models import transformer as T
+
+    t0 = time.perf_counter()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats(dev)
+    mc = T.TransformerConfig(**MIXTRAL_8X7B)
+    tree = _mixtral_int8_tree(T, M, mc, dev)
+    build_s = time.perf_counter() - t0
+    eng = init_inference(tree, mc, dict(SERVE_MIXTRAL), quantization=INT8W)
+    del tree
+    torch.cuda.empty_cache()
+    rep = _int8w_lane(eng, mc, MIXTRAL_WIDTHS, N_PROMPTS, dev, seed=12,
+                      bf16_bytes=2 * T.param_count(mc), bytes_ratio=MIXTRAL_BYTES_RATIO)
+    peak = _peak_bytes(eng, dev, rep.pop("peak_bytes_before_graphs"))
+    if peak > MIXTRAL_PEAK_GIB * 2 ** 30:
+        raise AssertionError(f"serve_mixtral peaked at {peak / 2**30:.2f} GiB, above "
+                             f"{MIXTRAL_PEAK_GIB} GiB")
+    b = MIXTRAL_WIDTHS[0]
+    bound_ms = rep["weights"]["int8_lane_bytes"] / H100_HBM_BYTES_S * 1e3
+    census = eng.moe_expert_census()
+    report = {"layers": mc.n_layers, "parameters": T.param_count(mc), "build_s": build_s,
+              **_lane_summary(rep, MIXTRAL_WIDTHS), "path": rep["path"],
+              "weights": rep["weights"], "launches": rep["launches"],
+              "census_after_counted_path": rep["census"],
+              "census_end": {"counts": census.tolist(),
+                             "imbalance": float(census.max() / census.mean())},
+              "peak_gib": peak / 2 ** 30, "pool_bytes": eng._pool_bytes(),
+              f"b{b}_weight_read_bound": {"ms_a_step": bound_ms,
+                                          "tok_s": b / (bound_ms / 1e3)},
+              "replayed_call_kernels": rep["replayed_call_kernels"],
+              "replayed_where_time_goes": rep["replayed_where_time_goes"]}
+    print(json.dumps({"serve_mixtral_lane": "mixtral_8x7b/bf16_pools", **rep}))
+    del eng
+    torch.cuda.empty_cache()
+    report["seconds"] = time.perf_counter() - t0
+    return report
+
+
+def run_serve_mixtral_dropless(dev):
+    """Phase serve_mixtral_dropless: Mixtral-8x7B's width
+    MIXTRAL_DROPLESS_LAYERS deep in bf16 (_init_served, seed 0) with
+    moe_dropless: the counted wave of 8 x 96, the 512-token prompt and
+    decode_multi_fn(8, 24), each forward launching the grouped GEMM 3 times
+    a layer (w_gate, w_in, w_out) beside #1, #6 and #5 and nothing else;
+    the census exactly layers x 2 x the rows run; the logits of the
+    dropless kernel path against the scan path on the same weights
+    (_serve_three_paths with the scan config on the plain paths: within
+    1.5x / 2x of the bf16 scan path's error against the f32 scan path);
+    warmup() and the replay bit-identical to eager, with times; TTFT at
+    512."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+
+    from deepspeed_tpu_torch import init_inference
+    from deepspeed_tpu_torch.inference import model as M
+    from deepspeed_tpu_torch.models import transformer as T
+    from deepspeed_tpu_torch.ops import cuda as K
+
+    t0 = time.perf_counter()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats(dev)
+    mc = T.TransformerConfig(**dict(MIXTRAL_8X7B, n_layers=MIXTRAL_DROPLESS_LAYERS,
+                                    moe_dropless=True))
+    eng = init_inference(_init_served(T, mc, dev), mc, dict(SERVE_MIXTRAL))
+    torch.cuda.empty_cache()
+    V, L = mc.vocab_size, mc.n_layers
+    r = np.random.default_rng(14)
+    prompts = [r.integers(0, V, PROMPT_LEN).astype(np.int32) for _ in range(N_PROMPTS)]
+    long_prompt = r.integers(0, V, LONG_LEN).astype(np.int32)
+    uids = list(range(N_PROMPTS))
+    want = {"grouped_gemm", "flash_fwd", "paged_kv_write", "paged_decode_fused"}
+    launches = {}
+
+    def counted(what, n_forward, call):
+        K.reset_launch_counts()
+        out = call()
+        torch.cuda.synchronize()
+        got = K.launch_counts()
+        if got["grouped_gemm"] != 3 * L * n_forward:
+            raise AssertionError(f"{what}: {got['grouped_gemm']} grouped GEMM launches, not 3 "
+                                 f"x {L} layers x {n_forward} forwards")
+        for n, c in got.items():
+            launches[n] = launches.get(n, 0) + c
+        return out
+
+    wave = counted("the 8-prompt wave", 1, lambda: eng.put(uids, prompts))
+    long = counted("the 512-token prompt", 1, lambda: eng.put([N_PROMPTS], [long_prompt]))
+    toks = wave.argmax(-1).astype(np.int32)
+    b = MIXTRAL_WIDTHS[0]
+    tables = eng.state.block_table(uids[:b], eng.config.blocks_per_seq, eng.pad_block)
+    ctx = np.array([eng.state.get(u).seen_tokens + 1 for u in uids[:b]], np.int32)
+    gen, final, _, _ = counted(
+        f"decode_multi_fn({b}, {DECODE_STEPS})", DECODE_STEPS,
+        lambda: eng.decode_multi_fn(b, DECODE_STEPS)(dict(eng.params), eng.cache,
+                                                      toks[:b].copy(), tables, ctx))
+    wrong = {n: c for n, c in launches.items() if (c == 0) == (n in want)}
+    if wrong:
+        raise AssertionError(f"the dropless path must launch each of {sorted(want)} and "
+                             f"nothing else: {wrong}")
+    for name, x in (("wave", wave), ("long", long), ("decode_multi", final.float().cpu().numpy())):
+        if not np.isfinite(x).all():
+            raise AssertionError(f"{name} logits are not finite")
+    report = {"layers": L, "launches": {n: c for n, c in launches.items() if c},
+              "grouped_gemm_a_forward": 3 * L,
+              "census": _census_check(eng, mc, [_census_rows(eng, [PROMPT_LEN] * N_PROMPTS),
+                                                _census_rows(eng, [LONG_LEN]),
+                                                b * DECODE_STEPS])}
+    eng.flush(N_PROMPTS)
+    t1 = time.perf_counter()
+    scan = dataclasses.replace(mc, moe_dropless=False)
+    report["path_vs_scan"] = _serve_three_paths(M, eng, mc, False, long_prompt, prompts, dev,
+                                                plain_cfg=scan)
+    report["path_s"] = time.perf_counter() - t1
+    before = torch.cuda.max_memory_allocated(dev)
+    graphs, _ = _graph_checks(eng, MIXTRAL_WIDTHS, 0, (uids, toks), None)
+    report.update(_lane_summary({"graphs": graphs, f"ttft_ms_{LONG_LEN}_p50": statistics.median(
+        _ttft(eng, r, V, LONG_LEN))}, MIXTRAL_WIDTHS))
+    report["peak_gib"] = _peak_bytes(eng, dev, before) / 2 ** 30
+    del eng
+    torch.cuda.empty_cache()
     report["seconds"] = time.perf_counter() - t0
     return report
 
@@ -5635,13 +6120,65 @@ class _F32Layers(tuple):
         return ({n: _f32(w) for n, w in lp.items()} for lp in super().__iter__())
 
 
-def _serve_three_paths(M, eng, cfg, int8, long_prompt, prompts, dev):
+class _ReferenceRouting:
+    """The f32 path's expert choices, replayed in the bf16 paths of the
+    three-path check of an MoE model (set as inference/model.py's
+    dropless_topk_gating for the length of the check). A top-k choice is
+    discrete: where two experts' router logits lie within a path's
+    rounding of each other, the bf16 paths pick differently from the f32
+    path now and then, and one token's changed expert moves its logits far
+    more than rounding does (PR 23's first Mixtral run: a few such tokens
+    in 9 decode rows decide the error's RMS). Each bf16 call therefore
+    routes by the f32 call's indices, in call order (the three paths make
+    the same calls on the same rows), with combine weights from its own
+    logits (the gating's softmax, renormalized for k > 1), so the check
+    compares every path's arithmetic on the same decisions; the choices a
+    bf16 path would have made itself are counted against the f32 path's
+    (`flips`, rows whose expert set differs). The gating function itself
+    is held against the JAX package's on the CPU
+    (tests/test_torch_moe_serving.py)."""
+
+    def __init__(self, M):
+        self.M, self.real = M, M.dropless_topk_gating
+        self.calls, self.replay, self.at = [], False, 0
+        self.flips, self.rows = {}, {}
+        self.path = None
+
+    def __call__(self, logits, top_k, *args, **kw):
+        import torch
+
+        idx, wts, l_aux, z = self.real(logits, top_k, *args, **kw)
+        if not self.replay:
+            self.calls.append(idx)
+            return idx, wts, l_aux, z
+        ref = self.calls[self.at]
+        self.at += 1
+        self.flips[self.path] = self.flips.get(self.path, 0) + int(
+            (idx.sort(-1).values != ref.sort(-1).values).any(-1).sum())
+        self.rows[self.path] = self.rows.get(self.path, 0) + int(ref.shape[0])
+        wts = torch.softmax(logits.float(), dim=-1).gather(-1, ref)
+        if top_k > 1:
+            wts = wts / wts.sum(dim=-1, keepdim=True).clamp_min(torch.finfo(torch.float32).eps)
+        return ref, wts, l_aux, z
+
+    def start(self, path):
+        """Replay from the first recorded call for the bf16 path `path`."""
+        self.replay, self.at, self.path = True, 0, path
+
+
+def _serve_three_paths(M, eng, cfg, int8, long_prompt, prompts, dev, plain_cfg=None):
     """Prefill (the long prompt and the wave of 96-token prompts) and two
     decode steps (fused, then the write + plain-mode kernel at the next
     position) of the whole model on the engine's weights, by three paths:
     the kernel path in bf16, the plain path in bf16 and the plain path in
     f32 (the reference of both; _F32Layers), each from an empty cache of
-    its own (int8 pools on an int8 phase). Returns the _path_errors stats."""
+    its own (int8 pools on an int8 phase). plain_cfg: the config of the
+    two plain paths when it differs from the kernel path's (the dropless
+    MoE path held against the scan path). An MoE model's f32 path runs
+    first and the bf16 paths route by its expert choices
+    (_ReferenceRouting; the decode steps take its tokens too), the rows
+    each bf16 path would have routed otherwise reported as
+    `routing_flips`. Returns the _path_errors stats."""
     import numpy as np
     import torch
 
@@ -5664,26 +6201,44 @@ def _serve_three_paths(M, eng, cfg, int8, long_prompt, prompts, dev):
              (toks_b, np.full((n_w,), PROMPT_LEN, np.int32), tb)]
     tables = torch.as_tensor(np.concatenate([tl, tb]), device=dev)
     ctx = torch.as_tensor([n_l + 1] + [PROMPT_LEN + 1] * n_w, dtype=torch.int32, device=dev)
-    outs = {"prefill": [], "decode_fused": [], "decode_plain_mode": []}
-    for use_kernel, dtype, prm in ((True, torch.bfloat16, p16), (False, torch.bfloat16, p16),
-                                   (False, torch.float32, p32)):
-        cache = M.init_cache(cfg, nblk, bs, dtype, dev, kv_quant=int8)
-        pre = torch.cat([M.prefill_batch(prm, cache, *(torch.as_tensor(a, device=dev)
-                                                       for a in w), cfg,
-                                         use_kernel=use_kernel)[0] for w in waves])
-        toks = pre.argmax(-1).to(torch.int32) if use_kernel else outs["toks"]
-        outs.setdefault("toks", toks)
-        d1 = M.decode_step(prm, cache, toks, tables, ctx, cfg, use_kernel=use_kernel,
-                           unique_rows=True)[0]
-        d2 = M.decode_step(prm, cache, toks, tables, ctx + 1, cfg, use_kernel=use_kernel,
-                           unique_rows=False)[0]
-        for name, x in (("prefill", pre), ("decode_fused", d1), ("decode_plain_mode", d2)):
-            outs[name].append(x.float().cpu())
-        del cache
-        torch.cuda.empty_cache()
+    paths = {"kernel": (True, torch.bfloat16, p16), "plain": (False, torch.bfloat16, p16),
+             "f32": (False, torch.float32, p32)}
+    moe = cfg.n_experts > 0
+    order = ["f32", "kernel", "plain"] if moe else ["kernel", "plain", "f32"]
+    routing = _ReferenceRouting(M) if moe else None
+    outs, toks = {}, None
+    try:
+        if moe:
+            M.dropless_topk_gating = routing
+        for path in order:
+            use_kernel, dtype, prm = paths[path]
+            if moe and path != "f32":
+                routing.start(path)
+            cache = M.init_cache(cfg, nblk, bs, dtype, dev, kv_quant=int8)
+            c = cfg if use_kernel or plain_cfg is None else plain_cfg
+            pre = torch.cat([M.prefill_batch(prm, cache, *(torch.as_tensor(a, device=dev)
+                                                           for a in w), c,
+                                             use_kernel=use_kernel)[0] for w in waves])
+            if toks is None:  # the first path's greedy tokens feed every path's decode
+                toks = pre.argmax(-1).to(torch.int32)
+            d1 = M.decode_step(prm, cache, toks, tables, ctx, c, use_kernel=use_kernel,
+                               unique_rows=True)[0]
+            d2 = M.decode_step(prm, cache, toks, tables, ctx + 1, c, use_kernel=use_kernel,
+                               unique_rows=False)[0]
+            outs[path] = [x.float().cpu() for x in (pre, d1, d2)]
+            del cache
+            torch.cuda.empty_cache()
+    finally:
+        if moe:
+            M.dropless_topk_gating = routing.real
     del p32
-    return {name: _path_errors(f"{name} logits", *outs[name])
-            for name in ("prefill", "decode_fused", "decode_plain_mode")}
+    stats = {name: _path_errors(f"{name} logits", *(outs[p][i] for p in ("kernel", "plain",
+                                                                          "f32")))
+             for i, name in enumerate(("prefill", "decode_fused", "decode_plain_mode"))}
+    if moe:
+        stats["routing_flips"] = {p: {"rows": routing.flips.get(p, 0),
+                                      "of": routing.rows[p]} for p in ("kernel", "plain")}
+    return stats
 
 
 # mode -> (serving config, long prompt's tokens, wave of 96-token prompts,
@@ -6091,6 +6646,10 @@ def main():
     done("serve_scheduler", sch)
     kvh = run_kv_handoff(cfg, dev)
     done("kv_handoff", kvh)
+    mx = run_serve_mixtral(dev)
+    done("serve_mixtral", mx)
+    mxd = run_serve_mixtral_dropless(dev)
+    done("serve_mixtral_dropless", mxd)
     served = {}
     for mode, model in SERVED_7B:
         mc = T.TransformerConfig(**model)
@@ -6109,7 +6668,8 @@ def main():
     done("evoformer", ev)
 
     paths = {"train": tr, "serve": sl, "serve_int8": q8, "serve_graphs": gr, "serve_int8w": q8w,
-             "serve_scheduler": sch, "kv_handoff": kvh, **served, **trains, "evoformer": ev}
+             "serve_scheduler": sch, "kv_handoff": kvh, "serve_mixtral": mx,
+             "serve_mixtral_dropless": mxd, **served, **trains, "evoformer": ev}
     line = []
     # each mode (window, ALiBi, layout bitmap, wide group, head_dim 80, 96
     # and 256) is a path of its kernel: same source, same TPU kernel

@@ -16,14 +16,22 @@ decode_multi_fn and put()'s decode rows replay the matching graph, and a
 program without one runs eagerly, as a JAX program compiles on first use.
 
 The engine serves on one GPU, from bf16/f32 or int8 KV pools
-(kv_cache_dtype="int8"), dense, sliding-window and block-sparse models:
-logits, or tokens sampled on the device (inference/sampling.py) with the
-JAX engine's per-row streams. Weights may be quantized (`quantization`,
-the JAX engine's argument): per-channel int8 ({"bits": 8, "per_channel":
-True}), whose products stream the codes through the W8A16 GEMM, or
-groupwise int8/int4 ({"bits", "group_size", "min_ndim"}), dequantized to
-the serving dtype at the entry of each program, as the JAX engine does in
-each compiled step.
+(kv_cache_dtype="int8"), dense, sliding-window, block-sparse and
+Mixtral-class MoE models: logits, or tokens sampled on the device
+(inference/sampling.py) with the JAX engine's per-row streams. Weights may
+be quantized (`quantization`, the JAX engine's argument): per-channel int8
+({"bits": 8, "per_channel": True}), whose products stream the codes
+through the W8A16 GEMM and whose MoE expert stacks stay groupwise int8
+until the MLP uses them, or groupwise int8/int4 ({"bits", "group_size",
+"min_ndim"}), dequantized to the serving dtype at the entry of each
+program, as the JAX engine does in each compiled step.
+
+MoE expert census (`moe_census=True`): a device buffer of X int64
+counters to which every MoE application of every program (prefill, the
+decode step, decode_multi, greedy or sampled, warmup's runs and every
+replay of a captured graph) adds its per-expert routed-row counts, pad rows
+included, as the JAX engine's census callback counts them;
+`moe_expert_census()` reads it on demand.
 
 generate() and generate_speculative() are thin wrappers over the serving
 scheduler (inference/scheduler.py), as in the JAX engine. export_kv and
@@ -111,9 +119,6 @@ class InferenceConfig:
         if self.kv_cache_dtype not in ("auto", "int8"):
             raise ValueError(
                 f"kv_cache_dtype must be 'auto' or 'int8' (got {self.kv_cache_dtype!r})")
-        if self.moe_census:
-            raise NotImplementedError(
-                "moe_census: MoE models are not served by this slice")
 
     @property
     def blocks_per_seq(self) -> int:
@@ -180,6 +185,11 @@ class InferenceEngine:
                 ranks=[0])
         self.graphs = DecodeGraphs(self.device)
         self.warmup_footprints: Dict[int, Dict[str, float]] = {}
+        # the MoE expert census: one device buffer for the engine's life
+        # (captured graphs add to it in place); None when off or dense
+        self._census_enabled = self.config.moe_census and model_config.n_experts > 0
+        self._census = (torch.zeros((model_config.n_experts,), dtype=torch.int64,
+                                    device=self.device) if self._census_enabled else None)
         self.refresh_params(params)
         self.state = StateManager(
             num_blocks=self.config.num_kv_blocks,
@@ -238,9 +248,13 @@ class InferenceEngine:
         elif self._quantization:
             prepared = quantize_for_inference(prepared, **self._quantization)
         self.params = prepared
-        # groupwise codes are dequantized at each program's entry;
-        # per-channel codes feed the products directly (model._wmm)
-        groupwise = any(isinstance(x, QuantizedWeight) for x in leaves(prepared))
+        # groupwise codes are dequantized at each program's entry, as the
+        # JAX engine does in its groupwise lane; in the per-channel lane the
+        # codes feed the products directly (model._wmm) and an MoE layer's
+        # groupwise expert stacks dequantize inside the MLP (model._mlp):
+        # Mixtral-8x7B's whole tree in bf16 would not fit the card
+        groupwise = not self._per_channel and any(
+            isinstance(x, QuantizedWeight) for x in leaves(prepared))
         self._dequant = dequantize_tree if groupwise else (lambda p: p)
         dropped = self.graphs.clear()
         if dropped:  # they read the old weight tensors
@@ -274,13 +288,15 @@ class InferenceEngine:
         if n_steps == 0:
             def run(params, cache, toks, tables, ctx):
                 return (M.decode_step(deq(params), cache, toks, tables, ctx, cfg,
-                                      unique_rows=uniq, **extras(tables))[0],)
+                                      unique_rows=uniq, census=self._census,
+                                      **extras(tables))[0],)
             return run
 
         def run(params, cache, toks, tables, ctx, keys=None, step0=None, presence=None):
             gen, logits, _, pres = M.decode_multi(
                 deq(params), cache, toks, tables, ctx, cfg, n_steps=n_steps, unique_rows=uniq,
-                sampling=sampling, keys=keys, step0=step0, presence=presence, **extras(tables))
+                sampling=sampling, keys=keys, step0=step0, presence=presence,
+                census=self._census, **extras(tables))
             return gen, logits, pres
         return run
 
@@ -332,7 +348,8 @@ class InferenceEngine:
             if tuple(np.shape(tokens)) != (bp, tp):
                 raise ValueError(f"_prefill_batch_fn({bp}, {tp}) got {np.shape(tokens)}")
             return M.prefill_batch(self._dequant(params), cache, self._dev(tokens),
-                                   self._dev(n_real), self._dev(tables), self.cfg)
+                                   self._dev(n_real), self._dev(tables), self.cfg,
+                                   census=self._census)
 
         return step
 
@@ -360,6 +377,15 @@ class InferenceEngine:
             return gen, logits, cache, pres
 
         return step
+
+    def moe_expert_census(self) -> np.ndarray:
+        """[X] int64 cumulative per-expert routed-row counts (over layers
+        and steps; InferenceConfig.moe_census): a read of the device
+        buffer, which waits for the work queued before it. Zeros of length
+        max(n_experts, 1) when the census is off, as the JAX engine's."""
+        if self._census is None:
+            return np.zeros((max(self.cfg.n_experts, 1),), np.int64)
+        return self._census.cpu().numpy().astype(np.int64)
 
     def _sample_fn(self, scfg: SamplingConfig, with_presence: bool):
         """The sampling epilogue over a [n, V] logits batch (put()'s token

@@ -62,9 +62,25 @@ What is served:
   GEMM (ops/cuda/int8_matmul.py) streaming the codes, with the scale
   applied to its output; the embedding lookup gathers code rows and scales
   them. Groupwise weights (QuantizedWeight) are dequantized by the engine
-  before a program runs and reach this module as full-precision tensors.
+  before a program runs and reach this module as full-precision tensors,
+  except the MoE expert stacks of a per-channel int8 tree (below);
+- Mixtral-class MoE models (cfg.n_experts > 0; `_mlp`): an f32 router
+  (h.float() @ w_router.float()), the dropless gating authority of
+  moe/dropless.py (exact, capacity-free top-k; ties to the lowest expert),
+  and either the scan over the experts (the default: every expert's MLP
+  over every token, combined by its column of the [T, X] weights) or,
+  under cfg.moe_dropless, the ragged wire: sort by expert, three grouped
+  GEMMs (w_gate, w_in, w_out; the hand-written kernel of ops/cuda/
+  grouped_gemm.py under use_kernel), a weighted combine in ascending
+  expert order; PR-MoE's residual expert and mix (`_moe_residual`). In
+  the per-channel int8 lane the expert stacks are groupwise int8
+  (QuantizedWeight, group 128, as the JAX package's quantize_layer) and
+  are dequantized where they are used: one expert at a time in the scan,
+  the layer's stacks before the grouped GEMMs. `census` (an [X] int64
+  device tensor) adds each application's per-expert routed-row counts, pad
+  rows included, as the JAX package's census_cb reports them.
 
-`check_served` raises for the rest (learned positions, MoE, activation
+`check_served` raises for the rest (learned positions, activation
 quantization: `T.unported_features`).
 """
 
@@ -74,6 +90,7 @@ import numpy as np
 import torch
 
 from ..models import transformer as T
+from ..moe.dropless import dropless_apply, dropless_topk_gating, expert_counts
 from ..ops.attention import _repeat_kv, causal_attention
 from ..ops.cuda.int8_matmul import int8_matmul, int8_matmul_plain
 from ..ops.cuda.paged_attention import (
@@ -88,7 +105,8 @@ from ..ops.cuda.paged_attention import (
     paged_kv_write_quant_plain,
 )
 from ..ops.sparse_attention import gather_plan, sparse_causal_attention
-from .quantization import ChannelQuantWeight, channel_quantize
+from ..ops.quantization import quantize_groupwise
+from .quantization import ChannelQuantWeight, QuantizedWeight, _dtype_name, channel_quantize
 
 
 def check_served(cfg: T.TransformerConfig) -> None:
@@ -96,8 +114,8 @@ def check_served(cfg: T.TransformerConfig) -> None:
     bad = T.unported_features(cfg)
     if bad:
         raise NotImplementedError(
-            "the serving slices serve Llama-, Bloom-, Falcon-, Phi-, GPT-NeoX- and "
-            "GPT-J-class models only; "
+            "the serving slices serve Llama-, Bloom-, Falcon-, Phi-, GPT-NeoX-, GPT-J- and "
+            "Mixtral-class models only; "
             f"this config uses {', '.join(bad)} (later slices port them)")
 
 
@@ -141,11 +159,15 @@ def prepare_layer(lp: Dict[str, Any], cfg: T.TransformerConfig) -> Dict[str, Any
 
 
 # per-layer serving weight name -> how many leading dims its product
-# contracts (per-channel quantization; the JAX package's _SERVING_SPECS,
-# limited to what the port serves: norm scales and biases stay full
-# precision, MoE is not served)
+# contracts (per-channel quantization; the JAX package's _SERVING_SPECS:
+# norm scales, biases, the router and PR-MoE's mixing coefficients stay
+# full precision)
 _SERVING_SPECS = {"w_qkv": 1, "wq": 1, "wk": 1, "wv": 1, "wo": 2, "w_gi": 1, "w_gate": 1,
-                  "w_in": 1, "w_out": 1}
+                  "w_in": 1, "w_out": 1, "wr_in": 1, "wr_gate": 1, "wr_out": 1}
+# MoE expert stacks [X, ...]: groupwise int8 (group, bits) in the
+# per-channel lane, as the JAX package's quantize_layer parks them
+_EXPERT_STACKS = ("w_gate", "w_in", "w_out")
+EXPERT_GROUP = 128
 
 
 def quantize_prepared(prepared: Dict[str, Any], cfg: T.TransformerConfig) -> Dict[str, Any]:
@@ -165,11 +187,25 @@ def quantize_prepared(prepared: Dict[str, Any], cfg: T.TransformerConfig) -> Dic
 
 def quantize_layer(lp: Dict[str, Any], cfg: T.TransformerConfig) -> Dict[str, Any]:
     """Per-channel int8 for one prepared layer (see quantize_prepared): the
-    weights of _SERVING_SPECS, each with its contraction's dims."""
+    weights of _SERVING_SPECS, each with its contraction's dims. An MoE
+    layer's expert stacks take groupwise int8 instead (QuantizedWeight,
+    groups of EXPERT_GROUP along the last dim: a per-output-channel scale
+    does not survive the stacked expert dim), dequantized where `_mlp`
+    uses them: the JAX package's quantize_layer, code for code."""
     check_served(cfg)
-    return {name: (channel_quantize(w, _SERVING_SPECS[name])
-                   if name in _SERVING_SPECS and isinstance(w, torch.Tensor) else w)
-            for name, w in lp.items()}
+    out = {}
+    for name, w in lp.items():
+        if not isinstance(w, torch.Tensor):
+            out[name] = w  # quantized already
+        elif cfg.n_experts > 0 and name in _EXPERT_STACKS:
+            q, scale = quantize_groupwise(w, EXPERT_GROUP, 8)
+            out[name] = QuantizedWeight(q=q, scale=scale, bits=8,
+                                        dtype_name=_dtype_name(w))
+        elif name in _SERVING_SPECS:
+            out[name] = channel_quantize(w, _SERVING_SPECS[name])
+        else:
+            out[name] = w
+    return out
 
 
 def _wmm(x: torch.Tensor, w, use_kernel: bool, n_contract: int = 1) -> torch.Tensor:
@@ -371,10 +407,96 @@ def _write_kv(cache: PagedCache, li: int, k_new, v_new, flat_idx, use_kernel: bo
         write(cache.k[li], cache.v[li], k_new, v_new, flat_idx)
 
 
-def _mlp(h: torch.Tensor, lp, cfg: T.TransformerConfig, use_kernel: bool = True) -> torch.Tensor:
-    """Dense FFN over [T, E] tokens: gated (with the fused [E, 2F] gate|up
-    weight when the prepared layout carries it) or not, with the biases
-    the layer has. As in the JAX package, a gated MLP takes only b_out."""
+def _expert(w, e: int, dtype: torch.dtype) -> torch.Tensor:
+    """Expert e's weight of a stack [X, ...] in `dtype`; a groupwise int8
+    stack dequantizes that expert's slice alone (the same values as the
+    whole stack's dequant, a 1/X of its transient memory)."""
+    if isinstance(w, QuantizedWeight):
+        w = QuantizedWeight(q=w.q[e], scale=w.scale[e], bits=w.bits,
+                            dtype_name=w.dtype_name).dequantize()
+    else:
+        w = w[e]
+    return w.to(dtype)
+
+
+def _deq(w) -> torch.Tensor:
+    """A whole expert stack as a tensor (a groupwise int8 one dequantized)."""
+    return w.dequantize() if isinstance(w, QuantizedWeight) else w
+
+
+def _moe_mlp(h: torch.Tensor, lp, cfg: T.TransformerConfig, use_kernel: bool,
+             census: Optional[torch.Tensor]) -> torch.Tensor:
+    """The MoE FFN over [T, E] tokens (the JAX package's _mlp MoE branch):
+    the f32 router, the dropless gating authority, then the dropless wire
+    (cfg.moe_dropless) or the scan over the experts; PR-MoE's residual.
+    Nothing reads the device from the host, so a CUDA graph captures it."""
+    act = T._act_fn(cfg)
+    X = cfg.n_experts
+    T_ = h.shape[0]
+    logits = h.float() @ lp["w_router"].float()
+    idx, wts, _, _ = dropless_topk_gating(logits, cfg.moe_top_k)  # eval gate: no noise
+    counts = expert_counts(idx, X)
+    if census is not None:
+        census.add_(counts)
+    if cfg.moe_dropless:
+        # one grouped GEMM a projection over the expert-sorted rows
+        out = dropless_apply(
+            h, idx, wts, counts, _deq(lp["w_in"]), _deq(lp["w_out"]),
+            w_gate=_deq(lp["w_gate"]) if cfg.is_gated else None,
+            b_in=lp.get("b_in"), b_out=lp.get("b_out"), act=act,
+            impl="ragged" if use_kernel else "dense")
+        return _moe_residual(out, h, lp, cfg, act, use_kernel)
+    # the combine weights [T, X] of the top-k decisions, one column an expert
+    weights = torch.zeros((T_, X), dtype=torch.float32, device=h.device).scatter_(1, idx, wts)
+    wcols = weights.t().to(h.dtype)
+    has_bias = "b_in" in lp
+    out = torch.zeros_like(h)
+    for e in range(X):
+        w_in, w_out = _expert(lp["w_in"], e, h.dtype), _expert(lp["w_out"], e, h.dtype)
+        if cfg.is_gated:
+            inner = act(h @ _expert(lp["w_gate"], e, h.dtype)) * (h @ w_in)
+            y = inner @ w_out
+        else:
+            inner = h @ w_in
+            if has_bias:
+                inner = inner + lp["b_in"][e].to(h.dtype)
+            y = act(inner) @ w_out
+            if has_bias:
+                y = y + lp["b_out"][e].to(h.dtype)
+        out = out + wcols[e][:, None] * y
+    return _moe_residual(out, h, lp, cfg, act, use_kernel)
+
+
+def _moe_residual(out: torch.Tensor, h: torch.Tensor, lp, cfg: T.TransformerConfig, act,
+                  use_kernel: bool) -> torch.Tensor:
+    """PR-MoE's serving tail: the dense residual expert and the learned
+    mix, out * c0 + dense * c1 with c = softmax(h @ w_coef + b_coef) in f32
+    (the JAX package's _moe_residual). No-op unless cfg.moe_use_residual."""
+    if not cfg.moe_use_residual:
+        return out
+    mm = lambda a, name: _wmm(a, lp[name], use_kernel)
+    if cfg.is_gated:
+        inner = act(mm(h, "wr_gate")) * mm(h, "wr_in")
+    else:
+        inner = mm(h, "wr_in")
+        if "br_in" in lp:
+            inner = inner + lp["br_in"].to(h.dtype)
+        inner = act(inner)
+    dense = mm(inner, "wr_out")
+    if "br_out" in lp:
+        dense = dense + lp["br_out"].to(h.dtype)
+    coef = torch.softmax(h.float() @ lp["w_coef"].float() + lp["b_coef"].float(), dim=-1)
+    return out * coef[:, 0:1].to(h.dtype) + dense * coef[:, 1:2].to(h.dtype)
+
+
+def _mlp(h: torch.Tensor, lp, cfg: T.TransformerConfig, use_kernel: bool = True,
+         census: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """FFN over [T, E] tokens. Dense: gated (with the fused [E, 2F]
+    gate|up weight when the prepared layout carries it) or not, with the
+    biases the layer has; as in the JAX package, a gated MLP takes only
+    b_out. MoE: `_moe_mlp`, whose routed-row counts `census` adds up."""
+    if cfg.n_experts > 0:
+        return _moe_mlp(h, lp, cfg, use_kernel, census)
     act = T._act_fn(cfg)
     mm = lambda a, name: _wmm(a, lp[name], use_kernel)
     if not cfg.is_gated:
@@ -400,7 +522,8 @@ def _attn_out(att: torch.Tensor, lp, use_kernel: bool = True) -> torch.Tensor:
 
 
 def _residual(x: torch.Tensor, h1: torch.Tensor, att_out: torch.Tensor, lp,
-              cfg: T.TransformerConfig, use_kernel: bool = True) -> torch.Tensor:
+              cfg: T.TransformerConfig, use_kernel: bool = True,
+              census: Optional[torch.Tensor] = None) -> torch.Tensor:
     """The layer's output from its input x [T, E] (any leading dims), its
     normed input h1 = ln1(x) and its attention delta: sequential, x + a +
     mlp(ln2(x + a)); parallel (Falcon, Phi), x + a + mlp(ln2(x)), with
@@ -409,10 +532,11 @@ def _residual(x: torch.Tensor, h1: torch.Tensor, att_out: torch.Tensor, lp,
     if cfg.parallel_residual:
         h2 = h1 if cfg.shared_ln else T._norm(x, lp["ln2_scale"], lp.get("ln2_bias"), cfg)
         return x + att_out + _mlp(h2.reshape(-1, h2.shape[-1]), lp, cfg,
-                                  use_kernel).reshape(x.shape)
+                                  use_kernel, census).reshape(x.shape)
     x = x + att_out
     h2 = T._norm(x, lp["ln2_scale"], lp.get("ln2_bias"), cfg)
-    return x + _mlp(h2.reshape(-1, h2.shape[-1]), lp, cfg, use_kernel).reshape(x.shape)
+    return x + _mlp(h2.reshape(-1, h2.shape[-1]), lp, cfg, use_kernel,
+                    census).reshape(x.shape)
 
 
 def _decode_attention(cache: PagedCache, li: int, q, tables, ctx, use_kernel: bool,
@@ -473,7 +597,7 @@ def _qkv(h1: torch.Tensor, lp, cfg: T.TransformerConfig, use_kernel: bool = True
 def decode_step(params, cache: PagedCache, tokens, tables, ctx_lens,
                 cfg: T.TransformerConfig, use_kernel: bool = True,
                 unique_rows: bool = False, alibi: Optional[torch.Tensor] = None,
-                layout: Optional[torch.Tensor] = None):
+                layout: Optional[torch.Tensor] = None, census: Optional[torch.Tensor] = None):
     """tokens [S] int32, tables [S, NB] int32, ctx_lens [S] int32 (context
     length INCLUDING the new token) -> (logits [S, V] f32, cache).
 
@@ -493,7 +617,8 @@ def decode_step(params, cache: PagedCache, tokens, tables, ctx_lens,
     (_sparse_layout). A sparse model's decode attention takes the kernels'
     layout bitmap when use_kernel and the layout block is a multiple of
     the cache block, else the per-position mask and no fused write (the
-    JAX package's routing)."""
+    JAX package's routing). census: an MoE model's [X] int64 expert census,
+    added to in every layer (every row, pad rows included)."""
     if not is_prepared(params):
         params = prepare(params, cfg)
     bs = cache.block_size
@@ -536,7 +661,7 @@ def decode_step(params, cache: PagedCache, tokens, tables, ctx_lens,
             _write_kv(cache, li, k, v, flat_idx, use_kernel)
             att = _decode_attention(cache, li, q, tables, ctx_lens, use_kernel, window,
                                     alibi=alibi, allowed_slots=allowed_slots, allowed=allowed)
-        x = _residual(x, h1, _attn_out(att, lp, use_kernel), lp, cfg, use_kernel)
+        x = _residual(x, h1, _attn_out(att, lp, use_kernel), lp, cfg, use_kernel, census)
 
     x = T._norm(x, params["ln_f_scale"], params.get("ln_f_bias"), cfg)
     return _lm_logits(x, params, cfg, use_kernel), cache
@@ -546,7 +671,7 @@ def decode_multi(params, cache: PagedCache, tokens, tables, ctx_lens,
                  cfg: T.TransformerConfig, n_steps: int, use_kernel: bool = True,
                  unique_rows: bool = True, sampling=None, keys=None, step0=None,
                  presence=None, alibi: Optional[torch.Tensor] = None,
-                 layout: Optional[torch.Tensor] = None):
+                 layout: Optional[torch.Tensor] = None, census: Optional[torch.Tensor] = None):
     """Multi-token decode: n_steps decode_steps in a Python loop (the JAX
     package's lax.scan), each step's token fed back as the next input and
     ctx advanced by one. Block tables must already cover ctx_lens +
@@ -559,7 +684,7 @@ def decode_multi(params, cache: PagedCache, tokens, tables, ctx_lens,
     counter step0[s] + i ([S] int32); presence [S, V] uint8 (the
     repetition penalty's seen tokens) is updated with each step's tokens
     as max(presence, one_hot(token)). alibi and layout: as decode_step,
-    made here once for all steps when not given.
+    made here once for all steps when not given; census as decode_step.
 
     Returns (generated [n_steps, S] int32, final logits [S, V] f32, cache,
     final presence or None)."""
@@ -578,7 +703,8 @@ def decode_multi(params, cache: PagedCache, tokens, tables, ctx_lens,
     gen = []
     for i in range(n_steps):
         logits, cache = decode_step(params, cache, toks, tables, ctx, cfg, use_kernel,
-                                    unique_rows=unique_rows, alibi=alibi, layout=layout)
+                                    unique_rows=unique_rows, alibi=alibi, layout=layout,
+                                    census=census)
         if sampling is None:
             toks = logits.argmax(dim=-1).to(torch.int32)
         else:
@@ -598,7 +724,8 @@ def decode_multi(params, cache: PagedCache, tokens, tables, ctx_lens,
 # ---------------------------------------------------------------------------
 
 def prefill_batch(params, cache: PagedCache, tokens, n_real, tables,
-                  cfg: T.TransformerConfig, use_kernel: bool = True):
+                  cfg: T.TransformerConfig, use_kernel: bool = True,
+                  census: Optional[torch.Tensor] = None):
     """Cross-prompt batched prefill: tokens [B, Tp] int32 (padded), n_real
     [B] int32, tables [B, NB] int32 -> (last-real-token logits [B, V] f32,
     cache). Attention over each prompt is causal flash (a block-sparse
@@ -606,7 +733,7 @@ def prefill_batch(params, cache: PagedCache, tokens, n_real, tables,
     dense attention under the layout's token mask); the new KV rows of
     every prompt scatter into the paged cache in one write per layer, in
     place. Rows with n_real == 0 are batch padding (garbage logits, their
-    KV writes dropped)."""
+    KV writes dropped). census: as decode_step (all B * Tp rows count)."""
     B, Tp = tokens.shape
     if not is_prepared(params):
         params = prepare(params, cfg)
@@ -649,7 +776,7 @@ def prefill_batch(params, cache: PagedCache, tokens, n_real, tables,
         else:
             att = causal_attention(q, k, v, use_flash=use_kernel,
                                    window=cfg.window_for_layer(li), alibi=alibi)
-        x = _residual(x, h1, _attn_out(att, lp, use_kernel), lp, cfg, use_kernel)
+        x = _residual(x, h1, _attn_out(att, lp, use_kernel), lp, cfg, use_kernel, census)
 
     # logits for each prompt's last REAL token only: gather before the
     # vocab product so the head runs on B tokens, not B * Tp

@@ -1306,7 +1306,9 @@ class ServingScheduler:
         over finished requests), queue depth, the counters, and the
         engine's decode programs run eagerly and replayed (on the GPU an
         eager run after warmup is a width warmup did not capture: the
-        port's counterpart of the JAX engine's recompile count)."""
+        port's counterpart of the JAX engine's recompile count), and on an
+        MoE engine with moe_census the expert census: moe_census_tokens,
+        moe_expert_{i}_share and moe_imbalance."""
         def pct(xs, q):
             return float(np.percentile(np.asarray(xs), q) * 1e3) if xs \
                 else 0.0
@@ -1342,6 +1344,18 @@ class ServingScheduler:
             m.update(self.governor.metrics())
         if self.spill_store is not None:
             m.update(self.spill_store.stats())
+        # MoE expert census (InferenceConfig.moe_census): the cumulative
+        # routed-row share of each expert and the imbalance max / mean (1.0:
+        # a balanced router; a rising ratio: hot experts serialize the
+        # grouped GEMM). One read of the engine's device counters.
+        if getattr(self.engine, "_census_enabled", False):
+            census = self.engine.moe_expert_census()
+            total = int(census.sum())
+            m["moe_census_tokens"] = float(total)
+            if total:
+                for i, c in enumerate(census):
+                    m[f"moe_expert_{i}_share"] = float(c) / total
+                m["moe_imbalance"] = float(census.max() / max(float(census.mean()), 1e-9))
         for k, v in self.counters.items():
             m[k] = float(v)
         for cls, v in sorted(self.slo_rejections.items()):

@@ -19,7 +19,10 @@ non-gated MLP, an embedding LayerNorm) and Falcon/Phi-class ones
 lm_head bias, head_dim 80) and GPT-NeoX- and GPT-J-class ones (head_dim
 96 and 256, interleaved partial rotary): `unported_features`; serving
 also covers block-sparse models (attention_impl="sparse", the layout of
-`sparsity_config()`); training runs without dropout (`check_trained`).
+`sparsity_config()`) and Mixtral-class MoE models (n_experts > 0: the
+expert stacks, w_router and PR-MoE's residual leaves are in `init` and
+`param_count`); training runs dense models without dropout
+(`check_trained`).
 """
 
 import dataclasses
@@ -613,11 +616,12 @@ def unported_features(cfg: TransformerConfig) -> List[str]:
     embedding LayerNorm, sequential or parallel residuals with one shared
     or two LayerNorms, an lm_head bias, head dims 64, 80, 96, 128 and 256
     in every serving kernel; dense, sliding-window or block-sparse
-    attention); empty when it is covered. Training covers less
+    attention; dense or Mixtral-class MoE MLPs, top-k over the expert
+    stacks by the scan or the dropless grouped-GEMM path, with PR-MoE's
+    residual expert); empty when it is covered. Training covers less
     (`check_trained`)."""
     unsupported = {
         "learned positions (GPT-2/OPT)": cfg.use_learned_pos,
-        "MoE (n_experts > 0)": cfg.n_experts > 0,
         "activation quantization": cfg.activation_quant_bits > 0,
         "pipeline-partitioned layers": cfg.pipeline_stages > 1,
         "use_flash=False (dense attention)": not cfg.use_flash,
@@ -635,6 +639,8 @@ def check_trained(cfg: TransformerConfig) -> None:
     dims 80, 96 and 256), on the card through the flash kernels #1-#3 at
     every one of those head dims."""
     bad = unported_features(cfg) + [name for name, hit in {
+        "MoE (n_experts > 0: served, not trained; the capacity paths, the a2a wire and "
+        "the grouped GEMM's backward come with ROADMAP A2/A13)": cfg.n_experts > 0,
         "sparse attention (the training forward's sparse_causal_attention branch, "
         "ROADMAP A2)": cfg.attention_impl == "sparse",
         "dropout > 0": cfg.dropout > 0.0,

@@ -20,6 +20,7 @@ from typing import Dict
 
 from . import evoformer_attention as _evo
 from . import flash_attention as _flash
+from . import grouped_gemm as _grouped_gemm
 from . import int8_matmul as _int8_matmul
 from . import paged_attention as _paged
 from ._common import MODE_COUNTERS
@@ -39,6 +40,7 @@ WRAPPERS = {
     "evoformer_bwd_dkv": _evo.evoformer_bwd_dkv,
     "evoformer_bwd_db2": _evo.evoformer_bwd_db2,
     "int8_matmul": _int8_matmul.int8_matmul,
+    "grouped_gemm": _grouped_gemm.grouped_gemm,
 }
 
 MODES = {mode: tuple(name for name, fn in WRAPPERS.items() if hasattr(fn, attr))

@@ -39,7 +39,7 @@ from typing import Dict, Iterable, Optional
 CSRC = Path(__file__).resolve().parents[2] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
 SOURCES = ("paged_kv_write", "paged_decode", "flash_fwd", "flash_bwd", "evoformer_fwd",
-           "evoformer_bwd", "evoformer_db2", "int8_matmul")
+           "evoformer_bwd", "evoformer_db2", "int8_matmul", "grouped_gemm")
 ARCH_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a")
 NVCC_FLAGS = ARCH_FLAGS + ("-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
                            "-Xptxas", "-v")
@@ -82,6 +82,8 @@ SIGNATURES = {
     "int8_matmul": {"int8_matmul": [_P] * 6 + [_I] * 6 + [_P],
                     # host nanoseconds to make a call's two TMA maps `iters` times
                     "int8_matmul_encode_ns": [_P] * 2 + [_I] * 5},
+    # out, xs, w, counts; A, K, N, X
+    "grouped_gemm": {"grouped_gemm": [_P] * 4 + [_I] * 4 + [_P]},
 }
 
 _loaded: Dict[str, ctypes.CDLL] = {}

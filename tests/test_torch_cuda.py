@@ -2820,3 +2820,111 @@ class TestInt8MatmulOnCard:
                                       unique_rows=True)[0].float())
         np.testing.assert_allclose(outs[0].cpu().numpy(), outs[1].cpu().numpy(),
                                    atol=0.05 * float(outs[1].abs().max()), rtol=0)
+
+
+# (A, K, N, counts): decode and prefill rows at Mixtral-8x7B's products, a
+# ragged K and N (multiples of 8), segments of 1 row, past a 64-row tile,
+# an empty expert, every row in the first, a middle and the last expert,
+# rows past the segments
+GROUPED_CASES = {
+    "decode_gate_in": (16, 4096, 14336, [3, 2, 0, 4, 1, 0, 5, 1]),
+    "decode_out": (16, 14336, 4096, [0, 0, 16, 0, 0, 0, 0, 0]),
+    "prefill_gate_in": (1024, 4096, 14336, [130, 64, 0, 300, 1, 129, 200, 200]),
+    "ragged_k_n": (200, 1000, 136, [65, 1, 63, 0, 71]),
+    "all_first": (129, 256, 384, [129, 0, 0, 0]),
+    "all_last": (129, 256, 384, [0, 0, 0, 129]),
+    "rows_past_segments": (100, 256, 384, [10, 0, 20, 30]),
+}
+
+
+@pytest.mark.cuda
+class TestGroupedGemmOnCard:
+    """The grouped GEMM (csrc/grouped_gemm.cu) against its plain version
+    (the masked scan) on the same bf16 inputs, under chip_smoke.py's
+    tolerance (bwd_mismatch's row-scaled limit): decode and prefill rows,
+    skewed and empty segments, rows past the segments left zero; two
+    launches bit-identical; a launch captured in a CUDA graph replaying
+    bit-identical to eager, also after its counts change in place; the
+    build that starts segment 1 one row late failing; wrong inputs
+    raising."""
+
+    def _case(self, name, dev, seed=0):
+        A, K, N, counts = GROUPED_CASES[name]
+        return _chip_smoke()._grouped_inputs(A, K, N, len(counts), np.array(counts, np.int32),
+                                             dev, seed)
+
+    @pytest.mark.parametrize("name", sorted(GROUPED_CASES))
+    def test_kernel_vs_plain(self, cuda_device, name):
+        from deepspeed_tpu_torch.ops.cuda import grouped_gemm as GG
+
+        xs, w, counts = self._case(name, cuda_device)
+        n0 = GG.grouped_gemm.launches
+        got = GG.grouped_gemm(xs, w, counts)
+        again = GG.grouped_gemm(xs, w, counts)
+        torch.cuda.synchronize()
+        assert GG.grouped_gemm.launches == n0 + 2
+        cs = _chip_smoke()
+        assert cs._same_bits(got, again)
+        ok, st = cs._grouped_within(got, GG.grouped_gemm_plain(xs, w, counts))
+        assert ok, st
+        n = int(counts.sum())
+        assert not got[n:].any() and got[:n].abs().amax(1).min() > 0
+
+    @pytest.mark.parametrize("name", ["decode_gate_in", "ragged_k_n"])
+    def test_graph_replay_follows_the_counts(self, cuda_device, name):
+        xs, w, counts = self._case(name, cuda_device)
+        from deepspeed_tpu_torch.ops.cuda import grouped_gemm as GG
+
+        other = counts.flip(0).contiguous()
+        assert _chip_smoke()._grouped_graph_check(GG, xs, w, counts, other)
+
+    def test_fault_build_fails(self, cuda_device):
+        from deepspeed_tpu_torch.ops.cuda import grouped_gemm as GG
+
+        cs = _chip_smoke()
+        xs, w, counts = self._case("ragged_k_n", cuda_device)
+        plain = GG.grouped_gemm_plain(xs, w, counts)
+        with build.routed("grouped_gemm", cs.FAULT_BUILDS["segment_1_one_row_late"]):
+            bad = GG.grouped_gemm(xs, w, counts)
+        ok, st = cs._grouped_within(bad, plain)
+        assert not ok, st
+        assert cs._grouped_within(GG.grouped_gemm(xs, w, counts), plain)[0]
+
+    def test_wrong_inputs_raise(self, cuda_device):
+        from deepspeed_tpu_torch.ops.cuda import grouped_gemm as GG
+
+        xs, w, counts = self._case("ragged_k_n", cuda_device)
+        with pytest.raises(ValueError, match="multiples of 8"):
+            GG.grouped_gemm(xs[:, :996].contiguous(), w[:, :996].contiguous(), counts)
+        with pytest.raises(TypeError):
+            GG.grouped_gemm(xs.float(), w, counts)
+        with pytest.raises(TypeError):
+            GG.grouped_gemm(xs, w, counts.long())
+        with pytest.raises(ValueError):
+            GG.grouped_gemm(xs, w, counts[:3].contiguous())
+
+    def test_dropless_layer_launches_three_times(self, cuda_device):
+        """One Mixtral-form MoE layer on the dropless path: three grouped
+        GEMM launches (w_gate, w_in, w_out), equal to the scan path's FFN
+        within bf16 rounding, two calls bit-identical."""
+        from deepspeed_tpu_torch.inference import model as M
+        from deepspeed_tpu_torch.models import transformer as T
+        from deepspeed_tpu_torch.ops.cuda import grouped_gemm as GG
+
+        over = dict(vocab_size=256, n_layers=1, n_heads=4, n_kv_heads=2, d_model=256,
+                    d_ff=512, variant="llama", n_experts=8, moe_top_k=2)
+        cfg = T.TransformerConfig(**over, moe_dropless=True)
+        params = T.init(cfg, torch.Generator(device=cuda_device).manual_seed(0),
+                        device=cuda_device, dtype=torch.bfloat16)
+        lp = M.prepare(params, cfg)["layers"][0]
+        h = torch.randn((40, 256), device=cuda_device).to(torch.bfloat16)
+        n0 = GG.grouped_gemm.launches
+        got = M._mlp(h, lp, cfg)
+        again = M._mlp(h, lp, cfg)
+        torch.cuda.synchronize()
+        assert GG.grouped_gemm.launches == n0 + 6
+        assert _chip_smoke()._same_bits(got, again)
+        scan = M._mlp(h, lp, T.TransformerConfig(**over))
+        assert GG.grouped_gemm.launches == n0 + 6
+        torch.testing.assert_close(got.float(), scan.float(), rtol=2e-2,
+                                   atol=2e-2 * float(scan.float().abs().max()))

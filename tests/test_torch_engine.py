@@ -110,7 +110,7 @@ class TestSurface:
     @pytest.mark.parametrize("config,exc", [
         ({"tp_size": 2}, NotImplementedError),
         ({"kv_cache_dtype": "int8", "tp_size": 2}, NotImplementedError),
-        ({"moe_census": True}, NotImplementedError),
+        ({"kv_cache_dtype": "int4"}, ValueError),
         ({"no_such_knob": 1}, TypeError),
         ({"max_batch_size": "8"}, TypeError),
         ({"prefix_cache": {"enabled": True, "bogus": 1}}, TypeError),
@@ -120,6 +120,21 @@ class TestSurface:
         with pytest.raises(exc):
             init_inference(self._params(), torch_config(), {**SERVE, **config},
                            device="cpu")
+
+    def test_moe_census_on_a_dense_model_counts_nothing(self):
+        """moe_census=True (it raised until MoE was served) on a dense model:
+        accepted, no counters, a census of one zero (as the JAX engine's),
+        and no moe_* metric in the scheduler's."""
+        from deepspeed_tpu_torch.inference import ServingScheduler, ServingSchedulerConfig
+
+        eng = init_inference(self._params(), torch_config(), {**SERVE, "moe_census": True},
+                             dtype=torch.float32, device="cpu")
+        sched = ServingScheduler(eng, ServingSchedulerConfig(warmup=False), seed=0)
+        sched.submit([1, 2, 3, 4, 5], 3)
+        sched.run()
+        assert not eng._census_enabled and eng._census is None
+        np.testing.assert_array_equal(eng.moe_expert_census(), np.zeros(1, np.int64))
+        assert not any(k.startswith("moe_") for k in sched.metrics())
 
     def test_unported_entry_points_raise(self):
         eng = init_inference(self._params(), torch_config(), dict(SERVE),

@@ -4,8 +4,9 @@ A fresh interpreter imports the port, serves a tiny model on the CPU end
 to end (prefill, single-token decode, chunked continuation, greedy
 decode_multi) from f32 and from int8 KV pools, drives the serving
 scheduler under pressure (spill to the host tier and resume, a corrupted
-spill caught by its digest, inference/ and resilience/), generate(), and
-an int8 export_kv/import_kv, takes one bf16 train step through `initialize` and runs
+spill caught by its digest, inference/ and resilience/), generate(), an
+int8 export_kv/import_kv and a dropless MoE engine on int8 weights with
+its expert census (moe/), takes one bf16 train step through `initialize` and runs
 one forward and backward of `ds4sci_evoformer_attention` with both
 biases; no kernel may launch, and afterwards neither `jax` nor
 `deepspeed_tpu` may be in sys.modules. A static scan of the port's sources and chip_smoke.py backs
@@ -85,6 +86,16 @@ assert sched.counters["spill_integrity_failures"] == 1, sched.counters
 assert eng.generate([[1, 2, 3]], max_new_tokens=4, do_sample=True, seed=3)
 q8.put([9], [r.integers(0, 512, 40)])
 q8.import_kv(10, q8.export_kv(9))
+mcfg = T.TransformerConfig(vocab_size=512, n_layers=2, n_heads=2, d_model=64, d_ff=128,
+                           max_seq=128, variant="llama", n_experts=4, moe_top_k=2,
+                           moe_dropless=True)
+moe = init_inference(T.init(mcfg, torch.Generator().manual_seed(1), device="cpu"), mcfg,
+                     dict(max_seq_len=128, kv_block_size=16, num_kv_blocks=16,
+                          min_prefill_bucket=16, max_batch_size=8, moe_census=True),
+                     dtype=torch.float32, device="cpu", quantization={"bits": 8,
+                                                                      "per_channel": True})
+assert len(moe.generate([[1, 2, 3], [4, 5]], max_new_tokens=4)[0]) == 4
+assert moe.moe_expert_census().sum() > 0
 assert K.launch_counts() == {n: 0 for n in K.WRAPPERS}  # CPU: no kernel launched
 bad = sorted(m for m in sys.modules if m == "jax" or m.startswith("jax.")
              or m == "deepspeed_tpu" or m.startswith("deepspeed_tpu."))

@@ -88,8 +88,10 @@ class TestConfigAndInit:
 
     @pytest.mark.parametrize("over", [
         # (ALiBi, parallel residuals and an lm_head bias stood here until
-        # they were served)
-        {"n_experts": 2}, {"variant": "gpt2"}, {"activation_quant_bits": 8}, {"use_flash": False},
+        # they were served; MoE, {"n_experts": 2}, until Mixtral-class
+        # serving: tests/test_torch_moe_serving.py)
+        {"pipeline_stages": 2}, {"variant": "gpt2"}, {"activation_quant_bits": 8},
+        {"use_flash": False},
     ])
     def test_unserved_configs_raise(self, over):
         with pytest.raises(NotImplementedError):

@@ -133,15 +133,21 @@ Phases (any failure raises and exits nonzero):
              [E, V], a cut tile's partial left out, a ring stage consumed
              stale, a warpgroup given the next 64 channels, a tile stored
              untransposed, rows past M stored (M 5 and 33); the grouped
-             GEMM of dropless MoE (grouped_gemm_checks) at Mixtral-8x7B's
-             two expert product shapes x decode (A 16) and prefill (A 1024)
-             rows x a routed draw with an empty expert and every row in one
-             expert: within bwd_mismatch of its plain version (the masked
-             scan), rows past the segments zero, two launches
-             bit-identical, a CUDA-graph replay bit-identical to eager
-             before and after its counts change, the build that starts
-             segment 1 a row late (FAULT_BUILDS) failing, timed beside
-             torch._grouped_mm; its design line
+             GEMM of dropless MoE (grouped_gemm_checks) in both forms, bf16
+             weights and groupwise int8 ones, at Mixtral-8x7B's two expert
+             product shapes x decode (A 16) and prefill (A 1024) rows x a
+             routed draw with an empty expert and every row in one expert:
+             within bwd_mismatch of its plain version (the masked scan; the
+             int8 stack dequantized first), rows past the segments zero,
+             two launches bit-identical, a CUDA-graph replay bit-identical
+             to eager before and after its counts change, the fault builds
+             (FAULT_BUILDS: segment 1 a row late, a ring stage read before
+             its barrier, a K split left out of the combine, the scale of
+             the next k row or group) failing, timed beside
+             torch._grouped_mm (bf16) and beside the route the int8 form
+             replaces (the dequantized stack, then the bf16 kernel), which
+             it must beat at decode; grouped_gemm_design (plans, shared
+             memory, ptxas); its design line
              (int8_matmul_design_checks: ptxas, shared memory, stages,
              CTAs an SM, host us a call for the tensor maps);
              time kernel, plain version and (where one exists) a single
@@ -261,19 +267,26 @@ Phases (any failure raises and exits nonzero):
              d_ff 14336, top-2, rope_theta 1e6, untied head; 46.7 B
              parameters) in the per-channel int8 lane, built and quantized
              layer by layer on the card (the expert stacks groupwise int8
-             in groups of 128), on bf16 pools through the scan path, with
-             the expert census: serve_int8w's counted traffic at b = 8
-             (only the W8A16 GEMM, #1, #6 and #5 launch), the census after
-             it exactly layers x 2 x the rows run, the three-path logits
-             check on the same codes (the bf16 paths routed by the f32
-             path's expert choices, their own flips counted), warmup and
-             the replay bit-identical to eager; resident weights under
-             0.55x the bf16 model's, peak under 76 GiB. Reports TTFT at
-             512, eager and replayed b8 tok/s beside the weight-read bound
-             and where a replay's device time goes.
+             in groups of 128), on bf16 pools, with the expert census, on
+             both MoE paths, one engine after the other on the same tree:
+             the scan over the experts and the dropless wire, each
+             running its expert products through the int8 grouped GEMM.
+             Each: serve_int8w's counted traffic at b = 8 (only the W8A16
+             GEMM, the int8 grouped GEMM 3 times a layer a forward, #1, #6
+             and #5 launch), the census after it exactly layers x 2 x the
+             rows run, the three-path logits check on the same codes (the
+             bf16 paths routed by the f32 path's expert choices, their own
+             flips counted; the dropless engine against the scan's plain
+             paths), warmup and the replay bit-identical to eager, no
+             library GEMM in a replay but the router's f32 product (its
+             kernels named); resident weights under 0.55x the bf16
+             model's, peak under 76 GiB. Reports TTFT at 512, eager and
+             replayed b8 tok/s beside the weight-read bound (the dropless
+             path: the experts its steps route to) and where a replay's
+             device time goes, by kernel.
 4n. serve_mixtral_dropless - Mixtral-8x7B's width 4 layers deep, bf16
              weights, moe_dropless: the same counted traffic launching the
-             grouped GEMM 3 times a layer a forward beside #1, #6 and #5,
+             bf16 grouped GEMM 3 times a layer a forward beside #1, #6 and #5,
              the census check, the logits of the dropless kernel path
              against the scan path's plain paths on the same weights
              (three-path, routed as in 4m), replays bit-identical; TTFT
@@ -508,6 +521,10 @@ KERNELS = {
     # jax.lax.ragged_dot in the JAX package (grouped_mm), no pallas_call
     "grouped_gemm": ("deepspeed_tpu_torch/csrc/grouped_gemm.cu",
                      "deepspeed_tpu/moe/dropless.py:134"),
+    # its int8 form: the same ragged_dot on the groupwise int8 expert stacks
+    # that the JAX package's _mlp dequantizes at use
+    "grouped_gemm_int8": ("deepspeed_tpu_torch/csrc/grouped_gemm.cu",
+                          "deepspeed_tpu/moe/dropless.py:134"),
 }
 TRAIN_KERNELS = ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv")
 SERVE_KERNELS = ("paged_kv_write", "paged_decode_fused", "paged_decode_attention", "flash_fwd")
@@ -3081,12 +3098,19 @@ WIDE_HEAD_DECODE_CUT = {"d96": 80, "d256": 128}
 # (columns 128-255) wgmma, decode's per-tile Q fragments (q_frag, the
 # 16-row slices at D 256) read for k-step ks + 1 at k-step ks, and the
 # backward's dkv hand-off losing the second 32 queries of each P^T tile on
-# its way to the dK warpgroup; and the grouped GEMM with segment 1 starting
-# one row late (its offset shifted by a row), at every shape
+# its way to the dK warpgroup; and the grouped GEMM (both forms) with segment
+# 1 starting one row late (its offset shifted by a row), with each
+# consumer reading ring stage it + 1 where it waited on stage it's barrier,
+# with the last K split left out of the combine, and (int8) with the scale
+# of the next k row or of the next column group (GROUPED_FAULTS)
 FAULT_BUILDS = {"pv_hi_product_skipped": "flash_fwd+DS_FAULT_PV_HI_SKIPPED",
                 "q_frag_of_the_next_k_step": "paged_decode+DS_FAULT_Q_FRAG_NEXT_KSTEP",
                 "handoff_second_half_lost": "flash_bwd+DS_FAULT_HANDOFF_HALF",
-                "segment_1_one_row_late": "grouped_gemm+DS_FAULT_SEGMENT_SHIFT"}
+                "segment_1_one_row_late": "grouped_gemm+DS_FAULT_SEGMENT_SHIFT",
+                "ring_stage_read_before_its_barrier": "grouped_gemm+DS_FAULT_STAGE_BEFORE_BARRIER",
+                "split_left_out_of_the_combine": "grouped_gemm+DS_FAULT_SPLIT_LEFT_OUT",
+                "scale_of_the_next_k_row": "grouped_gemm+DS_FAULT_SCALE_NEXT_ROW",
+                "scale_of_the_next_group": "grouped_gemm+DS_FAULT_SCALE_NEXT_GROUP"}
 
 
 def _head_dim_write_checks(PA, randn, dev, bound_ms, mode, KV, D):
@@ -3866,6 +3890,15 @@ GROUPED_SHAPES = {"gate_in": (4096, 14336), "out": (14336, 4096)}
 GROUPED_X = 8
 # assignment rows A = tokens x top-2: decode at b 8, the 512-token prefill
 GROUPED_A = {"decode": 16, "prefill": 1024}
+# the int8 form's scale group (inference/model.py EXPERT_GROUP)
+GROUPED_GROUP = 128
+# faults planted in the kernel's own code (FAULT_BUILDS) -> the forms they
+# are aimed at; the split's only where the plan splits K (decode)
+GROUPED_FAULTS = {"segment_1_one_row_late": ("bf16", "int8"),
+                  "ring_stage_read_before_its_barrier": ("bf16", "int8"),
+                  "split_left_out_of_the_combine": ("bf16", "int8"),
+                  "scale_of_the_next_k_row": ("int8",),
+                  "scale_of_the_next_group": ("int8",)}
 
 
 def _grouped_counts(A, X, routing, seed):
@@ -3895,6 +3928,17 @@ def _grouped_inputs(A, K, N, X, counts, dev, seed):
     xs = torch.randn((A, K), generator=g, device=dev).to(torch.bfloat16)
     w = (torch.randn((X, K, N), generator=g, device=dev) * K ** -0.5).to(torch.bfloat16)
     return xs, w, torch.as_tensor(counts, dtype=torch.int32, device=dev)
+
+
+def _grouped_int8_inputs(A, K, N, X, counts, dev, seed, group=GROUPED_GROUP):
+    """_grouped_inputs with w quantized groupwise as the int8 lane's expert
+    stacks are (ops/quantization.py quantize_groupwise: int8 codes [X, K,
+    N], f32 scales [X, K, N / group]): (xs, codes, scale, counts)."""
+    from deepspeed_tpu_torch.ops.quantization import quantize_groupwise
+
+    xs, w, counts = _grouped_inputs(A, K, N, X, counts, dev, seed)
+    codes, scale = quantize_groupwise(w, group, 8)
+    return xs, codes, scale, counts
 
 
 def _grouped_within(got, plain):
@@ -3932,113 +3976,178 @@ def _grouped_library(xs, w, counts):
         "torch.matmul a segment"
 
 
-def _grouped_graph_check(GG, xs, w, counts, other):
-    """One launch captured in a CUDA graph: its replay bit-identical to an
-    eager launch, and, after the counts are overwritten in place with
-    `other` (same A), a replay bit-identical to an eager launch on them
-    (the offsets come from the device at every launch)."""
+def _grouped_graph_check(run, counts, other):
+    """One launch of run(counts) captured in a CUDA graph: its replay
+    bit-identical to an eager launch, and, after the counts are overwritten
+    in place with `other` (same A), a replay bit-identical to an eager
+    launch on them (the offsets come from the device at every launch)."""
     import torch
 
-    s = torch.cuda.Stream(device=xs.device)
+    s = torch.cuda.Stream(device=counts.device)
     s.wait_stream(torch.cuda.current_stream())
     with torch.cuda.stream(s):
-        GG.grouped_gemm(xs, w, counts)
+        run(counts)  # the capture stream's split workspace, made outside the capture
     torch.cuda.current_stream().wait_stream(s)
     graph = torch.cuda.CUDAGraph()
-    with torch.cuda.graph(graph):
-        out = GG.grouped_gemm(xs, w, counts)
+    with torch.cuda.graph(graph, stream=s):
+        out = run(counts)
     saved = counts.clone()
     ok = []
     for c in (saved, other):
         counts.copy_(c)
         graph.replay()
-        ok.append(_same_bits(out.clone(), GG.grouped_gemm(xs, w, counts)))
+        ok.append(_same_bits(out.clone(), run(counts)))
     counts.copy_(saved)
     torch.cuda.synchronize()
     return all(ok)
 
 
+def _grouped_forms(GG, A, K, N, counts_h, dev, seed):
+    """form -> the bf16 and the int8 grouped GEMM on inputs made from
+    `seed` (the int8 stack quantized from the same weights): run(counts),
+    plain(), the library yardstick (fn, what) or None, the weight bytes an
+    active expert reads, the counts tensor; the int8 form also deq(), the
+    stack dequantized as the route it replaces made it, and its xs."""
+    import torch
+
+    from deepspeed_tpu_torch.ops.quantization import dequantize_groupwise
+
+    xs, w, counts = _grouped_inputs(A, K, N, GROUPED_X, counts_h, dev, seed)
+    xq, codes, scale, cq = _grouped_int8_inputs(A, K, N, GROUPED_X, counts_h, dev, seed)
+    return {
+        "bf16": dict(run=lambda c: GG.grouped_gemm(xs, w, c),
+                     plain=lambda: GG.grouped_gemm_plain(xs, w, counts),
+                     library=_grouped_library(xs, w, counts), w_bytes=K * N * 2,
+                     counts=counts),
+        "int8": dict(run=lambda c: GG.grouped_gemm_int8(xq, codes, scale, c),
+                     plain=lambda: GG.grouped_gemm_int8_plain(xq, codes, scale, cq),
+                     library=None, w_bytes=K * N + K * (N // GROUPED_GROUP) * 4, counts=cq,
+                     deq=lambda: dequantize_groupwise(codes, scale, torch.bfloat16), xs=xq),
+    }
+
+
 def _grouped_gemm_checks(dev, bound_ms):
-    """The grouped GEMM (csrc/grouped_gemm.cu) against its plain version
-    (the masked scan, grouped_gemm_plain) at Mixtral-8x7B's two product
-    shapes x decode (A 16) and prefill (A 1024) rows x a routed draw (an
-    empty expert) and every row in one expert: within _grouped_within,
-    rows past the segments zero, two launches bit-identical, a captured
-    launch's replays bit-identical to eager before and after its counts
-    change; the fault build that starts segment 1 one row late
-    (FAULT_BUILDS) must fail. Timed (device ms) beside the plain version,
-    the library yardstick (_grouped_library) and the bound: the rows, the
-    active experts' weights and the output once, 2 A K N operations. One
-    grouped_gemm_checks line; rows grouped_gemm (decode, w_gate/w_in) and
-    grouped_gemm@<A>_<shape> go to the kernel_check lines."""
+    """The grouped GEMM (csrc/grouped_gemm.cu) in both forms, bf16 weights
+    and groupwise int8 ones (codes and scales of quantize_groupwise, group
+    GROUPED_GROUP), against its plain versions (the masked scan,
+    grouped_gemm_plain, the int8 stack dequantized first) at Mixtral-8x7B's
+    two product shapes x decode (A 16) and prefill (A 1024) rows x a routed
+    draw (an empty expert) and every row in one expert: within
+    _grouped_within, rows past the segments zero, two launches
+    bit-identical, a captured launch's replays bit-identical to eager
+    before and after its counts change; the fault builds of
+    GROUPED_FAULTS must fail on the routed draws beside the genuine
+    kernel's pass (the split's where the plan splits K). Timed on the
+    routed draws (device ms) beside the plain version, the library
+    yardstick (_grouped_library; none for int8) and the bound (the rows,
+    the active experts' weights and the output once, 2 A K N operations);
+    the int8 form also beside the route it replaces (dequantize_groupwise
+    of the stack, then the bf16 grouped GEMM) and that dequant alone. One
+    grouped_gemm_checks line (rows, plans, shared memory, ptxas
+    registers and spills of each instantiation); rows grouped_gemm /
+    grouped_gemm_int8 (decode, w_gate/w_in) and <name>@<A>_<shape> go to
+    the kernel_check lines."""
     import torch
 
     from deepspeed_tpu_torch.ops.cuda import build
     from deepspeed_tpu_torch.ops.cuda import grouped_gemm as GG
+    from deepspeed_tpu_torch.ops.cuda.paged_attention import _sm_count
 
     reduced = torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction
     # the plain version's bf16 GEMMs sum in f32 throughout: a tighter bar
     torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
+    sms = _sm_count(dev.index)
     results, line = {}, {}
     try:
         for si, (shape, (K, N)) in enumerate(GROUPED_SHAPES.items()):
             for at, A in GROUPED_A.items():
+                plans = {form: GG.grouped_plan(A, K, N, GROUPED_X, sms, form == "int8")
+                         for form in ("bf16", "int8")}
                 for routing in ("routed", "one_expert"):
                     counts_h = _grouped_counts(A, GROUPED_X, routing, seed=10 + si)
-                    xs, w, counts = _grouped_inputs(A, K, N, GROUPED_X, counts_h, dev,
-                                                    seed=20 + si)
-                    got = GG.grouped_gemm(xs, w, counts)
-                    again = GG.grouped_gemm(xs, w, counts)
-                    plain = GG.grouped_gemm_plain(xs, w, counts)
-                    ok, st = _grouped_within(got, plain)
-                    case = f"{shape} A={A} {routing} counts {counts_h.tolist()}"
-                    if not ok:
-                        raise AssertionError(f"grouped_gemm {case}: beyond the tolerance of "
-                                             f"the plain version: {st}")
-                    if not _same_bits(got, again):
-                        raise AssertionError(f"grouped_gemm {case}: two launches differ")
-                    other = torch.as_tensor(_grouped_counts(A, GROUPED_X, "routed", seed=99),
-                                            dtype=torch.int32, device=dev)
-                    if not _grouped_graph_check(GG, xs, w, counts, other):
-                        raise AssertionError(f"grouped_gemm {case}: a replay differs from "
-                                             "eager")
-                    row = {"counts": counts_h.tolist(), "max_abs_err": st["max_abs_err"],
-                           "worst_ratio": st["worst_ratio"], "bit_identical_relaunch": True,
-                           "graph_replay_bit_identical": True}
-                    if routing == "routed":
-                        with build.routed("grouped_gemm",
-                                          FAULT_BUILDS["segment_1_one_row_late"]):
-                            bad = GG.grouped_gemm(xs, w, counts)
-                        caught, fst = _grouped_within(bad, plain)
-                        if caught:
-                            raise AssertionError(f"grouped_gemm {case}: the fault build "
-                                                 f"passed the check: {fst}")
-                        row["fault_segment_1_one_row_late"] = {
-                            "caught": True, "n_over": fst["n_over"]}
-                        lib, what = _grouped_library(xs, w, counts)
-                        active = int((counts_h > 0).sum())
-                        timed = _timings(lambda: GG.grouped_gemm(xs, w, counts),
-                                         lambda: GG.grouped_gemm_plain(xs, w, counts), lib,
-                                         20 if A <= 64 else 5)
-                        bound = bound_ms(2 * A * K + active * K * N * 2 + 4 * GROUPED_X
-                                         + 2 * A * N, 2.0 * A * K * N)
-                        row.update(ms=timed["ms"], plain_ms=timed["plain_ms"],
-                                   library_ms=timed["library_ms"], library=what,
-                                   bound_ms=bound[0], bound_by=bound[1])
-                        name = ("grouped_gemm" if (at, shape) == ("decode", "gate_in")
-                                else f"grouped_gemm@{at}_{shape}")
-                        results[name] = dict(
-                            max_abs_err=st["max_abs_err"], **timed, bound=bound,
-                            shape=f"A={A} rows ({at}, counts {counts_h.tolist()}), K={K}, "
-                                  f"N={N}, X={GROUPED_X} bf16 (Mixtral-8x7B {shape}); "
-                                  f"library = {what}")
-                    line[f"{shape}/{at}/{routing}"] = row
-                    del xs, w, counts, got, again, plain
+                    forms = _grouped_forms(GG, A, K, N, counts_h, dev, 20 + si)
+                    active = int((counts_h > 0).sum())
+                    for form, f in forms.items():
+                        run, counts, lib = f["run"], f["counts"], f["library"]
+                        case = f"{form} {shape} A={A} {routing} counts {counts_h.tolist()}"
+                        got, again = run(counts), run(counts)
+                        plain = f["plain"]()
+                        ok, st = _grouped_within(got, plain)
+                        if not ok:
+                            raise AssertionError(f"grouped GEMM {case}: beyond the tolerance of "
+                                                 f"the plain version: {st}")
+                        n = int(counts_h.sum())
+                        if not _same_bits(got, again) or got[n:].any():
+                            raise AssertionError(f"grouped GEMM {case}: two launches differ, or "
+                                                 "rows past the segments are not zero")
+                        other = torch.as_tensor(_grouped_counts(A, GROUPED_X, "routed", seed=99),
+                                                dtype=torch.int32, device=dev)
+                        if not _grouped_graph_check(run, counts, other):
+                            raise AssertionError(f"grouped GEMM {case}: a replay differs from "
+                                                 "eager")
+                        row = {"counts": counts_h.tolist(), "max_abs_err": st["max_abs_err"],
+                               "worst_ratio": st["worst_ratio"], "bit_identical_relaunch": True,
+                               "graph_replay_bit_identical": True}
+                        if routing == "routed":
+                            for fault, forms_aimed in GROUPED_FAULTS.items():
+                                if form not in forms_aimed:
+                                    continue
+                                if fault.startswith("split") and plans[form].splits == 1:
+                                    row[f"fault_{fault}"] = "not built at this shape: 1 split"
+                                    continue
+                                with build.routed("grouped_gemm", FAULT_BUILDS[fault]):
+                                    bad = run(counts)
+                                caught, fst = _grouped_within(bad, plain)
+                                if caught:
+                                    raise AssertionError(f"grouped GEMM {case}: the fault "
+                                                         f"build {fault} passed: {fst}")
+                                row[f"fault_{fault}"] = {"caught": True, "n_over": fst["n_over"]}
+                            timed = _timings(lambda: run(counts), f["plain"],
+                                             None if lib is None else lib[0],
+                                             20 if A <= 64 else 5)
+                            bound = bound_ms(2 * A * K + active * f["w_bytes"] + 4 * GROUPED_X
+                                             + 2 * A * N, 2.0 * A * K * N)
+                            row.update(ms=timed["ms"], plain_ms=timed["plain_ms"],
+                                       library_ms=timed["library_ms"],
+                                       library=None if lib is None else lib[1],
+                                       bound_ms=bound[0], bound_by=bound[1])
+                            if form == "int8":
+                                deq, xq = f["deq"], f["xs"]
+                                row["dequant_route_ms"] = _device_ms(
+                                    lambda: GG.grouped_gemm(xq, deq(), counts),
+                                    20 if A <= 64 else 5)
+                                row["dequant_alone_ms"] = _device_ms(deq, 5)
+                                if at == "decode" and timed["ms"] >= row["dequant_route_ms"]:
+                                    raise AssertionError(
+                                        f"grouped GEMM {case}: the int8 kernel "
+                                        f"({timed['ms']} ms) is not faster than the dequant "
+                                        f"and bf16 route ({row['dequant_route_ms']} ms)")
+                            base = "grouped_gemm" if form == "bf16" else "grouped_gemm_int8"
+                            name = (base if (at, shape) == ("decode", "gate_in")
+                                    else f"{base}@{at}_{shape}")
+                            results[name] = dict(
+                                max_abs_err=st["max_abs_err"], **timed, bound=bound,
+                                shape=f"A={A} rows ({at}, counts {counts_h.tolist()}), K={K}, "
+                                      f"N={N}, X={GROUPED_X}, {form} weights"
+                                      + (f" in groups of {GROUPED_GROUP}" if form == "int8"
+                                         else "")
+                                      + f" (Mixtral-8x7B {shape}); library = "
+                                      + (lib[1] if lib else "none"))
+                        line[f"{form}/{shape}/{at}/{routing}"] = row
+                        del got, again, plain
+                    del forms, f, run, lib, counts
                     torch.cuda.empty_cache()
+                for form, plan in plans.items():
+                    line[f"plan/{form}/{shape}/{at}"] = dict(
+                        plan._asdict(), scratch_mb=plan.scratch_floats * 4 / 2 ** 20)
     finally:
         torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = reduced
-    ptxas = _ptxas_registers(build, "grouped_gemm", ["grouped_gemm_kernel"])
-    print(json.dumps({"grouped_gemm_checks": line, "ptxas": ptxas}))
+    design = {"smem_bytes": {f"{'int8' if q else 'bf16'}/tn{tn}": GG.smem_bytes(tn, q)
+                             for q in (False, True) for tn in GG.TOKEN_WIDTHS},
+              "ctas_per_sm": GG.CTAS_PER_SM,
+              "stages": {f"{f}/tn{tn}": n for (f, tn), n in GG.STAGES.items()},
+              "ptxas": _ptxas_registers(build, "grouped_gemm", ["grouped_gemm_kernel"])}
+    print(json.dumps({"grouped_gemm_checks": line, "grouped_gemm_design": design}))
     return results
 
 
@@ -5045,6 +5154,10 @@ SERVE_7B_INT8W = dict(max_seq_len=1024, kv_block_size=128, num_kv_blocks=48,
                       min_prefill_bucket=128, max_batch_size=32)
 # names of the library GEMMs none of which may run in a replayed int8 step
 GEMM_NAMES = ("gemm", "cublas", "cutlass", "xmma")
+# the port's own GEMM kernels, whose names hold one of GEMM_NAMES or not
+PORT_GEMM_NAMES = ("w8a16_wgmma_kernel", "grouped_gemm_kernel")
+# a library GEMM kernel on bf16 operands names its type
+BF16_NAMES = ("bf16", "bfloat16")
 # resident weight bytes of the int8 lane over the bf16 engine's, at most
 INT8W_BYTES_RATIO = 0.51
 
@@ -5101,7 +5214,8 @@ def _int8w_7b_weights(T, M, mc, dev):
     return dict(top, layers=bf16_layers), dict(top, layers=int8_layers)
 
 
-def _int8w_lane(eng, mc, widths, n_rows, dev, seed, bf16_bytes, bytes_ratio=None):
+def _int8w_lane(eng, mc, widths, n_rows, dev, seed, bf16_bytes, bytes_ratio=None,
+                plain_cfg=None):
     """One per-channel int8 engine: the counted main path (a wave of 8
     96-token prompts, the 512-token prompt, one eager greedy
     decode_multi_fn(widths[0], 24)), each call launching the W8A16 GEMM
@@ -5109,14 +5223,20 @@ def _int8w_lane(eng, mc, widths, n_rows, dev, seed, bf16_bytes, bytes_ratio=None
     leaves + the logits), with the attention kernels of its pools and
     nothing else; resident weight bytes over the bf16 engine's
     (`bf16_bytes`) at most `bytes_ratio` (default INT8W_BYTES_RATIO); the
-    three-path logit check (_serve_three_paths on the same codes);
+    three-path logit check (_serve_three_paths on the same codes, its
+    plain paths on `plain_cfg` where given);
     warmup() and every width's replay against eager, bit for bit, with
     eager and replayed times (_graph_checks); no library GEMM in a
-    replayed call but, on an MoE model's scan path, the expert products
-    (the groupwise stacks dequantized, then torch.matmul, as the JAX
-    package leaves them to XLA); TTFT at 512. An engine with the expert
-    census: after the counted path it holds layers x top-k x the rows of
-    the programs that ran (_census_rows)."""
+    replayed call but, on an MoE model, the router's f32 product
+    (h.float() @ w_router.float(), which the JAX package also leaves to
+    XLA; its kernels are the replay's library GEMMs on f32 operands,
+    `router_f32_product_kernels`: a bf16 one fails); TTFT at 512. On an MoE model (groupwise
+    int8 expert stacks) every forward also launches the int8 grouped GEMM
+    3 times a layer, on either path, and the counted decode records how
+    many experts each layer's step routes to (`active_experts`, the
+    weights a dropless step reads). An engine with the expert census:
+    after the counted path it holds layers x top-k x the rows of the
+    programs that ran (_census_rows)."""
     import numpy as np
     import torch
 
@@ -5133,9 +5253,11 @@ def _int8w_lane(eng, mc, widths, n_rows, dev, seed, bf16_bytes, bytes_ratio=None
     per_call = 1 + sum(isinstance(w, ChannelQuantWeight)
                        for lp in eng.params["layers"] for w in lp.values())
     int8_pools = eng.cache.quantized
+    moe = mc.n_experts > 0
     want = {"int8_matmul", "flash_fwd"} | ({"paged_kv_write_int8", "paged_decode_fused_int8"}
                                            if int8_pools else
                                            {"paged_kv_write", "paged_decode_fused"})
+    want |= {"grouped_gemm_int8"} if moe else set()
 
     # -- the main path, counted -------------------------------------------
     launches, toks = {}, []
@@ -5148,6 +5270,9 @@ def _int8w_lane(eng, mc, widths, n_rows, dev, seed, bf16_bytes, bytes_ratio=None
         if got["int8_matmul"] != per_call * n_forward:
             raise AssertionError(f"{what}: {got['int8_matmul']} W8A16 launches, not "
                                  f"{per_call} products x {n_forward} forwards")
+        if moe and got["grouped_gemm_int8"] != 3 * mc.n_layers * n_forward:
+            raise AssertionError(f"{what}: {got['grouped_gemm_int8']} int8 grouped GEMM "
+                                 f"launches, not 3 x {mc.n_layers} layers x {n_forward} forwards")
         for n, c in got.items():
             launches[n] = launches.get(n, 0) + c
         return out
@@ -5163,9 +5288,10 @@ def _int8w_lane(eng, mc, widths, n_rows, dev, seed, bf16_bytes, bytes_ratio=None
     tables = eng.state.block_table(uids[:b], eng.config.blocks_per_seq, eng.pad_block)
     ctx = np.array([eng.state.get(u).seen_tokens + 1 for u in uids[:b]], np.int32)
     fn = eng.decode_multi_fn(b, DECODE_STEPS)
-    gen, final, _, _ = counted(f"decode_multi_fn({b}, {DECODE_STEPS})", DECODE_STEPS,
-                               lambda: fn(dict(eng.params), eng.cache, toks[:b].copy(),
-                                          tables, ctx))
+    with _ActiveExperts(M) as active:
+        gen, final, _, _ = counted(f"decode_multi_fn({b}, {DECODE_STEPS})", DECODE_STEPS,
+                                   lambda: fn(dict(eng.params), eng.cache, toks[:b].copy(),
+                                              tables, ctx))
     wrong = {n: c for n, c in launches.items() if (c == 0) == (n in want)}
     if wrong:
         raise AssertionError(f"the int8-weight path must launch each of {sorted(want)} and "
@@ -5178,6 +5304,10 @@ def _int8w_lane(eng, mc, widths, n_rows, dev, seed, bf16_bytes, bytes_ratio=None
     if g.shape != (DECODE_STEPS, b) or g.min() < 0 or g.max() >= V:
         raise AssertionError(f"decode_multi tokens out of range: {g.shape}")
     rep = {"products_a_forward": per_call, "launches": {n: c for n, c in launches.items() if c}}
+    if moe:
+        rep["grouped_gemm_int8_a_forward"] = 3 * mc.n_layers
+        rep["active_experts"] = {"mean": statistics.mean(active.n), "min": min(active.n),
+                                 "max": max(active.n), "applications": len(active.n)}
     if eng._census_enabled:
         rep["census"] = _census_check(eng, mc, [_census_rows(eng, [PROMPT_LEN] * N_PROMPTS)] * (
             -(-n_rows // N_PROMPTS)) + [_census_rows(eng, [LONG_LEN]), b * DECODE_STEPS])
@@ -5190,7 +5320,7 @@ def _int8w_lane(eng, mc, widths, n_rows, dev, seed, bf16_bytes, bytes_ratio=None
                              "the bf16 engine's")
     t1 = time.perf_counter()
     rep["path"] = _serve_three_paths(M, eng, mc, int8_pools, long_prompt,
-                                     prompts[:N_PROMPTS], dev)
+                                     prompts[:N_PROMPTS], dev, plain_cfg=plain_cfg)
     rep["path_s"] = time.perf_counter() - t1
 
     # -- graphs: replays against eager, and the times ------------------------
@@ -5198,14 +5328,21 @@ def _int8w_lane(eng, mc, widths, n_rows, dev, seed, bf16_bytes, bytes_ratio=None
     rep["graphs"], args = _graph_checks(eng, widths, 0, (uids, toks), None)
     gfn, a = args[widths[-1]]
     names = _device_kernel_names(lambda: gfn(eng.params, eng.cache, *a))
-    gemms = [n for n in names if any(s in n.lower() for s in GEMM_NAMES)]
-    expert_gemms = mc.n_experts > 0 and not mc.moe_dropless
-    if (gemms and not expert_gemms) or not any("w8a16" in n for n in names):
-        raise AssertionError(f"a replayed int8 decode ran library GEMMs {gemms} or no W8A16 "
-                             f"kernel: {names}")
+    gemms = [n for n in names if any(g in n.lower() for g in GEMM_NAMES)
+             and not any(own in n for own in PORT_GEMM_NAMES)]
+    # the router's f32 product: the f32 library GEMMs (cuBLAS picks a split-K
+    # sgemm for it inside a captured graph and a gemv run alone)
+    router = [n for n in gemms if moe and not any(b in n.lower() for b in BF16_NAMES)]
+    if (set(gemms) - set(router) or not any("w8a16" in n for n in names)
+            or (moe and not any("grouped_gemm_kernel" in n for n in names))):
+        raise AssertionError(f"a replayed int8 decode ran library GEMMs {gemms} beside the "
+                             f"router's f32 product, or not the int8 kernels: {names}")
     rep["replayed_call_kernels"] = {"distinct": len(names),
                                     "w8a16": [n[:80] for n in names if "w8a16" in n],
-                                    "library_gemms_expert_products": len(gemms)}
+                                    "grouped_gemm": [n[:80] for n in names
+                                                     if "grouped_gemm_kernel" in n],
+                                    "library_gemms": gemms,
+                                    "router_f32_product_kernels": router}
     if mc.n_experts > 0:  # where an MoE replay's device time goes, by kernel
         rep["replayed_where_time_goes"] = _where_time_goes(
             lambda: gfn(eng.params, eng.cache, *a), top=10)
@@ -5213,6 +5350,28 @@ def _int8w_lane(eng, mc, widths, n_rows, dev, seed, bf16_bytes, bytes_ratio=None
     rep.update({f"ttft_ms_{LONG_LEN}_p50": statistics.median(ttft),
                 f"ttft_ms_{LONG_LEN}_all": ttft, "seconds": time.perf_counter() - t0})
     return rep
+
+
+class _ActiveExperts:
+    """The distinct experts each MoE application routes to, recorded while
+    set as inference/model.py's dropless_topk_gating (a with block): the
+    experts whose weights a dropless step reads. Reads each decision on the
+    host, so only around an eager call."""
+
+    def __init__(self, M):
+        self.M, self.real, self.n = M, M.dropless_topk_gating, []
+
+    def __call__(self, logits, top_k, *args, **kw):
+        out = self.real(logits, top_k, *args, **kw)
+        self.n.append(int(out[0].unique().numel()))
+        return out
+
+    def __enter__(self):
+        self.M.dropless_topk_gating = self
+        return self
+
+    def __exit__(self, *exc):
+        self.M.dropless_topk_gating = self.real
 
 
 def _census_rows(eng, prompt_lens):
@@ -5398,18 +5557,33 @@ def _peak_bytes(eng, dev, before_graphs):
                + [f["peak_hbm_bytes"] for f in eng.warmup_footprints.values()])
 
 
+def _expert_bytes(eng):
+    """Resident bytes of each layer's groupwise expert stacks."""
+    from deepspeed_tpu_torch.inference.model import _EXPERT_STACKS
+
+    return [sum(lp[n].nbytes for n in _EXPERT_STACKS if n in lp) for lp in eng.params["layers"]]
+
+
 def run_serve_mixtral(dev):
     """Phase serve_mixtral: Mixtral-8x7B whole (MIXTRAL_8X7B, all 32 layers,
-    46.7 B parameters) in the per-channel int8 lane on bf16 pools, through
-    the default scan path over the experts, with the expert census:
-    _int8w_lane at b 8 (the counted wave of 8 x 96, the 512-token prompt
-    and decode_multi_fn(8, 24), launching only the W8A16 GEMM, #1, #6 and
-    #5; the census after them exactly layers x 2 x the rows run; the
-    three-path check layer by layer on the same codes; warmup() and the
-    replay bit-identical to eager; TTFT at 512), resident weight bytes
-    under MIXTRAL_BYTES_RATIO of the bf16 model's, the peak under
-    MIXTRAL_PEAK_GIB; eager and replayed b 8 tok/s beside the weight-read
-    bound (the resident weight bytes over 3.35 TB/s a step)."""
+    46.7 B parameters) in the per-channel int8 lane on bf16 pools, with the
+    expert census, on both MoE paths, one engine after the other on the
+    same tree (48 GB does not fit twice): the scan over the experts (the
+    default) and the dropless wire (moe_dropless). Each runs _int8w_lane at
+    b 8 (the counted wave of 8 x 96, the 512-token prompt and
+    decode_multi_fn(8, 24), launching only the W8A16 GEMM, the int8
+    grouped GEMM (3 a layer a forward), #1, #6 and #5; the census after
+    them exactly layers x 2 x the rows run; the three-path check layer by
+    layer on the same codes, the dropless engine against the scan's plain
+    paths; warmup() and the replay bit-identical to eager, no library GEMM
+    in it but the router's f32 product; TTFT at 512), resident weight
+    bytes under MIXTRAL_BYTES_RATIO of the bf16 model's, the phase's peak
+    under MIXTRAL_PEAK_GIB; eager and replayed b 8 tok/s beside the
+    weight-read bound (a step's weight bytes over 3.35 TB/s: every
+    expert's on the scan path, the experts each layer's step routes to on
+    the dropless path) and where a replayed call's device time goes."""
+    import dataclasses
+
     import torch
 
     from deepspeed_tpu_torch import init_inference
@@ -5421,33 +5595,47 @@ def run_serve_mixtral(dev):
     torch.cuda.reset_peak_memory_stats(dev)
     mc = T.TransformerConfig(**MIXTRAL_8X7B)
     tree = _mixtral_int8_tree(T, M, mc, dev)
-    build_s = time.perf_counter() - t0
-    eng = init_inference(tree, mc, dict(SERVE_MIXTRAL), quantization=INT8W)
+    report = {"layers": mc.n_layers, "parameters": T.param_count(mc),
+              "build_s": time.perf_counter() - t0, "paths": {}, "launches": {}}
+    b = MIXTRAL_WIDTHS[0]
+    peak = 0
+    for path, cfg in (("scan", mc), ("dropless", dataclasses.replace(mc, moe_dropless=True))):
+        t1 = time.perf_counter()
+        eng = init_inference(tree, cfg, dict(SERVE_MIXTRAL), quantization=INT8W)
+        torch.cuda.empty_cache()
+        rep = _int8w_lane(eng, cfg, MIXTRAL_WIDTHS, N_PROMPTS, dev, seed=12,
+                          bf16_bytes=2 * T.param_count(mc), bytes_ratio=MIXTRAL_BYTES_RATIO,
+                          plain_cfg=mc if path == "dropless" else None)
+        peak = max(peak, _peak_bytes(eng, dev, rep.pop("peak_bytes_before_graphs")))
+        experts = _expert_bytes(eng)
+        read = rep["weights"]["int8_lane_bytes"]
+        if path == "dropless":  # only the experts a step routes to
+            read -= sum(experts) * (1 - rep["active_experts"]["mean"] / mc.n_experts)
+        bound_ms = read / H100_HBM_BYTES_S * 1e3
+        census = eng.moe_expert_census()
+        report["paths"][path] = {
+            **_lane_summary(rep, MIXTRAL_WIDTHS), "path": rep["path"],
+            "weights": rep["weights"], "launches": rep["launches"],
+            "active_experts_a_decode_layer": rep["active_experts"],
+            "census_after_counted_path": rep["census"],
+            "census_end": {"counts": census.tolist(),
+                           "imbalance": float(census.max() / census.mean())},
+            f"b{b}_weight_read_bound": {"bytes_a_step": read, "ms_a_step": bound_ms,
+                                        "tok_s": b / (bound_ms / 1e3)},
+            "replayed_call_kernels": rep["replayed_call_kernels"],
+            "replayed_where_time_goes": rep["replayed_where_time_goes"],
+            "pool_bytes": eng._pool_bytes(), "seconds": time.perf_counter() - t1}
+        for n, c in rep["launches"].items():
+            report["launches"][n] = report["launches"].get(n, 0) + c
+        print(json.dumps({"serve_mixtral_lane": f"mixtral_8x7b/{path}/bf16_pools", **rep}))
+        del eng
+        torch.cuda.empty_cache()
     del tree
     torch.cuda.empty_cache()
-    rep = _int8w_lane(eng, mc, MIXTRAL_WIDTHS, N_PROMPTS, dev, seed=12,
-                      bf16_bytes=2 * T.param_count(mc), bytes_ratio=MIXTRAL_BYTES_RATIO)
-    peak = _peak_bytes(eng, dev, rep.pop("peak_bytes_before_graphs"))
+    report["peak_gib"] = peak / 2 ** 30
     if peak > MIXTRAL_PEAK_GIB * 2 ** 30:
         raise AssertionError(f"serve_mixtral peaked at {peak / 2**30:.2f} GiB, above "
                              f"{MIXTRAL_PEAK_GIB} GiB")
-    b = MIXTRAL_WIDTHS[0]
-    bound_ms = rep["weights"]["int8_lane_bytes"] / H100_HBM_BYTES_S * 1e3
-    census = eng.moe_expert_census()
-    report = {"layers": mc.n_layers, "parameters": T.param_count(mc), "build_s": build_s,
-              **_lane_summary(rep, MIXTRAL_WIDTHS), "path": rep["path"],
-              "weights": rep["weights"], "launches": rep["launches"],
-              "census_after_counted_path": rep["census"],
-              "census_end": {"counts": census.tolist(),
-                             "imbalance": float(census.max() / census.mean())},
-              "peak_gib": peak / 2 ** 30, "pool_bytes": eng._pool_bytes(),
-              f"b{b}_weight_read_bound": {"ms_a_step": bound_ms,
-                                          "tok_s": b / (bound_ms / 1e3)},
-              "replayed_call_kernels": rep["replayed_call_kernels"],
-              "replayed_where_time_goes": rep["replayed_where_time_goes"]}
-    print(json.dumps({"serve_mixtral_lane": "mixtral_8x7b/bf16_pools", **rep}))
-    del eng
-    torch.cuda.empty_cache()
     report["seconds"] = time.perf_counter() - t0
     return report
 

@@ -21,8 +21,8 @@ Mixtral-class MoE models: logits, or tokens sampled on the device
 (inference/sampling.py) with the JAX engine's per-row streams. Weights may
 be quantized (`quantization`, the JAX engine's argument): per-channel int8
 ({"bits": 8, "per_channel": True}), whose products stream the codes
-through the W8A16 GEMM and whose MoE expert stacks stay groupwise int8
-until the MLP uses them, or groupwise int8/int4 ({"bits", "group_size",
+through the W8A16 GEMM and whose MoE expert stacks stay groupwise int8,
+read as codes by the int8 grouped GEMM, or groupwise int8/int4 ({"bits", "group_size",
 "min_ndim"}), dequantized to the serving dtype at the entry of each
 program, as the JAX engine does in each compiled step.
 
@@ -251,7 +251,7 @@ class InferenceEngine:
         # groupwise codes are dequantized at each program's entry, as the
         # JAX engine does in its groupwise lane; in the per-channel lane the
         # codes feed the products directly (model._wmm) and an MoE layer's
-        # groupwise expert stacks dequantize inside the MLP (model._mlp):
+        # groupwise expert stacks feed the int8 grouped GEMM (model._mlp):
         # Mixtral-8x7B's whole tree in bf16 would not fit the card
         groupwise = not self._per_channel and any(
             isinstance(x, QuantizedWeight) for x in leaves(prepared))

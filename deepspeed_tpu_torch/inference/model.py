@@ -74,9 +74,16 @@ What is served:
   grouped_gemm.py under use_kernel), a weighted combine in ascending
   expert order; PR-MoE's residual expert and mix (`_moe_residual`). In
   the per-channel int8 lane the expert stacks are groupwise int8
-  (QuantizedWeight, group 128, as the JAX package's quantize_layer) and
-  are dequantized where they are used: one expert at a time in the scan,
-  the layer's stacks before the grouped GEMMs. `census` (an [X] int64
+  (QuantizedWeight, group 128, as the JAX package's quantize_layer), and
+  no bf16 copy of them is made: under use_kernel both paths run them
+  through the int8 form of the grouped GEMM (ops/cuda/grouped_gemm.py
+  grouped_gemm_int8), which reads the codes and makes each weight, the
+  value dequantize_groupwise gives, on its way into the products; the
+  scan as three such GEMMs over X segments of all T rows (h repeated X
+  times), each expert's weights read once. The plain path (use_kernel
+  False) dequantizes where it uses them, one expert at a time in the
+  scan, the whole stack before the dropless wire's masked scan, as the
+  JAX package does "transiently at use". `census` (an [X] int64
   device tensor) adds each application's per-expert routed-row counts, pad
   rows included, as the JAX package's census_cb reports them.
 
@@ -92,6 +99,7 @@ import torch
 from ..models import transformer as T
 from ..moe.dropless import dropless_apply, dropless_topk_gating, expert_counts
 from ..ops.attention import _repeat_kv, causal_attention
+from ..ops.cuda.grouped_gemm import grouped_gemm_int8
 from ..ops.cuda.int8_matmul import int8_matmul, int8_matmul_plain
 from ..ops.cuda.paged_attention import (
     paged_decode_attention,
@@ -419,11 +427,6 @@ def _expert(w, e: int, dtype: torch.dtype) -> torch.Tensor:
     return w.to(dtype)
 
 
-def _deq(w) -> torch.Tensor:
-    """A whole expert stack as a tensor (a groupwise int8 one dequantized)."""
-    return w.dequantize() if isinstance(w, QuantizedWeight) else w
-
-
 def _moe_mlp(h: torch.Tensor, lp, cfg: T.TransformerConfig, use_kernel: bool,
              census: Optional[torch.Tensor]) -> torch.Tensor:
     """The MoE FFN over [T, E] tokens (the JAX package's _mlp MoE branch):
@@ -439,10 +442,11 @@ def _moe_mlp(h: torch.Tensor, lp, cfg: T.TransformerConfig, use_kernel: bool,
     if census is not None:
         census.add_(counts)
     if cfg.moe_dropless:
-        # one grouped GEMM a projection over the expert-sorted rows
+        # one grouped GEMM a projection over the expert-sorted rows (an int8
+        # stack goes to the kernel's int8 form as it is)
         out = dropless_apply(
-            h, idx, wts, counts, _deq(lp["w_in"]), _deq(lp["w_out"]),
-            w_gate=_deq(lp["w_gate"]) if cfg.is_gated else None,
+            h, idx, wts, counts, lp["w_in"], lp["w_out"],
+            w_gate=lp["w_gate"] if cfg.is_gated else None,
             b_in=lp.get("b_in"), b_out=lp.get("b_out"), act=act,
             impl="ragged" if use_kernel else "dense")
         return _moe_residual(out, h, lp, cfg, act, use_kernel)
@@ -450,6 +454,12 @@ def _moe_mlp(h: torch.Tensor, lp, cfg: T.TransformerConfig, use_kernel: bool,
     weights = torch.zeros((T_, X), dtype=torch.float32, device=h.device).scatter_(1, idx, wts)
     wcols = weights.t().to(h.dtype)
     has_bias = "b_in" in lp
+    if use_kernel and isinstance(lp["w_in"], QuantizedWeight) and lp["w_in"].bits == 8:
+        ys = _scan_int8(h, lp, cfg, act)  # the int8 stacks as the int8 grouped GEMM reads them
+        out = torch.zeros_like(h)
+        for e in range(X):
+            out = out + wcols[e][:, None] * ys[e * T_:(e + 1) * T_]
+        return _moe_residual(out, h, lp, cfg, act, use_kernel)
     out = torch.zeros_like(h)
     for e in range(X):
         w_in, w_out = _expert(lp["w_in"], e, h.dtype), _expert(lp["w_out"], e, h.dtype)
@@ -465,6 +475,31 @@ def _moe_mlp(h: torch.Tensor, lp, cfg: T.TransformerConfig, use_kernel: bool,
                 y = y + lp["b_out"][e].to(h.dtype)
         out = out + wcols[e][:, None] * y
     return _moe_residual(out, h, lp, cfg, act, use_kernel)
+
+
+def _scan_int8(h: torch.Tensor, lp, cfg: T.TransformerConfig, act) -> torch.Tensor:
+    """Every expert's MLP over every token on groupwise int8 stacks: the
+    scan's products as three int8 grouped GEMMs over X segments of all T
+    rows (h repeated X times, segment e expert e's), so each expert's codes
+    are read once and no bf16 weight is written. Returns the experts'
+    outputs [X * T, E], expert e's in rows e T .. (e + 1) T - 1, each with
+    the arithmetic of the scan's step e (biases in h's dtype)."""
+    X, T_ = cfg.n_experts, h.shape[0]
+    xs = h.repeat(X, 1)
+    counts = torch.full((X,), T_, dtype=torch.int32, device=h.device)
+    bias = lambda name: lp[name].to(h.dtype).repeat_interleave(T_, dim=0)
+
+    def mm(a, name):
+        w = lp[name]
+        return grouped_gemm_int8(a, w.q, w.scale, counts, w.dtype)
+
+    if cfg.is_gated:
+        return mm(act(mm(xs, "w_gate")) * mm(xs, "w_in"), "w_out")
+    inner = mm(xs, "w_in")
+    if "b_in" in lp:
+        inner = inner + bias("b_in")
+    ys = mm(act(inner), "w_out")
+    return ys + bias("b_out") if "b_out" in lp else ys
 
 
 def _moe_residual(out: torch.Tensor, h: torch.Tensor, lp, cfg: T.TransformerConfig, act,

@@ -16,7 +16,10 @@ and `dropless_moe_ffn` (expert-parallel training) come with MoE training
 (ops/cuda/grouped_gemm.py, csrc/grouped_gemm.cu) where the JAX package
 calls jax.lax.ragged_dot; on CPU tensors its wrapper runs the plain
 version, which is the "dense" route: the masked scan over the experts, the
-JAX package's oracle.
+JAX package's oracle. A groupwise int8 stack (QuantizedWeight, bits 8: the
+per-channel int8 lane's expert stacks) goes to the kernel's int8 form,
+which dequantizes in its loads; the JAX package dequantizes such a stack
+before ragged_dot, and the "dense" route does so here.
 
 Bit-level choices that follow the JAX package:
 - top-k takes the lowest expert index on ties (lax.top_k): a stable
@@ -34,7 +37,8 @@ from typing import Callable, Optional, Tuple
 
 import torch
 
-from ..ops.cuda.grouped_gemm import grouped_gemm, grouped_gemm_plain
+from ..inference.quantization import QuantizedWeight
+from ..ops.cuda.grouped_gemm import grouped_gemm, grouped_gemm_int8, grouped_gemm_plain
 from .sharded_moe import _apply_noise, _load_balance_loss, _one_hot
 
 
@@ -100,18 +104,27 @@ def grouped_mm(xs: torch.Tensor, w: torch.Tensor, counts: torch.Tensor,
                impl: str = "auto") -> torch.Tensor:
     """Grouped (ragged) GEMM: rows of xs [A, E] are expert-contiguous
     segments sized by counts [X]; each contracts with its expert's weight
-    of w [X, E, F] -> [A, F] in xs's dtype.
+    of w [X, E, F] -> [A, F] in xs's dtype. w is a tensor or a groupwise
+    quantized stack (QuantizedWeight), whose weights are its dequantized
+    values in its dtype (a 4-bit stack is dequantized first: the kernel's
+    int8 form reads 8-bit codes).
 
     impl: "ragged" (= "auto") is the grouped GEMM kernel for CUDA tensors
-    (its plain version for CPU tensors); "dense" the masked scan over the
-    experts, the plain version on any device (the JAX package's oracle)."""
+    (its int8 form for an int8 stack; the plain versions for CPU tensors);
+    "dense" the masked scan over the experts, the plain version on any
+    device (the JAX package's oracle)."""
     if impl == "auto":
         impl = "ragged"
+    if impl not in ("ragged", "dense"):
+        raise ValueError(f"unknown grouped_mm impl {impl!r}")
+    if isinstance(w, QuantizedWeight):
+        if w.bits == 8 and impl == "ragged":
+            return grouped_gemm_int8(xs.contiguous(), w.q.contiguous(), w.scale.contiguous(),
+                                     counts.to(torch.int32), w.dtype)
+        w = w.dequantize()
     w = w.to(xs.dtype)
     if impl == "ragged":
         return grouped_gemm(xs.contiguous(), w.contiguous(), counts.to(torch.int32))
-    if impl != "dense":
-        raise ValueError(f"unknown grouped_mm impl {impl!r}")
     return grouped_gemm_plain(xs, w, counts)
 
 

@@ -41,6 +41,7 @@ WRAPPERS = {
     "evoformer_bwd_db2": _evo.evoformer_bwd_db2,
     "int8_matmul": _int8_matmul.int8_matmul,
     "grouped_gemm": _grouped_gemm.grouped_gemm,
+    "grouped_gemm_int8": _grouped_gemm.grouped_gemm_int8,
 }
 
 MODES = {mode: tuple(name for name, fn in WRAPPERS.items() if hasattr(fn, attr))

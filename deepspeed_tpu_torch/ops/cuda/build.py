@@ -82,8 +82,11 @@ SIGNATURES = {
     "int8_matmul": {"int8_matmul": [_P] * 6 + [_I] * 6 + [_P],
                     # host nanoseconds to make a call's two TMA maps `iters` times
                     "int8_matmul_encode_ns": [_P] * 2 + [_I] * 5},
-    # out, xs, w, counts; A, K, N, X
-    "grouped_gemm": {"grouped_gemm": [_P] * 4 + [_I] * 4 + [_P]},
+    # out, xs, w, counts, split K's f32 partials, their arrival counters; A,
+    # K, N, X, rows a tile, splits (the int8 form: codes and scales for w,
+    # the scale groups after X)
+    "grouped_gemm": {"grouped_gemm": [_P] * 6 + [_I] * 6 + [_P],
+                     "grouped_gemm_int8": [_P] * 7 + [_I] * 7 + [_P]},
 }
 
 _loaded: Dict[str, ctypes.CDLL] = {}

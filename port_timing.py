@@ -89,6 +89,18 @@ MODE:
   included), the median of 3 such and each; a head dim the root's
   backward is not built for is reported as such; and the ptxas registers
   and spills of each instantiation.
+- grouped: the grouped GEMM of dropless MoE (grouped_gemm) in ROOT's
+  package at chip_smoke.py's GROUPED_SHAPES (Mixtral-8x7B's w_gate/w_in
+  and w_out) x GROUPED_A (decode 16 rows, prefill 1024) on the routed
+  counts of phase 2 (inputs from a seeded generator): device ms a call
+  (torch.profiler over 20 or 5 calls), the median of 3 such and each;
+  where ROOT has the int8 form (grouped_gemm_int8), its ms on the same
+  weights quantized in groups of 128, and the route it replaces
+  (dequantize_groupwise of the stack, then ROOT's bf16 grouped GEMM);
+  torch._grouped_mm's ms beside; at the decode rows of a root with the
+  split-K plan (grouped_plan), both forms again with each split count of
+  GROUPED_SPLITS forced in place of the plan's (the sweep behind its
+  rule); and the ptxas registers and spills of each instantiation.
 - tiles: where a 64-column tile's time goes in the one-CTA-a-row decode
   kernel that split-K replaced (ROOT a checkout of that kernel: one CTA
   walks its row's whole context, 8 query heads a CTA; its source has the
@@ -824,9 +836,77 @@ def bwd_worker(root):
     return out
 
 
+def grouped_worker(root):
+    root, C = _import_root(root)
+    import torch
+
+    from deepspeed_tpu_torch.ops.cuda import build
+    from deepspeed_tpu_torch.ops.cuda import grouped_gemm as GG
+    from deepspeed_tpu_torch.ops.quantization import dequantize_groupwise
+
+    build.build_all(["grouped_gemm"])
+    dev = torch.device("cuda")
+    has_int8 = hasattr(GG, "grouped_gemm_int8")
+    out = {"mode": "grouped", "root": str(root), "int8_form": has_int8, "cases": {},
+           "ptxas": C._ptxas_registers(build, "grouped_gemm", ("grouped_gemm_kernel",))}
+    med = lambda fn, n: (lambda ms: {"device_ms": statistics.median(ms), "runs_ms": ms})(
+        [C._device_ms(fn, n) for _ in range(3)])
+    for si, (shape, (K, N)) in enumerate(C.GROUPED_SHAPES.items()):
+        for at, A in C.GROUPED_A.items():
+            counts_h = C._grouped_counts(A, C.GROUPED_X, "routed", seed=10 + si)
+            n = 20 if A <= 64 else 5
+            xs, w, counts = C._grouped_inputs(A, K, N, C.GROUPED_X, counts_h, dev, 20 + si)
+            row = {"counts": counts_h.tolist(),
+                   "bf16": med(lambda: GG.grouped_gemm(xs, w, counts), n)}
+            lib, what = C._grouped_library(xs, w, counts)
+            row["library"] = dict(med(lib, n), what=what)
+            del w, lib
+            if has_int8:
+                codes, scale = C._grouped_int8_inputs(A, K, N, C.GROUPED_X, counts_h, dev,
+                                                      20 + si)[1:3]
+                row["int8"] = med(lambda: GG.grouped_gemm_int8(xs, codes, scale, counts), n)
+                row["dequant_then_bf16"] = med(lambda: GG.grouped_gemm(
+                    xs, dequantize_groupwise(codes, scale, torch.bfloat16), counts), n)
+                del codes, scale
+            if at == "decode" and hasattr(GG, "grouped_plan"):
+                row["splits"] = _grouped_split_sweep(C, torch, GG, xs, counts, counts_h, K, N,
+                                                     dev, 20 + si)
+            out["cases"][f"{shape}/{at}"] = row
+            del xs, counts
+            torch.cuda.empty_cache()
+    return out
+
+
+# split counts the grouped sweep forces in place of the plan's
+GROUPED_SPLITS = (1, 2, 3, 4, 6, 9, 12, 18, 24)
+
+
+def _grouped_split_sweep(C, torch, GG, xs, counts, counts_h, K, N, dev, seed):
+    """{form: {splits: device ms}} of both forms at one shape, each split
+    count forced into the plan (GG.grouped_plan replaced for the call)."""
+    A = xs.shape[0]
+    real = GG.grouped_plan
+    w = C._grouped_inputs(A, K, N, C.GROUPED_X, counts_h, dev, seed)[1]
+    codes, scale = C._grouped_int8_inputs(A, K, N, C.GROUPED_X, counts_h, dev, seed)[1:3]
+    runs = {"bf16": lambda: GG.grouped_gemm(xs, w, counts),
+            "int8": lambda: GG.grouped_gemm_int8(xs, codes, scale, counts)}
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    out = {f: {"plan": real(A, K, N, C.GROUPED_X, sms, f == "int8").splits} for f in runs}
+    try:
+        for n in GROUPED_SPLITS:
+            GG.grouped_plan = lambda *a, n=n: real(*a)._replace(
+                splits=min(n, real(*a).chunks))
+            for f, run in runs.items():
+                out[f][n] = statistics.median(C._device_ms(run, 20) for _ in range(3))
+    finally:
+        GG.grouped_plan = real
+    return out
+
+
 WORKERS = {"evo": evo_worker, "serve": serve_worker, "serve8w": serve8w_worker,
            "gemm": gemm_worker, "splits": splits_worker, "tiles": tiles_worker,
-           "write": write_worker, "flash": flash_worker, "bwd": bwd_worker}
+           "write": write_worker, "flash": flash_worker, "bwd": bwd_worker,
+           "grouped": grouped_worker}
 
 
 def main(mode, roots):

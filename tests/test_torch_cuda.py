@@ -2835,23 +2835,48 @@ GROUPED_CASES = {
     "all_last": (129, 256, 384, [0, 0, 0, 129]),
     "rows_past_segments": (100, 256, 384, [10, 0, 20, 30]),
 }
+# the int8 form: (A, K, N, counts, scale group): Mixtral's shapes in groups
+# of 128 with skewed and empty segments, a K that is not a multiple of the
+# ring's 64, one group a row, groups of 64
+GROUPED_INT8_CASES = {
+    "decode_gate_in": (16, 4096, 14336, [3, 2, 0, 4, 1, 0, 5, 1], 128),
+    "decode_out": (16, 14336, 4096, [0, 0, 16, 0, 0, 0, 0, 0], 128),
+    "decode_out_skewed": (16, 14336, 4096, [1, 9, 0, 0, 2, 0, 4, 0], 128),
+    "prefill_gate_in": (1024, 4096, 14336, [130, 64, 0, 300, 1, 129, 200, 200], 128),
+    "prefill_out": (1024, 14336, 4096, [0, 500, 3, 0, 121, 0, 0, 400], 128),
+    "ragged_k": (200, 1000, 384, [65, 1, 63, 0, 71], 128),
+    "one_group_a_row": (129, 256, 384, [0, 0, 0, 129], 384),
+    "groups_of_64": (100, 256, 384, [10, 0, 20, 30], 64),
+}
+# the fault builds aimed at each form (chip_smoke.py GROUPED_FAULTS), and the
+# cases where each must fail (the split's where the plan splits K)
+GROUPED_FAULT_CASES = {"segment_1_one_row_late": ("bf16", "int8"),
+                       "ring_stage_read_before_its_barrier": ("bf16", "int8"),
+                       "split_left_out_of_the_combine": ("bf16", "int8"),
+                       "scale_of_the_next_k_row": ("int8",),
+                       "scale_of_the_next_group": ("int8",)}
 
 
 @pytest.mark.cuda
 class TestGroupedGemmOnCard:
-    """The grouped GEMM (csrc/grouped_gemm.cu) against its plain version
-    (the masked scan) on the same bf16 inputs, under chip_smoke.py's
-    tolerance (bwd_mismatch's row-scaled limit): decode and prefill rows,
-    skewed and empty segments, rows past the segments left zero; two
-    launches bit-identical; a launch captured in a CUDA graph replaying
-    bit-identical to eager, also after its counts change in place; the
-    build that starts segment 1 one row late failing; wrong inputs
-    raising."""
+    """The grouped GEMM (csrc/grouped_gemm.cu) in both forms against its
+    plain versions (the masked scan; the int8 stack dequantized first) on
+    the same inputs, under chip_smoke.py's tolerance (bwd_mismatch's
+    row-scaled limit): decode and prefill rows, skewed and empty segments,
+    rows past the segments left zero; two launches bit-identical; a launch
+    captured in a CUDA graph replaying bit-identical to eager, also after
+    its counts change in place; the fault builds failing beside the
+    genuine kernel's pass; wrong inputs raising."""
 
     def _case(self, name, dev, seed=0):
         A, K, N, counts = GROUPED_CASES[name]
         return _chip_smoke()._grouped_inputs(A, K, N, len(counts), np.array(counts, np.int32),
                                              dev, seed)
+
+    def _int8_case(self, name, dev, seed=0):
+        A, K, N, counts, group = GROUPED_INT8_CASES[name]
+        return _chip_smoke()._grouped_int8_inputs(A, K, N, len(counts),
+                                                  np.array(counts, np.int32), dev, seed, group)
 
     @pytest.mark.parametrize("name", sorted(GROUPED_CASES))
     def test_kernel_vs_plain(self, cuda_device, name):
@@ -2870,25 +2895,68 @@ class TestGroupedGemmOnCard:
         n = int(counts.sum())
         assert not got[n:].any() and got[:n].abs().amax(1).min() > 0
 
-    @pytest.mark.parametrize("name", ["decode_gate_in", "ragged_k_n"])
-    def test_graph_replay_follows_the_counts(self, cuda_device, name):
-        xs, w, counts = self._case(name, cuda_device)
+    @pytest.mark.parametrize("name", sorted(GROUPED_INT8_CASES))
+    def test_int8_kernel_vs_plain(self, cuda_device, name):
         from deepspeed_tpu_torch.ops.cuda import grouped_gemm as GG
 
+        xs, codes, scale, counts = self._int8_case(name, cuda_device)
+        n0 = GG.grouped_gemm_int8.launches
+        got = GG.grouped_gemm_int8(xs, codes, scale, counts)
+        again = GG.grouped_gemm_int8(xs, codes, scale, counts)
+        torch.cuda.synchronize()
+        assert GG.grouped_gemm_int8.launches == n0 + 2
+        cs = _chip_smoke()
+        assert cs._same_bits(got, again)
+        ok, st = cs._grouped_within(got, GG.grouped_gemm_int8_plain(xs, codes, scale, counts))
+        assert ok, st
+        n = int(counts.sum())
+        assert not got[n:].any() and got[:n].abs().amax(1).min() > 0
+
+    @pytest.mark.parametrize("form,name", [("bf16", "decode_gate_in"), ("bf16", "ragged_k_n"),
+                                           ("int8", "decode_out_skewed"),
+                                           ("int8", "prefill_out")])
+    def test_graph_replay_follows_the_counts(self, cuda_device, form, name):
+        from deepspeed_tpu_torch.ops.cuda import grouped_gemm as GG
+
+        if form == "bf16":
+            xs, w, counts = self._case(name, cuda_device)
+            run = lambda c: GG.grouped_gemm(xs, w, c)
+        else:
+            xs, codes, scale, counts = self._int8_case(name, cuda_device)
+            run = lambda c: GG.grouped_gemm_int8(xs, codes, scale, c)
         other = counts.flip(0).contiguous()
-        assert _chip_smoke()._grouped_graph_check(GG, xs, w, counts, other)
+        assert _chip_smoke()._grouped_graph_check(run, counts, other)
 
-    def test_fault_build_fails(self, cuda_device):
+    @pytest.mark.parametrize("fault,form", [(f, m) for f, ms in GROUPED_FAULT_CASES.items()
+                                            for m in ms])
+    def test_fault_build_fails(self, cuda_device, fault, form):
+        """Each fault build fails where the genuine kernel passes: at decode
+        (which splits K) and at a ragged prefill shape (the split's fault is
+        a no-op there: one split)."""
         from deepspeed_tpu_torch.ops.cuda import grouped_gemm as GG
+        from deepspeed_tpu_torch.ops.cuda.paged_attention import _sm_count
 
         cs = _chip_smoke()
-        xs, w, counts = self._case("ragged_k_n", cuda_device)
-        plain = GG.grouped_gemm_plain(xs, w, counts)
-        with build.routed("grouped_gemm", cs.FAULT_BUILDS["segment_1_one_row_late"]):
-            bad = GG.grouped_gemm(xs, w, counts)
-        ok, st = cs._grouped_within(bad, plain)
-        assert not ok, st
-        assert cs._grouped_within(GG.grouped_gemm(xs, w, counts), plain)[0]
+        for name in ("decode_gate_in", "ragged_k_n" if form == "bf16" else "ragged_k"):
+            if form == "bf16":
+                xs, w, counts = self._case(name, cuda_device)
+                run = lambda: GG.grouped_gemm(xs, w, counts)
+                plain = GG.grouped_gemm_plain(xs, w, counts)
+                K, N = w.shape[1:]
+            else:
+                xs, codes, scale, counts = self._int8_case(name, cuda_device)
+                run = lambda: GG.grouped_gemm_int8(xs, codes, scale, counts)
+                plain = GG.grouped_gemm_int8_plain(xs, codes, scale, counts)
+                K, N = codes.shape[1:]
+            plan = GG.grouped_plan(xs.shape[0], K, N, counts.shape[0],
+                                   _sm_count(cuda_device.index), form == "int8")
+            assert cs._grouped_within(run(), plain)[0]
+            with build.routed("grouped_gemm", cs.FAULT_BUILDS[fault]):
+                bad = run()
+            if fault.startswith("split") and plan.splits == 1:
+                continue
+            ok, st = cs._grouped_within(bad, plain)
+            assert not ok, (name, st)
 
     def test_wrong_inputs_raise(self, cuda_device):
         from deepspeed_tpu_torch.ops.cuda import grouped_gemm as GG
@@ -2902,6 +2970,34 @@ class TestGroupedGemmOnCard:
             GG.grouped_gemm(xs, w, counts.long())
         with pytest.raises(ValueError):
             GG.grouped_gemm(xs, w, counts[:3].contiguous())
+
+    def test_int8_wrong_inputs_raise(self, cuda_device):
+        """The int8 wrapper raises on a wrong dtype, a wrong shape and a
+        scale count that does not divide N (or whose group is not a
+        multiple of 64 columns), as the bf16 wrapper does."""
+        from deepspeed_tpu_torch.ops.cuda import grouped_gemm as GG
+
+        xs, codes, scale, counts = self._int8_case("ragged_k", cuda_device)
+        with pytest.raises(TypeError):
+            GG.grouped_gemm_int8(xs, codes.view(torch.uint8), scale, counts)
+        with pytest.raises(TypeError):
+            GG.grouped_gemm_int8(xs, codes, scale.bfloat16(), counts)
+        with pytest.raises(TypeError):
+            GG.grouped_gemm_int8(xs.float(), codes, scale, counts)
+        with pytest.raises(TypeError):
+            GG.grouped_gemm_int8(xs, codes, scale, counts, torch.float32)
+        with pytest.raises(ValueError):
+            GG.grouped_gemm_int8(xs, codes, scale[:, :-1].contiguous(), counts)
+        with pytest.raises(ValueError):
+            GG.grouped_gemm_int8(xs, codes[:, :, :320].contiguous(), scale, counts)
+        with pytest.raises(ValueError):  # 5 groups do not divide 384 columns
+            GG.grouped_gemm_int8(xs, codes, torch.ones((*scale.shape[:2], 5), device=cuda_device),
+                                 counts)
+        with pytest.raises(ValueError):  # 12 groups of 32 columns
+            GG.grouped_gemm_int8(xs, codes, torch.ones((*scale.shape[:2], 12),
+                                                       device=cuda_device), counts)
+        with pytest.raises(ValueError):
+            GG.grouped_gemm_int8(xs, codes, scale, counts[:3].contiguous())
 
     def test_dropless_layer_launches_three_times(self, cuda_device):
         """One Mixtral-form MoE layer on the dropless path: three grouped
@@ -2928,3 +3024,33 @@ class TestGroupedGemmOnCard:
         assert GG.grouped_gemm.launches == n0 + 6
         torch.testing.assert_close(got.float(), scan.float(), rtol=2e-2,
                                    atol=2e-2 * float(scan.float().abs().max()))
+
+    @pytest.mark.parametrize("dropless", [False, True], ids=["scan", "dropless"])
+    def test_int8_layer_launches_three_times(self, cuda_device, dropless):
+        """One Mixtral-form MoE layer with groupwise int8 expert stacks
+        (quantize_layer, groups of 128), on either path: three int8 grouped
+        GEMM launches a call (w_gate, w_in, w_out) and no bf16 one, two
+        calls bit-identical, within bf16 rounding of the plain path (the
+        stacks dequantized at use)."""
+        from deepspeed_tpu_torch.inference import model as M
+        from deepspeed_tpu_torch.models import transformer as T
+        from deepspeed_tpu_torch.ops.cuda import grouped_gemm as GG
+
+        over = dict(vocab_size=256, n_layers=1, n_heads=4, n_kv_heads=2, d_model=256,
+                    d_ff=512, variant="llama", n_experts=8, moe_top_k=2)
+        cfg = T.TransformerConfig(**over, moe_dropless=dropless)
+        params = T.init(cfg, torch.Generator(device=cuda_device).manual_seed(0),
+                        device=cuda_device, dtype=torch.bfloat16)
+        lp = M.quantize_layer(M.prepare(params, cfg)["layers"][0], cfg)
+        assert lp["w_in"].q.dtype == torch.int8
+        h = torch.randn((40, 256), device=cuda_device).to(torch.bfloat16)
+        n0, b0 = GG.grouped_gemm_int8.launches, GG.grouped_gemm.launches
+        got = M._mlp(h, lp, cfg)
+        again = M._mlp(h, lp, cfg)
+        torch.cuda.synchronize()
+        assert (GG.grouped_gemm_int8.launches, GG.grouped_gemm.launches) == (n0 + 6, b0)
+        assert _chip_smoke()._same_bits(got, again)
+        plain = M._mlp(h, lp, cfg, use_kernel=False)
+        assert GG.grouped_gemm_int8.launches == n0 + 6
+        torch.testing.assert_close(got.float(), plain.float(), rtol=2e-2,
+                                   atol=2e-2 * float(plain.float().abs().max()))

@@ -206,42 +206,78 @@ def test_grouped_mm_plain_matches_jax(rng, case):
     np.testing.assert_allclose(got["plain"][:n].numpy(), ref, **F32_TOL)
 
 
-def _kernel_tiles(counts, A, BM=PG.BM):
-    """csrc/grouped_gemm.cu's thread-0 walk for every row tile of the grid:
-    -> [(cta, expert, first row, end row)] of the CTAs that compute."""
-    out = []
-    for t in range(-(-A // BM) + len(counts)):  # the grid's row tiles
-        before = off = 0
-        for e, c in enumerate(counts):
-            c = max(0, min(c, A - off))
-            tiles = -(-c // BM)
-            if t < before + tiles:
-                r0 = off + (t - before) * BM
-                out.append((t, e, r0, min(r0 + BM, off + c)))
+def _kernel_tiles(counts, A, tn):
+    """csrc/grouped_gemm.cu's find_tile for every row tile of the grid,
+    ceil(A / tn) + min(X, A) - 1 of them: -> [(cta, expert, first row, end
+    row)] of the CTAs that compute. Warp 0's form: a count cut at A is
+    min(c, A - min(s, A)), s the raw counts before it (shuffle sums), held
+    here against the walk that cuts each count at A less its offset."""
+    c = np.maximum(np.asarray(counts, np.int64), 0)
+    before = np.cumsum(c) - c
+    cut = np.minimum(c, np.maximum(A - np.minimum(before, A), 0))
+    seg = np.minimum(before, A)
+    tiles = -(-cut // tn)
+    first = np.cumsum(tiles) - tiles
+    out, walk = [], []
+    for t in range(-(-A // tn) + min(len(counts), A) - 1):
+        hit = np.nonzero((t >= first) & (t < first + tiles))[0]
+        if hit.size:
+            e = int(hit[0])
+            r0 = int(seg[e] + (t - first[e]) * tn)
+            out.append((t, e, r0, min(r0 + tn, int(seg[e] + cut[e]))))
+        before_t = off = 0
+        for e, ce in enumerate(counts):
+            ce = max(0, min(ce, A - off))
+            n = -(-ce // tn)
+            if t < before_t + n:
+                r0 = off + (t - before_t) * tn
+                walk.append((t, e, r0, min(r0 + tn, off + ce)))
                 break
-            before += tiles
-            off += c
+            before_t += n
+            off += ce
+    assert out == walk, (counts, A, tn)
     return out
 
 
+# (K, N) of the grid model: Mixtral-8x7B's w_gate/w_in and w_out, a ragged one
+GRID_SHAPES = [(4096, 14336), (14336, 4096), (1000, 136)]
+
+
 def test_kernel_grid_covers_every_segment_row_once(rng):
-    """Every row of every segment in one tile of its own expert, inside the
-    grid's ceil(A / 64) + X row tiles, for skewed, empty and full counts;
-    the CTAs past the segments compute nothing."""
-    cases = [[0] * 7 + [300], [300] + [0] * 7, [1] * 8, [64, 0, 65, 1, 127, 0, 0, 43],
-             [0, 0, 0, 0]]
-    cases += [list(rng.multinomial(A, rng.dirichlet(np.ones(8) * 0.3)))
-              for A in (16, 1024, 2048, 777) for _ in range(5)]
-    for counts in cases:
-        A = int(sum(counts))
-        tiles = _kernel_tiles(counts, A)
-        seen = np.zeros(A, int)
+    """The kernel's work plan (grouped_plan of either form: rows a tile,
+    the grid's row tiles, column tiles and K splits) covers every (segment
+    row, output column, k) once, in a tile of its own expert, inside the grid's bound,
+    for the counts of GROUPED_COUNTS and skewed, empty and full counts at
+    Mixtral's decode and prefill rows, on Mixtral's shapes and a ragged
+    one; the CTAs past the segments compute nothing, and each K split
+    holds at least one chunk."""
+    cases = [(c, 20) for c in GROUPED_COUNTS.values()]
+    cases += [(c, sum(c)) for c in ([0] * 7 + [300], [300] + [0] * 7, [1] * 8,
+                                    [64, 0, 65, 1, 127, 0, 0, 43], [0, 0, 0, 0])]
+    cases += [(list(rng.multinomial(A, rng.dirichlet(np.ones(8) * 0.3))), A)
+              for A in (16, 64, 1024, 777) for _ in range(2)]
+    cases += [([16, 0, 0, 0, 0, 0, 0, 0], 16), ([128] * 8, 1024), ([9, 0, 30, 4], 20),
+              ([40] + [1] * 39, 79)]
+    for counts, A in cases:
         offsets = np.cumsum(counts) - counts
-        for _, e, r0, r1 in tiles:
-            assert offsets[e] <= r0 < r1 <= offsets[e] + counts[e]
-            seen[r0:r1] += 1
-        assert (seen == 1).all(), counts
-        assert len(tiles) == sum(-(-c // PG.BM) for c in counts) <= -(-A // PG.BM) + 8
+        for (K, N), int8 in ((shape, int8) for shape in GRID_SHAPES for int8 in (False, True)):
+            plan = PG.grouped_plan(A, K, N, len(counts), 132, int8)
+            tiles = _kernel_tiles(counts, A, plan.tn)
+            assert all(t < plan.row_tiles for t, *_ in tiles)
+            cut = np.minimum(counts, np.maximum(A - np.minimum(offsets, A), 0))
+            assert len(tiles) == sum(-(-cut // plan.tn))
+            assert plan.col_tiles * PG.CH >= N > (plan.col_tiles - 1) * PG.CH
+            assert plan.chunks * PG.BK >= K > (plan.chunks - 1) * PG.BK
+            ranges = [plan.split_range(s) for s in range(plan.splits)]
+            assert all(e > b for b, e in ranges), ranges
+            # (row, column tile, k chunk) -> the CTAs that compute it
+            seen = np.zeros((A, plan.col_tiles, plan.chunks), np.int32)
+            for _, e, r0, r1 in tiles:
+                assert offsets[e] <= r0 < r1 <= offsets[e] + counts[e]
+                for b, e_ in ranges:
+                    seen[r0:r1, :, b:e_] += 1
+            n = min(A, int(sum(counts)))
+            assert (seen[:n] == 1).all() and not seen[n:].any(), (counts, A, K, N)
 
 
 # ---------------------------------------------------------------------------

@@ -149,7 +149,20 @@ Phases (any failure raises and exits nonzero):
              it must beat at decode; grouped_gemm_design (plans, shared
              memory, ptxas); its design line
              (int8_matmul_design_checks: ptxas, shared memory, stages,
-             CTAs an SM, host us a call for the tensor maps);
+             CTAs an SM, host us a call for the tensor maps); #1-#3 in
+             their f16 builds (flash_f16_checks, fp16 training) at each
+             mode's shape (F16_CASES: the flagship's micro-batch, Mistral's
+             window 4096 at 8192 tokens, BLOOM's ALiBi heads, Falcon-7B's
+             71 over one, Phi-2's D 80, GPT-NeoX-20B's D 96, GPT-J-6B's D
+             256): o, dq, dk, dv within bwd_mismatch's f16 tolerance of
+             the plain versions on the same f16 inputs, lse at 1e-3, every
+             launch counted in [f16] and its modes, two launches
+             bit-identical, the two f16 fault builds (P and dS rounded
+             through bf16; the f16 operands multiplied as bf16) failing,
+             dS's overflow non-finite in the same elements as the plain
+             version's and all finite one scale below, each kernel timed
+             beside its bf16 build (flash_f16_vs_bf16), SDPA in f16 and
+             its bound; the f16 instantiations' ptxas (no spills);
              time kernel, plain version and (where one exists) a single
              PyTorch library call computing the same function: device time
              from torch.profiler, and the time of back-to-back calls from
@@ -164,7 +177,21 @@ Phases (any failure raises and exits nonzero):
              per-token loss and gradients of the kernel path no further
              from the f32 plain path than the bf16 plain path is (B=1,
              S=2048). Then times steps with CUDA events (tokens/s, MFU),
-             profiles where one step's time goes, and reads peak memory.
+             profiles where one step's time goes, and reads peak memory,
+             and counts the synchronizing calls of one train_batch_async
+             (torch.cuda.set_sync_debug_mode("warn")).
+3b. train_fp16 - the same flagship, batch and settings with "fp16":
+             {"enabled": true} (DeepSpeed's defaults: dynamic, 2^16,
+             window 1000, hysteresis 2, min 1): one counted step (#1-#3
+             once per layer, every launch [f16], nothing else), steps until
+             8 have applied (at most 20), the loss at the last applied
+             below the first, the skipped steps and the scale trajectory;
+             a step planted at scale 2^40 skipped with the master, the
+             moments and the step bit-unchanged; the three-path check in
+             f16 (kernel f16, plain f16, plain f32); step ms, tokens/s,
+             MFU and peak memory beside phase 3's; an fp16
+             train_batch_async making no more synchronizing calls than
+             phase 3's bf16 one.
 4. serve   - init_inference on the same model shape in bf16, then drive the
              serving path once with every launch counter at 0: one prefill
              put of 8 x 96-token prompts plus one 512-token prompt, a
@@ -198,7 +225,7 @@ Phases (any failure raises and exits nonzero):
              replayed, the sampled lane's every token equal to the CPU
              oracle's (host_oracle_token on the step's logits, replayed
              stepwise on the card). Every 7B server, Phi-2, GPT-NeoX-20B
-             and GPT-J-6B (SERVED_7B at full width, GRAPH_7B_LAYERS = 8
+             and GPT-J-6B (SERVED_7B at full width, GRAPH_7B_LAYERS = 4
              layers deep; bf16 and int8 pools; the long prompt and 7 x
              96): width 8, 24 steps, greedy. Planted faults that must fail the check, each
              beside its genuine case: a stale table buffer, weights kept
@@ -429,6 +456,10 @@ Phases (any failure raises and exits nonzero):
              layers deep (all 28: ~121 GB), 1.22B parameters, micro-batch
              4 x 2048; the same checks, every launch of #1-#3 in its
              head_dim-256 mode; peak memory under 76 GiB.
+4t. train_neox_fp16 - train_neox in fp16 (as 3b's config): every launch
+             of #1-#3 in its head_dim-96 and f16 modes, the loss over the
+             applied steps, the skipped steps and the scale trajectory,
+             the three-path check in f16, peak memory under 76 GiB.
 5. evoformer - DS4Sci evoformer attention (ds4sci_evoformer_attention) at
              AlphaFold 2 / OpenFold widths, bf16, three cases (EVO_CASES):
              for each, one forward and backward with every launch counter
@@ -3102,7 +3133,9 @@ WIDE_HEAD_DECODE_CUT = {"d96": 80, "d256": 128}
 # 1 starting one row late (its offset shifted by a row), with each
 # consumer reading ring stage it + 1 where it waited on stage it's barrier,
 # with the last K split left out of the combine, and (int8) with the scale
-# of the next k row or of the next column group (GROUPED_FAULTS)
+# of the next k row or of the next column group (GROUPED_FAULTS); and the
+# f16 builds of #1-#3 (F16_FAULTS) with P and dS rounded to bf16 on their
+# way to f16, and with the f16 operands multiplied as bf16
 FAULT_BUILDS = {"pv_hi_product_skipped": "flash_fwd+DS_FAULT_PV_HI_SKIPPED",
                 "q_frag_of_the_next_k_step": "paged_decode+DS_FAULT_Q_FRAG_NEXT_KSTEP",
                 "handoff_second_half_lost": "flash_bwd+DS_FAULT_HANDOFF_HALF",
@@ -3110,7 +3143,11 @@ FAULT_BUILDS = {"pv_hi_product_skipped": "flash_fwd+DS_FAULT_PV_HI_SKIPPED",
                 "ring_stage_read_before_its_barrier": "grouped_gemm+DS_FAULT_STAGE_BEFORE_BARRIER",
                 "split_left_out_of_the_combine": "grouped_gemm+DS_FAULT_SPLIT_LEFT_OUT",
                 "scale_of_the_next_k_row": "grouped_gemm+DS_FAULT_SCALE_NEXT_ROW",
-                "scale_of_the_next_group": "grouped_gemm+DS_FAULT_SCALE_NEXT_GROUP"}
+                "scale_of_the_next_group": "grouped_gemm+DS_FAULT_SCALE_NEXT_GROUP",
+                "f16_p_and_ds_via_bf16_fwd": "flash_fwd+DS_F16+DS_FAULT_PACK_BF16",
+                "f16_p_and_ds_via_bf16_bwd": "flash_bwd+DS_F16+DS_FAULT_PACK_BF16",
+                "f16_f16_operands_as_bf16_fwd": "flash_fwd+DS_F16+DS_FAULT_MMA_AS_BF16",
+                "f16_f16_operands_as_bf16_bwd": "flash_bwd+DS_F16+DS_FAULT_MMA_AS_BF16"}
 
 
 def _head_dim_write_checks(PA, randn, dev, bound_ms, mode, KV, D):
@@ -3557,6 +3594,258 @@ def _flash_bwd_mode_checks(FA, randn, dev, bound_ms):
         m: {"dq_ms": out[f"flash_bwd_dq[{m}]"]["ms"], "dkv_ms": out[f"flash_bwd_dkv[{m}]"]["ms"],
             "sdpa_bwd_ms": out[f"flash_bwd_dq[{m}]"]["library_ms"],
             "shape": out[f"flash_bwd_dq[{m}]"]["shape"]} for m in errs}}))
+    return out
+
+
+# ---------------------------------------------------------------------------
+# phase 2: kernels #1-#3 on f16 operands (fp16 training)
+# ---------------------------------------------------------------------------
+
+# each mode's check shape in f16 (smaller batches than bf16's where the
+# plain versions would need the memory): the flagship's training
+# micro-batch (timed: the kernels line's [f16] rows), Mistral's window
+# 4096 at 8192 tokens, BLOOM-7B1's ALiBi heads, Falcon-7B's 71 query heads
+# over one (kernel #3's group split), Phi-2's head_dim 80, GPT-NeoX-20B's
+# training micro-batch at 96 (timed too: the width train_neox_fp16 runs)
+# and GPT-J-6B's heads at 256
+F16_CASES = {
+    "flagship_train": dict(B=8, S=2048, H=8, KV=8, D=128, window=0, alibi=False, timed=True),
+    "mistral_window_4096": dict(B=1, S=8192, H=32, KV=8, D=128, window=4096, alibi=False),
+    "bloom_alibi": dict(B=1, S=2048, H=32, KV=32, D=128, window=0, alibi=True),
+    "falcon_7b_wide_group": dict(B=1, S=2048, H=71, KV=1, D=64, window=0, alibi=False),
+    "phi_2_d80": dict(B=1, S=2048, H=32, KV=32, D=80, window=0, alibi=False),
+    "neox_20b_d96": dict(B=2, S=2048, H=64, KV=64, D=96, window=0, alibi=False, timed=True),
+    "gptj_6b_d256": dict(B=1, S=2048, H=16, KV=16, D=256, window=0, alibi=False),
+}
+# the two faults built into the f16 code by a define (FAULT_BUILDS): P and
+# dS rounded to bf16 on their way to f16, the f16 operands multiplied as
+# bf16 (wgmma's type left .bf16); each run at the flagship's heads, B 2
+F16_FAULTS = {"p_and_ds_via_bf16": "DS_FAULT_PACK_BF16",
+              "f16_operands_as_bf16": "DS_FAULT_MMA_AS_BF16"}
+# the overflow parity cases: q and k of std 1/8, v of std 64 (dS large
+# beside the sums it feeds), S 300; (H, KV, D)
+F16_OVERFLOW_CASES = {"gqa_8_over_2_d128": (8, 2, 128), "neox_heads_d96": (4, 4, 96)}
+FLASH_NAMES = ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv")
+
+
+def _f16_modes(c):
+    """The launch modes a case's kernels must count, besides f16."""
+    return [m for m, hit in (("window", c["window"] > 0), ("alibi", c["alibi"]),
+                             ("wide_group", c["H"] // c["KV"] > 8), ("d80", c["D"] == 80),
+                             ("d96", c["D"] == 96), ("d256", c["D"] == 256)) if hit] + ["f16"]
+
+
+def _f16_passed(name, got, ref):
+    """An f16 kernel output against its plain version under bwd_mismatch's
+    f16 coefficients and its error-RMS bound; raises if it fails."""
+    from deepspeed_tpu_torch.ops.cuda import flash_attention as FA
+
+    st = FA.bwd_mismatch(got, ref)
+    if not st["passed"]:
+        raise AssertionError(f"{name}: beyond the f16 tolerance of the plain version: {st}")
+    return {"worst_ratio": st["worst_ratio"], "err_rms_over_rms": st["err_rms"] / st["ref_rms"],
+            "max_abs": st["max_abs_err"]}
+
+
+def _f16_overflow_parity(FA, dev):
+    """dO scaled by powers of two until f16's dS overflows (s_over) and one
+    scale below (s_below: every plain output finite), every overflow
+    decision clear of the edge (FA.f16_overflow_scales): the kernels'
+    gradients must be non-finite in exactly the elements where the plain
+    version's are (at s_over, some of dq's), and all finite at s_below
+    within the f16 tolerance."""
+    import torch
+
+    g = torch.Generator(device=dev).manual_seed(16)
+    out = {}
+    for case, (H, KV, D) in F16_OVERFLOW_CASES.items():
+        B, S = 2, 300
+        rnd = lambda *s: torch.randn(s, generator=g, device=dev)
+        q, k = (rnd(*s).div_(8).half() for s in ((B, S, H, D), (B, S, KV, D)))
+        v, do = rnd(B, S, KV, D).mul_(64).half(), rnd(B, S, H, D).half()
+        o, lse = FA.flash_fwd(q, k, v)
+        s_over, s_below, stats = FA.f16_overflow_scales(q, k, v, o, lse, do)
+        rep = {"scales": [s_over, s_below], "probe": stats}
+        for s, over in ((s_over, True), (s_below, False)):
+            dos = (do.float() * s).half()
+            got = FA.flash_attention_bwd(q, k, v, o, lse, dos)
+            ref = FA.flash_attention_bwd_plain(q, k, v, o, lse, dos)
+            torch.cuda.synchronize()
+            bad = [~torch.isfinite(x) for x in got]
+            same = all(torch.equal(b, ~torch.isfinite(r)) for b, r in zip(bad, ref))
+            rep["over" if over else "below"] = {
+                "same_non_finite_elements": same,
+                "non_finite": {n: int(b.sum()) for n, b in zip(("dq", "dk", "dv"), bad)}}
+            if not same or bool(bad[0].any()) != over:
+                raise AssertionError(f"f16 overflow parity {case} at dO x {s}: {rep}")
+            if not over:
+                for n, x, r in zip(("dq", "dk", "dv"), got, ref):
+                    _f16_passed(f"f16 {case} {n} below the overflow", x, r)
+        out[case] = rep
+    return out
+
+
+def _flash_f16_checks(FA, dev, bound_ms):
+    """Kernels #1-#3 in their f16 builds (flash_fwd+DS_F16, flash_bwd+DS_F16)
+    at each mode's check shape (F16_CASES): o, dq, dk and dv against the
+    plain versions on the same f16 inputs (P and dS rounded to f16 where
+    the kernels round them) under bwd_mismatch's f16 tolerance, lse at
+    1e-3, every launch counted in [f16] and in its case's other modes, a
+    second launch of each kernel bit-identical; the fault builds
+    (F16_FAULTS) failing in o, dq, dk and dv; the overflow parity of dS
+    (_f16_overflow_parity); each f16 kernel timed beside its bf16 build on
+    the same shape, SDPA in f16 and its bound (the same as bf16's: both
+    run at 989 TF/s); the f16 instantiations' ptxas registers and spills.
+    Returns the kernels line's [f16] rows (the flagship's shape)."""
+    import torch
+
+    from deepspeed_tpu_torch.ops import cuda as K
+    from deepspeed_tpu_torch.ops.cuda import build
+
+    g = torch.Generator(device=dev).manual_seed(25)
+    f16 = torch.float16
+
+    def randn(*shape, dtype=f16):
+        return torch.randn(shape, generator=g, device=dev, dtype=torch.float32).to(dtype)
+
+    report, out, timed = {}, {}, {}
+    errs = {n: 0.0 for n in FLASH_NAMES}
+    for case, c in F16_CASES.items():
+        B, S, H, KV, D, w = (c[x] for x in ("B", "S", "H", "KV", "D", "window"))
+        modes = _f16_modes(c)
+        q, k, v, do = randn(B, S, H, D), randn(B, S, KV, D), randn(B, S, KV, D), randn(B, S, H, D)
+        sl = _slopes(H, 1.0, dev) if c["alibi"] else None
+        K.reset_launch_counts()
+        o, lse = FA.flash_fwd(q, k, v, w, sl)
+        delta = FA._delta(o, do)
+        got = (FA.flash_bwd_dq(q, k, v, do, lse, delta, w, sl),) + \
+            FA.flash_bwd_dkv(q, k, v, do, lse, delta, w, sl)
+        counts = K.all_launch_counts()
+        want = {f"{n}[{m}]": 1 for n in FLASH_NAMES for m in modes}
+        want.update({n: 1 for n in FLASH_NAMES})
+        if {n: counts[n] for n in want} != want:
+            raise AssertionError(f"flash f16 {case}: not counted in its modes {modes}: {counts}")
+        again = FA.flash_fwd(q, k, v, w, sl) + (FA.flash_bwd_dq(q, k, v, do, lse, delta, w, sl),) \
+            + FA.flash_bwd_dkv(q, k, v, do, lse, delta, w, sl)
+        torch.cuda.synchronize()
+        if not all(torch.equal(a, b) for a, b in zip(again, (o, lse) + got)):
+            raise AssertionError(f"flash f16 {case}: two launches differ")
+        del again
+        if w:
+            ro, rlse = _plain_fwd_grouped(FA, q, k, v, w)
+            ref = _plain_bwd_grouped(FA, q, k, v, lse, delta, do, w)
+        else:
+            rows = [FA.flash_attention_plain(q[b:b + 1], k[b:b + 1], v[b:b + 1], 0, sl)
+                    for b in range(B)]
+            ro, rlse = (torch.cat(x) for x in zip(*rows))
+            ref = _plain_bwd_by_batch(FA, q, k, v, lse, delta, do, 0, sl)
+        if not all(x.dtype == f16 for x in (o, ro) + got + ref):
+            raise AssertionError(f"flash f16 {case}: outputs not in f16")
+        _check_close(f"flash_fwd f16 {case} lse", lse, rlse, 1e-3, 1e-3)
+        rep = {"shape": c, "modes": modes, "two_launches": "bit-identical",
+               "o": _f16_passed(f"flash_fwd f16 {case} o", o, ro)}
+        for name, x, r in zip(("dq", "dk", "dv"), got, ref):
+            rep[name] = _f16_passed(f"flash_bwd f16 {case} {name}", x, r)
+        errs["flash_fwd"] = max(errs["flash_fwd"], rep["o"]["max_abs"])
+        errs["flash_bwd_dq"] = max(errs["flash_bwd_dq"], rep["dq"]["max_abs"])
+        errs["flash_bwd_dkv"] = max(errs["flash_bwd_dkv"], rep["dk"]["max_abs"],
+                                    rep["dv"]["max_abs"])
+        report[case] = rep
+        del ro, rlse, ref, got
+        torch.cuda.empty_cache()
+        if c.get("timed"):
+            timed[case] = _f16_times(FA, randn, bound_ms, q, k, v, do, lse, delta)
+        del q, k, v, do, o, lse, delta
+        torch.cuda.empty_cache()
+
+    # the fault builds, at the flagship's heads (B 2)
+    B, S, H, KV, D = 2, 2048, 8, 8, 128
+    q, k, v, do = randn(B, S, H, D), randn(B, S, KV, D), randn(B, S, KV, D), randn(B, S, H, D)
+    o, lse = FA.flash_fwd(q, k, v)
+    delta = FA._delta(o, do)
+    ref = (FA.flash_attention_plain(q, k, v)[0],) + FA.flash_attention_bwd_plain(q, k, v, o, lse,
+                                                                                 do)
+    faults = {}
+    for fault, define in F16_FAULTS.items():
+        with build.routed("flash_fwd+DS_F16", FAULT_BUILDS[f"f16_{fault}_fwd"]), \
+                build.routed("flash_bwd+DS_F16", FAULT_BUILDS[f"f16_{fault}_bwd"]):
+            bad = (FA.flash_fwd(q, k, v)[0],) + FA.flash_attention_bwd(q, k, v, o, lse, do)
+        torch.cuda.synchronize()
+        faults[fault] = {n: FA.bwd_mismatch(x, r) for n, x, r in zip(("o", "dq", "dk", "dv"),
+                                                                       bad, ref)}
+        faults[fault] = {n: {"passed": st["passed"], "n_over": st["n_over"],
+                             "err_rms_over_rms": st["err_rms"] / st["ref_rms"]}
+                         for n, st in faults[fault].items()}
+        if any(st["passed"] for st in faults[fault].values()):
+            raise AssertionError(f"flash f16: the check passes the fault build {define}: "
+                                 f"{faults[fault]}")
+    del q, k, v, do, o, lse, delta, ref, bad
+    torch.cuda.empty_cache()
+    overflow = _f16_overflow_parity(FA, dev)
+    ptxas = {src: _ptxas_registers(build, f"{src}+DS_F16", (
+        "flash_fwd_kernel", "flash_bwd_dq_kernel", "flash_bwd_dkv_kernel",
+        "flash_bwd_dkv_wide_kernel", "flash_bwd_dkv_combine")) for src in ("flash_fwd", "flash_bwd")}
+    spills = [k for src in ptxas.values() for k, r in src.items()
+              if r.get("spill_stores") or r.get("spill_loads")]
+    print(json.dumps({"flash_f16_checks": {
+        "rtol": FA.F16_RTOL, "row_rms_atol": FA.F16_ROW_ATOL, "floor": FA.F16_FLOOR,
+        "err_rms_bound": FA.F16_ERR_RMS, **report, "fault_builds": faults,
+        "overflow_parity": overflow, "ptxas_f16": ptxas,
+        "build_s": {n: build.BUILD_SECONDS.get(f"{n}+DS_F16") for n in ("flash_fwd",
+                                                                        "flash_bwd")}}}))
+    print(json.dumps({"flash_f16_vs_bf16": timed}))
+    if spills:
+        raise AssertionError(f"flash f16: ptxas spills in {spills}")
+    flag = timed["flagship_train"]
+    for name in FLASH_NAMES:
+        out[f"{name}[f16]"] = dict(flag[name]["f16"], max_abs_err=errs[name],
+                                   shape=flag["shape"])
+    return out
+
+
+def _f16_times(FA, randn, bound_ms, q, k, v, do, lse, delta):
+    """Kernels #1-#3 on these f16 inputs and on the same values in bf16
+    (the bf16 build, timed beside in this call), the plain versions, SDPA
+    in f16 (its backward for #2 and #3, which computes all three
+    gradients) and the bound; returns {kernel: {"f16": timing entry,
+    "bf16_ms": ...}, "shape": ...}."""
+    import torch
+    import torch.nn.functional as F
+
+    B, S, H, D = q.shape
+    KV = k.shape[2]
+    b16 = [x.to(torch.bfloat16) for x in (q, k, v, do)]
+    o16 = FA.flash_fwd(*b16[:3])
+    delta16 = FA._delta(o16[0], b16[3])
+    qt, kt, vt = (x.detach().transpose(1, 2).requires_grad_() for x in (q, k, v))
+    ot = F.scaled_dot_product_attention(qt, kt, vt, is_causal=True, enable_gqa=KV != H)
+    dot = do.transpose(1, 2)
+    sdpa_fwd = lambda: F.scaled_dot_product_attention(qt, kt, vt, is_causal=True,
+                                                      enable_gqa=KV != H)
+    sdpa_bwd = lambda: torch.autograd.grad(ot, (qt, kt, vt), dot, retain_graph=True)
+    plain_bwd = lambda: _plain_bwd_by_batch(FA, q, k, v, lse, delta, do)
+    pairs = B * H * S * (S + 1) / 2
+    io_in = B * S * (2 * H + 2 * KV) * D * 2 + 2 * B * H * S * 4
+    runs = {
+        "flash_fwd": (lambda: FA.flash_fwd(q, k, v), lambda: FA.flash_fwd(*b16[:3]),
+                      lambda: FA.flash_attention_plain(q, k, v), sdpa_fwd,
+                      bound_ms(B * S * (H * 2 + KV * 2) * D * 2 + B * H * S * 4, 4.0 * pairs * D)),
+        "flash_bwd_dq": (lambda: FA.flash_bwd_dq(q, k, v, do, lse, delta),
+                         lambda: FA.flash_bwd_dq(*b16[:3], b16[3], o16[1], delta16),
+                         plain_bwd, sdpa_bwd,
+                         bound_ms(io_in + B * S * H * D * 2, 3 * 2.0 * pairs * D)),
+        "flash_bwd_dkv": (lambda: FA.flash_bwd_dkv(q, k, v, do, lse, delta),
+                          lambda: FA.flash_bwd_dkv(*b16[:3], b16[3], o16[1], delta16),
+                          plain_bwd, sdpa_bwd,
+                          bound_ms(io_in + 2 * B * S * KV * D * 2, 4 * 2.0 * pairs * D))}
+    out = {"shape": f"B={B}, S={S}, H={H}, KV={KV}, D={D}, f16, causal"}
+    for name, (f16_fn, bf16_fn, plain, lib, bound) in runs.items():
+        bf16_before = _device_ms(bf16_fn, 5)
+        entry = dict(_timings(f16_fn, plain, lib, 5), bound=bound)
+        bf16_after = _device_ms(bf16_fn, 5)
+        out[name] = {"f16": entry, "f16_ms": entry["ms"], "bf16_ms": [bf16_before, bf16_after],
+                     "f16_over_bf16": entry["ms"] / (0.5 * (bf16_before + bf16_after)),
+                     "sdpa_f16_ms": entry["library_ms"], "bound_ms": bound[0]}
     return out
 
 
@@ -4269,6 +4558,8 @@ def check_kernels(cfg, dev):
         # the backward's head_dim-80 and wide-group modes at Phi-2's and
         # Falcon-7B's training shapes
         "flash_bwd_modes": lambda: _flash_bwd_mode_checks(FA, randn, dev, bound_ms),
+        # #1-#3's f16 builds (fp16 training) at each mode's shape
+        "flash_f16": lambda: _flash_f16_checks(FA, dev, bound_ms),
         "evoformer": lambda: _evo_kernel_checks(dev, bound_ms),
         # the W8A16 GEMM of the per-channel int8 weight lane at every served shape
         "int8_matmul": lambda: _int8_mm_checks(dev, bound_ms),
@@ -4296,28 +4587,51 @@ def check_kernels(cfg, dev):
 # phase 3: the training path at full flagship width and depth
 # ---------------------------------------------------------------------------
 
-def _grads_three_paths(T, master, cfg, tokens, device):
+def _grads_three_paths(T, master, cfg, tokens, device, dtype=None, scale=1.0):
     """Per-token loss [S] and the flattened gradient of the mean loss on
     one sequence, by three paths from the fp32 weights `master`: the
-    kernel path in bf16 (what training runs), the plain path in bf16 and
-    the plain path in f32 (the reference for both)."""
+    kernel path in `dtype` (bf16 by default; what training runs), the
+    plain path in `dtype` and the plain path in f32 (the reference for
+    both). With fp16, `scale` is the loss scale the backward runs under
+    (a power of two: the gradients are divided by it exactly after)."""
     import torch
     import torch.nn.functional as F
 
     from deepspeed_tpu_torch.utils.tree import leaves, tree_map
 
+    dtype = dtype or torch.bfloat16
     tokens = torch.as_tensor(tokens, device=device).long()
     inputs, targets = tokens[:, :-1], tokens[:, 1:]
     out = []
-    for use_kernel, dtype in ((True, torch.bfloat16), (False, torch.bfloat16),
-                              (False, torch.float32)):
-        live = tree_map(lambda m: m.detach().to(dtype, copy=True).requires_grad_(), master)
+    for use_kernel, dt in ((True, dtype), (False, dtype), (False, torch.float32)):
+        live = tree_map(lambda m: m.detach().to(dt, copy=True).requires_grad_(), master)
         logits = T.forward(live, inputs, cfg, use_kernel=use_kernel).float()
         nll = F.cross_entropy(logits.flatten(0, 1), targets.flatten(), reduction="none")
-        grads = torch.autograd.grad(nll.mean(), leaves(live))
-        out.append((nll.detach(), torch.cat([g.float().flatten() for g in grads])))
+        grads = torch.autograd.grad(nll.mean() * scale, leaves(live))
+        out.append((nll.detach(), torch.cat([g.float().flatten() for g in grads]) / scale))
         del live, logits, grads
     return out
+
+
+def _sync_calls(fn):
+    """The synchronizing CUDA calls one call of fn makes: the warnings of
+    torch.cuda.set_sync_debug_mode("warn"), each message's start (not the
+    once-a-process notice that the mode is a prototype)."""
+    import warnings
+
+    import torch
+
+    torch.cuda.synchronize()
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            fn()
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+    torch.cuda.synchronize()
+    msgs = [str(w.message).lower() for w in caught]
+    return [m[:100] for m in msgs if "synchroniz" in m and "prototype" not in m]
 
 
 def run_train(mcfg, dev):
@@ -4371,6 +4685,9 @@ def run_train(mcfg, dev):
     tok_s = TRAIN_B * TRAIN_S / (step_ms / 1e3)
     breakdown = _where_time_goes(lambda: eng.train_batch(batch), top=10)
     peak_gib = torch.cuda.max_memory_allocated(dev) / 2**30
+    sync_calls = _sync_calls(lambda: eng.train_batch_async(batch))
+    if not _sync_calls(lambda: torch.ones((), device=dev).item()):
+        raise AssertionError("the sync debug mode caught no synchronizing call in .item()")
 
     # -- kernel path vs plain paths on one sequence -----------------------------
     r = np.random.default_rng(1)
@@ -4399,8 +4716,153 @@ def run_train(mcfg, dev):
         "flops_per_token": mcfg.flops_per_token(TRAIN_S),
         "peak_mem_gib": peak_gib,
         "where_time_goes": breakdown,
+        "sync_calls_async_step": sync_calls,
         "path_loss": loss_stats,
         "path_grads": grad_stats,
+    }
+
+
+# ---------------------------------------------------------------------------
+# phase 3b: the flagship trained in fp16 with dynamic loss scaling
+# ---------------------------------------------------------------------------
+
+# DeepSpeed's fp16 block with its defaults (dynamic scaling from 2^16,
+# window 1000, hysteresis 2, min 1), in place of bf16
+FP16_CONFIG = {"bf16": {"enabled": False}, "fp16": {"enabled": True}}
+FP16_APPLIED, FP16_MAX_STEPS = 8, 20  # steps that must apply; steps at most
+FP16_PLANT = 2.0 ** 40  # the planted overflow step's loss scale
+
+
+def _fp16_steps(eng, batch, n_applied, max_steps, first):
+    """train_batch on `batch` until n_applied steps have applied (at most
+    max_steps in all, `first` counted); returns the metrics of every step."""
+    history = [first]
+    while sum(not m["skipped"] for m in history) < n_applied and len(history) < max_steps:
+        history.append(eng.train_batch(batch))
+    return history
+
+
+def _fp16_record(history, n_applied, what):
+    """Checks of an fp16 run: n_applied steps applied, their loss and grad
+    norm finite, the loss at the last applied step below the first's.
+    Returns the skipped flags, the scale trajectory and the applied
+    losses."""
+    import numpy as np
+
+    applied = [m for m in history if not m["skipped"]]
+    losses = [m["loss"] for m in applied]
+    if len(applied) < n_applied:
+        raise AssertionError(f"{what}: {len(applied)} of {len(history)} steps applied, "
+                             f"fewer than {n_applied}: {history}")
+    if not all(np.isfinite(losses + [m["grad_norm"] for m in applied])):
+        raise AssertionError(f"{what}: non-finite loss or grad_norm on an applied step: {history}")
+    if not losses[-1] < losses[0]:
+        raise AssertionError(f"{what}: the loss did not fall over the applied steps: {losses}")
+    return {"skipped": [int(m["skipped"]) for m in history],
+            "loss_scale": [m["loss_scale"] for m in history], "losses": losses,
+            "grad_norms": [m["grad_norm"] for m in applied]}
+
+
+def _planted_overflow(eng, batch):
+    """One step with the loss scale set to FP16_PLANT (every f16 gradient
+    overflows): it must be skipped with the master, the moments and the
+    step bit-unchanged. The scaler's state is put back after it."""
+    import torch
+
+    from deepspeed_tpu_torch.utils.tree import leaves
+
+    state = lambda: leaves(eng.state.master) + leaves(eng.state.opt) + [eng.state.step]
+    before = [t.clone() for t in state()]
+    keep = eng.state.loss_scale
+    eng.state.loss_scale = keep._replace(scale=torch.full_like(keep.scale, FP16_PLANT))
+    m = eng.train_batch(batch)
+    same = all(torch.equal(a, b) for a, b in zip(before, state()))
+    eng.state.loss_scale = keep
+    del before
+    if not (m["skipped"] == 1 and same):
+        raise AssertionError(f"a step at loss scale 2^40 must be skipped with the state "
+                             f"unchanged: skipped {m['skipped']}, unchanged {same}")
+    return {"skipped": int(m["skipped"]), "master_moments_step_bit_unchanged": same,
+            "grad_norm": m["grad_norm"]}
+
+
+def run_train_fp16(mcfg, dev, bf16):
+    """Phase train_fp16: the flagship of phase 3 (`bf16`: its report) with
+    FP16_CONFIG in place of bf16."""
+    import numpy as np
+    import torch
+
+    from deepspeed_tpu_torch import initialize
+    from deepspeed_tpu_torch.models import transformer as T
+    from deepspeed_tpu_torch.ops import cuda as K
+
+    torch.cuda.reset_peak_memory_stats(dev)
+    t0 = time.perf_counter()
+    eng = initialize(dict(TRAIN_CONFIG, **FP16_CONFIG),
+                     loss_fn=T.make_loss_fn(mcfg, loss_chunks=LOSS_CHUNKS),
+                     param_init_fn=lambda g: T.init(mcfg, g, device=dev),
+                     param_logical_specs=T.logical_specs(mcfg))
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    batch = {"tokens": np.random.default_rng(0).integers(
+        0, mcfg.vocab_size, (TRAIN_B, TRAIN_S + 1)).astype(np.int32)}
+
+    # -- the main path, counted: one train step --------------------------------
+    K.reset_launch_counts()
+    first = eng.train_batch(batch)
+    launches = K.all_launch_counts()
+    # ---------------------------------------------------------------------------
+
+    path = set(TRAIN_KERNELS) | {f"{n}[f16]" for n in TRAIN_KERNELS}
+    want = {n: (mcfg.n_layers if n in path else 0) for n in launches}
+    if launches != want:
+        raise AssertionError(f"an fp16 train step should launch each flash kernel once per "
+                             f"layer, every launch [f16], and nothing else: {launches}")
+    record = _fp16_record(_fp16_steps(eng, batch, FP16_APPLIED, FP16_MAX_STEPS, first),
+                          FP16_APPLIED, "train_fp16")
+
+    start = torch.cuda.Event(enable_timing=True)
+    stop = torch.cuda.Event(enable_timing=True)
+    torch.cuda.synchronize()
+    start.record()
+    timed = [eng.train_batch_async(batch) for _ in range(TIMED_STEPS)]
+    stop.record()
+    torch.cuda.synchronize()
+    step_ms = start.elapsed_time(stop) / TIMED_STEPS
+    tok_s = TRAIN_B * TRAIN_S / (step_ms / 1e3)
+    breakdown = _where_time_goes(lambda: eng.train_batch(batch), top=10)
+    peak_gib = torch.cuda.max_memory_allocated(dev) / 2**30
+    sync_calls = _sync_calls(lambda: eng.train_batch_async(batch))
+    if len(sync_calls) > len(bf16["sync_calls_async_step"]):
+        raise AssertionError(f"an fp16 train_batch_async synchronizes more than a bf16 one: "
+                             f"{sync_calls} against {bf16['sync_calls_async_step']}")
+    # after the peak is read: its copies of the master and the moments are
+    # the check's, not the engine's
+    planted = _planted_overflow(eng, batch)
+    scale = float(eng.state.loss_scale.scale)
+
+    # -- kernel path vs plain paths on one sequence, in f16 ---------------------
+    one = np.random.default_rng(1).integers(0, mcfg.vocab_size, (1, TRAIN_S + 1)).astype(np.int32)
+    (nk, gk), (npl, gp), (n32, g32) = _grads_three_paths(T, eng.state.master, mcfg, one,
+                                                         eng.device, torch.float16, scale)
+    loss_stats = _path_errors("fp16 per-token loss", nk, npl, n32)
+    unit = g32.square().mean().sqrt()
+    grad_stats = _path_errors("fp16 gradients", gk / unit, gp / unit, g32 / unit)
+    grad_stats["f32_grad_rms"] = unit.item()
+    del gk, gp, g32, eng
+    torch.cuda.empty_cache()
+    mfu = tok_s * mcfg.flops_per_token(TRAIN_S) / H100_BF16_FLOPS  # f16's peak is bf16's
+    return {
+        "init_s": init_s, "launches": launches, **record, "planted_overflow": planted,
+        "timed_steps_skipped": [int(m["skipped"]) for m in timed],
+        "step_ms": step_ms, "tokens_per_s": tok_s, "mfu": mfu,
+        "bf16": {"step_ms": bf16["step_ms"], "tokens_per_s": bf16["tokens_per_s"],
+                 "mfu": bf16["mfu"], "peak_mem_gib": bf16["peak_mem_gib"]},
+        "step_ms_over_bf16": step_ms / bf16["step_ms"],
+        "peak_mem_gib": peak_gib, "where_time_goes": breakdown,
+        "sync_calls_async_step": sync_calls,
+        "sync_calls_async_step_bf16": bf16["sync_calls_async_step"],
+        "path_scale": scale, "path_loss": loss_stats, "path_grads": grad_stats,
     }
 
 
@@ -4689,9 +5151,9 @@ SERVE_G = dict(SERVE, num_kv_blocks=96)  # 64 rows, and free blocks to move 8 of
 # 512-position splits (decode_split_plan at 8 rows over 1024 positions)
 SPLIT_PROMPT = 600
 # the depth of the SERVED_7B servers here: their replay-vs-eager checks run
-# at full width, 8 layers deep (the flagship's stay at full depth), which
+# at full width, 4 layers deep (the flagship's stay at full depth), which
 # keeps the whole script inside its time limit
-GRAPH_7B_LAYERS = 8
+GRAPH_7B_LAYERS = 4
 
 
 def _same_bits(a, b):
@@ -6582,7 +7044,10 @@ TRAIN_LONG = {"train_window": (TRAIN_W_MODEL, 1, TRAIN_W_S, TRAIN_W_PATH, "windo
               "train_falcon": (TRAIN_FALCON_MODEL, 4, 2048, (2, 2048), "wide_group"),
               "train_phi": (TRAIN_PHI_MODEL, 2, 2048, (2, 2048), "d80"),
               "train_neox": (TRAIN_NEOX_MODEL, 2, 2048, (2, 2048), "d96"),
-              "train_gptj": (TRAIN_GPTJ_MODEL, 4, 2048, (2, 2048), "d256")}
+              "train_gptj": (TRAIN_GPTJ_MODEL, 4, 2048, (2, 2048), "d256"),
+              # GPT-NeoX-20B's width as upstream trained it: fp16 with dynamic
+              # loss scaling (FP16_CONFIG)
+              "train_neox_fp16": (TRAIN_NEOX_MODEL, 2, 2048, (2, 2048), "d96", "fp16")}
 
 
 def run_train_long(dev, phase):
@@ -6604,11 +7069,14 @@ def run_train_long(dev, phase):
     from deepspeed_tpu_torch.models import transformer as T
     from deepspeed_tpu_torch.ops import cuda as K
 
-    model, B, S, (n_layers, path_s), mode = TRAIN_LONG[phase]
+    model, B, S, (n_layers, path_s), mode, *precision = TRAIN_LONG[phase]
+    fp16 = precision == ["fp16"]
+    modes = [mode] + (["f16"] if fp16 else [])
     mcfg = T.TransformerConfig(**model)
     torch.cuda.reset_peak_memory_stats(dev)
     t0 = time.perf_counter()
-    eng = initialize(dict(TRAIN_CONFIG, train_micro_batch_size_per_gpu=B),
+    eng = initialize(dict(TRAIN_CONFIG, train_micro_batch_size_per_gpu=B,
+                          **(FP16_CONFIG if fp16 else {})),
                      loss_fn=T.make_loss_fn(mcfg, loss_chunks=LOSS_CHUNKS),
                      param_init_fn=lambda g: T.init(mcfg, g, device=dev),
                      param_logical_specs=T.logical_specs(mcfg))
@@ -6624,11 +7092,19 @@ def run_train_long(dev, phase):
     # ---------------------------------------------------------------------------
 
     want = {n: (mcfg.n_layers if n in TRAIN_KERNELS
-                or n in [f"{k}[{mode}]" for k in TRAIN_KERNELS] else 0) for n in launches}
+                or n in [f"{k}[{m}]" for k in TRAIN_KERNELS for m in modes] else 0)
+            for n in launches}
     if launches != want:
         raise AssertionError(f"a {phase} step should launch each flash kernel once per layer "
-                             f"in its {mode} mode and nothing else: {launches}")
-    history = [first] + [eng.train_batch(batch) for _ in range(TRAIN_LONG_STEPS - 1)]
+                             f"in its {modes} modes and nothing else: {launches}")
+    record = None
+    if fp16:
+        record = _fp16_record(_fp16_steps(eng, batch, TRAIN_LONG_STEPS, FP16_MAX_STEPS, first),
+                              TRAIN_LONG_STEPS, phase)
+        history = [{"loss": x, "grad_norm": g} for x, g in zip(record["losses"],
+                                                               record["grad_norms"])]
+    else:
+        history = [first] + [eng.train_batch(batch) for _ in range(TRAIN_LONG_STEPS - 1)]
     losses = [m["loss"] for m in history]
     if not all(np.isfinite(losses + [m["grad_norm"] for m in history])):
         raise AssertionError(f"non-finite loss or grad_norm: {history}")
@@ -6650,6 +7126,7 @@ def run_train_long(dev, phase):
         raise AssertionError(f"{phase}: peak memory {peak_gib:.1f} GiB, over {TRAIN_PEAK_GIB}")
 
     # -- kernel path vs plain paths on one sequence, n_layers deep --------------
+    scale = float(eng.state.loss_scale.scale) if fp16 else 1.0
     master = eng.state.master
     sub = {k: v.detach().clone() for k, v in master.items() if k != "layers"}
     sub["layers"] = {k: v[:n_layers].detach().clone() for k, v in master["layers"].items()}
@@ -6657,7 +7134,8 @@ def run_train_long(dev, phase):
     torch.cuda.empty_cache()
     pcfg = dataclasses.replace(mcfg, n_layers=n_layers)
     one = np.random.default_rng(1).integers(0, mcfg.vocab_size, (1, path_s + 1)).astype(np.int32)
-    (nk, gk), (npl, gp), (n32, g32) = _grads_three_paths(T, sub, pcfg, one, dev)
+    (nk, gk), (npl, gp), (n32, g32) = _grads_three_paths(
+        T, sub, pcfg, one, dev, torch.float16 if fp16 else None, scale)
     loss_stats = _path_errors("per-token loss", nk, npl, n32)
     unit = g32.square().mean().sqrt()
     grad_stats = _path_errors("gradients", gk / unit, gp / unit, g32 / unit)
@@ -6675,6 +7153,9 @@ def run_train_long(dev, phase):
         "flops_per_token": mcfg.flops_per_token(S),
         "peak_mem_gib": peak_gib, "where_time_goes": breakdown,
         "path_check": {"layers": n_layers, "S": path_s, "loss": loss_stats, "grads": grad_stats}}
+    if fp16:
+        report.update(skipped=record["skipped"], loss_scale=record["loss_scale"],
+                      path_scale=scale)
     if mode == "window":
         report["attention_pairs_window_over_causal"] = _live_pairs(S, WINDOW) / _live_pairs(S, 0)
     return report
@@ -6822,6 +7303,8 @@ def main():
     done("kernels", {"ok": True})
     tr = run_train(T.TransformerConfig(**TRAIN_MODEL), dev)
     done("train", tr)
+    tr16 = run_train_fp16(T.TransformerConfig(**TRAIN_MODEL), dev, tr)
+    done("train_fp16", tr16)
     sl, bf16_serving = run_serving(cfg, dev)
     done("serve", sl)
     q8, _ = run_serving(cfg, dev, int8=True, bf16=bf16_serving)
@@ -6855,12 +7338,12 @@ def main():
     ev = run_evoformer(dev)
     done("evoformer", ev)
 
-    paths = {"train": tr, "serve": sl, "serve_int8": q8, "serve_graphs": gr, "serve_int8w": q8w,
+    paths = {"train": tr, "train_fp16": tr16, "serve": sl, "serve_int8": q8, "serve_graphs": gr, "serve_int8w": q8w,
              "serve_scheduler": sch, "kv_handoff": kvh, "serve_mixtral": mx,
              "serve_mixtral_dropless": mxd, **served, **trains, "evoformer": ev}
     line = []
     # each mode (window, ALiBi, layout bitmap, wide group, head_dim 80, 96
-    # and 256) is a path of its kernel: same source, same TPU kernel
+    # and 256, f16) is a path of its kernel: same source, same TPU kernel
     sources = {**KERNELS, **{f"{n}[{mode}]": KERNELS[n]
                              for mode, names in K.MODES.items() for n in names}}
     for name, (source, replaces) in sources.items():

@@ -1,12 +1,13 @@
 // Causal flash-attention backward (recompute from the saved logsumexp) over
-// q, do [B, S, H, D] and k, v [B, S, KV, D] in bf16 with lse and
+// q, do [B, S, H, D] and k, v [B, S, KV, D] in bf16 (or f16: the build
+// with DS_F16, below) with lse and
 // delta = rowsum(dO * O) as [B, H, S] f32, in its causal, sliding-window
 // and ALiBi modes, at head dims 64, 80, 96, 128 and 256 and any whole
 // query group (counted as the wide-group mode above 8 heads a group, and
 // as the head_dim-80, -96 and -256 modes). Two kernels:
 //
-//   flash_bwd_dq   dq [B, S, H, D] bf16
-//   flash_bwd_dkv  dk, dv [B, S, KV, D] bf16 (GQA: summed over the group)
+//   flash_bwd_dq   dq [B, S, H, D] in the inputs' type
+//   flash_bwd_dkv  dk, dv [B, S, KV, D] in the inputs' type (GQA: summed over the group)
 //
 // Replaces: deepspeed_tpu/ops/pallas/flash_attention.py _flash_bwd, i.e.
 // _bwd_dq_kernel (the pallas_call at :438) and _bwd_dkv_kernel (:467),
@@ -39,9 +40,9 @@
 //   A and B from shared memory (S = Q K^T), or A from registers times an
 //   MN-major B (O += P V). No S x S quantity leaves registers: the
 //   exponent, the mask and dS are computed on the accumulator fragments,
-//   P and dS are rounded to bf16 into A fragments there (as the TPU
-//   kernels round them), and the dq, dk, dv sums stay in registers to the
-//   end. The epilogue stages each sum in bf16 in the warpgroup's own
+//   P and dS are rounded to the inputs' type into A fragments there (as
+//   the TPU kernels round them), and the dq, dk, dv sums stay in registers
+//   to the end. The epilogue stages each sum in that type in the warpgroup's own
 //   input rows (now spent) and writes 16-byte vectors; rows past S write
 //   nothing.
 // - Only the tiles that the diagonal or the window's edge cuts take mask
@@ -64,6 +65,16 @@
 // Two warpgroups (128 keys) where B * KV * ceil(S / 128) fills the card,
 // else one (64 keys, two CTAs an SM).
 //
+// f16 (fp16 mixed-precision training): the same source built with DS_F16
+// (hopper.cuh) takes q, k, v and dO in f16, runs every wgmma as
+// .f32.f16.f16, rounds P and dS to f16 for their products (the TPU
+// kernels' astype(q.dtype)) and writes dq, dk and dv in f16; lse, delta,
+// the slopes and the split's partials stay f32. The designs are the bf16
+// ones. Under fp16 loss scaling dS is the quantity that overflows: a
+// |dS| past 65504 rounds to inf, as the reference's cast does, and the
+// gradients it reaches turn non-finite, which the engine's overflow
+// check then sees.
+//
 // The group split (wide groups on a grid that would not fill the card:
 // Falcon-7B's 71 q heads over one KV head at B = 4, S = 2048 is 64 CTAs of
 // 128 keys for 132 SMs). The TPU ran the group as a sequential grid axis
@@ -72,9 +83,9 @@
 // partial; its plan is flash_attention.dkv_split_plan), one CTA per
 // (key block, chunk). Each chunk CTA writes its partial dk and dv in f32
 // to the wrapper's scratch [n_chunks, 2, B, S, KV, D], and a second
-// kernel adds the partials in chunk order and writes bf16: no atomics, so
+// kernel adds the partials in chunk order and writes elem_t: no atomics, so
 // two launches give the same bits. With n_chunks = 1 (the flagship, and
-// any grid that fills the card) one pass writes bf16 and no scratch
+// any grid that fills the card) one pass writes elem_t and no scratch
 // exists.
 //
 // dq: a CTA owns BM = 64 x NWG query rows of one q head (128 where
@@ -258,7 +269,7 @@ __device__ __forceinline__ int stage_off(int row, int v, int atom_bytes) {
   return (v / 8) * atom_bytes + row * 128 + (((v % 8) ^ (row & 7)) << 4);
 }
 
-// Stage a warpgroup's 64 x DP f32 accumulator as bf16 rows (rows lr and
+// Stage a warpgroup's 64 x DP f32 accumulator as elem_t rows (rows lr and
 // lr + 8 of the fragments) in shared memory at `dst`.
 template <int DP, int N>
 __device__ __forceinline__ void stage_rows(unsigned char* dst, const float (&acc)[N], int lr,
@@ -268,8 +279,8 @@ __device__ __forceinline__ void stage_rows(unsigned char* dst, const float (&acc
 #pragma unroll
     for (int half = 0; half < 2; ++half) {
       const int row = lr + 8 * half;
-      *reinterpret_cast<__nv_bfloat162*>(dst + stage_off(row, j, atom_bytes) + cq * 2) =
-          __floats2bfloat162_rn(acc[4 * j + 2 * half], acc[4 * j + 2 * half + 1]);
+      *reinterpret_cast<elem2_t*>(dst + stage_off(row, j, atom_bytes) + cq * 2) =
+          to_elem2(acc[4 * j + 2 * half], acc[4 * j + 2 * half + 1]);
     }
   }
 }
@@ -316,7 +327,7 @@ __global__ void __launch_bounds__(C::THREADS, C::MIN_BLOCKS)
                          const __grid_constant__ CUtensorMap tk,
                          const __grid_constant__ CUtensorMap tv,
                          const __grid_constant__ CUtensorMap tdo,
-                         __nv_bfloat16* __restrict__ dk, __nv_bfloat16* __restrict__ dv,
+                         elem_t* __restrict__ dk, elem_t* __restrict__ dv,
                          float* __restrict__ part, const float* __restrict__ lse,
                          const float* __restrict__ delta, const float* __restrict__ slopes,
                          int B, int S, int H, int KV, int window, int n_chunks, float scale) {
@@ -458,7 +469,7 @@ __global__ void __launch_bounds__(C::THREADS, C::MIN_BLOCKS)
       const bool cut = kw + 63 > q0 || (window > 0 && kw <= q0 + TILE - 1 - window);
       const float* ls = lse_s + st * TILE;
       const float* dl = delta_s + st * TILE;
-      uint32_t pa[4][4], da[4][4];  // P^T, dS^T in bf16 as A fragments (k-step: 16 queries)
+      uint32_t pa[4][4], da[4][4];  // P^T, dS^T in elem_t as A fragments (k-step: 16 queries)
 #pragma unroll
       for (int kk = 0; kk < 4; ++kk) {
 #pragma unroll
@@ -475,8 +486,8 @@ __global__ void __launch_bounds__(C::THREADS, C::MIN_BLOCKS)
         }
 #pragma unroll
         for (int x = 0; x < 4; ++x) {
-          pa[kk][x] = pack_bf16(s[8 * kk + 2 * x], s[8 * kk + 2 * x + 1]);
-          da[kk][x] = pack_bf16(dp[8 * kk + 2 * x], dp[8 * kk + 2 * x + 1]);
+          pa[kk][x] = pack_ab(s[8 * kk + 2 * x], s[8 * kk + 2 * x + 1]);
+          da[kk][x] = pack_ab(dp[8 * kk + 2 * x], dp[8 * kk + 2 * x + 1]);
         }
       }
 
@@ -551,7 +562,7 @@ __global__ void __launch_bounds__(C::THREADS, C::MIN_BLOCKS)
                               const __grid_constant__ CUtensorMap tk,
                               const __grid_constant__ CUtensorMap tv,
                               const __grid_constant__ CUtensorMap tdo,
-                              __nv_bfloat16* __restrict__ dk, __nv_bfloat16* __restrict__ dv,
+                              elem_t* __restrict__ dk, elem_t* __restrict__ dv,
                               float* __restrict__ part, const float* __restrict__ lse,
                               const float* __restrict__ delta, const float* __restrict__ slopes,
                               int B, int S, int H, int KV, int window, int n_chunks,
@@ -681,7 +692,7 @@ __global__ void __launch_bounds__(C::THREADS, C::MIN_BLOCKS)
     wgmma_wait();
     fence_regs(x);
 
-    uint32_t a[4][4];  // P^T or dS^T in bf16 as A fragments (k-step: 16 queries)
+    uint32_t a[4][4];  // P^T or dS^T in elem_t as A fragments (k-step: 16 queries)
     if (wg == 0) {
       // P^T = 2^(s scale + slope (key - query) - lse) on live (key, query)
       const bool cut = k0 + 63 > q0 || (window > 0 && k0 <= q0 + TILE - 1 - window);
@@ -725,7 +736,7 @@ __global__ void __launch_bounds__(C::THREADS, C::MIN_BLOCKS)
 #pragma unroll
     for (int kk = 0; kk < 4; ++kk)
 #pragma unroll
-      for (int j = 0; j < 4; ++j) a[kk][j] = pack_bf16(x[8 * kk + 2 * j], x[8 * kk + 2 * j + 1]);
+      for (int j = 0; j < 4; ++j) a[kk][j] = pack_ab(x[8 * kk + 2 * j], x[8 * kk + 2 * j + 1]);
 
     // dV += P^T dO (warpgroup 0), dK += dS^T Q (warpgroup 1); dO and Q read
     // MN-major, part p from their atom 2p
@@ -774,7 +785,7 @@ __global__ void __launch_bounds__(C::THREADS, C::MIN_BLOCKS)
   for (int p = 0; p < C::PARTS; ++p)
     stage_rows<C::ACC_N>(so + p * (C::ACC_N / ATOM) * C::K_ATOM, acc[p], lr, cq, C::K_ATOM);
   asm volatile("bar.sync %0, %1;" ::"r"(1 + wg), "n"(WG) : "memory");
-  __nv_bfloat16* out = wg == 0 ? dv : dk;
+  elem_t* out = wg == 0 ? dv : dk;
   constexpr int VPR = C::D / 8;  // 16-byte vectors per row
   for (int x = wtid; x < 64 * VPR; x += WG) {
     const int row = x / VPR;
@@ -791,7 +802,7 @@ __global__ void __launch_bounds__(C::THREADS, C::MIN_BLOCKS)
 // chunks, in chunk order, of the f32 partials [n_chunks][2][n]; one
 // thread per 4 elements.
 __global__ void __launch_bounds__(256)
-    flash_bwd_dkv_combine(__nv_bfloat16* __restrict__ dk, __nv_bfloat16* __restrict__ dv,
+    flash_bwd_dkv_combine(elem_t* __restrict__ dk, elem_t* __restrict__ dv,
                           const float* __restrict__ part, int n_chunks, long long n4) {
   const long long x = static_cast<long long>(blockIdx.x) * 256 + threadIdx.x;
   if (x >= 2 * n4) return;
@@ -806,8 +817,8 @@ __global__ void __launch_bounds__(256)
     s.z += v.z;
     s.w += v.w;
   }
-  __nv_bfloat16* out = t == 0 ? dk : dv;
-  *reinterpret_cast<uint2*>(out + 4 * e) = make_uint2(pack_bf16(s.x, s.y), pack_bf16(s.z, s.w));
+  elem_t* out = t == 0 ? dk : dv;
+  *reinterpret_cast<uint2*>(out + 4 * e) = make_uint2(pack_elem(s.x, s.y), pack_elem(s.z, s.w));
 }
 
 // dq: one CTA per (q tile, batch, q head), q tiles in reverse order (the
@@ -817,7 +828,7 @@ __global__ void __launch_bounds__(C::THREADS, C::MIN_BLOCKS)
     flash_bwd_dq_kernel(const __grid_constant__ CUtensorMap tq,
                         const __grid_constant__ CUtensorMap tk,
                         const __grid_constant__ CUtensorMap tv,
-                        const __grid_constant__ CUtensorMap tdo, __nv_bfloat16* __restrict__ dq,
+                        const __grid_constant__ CUtensorMap tdo, elem_t* __restrict__ dq,
                         const float* __restrict__ lse, const float* __restrict__ delta,
                         const float* __restrict__ slopes, int S, int H, int KV, int window,
                         float scale) {
@@ -927,7 +938,7 @@ __global__ void __launch_bounds__(C::THREADS, C::MIN_BLOCKS)
 
       // P = 2^(s scale + slope (col - row) - lse), dS = P (dP - delta) scale
       const bool cut = c0 + C::BN - 1 > rw || (window > 0 && c0 <= rw + 63 - window);
-      uint32_t da[4][4];  // dS in bf16 as A fragments (k-step: 16 keys)
+      uint32_t da[4][4];  // dS in elem_t as A fragments (k-step: 16 keys)
 #pragma unroll
       for (int kk = 0; kk < 4; ++kk) {
 #pragma unroll
@@ -943,7 +954,7 @@ __global__ void __launch_bounds__(C::THREADS, C::MIN_BLOCKS)
         }
 #pragma unroll
         for (int x = 0; x < 4; ++x)
-          da[kk][x] = pack_bf16(dp[8 * kk + 2 * x], dp[8 * kk + 2 * x + 1]);
+          da[kk][x] = pack_ab(dp[8 * kk + 2 * x], dp[8 * kk + 2 * x + 1]);
       }
 
       // dQ += dS K (K read MN-major; part p takes K's atoms from
@@ -1003,7 +1014,7 @@ int launch_dq(void* dq, const void* q, const void* k, const void* v, const void*
   if (e != cudaSuccess) return static_cast<int>(e);
   const long long ctas = static_cast<long long>(B) * H * ((S + C::BM - 1) / C::BM);
   flash_bwd_dq_kernel<C><<<static_cast<unsigned>(ctas), C::THREADS, C::SMEM, stream>>>(
-      maps[0], maps[1], maps[2], maps[3], static_cast<__nv_bfloat16*>(dq),
+      maps[0], maps[1], maps[2], maps[3], static_cast<elem_t*>(dq),
       static_cast<const float*>(lse), static_cast<const float*>(delta),
       static_cast<const float*>(slopes), S, H, KV, window, scale);
   return static_cast<int>(cudaGetLastError());
@@ -1023,15 +1034,15 @@ int launch_dkv(Kernel kernel, void* dk, void* dv, void* part, const void* q, con
   const long long ctas =
       static_cast<long long>((S + C::BNK - 1) / C::BNK) * B * KV * n_chunks;
   kernel<<<static_cast<unsigned>(ctas), C::THREADS, C::SMEM, stream>>>(
-      maps[0], maps[1], maps[2], maps[3], static_cast<__nv_bfloat16*>(dk),
-      static_cast<__nv_bfloat16*>(dv), n_chunks > 1 ? static_cast<float*>(part) : nullptr,
+      maps[0], maps[1], maps[2], maps[3], static_cast<elem_t*>(dk),
+      static_cast<elem_t*>(dv), n_chunks > 1 ? static_cast<float*>(part) : nullptr,
       static_cast<const float*>(lse), static_cast<const float*>(delta),
       static_cast<const float*>(slopes), B, S, H, KV, window, n_chunks, scale);
   e = cudaGetLastError();
   if (e != cudaSuccess || n_chunks == 1) return static_cast<int>(e);
   const long long n4 = static_cast<long long>(B) * S * KV * C::D / 4;
   flash_bwd_dkv_combine<<<static_cast<unsigned>((2 * n4 + 255) / 256), 256, 0, stream>>>(
-      static_cast<__nv_bfloat16*>(dk), static_cast<__nv_bfloat16*>(dv),
+      static_cast<elem_t*>(dk), static_cast<elem_t*>(dv),
       static_cast<const float*>(part), n_chunks, n4);
   return static_cast<int>(cudaGetLastError());
 }

@@ -1,7 +1,7 @@
 // Causal flash-attention forward (FlashAttention online softmax) over
-// q [B, S, H, D] and k, v [B, S, KV, D] in bf16, writing o [B, S, H, D]
-// in bf16 and the row logsumexp lse [B, H, S] in f32 (kept for the
-// backward, csrc/flash_bwd.cu).
+// q [B, S, H, D] and k, v [B, S, KV, D] in bf16 (or f16: the build with
+// DS_F16, below), writing o [B, S, H, D] in the inputs' type and the row
+// logsumexp lse [B, H, S] in f32 (kept for the backward, csrc/flash_bwd.cu).
 //
 // Replaces: deepspeed_tpu/ops/pallas/flash_attention.py _flash_fwd
 // (_fwd_kernel), the prefill attention of the serving path and the
@@ -29,12 +29,12 @@
 //   over one) are coordinates, and K/V are never repeated in memory.
 //   Rows past S arrive as TMA's out-of-bounds zeros. Tiles use the
 //   128-byte swizzle, 64 bf16 columns to an atom.
-// - S = Q K^T runs on wgmma (bf16 in, f32 accumulate) with both operands
+// - S = Q K^T runs on wgmma (bf16 or f16 in, f32 accumulate) with both operands
 //   in shared memory; the score tile never leaves registers. The online
 //   softmax runs on the accumulator fragments (rows 16w + lane/4 and +8,
 //   columns 8j + 2 (lane % 4) and +1): row max and sum across the 4
 //   threads that share a row, the rescale of O in registers. P is rounded
-//   to bf16 into wgmma A fragments in registers, and O += P V runs on
+//   to the inputs' type into wgmma A fragments in registers, and O += P V runs on
 //   wgmma with V as the shared-memory B operand (MN-major: D contiguous).
 //   The O accumulator stays in registers to the end.
 // - Only the tiles that the diagonal or the window's left edge cuts take
@@ -88,6 +88,16 @@
 // 2048-token prefill and 1.9x at 512, where the 128-row CTAs left half
 // the SMs idle (port_timing.py flash; PERF.md).
 //
+// f16 (fp16 mixed-precision training): the same source built with
+// DS_F16 (hopper.cuh) takes q, k, v in f16, runs every wgmma as
+// .f32.f16.f16, rounds P to f16 for P V (the TPU kernel's
+// p.astype(v.dtype)) and writes o in f16. The tiling, the ring and the
+// softmax are the bf16 kernel's: the two types have the same width and
+// the same tensor-core rate, so only the rounding differs (f16 keeps 11
+// significant bits over a range up to 65504, bf16 8 over f32's range).
+// P lies in [0, 1], so it cannot overflow f16; below 2^-14 it loses bits
+// as an f16 subnormal, as the reference's cast does.
+//
 // The TPU kernel's grid ran its k axis in order with the accumulators in
 // VMEM scratch; here that axis is the loop inside the CTA.
 //
@@ -126,7 +136,7 @@ struct Cfg {
   // passes of OC columns
   static constexpr bool O_OVER_Q = D > 128;
   static constexpr int OC = O_OVER_Q ? 128 : DP;    // columns an epilogue pass stages
-  static constexpr int LDO = OC + 8;                // bf16 stride of an O staging row
+  static constexpr int LDO = OC + 8;                // elem_t stride of an O staging row
   static constexpr int Q_BOX_BYTES = QBOX * ATOM * 2;
   static constexpr int KV_BOX_BYTES = BN * ATOM * 2;
   static constexpr int KV_TILE = NA * KV_BOX_BYTES;  // one stage of K, or of V
@@ -180,7 +190,7 @@ template <class C>
 __device__ __forceinline__ void consume(unsigned char* smem, uint32_t base, int wg, int r0,
                                         int j0, int n_tiles, int b, int h, int S, int H,
                                         int window, float scale_log2, const float* slopes,
-                                        __nv_bfloat16* __restrict__ o, float* __restrict__ lse) {
+                                        elem_t* __restrict__ o, float* __restrict__ lse) {
   const int wtid = threadIdx.x % WG;
   const int warp = wtid / 32;
   const int lane = wtid % 32;
@@ -282,12 +292,12 @@ __device__ __forceinline__ void consume(unsigned char* smem, uint32_t base, int 
       acc[i + 2] *= corr1;
       acc[i + 3] *= corr1;
     }
-    // P in bf16 as wgmma A fragments: k-step kk holds columns 16kk..16kk+15
+    // P in elem_t as wgmma A fragments: k-step kk holds columns 16kk..16kk+15
     uint32_t pa[C::BN / 16][4];
 #pragma unroll
     for (int kk = 0; kk < C::BN / 16; ++kk) {
 #pragma unroll
-      for (int x = 0; x < 4; ++x) pa[kk][x] = pack_bf16(sc[8 * kk + 2 * x], sc[8 * kk + 2 * x + 1]);
+      for (int x = 0; x < 4; ++x) pa[kk][x] = pack_ab(sc[8 * kk + 2 * x], sc[8 * kk + 2 * x + 1]);
     }
 
     // O += P V
@@ -302,7 +312,7 @@ __device__ __forceinline__ void consume(unsigned char* smem, uint32_t base, int 
     if (lane == 0) mbar_arrive(bars + 8 * (1 + 3 * STAGES + st));  // V stage free
   }
 
-  // epilogue: l across the quad, O / l staged in shared memory as bf16,
+  // epilogue: l across the quad, O / l staged in shared memory as elem_t,
   // written as 16-byte vectors; lse = m ln 2 + ln l
   l0 += __shfl_xor_sync(0xffffffffu, l0, 1);
   l0 += __shfl_xor_sync(0xffffffffu, l0, 2);
@@ -317,9 +327,8 @@ __device__ __forceinline__ void consume(unsigned char* smem, uint32_t base, int 
   }
   // the staging rows: the warpgroup's own region, or (D 256) its Q, whose
   // last reader (the last tile's Q K^T) has completed
-  __nv_bfloat16* so =
-      C::O_OVER_Q ? reinterpret_cast<__nv_bfloat16*>(smem + (q_tile - base))
-                  : reinterpret_cast<__nv_bfloat16*>(smem + C::O_OFF) + wg * 64 * C::LDO;
+  elem_t* so = C::O_OVER_Q ? reinterpret_cast<elem_t*>(smem + (q_tile - base))
+                           : reinterpret_cast<elem_t*>(smem + C::O_OFF) + wg * 64 * C::LDO;
 #pragma unroll
   for (int p = 0; p < C::DP / C::OC; ++p) {
     if (p > 0) asm volatile("bar.sync %0, %1;" ::"r"(1 + wg), "n"(WG) : "memory");
@@ -327,10 +336,10 @@ __device__ __forceinline__ void consume(unsigned char* smem, uint32_t base, int 
     for (int g = 0; g < C::OC / 8; ++g) {
       const int c = 8 * g + cq;
       const int a = 4 * (p * C::OC / 8 + g);
-      *reinterpret_cast<__nv_bfloat162*>(so + lr * C::LDO + c) =
-          __floats2bfloat162_rn(acc[a] * inv0, acc[a + 1] * inv0);
-      *reinterpret_cast<__nv_bfloat162*>(so + (lr + 8) * C::LDO + c) =
-          __floats2bfloat162_rn(acc[a + 2] * inv1, acc[a + 3] * inv1);
+      *reinterpret_cast<elem2_t*>(so + lr * C::LDO + c) =
+          to_elem2(acc[a] * inv0, acc[a + 1] * inv0);
+      *reinterpret_cast<elem2_t*>(so + (lr + 8) * C::LDO + c) =
+          to_elem2(acc[a + 2] * inv1, acc[a + 3] * inv1);
     }
     asm volatile("bar.sync %0, %1;" ::"r"(1 + wg), "n"(WG) : "memory");
     // 16-byte vectors per row of this pass: the first D columns
@@ -352,7 +361,7 @@ __device__ __forceinline__ void consume(unsigned char* smem, uint32_t base, int 
 template <class C>
 __global__ void __launch_bounds__(C::THREADS, C::MIN_BLOCKS)
     flash_fwd_kernel(const __grid_constant__ CUtensorMap tq, const __grid_constant__ CUtensorMap tk,
-                     const __grid_constant__ CUtensorMap tv, __nv_bfloat16* __restrict__ o,
+                     const __grid_constant__ CUtensorMap tv, elem_t* __restrict__ o,
                      float* __restrict__ lse, const float* __restrict__ slopes, int S, int H,
                      int KV, int window, float scale_log2) {
   extern __shared__ __align__(1024) unsigned char smem_raw[];
@@ -445,7 +454,7 @@ int launch(void* o, void* lse, const void* q, const void* k, const void* v, cons
   if (e != cudaSuccess) return static_cast<int>(e);
   const long long ctas = static_cast<long long>(B) * H * ((S + C::BM - 1) / C::BM);
   flash_fwd_kernel<C><<<static_cast<unsigned>(ctas), C::THREADS, C::SMEM, stream>>>(
-      maps[0], maps[1], maps[2], static_cast<__nv_bfloat16*>(o), static_cast<float*>(lse),
+      maps[0], maps[1], maps[2], static_cast<elem_t*>(o), static_cast<float*>(lse),
       static_cast<const float*>(slopes), S, H, KV, window, scale * LOG2E);
   return static_cast<int>(cudaGetLastError());
 }

@@ -17,10 +17,45 @@
 #include <cuda.h>
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
+#include <cuda_fp16.h>
 #include <cstdint>
 #include <math.h>
 
+// The element type of the 16-bit operands every wgmma product of this
+// header multiplies, and of the 4-D tensor maps (encode_map): bf16, or f16
+// in a build with DS_F16. Only the flash kernels (#1-#3) are built that
+// way too (flash_fwd+DS_F16, flash_bwd+DS_F16: ops/cuda/build.py); every
+// other source that includes this header is built without it and is the
+// bf16 code it was. DS_MMA_TYPE is the type wgmma reads the operands as;
+// the fault build DS_FAULT_MMA_AS_BF16 leaves it bf16 over f16 data.
+#ifdef DS_F16
+#define DS_MAP_TYPE CU_TENSOR_MAP_DATA_TYPE_FLOAT16
+#ifdef DS_FAULT_MMA_AS_BF16  // defined only in a planted fault's build (chip_smoke.py)
+#define DS_MMA_TYPE "bf16"
+#else
+#define DS_MMA_TYPE "f16"
+#endif
+#else
+#define DS_MAP_TYPE CU_TENSOR_MAP_DATA_TYPE_BFLOAT16
+#define DS_MMA_TYPE "bf16"
+#endif
+#define DS_MMA_AB "." DS_MMA_TYPE "." DS_MMA_TYPE
+
 namespace hopper {
+
+#ifdef DS_F16
+using elem_t = __half;
+using elem2_t = __half2;
+__device__ __forceinline__ elem2_t to_elem2(float lo, float hi) {
+  return __floats2half2_rn(lo, hi);
+}
+#else
+using elem_t = __nv_bfloat16;
+using elem2_t = __nv_bfloat162;
+__device__ __forceinline__ elem2_t to_elem2(float lo, float hi) {
+  return __floats2bfloat162_rn(lo, hi);
+}
+#endif
 
 constexpr int WG = 128;    // threads per warpgroup
 constexpr int ATOM = 64;   // bf16 columns per 128-byte swizzle atom
@@ -163,13 +198,35 @@ __device__ __forceinline__ float ex2(float x) {  // 2^x; -inf gives +0
   return y;
 }
 
+#ifndef DS_F16
 // The low and high bf16 halves of a 32-bit word, widened to f32 (exact).
+// bf16 only (a shift is no f16 widening): an f16 build has none.
 __device__ __forceinline__ float bf16_lo(uint32_t w) { return __uint_as_float(w << 16); }
 __device__ __forceinline__ float bf16_hi(uint32_t w) { return __uint_as_float(w & 0xffff0000u); }
+#endif
 
 __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
   __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
   return *reinterpret_cast<uint32_t*>(&v);
+}
+
+// Two values rounded to elem_t (round to nearest even; beyond the type's
+// range, inf), as one 32-bit word (low half: lo): the outputs' stores.
+__device__ __forceinline__ uint32_t pack_elem(float lo, float hi) {
+  elem2_t v = to_elem2(lo, hi);
+  return *reinterpret_cast<uint32_t*>(&v);
+}
+
+// An A fragment pair of a product (P or dS rounded to elem_t before it
+// meets the tensor cores, as the TPU kernels round them to the inputs'
+// dtype). The fault build DS_FAULT_PACK_BF16 (made only of the f16 code)
+// rounds the pair to bf16 first.
+__device__ __forceinline__ uint32_t pack_ab(float lo, float hi) {
+#ifdef DS_FAULT_PACK_BF16  // a planted fault's build (chip_smoke.py)
+  lo = __bfloat162float(__float2bfloat16_rn(lo));
+  hi = __bfloat162float(__float2bfloat16_rn(hi));
+#endif
+  return pack_elem(lo, hi);
 }
 
 // D (+)= A B on one warpgroup, m64 x N x k16, f32 accumulators d[N / 2]
@@ -178,13 +235,13 @@ __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
 // each 8-column group j: d[4j], d[4j + 1] on the first row, d[4j + 2],
 // d[4j + 3] on the second). _ss: A and B from shared memory (both
 // K-major); scale_d 0 overwrites d. _rs: A from registers (an
-// accumulator's fragments rounded to bf16: k-step kk takes columns
+// accumulator's fragments rounded to elem_t: k-step kk takes columns
 // 16kk..16kk+15), B MN-major (transposed) from shared memory,
 // accumulating.
 __device__ __forceinline__ void wgmma_ss(float (&d)[32], uint64_t a, uint64_t b, int scale_d) {
   asm volatile(
       "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32" DS_MMA_AB " {"
       "%0, %1, %2, %3, %4, %5, %6, %7,"
       "%8, %9, %10, %11, %12, %13, %14, %15,"
       "%16, %17, %18, %19, %20, %21, %22, %23,"
@@ -200,7 +257,7 @@ __device__ __forceinline__ void wgmma_ss(float (&d)[32], uint64_t a, uint64_t b,
 __device__ __forceinline__ void wgmma_rs(float (&d)[16], const uint32_t (&a)[4], uint64_t b) {
   asm volatile(
       "{\n.reg .pred p;\nsetp.ne.b32 p, %21, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 {"
+      "wgmma.mma_async.sync.aligned.m64n32k16.f32" DS_MMA_AB " {"
       "%0, %1, %2, %3, %4, %5, %6, %7,"
       "%8, %9, %10, %11, %12, %13, %14, %15"
       "}, {%16, %17, %18, %19}, %20, p, 1, 1, 1;\n}\n"
@@ -212,7 +269,7 @@ __device__ __forceinline__ void wgmma_rs(float (&d)[16], const uint32_t (&a)[4],
 __device__ __forceinline__ void wgmma_rs(float (&d)[32], const uint32_t (&a)[4], uint64_t b) {
   asm volatile(
       "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32" DS_MMA_AB " {"
       "%0, %1, %2, %3, %4, %5, %6, %7,"
       "%8, %9, %10, %11, %12, %13, %14, %15,"
       "%16, %17, %18, %19, %20, %21, %22, %23,"
@@ -228,7 +285,7 @@ __device__ __forceinline__ void wgmma_rs(float (&d)[32], const uint32_t (&a)[4],
 __device__ __forceinline__ void wgmma_ss(float (&d)[64], uint64_t a, uint64_t b, int scale_d) {
   asm volatile(
       "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32" DS_MMA_AB " {"
       "%0, %1, %2, %3, %4, %5, %6, %7,"
       "%8, %9, %10, %11, %12, %13, %14, %15,"
       "%16, %17, %18, %19, %20, %21, %22, %23,"
@@ -252,7 +309,7 @@ __device__ __forceinline__ void wgmma_ss(float (&d)[64], uint64_t a, uint64_t b,
 __device__ __forceinline__ void wgmma_rs(float (&d)[64], const uint32_t (&a)[4], uint64_t b) {
   asm volatile(
       "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32" DS_MMA_AB " {"
       "%0, %1, %2, %3, %4, %5, %6, %7,"
       "%8, %9, %10, %11, %12, %13, %14, %15,"
       "%16, %17, %18, %19, %20, %21, %22, %23,"
@@ -303,7 +360,7 @@ __device__ __forceinline__ void wgmma_rs_kb<8>(float (&d)[4], const uint32_t (&a
                                                  uint64_t b) {
   asm volatile(
       "{\n.reg .pred p;\nsetp.ne.b32 p, %9, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n8k16.f32.bf16.bf16 {"
+      "wgmma.mma_async.sync.aligned.m64n8k16.f32" DS_MMA_AB " {"
       "%0, %1, %2, %3"
       "}, {%4, %5, %6, %7}, %8, p, 1, 1, 0;\n}\n"
       : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
@@ -315,7 +372,7 @@ __device__ __forceinline__ void wgmma_rs_kb<16>(float (&d)[8], const uint32_t (&
                                                  uint64_t b) {
   asm volatile(
       "{\n.reg .pred p;\nsetp.ne.b32 p, %13, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n16k16.f32.bf16.bf16 {"
+      "wgmma.mma_async.sync.aligned.m64n16k16.f32" DS_MMA_AB " {"
       "%0, %1, %2, %3, %4, %5, %6, %7"
       "}, {%8, %9, %10, %11}, %12, p, 1, 1, 0;\n}\n"
       : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7])
@@ -327,7 +384,7 @@ __device__ __forceinline__ void wgmma_rs_kb<32>(float (&d)[16], const uint32_t (
                                                  uint64_t b) {
   asm volatile(
       "{\n.reg .pred p;\nsetp.ne.b32 p, %21, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 {"
+      "wgmma.mma_async.sync.aligned.m64n32k16.f32" DS_MMA_AB " {"
       "%0, %1, %2, %3, %4, %5, %6, %7,"
       "%8, %9, %10, %11, %12, %13, %14, %15"
       "}, {%16, %17, %18, %19}, %20, p, 1, 1, 0;\n}\n"
@@ -341,7 +398,7 @@ __device__ __forceinline__ void wgmma_rs_kb<64>(float (&d)[32], const uint32_t (
                                                  uint64_t b) {
   asm volatile(
       "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32" DS_MMA_AB " {"
       "%0, %1, %2, %3, %4, %5, %6, %7,"
       "%8, %9, %10, %11, %12, %13, %14, %15,"
       "%16, %17, %18, %19, %20, %21, %22, %23,"
@@ -359,7 +416,7 @@ __device__ __forceinline__ void wgmma_rs_kb<128>(float (&d)[64], const uint32_t 
                                                  uint64_t b) {
   asm volatile(
       "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32" DS_MMA_AB " {"
       "%0, %1, %2, %3, %4, %5, %6, %7,"
       "%8, %9, %10, %11, %12, %13, %14, %15,"
       "%16, %17, %18, %19, %20, %21, %22, %23,"
@@ -413,7 +470,7 @@ inline EncodeTiled encode_tiled() {
   return fn;
 }
 
-// 4-D tensor map over x [B, S, heads, D] bf16 (innermost first: D, heads,
+// 4-D tensor map over x [B, S, heads, D] of elem_t (innermost first: D, heads,
 // S, B): boxes of `rows` positions x `cols` columns of one head (64: the
 // 128-byte swizzle; 32: the 64-byte one), zeros outside the tensor
 // (columns past D, rows past S).
@@ -428,7 +485,7 @@ inline int encode_map(CUtensorMap* map, const void* x, int B, int S, int heads, 
                                  static_cast<cuuint64_t>(S) * heads * D * 2};
   const cuuint32_t box[4] = {static_cast<cuuint32_t>(cols), 1, static_cast<cuuint32_t>(rows), 1};
   const cuuint32_t elem[4] = {1, 1, 1, 1};
-  const CUresult r = enc(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(x), dims,
+  const CUresult r = enc(map, DS_MAP_TYPE, 4, const_cast<void*>(x), dims,
                          strides, box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE,
                          cols == ATOM ? CU_TENSOR_MAP_SWIZZLE_128B : CU_TENSOR_MAP_SWIZZLE_64B,
                          CU_TENSOR_MAP_L2_PROMOTION_L2_256B,

@@ -22,7 +22,10 @@ also covers block-sparse models (attention_impl="sparse", the layout of
 `sparsity_config()`) and Mixtral-class MoE models (n_experts > 0: the
 expert stacks, w_router and PR-MoE's residual leaves are in `init` and
 `param_count`); training runs dense models without dropout
-(`check_trained`).
+(`check_trained`), in the parameters' dtype: f32, bf16, or f16 under the
+fp16 config block (the engine's dynamic loss scaling), the norms, the
+rotary products and the cross-entropy in f32 whatever that dtype, and
+attention on the flash kernels' bf16 or f16 builds.
 """
 
 import dataclasses

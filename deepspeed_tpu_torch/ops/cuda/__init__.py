@@ -9,8 +9,9 @@ and counted as "<name>[<mode>]": `window_launches` (a sliding window > 0),
 `alibi_launches` (ALiBi slopes), `sparse_launches` (a block-sparse layout
 bitmap), `wide_group_launches` (more than 8 query heads per KV head),
 `d80_launches` (head_dim 80: Phi-2), `d96_launches` (head_dim 96:
-GPT-NeoX-20B) and `d256_launches` (head_dim 256: GPT-J-6B; the head-dim
-counters on the flash kernels #1-#3 and the serving kernels #4-#6).
+GPT-NeoX-20B), `d256_launches` (head_dim 256: GPT-J-6B; the head-dim
+counters on the flash kernels #1-#3 and the serving kernels #4-#6) and
+`f16_launches` (f16 operands: the flash kernels #1-#3 of fp16 training).
 `MODES[mode]` names the wrappers with that
 counter, `mode_launch_counts(mode)` gives their counts. A launch in
 several modes counts in each.

@@ -18,9 +18,11 @@ once, and records each one's seconds in `BUILD_SECONDS`. A missing
 
 A name may carry preprocessor defines after the source, joined by `+`
 (`flash_fwd+DS_FAULT_PV_HI_SKIPPED`): that source built with `-D` of each,
-in a library of its own. Such builds hold the planted faults that
-`chip_smoke.py` aims at a kernel's own code; `routed(name, variant)`
-makes the wrappers load the variant for the length of a block.
+in a library of its own. The f16 flash kernels are such builds
+(`flash_fwd+DS_F16`, `flash_bwd+DS_F16`: csrc/hopper.cuh's element type),
+and so are the planted faults that `chip_smoke.py` aims at a kernel's own
+code; `routed(name, variant)` makes the wrappers load the variant for the
+length of a block.
 
 Each kernel function returns its `cudaError_t` as an int (the launch
 status from `cudaGetLastError`); `check()` raises on a nonzero value.
@@ -38,8 +40,11 @@ from typing import Dict, Iterable, Optional
 
 CSRC = Path(__file__).resolve().parents[2] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
+# every library the port runs: each source, and the f16 builds of the
+# flash kernels (#1-#3 on f16 operands, fp16 training)
 SOURCES = ("paged_kv_write", "paged_decode", "flash_fwd", "flash_bwd", "evoformer_fwd",
-           "evoformer_bwd", "evoformer_db2", "int8_matmul", "grouped_gemm")
+           "evoformer_bwd", "evoformer_db2", "int8_matmul", "grouped_gemm",
+           "flash_fwd+DS_F16", "flash_bwd+DS_F16")
 ARCH_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a")
 NVCC_FLAGS = ARCH_FLAGS + ("-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
                            "-Xptxas", "-v")
@@ -194,9 +199,10 @@ def load(name: str) -> ctypes.CDLL:
 @contextlib.contextmanager
 def routed(name: str, variant: str):
     """Within the block, load(name) returns the library of `variant` (the
-    same source with `+DEFINE` suffixes), so every wrapper of `name` runs
-    that build."""
-    if variant.split("+")[0] != name:
+    same build with further `+DEFINE` suffixes: `flash_fwd+DS_F16+DS_X`
+    for `flash_fwd+DS_F16`), so every wrapper that loads `name` runs that
+    build."""
+    if not variant.startswith(name + "+"):
         raise ValueError(f"{variant!r} is not a build of {name!r}")
     _routes[name] = variant
     try:

@@ -13,8 +13,8 @@ kernels), lse and delta [B, H, S] f32.
 `flash_attention(q, k, v)` is differentiable on every device. Its forward
 saves q, k, v, o and lse (the residuals of the reference's
 `_flash_fwd_rule`); its backward recomputes the probabilities from lse.
-For CUDA tensors both directions launch the kernels (bf16) or raise; for
-CPU tensors they run the plain versions (`flash_attention_plain`,
+For CUDA tensors both directions launch the kernels (bf16 or f16) or
+raise; for CPU tensors they run the plain versions (`flash_attention_plain`,
 `flash_attention_bwd_plain`), which do the same recompute-from-lse math
 densely in f32 (P and dS rounded to the inputs' dtype where the kernels
 round them). Every kernel wrapper carries `launches`, raised by one
@@ -23,7 +23,14 @@ the sliding-window mode, `alibi_launches`, in the ALiBi mode,
 `wide_group_launches`, with more than 8 query heads per KV head
 (Falcon-7B: 71 over one), `d80_launches`, at head_dim 80 (Phi-2), and
 `d96_launches` and `d256_launches`, at head_dim 96 (GPT-NeoX-20B) and 256
-(GPT-J-6B).
+(GPT-J-6B), and `f16_launches`, on f16 operands.
+
+Element types: q, k, v (and dO) are all bf16 or all f16 (fp16
+mixed-precision training: the same kernels built with DS_F16, libraries
+`flash_fwd+DS_F16` and `flash_bwd+DS_F16`, in every mode the bf16 ones
+have); lse, delta and the ALiBi slopes stay f32, and o, dq, dk, dv come
+back in the inputs' type. Mixed types raise, and so does f32 on CUDA
+(ROADMAP B6: the f32 modes need a kernel design of their own).
 
 Kernel #3 sums each KV head's dk and dv over its group of query heads in
 registers; where its grid would leave SMs idle it splits the group into
@@ -59,8 +66,9 @@ from typing import NamedTuple, Tuple
 import torch
 
 from . import build
-from ._common import (BWD_FLOOR, BWD_ROW_ATOL, BWD_RTOL, bwd_mismatch,  # noqa: F401
-                      check_cuda_args, check_shape, count_launch, ptr, stream_of, zero_counts)
+from ._common import (BWD_FLOOR, BWD_ROW_ATOL, BWD_RTOL, F16_ERR_RMS, F16_FLOOR,  # noqa: F401
+                      F16_ROW_ATOL, F16_RTOL, bwd_mismatch, check_cuda_args, check_shape,
+                      count_launch, ptr, stream_of, zero_counts)
 
 # head dims the kernels are built for, forward and backward (80: Phi-2;
 # 96: GPT-NeoX-20B; 256: GPT-J-6B)
@@ -111,14 +119,17 @@ def _delta(o, do):
     return (do.float() * o.float()).sum(-1).transpose(1, 2).contiguous()
 
 
-def _bwd_plain(q, k, v, lse, delta, do, window: int = 0, alibi=None):
+def _bwd_plain(q, k, v, lse, delta, do, window: int = 0, alibi=None, sums: bool = False):
     """Dense f32 backward from the saved lse and delta: returns dq, dk, dv
     in the inputs' dtypes, the GQA heads of each group summed into their
     KV head; P recomputed with the ALiBi bias of the [H] slopes `alibi`
     when given. P and dS are rounded to the inputs' dtype before their
     products, as the reference kernel does (`ds.astype(k.dtype)`) and as
-    kernels #2 and #3 do for the tensor cores: a no-op in f32, bf16
-    rounding for bf16 inputs."""
+    kernels #2 and #3 do for the tensor cores: a no-op in f32, bf16 or f16
+    rounding for bf16 or f16 inputs (an f16 |dS| past 65504 becomes inf).
+    With `sums`, returns (dq, dk, dv) in f32 before their final rounding
+    and dS [B, H, S, S] in f32 before its rounding instead (the distance
+    of each from f16's overflow: the fp16 overflow checks)."""
     B, S, H, D = q.shape
     KV = k.shape[2]
     G = H // KV
@@ -127,13 +138,17 @@ def _bwd_plain(q, k, v, lse, delta, do, window: int = 0, alibi=None):
     dof = do.float()
     vf = _repeat_kv(v, G).float()
     dp = torch.einsum("bqhd,bkhd->bhqk", dof, vf)
-    ds = p * (dp - delta[..., None].float()) * scale
-    p, ds = p.to(q.dtype).float(), ds.to(q.dtype).float()
+    ds32 = p * (dp - delta[..., None].float()) * scale
+    p, ds = p.to(q.dtype).float(), ds32.to(q.dtype).float()
+    if not sums:
+        del ds32
     dq = torch.einsum("bhqk,bkhd->bqhd", ds, _repeat_kv(k, G).float())
     dk = torch.einsum("bhqk,bqhd->bkhd", ds, q.float())
     dv = torch.einsum("bhqk,bqhd->bkhd", p, dof)
     dk = dk.reshape(B, S, KV, G, D).sum(3)
     dv = dv.reshape(B, S, KV, G, D).sum(3)
+    if sums:
+        return dq, dk, dv, ds32
     return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
 
 
@@ -146,13 +161,78 @@ def flash_attention_bwd_plain(q, k, v, o, lse, do, window: int = 0, alibi=None):
     return _bwd_plain(q, k, v, lse, _delta(o, do), do, window, alibi)
 
 
+_BF16 = torch.bfloat16
+_F16 = torch.float16
+_F32 = torch.float32
+# the kernels' element types -> the library suffix of each source's build
+_BUILDS = {_BF16: "", _F16: "+DS_F16"}
+_ROW_STATS = ("lse", "delta")  # f32 [B, H, S] beside the element-type tensors
+
+
+def _elem_dtype(what, q):
+    """The element type the kernels take for q (bf16 or f16); f32 raises
+    (ROADMAP B6)."""
+    if q.dtype not in _BUILDS:
+        raise TypeError(f"{what}: q has dtype {q.dtype}; the kernels take bf16 or f16 "
+                        f"(the f32 modes are not ported yet: ROADMAP B6)")
+    return q.dtype
+
+
+def _library(name, dtype):
+    """The kernel library of source `name` for element type `dtype`."""
+    return build.load(name + _BUILDS[dtype])
+
+
+# f16's rounding edge: an f32 value of magnitude 65520 or more rounds to inf
+F16_EDGE = 65520.0
+
+
+def f16_overflow_scales(q, k, v, o, lse, do, window: int = 0, alibi=None,
+                        margin: float = 2.0 ** -10, steps: int = 24):
+    """The powers of two by which the fp16 overflow checks scale an f16 dO
+    (exactly, as a loss scale does): (s_over, s_below, stats). At s_over
+    some entries of the plain backward's f32 dS reach F16_EDGE, so their
+    f16 rounding is inf; at s_below no dS entry and no output sum does, so
+    every gradient is finite. At both, every dS entry and every finite
+    output sum lies more than `margin` (relative) from the edge, so no
+    overflow decision turns on the order of a kernel's f32 sums. Raises
+    if no such pair exists within `steps` doublings of dO."""
+    def probe(s):
+        dos = (do.float() * s).to(do.dtype)
+        if not torch.isfinite(dos).all():
+            return None
+        dq, dk, dv, ds = _bwd_plain(q, k, v, lse, _delta(o, dos), dos, window, alibi,
+                                    sums=True)
+        near = False
+        for x in (ds, dq, dk, dv):
+            r = x.abs()[torch.isfinite(x)] / F16_EDGE
+            near |= bool(((r > 1 - margin) & (r < 1 + margin)).any())
+        top = (ds.abs().max() / F16_EDGE).item()
+        outs_finite = all(bool((torch.isfinite(x) & (x.abs() < F16_EDGE)).all())
+                          for x in (dq, dk, dv))
+        return {"scale": s, "ds_max_over_edge": top, "near_edge": near,
+                "outputs_finite": outs_finite, "ds_over": int((ds.abs() >= F16_EDGE).sum())}
+
+    probes = [probe(2.0 ** i) for i in range(steps)]
+    over = next((i for i, p in enumerate(probes)
+                 if p is not None and p["ds_over"] and not p["near_edge"]), None)
+    if over is None:
+        raise ValueError(f"no dO scale up to 2^{steps - 1} overflows f16's dS clear of the edge")
+    below = next((i for i in range(over - 1, -1, -1)
+                  if probes[i] is not None and not probes[i]["ds_over"]
+                  and probes[i]["outputs_finite"] and not probes[i]["near_edge"]), None)
+    if below is None:
+        raise ValueError("no dO scale below the overflow keeps every output finite")
+    return 2.0 ** over, 2.0 ** below, {"over": probes[over], "below": probes[below]}
+
+
 def _check_attention_args(what, tensors, dtypes, q, k):
     B, S, H, D = q.shape
     KV = k.shape[2]
     check_cuda_args(what, tensors, dtypes,
-                    aligned=tuple(n for n, t in tensors.items() if t.dtype == torch.bfloat16))
+                    aligned=tuple(n for n, t in tensors.items() if t.dtype in _BUILDS))
     for name, t in tensors.items():
-        if t.dtype != torch.bfloat16:
+        if name in _ROW_STATS:
             check_shape(what, name, t, (B, H, S))
         elif name in ("k", "v", "dk", "dv"):
             check_shape(what, name, t, (B, S, KV, D))
@@ -164,46 +244,42 @@ def _check_attention_args(what, tensors, dtypes, q, k):
         raise ValueError(f"{what}: {H} query heads are not a multiple of {KV} KV heads")
 
 
-_BF16 = torch.bfloat16
-_F32 = torch.float32
-
-
 def _check_slopes(what, q, alibi):
     """ALiBi slopes: [H] f32 on q's card, contiguous."""
     if alibi is not None:
-        check_cuda_args(what, {"q": q, "alibi": alibi}, {"q": _BF16, "alibi": _F32})
+        check_cuda_args(what, {"q": q, "alibi": alibi}, {"q": q.dtype, "alibi": _F32})
         check_shape(what, "alibi", alibi, (q.shape[2],))
 
 
 def flash_fwd(q, k, v, window: int = 0, alibi=None):
     """Causal attention forward (kernel #1: csrc/flash_fwd.cu), banded to
     `window` when it is > 0, ALiBi-biased by `alibi` ([H] f32 slopes, one
-    per q head) when given. q [B, S, H, D] bf16, k/v [B, S, KV, D] bf16,
-    all contiguous. Returns (o [B, S, H, D] bf16, lse [B, H, S] f32). CPU
-    tensors take the plain version."""
+    per q head) when given. q [B, S, H, D], k/v [B, S, KV, D], all bf16
+    or all f16, contiguous. Returns (o [B, S, H, D] in q's dtype, lse [B,
+    H, S] f32). CPU tensors take the plain version."""
     if not q.is_cuda:
         return flash_attention_plain(q, k, v, window, alibi)
     what = "flash_fwd"
-    _check_attention_args(what, {"q": q, "k": k, "v": v},
-                          {"q": _BF16, "k": _BF16, "v": _BF16}, q, k)
+    dt = _elem_dtype(what, q)
+    _check_attention_args(what, {"q": q, "k": k, "v": v}, {"q": dt, "k": dt, "v": dt}, q, k)
     _check_slopes(what, q, alibi)
     B, S, H, D = q.shape
     o = torch.empty_like(q)
     lse = torch.empty((B, H, S), dtype=_F32, device=q.device)
     if B * S == 0:
         return o, lse
-    lib = build.load("flash_fwd")
+    lib = _library("flash_fwd", dt)
     err = lib.flash_fwd(ptr(o), ptr(lse), ptr(q), ptr(k), ptr(v),
                         None if alibi is None else ptr(alibi), B, S, H, k.shape[2], D,
                         int(window), 1.0 / D ** 0.5, stream_of(q))
     build.check(lib, err, what)
-    count_launch(flash_fwd, window, alibi is not None, group=H // k.shape[2], head_dim=D)
+    count_launch(flash_fwd, window, alibi is not None, group=H // k.shape[2], head_dim=D,
+                 dtype=dt)
     return o, lse
 
 
-zero_counts(flash_fwd, "window", "alibi", "wide_group", "d80", "d96", "d256")
-
-_BWD_DTYPES = {"q": _BF16, "k": _BF16, "v": _BF16, "do": _BF16, "lse": _F32, "delta": _F32}
+_FLASH_MODES = ("window", "alibi", "wide_group", "d80", "d96", "d256", "f16")
+zero_counts(flash_fwd, *_FLASH_MODES)
 
 
 def _launch_bwd(what, q, k, v, do, lse, delta, window, alibi, outs):
@@ -211,8 +287,11 @@ def _launch_bwd(what, q, k, v, do, lse, delta, window, alibi, outs):
     (dq, or dk and dv with the group split of `dkv_split_plan` and its f32
     scratch); returns False, launching nothing, for an empty batch or
     sequence."""
+    dt = _elem_dtype(what, q)
     _check_attention_args(what, {"q": q, "k": k, "v": v, "do": do, "lse": lse,
-                                 "delta": delta}, _BWD_DTYPES, q, k)
+                                 "delta": delta},
+                          {"q": dt, "k": dt, "v": dt, "do": dt, "lse": _F32, "delta": _F32},
+                          q, k)
     _check_slopes(what, q, alibi)
     B, S, H, D = q.shape
     KV = k.shape[2]
@@ -228,7 +307,7 @@ def _launch_bwd(what, q, k, v, do, lse, delta, window, alibi, outs):
                 if plan.n_chunks > 1 else None)
         ptrs.append(None if part is None else ptr(part))
         ints.append(plan.n_chunks)
-    lib = build.load("flash_bwd")
+    lib = _library("flash_bwd", dt)
     err = getattr(lib, what)(*ptrs, *ints, 1.0 / D ** 0.5, stream_of(q))
     build.check(lib, err, what)
     return True
@@ -238,19 +317,19 @@ def flash_bwd_dq(q, k, v, do, lse, delta, window: int = 0, alibi=None):
     """dq of causal attention (kernel #2: csrc/flash_bwd.cu), banded to
     `window` when it is > 0, ALiBi-biased by `alibi` ([H] f32 slopes) when
     given, from the forward's lse and delta = rowsum(dO * O): q, do [B, S,
-    H, D] bf16, k, v [B, S, KV, D] bf16, lse, delta [B, H, S] f32, all
-    contiguous. Returns dq [B, S, H, D] bf16. CPU tensors take the plain
-    version."""
+    H, D], k, v [B, S, KV, D], all bf16 or all f16, lse, delta [B, H, S]
+    f32, all contiguous. Returns dq [B, S, H, D] in q's dtype. CPU tensors
+    take the plain version."""
     if not q.is_cuda:
         return _bwd_plain(q, k, v, lse, delta, do, window, alibi)[0]
     dq = torch.empty_like(q)
     if _launch_bwd("flash_bwd_dq", q, k, v, do, lse, delta, window, alibi, (dq,)):
         count_launch(flash_bwd_dq, window, alibi is not None, group=q.shape[2] // k.shape[2],
-                     head_dim=q.shape[3])
+                     head_dim=q.shape[3], dtype=q.dtype)
     return dq
 
 
-zero_counts(flash_bwd_dq, "window", "alibi", "wide_group", "d80", "d96", "d256")
+zero_counts(flash_bwd_dq, *_FLASH_MODES)
 
 
 # Kernel #3's group split: where B * KV * ceil(S / key_block) CTAs would
@@ -306,17 +385,17 @@ def flash_bwd_dkv(q, k, v, do, lse, delta, window: int = 0, alibi=None):
     group is split (`dkv_split_plan`) per chunk into an f32 scratch that a
     second pass adds in chunk order (no atomics either way: the same bits
     every run). Arguments as `flash_bwd_dq`. Returns (dk, dv) [B, S, KV,
-    D] bf16. CPU tensors take the plain version."""
+    D] in q's dtype. CPU tensors take the plain version."""
     if not q.is_cuda:
         return _bwd_plain(q, k, v, lse, delta, do, window, alibi)[1:]
     dk, dv = torch.empty_like(k), torch.empty_like(v)
     if _launch_bwd("flash_bwd_dkv", q, k, v, do, lse, delta, window, alibi, (dk, dv)):
         count_launch(flash_bwd_dkv, window, alibi is not None, group=q.shape[2] // k.shape[2],
-                     head_dim=q.shape[3])
+                     head_dim=q.shape[3], dtype=q.dtype)
     return dk, dv
 
 
-zero_counts(flash_bwd_dkv, "window", "alibi", "wide_group", "d80", "d96", "d256")
+zero_counts(flash_bwd_dkv, *_FLASH_MODES)
 
 
 def flash_attention_bwd(q, k, v, o, lse, do, window: int = 0, alibi=None):
@@ -363,8 +442,8 @@ class FlashAttention(torch.autograd.Function):
 
 
 def flash_attention(q, k, v, window: int = 0, alibi=None):
-    """Causal attention: q [B, S, H, D], k/v [B, S, KV, D] (bf16 on the
-    GPU), banded to the last `window` positions when window > 0, biased
+    """Causal attention: q [B, S, H, D], k/v [B, S, KV, D] (bf16 or f16 on
+    the GPU), banded to the last `window` positions when window > 0, biased
     by the [H] ALiBi slopes `alibi` when given (a tensor, array or list;
     pass an f32 tensor on q's device to spare a copy per call).
     Differentiable in q, k and v. Returns (o [B, S, H, D], lse [B, H, S]

@@ -15,17 +15,35 @@ step per `train_batch`:
    step + 1 for bias correction, and the compute-dtype parameters are
    refreshed from it IN PLACE.
 
+fp16 (`"fp16": {"enabled": true}`, the JAX step's loss-scaled path): the
+compute dtype is f16 (the flash kernels run in their f16 builds), each
+micro-batch's loss is multiplied by the dynamic loss scale before its
+backward, and the f32 sum by 1 / (GAS x scale); an overflow is a
+non-finite global gradient norm (taken before clipping). On an overflow
+the master, the moments and the step stay bit for bit as they were (the
+LR schedule does not advance), and the scaler moves
+(`precision.update_loss_scale`). Whether a step overflowed is known only
+on the card, so nothing reads it on the host: the step count
+(`TrainState.step`) is a 0-dim int32 device tensor, the learning rate and
+the bias corrections come from device tables (`_tables`, filled by the
+host schedule for every step up to the steps issued, so their values are
+the host schedule's), and the skip is a select (`masked_update`). The
+micro-batches' generators are seeded from the count of steps issued
+(`global_steps`), not from the device step. `get_lr()` reads the device
+step (a host sync, on request only).
+
 Metrics are `loss` (the mean of the micro-batch losses), `grad_norm`
-(before clipping), `lr` and `skipped`. `train_batch_async` returns them as
-device tensors without waiting for the card; `train_batch` reads them in
-one host transfer.
+(before clipping), `lr` and `skipped` (1 where an fp16 step overflowed,
+else 0), and with fp16 `loss_scale` (the scale after the step).
+`train_batch_async` returns them as device tensors without waiting for
+the card, fp16 or not; `train_batch` reads them in one host transfer.
 
 One GPU shards nothing: ZeRO stages 0 and 1 are the same math there, and
 both run. What needs more than one device or is not ported yet raises
 NotImplementedError naming its slice: ZeRO >= 2 and hpZ (ROADMAP A12), a
 mesh over more than one device (A11), pipelining (A13), offload and the
-ZeRO++ / 1-bit compressed collectives (A14), fp16 loss scaling and the
-dot-saving activation-checkpointing policies (A4).
+ZeRO++ / 1-bit compressed collectives (A14), bf16 without an fp32 master
+and the dot-saving activation-checkpointing policies (A4).
 """
 
 import dataclasses
@@ -42,15 +60,23 @@ from ..platform.accelerator import resolve_device
 from ..utils.logging import log_dist
 from ..utils.tree import leaves, tree_map
 from .lr_schedules import build_schedule
-from .precision import cast_params, clip_grads_by_global_norm, global_grad_norm
+from .precision import (LossScaleState, cast_params, clip_grads_by_global_norm,
+                        global_grad_norm, init_loss_scale, update_loss_scale)
 
 
 @dataclasses.dataclass
 class TrainState:
-    step: int  # optimizer steps taken (a host int; the JAX package keeps a device int32)
+    # optimizer steps taken: a host int, or with fp16 a 0-dim int32 device
+    # tensor (a skipped step does not count, and only the card knows which)
+    step: Union[int, torch.Tensor]
     params: Any  # compute-dtype leaves the forward reads
     master: Any  # fp32 master; None when params are fp32 (then params ARE the master)
     opt: Any
+    loss_scale: Optional[LossScaleState] = None  # fp16 only
+
+
+# the device tables of fp16 steps grow in blocks of this many steps
+TABLE_BLOCK = 1024
 
 
 def _later(what: str, where: str) -> NotImplementedError:
@@ -103,6 +129,8 @@ class DeepSpeedTPUEngine:
             if init_rng is None:
                 init_rng = torch.Generator(device=self.device).manual_seed(config.seed)
             params = param_init_fn(init_rng)
+        self._fp16 = config.fp16.enabled
+        self._tables: Optional[torch.Tensor] = None  # fp16: [3, n] lr, c1, c2 by step
         self.state = self._init_state(params)
         self.global_steps = 0
         self._metrics_host: Dict[str, float] = {}
@@ -122,8 +150,6 @@ class DeepSpeedTPUEngine:
             raise _later("optimizer / parameter offload", "slice 3 (ROADMAP A14)")
         if z.zero_quantized_weights or z.zero_quantized_gradients:
             raise _later("ZeRO++ quantized collectives (qwZ / qgZ)", "slice 3 (ROADMAP A14)")
-        if config.fp16.enabled:
-            raise _later("fp16 with dynamic loss scaling", "a later slice (ROADMAP A4)")
         if config.bf16.enabled and not config.bf16.master_weights:
             raise _later("bf16 without an fp32 master (bf16.master_weights=false)",
                          "a later slice (ROADMAP A4)")
@@ -146,8 +172,32 @@ class DeepSpeedTPUEngine:
         opt = self.optimizer.init(master)
         if not self._use_master:
             return TrainState(step=0, params=master, master=None, opt=opt)
+        if self._fp16:
+            return TrainState(step=torch.zeros((), dtype=torch.int32, device=self.device),
+                              params=cast_params(master, self.compute_dtype), master=master,
+                              opt=opt, loss_scale=init_loss_scale(self.config.fp16, self.device))
         return TrainState(step=0, params=cast_params(master, self.compute_dtype),
                           master=master, opt=opt)
+
+    def _lr_and_corrections(self, step: torch.Tensor):
+        """fp16: lr = schedule(step) and the bias corrections of step + 1 as
+        0-dim f32 device tensors, looked up by the device step in tables
+        the host schedule fills (the step is at most the steps issued, so
+        the tables grow by TABLE_BLOCK steps before they could fall
+        short; the block is copied from pinned memory without a sync)."""
+        need = self.global_steps + 1
+        if self._tables is None or self._tables.shape[1] < need:
+            n = -(-need // TABLE_BLOCK) * TABLE_BLOCK
+            host = np.empty((3, n), np.float32)
+            for s in range(n):
+                host[0, s] = self.lr_schedule(s)
+                host[1:, s] = self.optimizer.bias_corrections(s + 1)
+            t = torch.from_numpy(host)
+            if self.device.type == "cuda":
+                t = t.pin_memory()
+            self._tables = t.to(self.device, non_blocking=True)
+        lr, c1, c2 = self._tables.index_select(1, step.reshape(1)).reshape(3)
+        return lr, c1, c2
 
     # ------------------------------------------------------------------
     # batches
@@ -203,34 +253,51 @@ class DeepSpeedTPUEngine:
         acc = tree_map(torch.zeros_like, master)
         acc_leaves = leaves(acc)
         loss_sum = torch.zeros((), dtype=torch.float32, device=self.device)
+        scale = st.loss_scale.scale if self._fp16 else None
+        rng_step = self.global_steps if self._fp16 else st.step
         for idx, micro in enumerate(self._micro_batches(batch)):
             live = tree_map(lambda p: p.detach().requires_grad_(), st.params)
-            loss = self._remat_loss(live, micro, self._rng(st.step, idx))
-            grads = torch.autograd.grad(loss, leaves(live), allow_unused=True)
+            loss = self._remat_loss(live, micro, self._rng(rng_step, idx))
+            grads = torch.autograd.grad(loss if scale is None else loss * scale, leaves(live),
+                                        allow_unused=True)
             for a, g in zip(acc_leaves, grads):
                 if g is not None:
                     a.add_(g)
             loss_sum += loss.detach().float()
         del grads  # the last micro-batch's gradients: freed before the update
         gas = cfg.gradient_accumulation_steps
-        torch._foreach_mul_(acc_leaves, float(np.float32(1.0) / np.float32(gas)))
+        if scale is None:
+            torch._foreach_mul_(acc_leaves, float(np.float32(1.0) / np.float32(gas)))
+        else:
+            torch._foreach_mul_(acc_leaves, 1.0 / (gas * scale))
         grad_norm = global_grad_norm(acc)
         clip_grads_by_global_norm(acc, cfg.gradient_clipping, grad_norm)
-        lr = self.lr_schedule(st.step)
-        self.optimizer.update(acc, st.opt, master, lr, st.step + 1)
+        if self._fp16:
+            # an inf or NaN anywhere makes the norm non-finite: the overflow check
+            found_inf = ~torch.isfinite(grad_norm)
+            lr, c1, c2 = self._lr_and_corrections(st.step)
+            self.optimizer.masked_update(acc, st.opt, master, lr, c1, c2, found_inf)
+            st.step = torch.where(found_inf, st.step, st.step + 1)
+            st.loss_scale = update_loss_scale(st.loss_scale, found_inf, cfg.fp16)
+            step_metrics = {"lr": lr, "skipped": found_inf.to(torch.int32),
+                            "loss_scale": st.loss_scale.scale}
+        else:
+            lr = self.lr_schedule(st.step)
+            self.optimizer.update(acc, st.opt, master, lr, st.step + 1)
+            st.step += 1
+            step_metrics = {"lr": torch.full((), lr, dtype=torch.float32, device=self.device),
+                            "skipped": torch.zeros((), dtype=torch.int32, device=self.device)}
         if self._use_master:
             with torch.no_grad():
                 for p, m in zip(leaves(st.params), leaves(master)):
                     p.copy_(m)
-        st.step += 1
-        return {"loss": loss_sum / gas, "grad_norm": grad_norm,
-                "lr": torch.full((), lr, dtype=torch.float32, device=self.device),
-                "skipped": torch.zeros((), dtype=torch.int32, device=self.device)}
+        return {"loss": loss_sum / gas, "grad_norm": grad_norm, **step_metrics}
 
     def train_batch_async(self, batch) -> Dict[str, torch.Tensor]:
         """One global step, returning the metrics as device tensors without
-        a host sync: the host can queue the next step while the card runs
-        this one."""
+        a host sync (with fp16 too: the overflow decision stays on the
+        card): the host can queue the next step while the card runs this
+        one."""
         metrics = self._step(batch)
         self.global_steps += 1
         return metrics
@@ -276,7 +343,9 @@ class DeepSpeedTPUEngine:
         return self.config.gradient_accumulation_steps
 
     def get_lr(self) -> float:
-        return self.lr_schedule(self.state.step)
+        """The learning rate of the next step (with fp16 this reads the
+        device step: a host sync)."""
+        return self.lr_schedule(int(self.state.step))
 
     def get_global_grad_norm(self) -> Optional[float]:
         return self._metrics_host.get("grad_norm")

@@ -76,9 +76,11 @@ MODE:
   32 x 80) and chip_smoke.py's WIDE_HEAD_MODELS prefills (GPT-NeoX-20B's
   64 x 96 and GPT-J-6B's 16 x 256, S in FLASH_D80_S; inputs from a
   seeded generator): device ms a call (torch.profiler over 10 calls), the
-  median of 3 such and each; a head dim the root's kernel is not built
-  for is reported as such; and the ptxas registers and spills of each
-  instantiation.
+  median of 3 such and each; a digest (sha256) of o and lse, the same in
+  two roots whose kernels give the same bits; where the root has #1's
+  f16 build (fp16 training), its ms on the same values in f16 and their
+  digest; a head dim the root's kernel is not built for is reported as
+  such; and the ptxas registers and spills of each instantiation.
 - bwd: kernels #2 (flash_bwd_dq) and #3 (flash_bwd_dkv) in ROOT's package,
   causal, at the flagship's training shape (B=8, S=2048, 8 heads of 128)
   and at the timed cases of chip_smoke.py's FLASH_BWD_MODE_CASES (Phi-2's,
@@ -86,9 +88,10 @@ MODE:
   2048) and its GQA 32 over 2 cases at 96 and 256 (the group split; inputs
   from a seeded generator, lse and delta from ROOT's forward): device ms a
   call of each (torch.profiler over 5 calls, the combining pass of a split
-  included), the median of 3 such and each; a head dim the root's
-  backward is not built for is reported as such; and the ptxas registers
-  and spills of each instantiation.
+  included), the median of 3 such and each; a digest of dq, dk and dv
+  (and, where the root has the f16 builds, the f16 ms and digest, as in
+  flash); a head dim the root's backward is not built for is reported as
+  such; and the ptxas registers and spills of each instantiation.
 - grouped: the grouped GEMM of dropless MoE (grouped_gemm) in ROOT's
   package at chip_smoke.py's GROUPED_SHAPES (Mixtral-8x7B's w_gate/w_in
   and w_out) x GROUPED_A (decode 16 rows, prefill 1024) on the routed
@@ -769,6 +772,21 @@ def write_worker(root):
     return out
 
 
+def _digest(torch, *tensors):
+    """sha256 (16 hex digits) of the tensors' bytes, in order."""
+    import hashlib
+
+    h = hashlib.sha256()
+    for t in tensors:
+        h.update(t.detach().contiguous().view(torch.uint8).cpu().numpy().tobytes())
+    return h.hexdigest()[:16]
+
+
+def _has_f16(torch, FA):
+    """Whether ROOT's flash wrappers take f16 operands."""
+    return torch.float16 in getattr(FA, "_BUILDS", {})
+
+
 def flash_worker(root):
     root, C = _import_root(root)
     import torch
@@ -777,7 +795,7 @@ def flash_worker(root):
     from deepspeed_tpu_torch.ops.cuda import build
     from deepspeed_tpu_torch.ops.cuda import flash_attention as FA
 
-    build.build_all(["flash_fwd"])
+    build.build_all(["flash_fwd"] + (["flash_fwd+DS_F16"] if _has_f16(torch, FA) else []))
     dev = torch.device("cuda")
     cases = {"flagship_train": (8, 2048, 8, 8, 128), "phi_2@S2048": (1, 2048, 32, 32, 80)}
     for mode, model in C.WIDE_HEAD_MODELS.items():
@@ -793,8 +811,15 @@ def flash_worker(root):
             continue
         q, k, v = randn(B, S, H, D), randn(B, S, KV, D), randn(B, S, KV, D)
         ms = [C._device_ms(lambda: FA.flash_fwd(q, k, v), 10) for _ in range(3)]
-        out["cases"][name] = {"shape": [B, S, H, KV, D], "device_ms": statistics.median(ms),
-                              "runs_ms": ms}
+        row = {"shape": [B, S, H, KV, D], "device_ms": statistics.median(ms), "runs_ms": ms,
+               "digest": _digest(torch, *FA.flash_fwd(q, k, v))}
+        if _has_f16(torch, FA):
+            h = [x.half() for x in (q, k, v)]
+            ms = [C._device_ms(lambda: FA.flash_fwd(*h), 10) for _ in range(3)]
+            row.update(f16_device_ms=statistics.median(ms), f16_runs_ms=ms,
+                       f16_digest=_digest(torch, *FA.flash_fwd(*h)))
+            del h
+        out["cases"][name] = row
         del q, k, v
     return out
 
@@ -806,7 +831,9 @@ def bwd_worker(root):
     from deepspeed_tpu_torch.ops.cuda import build
     from deepspeed_tpu_torch.ops.cuda import flash_attention as FA
 
-    build.build_all(["flash_fwd", "flash_bwd"])
+    f16 = _has_f16(torch, FA)
+    build.build_all(["flash_fwd", "flash_bwd"] + (["flash_fwd+DS_F16", "flash_bwd+DS_F16"]
+                                                  if f16 else []))
     dev = torch.device("cuda")
     cases = {"flagship_train": (8, 2048, 8, 8, 128)}
     for name, c in C.FLASH_BWD_MODE_CASES.items():
@@ -830,6 +857,19 @@ def bwd_worker(root):
             ms = [C._device_ms(lambda: fn(q, k, v, do, lse, delta), 5) for _ in range(3)]
             row[f"{kernel}_device_ms"] = statistics.median(ms)
             row[f"{kernel}_runs_ms"] = ms
+        row["digest"] = _digest(torch, FA.flash_bwd_dq(q, k, v, do, lse, delta),
+                                *FA.flash_bwd_dkv(q, k, v, do, lse, delta))
+        if f16:
+            h = [x.half() for x in (q, k, v, do)]
+            ho, hlse = FA.flash_fwd(*h[:3])
+            hd = FA._delta(ho, h[3])
+            for kernel, fn in (("dq", FA.flash_bwd_dq), ("dkv", FA.flash_bwd_dkv)):
+                ms = [C._device_ms(lambda: fn(*h, hlse, hd), 5) for _ in range(3)]
+                row[f"f16_{kernel}_device_ms"] = statistics.median(ms)
+                row[f"f16_{kernel}_runs_ms"] = ms
+            row["f16_digest"] = _digest(torch, FA.flash_bwd_dq(*h, hlse, hd),
+                                        *FA.flash_bwd_dkv(*h, hlse, hd))
+            del h, ho, hlse, hd
         out["cases"][name] = row
         del q, k, v, do, o, lse, delta
         torch.cuda.empty_cache()

@@ -106,9 +106,10 @@ def test_routed_loads_the_variant_within_its_block(monkeypatch):
 
 
 def test_the_planted_fault_defines_are_in_their_sources():
-    """Each of chip_smoke.py's FAULT_BUILDS names a define that its source
-    tests: a define the source does not know would build the genuine
-    kernel under a fault's name."""
+    """Each of chip_smoke.py's FAULT_BUILDS names defines that its source
+    tests, in its own text or in a header of csrc it includes (the f16
+    faults live in hopper.cuh): a define the source does not know would
+    build the genuine kernel under a fault's name."""
     spec = importlib.util.spec_from_file_location("chip_smoke",
                                                   PB.CSRC.parents[1] / "chip_smoke.py")
     smoke = importlib.util.module_from_spec(spec)
@@ -116,7 +117,9 @@ def test_the_planted_fault_defines_are_in_their_sources():
     assert smoke.FAULT_BUILDS
     for variant in smoke.FAULT_BUILDS.values():
         source, *defines = variant.split("+")
-        text = (PB.CSRC / f"{source}.cu").read_text()
+        text = "\n".join((PB.CSRC / f).read_text() for f in [f"{source}.cu"] + [
+            h.name for h in sorted(PB.CSRC.glob("*.cuh")) if _includes(PB.CSRC, f"{source}.cu",
+                                                                        h.name)])
         for d in defines:
             assert re.search(r"#if(n?def| defined\()\s*" + d + r"\b", text), variant
 

@@ -3054,3 +3054,193 @@ class TestGroupedGemmOnCard:
         assert GG.grouped_gemm_int8.launches == n0 + 6
         torch.testing.assert_close(got.float(), plain.float(), rtol=2e-2,
                                    atol=2e-2 * float(plain.float().abs().max()))
+
+
+def _f16_cuda(a, dev):
+    return torch.from_numpy(np.asarray(a, np.float32)).to(dev, torch.float16)
+
+
+def _f16_bwd(q, k, v, do, lse, delta, window=0, alibi=None):
+    return (PF.flash_bwd_dq(q, k, v, do, lse, delta, window, alibi),) + \
+        PF.flash_bwd_dkv(q, k, v, do, lse, delta, window, alibi)
+
+
+def _assert_f16_close(got, ref, what):
+    """An f16 kernel output against the plain version on the same f16
+    inputs (P and dS rounded to f16 where the kernels round them), under
+    `bwd_mismatch`'s f16 coefficients and its error-RMS bound."""
+    stats = PF.bwd_mismatch(got, ref)
+    assert stats["passed"], f"{what}: {stats}"
+
+
+@pytest.mark.cuda
+class TestFlashF16OnCard:
+    """Kernels #1-#3 built for f16 operands (fp16 training: `flash_fwd+
+    DS_F16`, `flash_bwd+DS_F16`) against their plain versions on the same
+    f16 inputs, o, dq, dk and dv under `bwd_mismatch`'s f16 tolerance and
+    lse at 1e-3: every head dim (64, 80, 96, 128, 256), query groups of 1,
+    2, 8 and 71, sequences around the tiles, the causal band, windows and
+    ALiBi slopes, both CTA heights; each launch counted in [f16]; two
+    launches bit-identical; the two fault builds (P and dS rounded to bf16
+    on their way to f16; the f16 operands multiplied as bf16) failing;
+    dS's f16 overflow giving non-finite gradients exactly where the plain
+    version's are; mixed or f32 operands raising; and an fp16 engine step
+    that overflows leaving the master, the moments and the step as they
+    were."""
+
+    CASES = {"mha_d64": (4, 4, 64), "gqa_8_over_2_d128": (16, 2, 128),
+             "mha_d80": (4, 4, 80), "gqa_2_over_2_d96": (4, 2, 96),
+             "wide_71_over_1_d64": (71, 1, 64), "mha_d256": (4, 4, 256),
+             "gqa_8_over_1_d256": (8, 1, 256)}
+
+    @pytest.mark.parametrize("S", [1, 65, 200, 1000])
+    @pytest.mark.parametrize("case", sorted(CASES))
+    def test_kernels_match_plain(self, rng, cuda_device, case, S):
+        H, KV, D = self.CASES[case]
+        batches = _flash_batches(S, H)
+        B = max(batches)
+        q, k, v, do = (_f16_cuda(rng.standard_normal(s), cuda_device)
+                       for s in ((B, S, H, D), (B, S, KV, D), (B, S, KV, D), (B, S, H, D)))
+        for b in batches:
+            for window in sorted({0, 1, 65, S}):
+                for alibi in (None, _slopes(H, cuda_device)):
+                    what = f"{case} B={b} S={S} window={window} alibi={alibi is not None}"
+                    args = (q[:b], k[:b], v[:b])
+                    PK.reset_launch_counts()
+                    o, lse = PF.flash_fwd(*args, window, alibi)
+                    delta = PF._delta(o, do[:b])
+                    got = _f16_bwd(*args, do[:b], lse, delta, window, alibi)
+                    counts = PK.all_launch_counts()
+                    for name in ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv"):
+                        assert counts[name] == counts[f"{name}[f16]"] == 1, (what, counts)
+                    ro, rlse = PF.flash_attention_plain(*args, window, alibi)
+                    ref = PF.flash_attention_bwd_plain(*args, o, lse, do[:b], window, alibi)
+                    torch.cuda.synchronize()
+                    assert o.dtype == torch.float16 and all(g.dtype == torch.float16
+                                                            for g in got)
+                    _assert_f16_close(o, ro, f"o {what}")
+                    torch.testing.assert_close(lse, rlse, rtol=1e-3, atol=1e-3,
+                                               msg=lambda m: f"lse {what}: {m}")
+                    if S == 1 or window == 1:  # one key a row: dq, dk zero up to rounding
+                        for g in got[:2]:
+                            assert _rms(g) <= 2.0 ** -10 * _rms(ref[2]) + 1e-30, what
+                        _assert_f16_close(got[2], ref[2], f"dv {what}")
+                        continue
+                    for name, g, r in zip(("dq", "dk", "dv"), got, ref):
+                        _assert_f16_close(g, r, f"{name} {what}")
+
+    @pytest.mark.parametrize("B,S,H,KV,D", [(8, 2048, 8, 8, 128), (2, 2048, 64, 64, 96),
+                                            (1, 1920, 71, 1, 64)])
+    def test_two_launches_bit_identical(self, rng, cuda_device, B, S, H, KV, D):
+        q, k, v, do = (_f16_cuda(rng.standard_normal(s), cuda_device)
+                       for s in ((B, S, H, D), (B, S, KV, D), (B, S, KV, D), (B, S, H, D)))
+        first = PF.flash_fwd(q, k, v)
+        delta = PF._delta(first[0], do)
+        g1 = _f16_bwd(q, k, v, do, first[1], delta)
+        second = PF.flash_fwd(q, k, v)
+        g2 = _f16_bwd(q, k, v, do, first[1], delta)
+        torch.cuda.synchronize()
+        assert all(torch.equal(a, b) for a, b in zip(first + g1, second + g2))
+
+    @pytest.mark.parametrize("fault", ["DS_FAULT_PACK_BF16", "DS_FAULT_MMA_AS_BF16"])
+    @pytest.mark.parametrize("D", [64, 128, 256])
+    def test_fault_builds_fail(self, rng, cuda_device, fault, D):
+        """P and dS rounded to bf16 before their f16 rounding, or the f16
+        operands multiplied as bf16: each fault build's o, dq, dk and dv
+        fail the f16 check (which the genuine build passes above)."""
+        B, S, H, KV = 2, 1024, 8, 2
+        q, k, v, do = (_f16_cuda(rng.standard_normal(s), cuda_device)
+                       for s in ((B, S, H, D), (B, S, KV, D), (B, S, KV, D), (B, S, H, D)))
+        o, lse = PF.flash_fwd(q, k, v)
+        ro = PF.flash_attention_plain(q, k, v)[0]
+        ref = PF.flash_attention_bwd_plain(q, k, v, o, lse, do)
+        delta = PF._delta(o, do)
+        with build.routed("flash_fwd+DS_F16", f"flash_fwd+DS_F16+{fault}"), \
+                build.routed("flash_bwd+DS_F16", f"flash_bwd+DS_F16+{fault}"):
+            bad_o = PF.flash_fwd(q, k, v)[0]
+            bad = _f16_bwd(q, k, v, do, lse, delta)
+        torch.cuda.synchronize()
+        for name, g, r in zip(("o", "dq", "dk", "dv"), (bad_o,) + bad, (ro,) + ref):
+            assert not PF.bwd_mismatch(g, r)["passed"], f"{fault} D={D}: {name} passes"
+
+    @pytest.mark.parametrize("H,KV,D", [(4, 4, 64), (8, 2, 128), (4, 4, 256)])
+    def test_overflow_parity(self, rng, cuda_device, H, KV, D):
+        """dO scaled (by powers of two) until f16's dS overflows: the
+        kernels' gradients are non-finite in exactly the elements where
+        the plain version's are, and one scale below (every output finite
+        in the plain version) all of theirs are finite too. q and k of
+        std 1/8 and v of std 64 make dS large beside the sums it feeds
+        (dq, dk), so dS overflows while dO and every output sum are still
+        inside f16's range."""
+        B, S = 2, 300
+        q, k = (_f16_cuda(rng.standard_normal(s) / 8, cuda_device)
+                for s in ((B, S, H, D), (B, S, KV, D)))
+        v = _f16_cuda(64 * rng.standard_normal((B, S, KV, D)), cuda_device)
+        do = _f16_cuda(rng.standard_normal((B, S, H, D)), cuda_device)
+        o, lse = PF.flash_fwd(q, k, v)
+        s_over, s_below, stats = PF.f16_overflow_scales(q, k, v, o, lse, do)
+        for s, over in ((s_over, True), (s_below, False)):
+            dos = (do.float() * s).half()
+            got = PF.flash_attention_bwd(q, k, v, o, lse, dos)
+            ref = PF.flash_attention_bwd_plain(q, k, v, o, lse, dos)
+            torch.cuda.synchronize()
+            bad = [~torch.isfinite(g) for g in got]
+            assert all(torch.equal(a, ~torch.isfinite(r)) for a, r in zip(bad, ref)), (s, stats)
+            assert bool(bad[0].any()) == over, (s, stats)
+            if not over:
+                for name, g, r in zip(("dq", "dk", "dv"), got, ref):
+                    _assert_f16_close(g, r, f"{name} at the scale below")
+
+    def test_wrappers_reject_mixed_and_f32(self, rng, cuda_device):
+        q, k, v, do = (_f16_cuda(rng.standard_normal(s), cuda_device)
+                       for s in ((1, 64, 4, 128), (1, 64, 2, 128), (1, 64, 2, 128),
+                                 (1, 64, 4, 128)))
+        o, lse = PF.flash_fwd(q, k, v)
+        delta = PF._delta(o, do)
+        with pytest.raises(TypeError):
+            PF.flash_fwd(q, k.to(torch.bfloat16), v)
+        with pytest.raises(TypeError, match="B6"):
+            PF.flash_fwd(q.float(), k.float(), v.float())
+        with pytest.raises(TypeError):
+            PF.flash_bwd_dq(q, k, v, do.to(torch.bfloat16), lse, delta)
+        with pytest.raises(TypeError):
+            PF.flash_bwd_dkv(q, k, v, do, lse.half(), delta)
+        with pytest.raises(TypeError, match="B6"):
+            PF.flash_bwd_dkv(q.float(), k.float(), v.float(), do.float(), lse, delta)
+
+    def test_fp16_engine_skips_an_overflowing_step(self, cuda_device):
+        """A tiny Llama-form model trained with "fp16": {"enabled": true} on
+        the card: a counted step launches #1-#3 once a layer, all [f16];
+        a step whose loss scale is planted at 2^40 overflows and is
+        skipped, the master, the moments and the step bit-unchanged; the
+        steps around it apply."""
+        import deepspeed_tpu_torch as pds
+        from deepspeed_tpu_torch.models import transformer as PT
+
+        cfg = PT.TransformerConfig(vocab_size=512, n_layers=2, n_heads=4, n_kv_heads=2,
+                                   d_model=256, max_seq=256, variant="llama", use_flash=True)
+        eng = pds.initialize({"train_micro_batch_size_per_gpu": 2,
+                              "optimizer": {"type": "adamw", "params": {"lr": 1e-3}},
+                              "fp16": {"enabled": True}, "gradient_clipping": 1.0,
+                              "steps_per_print": 10**9},
+                             loss_fn=PT.make_loss_fn(cfg),
+                             param_init_fn=lambda g: PT.init(cfg, g, device=cuda_device))
+        batch = {"tokens": np.random.default_rng(0).integers(0, 512, (2, 257)).astype(np.int32)}
+        PK.reset_launch_counts()
+        first = eng.train_batch(batch)
+        counts = PK.all_launch_counts()
+        for name in ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv"):
+            assert counts[name] == counts[f"{name}[f16]"] == 2, counts
+        assert first["skipped"] == 0 and first["loss_scale"] == 2.0 ** 16
+        from deepspeed_tpu_torch.utils.tree import leaves
+
+        state = lambda: leaves(eng.state.master) + leaves(eng.state.opt) + [eng.state.step]
+        snap = [t.clone() for t in state()]
+        ls = eng.state.loss_scale
+        eng.state.loss_scale = ls._replace(scale=torch.full_like(ls.scale, 2.0 ** 40))
+        planted = eng.train_batch(batch)
+        assert planted["skipped"] == 1
+        assert all(torch.equal(a, b) for a, b in zip(snap, state()))
+        eng.state.loss_scale = ls
+        after = eng.train_batch(batch)
+        assert after["skipped"] == 0 and after["loss"] < first["loss"]

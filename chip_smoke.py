@@ -163,6 +163,30 @@ Phases (any failure raises and exits nonzero):
              version's and all finite one scale below, each kernel timed
              beside its bf16 build (flash_f16_vs_bf16), SDPA in f16 and
              its bound; the f16 instantiations' ptxas (no spills);
+             #1 and #4-#6 on f32 operands (f32_kernel_checks, the f32
+             serving engine's kernels; references in full f32, TF32 off):
+             #1 at F32_FLASH_CASES (the f32 flagship's prefill, Mistral's
+             window at 2048 tokens, BLOOM's ALiBi heads, Falcon-7B's 71
+             over one, Phi-2's D 80, GPT-NeoX-20B's D 96, GPT-J-6B's D 256,
+             GQA 32 over 2 at D 256 with a window and ALiBi), #4/#5 in all
+             four modes at F32_DECODE_CASES (8 rows, ctx ~100 to ~1,950,
+             with a window, ALiBi, a layout bitmap, every group and head
+             dim), #6's f32 write and its int8 write of f32 rows at every
+             head dim and over a 2^23-quotient sweep of rows within an ulp
+             of .5 ties (NaN, inf, subnormal and zero slices included):
+             outputs within 4x (RMS) / 8x (max) of the plain f32 version's
+             error against a dense f64 reference and within 2e-3 of the
+             plain version, writes, codes and scales bit-exact, fused
+             pools equal to the plain write's, two launches bit-identical,
+             every launch counted in [f32] and its modes, windows >= S and
+             zero slopes bit-identical to causal; the fault builds
+             (F32_FAULTS: products rounded to single-pass TF32 in #1 and in
+             #4/#5, #1's diagonal tile unmasked, a split left out of the
+             combine, the row tail unwritten in both writes, the int8
+             write's scale on the next head) failing; each timed at the
+             flagship's shapes beside its bf16 kernel, SDPA in f32 (#1)
+             and index_copy_ (the f32 write), with bounds at 3.35 TB/s and
+             67 TF/s of FFMA;
              time kernel, plain version and (where one exists) a single
              PyTorch library call computing the same function: device time
              from torch.profiler, and the time of back-to-back calls from
@@ -213,7 +237,25 @@ Phases (any failure raises and exits nonzero):
              layer 0); bf16 / int8 kv_bytes_per_token >= 1.8; a prefix hit
              and a COW copy. Reports the int8 - bf16 engine logit gap, TTFT
              and decode throughput.
-4x. serve_graphs (run after 4b) - engine.warmup() captures the decode
+4u. serve_f32 / serve_f32_int8 (run after 4b) - the flagship served whole
+             in f32 through DeepSpeed's v1 inference keys (SERVE_F32_V1:
+             {"dtype": "fp32", "max_out_tokens": 1024} and the no-op
+             kernel-injection and CUDA-graph keys), the bf16 engines'
+             weights cast to f32 by the engine, on f32 and then on int8
+             pools. Counted: phase 4's puts (the 8 x 96-token wave and the
+             512-token prompt, a decode put, a 2-token continuation), then
+             greedy decode_multi_fn(8, 24) eagerly: only the [f32] modes
+             of #1, #6, #4 plain and #5 (int8: the int8 write and #4's
+             int8 modes) launch, once a layer a wave, put or step. Checks: greedy tokens
+             equal the plain f32 path's over the 24 steps; prefill and
+             one decode step's logits against the plain f32 path with an
+             error RMS at most 1/64 of the bf16 engine's (phase 4's, or
+             4b's on int8 pools); a replay after warmup() bit-identical to
+             eager. Reports TTFT at 512 (median of 5 after 2), eager and
+             replayed b8 tok/s (median of 3), each beside a bf16 engine of
+             the same weights and pools built in the phase, resident
+             weight and pool bytes, peak memory.
+4x. serve_graphs (run after 4u) - engine.warmup() captures the decode
              programs as CUDA graphs (inference/graphs.py) and every replay is
              held against an eager call of the same program from the same
              cache state, bit for bit (tokens, final logits). The flagship
@@ -318,6 +360,11 @@ Phases (any failure raises and exits nonzero):
              against the scan path's plain paths on the same weights
              (three-path, routed as in 4m), replays bit-identical; TTFT
              and tok/s.
+4c-4q. The long-prompt servers below run at full width, SERVE_LONG_LAYERS
+             (16) layers deep (cut from full depth to keep the script
+             inside its time limit; their whole-depth kernels are the
+             same kernels at the same shapes): "all N layers" below means
+             all of those.
 4c. serve_window - Mistral 7B (MISTRAL: 32 layers, d_model 4096, 32 x 128
              query heads over 8 KV heads, d_ff 14336, vocab 32000, untied
              lm_head, sliding window 4096; random bf16 weights, seed 0) in
@@ -814,6 +861,11 @@ PATH_RMS_FACTOR, PATH_MAX_FACTOR = 1.5, 2.0
 # GPT-J-6B's, 1,218,356,448 (~24 GB; all 28 ~121 GB)
 TRAIN_NEOX_MODEL = dict(GPT_NEOX_20B, n_layers=4, remat="save_attn_qkv", use_flash=True)
 TRAIN_GPTJ_MODEL = dict(GPT_J_6B, n_layers=4, remat="save_attn_qkv", use_flash=True)
+# the long-prompt servers' depth (phases serve_window ... serve_gptj_int8):
+# the full width, the first 16 layers, which keeps the script inside its
+# time limit (at full depth these 14 phases took 205 s of the 907 on an H100;
+# PERF.md)
+SERVE_LONG_LAYERS = 16
 SERVED_7B = (("window", MISTRAL), ("alibi", BLOOM), ("sparse", LLAMA2_7B),
              ("falcon", FALCON_7B), ("phi", PHI_2), ("neox", GPT_NEOX_20B), ("gptj", GPT_J_6B))
 # the MoE path: Mixtral-8x7B's published shape (mistralai/Mixtral-8x7B-v0.1
@@ -3147,7 +3199,14 @@ FAULT_BUILDS = {"pv_hi_product_skipped": "flash_fwd+DS_FAULT_PV_HI_SKIPPED",
                 "f16_p_and_ds_via_bf16_fwd": "flash_fwd+DS_F16+DS_FAULT_PACK_BF16",
                 "f16_p_and_ds_via_bf16_bwd": "flash_bwd+DS_F16+DS_FAULT_PACK_BF16",
                 "f16_f16_operands_as_bf16_fwd": "flash_fwd+DS_F16+DS_FAULT_MMA_AS_BF16",
-                "f16_f16_operands_as_bf16_bwd": "flash_bwd+DS_F16+DS_FAULT_MMA_AS_BF16"}
+                "f16_f16_operands_as_bf16_bwd": "flash_bwd+DS_F16+DS_FAULT_MMA_AS_BF16",
+                "f32_products_as_tf32_fwd": "flash_fwd_f32+DS_FAULT_TF32",
+                "f32_diagonal_tile_unmasked": "flash_fwd_f32+DS_FAULT_DIAG_UNMASKED",
+                "f32_products_as_tf32_decode": "paged_decode_f32+DS_FAULT_TF32",
+                "f32_split_left_out": "paged_decode_f32+DS_FAULT_SPLIT_DROPPED",
+                "f32_row_tail_unwritten": "paged_kv_write+DS_FAULT_ROW_TAIL",
+                "f32_int8_row_tail_unwritten": "paged_kv_write_f32+DS_FAULT_ROW_TAIL",
+                "f32_int8_scale_on_the_next_head": "paged_kv_write_f32+DS_FAULT_SCALE_NEXT_HEAD"}
 
 
 def _head_dim_write_checks(PA, randn, dev, bound_ms, mode, KV, D):
@@ -4440,6 +4499,576 @@ def _grouped_gemm_checks(dev, bound_ms):
     return results
 
 
+# ---------------------------------------------------------------------------
+# phase 2: the f32 modes of #1 and #4-#6 (the f32 serving engine, phase
+# serve_f32), against their plain f32 versions and a dense f64 reference
+# ---------------------------------------------------------------------------
+
+# the f32 kernels' sources (the [f32] rows of the kernels line): #1 and #4/#5
+# in sources of their own, #6's f32 write the bf16 write's byte mover, its
+# int8 write of f32 rows a source of its own
+F32_SOURCES = {"flash_fwd": "deepspeed_tpu_torch/csrc/flash_fwd_f32.cu",
+               "paged_kv_write": "deepspeed_tpu_torch/csrc/paged_kv_write.cu",
+               "paged_kv_write_int8": "deepspeed_tpu_torch/csrc/paged_kv_write_f32.cu",
+               **{n: "deepspeed_tpu_torch/csrc/paged_decode_f32.cu"
+                  for n in ("paged_decode_fused", "paged_decode_attention",
+                            "paged_decode_fused_int8", "paged_decode_attention_int8")}}
+# the H100's f32 rate on the CUDA cores (FFMA; NVIDIA's data sheet, SXM):
+# the operations bound of the f32 kernels, which run no tensor-core product
+H100_F32_FLOPS = 67e12
+# an f32 kernel's error against the dense f64 reference: at most these
+# multiples of the plain f32 version's error against it (RMS, max); and
+# the reference's own f32 tolerance against the plain version
+# (tests/test_flash_attention.py:64-65, tests/test_inference.py:104, 130)
+F32_RMS_FACTOR, F32_MAX_FACTOR, F32_TOL = 4.0, 8.0, 2e-3
+# #1's f32 cases (dense f64 logits under ~4 GB each): the f32 flagship's
+# prefill (timed; the kernels line's row), Mistral's window at 2048
+# tokens, BLOOM-7B1's ALiBi heads, Falcon-7B's 71 over one, Phi-2's D 80,
+# GPT-NeoX-20B's D 96, GPT-J-6B's D 256, and GQA 32 over 2 at D 256 with
+# a window and ALiBi
+F32_FLASH_CASES = {
+    "flagship_prefill": dict(B=1, S=512, H=8, KV=8, D=128, window=0, alibi=False),
+    "mistral_window": dict(B=1, S=2048, H=32, KV=8, D=128, window=1000, alibi=False),
+    "bloom_alibi": dict(B=1, S=512, H=32, KV=32, D=128, window=0, alibi=True),
+    "falcon_7b": dict(B=1, S=1920, H=71, KV=1, D=64, window=0, alibi=False),
+    "phi_2": dict(B=1, S=512, H=32, KV=32, D=80, window=0, alibi=False),
+    "gpt_neox_20b": dict(B=1, S=512, H=64, KV=64, D=96, window=0, alibi=False),
+    "gpt_j_6b": dict(B=1, S=512, H=16, KV=16, D=256, window=0, alibi=False),
+    "gqa_d256_window_alibi": dict(B=1, S=1024, H=32, KV=2, D=256, window=300, alibi=True),
+}
+# #4/#5's f32 cases, all four decode modes each: 8 rows with ctx ~100 to
+# ~1,950 (DECODE_FP_CTX) at the served models' heads, with a window, ALiBi
+# slopes, a layout bitmap, any group and every head dim
+F32_DECODE_CASES = {
+    "mistral_window": dict(H=32, KV=8, D=128, window=1000, alibi=False, bitmap=False),
+    "bloom_alibi": dict(H=32, KV=32, D=128, window=0, alibi=True, bitmap=False),
+    "llama_bitmap": dict(H=32, KV=32, D=128, window=0, alibi=False, bitmap=True),
+    "falcon_7b": dict(H=71, KV=1, D=64, window=0, alibi=False, bitmap=False),
+    "phi_2": dict(H=32, KV=32, D=80, window=0, alibi=False, bitmap=False),
+    "gpt_neox_20b": dict(H=64, KV=64, D=96, window=0, alibi=False, bitmap=False),
+    "gpt_j_6b": dict(H=16, KV=16, D=256, window=0, alibi=False, bitmap=False),
+    "gqa_d256_window_alibi": dict(H=32, KV=2, D=256, window=1000, alibi=True, bitmap=True),
+}
+# #6's f32 writes at each head dim: (KV, D) of the flagship, Falcon-7B,
+# Phi-2, GPT-NeoX-20B and GPT-J-6B (a 1024-row wave, 768 live)
+F32_WRITE_HEADS = ((8, 128), (1, 64), (32, 80), (64, 96), (16, 256))
+F32_FAULTS = {"flash_fwd_f32": ("f32_products_as_tf32_fwd", "f32_diagonal_tile_unmasked"),
+              "paged_decode_f32": ("f32_products_as_tf32_decode", "f32_split_left_out"),
+              "paged_kv_write": ("f32_row_tail_unwritten",),
+              "paged_kv_write_f32": ("f32_int8_row_tail_unwritten",
+                                     "f32_int8_scale_on_the_next_head")}
+
+
+def _f32_bound(n_bytes, n_flops):
+    """Least ms of f32 work: bytes over the card's 3.35 TB/s against FFMA
+    operations over its 67 TF/s of f32."""
+    from deepspeed_tpu_torch.platform.accelerator import bound_ms
+
+    return bound_ms(n_bytes, n_flops, {"hbm_bytes_per_s": 3.35e12,
+                                       "bf16_flops_per_s": H100_F32_FLOPS})
+
+
+def _f32_accuracy(got, plain, ref):
+    """An f32 kernel's output against the plain f32 version's on the same
+    inputs and the dense f64 reference: error RMS and max of each against
+    the reference, the kernel's within F32_RMS_FACTOR / F32_MAX_FACTOR of
+    the plain version's, and within F32_TOL (atol + rtol) of the plain
+    version. Returns the stats with `passed`."""
+    import torch
+
+    ek, ep = (got.double() - ref).abs(), (plain.double() - ref).abs()
+    rms = lambda e: e.square().mean().sqrt().item()
+    st = {"kernel_rms": rms(ek), "plain_rms": rms(ep), "kernel_max": ek.max().item(),
+          "plain_max": ep.max().item(),
+          "vs_plain_max": (got.float() - plain.float()).abs().max().item()}
+    st["passed"] = bool(
+        torch.isfinite(got).all() and st["kernel_rms"] <= F32_RMS_FACTOR * st["plain_rms"]
+        and st["kernel_max"] <= F32_MAX_FACTOR * st["plain_max"]
+        and ((got.float() - plain.float()).abs() <= F32_TOL + F32_TOL * plain.float().abs()).all())
+    return st
+
+
+def _require_f32(name, st):
+    if not st["passed"]:
+        raise AssertionError(f"{name}: beyond the f32 accuracy limits: {st}")
+    return st
+
+
+def _dense_f64_attention(q, k, v, window=0, alibi=None):
+    """Causal attention in f64 (the reference of #1's f32 mode): (o, lse)."""
+    import torch
+
+    B, S, H, D = q.shape
+    G = H // k.shape[2]
+    kd, vd = (x.double().repeat_interleave(G, 2) for x in (k, v))
+    logits = torch.einsum("bqhd,bkhd->bhqk", q.double(), kd) / D ** 0.5
+    pos = torch.arange(S, device=q.device)
+    if alibi is not None:
+        logits += alibi.double()[None, :, None, None] * (pos[None, :] - pos[:, None]).double()
+    mask = torch.ones(S, S, dtype=torch.bool, device=q.device).tril()
+    if window > 0:
+        mask = mask.triu(1 - window)
+    logits.masked_fill_(~mask, float("-inf"))
+    lse = torch.logsumexp(logits, -1)
+    logits.sub_(lse[..., None]).exp_()
+    return torch.einsum("bhqk,bkhd->bqhd", logits, vd), lse
+
+
+def _f32_flash_case(FA, K, build, g, dev, name, c, bound=False):
+    """#1's f32 mode at one case: o and lse against the plain f32 version
+    and the f64 reference (_f32_accuracy), every launch counted in [f32]
+    and the case's modes, a second launch bit-identical; with `bound`
+    also the flagship checks: windows >= S and all-zero slopes
+    bit-identical to causal, and the fault builds failing."""
+    import torch
+
+    B, S, H, KV, D, w = (c[x] for x in ("B", "S", "H", "KV", "D", "window"))
+    q, k, v = (torch.randn(shape, generator=g, device=dev)
+               for shape in ((B, S, H, D), (B, S, KV, D), (B, S, KV, D)))
+    sl = _slopes(H, 1.0, dev) if c["alibi"] else None
+    K.reset_launch_counts()
+    o, lse = FA.flash_fwd(q, k, v, w, sl)
+    counts = K.all_launch_counts()
+    modes = ["f32"] + (["window"] if w else []) + (["alibi"] if c["alibi"] else []) + \
+        (["wide_group"] if H // KV > 8 else []) + ([f"d{D}"] if D in (80, 96, 256) else [])
+    want = {"flash_fwd": 1, **{f"flash_fwd[{m}]": 1 for m in modes}}
+    if {n: counts[n] for n in want} != want or counts["flash_fwd[f16]"]:
+        raise AssertionError(f"flash f32 {name}: not counted in its modes {modes}: {counts}")
+    again = FA.flash_fwd(q, k, v, w, sl)
+    ro, rlse = FA.flash_attention_plain(q, k, v, w, sl)
+    fo, flse = _dense_f64_attention(q, k, v, w, sl)
+    torch.cuda.synchronize()
+    if not (_same_bits(o, again[0]) and _same_bits(lse, again[1])):
+        raise AssertionError(f"flash f32 {name}: two launches differ")
+    rep = {"shape": c, "modes": modes, "two_launches": "bit-identical",
+           "o": _require_f32(f"flash_fwd f32 {name} o", _f32_accuracy(o, ro, fo)),
+           "lse": _require_f32(f"flash_fwd f32 {name} lse", _f32_accuracy(lse, rlse, flse))}
+    if bound:
+        compat = {"window_ge_S": FA.flash_fwd(q, k, v, S), "window_2S": FA.flash_fwd(q, k, v, 2 * S),
+                  "zero_slopes": FA.flash_fwd(q, k, v, 0, torch.zeros(H, device=dev))}
+        for label, (xo, xl) in compat.items():
+            if not (_same_bits(xo, o) and _same_bits(xl, lse)):
+                raise AssertionError(f"flash f32 {name}: {label} is not causal's bits")
+        rep["compat"] = {label: "bit-identical to causal" for label in compat}
+        faults = {}
+        for fault in F32_FAULTS["flash_fwd_f32"]:
+            with build.routed("flash_fwd_f32", FAULT_BUILDS[fault]):
+                bo, bl = FA.flash_fwd(q, k, v, w, sl)
+            st = {"o": _f32_accuracy(bo, ro, fo), "lse": _f32_accuracy(bl, rlse, flse)}
+            if st["o"]["passed"] and st["lse"]["passed"]:
+                raise AssertionError(f"flash f32: the check passes the fault build "
+                                     f"{FAULT_BUILDS[fault]}: {st}")
+            faults[fault] = {x: {"passed": s["passed"], "kernel_rms": s["kernel_rms"],
+                                 "plain_rms": s["plain_rms"]} for x, s in st.items()}
+        rep["faults"] = faults
+    return rep, (q, k, v, o, sl)
+
+
+def _f32_flash_row(FA, q, k, v, c):
+    """The kernels line's flash_fwd[f32] row at the flagship's prefill:
+    device ms of the f32 kernel, of the bf16 kernel on the same values, of
+    the plain f32 version and of SDPA in f32 (the PyTorch call that
+    computes the same function; timed only), and the bound."""
+    import torch
+    import torch.nn.functional as F
+
+    B, S, H, KV, D = (c[x] for x in ("B", "S", "H", "KV", "D"))
+    qb, kb, vb = (x.to(torch.bfloat16) for x in (q, k, v))
+    qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
+    t = _timings(lambda: FA.flash_fwd(q, k, v), lambda: FA.flash_attention_plain(q, k, v),
+                 lambda: F.scaled_dot_product_attention(qt, kt, vt, is_causal=True,
+                                                        enable_gqa=KV != H), 10)
+    t["bf16_ms"] = _device_ms(lambda: FA.flash_fwd(qb, kb, vb), 10)
+    return dict(t, shape=f"B={B}, S={S}, H={H}, KV={KV}, D={D}, f32, causal",
+                bound=_f32_bound(B * S * (2 * H + 2 * KV) * D * 4 + B * H * S * 4,
+                                 4.0 * B * H * D * S * (S + 1) / 2))
+
+
+def _f32_decode_fixture(PA, g, dev, H, KV, D, bs, NB, ctx_list, bitmap):
+    """f32 decode rows (ctx_list, each row's blocks scattered over an arena
+    of just enough blocks, a scratch block last), f32 pools and int8 pools
+    of f32 values, f32 new K/V rows with their slots and, with `bitmap`, a
+    random layout bitmap [S, NB] (about a third of the slots off)."""
+    import torch
+
+    S = len(ctx_list)
+    per_row = -(-max(ctx_list) // bs)
+    nblk = S * per_row + 1
+    perm = torch.randperm(nblk - 1, generator=g, device=dev).to(torch.int32)
+    tables = torch.full((S, NB), nblk - 1, dtype=torch.int32, device=dev)
+    tables[:, :per_row] = perm.reshape(S, per_row)
+    ctx = torch.tensor(ctx_list, dtype=torch.int32, device=dev)
+    rn = lambda *s: torch.randn(s, generator=g, device=dev)
+    pos = (ctx - 1).long()
+    slots = (tables[torch.arange(S, device=dev), pos // bs].long() * bs + pos % bs).to(torch.int32)
+    qk, ks, qv, vs = PA.quantize_kv_rows(rn(nblk * bs, KV, D), rn(nblk * bs, KV, D))
+    allowed = None
+    if bitmap:
+        allowed = (torch.rand((S, NB), generator=g, device=dev) > 0.33).to(torch.int32)
+    return dict(q=rn(S, H, D), k_new=rn(S, KV, D), v_new=rn(S, KV, D), slots=slots,
+                tables=tables, ctx=ctx, allowed=allowed,
+                f32=[rn(nblk, bs, KV, D), rn(nblk, bs, KV, D)],
+                int8=[qk.reshape(nblk, bs, KV, D), qv.reshape(nblk, bs, KV, D),
+                      ks.reshape(nblk, bs, KV), vs.reshape(nblk, bs, KV)])
+
+
+def _f32_decode_run(PA, fx, name, window, alibi, kernel=True):
+    """One decode mode on copies of the fixture's pools: (output, pools)."""
+    fused, quant = "fused" in name, "int8" in name
+    pools = [p.clone() for p in fx["int8" if quant else "f32"]]
+    if kernel:
+        fn = getattr(PA, name)
+    else:
+        fn = PA.paged_decode_fused_plain if fused else PA.paged_decode_attention_plain
+    extra = (fx["k_new"], fx["v_new"], fx["slots"]) if fused else ()
+    out = fn(fx["q"], pools[0], pools[1], fx["tables"], fx["ctx"], *extra, *pools[2:],
+             window=window, alibi_slopes=alibi, allowed_slots=fx["allowed"])
+    return (out[0] if fused else out), pools
+
+
+def _dense_f64_decode(PA, fx, name, pools, window, alibi):
+    """The f64 reference of a decode mode over the pools it wrote: each
+    row's live positions (ctx, the window, the bitmap; the fused new
+    column whatever the bitmap says), int8 codes dequantized in f32 as the
+    kernel and the plain version take them."""
+    import torch
+
+    q, tables, ctx = fx["q"], fx["tables"], fx["ctx"]
+    S, H, D = q.shape
+    KV, bs = pools[0].shape[2], pools[0].shape[1]
+    tbl = tables.long().clamp(0, pools[0].shape[0] - 1)
+    k, v = (pools[i][tbl].reshape(S, -1, KV, D) for i in (0, 1))
+    if len(pools) > 2:
+        k = PA.dequantize(k, pools[2][tbl].reshape(S, -1, KV), torch.float32)
+        v = PA.dequantize(v, pools[3][tbl].reshape(S, -1, KV), torch.float32)
+    pos = torch.arange(k.shape[1], device=q.device)[None, :]
+    live = pos < ctx[:, None]
+    if window > 0:
+        live &= pos >= ctx[:, None] - window
+    if fx["allowed"] is not None:
+        on = (fx["allowed"] != 0).repeat_interleave(bs, dim=1)
+        if "fused" in name:
+            on |= pos == (ctx[:, None] - 1)
+        live &= on
+    k, v = (x.double().masked_fill(~live[:, :, None, None], 0.0).repeat_interleave(H // KV, 2)
+            for x in (k, v))
+    logits = torch.einsum("shd,skhd->shk", q.double(), k) / D ** 0.5
+    if alibi is not None:
+        logits += alibi.double()[None, :, None] * pos.double()
+    logits = logits.masked_fill(~live[:, None, :], float("-inf"))
+    probs = torch.nan_to_num(logits.softmax(-1))
+    return torch.einsum("shk,skhd->shd", probs, v)
+
+
+def _f32_decode_case(PA, K, g, dev, name, c, ctx_list=DECODE_FP_CTX, bs=128, NB=16):
+    """#4/#5's f32 modes at one case, all four decode modes: output against
+    the plain f32 version and the f64 reference (_f32_accuracy), the
+    fused modes' pools bit-identical to the plain write's (f32 rows; int8
+    codes and scales), each launch counted in [f32] and the case's modes,
+    a second launch bit-identical, a window >= every ctx and all-zero
+    slopes bit-identical to window 0 without slopes. Returns (report,
+    fixture)."""
+    import torch
+
+    H, KV, D, w = c["H"], c["KV"], c["D"], c["window"]
+    fx = _f32_decode_fixture(PA, g, dev, H, KV, D, bs, NB, ctx_list, c["bitmap"])
+    sl = _slopes(H, 1.0, dev) if c["alibi"] else None
+    modes = ["f32"] + (["window"] if w else []) + (["alibi"] if c["alibi"] else []) + \
+        (["sparse"] if c["bitmap"] else []) + (["wide_group"] if H // KV > 8 else []) + \
+        ([f"d{D}"] if D in (80, 96, 256) else [])
+    rep = {"shape": dict(c, S=len(ctx_list), ctx=[min(ctx_list), max(ctx_list)], bs=bs),
+           "modes": modes}
+    for mode in DECODE_MODES:
+        K.reset_launch_counts()
+        out, pools = _f32_decode_run(PA, fx, mode, w, sl)
+        counts = K.all_launch_counts()
+        want = {mode: 1, **{f"{mode}[{m}]": 1 for m in modes}}
+        if {n: counts[n] for n in want} != want:
+            raise AssertionError(f"decode f32 {name} {mode}: not counted in {modes}: {counts}")
+        again, _ = _f32_decode_run(PA, fx, mode, w, sl)
+        ref, ref_pools = _f32_decode_run(PA, fx, mode, w, sl, kernel=False)
+        torch.cuda.synchronize()
+        if not _same_bits(out, again):
+            raise AssertionError(f"decode f32 {name} {mode}: two launches differ")
+        if not all(_same_bits(a, b) for a, b in zip(pools, ref_pools)):
+            raise AssertionError(f"decode f32 {name} {mode}: the pools differ from the plain "
+                                 "write's")
+        f64 = _dense_f64_decode(PA, fx, mode, ref_pools, w, sl)
+        rep[mode] = _require_f32(f"{mode} f32 {name}", _f32_accuracy(out, ref, f64))
+        # a window >= every ctx and all-zero slopes give window 0's and no
+        # slopes' bits
+        base = _f32_decode_run(PA, fx, mode, 0, None)[0]
+        for label, (cw, cs) in {"window_ge_ctx": (max(ctx_list) + 1, None),
+                                "zero_slopes": (0, torch.zeros(H, device=dev))}.items():
+            if not _same_bits(_f32_decode_run(PA, fx, mode, cw, cs)[0], base):
+                raise AssertionError(f"decode f32 {name} {mode}: {label} is not the bits of "
+                                     "window 0 without slopes")
+    rep["compat"] = {"window_ge_ctx": "bit-identical", "zero_slopes": "bit-identical"}
+    return rep, fx
+
+
+def _f32_decode_faults(PA, build, fx):
+    """The decode fault builds at a split case: products rounded to TF32,
+    a split left out of the combine; each must fail the accuracy check in
+    every decode mode."""
+    import torch
+
+    out = {}
+    for fault in F32_FAULTS["paged_decode_f32"]:
+        out[fault] = {}
+        for mode in DECODE_MODES:
+            ref, ref_pools = _f32_decode_run(PA, fx, mode, 0, None, kernel=False)
+            with build.routed("paged_decode_f32", FAULT_BUILDS[fault]):
+                bad, _ = _f32_decode_run(PA, fx, mode, 0, None)
+            torch.cuda.synchronize()
+            st = _f32_accuracy(bad, ref, _dense_f64_decode(PA, fx, mode, ref_pools, 0, None))
+            if st["passed"]:
+                raise AssertionError(f"decode f32 {mode}: the check passes the fault build "
+                                     f"{FAULT_BUILDS[fault]}: {st}")
+            out[fault][mode] = {"passed": False, "kernel_rms": st["kernel_rms"],
+                                "plain_rms": st["plain_rms"]}
+    return out
+
+
+def _f32_decode_rows(PA, g, dev, H, KV, D):
+    """The kernels line's four [f32] decode rows at the f32 flagship's
+    decode shape (8 rows, ctx 97..118, each sequence in its own block of
+    its 65-block arena: the serve_f32 decode's): device ms of the f32
+    kernel, of the bf16 kernel on the same values, of the plain version,
+    and the bound (bytes: q in and out, tables, ctx, each live position's
+    K and V once, the fused modes' new rows and slot writes)."""
+    import torch
+
+    bs, nblk = SERVE["kv_block_size"], SERVE["num_kv_blocks"] + 1
+    NB = -(-SERVE["max_seq_len"] // bs)
+    S = N_PROMPTS
+    ctx = torch.arange(S, device=dev, dtype=torch.int32) * 3 + PROMPT_LEN + 1
+    tables = torch.full((S, NB), nblk - 1, dtype=torch.int32, device=dev)
+    tables[:, 0] = torch.arange(S, dtype=torch.int32, device=dev)
+    rn = lambda *s: torch.randn(s, generator=g, device=dev)
+    q, kn, vn = rn(S, H, D), rn(S, KV, D), rn(S, KV, D)
+    slots = (tables[:, 0] * bs + (ctx - 1) % bs).to(torch.int32)
+    qk, ks, qv, vs = PA.quantize_kv_rows(rn(nblk * bs, KV, D), rn(nblk * bs, KV, D))
+    pools = {"f32": [rn(nblk, bs, KV, D), rn(nblk, bs, KV, D)],
+             "int8": [qk.reshape(nblk, bs, KV, D), qv.reshape(nblk, bs, KV, D),
+                      ks.reshape(nblk, bs, KV), vs.reshape(nblk, bs, KV)]}
+    ctx_sum = int(ctx.sum())
+    rows = {}
+    for name in DECODE_MODES:
+        fused, quant = "fused" in name, "int8" in name
+        P = pools["int8" if quant else "f32"]
+        extra = (kn, vn, slots) if fused else ()
+        kern, plain = getattr(PA, name), (PA.paged_decode_fused_plain if fused
+                                          else PA.paged_decode_attention_plain)
+        call = lambda fn, qq, E, PP: fn(qq, PP[0], PP[1], tables, ctx, *E, *PP[2:])
+        out = call(kern, q, extra, P)
+        ref = call(plain, q, extra, [p.clone() for p in P])
+        out, ref = (out[0], ref[0]) if fused else (out, ref)
+        err = _check_close(f"{name} f32 flagship", out, ref, F32_TOL, F32_TOL)
+        Pb = [p.to(torch.bfloat16) if p.dtype == torch.float32 and p.dim() == 4 else p
+              for p in P]
+        qb, Eb = q.to(torch.bfloat16), tuple(x.to(torch.bfloat16) if x.is_floating_point()
+                                             else x for x in extra)
+        pos_bytes = KV * (D + 4) * 2 if quant else 2 * KV * D * 4
+        io = S * H * D * 4 * 2 + S * NB * 4 + S * 4
+        live = ctx_sum - S if fused else ctx_sum
+        n_bytes = io + live * pos_bytes + (S * (2 * KV * D * 4 + pos_bytes) if fused else 0)
+        rows[f"{name}[f32]"] = dict(
+            max_abs_err=err,
+            **_timings(lambda: call(kern, q, extra, P), lambda: call(plain, q, extra, P), None,
+                       50),
+            bf16_ms=_device_ms(lambda: call(kern, qb, Eb, Pb), 50),
+            shape=f"S={S}, ctx {int(ctx.min())}..{int(ctx.max())}, H={H}, KV={KV}, D={D}, "
+                  f"bs={bs}, arena {nblk} blocks, f32 q{', int8 pools' if quant else ''}",
+            bound=_f32_bound(n_bytes, 4.0 * ctx_sum * H * D))
+    return rows
+
+
+def _f32_tie_rows(g, T, KV, D, dev):
+    """f32 rows [T, KV, D] whose quotients x / scale lie within an ulp of a
+    .5 tie: each (row, head) slice a random amax in [0.5, 100] at element 0
+    and (k + 1/2) * scale, nudged by -1, 0 or +1 ulp, elsewhere; then
+    slices of NaN, inf, -inf, a NaN beside an inf, zeros and a subnormal
+    amax (rows 0-5)."""
+    import torch
+
+    amax = torch.rand((T, KV, 1), generator=g, device=dev) * 99.5 + 0.5
+    scale = amax * torch.tensor(1.0 / 127.0, dtype=torch.float32, device=dev)
+    k = torch.randint(-126, 126, (T, KV, D), generator=g, device=dev).float() + 0.5
+    x = k * scale
+    nudge = torch.randint(-1, 2, (T, KV, D), generator=g, device=dev)
+    x = torch.where(nudge > 0, torch.nextafter(x, torch.full_like(x, float("inf"))), x)
+    x = torch.where(nudge < 0, torch.nextafter(x, torch.full_like(x, -float("inf"))), x)
+    x[..., :1] = amax
+    x[0, :, 5] = float("nan")
+    x[1, :, 3] = float("inf")
+    x[2, :, D - 1] = -float("inf")
+    x[3, :, 0], x[3, :, D // 2] = float("nan"), float("inf")
+    x[4] = 0.0
+    x[5] = 3e-39
+    x[5, :, ::3] = -5e-39
+    return x
+
+
+def _f32_write_checks(PA, build, g, dev, bound_ms_rows):
+    """#6's f32 modes: the f32 write into f32 pages and the int8 write of
+    f32 rows, at a prefill wave of 1024 rows (768 live, 256 dropped) at
+    each head dim of F32_WRITE_HEADS, bit-exact against the plain versions
+    (f32 compared as bits: the rows hold NaN and inf), the int8 write on
+    rows built around .5 ties (_f32_tie_rows) and over a 8192-row sweep of
+    them (2^23 quotients within an ulp of a tie) at the flagship's heads,
+    every launch counted in [f32], a second launch bit-identical; the
+    fault builds failing; and, with `bound_ms_rows`, the kernels line's
+    rows at the flagship's wave (beside the bf16 write's ms and, for the
+    f32 write, index_copy_'s)."""
+    import torch
+
+    from deepspeed_tpu_torch.ops import cuda as K
+
+    bs, nblk = SERVE["kv_block_size"], SERVE["num_kv_blocks"] + 1
+    Tp, T = PROMPT_BUCKET, N_PROMPTS * PROMPT_BUCKET
+    pos = torch.arange(Tp, device=dev)
+    slots = (torch.arange(N_PROMPTS, device=dev)[:, None] * bs + pos[None, :])
+    slots = torch.where(pos[None, :] < PROMPT_LEN, slots, -1).reshape(T).to(torch.int32)
+    rep, rows = {}, {}
+
+    def pools(KV, D, int8):
+        if int8:
+            return [torch.zeros((nblk, bs, KV, D), dtype=torch.int8, device=dev) for _ in "kv"] + \
+                [torch.zeros((nblk, bs, KV), device=dev) for _ in "kv"]
+        return [torch.randn((nblk, bs, KV, D), generator=g, device=dev) for _ in "kv"]
+
+    def write(int8, P, kn, vn, sl, kernel=True):
+        if int8:
+            fn = PA.paged_kv_write_int8 if kernel else PA.paged_kv_write_quant_plain
+            return fn(P[0], P[1], P[2], P[3], kn, vn, sl)
+        fn = PA.paged_kv_write if kernel else PA.paged_kv_write_plain
+        return fn(P[0], P[1], kn, vn, sl)
+
+    for KV, D in F32_WRITE_HEADS:
+        kn, vn = _f32_tie_rows(g, T, KV, D, dev), _f32_tie_rows(g, T, KV, D, dev)
+        for int8 in (False, True):
+            name = "paged_kv_write_int8" if int8 else "paged_kv_write"
+            base = pools(KV, D, int8)
+            got, again, ref = ([p.clone() for p in base] for _ in range(3))
+            K.reset_launch_counts()
+            write(int8, got, kn, vn, slots)
+            counts = K.all_launch_counts()
+            write(int8, again, kn, vn, slots)
+            write(int8, ref, kn, vn, slots, kernel=False)
+            torch.cuda.synchronize()
+            if counts[name] != 1 or counts[f"{name}[f32]"] != 1:
+                raise AssertionError(f"{name} f32: not counted in [f32]: {counts}")
+            if not all(_same_bits(a, b) for a, b in zip(got, ref)):
+                raise AssertionError(f"{name} f32 at KV {KV}, D {D}: not bit-exact")
+            if not all(_same_bits(a, b) for a, b in zip(got, again)):
+                raise AssertionError(f"{name} f32 at KV {KV}, D {D}: two launches differ")
+            rep[f"{name} KV={KV} D={D}"] = "bit-exact, two launches bit-identical"
+            if (KV, D) != F32_WRITE_HEADS[0]:
+                continue
+            faults = {}
+            src = "paged_kv_write_f32" if int8 else "paged_kv_write"
+            for fault in F32_FAULTS[src]:
+                bad = [p.clone() for p in base]
+                with build.routed(src, FAULT_BUILDS[fault]):
+                    write(int8, bad, kn, vn, slots)
+                torch.cuda.synchronize()
+                if all(_same_bits(a, b) for a, b in zip(bad, ref)):
+                    raise AssertionError(f"{name} f32: the check passes the fault build "
+                                         f"{FAULT_BUILDS[fault]}")
+                faults[fault] = "fails (not bit-exact)"
+            rep[f"{name} faults"] = faults
+            if not bound_ms_rows:
+                continue
+            live = slots >= 0
+            n_live = int(live.sum())
+            idx = slots[live].long()
+            kl, vl = kn[live], vn[live]
+            kb, vb = kn.to(torch.bfloat16), vn.to(torch.bfloat16)
+            Pb = [p.to(torch.bfloat16) if p.dtype == torch.float32 and p.dim() == 4 else p
+                  for p in got]
+            lib = None if int8 else (lambda: (ref[0].view(-1, KV, D).index_copy_(0, idx, kl),
+                                              ref[1].view(-1, KV, D).index_copy_(0, idx, vl)))
+            n_bytes = (n_live * KV * D * 4 * 2 + n_live * KV * (D + 4) * 2 if int8
+                       else 4 * n_live * KV * D * 4) + 4 * T
+            rows[f"{name}[f32]"] = dict(
+                max_abs_err=0.0,
+                **_timings(lambda: write(int8, got, kn, vn, slots),
+                           lambda: write(int8, ref, kn, vn, slots, kernel=False), lib, 50),
+                bf16_ms=_device_ms(lambda: write(int8, Pb, kb, vb, slots), 50),
+                shape=f"T={T} rows ({n_live} live), arena [{nblk},{bs},{KV},{D}] "
+                      f"{'int8 + f32 scales' if int8 else 'f32'}, f32 rows",
+                bound=_f32_bound(n_bytes, 0.0))
+    # the quotient sweep: 8192 rows x 8 heads x 128 of _f32_tie_rows, every slot written
+    KV, D, Ts = 8, 128, 8192
+    kn, vn = _f32_tie_rows(g, Ts, KV, D, dev), _f32_tie_rows(g, Ts, KV, D, dev)
+    n_blk = Ts // bs
+    sweep = [torch.zeros((n_blk, bs, KV, D), dtype=torch.int8, device=dev) for _ in "kv"] + \
+        [torch.zeros((n_blk, bs, KV), device=dev) for _ in "kv"]
+    ref = [p.clone() for p in sweep]
+    all_slots = torch.arange(Ts, device=dev, dtype=torch.int32)
+    PA.paged_kv_write_int8(*sweep, kn, vn, all_slots)
+    PA.paged_kv_write_quant_plain(*ref, kn, vn, all_slots)
+    torch.cuda.synchronize()
+    off = sum(int((a != b).sum()) for a, b in zip(sweep[:2], ref[:2]))
+    if off or not all(_same_bits(a, b) for a, b in zip(sweep[2:], ref[2:])):
+        raise AssertionError(f"paged_kv_write_int8 f32 sweep: {off} codes differ")
+    rep["int8_quotient_sweep"] = {"quotients": 2 * Ts * KV * D, "codes_off": 0,
+                                  "scales": "bit-identical", "route": "__fdiv_rn"}
+    return rep, rows
+
+
+def _f32_kernel_checks(dev, heads):
+    """Phase 2's f32 checks (the f32 serving engine's kernels): #1 at each
+    F32_FLASH_CASES case, #4/#5 in all four modes at each
+    F32_DECODE_CASES case, #6's two f32 writes (_f32_write_checks); the
+    fault builds (F32_FAULTS) failing; the f32 instantiations' ptxas.
+    Matmuls in the references take full f32 (TF32 off for cuBLAS and
+    cuDNN). `heads`: the flagship's (H, KV, D). Returns the kernels line's
+    [f32] rows (the flagship's shapes)."""
+    import torch
+
+    from deepspeed_tpu_torch.ops import cuda as K
+    from deepspeed_tpu_torch.ops.cuda import build
+    from deepspeed_tpu_torch.ops.cuda import flash_attention as FA
+    from deepspeed_tpu_torch.ops.cuda import paged_attention as PA
+
+    torch.backends.cuda.matmul.allow_tf32 = False  # the references take full f32
+    torch.backends.cudnn.allow_tf32 = False
+    g = torch.Generator(device=dev).manual_seed(26)
+    report, rows = {"flash": {}, "decode": {}}, {}
+    for name, c in F32_FLASH_CASES.items():
+        flag = name == "flagship_prefill"
+        report["flash"][name], (q, k, v, o, sl) = _f32_flash_case(FA, K, build, g, dev, name, c,
+                                                                  bound=flag)
+        if flag:
+            rows["flash_fwd[f32]"] = dict(
+                _f32_flash_row(FA, q, k, v, c),
+                max_abs_err=report["flash"][name]["o"]["vs_plain_max"])
+        del q, k, v, o
+        torch.cuda.empty_cache()
+    for name, c in F32_DECODE_CASES.items():
+        report["decode"][name], _ = _f32_decode_case(PA, K, g, dev, name, c)
+    # the faults at a split case (32 x 128 heads over 8 KV heads, ctx to
+    # ~1,950: 4 splits a row); every mode, all must fail
+    split_case = dict(H=32, KV=8, D=128, window=0, alibi=False, bitmap=False)
+    report["decode"]["split_case"], fx = _f32_decode_case(PA, K, g, dev, "split_case", split_case)
+    report["decode"]["split_case"]["plan"] = PA.decode_split_plan(
+        len(DECODE_FP_CTX), 8, 4, 128, 16 * 128, PA._sm_count(dev.index or 0))._asdict()
+    report["decode"]["faults"] = _f32_decode_faults(PA, build, fx)
+    rows.update(_f32_decode_rows(PA, g, dev, *heads))
+    report["write"], wrows = _f32_write_checks(PA, build, g, dev, True)
+    rows.update(wrows)
+    report["ptxas_f32"] = {src: _ptxas_registers(build, src, kernels) for src, kernels in (
+        ("flash_fwd_f32", ("flash_fwd_f32_kernel",)),
+        ("paged_decode_f32", ("decode_f32_kernel",)),
+        ("paged_kv_write_f32", ("kv_write_int8_f32_kernel",)))}
+    report["build_s"] = {n: build.BUILD_SECONDS.get(n) for n in
+                         ("flash_fwd_f32", "paged_decode_f32", "paged_kv_write_f32")}
+    print(json.dumps({"f32_kernel_checks": report}))
+    return rows
+
+
 def check_kernels(cfg, dev):
     import torch
 
@@ -4560,6 +5189,8 @@ def check_kernels(cfg, dev):
         "flash_bwd_modes": lambda: _flash_bwd_mode_checks(FA, randn, dev, bound_ms),
         # #1-#3's f16 builds (fp16 training) at each mode's shape
         "flash_f16": lambda: _flash_f16_checks(FA, dev, bound_ms),
+        # #1 and #4-#6 on f32 operands (the f32 serving engine) at each mode's shape
+        "f32": lambda: _f32_kernel_checks(dev, (H, KV, D)),
         "evoformer": lambda: _evo_kernel_checks(dev, bound_ms),
         # the W8A16 GEMM of the per-channel int8 weight lane at every served shape
         "int8_matmul": lambda: _int8_mm_checks(dev, bound_ms),
@@ -4579,7 +5210,8 @@ def check_kernels(cfg, dev):
                           "kernel_ms": r["ms"], "plain_ms": r["plain_ms"],
                           "library_ms": r["library_ms"], "call_ms": r["call_ms"],
                           "bound_ms": r["bound"][0], "bound_by": r["bound"][1],
-                          "shape": r["shape"]}))
+                          "shape": r["shape"], **({"bf16_ms": r["bf16_ms"]} if "bf16_ms" in r
+                                                  else {})}))
     return results
 
 
@@ -5030,25 +5662,8 @@ def run_serving(cfg, dev, int8=False, bf16=None):
     # plain path in bf16, plain path in f32 (the reference for both)
     p32 = {k: ([{n: w.float() for n, w in lp.items()} for lp in v] if k == "layers"
                else v.float()) for k, v in eng.params.items()}
-    bs = SERVE["kv_block_size"]
-    NBt = eng.config.blocks_per_seq
-    toks_b = np.zeros((N_PROMPTS, PROMPT_BUCKET), np.int32)
-    for i, p in enumerate(prompts):
-        toks_b[i, :PROMPT_LEN] = p
-    tb = np.zeros((N_PROMPTS, NBt), np.int32)
-    tb[:, 0] = np.arange(N_PROMPTS)
-    tl = np.zeros((1, NBt), np.int32)
-    tl[0, :LONG_LEN // bs] = np.arange(LONG_LEN // bs) + N_PROMPTS
-    waves = [(toks_b, np.full((N_PROMPTS,), PROMPT_LEN, np.int32), tb),
-             (long_prompt[None], np.array([LONG_LEN], np.int32), tl)]
-    plain = {}
-    for dtype, prm in ((torch.bfloat16, eng.params), (torch.float32, p32)):
-        scratch = M.init_cache(cfg, N_PROMPTS + LONG_LEN // bs + 1, bs, dtype, dev,
-                               kv_quant=int8)
-        plain[dtype] = torch.cat([
-            M.prefill_batch(prm, scratch, *(torch.as_tensor(a, device=dev) for a in w),
-                            cfg, use_kernel=False)[0] for w in waves]).cpu()
-        del scratch
+    plain = {dtype: _plain_prefill(M, cfg, prm, prompts, long_prompt, dtype, dev, int8)
+             for dtype, prm in ((torch.bfloat16, eng.params), (torch.float32, p32))}
     prefill_stats = _path_errors("prefill logits", torch.from_numpy(prefill),
                                  plain[torch.bfloat16], plain[torch.float32])
     # one decode step (fused kernel) on copies of the live cache
@@ -5087,6 +5702,214 @@ def run_serving(cfg, dev, int8=False, bf16=None):
     report["prefix_cache"] = prefix
     return report, {"decode": decode, "chunk": chunk,
                     "kv_bytes_per_token": eng.kv_bytes_per_token()}
+
+
+# ---------------------------------------------------------------------------
+# phase serve_f32: the flagship served whole in f32 through DeepSpeed's v1
+# inference keys, from f32 and from int8 KV pools
+# ---------------------------------------------------------------------------
+
+# the v1 config of the f32 engine: init_inference's {"dtype": "fp32",
+# "max_out_tokens": ...} (SERVE's geometry), with the v1 kernel-injection
+# and CUDA-graph keys the port takes as no-ops
+SERVE_F32_V1 = dict({k: v for k, v in SERVE.items() if k != "max_seq_len"}, dtype="fp32",
+                    max_out_tokens=SERVE["max_seq_len"], replace_with_kernel_inject=True,
+                    enable_cuda_graph=True)
+# the f32 engine's logit error against the plain f32 path: at most this
+# share of the bf16 engine's kernel-path error against the same path
+# (prefill and decode): any rounding through bf16 or TF32 fails it
+F32_ENGINE_ERR_SHARE = 1.0 / 64
+
+
+def _plain_prefill(M, cfg, prm, prompts, long_prompt, dtype, dev, int8):
+    """The prefill logits of the counted wave (N_PROMPTS x PROMPT_LEN in
+    the PROMPT_BUCKET bucket, then the LONG_LEN prompt) by the plain path
+    (use_kernel=False) in `dtype`, on a scratch cache of the same kind."""
+    import numpy as np
+    import torch
+
+    bs = SERVE["kv_block_size"]
+    NBt = -(-SERVE["max_seq_len"] // bs)
+    toks_b = np.zeros((N_PROMPTS, PROMPT_BUCKET), np.int32)
+    for i, p in enumerate(prompts):
+        toks_b[i, :PROMPT_LEN] = p
+    tb = np.zeros((N_PROMPTS, NBt), np.int32)
+    tb[:, 0] = np.arange(N_PROMPTS)
+    tl = np.zeros((1, NBt), np.int32)
+    tl[0, :LONG_LEN // bs] = np.arange(LONG_LEN // bs) + N_PROMPTS
+    waves = [(toks_b, np.full((N_PROMPTS,), PROMPT_LEN, np.int32), tb),
+             (long_prompt[None], np.array([LONG_LEN], np.int32), tl)]
+    scratch = M.init_cache(cfg, N_PROMPTS + LONG_LEN // bs + 1, bs, dtype, dev, kv_quant=int8)
+    out = torch.cat([M.prefill_batch(prm, scratch, *(torch.as_tensor(a, device=dev) for a in w),
+                                     cfg, use_kernel=False)[0] for w in waves]).cpu()
+    del scratch
+    return out
+
+
+def _f32_lane_rows(eng, prompts, long_prompt):
+    """Phase serve's puts: the counted wave and the long prompt (one put),
+    a single-token decode put of row 0 (the fused decode) and a 2-token
+    continuation of row 1 (the write, then the plain-mode decode). Returns
+    (prefill logits, the decode rows' tokens, tables, ctx)."""
+    import numpy as np
+
+    uids = list(range(N_PROMPTS))
+    prefill = eng.put(uids + [N_PROMPTS], prompts + [long_prompt])
+    nxt = prefill.argmax(-1).astype(np.int32)
+    decode = eng.put([0], [nxt[:1]])
+    chunk = eng.put([1], [np.array([nxt[1], 1], np.int32)])
+    tables = eng.state.block_table(uids, eng.config.blocks_per_seq, eng.pad_block)
+    ctx = np.array([eng.state.get(u).seen_tokens + 1 for u in uids], np.int32)
+    toks = nxt[:N_PROMPTS].copy()
+    toks[0], toks[1] = decode[0].argmax(), chunk[0].argmax()
+    return prefill, toks, tables, ctx
+
+
+def _resident_bytes(eng):
+    from deepspeed_tpu_torch.utils.tree import leaves
+
+    weights = sum(x.numel() * x.element_size() for x in leaves(eng.params)
+                  if hasattr(x, "element_size"))
+    return {"weights": weights, "kv_pools": eng._pool_bytes()}
+
+
+def run_serve_f32(cfg, dev, bf16, int8=False):
+    """The flagship (FLAGSHIP, whole: 24 layers, d_model 1024, 8 x 128
+    heads) served in f32 through DeepSpeed's v1 keys (SERVE_F32_V1:
+    {"dtype": "fp32", "max_out_tokens": 1024, ...}), on f32 pools or, with
+    int8=True, on int8 pools, from the bf16 engines' seed-0 weights (cast
+    to f32 by the engine, as the JAX engine casts them). Counted, every
+    launch counter at 0 first, phase serve's puts (_f32_lane_rows: the
+    wave of 8 x 96-token prompts and the 512-token prompt in two waves, #1
+    and #6 once a layer each; a decode put, #5 or #4's int8 fused mode; a
+    2-token continuation, #6 and #4's plain mode), then greedy
+    decode_multi_fn(8, 24) eagerly (the fused mode 24 x layers times);
+    every launch in the [f32] mode, nothing else launched.
+    Checks: the greedy tokens equal the plain f32 path's (use_kernel=False,
+    from copies of the same pools) over the 24 steps; the prefill logits
+    and one decode step's (on copies of the live pools) against the plain
+    f32 path with an error RMS at most F32_ENGINE_ERR_SHARE of the bf16
+    engine's (`bf16`: phase serve's report, or serve_int8's for int8
+    pools); after warmup(), a replayed decode_multi_fn(8, 24) bit-identical
+    to an eager call. Reports TTFT of a fresh 512-token put (median of 5
+    after 2), eager and replayed decode tok/s (median of 3), the same for a
+    bf16 engine of the same weights and pools built here, resident
+    weight and pool bytes, and peak memory."""
+    import numpy as np
+    import torch
+
+    from deepspeed_tpu_torch import init_inference
+    from deepspeed_tpu_torch.inference import model as M
+    from deepspeed_tpu_torch.models import transformer as T
+    from deepspeed_tpu_torch.ops import cuda as K
+
+    torch.backends.cuda.matmul.allow_tf32 = False  # the plain f32 path in full f32
+    torch.backends.cudnn.allow_tf32 = False
+    torch.cuda.reset_peak_memory_stats(dev)
+    t0 = time.perf_counter()
+    params = T.init(cfg, torch.Generator(device=dev).manual_seed(0), device=dev,
+                    dtype=torch.bfloat16)
+    pools = "int8" if int8 else "auto"
+    eng = init_inference(params, cfg, dict(SERVE_F32_V1, kv_cache_dtype=pools))
+    if eng._dtype != torch.float32 or eng.config.max_seq_len != SERVE["max_seq_len"]:
+        raise AssertionError(f"the v1 keys gave dtype {eng._dtype}, max_seq_len "
+                             f"{eng.config.max_seq_len}")
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    V = cfg.vocab_size
+    r = np.random.default_rng(0)
+    prompts = [r.integers(0, V, PROMPT_LEN).astype(np.int32) for _ in range(N_PROMPTS)]
+    long_prompt = r.integers(0, V, LONG_LEN).astype(np.int32)
+
+    # -- the main path, counted -------------------------------------------
+    K.reset_launch_counts()
+    prefill, toks, tables, ctx = _f32_lane_rows(eng, prompts, long_prompt)
+    wave_counts = K.all_launch_counts()
+    before = _pool_copies(eng.cache, torch.float32)
+    fn = eng.decode_multi_fn(N_PROMPTS, DECODE_STEPS)
+    gen, last, eng.cache, _ = fn(eng.params, eng.cache, toks, tables, ctx)
+    torch.cuda.synchronize()
+    launches = K.all_launch_counts()
+    # -----------------------------------------------------------------------
+
+    q8 = "_int8" if int8 else ""
+    write, fused, plain = (f"paged_kv_write{q8}", f"paged_decode_fused{q8}",
+                           f"paged_decode_attention{q8}")
+    L = cfg.n_layers
+    # two prefill waves (the 128- and the 512-token bucket), the decode put,
+    # the continuation (a write and the plain decode), then 24 fused steps
+    want = {"flash_fwd": 2 * L, write: 3 * L, plain: L, fused: L * (1 + DECODE_STEPS)}
+    want.update({f"{n}[f32]": c for n, c in want.items()})
+    wrong = {n: c for n, c in launches.items() if c != want.get(n, 0)}
+    puts_want = dict(want, **{n: L for n in (fused, f"{fused}[f32]")})
+    if wrong or any(wave_counts[n] != c for n, c in puts_want.items()):
+        raise AssertionError(f"the f32 path must launch only the [f32] modes of flash_fwd, "
+                             f"{write}, {plain} and {fused}, once a layer a wave, put or "
+                             f"step: puts {wave_counts}, puts + decode {launches}")
+    if not (np.isfinite(prefill).all() and torch.isfinite(last).all()):
+        raise AssertionError("f32 serving logits are not finite")
+
+    # -- kernel path vs the plain f32 path, same weights and pools ----------
+    g = gen.cpu().numpy()
+    pgen, plast, _, _ = M.decode_multi(eng.params, before, torch.as_tensor(toks, device=dev),
+                                       torch.as_tensor(tables, device=dev),
+                                       torch.as_tensor(ctx, device=dev), cfg,
+                                       n_steps=DECODE_STEPS, use_kernel=False)
+    del before
+    if not np.array_equal(g, pgen.cpu().numpy()):
+        raise AssertionError(f"f32 greedy tokens differ from the plain f32 path's in "
+                             f"{int((g != pgen.cpu().numpy()).sum())} of {g.size}")
+    share = {}
+    pre32 = _plain_prefill(M, cfg, eng.params, prompts, long_prompt, torch.float32, dev, int8)
+    err = lambda a, b: float((torch.as_tensor(a).float() - b.float()).square().mean().sqrt())
+    dec = (torch.as_tensor(g[-1], device=dev), torch.as_tensor(tables, device=dev),
+           torch.as_tensor(ctx + DECODE_STEPS, device=dev))
+    outs = []
+    for use_kernel in (True, False):
+        cache = _pool_copies(eng.cache, torch.float32)
+        outs.append(M.decode_step(eng.params, cache, *dec, cfg, use_kernel=use_kernel,
+                                  unique_rows=True)[0].cpu())
+        del cache
+    for what, e in (("prefill_logits", err(prefill, pre32)), ("decode_logits", err(*outs))):
+        bf = bf16[what]["kernel_vs_f32_rms"]
+        share[what] = {"f32_kernel_vs_plain_f32_rms": e, "bf16_kernel_vs_plain_f32_rms": bf,
+                       "share": e / bf, "limit": F32_ENGINE_ERR_SHARE}
+        if not e <= F32_ENGINE_ERR_SHARE * bf:
+            raise AssertionError(f"f32 {what}: error RMS {e} against the plain f32 path above "
+                                 f"{F32_ENGINE_ERR_SHARE} of the bf16 engine's {bf}")
+    report = {"init_s": init_s, "launches": {n: c for n, c in launches.items() if c},
+              "v1_config": {k: v for k, v in SERVE_F32_V1.items() if k not in SERVE},
+              "greedy_tokens": f"equal to the plain f32 path's ({g.size})",
+              "logit_error": share, "resident_bytes": _resident_bytes(eng)}
+
+    # -- replays, and the lanes' timings beside a bf16 engine ---------------
+    lanes = {"f32": eng}
+    eng_b = init_inference(params, cfg, dict(SERVE, kv_cache_dtype=pools))
+    del params
+    _f32_lane_rows(eng_b, prompts, long_prompt)
+    lanes["bf16"] = eng_b
+    timing = {}
+    for lane, e in lanes.items():
+        e.warmup(widths=[N_PROMPTS], decode_chunks=[DECODE_STEPS], chunked=False,
+                 footprint=False)
+        f = e.decode_multi_fn(N_PROMPTS, DECODE_STEPS)
+        same, _, gap = _replay_vs_eager(e, f, (toks, tables, ctx))
+        if lane == "f32" and not same:
+            raise AssertionError(f"f32 replay differs from its eager call: {gap}")
+        ttft = _ttft(e, r, V, LONG_LEN)
+        times = _graph_times(e, f, (toks, tables, ctx), N_PROMPTS)
+        timing[lane] = {f"ttft_ms_{LONG_LEN}_p50": statistics.median(ttft),
+                        f"ttft_ms_{LONG_LEN}_all": ttft,
+                        "decode_tok_s_b8_eager": times["eager"]["tok_s"],
+                        "decode_tok_s_b8_replayed": times["replayed"]["tok_s"],
+                        "decode_ms": {h: times[h]["ms"] for h in ("eager", "replayed")},
+                        "idle_share": {h: times[h]["idle_share"] for h in ("eager", "replayed")},
+                        "replay_vs_eager": "bit-identical" if same else gap}
+    timing["bf16"]["resident_bytes"] = _resident_bytes(eng_b)
+    report.update(lanes=timing, peak_mem_gib=torch.cuda.max_memory_allocated(dev) / 2**30)
+    del eng, eng_b, lanes
+    torch.cuda.empty_cache()
+    return report
 
 
 def _ttft(eng, r, V, prompt_len):
@@ -6908,7 +7731,7 @@ KERNEL_MODE = {"window": "window", "alibi": "alibi", "sparse": "sparse",
 
 
 def run_serve_long(cfg, dev, params, mode, int8=False):
-    """A 7B model served at full width and depth with a long prompt, on
+    """A 7B model served at full width (SERVE_LONG_LAYERS deep) with a long prompt, on
     the weights `params` (the training layout, or the serving layout of an
     earlier engine), from bf16 pools or (int8) int8 pools. mode "window":
     Mistral 7B (phases serve_window, serve_window_int8); mode "alibi":
@@ -7309,6 +8132,10 @@ def main():
     done("serve", sl)
     q8, _ = run_serving(cfg, dev, int8=True, bf16=bf16_serving)
     done("serve_int8", q8)
+    s32 = run_serve_f32(cfg, dev, sl)
+    done("serve_f32", s32)
+    s32q = run_serve_f32(cfg, dev, q8, int8=True)
+    done("serve_f32_int8", s32q)
     gr = run_serve_graphs(cfg, dev)
     done("serve_graphs", gr)
     q8w = run_serve_int8w(cfg, dev, sl, gr)
@@ -7323,7 +8150,8 @@ def main():
     done("serve_mixtral_dropless", mxd)
     served = {}
     for mode, model in SERVED_7B:
-        mc = T.TransformerConfig(**model)
+        mc = T.TransformerConfig(**dict(model, n_layers=min(model["n_layers"],
+                                                            SERVE_LONG_LAYERS)))
         phase = f"serve_{mode}"
         served[phase], params = run_serve_long(mc, dev, _init_served(T, mc, dev), mode)
         done(phase, served[phase])
@@ -7338,13 +8166,16 @@ def main():
     ev = run_evoformer(dev)
     done("evoformer", ev)
 
-    paths = {"train": tr, "train_fp16": tr16, "serve": sl, "serve_int8": q8, "serve_graphs": gr, "serve_int8w": q8w,
+    paths = {"train": tr, "train_fp16": tr16, "serve": sl, "serve_int8": q8, "serve_f32": s32,
+             "serve_f32_int8": s32q, "serve_graphs": gr, "serve_int8w": q8w,
              "serve_scheduler": sch, "kv_handoff": kvh, "serve_mixtral": mx,
              "serve_mixtral_dropless": mxd, **served, **trains, "evoformer": ev}
     line = []
     # each mode (window, ALiBi, layout bitmap, wide group, head_dim 80, 96
-    # and 256, f16) is a path of its kernel: same source, same TPU kernel
-    sources = {**KERNELS, **{f"{n}[{mode}]": KERNELS[n]
+    # and 256, f16, f32) is a path of its kernel: the same TPU kernel, the
+    # same source (the f32 modes: F32_SOURCES)
+    sources = {**KERNELS, **{f"{n}[{mode}]": ((F32_SOURCES[n], KERNELS[n][1]) if mode == "f32"
+                                              else KERNELS[n])
                              for mode, names in K.MODES.items() for n in names}}
     for name, (source, replaces) in sources.items():
         k = kernels[name]

@@ -15,6 +15,9 @@
 // and KV whose row is a multiple of 16 bytes (Falcon-7B's one KV head of
 // 64: 128 bytes; Phi-2's 32 x 80: 5,120).
 //
+// The same kernel writes f32 rows into f32 pages (an f32 serving engine's
+// pools, the f32 mode of the TPU kernel): a row of KV * D * 4 bytes.
+//
 // Contract (same as the TPU kernel): slot < 0 drops the row (pad rows);
 // the block id is clamped to the arena, so a violated block-table
 // contract writes inside the arena instead of at an illegal address that
@@ -86,7 +89,12 @@ __global__ void kv_write_kernel(uint4* __restrict__ k_cache,
   const bool is_v = blockIdx.y == 1;
   uint4* dst = (is_v ? v_cache : k_cache) + off * row_vecs;
   const uint4* src = (is_v ? v_new : k_new) + (long long)t * row_vecs;
-  for (int i = threadIdx.x; i < row_vecs; i += blockDim.x) dst[i] = src[i];
+#ifdef DS_FAULT_ROW_TAIL  // defined only in a planted fault's build (chip_smoke.py)
+  const int written = row_vecs - 1;  // each row's last 16 bytes left unwritten
+#else
+  const int written = row_vecs;
+#endif
+  for (int i = threadIdx.x; i < written; i += blockDim.x) dst[i] = src[i];
 }
 
 // the int8 write's CTA: KV8_TILE head slices of the flat [T, 2 KV] order

@@ -1111,7 +1111,88 @@ def init_inference(params: Any, model_config: T.TransformerConfig,
     """Build the inference engine; config keys follow InferenceConfig
     (an unknown key raises TypeError).
 
+    DeepSpeed's v1 inference config keys are translated first, as the
+    JAX package's init_inference does (`_v1_config`): `dtype` sets the
+    serving dtype ("fp32"/"float"/"double" serve f32, "fp16"/"half"/"bf16"
+    bf16, "int8" bf16 with groupwise int8 weights), `max_out_tokens` is
+    `max_seq_len`, the kernel-injection and CUDA-graph keys are logged
+    no-ops, `tensor_parallel` is `tp_size` and `offload` is the kwarg
+    (both still raise in the engine: ROADMAP A11, A14).
+
     device=None serves on the GPU and raises when there is none; pass
     device='cpu' to run the plain PyTorch versions of every kernel."""
-    return InferenceEngine(model_config, params, InferenceConfig(**(config or {})), dtype,
+    cfg, dtype, quantization, offload = _v1_config(config, dtype, quantization, offload)
+    return InferenceEngine(model_config, params, InferenceConfig(**cfg), dtype,
                            device=device, quantization=quantization, offload=offload)
+
+
+# DeepSpeed v1 keys that choose CUDA kernels or graphs there: the port's
+# kernels and warmup()'s graphs are always its serving path
+_V1_NOOPS = ("replace_with_kernel_inject", "replace_method", "enable_cuda_graph",
+             "triangular_masking", "use_triton", "triton_autotune")
+
+
+def _v1_dtype(dt) -> Tuple[torch.dtype, bool]:
+    """A v1 `dtype` (a string, a torch or numpy dtype) -> (serving dtype,
+    whether it asks for int8 weights). f16 serves bf16 and f64 serves f32,
+    as in the JAX package; anything else raises ValueError."""
+    try:
+        name = np.dtype(dt).name
+    except TypeError:  # strings ("fp16") and torch dtypes ("torch.float16")
+        name = str(dt).split(".")[-1].lower()
+    if name == "int8":
+        return torch.bfloat16, True
+    if name in ("float16", "fp16", "half", "bfloat16", "bf16"):
+        return torch.bfloat16, False
+    if name in ("float32", "fp32", "float", "float64", "double"):
+        return torch.float32, False
+    raise ValueError(f"unsupported inference dtype {dt!r}")
+
+
+def _v1_config(config, dtype, quantization, offload):
+    """Translate DeepSpeed's v1 inference keys (the JAX package's
+    init_inference, deepspeed_tpu/inference/engine.py:1826-1925) into
+    (InferenceConfig keys, dtype, quantization, offload)."""
+    cfg = dict(config or {})
+    if "checkpoint" in cfg:
+        raise NotImplementedError(
+            "config['checkpoint']: the port loads no checkpoint in init_inference; read the "
+            "weights with the JAX package's init_inference_from_hf route (HF safetensors/bin) "
+            "or the training engine's checkpoint, convert them (utils/convert.py "
+            "params_from_numpy) and pass them as params")
+    if "injection_policy" in cfg or "injection_policy_tuple" in cfg:
+        raise NotImplementedError(
+            "injection_policy: sharding is a rules table, not module surgery; the port "
+            "serves one GPU until the multi-GPU slice (ROADMAP A11)")
+    dt = cfg.pop("dtype", None)
+    if dt is not None:
+        dtype, int8 = _v1_dtype(dt)
+        if int8:  # weight-only int8 PTQ is the int8 serving path
+            quantization = quantization or {"bits": 8, "group_size": 128}
+    if "max_out_tokens" in cfg:
+        mot = int(cfg.pop("max_out_tokens"))
+        if "max_seq_len" in cfg and int(cfg["max_seq_len"]) != mot:
+            raise ValueError(f"conflicting max_out_tokens ({mot}) and max_seq_len "
+                             f"({cfg['max_seq_len']}) in the inference config; drop one")
+        cfg["max_seq_len"] = mot
+    for noop in _V1_NOOPS:
+        if cfg.pop(noop, None):
+            log_dist(f"inference config '{noop}' is a no-op here (the port's hand-written "
+                     "kernels and warmup()'s CUDA graphs are always the serving path)",
+                     ranks=[0])
+    tp = cfg.pop("tensor_parallel", None)
+    if tp is not None:
+        if isinstance(tp, dict):
+            size = int(tp.get("tp_size", 1)) if tp.get("enabled", True) else 1
+        else:
+            size = int(tp)
+        if "tp_size" in cfg and int(cfg["tp_size"]) != size:
+            raise ValueError(f"conflicting tensor_parallel ({size}) and tp_size "
+                             f"({cfg['tp_size']}) in the inference config; drop one")
+        cfg["tp_size"] = size
+    if "offload" in cfg:
+        off = cfg.pop("offload")
+        if offload is not None and offload != off:
+            raise ValueError("conflicting offload in config and kwarg")
+        offload = off
+    return cfg, dtype, quantization, offload

@@ -14,6 +14,14 @@ def stream_of(t: torch.Tensor) -> int:
     return torch.cuda.current_stream(t.device).cuda_stream
 
 
+def check_dtypes(what: str, tensors: dict, dtypes: dict) -> None:
+    """Every named tensor must have its dtype (on any device: the wrappers'
+    dtype routing, testable without a card)."""
+    for name, t in tensors.items():
+        if t.dtype != dtypes[name]:
+            raise TypeError(f"{what}: {name} has dtype {t.dtype}, expected {dtypes[name]}")
+
+
 def check_cuda_args(what: str, tensors: dict, dtypes: dict,
                     aligned: Sequence[str] = ()) -> None:
     """Every tensor must lie on one CUDA device, be contiguous and have its
@@ -27,8 +35,7 @@ def check_cuda_args(what: str, tensors: dict, dtypes: dict,
             device = t.device
         elif t.device != device:
             raise ValueError(f"{what}: {name} is on {t.device}, others on {device}")
-        if t.dtype != dtypes[name]:
-            raise TypeError(f"{what}: {name} has dtype {t.dtype}, expected {dtypes[name]}")
+        check_dtypes(what, {name: t}, dtypes)
         if not t.is_contiguous():
             raise ValueError(f"{what}: {name} must be contiguous")
         if name in aligned and t.data_ptr() % 16:
@@ -41,7 +48,7 @@ def check_cuda_args(what: str, tensors: dict, dtypes: dict,
 MODE_COUNTERS = {"window": "window_launches", "alibi": "alibi_launches",
                  "sparse": "sparse_launches", "wide_group": "wide_group_launches",
                  "d80": "d80_launches", "d96": "d96_launches", "d256": "d256_launches",
-                 "f16": "f16_launches"}
+                 "f16": "f16_launches", "f32": "f32_launches"}
 # a launch whose KV heads each serve more query heads than this runs in the
 # wide-group mode (Falcon-7B: 71 over one)
 WIDE_GROUP = 8
@@ -63,12 +70,13 @@ def count_launch(wrapper, window: int = 0, alibi: bool = False, sparse: bool = F
     block-sparse layout bitmap, `wide_group_launches` when a KV head
     served more than WIDE_GROUP query heads, `d80_launches`,
     `d96_launches` and `d256_launches` at head_dim 80, 96 and 256,
-    `f16_launches` when its operands were f16 (`dtype`; each mode it ran
-    in)."""
+    `f16_launches` when its operands were f16 and `f32_launches` when
+    they were f32 (`dtype`; each mode it ran in)."""
     wrapper.launches += 1
     hits = {"window": window > 0, "alibi": alibi, "sparse": sparse,
             "wide_group": group > WIDE_GROUP, "d80": head_dim == 80, "d96": head_dim == 96,
-            "d256": head_dim == 256, "f16": dtype == torch.float16}
+            "d256": head_dim == 256, "f16": dtype == torch.float16,
+            "f32": dtype == torch.float32}
     for mode, hit in hits.items():
         if hit:
             attr = MODE_COUNTERS[mode]

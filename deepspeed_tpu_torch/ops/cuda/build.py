@@ -18,7 +18,9 @@ once, and records each one's seconds in `BUILD_SECONDS`. A missing
 
 A name may carry preprocessor defines after the source, joined by `+`
 (`flash_fwd+DS_FAULT_PV_HI_SKIPPED`): that source built with `-D` of each,
-in a library of its own. The f16 flash kernels are such builds
+in a library of its own. The f32 serving kernels are sources of their
+own (`paged_kv_write_f32`, `paged_decode_f32`, `flash_fwd_f32`); the f16
+flash kernels are such builds
 (`flash_fwd+DS_F16`, `flash_bwd+DS_F16`: csrc/hopper.cuh's element type),
 and so are the planted faults that `chip_smoke.py` aims at a kernel's own
 code; `routed(name, variant)` makes the wrappers load the variant for the
@@ -40,11 +42,13 @@ from typing import Dict, Iterable, Optional
 
 CSRC = Path(__file__).resolve().parents[2] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
-# every library the port runs: each source, and the f16 builds of the
-# flash kernels (#1-#3 on f16 operands, fp16 training)
+# every library the port runs: each source (the f32 serving kernels,
+# #1 and #4-#6 on f32 operands, in sources of their own), and the f16
+# builds of the flash kernels (#1-#3 on f16 operands, fp16 training)
 SOURCES = ("paged_kv_write", "paged_decode", "flash_fwd", "flash_bwd", "evoformer_fwd",
            "evoformer_bwd", "evoformer_db2", "int8_matmul", "grouped_gemm",
-           "flash_fwd+DS_F16", "flash_bwd+DS_F16")
+           "flash_fwd+DS_F16", "flash_bwd+DS_F16", "paged_kv_write_f32", "paged_decode_f32",
+           "flash_fwd_f32")
 ARCH_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a")
 NVCC_FLAGS = ARCH_FLAGS + ("-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
                            "-Xptxas", "-v")
@@ -65,6 +69,12 @@ SIGNATURES = {
     # ..., allowed, the split's f32 partials, its arrival counters; ...,
     # window, the split count and length
     "paged_decode": {"paged_decode": [_P] * 15 + [_I] * 12 + [_F, _P]},
+    # the f32 kernels: f32 q, rows and pools (or int8 pools), the bf16
+    # kernels' arguments; the int8 write of f32 rows takes ..., the row
+    # count, the block count and size, KV, head_dim, stream
+    "paged_kv_write_f32": {"paged_kv_write_int8_f32": [_P] * 7 + [_I] * 5 + [_P]},
+    "paged_decode_f32": {"paged_decode_f32": [_P] * 15 + [_I] * 12 + [_F, _P]},
+    "flash_fwd_f32": {"flash_fwd_f32": [_P] * 6 + [_I] * 6 + [_F, _P]},
     "flash_fwd": {"flash_fwd": [_P] * 6 + [_I] * 6 + [_F, _P],
                   # host nanoseconds to encode a call's three TMA maps `iters` times
                   "flash_fwd_encode_ns": [_P] * 3 + [_I] * 6},

@@ -23,14 +23,19 @@ the sliding-window mode, `alibi_launches`, in the ALiBi mode,
 `wide_group_launches`, with more than 8 query heads per KV head
 (Falcon-7B: 71 over one), `d80_launches`, at head_dim 80 (Phi-2), and
 `d96_launches` and `d256_launches`, at head_dim 96 (GPT-NeoX-20B) and 256
-(GPT-J-6B), and `f16_launches`, on f16 operands.
+(GPT-J-6B), and `f16_launches`, on f16 operands (the forward also
+`f32_launches`, on f32 operands).
 
 Element types: q, k, v (and dO) are all bf16 or all f16 (fp16
 mixed-precision training: the same kernels built with DS_F16, libraries
 `flash_fwd+DS_F16` and `flash_bwd+DS_F16`, in every mode the bf16 ones
 have); lse, delta and the ALiBi slopes stay f32, and o, dq, dk, dv come
-back in the inputs' type. Mixed types raise, and so does f32 on CUDA
-(ROADMAP B6: the f32 modes need a kernel design of their own).
+back in the inputs' type. Mixed types raise. The forward also takes f32
+(an f32 serving engine's prefill: csrc/flash_fwd_f32.cu, an FFMA kernel of
+its own, library `flash_fwd_f32`, every mode); the backward kernels do not
+yet (ROADMAP B6's training half): on CUDA they raise for f32, and the
+autograd Function raises at its forward, before any launch, when f32
+inputs need a gradient.
 
 Kernel #3 sums each KV head's dk and dv over its group of query heads in
 registers; where its grid would leave SMs idle it splits the group into
@@ -167,20 +172,39 @@ _F32 = torch.float32
 # the kernels' element types -> the library suffix of each source's build
 _BUILDS = {_BF16: "", _F16: "+DS_F16"}
 _ROW_STATS = ("lse", "delta")  # f32 [B, H, S] beside the element-type tensors
+_F32_TRAINING = ("the f32 backward kernels are not ported yet (ROADMAP B6's training "
+                 "half: #2/#3 in f32 with the f32 training config)")
 
 
 def _elem_dtype(what, q):
-    """The element type the kernels take for q (bf16 or f16); f32 raises
-    (ROADMAP B6)."""
+    """The element type the kernels take for q: bf16 or f16, and for the
+    forward f32 (its own source, `flash_fwd_f32`); f32 in the backward
+    raises (ROADMAP B6's training half). Pure: reads q's dtype only."""
+    if q.dtype == _F32 and what == "flash_fwd":
+        return _F32
+    if q.dtype == _F32:
+        raise TypeError(f"{what}: q has dtype {q.dtype}; {_F32_TRAINING}")
     if q.dtype not in _BUILDS:
         raise TypeError(f"{what}: q has dtype {q.dtype}; the kernels take bf16 or f16 "
-                        f"(the f32 modes are not ported yet: ROADMAP B6)")
+                        "(and the forward f32)")
     return q.dtype
 
 
+def library_name(name, dtype):
+    """The kernel library of source `name` for element type `dtype`: the
+    source's build (`+DS_F16` for f16), or its f32 source `<name>_f32`."""
+    return name + "_f32" if dtype == _F32 else name + _BUILDS[dtype]
+
+
 def _library(name, dtype):
-    """The kernel library of source `name` for element type `dtype`."""
-    return build.load(name + _BUILDS[dtype])
+    return build.load(library_name(name, dtype))
+
+
+def check_no_f32_grad(dtype, on_cuda: bool, needs_grad: bool):
+    """The autograd Function's guard, before any launch: f32 inputs on the
+    card that need a gradient raise (no f32 backward kernel yet)."""
+    if dtype == _F32 and on_cuda and needs_grad:
+        raise TypeError(f"flash_attention: f32 inputs that need a gradient; {_F32_TRAINING}")
 
 
 # f16's rounding edge: an f32 value of magnitude 65520 or more rounds to inf
@@ -230,7 +254,7 @@ def _check_attention_args(what, tensors, dtypes, q, k):
     B, S, H, D = q.shape
     KV = k.shape[2]
     check_cuda_args(what, tensors, dtypes,
-                    aligned=tuple(n for n, t in tensors.items() if t.dtype in _BUILDS))
+                    aligned=tuple(n for n in tensors if n not in _ROW_STATS))
     for name, t in tensors.items():
         if name in _ROW_STATS:
             check_shape(what, name, t, (B, H, S))
@@ -256,7 +280,8 @@ def flash_fwd(q, k, v, window: int = 0, alibi=None):
     `window` when it is > 0, ALiBi-biased by `alibi` ([H] f32 slopes, one
     per q head) when given. q [B, S, H, D], k/v [B, S, KV, D], all bf16
     or all f16, contiguous. Returns (o [B, S, H, D] in q's dtype, lse [B,
-    H, S] f32). CPU tensors take the plain version."""
+    H, S] f32). f32 q, k, v take the f32 kernel (csrc/flash_fwd_f32.cu).
+    CPU tensors take the plain version."""
     if not q.is_cuda:
         return flash_attention_plain(q, k, v, window, alibi)
     what = "flash_fwd"
@@ -269,9 +294,9 @@ def flash_fwd(q, k, v, window: int = 0, alibi=None):
     if B * S == 0:
         return o, lse
     lib = _library("flash_fwd", dt)
-    err = lib.flash_fwd(ptr(o), ptr(lse), ptr(q), ptr(k), ptr(v),
-                        None if alibi is None else ptr(alibi), B, S, H, k.shape[2], D,
-                        int(window), 1.0 / D ** 0.5, stream_of(q))
+    fn = lib.flash_fwd_f32 if dt == _F32 else lib.flash_fwd
+    err = fn(ptr(o), ptr(lse), ptr(q), ptr(k), ptr(v), None if alibi is None else ptr(alibi),
+             B, S, H, k.shape[2], D, int(window), 1.0 / D ** 0.5, stream_of(q))
     build.check(lib, err, what)
     count_launch(flash_fwd, window, alibi is not None, group=H // k.shape[2], head_dim=D,
                  dtype=dt)
@@ -279,7 +304,7 @@ def flash_fwd(q, k, v, window: int = 0, alibi=None):
 
 
 _FLASH_MODES = ("window", "alibi", "wide_group", "d80", "d96", "d256", "f16")
-zero_counts(flash_fwd, *_FLASH_MODES)
+zero_counts(flash_fwd, *_FLASH_MODES, "f32")
 
 
 def _launch_bwd(what, q, k, v, do, lse, delta, window, alibi, outs):
@@ -416,10 +441,12 @@ class FlashAttention(torch.autograd.Function):
     The backward takes the window and the ALiBi slopes the forward took;
     neither carries a gradient (the reference returns zeros for the
     slopes). The lse output carries none yet: a cotangent reaching it
-    raises (ROADMAP B3)."""
+    raises (ROADMAP B3). f32 CUDA inputs that need a gradient raise here,
+    before the forward launches (ROADMAP B6's training half)."""
 
     @staticmethod
     def forward(ctx, q, k, v, window, alibi):
+        check_no_f32_grad(q.dtype, q.is_cuda, any(ctx.needs_input_grad[:3]))
         q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
         o, lse = flash_fwd(q, k, v, window, alibi)
         ctx.save_for_backward(q, k, v, o, lse, alibi)
@@ -443,7 +470,7 @@ class FlashAttention(torch.autograd.Function):
 
 def flash_attention(q, k, v, window: int = 0, alibi=None):
     """Causal attention: q [B, S, H, D], k/v [B, S, KV, D] (bf16 or f16 on
-    the GPU), banded to the last `window` positions when window > 0, biased
+    the GPU; f32 without a gradient), banded to the last `window` positions when window > 0, biased
     by the [H] ALiBi slopes `alibi` when given (a tensor, array or list;
     pass an f32 tensor on q's device to spare a copy per call).
     Differentiable in q, k and v. Returns (o [B, S, H, D], lse [B, H, S]

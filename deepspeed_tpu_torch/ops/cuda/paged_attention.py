@@ -16,10 +16,14 @@ in the sliding-window mode, `alibi_launches`, those in the ALiBi mode,
 `sparse_launches`, those with a layout bitmap, and `wide_group_launches`,
 those with more than 8 query heads per KV head; the decode wrappers and
 both writes `d80_launches`, `d96_launches` and `d256_launches`, those at
-head_dim 80, 96 and 256). Kernels take bf16, head dims 64, 80, 96, 128
-and 256 (Phi-2: 80, GPT-NeoX-20B: 96, GPT-J-6B: 256) and any whole query
-group (Falcon-7B: 71 query heads over one KV head); the plain versions
-take any float dtype and compute attention in f32.
+head_dim 80, 96 and 256; every wrapper `f32_launches`, those on f32 q or
+rows). Kernels take bf16 or f32 (an f32 serving engine: q, new rows and
+non-int8 pools all f32, its own sources csrc/paged_decode_f32.cu and
+csrc/paged_kv_write_f32.cu, the f32 write into f32 pages the bf16
+write's byte mover; a mixed dtype raises), head dims 64, 80, 96, 128 and
+256 (Phi-2: 80, GPT-NeoX-20B: 96, GPT-J-6B: 256) and any whole query group
+(Falcon-7B: 71 query heads over one KV head); the plain versions take any
+float dtype and compute attention in f32.
 
 Sliding window (`window` > 0, every decode mode): row s attends to the
 positions ctx - window <= p < ctx of its context (ctx counts the new
@@ -48,7 +52,8 @@ codes and each carries a [NBLK, bs, KV] f32 scale pool, one scale per
 (token slot, KV head), so a block's scales live at k_scale[block].
 quantize_kv_rows is the one rounding rule; the kernels' quantizer
 (csrc/kv_quant.cuh) repeats it bit for bit. A code dequantizes as
-code * scale in f32, rounded to q's dtype before it meets q or P.
+code * scale in f32, rounded to q's dtype before it meets q or P (no
+rounding for f32 q).
 
 The caches are updated IN PLACE (the JAX package donates the arenas and
 gets them back aliased): the write and the fused decode return the same
@@ -76,7 +81,26 @@ _I8 = torch.int8
 _F32 = torch.float32
 _DECODE_HEAD_DIMS = (64, 80, 96, 128, 256)
 # the counters of every decode wrapper
-_DECODE_MODES = ("window", "alibi", "sparse", "wide_group", "d80", "d96", "d256")
+_DECODE_MODES = ("window", "alibi", "sparse", "wide_group", "d80", "d96", "d256", "f32")
+# the element types of q, the new KV rows and non-int8 pools: bf16 (the
+# bf16 sources) or f32 (the `_f32` sources)
+_SERVE_DTYPES = (_BF16, _F32)
+# query heads a CTA of the f32 decode kernel (csrc/paged_decode_f32.cu GCH)
+F32_GROUP_CTA = 64
+
+
+def serve_dtype(what, t):
+    """The element type the serving kernels run `t` (q or the new KV rows)
+    in: bf16 or f32; anything else raises TypeError. Pure: reads the dtype
+    only."""
+    if t.dtype not in _SERVE_DTYPES:
+        raise TypeError(f"{what}: {t.dtype}; the kernels take bf16 or f32")
+    return t.dtype
+
+
+def library_name(source, dtype):
+    """The library of kernel source `source` for element type `dtype`."""
+    return source + "_f32" if dtype == _F32 else source
 
 
 # int8 KV quantization: scale = amax * (1/127) as a MULTIPLY by the f32
@@ -157,40 +181,38 @@ def paged_kv_write_quant_plain(cache_k, cache_v, k_scale, v_scale, k_new, v_new,
 
 def paged_kv_write(cache_k, cache_v, k_new, v_new, flat_slots):
     """Write new KV rows into the paged arenas in place (kernel:
-    csrc/paged_kv_write.cu). cache_k/cache_v [NBLK, bs, KV, D] bf16,
-    k_new/v_new [T, KV, D] bf16, flat_slots [T] int32 (-1 = dropped row).
-    A slot past the arena lands in the last block, as in the plain version.
-    Returns (cache_k, cache_v)."""
+    csrc/paged_kv_write.cu, which moves a row's bytes: bf16 or f32).
+    cache_k/cache_v [NBLK, bs, KV, D] and k_new/v_new [T, KV, D], all bf16
+    or all f32, flat_slots [T] int32 (-1 = dropped row). A slot past the
+    arena lands in the last block, as in the plain version. Returns
+    (cache_k, cache_v)."""
     if not cache_k.is_cuda:
         return paged_kv_write_plain(cache_k, cache_v, k_new, v_new, flat_slots)
     what = "paged_kv_write"
     NBLK, bs, KV, D = cache_k.shape
     T = flat_slots.shape[0]
-    check_cuda_args(
-        what,
-        {"cache_k": cache_k, "cache_v": cache_v, "k_new": k_new, "v_new": v_new,
-         "flat_slots": flat_slots},
-        {"cache_k": _BF16, "cache_v": _BF16, "k_new": _BF16, "v_new": _BF16,
-         "flat_slots": _I32},
-        aligned=("cache_k", "cache_v", "k_new", "v_new"))
+    dt = serve_dtype(what, k_new)
+    tensors = {"cache_k": cache_k, "cache_v": cache_v, "k_new": k_new, "v_new": v_new,
+               "flat_slots": flat_slots}
+    dtypes = {"cache_k": dt, "cache_v": dt, "k_new": dt, "v_new": dt, "flat_slots": _I32}
+    check_cuda_args(what, tensors, dtypes, aligned=("cache_k", "cache_v", "k_new", "v_new"))
     check_shape(what, "cache_v", cache_v, cache_k.shape)
     check_shape(what, "k_new", k_new, (T, KV, D))
     check_shape(what, "v_new", v_new, (T, KV, D))
-    if (KV * D * 2) % 16:
-        raise ValueError(f"{what}: a [KV, D] row of {KV * D * 2} bytes is not a "
-                         "multiple of 16")
+    row_bytes = KV * D * dt.itemsize
+    if row_bytes % 16:
+        raise ValueError(f"{what}: a [KV, D] row of {row_bytes} bytes is not a multiple of 16")
     if T == 0:
         return cache_k, cache_v
     lib = build.load("paged_kv_write")
     err = lib.paged_kv_write(ptr(cache_k), ptr(cache_v), ptr(k_new), ptr(v_new),
-                             ptr(flat_slots), T, NBLK, bs, KV * D * 2,
-                             stream_of(cache_k))
+                             ptr(flat_slots), T, NBLK, bs, row_bytes, stream_of(cache_k))
     build.check(lib, err, what)
-    count_launch(paged_kv_write, head_dim=D)
+    count_launch(paged_kv_write, head_dim=D, dtype=dt)
     return cache_k, cache_v
 
 
-zero_counts(paged_kv_write, "d80", "d96", "d256")
+zero_counts(paged_kv_write, "d80", "d96", "d256", "f32")
 
 
 def _check_scales(what, cache_k, k_scale, v_scale):
@@ -233,10 +255,11 @@ def quantizer_route_check(device) -> dict:
 
 def paged_kv_write_int8(cache_k, cache_v, k_scale, v_scale, k_new, v_new, flat_slots):
     """Quantize new KV rows and write codes and scales into the int8 pools
-    in place, in one launch (kernel: csrc/paged_kv_write.cu). cache_k/
-    cache_v [NBLK, bs, KV, D] int8, k_scale/v_scale [NBLK, bs, KV] f32,
-    k_new/v_new [T, KV, D] bf16, flat_slots [T] int32 (-1 = dropped row;
-    a slot past the arena lands in the last block).
+    in place, in one launch (kernel: csrc/paged_kv_write.cu; f32 rows
+    csrc/paged_kv_write_f32.cu). cache_k/cache_v [NBLK, bs, KV, D] int8,
+    k_scale/v_scale [NBLK, bs, KV] f32, k_new/v_new [T, KV, D] both bf16 or
+    both f32, flat_slots [T] int32 (-1 = dropped row; a slot past the arena
+    lands in the last block).
     Codes and scales are bit-identical to paged_kv_write_quant_plain's,
     NaN and inf included: a NaN in a (row, head) slice makes its scale 1
     and its own code 0; an inf without a NaN makes the scale inf and every
@@ -248,13 +271,13 @@ def paged_kv_write_int8(cache_k, cache_v, k_scale, v_scale, k_new, v_new, flat_s
     what = "paged_kv_write_int8"
     NBLK, bs, KV, D = cache_k.shape
     T = flat_slots.shape[0]
-    check_cuda_args(
-        what,
-        {"cache_k": cache_k, "cache_v": cache_v, "k_scale": k_scale, "v_scale": v_scale,
-         "k_new": k_new, "v_new": v_new, "flat_slots": flat_slots},
-        {"cache_k": _I8, "cache_v": _I8, "k_scale": _F32, "v_scale": _F32,
-         "k_new": _BF16, "v_new": _BF16, "flat_slots": _I32},
-        aligned=("cache_k", "cache_v", "k_scale", "v_scale", "k_new", "v_new"))
+    dt = serve_dtype(what, k_new)
+    tensors = {"cache_k": cache_k, "cache_v": cache_v, "k_scale": k_scale, "v_scale": v_scale,
+               "k_new": k_new, "v_new": v_new, "flat_slots": flat_slots}
+    dtypes = {"cache_k": _I8, "cache_v": _I8, "k_scale": _F32, "v_scale": _F32,
+              "k_new": dt, "v_new": dt, "flat_slots": _I32}
+    check_cuda_args(what, tensors, dtypes,
+                    aligned=("cache_k", "cache_v", "k_scale", "v_scale", "k_new", "v_new"))
     check_shape(what, "cache_v", cache_v, cache_k.shape)
     _check_scales(what, cache_k, k_scale, v_scale)
     check_shape(what, "k_new", k_new, (T, KV, D))
@@ -263,17 +286,20 @@ def paged_kv_write_int8(cache_k, cache_v, k_scale, v_scale, k_new, v_new, flat_s
         raise ValueError(f"{what}: head_dim {D}; the kernel is built for {_DECODE_HEAD_DIMS}")
     if T == 0:
         return cache_k, cache_v, k_scale, v_scale
-    lib = build.load("paged_kv_write")
-    err = lib.paged_kv_write_int8(ptr(cache_k), ptr(cache_v), ptr(k_scale), ptr(v_scale),
-                                  ptr(k_new), ptr(v_new), ptr(flat_slots), T, NBLK, bs, KV,
-                                  D, *_divisor_magic(2 * KV), *_divisor_magic(bs),
-                                  stream_of(cache_k))
+    lib = build.load(library_name("paged_kv_write", dt))
+    pools = (ptr(cache_k), ptr(cache_v), ptr(k_scale), ptr(v_scale), ptr(k_new), ptr(v_new),
+             ptr(flat_slots))
+    if dt == _F32:
+        err = lib.paged_kv_write_int8_f32(*pools, T, NBLK, bs, KV, D, stream_of(cache_k))
+    else:
+        err = lib.paged_kv_write_int8(*pools, T, NBLK, bs, KV, D, *_divisor_magic(2 * KV),
+                                      *_divisor_magic(bs), stream_of(cache_k))
     build.check(lib, err, what)
-    count_launch(paged_kv_write_int8, head_dim=D)
+    count_launch(paged_kv_write_int8, head_dim=D, dtype=dt)
     return cache_k, cache_v, k_scale, v_scale
 
 
-zero_counts(paged_kv_write_int8, "d80", "d96", "d256")
+zero_counts(paged_kv_write_int8, "d80", "d96", "d256", "f32")
 
 
 # ---------------------------------------------------------------------------
@@ -360,32 +386,40 @@ def paged_decode_fused_plain(q, k_cache, v_cache, block_table, ctx_lens,
     return out, k_cache, v_cache, k_scale, v_scale
 
 
+def decode_dtypes(what, q, quant: bool, fused: bool) -> dict:
+    """The dtype each argument of a decode launch must have: q's (bf16 or
+    f32) for q, the new rows and non-int8 pools, int8 pools with f32
+    scales. Pure: reads q's dtype only."""
+    dt = serve_dtype(what, q)
+    pool = _I8 if quant else dt
+    dtypes = {"q": dt, "k_cache": pool, "v_cache": pool, "block_table": _I32, "ctx_lens": _I32,
+              "k_scale": _F32, "v_scale": _F32, "alibi_slopes": _F32, "allowed_slots": _I32}
+    if fused:
+        dtypes.update(k_new=dt, v_new=dt, slots=_I32)
+    return dtypes
+
+
 def _check_decode(what, q, k_cache, v_cache, block_table, ctx_lens,
                   k_new=None, v_new=None, slots=None, k_scale=None, v_scale=None,
                   alibi_slopes=None, allowed_slots=None):
     S, H, D = q.shape
     NBLK, bs, KV, Dc = k_cache.shape
-    pool = _BF16 if k_scale is None else _I8
+    dtypes = decode_dtypes(what, q, k_scale is not None, k_new is not None)
     tensors = {"q": q, "k_cache": k_cache, "v_cache": v_cache,
                "block_table": block_table, "ctx_lens": ctx_lens}
-    dtypes = {"q": _BF16, "k_cache": pool, "v_cache": pool,
-              "block_table": _I32, "ctx_lens": _I32}
     if k_new is not None:
         tensors.update(k_new=k_new, v_new=v_new, slots=slots)
-        dtypes.update(k_new=_BF16, v_new=_BF16, slots=_I32)
     if k_scale is not None:
         tensors.update(k_scale=k_scale, v_scale=v_scale)
-        dtypes.update(k_scale=_F32, v_scale=_F32)
         _check_scales(what, k_cache, k_scale, v_scale)
     if alibi_slopes is not None:
         tensors.update(alibi_slopes=alibi_slopes)
-        dtypes.update(alibi_slopes=_F32)
         check_shape(what, "alibi_slopes", alibi_slopes, (H,))
     if allowed_slots is not None:
         tensors.update(allowed_slots=allowed_slots)
-        dtypes.update(allowed_slots=_I32)
         check_shape(what, "allowed_slots", allowed_slots, tuple(block_table.shape))
-    check_cuda_args(what, tensors, dtypes, aligned=("k_cache", "v_cache"))
+    check_cuda_args(what, tensors, dtypes, aligned=("k_cache", "v_cache") + (
+        ("q", "k_new", "v_new") if q.dtype == _F32 else ()))
     if Dc != D or D not in _DECODE_HEAD_DIMS:
         raise ValueError(f"{what}: head_dim {D} (cache {Dc}); the kernel is "
                          f"built for {_DECODE_HEAD_DIMS}")
@@ -509,10 +543,11 @@ def _workspace(device, stream, n_part, n_counters):
 def _launch_decode(what, wrapper, window, alibi_slopes, allowed_slots, q, k_cache, v_cache,
                    block_table, ctx_lens, k_new=None, v_new=None, slots=None, k_scale=None,
                    v_scale=None):
-    """Launch csrc/paged_decode.cu in the mode its arguments select, split
-    by `decode_split_plan` (the f32 partials and arrival counters in this
-    stream's `_workspace`; the combine runs in the same launch), and count
-    the launch on `wrapper`. Returns the output [S, H, D]."""
+    """Launch csrc/paged_decode.cu (f32 q: csrc/paged_decode_f32.cu) in the
+    mode its arguments select, split by `decode_split_plan` (the f32
+    partials and arrival counters in this stream's `_workspace`; the
+    combine runs in the same launch), and count the launch on `wrapper`.
+    Returns the output [S, H, D]."""
     S, H, D = q.shape
     NBLK, bs, KV, _ = k_cache.shape
     out = torch.empty_like(q)
@@ -521,13 +556,15 @@ def _launch_decode(what, wrapper, window, alibi_slopes, allowed_slots, q, k_cach
     NB = block_table.shape[1]
     plan = decode_split_plan(S, KV, H // KV, D, NB * bs, _sm_count(q.device.index))
     stream = stream_of(q)
+    f32 = q.dtype == _F32
     part = counters = None
     if plan.n > 1:
+        per_cta = F32_GROUP_CTA if f32 else MAX_GROUP_CTA
         part, counters = _workspace(q.device, stream, math.prod(plan.scratch_shape),
-                                    S * KV * -(-(H // KV) // MAX_GROUP_CTA))
-    lib = build.load("paged_decode")
+                                    S * KV * -(-(H // KV) // per_cta))
+    lib = build.load(library_name("paged_decode", q.dtype))
     opt = lambda t: None if t is None else ptr(t)
-    err = lib.paged_decode(
+    err = (lib.paged_decode_f32 if f32 else lib.paged_decode)(
         ptr(out), ptr(q), ptr(k_cache), ptr(v_cache), opt(k_scale), opt(v_scale),
         ptr(block_table), ptr(ctx_lens), opt(k_new), opt(v_new), opt(slots),
         opt(alibi_slopes), opt(allowed_slots), opt(part), opt(counters),
@@ -535,7 +572,7 @@ def _launch_decode(what, wrapper, window, alibi_slopes, allowed_slots, q, k_cach
         int(window), plan.n, plan.split_len, 1.0 / D ** 0.5, stream)
     build.check(lib, err, what)
     count_launch(wrapper, window, alibi_slopes is not None, allowed_slots is not None,
-                 group=H // KV, head_dim=D)
+                 group=H // KV, head_dim=D, dtype=q.dtype)
     return out
 
 
@@ -548,8 +585,8 @@ def paged_decode_attention(q, k_cache, v_cache, block_table, ctx_lens, window: i
     int32 `allowed_slots` bitmap allows, when given). Used when a decode
     row set is not
     all single tokens (chunked continuation, the suffix of a prefix-cache
-    hit), after a separate paged_kv_write. q [S, H, D] bf16, caches [NBLK,
-    bs, KV, D] bf16, block_table [S, NB] int32, ctx_lens [S] int32 (0 = pad
+    hit), after a separate paged_kv_write. q [S, H, D] and caches [NBLK,
+    bs, KV, D] both bf16 or both f32, block_table [S, NB] int32, ctx_lens [S] int32 (0 = pad
     row, zeros out). Returns [S, H, D]."""
     if not q.is_cuda:
         return paged_decode_attention_plain(q, k_cache, v_cache, block_table, ctx_lens,
@@ -574,7 +611,8 @@ def paged_decode_attention_int8(q, k_cache, v_cache, block_table, ctx_lens, k_sc
     allowed_slots as in paged_decode_attention; a disallowed block's codes
     and scales are never read). Used after
     paged_kv_write_int8 for chunked continuations and prefix-hit suffixes.
-    q [S, H, D] bf16, caches [NBLK, bs, KV, D] int8. Returns [S, H, D]."""
+    q [S, H, D] bf16 or f32 (codes dequantized to f32 then, never rounded
+    to bf16), caches [NBLK, bs, KV, D] int8. Returns [S, H, D]."""
     if not q.is_cuda:
         return paged_decode_attention_plain(q, k_cache, v_cache, block_table, ctx_lens,
                                             k_scale, v_scale, window, alibi_slopes,
@@ -623,7 +661,8 @@ def paged_decode_fused_int8(q, k_cache, v_cache, block_table, ctx_lens, k_new, v
                             slots, k_scale, v_scale, window: int = 0, alibi_slopes=None,
                             allowed_slots=None):
     """paged_decode_fused over int8 pools (kernel: csrc/paged_decode.cu,
-    FUSED=true, QUANT=true): each row's new K/V [S, KV, D] bf16 is
+    FUSED=true, QUANT=true): each row's new K/V [S, KV, D] (q's dtype, bf16
+    or f32) is
     quantized in the kernel (codes and scales bit-identical to
     quantize_kv_rows), written into its flat slot of the code and scale
     pools, and attended as its dequantized value, in one launch. The JAX

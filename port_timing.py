@@ -92,6 +92,12 @@ MODE:
   (and, where the root has the f16 builds, the f16 ms and digest, as in
   flash); a head dim the root's backward is not built for is reported as
   such; and the ptxas registers and spills of each instantiation.
+- kv: kernels #4/#5 in their four modes on bf16 q (bf16 and int8 pools,
+  plain and fused) at the decode rows of `splits`, and #6's bf16 and int8
+  writes at KV_WRITE_CASES, in ROOT's package (inputs from a seeded
+  generator): device ms a call of each decode mode (torch.profiler over
+  20 calls, the median of 3) and a digest of every output and the pools
+  it wrote, the same in two roots whose kernels give the same bits.
 - grouped: the grouped GEMM of dropless MoE (grouped_gemm) in ROOT's
   package at chip_smoke.py's GROUPED_SHAPES (Mixtral-8x7B's w_gate/w_in
   and w_out) x GROUPED_A (decode 16 rows, prefill 1024) on the routed
@@ -772,6 +778,43 @@ def write_worker(root):
     return out
 
 
+def kv_worker(root):
+    """#4/#5 in their four bf16-q modes at _decode_cases and #6's bf16 and
+    int8 writes at KV_WRITE_CASES in ROOT's package: device ms a call (the
+    median of 3 runs) and a digest of each output and the pools it wrote."""
+    root, C = _import_root(root)
+    import torch
+
+    from deepspeed_tpu_torch.ops.cuda import build
+    from deepspeed_tpu_torch.ops.cuda import paged_attention as PA
+
+    build.build_all(["paged_kv_write", "paged_decode"])
+    dev = torch.device("cuda")
+    out = {"mode": "kv", "root": str(root), "decode": {}, "write": {}}
+    for i, (name, (H, KV, D, serve, ctx, window)) in enumerate(_decode_cases(C).items()):
+        bs = serve["kv_block_size"]
+        NB = -(-serve["max_seq_len"] // bs)
+        randn = _seeded_randn(torch, dev, 60 + i)
+        _, _, run = C._decode_fixture(PA, randn, dev, H, KV, D, bs, NB, list(ctx), 70 + i)
+        for mode in C.DECODE_MODES:
+            ms = [C._device_ms(lambda: run(mode, window), 20) for _ in range(3)]
+            got, pools = run(mode, window)
+            out["decode"][f"{name} {mode}"] = {"device_ms": statistics.median(ms),
+                                               "digest": _digest(torch, got, *pools)}
+    for i, (name, case) in enumerate(C.KV_WRITE_CASES.items()):
+        torch.manual_seed(40 + i)  # the fixture's .5 ties draw from the default generator
+        x = C._kv_write_fixture(PA, _seeded_randn(torch, dev, 40 + i), dev, case)
+        pools = [p.clone() for p in x["pools"]]
+        PA.paged_kv_write_int8(*pools, x["kn"], x["vn"], x["slots"])
+        bf = [torch.zeros(p.shape, dtype=torch.bfloat16, device=dev) for p in x["pools"][:2]]
+        PA.paged_kv_write(*bf, x["kn"], x["vn"], x["slots"])
+        out["write"][name] = {"int8_digest": _digest(torch, *pools),
+                              "bf16_digest": _digest(torch, *bf)}
+        del x, pools, bf
+        torch.cuda.empty_cache()
+    return out
+
+
 def _digest(torch, *tensors):
     """sha256 (16 hex digits) of the tensors' bytes, in order."""
     import hashlib
@@ -946,7 +989,7 @@ def _grouped_split_sweep(C, torch, GG, xs, counts, counts_h, K, N, dev, seed):
 WORKERS = {"evo": evo_worker, "serve": serve_worker, "serve8w": serve8w_worker,
            "gemm": gemm_worker, "splits": splits_worker, "tiles": tiles_worker,
            "write": write_worker, "flash": flash_worker, "bwd": bwd_worker,
-           "grouped": grouped_worker}
+           "grouped": grouped_worker, "kv": kv_worker}
 
 
 def main(mode, roots):

@@ -127,9 +127,13 @@ class TestKernelsOnCard:
         torch.testing.assert_close(lse, rlse, rtol=1e-3, atol=1e-3)
 
     def test_wrappers_reject_bad_inputs(self, cuda_device):
-        q = torch.zeros((1, 8, 2, 128), device=cuda_device)  # f32, not bf16
+        # f32 alone runs (the f32 forward kernel); f32 beside bf16, and f32
+        # inputs that need a gradient (no f32 backward kernel yet), raise
+        q = torch.zeros((1, 8, 2, 128), device=cuda_device)
         with pytest.raises(TypeError):
-            PF.flash_attention(q, q, q)
+            PF.flash_attention(q, q.to(torch.bfloat16), q)
+        with pytest.raises(TypeError, match="B6"):
+            PF.flash_attention(q.clone().requires_grad_(), q, q)
 
 
 def _flash_batches(S, H):
@@ -3199,8 +3203,13 @@ class TestFlashF16OnCard:
         delta = PF._delta(o, do)
         with pytest.raises(TypeError):
             PF.flash_fwd(q, k.to(torch.bfloat16), v)
-        with pytest.raises(TypeError, match="B6"):
-            PF.flash_fwd(q.float(), k.float(), v.float())
+        # the f32 forward runs (its own kernel, csrc/flash_fwd_f32.cu); f32
+        # beside f16 still raises
+        PK.reset_launch_counts()
+        o32, _ = PF.flash_fwd(q.float(), k.float(), v.float())
+        assert o32.dtype == torch.float32 and PF.flash_fwd.f32_launches == 1
+        with pytest.raises(TypeError):
+            PF.flash_fwd(q.float(), k, v.float())
         with pytest.raises(TypeError):
             PF.flash_bwd_dq(q, k, v, do.to(torch.bfloat16), lse, delta)
         with pytest.raises(TypeError):
@@ -3244,3 +3253,120 @@ class TestFlashF16OnCard:
         eng.state.loss_scale = ls
         after = eng.train_batch(batch)
         assert after["skipped"] == 0 and after["loss"] < first["loss"]
+
+
+# chip_smoke.py's f32 cases (F32_FLASH_CASES, F32_DECODE_CASES), by name
+F32_FLASH = ["flagship_prefill", "mistral_window", "bloom_alibi", "falcon_7b", "phi_2",
+             "gpt_neox_20b", "gpt_j_6b", "gqa_d256_window_alibi"]
+F32_DECODE = ["mistral_window", "bloom_alibi", "llama_bitmap", "falcon_7b", "phi_2",
+              "gpt_neox_20b", "gpt_j_6b", "gqa_d256_window_alibi"]
+
+
+@pytest.mark.cuda
+class TestF32OnCard:
+    """The f32 modes of #1 and #4-#6 (the f32 serving engine) under
+    chip_smoke.py's f32 criteria: each output within 4x (RMS) and 8x (max)
+    of the plain f32 version's error against a dense f64 reference and
+    within 2e-3 of the plain version, writes and int8 codes and scales
+    bit-exact, two launches bit-identical, every launch counted in [f32]
+    and its modes; the fault builds (products rounded to TF32, the diagonal
+    tile unmasked, a split left out of the combine, a row tail unwritten,
+    a scale on the next head) failing. Matmuls of the references in full
+    f32."""
+
+    @pytest.fixture(autouse=True)
+    def _full_f32(self):
+        old = torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32
+        torch.backends.cuda.matmul.allow_tf32 = torch.backends.cudnn.allow_tf32 = False
+        yield
+        torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32 = old
+
+    def test_the_case_names_are_chip_smokes(self):
+        C = _chip_smoke()
+        assert list(C.F32_FLASH_CASES) == F32_FLASH and list(C.F32_DECODE_CASES) == F32_DECODE
+
+    @pytest.mark.parametrize("name", F32_FLASH)
+    def test_flash_forward_f32(self, cuda_device, name):
+        C = _chip_smoke()
+        g = torch.Generator(device=cuda_device).manual_seed(hash(name) % 1000)
+        rep, _ = C._f32_flash_case(PF, PK, build, g, cuda_device, name, C.F32_FLASH_CASES[name],
+                                   bound=name == "flagship_prefill")
+        assert rep["o"]["passed"] and rep["lse"]["passed"]
+
+    @pytest.mark.parametrize("name", F32_DECODE)
+    def test_decode_f32_all_four_modes(self, cuda_device, name):
+        C = _chip_smoke()
+        g = torch.Generator(device=cuda_device).manual_seed(hash(name) % 1000)
+        rep, _ = C._f32_decode_case(PP, PK, g, cuda_device, name, C.F32_DECODE_CASES[name])
+        assert all(rep[m]["passed"] for m in C.DECODE_MODES)
+
+    def test_decode_f32_fault_builds_fail(self, cuda_device):
+        C = _chip_smoke()
+        g = torch.Generator(device=cuda_device).manual_seed(7)
+        case = dict(H=32, KV=8, D=128, window=0, alibi=False, bitmap=False)
+        _, fx = C._f32_decode_case(PP, PK, g, cuda_device, "split_case", case)
+        assert PP.decode_split_plan(8, 8, 4, 128, 2048, PP._sm_count(0)).n > 1
+        faults = C._f32_decode_faults(PP, build, fx)
+        assert set(faults) == set(C.F32_FAULTS["paged_decode_f32"])
+
+    def test_writes_f32_bit_exact_and_faults_fail(self, cuda_device):
+        C = _chip_smoke()
+        g = torch.Generator(device=cuda_device).manual_seed(8)
+        rep, rows = C._f32_write_checks(PP, build, g, cuda_device, False)
+        assert rep["int8_quotient_sweep"]["codes_off"] == 0 and not rows
+
+    @pytest.mark.parametrize("pools", ["auto", "int8"])
+    def test_f32_engine_launches_only_f32_modes_and_matches_plain(self, cuda_device, pools):
+        """A tiny Llama-form engine from {"dtype": "fp32"} on the card: a
+        prefill put and greedy decode_multi launch only the [f32] modes of
+        #1, #6 and #5 (int8 pools: the int8 write and #4's fused mode), and
+        the greedy tokens equal the plain f32 path's from the same pools."""
+        from deepspeed_tpu_torch import init_inference
+        from deepspeed_tpu_torch.inference import model as M
+        from deepspeed_tpu_torch.models import transformer as PT
+
+        cfg = PT.TransformerConfig(vocab_size=512, n_layers=2, n_heads=4, n_kv_heads=2,
+                                   d_model=256, max_seq=256, variant="llama")
+        params = PT.init(cfg, torch.Generator(device=cuda_device).manual_seed(0),
+                         device=cuda_device)
+        eng = init_inference(params, cfg, {"dtype": "fp32", "max_out_tokens": 128,
+                                           "kv_block_size": 16, "num_kv_blocks": 32,
+                                           "min_prefill_bucket": 16, "max_batch_size": 8,
+                                           "kv_cache_dtype": pools})
+        assert eng._dtype == torch.float32
+        r = np.random.default_rng(0)
+        PK.reset_launch_counts()
+        logits = eng.put([0, 1], [r.integers(0, 512, 20), r.integers(0, 512, 37)])
+        tables = eng.state.block_table([0, 1], eng.config.blocks_per_seq, eng.pad_block)
+        ctx = np.array([21, 38], np.int32)
+        toks = logits.argmax(-1).astype(np.int32)
+        before = _chip_smoke()._pool_copies(eng.cache, torch.float32)
+        gen, _, eng.cache, _ = eng.decode_multi_fn(2, 8)(eng.params, eng.cache, toks, tables,
+                                                         ctx)
+        counts = {n: c for n, c in PK.all_launch_counts().items() if c}
+        write = "paged_kv_write_int8" if pools == "int8" else "paged_kv_write"
+        fused = "paged_decode_fused_int8" if pools == "int8" else "paged_decode_fused"
+        want = {"flash_fwd": 4, write: 4, fused: 16}  # two waves (buckets 32, 64), 8 steps
+        assert counts == {**want, **{f"{n}[f32]": c for n, c in want.items()}}
+        plain = M.decode_multi(eng.params, before, torch.as_tensor(toks, device=cuda_device),
+                               torch.as_tensor(tables, device=cuda_device),
+                               torch.as_tensor(ctx, device=cuda_device), cfg, n_steps=8,
+                               use_kernel=False)[0]
+        assert torch.equal(gen, plain)
+
+    def test_f32_training_step_raises_before_any_launch(self, cuda_device):
+        import deepspeed_tpu_torch as pds
+        from deepspeed_tpu_torch.models import transformer as PT
+
+        cfg = PT.TransformerConfig(vocab_size=512, n_layers=2, n_heads=4, d_model=256,
+                                   max_seq=256, variant="llama", use_flash=True)
+        eng = pds.initialize({"train_micro_batch_size_per_gpu": 2,
+                              "optimizer": {"type": "adamw", "params": {"lr": 1e-3}},
+                              "steps_per_print": 10**9},
+                             loss_fn=PT.make_loss_fn(cfg),
+                             param_init_fn=lambda g: PT.init(cfg, g, device=cuda_device))
+        batch = {"tokens": np.random.default_rng(0).integers(0, 512, (2, 129)).astype(np.int32)}
+        PK.reset_launch_counts()
+        with pytest.raises(TypeError, match="B6's training half"):
+            eng.train_batch(batch)
+        assert not any(PK.all_launch_counts().values())
